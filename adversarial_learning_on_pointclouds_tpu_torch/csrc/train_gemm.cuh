@@ -1,0 +1,757 @@
+// The two kernel shapes every training pass is made of, shared by
+// trunk_train.cu and seg_head_train.cu.
+//
+// * The row GEMM over point tiles. A block of 256 threads owns a tile of
+//   64 points of one cloud (8 rows per warp, as tile_fma lays them out).
+//   Its input tile sits in shared memory, after an optional prologue
+//   (BN affine + ReLU of the previous layer); the layer's weight streams
+//   from L2 through a register-staged double buffer in 16-row chunks.
+//   The forward epilogues store z, reduce column sum / sum of squares,
+//   keep each cloud's max and min with the first point attaining them,
+//   or take a per-point log_softmax. The backward form first builds the
+//   tile's dz (a BN backward from stashes, or recomputed through a GEMM:
+//   the trunk's dz3, the head's softmax backward), then multiplies it by
+//   W in 128-column chunks, so a [64, 1024] dz never exists; its
+//   epilogue masks by the previous ReLU, stores dy_prev and reduces the
+//   previous BN's two sums.
+// * The weight-gradient GEMM dW = dz^T h over all rows: a block owns 64
+//   output channels by up to 128 input channels and a range of at most
+//   2048 rows, rebuilds dz and h tile by tile exactly as the row kernel
+//   does, and keeps its [64, 128] slice of dW in registers.
+//
+// Blocks run in no order, so nothing is carried between them: every
+// reduction over the rows (column statistics, dW, db, the BN sums) is
+// written as per-block partial sums and added by colsum_kernel in fp64,
+// in a fixed order, so results do not depend on scheduling. The
+// extrema merge with one packed 64-bit atomicMax/atomicMin per (cloud,
+// channel): an order-preserving key of the value in the high word and
+// the point index in the low word (inverted for the max), so ties go to
+// the first point whatever the order of the blocks. The ragged tail of
+// the point axis is masked: rows past N are zero in every tile and never
+// enter a sum, an extremum or a store.
+//
+// fp32 FMAs on the CUDA cores, fp32 accumulation, as the reference
+// training step runs in fp32.
+
+#pragma once
+
+#include "common.cuh"
+
+namespace pointtpu {
+
+// Mirrors of the Python side's ctypes structures (ops/launch.py), field
+// for field. A null pointer switches its feature off.
+struct RowFwdArgs {
+  int batch, n, c_in, c_out, ldw;
+  const float* x;        // [batch * n, c_in]
+  const float* sc;       // prologue relu(x * sc + sh), or null
+  const float* sh;
+  const float* w;        // [c_out, ldw] row-major (PyTorch's [out, in])
+  const float* bias;     // [c_out]
+  const float* addend;   // [batch, c_out] per-cloud addend, or null
+  float* z;              // [batch * n, c_out] store, or null
+  float* sum;            // [c_out] column sums, or null
+  float* ssq;            // [c_out] column sums of squares
+  float* part;           // scratch [2, blocks, c_out]
+  unsigned long long* keys;  // scratch [2, batch, c_out] (extrema)
+  float* mx;             // [batch, c_out] per-cloud max, or null
+  float* mn;
+  int* imax;
+  int* imin;
+  float* logp;           // [batch * n, c_out] log_softmax, or null
+};
+
+enum DzMode { kDzBn = 0, kDzTrunk = 1, kDzSoftmax = 2 };
+
+struct BwdArgs {
+  int mode, batch, n, c_in, c_out, ldw, splits;
+  const float* zp;       // [batch * n, c_in] previous stash (or raw input)
+  const float* scp;      // previous BN's affine (ReLU mask), or null
+  const float* shp;
+  const float* mup;      // previous BN's mean and 1/std for t1/t2, or null
+  const float* invp;
+  const float* w;        // [c_out, ldw] row-major
+  const float* bias;     // kDzTrunk: b3; kDzSoftmax: b4
+  const float* zc;       // kDzBn: current stash [batch * n, c_out]
+  const float* dy;       // kDzBn: current cotangent [batch * n, c_out]
+  const float* sc;       // kDzBn: [c_out]
+  const float* mu;       // kDzBn, kDzTrunk: [c_out]
+  const float* inv;
+  const float* c1;       // kDzBn: [c_out]
+  const float* c2;
+  const float* coef1;    // kDzTrunk: [batch, c_out]
+  const float* coef2;
+  const float* s3dg;
+  const int* idx;        // kDzTrunk: pooled winners [batch, c_out]
+  const float* dlp;      // kDzSoftmax: d log-probs [batch * n, c_out]
+  float* dyp;            // [batch * n, c_in]
+  float* t1;             // [c_in] or null
+  float* t2;
+  float* db;             // [c_out]
+  float* r;              // [batch, c_out] per-cloud sums of dz, or null
+  float* dw;             // [c_out, c_in]
+  float* part;           // scratch [blocks, 2 * c_in + c_out]
+  float* part_w;         // scratch [splits, c_out * c_in]
+};
+
+namespace {  // each translation unit keeps its own copy
+
+constexpr int kTile = 64;                 // points per row block
+constexpr int kRows = kTile / kWarps;     // rows per warp
+constexpr int kKc = 16;                   // weight rows per staged chunk
+constexpr int kStageLd = kMaxCols + 2;
+constexpr int kStage = kKc * kStageLd;    // floats per staging buffer
+constexpr int kGradO = 64;                // dW rows (output channels) per block
+
+__host__ __device__ inline int ceil_div(long long a, long long b) {
+  return (int)((a + b - 1) / b);
+}
+
+// A kKc x COLS slice of the GEMM's B operand, staged through registers.
+// TRANS: B[k][j] = w[(n0 + j) * ldw + k] (a layer against PyTorch's [out,
+// in] weight); otherwise B[k][j] = w[k * ldw + n0 + j] (dz @ W). Thread
+// t's elements are chosen so that a warp reads 64-byte segments (TRANS)
+// or whole rows (otherwise); the row stride COLS + 2 keeps the
+// transposing stores free of bank conflicts.
+template <int COLS, bool TRANS>
+struct Stage {
+  static constexpr int kPer = COLS / 16;
+  float v[kPer];
+
+  static __device__ __forceinline__ void at(int q, int& kk, int& j) {
+    if (TRANS) {
+      kk = threadIdx.x & (kKc - 1);
+      j = (threadIdx.x >> 4) + 16 * q;
+    } else {
+      const int e = threadIdx.x + kThreads * q;
+      kk = e / COLS;
+      j = e - kk * COLS;
+    }
+  }
+  __device__ __forceinline__ void fetch(const float* __restrict__ w, int ldw,
+                                        int n0, int n_valid, int k0, int nk) {
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      int kk, j;
+      at(q, kk, j);
+      const bool ok = j < n_valid && k0 + kk < nk;
+      const float* src = TRANS ? w + (size_t)(n0 + j) * ldw + k0 + kk
+                               : w + (size_t)(k0 + kk) * ldw + n0 + j;
+      v[q] = ok ? __ldg(src) : 0.f;
+    }
+  }
+  __device__ __forceinline__ void put(float* buf) const {
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      int kk, j;
+      at(q, kk, j);
+      buf[kk * kStageLd + j] = v[q];
+    }
+  }
+};
+
+// acc[i][jj] += sum_k in_s[row i][k] * B[k][n0 + lane + 32 jj] over k <
+// nk; B's columns at or past n_valid are zero. Starts and ends with a
+// barrier, so in_s written before the call is visible, and stage may be
+// reused after it.
+template <int NJ, bool TRANS>
+__device__ __forceinline__ void gemm_acc(float (&acc)[kRows][NJ],
+                                         const float* in_s, int ld_in, int nk,
+                                         const float* __restrict__ w, int ldw,
+                                         int n0, int n_valid, float* stage) {
+  Stage<NJ * 32, TRANS> st;
+  const int chunks = (nk + kKc - 1) / kKc;
+  st.fetch(w, ldw, n0, n_valid, 0, nk);
+  st.put(stage);
+  __syncthreads();
+  for (int c = 0; c < chunks; ++c) {
+    const int k0 = c * kKc;
+    if (c + 1 < chunks) st.fetch(w, ldw, n0, n_valid, k0 + kKc, nk);
+    tile_fma<kRows, NJ>(acc, in_s + k0, ld_in, stage + (c & 1) * kStage,
+                        kStageLd, min(kKc, nk - k0));
+    if (c + 1 < chunks) st.put(stage + ((c + 1) & 1) * kStage);
+    __syncthreads();
+  }
+}
+
+// The previous layer's BN affine, v * sc + sh, rounded after the product
+// as PyTorch's two elementwise ops round it (no fused multiply-add): the
+// backward's ReLU mask then flips at exactly the same elements as the
+// plain version's.
+__device__ __forceinline__ float bn_affine(float v, float sc, float sh) {
+  return __fadd_rn(__fmul_rn(v, sc), sh);
+}
+
+// tile[r][c] = f(x[(g0 + r) * ldx + c0 + c]) for r < rows and c0 + c <
+// c_lim, else 0; f is relu(v * sc + sh) when sc is given, else identity.
+__device__ __forceinline__ void load_tile(float* tile, int width,
+                                          const float* __restrict__ x,
+                                          size_t g0, int rows, int ldx, int c0,
+                                          int c_lim,
+                                          const float* __restrict__ sc,
+                                          const float* __restrict__ sh) {
+  for (int e = threadIdx.x; e < kTile * width; e += kThreads) {
+    const int r = e / width, c = c0 + e - r * width;
+    float v = 0.f;
+    if (r < rows && c < c_lim) {
+      v = __ldg(x + (g0 + r) * ldx + c);
+      if (sc) v = fmaxf(bn_affine(v, __ldg(sc + c), __ldg(sh + c)), 0.f);
+    }
+    tile[e] = v;
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int s = 16; s; s >>= 1) v += __shfl_xor_sync(0xffffffffu, v, s);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int s = 16; s; s >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, s));
+  return v;
+}
+
+// Order-preserving 32-bit image of a float (larger float, larger bits).
+__device__ __forceinline__ unsigned int order_bits(float v) {
+  const unsigned int u = __float_as_uint(v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float order_value(unsigned int k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// Keys whose max (min) is the largest (smallest) value at its first point.
+__device__ __forceinline__ unsigned long long max_key(float v, int p) {
+  return ((unsigned long long)order_bits(v) << 32) |
+         (0xffffffffu - (unsigned int)p);
+}
+
+__device__ __forceinline__ unsigned long long min_key(float v, int p) {
+  return ((unsigned long long)order_bits(v) << 32) | (unsigned int)p;
+}
+
+// ---------------------------------------------------------------------------
+// Reductions, fills and decodes
+// ---------------------------------------------------------------------------
+
+// out[g * ldo + c] = sum over p < per of part[(g * per + p) * ld + c], in
+// fp64 and a fixed order. A block covers 32 columns with 8 row lanes, so
+// each warp reads 128 contiguous bytes.
+__global__ void __launch_bounds__(kThreads)
+colsum_kernel(const float* __restrict__ part, long long ld, int per,
+              int cols, float* __restrict__ out, long long ldo) {
+  __shared__ double red[kWarps][33];
+  const int cl = threadIdx.x & 31, pl = threadIdx.x >> 5;
+  const long long c = (long long)blockIdx.x * 32 + cl;
+  const long long g = blockIdx.y;
+  double s = 0.0;
+  if (c < cols)
+    for (int p = pl; p < per; p += kWarps)
+      s += (double)__ldg(part + (g * per + p) * ld + c);
+  red[pl][cl] = s;
+  __syncthreads();
+  if (pl == 0 && c < cols) {
+    double t = 0.0;
+    for (int w = 0; w < kWarps; ++w) t += red[w][cl];
+    out[g * ldo + c] = (float)t;
+  }
+}
+
+// Status codes below are 0, a cudaError_t, or kErrArgs / kErrSmem.
+int colsum(const float* part, long long ld, int per, int cols, int groups,
+           float* out, long long ldo, cudaStream_t stream) {
+  const dim3 grid(ceil_div(cols, 32), groups);
+  colsum_kernel<<<grid, kThreads, 0, stream>>>(part, ld, per, cols, out, ldo);
+  return (int)cudaGetLastError();
+}
+
+__global__ void fill_keys_kernel(unsigned long long* keys, long long count) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < 2 * count) keys[i] = i < count ? 0ull : ~0ull;
+}
+
+__global__ void decode_extrema_kernel(const unsigned long long* __restrict__ keys,
+                                      long long count, float* mx, float* mn,
+                                      int* imax, int* imin) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= count) return;
+  const unsigned long long km = keys[i], kn = keys[count + i];
+  mx[i] = order_value((unsigned int)(km >> 32));
+  imax[i] = (int)(0xffffffffu - (unsigned int)km);
+  mn[i] = order_value((unsigned int)(kn >> 32));
+  imin[i] = (int)(unsigned int)kn;
+}
+
+// ---------------------------------------------------------------------------
+// Forward row kernel
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kThreads, 1)
+row_fwd_kernel(const RowFwdArgs a) {
+  extern __shared__ float smem[];
+  float* in_s = smem;                              // [kTile][c_in]
+  float* stage = in_s + kTile * a.c_in;            // 2 staging buffers
+  float* red = stage + 2 * kStage;                 // cross-warp reductions
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.y, p0 = blockIdx.x * kTile;
+  const int rows = min(kTile, a.n - p0);
+  const size_t g0 = (size_t)b * a.n + p0;
+  const int blk = b * gridDim.x + blockIdx.x;
+  const size_t blocks = (size_t)gridDim.x * gridDim.y;
+
+  load_tile(in_s, a.c_in, a.x, g0, rows, a.c_in, 0, a.c_in, a.sc, a.sh);
+  const int cp = pad32(a.c_out);
+  for (int n0 = 0; n0 < cp; n0 += kMaxCols) {
+    with_nj(min(kMaxCols, cp - n0), [&](auto nj) {
+      constexpr int NJ = decltype(nj)::value;
+      float acc[kRows][NJ] = {};
+      gemm_acc<NJ, true>(acc, in_s, a.c_in, a.c_in, a.w, a.ldw, n0,
+                         a.c_out - n0, stage);
+#pragma unroll
+      for (int jj = 0; jj < NJ; ++jj) {
+        const int o = n0 + lane + 32 * jj;
+        if (o >= a.c_out) continue;
+        const float add = a.addend ? __ldg(a.addend + (size_t)b * a.c_out + o)
+                                   : 0.f;
+        const float bias = __ldg(a.bias + o);
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) {
+          acc[i][jj] = (acc[i][jj] + add) + bias;
+          const int r = warp + i * kWarps;
+          if (a.z && r < rows) a.z[(g0 + r) * a.c_out + o] = acc[i][jj];
+        }
+      }
+      if (a.logp) {  // c_out <= kMaxCols: the row is in this warp
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) {
+          const int r = warp + i * kWarps;
+          if (r >= rows) continue;  // warp-uniform
+          float m = -INFINITY;
+#pragma unroll
+          for (int jj = 0; jj < NJ; ++jj)
+            if (n0 + lane + 32 * jj < a.c_out) m = fmaxf(m, acc[i][jj]);
+          m = warp_max(m);
+          float s = 0.f;
+#pragma unroll
+          for (int jj = 0; jj < NJ; ++jj)
+            if (n0 + lane + 32 * jj < a.c_out) s += expf(acc[i][jj] - m);
+          const float lse = logf(warp_sum(s)) + m;
+#pragma unroll
+          for (int jj = 0; jj < NJ; ++jj) {
+            const int o = n0 + lane + 32 * jj;
+            if (o < a.c_out) a.logp[(g0 + r) * a.c_out + o] = acc[i][jj] - lse;
+          }
+        }
+      }
+      if (a.sum) {
+#pragma unroll
+        for (int jj = 0; jj < NJ; ++jj) {
+          float s = 0.f, q = 0.f;
+#pragma unroll
+          for (int i = 0; i < kRows; ++i)
+            if (warp + i * kWarps < rows) {
+              s += acc[i][jj];
+              q += acc[i][jj] * acc[i][jj];
+            }
+          red[warp * kMaxCols + lane + 32 * jj] = s;
+          red[(kWarps + warp) * kMaxCols + lane + 32 * jj] = q;
+        }
+        __syncthreads();
+        for (int c = threadIdx.x; c < NJ * 32; c += kThreads) {
+          const int o = n0 + c;
+          if (o >= a.c_out) continue;
+          float s = 0.f, q = 0.f;
+          for (int w = 0; w < kWarps; ++w) {
+            s += red[w * kMaxCols + c];
+            q += red[(kWarps + w) * kMaxCols + c];
+          }
+          a.part[(size_t)blk * a.c_out + o] = s;
+          a.part[(blocks + blk) * a.c_out + o] = q;
+        }
+        __syncthreads();
+      }
+      if (a.mx) {
+        auto* kmax = reinterpret_cast<unsigned long long*>(red);
+        auto* kmin = kmax + kWarps * kMaxCols;
+#pragma unroll
+        for (int jj = 0; jj < NJ; ++jj) {
+          unsigned long long hi = 0ull, lo = ~0ull;
+#pragma unroll
+          for (int i = 0; i < kRows; ++i) {
+            const int r = warp + i * kWarps;
+            if (r >= rows) continue;
+            hi = max(hi, max_key(acc[i][jj], p0 + r));
+            lo = min(lo, min_key(acc[i][jj], p0 + r));
+          }
+          kmax[warp * kMaxCols + lane + 32 * jj] = hi;
+          kmin[warp * kMaxCols + lane + 32 * jj] = lo;
+        }
+        __syncthreads();
+        const size_t count = (size_t)a.batch * a.c_out;
+        for (int c = threadIdx.x; c < NJ * 32; c += kThreads) {
+          const int o = n0 + c;
+          if (o >= a.c_out) continue;
+          unsigned long long hi = 0ull, lo = ~0ull;
+          for (int w = 0; w < kWarps; ++w) {
+            hi = max(hi, kmax[w * kMaxCols + c]);
+            lo = min(lo, kmin[w * kMaxCols + c]);
+          }
+          atomicMax(a.keys + (size_t)b * a.c_out + o, hi);
+          atomicMin(a.keys + count + (size_t)b * a.c_out + o, lo);
+        }
+        __syncthreads();
+      }
+    });
+  }
+}
+
+inline size_t row_fwd_smem(const RowFwdArgs& a) {
+  const size_t red = a.mx ? 2 * kWarps * kMaxCols * sizeof(unsigned long long)
+                          : 2 * kWarps * kMaxCols * sizeof(float);
+  return ((size_t)kTile * a.c_in + 2 * kStage) * sizeof(float) + red;
+}
+
+// The forward pass: the row kernel, then the statistics' fp64 sums and
+// the extrema's decode.
+int row_fwd(const RowFwdArgs& a, cudaStream_t stream) {
+  if (a.batch <= 0 || a.batch > 65535 || a.n <= 0 || a.c_in <= 0 ||
+      a.c_out <= 0 || a.ldw < a.c_in || !a.x || !a.w || !a.bias ||
+      (a.logp && a.c_out > kMaxCols) || (a.sum && (!a.ssq || !a.part)) ||
+      (a.mx && (!a.keys || !a.mn || !a.imax || !a.imin)))
+    return kErrArgs;
+  const size_t bytes = row_fwd_smem(a);
+  if (bytes > (size_t)max_smem_optin()) return kErrSmem;
+  const int tiles = ceil_div(a.n, kTile);
+  const long long count = (long long)a.batch * a.c_out;
+  int e;
+  if (a.mx) {
+    fill_keys_kernel<<<ceil_div(2 * count, kThreads), kThreads, 0, stream>>>(
+        a.keys, count);
+    if ((e = (int)cudaGetLastError())) return e;
+  }
+  if ((e = (int)allow_smem(row_fwd_kernel, bytes))) return e;
+  row_fwd_kernel<<<dim3(tiles, a.batch), kThreads, bytes, stream>>>(a);
+  if ((e = (int)cudaGetLastError())) return e;
+  const int blocks = tiles * a.batch;
+  if (a.sum) {
+    if ((e = colsum(a.part, a.c_out, blocks, a.c_out, 1, a.sum, 0, stream)))
+      return e;
+    if ((e = colsum(a.part + (size_t)blocks * a.c_out, a.c_out, blocks,
+                    a.c_out, 1, a.ssq, 0, stream)))
+      return e;
+  }
+  if (a.mx) {
+    decode_extrema_kernel<<<ceil_div(count, kThreads), kThreads, 0, stream>>>(
+        a.keys, count, a.mx, a.mn, a.imax, a.imin);
+    if ((e = (int)cudaGetLastError())) return e;
+  }
+  return 0;
+}
+
+// ---------------------------------------------------------------------------
+// dz of one tile, for the backward row kernel and the dW kernel
+// ---------------------------------------------------------------------------
+
+// dz_s[r][c] = dz[g0 + r][oc + c] for c < OC (0 past rows or c_out). The
+// recompute modes read the previous activation h_s [kTile][c_in].
+// Ends with a barrier.
+template <int OC>
+__device__ __forceinline__ void make_dz(const BwdArgs& a, int oc, size_t g0,
+                                        int rows, const float* h_s,
+                                        float* dz_s, float* stage) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (a.mode == kDzBn) {
+    for (int e = threadIdx.x; e < kTile * OC; e += kThreads) {
+      const int r = e / OC, o = oc + e - r * OC;
+      float v = 0.f;
+      if (r < rows && o < a.c_out) {
+        const size_t at = (g0 + r) * a.c_out + o;
+        const float zhat = (__ldg(a.zc + at) - __ldg(a.mu + o)) * __ldg(a.inv + o);
+        v = __ldg(a.dy + at) * __ldg(a.sc + o) - __ldg(a.c1 + o) -
+            zhat * __ldg(a.c2 + o);
+      }
+      dz_s[e] = v;
+    }
+    __syncthreads();
+    return;
+  }
+  constexpr int NJ = OC / 32;
+  float acc[kRows][NJ] = {};
+  gemm_acc<NJ, true>(acc, h_s, a.c_in, a.c_in, a.w, a.ldw, oc, a.c_out - oc,
+                     stage);
+  if (a.mode == kDzTrunk) {
+    // dz3 = [n == idx] * s3dg - coef1 - zhat3 * coef2 (per cloud, channel)
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) {
+      const int o = oc + lane + 32 * jj;
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        const int r = warp + i * kWarps;
+        float v = 0.f;
+        if (r < rows && o < a.c_out) {
+          const size_t g = g0 + r;
+          const int b = (int)(g / a.n), p = (int)(g - (size_t)b * a.n);
+          const size_t at = (size_t)b * a.c_out + o;
+          const float zhat = ((acc[i][jj] + __ldg(a.bias + o)) - __ldg(a.mu + o)) *
+                             __ldg(a.inv + o);
+          const float sparse = p == __ldg(a.idx + at) ? __ldg(a.s3dg + at) : 0.f;
+          v = sparse - __ldg(a.coef1 + at) - zhat * __ldg(a.coef2 + at);
+        }
+        dz_s[r * OC + lane + 32 * jj] = v;
+      }
+    }
+  } else {
+    // Softmax backward: dz = dlp - softmax(z) * sum(dlp), per row.
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int r = warp + i * kWarps;
+      float z[NJ], dl[NJ];
+      bool ok[NJ];
+#pragma unroll
+      for (int jj = 0; jj < NJ; ++jj) {
+        const int o = oc + lane + 32 * jj;
+        ok[jj] = r < rows && o < a.c_out;
+        z[jj] = ok[jj] ? acc[i][jj] + __ldg(a.bias + o) : -INFINITY;
+        dl[jj] = ok[jj] ? __ldg(a.dlp + (g0 + r) * a.c_out + o) : 0.f;
+      }
+      if (r < rows) {  // warp-uniform
+        float m = -INFINITY;
+#pragma unroll
+        for (int jj = 0; jj < NJ; ++jj) m = fmaxf(m, z[jj]);
+        m = warp_max(m);
+        float s = 0.f, sdl = 0.f;
+#pragma unroll
+        for (int jj = 0; jj < NJ; ++jj) {
+          z[jj] = ok[jj] ? expf(z[jj] - m) : 0.f;
+          s += z[jj];
+          sdl += dl[jj];
+        }
+        s = warp_sum(s);
+        sdl = warp_sum(sdl);
+#pragma unroll
+        for (int jj = 0; jj < NJ; ++jj) z[jj] = dl[jj] - (z[jj] / s) * sdl;
+      }
+#pragma unroll
+      for (int jj = 0; jj < NJ; ++jj)
+        dz_s[r * OC + lane + 32 * jj] = ok[jj] ? z[jj] : 0.f;
+    }
+  }
+  __syncthreads();
+}
+
+// ---------------------------------------------------------------------------
+// Backward row kernel: dy_prev = mask * (dz @ W), the previous BN's sums,
+// and the per-block column sums of dz (for db and the per-cloud r)
+// ---------------------------------------------------------------------------
+
+template <int OC>
+__global__ void __launch_bounds__(kThreads, 1)
+row_bwd_kernel(const BwdArgs a) {
+  extern __shared__ float smem[];
+  const bool recompute = a.mode != kDzBn;
+  float* h_s = smem;                                       // [kTile][c_in]
+  float* dz_s = h_s + (recompute ? kTile * a.c_in : 0);    // [kTile][OC]
+  float* stage = dz_s + kTile * OC;
+  float* red = stage + 2 * kStage;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.y, p0 = blockIdx.x * kTile;
+  const int rows = min(kTile, a.n - p0);
+  const size_t g0 = (size_t)b * a.n + p0;
+  const int blk = b * gridDim.x + blockIdx.x;
+  float* prow = a.part + (size_t)blk * (2 * a.c_in + a.c_out);
+
+  if (recompute)
+    load_tile(h_s, a.c_in, a.zp, g0, rows, a.c_in, 0, a.c_in, a.scp, a.shp);
+  const int cp = pad32(a.c_in);
+  for (int kc = 0; kc < cp; kc += kMaxCols) {
+    with_nj(min(kMaxCols, cp - kc), [&](auto nj) {
+      constexpr int NJ = decltype(nj)::value;
+      float acc[kRows][NJ] = {};
+      for (int oc = 0; oc < a.c_out; oc += OC) {
+        make_dz<OC>(a, oc, g0, rows, h_s, dz_s, stage);
+        if (kc == 0)
+          for (int c = threadIdx.x; c < OC && oc + c < a.c_out; c += kThreads) {
+            float s = 0.f;
+            for (int r = 0; r < rows; ++r) s += dz_s[r * OC + c];
+            prow[2 * a.c_in + oc + c] = s;
+          }
+        gemm_acc<NJ, false>(acc, dz_s, OC, min(OC, a.c_out - oc),
+                            a.w + (size_t)oc * a.ldw, a.ldw, kc, a.c_in - kc,
+                            stage);
+      }
+#pragma unroll
+      for (int jj = 0; jj < NJ; ++jj) {
+        const int k = kc + lane + 32 * jj;
+        float s1 = 0.f, s2 = 0.f;
+        if (k < a.c_in) {
+#pragma unroll
+          for (int i = 0; i < kRows; ++i) {
+            const int r = warp + i * kWarps;
+            if (r >= rows) continue;
+            const size_t at = (g0 + r) * a.c_in + k;
+            const float zp = __ldg(a.zp + at);
+            float d = acc[i][jj];
+            if (a.scp && !(bn_affine(zp, __ldg(a.scp + k), __ldg(a.shp + k)) > 0.f))
+              d = 0.f;
+            a.dyp[at] = d;
+            s1 += d;
+            if (a.mup) s2 += d * ((zp - __ldg(a.mup + k)) * __ldg(a.invp + k));
+          }
+        }
+        red[warp * kMaxCols + lane + 32 * jj] = s1;
+        red[(kWarps + warp) * kMaxCols + lane + 32 * jj] = s2;
+      }
+      __syncthreads();
+      for (int c = threadIdx.x; c < NJ * 32; c += kThreads) {
+        const int k = kc + c;
+        if (k >= a.c_in) continue;
+        float s1 = 0.f, s2 = 0.f;
+        for (int w = 0; w < kWarps; ++w) {
+          s1 += red[w * kMaxCols + c];
+          s2 += red[(kWarps + w) * kMaxCols + c];
+        }
+        prow[k] = s1;
+        prow[a.c_in + k] = s2;
+      }
+      __syncthreads();
+    });
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Weight-gradient kernel: part_w[split][o][k] = sum over the split's rows
+// of dz[row][o] * h[row][k]
+// ---------------------------------------------------------------------------
+
+template <int KJ>
+__global__ void __launch_bounds__(kThreads)
+wgrad_kernel(const BwdArgs a) {
+  extern __shared__ float smem[];
+  const bool recompute = a.mode != kDzBn;
+  const int hw = recompute ? a.c_in : KJ * 32;             // h_s width
+  float* h_s = smem;                                       // [kTile][hw]
+  float* dz_s = h_s + kTile * hw;                          // [kTile][kGradO]
+  float* stage = dz_s + kTile * kGradO;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int oc = blockIdx.x * kGradO, kc = blockIdx.y * KJ * 32;
+  const long long m = (long long)a.batch * a.n;
+  const int tiles = ceil_div(m, kTile);
+  const int per = ceil_div(tiles, a.splits);
+  const int t0 = blockIdx.z * per, t1 = min(tiles, t0 + per);
+  const int hk = recompute ? kc : 0;                       // h_s column of kc
+
+  float acc[kRows][KJ] = {};
+  for (int t = t0; t < t1; ++t) {
+    const size_t g0 = (size_t)t * kTile;
+    const int rows = (int)min((long long)kTile, m - (long long)g0);
+    __syncthreads();  // the previous tile's h_s and dz_s are read
+    if (recompute)
+      load_tile(h_s, a.c_in, a.zp, g0, rows, a.c_in, 0, a.c_in, a.scp, a.shp);
+    else
+      load_tile(h_s, hw, a.zp, g0, rows, a.c_in, kc, a.c_in, a.scp, a.shp);
+    make_dz<kGradO>(a, oc, g0, rows, h_s, dz_s, stage);
+    for (int r = 0; r < rows; ++r) {
+      float av[kRows], bv[KJ];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) av[i] = dz_s[r * kGradO + warp * kRows + i];
+#pragma unroll
+      for (int jj = 0; jj < KJ; ++jj) {
+        const int j = lane + 32 * jj;
+        bv[jj] = kc + j < a.c_in ? h_s[r * hw + hk + j] : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int jj = 0; jj < KJ; ++jj) acc[i][jj] = fmaf(av[i], bv[jj], acc[i][jj]);
+    }
+  }
+  float* out = a.part_w + (size_t)blockIdx.z * a.c_out * a.c_in;
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int o = oc + warp * kRows + i;
+    if (o >= a.c_out) continue;
+#pragma unroll
+    for (int jj = 0; jj < KJ; ++jj) {
+      const int k = kc + lane + 32 * jj;
+      if (k < a.c_in) out[(size_t)o * a.c_in + k] = acc[i][jj];
+    }
+  }
+}
+
+template <int KJ>
+int launch_wgrad(const BwdArgs& a, cudaStream_t stream) {
+  const bool recompute = a.mode != kDzBn;
+  const size_t bytes =
+      ((size_t)kTile * (recompute ? a.c_in : KJ * 32) + kTile * kGradO +
+       2 * kStage) * sizeof(float);
+  if (bytes > (size_t)max_smem_optin()) return kErrSmem;
+  const int e = (int)allow_smem(wgrad_kernel<KJ>, bytes);
+  if (e) return e;
+  const dim3 grid(ceil_div(a.c_out, kGradO), ceil_div(a.c_in, KJ * 32),
+                  a.splits);
+  wgrad_kernel<KJ><<<grid, kThreads, bytes, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int OC>
+int launch_row_bwd(const BwdArgs& a, cudaStream_t stream) {
+  const bool recompute = a.mode != kDzBn;
+  const size_t bytes = ((size_t)(recompute ? kTile * a.c_in : 0) + kTile * OC +
+                        2 * kStage + 2 * kWarps * kMaxCols) * sizeof(float);
+  if (bytes > (size_t)max_smem_optin()) return kErrSmem;
+  const int e = (int)allow_smem(row_bwd_kernel<OC>, bytes);
+  if (e) return e;
+  row_bwd_kernel<OC><<<dim3(ceil_div(a.n, kTile), a.batch), kThreads, bytes,
+                       stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// A backward pass: the row kernel (dy_prev, the BN sums, db and r), the
+// weight-gradient kernel, and the fp64 sums of their partials.
+int backward_pass(const BwdArgs& a, cudaStream_t stream) {
+  const bool recompute = a.mode != kDzBn;
+  if (a.mode < kDzBn || a.mode > kDzSoftmax || a.batch <= 0 ||
+      a.batch > 65535 || a.n <= 0 || a.c_in <= 0 || a.c_out <= 0 ||
+      a.ldw < a.c_in || a.splits <= 0 || a.splits > 65535 || !a.zp || !a.w ||
+      !a.dyp || !a.db || !a.dw || !a.part || !a.part_w ||
+      (a.scp && !a.shp) || (a.mup && (!a.invp || !a.t1 || !a.t2)) ||
+      (recompute && (a.c_in > 128 || !a.bias)) ||
+      (a.mode == kDzBn && (!a.zc || !a.dy || !a.sc || !a.mu || !a.inv ||
+                           !a.c1 || !a.c2)) ||
+      (a.mode == kDzTrunk && (!a.mu || !a.inv || !a.coef1 || !a.coef2 ||
+                              !a.s3dg || !a.idx)) ||
+      (a.mode == kDzSoftmax && (a.c_out > kGradO || !a.dlp)))
+    return kErrArgs;
+  int e = a.mode == kDzSoftmax ? launch_row_bwd<64>(a, stream)
+                                       : launch_row_bwd<128>(a, stream);
+  if (e) return e;
+  const int kj = a.c_in <= 32 ? 1 : a.c_in <= 64 ? 2 : a.c_in <= 96 ? 3 : 4;
+  switch (kj) {
+    case 1: e = launch_wgrad<1>(a, stream); break;
+    case 2: e = launch_wgrad<2>(a, stream); break;
+    case 3: e = launch_wgrad<3>(a, stream); break;
+    default: e = launch_wgrad<4>(a, stream); break;
+  }
+  if (e) return e;
+  const int tiles = ceil_div(a.n, kTile), blocks = tiles * a.batch;
+  const long long ldp = 2LL * a.c_in + a.c_out;
+  if (a.t1) {
+    if ((e = colsum(a.part, ldp, blocks, a.c_in, 1, a.t1, 0, stream))) return e;
+    if ((e = colsum(a.part + a.c_in, ldp, blocks, a.c_in, 1, a.t2, 0, stream)))
+      return e;
+  }
+  if ((e = colsum(a.part + 2 * a.c_in, ldp, blocks, a.c_out, 1, a.db, 0,
+                  stream)))
+    return e;
+  if (a.r && (e = colsum(a.part + 2 * a.c_in, ldp, tiles, a.c_out, a.batch,
+                         a.r, a.c_out, stream)))
+    return e;
+  const long long wsz = (long long)a.c_out * a.c_in;
+  if (wsz > 0x7fffffffLL) return kErrArgs;
+  return colsum(a.part_w, wsz, a.splits, (int)wsz, 1, a.dw, 0, stream);
+}
+
+}  // namespace
+}  // namespace pointtpu

@@ -1,0 +1,58 @@
+// The fused training trunk's three passes: conv2 + BN2 + ReLU -> conv3 +
+// BN3 -> max over points, forward and backward.
+//
+// Replaces the TPU kernels of
+// adversarial_learning_on_pointclouds_tpu/ops/kernels/trunk_train.py::
+// trunk2_train: F1 (_f1_call, pallas_call at trunk_train.py:121), F2
+// (_f2_call, :212) and B1 (_b1_call, :309).
+//
+// Bound: FMAs. At batch 32 x 2048 points the 128 -> 1024 layer is 8.6
+// GFMA, computed once in F2 and twice in B1 (the recomputed z3 and
+// dz3 @ W3), plus once more in B1's weight gradient (z3 again, and
+// dz3^T h2), against 33.5 MB of z2 stash read per pass.
+// Design (train_gemm.cuh): z3 [B, N, 1024] never reaches device memory,
+// as on the TPU. F1 is a row GEMM 64 -> 128 that stores z2 and its
+// column partial sums. F2 recomputes h2 = relu(bn2(z2)) into shared
+// memory, streams W3 in 256-column chunks and reduces z3 in registers to
+// the BN3 partial sums and each cloud's max and min with the first point
+// attaining them (packed 64-bit atomics, so the winner does not depend on
+// the order of the blocks). B1's row kernel rebuilds dz3 in 128-channel
+// chunks (the sparse winner term minus the dense zhat term) and
+// accumulates dy2 = mask * dz3 @ W3 over them; its weight-gradient kernel
+// rebuilds the same chunks for dW3 = dz3^T h2 over row ranges of at most
+// 2048 points. All row reductions add per-block partials in fp64.
+
+#include "train_gemm.cuh"
+
+using pointtpu::BwdArgs;
+using pointtpu::RowFwdArgs;
+
+// z2 = x @ W2^T + b2 [batch * n, c2] and its column sum / sum of squares.
+extern "C" int pt_trunk_f1(const RowFwdArgs* a, int device,
+                           cudaStream_t stream) {
+  using namespace pointtpu;
+  if (!a->z || !a->sum || a->sc || a->addend || a->mx || a->logp)
+    return kErrArgs;
+  cudaError_t e = use_device(device);
+  return e != cudaSuccess ? (int)e : row_fwd(*a, stream);
+}
+
+// z3 = relu(z2 * sc2 + sh2) @ W3^T + b3, not stored: its column sum / sum
+// of squares and per-cloud max / min with their first points.
+extern "C" int pt_trunk_f2(const RowFwdArgs* a, int device,
+                           cudaStream_t stream) {
+  using namespace pointtpu;
+  if (a->z || !a->sum || !a->sc || !a->sh || a->addend || !a->mx || a->logp)
+    return kErrArgs;
+  cudaError_t e = use_device(device);
+  return e != cudaSuccess ? (int)e : row_fwd(*a, stream);
+}
+
+// Backward through conv3 + BN3 + pool: dy2, dW3, db3 and BN2's t1 / t2.
+extern "C" int pt_trunk_b1(const BwdArgs* a, int device,
+                           cudaStream_t stream) {
+  using namespace pointtpu;
+  if (a->mode != kDzTrunk || !a->scp || !a->mup || a->r) return kErrArgs;
+  cudaError_t e = use_device(device);
+  return e != cudaSuccess ? (int)e : backward_pass(*a, stream);
+}

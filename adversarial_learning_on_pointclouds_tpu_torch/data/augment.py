@@ -1,12 +1,19 @@
-"""Host-side point-cloud preparation.
+"""Point-cloud preparation and augmentation, on the device.
 
-Counterpart of ``adversarial_learning_on_pointclouds_tpu/data/augment.py``;
-so far only the numpy unit-sphere normalize that inference uses.
+Counterpart of ``adversarial_learning_on_pointclouds_tpu/data/
+augment.py``. Batched over ``[B, N, 3]``; randomness comes from an
+explicit ``torch.Generator`` on the points' device (its numbers are not
+JAX's: tests hold these functions to their invariants, and the step
+tests feed both packages the same augmented batch). The chain order is
+the JAX package's: normalize -> resample -> rotate -> jitter -> dropout.
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
+import torch
 
 
 def normalize_unit_sphere_np(points: np.ndarray) -> np.ndarray:
@@ -17,3 +24,97 @@ def normalize_unit_sphere_np(points: np.ndarray) -> np.ndarray:
     scale = np.max(np.linalg.norm(centered, axis=-1, keepdims=True),
                    axis=-2, keepdims=True)
     return centered / np.maximum(scale, 1e-12)
+
+
+def normalize_unit_sphere(points: torch.Tensor) -> torch.Tensor:
+    """Center each cloud at its centroid and divide by its largest point
+    norm."""
+    centered = points - points.mean(dim=-2, keepdim=True)
+    scale = torch.linalg.norm(centered, dim=-1, keepdim=True).amax(
+        dim=-2, keepdim=True)
+    return centered / torch.clamp(scale, min=1e-12)
+
+
+def resample_fixed_n(gen: torch.Generator, points: torch.Tensor,
+                     num_points: int, labels: torch.Tensor | None = None):
+    """``num_points`` indices per cloud, drawn with replacement; per-point
+    ``labels`` ride the same gather."""
+    b, n = points.shape[0], points.shape[1]
+    idx = torch.randint(0, n, (b, num_points), generator=gen,
+                        device=points.device)
+    gathered = torch.gather(points, 1, idx[..., None].expand(-1, -1, 3))
+    if labels is None:
+        return gathered
+    return gathered, torch.gather(labels, 1, idx)
+
+
+def random_rotate(gen: torch.Generator, points: torch.Tensor) -> torch.Tensor:
+    """A uniform rotation about the up (Y) axis, one angle per cloud:
+    ``[[c, 0, s], [0, 1, 0], [-s, 0, c]]`` applied as ``points @ R``."""
+    b = points.shape[0]
+    angle = torch.rand(b, generator=gen, device=points.device,
+                       dtype=points.dtype) * (2.0 * math.pi)
+    c, s = torch.cos(angle), torch.sin(angle)
+    zeros, ones = torch.zeros_like(c), torch.ones_like(c)
+    rot = torch.stack([torch.stack([c, zeros, s], -1),
+                       torch.stack([zeros, ones, zeros], -1),
+                       torch.stack([-s, zeros, c], -1)], -2)
+    return torch.bmm(points, rot)
+
+
+def jitter(gen: torch.Generator, points: torch.Tensor, sigma: float = 0.01,
+           clip: float = 0.05) -> torch.Tensor:
+    """Gaussian per-point noise of std ``sigma``, clipped to ``+-clip``."""
+    noise = sigma * torch.randn(points.shape, generator=gen,
+                                device=points.device, dtype=points.dtype)
+    return points + torch.clamp(noise, -clip, clip)
+
+
+def point_dropout(gen: torch.Generator, points: torch.Tensor,
+                  max_dropout_ratio: float = 0.875) -> torch.Tensor:
+    """Per cloud a ratio ``r ~ U(0, max)``; each point is dropped with
+    probability ``r`` and replaced by the cloud's first point."""
+    b, n, _ = points.shape
+    ratio = torch.rand((b, 1), generator=gen, device=points.device,
+                       dtype=points.dtype) * max_dropout_ratio
+    u = torch.rand((b, n), generator=gen, device=points.device,
+                   dtype=points.dtype)
+    drop = (u <= ratio)[..., None]
+    return torch.where(drop, points[:, :1, :], points)
+
+
+def augment_batch(gen: torch.Generator, points: torch.Tensor,
+                  labels: torch.Tensor | None = None, *,
+                  num_points: int | None = None, normalize: bool = False,
+                  resample: bool = False, rotate: bool = True,
+                  do_jitter: bool = True, dropout: bool = False):
+    """normalize -> resample -> rotate -> jitter -> dropout, each behind
+    its flag. Returns ``points`` or ``(points, labels)``."""
+    if normalize:
+        points = normalize_unit_sphere(points)
+    if resample and num_points is not None:
+        if labels is None:
+            points = resample_fixed_n(gen, points, num_points)
+        else:
+            points, labels = resample_fixed_n(gen, points, num_points, labels)
+    if rotate:
+        points = random_rotate(gen, points)
+    if do_jitter:
+        points = jitter(gen, points)
+    if dropout:
+        points = point_dropout(gen, points)
+    return points if labels is None else (points, labels)
+
+
+def chain_from_cfg(gen: torch.Generator, cfg, points: torch.Tensor,
+                   labels: torch.Tensor | None = None):
+    """The chain every train step applies, gated by ``cfg.normalize``,
+    ``cfg.resample`` (only when the clouds do not already have
+    ``cfg.num_points``), ``cfg.augment`` (rotate and jitter) and
+    ``cfg.point_dropout``."""
+    return augment_batch(
+        gen, points, labels, num_points=cfg.num_points,
+        normalize=cfg.normalize,
+        resample=cfg.resample and points.shape[1] != cfg.num_points,
+        rotate=cfg.augment, do_jitter=cfg.augment,
+        dropout=cfg.point_dropout)

@@ -1,4 +1,4 @@
-"""Eval-mode models with the reference's parameter names."""
+"""The models, eval and train, with the reference's parameter names."""
 
 from adversarial_learning_on_pointclouds_tpu_torch.models.encoder import (
     PointNetfeat,

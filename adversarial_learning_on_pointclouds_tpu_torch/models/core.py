@@ -1,4 +1,4 @@
-"""Layer primitives with the JAX package's eval semantics.
+"""Layer primitives with the JAX package's semantics.
 
 Counterpart of ``adversarial_learning_on_pointclouds_tpu/models/core.py``.
 The port keeps parameters in ``nn.Conv1d`` / ``nn.Linear`` /
@@ -7,7 +7,9 @@ The port keeps parameters in ``nn.Conv1d`` / ``nn.Linear`` /
 the JAX package's channel-last layout (``[B, N, C]``, weights used as
 ``[in, out]`` views).
 
-* BatchNorm is eval-only here: running statistics, ``eps = 1e-5``.
+* BatchNorm: eval folds the running statistics; train
+  (``batch_norm_train``) normalizes with the batch moments and updates
+  the running statistics in place (``eps = 1e-5``, momentum 0.1).
 * Init is torch's default for ``Conv1d``/``Linear`` (weight and bias
   ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))``), which is what the JAX
   package's ``torch_linear_init`` reproduces; ``init_`` redraws it from
@@ -23,6 +25,7 @@ import torch
 from torch import nn
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.1
 
 
 def exact_fp32() -> None:
@@ -78,7 +81,8 @@ def init_(module: nn.Module, generator: torch.Generator) -> None:
 
 def finish_init(module: nn.Module, device, generator) -> None:
     """Shared tail of every model constructor: optional seeded init (on
-    the CPU, where ``generator`` lives), eval mode, then the device."""
+    the CPU, where ``generator`` lives), eval mode (``.train()`` selects
+    the training forward), then the device."""
     if generator is not None:
         init_(module, generator)
     module.eval()
@@ -86,9 +90,48 @@ def finish_init(module: nn.Module, device, generator) -> None:
         module.to(device)
 
 
-def require_eval(module: nn.Module) -> None:
-    if module.training:
-        raise RuntimeError(
-            f"{type(module).__name__}: the port has only the eval forward "
-            "(running BatchNorm statistics); call .eval(). Training is "
-            "still to come (ROADMAP, Queue 1, slice 2).")
+def batch_norm_train(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
+    """Train-mode BatchNorm over every axis but the last (channels), as
+    the JAX package's ``core.batch_norm(train=True)``.
+
+    One-pass moments centred on the running mean (``var = E[(x-c)^2] -
+    E[x-c]^2`` with ``c`` the running mean, which keeps the form exact
+    when ``|mean| >> std``); the biased variance normalizes, and the
+    running statistics take the EMA of the mean and the unbiased variance
+    (``update_running``). Gradients flow through the batch moments."""
+    axes = tuple(range(x.dim() - 1))
+    c = bn.running_mean.detach().clone()
+    xc = x - c
+    mean_c = xc.mean(dim=axes)
+    m2 = xc.square().mean(dim=axes)
+    var = torch.clamp(m2 - mean_c.square(), min=0.0)
+    mean = mean_c + c
+    update_running(bn, mean, var, x.numel() // x.shape[-1])
+    inv = torch.rsqrt(var + BN_EPS)
+    return (x - mean) * (inv * bn.weight) + bn.bias
+
+
+def batch_moments(s: torch.Tensor, ss: torch.Tensor, m: int):
+    """``(mean, biased var, 1/sqrt(var + eps))`` from a kernel's column
+    sum and sum of squares over ``m`` values (the raw one-pass form of the
+    JAX training kernels)."""
+    mu = s / m
+    var = torch.clamp(ss / m - mu * mu, min=0.0)
+    return mu, var, torch.rsqrt(var + BN_EPS)
+
+
+def update_running(bn: nn.BatchNorm1d, mean: torch.Tensor,
+                   var_biased: torch.Tensor, m: int) -> None:
+    """torch-style running-statistic update from batch statistics, in
+    place: ``(1 - momentum) * old + momentum * batch`` on the mean and
+    on the unbiased variance (``m`` values behind each moment: ``B * N``
+    for a per-point BN, ``B`` for an fc BN), and one more
+    ``num_batches_tracked``. Counterpart of the JAX package's
+    ``encoder._ema_stats``; the batch statistics carry no gradient."""
+    with torch.no_grad():
+        unbiased = var_biased.detach() * (m / max(m - 1, 1))
+        bn.running_mean.copy_((1.0 - BN_MOMENTUM) * bn.running_mean
+                              + BN_MOMENTUM * mean.detach())
+        bn.running_var.copy_((1.0 - BN_MOMENTUM) * bn.running_var
+                             + BN_MOMENTUM * unbiased)
+        bn.num_batches_tracked += 1

@@ -1,16 +1,21 @@
-"""PointNet encoder trunk (``PointNetfeat`` in the reference), eval.
+"""PointNet encoder trunk (``PointNetfeat`` in the reference).
 
 Counterpart of ``adversarial_learning_on_pointclouds_tpu/models/
-encoder.py::apply_encoder_parts`` with ``train=False`` under
-``use_pallas``. On ``x [B, N, 3]``:
+encoder.py::apply_encoder_parts`` under ``use_pallas``. On ``x [B, N,
+3]``:
 
 1. STN3d predicts ``T [B, 3, 3]``; ``x <- x @ T``.
 2. conv1 3->64 + BN + ReLU (``fused_linear_affine_act``).
 3. With ``feature_transform``, STNkd predicts ``T64``; ``x <- x @ T64``.
    This is the per-point feature ``[B, N, 64]``.
 4. conv2 64->128 (BN, ReLU) -> conv3 128->1024 (BN, **no ReLU**, the
-   reference's quirk) -> max over points, as one ``fused_stack_maxpool``:
-   the 1024-d global feature ``[B, 1024]``.
+   reference's quirk) -> max over points: the 1024-d global feature
+   ``[B, 1024]``.
+
+In eval mode step 2 is ``fused_linear_affine_act`` and step 4 one
+``fused_stack_maxpool``, with folded BNs. In train mode (``.train()``)
+the BNs use batch statistics and update their running statistics in
+place: step 2 is plain PyTorch, step 4 ``trunk2_train``.
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ from torch import nn
 
 from adversarial_learning_on_pointclouds_tpu_torch.models import core
 from adversarial_learning_on_pointclouds_tpu_torch.models.tnet import (
-    STN3d, STNkd,
+    STN3d, STNkd, train_trunk,
 )
 from adversarial_learning_on_pointclouds_tpu_torch.ops import dispatch as ops
 from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
@@ -51,7 +56,6 @@ class PointNetfeat(nn.Module):
                            Optional[torch.Tensor]]:
         """``x [B, N, 3]`` -> ``(point_feat [B, N, 64], global [B, 1024],
         trans [B, 3, 3], trans_feat [B, 64, 64] or None)``."""
-        core.require_eval(self)
         trans = self.stn(x)
         x = ops.batched_transform(x, trans)
         x = ops.linear_bn_act(self.conv1, self.bn1, x, "relu")
@@ -59,6 +63,8 @@ class PointNetfeat(nn.Module):
         if self.feature_transform:
             trans_feat = self.fstn(x)
             x = ops.batched_transform(x, trans_feat)
+        if self.training:
+            return x, train_trunk(self, x), trans, trans_feat
         w2, s2, c2 = ops.folded_affine(self.conv2, self.bn2)
         w3, s3, c3 = ops.folded_affine(self.conv3, self.bn3)
         g = encoder_fused.fused_stack_maxpool(x, (w2, w3), (s2, s3), (c2, c3),

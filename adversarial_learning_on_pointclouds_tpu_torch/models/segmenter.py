@@ -1,11 +1,13 @@
 """PointNet part segmenter (``PointNetDenseCls``), the adversarial
-trainer's generator, eval forward.
+trainer's generator.
 
 Counterpart of ``adversarial_learning_on_pointclouds_tpu/models/
-segmenter.py::apply_segmenter`` with ``train=False`` under
-``use_pallas``: the encoder's per-point and global features go straight
-into ``seg_head_fused`` (1088->512->256->128->k with folded BN, then a
-per-point ``log_softmax``), so the ``[B, N, 1088]`` concat never exists.
+segmenter.py::apply_segmenter`` under ``use_pallas``: the encoder's
+per-point and global features go straight into the head (1088->512->256
+->128->k, BN + ReLU each, then a per-point ``log_softmax``), so the ``[B,
+N, 1088]`` concat never exists. Eval runs ``seg_head_fused`` with folded
+BNs; train (``.train()``) runs ``seg_head_train`` with batch statistics
+and updates the running statistics in place.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from adversarial_learning_on_pointclouds_tpu_torch.models.encoder import (
 )
 from adversarial_learning_on_pointclouds_tpu_torch.ops import dispatch as ops
 from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
-    encoder_fused,
+    encoder_fused, seg_head_train,
 )
 
 
@@ -43,11 +45,24 @@ class PointNetDenseCls(nn.Module):
     def forward(self, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
         """``x [B, N, 3]`` -> ``(log_probs [B, N, k], trans, trans_feat)``."""
-        core.require_eval(self)
         pf, g, trans, trans_feat = self.feat(x)
+        if self.training:
+            return self._train_head(pf, g), trans, trans_feat
         folded = [ops.folded_affine(getattr(self, f"conv{i}"),
                                     getattr(self, f"bn{i}")) for i in (1, 2, 3)]
         logp = encoder_fused.seg_head_fused(
             pf, g, *folded[0], *folded[1], *folded[2],
             core.weight_in_out(self.conv4), self.conv4.bias)
         return logp, trans, trans_feat
+
+    def _train_head(self, pf: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+        params = []
+        for i in (1, 2, 3):
+            conv, bn = getattr(self, f"conv{i}"), getattr(self, f"bn{i}")
+            params += [core.weight_in_out(conv), conv.bias, bn.weight, bn.bias]
+        logp, *stats = seg_head_train.seg_head_train(
+            pf, g, *params, core.weight_in_out(self.conv4), self.conv4.bias)
+        m = pf.shape[0] * pf.shape[1]
+        for i, (mu, var) in enumerate(zip(stats[::2], stats[1::2]), start=1):
+            core.update_running(getattr(self, f"bn{i}"), mu, var, m)
+        return logp

@@ -1,12 +1,20 @@
-"""T-Net spatial/feature transformers (STN3d / STNkd), eval forward.
+"""T-Net spatial/feature transformers (STN3d / STNkd).
 
 Counterpart of ``adversarial_learning_on_pointclouds_tpu/models/tnet.py``
-(``apply_tnet`` with ``train=False`` under ``use_pallas``): the conv
-trunk k->64->128->1024 (folded BN, ReLU each) and the max over points run
-as one ``fused_stack_maxpool``; the fc head 1024->512->256->k*k on the
-pooled ``[B, 1024]`` rows is plain ``torch.matmul``; the flattened
-identity is added last. Parameter names are the reference's
-(``bn4``/``bn5`` are the fc BNs).
+(``apply_tnet`` under ``use_pallas``). The conv trunk k->64->128->1024
+(BN + ReLU each) ends in a max over points; the fc head 1024->512->256->
+k*k runs on the pooled ``[B, 1024]`` rows; the flattened identity is
+added last. Parameter names are the reference's (``bn4``/``bn5`` are the
+fc BNs).
+
+* Eval: the whole trunk and its max are one ``fused_stack_maxpool`` with
+  folded BNs; the fc head is plain ``torch.matmul``.
+* Train (``.train()``): conv1 is plain PyTorch with a batch-statistic BN;
+  conv2 + conv3 + max run as ``trunk2_train`` with the post-pool ReLU
+  applied to the pooled vector (``max(relu(y)) == relu(max(y))``); fc1 +
+  BN + both ReLUs run as ``relu_fc_bn_relu`` (moments centred on the
+  running mean); fc2 + BN is plain, then fc3. Running statistics update in
+  place, as torch's BatchNorm does.
 """
 
 from __future__ import annotations
@@ -19,7 +27,7 @@ from torch import nn
 from adversarial_learning_on_pointclouds_tpu_torch.models import core
 from adversarial_learning_on_pointclouds_tpu_torch.ops import dispatch as ops
 from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
-    encoder_fused,
+    encoder_fused, pool_fc_epilogue, trunk_train,
 )
 
 
@@ -44,17 +52,45 @@ class STNkd(nn.Module):
         core.finish_init(self, device, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        core.require_eval(self)
-        ws, shifts, scales = zip(*(
-            ops.folded_affine(getattr(self, f"conv{i}"), getattr(self, f"bn{i}"))
-            for i in (1, 2, 3)))
-        h = encoder_fused.fused_stack_maxpool(x, ws, shifts, scales,
-                                              ("relu", "relu", "relu"))
-        h = ops.linear_bn_act(self.fc1, self.bn4, h, "relu")
-        h = ops.linear_bn_act(self.fc2, self.bn5, h, "relu")
+        if self.training:
+            h = self._train_head(self._train_trunk(x))
+        else:
+            ws, shifts, scales = zip(*(
+                ops.folded_affine(getattr(self, f"conv{i}"),
+                                  getattr(self, f"bn{i}"))
+                for i in (1, 2, 3)))
+            h = encoder_fused.fused_stack_maxpool(x, ws, shifts, scales,
+                                                  ("relu", "relu", "relu"))
+            h = ops.linear_bn_act(self.fc1, self.bn4, h, "relu")
+            h = ops.linear_bn_act(self.fc2, self.bn5, h, "relu")
         out = core.dense(self.fc3, h)
         iden = torch.eye(self.k, dtype=out.dtype, device=out.device)
         return (out + iden.reshape(-1)).reshape(-1, self.k, self.k)
+
+    def _train_trunk(self, x: torch.Tensor) -> torch.Tensor:
+        h1 = ops.linear_bn_act(self.conv1, self.bn1, x, "relu")
+        return torch.relu(train_trunk(self, h1))
+
+    def _train_head(self, h: torch.Tensor) -> torch.Tensor:
+        h1, mu1, var1 = pool_fc_epilogue.relu_fc_bn_relu(
+            h, core.weight_in_out(self.fc1), self.fc1.bias, self.bn4.weight,
+            self.bn4.bias, self.bn4.running_mean)
+        core.update_running(self.bn4, mu1, var1, h.shape[0])
+        return ops.linear_bn_act(self.fc2, self.bn5, h1, "relu")
+
+
+def train_trunk(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``module``'s conv2 + bn2 + ReLU -> conv3 + bn3 -> max over points in
+    train mode, through ``trunk2_train``; bn2/bn3's running statistics
+    take the batch statistics (``B * N`` values each)."""
+    g, mu2, var2, mu3, var3 = trunk_train.trunk2_train(
+        x, core.weight_in_out(module.conv2), module.conv2.bias,
+        module.bn2.weight, module.bn2.bias, core.weight_in_out(module.conv3),
+        module.conv3.bias, module.bn3.weight, module.bn3.bias)
+    m = x.shape[0] * x.shape[1]
+    core.update_running(module.bn2, mu2, var2, m)
+    core.update_running(module.bn3, mu3, var3, m)
+    return g
 
 
 class STN3d(STNkd):

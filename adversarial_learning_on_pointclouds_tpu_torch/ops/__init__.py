@@ -1,2 +1,3 @@
-"""Eval building blocks (``dispatch``), the kernel build (``build``) and
+"""The building blocks the models call (``dispatch``), the kernel build
+(``build``), the launch helpers (``launch``) and
 the hand-written CUDA kernels' wrappers (``kernels``)."""

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 Counterpart of ``adversarial_learning_on_pointclouds_tpu/native/build.py``.
-``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``) into one
-shared library with a plain C interface, loaded with ``ctypes``. The
+``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``), one
+process per source, all at once, and links the objects into one shared
+library with a plain C interface, loaded with ``ctypes``. The
 library's name carries a hash of the sources and flags, so an edited
 source builds anew and an unchanged one loads from
 ``adversarial_learning_on_pointclouds_tpu_torch/build/``. The build runs
@@ -25,7 +26,7 @@ PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _PP, _IP = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
@@ -36,6 +37,11 @@ SIGNATURES = {
     "pt_stack_maxpool": [_P, _P, _PP, _PP, _PP, _IP, _IP] + [_I] * 4 + [_P],
     "pt_seg_head": [_P] * 15 + [_I] * 9 + [_P],
 }
+# The training passes take one argument struct (ops/launch.py mirrors it).
+for _name in ("pt_pool_fc_fwd", "pt_trunk_f1", "pt_trunk_f2", "pt_trunk_b1", "pt_head_p1",
+              "pt_head_pmid", "pt_head_p4", "pt_head_b4", "pt_head_bmid",
+              "pt_head_b1"):
+    SIGNATURES[_name] = [_P, _I, _P]
 
 
 def _sources():
@@ -63,28 +69,46 @@ def nvcc() -> str:
                        "port's kernels build from csrc/ at first use")
 
 
+def _run(cmd):
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def _wait(cmd, proc) -> None:
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
+                           f"{' '.join(cmd)}\n{out}")
+
+
 def build() -> Path:
-    """Compile ``csrc/*.cu`` unless this exact build exists; return it."""
+    """Compile ``csrc/*.cu`` unless this exact build exists; return it.
+    Each source compiles in its own nvcc process, all started together;
+    then one link."""
     out = library_path()
     if out.exists():
         return out
     BUILD.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
-    # Build under a temporary name and rename: a concurrent process never
-    # loads a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
-    os.close(fd)
-    try:
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, cu)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed with exit code {proc.returncode}:\n"
-                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    # Build in a temporary directory and rename: a concurrent process
+    # never loads a half-written library.
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+        objs = [os.path.join(tmp, f.stem + ".o") for f in cu]
+        cmds = [[nvcc(), *NVCC_FLAGS, "-c", "-o", o, str(f)]
+                for f, o in zip(cu, objs)]
+        procs = [_run(c) for c in cmds]
+        try:
+            for cmd, proc in zip(cmds, procs):
+                _wait(cmd, proc)
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        lib = os.path.join(tmp, "lib.so")
+        cmd = [nvcc(), *NVCC_FLAGS, "-shared", "-o", lib, *objs]
+        _wait(cmd, _run(cmd))
+        os.replace(lib, out)
     return out
 
 

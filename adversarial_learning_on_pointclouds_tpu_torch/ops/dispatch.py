@@ -1,11 +1,14 @@
-"""The eval building blocks the models call.
+"""The building blocks the models call, eval and train.
 
-Counterpart of ``adversarial_learning_on_pointclouds_tpu/ops/dispatch.py``
-for the eval path. The JAX package chooses between its jnp ops and its
+Counterpart of ``adversarial_learning_on_pointclouds_tpu/ops/dispatch.py``.
+The JAX package chooses between its jnp ops and its
 Pallas kernels with the ``use_pallas`` context; here the choice is the
 device of the tensor alone (``ops/launch.on_cpu``): every call below that
 reaches a kernel wrapper runs the kernel on a CUDA tensor and the
-kernel's plain version on a CPU tensor.
+kernel's plain version on a CPU tensor. The train-mode blocks here
+(``linear_bn_act`` with a BN in train mode, ``max_points``,
+``batched_transform``) are plain PyTorch under autograd, as the JAX
+package runs them outside Pallas.
 """
 
 from __future__ import annotations
@@ -30,10 +33,16 @@ def folded_affine(layer: nn.Module, bn: nn.BatchNorm1d
 
 def linear_bn_act(layer: nn.Module, bn: nn.BatchNorm1d, x: torch.Tensor,
                   act: Optional[str] = "relu") -> torch.Tensor:
-    """Eval ``act(bn(x @ w + b))``. Per-point ``[B, N, C]`` input runs the
-    fused kernel (``fused_linear_affine_act``); ``[B, C]`` rows (the T-Net
-    fc heads) stay plain ``torch.matmul``, as the JAX package leaves them
-    to XLA."""
+    """``act(bn(x @ w + b))``, by ``bn``'s mode.
+
+    Train: plain ``torch.matmul`` and ``core.batch_norm_train`` (batch
+    moments, running statistics updated in place), differentiable.
+    Eval: BN folded; per-point ``[B, N, C]`` input runs the fused kernel
+    (``fused_linear_affine_act``), ``[B, C]`` rows (the T-Net fc heads)
+    stay plain ``torch.matmul``, as the JAX package leaves them to XLA."""
+    if bn.training:
+        return core.activation(core.batch_norm_train(bn, core.dense(layer, x)),
+                               act)
     w, shift, scale = folded_affine(layer, bn)
     if x.dim() == 3:
         return shared_mlp.fused_linear_affine_act(x, w, shift, scale, act)

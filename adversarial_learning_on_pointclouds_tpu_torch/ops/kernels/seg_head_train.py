@@ -1,0 +1,332 @@
+"""Fused training segmentation head: [point | global] -> 512 -> 256 -> 128
+-> k with batch-statistic BatchNorms and a per-point log_softmax.
+
+Counterpart of ``adversarial_learning_on_pointclouds_tpu/ops/kernels/
+seg_head_train.py::seg_head_train``. Six CUDA passes
+(``csrc/seg_head_train.cu``, whose header says what bounds them on the
+card); each forward pass stashes only the pre-BN ``z`` of its layer and
+applies the previous layer's BN + ReLU as it reads:
+
+* **P1** ``z1 = pf @ W1[:64] + g_row + b1`` (``g_row = g @ W1[64:]``, one
+  row per cloud: the 1088-wide concat never exists) and its statistics;
+* **Pmid** (x2) ``z = relu(bn(z_prev)) @ W + b`` and its statistics;
+* **P4** ``log_softmax(relu(bn3(z3)) @ W4 + b4)`` per point;
+* **B4** the softmax and conv4 backward, ``dy3`` and BN3's sums;
+* **Bmid** (x2) a BN backward and the matmul backward to the layer
+  before, with its BN sums;
+* **B1** BN1's backward, ``dw1a``, ``db1``, ``dpf`` and the per-cloud row
+  sum ``r`` of ``dz1`` (the cotangent of ``g_row``).
+
+Each pass has a plain PyTorch twin of the same signature that CPU
+tensors run. ``g_row``, ``dg`` and ``dw1b`` are plain matmuls, as they
+are XLA in the JAX package. Each BN's reduction sums come from the pass
+after it, one pass behind, as in the JAX VJP.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from adversarial_learning_on_pointclouds_tpu_torch.models.core import (
+    BN_EPS, batch_moments,
+)
+from adversarial_learning_on_pointclouds_tpu_torch.ops import launch
+
+
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    return t.reshape(-1, t.shape[-1])
+
+
+def _f32(dev):
+    return dict(device=dev, dtype=torch.float32)
+
+
+def _stats(z):
+    return z.sum((0, 1)), (z * z).sum((0, 1))
+
+
+def _bn_relu(z, sc, sh):
+    return torch.relu(z * sc + sh)
+
+
+def _fwd(symbol, x, sc, sh, w, b, addend=None, logp=False):
+    """One forward row pass on the card: ``[B, N, c_in]`` in, the pre-BN
+    ``z`` and its statistics out (or, with ``logp``, log-probabilities)."""
+    bsz, n, c_in = x.shape
+    c_out = w.shape[1]
+    dev = x.device
+    launch.expect("x", x, (bsz, n, c_in), dev)
+    if sc is not None:
+        launch.expect("sc", sc, (c_in,), dev)
+        launch.expect("sh", sh, (c_in,), dev)
+    ldw = launch.weight_ld("w", w, (c_in, c_out), dev)
+    launch.expect("b", b, (c_out,), dev)
+    if addend is not None:
+        launch.expect("g_row", addend, (bsz, c_out), dev)
+    out = torch.empty((bsz, n, c_out), **_f32(dev))
+    fields = dict(batch=bsz, n=n, c_in=c_in, c_out=c_out, ldw=ldw, x=x,
+                  sc=sc, sh=sh, w=w.t(), bias=b, addend=addend)
+    if logp:
+        fields.update(logp=out)
+        stats = ()
+    else:
+        stats = (torch.empty(c_out, **_f32(dev)),
+                 torch.empty(c_out, **_f32(dev)))
+        part = torch.empty((2, launch.row_blocks(bsz, n), c_out),
+                           **_f32(dev))
+        fields.update(z=out, sum=stats[0], ssq=stats[1], part=part)
+    a = launch.args(launch.RowFwdArgs, **fields)
+    launch.call(symbol, dev, ctypes.addressof(a))
+    return (out, *stats) if stats else out
+
+
+def _bwd(symbol, mode, zp, scp, shp, mup, invp, w, r=False, **dz):
+    """One backward pass on the card: ``dz`` of the current layer (from
+    ``mode``'s inputs), then ``dy_prev = dz @ W^T`` (masked by the
+    previous ReLU), the previous BN's sums, ``dW`` and ``db``."""
+    bsz, n, c_in = zp.shape
+    c_out = w.shape[1]
+    dev = zp.device
+    launch.expect("z_prev", zp, (bsz, n, c_in), dev)
+    for name, t in (("scp", scp), ("shp", shp), ("mup", mup),
+                    ("invp", invp)):
+        if t is not None:
+            launch.expect(name, t, (c_in,), dev)
+    ldw = launch.weight_ld("w", w, (c_in, c_out), dev)
+    for name, t in dz.items():
+        shape = (bsz, n, c_out) if name in ("zc", "dy", "dlp") else (c_out,)
+        launch.expect(name, t, shape, dev)
+    f32 = _f32(dev)
+    dyp = torch.empty((bsz, n, c_in), **f32)
+    t1, t2 = ((torch.empty(c_in, **f32), torch.empty(c_in, **f32))
+              if mup is not None else (None, None))
+    db = torch.empty(c_out, **f32)
+    rr = torch.empty((bsz, c_out), **f32) if r else None
+    dw = torch.empty((c_out, c_in), **f32)
+    splits = launch.weight_grad_splits(bsz * n, c_out, c_in, dev)
+    part = torch.empty((launch.row_blocks(bsz, n), 2 * c_in + c_out), **f32)
+    part_w = torch.empty((splits, c_out * c_in), **f32)
+    a = launch.args(launch.BwdArgs, mode=mode, batch=bsz, n=n, c_in=c_in,
+                    c_out=c_out, ldw=ldw, splits=splits, zp=zp, scp=scp,
+                    shp=shp, mup=mup, invp=invp, w=w.t(), dyp=dyp, t1=t1,
+                    t2=t2, db=db, r=rr, dw=dw, part=part, part_w=part_w,
+                    **dz)
+    launch.call(symbol, dev, ctypes.addressof(a))
+    return dyp, dw.t(), db, t1, t2, rr
+
+
+# ---------------------------------------------------------------------------
+# Forward passes
+# ---------------------------------------------------------------------------
+
+def p1_plain(pf, g_row, w1a, b1):
+    """``(z1, sum, sum of squares)``: ``z1 = pf @ w1a + g_row[:, None] +
+    b1``."""
+    z1 = torch.matmul(pf, w1a) + g_row[:, None, :] + b1
+    return (z1, *_stats(z1))
+
+
+def p1(pf, g_row, w1a, b1):
+    if launch.on_cpu(pf):
+        return p1_plain(pf, g_row, w1a, b1)
+    out = _fwd("pt_head_p1", pf, None, None, w1a, b1, addend=g_row)
+    p1.launches += 1
+    return out
+
+
+def pmid_plain(z_prev, sc, sh, w, b):
+    """``(z, sum, sum of squares)``: ``z = relu(z_prev * sc + sh) @ w +
+    b``."""
+    z = torch.matmul(_bn_relu(z_prev, sc, sh), w) + b
+    return (z, *_stats(z))
+
+
+def pmid(z_prev, sc, sh, w, b):
+    if launch.on_cpu(z_prev):
+        return pmid_plain(z_prev, sc, sh, w, b)
+    out = _fwd("pt_head_pmid", z_prev, sc, sh, w, b)
+    pmid.launches += 1
+    return out
+
+
+def p4_plain(z3, sc3, sh3, w4, b4):
+    """Per-point ``log_softmax(relu(z3 * sc3 + sh3) @ w4 + b4)``."""
+    return torch.log_softmax(torch.matmul(_bn_relu(z3, sc3, sh3), w4) + b4,
+                             dim=-1)
+
+
+def p4(z3, sc3, sh3, w4, b4):
+    if launch.on_cpu(z3):
+        return p4_plain(z3, sc3, sh3, w4, b4)
+    out = _fwd("pt_head_p4", z3, sc3, sh3, w4, b4, logp=True)
+    p4.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Backward passes
+# ---------------------------------------------------------------------------
+
+def _prev_terms(dhp, zp, scp, shp, mup, invp):
+    """``dy_prev`` behind the previous BN + ReLU and that BN's sums."""
+    dyp = dhp * (_bn_relu(zp, scp, shp) > 0)
+    zhatp = (zp - mup) * invp
+    return dyp, dyp.sum((0, 1)), (dyp * zhatp).sum((0, 1))
+
+
+def b4_plain(z3, sc3, sh3, w4, b4, mu3, inv3, dlogp):
+    """Softmax + conv4 backward: ``(dy3, dw4, db4, t1, t2)``."""
+    h3 = _bn_relu(z3, sc3, sh3)
+    p = torch.softmax(torch.matmul(h3, w4) + b4, dim=-1)
+    dz4 = dlogp - p * dlogp.sum(-1, keepdim=True)
+    dw4 = torch.matmul(_rows(h3).t(), _rows(dz4))
+    dy3, t1, t2 = _prev_terms(torch.matmul(dz4, w4.t()), z3, sc3, sh3, mu3,
+                              inv3)
+    return dy3, dw4, dz4.sum((0, 1)), t1, t2
+
+
+def b4(z3, sc3, sh3, w4, b4_, mu3, inv3, dlogp):
+    if launch.on_cpu(z3):
+        return b4_plain(z3, sc3, sh3, w4, b4_, mu3, inv3, dlogp)
+    dy3, dw4, db4, t1, t2, _ = _bwd("pt_head_b4", launch.DZ_SOFTMAX, z3, sc3,
+                                    sh3, mu3, inv3, w4, bias=b4_, dlp=dlogp)
+    b4.launches += 1
+    return dy3, dw4, db4, t1, t2
+
+
+def _bn_dz(zc, dy, sc, mu, inv, coef1, coef2):
+    return dy * sc - coef1 - ((zc - mu) * inv) * coef2
+
+
+def bmid_plain(zc, dy, sc, mu, inv, coef1, coef2, zp, scp, shp, w, mup,
+               invp):
+    """BN backward at the current layer (``dz = dy * sc - coef1 - zhat *
+    coef2``, the coefficients from the pass before) and the matmul
+    backward to the previous one: ``(dy_prev, dw, db, t1, t2)``."""
+    dz = _bn_dz(zc, dy, sc, mu, inv, coef1, coef2)
+    hp = _bn_relu(zp, scp, shp)
+    dw = torch.matmul(_rows(hp).t(), _rows(dz))
+    dyp, t1, t2 = _prev_terms(torch.matmul(dz, w.t()), zp, scp, shp, mup,
+                              invp)
+    return dyp, dw, dz.sum((0, 1)), t1, t2
+
+
+def bmid(zc, dy, sc, mu, inv, coef1, coef2, zp, scp, shp, w, mup, invp):
+    if launch.on_cpu(zc):
+        return bmid_plain(zc, dy, sc, mu, inv, coef1, coef2, zp, scp, shp, w,
+                          mup, invp)
+    dyp, dw, db, t1, t2, _ = _bwd("pt_head_bmid", launch.DZ_BN, zp, scp, shp,
+                                  mup, invp, w, zc=zc, dy=dy, sc=sc, mu=mu,
+                                  inv=inv, c1=coef1, c2=coef2)
+    bmid.launches += 1
+    return dyp, dw, db, t1, t2
+
+
+def b1_plain(z1, dy1, sc1, mu1, inv1, coef1, coef2, pf, w1a):
+    """BN1 backward and the point half of layer 1: ``(dpf, dw1a, db1, r)``
+    with ``r [B, c1]`` each cloud's sum of ``dz1``."""
+    dz = _bn_dz(z1, dy1, sc1, mu1, inv1, coef1, coef2)
+    dw1a = torch.matmul(_rows(pf).t(), _rows(dz))
+    r = dz.sum(1)
+    return torch.matmul(dz, w1a.t()), dw1a, r.sum(0), r
+
+
+def b1(z1, dy1, sc1, mu1, inv1, coef1, coef2, pf, w1a):
+    if launch.on_cpu(z1):
+        return b1_plain(z1, dy1, sc1, mu1, inv1, coef1, coef2, pf, w1a)
+    dpf, dw1a, db1, _, _, r = _bwd("pt_head_b1", launch.DZ_BN, pf, None, None,
+                                   None, None, w1a, r=True, zc=z1, dy=dy1,
+                                   sc=sc1, mu=mu1, inv=inv1, c1=coef1,
+                                   c2=coef2)
+    b1.launches += 1
+    return dpf, dw1a, db1, r
+
+
+for _pass in (p1, pmid, p4, b4, bmid, b1):
+    _pass.launches = 0
+PASSES = {"P1": p1, "Pmid": pmid, "P4": p4, "B4": b4, "Bmid": bmid, "B1": b1}
+
+
+# ---------------------------------------------------------------------------
+# The autograd function
+# ---------------------------------------------------------------------------
+
+class _SegHead(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, pf, g, w1, b1_, g1, be1, w2, b2, g2, be2, w3, b3, g3,
+                be3, w4, b4_):
+        bsz, n, c_pf = pf.shape
+        m = bsz * n
+        w1a, w1b = w1[:c_pf], w1[c_pf:]
+        g_row = torch.matmul(g, w1b)
+        z1, s1, ss1 = p1(pf, g_row, w1a, b1_)
+        mu1, var1, inv1 = batch_moments(s1, ss1, m)
+        sc1 = g1 * inv1
+        sh1 = be1 - mu1 * sc1
+        z2, s2, ss2 = pmid(z1, sc1, sh1, w2, b2)
+        mu2, var2, inv2 = batch_moments(s2, ss2, m)
+        sc2 = g2 * inv2
+        sh2 = be2 - mu2 * sc2
+        z3, s3, ss3 = pmid(z2, sc2, sh2, w3, b3)
+        mu3, var3, inv3 = batch_moments(s3, ss3, m)
+        sc3 = g3 * inv3
+        sh3 = be3 - mu3 * sc3
+        logp = p4(z3, sc3, sh3, w4, b4_)
+        ctx.save_for_backward(pf, g, z1, z2, z3, w1, w2, w3, w4, b4_, mu1,
+                              inv1, sc1, sh1, mu2, inv2, sc2, sh2, mu3, inv3,
+                              sc3, sh3)
+        ctx.mark_non_differentiable(mu1, var1, mu2, var2, mu3, var3)
+        return logp, mu1, var1, mu2, var2, mu3, var3
+
+    @staticmethod
+    def backward(ctx, dlogp, *_stats):
+        (pf, g, z1, z2, z3, w1, w2, w3, w4, b4_, mu1, inv1, sc1, sh1, mu2,
+         inv2, sc2, sh2, mu3, inv3, sc3, sh3) = ctx.saved_tensors
+        bsz, n, c_pf = pf.shape
+        m = bsz * n
+        dy3, dw4, db4, t1_3, t2_3 = b4(z3, sc3, sh3, w4, b4_, mu3, inv3,
+                                       dlogp.contiguous())
+        dy2, dw3, db3, t1_2, t2_2 = bmid(z3, dy3, sc3, mu3, inv3,
+                                         sc3 * t1_3 / m, sc3 * t2_3 / m,
+                                         z2, sc2, sh2, w3, mu2, inv2)
+        dy1, dw2, db2, t1_1, t2_1 = bmid(z2, dy2, sc2, mu2, inv2,
+                                         sc2 * t1_2 / m, sc2 * t2_2 / m,
+                                         z1, sc1, sh1, w2, mu1, inv1)
+        w1a, w1b = w1[:c_pf], w1[c_pf:]
+        dpf, dw1a, db1, r = b1(z1, dy1, sc1, mu1, inv1, sc1 * t1_1 / m,
+                               sc1 * t2_1 / m, pf, w1a)
+        # The global half of layer 1 ran as a per-cloud row g @ w1b.
+        dg = torch.matmul(r, w1b.t())
+        dw1 = torch.cat([dw1a, torch.matmul(g.t(), r)], dim=0)
+        return (dpf, dg, dw1, db1, t2_1, t1_1, dw2, db2, t2_2, t1_2, dw3,
+                db3, t2_3, t1_3, dw4, db4)
+
+
+def seg_head_train(pf, g, w1, b1_, g1, be1, w2, b2, g2, be2, w3, b3, g3, be3,
+                   w4, b4_):
+    """``pf [B, N, c_pf]``, ``g [B, c_g]`` -> ``(logp [B, N, k], mu1,
+    var1, mu2, var2, mu3, var3)``: the head on the implicit ``[pf | g]``
+    concat with batch-statistic BNs (biased variances; the statistics
+    carry no gradient). ``w1`` is the whole ``[c_pf + c_g, c1]`` first
+    weight; weights are ``[in, out]`` (on a CUDA device, views of
+    row-major ``[out, in]`` storage)."""
+    return _SegHead.apply(pf, g, w1, b1_, g1, be1, w2, b2, g2, be2, w3, b3,
+                          g3, be3, w4, b4_)
+
+
+def seg_head_train_reference(pf, g, w1, b1_, g1, be1, w2, b2, g2, be2, w3,
+                             b3, g3, be3, w4, b4_):
+    """The whole function as a plain composition under torch autograd
+    (the explicit concat, two-pass moments), for gradient checks."""
+    bsz, n, _ = pf.shape
+    h = torch.cat([pf, g[:, None, :].expand(bsz, n, -1)], dim=-1)
+    stats = []
+    for w, b, ga, be in ((w1, b1_, g1, be1), (w2, b2, g2, be2),
+                         (w3, b3, g3, be3)):
+        z = torch.matmul(h, w) + b
+        mu, var = z.mean((0, 1)), z.var((0, 1), unbiased=False)
+        h = torch.relu((z - mu) * torch.rsqrt(var + BN_EPS) * ga + be)
+        stats += [mu.detach(), var.detach()]
+    return (torch.log_softmax(torch.matmul(h, w4) + b4_, dim=-1), *stats)

@@ -34,33 +34,103 @@ def act_code(act: Optional[str]) -> int:
 
 
 def expect(name: str, t: torch.Tensor, shape: Sequence[int],
-           device: torch.device, weight: bool = False) -> None:
-    """Raise unless ``t`` is fp32 on ``device`` with ``shape`` and laid
-    out as the kernel reads it: contiguous, or for a ``weight`` given as
-    ``[in, out]``, the transposed view of a row-major ``[out, in]``
-    tensor (``layer.weight.flatten(1).t()``)."""
+           device: torch.device, weight: Optional[bool] = False,
+           dtype: torch.dtype = torch.float32) -> None:
+    """Raise unless ``t`` is ``dtype`` on ``device`` with ``shape`` and
+    laid out as the kernel reads it: contiguous, or for a ``weight`` given
+    as ``[in, out]``, the transposed view of a row-major ``[out, in]``
+    tensor (``layer.weight.flatten(1).t()``); ``weight=None`` leaves the
+    layout to the caller."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} is {t.dtype}, the kernel takes float32")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} is {t.dtype}, the kernel takes {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
     if weight and not t.t().is_contiguous():
         raise ValueError(f"{name} must be the [in, out] view of a row-major "
                          "[out, in] tensor, e.g. layer.weight.flatten(1).t()")
-    if not weight and not t.is_contiguous():
+    if weight is False and not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
 
 def no_grad(*tensors: torch.Tensor) -> None:
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError("the eval kernels have no backward: call them "
-                           "under torch.no_grad() or torch.inference_mode()")
+                           "under torch.no_grad() or torch.inference_mode(); "
+                           "to train, put the model in .train(), whose "
+                           "forward runs the training kernels")
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def weight_ld(name: str, w: torch.Tensor, shape: Sequence[int],
+              device: torch.device) -> int:
+    """Check an ``[in, out]`` weight view whose ``[out, in]`` storage rows
+    may be longer than ``in`` (a row slice such as ``W1[:64]`` of the
+    ``[1088, 512]`` view) and return that row stride, the kernel's
+    ``ldw``."""
+    expect(name, w, shape, device, weight=None)
+    if w.stride(0) != 1:
+        raise ValueError(f"{name} must be an [in, out] view of row-major "
+                         "[out, in] storage, e.g. layer.weight.flatten(1).t()")
+    return w.stride(1)
+
+
+def ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def args(struct: type, **fields) -> ctypes.Structure:
+    """Fill a ``ctypes.Structure`` that mirrors a C argument struct:
+    tensors become their data pointers (a weight view its storage's),
+    ``None`` a null pointer, ints stay ints."""
+    out = struct()
+    for name, value in fields.items():
+        if isinstance(value, torch.Tensor):
+            value = value.data_ptr()
+        setattr(out, name, value)
+    return out
+
+
+def _struct(name: str, ints: Sequence[str], ptrs: Sequence[str]) -> type:
+    fields = ([(f, ctypes.c_int) for f in ints]
+              + [(f, ctypes.c_void_p) for f in ptrs])
+    return type(name, (ctypes.Structure,), {"_fields_": fields})
+
+
+# Mirrors of the argument structs in csrc/train_gemm.cuh, field for field.
+RowFwdArgs = _struct(
+    "RowFwdArgs", ("batch", "n", "c_in", "c_out", "ldw"),
+    ("x", "sc", "sh", "w", "bias", "addend", "z", "sum", "ssq", "part",
+     "keys", "mx", "mn", "imax", "imin", "logp"))
+BwdArgs = _struct(
+    "BwdArgs", ("mode", "batch", "n", "c_in", "c_out", "ldw", "splits"),
+    ("zp", "scp", "shp", "mup", "invp", "w", "bias", "zc", "dy", "sc", "mu",
+     "inv", "c1", "c2", "coef1", "coef2", "s3dg", "idx", "dlp", "dyp", "t1",
+     "t2", "db", "r", "dw", "part", "part_w"))
+# Mirror of the argument struct in csrc/pool_fc_epilogue.cu.
+PoolFcArgs = _struct(
+    "PoolFcArgs", ("batch", "c3", "c1", "groups"),
+    ("mx", "mn", "s3c", "t3", "w1", "b1", "g1", "be1", "rm1", "h1", "h", "z1",
+     "mu", "var", "inv"))
+DZ_BN, DZ_TRUNK, DZ_SOFTMAX = 0, 1, 2   # BwdArgs.mode
+TILE = 64          # rows per block of the row kernels (kTile in csrc)
+
+
+def row_blocks(bsz: int, n: int) -> int:
+    """Blocks of a row kernel: one per ``TILE`` points of each cloud."""
+    return bsz * -(-n // TILE)
+
+
+def weight_grad_splits(m: int, c_out: int, c_in: int,
+                       device: torch.device) -> int:
+    """Row ranges of a weight-gradient kernel: at most 2048 rows each (a
+    short serial fp32 sum per thread), and enough ranges for two blocks
+    per SM; the ranges' partial sums are added in fp64."""
+    tiles = -(-m // TILE)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    chunks = -(-c_out // 64) * -(-c_in // 128)
+    return max(1, min(tiles, max(-(-m // 2048), -(-2 * sms // chunks))))
 
 
 def weight_ptr(w: torch.Tensor) -> ctypes.c_void_p:

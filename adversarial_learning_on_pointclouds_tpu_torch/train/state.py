@@ -1,0 +1,84 @@
+"""Train state and optimizer construction.
+
+Counterpart of ``adversarial_learning_on_pointclouds_tpu/train/
+state.py``. The optimizer is ``torch.optim.Adam`` (eps 1e-8) or SGD with
+momentum 0.9; the learning-rate schedule is applied per optimizer step,
+as the JAX package's optax schedules are: a staircase decay by
+``lr_gamma`` every ``lr_step * steps_per_epoch`` steps (StepLR per epoch,
+for whole epochs), or the poly decay ``lr * (1 - step / total) **
+power``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterable
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class Optimizer:
+    """What ``make_optimizer`` returns: ``init(params)`` builds the torch
+    optimizer and its per-step schedule (the role of optax's
+    ``tx.init``). Two are equal when they build the same optimizer."""
+
+    name: str
+    lr: float
+    beta1: float
+    beta2: float
+    momentum: float
+    lr_schedule: str
+    lr_step_epochs: int
+    lr_gamma: float
+    steps_per_epoch: int
+    total_steps: int
+    poly_power: float
+
+    def factor(self, t: int) -> float:
+        """The schedule as a factor of the base lr at optimizer step ``t``
+        (0 for the first update)."""
+        if self.lr_schedule == "poly" and self.total_steps > 0:
+            done = min(t, self.total_steps) / self.total_steps
+            return (1.0 - done) ** self.poly_power
+        if (self.lr_schedule == "step" and self.lr_step_epochs > 0
+                and self.steps_per_epoch > 0):
+            return self.lr_gamma ** (t // (self.lr_step_epochs
+                                           * self.steps_per_epoch))
+        return 1.0
+
+    def init(self, params: Iterable[torch.nn.Parameter]):
+        if self.name == "sgd":
+            opt = torch.optim.SGD(params, lr=self.lr, momentum=self.momentum)
+        else:
+            opt = torch.optim.Adam(params, lr=self.lr,
+                                   betas=(self.beta1, self.beta2), eps=1e-8)
+        return opt, torch.optim.lr_scheduler.LambdaLR(opt, self.factor)
+
+
+def make_optimizer(lr: float, beta1: float, beta2: float,
+                   lr_step_epochs: int, lr_gamma: float,
+                   steps_per_epoch: int, *, optimizer: str = "adam",
+                   lr_schedule: str = "step", total_steps: int = 0,
+                   poly_power: float = 0.9, momentum: float = 0.9
+                   ) -> Optimizer:
+    if optimizer not in ("adam", "sgd"):
+        raise ValueError(f"unknown optimizer {optimizer!r}")
+    return Optimizer(optimizer, lr, beta1, beta2, momentum, lr_schedule,
+                     lr_step_epochs, lr_gamma, steps_per_epoch, total_steps,
+                     poly_power)
+
+
+@dataclasses.dataclass
+class TrainState:
+    """Single-network train state: the model (parameters and BatchNorm
+    running statistics), the ``Optimizer`` it was built with, the torch
+    optimizer and schedule that built, the augmentation's generator and
+    the step count. ``train_step`` updates it in place."""
+
+    model: torch.nn.Module
+    tx: Optimizer
+    optimizer: torch.optim.Optimizer
+    scheduler: torch.optim.lr_scheduler.LRScheduler
+    generator: torch.Generator
+    step: int = 0

@@ -1,25 +1,36 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's serving path (``adversarial_learning_on_pointclouds_tpu_
-torch``: part-segmentation inference at full width, 50 parts, feature
-transform on, N = 2500, batch 32) and checks each hand-written kernel
-against its plain PyTorch version. Phases, one or more lines each:
+Drives the port's two main paths at full width (``adversarial_learning_
+on_pointclouds_tpu_torch``, the part segmenter: 50 parts, feature
+transform on, fp32) and holds each hand-written kernel against its plain
+PyTorch version. Phases, one or more lines each:
 
 1. device: CUDA must be available; the card's name and power limit;
 2. build: the kernels compile from ``csrc/`` (nvcc, sm_90a);
-3. kernels: each kernel against its plain version at the main path's
-   shapes, at a ragged point count and at batch 1;
-4. slice: a seeded full-width segmenter with random BatchNorm statistics
-   is saved as a ``.pth``, served through ``infer.main`` once and through
+3. kernels: each eval kernel against its plain version at the serving
+   shapes (B=32, N=2500), at a ragged point count and at batch 1;
+4. slice: a seeded segmenter with random BatchNorm statistics is saved as
+   a ``.pth``, served through ``infer.main`` once and through
    ``Predictor.predict`` over 4 batches of 32 clouds, compared with the
-   same ``Predictor`` on the CPU, and the kernels' launch counts are
-   checked (3 / 1 / 1 per forward);
-5. timing: CUDA events, median of 20 runs after warm-up, kernel against
-   plain version and the whole slice per batch of 32; then the device
-   time alone of each (torch.profiler: the sum of the GPU kernels a call
-   runs, which leaves out the host's launch work) and the forward's
-   kernels by device time.
+   CPU, with the eval kernels' launches checked (3 / 1 / 1 per forward);
+5. timing: each eval kernel against its plain version (CUDA events and
+   torch.profiler device time) and the serving forward;
+6. train-kernels: every training pass (trunk F1/F2/B1, seg head
+   P1/Pmid/P4/B4/Bmid/B1, the pool-fc epilogue at groups 1 and 2)
+   against its plain pass at B=32 N=2048 (the config-3 step), B=32
+   N=2500 (ragged) and B=2 N=2048, on inputs with negative BN3 gammas and
+   duplicated points (max ties go to the first point); then each
+   autograd function's outputs and gradients against its whole-function
+   plain reference;
+7. train-slice: ``train_step`` of a seeded full-width segmenter with
+   random BatchNorm statistics on one batch of 32 x 2048, on the card and
+   on the CPU from the same weights: loss, log-probs, every gradient and
+   every new running statistic compared; the training kernels' launches
+   checked per step; then 10 Adam steps on the fixed batch must lower
+   the loss;
+8. train-timing: each training pass against its plain pass, the step's
+   median time, points/s and the profiler's busy share.
 
 The line before the last is a JSON object of the kernels' numbers, the
 last ``{"ok": true, "device": {...}}``. Any failure raises: the exit code
@@ -28,6 +39,7 @@ is non-zero and no result is printed.
     python3 chip_smoke.py
 """
 
+import copy
 import io
 import json
 import os
@@ -44,10 +56,39 @@ import torch
 SEED = 0
 B, N, PARTS = 32, 2500, 50
 RAGGED_N = 2047
+TRAIN_N, TRAIN_RAGGED_N = 2048, 2500
 BOUND = 1e-4          # scale-relative: max|a - b| / max(1, max|b|)
+# Autograd functions against their whole-function references, a
+# different algorithm (two-pass moments, BN applied unfolded): relative
+# L2 error. Where a ReLU input or a channel's top two points sit within
+# rounding of each other, the two algorithms switch differently and move
+# whole gradient elements; at B=32 N=2048 a handful of such flips in the
+# head's 59 M ReLU inputs make dpf's relative L2 error about 1e-3 (H100,
+# 700 W). With the BN statistic-gradient terms of dz left out of the
+# backward, the same inputs read 0.12 (the trunk's dx) to 11 on the input
+# and weight gradients (H100, 700 W);
+# tests/test_torch_train_kernels.py plants that fault on the CPU.
+WHOLE_BOUND = 1e-2
+STEP_BOUND = 5e-3     # model level, as tests/test_kernels.py (batch-axis BN)
+GRAD_BOUND = 2e-2     # model-level gradients: 2e-2 * (1 + max|g|)
 REPS = 20
 KERNELS_ROOT = "adversarial_learning_on_pointclouds_tpu_torch"
 TPU_KERNELS = "adversarial_learning_on_pointclouds_tpu/ops/kernels"
+TRAIN_KERNELS = {   # kernel -> (source, {pass: TPU pallas_call site})
+    "trunk2_train": ("trunk_train.cu", {
+        "F1": "trunk_train.py:121", "F2": "trunk_train.py:212",
+        "B1": "trunk_train.py:309"}),
+    "seg_head_train": ("seg_head_train.cu", {
+        "P1": "seg_head_train.py:75", "Pmid": "seg_head_train.py:118",
+        "P4": "seg_head_train.py:155", "B4": "seg_head_train.py:206",
+        "Bmid": "seg_head_train.py:275", "B1": "seg_head_train.py:335"}),
+    "pool_fc_epilogue": ("pool_fc_epilogue.cu", {
+        "fwd": "pool_fc_epilogue.py:86"}),
+}
+PER_STEP = {"trunk2_train": {"F1": 3, "F2": 3, "B1": 3},
+            "seg_head_train": {"P1": 1, "Pmid": 2, "P4": 1, "B4": 1,
+                               "Bmid": 2, "B1": 1},
+            "pool_fc_epilogue": {"fwd": 2}}
 
 
 def phase(name: str, msg: str) -> None:
@@ -59,18 +100,42 @@ def rel_err(a: torch.Tensor, b: torch.Tensor):
     return diff / max(1.0, b.abs().max().item()), diff
 
 
-def check(name: str, got: torch.Tensor, ref: torch.Tensor) -> float:
+def check(name: str, got: torch.Tensor, ref: torch.Tensor,
+          bound: float = BOUND, tag: str = "kernels",
+          scale: float = None) -> float:
+    """Fail unless ``max|got - ref| <= bound * max(1, max|ref|)``, or
+    ``bound * scale`` where a sum cancels to near zero: its rounding is
+    bounded by the sum of its terms' magnitudes, which ``scale`` is."""
     if got.shape != ref.shape:
         raise AssertionError(f"{name}: shape {tuple(got.shape)} != "
                              f"{tuple(ref.shape)}")
     if not torch.isfinite(got).all():
         raise AssertionError(f"{name}: non-finite output")
     rel, diff = rel_err(got, ref)
-    phase("kernels", f"{name}: max scale-relative error {rel:.3e} "
-          f"(max abs {diff:.3e}, bound {BOUND:g})")
-    if rel > BOUND:
-        raise AssertionError(f"{name}: error {rel:.3e} above {BOUND:g}")
+    if scale is not None:
+        rel = diff / max(1.0, scale)
+    phase(tag, f"{name}: max {'term-sum' if scale else 'scale'}-relative "
+          f"error {rel:.3e} (max abs {diff:.3e}, bound {bound:g})")
+    if rel > bound:
+        raise AssertionError(f"{name}: error {rel:.3e} above {bound:g}")
     return diff
+
+
+def check_norm(name: str, got: torch.Tensor, ref: torch.Tensor,
+               denom: float = None) -> None:
+    """Fail unless ``||got - ref|| <= WHOLE_BOUND * ||ref||`` (or
+    ``* denom``), in the Frobenius norm."""
+    if got.shape != ref.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} or "
+                             "non-finite values")
+    diff = (got.double() - ref.double())
+    rel = diff.norm().item() / max(denom or ref.double().norm().item(),
+                                   1e-30)
+    phase("train-kernels", f"{name}: relative L2 error {rel:.3e} (max abs "
+          f"{diff.abs().max().item():.3e}, bound {WHOLE_BOUND:g})")
+    if rel > WHOLE_BOUND:
+        raise AssertionError(f"{name}: error {rel:.3e} above "
+                             f"{WHOLE_BOUND:g}")
 
 
 def event_ms(fn, reps: int):
@@ -87,14 +152,14 @@ def event_ms(fn, reps: int):
     return out
 
 
-def time_pair(kernel_fn, plain_fn):
-    """Median ms of each function over REPS runs, in the order plain,
+def time_pair(kernel_fn, plain_fn, reps: int = REPS):
+    """Median ms of each function over ``reps`` runs, in the order plain,
     kernel, kernel, plain, after a warm-up."""
     for fn in (kernel_fn, plain_fn, kernel_fn, plain_fn):
         fn()
-    plain = event_ms(plain_fn, REPS // 2)
-    kernel = event_ms(kernel_fn, REPS)
-    plain += event_ms(plain_fn, REPS // 2)
+    plain = event_ms(plain_fn, reps // 2)
+    kernel = event_ms(kernel_fn, reps)
+    plain += event_ms(plain_fn, reps // 2)
     return statistics.median(kernel), statistics.median(plain)
 
 
@@ -141,42 +206,19 @@ def randomize_bn(model: torch.nn.Module, gen: torch.Generator) -> None:
                 m.running_var.copy_(0.5 + torch.rand(c, generator=gen))
 
 
-def main() -> None:
-    # 1. device
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
-                         "this check needs an NVIDIA GPU")
-    dev = torch.device("cuda", 0)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip()
-    print(card, flush=True)
-    card = card.splitlines()[0]
-    phase("device", f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"{torch.cuda.get_device_name(0)}, "
-          f"{torch.cuda.device_count()} visible")
+# ---------------------------------------------------------------------------
+# Serving (phases 3-5)
+# ---------------------------------------------------------------------------
 
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+def serve(dev, card, gen, results):
     from adversarial_learning_on_pointclouds_tpu_torch import infer
     from adversarial_learning_on_pointclouds_tpu_torch.models import (
-        PointNetDenseCls, core,
+        PointNetDenseCls,
     )
-    from adversarial_learning_on_pointclouds_tpu_torch.ops import build
     from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
         encoder_fused, shared_mlp,
     )
-    core.exact_fp32()
 
-    # 2. build
-    t0 = time.perf_counter()
-    built = not build.library_path().exists()
-    build.library()
-    phase("build", f"{'compiled' if built else 'loaded'} "
-          f"{build.library_path().name} in {time.perf_counter() - t0:.1f} s")
-
-    # 3. kernels against their plain versions
-    gen = torch.Generator().manual_seed(SEED)
     err = {"fused_linear_affine_act": 0.0, "fused_stack_maxpool": 0.0,
            "seg_head_fused": 0.0}
     stacks = {"stn3d": ((3, 64, 128, 1024), ("relu",) * 3),
@@ -297,7 +339,6 @@ def main() -> None:
                              f"{margin.max():.3e}")
 
     # 5. timing
-    results = []
     with torch.inference_mode():
         for name, src, line in (
                 ("fused_linear_affine_act", "shared_mlp.cu", "shared_mlp.py:227"),
@@ -338,14 +379,458 @@ def main() -> None:
           f" idle), {len(kernels)} kernel names")
     for key, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
         phase("profile", f"  {ms:.4f} ms  {key[:90]}")
-    serve = []
+    serve_t = []
     for _ in range(REPS):
         t0 = time.perf_counter()
         predictor.predict(clouds[:B])
-        serve.append(time.perf_counter() - t0)
-    serve_ms = statistics.median(serve) * 1e3
+        serve_t.append(time.perf_counter() - t0)
+    serve_ms = statistics.median(serve_t) * 1e3
     phase("timing", f"{card}: Predictor.predict B={B} N={N} host to host: "
           f"{serve_ms:.3f} ms, {B / serve_ms * 1e3:.1f} clouds/s")
+
+
+# ---------------------------------------------------------------------------
+# Training passes against their plain passes (phase 6)
+# ---------------------------------------------------------------------------
+
+class PassRecord:
+    """Per training pass: the largest error seen and the main-shape
+    arguments for timing."""
+
+    def __init__(self):
+        self.err, self.args = {}, {}
+
+    def cmp(self, kernel, pas, tag, names, got, ref, main, fn_args,
+            scales=None):
+        key = (kernel, pas)
+        for nm, a, b in zip(names, got, ref):
+            d = check(f"{kernel} {pas} {nm} {tag}", a, b, BOUND,
+                      "train-kernels", (scales or {}).get(nm))
+            self.err[key] = max(self.err.get(key, 0.0), d)
+        if main:
+            self.args.setdefault(key, []).append(fn_args)
+
+
+def _w(gen, c_in, c_out, dev):
+    return layer_params(gen, c_in, c_out, dev)[0]
+
+
+def _r(gen, *shape, scale=0.1, dev="cuda"):
+    return (torch.randn(*shape, generator=gen) * scale).to(dev)
+
+
+def _gam(gen, c, dev, negative=0.0):
+    g = 0.5 + torch.rand(c, generator=gen)
+    if negative:
+        g = torch.where(torch.rand(c, generator=gen) < negative, -g, g)
+    return g.to(dev)
+
+
+def dz_scales(sh, a):
+    """A BN backward's ``dz`` sums to zero over the rows (up to rounding),
+    so its column sums (``db``, and ``r`` per cloud) are held to the sum
+    of their terms' magnitudes."""
+    mag = sh._bn_dz(*a[:7]).abs()
+    return {"db": mag.sum((0, 1)).max().item(),
+            "db1": mag.sum((0, 1)).max().item(),
+            "r": mag.sum(1).max().item()}
+
+
+def check_winners(tag, got_idx, ref_idx, z3, x, dup_clouds, n, want="max"):
+    """Winner indices: equal to the plain pass's, or, where rounding makes
+    two distinct points tie, a point of (within the bound) the same value;
+    never the second of two duplicated points."""
+    bsz, c3 = got_idx.shape
+    diff = got_idx != ref_idx
+    vg = torch.gather(z3, 1, got_idx.long()[:, None, :])[:, 0]
+    vr = torch.gather(z3, 1, ref_idx.long()[:, None, :])[:, 0]
+    scale = max(1.0, z3.abs().max().item())
+    gap = ((vg - vr).abs() * diff).max().item() / scale
+    xg = torch.gather(x, 1, got_idx.long()[:, :, None].expand(-1, -1,
+                                                             x.shape[-1]))
+    xr = torch.gather(x, 1, ref_idx.long()[:, :, None].expand(-1, -1,
+                                                             x.shape[-1]))
+    dup = diff & (xg == xr).all(-1) & (got_idx > ref_idx)
+    phase("train-kernels", f"trunk2_train F2 arg{want} {tag}: "
+          f"{int(diff.sum())} of {bsz * c3} differ from the plain pass, at a "
+          f"value gap of {gap:.3e}; {int(dup.sum())} later duplicates won")
+    if gap > BOUND or int(dup.sum()):
+        raise AssertionError(f"arg{want} {tag}: wrong winners")
+    if dup_clouds:
+        late = int((got_idx[:dup_clouds] >= n - n // 2).sum())
+        if late:
+            raise AssertionError(f"arg{want} {tag}: {late} tied maxima went "
+                                 "to the later duplicate")
+
+
+def train_kernel_checks(dev, gen, rec):
+    from adversarial_learning_on_pointclouds_tpu_torch.models import core
+    from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
+        pool_fc_epilogue as pf, seg_head_train as sh, trunk_train as tt,
+    )
+
+    c1, c2, c3 = 64, 128, 1024
+    tw = dict(w2=_w(gen, c1, c2, dev), b2=_r(gen, c2, dev=dev),
+              g2=_gam(gen, c2, dev), be2=_r(gen, c2, dev=dev),
+              w3=_w(gen, c2, c3, dev), b3=_r(gen, c3, dev=dev),
+              g3=_gam(gen, c3, dev, negative=0.3), be3=_r(gen, c3, dev=dev))
+    hw = [(_w(gen, 1088, 512, dev), 512), (_w(gen, 512, 256, dev), 256),
+          (_w(gen, 256, 128, dev), 128), (_w(gen, 128, PARTS, dev), PARTS)]
+    hp = [(w, _r(gen, c, dev=dev), _gam(gen, c, dev), _r(gen, c, dev=dev))
+          for w, c in hw]
+    for bsz, n in ((B, TRAIN_N), (B, TRAIN_RAGGED_N), (2, TRAIN_N)):
+        main = (bsz, n) == (B, TRAIN_N)
+        tag = f"B={bsz} N={n}"
+        # Trunk input: post-ReLU features; the first half of the clouds
+        # repeat their first half of points in the second, so every
+        # extremum there is a tie between two blocks.
+        x = torch.relu(torch.randn(bsz, n, c1, generator=gen)).to(dev)
+        dup_clouds = bsz // 2
+        half = n // 2
+        x[:dup_clouds, n - half:] = x[:dup_clouds, :half]
+        with torch.no_grad():
+            a = (x, tw["w2"], tw["b2"])
+            got, ref = tt.f1(*a), tt.f1_plain(*a)
+            rec.cmp("trunk2_train", "F1", tag, ("z2", "sum", "sumsq"), got,
+                    ref, main, a)
+            z2 = ref[0]
+            mu2, _, inv2 = core.batch_moments(ref[1], ref[2], bsz * n)
+            sc2 = tw["g2"] * inv2
+            sh2 = tw["be2"] - mu2 * sc2
+            a = (z2, sc2, sh2, tw["w3"], tw["b3"])
+            got, ref = tt.f2(*a), tt.f2_plain(*a)
+            rec.cmp("trunk2_train", "F2", tag, ("sum", "sumsq", "max", "min"),
+                    got[:4], ref[:4], main, a)
+            z3 = torch.matmul(torch.relu(z2 * sc2 + sh2), tw["w3"]) + tw["b3"]
+            check_winners(tag, got[4], ref[4], z3, x, dup_clouds, n, "max")
+            check_winners(tag, got[5], ref[5], -z3, x, dup_clouds, n, "min")
+            del z3
+            mu3, _, inv3 = core.batch_moments(ref[0], ref[1], bsz * n)
+            s3c = tw["g3"] * inv3
+            idx = torch.where(s3c >= 0, ref[4], ref[5])
+            dg = _r(gen, bsz, c3, scale=1.0, dev=dev)
+            a = (z2, sc2, sh2, tw["w3"], tw["b3"], mu3, inv3,
+                 _r(gen, bsz, c3, scale=1e-3, dev=dev),
+                 _r(gen, bsz, c3, scale=1e-3, dev=dev), s3c * dg, idx, mu2,
+                 inv2)
+            got, ref = tt.b1(*a), tt.b1_plain(*a)
+            rec.cmp("trunk2_train", "B1", tag,
+                    ("dy2", "dw3", "db3", "t1", "t2"), got, ref, main, a)
+
+            # Seg head, pass by pass on the plain pass's outputs.
+            pf_in = x
+            g = torch.relu(torch.randn(bsz, 1024, generator=gen)).to(dev)
+            m = bsz * n
+            (w1, b1, g1, be1), (w2, b2, g2, be2), (w3, b3, g3, be3), \
+                (w4, b4, _, _) = hp
+            g_row = torch.matmul(g, w1[64:])
+            a = (pf_in, g_row, w1[:64], b1)
+            got, ref = sh.p1(*a), sh.p1_plain(*a)
+            rec.cmp("seg_head_train", "P1", tag, ("z1", "sum", "sumsq"), got,
+                    ref, main, a)
+            zs, scs, shs, mus, invs = [ref[0]], [], [], [], []
+            for (w, b, ga, be), (wn, bn, _, _) in zip(hp[:3], hp[1:]):
+                mu, _, inv = core.batch_moments(ref[1], ref[2], m)
+                scs.append(ga * inv)
+                shs.append(be - mu * ga * inv)
+                mus.append(mu)
+                invs.append(inv)
+                if wn is w4:
+                    break
+                a = (zs[-1], scs[-1], shs[-1], wn, bn)
+                got, ref = sh.pmid(*a), sh.pmid_plain(*a)
+                rec.cmp("seg_head_train", "Pmid", f"{wn.shape[0]}->"
+                        f"{wn.shape[1]} {tag}", ("z", "sum", "sumsq"), got,
+                        ref, main, a)
+                zs.append(ref[0])
+            a = (zs[2], scs[2], shs[2], w4, b4)
+            logp = sh.p4_plain(*a)
+            rec.cmp("seg_head_train", "P4", tag, ("logp",), (sh.p4(*a),),
+                    (logp,), main, a)
+            dlogp = _r(gen, bsz, n, PARTS, scale=1.0, dev=dev)
+            a = (zs[2], scs[2], shs[2], w4, b4, mus[2], invs[2], dlogp)
+            got, ref = sh.b4(*a), sh.b4_plain(*a)
+            rec.cmp("seg_head_train", "B4", tag,
+                    ("dy3", "dw4", "db4", "t1", "t2"), got, ref, main, a)
+            dy = ref[0]
+            t1, t2 = ref[3], ref[4]
+            for cur, prev, w in ((2, 1, w3), (1, 0, w2)):
+                a = (zs[cur], dy, scs[cur], mus[cur], invs[cur],
+                     scs[cur] * t1 / m, scs[cur] * t2 / m, zs[prev],
+                     scs[prev], shs[prev], w, mus[prev], invs[prev])
+                got, ref = sh.bmid(*a), sh.bmid_plain(*a)
+                rec.cmp("seg_head_train", "Bmid", f"{w.shape[1]}->"
+                        f"{w.shape[0]} {tag}",
+                        ("dy_prev", "dw", "db", "t1", "t2"), got, ref, main,
+                        a, dz_scales(sh, a))
+                dy, t1, t2 = ref[0], ref[3], ref[4]
+            a = (zs[0], dy, scs[0], mus[0], invs[0], scs[0] * t1 / m,
+                 scs[0] * t2 / m, pf_in, w1[:64])
+            got, ref = sh.b1(*a), sh.b1_plain(*a)
+            rec.cmp("seg_head_train", "B1", tag, ("dpf", "dw1a", "db1", "r"),
+                    got, ref, main, a, dz_scales(sh, a))
+        torch.cuda.synchronize()
+
+    # The pool-fc epilogue at the T-Net head's shapes: groups 1 (one
+    # stream of 32) and 2 (two streams of 32 stacked).
+    wf = _w(gen, 1024, 512, dev)
+    for bsz, groups in ((B, 1), (2 * B, 2)):
+        mx = torch.randn(bsz, 1024, generator=gen).to(dev)
+        a = (mx, mx - torch.rand(bsz, 1024, generator=gen).to(dev),
+             _r(gen, 1024, scale=1.0, dev=dev), _r(gen, 1024, dev=dev), wf,
+             _r(gen, 512, dev=dev), _gam(gen, 512, dev), _r(gen, 512, dev=dev),
+             _r(gen, 512, dev=dev), groups)
+        with torch.no_grad():
+            rec.cmp("pool_fc_epilogue", "fwd", f"B={bsz} groups={groups}",
+                    ("h1", "h", "z1", "mu", "var", "inv"), pf.pool_fc_fwd(*a),
+                    pf.pool_fc_fwd_plain(*a), groups == 1, a)
+
+    # Each autograd function against its whole-function reference.
+    bsz, n = B, TRAIN_N
+    cases = {
+        "trunk2_train": (tt.trunk2_train, tt.trunk2_train_reference,
+                         [torch.relu(torch.randn(bsz, n, c1, generator=gen))
+                          .to(dev), *tw.values()]),
+        "seg_head_train": (sh.seg_head_train, sh.seg_head_train_reference,
+                           [torch.relu(torch.randn(bsz, n, 64, generator=gen))
+                            .to(dev), torch.randn(bsz, 1024, generator=gen)
+                            .to(dev), *[t for p in hp for t in p][:14]]),
+        "pool_fc_epilogue": (pf.pool_fc_epilogue, pf.pool_fc_epilogue_reference,
+                             [mx[:B], mx[:B] - 1, _r(gen, 1024, scale=1.0,
+                                                     dev=dev),
+                              _r(gen, 1024, dev=dev), wf,
+                              _r(gen, 512, dev=dev), _gam(gen, 512, dev),
+                              _r(gen, 512, dev=dev)]),
+    }
+    # A bias in front of a batch-statistic BN has a zero gradient in exact
+    # arithmetic: what both sides compute is the rounding of a cancelling
+    # sum over the rows, held to the norm of the same layer's weight
+    # gradient (a sum over the same rows).
+    zero_grads = {"trunk2_train": {2: 1, 6: 5},
+                  "seg_head_train": {3: 2, 7: 6, 11: 10},
+                  "pool_fc_epilogue": {5: 4}}
+    for name, (fn, ref_fn, args) in cases.items():
+        outs = []
+        for f in (fn, ref_fn):
+            # clone keeps the strides: weights stay [in, out] views
+            leaves = [t.detach().clone().requires_grad_() for t in args]
+            out = f(*leaves)
+            torch.sin(out[0]).sum().backward()
+            outs.append((out, [t.grad for t in leaves]))
+        (o, g), (o_ref, g_ref) = outs
+        for i, (a_, b_) in enumerate(zip(o, o_ref)):
+            check_norm(f"{name} autograd output {i}", a_.detach(),
+                       b_.detach())
+        for i, (a_, b_) in enumerate(zip(g, g_ref)):
+            w = zero_grads[name].get(i)
+            check_norm(f"{name} autograd grad {i}", a_, b_,
+                       None if w is None else g_ref[w].norm().item())
+    torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# The training step (phases 7-8)
+# ---------------------------------------------------------------------------
+
+def pass_counters():
+    from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
+        pool_fc_epilogue as pf, seg_head_train as sh, trunk_train as tt,
+    )
+    return {"trunk2_train": tt.PASSES, "seg_head_train": sh.PASSES,
+            "pool_fc_epilogue": {"fwd": pf.pool_fc_fwd}}
+
+
+def train_slice(dev, card, gen):
+    from adversarial_learning_on_pointclouds_tpu_torch.configs import (
+        SegmentConfig,
+    )
+    from adversarial_learning_on_pointclouds_tpu_torch.models import (
+        PointNetDenseCls,
+    )
+    from adversarial_learning_on_pointclouds_tpu_torch.train import segment
+
+    cfg = SegmentConfig()
+    bsz, n = cfg.batch_size, cfg.num_points
+    model = PointNetDenseCls(cfg.num_parts, cfg.feature_transform,
+                             generator=gen)
+    randomize_bn(model, gen)
+    rng = np.random.default_rng(SEED)
+    pts = (rng.normal(size=(bsz, n, 3)) * rng.uniform(0.5, 2.0, (bsz, 1, 3))
+           ).astype(np.float32)
+    labels = (np.arange(n)[None, :] * 7 // n
+              + 7 * (pts[..., 1] > 0)).astype(np.int64) % cfg.num_parts
+
+    runs = {}
+    counters = pass_counters()
+    for where in ("cuda", "cpu"):
+        m = copy.deepcopy(model)
+        logps = []
+        m.register_forward_hook(lambda mod, inp, out: logps.append(
+            out[0].detach()))
+        state = segment.create_state(cfg, 100, device=where, model=m)
+        tx = segment.make_tx(cfg, 100)
+        x = torch.from_numpy(pts).to(where)
+        y = torch.from_numpy(labels).to(where)
+        for passes in counters.values():
+            for p in passes.values():
+                p.launches = 0
+        t0 = time.perf_counter()
+        metrics = segment.train_step(state, x, y, cfg=cfg, tx=tx)
+        if where == "cuda":
+            torch.cuda.synchronize()
+            launches = {k: {p: f.launches for p, f in passes.items()}
+                        for k, passes in counters.items()}
+        phase("train-slice", f"train_step on {where} B={bsz} N={n}: "
+              f"loss {float(metrics['loss']):.6f}, acc "
+              f"{float(metrics['acc']):.4f}, "
+              f"{time.perf_counter() - t0:.3f} s (first step)")
+        runs[where] = (state, metrics, logps[0], x, y, tx)
+
+    for k, per in PER_STEP.items():
+        if launches[k] != per:
+            raise AssertionError(f"{k} launched {launches[k]} in one step, "
+                                 f"expected {per}")
+    phase("train-slice", f"launches in one step: {launches}")
+
+    (gs, gm, glogp, _, _, _), (cs, cm, clogp, _, _, _) = runs["cuda"], \
+        runs["cpu"]
+    check("loss GPU vs CPU", gm["loss"].cpu()[None], cm["loss"][None],
+          STEP_BOUND, "train-slice")
+    check("log-probs GPU vs CPU", glogp.cpu(), clogp, STEP_BOUND,
+          "train-slice")
+    gsd, csd = gs.model.state_dict(), cs.model.state_dict()
+    stats = [k for k in csd if k.endswith(("running_mean", "running_var"))]
+    worst = max(rel_err(gsd[k].cpu(), csd[k])[0] for k in stats)
+    phase("train-slice", f"{len(stats)} new running statistics GPU vs CPU: "
+          f"max scale-relative error {worst:.3e} (bound {STEP_BOUND:g})")
+    if worst > STEP_BOUND:
+        raise AssertionError("running statistics differ")
+    gp = dict(gs.model.named_parameters())
+    cp = dict(cs.model.named_parameters())
+    scale = max(float(p.grad.abs().max()) for p in cp.values())
+    worst = max(float((gp[k].grad.cpu() - p.grad).abs().max())
+                for k, p in cp.items())
+    phase("train-slice", f"{len(cp)} parameter gradients GPU vs CPU: max abs "
+          f"error {worst:.3e}, {worst / (1 + scale):.3e} of (1 + max|g| = "
+          f"{1 + scale:.3e}) (bound {GRAD_BOUND:g})")
+    if worst > GRAD_BOUND * (1 + scale):
+        raise AssertionError("gradients differ")
+
+    state, _, _, x, y, tx = runs["cuda"]
+    losses = [float(segment.train_step(state, x, y, cfg=cfg, tx=tx)["loss"])
+              for _ in range(10)]
+    phase("train-slice", f"10 more Adam steps on the fixed batch: loss "
+          f"{losses[0]:.5f} -> {losses[-1]:.5f}")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    if not all(torch.isfinite(p).all() for p in state.model.parameters()):
+        raise AssertionError("non-finite parameters after training")
+    return runs["cuda"], launches
+
+
+def train_timing(card, rec, cuda_run, launches, results):
+    from adversarial_learning_on_pointclouds_tpu_torch.configs import (
+        SegmentConfig,
+    )
+    from adversarial_learning_on_pointclouds_tpu_torch.train import segment
+
+    counters = pass_counters()
+    rows = {}
+    for (kernel, pas), calls in rec.args.items():
+        fn = counters[kernel][pas]
+        plain = getattr(sys.modules[fn.__module__], fn.__name__ + "_plain")
+        # Times per step: each distinct call once, times its repeats.
+        times = PER_STEP[kernel][pas] / len(calls)
+        with torch.no_grad():
+            ms, plain_ms = time_pair(lambda: [fn(*a) for a in calls],
+                                     lambda: [plain(*a) for a in calls])
+            dev_ms = sum(device_profile(
+                lambda: [fn(*a) for a in calls]).values())
+            plain_dev_ms = sum(device_profile(
+                lambda: [plain(*a) for a in calls]).values())
+        ms, plain_ms, dev_ms, plain_dev_ms = (
+            t * times for t in (ms, plain_ms, dev_ms, plain_dev_ms))
+        phase("train-timing", f"{card}: {kernel} {pas} x"
+              f"{PER_STEP[kernel][pas]} per step at B={B} N={TRAIN_N}: "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; device time "
+              f"alone: kernel {dev_ms:.4f} ms, plain {plain_dev_ms:.4f} ms")
+        rows.setdefault(kernel, []).append({
+            "pass": pas,
+            "replaces": f"{TPU_KERNELS}/{TRAIN_KERNELS[kernel][1][pas]}",
+            "launches": launches[kernel][pas],
+            "max_abs_err": rec.err[(kernel, pas)], "ms": ms,
+            "plain_ms": plain_ms, "device_ms": dev_ms,
+            "plain_device_ms": plain_dev_ms})
+    for kernel, passes in rows.items():
+        src, sites = TRAIN_KERNELS[kernel]
+        tot = {k: sum(p[k] for p in passes)
+               for k in ("ms", "plain_ms", "device_ms", "plain_device_ms")}
+        results.append({
+            "name": kernel, "route": "cuda",
+            "source": f"{KERNELS_ROOT}/csrc/{src}",
+            "replaces": f"{TPU_KERNELS}/{next(iter(sites.values()))}",
+            "launches": sum(launches[kernel].values()),
+            "max_abs_err": max(p["max_abs_err"] for p in passes),
+            **tot, "times": "per training step", "passes": passes})
+
+    state, _, _, x, y, tx = cuda_run
+    cfg = SegmentConfig()
+
+    def step():
+        segment.train_step(state, x, y, cfg=cfg, tx=tx)
+
+    for _ in range(3):
+        step()
+    step_ms = statistics.median(event_ms(step, 12))
+    pts = cfg.batch_size * cfg.num_points
+    phase("train-timing", f"{card}: train_step B={cfg.batch_size} "
+          f"N={cfg.num_points}: median {step_ms:.3f} ms over 12 steps, "
+          f"{pts / step_ms * 1e3:.1f} points/s")
+    kernels = device_profile(step, reps=5)
+    busy = sum(kernels.values())
+    phase("train-timing", f"{card}: step B={cfg.batch_size} "
+          f"N={cfg.num_points}: GPU kernels busy {busy:.3f} ms of "
+          f"{step_ms:.3f} ms ({100 * (1 - busy / step_ms):.1f}% idle), "
+          f"{len(kernels)} kernel names")
+    for key, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:12]:
+        phase("train-timing", f"  {ms:.4f} ms  {key[:90]}")
+
+
+def main() -> None:
+    # 1. device
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
+                         "this check needs an NVIDIA GPU")
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip()
+    print(card, flush=True)
+    card = card.splitlines()[0]
+    phase("device", f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}, "
+          f"{torch.cuda.device_count()} visible")
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from adversarial_learning_on_pointclouds_tpu_torch.models import core
+    from adversarial_learning_on_pointclouds_tpu_torch.ops import build
+    core.exact_fp32()
+
+    # 2. build
+    t0 = time.perf_counter()
+    built = not build.library_path().exists()
+    build.library()
+    phase("build", f"{'compiled' if built else 'loaded'} "
+          f"{build.library_path().name} in {time.perf_counter() - t0:.1f} s")
+
+    gen = torch.Generator().manual_seed(SEED)
+    results = []
+    serve(dev, card, gen, results)
+    rec = PassRecord()
+    train_kernel_checks(dev, gen, rec)
+    cuda_run, launches = train_slice(dev, card, gen)
+    train_timing(card, rec, cuda_run, launches, results)
 
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {

@@ -141,8 +141,31 @@ def test_checkpoint_mismatch_is_readable(tmp_path, port_model):
         checkpoint.load_segmenter(other)
 
 
-def test_train_mode_raises(port_model):
+def test_train_mode_raises(port_model, monkeypatch):
+    """Train mode is the training forward: on the CPU it runs the training
+    kernels' plain passes (the kernel library is never built, no launch
+    is counted) and updates the running statistics; on a device without
+    kernels it raises."""
+    from adversarial_learning_on_pointclouds_tpu_torch.ops import build
+    from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
+        pool_fc_epilogue, seg_head_train, trunk_train,
+    )
+
+    def unbuildable():
+        raise AssertionError("a CPU tensor reached the kernel library")
+
+    monkeypatch.setattr(build, "library", unbuildable)
+    passes = [*trunk_train.PASSES.values(), *seg_head_train.PASSES.values(),
+              pool_fc_epilogue.pool_fc_fwd]
+    counts = [p.launches for p in passes]
     model = PointNetDenseCls(PARTS)
+    model.load_state_dict(port_model.state_dict())
     model.train()
-    with pytest.raises(RuntimeError, match="eval forward"):
-        model(torch.zeros(1, 8, 3))
+    logp, _, _ = model(torch.randn(2, 8, 3))
+    logp.sum().backward()
+    assert [p.launches for p in passes] == counts
+    assert int(model.bn1.num_batches_tracked) == 1
+    assert not torch.equal(model.bn1.running_mean,
+                           port_model.bn1.running_mean)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        model.to("meta")(torch.zeros(1, 8, 3, device="meta"))
