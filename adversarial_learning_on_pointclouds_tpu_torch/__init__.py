@@ -6,21 +6,29 @@ its layout (``models/``, ``ops/``, ``ops/kernels/``, ``utils/``,
 ``torch`` and numpy and never JAX, and nothing of the JAX package.
 
 What is ported so far: the serving path (the eval forward of the PointNet
-part segmenter, the adversarial trainer's generator) and the config-3
-training step (``train/segment.py``), with their six TPU kernels
+part segmenter, the adversarial trainer's generator), the config-3
+training step (``train/segment.py``) and the config-4 adversarial G+D
+training step (``train/adversarial.py``, with the pointwise
+discriminator ``models/discriminator.py``), with their seven TPU kernels
 rewritten by hand in CUDA C++ for Hopper (``csrc/``, built at first use
-by ``ops/build.py``): three eval kernels and three training kernels. A
-CPU tensor runs each kernel's plain PyTorch version; a CUDA tensor runs
-the kernel.
+by ``ops/build.py``): three eval kernels, three training kernels and the
+fused discriminator. A CPU tensor runs each kernel's plain PyTorch
+version; a CUDA tensor runs the kernel.
 
-Entry points::
+Entry points (on the card unless given ``device="cpu"``)::
 
     python -m adversarial_learning_on_pointclouds_tpu_torch.infer \\
         --checkpoint g.pth --model adv --input shape.pts
 
     from adversarial_learning_on_pointclouds_tpu_torch.train import segment
-    state = segment.create_state(cfg, steps_per_epoch, device="cuda")
+    state = segment.create_state(cfg, steps_per_epoch)
     segment.train_step(state, points, labels, cfg=cfg, tx=tx)
+
+    from adversarial_learning_on_pointclouds_tpu_torch.train import (
+        adversarial)
+    state = adversarial.create_state(cfg, steps_per_epoch)
+    adversarial.train_step(state, x_l, y_l, x_u, cfg=cfg, g_tx=g_tx,
+                           d_tx=d_tx)
 """
 
 __version__ = "0.1.0"

@@ -1,13 +1,14 @@
-"""Configuration of the segmentation step and of serving.
+"""Configuration of the training steps and of serving.
 
 Counterpart of ``adversarial_learning_on_pointclouds_tpu/configs.py``:
-the ``SegmentConfig`` fields that the train step and inference read, with
-the JAX package's names and defaults.
+the ``SegmentConfig`` and ``AdversarialConfig`` fields that the train
+steps and inference read, with the JAX package's names and defaults.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,3 +33,44 @@ class SegmentConfig:
     resample: bool = True         # fixed-N subsample when clouds are larger
     point_dropout: bool = False
     num_parts: int = 50
+
+
+# The JAX package's ablation controls and cross-stream batching knobs, with
+# their defaults: the port runs the defaults only.
+_NOT_PORTED = {"supervised_only": False, "self_training": False,
+               "d_geometry": False, "paired_trunks": False,
+               "paired_conv1": False, "fused_forward": False}
+
+
+@dataclasses.dataclass(frozen=True)
+class AdversarialConfig(SegmentConfig):
+    """Config 4: adversarial semi-supervised segmentation (Hung et al.,
+    arXiv:1802.07934), the fields the G+D train step reads. Setting an
+    ablation control (``supervised_only``, ``self_training``,
+    ``d_geometry``) or a batching knob (``paired_trunks``,
+    ``paired_conv1``, ``fused_forward``) off its default raises: they are
+    still to port (ROADMAP, Queue 1, item 14)."""
+
+    lambda_adv: float = 0.01      # --lambda_adv
+    lambda_adv_unl: Optional[float] = None  # unlabeled stream's own weight
+    lambda_semi: float = 0.1      # --lambda_semi
+    semi_threshold: float = 0.2   # --threshold (T_semi)
+    lr_d: float = 1e-4            # discriminator Adam lr
+    beta1_d: float = 0.9
+    beta2_d: float = 0.99
+    semi_start: int = 0           # --semi_start: first step with L_semi
+    paired_heads: bool = True     # T-Net fc heads batched across streams
+    supervised_only: bool = False
+    self_training: bool = False
+    d_geometry: bool = False
+    paired_trunks: bool = False
+    paired_conv1: bool = False
+    fused_forward: bool = False
+
+    def __post_init__(self):
+        for name, default in _NOT_PORTED.items():
+            if getattr(self, name) != default:
+                raise NotImplementedError(
+                    f"AdversarialConfig({name}={getattr(self, name)!r}) is "
+                    "not ported yet (ROADMAP, Queue 1, item 14: ablation "
+                    "controls)")

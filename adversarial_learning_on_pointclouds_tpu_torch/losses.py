@@ -1,8 +1,11 @@
-"""Losses of the segmentation step.
+"""Losses of the segmentation and adversarial steps.
 
-Counterpart of ``adversarial_learning_on_pointclouds_tpu/losses.py``
-(``nll_loss``, ``orthogonality_reg``); the adversarial objectives come
-with the adversarial step.
+Counterpart of ``adversarial_learning_on_pointclouds_tpu/losses.py``:
+``nll_loss`` and ``orthogonality_reg``, and Hung et al.'s adversarial
+objectives (arXiv:1802.07934): the generator's adversarial loss (eq. 3),
+the discriminator's real/fake loss (eq. 2) and the confidence-masked
+semi-supervised loss (eq. 4-5), with its D-free control
+``self_train_loss``.
 """
 
 from __future__ import annotations
@@ -38,3 +41,51 @@ def orthogonality_reg(trans: Optional[torch.Tensor]) -> torch.Tensor:
     eye = torch.eye(trans.shape[-1], dtype=trans.dtype, device=trans.device)
     gram = torch.matmul(trans, trans.transpose(-1, -2))
     return torch.linalg.norm(eye - gram, dim=(-2, -1)).mean()
+
+
+def bce_with_logits(logits: torch.Tensor, target: float) -> torch.Tensor:
+    """Mean binary cross-entropy on logits (torch ``BCEWithLogitsLoss``)
+    in the JAX package's stable form ``max(z, 0) - z t + log(1 +
+    exp(-|z|))``."""
+    z = logits
+    return (torch.clamp(z, min=0) - z * target
+            + torch.log1p(torch.exp(-z.abs()))).mean()
+
+
+def adv_g_loss(d_logits: torch.Tensor) -> torch.Tensor:
+    """The generator's adversarial loss: ``BCE(D(softmax(G(x))), real)``."""
+    return bce_with_logits(d_logits, 1.0)
+
+
+def d_loss(d_logits_real: torch.Tensor,
+           d_logits_fake: torch.Tensor) -> torch.Tensor:
+    """The discriminator's loss: real on one-hot labels, fake on
+    predictions."""
+    return bce_with_logits(d_logits_real, 1.0) + bce_with_logits(
+        d_logits_fake, 0.0)
+
+
+def _masked_pseudo_label_nll(log_probs: torch.Tensor,
+                             mask: torch.Tensor) -> torch.Tensor:
+    """Mean NLL of the argmax pseudo-labels over the masked points (0 on
+    an empty mask); mask and pseudo-labels carry no gradient."""
+    pseudo = log_probs.detach().argmax(-1)
+    mask = mask.detach().to(log_probs.dtype)
+    denom = torch.clamp(mask.sum(), min=1.0)
+    return -(_pick_class(log_probs, pseudo) * mask).sum() / denom
+
+
+def semi_loss(log_probs: torch.Tensor, d_logits: torch.Tensor,
+              threshold: float) -> torch.Tensor:
+    """Self-training on unlabeled points where ``sigmoid(D) >
+    threshold``: ``log_probs [B, N, k]``, ``d_logits [B, N, 1]``."""
+    return _masked_pseudo_label_nll(
+        log_probs, torch.sigmoid(d_logits[..., 0]) > threshold)
+
+
+def self_train_loss(log_probs: torch.Tensor,
+                    threshold: float) -> torch.Tensor:
+    """``semi_loss`` with the generator's own confidence (max softmax >
+    threshold) as the mask: the D-free control."""
+    return _masked_pseudo_label_nll(
+        log_probs, log_probs.detach().amax(-1).exp() > threshold)

@@ -1,5 +1,8 @@
 """The models, eval and train, with the reference's parameter names."""
 
+from adversarial_learning_on_pointclouds_tpu_torch.models.discriminator import (
+    FCDiscriminator,
+)
 from adversarial_learning_on_pointclouds_tpu_torch.models.encoder import (
     PointNetfeat,
 )
@@ -10,4 +13,5 @@ from adversarial_learning_on_pointclouds_tpu_torch.models.tnet import (
     STN3d, STNkd,
 )
 
-__all__ = ["PointNetDenseCls", "PointNetfeat", "STN3d", "STNkd"]
+__all__ = ["FCDiscriminator", "PointNetDenseCls", "PointNetfeat", "STN3d",
+           "STNkd"]

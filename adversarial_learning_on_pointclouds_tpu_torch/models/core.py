@@ -8,8 +8,9 @@ the JAX package's channel-last layout (``[B, N, C]``, weights used as
 ``[in, out]`` views).
 
 * BatchNorm: eval folds the running statistics; train
-  (``batch_norm_train``) normalizes with the batch moments and updates
-  the running statistics in place (``eps = 1e-5``, momentum 0.1).
+  (``batch_norm_train``, and ``batch_norm_train_grouped`` per row block)
+  normalizes with the batch moments and updates the running statistics
+  in place (``eps = 1e-5``, momentum 0.1).
 * Init is torch's default for ``Conv1d``/``Linear`` (weight and bias
   ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))``), which is what the JAX
   package's ``torch_linear_init`` reproduces; ``init_`` redraws it from
@@ -109,6 +110,38 @@ def batch_norm_train(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
     update_running(bn, mean, var, x.numel() // x.shape[-1])
     inv = torch.rsqrt(var + BN_EPS)
     return (x - mean) * (inv * bn.weight) + bn.bias
+
+
+def batch_norm_train_grouped(bn: nn.BatchNorm1d, x: torch.Tensor,
+                             groups: int) -> torch.Tensor:
+    """Train-mode BatchNorm of ``groups`` contiguous row blocks of ``x
+    [G * B, ..., C]``, each normalized with its own batch moments, as the
+    JAX package's ``core.batch_norm_grouped``.
+
+    Every block is centred on the *incoming* running mean; the running
+    statistics then take the blocks' EMA chained block 0 -> G - 1, the
+    statistics of ``groups`` sequential ``batch_norm_train`` calls (whose
+    later blocks would centre on the updated mean: a rounding-level
+    difference). ``groups == 1`` is ``batch_norm_train``."""
+    if groups == 1:
+        return batch_norm_train(bn, x)
+    gb, c = x.shape[0], x.shape[-1]
+    if gb % groups:
+        raise ValueError(f"batch {gb} does not split into {groups} groups")
+    cc = bn.running_mean.detach().clone()
+    xc = (x - cc).reshape((groups, gb // groups) + tuple(x.shape[1:]))
+    axes = tuple(range(1, xc.dim() - 1))
+    mean_c = xc.mean(dim=axes, keepdim=True)
+    m2 = xc.square().mean(dim=axes, keepdim=True)
+    var = torch.clamp(m2 - mean_c.square(), min=0.0)
+    inv = torch.rsqrt(var + BN_EPS)
+    y = ((xc - mean_c) * (inv * bn.weight) + bn.bias).reshape(x.shape)
+    mean = (mean_c + cc).reshape(groups, c)
+    var = var.reshape(groups, c)
+    m = xc[0].numel() // c
+    for i in range(groups):
+        update_running(bn, mean[i], var[i], m)
+    return y
 
 
 def batch_moments(s: torch.Tensor, ss: torch.Tensor, m: int):

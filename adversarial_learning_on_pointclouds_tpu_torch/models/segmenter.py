@@ -7,7 +7,8 @@ per-point and global features go straight into the head (1088->512->256
 ->128->k, BN + ReLU each, then a per-point ``log_softmax``), so the ``[B,
 N, 1088]`` concat never exists. Eval runs ``seg_head_fused`` with folded
 BNs; train (``.train()``) runs ``seg_head_train`` with batch statistics
-and updates the running statistics in place.
+and updates the running statistics in place. ``forward_pair`` is the
+adversarial trainer's two-stream training forward.
 """
 
 from __future__ import annotations
@@ -54,6 +55,21 @@ class PointNetDenseCls(nn.Module):
             pf, g, *folded[0], *folded[1], *folded[2],
             core.weight_in_out(self.conv4), self.conv4.bias)
         return logp, trans, trans_feat
+
+    def forward_pair(self, x_a: torch.Tensor, x_b: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor,
+                                Optional[torch.Tensor], Optional[torch.Tensor]]:
+        """The train-mode forward of two streams ``[B, N, 3]`` -> ``(logp_a,
+        logp_b, trans_feat_a, trans_feat_b)``, as the JAX package's
+        ``apply_segmenter_pair`` (the adversarial trainer's default,
+        ``paired_heads``): the encoder through ``PointNetfeat.forward_pair``,
+        then the seg head per stream, a then b."""
+        if not self.training:
+            raise ValueError("forward_pair is the two-stream training "
+                             "forward: put the model in .train() first")
+        pf_a, g_a, pf_b, g_b, tf_a, tf_b = self.feat.forward_pair(x_a, x_b)
+        logp_a = self._train_head(pf_a, g_a)
+        return logp_a, self._train_head(pf_b, g_b), tf_a, tf_b
 
     def _train_head(self, pf: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         params = []

@@ -14,7 +14,8 @@ fc BNs).
   applied to the pooled vector (``max(relu(y)) == relu(max(y))``); fc1 +
   BN + both ReLUs run as ``relu_fc_bn_relu`` (moments centred on the
   running mean); fc2 + BN is plain, then fc3. Running statistics update in
-  place, as torch's BatchNorm does.
+  place, as torch's BatchNorm does. ``forward_pair`` (train mode, two
+  streams) runs the trunks per stream and the fc head once for both.
 """
 
 from __future__ import annotations
@@ -66,6 +67,29 @@ class STNkd(nn.Module):
         out = core.dense(self.fc3, h)
         iden = torch.eye(self.k, dtype=out.dtype, device=out.device)
         return (out + iden.reshape(-1)).reshape(-1, self.k, self.k)
+
+    def forward_pair(self, x_a: torch.Tensor, x_b: torch.Tensor):
+        """Train mode, two streams of the same shape -> ``(T_a, T_b)``, as
+        the JAX package's ``apply_tnet_pair``: the conv trunks run per
+        stream (running statistics chained a -> b); the fc head runs once
+        on the stacked ``[2B, 1024]`` pool with per-stream batch
+        statistics (fc1 + BN through ``relu_fc_bn_relu(groups=2)``, fc2 +
+        BN through ``batch_norm_train_grouped``), the exact statistics of
+        two sequential heads."""
+        b = x_a.shape[0]
+        h_a = self._train_trunk(x_a)
+        h = torch.cat([h_a, self._train_trunk(x_b)])
+        h1, mu1, var1 = pool_fc_epilogue.relu_fc_bn_relu(
+            h, core.weight_in_out(self.fc1), self.fc1.bias, self.bn4.weight,
+            self.bn4.bias, self.bn4.running_mean, groups=2)
+        for i in range(2):
+            core.update_running(self.bn4, mu1[i], var1[i], b)
+        h2 = torch.relu(core.batch_norm_train_grouped(
+            self.bn5, core.dense(self.fc2, h1), 2))
+        out = core.dense(self.fc3, h2)
+        iden = torch.eye(self.k, dtype=out.dtype, device=out.device)
+        t = (out + iden.reshape(-1)).reshape(-1, self.k, self.k)
+        return t[:b], t[b:]
 
     def _train_trunk(self, x: torch.Tensor) -> torch.Tensor:
         h1 = ops.linear_bn_act(self.conv1, self.bn1, x, "relu")

@@ -38,9 +38,10 @@ SIGNATURES = {
     "pt_seg_head": [_P] * 15 + [_I] * 9 + [_P],
 }
 # The training passes take one argument struct (ops/launch.py mirrors it).
-for _name in ("pt_pool_fc_fwd", "pt_trunk_f1", "pt_trunk_f2", "pt_trunk_b1", "pt_head_p1",
-              "pt_head_pmid", "pt_head_p4", "pt_head_b4", "pt_head_bmid",
-              "pt_head_b1"):
+for _name in ("pt_pool_fc_fwd", "pt_trunk_f1", "pt_trunk_f2", "pt_trunk_b1",
+              "pt_head_p1", "pt_head_pmid", "pt_head_p4", "pt_head_b4",
+              "pt_head_bmid", "pt_head_b1", "pt_disc_fwd", "pt_disc_bwd_dx",
+              "pt_disc_bwd_dw"):
     SIGNATURES[_name] = [_P, _I, _P]
 
 

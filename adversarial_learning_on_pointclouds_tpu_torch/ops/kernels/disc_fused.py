@@ -1,0 +1,280 @@
+"""Fused discriminator: the pointwise k -> 64 -> 128 -> 256 -> 512 -> 1
+stack with LeakyReLU(0.2), forward and backward.
+
+Counterpart of ``adversarial_learning_on_pointclouds_tpu/ops/kernels/
+disc_fused.py``. Four CUDA passes over ``x [B, N, k]`` (``csrc/
+disc_fused.cu``, whose header says what bounds them on the card), each
+recomputing the hidden activations from ``x``:
+
+* ``disc_fwd``: the logits ``[B, N, 1]``;
+* ``disc_bwd_dx``: the input gradient only (D frozen, the generator step);
+* ``disc_bwd_dw``: the weight and bias gradients only (a detached input,
+  the discriminator step);
+* ``disc_bwd``: both (the full backward).
+
+Each has a plain PyTorch twin of the same signature (``*_plain``) that
+CPU tensors run. Weights are ``[in, out]`` (on a CUDA device, views of
+row-major ``[out, in]`` storage, as ``core.weight_in_out`` gives them);
+biases ``[out]``. The four functions at the end are the JAX package's
+four custom VJPs: ``disc_forward`` (full backward),
+``disc_forward_frozen`` (input gradient only, no weight gradients),
+``disc_forward_detached`` (weight gradients only) and
+``disc_with_known_logits`` (returns given logits and installs the
+weight-gradient backward from ``x``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Sequence, Tuple
+
+import torch
+
+from adversarial_learning_on_pointclouds_tpu_torch.ops import launch
+
+WIDTHS = (64, 128, 256, 512, 1)
+SLOPE = 0.2
+MAX_K = 64                # input width the kernels take
+MAX_ROWS_PER_SPLIT = 2048  # rows a weight-gradient block sums in fp32
+
+Tensors = Sequence[torch.Tensor]
+
+
+def leaky(z: torch.Tensor) -> torch.Tensor:
+    return torch.where(z >= 0, z, SLOPE * z)
+
+
+def _dleaky(h: torch.Tensor) -> torch.Tensor:
+    """LeakyReLU' from the sign of the output (the sign of the input)."""
+    return torch.where(h >= 0, torch.ones_like(h), torch.full_like(h, SLOPE))
+
+
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    return t.reshape(-1, t.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# The plain twins
+# ---------------------------------------------------------------------------
+
+def _hidden(x, ws, bs):
+    hs = [x]
+    for w, b in zip(ws[:4], bs[:4]):
+        hs.append(leaky(torch.matmul(hs[-1], w) + b))
+    return hs
+
+
+def disc_fwd_plain(x, ws, bs):
+    """Logits ``[B, N, 1]`` of ``x [B, N, k]``."""
+    return torch.matmul(_hidden(x, ws, bs)[-1], ws[4]) + bs[4]
+
+
+def _backward_plain(x, g, ws, bs, want_dx: bool, want_dw: bool):
+    hs = _hidden(x, ws, bs)
+    dh, dws, dbs = g, [], []
+    for i in reversed(range(5)):
+        dz = dh if i == 4 else dh * _dleaky(hs[i + 1])
+        if want_dw:
+            dws.insert(0, torch.matmul(_rows(hs[i]).t(), _rows(dz)))
+            dbs.insert(0, dz.sum((0, 1)))
+        if i > 0 or want_dx:
+            dh = torch.matmul(dz, ws[i].t())
+    return dh, tuple(dws), tuple(dbs)
+
+
+def disc_bwd_dx_plain(x, g, ws, bs):
+    """``dx [B, N, k]`` from the logits' cotangent ``g [B, N, 1]``."""
+    return _backward_plain(x, g, ws, bs, True, False)[0]
+
+
+def disc_bwd_dw_plain(x, g, ws, bs):
+    """``(dws, dbs)``: the five weight gradients (``[in, out]``) and bias
+    gradients; the chain stops at layer 2 (no input gradient)."""
+    return _backward_plain(x, g, ws, bs, False, True)[1:]
+
+
+def disc_bwd_plain(x, g, ws, bs):
+    """``(dx, dws, dbs)``, the full backward."""
+    return _backward_plain(x, g, ws, bs, True, True)
+
+
+# ---------------------------------------------------------------------------
+# The kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check(x: torch.Tensor, ws: Tensors, bs: Tensors) -> Tuple[int, int]:
+    bsz, n, k = x.shape
+    dev = x.device
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"the discriminator kernels take 1..{MAX_K} input "
+                         f"channels, got {k}")
+    launch.expect("x", x, (bsz, n, k), dev)
+    c_in = k
+    for i, (w, b, c_out) in enumerate(zip(ws, bs, WIDTHS), start=1):
+        launch.expect(f"w{i}", w, (c_in, c_out), dev, weight=True)
+        launch.expect(f"b{i}", b, (c_out,), dev)
+        c_in = c_out
+    return bsz * n, k
+
+
+def _params(ws: Tensors, bs: Tensors) -> dict:
+    out = {f"w{i}": w.t() for i, w in enumerate(ws, start=1)}
+    out.update({f"b{i}": b for i, b in enumerate(bs, start=1)})
+    return out
+
+
+def _tiles(m: int) -> int:
+    return -(-m // launch.TILE)
+
+
+def grad_layout(k: int):
+    """``[(offset, shape)]`` of dW1..dW5 (``[out, in]``) and db1..db5 in
+    the kernel's gradient buffer (``GradLayout`` in the CUDA source), and
+    its size."""
+    shapes = []
+    c_in = k
+    for c_out in WIDTHS:
+        shapes.append((c_out, c_in))
+        c_in = c_out
+    shapes += [(c,) for c in WIDTHS]
+    out, at = [], 0
+    for s in shapes:
+        out.append((at, s))
+        at += math.prod(s)
+    return out, at
+
+
+def dw_splits(m: int, device: torch.device) -> Tuple[int, int]:
+    """``(tiles per block, blocks)`` of a weight-gradient pass: about one
+    block per SM (a block takes most of an SM's shared memory), each
+    summing at most ``MAX_ROWS_PER_SPLIT`` rows into its own slot."""
+    tiles = _tiles(m)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    per = min(MAX_ROWS_PER_SPLIT // launch.TILE, max(1, -(-tiles // sms)))
+    return per, -(-tiles // per)
+
+
+def disc_fwd(x, ws, bs):
+    """The forward pass: the kernel on a CUDA tensor, the plain version on
+    a CPU tensor."""
+    if launch.on_cpu(x):
+        return disc_fwd_plain(x, ws, bs)
+    m, k = _check(x, ws, bs)
+    logits = torch.empty(x.shape[:2] + (1,), device=x.device,
+                         dtype=torch.float32)
+    a = launch.args(launch.DiscArgs, m=m, k=k, per=1, splits=_tiles(m), x=x,
+                    logits=logits, **_params(ws, bs))
+    launch.call("pt_disc_fwd", x.device, ctypes.addressof(a))
+    disc_fwd.launches += 1
+    return logits
+
+
+def disc_bwd_dx(x, g, ws, bs):
+    if launch.on_cpu(x):
+        return disc_bwd_dx_plain(x, g, ws, bs)
+    m, k = _check(x, ws, bs)
+    launch.expect("g", g, x.shape[:2] + (1,), x.device)
+    dx = torch.empty_like(x)
+    a = launch.args(launch.DiscArgs, m=m, k=k, per=1, splits=_tiles(m), x=x,
+                    g=g, dx=dx, **_params(ws, bs))
+    launch.call("pt_disc_bwd_dx", x.device, ctypes.addressof(a))
+    disc_bwd_dx.launches += 1
+    return dx
+
+
+def _bwd_dw_launch(x, g, ws, bs, dx):
+    m, k = _check(x, ws, bs)
+    dev = x.device
+    launch.expect("g", g, x.shape[:2] + (1,), dev)
+    layout, size = grad_layout(k)
+    per, splits = dw_splits(m, dev)
+    grad = torch.empty(size, device=dev, dtype=torch.float32)
+    part = torch.empty((splits, size), device=dev, dtype=torch.float32)
+    a = launch.args(launch.DiscArgs, m=m, k=k, per=per, splits=splits, x=x,
+                    g=g, dx=dx, part=part, grad=grad, **_params(ws, bs))
+    launch.call("pt_disc_bwd_dw", dev, ctypes.addressof(a))
+    views = [grad[at:at + math.prod(s)].view(s) for at, s in layout]
+    return tuple(w.t() for w in views[:5]), tuple(views[5:])
+
+
+def disc_bwd_dw(x, g, ws, bs):
+    if launch.on_cpu(x):
+        return disc_bwd_dw_plain(x, g, ws, bs)
+    out = _bwd_dw_launch(x, g, ws, bs, None)
+    disc_bwd_dw.launches += 1
+    return out
+
+
+def disc_bwd(x, g, ws, bs):
+    if launch.on_cpu(x):
+        return disc_bwd_plain(x, g, ws, bs)
+    dx = torch.empty_like(x)
+    dws, dbs = _bwd_dw_launch(x, g, ws, bs, dx)
+    disc_bwd.launches += 1
+    return dx, dws, dbs
+
+
+disc_fwd.launches = disc_bwd_dx.launches = disc_bwd_dw.launches = 0
+disc_bwd.launches = 0
+PASSES = {"fwd": disc_fwd, "bwd_dx": disc_bwd_dx, "bwd_dw": disc_bwd_dw,
+          "bwd": disc_bwd}
+
+
+# ---------------------------------------------------------------------------
+# The autograd function
+# ---------------------------------------------------------------------------
+
+class _Disc(torch.autograd.Function):
+    """The stack on ``x`` (or, given ``logits``, those logits) with one of
+    the JAX package's four backward rules: ``full`` (input, weight and
+    bias gradients), ``frozen`` (the input's only), ``detached`` and
+    ``known`` (the weights' and biases' only)."""
+
+    @staticmethod
+    def forward(ctx, mode, logits, x, *params):
+        ctx.mode = mode
+        ctx.save_for_backward(x, *params)
+        if logits is not None:
+            return logits.clone()
+        return disc_fwd(x, params[:5], params[5:])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *params = ctx.saved_tensors
+        ws, bs, g = params[:5], params[5:], g.contiguous()
+        dx, dws, dbs = None, (None,) * 5, (None,) * 5
+        if ctx.mode == "full":
+            dx, dws, dbs = disc_bwd(x, g, ws, bs)
+        elif ctx.mode == "frozen":
+            dx = disc_bwd_dx(x, g, ws, bs)
+        else:
+            dws, dbs = disc_bwd_dw(x, g, ws, bs)
+        return (None, None, dx, *dws, *dbs)
+
+
+def disc_forward(x, ws, bs):
+    """Logits of ``x [B, N, k]``; the backward gives the input, weight and
+    bias gradients."""
+    return _Disc.apply("full", None, x, *ws, *bs)
+
+
+def disc_forward_frozen(x, ws, bs):
+    """Logits whose backward reaches the input only: the weights and
+    biases get no gradient (their ``.grad`` stays as it was)."""
+    return _Disc.apply("frozen", None, x, *ws, *bs)
+
+
+def disc_forward_detached(x, ws, bs):
+    """Logits whose backward gives the weight and bias gradients only: the
+    input gets none (it must need none, as one-hot labels or detached
+    predictions do)."""
+    return _Disc.apply("detached", None, x, *ws, *bs)
+
+
+def disc_with_known_logits(x, logits, ws, bs):
+    """``logits`` (a copy), already computed from the same ``x`` with the
+    same weights, whose backward is the weight-and-bias-gradient pass from
+    ``x``: no forward runs. Exact only while the weights are those that
+    made ``logits``."""
+    return _Disc.apply("known", logits, x, *ws, *bs)

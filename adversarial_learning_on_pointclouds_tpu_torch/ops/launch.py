@@ -113,6 +113,11 @@ PoolFcArgs = _struct(
     "PoolFcArgs", ("batch", "c3", "c1", "groups"),
     ("mx", "mn", "s3c", "t3", "w1", "b1", "g1", "be1", "rm1", "h1", "h", "z1",
      "mu", "var", "inv"))
+# Mirror of the argument struct in csrc/disc_fused.cu.
+DiscArgs = _struct(
+    "DiscArgs", ("m", "k", "per", "splits"),
+    ("x", "g", "w1", "w2", "w3", "w4", "w5", "b1", "b2", "b3", "b4", "b5",
+     "logits", "dx", "part", "grad"))
 DZ_BN, DZ_TRUNK, DZ_SOFTMAX = 0, 1, 2   # BwdArgs.mode
 TILE = 64          # rows per block of the row kernels (kTile in csrc)
 

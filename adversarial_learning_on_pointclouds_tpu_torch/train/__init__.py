@@ -1,1 +1,2 @@
-"""Train steps (``segment``) and their optimizer (``state``)."""
+"""Train steps (``segment``: config 3; ``adversarial``: config 4) and
+their optimizers and states (``state``)."""

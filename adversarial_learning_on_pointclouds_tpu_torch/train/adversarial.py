@@ -1,0 +1,178 @@
+"""Config 4: adversarial semi-supervised segmentation, the G+D step.
+
+Counterpart of ``adversarial_learning_on_pointclouds_tpu/train/
+adversarial.py`` (``create_state``, ``make_txs``, ``_g_loss_fn``,
+``_d_loss_fn``, ``train_step``), after Hung et al. (arXiv:1802.07934).
+Each step is two updates, in this order:
+
+1. **G step**, D frozen: ``L_G = L_ce(pred_l, y_l) + 0.001 * ortho reg +
+   lambda_adv * BCE(D(softmax(pred)), real) + lambda_semi * L_semi(pred_u,
+   D(softmax(pred_u)))``; D's forward runs with the input-gradient-only
+   backward, so D's parameters get no gradient.
+2. **D step**, G detached: ``L_D = BCE(D(one_hot(y_l)), real) +
+   BCE(D(softmax(pred)), fake)``. The fake logits are the G step's,
+   reused (exact against D's pre-update parameters, so D is updated
+   last): the fakes run only the weight-gradient backward, the reals a
+   forward and the weight-gradient backward.
+
+Both nets take Adam (G's optimizer and schedule from the config, D
+always Adam). On a CUDA device the generator's training kernels and the
+discriminator kernels run; on the CPU their plain versions.
+
+    cfg = AdversarialConfig(); g_tx, d_tx = make_txs(cfg, steps_per_epoch)
+    state = create_state(cfg, steps_per_epoch)        # on the card
+    metrics = train_step(state, x_l, y_l, x_u, cfg=cfg, g_tx=g_tx,
+                         d_tx=d_tx)
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from adversarial_learning_on_pointclouds_tpu_torch import losses
+from adversarial_learning_on_pointclouds_tpu_torch.configs import (
+    AdversarialConfig,
+)
+from adversarial_learning_on_pointclouds_tpu_torch.data import augment
+from adversarial_learning_on_pointclouds_tpu_torch.models import (
+    FCDiscriminator, PointNetDenseCls,
+)
+from adversarial_learning_on_pointclouds_tpu_torch.train import (
+    state as state_lib,
+)
+
+
+def make_txs(cfg: AdversarialConfig, steps_per_epoch: int
+             ) -> Tuple[state_lib.Optimizer, state_lib.Optimizer]:
+    """G's optimizer from ``cfg.optimizer`` / ``cfg.lr_schedule``, and D's,
+    which is Adam at ``lr_d``, ``beta1_d``, ``beta2_d`` in either case."""
+    total = cfg.epochs * steps_per_epoch
+    g_tx = state_lib.make_optimizer(
+        cfg.lr, cfg.beta1, cfg.beta2, cfg.lr_step, cfg.lr_gamma,
+        steps_per_epoch, optimizer=cfg.optimizer,
+        lr_schedule=cfg.lr_schedule, total_steps=total,
+        poly_power=cfg.poly_power)
+    d_tx = state_lib.make_optimizer(
+        cfg.lr_d, cfg.beta1_d, cfg.beta2_d, cfg.lr_step, cfg.lr_gamma,
+        steps_per_epoch, optimizer="adam", lr_schedule=cfg.lr_schedule,
+        total_steps=total, poly_power=cfg.poly_power)
+    return g_tx, d_tx
+
+
+def create_state(cfg: AdversarialConfig, steps_per_epoch: int,
+                 device="cuda", g_model: Optional[PointNetDenseCls] = None,
+                 d_model: Optional[FCDiscriminator] = None
+                 ) -> state_lib.GANTrainState:
+    """A train-mode generator and a discriminator seeded from ``cfg.seed``
+    (or the given models), on ``device`` (the card unless the caller asks
+    for the CPU), their optimizers and an augmentation generator on the
+    device seeded from ``cfg.seed``."""
+    device = state_lib.train_device(device)
+    init = torch.Generator().manual_seed(cfg.seed)
+    if g_model is None:
+        g_model = PointNetDenseCls(cfg.num_parts, cfg.feature_transform,
+                                   generator=init)
+    if d_model is None:
+        d_model = FCDiscriminator(cfg.num_parts, generator=init)
+    g_model.to(device).train()
+    d_model.to(device).train()
+    g_tx, d_tx = make_txs(cfg, steps_per_epoch)
+    g_opt, g_sched = g_tx.init(g_model.parameters())
+    d_opt, d_sched = d_tx.init(d_model.parameters())
+    gen = torch.Generator(device=device).manual_seed(cfg.seed + 1)
+    return state_lib.GANTrainState(g_model, d_model, g_tx, d_tx, g_opt,
+                                   g_sched, d_opt, d_sched, gen)
+
+
+def g_loss_fn(g_model: PointNetDenseCls, d_model: FCDiscriminator,
+              x_l: torch.Tensor, y_l: torch.Tensor, x_u: torch.Tensor,
+              cfg: AdversarialConfig, semi_on: float
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The generator's objective and what the D step needs: ``(total,
+    aux)`` with ``aux`` holding the probability maps, D's logits on them,
+    the loss terms and ``logp_l``. Both streams run the train-mode
+    forward (running statistics chained labeled -> unlabeled): paired
+    (``cfg.paired_heads``, the T-Net fc heads batched across streams) or
+    two sequential forwards."""
+    if cfg.paired_heads:
+        logp_l, logp_u, tf_l, tf_u = g_model.forward_pair(x_l, x_u)
+    else:
+        logp_l, _, tf_l = g_model(x_l)
+        logp_u, _, tf_u = g_model(x_u)
+    probs_l, probs_u = logp_l.exp(), logp_u.exp()
+    d_l, d_u = d_model.frozen(probs_l), d_model.frozen(probs_u)
+    l_ce = losses.nll_loss(logp_l, y_l)
+    if cfg.feature_transform:
+        l_ce = l_ce + losses.FT_REG_WEIGHT * (losses.orthogonality_reg(tf_l)
+                                              + losses.orthogonality_reg(tf_u))
+    adv_l, adv_u = losses.adv_g_loss(d_l), losses.adv_g_loss(d_u)
+    l_adv = 0.5 * (adv_l + adv_u)
+    if cfg.lambda_adv_unl is None:
+        adv_term = cfg.lambda_adv * l_adv
+    else:
+        adv_term = cfg.lambda_adv * adv_l + cfg.lambda_adv_unl * adv_u
+    l_semi = losses.semi_loss(logp_u, d_u, cfg.semi_threshold)
+    total = l_ce + adv_term + semi_on * cfg.lambda_semi * l_semi
+    aux = dict(probs_l=probs_l, probs_u=probs_u, d_l=d_l, d_u=d_u, l_ce=l_ce,
+               l_adv=l_adv, l_semi=l_semi, logp_l=logp_l)
+    return total, aux
+
+
+def d_loss_fn(d_model: FCDiscriminator, probs_l: torch.Tensor,
+              probs_u: torch.Tensor, y_l: torch.Tensor, num_parts: int,
+              fake_logits: torch.Tensor
+              ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """The discriminator's objective on detached predictions (fake) and
+    one-hot labels (real): ``(loss, (d_real, d_fake))``. The fakes
+    ``[2B, N, k]`` take ``fake_logits``, which D made from them with its
+    current parameters in the G step, and run only the weight-gradient
+    backward; the reals run a forward and the weight-gradient backward."""
+    fake = torch.cat([probs_l, probs_u]).detach()
+    d_fake = d_model.with_known_logits(fake, fake_logits.detach())
+    real = torch.nn.functional.one_hot(y_l.long(), num_parts).to(
+        probs_l.dtype)
+    d_real = d_model.detached(real)
+    return losses.d_loss(d_real, d_fake), (d_real, d_fake)
+
+
+def train_step(state: state_lib.GANTrainState, x_l: torch.Tensor,
+               y_l: torch.Tensor, x_u: torch.Tensor, *,
+               cfg: AdversarialConfig, g_tx: state_lib.Optimizer,
+               d_tx: state_lib.Optimizer) -> Dict[str, torch.Tensor]:
+    """One G update, then one D update, on ``x_l [B, N', 3]`` with part
+    labels ``y_l [B, N']`` and unlabeled ``x_u [B, N', 3]`` on the models'
+    device: the augmentation chain per stream (labels ride the resample),
+    the G step and the D step as the module docstring says. Returns
+    ``loss_g``, ``loss_ce``, ``loss_adv``, ``loss_semi``, ``loss_d`` and
+    ``acc`` (on the labeled stream) as device scalars; each net's
+    gradients stay in ``.grad`` until the next step. ``g_tx`` / ``d_tx``
+    are the ``make_txs`` the state was built with; any other raises."""
+    if (g_tx, d_tx) != (state.g_tx, state.d_tx):
+        raise ValueError(f"train_step got {(g_tx, d_tx)}, but the state was "
+                         f"built with {(state.g_tx, state.d_tx)}")
+    x_l, y_l = augment.chain_from_cfg(state.generator, cfg, x_l, y_l)
+    x_u = augment.chain_from_cfg(state.generator, cfg, x_u)
+    semi_on = float(state.step >= cfg.semi_start)
+
+    state.g_optimizer.zero_grad(set_to_none=True)
+    g_loss, aux = g_loss_fn(state.g_model, state.d_model, x_l, y_l, x_u,
+                            cfg, semi_on)
+    g_loss.backward()
+    state.g_optimizer.step()
+    state.g_scheduler.step()
+
+    state.d_optimizer.zero_grad(set_to_none=True)
+    d_loss, _ = d_loss_fn(state.d_model, aux["probs_l"], aux["probs_u"], y_l,
+                          cfg.num_parts, torch.cat([aux["d_l"], aux["d_u"]]))
+    d_loss.backward()
+    state.d_optimizer.step()
+    state.d_scheduler.step()
+
+    state.step += 1
+    acc = (aux["logp_l"].detach().argmax(-1) == y_l).float().mean()
+    return {"loss_g": g_loss.detach(), "loss_ce": aux["l_ce"].detach(),
+            "loss_adv": aux["l_adv"].detach(),
+            "loss_semi": aux["l_semi"].detach(), "loss_d": d_loss.detach(),
+            "acc": acc}

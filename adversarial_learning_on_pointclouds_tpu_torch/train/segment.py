@@ -40,17 +40,19 @@ def make_tx(cfg: SegmentConfig, steps_per_epoch: int) -> state_lib.Optimizer:
         poly_power=cfg.poly_power)
 
 
-def create_state(cfg: SegmentConfig, steps_per_epoch: int, device=None,
+def create_state(cfg: SegmentConfig, steps_per_epoch: int, device="cuda",
                  model: Optional[PointNetDenseCls] = None
                  ) -> state_lib.TrainState:
-    """A train-mode segmenter seeded from ``cfg.seed`` (or ``model``, moved
-    to ``device``), its optimizer and an augmentation generator on the
-    device seeded from ``cfg.seed``."""
+    """A train-mode segmenter seeded from ``cfg.seed`` (or ``model``), on
+    ``device`` (the card unless the caller asks for the CPU), its
+    optimizer and an augmentation generator on the device seeded from
+    ``cfg.seed``."""
+    device = state_lib.train_device(device)
     if model is None:
         model = PointNetDenseCls(
             cfg.num_parts, cfg.feature_transform, device=device,
             generator=torch.Generator().manual_seed(cfg.seed))
-    elif device is not None:
+    else:
         model.to(device)
     model.train()
     dev = next(model.parameters()).device

@@ -1,8 +1,9 @@
-"""Train state and optimizer construction.
+"""Train states and optimizer construction.
 
 Counterpart of ``adversarial_learning_on_pointclouds_tpu/train/
-state.py``. The optimizer is ``torch.optim.Adam`` (eps 1e-8) or SGD with
-momentum 0.9; the learning-rate schedule is applied per optimizer step,
+state.py`` (``TrainState``, ``GANTrainState``, ``make_optimizer``). The
+optimizer is ``torch.optim.Adam`` (eps 1e-8) or SGD with momentum 0.9;
+the learning-rate schedule is applied per optimizer step,
 as the JAX package's optax schedules are: a staircase decay by
 ``lr_gamma`` every ``lr_step * steps_per_epoch`` steps (StepLR per epoch,
 for whole epochs), or the poly decay ``lr * (1 - step / total) **
@@ -82,3 +83,32 @@ class TrainState:
     scheduler: torch.optim.lr_scheduler.LRScheduler
     generator: torch.Generator
     step: int = 0
+
+
+@dataclasses.dataclass
+class GANTrainState:
+    """Generator + discriminator train state (config 4): both models, the
+    ``Optimizer`` each was built with, the torch optimizers and schedules
+    those built, the augmentation's generator and the step count.
+    ``adversarial.train_step`` updates it in place."""
+
+    g_model: torch.nn.Module
+    d_model: torch.nn.Module
+    g_tx: Optimizer
+    d_tx: Optimizer
+    g_optimizer: torch.optim.Optimizer
+    g_scheduler: torch.optim.lr_scheduler.LRScheduler
+    d_optimizer: torch.optim.Optimizer
+    d_scheduler: torch.optim.lr_scheduler.LRScheduler
+    generator: torch.Generator
+    step: int = 0
+
+
+def train_device(device) -> torch.device:
+    """The device a train state is built on; a CUDA device raises when
+    there is no card, rather than leaving the step on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device}: CUDA is not available (pass "
+                           "device='cpu' to run the plain versions)")
+    return device

@@ -45,9 +45,10 @@ def _check_keys(path: str, sd: dict, like: dict) -> None:
 
 def load_segmenter(path: str, num_parts: int = 50,
                    feature_transform: bool = True,
-                   device=None) -> PointNetDenseCls:
+                   device="cuda") -> PointNetDenseCls:
     """Reference ``PointNetDenseCls`` ``.pth`` -> eval ``PointNetDenseCls``
-    on ``device``, loaded with ``strict=True``."""
+    on ``device`` (the card unless the caller asks for the CPU), loaded
+    with ``strict=True``."""
     sd = load_pth(path)
     if "conv4.weight" not in sd:
         if "fc3.weight" in sd:
@@ -61,6 +62,4 @@ def load_segmenter(path: str, num_parts: int = 50,
     model = PointNetDenseCls(num_parts, feature_transform)
     _check_keys(path, sd, model.state_dict())
     model.load_state_dict(sd, strict=True)
-    if device is not None:
-        model.to(device)
-    return model
+    return model.to(device)

@@ -3,10 +3,11 @@
 The JAX package keeps a model as ``(params, bn_state)`` nested dicts of
 arrays with dense weights ``[in, out]``; the port keeps the reference's
 PyTorch modules. This converts the former (as numpy arrays, so no JAX is
-needed here) into a ``state_dict`` that ``PointNetDenseCls`` and the
-reference ``PointNetDenseCls`` both load with ``strict=True``. Its keys
-and values are those of the JAX package's
-``utils/torch_export.segmenter_state_dict``.
+needed here) into a ``state_dict`` that the port's ``PointNetDenseCls``
+and ``FCDiscriminator`` and the reference's both load with
+``strict=True``. Its keys and values are those of the JAX package's
+``utils/torch_export.segmenter_state_dict`` and
+``discriminator_state_dict``.
 """
 
 from __future__ import annotations
@@ -63,4 +64,14 @@ def segmenter_state_dict(params: Dict[str, Any],
         _dense(sd, f"conv{i}", params[f"conv{i}"], conv=True)
         _bn(sd, f"bn{i}", params[f"bn{i}"], bn_state[f"bn{i}"])
     _dense(sd, "conv4", params["conv4"], conv=True)
+    return sd
+
+
+def discriminator_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX discriminator params -> ``FCDiscriminator`` state_dict (``conv5``
+    is the reference's ``classifier``)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i in (1, 2, 3, 4):
+        _dense(sd, f"conv{i}", params[f"conv{i}"], conv=True)
+    _dense(sd, "classifier", params["conv5"], conv=True)
     return sd

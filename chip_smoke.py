@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's two main paths at full width (``adversarial_learning_
-on_pointclouds_tpu_torch``, the part segmenter: 50 parts, feature
+Drives the port's three main paths at full width (``adversarial_learning_
+on_pointclouds_tpu_torch``: serving the part segmenter, its config-3
+training step and the config-4 adversarial G+D step; 50 parts, feature
 transform on, fp32) and holds each hand-written kernel against its plain
 PyTorch version. Phases, one or more lines each:
 
@@ -30,11 +31,28 @@ PyTorch version. Phases, one or more lines each:
    checked per step; then 10 Adam steps on the fixed batch must lower
    the loss;
 8. train-timing: each training pass against its plain pass, the step's
-   median time, points/s and the profiler's busy share.
+   median time, points/s and the profiler's busy share;
+9. disc-kernels: every discriminator pass (fwd, bwd_dx, bwd_dw, the full
+   bwd) against its plain pass at B=32 N=2048 (and the D step's 2B=64),
+   B=32 N=2500 (ragged) and B=2; then each ``FCDiscriminator`` autograd
+   method against the whole stack composed in plain PyTorch;
+10. adv-slice: the config-4 ``adversarial.train_step`` of a seeded
+   full-width G (random BatchNorm statistics) and D on one batch of 2 x
+   32 x 2048, on the card and on the CPU from the same weights: every
+   metric, G and D gradient and new running statistic compared, the semi
+   mask held to the CPU's; every kernel's launches checked per step; then
+   10 steps on the fixed batch must lower the supervised loss;
+11. adv-timing: each discriminator pass against its plain pass, the G+D
+   step's median time, points/s (both streams) and busy share, and the
+   discriminator family's FLOP/s against the fp32 peak.
 
-The line before the last is a JSON object of the kernels' numbers, the
-last ``{"ok": true, "device": {...}}``. Any failure raises: the exit code
-is non-zero and no result is printed.
+The line before the last is a JSON object of the kernels' numbers: per
+kernel its time, its plain version's, and its bound (``bound_ms``: the
+larger of its inputs and outputs over the memory rate and the matmul
+FLOPs of its plain version, counted by ``torch.utils.flop_counter``,
+over the fp32 peak; elementwise work is not counted). The last line is
+``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
+non-zero and no result is printed.
 
     python3 chip_smoke.py
 """
@@ -89,6 +107,17 @@ PER_STEP = {"trunk2_train": {"F1": 3, "F2": 3, "B1": 3},
             "seg_head_train": {"P1": 1, "Pmid": 2, "P4": 1, "B4": 1,
                                "Bmid": 2, "B1": 1},
             "pool_fc_epilogue": {"fwd": 2}}
+# The config-4 G+D step: the generator's passes for two streams (the T-Net
+# fc heads batched: pool-fc twice, at groups=2) and the discriminator's.
+DISC_SITES = {"fwd": "disc_fused.py:101", "bwd_dx": "disc_fused.py:229",
+              "bwd_dw": "disc_fused.py:339", "bwd": "disc_fused.py:145"}
+ADV_PER_STEP = {"trunk2_train": {"F1": 6, "F2": 6, "B1": 6},
+                "seg_head_train": {"P1": 2, "Pmid": 4, "P4": 2, "B4": 2,
+                                   "Bmid": 4, "B1": 2},
+                "pool_fc_epilogue": {"fwd": 2},
+                "disc_fused": {"fwd": 3, "bwd_dx": 2, "bwd_dw": 2, "bwd": 0}}
+FP32_PEAK = 67e12     # FLOP/s, fp32 outside the tensor cores (H100 SXM)
+HBM_RATE = 3.35e12    # bytes/s (H100 SXM)
 
 
 def phase(name: str, msg: str) -> None:
@@ -122,7 +151,7 @@ def check(name: str, got: torch.Tensor, ref: torch.Tensor,
 
 
 def check_norm(name: str, got: torch.Tensor, ref: torch.Tensor,
-               denom: float = None) -> None:
+               denom: float = None, tag: str = "train-kernels") -> None:
     """Fail unless ``||got - ref|| <= WHOLE_BOUND * ||ref||`` (or
     ``* denom``), in the Frobenius norm."""
     if got.shape != ref.shape or not torch.isfinite(got).all():
@@ -131,7 +160,7 @@ def check_norm(name: str, got: torch.Tensor, ref: torch.Tensor,
     diff = (got.double() - ref.double())
     rel = diff.norm().item() / max(denom or ref.double().norm().item(),
                                    1e-30)
-    phase("train-kernels", f"{name}: relative L2 error {rel:.3e} (max abs "
+    phase(tag, f"{name}: relative L2 error {rel:.3e} (max abs "
           f"{diff.abs().max().item():.3e}, bound {WHOLE_BOUND:g})")
     if rel > WHOLE_BOUND:
         raise AssertionError(f"{name}: error {rel:.3e} above "
@@ -161,6 +190,39 @@ def time_pair(kernel_fn, plain_fn, reps: int = REPS):
     kernel = event_ms(kernel_fn, reps)
     plain += event_ms(plain_fn, reps // 2)
     return statistics.median(kernel), statistics.median(plain)
+
+
+def _tensors(obj):
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, (list, tuple)):
+        for o in obj:
+            yield from _tensors(o)
+
+
+def work(plain, calls):
+    """``(flops, bytes)`` of ``calls`` (argument tuples) through ``plain``:
+    the matmul FLOPs it does (torch.utils.flop_counter), and its inputs
+    read once and its outputs written once."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    flops = nbytes = 0
+    with torch.no_grad():
+        for a in calls:
+            with FlopCounterMode(display=False) as counter:
+                out = plain(*a)
+            flops += counter.get_total_flops()
+            nbytes += sum(t.numel() * t.element_size()
+                          for t in _tensors((a, out)))
+    return flops, nbytes
+
+
+def bound(flops, nbytes):
+    """``(bound_ms, bound_by)``: the larger of the FLOPs over the fp32 peak
+    and the bytes over the memory rate."""
+    t_ops, t_bytes = flops / FP32_PEAK, nbytes / HBM_RATE
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def _device_us(event) -> float:
@@ -354,16 +416,20 @@ def serve(dev, card, gen, results):
                 lambda: [kernel(*a) for a in calls]).values())
             plain_dev_ms = sum(device_profile(
                 lambda: [plain(*a) for a in calls]).values())
+            bound_ms, bound_by = bound(*work(plain, calls))
             phase("timing", f"{card}: {name} x{len(calls)} per forward at "
                   f"B={B} N={N}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms;"
                   f" device time alone: kernel {dev_ms:.4f} ms, plain "
-                  f"{plain_dev_ms:.4f} ms")
+                  f"{plain_dev_ms:.4f} ms; bound {bound_ms:.4f} ms "
+                  f"({bound_by})")
             results.append({"name": name, "route": "cuda",
                             "source": f"{KERNELS_ROOT}/csrc/{src}",
                             "replaces": f"{TPU_KERNELS}/{line}",
                             "launches": launches[name],
                             "max_abs_err": err[name], "ms": ms,
-                            "plain_ms": plain_ms, "device_ms": dev_ms,
+                            "plain_ms": plain_ms, "bound_ms": bound_ms,
+                            "bound_by": bound_by, "library_ms": None,
+                            "device_ms": dev_ms,
                             "plain_device_ms": plain_dev_ms})
 
         x = torch.from_numpy(clouds[:B]).to(dev)
@@ -401,11 +467,11 @@ class PassRecord:
         self.err, self.args = {}, {}
 
     def cmp(self, kernel, pas, tag, names, got, ref, main, fn_args,
-            scales=None):
+            scales=None, phase_tag="train-kernels"):
         key = (kernel, pas)
         for nm, a, b in zip(names, got, ref):
             d = check(f"{kernel} {pas} {nm} {tag}", a, b, BOUND,
-                      "train-kernels", (scales or {}).get(nm))
+                      phase_tag, (scales or {}).get(nm))
             self.err[key] = max(self.err.get(key, 0.0), d)
         if main:
             self.args.setdefault(key, []).append(fn_args)
@@ -748,30 +814,26 @@ def train_timing(card, rec, cuda_run, launches, results):
                 lambda: [fn(*a) for a in calls]).values())
             plain_dev_ms = sum(device_profile(
                 lambda: [plain(*a) for a in calls]).values())
-        ms, plain_ms, dev_ms, plain_dev_ms = (
-            t * times for t in (ms, plain_ms, dev_ms, plain_dev_ms))
+        bound_ms, bound_by = bound(*work(plain, calls))
+        ms, plain_ms, dev_ms, plain_dev_ms, bound_ms = (
+            t * times for t in (ms, plain_ms, dev_ms, plain_dev_ms, bound_ms))
         phase("train-timing", f"{card}: {kernel} {pas} x"
               f"{PER_STEP[kernel][pas]} per step at B={B} N={TRAIN_N}: "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; device time "
-              f"alone: kernel {dev_ms:.4f} ms, plain {plain_dev_ms:.4f} ms")
+              f"alone: kernel {dev_ms:.4f} ms, plain {plain_dev_ms:.4f} ms;"
+              f" bound {bound_ms:.4f} ms")
         rows.setdefault(kernel, []).append({
             "pass": pas,
             "replaces": f"{TPU_KERNELS}/{TRAIN_KERNELS[kernel][1][pas]}",
             "launches": launches[kernel][pas],
             "max_abs_err": rec.err[(kernel, pas)], "ms": ms,
-            "plain_ms": plain_ms, "device_ms": dev_ms,
-            "plain_device_ms": plain_dev_ms})
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "device_ms": dev_ms, "plain_device_ms": plain_dev_ms})
     for kernel, passes in rows.items():
         src, sites = TRAIN_KERNELS[kernel]
-        tot = {k: sum(p[k] for p in passes)
-               for k in ("ms", "plain_ms", "device_ms", "plain_device_ms")}
-        results.append({
-            "name": kernel, "route": "cuda",
-            "source": f"{KERNELS_ROOT}/csrc/{src}",
-            "replaces": f"{TPU_KERNELS}/{next(iter(sites.values()))}",
-            "launches": sum(launches[kernel].values()),
-            "max_abs_err": max(p["max_abs_err"] for p in passes),
-            **tot, "times": "per training step", "passes": passes})
+        results.append(kernel_entry(
+            kernel, src, sites[next(iter(sites))],
+            sum(launches[kernel].values()), passes, "per config-3 step"))
 
     state, _, _, x, y, tx = cuda_run
     cfg = SegmentConfig()
@@ -794,6 +856,379 @@ def train_timing(card, rec, cuda_run, launches, results):
           f"{len(kernels)} kernel names")
     for key, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:12]:
         phase("train-timing", f"  {ms:.4f} ms  {key[:90]}")
+
+
+# ---------------------------------------------------------------------------
+# The discriminator's passes against their plain passes (phase 9)
+# ---------------------------------------------------------------------------
+
+def disc_params(gen, dev, k=PARTS):
+    """Random [in, out] weight views and biases of the k -> 64 -> 128 ->
+    256 -> 512 -> 1 stack."""
+    ws, bs, c = [], [], k
+    for o in (64, 128, 256, 512, 1):
+        ws.append(_w(gen, c, o, dev))
+        bs.append(_r(gen, o, dev=dev))
+        c = o
+    return ws, bs
+
+
+def prob_maps(gen, bsz, n, dev):
+    """Softmax maps with every fifth point one-hot (the D step's reals)."""
+    x = torch.softmax(torch.randn(bsz, n, PARTS, generator=gen) * 3, -1)
+    hot = torch.randint(0, PARTS, (bsz, len(range(0, n, 5))), generator=gen)
+    x[:, ::5] = torch.nn.functional.one_hot(hot, PARTS).float()
+    return x.to(dev)
+
+
+def disc_kernel_checks(dev, gen, rec):
+    from adversarial_learning_on_pointclouds_tpu_torch.models import (
+        FCDiscriminator,
+    )
+    from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
+        disc_fused as df,
+    )
+
+    ws, bs = disc_params(gen, dev)
+    names = [f"dw{i}" for i in range(1, 6)] + [f"db{i}" for i in range(1, 6)]
+    for bsz, n in ((B, TRAIN_N), (2 * B, TRAIN_N), (B, TRAIN_RAGGED_N),
+                   (2, TRAIN_N)):
+        tag = f"B={bsz} N={n}"
+        main = n == TRAIN_N and bsz == B
+        x = prob_maps(gen, bsz, n, dev)
+        g = _r(gen, bsz, n, 1, scale=1.0, dev=dev)
+        with torch.no_grad():
+            if bsz != 2 * B:   # the 2B batch is the D step's dW-only pass
+                a = (x, ws, bs)
+                rec.cmp("disc_fused", "fwd", tag, ("logits",),
+                        (df.disc_fwd(*a),), (df.disc_fwd_plain(*a),), main, a,
+                        phase_tag="disc-kernels")
+                a = (x, g, ws, bs)
+                rec.cmp("disc_fused", "bwd_dx", tag, ("dx",),
+                        (df.disc_bwd_dx(*a),), (df.disc_bwd_dx_plain(*a),),
+                        main, a, phase_tag="disc-kernels")
+                got, ref = df.disc_bwd(*a), df.disc_bwd_plain(*a)
+                rec.cmp("disc_fused", "bwd", tag, ["dx"] + names,
+                        (got[0], *got[1], *got[2]),
+                        (ref[0], *ref[1], *ref[2]), main, a,
+                        phase_tag="disc-kernels")
+            a = (x, g, ws, bs)
+            got, ref = df.disc_bwd_dw(*a), df.disc_bwd_dw_plain(*a)
+            rec.cmp("disc_fused", "bwd_dw", tag, names, (*got[0], *got[1]),
+                    (*ref[0], *ref[1]), n == TRAIN_N and bsz >= B, a,
+                    phase_tag="disc-kernels")
+        torch.cuda.synchronize()
+
+    # Each FCDiscriminator method against the stack composed in plain
+    # PyTorch under autograd: its output and the gradients it returns;
+    # the ones it must not return stay None.
+    model = FCDiscriminator(PARTS, generator=gen).to(dev)
+    x = prob_maps(gen, B, TRAIN_N, dev)
+    layers = [model.conv1, model.conv2, model.conv3, model.conv4,
+              model.classifier]
+    leaves = [t.detach().clone().requires_grad_() for t in
+              [x, *model._params()[0], *model._params()[1]]]
+    ref = df.disc_fwd_plain(leaves[0], leaves[1:6], leaves[6:])
+    torch.sin(ref).sum().backward()
+    for method in ("forward", "frozen", "detached", "with_known_logits"):
+        model.zero_grad(set_to_none=True)
+        xl = x.detach().clone().requires_grad_()
+        out = (model.with_known_logits(xl, ref.detach())
+               if method == "with_known_logits" else getattr(model, method)(xl))
+        torch.sin(out).sum().backward()
+        check_norm(f"FCDiscriminator.{method} output", out.detach(),
+                   ref.detach(), tag="disc-kernels")
+        if method in ("forward", "frozen"):
+            check_norm(f"FCDiscriminator.{method} dx", xl.grad,
+                       leaves[0].grad, tag="disc-kernels")
+        elif xl.grad is not None:
+            raise AssertionError(f"{method} returned an input gradient")
+        for i, m in enumerate(layers):
+            if method == "frozen":
+                if m.weight.grad is not None or m.bias.grad is not None:
+                    raise AssertionError("frozen gave D a gradient")
+                continue
+            check_norm(f"FCDiscriminator.{method} dw{i + 1}",
+                       m.weight.grad.flatten(1).t(), leaves[1 + i].grad,
+                       tag="disc-kernels")
+            check_norm(f"FCDiscriminator.{method} db{i + 1}", m.bias.grad,
+                       leaves[6 + i].grad, tag="disc-kernels")
+    torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# The config-4 G+D step (phases 10-11)
+# ---------------------------------------------------------------------------
+
+def adv_counters():
+    from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
+        disc_fused,
+    )
+    return {**pass_counters(), "disc_fused": disc_fused.PASSES}
+
+
+class Recorder:
+    """Wraps a module function for one run and keeps what it returned."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.fn, self.seen = getattr(module, name), []
+
+    def __enter__(self):
+        def wrapped(*a, **k):
+            out = self.fn(*a, **k)
+            self.seen.append(out)
+            return out
+        setattr(self.module, self.name, wrapped)
+        return self.seen
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def adv_slice(dev, card, gen):
+    from adversarial_learning_on_pointclouds_tpu_torch.configs import (
+        AdversarialConfig,
+    )
+    from adversarial_learning_on_pointclouds_tpu_torch.models import (
+        FCDiscriminator, PointNetDenseCls,
+    )
+    from adversarial_learning_on_pointclouds_tpu_torch.train import (
+        adversarial,
+    )
+
+    cfg = AdversarialConfig()
+    bsz, n = cfg.batch_size, cfg.num_points
+    g_model = PointNetDenseCls(cfg.num_parts, cfg.feature_transform,
+                               generator=gen)
+    randomize_bn(g_model, gen)
+    d_model = FCDiscriminator(cfg.num_parts, generator=gen)
+    rng = np.random.default_rng(SEED + 1)
+    pts = [(rng.normal(size=(bsz, n, 3)) * rng.uniform(0.5, 2.0, (bsz, 1, 3))
+            ).astype(np.float32) for _ in range(2)]
+    labels = (np.arange(n)[None, :] * 7 // n
+              + 7 * (pts[0][..., 1] > 0)).astype(np.int64) % cfg.num_parts
+    with torch.no_grad():
+        # D's logits spread and centred so that sigmoid(D) straddles the
+        # semi threshold on the unlabeled stream (at init they all sit
+        # near 0, above it), so the mask keeps some points and drops
+        # others; the card finds the centre. (Scaling G's last layer up
+        # as well, for maps farther from argmax ties, makes the fp32
+        # gradients of the input T-Net ill-conditioned, on the CPU as on
+        # the card, and the gradient comparison then fails.)
+        d_model.classifier.weight *= 100
+        g_probe, d_probe = copy.deepcopy(g_model).to(dev).train(), \
+            copy.deepcopy(d_model).to(dev)
+        x = torch.from_numpy(pts[1]).to(dev)
+        from adversarial_learning_on_pointclouds_tpu_torch.data import augment
+        x = augment.normalize_unit_sphere(x)
+        d_u = d_probe(g_probe(x)[0].exp())
+        target = float(np.log(cfg.semi_threshold / (1 - cfg.semi_threshold)))
+        d_model.classifier.bias += target - d_u.median().item()
+        del g_probe, d_probe, x, d_u
+
+    runs = {}
+    counters = adv_counters()
+    for where in ("cuda", "cpu"):
+        state = adversarial.create_state(
+            cfg, 100, device=where, g_model=copy.deepcopy(g_model),
+            d_model=copy.deepcopy(d_model))
+        txs = adversarial.make_txs(cfg, 100)
+        x_l, x_u = (torch.from_numpy(p).to(where) for p in pts)
+        y_l = torch.from_numpy(labels).to(where)
+        for passes in counters.values():
+            for f in passes.values():
+                f.launches = 0
+        t0 = time.perf_counter()
+        with Recorder(adversarial, "g_loss_fn") as seen:
+            metrics = adversarial.train_step(state, x_l, y_l, x_u, cfg=cfg,
+                                             g_tx=txs[0], d_tx=txs[1])
+        if where == "cuda":
+            torch.cuda.synchronize()
+            launches = {k: {p: f.launches for p, f in passes.items()}
+                        for k, passes in counters.items()}
+        phase("adv-slice", f"train_step on {where} 2 x B={bsz} N={n}: " +
+              ", ".join(f"{k} {float(v):.6f}" for k, v in metrics.items()) +
+              f", {time.perf_counter() - t0:.3f} s (first step)")
+        runs[where] = (state, metrics, seen[0][1], (x_l, y_l, x_u), txs)
+
+    for k, per in ADV_PER_STEP.items():
+        if launches[k] != per:
+            raise AssertionError(f"{k} launched {launches[k]} in one G+D "
+                                 f"step, expected {per}")
+    phase("adv-slice", f"launches in one G+D step: {launches}")
+
+    (gs, gm, gaux, _, _), (cs, cm, caux, _, _) = runs["cuda"], runs["cpu"]
+    for k in gm:
+        check(f"{k} GPU vs CPU", gm[k].cpu()[None], cm[k][None], STEP_BOUND,
+              "adv-slice")
+    for k in ("logp_l", "probs_u", "d_l", "d_u"):
+        check(f"{k} GPU vs CPU", gaux[k].detach().cpu(), caux[k].detach(),
+              STEP_BOUND, "adv-slice")
+    semi_mask_check(gaux, caux, cfg.semi_threshold)
+    gsd, csd = gs.g_model.state_dict(), cs.g_model.state_dict()
+    stats = [k for k in csd if k.endswith(("running_mean", "running_var"))]
+    worst = max(rel_err(gsd[k].cpu(), csd[k])[0] for k in stats)
+    phase("adv-slice", f"{len(stats)} new running statistics GPU vs CPU: "
+          f"max scale-relative error {worst:.3e} (bound {STEP_BOUND:g})")
+    if worst > STEP_BOUND or any(int(v) != 2 for k, v in gsd.items()
+                                 if k.endswith("num_batches_tracked")):
+        raise AssertionError("running statistics differ")
+    for net in ("g_model", "d_model"):
+        gp = dict(getattr(gs, net).named_parameters())
+        cp = dict(getattr(cs, net).named_parameters())
+        scale = max(float(p.grad.abs().max()) for p in cp.values())
+        worst, name = max((float((gp[k].grad.cpu() - p.grad).abs().max()), k)
+                          for k, p in cp.items())
+        phase("adv-slice", f"{net}: {len(cp)} parameter gradients GPU vs "
+              f"CPU: max abs error {worst:.3e} ({name}), "
+              f"{worst / (1 + scale):.3e} of (1 + max|g| = {1 + scale:.3e}) "
+              f"(bound {GRAD_BOUND:g})")
+        if worst > GRAD_BOUND * (1 + scale):
+            raise AssertionError(f"{net} gradients differ")
+
+    state, _, _, batch, txs = runs["cuda"]
+    seen = [adversarial.train_step(state, *batch, cfg=cfg, g_tx=txs[0],
+                                   d_tx=txs[1]) for _ in range(10)]
+    ce = [float(m["loss_ce"]) for m in seen]
+    phase("adv-slice", f"10 more G+D steps on the fixed batch: loss_ce "
+          f"{ce[0]:.5f} -> {ce[-1]:.5f}, loss_d {float(seen[0]['loss_d']):.5f}"
+          f" -> {float(seen[-1]['loss_d']):.5f}")
+    if not np.isfinite(ce).all() or not ce[-1] < ce[0]:
+        raise AssertionError(f"loss_ce did not fall: {ce}")
+    for net in (state.g_model, state.d_model):
+        if not all(torch.isfinite(p).all() for p in net.parameters()):
+            raise AssertionError("non-finite parameters after training")
+    return runs["cuda"], launches
+
+
+def semi_mask_check(gaux, caux, threshold):
+    """The semi mask (sigmoid(D) > threshold) and pseudo-labels (argmax)
+    on the card equal the CPU's, except at points within the comparison's
+    own error of the threshold or of a tie: a flip needs the error to
+    exceed the margin. The windows are twice the largest difference of
+    sigmoid(D), and of the log-probs of each point's top two classes,
+    and at least 1e-4 and 1e-5."""
+    sig_g = torch.sigmoid(gaux["d_u"].detach().cpu()[..., 0])
+    sig_c = torch.sigmoid(caux["d_u"].detach()[..., 0])
+    lp_g = gaux["probs_u"].detach().cpu().log()
+    lp_c = caux["probs_u"].detach().log()
+    top2, at = lp_c.topk(2, -1)
+    win_s = max(1e-4, 2 * (sig_g - sig_c).abs().max().item())
+    win_l = max(1e-5, 2 * (lp_g.gather(-1, at) - top2).abs().max().item())
+    tie = (top2[..., 0] - top2[..., 1]) <= win_l
+    near = (sig_c - threshold).abs() <= win_s
+    mask_g, mask_c = sig_g > threshold, sig_c > threshold
+    bad_mask = int(((mask_g != mask_c) & ~near).sum())
+    bad_label = int(((lp_g.argmax(-1) != lp_c.argmax(-1)) & ~tie).sum())
+    phase("adv-slice", f"semi mask: {float(mask_c.float().mean()):.3f} of "
+          f"the points kept; {int((mask_g != mask_c).sum())} differ, all "
+          f"within {win_s:.2e} of the threshold but {bad_mask}; "
+          f"{int((lp_g.argmax(-1) != lp_c.argmax(-1)).sum())} pseudo-labels "
+          f"differ, all at top-two gaps within {win_l:.2e} but {bad_label}")
+    if bad_mask or bad_label:
+        raise AssertionError("semi mask or pseudo-labels differ")
+
+
+def adv_timing(card, rec, cuda_run, launches, results):
+    from adversarial_learning_on_pointclouds_tpu_torch.configs import (
+        AdversarialConfig,
+    )
+    from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
+        disc_fused as df,
+    )
+    from adversarial_learning_on_pointclouds_tpu_torch.train import (
+        adversarial,
+    )
+
+    passes, family_flops, family_dev = [], 0, 0.0
+    for pas, fn in df.PASSES.items():
+        calls = rec.args[("disc_fused", pas)]
+        plain = getattr(df, fn.__name__ + "_plain")
+        per = ADV_PER_STEP["disc_fused"][pas]
+        # Per step: each distinct call once (bwd_dw: at 2B and at B), or
+        # times its repeats; the full bwd, off the step, per call.
+        times = per / len(calls) if per else 1.0
+        with torch.no_grad():
+            ms, plain_ms = time_pair(lambda: [fn(*a) for a in calls],
+                                     lambda: [plain(*a) for a in calls])
+            dev_ms = sum(device_profile(
+                lambda: [fn(*a) for a in calls]).values())
+            plain_dev_ms = sum(device_profile(
+                lambda: [plain(*a) for a in calls]).values())
+        flops, nbytes = work(plain, calls)
+        bound_ms, bound_by = bound(flops, nbytes)
+        ms, plain_ms, dev_ms, plain_dev_ms, bound_ms, flops = (
+            t * times for t in (ms, plain_ms, dev_ms, plain_dev_ms, bound_ms,
+                                flops))
+        if per:
+            family_flops += flops
+            family_dev += dev_ms
+        phase("adv-timing", f"{card}: disc_fused {pas} "
+              f"{'x%d per G+D step' % per if per else 'per call (off the step)'}"
+              f" at B={B} N={TRAIN_N}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms; device time alone: kernel {dev_ms:.4f} ms, "
+              f"plain {plain_dev_ms:.4f} ms; bound {bound_ms:.4f} ms "
+              f"({bound_by}); {flops / dev_ms / 1e9:.2f} TFLOP/s")
+        passes.append({"pass": pas, "replaces": f"{TPU_KERNELS}/"
+                       f"{DISC_SITES[pas]}", "launches": launches[
+                           "disc_fused"][pas],
+                       "max_abs_err": rec.err[("disc_fused", pas)], "ms": ms,
+                       "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "device_ms": dev_ms,
+                       "plain_device_ms": plain_dev_ms})
+    phase("adv-timing", f"{card}: disc family per G+D step: {family_dev:.3f} "
+          f"ms of device time for {family_flops / 1e9:.1f} GFLOP, "
+          f"{family_flops / family_dev / 1e9:.2f} TFLOP/s, "
+          f"{100 * family_flops / family_dev / 1e-3 / FP32_PEAK:.1f}% of the "
+          f"{FP32_PEAK / 1e12:.0f} TFLOP/s fp32 peak")
+    step_passes = [p for p in passes if p["pass"] != "bwd"]
+    entry = kernel_entry("disc_fused", "disc_fused.cu", DISC_SITES["fwd"],
+                         sum(launches["disc_fused"].values()), step_passes,
+                         "per G+D step")
+    entry["passes"] = passes
+    results.append(entry)
+    for r in results:
+        if r["name"] in launches:
+            r["launches_g_d_step"] = sum(launches[r["name"]].values())
+
+    state, _, _, batch, txs = cuda_run
+    cfg = AdversarialConfig()
+
+    def step():
+        adversarial.train_step(state, *batch, cfg=cfg, g_tx=txs[0],
+                               d_tx=txs[1])
+
+    for _ in range(3):
+        step()
+    step_ms = statistics.median(event_ms(step, 12))
+    pts = 2 * cfg.batch_size * cfg.num_points
+    phase("adv-timing", f"{card}: G+D train_step 2 x B={cfg.batch_size} "
+          f"N={cfg.num_points}: median {step_ms:.3f} ms over 12 steps, "
+          f"{pts / step_ms * 1e3:.1f} points/s (both streams)")
+    kernels = device_profile(step, reps=5)
+    busy = sum(kernels.values())
+    phase("adv-timing", f"{card}: G+D step: GPU kernels busy {busy:.3f} ms "
+          f"of {step_ms:.3f} ms ({100 * (1 - busy / step_ms):.1f}% idle), "
+          f"{len(kernels)} kernel names")
+    for key, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:14]:
+        phase("adv-timing", f"  {ms:.4f} ms  {key[:90]}")
+
+
+def kernel_entry(name, src, site, launches, passes, times):
+    """One kernel's line in the JSON: its passes' numbers summed; the
+    bound is the sum of the passes' bounds, bound by what bounds the
+    largest of them."""
+    tot = {k: sum(p[k] for p in passes)
+           for k in ("ms", "plain_ms", "bound_ms", "device_ms",
+                     "plain_device_ms")}
+    return {"name": name, "route": "cuda",
+            "source": f"{KERNELS_ROOT}/csrc/{src}",
+            "replaces": f"{TPU_KERNELS}/{site}", "launches": launches,
+            "max_abs_err": max(p["max_abs_err"] for p in passes),
+            **tot, "bound_by": max(passes, key=lambda p: p["bound_ms"])[
+                "bound_by"], "library_ms": None,
+            "times": times, "passes": passes}
 
 
 def main() -> None:
@@ -831,6 +1266,9 @@ def main() -> None:
     train_kernel_checks(dev, gen, rec)
     cuda_run, launches = train_slice(dev, card, gen)
     train_timing(card, rec, cuda_run, launches, results)
+    disc_kernel_checks(dev, gen, rec)
+    cuda_run, launches = adv_slice(dev, card, gen)
+    adv_timing(card, rec, cuda_run, launches, results)
 
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {

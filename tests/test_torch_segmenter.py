@@ -124,7 +124,8 @@ def test_seeded_init():
 def test_checkpoint_mismatch_is_readable(tmp_path, port_model):
     path = str(tmp_path / "g.pth")
     torch.save(port_model.state_dict(), path)
-    loaded = checkpoint.load_segmenter(path, PARTS, feature_transform=True)
+    loaded = checkpoint.load_segmenter(path, PARTS, feature_transform=True,
+                                       device="cpu")
     assert all(torch.equal(loaded.state_dict()[k], v)
                for k, v in port_model.state_dict().items())
     with pytest.raises(ValueError, match="unexpected.*--feature_transform"):

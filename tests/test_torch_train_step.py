@@ -155,7 +155,8 @@ def test_loss_fn_and_train_step_match_jax(jax_model, batch, jax_step):
                 *jax_model, xn, jnp.asarray(batch[1]),
                 JaxSegmentConfig(num_points=N))
     tx = segment.make_tx(cfg, steps_per_epoch=10)
-    state = segment.create_state(cfg, 10, model=_port_model(jax_model))
+    state = segment.create_state(cfg, 10, device="cpu",
+                                 model=_port_model(jax_model))
     metrics = segment.train_step(state, x, y, cfg=cfg, tx=tx)
     _scaled_close(metrics["loss"], ref_loss, RTOL)
     assert state.step == 1
@@ -272,7 +273,7 @@ def test_train_step_refuses_another_tx():
     """The state's optimizer takes the step, so a ``tx`` other than the
     one the state was built with raises instead of being ignored."""
     cfg = SegmentConfig(num_points=64)
-    state = segment.create_state(cfg, 10)
+    state = segment.create_state(cfg, 10, device="cpu")
     assert segment.make_tx(cfg, 10) == state.tx
     x = torch.randn(2, 64, 3)
     y = torch.zeros(2, 64, dtype=torch.long)
@@ -286,7 +287,7 @@ def test_ten_steps_lower_the_loss_on_a_fixed_batch():
     """The whole step on the CPU: Adam on one fixed batch lowers the loss
     and keeps it finite."""
     cfg = SegmentConfig(num_points=64, lr=3e-3)
-    state = segment.create_state(cfg, 10)
+    state = segment.create_state(cfg, 10, device="cpu")
     tx = segment.make_tx(cfg, 10)
     gen = torch.Generator().manual_seed(4)
     x = torch.randn(4, 64, 3, generator=gen)
