@@ -9,11 +9,14 @@ What is ported so far: the serving path (the eval forward of the PointNet
 part segmenter, the adversarial trainer's generator), the config-3
 training step (``train/segment.py``) and the config-4 adversarial G+D
 training step (``train/adversarial.py``, with the pointwise
-discriminator ``models/discriminator.py``), with their seven TPU kernels
+discriminator ``models/discriminator.py``), also as the JAX package's
+bench runs it (bf16 mixed precision, ``augment_fused``, the paired
+trunks, K steps per call: ``train_steps_scan``), with their TPU kernels
 rewritten by hand in CUDA C++ for Hopper (``csrc/``, built at first use
-by ``ops/build.py``): three eval kernels, three training kernels and the
-fused discriminator. A CPU tensor runs each kernel's plain PyTorch
-version; a CUDA tensor runs the kernel.
+by ``ops/build.py``): three eval kernels, three training kernels (the
+trunk's with its two-stream ``groups=2`` form), the fused discriminator
+and the fused augmentation. A CPU tensor runs each kernel's plain
+PyTorch version; a CUDA tensor runs the kernel.
 
 Entry points (on the card unless given ``device="cpu"``)::
 

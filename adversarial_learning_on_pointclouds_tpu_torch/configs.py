@@ -32,14 +32,21 @@ class SegmentConfig:
     normalize: bool = True        # unit-sphere normalize per cloud
     resample: bool = True         # fixed-N subsample when clouds are larger
     point_dropout: bool = False
+    scan: int = 0                 # --scan K: K steps per call; when set,
+                                  #   adversarial.train_steps_scan takes
+                                  #   exactly K batches
+    pallas_augment: bool = False  # rotate/jitter/dropout as one
+                                  #   augment_fused pass on a Philox seed
+    bf16: bool = False            # mixed precision: bf16 matmul operands,
+                                  #   fp32 sums (core.mixed_precision)
     num_parts: int = 50
 
 
 # The JAX package's ablation controls and cross-stream batching knobs, with
 # their defaults: the port runs the defaults only.
 _NOT_PORTED = {"supervised_only": False, "self_training": False,
-               "d_geometry": False, "paired_trunks": False,
-               "paired_conv1": False, "fused_forward": False}
+               "d_geometry": False, "paired_conv1": False,
+               "fused_forward": False}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,9 +54,11 @@ class AdversarialConfig(SegmentConfig):
     """Config 4: adversarial semi-supervised segmentation (Hung et al.,
     arXiv:1802.07934), the fields the G+D train step reads. Setting an
     ablation control (``supervised_only``, ``self_training``,
-    ``d_geometry``) or a batching knob (``paired_trunks``,
-    ``paired_conv1``, ``fused_forward``) off its default raises: they are
-    still to port (ROADMAP, Queue 1, item 14)."""
+    ``d_geometry``) or a batching knob (``paired_conv1``,
+    ``fused_forward``) off its default raises: they are still to port
+    (ROADMAP, Queue 1, item 14). ``paired_trunks`` (the trunks batched
+    across the two streams, ``trunk2_train(groups=2)``) needs
+    ``paired_heads``, as in the JAX package's flag check."""
 
     lambda_adv: float = 0.01      # --lambda_adv
     lambda_adv_unl: Optional[float] = None  # unlabeled stream's own weight
@@ -60,6 +69,7 @@ class AdversarialConfig(SegmentConfig):
     beta2_d: float = 0.99
     semi_start: int = 0           # --semi_start: first step with L_semi
     paired_heads: bool = True     # T-Net fc heads batched across streams
+                                  #   (paired_trunks: the conv trunks too)
     supervised_only: bool = False
     self_training: bool = False
     d_geometry: bool = False
@@ -74,3 +84,6 @@ class AdversarialConfig(SegmentConfig):
                     f"AdversarialConfig({name}={getattr(self, name)!r}) is "
                     "not ported yet (ROADMAP, Queue 1, item 14: ablation "
                     "controls)")
+        if self.paired_trunks and not self.paired_heads:
+            raise ValueError("paired_trunks requires the paired-heads path "
+                             "(paired_heads=True)")

@@ -17,9 +17,14 @@
 //
 // fp32 on the CUDA cores with fp32 accumulation, as the serving path
 // runs in fp32 (the TPU kernels pin HIGHEST outside mixed precision).
+// The training and discriminator kernels also take mixed precision (the
+// prec bits below): every matmul operand rounded to bf16 (nearest even)
+// where it enters shared memory, the FMA loop and its sums in fp32, and
+// the pre-BN stashes between passes stored as __nv_bfloat16.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -35,9 +40,40 @@ constexpr int kMaxCols = 256;                    // columns per pass
 constexpr int kErrArgs = -1;     // shapes the kernel does not take
 constexpr int kErrSmem = -2;     // working set exceeds shared memory
 
+// Bits of the argument structs' prec field (ops/launch.py: ROUND,
+// BF16_BITS): round every matmul operand to bf16, and which tensors are
+// bf16 stashes (RowFwdArgs: x, z; BwdArgs: zp, zc, dy, dyp).
+constexpr int kRound = 1;
+constexpr int kXBf16 = 2, kZBf16 = 4, kDyBf16 = 8, kDypBf16 = 16;
+constexpr int kZpBf16 = kXBf16, kZcBf16 = kZBf16;
+
 enum Act { kActNone = 0, kActRelu = 1, kActLeaky = 2 };
 
 __host__ __device__ __forceinline__ int pad32(int c) { return (c + 31) & ~31; }
+
+// v as a matmul operand: rounded to bf16 (nearest even) under bf.
+__device__ __forceinline__ float operand(float v, bool bf) {
+  return bf ? __bfloat162float(__float2bfloat16_rn(v)) : v;
+}
+
+// p[i] of an fp32 or (bf) bf16 tensor, as fp32.
+__device__ __forceinline__ float load_val(const void* p, bool bf, size_t i) {
+  return bf ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
+            : __ldg(static_cast<const float*>(p) + i);
+}
+
+__device__ __forceinline__ void store_val(void* p, bool bf, size_t i,
+                                          float v) {
+  if (bf)
+    static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(v);
+  else
+    static_cast<float*>(p)[i] = v;
+}
+
+// Rounds count shared-memory operands to bf16 in place (no barrier).
+__device__ __forceinline__ void round_smem(float* s, int count) {
+  for (int e = threadIdx.x; e < count; e += kThreads) s[e] = operand(s[e], true);
+}
 
 __device__ __forceinline__ float apply_act(float z, int act) {
   if (act == kActRelu) return fmaxf(z, 0.f);

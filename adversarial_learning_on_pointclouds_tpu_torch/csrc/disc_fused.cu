@@ -26,6 +26,10 @@
 // slots in fp64 in a fixed order: results do not depend on scheduling.
 // Rows past m are zero in x and carry a zero cotangent, so they add
 // nothing to dW or db and are never stored.
+// Mixed precision (prec & kRound): x, h1..h4, the cotangents dz and every
+// weight are rounded to bf16 as matmul operands (h1..h3 where they are
+// stored in shared memory, dz after its db column sums, which take the
+// unrounded values); the sums stay fp32.
 
 #include "train_gemm.cuh"
 
@@ -34,7 +38,8 @@ namespace pointtpu {
 // Mirror of the Python side's ctypes structure (ops/launch.py), field for
 // field. A null pointer switches its output off.
 struct DiscArgs {
-  int m, k, per, splits;     // rows, input width, tiles per block, blocks
+  int m, k, per, splits, prec;  // rows, input width, tiles per block,
+                                // blocks, kRound or 0
   const float* x;            // [m, k]
   const float* g;            // [m] cotangent of the logits (backward)
   const float* w1;           // [64, k]   row-major (PyTorch's [out, in])
@@ -81,15 +86,17 @@ __device__ __forceinline__ float dleaky(float h) {  // from the output's sign
   return h >= 0.f ? 1.f : kSlope;
 }
 
-// out_s [kTile][NJ * 32] = leaky(in_s @ W^T + b) for W [NJ * 32, c_in].
+// out_s [kTile][NJ * 32] = leaky(in_s @ W^T + b) for W [NJ * 32, c_in],
+// stored as the next matmul's operand.
 template <int NJ>
 __device__ __forceinline__ void dense_leaky(const float* in_s, int c_in,
                                             const float* __restrict__ w,
                                             const float* __restrict__ b,
-                                            float* out_s, float* stage) {
+                                            float* out_s, float* stage,
+                                            bool bf) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float acc[kRows][NJ] = {};
-  gemm_acc<NJ, true>(acc, in_s, c_in, c_in, w, c_in, 0, NJ * 32, stage);
+  gemm_acc<NJ, true>(acc, in_s, c_in, c_in, w, c_in, 0, NJ * 32, stage, bf);
 #pragma unroll
   for (int jj = 0; jj < NJ; ++jj) {
     const int o = lane + 32 * jj;
@@ -97,8 +104,17 @@ __device__ __forceinline__ void dense_leaky(const float* in_s, int c_in,
 #pragma unroll
     for (int i = 0; i < kRows; ++i)
       out_s[(warp + i * kWarps) * (NJ * 32) + o] =
-          leaky(__fadd_rn(acc[i][jj], bias));
+          operand(leaky(__fadd_rn(acc[i][jj], bias)), bf);
   }
+}
+
+// Under bf, the cotangent tile d_s rounded in place to the bf16 operand
+// of the products after its column sums (barriers on both sides).
+__device__ __forceinline__ void dz_operand(float* d_s, int count, bool bf) {
+  if (!bf) return;
+  __syncthreads();
+  round_smem(d_s, count);
+  __syncthreads();
 }
 
 // dz_s = dh * leaky'(h_s), in place over h_s [kTile][NJ * 32].
@@ -183,9 +199,9 @@ inline size_t disc_smem(int k, bool bwd) {
 }
 
 // BWD off: logits. BWD on: the backward from g, with dx (DX) and the dW/db
-// partials of the block's slot (DW). Block s owns tiles [s * per, (s + 1)
-// * per) of 64 rows.
-template <bool BWD, bool DX, bool DW>
+// partials of the block's slot (DW). BF: bf16 operands (prec & kRound).
+// Block s owns tiles [s * per, (s + 1) * per) of 64 rows.
+template <bool BWD, bool DX, bool DW, bool BF>
 __global__ void __launch_bounds__(kThreads, 1) disc_kernel(const DiscArgs a) {
   extern __shared__ float smem[];
   float* h0 = smem;                          // [kTile][k]
@@ -201,18 +217,20 @@ __global__ void __launch_bounds__(kThreads, 1) disc_kernel(const DiscArgs a) {
   const int t0 = blockIdx.x * a.per, t1 = min(tiles, t0 + a.per);
   const GradLayout lay(a.k);
   float* part = DW ? a.part + (size_t)blockIdx.x * lay.size : nullptr;
+  constexpr bool bf = BF;
 
   for (int t = t0; t < t1; ++t) {
     const size_t g0 = (size_t)t * kTile;
     const int rows = (int)min((long long)kTile, (long long)a.m - (long long)g0);
     const bool first = t == t0;
     __syncthreads();  // the previous tile's shared memory is read
-    load_tile(h0, a.k, a.x, g0, rows, a.k, 0, a.k, nullptr, nullptr);
+    load_tile(h0, a.k, a.x, false, g0, rows, a.k, 0, a.k, nullptr, nullptr,
+              bf);
     if (BWD && threadIdx.x < kTile)
       g_s[threadIdx.x] = threadIdx.x < rows ? __ldg(a.g + g0 + threadIdx.x) : 0.f;
-    dense_leaky<kD1 / 32>(h0, a.k, a.w1, a.b1, h1, stage);
-    dense_leaky<kD2 / 32>(h1, kD1, a.w2, a.b2, h2, stage);
-    dense_leaky<kD3 / 32>(h2, kD2, a.w3, a.b3, h3, stage);
+    dense_leaky<kD1 / 32>(h0, a.k, a.w1, a.b1, h1, stage, bf);
+    dense_leaky<kD2 / 32>(h1, kD1, a.w2, a.b2, h2, stage, bf);
+    dense_leaky<kD3 / 32>(h2, kD2, a.w3, a.b3, h3, stage, bf);
 
     // Layer 4 in 128-column chunks, folded into layer 5 (forward) or into
     // dz4 and dh3 = dz4 @ W4 (backward).
@@ -221,21 +239,23 @@ __global__ void __launch_bounds__(kThreads, 1) disc_kernel(const DiscArgs a) {
     for (int oc = 0; oc < kD4; oc += kC4) {
       constexpr int NJ = kC4 / 32;
       float acc[kRows][NJ] = {};
-      gemm_acc<NJ, true>(acc, h3, kD3, kD3, a.w4, kD3, oc, kC4, stage);
+      gemm_acc<NJ, true>(acc, h3, kD3, kD3, a.w4, kD3, oc, kC4, stage, bf);
       float sdw5[NJ] = {};
 #pragma unroll
       for (int jj = 0; jj < NJ; ++jj) {
         const int c = lane + 32 * jj;
-        const float bias = __ldg(a.b4 + oc + c), w5 = __ldg(a.w5 + oc + c);
+        const float bias = __ldg(a.b4 + oc + c);
+        const float w5 = operand(__ldg(a.w5 + oc + c), bf);
 #pragma unroll
         for (int i = 0; i < kRows; ++i) {
-          const float h = leaky(__fadd_rn(acc[i][jj], bias));
+          const float h = operand(leaky(__fadd_rn(acc[i][jj], bias)), bf);
           if constexpr (!BWD) {
             lsum[i] = fmaf(h, w5, lsum[i]);
           } else {
             const int r = warp + i * kWarps;
-            dz4[r * kC4 + c] = (g_s[r] * w5) * dleaky(h);
-            if (DW) sdw5[jj] = fmaf(h, g_s[r], sdw5[jj]);
+            const float g = operand(g_s[r], bf);
+            dz4[r * kC4 + c] = (g * w5) * dleaky(h);
+            if (DW) sdw5[jj] = fmaf(h, g, sdw5[jj]);
           }
         }
       }
@@ -253,11 +273,14 @@ __global__ void __launch_bounds__(kThreads, 1) disc_kernel(const DiscArgs a) {
             *at = first ? s : *at + s;
           }
           colsum_tile(part + lay.b[3] + oc, kC4, dz4, kC4, first);
+        }
+        dz_operand(dz4, kTile * kC4, bf);
+        if (DW)
           wgrad_tile<8, 8>(part + lay.w[3] + (size_t)oc * kD3, kD3, kC4, h3,
                            kD3, dz4, kC4, first);
-        }
         gemm_acc<kD3 / 32, false>(dh3, dz4, kC4, kC4,
-                                  a.w4 + (size_t)oc * kD3, kD3, 0, kD3, stage);
+                                  a.w4 + (size_t)oc * kD3, kD3, 0, kD3, stage,
+                                  bf);
       }
     }
     if constexpr (!BWD) {
@@ -270,22 +293,25 @@ __global__ void __launch_bounds__(kThreads, 1) disc_kernel(const DiscArgs a) {
     } else {
       // dz3 -> dW3, db3, dh2 -> dz2 -> dW2, db2, dh1 -> dz1 -> dW1, db1, dx.
       dz_in_place<kD3 / 32>(dh3, h3);
-      if (DW) {
-        colsum_tile(part + lay.b[2], kD3, h3, kD3, first);
+      if (DW) colsum_tile(part + lay.b[2], kD3, h3, kD3, first);
+      dz_operand(h3, kTile * kD3, bf);
+      if (DW)
         wgrad_tile<8, 8>(part + lay.w[2], kD2, kD3, h2, kD2, h3, kD3, first);
-      }
       float dh2[kRows][kD2 / 32] = {};
-      gemm_acc<kD2 / 32, false>(dh2, h3, kD3, kD3, a.w3, kD2, 0, kD2, stage);
+      gemm_acc<kD2 / 32, false>(dh2, h3, kD3, kD3, a.w3, kD2, 0, kD2, stage,
+                                bf);
       dz_in_place<kD2 / 32>(dh2, h2);
-      if (DW) {
-        colsum_tile(part + lay.b[1], kD2, h2, kD2, first);
+      if (DW) colsum_tile(part + lay.b[1], kD2, h2, kD2, first);
+      dz_operand(h2, kTile * kD2, bf);
+      if (DW)
         wgrad_tile<4, 8>(part + lay.w[1], kD1, kD2, h1, kD1, h2, kD2, first);
-      }
       float dh1[kRows][kD1 / 32] = {};
-      gemm_acc<kD1 / 32, false>(dh1, h2, kD2, kD2, a.w2, kD1, 0, kD1, stage);
+      gemm_acc<kD1 / 32, false>(dh1, h2, kD2, kD2, a.w2, kD1, 0, kD1, stage,
+                                bf);
       dz_in_place<kD1 / 32>(dh1, h1);
+      if (DW) colsum_tile(part + lay.b[0], kD1, h1, kD1, first);
+      dz_operand(h1, kTile * kD1, bf);
       if (DW) {
-        colsum_tile(part + lay.b[0], kD1, h1, kD1, first);
         wgrad_tile<4, 4>(part + lay.w[0], a.k, kD1, h0, a.k, h1, kD1, first);
         if (threadIdx.x == 0) {
           float s = 0.f;
@@ -296,7 +322,7 @@ __global__ void __launch_bounds__(kThreads, 1) disc_kernel(const DiscArgs a) {
       if (DX) {
         constexpr int NJ = kMaxK / 32;
         float acc[kRows][NJ] = {};
-        gemm_acc<NJ, false>(acc, h1, kD1, kD1, a.w1, a.k, 0, a.k, stage);
+        gemm_acc<NJ, false>(acc, h1, kD1, kD1, a.w1, a.k, 0, a.k, stage, bf);
 #pragma unroll
         for (int jj = 0; jj < NJ; ++jj) {
           const int o = lane + 32 * jj;
@@ -311,14 +337,22 @@ __global__ void __launch_bounds__(kThreads, 1) disc_kernel(const DiscArgs a) {
   }
 }
 
+template <bool BWD, bool DX, bool DW, bool BF>
+int launch_disc_kernel(const DiscArgs& a, size_t bytes, cudaStream_t stream) {
+  const int e = (int)allow_smem(disc_kernel<BWD, DX, DW, BF>, bytes);
+  if (e) return e;
+  disc_kernel<BWD, DX, DW, BF><<<a.splits, kThreads, bytes, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 template <bool BWD, bool DX, bool DW>
 int launch_disc(const DiscArgs& a, cudaStream_t stream) {
   const size_t bytes = disc_smem(a.k, BWD);
   if (bytes > (size_t)max_smem_optin()) return kErrSmem;
-  int e = (int)allow_smem(disc_kernel<BWD, DX, DW>, bytes);
+  int e = (a.prec & kRound)
+              ? launch_disc_kernel<BWD, DX, DW, true>(a, bytes, stream)
+              : launch_disc_kernel<BWD, DX, DW, false>(a, bytes, stream);
   if (e) return e;
-  disc_kernel<BWD, DX, DW><<<a.splits, kThreads, bytes, stream>>>(a);
-  if ((e = (int)cudaGetLastError())) return e;
   if (!DW) return 0;
   const GradLayout lay(a.k);
   return colsum(a.part, lay.size, a.splits, (int)lay.size, 1, a.grad, 0,

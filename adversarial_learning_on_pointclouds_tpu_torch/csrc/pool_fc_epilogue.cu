@@ -17,7 +17,8 @@
 // and ReLU follow in place. The pooled feature h = relu(sel * s3c + t3)
 // is built in shared memory in chunks of 128 channels (row stride 129, so
 // lanes reading 32 rows hit 32 banks), the weight row is a broadcast
-// read; block 0 also stores h for the backward.
+// read; block 0 also stores h for the backward. Under prec & kRound the
+// product takes h and W1 rounded to bf16 (h is stored unrounded).
 
 #include "common.cuh"
 
@@ -26,7 +27,7 @@ namespace pointtpu {
 // Mirror of the Python side's ctypes structure (ops/launch.py), field for
 // field, as the other training passes take theirs (train_gemm.cuh).
 struct PoolFcArgs {
-  int batch, c3, c1, groups;
+  int batch, c3, c1, groups, prec;  // prec: kRound or 0
   const float* mx;       // [batch, c3] per-cloud max of z3
   const float* mn;       // [batch, c3] per-cloud min of z3
   const float* s3c;      // [c3] BN3 fold: h = relu(sel * s3c + t3)
@@ -57,6 +58,7 @@ pool_fc_kernel(const PoolFcArgs a) {
   const int o = blockIdx.x * kWarps + warp;
   const int batch = a.batch, c3 = a.c3, c1 = a.c1;
   constexpr int kLd = kPoolKc + 1;
+  const bool bf = a.prec & kRound;
   float acc[RB] = {};
   for (int k0 = 0; k0 < c3; k0 += kPoolKc) {
     const int kn = min(kPoolKc, c3 - k0);
@@ -72,13 +74,13 @@ pool_fc_kernel(const PoolFcArgs a) {
         v = fmaxf(__fadd_rn(__fmul_rn(sel, s), __ldg(a.t3 + k)), 0.f);
         if (blockIdx.x == 0) a.h[(size_t)bb * c3 + k] = v;
       }
-      h_s[bb * kLd + kk] = v;
+      h_s[bb * kLd + kk] = operand(v, bf);
     }
     __syncthreads();
     if (o < c1) {
       const float* wo = a.w1 + (size_t)o * c3 + k0;
       for (int kk = 0; kk < kn; ++kk) {
-        const float wv = __ldg(wo + kk);
+        const float wv = operand(__ldg(wo + kk), bf);
 #pragma unroll
         for (int j = 0; j < RB; ++j) {
           const int bb = lane + 32 * j;

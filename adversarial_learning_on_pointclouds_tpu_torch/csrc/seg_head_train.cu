@@ -22,7 +22,10 @@
 // 128-channel chunks, masks by the previous ReLU, stores dy_prev and
 // reduces the previous BN's sums, one pass behind as on the TPU; its
 // weight-gradient kernel rebuilds dz and h tile by tile for dW = dz^T h.
-// All row reductions add per-block partials in fp64.
+// All row reductions add per-block partials in fp64. Mixed precision
+// (prec): bf16 operands and bf16 stashes z1, z2, z3 (P1, Pmid), dy3 (B4)
+// and dy_prev (Bmid); each statistic and BN sum is taken from the
+// unrounded values in the pass that makes them, and dpf stays fp32.
 
 #include "train_gemm.cuh"
 
@@ -31,16 +34,18 @@ using pointtpu::RowFwdArgs;
 
 namespace {
 
+// The head runs per stream: one group.
 int forward(const RowFwdArgs* a, int device, cudaStream_t stream) {
   using namespace pointtpu;
   cudaError_t e = use_device(device);
-  return e != cudaSuccess ? (int)e : row_fwd(*a, stream);
+  return e != cudaSuccess ? (int)e : row_fwd<false>(*a, stream);
 }
 
+template <int MODE>
 int backward(const BwdArgs* a, int device, cudaStream_t stream) {
   using namespace pointtpu;
   cudaError_t e = use_device(device);
-  return e != cudaSuccess ? (int)e : backward_pass(*a, stream);
+  return e != cudaSuccess ? (int)e : backward_pass<MODE, false>(*a, stream);
 }
 
 }  // namespace
@@ -73,7 +78,7 @@ extern "C" int pt_head_p4(const RowFwdArgs* a, int device,
 extern "C" int pt_head_b4(const BwdArgs* a, int device, cudaStream_t stream) {
   if (a->mode != pointtpu::kDzSoftmax || !a->scp || !a->mup || a->r)
     return pointtpu::kErrArgs;
-  return backward(a, device, stream);
+  return backward<pointtpu::kDzSoftmax>(a, device, stream);
 }
 
 // A BN backward and the matmul backward to the previous layer.
@@ -81,7 +86,7 @@ extern "C" int pt_head_bmid(const BwdArgs* a, int device,
                             cudaStream_t stream) {
   if (a->mode != pointtpu::kDzBn || !a->scp || !a->mup || a->r)
     return pointtpu::kErrArgs;
-  return backward(a, device, stream);
+  return backward<pointtpu::kDzBn>(a, device, stream);
 }
 
 // BN1 backward and the point half of layer 1: dpf, dW1a, db1 and the
@@ -89,5 +94,5 @@ extern "C" int pt_head_bmid(const BwdArgs* a, int device,
 extern "C" int pt_head_b1(const BwdArgs* a, int device, cudaStream_t stream) {
   if (a->mode != pointtpu::kDzBn || a->scp || a->mup || !a->r)
     return pointtpu::kErrArgs;
-  return backward(a, device, stream);
+  return backward<pointtpu::kDzBn>(a, device, stream);
 }

@@ -30,8 +30,22 @@
 // the point axis is masked: rows past N are zero in every tile and never
 // enter a sum, an extremum or a store.
 //
-// fp32 FMAs on the CUDA cores, fp32 accumulation, as the reference
-// training step runs in fp32.
+// Every tile of both kernels lies in one cloud. With groups > 1 (the
+// paired trunks: the batch is groups stacked streams of batch / groups
+// clouds) the BN statistics and the terms a pass takes from them are
+// [groups, C] and a tile uses its cloud's group's row; each group's
+// partial sums are a contiguous range of the per-block slots, added as
+// a stream alone would add them. Grouping is a template parameter (G) of
+// the kernels, so a one-group pass reads its statistics straight from
+// the argument struct and holds no per-group pointers in registers; the
+// host-side passes (row_fwd, backward_pass) are templates too, so a
+// source instantiates only the kernels its entry points launch.
+//
+// fp32 FMAs on the CUDA cores, fp32 accumulation. Under kRound (mixed
+// precision) every matmul operand, activations, weights and cotangents,
+// is rounded to bf16 as it enters shared memory or the staging buffer;
+// sums, statistics and the BN sums keep the unrounded fp32 values, and
+// the stashes named in prec are read and written as bf16.
 
 #pragma once
 
@@ -42,16 +56,16 @@ namespace pointtpu {
 // Mirrors of the Python side's ctypes structures (ops/launch.py), field
 // for field. A null pointer switches its feature off.
 struct RowFwdArgs {
-  int batch, n, c_in, c_out, ldw;
-  const float* x;        // [batch * n, c_in]
-  const float* sc;       // prologue relu(x * sc + sh), or null
+  int batch, n, c_in, c_out, ldw, groups, prec;
+  const void* x;         // [batch * n, c_in], fp32 or (kXBf16) bf16
+  const float* sc;       // [groups, c_in] prologue relu(x * sc + sh), or null
   const float* sh;
   const float* w;        // [c_out, ldw] row-major (PyTorch's [out, in])
   const float* bias;     // [c_out]
   const float* addend;   // [batch, c_out] per-cloud addend, or null
-  float* z;              // [batch * n, c_out] store, or null
-  float* sum;            // [c_out] column sums, or null
-  float* ssq;            // [c_out] column sums of squares
+  void* z;               // [batch * n, c_out] store (kZBf16: bf16), or null
+  float* sum;            // [groups, c_out] column sums, or null
+  float* ssq;            // [groups, c_out] column sums of squares
   float* part;           // scratch [2, blocks, c_out]
   unsigned long long* keys;  // scratch [2, batch, c_out] (extrema)
   float* mx;             // [batch, c_out] per-cloud max, or null
@@ -64,28 +78,28 @@ struct RowFwdArgs {
 enum DzMode { kDzBn = 0, kDzTrunk = 1, kDzSoftmax = 2 };
 
 struct BwdArgs {
-  int mode, batch, n, c_in, c_out, ldw, splits;
-  const float* zp;       // [batch * n, c_in] previous stash (or raw input)
-  const float* scp;      // previous BN's affine (ReLU mask), or null
-  const float* shp;
-  const float* mup;      // previous BN's mean and 1/std for t1/t2, or null
-  const float* invp;
+  int mode, batch, n, c_in, c_out, ldw, splits, groups, prec;
+  const void* zp;        // [batch * n, c_in] previous stash (or raw input)
+  const float* scp;      // [groups, c_in] previous BN's affine (ReLU
+  const float* shp;      //   mask), or null
+  const float* mup;      // [groups, c_in] previous BN's mean and 1/std for
+  const float* invp;     //   t1/t2, or null
   const float* w;        // [c_out, ldw] row-major
   const float* bias;     // kDzTrunk: b3; kDzSoftmax: b4
-  const float* zc;       // kDzBn: current stash [batch * n, c_out]
-  const float* dy;       // kDzBn: current cotangent [batch * n, c_out]
-  const float* sc;       // kDzBn: [c_out]
-  const float* mu;       // kDzBn, kDzTrunk: [c_out]
+  const void* zc;        // kDzBn: current stash [batch * n, c_out]
+  const void* dy;        // kDzBn: current cotangent [batch * n, c_out]
+  const float* sc;       // kDzBn: [groups, c_out]
+  const float* mu;       // kDzBn, kDzTrunk: [groups, c_out]
   const float* inv;
-  const float* c1;       // kDzBn: [c_out]
+  const float* c1;       // kDzBn: [groups, c_out]
   const float* c2;
   const float* coef1;    // kDzTrunk: [batch, c_out]
   const float* coef2;
   const float* s3dg;
   const int* idx;        // kDzTrunk: pooled winners [batch, c_out]
   const float* dlp;      // kDzSoftmax: d log-probs [batch * n, c_out]
-  float* dyp;            // [batch * n, c_in]
-  float* t1;             // [c_in] or null
+  void* dyp;             // [batch * n, c_in] (kDypBf16: bf16)
+  float* t1;             // [groups, c_in] or null
   float* t2;
   float* db;             // [c_out]
   float* r;              // [batch, c_out] per-cloud sums of dz, or null
@@ -140,36 +154,40 @@ struct Stage {
       v[q] = ok ? __ldg(src) : 0.f;
     }
   }
-  __device__ __forceinline__ void put(float* buf) const {
+  // Rounds to bf16 here, not in fetch: the loads stay in flight under
+  // the previous chunk's FMAs.
+  __device__ __forceinline__ void put(float* buf, bool bf) const {
 #pragma unroll
     for (int q = 0; q < kPer; ++q) {
       int kk, j;
       at(q, kk, j);
-      buf[kk * kStageLd + j] = v[q];
+      buf[kk * kStageLd + j] = operand(v[q], bf);
     }
   }
 };
 
 // acc[i][jj] += sum_k in_s[row i][k] * B[k][n0 + lane + 32 jj] over k <
-// nk; B's columns at or past n_valid are zero. Starts and ends with a
+// nk; B's columns at or past n_valid are zero, and B is rounded to bf16
+// under bf (in_s already holds operands). Starts and ends with a
 // barrier, so in_s written before the call is visible, and stage may be
 // reused after it.
 template <int NJ, bool TRANS>
 __device__ __forceinline__ void gemm_acc(float (&acc)[kRows][NJ],
                                          const float* in_s, int ld_in, int nk,
                                          const float* __restrict__ w, int ldw,
-                                         int n0, int n_valid, float* stage) {
+                                         int n0, int n_valid, float* stage,
+                                         bool bf) {
   Stage<NJ * 32, TRANS> st;
   const int chunks = (nk + kKc - 1) / kKc;
   st.fetch(w, ldw, n0, n_valid, 0, nk);
-  st.put(stage);
+  st.put(stage, bf);
   __syncthreads();
   for (int c = 0; c < chunks; ++c) {
     const int k0 = c * kKc;
     if (c + 1 < chunks) st.fetch(w, ldw, n0, n_valid, k0 + kKc, nk);
     tile_fma<kRows, NJ>(acc, in_s + k0, ld_in, stage + (c & 1) * kStage,
                         kStageLd, min(kKc, nk - k0));
-    if (c + 1 < chunks) st.put(stage + ((c + 1) & 1) * kStage);
+    if (c + 1 < chunks) st.put(stage + ((c + 1) & 1) * kStage, bf);
     __syncthreads();
   }
 }
@@ -183,22 +201,52 @@ __device__ __forceinline__ float bn_affine(float v, float sc, float sh) {
 }
 
 // tile[r][c] = f(x[(g0 + r) * ldx + c0 + c]) for r < rows and c0 + c <
-// c_lim, else 0; f is relu(v * sc + sh) when sc is given, else identity.
+// c_lim, else 0; x is fp32 or (xbf) bf16, f is relu(v * sc + sh) when sc
+// is given, else identity, and the result is a matmul operand (rounded
+// to bf16 under bf).
 __device__ __forceinline__ void load_tile(float* tile, int width,
-                                          const float* __restrict__ x,
+                                          const void* __restrict__ x, bool xbf,
                                           size_t g0, int rows, int ldx, int c0,
                                           int c_lim,
                                           const float* __restrict__ sc,
-                                          const float* __restrict__ sh) {
+                                          const float* __restrict__ sh,
+                                          bool bf) {
   for (int e = threadIdx.x; e < kTile * width; e += kThreads) {
     const int r = e / width, c = c0 + e - r * width;
     float v = 0.f;
     if (r < rows && c < c_lim) {
-      v = __ldg(x + (g0 + r) * ldx + c);
+      v = load_val(x, xbf, (g0 + r) * ldx + c);
       if (sc) v = fmaxf(bn_affine(v, __ldg(sc + c), __ldg(sh + c)), 0.f);
     }
-    tile[e] = v;
+    tile[e] = operand(v, bf);
   }
+}
+
+// Calls f(Nj<NJ>{}) for the smallest NJ of 2, 4 and 8 with NJ * 32 >=
+// cols (a multiple of 32, at most kMaxCols). Both row kernels mask every
+// column past their width (zero operands, no store, no sum), so three
+// widths serve all eight, and each row kernel compiles three bodies
+// where with_nj would make eight; the path's widths (64, 128, 256) are
+// these three.
+template <typename F>
+__device__ __forceinline__ void with_nj_pow2(int cols, F&& f) {
+  switch (cols >> 5) {
+    case 1:
+    case 2: f(Nj<2>{}); break;
+    case 3:
+    case 4: f(Nj<4>{}); break;
+    default: f(Nj<8>{}); break;
+  }
+}
+
+// The row of a [groups, c] statistic (or null) for cloud b; without G
+// (one group) the statistic itself.
+template <bool G>
+__device__ __forceinline__ const float* group_row(const float* p, int b,
+                                                  int batch, int groups,
+                                                  int c) {
+  if (!G) return p;
+  return p ? p + (size_t)(b / (batch / groups)) * c : nullptr;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -288,6 +336,9 @@ __global__ void decode_extrema_kernel(const unsigned long long* __restrict__ key
 // Forward row kernel
 // ---------------------------------------------------------------------------
 
+// BF: kRound, a template parameter so that the fp32 build carries no
+// rounding at all; G: groups > 1.
+template <bool BF, bool G>
 __global__ void __launch_bounds__(kThreads, 1)
 row_fwd_kernel(const RowFwdArgs a) {
   extern __shared__ float smem[];
@@ -300,15 +351,21 @@ row_fwd_kernel(const RowFwdArgs a) {
   const size_t g0 = (size_t)b * a.n + p0;
   const int blk = b * gridDim.x + blockIdx.x;
   const size_t blocks = (size_t)gridDim.x * gridDim.y;
+  // bf16 stashes come only with bf16 operands (ops/launch.py: prec), so
+  // the fp32 build reads and writes fp32 alone.
+  constexpr bool bf = BF;
+  const bool zbf = BF && (a.prec & kZBf16);
 
-  load_tile(in_s, a.c_in, a.x, g0, rows, a.c_in, 0, a.c_in, a.sc, a.sh);
+  load_tile(in_s, a.c_in, a.x, BF && (a.prec & kXBf16), g0, rows, a.c_in, 0, a.c_in,
+            group_row<G>(a.sc, b, a.batch, a.groups, a.c_in),
+            group_row<G>(a.sh, b, a.batch, a.groups, a.c_in), bf);
   const int cp = pad32(a.c_out);
   for (int n0 = 0; n0 < cp; n0 += kMaxCols) {
-    with_nj(min(kMaxCols, cp - n0), [&](auto nj) {
+    with_nj_pow2(min(kMaxCols, cp - n0), [&](auto nj) {
       constexpr int NJ = decltype(nj)::value;
       float acc[kRows][NJ] = {};
       gemm_acc<NJ, true>(acc, in_s, a.c_in, a.c_in, a.w, a.ldw, n0,
-                         a.c_out - n0, stage);
+                         a.c_out - n0, stage, bf);
 #pragma unroll
       for (int jj = 0; jj < NJ; ++jj) {
         const int o = n0 + lane + 32 * jj;
@@ -320,7 +377,8 @@ row_fwd_kernel(const RowFwdArgs a) {
         for (int i = 0; i < kRows; ++i) {
           acc[i][jj] = (acc[i][jj] + add) + bias;
           const int r = warp + i * kWarps;
-          if (a.z && r < rows) a.z[(g0 + r) * a.c_out + o] = acc[i][jj];
+          if (a.z && r < rows)
+            store_val(a.z, zbf, (g0 + r) * a.c_out + o, acc[i][jj]);
         }
       }
       if (a.logp) {  // c_out <= kMaxCols: the row is in this warp
@@ -413,11 +471,14 @@ inline size_t row_fwd_smem(const RowFwdArgs& a) {
   return ((size_t)kTile * a.c_in + 2 * kStage) * sizeof(float) + red;
 }
 
-// The forward pass: the row kernel, then the statistics' fp64 sums and
-// the extrema's decode.
+// The forward pass: the row kernel, then the statistics' fp64 sums (per
+// group: a group's blocks are contiguous) and the extrema's decode. G:
+// groups > 1, else groups == 1.
+template <bool G>
 int row_fwd(const RowFwdArgs& a, cudaStream_t stream) {
   if (a.batch <= 0 || a.batch > 65535 || a.n <= 0 || a.c_in <= 0 ||
-      a.c_out <= 0 || a.ldw < a.c_in || !a.x || !a.w || !a.bias ||
+      a.c_out <= 0 || a.ldw < a.c_in || (G ? a.groups < 2 : a.groups != 1) ||
+      a.batch % a.groups || !a.x || !a.w || !a.bias ||
       (a.logp && a.c_out > kMaxCols) || (a.sum && (!a.ssq || !a.part)) ||
       (a.mx && (!a.keys || !a.mn || !a.imax || !a.imin)))
     return kErrArgs;
@@ -431,15 +492,22 @@ int row_fwd(const RowFwdArgs& a, cudaStream_t stream) {
         a.keys, count);
     if ((e = (int)cudaGetLastError())) return e;
   }
-  if ((e = (int)allow_smem(row_fwd_kernel, bytes))) return e;
-  row_fwd_kernel<<<dim3(tiles, a.batch), kThreads, bytes, stream>>>(a);
+  const dim3 grid(tiles, a.batch);
+  if (a.prec & kRound) {
+    if ((e = (int)allow_smem(row_fwd_kernel<true, G>, bytes))) return e;
+    row_fwd_kernel<true, G><<<grid, kThreads, bytes, stream>>>(a);
+  } else {
+    if ((e = (int)allow_smem(row_fwd_kernel<false, G>, bytes))) return e;
+    row_fwd_kernel<false, G><<<grid, kThreads, bytes, stream>>>(a);
+  }
   if ((e = (int)cudaGetLastError())) return e;
-  const int blocks = tiles * a.batch;
+  const int blocks = tiles * a.batch, per = blocks / a.groups;
   if (a.sum) {
-    if ((e = colsum(a.part, a.c_out, blocks, a.c_out, 1, a.sum, 0, stream)))
+    if ((e = colsum(a.part, a.c_out, per, a.c_out, a.groups, a.sum, a.c_out,
+                    stream)))
       return e;
-    if ((e = colsum(a.part + (size_t)blocks * a.c_out, a.c_out, blocks,
-                    a.c_out, 1, a.ssq, 0, stream)))
+    if ((e = colsum(a.part + (size_t)blocks * a.c_out, a.c_out, per, a.c_out,
+                    a.groups, a.ssq, a.c_out, stream)))
       return e;
   }
   if (a.mx) {
@@ -454,23 +522,33 @@ int row_fwd(const RowFwdArgs& a, cudaStream_t stream) {
 // dz of one tile, for the backward row kernel and the dW kernel
 // ---------------------------------------------------------------------------
 
-// dz_s[r][c] = dz[g0 + r][oc + c] for c < OC (0 past rows or c_out). The
-// recompute modes read the previous activation h_s [kTile][c_in].
-// Ends with a barrier.
-template <int OC>
-__device__ __forceinline__ void make_dz(const BwdArgs& a, int oc, size_t g0,
-                                        int rows, const float* h_s,
+// dz_s[r][c] = dz[b, p0 + r][oc + c] for c < OC (0 past rows or c_out),
+// unrounded: the tile's rows are points p0.. of cloud b. The recompute
+// modes read the previous activation h_s [kTile][c_in]. Ends with a
+// barrier.
+template <int OC, bool BF, bool G>
+__device__ __forceinline__ void make_dz(const BwdArgs& a, int oc, int b,
+                                        int p0, int rows, const float* h_s,
                                         float* dz_s, float* stage) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const size_t g0 = (size_t)b * a.n + p0;
+  const float* mu = group_row<G>(a.mu, b, a.batch, a.groups, a.c_out);
+  const float* inv = group_row<G>(a.inv, b, a.batch, a.groups, a.c_out);
   if (a.mode == kDzBn) {
+    const float* sc = group_row<G>(a.sc, b, a.batch, a.groups, a.c_out);
+    const float* c1 = group_row<G>(a.c1, b, a.batch, a.groups, a.c_out);
+    const float* c2 = group_row<G>(a.c2, b, a.batch, a.groups, a.c_out);
+    const bool zcbf = BF && (a.prec & kZcBf16);
+    const bool dybf = BF && (a.prec & kDyBf16);
     for (int e = threadIdx.x; e < kTile * OC; e += kThreads) {
       const int r = e / OC, o = oc + e - r * OC;
       float v = 0.f;
       if (r < rows && o < a.c_out) {
         const size_t at = (g0 + r) * a.c_out + o;
-        const float zhat = (__ldg(a.zc + at) - __ldg(a.mu + o)) * __ldg(a.inv + o);
-        v = __ldg(a.dy + at) * __ldg(a.sc + o) - __ldg(a.c1 + o) -
-            zhat * __ldg(a.c2 + o);
+        const float zhat = (load_val(a.zc, zcbf, at) - __ldg(mu + o)) *
+                           __ldg(inv + o);
+        v = load_val(a.dy, dybf, at) * __ldg(sc + o) - __ldg(c1 + o) -
+            zhat * __ldg(c2 + o);
       }
       dz_s[e] = v;
     }
@@ -480,7 +558,7 @@ __device__ __forceinline__ void make_dz(const BwdArgs& a, int oc, size_t g0,
   constexpr int NJ = OC / 32;
   float acc[kRows][NJ] = {};
   gemm_acc<NJ, true>(acc, h_s, a.c_in, a.c_in, a.w, a.ldw, oc, a.c_out - oc,
-                     stage);
+                     stage, BF);
   if (a.mode == kDzTrunk) {
     // dz3 = [n == idx] * s3dg - coef1 - zhat3 * coef2 (per cloud, channel)
 #pragma unroll
@@ -491,11 +569,10 @@ __device__ __forceinline__ void make_dz(const BwdArgs& a, int oc, size_t g0,
         const int r = warp + i * kWarps;
         float v = 0.f;
         if (r < rows && o < a.c_out) {
-          const size_t g = g0 + r;
-          const int b = (int)(g / a.n), p = (int)(g - (size_t)b * a.n);
+          const int p = p0 + r;
           const size_t at = (size_t)b * a.c_out + o;
-          const float zhat = ((acc[i][jj] + __ldg(a.bias + o)) - __ldg(a.mu + o)) *
-                             __ldg(a.inv + o);
+          const float zhat = ((acc[i][jj] + __ldg(a.bias + o)) - __ldg(mu + o)) *
+                             __ldg(inv + o);
           const float sparse = p == __ldg(a.idx + at) ? __ldg(a.s3dg + at) : 0.f;
           v = sparse - __ldg(a.coef1 + at) - zhat * __ldg(a.coef2 + at);
         }
@@ -546,7 +623,7 @@ __device__ __forceinline__ void make_dz(const BwdArgs& a, int oc, size_t g0,
 // and the per-block column sums of dz (for db and the per-cloud r)
 // ---------------------------------------------------------------------------
 
-template <int OC>
+template <int OC, bool BF, bool G>
 __global__ void __launch_bounds__(kThreads, 1)
 row_bwd_kernel(const BwdArgs a) {
   extern __shared__ float smem[];
@@ -561,25 +638,38 @@ row_bwd_kernel(const BwdArgs a) {
   const size_t g0 = (size_t)b * a.n + p0;
   const int blk = b * gridDim.x + blockIdx.x;
   float* prow = a.part + (size_t)blk * (2 * a.c_in + a.c_out);
+  constexpr bool bf = BF;
+  const bool zpbf = BF && (a.prec & kZpBf16);
+  const bool dypbf = BF && (a.prec & kDypBf16);
+  const float* scp = group_row<G>(a.scp, b, a.batch, a.groups, a.c_in);
+  const float* shp = group_row<G>(a.shp, b, a.batch, a.groups, a.c_in);
+  const float* mup = group_row<G>(a.mup, b, a.batch, a.groups, a.c_in);
+  const float* invp = group_row<G>(a.invp, b, a.batch, a.groups, a.c_in);
 
   if (recompute)
-    load_tile(h_s, a.c_in, a.zp, g0, rows, a.c_in, 0, a.c_in, a.scp, a.shp);
+    load_tile(h_s, a.c_in, a.zp, zpbf, g0, rows, a.c_in, 0, a.c_in, scp, shp,
+              bf);
   const int cp = pad32(a.c_in);
   for (int kc = 0; kc < cp; kc += kMaxCols) {
-    with_nj(min(kMaxCols, cp - kc), [&](auto nj) {
+    with_nj_pow2(min(kMaxCols, cp - kc), [&](auto nj) {
       constexpr int NJ = decltype(nj)::value;
       float acc[kRows][NJ] = {};
       for (int oc = 0; oc < a.c_out; oc += OC) {
-        make_dz<OC>(a, oc, g0, rows, h_s, dz_s, stage);
+        make_dz<OC, BF, G>(a, oc, b, p0, rows, h_s, dz_s, stage);
         if (kc == 0)
           for (int c = threadIdx.x; c < OC && oc + c < a.c_out; c += kThreads) {
             float s = 0.f;
             for (int r = 0; r < rows; ++r) s += dz_s[r * OC + c];
             prow[2 * a.c_in + oc + c] = s;
           }
+        if (bf) {  // db took the unrounded dz; the product takes bf16
+          __syncthreads();
+          round_smem(dz_s, kTile * OC);
+          __syncthreads();
+        }
         gemm_acc<NJ, false>(acc, dz_s, OC, min(OC, a.c_out - oc),
                             a.w + (size_t)oc * a.ldw, a.ldw, kc, a.c_in - kc,
-                            stage);
+                            stage, bf);
       }
 #pragma unroll
       for (int jj = 0; jj < NJ; ++jj) {
@@ -591,13 +681,13 @@ row_bwd_kernel(const BwdArgs a) {
             const int r = warp + i * kWarps;
             if (r >= rows) continue;
             const size_t at = (g0 + r) * a.c_in + k;
-            const float zp = __ldg(a.zp + at);
+            const float zp = load_val(a.zp, zpbf, at);
             float d = acc[i][jj];
-            if (a.scp && !(bn_affine(zp, __ldg(a.scp + k), __ldg(a.shp + k)) > 0.f))
+            if (scp && !(bn_affine(zp, __ldg(scp + k), __ldg(shp + k)) > 0.f))
               d = 0.f;
-            a.dyp[at] = d;
+            store_val(a.dyp, dypbf, at, d);
             s1 += d;
-            if (a.mup) s2 += d * ((zp - __ldg(a.mup + k)) * __ldg(a.invp + k));
+            if (mup) s2 += d * ((zp - __ldg(mup + k)) * __ldg(invp + k));
           }
         }
         red[warp * kMaxCols + lane + 32 * jj] = s1;
@@ -621,11 +711,12 @@ row_bwd_kernel(const BwdArgs a) {
 }
 
 // ---------------------------------------------------------------------------
-// Weight-gradient kernel: part_w[split][o][k] = sum over the split's rows
-// of dz[row][o] * h[row][k]
+// Weight-gradient kernel: part_w[split][o][k] = sum over the split's tiles
+// (64 points of one cloud, as the row kernels tile) of dz[row][o] *
+// h[row][k]
 // ---------------------------------------------------------------------------
 
-template <int KJ>
+template <int KJ, bool BF, bool G>
 __global__ void __launch_bounds__(kThreads)
 wgrad_kernel(const BwdArgs a) {
   extern __shared__ float smem[];
@@ -636,22 +727,33 @@ wgrad_kernel(const BwdArgs a) {
   float* stage = dz_s + kTile * kGradO;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int oc = blockIdx.x * kGradO, kc = blockIdx.y * KJ * 32;
-  const long long m = (long long)a.batch * a.n;
-  const int tiles = ceil_div(m, kTile);
+  const int tpc = ceil_div(a.n, kTile);                    // tiles per cloud
+  const int tiles = tpc * a.batch;
   const int per = ceil_div(tiles, a.splits);
   const int t0 = blockIdx.z * per, t1 = min(tiles, t0 + per);
   const int hk = recompute ? kc : 0;                       // h_s column of kc
+  constexpr bool bf = BF;
+  const bool zpbf = BF && (a.prec & kZpBf16);
 
   float acc[kRows][KJ] = {};
   for (int t = t0; t < t1; ++t) {
-    const size_t g0 = (size_t)t * kTile;
-    const int rows = (int)min((long long)kTile, m - (long long)g0);
+    const int b = t / tpc, p0 = (t - b * tpc) * kTile;
+    const int rows = min(kTile, a.n - p0);
+    const size_t g0 = (size_t)b * a.n + p0;
+    const float* scp = group_row<G>(a.scp, b, a.batch, a.groups, a.c_in);
+    const float* shp = group_row<G>(a.shp, b, a.batch, a.groups, a.c_in);
     __syncthreads();  // the previous tile's h_s and dz_s are read
     if (recompute)
-      load_tile(h_s, a.c_in, a.zp, g0, rows, a.c_in, 0, a.c_in, a.scp, a.shp);
+      load_tile(h_s, a.c_in, a.zp, zpbf, g0, rows, a.c_in, 0, a.c_in, scp,
+                shp, bf);
     else
-      load_tile(h_s, hw, a.zp, g0, rows, a.c_in, kc, a.c_in, a.scp, a.shp);
-    make_dz<kGradO>(a, oc, g0, rows, h_s, dz_s, stage);
+      load_tile(h_s, hw, a.zp, zpbf, g0, rows, a.c_in, kc, a.c_in, scp, shp,
+                bf);
+    make_dz<kGradO, BF, G>(a, oc, b, p0, rows, h_s, dz_s, stage);
+    if (bf) {
+      round_smem(dz_s, kTile * kGradO);
+      __syncthreads();
+    }
     for (int r = 0; r < rows; ++r) {
       float av[kRows], bv[KJ];
 #pragma unroll
@@ -680,66 +782,83 @@ wgrad_kernel(const BwdArgs a) {
   }
 }
 
-template <int KJ>
+template <int KJ, bool G>
 int launch_wgrad(const BwdArgs& a, cudaStream_t stream) {
   const bool recompute = a.mode != kDzBn;
   const size_t bytes =
       ((size_t)kTile * (recompute ? a.c_in : KJ * 32) + kTile * kGradO +
        2 * kStage) * sizeof(float);
   if (bytes > (size_t)max_smem_optin()) return kErrSmem;
-  const int e = (int)allow_smem(wgrad_kernel<KJ>, bytes);
-  if (e) return e;
   const dim3 grid(ceil_div(a.c_out, kGradO), ceil_div(a.c_in, KJ * 32),
                   a.splits);
-  wgrad_kernel<KJ><<<grid, kThreads, bytes, stream>>>(a);
+  int e;
+  if (a.prec & kRound) {
+    if ((e = (int)allow_smem(wgrad_kernel<KJ, true, G>, bytes))) return e;
+    wgrad_kernel<KJ, true, G><<<grid, kThreads, bytes, stream>>>(a);
+  } else {
+    if ((e = (int)allow_smem(wgrad_kernel<KJ, false, G>, bytes))) return e;
+    wgrad_kernel<KJ, false, G><<<grid, kThreads, bytes, stream>>>(a);
+  }
   return (int)cudaGetLastError();
 }
 
-template <int OC>
+template <int OC, bool G>
 int launch_row_bwd(const BwdArgs& a, cudaStream_t stream) {
   const bool recompute = a.mode != kDzBn;
   const size_t bytes = ((size_t)(recompute ? kTile * a.c_in : 0) + kTile * OC +
                         2 * kStage + 2 * kWarps * kMaxCols) * sizeof(float);
   if (bytes > (size_t)max_smem_optin()) return kErrSmem;
-  const int e = (int)allow_smem(row_bwd_kernel<OC>, bytes);
-  if (e) return e;
-  row_bwd_kernel<OC><<<dim3(ceil_div(a.n, kTile), a.batch), kThreads, bytes,
-                       stream>>>(a);
+  const dim3 grid(ceil_div(a.n, kTile), a.batch);
+  int e;
+  if (a.prec & kRound) {
+    if ((e = (int)allow_smem(row_bwd_kernel<OC, true, G>, bytes))) return e;
+    row_bwd_kernel<OC, true, G><<<grid, kThreads, bytes, stream>>>(a);
+  } else {
+    if ((e = (int)allow_smem(row_bwd_kernel<OC, false, G>, bytes))) return e;
+    row_bwd_kernel<OC, false, G><<<grid, kThreads, bytes, stream>>>(a);
+  }
   return (int)cudaGetLastError();
 }
 
-// A backward pass: the row kernel (dy_prev, the BN sums, db and r), the
-// weight-gradient kernel, and the fp64 sums of their partials.
+// A backward pass in dz mode MODE (fixed by each entry point): the row
+// kernel (dy_prev, the BN sums, db and r), the weight-gradient kernel,
+// and the fp64 sums of their partials (the BN sums per group). G: groups
+// > 1, else groups == 1. The dW kernel's block takes 128 input channels
+// (KJ = 4), which serves any width; a BN-mode pass on an input at most
+// 64 wide (the head's B1 on pf) takes 64 (KJ = 2), as no other pass on
+// the path is narrower than 128.
+template <int MODE, bool G>
 int backward_pass(const BwdArgs& a, cudaStream_t stream) {
-  const bool recompute = a.mode != kDzBn;
-  if (a.mode < kDzBn || a.mode > kDzSoftmax || a.batch <= 0 ||
+  constexpr bool recompute = MODE != kDzBn;
+  if (a.mode != MODE || a.batch <= 0 ||
       a.batch > 65535 || a.n <= 0 || a.c_in <= 0 || a.c_out <= 0 ||
+      (G ? a.groups < 2 : a.groups != 1) || a.batch % a.groups ||
       a.ldw < a.c_in || a.splits <= 0 || a.splits > 65535 || !a.zp || !a.w ||
       !a.dyp || !a.db || !a.dw || !a.part || !a.part_w ||
       (a.scp && !a.shp) || (a.mup && (!a.invp || !a.t1 || !a.t2)) ||
       (recompute && (a.c_in > 128 || !a.bias)) ||
-      (a.mode == kDzBn && (!a.zc || !a.dy || !a.sc || !a.mu || !a.inv ||
-                           !a.c1 || !a.c2)) ||
-      (a.mode == kDzTrunk && (!a.mu || !a.inv || !a.coef1 || !a.coef2 ||
-                              !a.s3dg || !a.idx)) ||
-      (a.mode == kDzSoftmax && (a.c_out > kGradO || !a.dlp)))
+      (MODE == kDzBn && (!a.zc || !a.dy || !a.sc || !a.mu || !a.inv ||
+                         !a.c1 || !a.c2)) ||
+      (MODE == kDzTrunk && (!a.mu || !a.inv || !a.coef1 || !a.coef2 ||
+                            !a.s3dg || !a.idx)) ||
+      (MODE == kDzSoftmax && (a.c_out > kGradO || !a.dlp)))
     return kErrArgs;
-  int e = a.mode == kDzSoftmax ? launch_row_bwd<64>(a, stream)
-                                       : launch_row_bwd<128>(a, stream);
+  int e = launch_row_bwd<MODE == kDzSoftmax ? 64 : 128, G>(a, stream);
   if (e) return e;
-  const int kj = a.c_in <= 32 ? 1 : a.c_in <= 64 ? 2 : a.c_in <= 96 ? 3 : 4;
-  switch (kj) {
-    case 1: e = launch_wgrad<1>(a, stream); break;
-    case 2: e = launch_wgrad<2>(a, stream); break;
-    case 3: e = launch_wgrad<3>(a, stream); break;
-    default: e = launch_wgrad<4>(a, stream); break;
-  }
+  if constexpr (MODE == kDzBn && !G)
+    e = a.c_in <= 64 ? launch_wgrad<2, G>(a, stream)
+                     : launch_wgrad<4, G>(a, stream);
+  else
+    e = launch_wgrad<4, G>(a, stream);
   if (e) return e;
   const int tiles = ceil_div(a.n, kTile), blocks = tiles * a.batch;
+  const int per = blocks / a.groups;
   const long long ldp = 2LL * a.c_in + a.c_out;
   if (a.t1) {
-    if ((e = colsum(a.part, ldp, blocks, a.c_in, 1, a.t1, 0, stream))) return e;
-    if ((e = colsum(a.part + a.c_in, ldp, blocks, a.c_in, 1, a.t2, 0, stream)))
+    if ((e = colsum(a.part, ldp, per, a.c_in, a.groups, a.t1, a.c_in, stream)))
+      return e;
+    if ((e = colsum(a.part + a.c_in, ldp, per, a.c_in, a.groups, a.t2, a.c_in,
+                    stream)))
       return e;
   }
   if ((e = colsum(a.part + 2 * a.c_in, ldp, blocks, a.c_out, 1, a.db, 0,

@@ -21,11 +21,33 @@
 // accumulates dy2 = mask * dz3 @ W3 over them; its weight-gradient kernel
 // rebuilds the same chunks for dW3 = dz3^T h2 over row ranges of at most
 // 2048 points. All row reductions add per-block partials in fp64.
+// groups > 1 (trunk2_train(groups=2), the paired trunks): the batch is
+// stacked streams, every BN2/BN3 statistic and BN term is [groups, C] and
+// read by the tile's cloud, and each stream's sums add its own blocks
+// in the order a call on that stream alone adds them, so the pooled
+// values are bit-identical to per-stream calls. Mixed precision (prec):
+// bf16 operands, the z2 stash in bf16 (F1 stores it, F2 and B1 read it);
+// the statistics come from the unrounded z2 and z3, dy2 stays fp32.
 
 #include "train_gemm.cuh"
 
 using pointtpu::BwdArgs;
 using pointtpu::RowFwdArgs;
+
+namespace {
+
+// groups > 1 (the paired trunks) takes the kernels that read each
+// cloud's row of the [groups, C] statistics; one group takes those that
+// read the [C] statistics directly.
+int forward(const RowFwdArgs* a, int device, cudaStream_t stream) {
+  using namespace pointtpu;
+  cudaError_t e = use_device(device);
+  if (e != cudaSuccess) return (int)e;
+  return a->groups > 1 ? row_fwd<true>(*a, stream)
+                       : row_fwd<false>(*a, stream);
+}
+
+}  // namespace
 
 // z2 = x @ W2^T + b2 [batch * n, c2] and its column sum / sum of squares.
 extern "C" int pt_trunk_f1(const RowFwdArgs* a, int device,
@@ -33,8 +55,7 @@ extern "C" int pt_trunk_f1(const RowFwdArgs* a, int device,
   using namespace pointtpu;
   if (!a->z || !a->sum || a->sc || a->addend || a->mx || a->logp)
     return kErrArgs;
-  cudaError_t e = use_device(device);
-  return e != cudaSuccess ? (int)e : row_fwd(*a, stream);
+  return forward(a, device, stream);
 }
 
 // z3 = relu(z2 * sc2 + sh2) @ W3^T + b3, not stored: its column sum / sum
@@ -44,8 +65,7 @@ extern "C" int pt_trunk_f2(const RowFwdArgs* a, int device,
   using namespace pointtpu;
   if (a->z || !a->sum || !a->sc || !a->sh || a->addend || !a->mx || a->logp)
     return kErrArgs;
-  cudaError_t e = use_device(device);
-  return e != cudaSuccess ? (int)e : row_fwd(*a, stream);
+  return forward(a, device, stream);
 }
 
 // Backward through conv3 + BN3 + pool: dy2, dW3, db3 and BN2's t1 / t2.
@@ -54,5 +74,7 @@ extern "C" int pt_trunk_b1(const BwdArgs* a, int device,
   using namespace pointtpu;
   if (a->mode != kDzTrunk || !a->scp || !a->mup || a->r) return kErrArgs;
   cudaError_t e = use_device(device);
-  return e != cudaSuccess ? (int)e : backward_pass(*a, stream);
+  if (e != cudaSuccess) return (int)e;
+  return a->groups > 1 ? backward_pass<kDzTrunk, true>(*a, stream)
+                       : backward_pass<kDzTrunk, false>(*a, stream);
 }

@@ -5,7 +5,9 @@ augment.py``. Batched over ``[B, N, 3]``; randomness comes from an
 explicit ``torch.Generator`` on the points' device (its numbers are not
 JAX's: tests hold these functions to their invariants, and the step
 tests feed both packages the same augmented batch). The chain order is
-the JAX package's: normalize -> resample -> rotate -> jitter -> dropout.
+the JAX package's: normalize -> resample -> rotate -> jitter -> dropout;
+under ``cfg.pallas_augment`` the last three are one ``augment_fused``
+pass keyed by Philox of the device step count instead of the generator.
 """
 
 from __future__ import annotations
@@ -14,6 +16,10 @@ import math
 
 import numpy as np
 import torch
+
+from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
+    augment_fused,
+)
 
 
 def normalize_unit_sphere_np(points: np.ndarray) -> np.ndarray:
@@ -107,14 +113,32 @@ def augment_batch(gen: torch.Generator, points: torch.Tensor,
 
 
 def chain_from_cfg(gen: torch.Generator, cfg, points: torch.Tensor,
-                   labels: torch.Tensor | None = None):
+                   labels: torch.Tensor | None = None,
+                   step: torch.Tensor | None = None, stream: int = 0):
     """The chain every train step applies, gated by ``cfg.normalize``,
     ``cfg.resample`` (only when the clouds do not already have
     ``cfg.num_points``), ``cfg.augment`` (rotate and jitter) and
-    ``cfg.point_dropout``."""
+    ``cfg.point_dropout``.
+
+    ``cfg.pallas_augment`` (with ``augment`` or ``point_dropout`` on)
+    runs rotate, jitter and dropout as one ``augment_fused`` pass of
+    ``stream`` at the int64 device step count ``step``, keyed by
+    ``cfg.seed``, as the JAX package's branch does; normalize and
+    resample stay plain."""
+    resample = cfg.resample and points.shape[1] != cfg.num_points
+    if cfg.pallas_augment and (cfg.augment or cfg.point_dropout):
+        if step is None:
+            raise ValueError("cfg.pallas_augment needs the device step")
+        out = augment_batch(gen, points, labels, num_points=cfg.num_points,
+                            normalize=cfg.normalize, resample=resample,
+                            rotate=False, do_jitter=False)
+        points, labels = out if labels is not None else (out, None)
+        points = augment_fused.augment_fused(
+            step, points.contiguous(), cfg.seed, stream, rotate=cfg.augment,
+            jitter=cfg.augment, dropout=cfg.point_dropout)
+        return points if labels is None else (points, labels)
     return augment_batch(
         gen, points, labels, num_points=cfg.num_points,
-        normalize=cfg.normalize,
-        resample=cfg.resample and points.shape[1] != cfg.num_points,
+        normalize=cfg.normalize, resample=resample,
         rotate=cfg.augment, do_jitter=cfg.augment,
         dropout=cfg.point_dropout)

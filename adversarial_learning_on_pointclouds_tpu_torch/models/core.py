@@ -15,11 +15,17 @@ the JAX package's channel-last layout (``[B, N, C]``, weights used as
   ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))``), which is what the JAX
   package's ``torch_linear_init`` reproduces; ``init_`` redraws it from
   an explicit ``torch.Generator``.
+* Mixed precision: ``mixed_precision()`` is the scope under which every
+  matmul of the training path takes bf16 operands with an fp32 sum and
+  result (``matmul`` for the plain ops, the kernels' ``bf16`` switch for
+  the passes); parameters, BatchNorm, statistics, losses and Adam stay
+  fp32.
 """
 
 from __future__ import annotations
 
 import math
+import threading
 from typing import Optional
 
 import torch
@@ -27,6 +33,57 @@ from torch import nn
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
+
+_mp_state = threading.local()
+
+
+def compute_dtype() -> Optional[torch.dtype]:
+    """Matmul operand dtype under the mixed-precision scope (None: fp32)."""
+    return getattr(_mp_state, "dtype", None)
+
+
+class mixed_precision:
+    """Scope: bf16 matmul operands with fp32 accumulation, as the JAX
+    package's ``core.mixed_precision``. Read when a forward runs; the
+    autograd functions keep what their forward saw for the backward."""
+
+    def __init__(self, dtype: torch.dtype = torch.bfloat16,
+                 enabled: bool = True):
+        self._dtype = dtype if enabled else None
+
+    def __enter__(self):
+        self._prev = compute_dtype()
+        _mp_state.dtype = self._dtype
+        return self
+
+    def __exit__(self, *exc):
+        _mp_state.dtype = self._prev
+        return False
+
+
+def operand(t: torch.Tensor, bf16: bool) -> torch.Tensor:
+    """``t`` as a matmul operand: rounded to bf16 (nearest even) and held
+    in fp32 under ``bf16``, else ``t`` itself."""
+    return t.to(torch.bfloat16).float() if bf16 else t
+
+
+def stash(t: torch.Tensor, bf16: bool) -> torch.Tensor:
+    """A pre-BN activation or cotangent kept between passes: bf16 under
+    ``bf16``, else fp32."""
+    return t.to(torch.bfloat16) if bf16 else t
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` for the model layer; under the scope, the fp32 product
+    of the bf16-rounded operands. That is exact in every product and sums
+    in fp32 with an fp32 result, as JAX's ``preferred_element_type=
+    float32`` does (a bf16 ``torch.matmul`` would round its result to
+    bf16). Under autograd the gradients reaching ``a`` and ``b`` are
+    rounded to bf16 at the cast, as JAX's transpose of the cast is."""
+    cd = compute_dtype()
+    if cd is not None and a.dtype == torch.float32:
+        return torch.matmul(a.to(cd).float(), b.to(cd).float())
+    return torch.matmul(a, b)
 
 
 def exact_fp32() -> None:
@@ -57,8 +114,9 @@ def weight_in_out(layer: nn.Module) -> torch.Tensor:
 
 
 def dense(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """``x @ w + b`` over the trailing channel axis."""
-    return torch.matmul(x, weight_in_out(layer)) + layer.bias
+    """``x @ w + b`` over the trailing channel axis (``matmul``: bf16
+    operands under the mixed-precision scope)."""
+    return matmul(x, weight_in_out(layer)) + layer.bias
 
 
 def bn_affine(bn: nn.BatchNorm1d):

@@ -71,22 +71,29 @@ class PointNetfeat(nn.Module):
                                               ("relu", None))
         return x, g, trans, trans_feat
 
-    def forward_pair(self, x_a: torch.Tensor, x_b: torch.Tensor):
+    def forward_pair(self, x_a: torch.Tensor, x_b: torch.Tensor,
+                     paired_trunks: bool = False):
         """Train mode, two streams -> ``(pf_a, g_a, pf_b, g_b, trans_feat_a,
-        trans_feat_b)``, as the JAX package's ``apply_encoder_parts_pair``
-        (its default branch): the T-Nets through ``forward_pair``; conv1
-        and the trunk per stream, a then b, so every running statistic is
-        chained a -> b."""
-        t_a, t_b = self.stn.forward_pair(x_a, x_b)
+        trans_feat_b)``, as the JAX package's ``apply_encoder_parts_pair``:
+        the T-Nets through ``forward_pair``; conv1 and the trunk per
+        stream, a then b, so every running statistic is chained a -> b;
+        with ``paired_trunks`` the trunks (the T-Nets' too) run as one
+        ``trunk2_train(groups=2)`` on the stacked streams, with the same
+        statistics."""
+        t_a, t_b = self.stn.forward_pair(x_a, x_b, paired_trunks)
         x_a = ops.batched_transform(x_a, t_a)
         x_b = ops.batched_transform(x_b, t_b)
         x_a = ops.linear_bn_act(self.conv1, self.bn1, x_a, "relu")
         x_b = ops.linear_bn_act(self.conv1, self.bn1, x_b, "relu")
         tf_a = tf_b = None
         if self.feature_transform:
-            tf_a, tf_b = self.fstn.forward_pair(x_a, x_b)
+            tf_a, tf_b = self.fstn.forward_pair(x_a, x_b, paired_trunks)
             x_a = ops.batched_transform(x_a, tf_a)
             x_b = ops.batched_transform(x_b, tf_b)
+        if paired_trunks:
+            g = train_trunk(self, x_a, x_b)
+            b = x_a.shape[0]
+            return x_a, g[:b], x_b, g[b:], tf_a, tf_b
         g_a = train_trunk(self, x_a)
         g_b = train_trunk(self, x_b)
         return x_a, g_a, x_b, g_b, tf_a, tf_b

@@ -56,18 +56,21 @@ class PointNetDenseCls(nn.Module):
             core.weight_in_out(self.conv4), self.conv4.bias)
         return logp, trans, trans_feat
 
-    def forward_pair(self, x_a: torch.Tensor, x_b: torch.Tensor
+    def forward_pair(self, x_a: torch.Tensor, x_b: torch.Tensor,
+                     paired_trunks: bool = False
                      ) -> Tuple[torch.Tensor, torch.Tensor,
                                 Optional[torch.Tensor], Optional[torch.Tensor]]:
         """The train-mode forward of two streams ``[B, N, 3]`` -> ``(logp_a,
         logp_b, trans_feat_a, trans_feat_b)``, as the JAX package's
         ``apply_segmenter_pair`` (the adversarial trainer's default,
-        ``paired_heads``): the encoder through ``PointNetfeat.forward_pair``,
-        then the seg head per stream, a then b."""
+        ``paired_heads``): the encoder through ``PointNetfeat.forward_pair``
+        (``paired_trunks``: its trunks batched across the streams), then
+        the seg head per stream, a then b."""
         if not self.training:
             raise ValueError("forward_pair is the two-stream training "
                              "forward: put the model in .train() first")
-        pf_a, g_a, pf_b, g_b, tf_a, tf_b = self.feat.forward_pair(x_a, x_b)
+        pf_a, g_a, pf_b, g_b, tf_a, tf_b = self.feat.forward_pair(
+            x_a, x_b, paired_trunks)
         logp_a = self._train_head(pf_a, g_a)
         return logp_a, self._train_head(pf_b, g_b), tf_a, tf_b
 

@@ -15,7 +15,9 @@ fc BNs).
   BN + both ReLUs run as ``relu_fc_bn_relu`` (moments centred on the
   running mean); fc2 + BN is plain, then fc3. Running statistics update in
   place, as torch's BatchNorm does. ``forward_pair`` (train mode, two
-  streams) runs the trunks per stream and the fc head once for both.
+  streams) runs the trunks per stream, or both in one
+  ``trunk2_train(groups=2)`` with ``paired_trunks``, and the fc head once
+  for both.
 """
 
 from __future__ import annotations
@@ -68,17 +70,27 @@ class STNkd(nn.Module):
         iden = torch.eye(self.k, dtype=out.dtype, device=out.device)
         return (out + iden.reshape(-1)).reshape(-1, self.k, self.k)
 
-    def forward_pair(self, x_a: torch.Tensor, x_b: torch.Tensor):
+    def forward_pair(self, x_a: torch.Tensor, x_b: torch.Tensor,
+                     paired_trunks: bool = False):
         """Train mode, two streams of the same shape -> ``(T_a, T_b)``, as
         the JAX package's ``apply_tnet_pair``: the conv trunks run per
-        stream (running statistics chained a -> b); the fc head runs once
-        on the stacked ``[2B, 1024]`` pool with per-stream batch
-        statistics (fc1 + BN through ``relu_fc_bn_relu(groups=2)``, fc2 +
-        BN through ``batch_norm_train_grouped``), the exact statistics of
-        two sequential heads."""
+        stream (running statistics chained a -> b), or with
+        ``paired_trunks`` conv1 per stream and conv2 + conv3 + max as one
+        ``trunk2_train(groups=2)`` on the stacked batch (its
+        ``_pooled_trunk_grouped``: per-stream statistics, the EMA chained
+        a -> b); the fc head runs once on the stacked ``[2B, 1024]`` pool
+        with per-stream batch statistics (fc1 + BN through
+        ``relu_fc_bn_relu(groups=2)``, fc2 + BN through
+        ``batch_norm_train_grouped``), the exact statistics of two
+        sequential heads."""
         b = x_a.shape[0]
-        h_a = self._train_trunk(x_a)
-        h = torch.cat([h_a, self._train_trunk(x_b)])
+        if paired_trunks:
+            h1_a = ops.linear_bn_act(self.conv1, self.bn1, x_a, "relu")
+            h1_b = ops.linear_bn_act(self.conv1, self.bn1, x_b, "relu")
+            h = torch.relu(train_trunk(self, h1_a, h1_b))
+        else:
+            h_a = self._train_trunk(x_a)
+            h = torch.cat([h_a, self._train_trunk(x_b)])
         h1, mu1, var1 = pool_fc_epilogue.relu_fc_bn_relu(
             h, core.weight_in_out(self.fc1), self.fc1.bias, self.bn4.weight,
             self.bn4.bias, self.bn4.running_mean, groups=2)
@@ -103,17 +115,25 @@ class STNkd(nn.Module):
         return ops.linear_bn_act(self.fc2, self.bn5, h1, "relu")
 
 
-def train_trunk(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+def train_trunk(module: nn.Module, *xs: torch.Tensor) -> torch.Tensor:
     """``module``'s conv2 + bn2 + ReLU -> conv3 + bn3 -> max over points in
-    train mode, through ``trunk2_train``; bn2/bn3's running statistics
-    take the batch statistics (``B * N`` values each)."""
+    train mode, through ``trunk2_train``, of one stream, or of several
+    same-shape streams stacked into one call (the paired trunks:
+    ``groups`` = their number), whose stacked pooled ``[sum B, c3]`` holds
+    each stream's values bit for bit as its own call; bn2/bn3's running
+    statistics take each stream's batch statistics (``B * N`` values),
+    chained in stream order."""
+    groups = len(xs)
     g, mu2, var2, mu3, var3 = trunk_train.trunk2_train(
-        x, core.weight_in_out(module.conv2), module.conv2.bias,
+        xs[0] if groups == 1 else torch.cat(xs),
+        core.weight_in_out(module.conv2), module.conv2.bias,
         module.bn2.weight, module.bn2.bias, core.weight_in_out(module.conv3),
-        module.conv3.bias, module.bn3.weight, module.bn3.bias)
-    m = x.shape[0] * x.shape[1]
-    core.update_running(module.bn2, mu2, var2, m)
-    core.update_running(module.bn3, mu3, var3, m)
+        module.conv3.bias, module.bn3.weight, module.bn3.bias, groups=groups)
+    m = xs[0].shape[0] * xs[0].shape[1]
+    for bn, mu, var in ((module.bn2, mu2, var2), (module.bn3, mu3, var3)):
+        for i in range(groups):
+            core.update_running(bn, mu.reshape(groups, -1)[i],
+                                var.reshape(groups, -1)[i], m)
     return g
 
 

@@ -20,6 +20,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
+import time
 from pathlib import Path
 
 PKG = Path(__file__).resolve().parents[1]
@@ -28,7 +30,8 @@ BUILD = PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _U, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, \
+    ctypes.c_longlong, ctypes.c_float
 _PP, _IP = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
 # Every pointer and the stream are c_void_p: left to ctypes' default
 # they would pass as 32-bit ints and be cut.
@@ -36,6 +39,7 @@ SIGNATURES = {
     "pt_linear_affine_act": [_P] * 5 + [_LL, _I, _I, _I, _I, _P],
     "pt_stack_maxpool": [_P, _P, _PP, _PP, _PP, _IP, _IP] + [_I] * 4 + [_P],
     "pt_seg_head": [_P] * 15 + [_I] * 9 + [_P],
+    "pt_augment_fused": [_P] * 3 + [_U] * 2 + [_I] * 3 + [_F] * 3 + [_I, _P],
 }
 # The training passes take one argument struct (ops/launch.py mirrors it).
 for _name in ("pt_pool_fc_fwd", "pt_trunk_f1", "pt_trunk_f2", "pt_trunk_b1",
@@ -70,6 +74,11 @@ def nvcc() -> str:
                        "port's kernels build from csrc/ at first use")
 
 
+# Seconds each source took to compile in this process's last build
+# (empty when the library loaded from BUILD).
+compile_seconds: dict = {}
+
+
 def _run(cmd):
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
@@ -80,6 +89,36 @@ def _wait(cmd, proc) -> None:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
                            f"{' '.join(cmd)}\n{out}")
+
+
+def _compile_all(cmds, names) -> None:
+    """Run every nvcc at once, each waited on by its own thread (so each
+    source's time is its own); raise with the first failure's output."""
+    t0 = time.perf_counter()
+    procs = [_run(c) for c in cmds]
+    errors = {}
+
+    def wait(i):
+        try:
+            _wait(cmds[i], procs[i])
+        except RuntimeError as e:
+            errors[i] = e
+        compile_seconds[names[i]] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=wait, args=(i,))
+               for i in range(len(cmds))]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if errors:
+        raise errors[min(errors)]
 
 
 def build() -> Path:
@@ -97,15 +136,8 @@ def build() -> Path:
         objs = [os.path.join(tmp, f.stem + ".o") for f in cu]
         cmds = [[nvcc(), *NVCC_FLAGS, "-c", "-o", o, str(f)]
                 for f, o in zip(cu, objs)]
-        procs = [_run(c) for c in cmds]
-        try:
-            for cmd, proc in zip(cmds, procs):
-                _wait(cmd, proc)
-        finally:
-            for proc in procs:
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
+        compile_seconds.clear()
+        _compile_all(cmds, [f.name for f in cu])
         lib = os.path.join(tmp, "lib.so")
         cmd = [nvcc(), *NVCC_FLAGS, "-shared", "-o", lib, *objs]
         _wait(cmd, _run(cmd))

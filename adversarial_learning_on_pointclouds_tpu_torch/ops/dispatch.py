@@ -55,5 +55,6 @@ def max_points(x: torch.Tensor) -> torch.Tensor:
 
 
 def batched_transform(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    """Per-cloud ``x @ T`` (the reference's ``torch.bmm(points, trans)``)."""
-    return torch.bmm(x, t)
+    """Per-cloud ``x @ T`` (the reference's ``torch.bmm(points, trans)``;
+    ``core.matmul``: bf16 operands under the mixed-precision scope)."""
+    return core.matmul(x, t)

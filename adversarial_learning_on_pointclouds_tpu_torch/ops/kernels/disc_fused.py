@@ -15,8 +15,11 @@ recomputing the hidden activations from ``x``:
 Each has a plain PyTorch twin of the same signature (``*_plain``) that
 CPU tensors run. Weights are ``[in, out]`` (on a CUDA device, views of
 row-major ``[out, in]`` storage, as ``core.weight_in_out`` gives them);
-biases ``[out]``. The four functions at the end are the JAX package's
-four custom VJPs: ``disc_forward`` (full backward),
+biases ``[out]``. Every pass and twin takes a ``bf16`` switch (the
+mixed-precision scope): each matmul operand, the cotangents included, is
+rounded to bf16 and summed in fp32; the bias gradients sum the unrounded
+cotangents. The four functions at the end are the JAX package's four
+custom VJPs: ``disc_forward`` (full backward),
 ``disc_forward_frozen`` (input gradient only, no weight gradients),
 ``disc_forward_detached`` (weight gradients only) and
 ``disc_with_known_logits`` (returns given logits and installs the
@@ -31,6 +34,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from adversarial_learning_on_pointclouds_tpu_torch.models import core
 from adversarial_learning_on_pointclouds_tpu_torch.ops import launch
 
 WIDTHS = (64, 128, 256, 512, 1)
@@ -58,45 +62,49 @@ def _rows(t: torch.Tensor) -> torch.Tensor:
 # The plain twins
 # ---------------------------------------------------------------------------
 
-def _hidden(x, ws, bs):
+def _mm(a, b, bf16):
+    return torch.matmul(core.operand(a, bf16), core.operand(b, bf16))
+
+
+def _hidden(x, ws, bs, bf16):
     hs = [x]
     for w, b in zip(ws[:4], bs[:4]):
-        hs.append(leaky(torch.matmul(hs[-1], w) + b))
+        hs.append(leaky(_mm(hs[-1], w, bf16) + b))
     return hs
 
 
-def disc_fwd_plain(x, ws, bs):
+def disc_fwd_plain(x, ws, bs, bf16: bool = False):
     """Logits ``[B, N, 1]`` of ``x [B, N, k]``."""
-    return torch.matmul(_hidden(x, ws, bs)[-1], ws[4]) + bs[4]
+    return _mm(_hidden(x, ws, bs, bf16)[-1], ws[4], bf16) + bs[4]
 
 
-def _backward_plain(x, g, ws, bs, want_dx: bool, want_dw: bool):
-    hs = _hidden(x, ws, bs)
+def _backward_plain(x, g, ws, bs, want_dx: bool, want_dw: bool, bf16):
+    hs = _hidden(x, ws, bs, bf16)
     dh, dws, dbs = g, [], []
     for i in reversed(range(5)):
         dz = dh if i == 4 else dh * _dleaky(hs[i + 1])
         if want_dw:
-            dws.insert(0, torch.matmul(_rows(hs[i]).t(), _rows(dz)))
+            dws.insert(0, _mm(_rows(hs[i]).t(), _rows(dz), bf16))
             dbs.insert(0, dz.sum((0, 1)))
         if i > 0 or want_dx:
-            dh = torch.matmul(dz, ws[i].t())
+            dh = _mm(dz, ws[i].t(), bf16)
     return dh, tuple(dws), tuple(dbs)
 
 
-def disc_bwd_dx_plain(x, g, ws, bs):
+def disc_bwd_dx_plain(x, g, ws, bs, bf16: bool = False):
     """``dx [B, N, k]`` from the logits' cotangent ``g [B, N, 1]``."""
-    return _backward_plain(x, g, ws, bs, True, False)[0]
+    return _backward_plain(x, g, ws, bs, True, False, bf16)[0]
 
 
-def disc_bwd_dw_plain(x, g, ws, bs):
+def disc_bwd_dw_plain(x, g, ws, bs, bf16: bool = False):
     """``(dws, dbs)``: the five weight gradients (``[in, out]``) and bias
     gradients; the chain stops at layer 2 (no input gradient)."""
-    return _backward_plain(x, g, ws, bs, False, True)[1:]
+    return _backward_plain(x, g, ws, bs, False, True, bf16)[1:]
 
 
-def disc_bwd_plain(x, g, ws, bs):
+def disc_bwd_plain(x, g, ws, bs, bf16: bool = False):
     """``(dx, dws, dbs)``, the full backward."""
-    return _backward_plain(x, g, ws, bs, True, True)
+    return _backward_plain(x, g, ws, bs, True, True, bf16)
 
 
 # ---------------------------------------------------------------------------
@@ -155,35 +163,37 @@ def dw_splits(m: int, device: torch.device) -> Tuple[int, int]:
     return per, -(-tiles // per)
 
 
-def disc_fwd(x, ws, bs):
+def disc_fwd(x, ws, bs, bf16: bool = False):
     """The forward pass: the kernel on a CUDA tensor, the plain version on
     a CPU tensor."""
     if launch.on_cpu(x):
-        return disc_fwd_plain(x, ws, bs)
+        return disc_fwd_plain(x, ws, bs, bf16)
     m, k = _check(x, ws, bs)
     logits = torch.empty(x.shape[:2] + (1,), device=x.device,
                          dtype=torch.float32)
-    a = launch.args(launch.DiscArgs, m=m, k=k, per=1, splits=_tiles(m), x=x,
-                    logits=logits, **_params(ws, bs))
+    a = launch.args(launch.DiscArgs, m=m, k=k, per=1, splits=_tiles(m),
+                    prec=launch.prec(bf16), x=x, logits=logits,
+                    **_params(ws, bs))
     launch.call("pt_disc_fwd", x.device, ctypes.addressof(a))
     disc_fwd.launches += 1
     return logits
 
 
-def disc_bwd_dx(x, g, ws, bs):
+def disc_bwd_dx(x, g, ws, bs, bf16: bool = False):
     if launch.on_cpu(x):
-        return disc_bwd_dx_plain(x, g, ws, bs)
+        return disc_bwd_dx_plain(x, g, ws, bs, bf16)
     m, k = _check(x, ws, bs)
     launch.expect("g", g, x.shape[:2] + (1,), x.device)
     dx = torch.empty_like(x)
-    a = launch.args(launch.DiscArgs, m=m, k=k, per=1, splits=_tiles(m), x=x,
-                    g=g, dx=dx, **_params(ws, bs))
+    a = launch.args(launch.DiscArgs, m=m, k=k, per=1, splits=_tiles(m),
+                    prec=launch.prec(bf16), x=x, g=g, dx=dx,
+                    **_params(ws, bs))
     launch.call("pt_disc_bwd_dx", x.device, ctypes.addressof(a))
     disc_bwd_dx.launches += 1
     return dx
 
 
-def _bwd_dw_launch(x, g, ws, bs, dx):
+def _bwd_dw_launch(x, g, ws, bs, dx, bf16):
     m, k = _check(x, ws, bs)
     dev = x.device
     launch.expect("g", g, x.shape[:2] + (1,), dev)
@@ -191,26 +201,27 @@ def _bwd_dw_launch(x, g, ws, bs, dx):
     per, splits = dw_splits(m, dev)
     grad = torch.empty(size, device=dev, dtype=torch.float32)
     part = torch.empty((splits, size), device=dev, dtype=torch.float32)
-    a = launch.args(launch.DiscArgs, m=m, k=k, per=per, splits=splits, x=x,
-                    g=g, dx=dx, part=part, grad=grad, **_params(ws, bs))
+    a = launch.args(launch.DiscArgs, m=m, k=k, per=per, splits=splits,
+                    prec=launch.prec(bf16), x=x, g=g, dx=dx, part=part,
+                    grad=grad, **_params(ws, bs))
     launch.call("pt_disc_bwd_dw", dev, ctypes.addressof(a))
     views = [grad[at:at + math.prod(s)].view(s) for at, s in layout]
     return tuple(w.t() for w in views[:5]), tuple(views[5:])
 
 
-def disc_bwd_dw(x, g, ws, bs):
+def disc_bwd_dw(x, g, ws, bs, bf16: bool = False):
     if launch.on_cpu(x):
-        return disc_bwd_dw_plain(x, g, ws, bs)
-    out = _bwd_dw_launch(x, g, ws, bs, None)
+        return disc_bwd_dw_plain(x, g, ws, bs, bf16)
+    out = _bwd_dw_launch(x, g, ws, bs, None, bf16)
     disc_bwd_dw.launches += 1
     return out
 
 
-def disc_bwd(x, g, ws, bs):
+def disc_bwd(x, g, ws, bs, bf16: bool = False):
     if launch.on_cpu(x):
-        return disc_bwd_plain(x, g, ws, bs)
+        return disc_bwd_plain(x, g, ws, bs, bf16)
     dx = torch.empty_like(x)
-    dws, dbs = _bwd_dw_launch(x, g, ws, bs, dx)
+    dws, dbs = _bwd_dw_launch(x, g, ws, bs, dx, bf16)
     disc_bwd.launches += 1
     return dx, dws, dbs
 
@@ -234,10 +245,11 @@ class _Disc(torch.autograd.Function):
     @staticmethod
     def forward(ctx, mode, logits, x, *params):
         ctx.mode = mode
+        ctx.bf16 = core.compute_dtype() is not None
         ctx.save_for_backward(x, *params)
         if logits is not None:
             return logits.clone()
-        return disc_fwd(x, params[:5], params[5:])
+        return disc_fwd(x, params[:5], params[5:], ctx.bf16)
 
     @staticmethod
     def backward(ctx, g):
@@ -245,11 +257,11 @@ class _Disc(torch.autograd.Function):
         ws, bs, g = params[:5], params[5:], g.contiguous()
         dx, dws, dbs = None, (None,) * 5, (None,) * 5
         if ctx.mode == "full":
-            dx, dws, dbs = disc_bwd(x, g, ws, bs)
+            dx, dws, dbs = disc_bwd(x, g, ws, bs, ctx.bf16)
         elif ctx.mode == "frozen":
-            dx = disc_bwd_dx(x, g, ws, bs)
+            dx = disc_bwd_dx(x, g, ws, bs, ctx.bf16)
         else:
-            dws, dbs = disc_bwd_dw(x, g, ws, bs)
+            dws, dbs = disc_bwd_dw(x, g, ws, bs, ctx.bf16)
         return (None, None, dx, *dws, *dbs)
 
 

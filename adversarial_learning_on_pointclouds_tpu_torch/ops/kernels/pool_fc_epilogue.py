@@ -9,6 +9,9 @@ tensors run. The backward is plain PyTorch, as the JAX VJP is plain XLA:
 the batch-BN backward with gradients through the batch statistics, the
 matmul backward and the pool-affine backward. The returned ``mu``/``var``
 are non-differentiable auxiliaries for the running-statistic update.
+Under ``core.mixed_precision`` the fc1 product takes bf16 operands in
+the kernel (``bf16``) and ``dw1`` in the backward; ``dh`` stays fp32, as
+in the JAX VJP.
 """
 
 from __future__ import annotations
@@ -18,17 +21,20 @@ from typing import Optional
 
 import torch
 
+from adversarial_learning_on_pointclouds_tpu_torch.models import core
 from adversarial_learning_on_pointclouds_tpu_torch.models.core import BN_EPS
 from adversarial_learning_on_pointclouds_tpu_torch.ops import launch
 
 
-def pool_fc_fwd_plain(mx, mn, s3c, t3, w1, b1, g1, be1, rm1, groups: int):
+def pool_fc_fwd_plain(mx, mn, s3c, t3, w1, b1, g1, be1, rm1, groups: int,
+                      bf16: bool = False):
     """``(h1, h, z1, mu, var, inv)``: ``h = relu(where(s3c >= 0, mx, mn)
-    * s3c + t3)``, ``z1 = h @ w1 + b1``, moments of ``z1`` per group of
-    ``B // groups`` rows centred on ``rm1``, ``h1 = relu(bn(z1))``."""
+    * s3c + t3)``, ``z1 = h @ w1 + b1`` (bf16 operands under ``bf16``;
+    ``h`` is returned unrounded), moments of ``z1`` per group of ``B //
+    groups`` rows centred on ``rm1``, ``h1 = relu(bn(z1))``."""
     sel = torch.where(s3c >= 0, mx, mn)
     h = torch.relu(sel * s3c + t3)
-    z1 = torch.matmul(h, w1) + b1
+    z1 = torch.matmul(core.operand(h, bf16), core.operand(w1, bf16)) + b1
     bsz, c1 = z1.shape
     b = bsz // groups
     zc = (z1 - rm1).reshape(groups, b, c1)
@@ -42,13 +48,14 @@ def pool_fc_fwd_plain(mx, mn, s3c, t3, w1, b1, g1, be1, rm1, groups: int):
     return h1, h, z1, mu, var, inv
 
 
-def pool_fc_fwd(mx, mn, s3c, t3, w1, b1, g1, be1, rm1, groups: int):
+def pool_fc_fwd(mx, mn, s3c, t3, w1, b1, g1, be1, rm1, groups: int,
+                bf16: bool = False):
     """The forward pass: the kernel on a CUDA tensor, the plain version
     on a CPU tensor. ``w1`` is ``[c3, c1]`` (on the card, the view of a
     row-major ``[c1, c3]`` weight)."""
     if launch.on_cpu(mx):
         return pool_fc_fwd_plain(mx, mn, s3c, t3, w1, b1, g1, be1, rm1,
-                                 groups)
+                                 groups, bf16)
     bsz, c3 = mx.shape
     c1 = w1.shape[1]
     dev = mx.device
@@ -65,9 +72,9 @@ def pool_fc_fwd(mx, mn, s3c, t3, w1, b1, g1, be1, rm1, groups: int):
     h = torch.empty((bsz, c3), **f32)
     mu, var, inv = (torch.empty((groups, c1), **f32) for _ in range(3))
     a = launch.args(launch.PoolFcArgs, batch=bsz, c3=c3, c1=c1,
-                    groups=groups, mx=mx, mn=mn, s3c=s3c, t3=t3, w1=w1.t(),
-                    b1=b1, g1=g1, be1=be1, rm1=rm1, h1=h1, h=h, z1=z1, mu=mu,
-                    var=var, inv=inv)
+                    groups=groups, prec=launch.prec(bf16), mx=mx, mn=mn,
+                    s3c=s3c, t3=t3, w1=w1.t(), b1=b1, g1=g1, be1=be1, rm1=rm1,
+                    h1=h1, h=h, z1=z1, mu=mu, var=var, inv=inv)
     launch.call("pt_pool_fc_fwd", dev, ctypes.addressof(a))
     pool_fc_fwd.launches += 1
     return h1, h, z1, mu, var, inv
@@ -79,9 +86,11 @@ pool_fc_fwd.launches = 0
 class _PoolFc(torch.autograd.Function):
     @staticmethod
     def forward(ctx, groups, mx, mn, s3c, t3, w1, b1, g1, be1, rm1):
+        ctx.bf16 = core.compute_dtype() is not None
         with torch.no_grad():
             h1, h, z1, mu, var, inv = pool_fc_fwd(
-                mx, mn, s3c, t3, w1, b1, g1, be1, rm1.detach(), groups)
+                mx, mn, s3c, t3, w1, b1, g1, be1, rm1.detach(), groups,
+                ctx.bf16)
         ctx.groups = groups
         ctx.save_for_backward(mx, mn, s3c, h, z1, w1, g1, be1, mu, inv)
         ctx.mark_non_differentiable(mu, var)
@@ -103,7 +112,8 @@ class _PoolFc(torch.autograd.Function):
         t1 = dy.sum(1, keepdim=True)
         t2 = (dy * zhat).sum(1, keepdim=True)
         dz1 = ((g1 * invg) * (dy - t1 / b - zhat * (t2 / b))).reshape(gb, c1)
-        dw1 = torch.matmul(h.t(), dz1)
+        dw1 = torch.matmul(core.operand(h, ctx.bf16).t(),
+                           core.operand(dz1, ctx.bf16))
         dh = torch.matmul(dz1, w1.t())
         if dh_extra is not None:
             dh = dh + dh_extra

@@ -83,8 +83,10 @@ def ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
 def args(struct: type, **fields) -> ctypes.Structure:
     """Fill a ``ctypes.Structure`` that mirrors a C argument struct:
     tensors become their data pointers (a weight view its storage's),
-    ``None`` a null pointer, ints stay ints."""
+    ``None`` a null pointer, ints stay ints; ``groups`` defaults to 1."""
     out = struct()
+    if any(f == "groups" for f, _ in struct._fields_):
+        out.groups = 1
     for name, value in fields.items():
         if isinstance(value, torch.Tensor):
             value = value.data_ptr()
@@ -100,26 +102,57 @@ def _struct(name: str, ints: Sequence[str], ptrs: Sequence[str]) -> type:
 
 # Mirrors of the argument structs in csrc/train_gemm.cuh, field for field.
 RowFwdArgs = _struct(
-    "RowFwdArgs", ("batch", "n", "c_in", "c_out", "ldw"),
+    "RowFwdArgs", ("batch", "n", "c_in", "c_out", "ldw", "groups", "prec"),
     ("x", "sc", "sh", "w", "bias", "addend", "z", "sum", "ssq", "part",
      "keys", "mx", "mn", "imax", "imin", "logp"))
 BwdArgs = _struct(
-    "BwdArgs", ("mode", "batch", "n", "c_in", "c_out", "ldw", "splits"),
+    "BwdArgs", ("mode", "batch", "n", "c_in", "c_out", "ldw", "splits",
+                "groups", "prec"),
     ("zp", "scp", "shp", "mup", "invp", "w", "bias", "zc", "dy", "sc", "mu",
      "inv", "c1", "c2", "coef1", "coef2", "s3dg", "idx", "dlp", "dyp", "t1",
      "t2", "db", "r", "dw", "part", "part_w"))
 # Mirror of the argument struct in csrc/pool_fc_epilogue.cu.
 PoolFcArgs = _struct(
-    "PoolFcArgs", ("batch", "c3", "c1", "groups"),
+    "PoolFcArgs", ("batch", "c3", "c1", "groups", "prec"),
     ("mx", "mn", "s3c", "t3", "w1", "b1", "g1", "be1", "rm1", "h1", "h", "z1",
      "mu", "var", "inv"))
 # Mirror of the argument struct in csrc/disc_fused.cu.
 DiscArgs = _struct(
-    "DiscArgs", ("m", "k", "per", "splits"),
+    "DiscArgs", ("m", "k", "per", "splits", "prec"),
     ("x", "g", "w1", "w2", "w3", "w4", "w5", "b1", "b2", "b3", "b4", "b5",
      "logits", "dx", "part", "grad"))
 DZ_BN, DZ_TRUNK, DZ_SOFTMAX = 0, 1, 2   # BwdArgs.mode
 TILE = 64          # rows per block of the row kernels (kTile in csrc)
+# The ``prec`` bits of the argument structs (kRound... in common.cuh):
+# round every matmul operand to bf16, and which tensors are bf16 stashes
+# (RowFwdArgs: x, z; BwdArgs: zp, zc, dy, dyp).
+ROUND = 1
+BF16_BITS = {"x": 2, "zp": 2, "z": 4, "zc": 4, "dy": 8, "dyp": 16}
+
+
+def prec(bf16: bool, **tensors: Optional[torch.Tensor]) -> int:
+    """The ``prec`` field: ``ROUND`` under ``bf16``, and the bit of each
+    named tensor that is bf16. bf16 stashes come with bf16 operands only
+    (the kernels' fp32 build takes fp32 alone)."""
+    bits = ROUND if bf16 else 0
+    for name, t in tensors.items():
+        if t is not None and t.dtype == torch.bfloat16:
+            if not bf16:
+                raise TypeError(f"{name} is a bf16 stash: pass bf16=True")
+            bits |= BF16_BITS[name]
+    return bits
+
+
+def stash_dtype(bf16: bool) -> torch.dtype:
+    return torch.bfloat16 if bf16 else torch.float32
+
+
+def expect_stash(name: str, t: torch.Tensor, shape: Sequence[int],
+                 device: torch.device) -> None:
+    """``expect`` for a stash, which is fp32 or bf16."""
+    expect(name, t, shape, device,
+           dtype=torch.bfloat16 if t.dtype == torch.bfloat16
+           else torch.float32)
 
 
 def row_blocks(bsz: int, n: int) -> int:
@@ -127,15 +160,23 @@ def row_blocks(bsz: int, n: int) -> int:
     return bsz * -(-n // TILE)
 
 
-def weight_grad_splits(m: int, c_out: int, c_in: int,
+def check_groups(bsz: int, groups: int) -> int:
+    """Clouds per group; raise unless ``groups`` splits the batch."""
+    if groups < 1 or bsz % groups:
+        raise ValueError(f"batch {bsz} does not split into {groups} groups")
+    return bsz // groups
+
+
+def weight_grad_splits(bsz: int, n: int, c_out: int, c_in: int,
                        device: torch.device) -> int:
-    """Row ranges of a weight-gradient kernel: at most 2048 rows each (a
-    short serial fp32 sum per thread), and enough ranges for two blocks
-    per SM; the ranges' partial sums are added in fp64."""
-    tiles = -(-m // TILE)
+    """Tile ranges of a weight-gradient kernel (its tiles are the row
+    kernels' ``TILE`` points of one cloud): at most 32 tiles, 2048 rows,
+    each (a short serial fp32 sum per thread), and enough ranges for two
+    blocks per SM; the ranges' partial sums are added in fp64."""
+    tiles = row_blocks(bsz, n)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     chunks = -(-c_out // 64) * -(-c_in // 128)
-    return max(1, min(tiles, max(-(-m // 2048), -(-2 * sms // chunks))))
+    return max(1, min(tiles, max(-(-tiles // 32), -(-2 * sms // chunks))))
 
 
 def weight_ptr(w: torch.Tensor) -> ctypes.c_void_p:

@@ -18,11 +18,18 @@ Each step is two updates, in this order:
 Both nets take Adam (G's optimizer and schedule from the config, D
 always Adam). On a CUDA device the generator's training kernels and the
 discriminator kernels run; on the CPU their plain versions.
+``cfg.bf16`` runs both updates under ``core.mixed_precision``,
+``cfg.pallas_augment`` augments with ``augment_fused`` keyed by the
+device step count, ``cfg.paired_trunks`` batches the generator's
+trunks across the two streams, and ``train_steps_scan`` takes K steps on
+K batches in one call, as ``bench.py`` runs the JAX package's step.
 
     cfg = AdversarialConfig(); g_tx, d_tx = make_txs(cfg, steps_per_epoch)
     state = create_state(cfg, steps_per_epoch)        # on the card
     metrics = train_step(state, x_l, y_l, x_u, cfg=cfg, g_tx=g_tx,
                          d_tx=d_tx)
+    metrics = train_steps_scan(state, x_l_k, y_l_k, x_u_k, cfg=cfg,
+                               g_tx=g_tx, d_tx=d_tx)   # [K, ...] batches
 """
 
 from __future__ import annotations
@@ -37,7 +44,7 @@ from adversarial_learning_on_pointclouds_tpu_torch.configs import (
 )
 from adversarial_learning_on_pointclouds_tpu_torch.data import augment
 from adversarial_learning_on_pointclouds_tpu_torch.models import (
-    FCDiscriminator, PointNetDenseCls,
+    FCDiscriminator, PointNetDenseCls, core,
 )
 from adversarial_learning_on_pointclouds_tpu_torch.train import (
     state as state_lib,
@@ -67,8 +74,8 @@ def create_state(cfg: AdversarialConfig, steps_per_epoch: int,
                  ) -> state_lib.GANTrainState:
     """A train-mode generator and a discriminator seeded from ``cfg.seed``
     (or the given models), on ``device`` (the card unless the caller asks
-    for the CPU), their optimizers and an augmentation generator on the
-    device seeded from ``cfg.seed``."""
+    for the CPU), their optimizers, an augmentation generator on the
+    device seeded from ``cfg.seed`` and the device step count."""
     device = state_lib.train_device(device)
     init = torch.Generator().manual_seed(cfg.seed)
     if g_model is None:
@@ -82,22 +89,25 @@ def create_state(cfg: AdversarialConfig, steps_per_epoch: int,
     g_opt, g_sched = g_tx.init(g_model.parameters())
     d_opt, d_sched = d_tx.init(d_model.parameters())
     gen = torch.Generator(device=device).manual_seed(cfg.seed + 1)
-    return state_lib.GANTrainState(g_model, d_model, g_tx, d_tx, g_opt,
-                                   g_sched, d_opt, d_sched, gen)
+    return state_lib.GANTrainState(
+        g_model, d_model, g_tx, d_tx, g_opt, g_sched, d_opt, d_sched, gen,
+        device_step=torch.zeros((), dtype=torch.int64, device=device))
 
 
 def g_loss_fn(g_model: PointNetDenseCls, d_model: FCDiscriminator,
               x_l: torch.Tensor, y_l: torch.Tensor, x_u: torch.Tensor,
-              cfg: AdversarialConfig, semi_on: float
+              cfg: AdversarialConfig, semi_on
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The generator's objective and what the D step needs: ``(total,
     aux)`` with ``aux`` holding the probability maps, D's logits on them,
     the loss terms and ``logp_l``. Both streams run the train-mode
     forward (running statistics chained labeled -> unlabeled): paired
-    (``cfg.paired_heads``, the T-Net fc heads batched across streams) or
-    two sequential forwards."""
+    (``cfg.paired_heads``, the T-Net fc heads batched across streams;
+    ``cfg.paired_trunks``, the trunks too) or two sequential forwards.
+    ``semi_on`` (0 or 1, a float or a device scalar) switches L_semi."""
     if cfg.paired_heads:
-        logp_l, logp_u, tf_l, tf_u = g_model.forward_pair(x_l, x_u)
+        logp_l, logp_u, tf_l, tf_u = g_model.forward_pair(
+            x_l, x_u, cfg.paired_trunks)
     else:
         logp_l, _, tf_l = g_model(x_l)
         logp_u, _, tf_u = g_model(x_u)
@@ -148,31 +158,57 @@ def train_step(state: state_lib.GANTrainState, x_l: torch.Tensor,
     ``loss_g``, ``loss_ce``, ``loss_adv``, ``loss_semi``, ``loss_d`` and
     ``acc`` (on the labeled stream) as device scalars; each net's
     gradients stay in ``.grad`` until the next step. ``g_tx`` / ``d_tx``
-    are the ``make_txs`` the state was built with; any other raises."""
+    are the ``make_txs`` the state was built with; any other raises.
+    Both updates run under ``cfg.bf16``'s mixed-precision scope; the semi
+    switch is ``device_step >= cfg.semi_start`` on the device, and
+    ``augment_fused`` (``cfg.pallas_augment``) is keyed by the device
+    step, stream 0 labeled and 1 unlabeled."""
     if (g_tx, d_tx) != (state.g_tx, state.d_tx):
         raise ValueError(f"train_step got {(g_tx, d_tx)}, but the state was "
                          f"built with {(state.g_tx, state.d_tx)}")
-    x_l, y_l = augment.chain_from_cfg(state.generator, cfg, x_l, y_l)
-    x_u = augment.chain_from_cfg(state.generator, cfg, x_u)
-    semi_on = float(state.step >= cfg.semi_start)
+    x_l, y_l = augment.chain_from_cfg(state.generator, cfg, x_l, y_l,
+                                      state.device_step, 0)
+    x_u = augment.chain_from_cfg(state.generator, cfg, x_u, None,
+                                 state.device_step, 1)
+    semi_on = (state.device_step >= cfg.semi_start).float()
 
-    state.g_optimizer.zero_grad(set_to_none=True)
-    g_loss, aux = g_loss_fn(state.g_model, state.d_model, x_l, y_l, x_u,
-                            cfg, semi_on)
-    g_loss.backward()
-    state.g_optimizer.step()
-    state.g_scheduler.step()
+    with core.mixed_precision(enabled=cfg.bf16):
+        state.g_optimizer.zero_grad(set_to_none=True)
+        g_loss, aux = g_loss_fn(state.g_model, state.d_model, x_l, y_l, x_u,
+                                cfg, semi_on)
+        g_loss.backward()
+        state.g_optimizer.step()
+        state.g_scheduler.step()
 
-    state.d_optimizer.zero_grad(set_to_none=True)
-    d_loss, _ = d_loss_fn(state.d_model, aux["probs_l"], aux["probs_u"], y_l,
-                          cfg.num_parts, torch.cat([aux["d_l"], aux["d_u"]]))
-    d_loss.backward()
-    state.d_optimizer.step()
-    state.d_scheduler.step()
+        state.d_optimizer.zero_grad(set_to_none=True)
+        d_loss, _ = d_loss_fn(state.d_model, aux["probs_l"], aux["probs_u"],
+                              y_l, cfg.num_parts,
+                              torch.cat([aux["d_l"], aux["d_u"]]))
+        d_loss.backward()
+        state.d_optimizer.step()
+        state.d_scheduler.step()
 
     state.step += 1
+    state.device_step += 1
     acc = (aux["logp_l"].detach().argmax(-1) == y_l).float().mean()
     return {"loss_g": g_loss.detach(), "loss_ce": aux["l_ce"].detach(),
             "loss_adv": aux["l_adv"].detach(),
             "loss_semi": aux["l_semi"].detach(), "loss_d": d_loss.detach(),
             "acc": acc}
+
+
+def train_steps_scan(state: state_lib.GANTrainState, x_l: torch.Tensor,
+                     y_l: torch.Tensor, x_u: torch.Tensor, *,
+                     cfg: AdversarialConfig, g_tx: state_lib.Optimizer,
+                     d_tx: state_lib.Optimizer) -> Dict[str, torch.Tensor]:
+    """K G+D steps on K distinct batches, ``x_l [K, B, N', 3]``, ``y_l [K,
+    B, N']``, ``x_u [K, B, N', 3]``, in order: the counterpart of the JAX
+    package's ``lax.scan`` of its step (``--scan K``), as a loop of
+    ``train_step`` calls. Returns each metric stacked over K. With
+    ``cfg.scan`` set (K > 0), batches of another K raise."""
+    if cfg.scan and x_l.shape[0] != cfg.scan:
+        raise ValueError(f"train_steps_scan got {x_l.shape[0]} batches, but "
+                         f"cfg.scan is {cfg.scan}")
+    seen = [train_step(state, x_l[k], y_l[k], x_u[k], cfg=cfg, g_tx=g_tx,
+                       d_tx=d_tx) for k in range(x_l.shape[0])]
+    return {key: torch.stack([m[key] for m in seen]) for key in seen[0]}

@@ -24,7 +24,7 @@ from adversarial_learning_on_pointclouds_tpu_torch import losses
 from adversarial_learning_on_pointclouds_tpu_torch.configs import SegmentConfig
 from adversarial_learning_on_pointclouds_tpu_torch.data import augment
 from adversarial_learning_on_pointclouds_tpu_torch.models import (
-    PointNetDenseCls,
+    PointNetDenseCls, core,
 )
 from adversarial_learning_on_pointclouds_tpu_torch.train import (
     state as state_lib,
@@ -59,7 +59,9 @@ def create_state(cfg: SegmentConfig, steps_per_epoch: int, device="cuda",
     tx = make_tx(cfg, steps_per_epoch)
     optimizer, scheduler = tx.init(model.parameters())
     gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1)
-    return state_lib.TrainState(model, tx, optimizer, scheduler, gen)
+    return state_lib.TrainState(
+        model, tx, optimizer, scheduler, gen,
+        device_step=torch.zeros((), dtype=torch.int64, device=dev))
 
 
 def loss_fn(model: PointNetDenseCls, points: torch.Tensor,
@@ -82,19 +84,22 @@ def train_step(state: state_lib.TrainState, points: torch.Tensor,
     """One update on ``points [B, N', 3]`` and ``part_labels [B, N']`` on
     the model's device: the augmentation chain (labels ride the
     resample), the loss and its gradients, one optimizer step and one
-    schedule step. Returns ``{"loss", "acc"}`` as device scalars; the
-    gradients stay in ``.grad`` until the next step. ``tx`` is the
-    ``make_tx`` the state was built with; the state's optimizer takes the
-    step, so any other ``tx`` raises."""
+    schedule step, under ``cfg.bf16``'s mixed-precision scope. Returns
+    ``{"loss", "acc"}`` as device scalars; the gradients stay in
+    ``.grad`` until the next step. ``tx`` is the ``make_tx`` the state
+    was built with; the state's optimizer takes the step, so any other
+    ``tx`` raises."""
     if tx != state.tx:
         raise ValueError(f"train_step got {tx}, but the state was built "
                          f"with {state.tx}")
-    points, part_labels = augment.chain_from_cfg(state.generator, cfg,
-                                                 points, part_labels)
-    state.optimizer.zero_grad(set_to_none=True)
-    loss, acc = loss_fn(state.model, points, part_labels, cfg)
-    loss.backward()
+    points, part_labels = augment.chain_from_cfg(
+        state.generator, cfg, points, part_labels, state.device_step)
+    with core.mixed_precision(enabled=cfg.bf16):
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, acc = loss_fn(state.model, points, part_labels, cfg)
+        loss.backward()
     state.optimizer.step()
     state.scheduler.step()
     state.step += 1
+    state.device_step += 1
     return {"loss": loss.detach(), "acc": acc}

@@ -13,7 +13,7 @@ power``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterable
+from typing import Iterable, Optional
 
 import torch
 
@@ -75,7 +75,9 @@ class TrainState:
     """Single-network train state: the model (parameters and BatchNorm
     running statistics), the ``Optimizer`` it was built with, the torch
     optimizer and schedule that built, the augmentation's generator and
-    the step count. ``train_step`` updates it in place."""
+    the step count, on the host (``step``) and on the model's device
+    (``device_step``, int64, what the step's device work reads).
+    ``train_step`` updates it in place."""
 
     model: torch.nn.Module
     tx: Optimizer
@@ -83,13 +85,16 @@ class TrainState:
     scheduler: torch.optim.lr_scheduler.LRScheduler
     generator: torch.Generator
     step: int = 0
+    device_step: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
 class GANTrainState:
     """Generator + discriminator train state (config 4): both models, the
     ``Optimizer`` each was built with, the torch optimizers and schedules
-    those built, the augmentation's generator and the step count.
+    those built, the augmentation's generator and the step count, on the
+    host (``step``) and on the models' device (``device_step``, int64:
+    the semi-supervised switch and the augmentation seeds read it there).
     ``adversarial.train_step`` updates it in place."""
 
     g_model: torch.nn.Module
@@ -102,6 +107,7 @@ class GANTrainState:
     d_scheduler: torch.optim.lr_scheduler.LRScheduler
     generator: torch.Generator
     step: int = 0
+    device_step: Optional[torch.Tensor] = None
 
 
 def train_device(device) -> torch.device:

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's three main paths at full width (``adversarial_learning_
+Drives the port's four main paths at full width (``adversarial_learning_
 on_pointclouds_tpu_torch``: serving the part segmenter, its config-3
-training step and the config-4 adversarial G+D step; 50 parts, feature
-transform on, fp32) and holds each hand-written kernel against its plain
-PyTorch version. Phases, one or more lines each:
+training step, the config-4 adversarial G+D step in fp32, and the G+D
+step as the JAX package's ``bench.py`` runs it: bf16 mixed precision,
+``augment_fused``, K = 8 steps per call; 50 parts, feature transform on)
+and holds each hand-written kernel against its plain PyTorch version.
+Phases, one or more lines each:
 
 1. device: CUDA must be available; the card's name and power limit;
 2. build: the kernels compile from ``csrc/`` (nvcc, sm_90a);
@@ -44,20 +46,49 @@ PyTorch version. Phases, one or more lines each:
    10 steps on the fixed batch must lower the supervised loss;
 11. adv-timing: each discriminator pass against its plain pass, the G+D
    step's median time, points/s (both streams) and busy share, and the
-   discriminator family's FLOP/s against the fp32 peak.
+   discriminator family's FLOP/s against the fp32 peak;
+12. bench-kernels: every training and discriminator pass in bf16 against
+   its bf16 plain twin at the shapes of phases 6 and 9 (bf16 stashes may
+   sit one bf16 step apart where the two sum in another order: the share
+   that differs is printed); ``trunk2_train(groups=2)``'s passes at 2B=64
+   against their plain twins and against two groups=1 launches (pooled
+   values, statistics and extrema bit-equal); ``augment_fused`` against
+   its plain twin on the same Philox bits at B=32 N=2048/2500, its
+   distribution (angle, jitter, dropout ratio), and another step, seed
+   and stream;
+13. bench-slice: the G+D step of ``AdversarialConfig(augment=True,
+   bf16=True, pallas_augment=True)`` (paired heads), and again with
+   ``paired_trunks``, on the card and on the CPU from the same weights and
+   batch (the Philox augmentation is the same on both), as phase 10 with
+   the bounds widened for bf16; launches per step (augment 2; F1/F2/B1 6,
+   or 3 with the paired trunks); ``train_steps_scan`` at K=8 against 8
+   ``train_step`` calls on the card;
+14. bench-timing: each pass in bf16 against its plain pass (with its
+   bound at the tensor cores' bf16 peak), ``augment_fused`` and the
+   groups=2 passes, and the bench step through ``train_steps_scan`` (K=8:
+   per-step ms, points/s of both streams, idle share), one step per call,
+   with ``paired_trunks`` and without ``pallas_augment``.
 
 The line before the last is a JSON object of the kernels' numbers: per
 kernel its time, its plain version's, and its bound (``bound_ms``: the
 larger of its inputs and outputs over the memory rate and the matmul
 FLOPs of its plain version, counted by ``torch.utils.flop_counter``,
-over the fp32 peak; elementwise work is not counted). The last line is
+over the fp32 peak; elementwise work is not counted); the training and
+discriminator passes also carry their bf16 numbers (``bf16_*``, the bound
+at the bf16 tensor-core peak). The last line is
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
 non-zero and no result is printed.
 
     python3 chip_smoke.py
+
+``--time fp32|bench [--root DIR]`` runs only the G+D step's timing of
+phase 11 or 14, on the port package under ``DIR`` (``time_alone``), for
+A/B runs of two trees on one card; it checks nothing and prints no result
+line.
 """
 
 import copy
+import dataclasses
 import io
 import json
 import os
@@ -117,7 +148,32 @@ ADV_PER_STEP = {"trunk2_train": {"F1": 6, "F2": 6, "B1": 6},
                 "pool_fc_epilogue": {"fwd": 2},
                 "disc_fused": {"fwd": 3, "bwd_dx": 2, "bwd_dw": 2, "bwd": 0}}
 FP32_PEAK = 67e12     # FLOP/s, fp32 outside the tensor cores (H100 SXM)
+BF16_PEAK = 989e12    # FLOP/s, bf16 tensor cores, dense (H100 SXM)
 HBM_RATE = 3.35e12    # bytes/s (H100 SXM)
+# The bench step (bf16) on the card against the CPU. Both sides round the
+# same operands to bf16 at the same places, but where the two sum in
+# another order an fp32 value on a rounding boundary rounds to the
+# neighbouring bf16 value: one bf16 step, 2^-8 of it, against fp32's 2^-24.
+# Such a flip is rounding of the same kind and size as the bf16 rounding
+# itself, and the step carries it as far as it carries that rounding: the
+# batch-axis BatchNorms of the T-Net heads, the max-pools' winners and
+# the pseudo-labels' argmax amplify it (the bf16 rounding moves some G
+# gradients by a large part of their norm, in the JAX package as in the
+# port: tests/test_torch_bench_step.py). So each quantity is held to the
+# larger of the fp32 step's bound (STEP_BOUND, GRAD_BOUND) and twice what
+# bf16 rounding moves it by on the CPU (the same step in fp32, the
+# yardstick).
+YARD_FACTOR = 2.0
+BENCH_K = 8           # steps per train_steps_scan call (bench.py --scan 8)
+STASH_BOUND = 2.0 ** -8   # one bf16 step of a stash's scale (check_stash)
+# A bf16 pass's fp32 outputs against its bf16 twin: where an operand (a
+# cotangent dz, say) rounds to its other bf16 neighbour on one side, a
+# sum moves by one bf16 step of one of its terms, 2^-8 of it, and at
+# these widths a term can carry a tenth or more of the largest output.
+BF16_BOUND = 1e-3
+AUG_SITE = "augment_fused.py:104"
+AUG_PER_STEP = 2      # one augment_fused per stream
+GROUPS2_PER_STEP = {"F1": 3, "F2": 3, "B1": 3}   # paired trunks: 3 trunks
 
 
 def phase(name: str, msg: str) -> None:
@@ -148,6 +204,35 @@ def check(name: str, got: torch.Tensor, ref: torch.Tensor,
     if rel > bound:
         raise AssertionError(f"{name}: error {rel:.3e} above {bound:g}")
     return diff
+
+
+def check_stash(name: str, got: torch.Tensor, ref: torch.Tensor,
+                tag: str = "bench-kernels"):
+    """A bf16 stash: equal in value to the plain pass's (-0 is 0), or one
+    bf16 step from it (an fp32 value on a rounding boundary, summed in
+    another order), or within one bf16 step of the stash's scale,
+    ``STASH_BOUND`` (a bf16 operand upstream that rounds to its other
+    neighbour moves a sum by one bf16 step of one of its terms). Returns
+    ``(max abs error, share of elements that differ)``."""
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} != "
+                             f"{ref.dtype} {tuple(ref.shape)}")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite output")
+    gi, ri = (t.contiguous().view(torch.int16).int() for t in (got, ref))
+    rel, diff = rel_err(got, ref)
+    differ = got.float() != ref.float()
+    near = (got.float() - ref.float()).abs() <= STASH_BOUND * max(
+        1.0, ref.abs().max().item())
+    far = int((differ & ((gi - ri).abs() > 1) & ~near).sum())
+    share = differ.float().mean().item()
+    phase(tag, f"{name}: bf16 stash, {share:.3e} of {ref.numel()} elements "
+          f"differ, all by one bf16 step or within {STASH_BOUND:g} of the "
+          f"scale but {far} (max scale-relative error {rel:.3e})")
+    if far:
+        raise AssertionError(f"{name}: {far} stash elements differ by more "
+                             "than one bf16 step")
+    return diff, share
 
 
 def check_norm(name: str, got: torch.Tensor, ref: torch.Tensor,
@@ -237,7 +322,7 @@ def device_profile(fn, reps: int = 10):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -460,18 +545,25 @@ def serve(dev, card, gen, results):
 # ---------------------------------------------------------------------------
 
 class PassRecord:
-    """Per training pass: the largest error seen and the main-shape
-    arguments for timing."""
+    """Per training pass: the largest error seen, the largest share of a
+    bf16 stash that differed, and the main-shape arguments for timing."""
 
-    def __init__(self):
-        self.err, self.args = {}, {}
+    def __init__(self, bound=BOUND):
+        self.bound = bound
+        self.err, self.args, self.share = {}, {}, {}
 
     def cmp(self, kernel, pas, tag, names, got, ref, main, fn_args,
-            scales=None, phase_tag="train-kernels"):
+            scales=None, phase_tag="train-kernels", bound=None):
         key = (kernel, pas)
         for nm, a, b in zip(names, got, ref):
-            d = check(f"{kernel} {pas} {nm} {tag}", a, b, BOUND,
-                      phase_tag, (scales or {}).get(nm))
+            if a.dtype == torch.bfloat16:
+                d, share = check_stash(f"{kernel} {pas} {nm} {tag}", a, b,
+                                       phase_tag)
+                self.share[key] = max(self.share.get(key, 0.0), share)
+            else:
+                d = check(f"{kernel} {pas} {nm} {tag}", a, b,
+                          self.bound if bound is None else bound, phase_tag,
+                          (scales or {}).get(nm))
             self.err[key] = max(self.err.get(key, 0.0), d)
         if main:
             self.args.setdefault(key, []).append(fn_args)
@@ -502,7 +594,8 @@ def dz_scales(sh, a):
             "r": mag.sum(1).max().item()}
 
 
-def check_winners(tag, got_idx, ref_idx, z3, x, dup_clouds, n, want="max"):
+def check_winners(tag, got_idx, ref_idx, z3, x, dup_clouds, n, want="max",
+                  phase_tag="train-kernels"):
     """Winner indices: equal to the plain pass's, or, where rounding makes
     two distinct points tie, a point of (within the bound) the same value;
     never the second of two duplicated points."""
@@ -517,7 +610,7 @@ def check_winners(tag, got_idx, ref_idx, z3, x, dup_clouds, n, want="max"):
     xr = torch.gather(x, 1, ref_idx.long()[:, :, None].expand(-1, -1,
                                                              x.shape[-1]))
     dup = diff & (xg == xr).all(-1) & (got_idx > ref_idx)
-    phase("train-kernels", f"trunk2_train F2 arg{want} {tag}: "
+    phase(phase_tag, f"trunk2_train F2 arg{want} {tag}: "
           f"{int(diff.sum())} of {bsz * c3} differ from the plain pass, at a "
           f"value gap of {gap:.3e}; {int(dup.sum())} later duplicates won")
     if gap > BOUND or int(dup.sum()):
@@ -529,11 +622,16 @@ def check_winners(tag, got_idx, ref_idx, z3, x, dup_clouds, n, want="max"):
                                  "to the later duplicate")
 
 
-def train_kernel_checks(dev, gen, rec):
+def train_kernel_checks(dev, gen, rec, bf16=False):
+    """Phase 6 (fp32), or with ``bf16`` the passes' half of phase 12."""
     from adversarial_learning_on_pointclouds_tpu_torch.models import core
     from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
         pool_fc_epilogue as pf, seg_head_train as sh, trunk_train as tt,
     )
+
+    ptag = "bench-kernels" if bf16 else "train-kernels"
+    xt = (1, True) if bf16 else ()       # the trunk passes' groups, bf16
+    xb = (True,) if bf16 else ()         # the other passes' bf16
 
     c1, c2, c3 = 64, 128, 1024
     tw = dict(w2=_w(gen, c1, c2, dev), b2=_r(gen, c2, dev=dev),
@@ -555,21 +653,25 @@ def train_kernel_checks(dev, gen, rec):
         half = n // 2
         x[:dup_clouds, n - half:] = x[:dup_clouds, :half]
         with torch.no_grad():
-            a = (x, tw["w2"], tw["b2"])
+            a = (x, tw["w2"], tw["b2"], *xt)
             got, ref = tt.f1(*a), tt.f1_plain(*a)
             rec.cmp("trunk2_train", "F1", tag, ("z2", "sum", "sumsq"), got,
-                    ref, main, a)
+                    ref, main, a, phase_tag=ptag)
             z2 = ref[0]
             mu2, _, inv2 = core.batch_moments(ref[1], ref[2], bsz * n)
             sc2 = tw["g2"] * inv2
             sh2 = tw["be2"] - mu2 * sc2
-            a = (z2, sc2, sh2, tw["w3"], tw["b3"])
+            a = (z2, sc2, sh2, tw["w3"], tw["b3"], *xt)
             got, ref = tt.f2(*a), tt.f2_plain(*a)
             rec.cmp("trunk2_train", "F2", tag, ("sum", "sumsq", "max", "min"),
-                    got[:4], ref[:4], main, a)
-            z3 = torch.matmul(torch.relu(z2 * sc2 + sh2), tw["w3"]) + tw["b3"]
-            check_winners(tag, got[4], ref[4], z3, x, dup_clouds, n, "max")
-            check_winners(tag, got[5], ref[5], -z3, x, dup_clouds, n, "min")
+                    got[:4], ref[:4], main, a, phase_tag=ptag)
+            z3 = torch.matmul(
+                core.operand(torch.relu(z2.float() * sc2 + sh2), bf16),
+                core.operand(tw["w3"], bf16)) + tw["b3"]
+            check_winners(tag, got[4], ref[4], z3, x, dup_clouds, n, "max",
+                          ptag)
+            check_winners(tag, got[5], ref[5], -z3, x, dup_clouds, n, "min",
+                          ptag)
             del z3
             mu3, _, inv3 = core.batch_moments(ref[0], ref[1], bsz * n)
             s3c = tw["g3"] * inv3
@@ -578,10 +680,11 @@ def train_kernel_checks(dev, gen, rec):
             a = (z2, sc2, sh2, tw["w3"], tw["b3"], mu3, inv3,
                  _r(gen, bsz, c3, scale=1e-3, dev=dev),
                  _r(gen, bsz, c3, scale=1e-3, dev=dev), s3c * dg, idx, mu2,
-                 inv2)
+                 inv2, *xt)
             got, ref = tt.b1(*a), tt.b1_plain(*a)
             rec.cmp("trunk2_train", "B1", tag,
-                    ("dy2", "dw3", "db3", "t1", "t2"), got, ref, main, a)
+                    ("dy2", "dw3", "db3", "t1", "t2"), got, ref, main, a,
+                    phase_tag=ptag)
 
             # Seg head, pass by pass on the plain pass's outputs.
             pf_in = x
@@ -590,10 +693,10 @@ def train_kernel_checks(dev, gen, rec):
             (w1, b1, g1, be1), (w2, b2, g2, be2), (w3, b3, g3, be3), \
                 (w4, b4, _, _) = hp
             g_row = torch.matmul(g, w1[64:])
-            a = (pf_in, g_row, w1[:64], b1)
+            a = (pf_in, g_row, w1[:64], b1, *xb)
             got, ref = sh.p1(*a), sh.p1_plain(*a)
             rec.cmp("seg_head_train", "P1", tag, ("z1", "sum", "sumsq"), got,
-                    ref, main, a)
+                    ref, main, a, phase_tag=ptag)
             zs, scs, shs, mus, invs = [ref[0]], [], [], [], []
             for (w, b, ga, be), (wn, bn, _, _) in zip(hp[:3], hp[1:]):
                 mu, _, inv = core.batch_moments(ref[1], ref[2], m)
@@ -603,38 +706,39 @@ def train_kernel_checks(dev, gen, rec):
                 invs.append(inv)
                 if wn is w4:
                     break
-                a = (zs[-1], scs[-1], shs[-1], wn, bn)
+                a = (zs[-1], scs[-1], shs[-1], wn, bn, *xb)
                 got, ref = sh.pmid(*a), sh.pmid_plain(*a)
                 rec.cmp("seg_head_train", "Pmid", f"{wn.shape[0]}->"
                         f"{wn.shape[1]} {tag}", ("z", "sum", "sumsq"), got,
-                        ref, main, a)
+                        ref, main, a, phase_tag=ptag)
                 zs.append(ref[0])
-            a = (zs[2], scs[2], shs[2], w4, b4)
+            a = (zs[2], scs[2], shs[2], w4, b4, *xb)
             logp = sh.p4_plain(*a)
             rec.cmp("seg_head_train", "P4", tag, ("logp",), (sh.p4(*a),),
-                    (logp,), main, a)
+                    (logp,), main, a, phase_tag=ptag)
             dlogp = _r(gen, bsz, n, PARTS, scale=1.0, dev=dev)
-            a = (zs[2], scs[2], shs[2], w4, b4, mus[2], invs[2], dlogp)
+            a = (zs[2], scs[2], shs[2], w4, b4, mus[2], invs[2], dlogp, *xb)
             got, ref = sh.b4(*a), sh.b4_plain(*a)
             rec.cmp("seg_head_train", "B4", tag,
-                    ("dy3", "dw4", "db4", "t1", "t2"), got, ref, main, a)
+                    ("dy3", "dw4", "db4", "t1", "t2"), got, ref, main, a,
+                    phase_tag=ptag)
             dy = ref[0]
             t1, t2 = ref[3], ref[4]
             for cur, prev, w in ((2, 1, w3), (1, 0, w2)):
                 a = (zs[cur], dy, scs[cur], mus[cur], invs[cur],
                      scs[cur] * t1 / m, scs[cur] * t2 / m, zs[prev],
-                     scs[prev], shs[prev], w, mus[prev], invs[prev])
+                     scs[prev], shs[prev], w, mus[prev], invs[prev], *xb)
                 got, ref = sh.bmid(*a), sh.bmid_plain(*a)
                 rec.cmp("seg_head_train", "Bmid", f"{w.shape[1]}->"
                         f"{w.shape[0]} {tag}",
                         ("dy_prev", "dw", "db", "t1", "t2"), got, ref, main,
-                        a, dz_scales(sh, a))
+                        a, dz_scales(sh, a), ptag)
                 dy, t1, t2 = ref[0], ref[3], ref[4]
             a = (zs[0], dy, scs[0], mus[0], invs[0], scs[0] * t1 / m,
-                 scs[0] * t2 / m, pf_in, w1[:64])
+                 scs[0] * t2 / m, pf_in, w1[:64], *xb)
             got, ref = sh.b1(*a), sh.b1_plain(*a)
             rec.cmp("seg_head_train", "B1", tag, ("dpf", "dw1a", "db1", "r"),
-                    got, ref, main, a, dz_scales(sh, a))
+                    got, ref, main, a, dz_scales(sh, a), ptag)
         torch.cuda.synchronize()
 
     # The pool-fc epilogue at the T-Net head's shapes: groups 1 (one
@@ -645,11 +749,14 @@ def train_kernel_checks(dev, gen, rec):
         a = (mx, mx - torch.rand(bsz, 1024, generator=gen).to(dev),
              _r(gen, 1024, scale=1.0, dev=dev), _r(gen, 1024, dev=dev), wf,
              _r(gen, 512, dev=dev), _gam(gen, 512, dev), _r(gen, 512, dev=dev),
-             _r(gen, 512, dev=dev), groups)
+             _r(gen, 512, dev=dev), groups, *xb)
         with torch.no_grad():
             rec.cmp("pool_fc_epilogue", "fwd", f"B={bsz} groups={groups}",
                     ("h1", "h", "z1", "mu", "var", "inv"), pf.pool_fc_fwd(*a),
-                    pf.pool_fc_fwd_plain(*a), groups == 1, a)
+                    pf.pool_fc_fwd_plain(*a), groups == 1, a, phase_tag=ptag)
+    if bf16:   # the bf16 functions are held to the CPU by the bench step
+        torch.cuda.synchronize()
+        return
 
     # Each autograd function against its whole-function reference.
     bsz, n = B, TRAIN_N
@@ -881,7 +988,8 @@ def prob_maps(gen, bsz, n, dev):
     return x.to(dev)
 
 
-def disc_kernel_checks(dev, gen, rec):
+def disc_kernel_checks(dev, gen, rec, bf16=False):
+    """Phase 9 (fp32), or with ``bf16`` the disc passes of phase 12."""
     from adversarial_learning_on_pointclouds_tpu_torch.models import (
         FCDiscriminator,
     )
@@ -889,6 +997,8 @@ def disc_kernel_checks(dev, gen, rec):
         disc_fused as df,
     )
 
+    ptag = "bench-kernels" if bf16 else "disc-kernels"
+    xb = (True,) if bf16 else ()
     ws, bs = disc_params(gen, dev)
     names = [f"dw{i}" for i in range(1, 6)] + [f"db{i}" for i in range(1, 6)]
     for bsz, n in ((B, TRAIN_N), (2 * B, TRAIN_N), (B, TRAIN_RAGGED_N),
@@ -899,25 +1009,26 @@ def disc_kernel_checks(dev, gen, rec):
         g = _r(gen, bsz, n, 1, scale=1.0, dev=dev)
         with torch.no_grad():
             if bsz != 2 * B:   # the 2B batch is the D step's dW-only pass
-                a = (x, ws, bs)
+                a = (x, ws, bs, *xb)
                 rec.cmp("disc_fused", "fwd", tag, ("logits",),
                         (df.disc_fwd(*a),), (df.disc_fwd_plain(*a),), main, a,
-                        phase_tag="disc-kernels")
-                a = (x, g, ws, bs)
+                        phase_tag=ptag)
+                a = (x, g, ws, bs, *xb)
                 rec.cmp("disc_fused", "bwd_dx", tag, ("dx",),
                         (df.disc_bwd_dx(*a),), (df.disc_bwd_dx_plain(*a),),
-                        main, a, phase_tag="disc-kernels")
+                        main, a, phase_tag=ptag)
                 got, ref = df.disc_bwd(*a), df.disc_bwd_plain(*a)
                 rec.cmp("disc_fused", "bwd", tag, ["dx"] + names,
                         (got[0], *got[1], *got[2]),
-                        (ref[0], *ref[1], *ref[2]), main, a,
-                        phase_tag="disc-kernels")
-            a = (x, g, ws, bs)
+                        (ref[0], *ref[1], *ref[2]), main, a, phase_tag=ptag)
+            a = (x, g, ws, bs, *xb)
             got, ref = df.disc_bwd_dw(*a), df.disc_bwd_dw_plain(*a)
             rec.cmp("disc_fused", "bwd_dw", tag, names, (*got[0], *got[1]),
                     (*ref[0], *ref[1]), n == TRAIN_N and bsz >= B, a,
-                    phase_tag="disc-kernels")
+                    phase_tag=ptag)
         torch.cuda.synchronize()
+    if bf16:   # the bf16 methods are held to the CPU by the bench step
+        return
 
     # Each FCDiscriminator method against the stack composed in plain
     # PyTorch under autograd: its output and the gradients it returns;
@@ -962,9 +1073,10 @@ def disc_kernel_checks(dev, gen, rec):
 
 def adv_counters():
     from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
-        disc_fused,
+        augment_fused, disc_fused,
     )
-    return {**pass_counters(), "disc_fused": disc_fused.PASSES}
+    return {**pass_counters(), "disc_fused": disc_fused.PASSES,
+            "augment_fused": {"fwd": augment_fused.augment_fused}}
 
 
 class Recorder:
@@ -986,18 +1098,14 @@ class Recorder:
         setattr(self.module, self.name, self.fn)
 
 
-def adv_slice(dev, card, gen):
-    from adversarial_learning_on_pointclouds_tpu_torch.configs import (
-        AdversarialConfig,
-    )
+def adv_setup(cfg, gen, dev):
+    """A seeded full-width G (random BatchNorm statistics) and D for the
+    G+D step, and a batch of 2 x B x N points with part labels (numpy)."""
+    from adversarial_learning_on_pointclouds_tpu_torch.data import augment
     from adversarial_learning_on_pointclouds_tpu_torch.models import (
         FCDiscriminator, PointNetDenseCls,
     )
-    from adversarial_learning_on_pointclouds_tpu_torch.train import (
-        adversarial,
-    )
 
-    cfg = AdversarialConfig()
     bsz, n = cfg.batch_size, cfg.num_points
     g_model = PointNetDenseCls(cfg.num_parts, cfg.feature_transform,
                                generator=gen)
@@ -1020,59 +1128,100 @@ def adv_slice(dev, card, gen):
         g_probe, d_probe = copy.deepcopy(g_model).to(dev).train(), \
             copy.deepcopy(d_model).to(dev)
         x = torch.from_numpy(pts[1]).to(dev)
-        from adversarial_learning_on_pointclouds_tpu_torch.data import augment
         x = augment.normalize_unit_sphere(x)
         d_u = d_probe(g_probe(x)[0].exp())
         target = float(np.log(cfg.semi_threshold / (1 - cfg.semi_threshold)))
         d_model.classifier.bias += target - d_u.median().item()
         del g_probe, d_probe, x, d_u
+    return g_model, d_model, pts, labels
 
-    runs = {}
+
+def reset(counters):
+    for passes in counters.values():
+        for f in passes.values():
+            f.launches = 0
+
+
+def read(counters):
+    return {k: {p: f.launches for p, f in passes.items()}
+            for k, passes in counters.items()}
+
+
+def step_runs(cfg, g_model, d_model, pts, labels, tag, dev,
+              wheres=("cuda", "cpu")):
+    """One ``adversarial.train_step`` on the card and on the CPU from the
+    same weights and batch: ``({where: (state, metrics, g_loss_fn's aux,
+    batch, txs)}, launches on the card)``, the launch counts set to 0
+    just before the card's step and read just after it."""
+    from adversarial_learning_on_pointclouds_tpu_torch.train import (
+        adversarial,
+    )
+
+    runs, launches = {}, None
     counters = adv_counters()
-    for where in ("cuda", "cpu"):
+    for where in wheres:
         state = adversarial.create_state(
             cfg, 100, device=where, g_model=copy.deepcopy(g_model),
             d_model=copy.deepcopy(d_model))
         txs = adversarial.make_txs(cfg, 100)
         x_l, x_u = (torch.from_numpy(p).to(where) for p in pts)
         y_l = torch.from_numpy(labels).to(where)
-        for passes in counters.values():
-            for f in passes.values():
-                f.launches = 0
+        reset(counters)
         t0 = time.perf_counter()
         with Recorder(adversarial, "g_loss_fn") as seen:
             metrics = adversarial.train_step(state, x_l, y_l, x_u, cfg=cfg,
                                              g_tx=txs[0], d_tx=txs[1])
         if where == "cuda":
             torch.cuda.synchronize()
-            launches = {k: {p: f.launches for p, f in passes.items()}
-                        for k, passes in counters.items()}
-        phase("adv-slice", f"train_step on {where} 2 x B={bsz} N={n}: " +
+            launches = read(counters)
+        phase(tag, f"train_step on {where} 2 x B={cfg.batch_size} "
+              f"N={cfg.num_points}: " +
               ", ".join(f"{k} {float(v):.6f}" for k, v in metrics.items()) +
               f", {time.perf_counter() - t0:.3f} s (first step)")
         runs[where] = (state, metrics, seen[0][1], (x_l, y_l, x_u), txs)
+    return runs, launches
 
-    for k, per in ADV_PER_STEP.items():
+
+def check_launches(tag, launches, want):
+    for k, per in want.items():
         if launches[k] != per:
             raise AssertionError(f"{k} launched {launches[k]} in one G+D "
                                  f"step, expected {per}")
-    phase("adv-slice", f"launches in one G+D step: {launches}")
+    phase(tag, f"launches in one G+D step: {launches}")
 
+
+def compare_step(tag, runs, cfg, step_bound, grad_bound, yard=None):
+    """The card's step against the CPU's: every metric, D's logits and
+    the maps, the semi mask, every new running statistic and every G and
+    D gradient. With ``yard`` (the CPU's step in fp32) each bound is the
+    larger of the given one and ``YARD_FACTOR`` times the CPU's own bf16
+    against fp32 difference of the same quantity."""
     (gs, gm, gaux, _, _), (cs, cm, caux, _, _) = runs["cuda"], runs["cpu"]
+
+    def bound_for(cpu_val, yard_val, base):
+        if yard is None:
+            return base
+        return max(base, YARD_FACTOR * rel_err(cpu_val, yard_val)[0])
+
     for k in gm:
-        check(f"{k} GPU vs CPU", gm[k].cpu()[None], cm[k][None], STEP_BOUND,
-              "adv-slice")
+        check(f"{k} GPU vs CPU", gm[k].cpu()[None], cm[k][None],
+              bound_for(cm[k][None], yard and yard[1][k][None], step_bound),
+              tag)
     for k in ("logp_l", "probs_u", "d_l", "d_u"):
         check(f"{k} GPU vs CPU", gaux[k].detach().cpu(), caux[k].detach(),
-              STEP_BOUND, "adv-slice")
-    semi_mask_check(gaux, caux, cfg.semi_threshold)
+              bound_for(caux[k].detach(), yard and yard[2][k].detach(),
+                        step_bound), tag)
+    semi_mask_check(gaux, caux, cfg.semi_threshold, tag)
     gsd, csd = gs.g_model.state_dict(), cs.g_model.state_dict()
+    ysd = yard[0].g_model.state_dict() if yard else None
     stats = [k for k in csd if k.endswith(("running_mean", "running_var"))]
     worst = max(rel_err(gsd[k].cpu(), csd[k])[0] for k in stats)
-    phase("adv-slice", f"{len(stats)} new running statistics GPU vs CPU: "
-          f"max scale-relative error {worst:.3e} (bound {STEP_BOUND:g})")
-    if worst > STEP_BOUND or any(int(v) != 2 for k, v in gsd.items()
-                                 if k.endswith("num_batches_tracked")):
+    sbound = max(bound_for(csd[k], ysd and ysd[k], step_bound)
+                 for k in stats)
+    phase(tag, f"{len(stats)} new running statistics GPU vs CPU: max "
+          f"scale-relative error {worst:.3e} (bound {sbound:.3g})")
+    if worst > sbound or any(int(v) != 2 for k, v in gsd.items()
+                             if k.endswith("num_batches_tracked")):
         raise AssertionError("running statistics differ")
     for net in ("g_model", "d_model"):
         gp = dict(getattr(gs, net).named_parameters())
@@ -1080,12 +1229,34 @@ def adv_slice(dev, card, gen):
         scale = max(float(p.grad.abs().max()) for p in cp.values())
         worst, name = max((float((gp[k].grad.cpu() - p.grad).abs().max()), k)
                           for k, p in cp.items())
-        phase("adv-slice", f"{net}: {len(cp)} parameter gradients GPU vs "
-              f"CPU: max abs error {worst:.3e} ({name}), "
-              f"{worst / (1 + scale):.3e} of (1 + max|g| = {1 + scale:.3e}) "
-              f"(bound {GRAD_BOUND:g})")
-        if worst > GRAD_BOUND * (1 + scale):
+        gbound = grad_bound
+        if yard:
+            yp = dict(getattr(yard[0], net).named_parameters())
+            moved = max(float((yp[k].grad - p.grad).abs().max())
+                        for k, p in cp.items())
+            gbound = max(grad_bound, YARD_FACTOR * moved / (1 + scale))
+            phase(tag, f"{net}: bf16 rounding moves the CPU's gradients by "
+                  f"{moved / (1 + scale):.3e} of (1 + max|g|)")
+        phase(tag, f"{net}: {len(cp)} parameter gradients GPU vs CPU: max "
+              f"abs error {worst:.3e} ({name}), {worst / (1 + scale):.3e} "
+              f"of (1 + max|g| = {1 + scale:.3e}) (bound {gbound:.3g})")
+        if worst > gbound * (1 + scale):
             raise AssertionError(f"{net} gradients differ")
+
+
+def adv_slice(dev, card, gen):
+    from adversarial_learning_on_pointclouds_tpu_torch.configs import (
+        AdversarialConfig,
+    )
+    from adversarial_learning_on_pointclouds_tpu_torch.train import (
+        adversarial,
+    )
+
+    cfg = AdversarialConfig()
+    runs, launches = step_runs(cfg, *adv_setup(cfg, gen, dev), "adv-slice",
+                               dev)
+    check_launches("adv-slice", launches, ADV_PER_STEP)
+    compare_step("adv-slice", runs, cfg, STEP_BOUND, GRAD_BOUND)
 
     state, _, _, batch, txs = runs["cuda"]
     seen = [adversarial.train_step(state, *batch, cfg=cfg, g_tx=txs[0],
@@ -1102,7 +1273,7 @@ def adv_slice(dev, card, gen):
     return runs["cuda"], launches
 
 
-def semi_mask_check(gaux, caux, threshold):
+def semi_mask_check(gaux, caux, threshold, tag="adv-slice"):
     """The semi mask (sigmoid(D) > threshold) and pseudo-labels (argmax)
     on the card equal the CPU's, except at points within the comparison's
     own error of the threshold or of a tie: a flip needs the error to
@@ -1121,7 +1292,7 @@ def semi_mask_check(gaux, caux, threshold):
     mask_g, mask_c = sig_g > threshold, sig_c > threshold
     bad_mask = int(((mask_g != mask_c) & ~near).sum())
     bad_label = int(((lp_g.argmax(-1) != lp_c.argmax(-1)) & ~tie).sum())
-    phase("adv-slice", f"semi mask: {float(mask_c.float().mean()):.3f} of "
+    phase(tag, f"semi mask: {float(mask_c.float().mean()):.3f} of "
           f"the points kept; {int((mask_g != mask_c).sum())} differ, all "
           f"within {win_s:.2e} of the threshold but {bad_mask}; "
           f"{int((lp_g.argmax(-1) != lp_c.argmax(-1)).sum())} pseudo-labels "
@@ -1136,9 +1307,6 @@ def adv_timing(card, rec, cuda_run, launches, results):
     )
     from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
         disc_fused as df,
-    )
-    from adversarial_learning_on_pointclouds_tpu_torch.train import (
-        adversarial,
     )
 
     passes, family_flops, family_dev = [], 0, 0.0
@@ -1193,7 +1361,16 @@ def adv_timing(card, rec, cuda_run, launches, results):
             r["launches_g_d_step"] = sum(launches[r["name"]].values())
 
     state, _, _, batch, txs = cuda_run
-    cfg = AdversarialConfig()
+    time_step(card, "adv-timing", AdversarialConfig(), state, batch, txs)
+
+
+def time_step(card, tag, cfg, state, batch, txs):
+    """The G+D step, one synchronized ``train_step`` per call: the median
+    of 12 (CUDA events, after 3 warm-ups), points/s of both streams, and
+    the profiler's kernel time (5 steps) with its largest kernels."""
+    from adversarial_learning_on_pointclouds_tpu_torch.train import (
+        adversarial,
+    )
 
     def step():
         adversarial.train_step(state, *batch, cfg=cfg, g_tx=txs[0],
@@ -1203,16 +1380,407 @@ def adv_timing(card, rec, cuda_run, launches, results):
         step()
     step_ms = statistics.median(event_ms(step, 12))
     pts = 2 * cfg.batch_size * cfg.num_points
-    phase("adv-timing", f"{card}: G+D train_step 2 x B={cfg.batch_size} "
+    phase(tag, f"{card}: G+D train_step 2 x B={cfg.batch_size} "
           f"N={cfg.num_points}: median {step_ms:.3f} ms over 12 steps, "
           f"{pts / step_ms * 1e3:.1f} points/s (both streams)")
     kernels = device_profile(step, reps=5)
     busy = sum(kernels.values())
-    phase("adv-timing", f"{card}: G+D step: GPU kernels busy {busy:.3f} ms "
+    phase(tag, f"{card}: G+D step: GPU kernels busy {busy:.3f} ms "
           f"of {step_ms:.3f} ms ({100 * (1 - busy / step_ms):.1f}% idle), "
           f"{len(kernels)} kernel names")
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:14]
+    for key, ms in top:
+        phase(tag, f"  {ms:.4f} ms  {key[:90]}")
+    return {"step_ms": step_ms, "busy_ms": busy,
+            "top": [[k[:60], ms] for k, ms in top[:5]]}
+
+
+# ---------------------------------------------------------------------------
+# The G+D step as bench.py runs it (phases 12-14)
+# ---------------------------------------------------------------------------
+
+def check_equal(name, got, ref, tag="bench-kernels"):
+    """Bit-equality, tensor by tensor."""
+    for i, (a, b) in enumerate(zip(got, ref)):
+        if a.shape != b.shape or not torch.equal(a, b):
+            d = (a.double() - b.double()).abs().max().item() \
+                if a.shape == b.shape else float("nan")
+            raise AssertionError(f"{name}: output {i} not bit-equal (max abs "
+                                 f"difference {d:.3e})")
+    phase(tag, f"{name}: {len(got)} outputs bit-equal")
+
+
+def groups2_checks(dev, gen, rec):
+    """``trunk2_train(groups=2)`` at 2B = 64: each pass against its plain
+    twin and against two groups=1 launches on the halves (per-stream
+    statistics, extrema, winners, dy2 and BN2's sums bit-equal; dW3 and
+    db3, one sum over both streams, within BOUND of the halves' sum), and
+    the whole function's pooled values and statistics bit-equal to two
+    groups=1 calls, in fp32 and in bf16."""
+    from adversarial_learning_on_pointclouds_tpu_torch.models import core
+    from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
+        trunk_train as tt,
+    )
+
+    c1, c2, c3 = 64, 128, 1024
+    w2, b2, w3, b3 = (_w(gen, c1, c2, dev), _r(gen, c2, dev=dev),
+                      _w(gen, c2, c3, dev), _r(gen, c3, dev=dev))
+    g2, be2 = _gam(gen, c2, dev), _r(gen, c2, dev=dev)
+    g3, be3 = _gam(gen, c3, dev, negative=0.3), _r(gen, c3, dev=dev)
+    bsz, n, h = 2 * B, TRAIN_N, B
+    for bf16 in (False, True):
+        tag = f"2B={bsz} N={n} {'bf16' if bf16 else 'fp32'}"
+        x = torch.relu(torch.randn(bsz, n, c1, generator=gen)).to(dev)
+        halves = (slice(0, h), slice(h, bsz))
+        with torch.no_grad():
+            a = (x, w2, b2, 2, bf16)
+            got, ref = tt.f1(*a), tt.f1_plain(*a)
+            rec.cmp("trunk2_train(groups=2)", "F1", tag, ("z2", "sum",
+                    "sumsq"), got, ref, bf16, a, phase_tag="bench-kernels",
+                    bound=None if bf16 else BOUND)
+            one = [tt.f1(x[c], w2, b2, 1, bf16) for c in halves]
+            check_equal(f"trunk2_train(groups=2) F1 {tag} vs two groups=1 "
+                        "launches", got, [torch.cat([o[0] for o in one])] +
+                        [torch.stack([o[i] for o in one]) for i in (1, 2)])
+            z2 = got[0]
+            mu2, _, inv2 = core.batch_moments(got[1], got[2], h * n)
+            sc2, sh2 = g2 * inv2, be2 - mu2 * (g2 * inv2)
+            a = (z2, sc2, sh2, w3, b3, 2, bf16)
+            got, ref = tt.f2(*a), tt.f2_plain(*a)
+            rec.cmp("trunk2_train(groups=2)", "F2", tag, ("sum", "sumsq",
+                    "max", "min"), got[:4], ref[:4], bf16, a,
+                    phase_tag="bench-kernels", bound=None if bf16 else BOUND)
+            one = [tt.f2(z2[c], sc2[i], sh2[i], w3, b3, 1, bf16)
+                   for i, c in enumerate(halves)]
+            check_equal(f"trunk2_train(groups=2) F2 {tag} vs two groups=1 "
+                        "launches", got,
+                        [torch.stack([o[i] for o in one]) for i in (0, 1)] +
+                        [torch.cat([o[i] for o in one]) for i in range(2, 6)])
+            mu3, _, inv3 = core.batch_moments(got[0], got[1], h * n)
+            s3c = (g3 * inv3).repeat_interleave(h, 0)
+            idx = torch.where(s3c >= 0, got[4], got[5])
+            dg = _r(gen, bsz, c3, scale=1.0, dev=dev)
+            co1, co2 = (_r(gen, bsz, c3, scale=1e-3, dev=dev)
+                        for _ in range(2))
+            a = (z2, sc2, sh2, w3, b3, mu3, inv3, co1, co2, s3c * dg, idx,
+                 mu2, inv2, 2, bf16)
+            got, ref = tt.b1(*a), tt.b1_plain(*a)
+            rec.cmp("trunk2_train(groups=2)", "B1", tag,
+                    ("dy2", "dw3", "db3", "t1", "t2"), got, ref, bf16, a,
+                    phase_tag="bench-kernels", bound=None if bf16 else BOUND)
+            one = [tt.b1(z2[c], sc2[i], sh2[i], w3, b3, mu3[i], inv3[i],
+                         co1[c], co2[c], (s3c * dg)[c], idx[c], mu2[i],
+                         inv2[i], 1, bf16) for i, c in enumerate(halves)]
+            check_equal(f"trunk2_train(groups=2) B1 dy2, t1, t2 {tag} vs two "
+                        "groups=1 launches", (got[0], got[3], got[4]),
+                        (torch.cat([o[0] for o in one]),
+                         torch.stack([o[3] for o in one]),
+                         torch.stack([o[4] for o in one])))
+            for i, nm in ((1, "dw3"), (2, "db3")):
+                check(f"trunk2_train(groups=2) B1 {nm} {tag} vs the sum of "
+                      "two groups=1 launches", got[i],
+                      one[0][i] + one[1][i], BOUND, "bench-kernels")
+            leaves = (w2, b2, g2, be2, w3, b3, g3, be3)
+            with core.mixed_precision(enabled=bf16):
+                whole = tt.trunk2_train(x, *leaves, groups=2)
+                parts = [tt.trunk2_train(x[c], *leaves) for c in halves]
+            check_equal(f"trunk2_train(groups=2) {tag}: pooled values and "
+                        "statistics vs two groups=1 calls", whole,
+                        [torch.cat([p[0] for p in parts])] +
+                        [torch.stack([p[i] for p in parts])
+                         for i in range(1, 5)])
+        torch.cuda.synchronize()
+
+
+def augment_checks(dev, gen, rec):
+    """``augment_fused`` against its plain twin on the same Philox bits
+    (the key derived from the device step count by the kernel, and by
+    ``step_seed`` for the twin); then its distribution on 4096 clouds x
+    256 points, and another step, seed and stream."""
+    from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
+        augment_fused as af,
+    )
+
+    step = torch.tensor(7, dtype=torch.int64, device=dev)
+    modes = {"rotate+jitter": (True, True, False),
+             "rotate+jitter+dropout": (True, True, True),
+             "dropout": (False, False, True)}
+    for n in (TRAIN_N, TRAIN_RAGGED_N):
+        x = torch.randn(B, n, 3, generator=gen).to(dev)
+        for i, (mode, flags) in enumerate(modes.items()):
+            a = (step, x, SEED, i % 2, *flags)
+            rec.cmp("augment_fused", "fwd", f"B={B} N={n} {mode}", ("points",),
+                    (af.augment_fused(*a),), (af.augment_fused_plain(*a),),
+                    n == TRAIN_N and mode == "rotate+jitter", a,
+                    phase_tag="bench-kernels", bound=BOUND)
+    x = torch.randn(4096, 256, 3, generator=gen).to(dev)
+    y = af.augment_fused(step, x, SEED, 0, True, False, False)
+    r2 = x[..., 0] ** 2 + x[..., 2] ** 2
+    c = (x[..., 0] * y[..., 0] + x[..., 2] * y[..., 2]) / r2
+    s_ = (x[..., 0] * y[..., 2] - x[..., 2] * y[..., 0]) / r2
+    angle = torch.remainder(torch.atan2(s_[:, 0], c[:, 0]), 2 * np.pi)
+    spread = (angle.max() - angle.min()).item()
+    same = (angle[:, None] - torch.atan2(s_, c).remainder(2 * np.pi))
+    same = torch.minimum(same.abs(), 2 * np.pi - same.abs()).max().item()
+    stats = {"mean angle": (angle.mean().item(), np.pi, 0.15),
+             "mean cos": (torch.cos(angle).mean().item(), 0.0, 0.06),
+             "mean sin": (torch.sin(angle).mean().item(), 0.0, 0.06)}
+    y = af.augment_fused(step, x, SEED, 0, False, True, False)
+    noise = y - x
+    stats.update({"jitter mean": (noise.mean().item(), 0.0, 3e-5),
+                  "jitter std": (noise.std().item(), 0.01, 1e-4),
+                  "jitter max |.|": (noise.abs().max().item(), 0.05, 1e-5)})
+    y = af.augment_fused(step, x, SEED, 0, False, False, True)
+    frac = (y[:, 1:] == y[:, :1]).all(-1).float().mean(1)
+    stats.update({"dropout mean ratio": (frac.mean().item(), 0.4375, 0.02),
+                  "dropout max ratio": (frac.max().item(), 0.875, 0.1)})
+    base = af.augment_fused(step, x, SEED, 0, True, True, False)
+    moved = min((other != base).float().mean().item() for other in (
+        af.augment_fused(step + 1, x, SEED, 0, True, True, False),
+        af.augment_fused(step, x, SEED + 1, 0, True, True, False),
+        af.augment_fused(step, x, SEED, 1, True, True, False)))
+    phase("bench-kernels", f"augment_fused on 4096 clouds x 256 points: "
+          + ", ".join(f"{k} {v:.5g} (want {w:g} +- {t:g})"
+                      for k, (v, w, t) in stats.items())
+          + f"; angles span {spread:.4f} of 2 pi, each cloud's points turned"
+          f" by one angle within {same:.2e}; another step, seed or stream "
+          f"changed at least {moved:.4f} of the coordinates")
+    bad = [k for k, (v, w, t) in stats.items()
+           if (v > w + t if k.endswith("max ratio") or "|" in k
+               else abs(v - w) > t)]
+    if bad or spread < 6.0 or same > 1e-3 or moved < 0.6:
+        raise AssertionError(f"augment_fused distribution off: {bad}")
+    torch.cuda.synchronize()
+
+
+def scan_check(cfg, g_model, d_model, batch_k, dev):
+    """``train_steps_scan`` at K against K ``train_step`` calls from the
+    same state on the same batches: every metric bit-equal."""
+    from adversarial_learning_on_pointclouds_tpu_torch.train import (
+        adversarial,
+    )
+
+    txs = adversarial.make_txs(cfg, 100)
+    states = [adversarial.create_state(cfg, 100, device=dev,
+                                       g_model=copy.deepcopy(g_model),
+                                       d_model=copy.deepcopy(d_model))
+              for _ in range(2)]
+    scan = adversarial.train_steps_scan(states[0], *batch_k, cfg=cfg,
+                                        g_tx=txs[0], d_tx=txs[1])
+    loop = [adversarial.train_step(states[1], *(t[k] for t in batch_k),
+                                   cfg=cfg, g_tx=txs[0], d_tx=txs[1])
+            for k in range(BENCH_K)]
+    check_equal(f"train_steps_scan K={BENCH_K} vs {BENCH_K} train_step "
+                "calls: metrics", [scan[k] for k in sorted(scan)],
+                [torch.stack([m[k] for m in loop]) for k in sorted(scan)],
+                "bench-slice")
+    if not all(s.step == BENCH_K and int(s.device_step) == BENCH_K
+               for s in states):
+        raise AssertionError("step counts")
+    ce = scan["loss_ce"].tolist()
+    phase("bench-slice", f"train_steps_scan: loss_ce over the {BENCH_K} "
+          f"batches {', '.join(f'{v:.5f}' for v in ce)}")
+    if not np.isfinite(ce).all():
+        raise AssertionError("non-finite metrics")
+    return states[0], txs
+
+
+def bench_slice(dev, card, gen):
+    """Phase 13."""
+    from adversarial_learning_on_pointclouds_tpu_torch.configs import (
+        AdversarialConfig,
+    )
+
+    cfg = AdversarialConfig(augment=True, bf16=True, pallas_augment=True)
+    setup = adv_setup(cfg, gen, dev)
+    want = {**ADV_PER_STEP, "augment_fused": {"fwd": AUG_PER_STEP}}
+    yard = step_runs(dataclasses.replace(cfg, bf16=False), *setup,
+                     "bench-slice yardstick (fp32)", dev, ("cpu",))[0]["cpu"]
+    out = {}
+    for paired in (False, True):
+        c = dataclasses.replace(cfg, paired_trunks=paired)
+        tag = "bench-slice" + (" paired_trunks" if paired else "")
+        runs, launches = step_runs(c, *setup, tag, dev)
+        check_launches(tag, launches,
+                       {**want, "trunk2_train": GROUPS2_PER_STEP} if paired
+                       else want)
+        compare_step(tag, runs, c, STEP_BOUND, GRAD_BOUND, yard)
+        out[paired] = (c, runs["cuda"], launches)
+    # The paired trunks change no value of the forward: the two card
+    # steps' metrics are bit-equal (tests/test_round4.py:489 in the JAX
+    # package), and their gradients differ by summation order only.
+    (_, base, _), (_, pt, _) = out[False], out[True]
+    check_equal("bench step with paired_trunks vs without: metrics",
+                [pt[1][k] for k in sorted(pt[1])],
+                [base[1][k] for k in sorted(base[1])], "bench-slice")
+    gb = dict(base[0].g_model.named_parameters())
+    scale = max(float(p.grad.abs().max()) for p in gb.values())
+    worst = max(float((p.grad - gb[k].grad).abs().max())
+                for k, p in pt[0].g_model.named_parameters())
+    yp = dict(yard[0].g_model.named_parameters())
+    gbound = max(GRAD_BOUND, YARD_FACTOR * max(
+        float((yp[k].grad - p.grad.cpu()).abs().max())
+        for k, p in gb.items()) / (1 + scale))
+    phase("bench-slice", f"paired_trunks vs not, G gradients on the card: "
+          f"{worst / (1 + scale):.3e} of (1 + max|g|) (bound {gbound:.3g})")
+    if worst > gbound * (1 + scale):
+        raise AssertionError("paired_trunks gradients differ")
+
+    g_model, d_model, pts, labels = setup
+    rng = np.random.default_rng(SEED + 2)
+    bsz, n = cfg.batch_size, cfg.num_points
+    x_k = [torch.from_numpy(rng.normal(size=(BENCH_K, bsz, n, 3)).astype(
+        np.float32)).to(dev) for _ in range(2)]
+    y_k = torch.from_numpy(rng.integers(0, cfg.num_parts, (
+        BENCH_K, bsz, n))).to(dev)
+    batch_k = (x_k[0], y_k, x_k[1])
+    scan_state, txs = scan_check(cfg, g_model, d_model, batch_k, dev)
+    return out, setup, batch_k, scan_state, txs
+
+
+def bf16_bound(flops, nbytes):
+    """``bound`` with the FLOPs at the bf16 tensor-core peak."""
+    t_ops, t_bytes = flops / BF16_PEAK, nbytes / HBM_RATE
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def time_passes(card, rec, key, fn, plain, times, bf16):
+    """One pass's kernel and plain times and its bound, per step."""
+    calls = rec.args[key]
+    with torch.no_grad():
+        ms, plain_ms = time_pair(lambda: [fn(*a) for a in calls],
+                                 lambda: [plain(*a) for a in calls])
+        dev_ms = sum(device_profile(lambda: [fn(*a) for a in calls]).values())
+        plain_dev_ms = sum(device_profile(
+            lambda: [plain(*a) for a in calls]).values())
+    bound_ms, bound_by = (bf16_bound if bf16 else bound)(*work(plain, calls))
+    row = dict(zip(("ms", "plain_ms", "device_ms", "plain_device_ms",
+                    "bound_ms"), (t * times / len(calls) for t in (
+                        ms, plain_ms, dev_ms, plain_dev_ms, bound_ms))))
+    row.update(bound_by=bound_by, max_abs_err=rec.err[key])
+    if key in rec.share:
+        row["stash_diff_share"] = rec.share[key]
+    phase("bench-timing", f"{card}: {key[0]} {key[1]} "
+          f"{'bf16 ' if bf16 else ''}x{times} per step: kernel "
+          f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms; device time "
+          f"alone: kernel {row['device_ms']:.4f} ms, plain "
+          f"{row['plain_device_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms "
+          f"({bound_by})")
+    return row
+
+
+def time_scan(card, tag, cfg, state, batch_k, txs):
+    """The step through ``train_steps_scan`` at K: per-step ms (CUDA
+    events around the call), points/s of both streams, idle share."""
+    from adversarial_learning_on_pointclouds_tpu_torch.train import (
+        adversarial,
+    )
+
+    def call():
+        adversarial.train_steps_scan(state, *batch_k, cfg=cfg, g_tx=txs[0],
+                                     d_tx=txs[1])
+
+    call()
+    per = statistics.median(event_ms(call, 3)) / BENCH_K
+    busy = sum(device_profile(call, reps=1).values()) / BENCH_K
+    pts = 2 * cfg.batch_size * cfg.num_points
+    phase("bench-timing", f"{card}: {tag}: train_steps_scan K={BENCH_K}, "
+          f"2 x B={cfg.batch_size} N={cfg.num_points}: {per:.3f} ms per step"
+          f", {pts / per * 1e3:.1f} points/s (both streams), GPU kernels "
+          f"busy {busy:.3f} ms per step ({100 * (1 - busy / per):.1f}% idle)")
+    return {"step_ms": per, "busy_ms": busy}
+
+
+def bench_timing(card, rec, results, bench):
+    """Phase 14."""
+    from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
+        augment_fused as af, trunk_train as tt,
+    )
+    from adversarial_learning_on_pointclouds_tpu_torch.train import (
+        adversarial,
+    )
+
+    out, setup, batch_k, scan_state, txs = bench
+    counters = adv_counters()
+    by_name = {r["name"]: r for r in results}
+    for (kernel, pas) in list(rec.args):
+        if kernel not in by_name:
+            continue
+        fn = counters[kernel][pas]
+        plain = getattr(sys.modules[fn.__module__], fn.__name__ + "_plain")
+        per = (ADV_PER_STEP if kernel == "disc_fused" else PER_STEP)[
+            kernel][pas] or 1
+        row = time_passes(card, rec, (kernel, pas), fn, plain, per, True)
+        entry = by_name[kernel]
+        match = [p for p in entry["passes"] if p["pass"] == pas][0]
+        match.update({f"bf16_{k}": v for k, v in row.items()})
+    for entry in by_name.values():
+        if "passes" in entry and "bf16_ms" in entry["passes"][0]:
+            step = [p for p in entry["passes"] if p["pass"] != "bwd"]
+            for k in ("ms", "plain_ms", "bound_ms", "device_ms",
+                      "plain_device_ms"):
+                entry[f"bf16_{k}"] = sum(p[f"bf16_{k}"] for p in step)
+            entry["bf16_bound_by"] = max(step, key=lambda p: p[
+                "bf16_bound_ms"])["bf16_bound_by"]
+
+    cfg, _, launches = out[False]
+    cfg_pt, _, launches_pt = out[True]
+    row = time_passes(card, rec, ("augment_fused", "fwd"), af.augment_fused,
+                      af.augment_fused_plain, AUG_PER_STEP, False)
+    results.append({"name": "augment_fused", "route": "cuda",
+                    "source": f"{KERNELS_ROOT}/csrc/augment_fused.cu",
+                    "replaces": f"{TPU_KERNELS}/{AUG_SITE}",
+                    "launches": launches["augment_fused"]["fwd"],
+                    "library_ms": None, "times": "per bench G+D step",
+                    **row})
+    passes = []
+    for pas, fn in tt.PASSES.items():
+        row = time_passes(card, rec, ("trunk2_train(groups=2)", pas), fn,
+                          getattr(tt, fn.__name__ + "_plain"),
+                          GROUPS2_PER_STEP[pas], True)
+        passes.append({"pass": pas, "replaces": f"{TPU_KERNELS}/"
+                       f"{TRAIN_KERNELS['trunk2_train'][1][pas]}",
+                       "launches": launches_pt["trunk2_train"][pas], **row})
+    results.append(kernel_entry(
+        "trunk2_train(groups=2)", "trunk_train.cu",
+        TRAIN_KERNELS["trunk2_train"][1]["F1"],
+        sum(launches_pt["trunk2_train"].values()), passes,
+        "per bench G+D step with paired trunks, bf16"))
+
+    # The step: one call per step, then K per call.
+    state, _, _, batch, step_txs = out[False][1]
+
+    def step():
+        adversarial.train_step(state, *batch, cfg=cfg, g_tx=step_txs[0],
+                               d_tx=step_txs[1])
+
+    for _ in range(3):
+        step()
+    one = statistics.median(event_ms(step, 12))
+    pts = 2 * cfg.batch_size * cfg.num_points
+    phase("bench-timing", f"{card}: bench step (bf16, augment_fused, paired "
+          f"heads), one train_step per call, synchronized after each (as "
+          f"phase 11): median {one:.3f} ms over 12 steps, "
+          f"{pts / one * 1e3:.1f} points/s (both streams)")
+    scan = time_scan(card, "bench step", cfg, scan_state, batch_k,
+                     txs)["step_ms"]
+    phase("bench-timing", f"{card}: K={BENCH_K} steps per call against one "
+          f"synchronized step: {scan:.3f} ms against {one:.3f} ms per step; "
+          f"{one - scan:.3f} ms of the host's work per step runs under the "
+          "device's when the steps are not synchronized one by one")
+    time_scan(card, "bench step with paired_trunks", cfg_pt,
+              out[True][1][0], batch_k, out[True][1][4])
+    cfg_np = dataclasses.replace(cfg, pallas_augment=False)
+    state_np = adversarial.create_state(
+        cfg_np, 100, device="cuda", g_model=copy.deepcopy(setup[0]),
+        d_model=copy.deepcopy(setup[1]))
+    time_scan(card, "bench step without pallas_augment", cfg_np, state_np,
+              batch_k, adversarial.make_txs(cfg_np, 100))
+    kernels = device_profile(lambda: adversarial.train_steps_scan(
+        scan_state, *batch_k, cfg=cfg, g_tx=txs[0], d_tx=txs[1]), reps=1)
     for key, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:14]:
-        phase("adv-timing", f"  {ms:.4f} ms  {key[:90]}")
+        phase("bench-timing", f"  {ms / BENCH_K:.4f} ms per step  {key[:90]}")
 
 
 def kernel_entry(name, src, site, launches, passes, times):
@@ -1231,7 +1799,54 @@ def kernel_entry(name, src, site, launches, passes, times):
             "times": times, "passes": passes}
 
 
+def time_alone(mode: str, root: str, card: str) -> None:
+    """``--time fp32|bench --root DIR``: the G+D step's timing alone, of
+    the port package under ``DIR`` (a checkout, or a ``git archive`` of
+    the parent commit, say), from ``create_state``'s weights seeded by
+    ``cfg.seed`` on seeded batches: ``fp32`` as phase 11 (synchronized
+    ``train_step`` calls of ``AdversarialConfig()``), ``bench`` as phase
+    14 (``train_steps_scan`` at K=8 of the bench configuration). Prints
+    one JSON line, and no result line. To compare two trees, alternate
+    them within one call (A B B A): the host's share of a step moves
+    between calls."""
+    from adversarial_learning_on_pointclouds_tpu_torch.configs import (
+        AdversarialConfig,
+    )
+    from adversarial_learning_on_pointclouds_tpu_torch.train import (
+        adversarial,
+    )
+
+    if mode == "fp32":
+        cfg, k = AdversarialConfig(), 1
+    else:
+        cfg, k = AdversarialConfig(augment=True, bf16=True,
+                                   pallas_augment=True), BENCH_K
+    txs = adversarial.make_txs(cfg, 100)
+    state = adversarial.create_state(cfg, 100)
+    rng = np.random.default_rng(cfg.seed)
+    b, n = cfg.batch_size, cfg.num_points
+    x_l, x_u = (torch.from_numpy(rng.normal(size=(k, b, n, 3)).astype(
+        np.float32)).cuda() for _ in range(2))
+    y_l = torch.from_numpy(rng.integers(0, cfg.num_parts, (k, b, n))).cuda()
+    if mode == "fp32":
+        out = time_step(card, "time fp32", cfg, state,
+                        (x_l[0], y_l[0], x_u[0]), txs)
+    else:
+        out = time_scan(card, "time bench", cfg, state, (x_l, y_l, x_u), txs)
+    print(json.dumps({"root": root, "mode": mode, "card": card, **out}),
+          flush=True)
+
+
 def main() -> None:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--time", choices=("fp32", "bench"),
+                    help="time the G+D step alone (no checks, no result "
+                         "line)")
+    ap.add_argument("--root", default=os.path.dirname(os.path.abspath(
+        __file__)), help="with --time: the tree whose port package to time")
+    args = ap.parse_args()
     # 1. device
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -1247,7 +1862,7 @@ def main() -> None:
           f"{torch.cuda.get_device_name(0)}, "
           f"{torch.cuda.device_count()} visible")
 
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, os.path.abspath(args.root))
     from adversarial_learning_on_pointclouds_tpu_torch.models import core
     from adversarial_learning_on_pointclouds_tpu_torch.ops import build
     core.exact_fp32()
@@ -1257,7 +1872,13 @@ def main() -> None:
     built = not build.library_path().exists()
     build.library()
     phase("build", f"{'compiled' if built else 'loaded'} "
-          f"{build.library_path().name} in {time.perf_counter() - t0:.1f} s")
+          f"{build.library_path().name} in {time.perf_counter() - t0:.1f} s"
+          + "".join(f"; {k} {v:.1f} s" for k, v in sorted(
+              getattr(build, "compile_seconds", {}).items(),
+              key=lambda kv: -kv[1])))
+    if args.time:
+        time_alone(args.time, args.root, card)
+        return
 
     gen = torch.Generator().manual_seed(SEED)
     results = []
@@ -1269,6 +1890,13 @@ def main() -> None:
     disc_kernel_checks(dev, gen, rec)
     cuda_run, launches = adv_slice(dev, card, gen)
     adv_timing(card, rec, cuda_run, launches, results)
+    rec_bf = PassRecord(BF16_BOUND)
+    train_kernel_checks(dev, gen, rec_bf, bf16=True)
+    disc_kernel_checks(dev, gen, rec_bf, bf16=True)
+    groups2_checks(dev, gen, rec_bf)
+    augment_checks(dev, gen, rec_bf)
+    bench = bench_slice(dev, card, gen)
+    bench_timing(card, rec_bf, results, bench)
 
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {

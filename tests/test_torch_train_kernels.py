@@ -259,9 +259,13 @@ def test_cpu_training_passes_skip_the_library(monkeypatch):
 
 
 def test_paired_trunks_are_not_ported_yet():
+    """``groups > 1`` (the paired trunks) is ported now
+    (``tests/test_torch_paired_trunks.py``); what the trunk still refuses
+    is a grouping that does not split the batch into equal streams."""
     args = [torch.from_numpy(a) for a in _trunk_args(8)]
-    with pytest.raises(NotImplementedError, match="groups > 1"):
-        trunk_train.trunk2_train(*args, groups=2)
+    for groups in (0, 3):
+        with pytest.raises(ValueError, match="does not split"):
+            trunk_train.trunk2_train(*args, groups=groups)
 
 
 def test_argument_structs_mirror_the_cuda_header():
