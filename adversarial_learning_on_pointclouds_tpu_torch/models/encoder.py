@@ -15,7 +15,11 @@ encoder.py::apply_encoder_parts`` under ``use_pallas``. On ``x [B, N,
 In eval mode step 2 is ``fused_linear_affine_act`` and step 4 one
 ``fused_stack_maxpool``, with folded BNs. In train mode (``.train()``)
 the BNs use batch statistics and update their running statistics in
-place: step 2 is plain PyTorch, step 4 ``trunk2_train``.
+place: step 2 is plain PyTorch, step 4 ``trunk2_train``. Under
+``ops.use_pallas_train`` step 2 runs ``pointwise_matmul`` and the
+transforms ``tnet_apply``; at a point count ``ops.layer_by_layer`` names,
+step 4 is conv2 + BN + ReLU and conv3 + BN (no activation) through
+``pointwise_matmul``, then ``maxpool_points``, as the JAX package's.
 """
 
 from __future__ import annotations
@@ -64,7 +68,7 @@ class PointNetfeat(nn.Module):
             trans_feat = self.fstn(x)
             x = ops.batched_transform(x, trans_feat)
         if self.training:
-            return x, train_trunk(self, x), trans, trans_feat
+            return x, self._train_trunk(x), trans, trans_feat
         w2, s2, c2 = ops.folded_affine(self.conv2, self.bn2)
         w3, s3, c3 = ops.folded_affine(self.conv3, self.bn3)
         g = encoder_fused.fused_stack_maxpool(x, (w2, w3), (s2, s3), (c2, c3),
@@ -90,10 +94,18 @@ class PointNetfeat(nn.Module):
             tf_a, tf_b = self.fstn.forward_pair(x_a, x_b, paired_trunks)
             x_a = ops.batched_transform(x_a, tf_a)
             x_b = ops.batched_transform(x_b, tf_b)
-        if paired_trunks:
+        if paired_trunks and not ops.layer_by_layer(x_a.shape[1]):
             g = train_trunk(self, x_a, x_b)
             b = x_a.shape[0]
             return x_a, g[:b], x_b, g[b:], tf_a, tf_b
-        g_a = train_trunk(self, x_a)
-        g_b = train_trunk(self, x_b)
+        g_a = self._train_trunk(x_a)
+        g_b = self._train_trunk(x_b)
         return x_a, g_a, x_b, g_b, tf_a, tf_b
+
+    def _train_trunk(self, x: torch.Tensor) -> torch.Tensor:
+        """conv2 -> conv3 -> max over points of one stream in train mode."""
+        if ops.layer_by_layer(x.shape[1]):
+            h = ops.linear_bn_act(self.conv2, self.bn2, x, "relu")
+            return ops.max_points(ops.linear_bn_act(self.conv3, self.bn3, h,
+                                                    None))
+        return train_trunk(self, x)

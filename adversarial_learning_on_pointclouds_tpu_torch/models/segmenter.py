@@ -7,7 +7,11 @@ per-point and global features go straight into the head (1088->512->256
 ->128->k, BN + ReLU each, then a per-point ``log_softmax``), so the ``[B,
 N, 1088]`` concat never exists. Eval runs ``seg_head_fused`` with folded
 BNs; train (``.train()``) runs ``seg_head_train`` with batch statistics
-and updates the running statistics in place. ``forward_pair`` is the
+and updates the running statistics in place; under
+``ops.use_pallas_train``, at a point count ``ops.layer_by_layer`` names,
+the head runs layer by layer as the JAX package's does there (conv1 split
+into its point and global halves in plain PyTorch, conv2-conv4 through
+``pointwise_matmul``, then ``log_softmax``). ``forward_pair`` is the
 adversarial trainer's two-stream training forward.
 """
 
@@ -75,6 +79,15 @@ class PointNetDenseCls(nn.Module):
         return logp_a, self._train_head(pf_b, g_b), tf_a, tf_b
 
     def _train_head(self, pf: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+        if ops.layer_by_layer(pf.shape[1]):
+            c = pf.shape[-1]
+            w1 = core.weight_in_out(self.conv1)
+            z = (core.matmul(pf, w1[:c]) + core.matmul(g, w1[c:])[:, None]
+                 + self.conv1.bias)
+            h = torch.relu(core.batch_norm_train(self.bn1, z))
+            h = ops.linear_bn_act(self.conv2, self.bn2, h, "relu")
+            h = ops.linear_bn_act(self.conv3, self.bn3, h, "relu")
+            return torch.log_softmax(ops.linear_act(self.conv4, h), dim=-1)
         params = []
         for i in (1, 2, 3):
             conv, bn = getattr(self, f"conv{i}"), getattr(self, f"bn{i}")

@@ -18,6 +18,13 @@ fc BNs).
   streams) runs the trunks per stream, or both in one
   ``trunk2_train(groups=2)`` with ``paired_trunks``, and the fc head once
   for both.
+* Train under ``ops.use_pallas_train`` (the JAX package's
+  ``use_pallas(training=True)``): conv1 runs ``pointwise_matmul``; at a
+  point count the JAX package's fused kernels cannot tile
+  (``ops.layer_by_layer``) the whole trunk runs layer by layer and ends in
+  ``maxpool_points``; the single-stream fc head is one
+  ``fc_head_train``, and ``forward_pair``'s paired head takes fc1 + BN in
+  plain PyTorch (``batch_norm_train_grouped``), as the JAX package's.
 """
 
 from __future__ import annotations
@@ -30,7 +37,7 @@ from torch import nn
 from adversarial_learning_on_pointclouds_tpu_torch.models import core
 from adversarial_learning_on_pointclouds_tpu_torch.ops import dispatch as ops
 from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
-    encoder_fused, pool_fc_epilogue, trunk_train,
+    encoder_fused, fc_head_train, pool_fc_epilogue, trunk_train,
 )
 
 
@@ -56,7 +63,7 @@ class STNkd(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            h = self._train_head(self._train_trunk(x))
+            out = self._train_head(self._train_trunk(x))
         else:
             ws, shifts, scales = zip(*(
                 ops.folded_affine(getattr(self, f"conv{i}"),
@@ -66,7 +73,7 @@ class STNkd(nn.Module):
                                                   ("relu", "relu", "relu"))
             h = ops.linear_bn_act(self.fc1, self.bn4, h, "relu")
             h = ops.linear_bn_act(self.fc2, self.bn5, h, "relu")
-        out = core.dense(self.fc3, h)
+            out = core.dense(self.fc3, h)
         iden = torch.eye(self.k, dtype=out.dtype, device=out.device)
         return (out + iden.reshape(-1)).reshape(-1, self.k, self.k)
 
@@ -82,20 +89,28 @@ class STNkd(nn.Module):
         with per-stream batch statistics (fc1 + BN through
         ``relu_fc_bn_relu(groups=2)``, fc2 + BN through
         ``batch_norm_train_grouped``), the exact statistics of two
-        sequential heads."""
+        sequential heads. Under ``ops.use_pallas_train`` the fc1 + BN of the
+        head is plain PyTorch (``batch_norm_train_grouped``), and at a point
+        count ``ops.layer_by_layer`` names the trunks run per stream, layer
+        by layer, with ``paired_trunks`` too, as the JAX package's."""
         b = x_a.shape[0]
-        if paired_trunks:
+        if paired_trunks and not ops.layer_by_layer(x_a.shape[1]):
             h1_a = ops.linear_bn_act(self.conv1, self.bn1, x_a, "relu")
             h1_b = ops.linear_bn_act(self.conv1, self.bn1, x_b, "relu")
             h = torch.relu(train_trunk(self, h1_a, h1_b))
         else:
             h_a = self._train_trunk(x_a)
             h = torch.cat([h_a, self._train_trunk(x_b)])
-        h1, mu1, var1 = pool_fc_epilogue.relu_fc_bn_relu(
-            h, core.weight_in_out(self.fc1), self.fc1.bias, self.bn4.weight,
-            self.bn4.bias, self.bn4.running_mean, groups=2)
-        for i in range(2):
-            core.update_running(self.bn4, mu1[i], var1[i], b)
+        if ops.pallas_train_enabled():
+            h1 = torch.relu(core.batch_norm_train_grouped(
+                self.bn4, core.dense(self.fc1, h), 2))
+        else:
+            h1, mu1, var1 = pool_fc_epilogue.relu_fc_bn_relu(
+                h, core.weight_in_out(self.fc1), self.fc1.bias,
+                self.bn4.weight, self.bn4.bias, self.bn4.running_mean,
+                groups=2)
+            for i in range(2):
+                core.update_running(self.bn4, mu1[i], var1[i], b)
         h2 = torch.relu(core.batch_norm_train_grouped(
             self.bn5, core.dense(self.fc2, h1), 2))
         out = core.dense(self.fc3, h2)
@@ -104,15 +119,35 @@ class STNkd(nn.Module):
         return t[:b], t[b:]
 
     def _train_trunk(self, x: torch.Tensor) -> torch.Tensor:
+        """The pooled ``[B, 1024]`` (after the ReLU) of one stream."""
+        if ops.layer_by_layer(x.shape[1]):
+            h = x
+            for i in (1, 2, 3):
+                h = ops.linear_bn_act(getattr(self, f"conv{i}"),
+                                      getattr(self, f"bn{i}"), h, "relu")
+            return ops.max_points(h)
         h1 = ops.linear_bn_act(self.conv1, self.bn1, x, "relu")
         return torch.relu(train_trunk(self, h1))
 
     def _train_head(self, h: torch.Tensor) -> torch.Tensor:
+        """fc1 -> fc3 of one stream in train mode (before the identity)."""
+        m = h.shape[0]
+        if ops.pallas_train_enabled():
+            out, mu1, var1, mu2, var2 = fc_head_train.fc_head_train(
+                h, core.weight_in_out(self.fc1), self.fc1.bias,
+                self.bn4.weight, self.bn4.bias, core.weight_in_out(self.fc2),
+                self.fc2.bias, self.bn5.weight, self.bn5.bias,
+                core.weight_in_out(self.fc3), self.fc3.bias,
+                self.bn4.running_mean, self.bn5.running_mean)
+            core.update_running(self.bn4, mu1, var1, m)
+            core.update_running(self.bn5, mu2, var2, m)
+            return out
         h1, mu1, var1 = pool_fc_epilogue.relu_fc_bn_relu(
             h, core.weight_in_out(self.fc1), self.fc1.bias, self.bn4.weight,
             self.bn4.bias, self.bn4.running_mean)
-        core.update_running(self.bn4, mu1, var1, h.shape[0])
-        return ops.linear_bn_act(self.fc2, self.bn5, h1, "relu")
+        core.update_running(self.bn4, mu1, var1, m)
+        return core.dense(self.fc3,
+                          ops.linear_bn_act(self.fc2, self.bn5, h1, "relu"))
 
 
 def train_trunk(module: nn.Module, *xs: torch.Tensor) -> torch.Tensor:

@@ -41,11 +41,13 @@ SIGNATURES = {
     "pt_seg_head": [_P] * 15 + [_I] * 9 + [_P],
     "pt_augment_fused": [_P] * 3 + [_U] * 2 + [_I] * 3 + [_F] * 3 + [_I, _P],
 }
-# The training passes take one argument struct (ops/launch.py mirrors it).
+# The training passes and the per-layer kernels take one argument struct (ops/launch.py mirrors it).
 for _name in ("pt_pool_fc_fwd", "pt_trunk_f1", "pt_trunk_f2", "pt_trunk_b1",
               "pt_head_p1", "pt_head_pmid", "pt_head_p4", "pt_head_b4",
               "pt_head_bmid", "pt_head_b1", "pt_disc_fwd", "pt_disc_bwd_dx",
-              "pt_disc_bwd_dw"):
+              "pt_disc_bwd_dw", "pt_pm_fwd", "pt_pm_dx", "pt_pm_dwdb",
+              "pt_tnet_fwd", "pt_tnet_dx", "pt_tnet_dt", "pt_maxpool_fwd",
+              "pt_maxpool_bwd", "pt_fc_head_fwd", "pt_fc_head_bwd"):
     SIGNATURES[_name] = [_P, _I, _P]
 
 

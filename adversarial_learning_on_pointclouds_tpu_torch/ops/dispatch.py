@@ -5,21 +5,79 @@ The JAX package chooses between its jnp ops and its
 Pallas kernels with the ``use_pallas`` context; here the choice is the
 device of the tensor alone (``ops/launch.on_cpu``): every call below that
 reaches a kernel wrapper runs the kernel on a CUDA tensor and the
-kernel's plain version on a CPU tensor. The train-mode blocks here
-(``linear_bn_act`` with a BN in train mode, ``max_points``,
-``batched_transform``) are plain PyTorch under autograd, as the JAX
-package runs them outside Pallas.
+kernel's plain version on a CPU tensor.
+
+The train-mode blocks (``linear_bn_act`` with a BN in train mode,
+``linear_act``, ``max_points``, ``batched_transform``) are plain PyTorch
+under autograd, as the JAX package runs them outside Pallas, unless the
+per-layer training kernels are switched on: ``use_pallas_train()`` is
+the counterpart of the JAX package's ``use_pallas(training=True)``
+(``bench.py --pallas_train``). Under it every 3-D training matmul runs
+``pointwise_matmul``, every max over points ``maxpool_points`` and every
+``x @ T`` ``tnet_apply``; the models also send the single-stream T-Net
+fc head to ``fc_head_train`` and, at a point count the fused training
+kernels of the JAX package cannot tile (``train_tiling_ok``), run the
+trunks and the seg head layer by layer (``layer_by_layer``). Off the
+switch the port runs its fused kernels at every point count.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
 from adversarial_learning_on_pointclouds_tpu_torch.models import core
-from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import shared_mlp
+from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
+    maxpool_points, shared_mlp, tnet_apply,
+)
+
+_state = threading.local()
+
+
+def pallas_train_enabled() -> bool:
+    """Whether the per-layer training kernels are on (off by default)."""
+    return getattr(_state, "pallas_train", False)
+
+
+@contextlib.contextmanager
+def use_pallas_train(enabled: bool = True):
+    """Within the context, training runs the per-layer kernels, as the JAX
+    package's ``use_pallas(training=True)``. Read when a forward runs, per
+    thread; the autograd functions keep what their forward chose."""
+    prev = pallas_train_enabled()
+    _state.pallas_train = enabled
+    try:
+        yield
+    finally:
+        _state.pallas_train = prev
+
+
+def _tile_n(n: int, cap: int = 512) -> int:
+    """The JAX kernels' point tile: the largest of cap, 256, ..., 8
+    dividing ``n``, else ``n`` (``shared_mlp.py:62-66`` there)."""
+    for t in (cap, 256, 128, 64, 32, 16, 8):
+        if t <= cap and n % t == 0:
+            return t
+    return n
+
+
+def train_tiling_ok(n: int, cap: int = 512) -> bool:
+    """Whether the JAX package's fused training kernels tile ``n`` points
+    (``dispatch.py:40-60`` there); where they do not (N = 2500, say) it
+    trains layer by layer."""
+    return n <= cap or _tile_n(n, cap=cap) != n
+
+
+def layer_by_layer(n: int) -> bool:
+    """Under ``use_pallas_train``, at a point count the JAX package's fused
+    training kernels cannot tile: the trunks and the seg head then run
+    layer by layer, through ``pointwise_matmul`` and ``maxpool_points``,
+    as the JAX package runs them there."""
+    return pallas_train_enabled() and not train_tiling_ok(n)
 
 
 def folded_affine(layer: nn.Module, bn: nn.BatchNorm1d
@@ -31,17 +89,26 @@ def folded_affine(layer: nn.Module, bn: nn.BatchNorm1d
     return core.weight_in_out(layer), layer.bias * scale + shift, scale
 
 
+def _matmul(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``x @ w + b`` of a training layer: ``pointwise_matmul`` on a 3-D
+    ``x`` under the switch, else ``core.dense``."""
+    if pallas_train_enabled() and x.dim() == 3:
+        return shared_mlp.pointwise_matmul(x, core.weight_in_out(layer),
+                                           layer.bias)
+    return core.dense(layer, x)
+
+
 def linear_bn_act(layer: nn.Module, bn: nn.BatchNorm1d, x: torch.Tensor,
                   act: Optional[str] = "relu") -> torch.Tensor:
     """``act(bn(x @ w + b))``, by ``bn``'s mode.
 
-    Train: plain ``torch.matmul`` and ``core.batch_norm_train`` (batch
-    moments, running statistics updated in place), differentiable.
+    Train: ``_matmul`` and ``core.batch_norm_train`` (batch moments,
+    running statistics updated in place), differentiable.
     Eval: BN folded; per-point ``[B, N, C]`` input runs the fused kernel
     (``fused_linear_affine_act``), ``[B, C]`` rows (the T-Net fc heads)
     stay plain ``torch.matmul``, as the JAX package leaves them to XLA."""
     if bn.training:
-        return core.activation(core.batch_norm_train(bn, core.dense(layer, x)),
+        return core.activation(core.batch_norm_train(bn, _matmul(layer, x)),
                                act)
     w, shift, scale = folded_affine(layer, bn)
     if x.dim() == 3:
@@ -49,12 +116,26 @@ def linear_bn_act(layer: nn.Module, bn: nn.BatchNorm1d, x: torch.Tensor,
     return core.activation(torch.matmul(x, w) * scale + shift, act)
 
 
+def linear_act(layer: nn.Module, x: torch.Tensor,
+               act: Optional[str] = None) -> torch.Tensor:
+    """``act(x @ w + b)``, no BN (the seg head's last layer), through
+    ``_matmul``."""
+    return core.activation(_matmul(layer, x), act)
+
+
 def max_points(x: torch.Tensor) -> torch.Tensor:
-    """Symmetric max over the point axis: ``[B, N, C] -> [B, C]``."""
+    """Symmetric max over the point axis: ``[B, N, C] -> [B, C]``;
+    ``maxpool_points`` under the switch (the gradient to the first point
+    attaining each max)."""
+    if pallas_train_enabled() and x.dim() == 3:
+        return maxpool_points.maxpool_points(x)
     return x.amax(dim=1)
 
 
 def batched_transform(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    """Per-cloud ``x @ T`` (the reference's ``torch.bmm(points, trans)``;
-    ``core.matmul``: bf16 operands under the mixed-precision scope)."""
+    """Per-cloud ``x @ T`` (the reference's ``torch.bmm(points, trans)``):
+    ``tnet_apply`` under the switch (fp32), else ``core.matmul`` (bf16
+    operands under the mixed-precision scope)."""
+    if pallas_train_enabled() and x.dim() == 3:
+        return tnet_apply.tnet_apply(x, t)
     return core.matmul(x, t)

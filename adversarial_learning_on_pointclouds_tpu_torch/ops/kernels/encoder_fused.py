@@ -16,7 +16,7 @@ from typing import Optional, Sequence
 import torch
 
 from adversarial_learning_on_pointclouds_tpu_torch.models import core
-from adversarial_learning_on_pointclouds_tpu_torch.ops import dispatch, launch
+from adversarial_learning_on_pointclouds_tpu_torch.ops import launch
 
 
 # ---------------------------------------------------------------------------
@@ -31,7 +31,7 @@ def fused_stack_maxpool_plain(x: torch.Tensor,
     h = x
     for w, sh, sc, act in zip(weights, shifts, scales, acts):
         h = core.activation(torch.matmul(h, w) * sc + sh, act)
-    return dispatch.max_points(h)
+    return h.amax(dim=1)
 
 
 def fused_stack_maxpool(x: torch.Tensor,

@@ -121,6 +121,23 @@ DiscArgs = _struct(
     "DiscArgs", ("m", "k", "per", "splits", "prec"),
     ("x", "g", "w1", "w2", "w3", "w4", "w5", "b1", "b2", "b3", "b4", "b5",
      "logits", "dx", "part", "grad"))
+# Mirrors of the argument structs of the per-layer training kernels
+# (csrc/pointwise_matmul.cu, tnet_apply.cu, maxpool_points.cu,
+# fc_head_train.cu).
+PmArgs = _struct(
+    "PmArgs", ("rows", "c_in", "c_out", "splits", "prec"),
+    ("x", "w", "bias", "g", "y", "dx", "dw", "db", "part"))
+TnetArgs = _struct(
+    "TnetArgs", ("batch", "n", "k", "splits"),
+    ("x", "t", "g", "y", "dx", "dt", "part"))
+MaxpoolArgs = _struct(
+    "MaxpoolArgs", ("batch", "n", "c"), ("x", "g", "win", "y", "idx", "dx"))
+FcHeadArgs = _struct(
+    "FcHeadArgs", ("batch", "c0", "c1", "c2", "c3", "prec"),
+    ("h", "w1", "b1", "g1", "be1", "rm1", "w2", "b2", "g2", "be2", "rm2",
+     "w3", "b3", "out", "z1", "z2", "mu1", "var1", "inv1", "mu2", "var2",
+     "inv2", "h1", "h2", "dh2", "dh", "dw1", "db1", "dg1", "dbe1", "dw2",
+     "db2", "dg2", "dbe2", "dz1", "dz2"))
 DZ_BN, DZ_TRUNK, DZ_SOFTMAX = 0, 1, 2   # BwdArgs.mode
 TILE = 64          # rows per block of the row kernels (kTile in csrc)
 # The ``prec`` bits of the argument structs (kRound... in common.cuh):
@@ -177,6 +194,15 @@ def weight_grad_splits(bsz: int, n: int, c_out: int, c_in: int,
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     chunks = -(-c_out // 64) * -(-c_in // 128)
     return max(1, min(tiles, max(-(-tiles // 32), -(-2 * sms // chunks))))
+
+
+def row_splits(rows: int, tiles: int, device: torch.device) -> int:
+    """Row ranges of a sum over ``rows`` rows into ``tiles`` output tiles
+    (a dW, a dT): enough ranges for two blocks per SM, each of at least
+    256 rows. The ranges' partial sums are added in fp64 in a fixed
+    order, so the count changes no result beyond rounding."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(-(-rows // 256), -(-2 * sms // max(tiles, 1))))
 
 
 def weight_ptr(w: torch.Tensor) -> ctypes.c_void_p:

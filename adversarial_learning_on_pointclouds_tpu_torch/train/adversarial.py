@@ -23,6 +23,10 @@ discriminator kernels run; on the CPU their plain versions.
 device step count, ``cfg.paired_trunks`` batches the generator's
 trunks across the two streams, and ``train_steps_scan`` takes K steps on
 K batches in one call, as ``bench.py`` runs the JAX package's step.
+Under ``ops.dispatch.use_pallas_train`` (``bench.py --pallas_train``) the
+generator takes the per-layer training kernels; at a point count the JAX
+package's fused kernels cannot tile, that raises (its layer-by-layer
+discriminator is still to port).
 
     cfg = AdversarialConfig(); g_tx, d_tx = make_txs(cfg, steps_per_epoch)
     state = create_state(cfg, steps_per_epoch)        # on the card
@@ -46,6 +50,7 @@ from adversarial_learning_on_pointclouds_tpu_torch.data import augment
 from adversarial_learning_on_pointclouds_tpu_torch.models import (
     FCDiscriminator, PointNetDenseCls, core,
 )
+from adversarial_learning_on_pointclouds_tpu_torch.ops import dispatch as ops
 from adversarial_learning_on_pointclouds_tpu_torch.train import (
     state as state_lib,
 )
@@ -170,6 +175,12 @@ def train_step(state: state_lib.GANTrainState, x_l: torch.Tensor,
                                       state.device_step, 0)
     x_u = augment.chain_from_cfg(state.generator, cfg, x_u, None,
                                  state.device_step, 1)
+    if ops.layer_by_layer(x_l.shape[1]):
+        raise NotImplementedError(
+            f"use_pallas_train at N={x_l.shape[1]}, which the JAX package's "
+            "fused training kernels cannot tile: its discriminator then runs "
+            "layer by layer through pointwise_matmul, not ported yet "
+            "(ROADMAP, Queue 2)")
     semi_on = (state.device_step >= cfg.semi_start).float()
 
     with core.mixed_precision(enabled=cfg.bf16):

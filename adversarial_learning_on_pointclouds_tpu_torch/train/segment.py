@@ -7,7 +7,9 @@ orthogonality regularizer of the feature transform, Adam with a StepLR
 schedule per step. The model runs in train mode, so on a CUDA device its
 forward and backward go through the training kernels (``trunk2_train``,
 ``relu_fc_bn_relu``, ``seg_head_train``) and on the CPU through their
-plain versions.
+plain versions. Under ``ops.dispatch.use_pallas_train()`` the step runs
+the per-layer training kernels instead, as the JAX package's
+``use_pallas(training=True)`` (``ops/dispatch.py`` says which where).
 
     cfg = SegmentConfig(); tx = make_tx(cfg, steps_per_epoch)
     state = create_state(cfg, steps_per_epoch, device="cuda")

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's four main paths at full width (``adversarial_learning_
+Drives the port's main paths at full width (``adversarial_learning_
 on_pointclouds_tpu_torch``: serving the part segmenter, its config-3
-training step, the config-4 adversarial G+D step in fp32, and the G+D
-step as the JAX package's ``bench.py`` runs it: bf16 mixed precision,
-``augment_fused``, K = 8 steps per call; 50 parts, feature transform on)
-and holds each hand-written kernel against its plain PyTorch version.
+training step, the config-4 adversarial G+D step in fp32, the G+D step
+as the JAX package's ``bench.py`` runs it: bf16 mixed precision,
+``augment_fused``, K = 8 steps per call; and the config-3 and bench
+steps under ``use_pallas_train``, ``bench.py --pallas_train``; 50 parts,
+feature transform on) and holds each hand-written kernel against its
+plain PyTorch version.
 Phases, one or more lines each:
 
 1. device: CUDA must be available; the card's name and power limit;
@@ -67,7 +69,27 @@ Phases, one or more lines each:
    bound at the tensor cores' bf16 peak), ``augment_fused`` and the
    groups=2 passes, and the bench step through ``train_steps_scan`` (K=8:
    per-step ms, points/s of both streams, idle share), one step per call,
-   with ``paired_trunks`` and without ``pallas_augment``.
+   with ``paired_trunks`` and without ``pallas_augment``;
+15. pallas-train-kernels: the per-layer training kernels that
+   ``dispatch.use_pallas_train`` (the JAX package's
+   ``use_pallas(training=True)``) reaches, each pass against its plain
+   pass at B=32 N=2048, B=32 N=2500 (ragged) and B=2:
+   ``pointwise_matmul`` (forward and dx in fp32 and bf16 at every width of
+   the path, dW/db), ``tnet_apply`` at k=3 and 64, ``maxpool_points`` on
+   duplicated points (bit-equal, one winner per channel, the first),
+   ``fc_head_train`` at k=3 and 64 in fp32 and bf16; then each autograd
+   function against its whole-function reference;
+16. pallas-train-slice: the config-3 ``train_step`` under the switch at
+   B=32 N=2048 (the fused trunks and seg head, the four kernels on conv1,
+   the transforms and the fc heads) and N=2500 (every layer through
+   ``pointwise_matmul``, ``maxpool_points``), and the bench G+D step under
+   it (``bench.py --pallas_train``), card against CPU as phases 7 and 13,
+   launches per step checked;
+17. pallas-train-timing: each new pass over the calls of the N=2500 step
+   (and the bench step's, bf16) against its plain pass and one PyTorch
+   call computing the same product where there is one (``library_ms``),
+   with its bound; the config-3 steps at N=2048 and 2500 and the bench
+   step at K=8, off and under the switch in turns.
 
 The line before the last is a JSON object of the kernels' numbers: per
 kernel its time, its plain version's, and its bound (``bound_ms``: the
@@ -81,10 +103,10 @@ non-zero and no result is printed.
 
     python3 chip_smoke.py
 
-``--time fp32|bench [--root DIR]`` runs only the G+D step's timing of
-phase 11 or 14, on the port package under ``DIR`` (``time_alone``), for
-A/B runs of two trees on one card; it checks nothing and prints no result
-line.
+``--time fp32|bench|pallas_train [--root DIR]`` runs only the G+D step's
+timing of phase 11, 14 or 17 (the bench step under the switch), on the
+port package under ``DIR`` (``time_alone``), for A/B runs of two trees on
+one card; it checks nothing and prints no result line.
 """
 
 import copy
@@ -174,6 +196,51 @@ BF16_BOUND = 1e-3
 AUG_SITE = "augment_fused.py:104"
 AUG_PER_STEP = 2      # one augment_fused per stream
 GROUPS2_PER_STEP = {"F1": 3, "F2": 3, "B1": 3}   # paired trunks: 3 trunks
+# The per-layer training kernels (dispatch.use_pallas_train, the JAX
+# package's use_pallas(training=True)): kernel -> (source, {pass: TPU
+# pallas_call site}).
+PT_KERNELS = {
+    "pointwise_matmul": ("pointwise_matmul.cu", {
+        "fwd": "shared_mlp.py:123", "dx": "shared_mlp.py:123",
+        "dW": "shared_mlp.py:160"}),
+    "tnet_apply": ("tnet_apply.cu", {
+        "fwd": "tnet_apply.py:32", "dx": "tnet_apply.py:32",
+        "dT": "tnet_apply.py:74"}),
+    "maxpool_points": ("maxpool_points.cu", {
+        "fwd": "maxpool_points.py:76", "bwd": "maxpool_points.py:103"}),
+    "fc_head_train": ("fc_head_train.cu", {
+        "fwd": "fc_head_train.py:112", "bwd": "fc_head_train.py:192"}),
+}
+PT_OFF = {k: {p: 0 for p in sites} for k, (_, sites) in PT_KERNELS.items()}
+# Launches per config-3 step under the switch. N=2048: conv1 of STN3d, the
+# encoder and STNkd (STN3d's sees the points: no dx), both transforms
+# (x @ T3's x is the points: no dx), both single-stream fc heads; the
+# fused trunks and seg head as by default, the pool-fc epilogue not at
+# all. N=2500 (untileable for the JAX kernels): every conv of the three
+# trunks and seg head conv2-4 layer by layer, the three max-pools.
+PT_SEG_PER_STEP = {
+    TRAIN_N: {**PER_STEP, **PT_OFF,
+              "pointwise_matmul": {"fwd": 3, "dx": 2, "dW": 3},
+              "tnet_apply": {"fwd": 2, "dx": 1, "dT": 2},
+              "fc_head_train": {"fwd": 2, "bwd": 2},
+              "pool_fc_epilogue": {"fwd": 0}},
+    TRAIN_RAGGED_N: {
+        "trunk2_train": {"F1": 0, "F2": 0, "B1": 0},
+        "seg_head_train": {p: 0 for p in PER_STEP["seg_head_train"]},
+        "pool_fc_epilogue": {"fwd": 0},
+        "pointwise_matmul": {"fwd": 12, "dx": 11, "dW": 12},
+        "tnet_apply": {"fwd": 2, "dx": 1, "dT": 2},
+        "maxpool_points": {"fwd": 3, "bwd": 3},
+        "fc_head_train": {"fwd": 2, "bwd": 2}},
+}
+# The bench step under the switch (bench.py --pallas_train): the conv1
+# layers and transforms per stream; the paired heads take fc1 + BN in plain
+# PyTorch, so no pool-fc epilogue and no fc_head_train (single-stream).
+PT_BENCH_PER_STEP = {**ADV_PER_STEP, **PT_OFF,
+                     "augment_fused": {"fwd": AUG_PER_STEP},
+                     "pool_fc_epilogue": {"fwd": 0},
+                     "pointwise_matmul": {"fwd": 6, "dx": 4, "dW": 6},
+                     "tnet_apply": {"fwd": 4, "dx": 2, "dT": 4}}
 
 
 def phase(name: str, msg: str) -> None:
@@ -813,28 +880,38 @@ def pass_counters():
             "pool_fc_epilogue": {"fwd": pf.pool_fc_fwd}}
 
 
-def train_slice(dev, card, gen):
-    from adversarial_learning_on_pointclouds_tpu_torch.configs import (
-        SegmentConfig,
-    )
+def seg_setup(cfg, gen, seed):
+    """A seeded full-width segmenter (random BatchNorm statistics) and a
+    batch of ``cfg.batch_size`` clouds of ``cfg.num_points`` with part
+    labels (numpy)."""
     from adversarial_learning_on_pointclouds_tpu_torch.models import (
         PointNetDenseCls,
     )
-    from adversarial_learning_on_pointclouds_tpu_torch.train import segment
 
-    cfg = SegmentConfig()
     bsz, n = cfg.batch_size, cfg.num_points
     model = PointNetDenseCls(cfg.num_parts, cfg.feature_transform,
                              generator=gen)
     randomize_bn(model, gen)
-    rng = np.random.default_rng(SEED)
+    rng = np.random.default_rng(seed)
     pts = (rng.normal(size=(bsz, n, 3)) * rng.uniform(0.5, 2.0, (bsz, 1, 3))
            ).astype(np.float32)
     labels = (np.arange(n)[None, :] * 7 // n
               + 7 * (pts[..., 1] > 0)).astype(np.int64) % cfg.num_parts
+    return model, pts, labels
 
-    runs = {}
-    counters = pass_counters()
+
+def seg_step_runs(cfg, model, pts, labels, tag, counters, switch=False,
+                  record=None):
+    """One ``segment.train_step`` on the card and on the CPU from the same
+    weights and batch: ``({where: (state, metrics, log-probs, x, y, tx)},
+    launches on the card)``, the counts set to 0 just before the card's
+    step and read just after it; ``switch`` and ``record`` as
+    ``step_runs``."""
+    from adversarial_learning_on_pointclouds_tpu_torch.ops import dispatch
+    from adversarial_learning_on_pointclouds_tpu_torch.train import segment
+
+    bsz, n = cfg.batch_size, cfg.num_points
+    runs, launches = {}, None
     for where in ("cuda", "cpu"):
         m = copy.deepcopy(model)
         logps = []
@@ -844,37 +921,37 @@ def train_slice(dev, card, gen):
         tx = segment.make_tx(cfg, 100)
         x = torch.from_numpy(pts).to(where)
         y = torch.from_numpy(labels).to(where)
-        for passes in counters.values():
-            for p in passes.values():
-                p.launches = 0
+        recorder = PassCalls(pt_counters() if record is not None and
+                             where == "cuda" else {})
+        reset(counters)
         t0 = time.perf_counter()
-        metrics = segment.train_step(state, x, y, cfg=cfg, tx=tx)
+        with dispatch.use_pallas_train(switch), recorder as calls:
+            metrics = segment.train_step(state, x, y, cfg=cfg, tx=tx)
         if where == "cuda":
             torch.cuda.synchronize()
-            launches = {k: {p: f.launches for p, f in passes.items()}
-                        for k, passes in counters.items()}
-        phase("train-slice", f"train_step on {where} B={bsz} N={n}: "
+            launches = read(counters)
+            if record is not None:
+                record.update(calls)
+        phase(tag, f"train_step on {where} B={bsz} N={n}: "
               f"loss {float(metrics['loss']):.6f}, acc "
               f"{float(metrics['acc']):.4f}, "
               f"{time.perf_counter() - t0:.3f} s (first step)")
         runs[where] = (state, metrics, logps[0], x, y, tx)
+    return runs, launches
 
-    for k, per in PER_STEP.items():
-        if launches[k] != per:
-            raise AssertionError(f"{k} launched {launches[k]} in one step, "
-                                 f"expected {per}")
-    phase("train-slice", f"launches in one step: {launches}")
 
+def compare_seg(tag, runs):
+    """The card's config-3 step against the CPU's: loss, log-probs, every
+    new running statistic and every gradient."""
     (gs, gm, glogp, _, _, _), (cs, cm, clogp, _, _, _) = runs["cuda"], \
         runs["cpu"]
     check("loss GPU vs CPU", gm["loss"].cpu()[None], cm["loss"][None],
-          STEP_BOUND, "train-slice")
-    check("log-probs GPU vs CPU", glogp.cpu(), clogp, STEP_BOUND,
-          "train-slice")
+          STEP_BOUND, tag)
+    check("log-probs GPU vs CPU", glogp.cpu(), clogp, STEP_BOUND, tag)
     gsd, csd = gs.model.state_dict(), cs.model.state_dict()
     stats = [k for k in csd if k.endswith(("running_mean", "running_var"))]
     worst = max(rel_err(gsd[k].cpu(), csd[k])[0] for k in stats)
-    phase("train-slice", f"{len(stats)} new running statistics GPU vs CPU: "
+    phase(tag, f"{len(stats)} new running statistics GPU vs CPU: "
           f"max scale-relative error {worst:.3e} (bound {STEP_BOUND:g})")
     if worst > STEP_BOUND:
         raise AssertionError("running statistics differ")
@@ -883,11 +960,29 @@ def train_slice(dev, card, gen):
     scale = max(float(p.grad.abs().max()) for p in cp.values())
     worst = max(float((gp[k].grad.cpu() - p.grad).abs().max())
                 for k, p in cp.items())
-    phase("train-slice", f"{len(cp)} parameter gradients GPU vs CPU: max abs "
+    phase(tag, f"{len(cp)} parameter gradients GPU vs CPU: max abs "
           f"error {worst:.3e}, {worst / (1 + scale):.3e} of (1 + max|g| = "
           f"{1 + scale:.3e}) (bound {GRAD_BOUND:g})")
     if worst > GRAD_BOUND * (1 + scale):
         raise AssertionError("gradients differ")
+
+
+def train_slice(dev, card, gen):
+    from adversarial_learning_on_pointclouds_tpu_torch.configs import (
+        SegmentConfig,
+    )
+    from adversarial_learning_on_pointclouds_tpu_torch.train import segment
+
+    cfg = SegmentConfig()
+    model, pts, labels = seg_setup(cfg, gen, SEED)
+    runs, launches = seg_step_runs(cfg, model, pts, labels, "train-slice",
+                                   pass_counters())
+    for k, per in PER_STEP.items():
+        if launches[k] != per:
+            raise AssertionError(f"{k} launched {launches[k]} in one step, "
+                                 f"expected {per}")
+    phase("train-slice", f"launches in one step: {launches}")
+    compare_seg("train-slice", runs)
 
     state, _, _, x, y, tx = runs["cuda"]
     losses = [float(segment.train_step(state, x, y, cfg=cfg, tx=tx)["loss"])
@@ -1076,7 +1171,60 @@ def adv_counters():
         augment_fused, disc_fused,
     )
     return {**pass_counters(), "disc_fused": disc_fused.PASSES,
-            "augment_fused": {"fwd": augment_fused.augment_fused}}
+            "augment_fused": {"fwd": augment_fused.augment_fused},
+            **pt_counters()}
+
+
+def pt_counters():
+    """The per-layer training kernels' passes (their launch counts)."""
+    from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
+        fc_head_train, maxpool_points, shared_mlp, tnet_apply,
+    )
+    return {"pointwise_matmul": shared_mlp.PM_PASSES,
+            "tnet_apply": tnet_apply.PASSES,
+            "maxpool_points": maxpool_points.PASSES,
+            "fc_head_train": fc_head_train.PASSES}
+
+
+class _Recording:
+    """A pass wrapper that keeps each call's arguments; its ``launches`` is
+    the pass's own, which the pass counts through its module's name."""
+
+    def __init__(self, fn, seen):
+        self.fn, self.seen = fn, seen
+
+    def __call__(self, *a):
+        self.seen.append(a)
+        return self.fn(*a)
+
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, value):
+        self.fn.launches = value
+
+
+class PassCalls:
+    """Records the arguments of every call of the given passes for one run
+    (the calls still launch, and count, as they would)."""
+
+    def __init__(self, counters):
+        self.counters, self.calls, self.saved = counters, {}, []
+
+    def __enter__(self):
+        for kernel, passes in self.counters.items():
+            for pas, fn in passes.items():
+                module = sys.modules[fn.__module__]
+                self.saved.append((module, fn.__name__, fn))
+                setattr(module, fn.__name__, _Recording(
+                    fn, self.calls.setdefault((kernel, pas), [])))
+        return self.calls
+
+    def __exit__(self, *exc):
+        for module, name, fn in self.saved:
+            setattr(module, name, fn)
 
 
 class Recorder:
@@ -1148,11 +1296,14 @@ def read(counters):
 
 
 def step_runs(cfg, g_model, d_model, pts, labels, tag, dev,
-              wheres=("cuda", "cpu")):
+              wheres=("cuda", "cpu"), switch=False, record=None):
     """One ``adversarial.train_step`` on the card and on the CPU from the
     same weights and batch: ``({where: (state, metrics, g_loss_fn's aux,
     batch, txs)}, launches on the card)``, the launch counts set to 0
-    just before the card's step and read just after it."""
+    just before the card's step and read just after it. ``switch``: under
+    ``use_pallas_train``; ``record``: a dict that takes the per-layer
+    training kernels' calls of the card's step (``PassCalls``)."""
+    from adversarial_learning_on_pointclouds_tpu_torch.ops import dispatch
     from adversarial_learning_on_pointclouds_tpu_torch.train import (
         adversarial,
     )
@@ -1166,14 +1317,19 @@ def step_runs(cfg, g_model, d_model, pts, labels, tag, dev,
         txs = adversarial.make_txs(cfg, 100)
         x_l, x_u = (torch.from_numpy(p).to(where) for p in pts)
         y_l = torch.from_numpy(labels).to(where)
+        recorder = PassCalls(pt_counters() if record is not None and
+                             where == "cuda" else {})
         reset(counters)
         t0 = time.perf_counter()
-        with Recorder(adversarial, "g_loss_fn") as seen:
+        with Recorder(adversarial, "g_loss_fn") as seen, \
+                dispatch.use_pallas_train(switch), recorder as calls:
             metrics = adversarial.train_step(state, x_l, y_l, x_u, cfg=cfg,
                                              g_tx=txs[0], d_tx=txs[1])
         if where == "cuda":
             torch.cuda.synchronize()
             launches = read(counters)
+            if record is not None:
+                record.update(calls)
         phase(tag, f"train_step on {where} 2 x B={cfg.batch_size} "
               f"N={cfg.num_points}: " +
               ", ".join(f"{k} {float(v):.6f}" for k, v in metrics.items()) +
@@ -1185,9 +1341,9 @@ def step_runs(cfg, g_model, d_model, pts, labels, tag, dev,
 def check_launches(tag, launches, want):
     for k, per in want.items():
         if launches[k] != per:
-            raise AssertionError(f"{k} launched {launches[k]} in one G+D "
+            raise AssertionError(f"{k} launched {launches[k]} in one "
                                  f"step, expected {per}")
-    phase(tag, f"launches in one G+D step: {launches}")
+    phase(tag, f"launches in one step: {launches}")
 
 
 def compare_step(tag, runs, cfg, step_bound, grad_bound, yard=None):
@@ -1255,7 +1411,7 @@ def adv_slice(dev, card, gen):
     cfg = AdversarialConfig()
     runs, launches = step_runs(cfg, *adv_setup(cfg, gen, dev), "adv-slice",
                                dev)
-    check_launches("adv-slice", launches, ADV_PER_STEP)
+    check_launches("adv-slice", launches, {**ADV_PER_STEP, **PT_OFF})
     compare_step("adv-slice", runs, cfg, STEP_BOUND, GRAD_BOUND)
 
     state, _, _, batch, txs = runs["cuda"]
@@ -1593,7 +1749,7 @@ def bench_slice(dev, card, gen):
 
     cfg = AdversarialConfig(augment=True, bf16=True, pallas_augment=True)
     setup = adv_setup(cfg, gen, dev)
-    want = {**ADV_PER_STEP, "augment_fused": {"fwd": AUG_PER_STEP}}
+    want = {**ADV_PER_STEP, "augment_fused": {"fwd": AUG_PER_STEP}, **PT_OFF}
     yard = step_runs(dataclasses.replace(cfg, bf16=False), *setup,
                      "bench-slice yardstick (fp32)", dev, ("cpu",))[0]["cpu"]
     out = {}
@@ -1783,6 +1939,409 @@ def bench_timing(card, rec, results, bench):
         phase("bench-timing", f"  {ms / BENCH_K:.4f} ms per step  {key[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# The per-layer training kernels, use_pallas_train (phases 15-17)
+# ---------------------------------------------------------------------------
+
+def check_rounded(name, got, ref, tag="pallas-train-kernels"):
+    """A bf16-operand product of a rounded operand that the pass computes
+    (``fc_head_train``'s dz as dW's operand): where the kernel's and the
+    plain pass's fp32 dz straddle a rounding boundary the operand differs
+    by one bf16 step, and at 32 rows one term can carry a large part of a
+    sum; so at most 1% of the elements beyond ``BOUND`` of the scale and
+    every one within ``2^-7`` of it (a missing or extra rounding moves
+    most elements by about 2^-9)."""
+    err = (got.double() - ref.double()).abs() / max(1.0, ref.abs().max()
+                                                   .item())
+    share = (err > BOUND).double().mean().item()
+    worst = err.max().item()
+    phase(tag, f"{name}: {share:.3e} of the elements beyond {BOUND:g} of "
+          f"the scale (at most 1e-2), max {worst:.3e} (at most 2^-7)")
+    if not torch.isfinite(got).all() or share > 1e-2 or worst > 2.0 ** -7:
+        raise AssertionError(f"{name}: differs")
+    return (got.double() - ref.double()).abs().max().item()
+
+
+def fc_head_args(gen, bsz, k, dev):
+    """Inputs of ``fc_head_fwd``: pooled ReLU features, the three layers,
+    both BN affines and nonzero running means."""
+    args = [torch.relu(torch.randn(bsz, 1024, generator=gen)).to(dev)]
+    for c_in, c_out, bn in ((1024, 512, True), (512, 256, True),
+                            (256, k * k, False)):
+        args += [_w(gen, c_in, c_out, dev), _r(gen, c_out, dev=dev)]
+        if bn:
+            args += [_gam(gen, c_out, dev), _r(gen, c_out, dev=dev)]
+    return args + [_r(gen, 512, scale=0.3, dev=dev),
+                   _r(gen, 256, scale=0.3, dev=dev)]
+
+
+def fc_head_layers(got, args, bf16):
+    """The plain forward of ``fc_head_fwd`` layer by layer on the kernel's
+    own stashes: z1 from the inputs, each BN's statistics from the
+    kernel's z, fc2 and fc3 from h1 and h2 made of the kernel's z and
+    statistics. Each layer is then held to its operands as the kernel saw
+    them: fc2 and fc3 take h1 and h2 rounded to bf16, and where the two
+    sides' h1 sits on a rounding boundary one element moves a whole row of
+    z2 and, through BN2, of h2 and out (1.7e-3 of out at k=3, half of what
+    bf16 moves it); and at B=2 a variance is a squared difference of two
+    rows, whose relative error an fp32 sum-order difference in z blows up
+    (inv 1.2e-4 off)."""
+    from adversarial_learning_on_pointclouds_tpu_torch.models import core
+    from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
+        fc_head_train as fh,
+    )
+
+    h, w1, b1, g1, be1, w2, b2, g2, be2, w3, b3, rm1, rm2 = args
+    _, z1k, z2k = got[:3]
+    op = lambda t: core.operand(t, bf16)  # noqa: E731
+    mu1, var1, inv1 = fh._moments(z1k, rm1)
+    mu2, var2, inv2 = fh._moments(z2k, rm2)
+    h1 = torch.relu((z1k - mu1) * (inv1 * g1) + be1)
+    h2 = torch.relu((z2k - mu2) * (inv2 * g2) + be2)
+    return (torch.matmul(op(h2), op(w3)) + b3,
+            torch.matmul(op(h), op(w1)) + b1,
+            torch.matmul(op(h1), op(w2)) + b2, mu1, var1, inv1, mu2, var2,
+            inv2)
+
+
+def pt_kernel_checks(dev, gen, rec, rec_bf):
+    """Phase 15: each pass against its plain pass, then each autograd
+    function against its whole-function reference."""
+    from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
+        fc_head_train as fh, maxpool_points as mp, shared_mlp as sm,
+        tnet_apply as ta,
+    )
+
+    tag = "pallas-train-kernels"
+    widths = ((3, 64), (64, 64), (64, 128), (128, 1024), (512, 256),
+              (256, 128), (128, PARTS))
+    with torch.no_grad():
+        for bsz, n in ((B, TRAIN_N), (B, TRAIN_RAGGED_N), (2, TRAIN_N)):
+            at = f"B={bsz} N={n}"
+            for c_in, c_out in widths:
+                x = _r(gen, bsz, n, c_in, scale=1.0, dev=dev)
+                w, b = _w(gen, c_in, c_out, dev), _r(gen, c_out, dev=dev)
+                g = _r(gen, bsz, n, c_out, scale=1.0, dev=dev)
+                for bf16, r in ((False, rec), (True, rec_bf)):
+                    # Both sides round the same inputs: fp32-level bound.
+                    t = f"{c_in}->{c_out} {at}{' bf16' if bf16 else ''}"
+                    a = (x, w, b, bf16)
+                    r.cmp("pointwise_matmul", "fwd", t, ("y",),
+                          (sm.pm_fwd(*a),), (sm.pm_fwd_plain(*a),), False, a,
+                          phase_tag=tag, bound=BOUND)
+                    a = (g, w, bf16)
+                    r.cmp("pointwise_matmul", "dx", t, ("dx",),
+                          (sm.pm_dx(*a),), (sm.pm_dx_plain(*a),), False, a,
+                          phase_tag=tag, bound=BOUND)
+                a = (x, g)
+                rec.cmp("pointwise_matmul", "dW", f"{c_in}->{c_out} {at}",
+                        ("dw", "db"), sm.pm_dwdb(*a), sm.pm_dwdb_plain(*a),
+                        False, a, phase_tag=tag)
+            for k in (3, 64):
+                x = _r(gen, bsz, n, k, scale=1.0, dev=dev)
+                t = (torch.eye(k) + torch.randn(bsz, k, k, generator=gen)
+                     * 0.2).to(dev)
+                g = _r(gen, bsz, n, k, scale=1.0, dev=dev)
+                for pas, fn, plain, a in (
+                        ("fwd", ta.tnet_fwd, ta.tnet_fwd_plain, (x, t)),
+                        ("dx", ta.tnet_dx, ta.tnet_dx_plain, (g, t)),
+                        ("dT", ta.tnet_dt, ta.tnet_dt_plain, (x, g))):
+                    rec.cmp("tnet_apply", pas, f"k={k} {at}", (pas,),
+                            (fn(*a),), (plain(*a),), False, a, phase_tag=tag)
+            # Post-ReLU features (a channel all zeros ties at every point);
+            # the first half of the clouds repeat their first half of
+            # points in the second: every max there is attained twice.
+            x = torch.relu(torch.randn(bsz, n, 1024, generator=gen)).to(dev)
+            dup, half = max(1, bsz // 2), n // 2
+            x[:dup, n - half:] = x[:dup, :half]
+            x[:, :, 7] = 0.0
+            y, win = mp.maxpool_fwd(x)
+            py, pwin = mp.maxpool_fwd_plain(x)
+            rec.cmp("maxpool_points", "fwd", at, ("y", "winner"), (y, win),
+                    (py, pwin), False, (x,), phase_tag=tag, bound=0.0)
+            if int((win[:dup] >= n - half).sum()) or (win[:, 7] != 0).any():
+                raise AssertionError("maxpool_points: a tie went to a later "
+                                     "point")
+            g = _r(gen, bsz, 1024, scale=1.0, dev=dev)
+            dx = mp.maxpool_bwd(g, win, n)
+            rec.cmp("maxpool_points", "bwd", at, ("dx",), (dx,),
+                    (mp.maxpool_bwd_plain(g, pwin, n),), False, (g, win, n),
+                    phase_tag=tag, bound=0.0)
+            if int(((dx != 0).sum(1) > 1).sum()):
+                raise AssertionError("maxpool_points: two winners")
+        for bsz in (B, 2):
+            for k in (3, 64):
+                args = fc_head_args(gen, bsz, k, dev)
+                if bsz == 2:
+                    # Two rows: the one-pass variance about a random
+                    # centre cancels to a few bits (an fp32 sum-order
+                    # difference moved inv by 2e-2 here), so centre the
+                    # moments on the batch means, which running means
+                    # track.
+                    ref = fh.fc_head_fwd_plain(*args)
+                    args[11], args[12] = ref[3], ref[6]
+                for bf16, r in ((False, rec), (True, rec_bf)):
+                    t = f"B={bsz} k={k}{' bf16' if bf16 else ''}"
+                    a = (*args, bf16)
+                    got = fh.fc_head_fwd(*a)
+                    r.cmp("fc_head_train", "fwd", t, ("out", "z1", "z2",
+                          "mu1", "var1", "inv1", "mu2", "var2", "inv2"),
+                          got, fc_head_layers(got, args, bf16), False, a,
+                          phase_tag=tag, bound=BOUND)
+                    _, z1, z2, mu1, _, inv1, mu2, _, inv2 = \
+                        fh.fc_head_fwd_plain(*a)
+                    dh2 = _r(gen, bsz, 256, scale=1.0, dev=dev)
+                    a = (dh2, args[0], z1, z2, args[1], args[5], args[3],
+                         args[4], args[7], args[8], mu1, inv1, mu2, inv2,
+                         bf16)
+                    got, ref = fh.fc_head_bwd(*a), fh.fc_head_bwd_plain(*a)
+                    names = ("dh", "dw1", "db1", "dg1", "dbe1", "dw2", "db2",
+                             "dg2", "dbe2")
+                    # db sums a BN's dz over the rows, which cancels to
+                    # zero: held to the sum of its terms' magnitudes.
+                    h1 = fh.recompute_h(z1, mu1, inv1, args[3], args[4])
+                    dz2 = fh._bn_bwd(dh2, z2, mu2, inv2, args[7], args[8],
+                                     h1, False)[0]
+                    dz1 = fh._bn_bwd(torch.matmul(dz2, args[5].t()), z1, mu1,
+                                     inv1, args[3], args[4], args[0], False)[0]
+                    scales = {"db1": dz1.abs().sum(0).max().item(),
+                              "db2": dz2.abs().sum(0).max().item()}
+                    keep = [i for i, nm in enumerate(names)
+                            if not (bf16 and nm in ("dw1", "dw2"))]
+                    r.cmp("fc_head_train", "bwd", t,
+                          [names[i] for i in keep], [got[i] for i in keep],
+                          [ref[i] for i in keep], False, a, scales, tag,
+                          BOUND)
+                    if bf16:
+                        for i in (1, 5):
+                            d = check_rounded(f"fc_head_train bwd {names[i]} "
+                                              f"{t}", got[i], ref[i])
+                            key = ("fc_head_train", "bwd")
+                            r.err[key] = max(r.err.get(key, 0.0), d)
+    torch.cuda.synchronize()
+
+    # Each autograd function against its whole-function reference.
+    bsz, n = B, TRAIN_N
+    x64 = torch.randn(bsz, n, 64, generator=gen).to(dev)
+    xr = torch.relu(torch.randn(bsz, n, 1024, generator=gen)).to(dev)
+    xr[:, n // 2:] = xr[:, :n // 2]
+    t64 = (torch.eye(64) + torch.randn(bsz, 64, 64, generator=gen) * 0.2
+           ).to(dev)
+    fc = fc_head_args(gen, bsz, 64, dev)
+    cases = {
+        "pointwise_matmul": (sm.pointwise_matmul,
+                             lambda x, w, b: sm.pm_fwd_plain(x, w, b),
+                             [x64, _w(gen, 64, 128, dev),
+                              _r(gen, 128, dev=dev)], {}),
+        "tnet_apply": (ta.tnet_apply, torch.matmul, [x64, t64], {}),
+        "maxpool_points": (mp.maxpool_points, mp.maxpool_points_reference,
+                           [xr], {}),
+        # b1 and b2 precede a batch-statistic BN: their gradients are
+        # zero in exact arithmetic, held to the norm of the same layer's
+        # weight gradient.
+        "fc_head_train": (fh.fc_head_train, fh.fc_head_train_reference, fc,
+                          {2: 1, 6: 5}),
+    }
+    for name, (fn, ref_fn, args, zero) in cases.items():
+        outs = []
+        for f in (fn, ref_fn):
+            leaves = [a.detach().clone().requires_grad_() for a in args]
+            out = f(*leaves)
+            out = out if isinstance(out, tuple) else (out,)
+            torch.sin(out[0]).sum().backward()
+            outs.append((out, [lf.grad for lf in leaves]))
+        (o, g), (o_ref, g_ref) = outs
+        for i, (a_, b_) in enumerate(zip(o, o_ref)):
+            check_norm(f"{name} autograd output {i}", a_.detach(),
+                       b_.detach(), tag=tag)
+        for i, (a_, b_) in enumerate(zip(g, g_ref)):
+            if b_ is None:       # the running means: constants
+                continue
+            w = zero.get(i)
+            check_norm(f"{name} autograd grad {i}", a_, b_,
+                       None if w is None else g_ref[w].norm().item(), tag)
+    torch.cuda.synchronize()
+
+
+def pt_slice(dev, card, gen):
+    """Phase 16: the config-3 step under the switch at N=2048 and 2500 and
+    the bench G+D step under it, card against CPU, launches checked."""
+    from adversarial_learning_on_pointclouds_tpu_torch.configs import (
+        AdversarialConfig, SegmentConfig,
+    )
+
+    tag = "pallas-train-slice"
+    counters = {**pass_counters(), **pt_counters()}
+    seg = {}
+    for n in (TRAIN_N, TRAIN_RAGGED_N):
+        cfg = SegmentConfig(batch_size=B, num_points=n)
+        model, pts, labels = seg_setup(cfg, gen, SEED + n)
+        calls = {}
+        t = f"{tag} N={n}"
+        runs, launches = seg_step_runs(cfg, model, pts, labels, t, counters,
+                                       True, calls)
+        check_launches(t, launches, PT_SEG_PER_STEP[n])
+        compare_seg(t, runs)
+        seg[n] = (cfg, model, runs["cuda"], launches, calls)
+
+    cfg = AdversarialConfig(batch_size=B, num_points=TRAIN_N, augment=True,
+                            bf16=True, pallas_augment=True)
+    setup = adv_setup(cfg, gen, dev)
+    t = f"{tag} bench step"
+    yard = step_runs(dataclasses.replace(cfg, bf16=False), *setup,
+                     f"{t} yardstick (fp32)", dev, ("cpu",),
+                     switch=True)[0]["cpu"]
+    calls = {}
+    runs, launches = step_runs(cfg, *setup, t, dev, switch=True,
+                               record=calls)
+    check_launches(t, launches, PT_BENCH_PER_STEP)
+    compare_step(t, runs, cfg, STEP_BOUND, GRAD_BOUND, yard)
+    return seg, (cfg, setup, runs["cuda"], launches, calls)
+
+
+# One PyTorch call computing each pass's function, timed beside it as a
+# yardstick (the port never calls these); a pass not named has none.
+PT_LIBRARY = {
+    ("pointwise_matmul", "fwd"): lambda x, w, b, bf16: torch.addmm(
+        b, x.reshape(-1, x.shape[-1]), w),
+    ("pointwise_matmul", "dx"): lambda g, w, bf16: torch.matmul(g, w.t()),
+    ("pointwise_matmul", "dW"): lambda x, g: torch.matmul(
+        x.reshape(-1, x.shape[-1]).t(), g.reshape(-1, g.shape[-1])),
+    ("tnet_apply", "fwd"): torch.bmm,
+    ("tnet_apply", "dx"): lambda g, t: torch.bmm(g, t.transpose(1, 2)),
+    ("tnet_apply", "dT"): lambda x, g: torch.bmm(x.transpose(1, 2), g),
+    ("maxpool_points", "fwd"): lambda x: torch.max(x, dim=1),
+}
+
+
+def time_calls(card, key, fn, plain, calls, err, bf16=False,
+               step=f"config-3 step at N={TRAIN_RAGGED_N}"):
+    """One pass over the calls of a step: kernel, plain and library ms
+    (CUDA events), device time alone (profiler), the bound, all per step
+    (``step`` names it)."""
+    lib = PT_LIBRARY.get(key)
+    with torch.no_grad():
+        ms, plain_ms = time_pair(lambda: [fn(*a) for a in calls],
+                                 lambda: [plain(*a) for a in calls])
+        dev_ms = sum(device_profile(lambda: [fn(*a) for a in calls]).values())
+        plain_dev_ms = sum(device_profile(
+            lambda: [plain(*a) for a in calls]).values())
+        lib_ms = None
+        if lib is not None:
+            lib_ms = time_pair(lambda: [lib(*a) for a in calls],
+                               lambda: None)[0]
+    bound_ms, bound_by = (bf16_bound if bf16 else bound)(*work(plain, calls))
+    row = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "device_ms": dev_ms,
+           "plain_device_ms": plain_dev_ms, "max_abs_err": err}
+    phase("pallas-train-timing", f"{card}: {key[0]} {key[1]}"
+          f"{' bf16' if bf16 else ''} x{len(calls)} per {step}: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+          f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}; device time "
+          f"alone: kernel {dev_ms:.4f} ms, plain {plain_dev_ms:.4f} ms; bound "
+          f"{bound_ms:.4f} ms ({bound_by})")
+    return row
+
+
+def time_seg_step(card, tag, cfg, state, x, y, tx, switch):
+    """The config-3 step, one synchronized ``train_step`` per call, on or
+    off the switch: median of 12 (CUDA events), points/s, idle share."""
+    from adversarial_learning_on_pointclouds_tpu_torch.ops import dispatch
+    from adversarial_learning_on_pointclouds_tpu_torch.train import segment
+
+    def step():
+        segment.train_step(state, x, y, cfg=cfg, tx=tx)
+
+    with dispatch.use_pallas_train(switch):
+        for _ in range(3):
+            step()
+        step_ms = statistics.median(event_ms(step, 12))
+        busy = sum(device_profile(step, reps=5).values())
+    pts = cfg.batch_size * cfg.num_points
+    phase("pallas-train-timing", f"{card}: {tag}: config-3 train_step "
+          f"B={cfg.batch_size} N={cfg.num_points} "
+          f"{'under' if switch else 'off'} the switch: median {step_ms:.3f} "
+          f"ms over 12 steps, {pts / step_ms * 1e3:.1f} points/s, GPU "
+          f"kernels busy {busy:.3f} ms ({100 * (1 - busy / step_ms):.1f}% "
+          "idle)")
+    return {"step_ms": step_ms, "busy_ms": busy}
+
+
+def pt_timing(card, rec, rec_bf, results, seg, bench):
+    """Phase 17."""
+    from adversarial_learning_on_pointclouds_tpu_torch.ops import dispatch
+    from adversarial_learning_on_pointclouds_tpu_torch.train import (
+        adversarial, segment,
+    )
+
+    _, _, _, launches, calls = seg[TRAIN_RAGGED_N]
+    bcfg, setup, brun, blaunches, bcalls = bench
+    counters = pt_counters()
+    for kernel, (src, sites) in PT_KERNELS.items():
+        passes = []
+        for pas, fn in counters[kernel].items():
+            plain = getattr(sys.modules[fn.__module__],
+                            fn.__name__ + "_plain")
+            row = time_calls(card, (kernel, pas), fn, plain,
+                             calls[(kernel, pas)], rec.err[(kernel, pas)])
+            if bcalls[(kernel, pas)]:       # the bench step: bf16 operands
+                bf = time_calls(card, (kernel, pas), fn, plain,
+                                bcalls[(kernel, pas)],
+                                rec_bf.err.get((kernel, pas),
+                                               rec.err[(kernel, pas)]),
+                                kernel == "pointwise_matmul", "bench step")
+                row.update({f"bench_{k}": v for k, v in bf.items()})
+            passes.append({"pass": pas, "replaces": f"{TPU_KERNELS}/"
+                           f"{sites[pas]}",
+                           "launches": launches[kernel][pas], **row})
+        entry = kernel_entry(kernel, src, sites["fwd"],
+                             sum(launches[kernel].values()), passes,
+                             f"per config-3 step at B={B} "
+                             f"N={TRAIN_RAGGED_N} under use_pallas_train")
+        # One PyTorch call per pass where every pass has one (the sum of
+        # those calls' times), else null; each pass keeps its own.
+        libs = [p["library_ms"] for p in passes]
+        entry["library_ms"] = None if None in libs else sum(libs)
+        if all("bench_ms" in p for p in passes):
+            for k in ("ms", "plain_ms", "bound_ms", "device_ms",
+                      "plain_device_ms"):
+                entry[f"bench_{k}"] = sum(p[f"bench_{k}"] for p in passes)
+        entry["launches_n2048"] = sum(seg[TRAIN_N][3][kernel].values())
+        entry["launches_bench_step"] = sum(blaunches[kernel].values())
+        results.append(entry)
+
+    # The steps, on and off the switch, in turns.
+    for n in (TRAIN_N, TRAIN_RAGGED_N):
+        cfg, model, (state, _, _, x, y, tx), _, _ = seg[n]
+        off = segment.create_state(cfg, 100, device="cuda",
+                                   model=copy.deepcopy(model))
+        for switch, st in ((False, off), (True, state), (True, state),
+                           (False, off)):
+            time_seg_step(card, f"N={n}", cfg, st, x, y, tx, switch)
+    rng = np.random.default_rng(SEED + 3)
+    bsz, n = bcfg.batch_size, bcfg.num_points
+    x_k = [torch.from_numpy(rng.normal(size=(BENCH_K, bsz, n, 3)).astype(
+        np.float32)).cuda() for _ in range(2)]
+    y_k = torch.from_numpy(rng.integers(0, bcfg.num_parts, (
+        BENCH_K, bsz, n))).cuda()
+    states = {s: adversarial.create_state(
+        bcfg, 100, device="cuda", g_model=copy.deepcopy(setup[0]),
+        d_model=copy.deepcopy(setup[1])) for s in (False, True)}
+    txs = adversarial.make_txs(bcfg, 100)
+    for switch in (False, True, True, False):
+        with dispatch.use_pallas_train(switch):
+            time_scan(card, "bench step " + ("under" if switch else "off")
+                      + " the switch", bcfg, states[switch],
+                      (x_k[0], y_k, x_k[1]), txs)
+    with dispatch.use_pallas_train():
+        kernels = device_profile(lambda: adversarial.train_steps_scan(
+            states[True], x_k[0], y_k, x_k[1], cfg=bcfg, g_tx=txs[0],
+            d_tx=txs[1]), reps=1)
+    for key, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:14]:
+        phase("pallas-train-timing", f"  {ms / BENCH_K:.4f} ms per step "
+              f"under the switch  {key[:90]}")
+
+
 def kernel_entry(name, src, site, launches, passes, times):
     """One kernel's line in the JSON: its passes' numbers summed; the
     bound is the sum of the passes' bounds, bound by what bounds the
@@ -1800,12 +2359,14 @@ def kernel_entry(name, src, site, launches, passes, times):
 
 
 def time_alone(mode: str, root: str, card: str) -> None:
-    """``--time fp32|bench --root DIR``: the G+D step's timing alone, of
-    the port package under ``DIR`` (a checkout, or a ``git archive`` of
-    the parent commit, say), from ``create_state``'s weights seeded by
-    ``cfg.seed`` on seeded batches: ``fp32`` as phase 11 (synchronized
-    ``train_step`` calls of ``AdversarialConfig()``), ``bench`` as phase
-    14 (``train_steps_scan`` at K=8 of the bench configuration). Prints
+    """``--time fp32|bench|pallas_train --root DIR``: the G+D step's timing
+    alone, of the port package under ``DIR`` (a checkout, or a ``git
+    archive`` of the parent commit, say), from ``create_state``'s weights
+    seeded by ``cfg.seed`` on seeded batches: ``fp32`` as phase 11
+    (synchronized ``train_step`` calls of ``AdversarialConfig()``),
+    ``bench`` as phase 14 (``train_steps_scan`` at K=8 of the bench
+    configuration), ``pallas_train`` the same under ``use_pallas_train``
+    (``bench.py --pallas_train``; a tree without the switch fails). Prints
     one JSON line, and no result line. To compare two trees, alternate
     them within one call (A B B A): the host's share of a step moves
     between calls."""
@@ -1815,6 +2376,8 @@ def time_alone(mode: str, root: str, card: str) -> None:
     from adversarial_learning_on_pointclouds_tpu_torch.train import (
         adversarial,
     )
+
+    from adversarial_learning_on_pointclouds_tpu_torch.ops import dispatch
 
     if mode == "fp32":
         cfg, k = AdversarialConfig(), 1
@@ -1832,7 +2395,9 @@ def time_alone(mode: str, root: str, card: str) -> None:
         out = time_step(card, "time fp32", cfg, state,
                         (x_l[0], y_l[0], x_u[0]), txs)
     else:
-        out = time_scan(card, "time bench", cfg, state, (x_l, y_l, x_u), txs)
+        with dispatch.use_pallas_train(mode == "pallas_train"):
+            out = time_scan(card, f"time {mode}", cfg, state,
+                            (x_l, y_l, x_u), txs)
     print(json.dumps({"root": root, "mode": mode, "card": card, **out}),
           flush=True)
 
@@ -1841,7 +2406,7 @@ def main() -> None:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--time", choices=("fp32", "bench"),
+    ap.add_argument("--time", choices=("fp32", "bench", "pallas_train"),
                     help="time the G+D step alone (no checks, no result "
                          "line)")
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(
@@ -1897,6 +2462,10 @@ def main() -> None:
     augment_checks(dev, gen, rec_bf)
     bench = bench_slice(dev, card, gen)
     bench_timing(card, rec_bf, results, bench)
+    rec_pt, rec_pt_bf = PassRecord(), PassRecord(BF16_BOUND)
+    pt_kernel_checks(dev, gen, rec_pt, rec_pt_bf)
+    seg, bench_pt = pt_slice(dev, card, gen)
+    pt_timing(card, rec_pt, rec_pt_bf, results, seg, bench_pt)
 
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {

@@ -270,10 +270,10 @@ def test_paired_trunks_are_not_ported_yet():
 
 def test_argument_structs_mirror_the_cuda_header():
     """The ctypes structures the wrappers fill match the C structs of
-    ``csrc/train_gemm.cuh``, ``csrc/pool_fc_epilogue.cu`` and
-    ``csrc/disc_fused.cu`` field for
-    field (names, order, int or pointer): a mismatch would pass garbage to
-    the card silently."""
+    ``csrc/train_gemm.cuh``, ``csrc/pool_fc_epilogue.cu``,
+    ``csrc/disc_fused.cu`` and the per-layer training kernels' sources
+    field for field (names, order, int or pointer): a mismatch would pass
+    garbage to the card silently."""
     import ctypes
     import pathlib
     import re
@@ -283,7 +283,11 @@ def test_argument_structs_mirror_the_cuda_header():
     for struct, source in ((launch.RowFwdArgs, "train_gemm.cuh"),
                            (launch.BwdArgs, "train_gemm.cuh"),
                            (launch.PoolFcArgs, "pool_fc_epilogue.cu"),
-                           (launch.DiscArgs, "disc_fused.cu")):
+                           (launch.DiscArgs, "disc_fused.cu"),
+                           (launch.PmArgs, "pointwise_matmul.cu"),
+                           (launch.TnetArgs, "tnet_apply.cu"),
+                           (launch.MaxpoolArgs, "maxpool_points.cu"),
+                           (launch.FcHeadArgs, "fc_head_train.cu")):
         header = (pathlib.Path(build.CSRC) / source).read_text()
         body = re.search(r"struct %s \{(.*?)\};" % struct.__name__, header,
                          re.S).group(1)
