@@ -9,10 +9,17 @@ real/fake logits ``[B, N, 1]``. Parameter names are the reference's
 (``conv1``..``conv4``, ``classifier``), so its ``.pth`` loads with
 ``strict=True``.
 
-Every method runs the whole stack as one fused pass (``ops/kernels/
-disc_fused.py``): the kernels on a CUDA tensor, their plain versions on
-a CPU tensor. The methods differ in their backward, as the JAX package's
-four custom VJPs do.
+The training methods run the whole stack as one fused pass (``ops/
+kernels/disc_fused.py``): the kernels on a CUDA tensor, their plain
+versions on a CPU tensor. They differ in their backward, as the JAX
+package's four custom VJPs do. Under ``ops.dispatch.use_pallas_train``
+at a point count the JAX package's fused kernels cannot tile
+(``ops.dispatch.layer_by_layer``), ``forward``, ``frozen`` and
+``detached`` run the stack layer by layer instead, through
+``pointwise_matmul`` and LeakyReLU, as the JAX package's
+``apply_discriminator`` does there. ``infer`` is the inference-only
+stack, one ``fused_mlp_stack`` chain (the JAX package's
+``apply_discriminator_fused``).
 """
 
 from __future__ import annotations
@@ -23,9 +30,12 @@ import torch
 from torch import nn
 
 from adversarial_learning_on_pointclouds_tpu_torch.models import core
+from adversarial_learning_on_pointclouds_tpu_torch.ops import dispatch as ops
 from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
-    disc_fused,
+    disc_fused, shared_mlp,
 )
+
+_ACTS = ("leaky_relu",) * 4 + (None,)
 
 
 class FCDiscriminator(nn.Module):
@@ -39,25 +49,51 @@ class FCDiscriminator(nn.Module):
         self.classifier = nn.Conv1d(512, 1, 1)
         core.finish_init(self, device, generator)
 
+    def _layers(self):
+        return (self.conv1, self.conv2, self.conv3, self.conv4,
+                self.classifier)
+
     def _params(self):
-        layers = (self.conv1, self.conv2, self.conv3, self.conv4,
-                  self.classifier)
-        return (tuple(core.weight_in_out(m) for m in layers),
-                tuple(m.bias for m in layers))
+        return (tuple(core.weight_in_out(m) for m in self._layers()),
+                tuple(m.bias for m in self._layers()))
+
+    def _layerwise(self, x: torch.Tensor,
+                   frozen: bool = False) -> torch.Tensor:
+        for m, act in zip(self._layers(), _ACTS):
+            x = ops.linear_act(m, x, act, frozen)
+        return x
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """Logits; the backward reaches the input and the parameters."""
+        if ops.layer_by_layer(x.shape[1]):
+            return self._layerwise(x)
         return disc_fused.disc_forward(x, *self._params())
 
     def frozen(self, x: torch.Tensor) -> torch.Tensor:
         """Logits whose backward reaches the input only (the generator
         step): the parameters' ``.grad`` stays untouched."""
+        if ops.layer_by_layer(x.shape[1]):
+            return self._layerwise(x, frozen=True)
         return disc_fused.disc_forward_frozen(x, *self._params())
 
     def detached(self, x: torch.Tensor) -> torch.Tensor:
         """Logits whose backward reaches the parameters only (the
         discriminator step on one-hot labels): no input gradient."""
+        if ops.layer_by_layer(x.shape[1]):
+            return self._layerwise(x.detach())
         return disc_fused.disc_forward_detached(x, *self._params())
+
+    @torch.no_grad()
+    def infer(self, x: torch.Tensor) -> torch.Tensor:
+        """Logits for inference, with no autograd: the five layers as one
+        ``fused_mlp_stack`` chain (biases as shifts, unit scales, LeakyReLU
+        on the first four), the kernel on a CUDA tensor and its plain
+        version on a CPU tensor; bf16 operands under
+        ``core.mixed_precision``. Counterpart of the JAX package's
+        ``apply_discriminator_fused``."""
+        ws, bs = self._params()
+        scales = [torch.ones_like(b) for b in bs]
+        return shared_mlp.fused_mlp_stack(x, ws, bs, scales, _ACTS)
 
     def with_known_logits(self, x: torch.Tensor,
                           logits: torch.Tensor) -> torch.Tensor:

@@ -47,7 +47,8 @@ for _name in ("pt_pool_fc_fwd", "pt_trunk_f1", "pt_trunk_f2", "pt_trunk_b1",
               "pt_head_bmid", "pt_head_b1", "pt_disc_fwd", "pt_disc_bwd_dx",
               "pt_disc_bwd_dw", "pt_pm_fwd", "pt_pm_dx", "pt_pm_dwdb",
               "pt_tnet_fwd", "pt_tnet_dx", "pt_tnet_dt", "pt_maxpool_fwd",
-              "pt_maxpool_bwd", "pt_fc_head_fwd", "pt_fc_head_bwd"):
+              "pt_maxpool_bwd", "pt_fc_head_fwd", "pt_fc_head_bwd",
+              "pt_mlp_stack"):
     SIGNATURES[_name] = [_P, _I, _P]
 
 

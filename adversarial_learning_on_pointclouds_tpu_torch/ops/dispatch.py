@@ -17,7 +17,8 @@ the counterpart of the JAX package's ``use_pallas(training=True)``
 ``x @ T`` ``tnet_apply``; the models also send the single-stream T-Net
 fc head to ``fc_head_train`` and, at a point count the fused training
 kernels of the JAX package cannot tile (``train_tiling_ok``), run the
-trunks and the seg head layer by layer (``layer_by_layer``). Off the
+trunks, the seg head and the discriminator layer by layer
+(``layer_by_layer``). Off the
 switch the port runs its fused kernels at every point count.
 """
 
@@ -74,9 +75,9 @@ def train_tiling_ok(n: int, cap: int = 512) -> bool:
 
 def layer_by_layer(n: int) -> bool:
     """Under ``use_pallas_train``, at a point count the JAX package's fused
-    training kernels cannot tile: the trunks and the seg head then run
-    layer by layer, through ``pointwise_matmul`` and ``maxpool_points``,
-    as the JAX package runs them there."""
+    training kernels cannot tile: the trunks, the seg head and the
+    discriminator then run layer by layer, through ``pointwise_matmul``
+    and ``maxpool_points``, as the JAX package runs them there."""
     return pallas_train_enabled() and not train_tiling_ok(n)
 
 
@@ -89,13 +90,19 @@ def folded_affine(layer: nn.Module, bn: nn.BatchNorm1d
     return core.weight_in_out(layer), layer.bias * scale + shift, scale
 
 
-def _matmul(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
+def _matmul(layer: nn.Module, x: torch.Tensor,
+            frozen: bool = False) -> torch.Tensor:
     """``x @ w + b`` of a training layer: ``pointwise_matmul`` on a 3-D
-    ``x`` under the switch, else ``core.dense``."""
+    ``x`` under the switch, else ``core.matmul`` (as ``core.dense``).
+    ``frozen``: the weight and bias enter detached, so the
+    backward reaches ``x`` alone (no dW pass; their ``.grad`` stays
+    untouched)."""
+    w, b = core.weight_in_out(layer), layer.bias
+    if frozen:
+        w, b = w.detach(), b.detach()
     if pallas_train_enabled() and x.dim() == 3:
-        return shared_mlp.pointwise_matmul(x, core.weight_in_out(layer),
-                                           layer.bias)
-    return core.dense(layer, x)
+        return shared_mlp.pointwise_matmul(x, w, b)
+    return core.matmul(x, w) + b
 
 
 def linear_bn_act(layer: nn.Module, bn: nn.BatchNorm1d, x: torch.Tensor,
@@ -117,10 +124,13 @@ def linear_bn_act(layer: nn.Module, bn: nn.BatchNorm1d, x: torch.Tensor,
 
 
 def linear_act(layer: nn.Module, x: torch.Tensor,
-               act: Optional[str] = None) -> torch.Tensor:
-    """``act(x @ w + b)``, no BN (the seg head's last layer), through
-    ``_matmul``."""
-    return core.activation(_matmul(layer, x), act)
+               act: Optional[str] = None,
+               frozen: bool = False) -> torch.Tensor:
+    """``act(x @ w + b)``, no BN (the seg head's last layer, the
+    discriminator's layers), through ``_matmul``; ``frozen``: the layer's
+    parameters get no gradient (the discriminator inside the generator
+    step)."""
+    return core.activation(_matmul(layer, x, frozen), act)
 
 
 def max_points(x: torch.Tensor) -> torch.Tensor:

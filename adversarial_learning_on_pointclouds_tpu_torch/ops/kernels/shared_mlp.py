@@ -5,6 +5,10 @@ Counterpart of ``adversarial_learning_on_pointclouds_tpu/ops/kernels/
 shared_mlp.py``:
 
 * ``fused_linear_affine_act`` (eval), ``csrc/shared_mlp.cu``;
+* ``fused_mlp_stack`` (inference: ``FCDiscriminator.infer``), a chain of
+  ``act((h @ w) * scale + shift)`` layers in one kernel,
+  ``csrc/mlp_stack.cu``; bf16 operands with fp32 sums under
+  ``core.mixed_precision``, as the JAX package's ``_mxu_dot``;
 * ``pointwise_matmul`` (training, under ``dispatch.use_pallas_train``):
   ``x @ w + b`` with its backward ``dx = g @ w^T``, ``dw = x^T g``,
   ``db = sum g``, three passes in ``csrc/pointwise_matmul.cu`` (``pm_fwd``,
@@ -20,7 +24,7 @@ plain PyTorch, which CPU tensors run.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -63,6 +67,86 @@ def fused_linear_affine_act(x: torch.Tensor, w: torch.Tensor,
 
 
 fused_linear_affine_act.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# fused_mlp_stack: a chain of pointwise layers in one kernel (inference)
+# ---------------------------------------------------------------------------
+
+def fused_mlp_stack_plain(x: torch.Tensor, weights: Sequence[torch.Tensor],
+                          shifts: Sequence[torch.Tensor],
+                          scales: Sequence[torch.Tensor],
+                          acts: Sequence[Optional[str]],
+                          bf16: bool = False) -> torch.Tensor:
+    """The chain layer by layer, ``h = act_i((h @ w_i) * scale_i +
+    shift_i)``, with bf16 matmul operands under ``bf16``."""
+    h = x
+    for w, shift, scale, act in zip(weights, shifts, scales, acts):
+        z = torch.matmul(core.operand(h, bf16), core.operand(w, bf16))
+        h = core.activation(z * scale + shift, act)
+    return h
+
+
+def fused_mlp_stack(x: torch.Tensor, weights: Sequence[torch.Tensor],
+                    shifts: Sequence[torch.Tensor],
+                    scales: Sequence[torch.Tensor],
+                    acts: Sequence[Optional[str]]) -> torch.Tensor:
+    """``x [B, N, C0]`` through the chain ``h = act_i((h @ w_i) * scale_i
+    + shift_i)``, ``w_i [C_i, C_i+1]`` (on a CUDA device the ``[in, out]``
+    view of a row-major ``[out, in]`` weight), ``shift_i``/``scale_i
+    [C_i+1]``, ``acts`` in ``None``/``"relu"``/``"leaky_relu"`` -> ``[B,
+    N, C_L]`` fp32; bf16 operands under ``core.mixed_precision``. Any N.
+
+    Forward only: with grad enabled, an input or weight that requires grad
+    raises. On the card a chain of more than ``launch.MAX_STACK`` layers
+    raises, and so does one whose activations (64 rows of the widest input
+    of each parity) and staging buffers exceed a block's shared memory."""
+    n_layers = len(weights)
+    if not n_layers or not len(shifts) == len(scales) == len(acts) == \
+            n_layers:
+        raise ValueError(f"fused_mlp_stack takes one shift, scale and act "
+                         f"per weight, got {n_layers} weights, "
+                         f"{len(shifts)} shifts, {len(scales)} scales and "
+                         f"{len(acts)} acts")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, *weights, *shifts, *scales)):
+        raise RuntimeError("fused_mlp_stack has no backward: call it under "
+                           "torch.no_grad() or torch.inference_mode()")
+    codes = [launch.act_code(a) for a in acts]
+    bf16 = core.compute_dtype() is not None
+    if launch.on_cpu(x):
+        return fused_mlp_stack_plain(x, weights, shifts, scales, acts, bf16)
+    if n_layers > launch.MAX_STACK:
+        raise ValueError(f"fused_mlp_stack takes at most {launch.MAX_STACK} "
+                         f"layers, got {n_layers}")
+    bsz, n, c0 = x.shape
+    dev = x.device
+    launch.expect("x", x, (bsz, n, c0), dev)
+    if bsz * n >= 2 ** 31:
+        raise ValueError(f"fused_mlp_stack takes fewer than 2^31 rows, got "
+                         f"{bsz * n}")
+    widths = [c0]
+    a = launch.StackArgs(rows=bsz * n, layers=n_layers,
+                         prec=launch.prec(bf16), x=x.data_ptr())
+    for i, (w, shift, scale) in enumerate(zip(weights, shifts, scales)):
+        c_out = w.shape[-1]
+        launch.expect(f"weights[{i}]", w, (widths[-1], c_out), dev,
+                      weight=True)
+        launch.expect(f"shifts[{i}]", shift, (c_out,), dev)
+        launch.expect(f"scales[{i}]", scale, (c_out,), dev)
+        a.w[i], a.shift[i], a.scale[i] = (w.t().data_ptr(), shift.data_ptr(),
+                                          scale.data_ptr())
+        widths.append(c_out)
+    a.width[:n_layers + 1] = widths
+    a.act[:n_layers] = codes
+    out = torch.empty((bsz, n, widths[-1]), device=dev, dtype=torch.float32)
+    a.out = out.data_ptr()
+    launch.call("pt_mlp_stack", dev, ctypes.addressof(a))
+    fused_mlp_stack.launches += 1
+    return out
+
+
+fused_mlp_stack.launches = 0
 
 
 # ---------------------------------------------------------------------------

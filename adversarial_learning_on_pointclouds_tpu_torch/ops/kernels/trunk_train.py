@@ -19,6 +19,13 @@ from the pooled output, BN2's elementwise backward and ``dx``/``dw2``.
 The returned batch statistics carry no gradient (running-statistic
 updates); everything the forward normalizes with is differentiated.
 
+``trunk3_train`` (the JAX package's, ``trunk_train.py:515``) puts conv1 +
+BN1 + ReLU in front: the whole T-Net conv stack, composed of the passes
+the port already has, in the JAX package's order: F1 on the raw input,
+the seg head's Pmid, F2; backward B1, the seg head's Bmid and B1
+(``seg_head_train.py``). Nothing in the models calls it, as in the JAX
+package.
+
 Two switches, on every pass and its twin:
 
 * ``groups``: the batch is ``groups`` stacked same-size streams (the
@@ -45,6 +52,9 @@ from adversarial_learning_on_pointclouds_tpu_torch.models.core import (
     BN_EPS, batch_moments,
 )
 from adversarial_learning_on_pointclouds_tpu_torch.ops import launch
+from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
+    seg_head_train,
+)
 
 _op = core.operand
 
@@ -345,3 +355,92 @@ def trunk2_train_reference(x, w2, b2, g2, be2, w3, b3, g3, be3):
     y3 = (z3 - mu3) * torch.rsqrt(var3 + BN_EPS) * g3 + be3
     return (y3.max(dim=1).values, mu2.detach(), var2.detach(), mu3.detach(),
             var3.detach())
+
+
+# ---------------------------------------------------------------------------
+# trunk3: conv1 + BN1 + ReLU folded in front (the whole T-Net conv stack)
+# ---------------------------------------------------------------------------
+
+class _Trunk3(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w1, b1, g1, be1, w2, b2, g2, be2, w3, b3, g3, be3):
+        bf16 = ctx.bf16 = core.compute_dtype() is not None
+        bsz, n, _ = x.shape
+        m = bsz * n
+        z1, s1, ss1 = f1(x, w1, b1, 1, bf16)
+        mu1, var1, inv1 = batch_moments(s1, ss1, m)
+        sc1 = g1 * inv1
+        sh1 = be1 - mu1 * sc1
+        z2, s2, ss2 = seg_head_train.pmid(z1, sc1, sh1, w2, b2, bf16)
+        mu2, var2, inv2 = batch_moments(s2, ss2, m)
+        sc2 = g2 * inv2
+        sh2 = be2 - mu2 * sc2
+        s3, ss3, mx, mn, imax, imin = f2(z2, sc2, sh2, w3, b3, 1, bf16)
+        mu3, var3, inv3 = batch_moments(s3, ss3, m)
+        s3c = g3 * inv3
+        pos = s3c >= 0
+        g = torch.where(pos, mx, mn) * s3c + (be3 - mu3 * s3c)
+        idx = torch.where(pos, imax, imin)
+        ctx.save_for_backward(x, z1, z2, w1, w2, w3, b3, mu1, inv1, sc1, sh1,
+                              mu2, inv2, sc2, sh2, mu3, inv3, g3, be3, g, idx)
+        ctx.mark_non_differentiable(mu1, var1, mu2, var2, mu3, var3)
+        return g, mu1, var1, mu2, var2, mu3, var3
+
+    @staticmethod
+    def backward(ctx, dg, *_stats):
+        (x, z1, z2, w1, w2, w3, b3, mu1, inv1, sc1, sh1, mu2, inv2, sc2, sh2,
+         mu3, inv3, g3, be3, g, idx) = ctx.saved_tensors
+        bf16 = ctx.bf16
+        bsz, n, _ = x.shape
+        m = bsz * n
+        s3c = g3 * inv3
+        # BN3's channel terms: zhat at the winners comes back from the
+        # pooled output (g3 == 0 guarded, as in the JAX VJP).
+        safe_g3 = torch.where(g3 == 0, torch.ones_like(g3), g3)
+        zhat_win = (g - be3) / safe_g3
+        s1 = dg.sum(0)
+        s2 = (dg * zhat_win).sum(0)
+        coef1, coef2 = ((s3c * t / m).expand(bsz, -1).contiguous()
+                        for t in (s1, s2))
+        s3dg = (s3c * dg).contiguous()
+        dy2, dw3, db3, t1_2, t2_2 = b1(z2, sc2, sh2, w3, b3, mu3, inv3, coef1,
+                                       coef2, s3dg, idx, mu2, inv2, 1, bf16)
+        # Each BN's reduction sums come from the pass after it, scaled to
+        # the coefficients of its dz = dy * sc - coef1 - zhat * coef2.
+        dy1, dw2, db2, t1_1, t2_1 = seg_head_train.bmid(
+            z2, dy2, sc2, mu2, inv2, sc2 * t1_2 / m, sc2 * t2_2 / m, z1, sc1,
+            sh1, w2, mu1, inv1, bf16)
+        dx, dw1, db1, _ = seg_head_train.b1(z1, dy1, sc1, mu1, inv1,
+                                            sc1 * t1_1 / m, sc1 * t2_1 / m, x,
+                                            w1, bf16)
+        return (dx, dw1, db1, t2_1, t1_1, dw2, db2, t2_2, t1_2, dw3, db3, s2,
+                s1)
+
+
+def trunk3_train(x, w1, b1, g1, be1, w2, b2, g2, be2, w3, b3, g3, be3):
+    """``x [B, N, c0]`` -> ``(pooled [B, c3], mu1, var1, mu2, var2, mu3,
+    var3)``: the max over points of ``bn3(relu(bn2(relu(bn1(x @ w1 + b1))
+    @ w2 + b2)) @ w3 + b3)`` with batch statistics (biased variances; the
+    six statistics carry no gradient, while everything the forward
+    normalizes with is differentiated). The caller applies the
+    reference's post-pool ReLU. Weights are ``[in, out]`` (on a CUDA
+    device, views of row-major ``[out, in]`` storage); bf16 operands and
+    stashes under ``core.mixed_precision``, as the passes take them."""
+    return _Trunk3.apply(x, w1, b1, g1, be1, w2, b2, g2, be2, w3, b3, g3,
+                         be3)
+
+
+def trunk3_train_reference(x, w1, b1, g1, be1, w2, b2, g2, be2, w3, b3, g3,
+                           be3):
+    """The whole function as a plain composition under torch autograd
+    (two-pass moments, ``max`` over points), for gradient checks."""
+    h, stats = x, []
+    for w, b, ga, be in ((w1, b1, g1, be1), (w2, b2, g2, be2),
+                         (w3, b3, g3, be3)):
+        if stats:
+            h = torch.relu(h)
+        z = torch.matmul(h, w) + b
+        mu, var = z.mean((0, 1)), z.var((0, 1), unbiased=False)
+        h = (z - mu) * torch.rsqrt(var + BN_EPS) * ga + be
+        stats += [mu.detach(), var.detach()]
+    return (h.max(dim=1).values, *stats)

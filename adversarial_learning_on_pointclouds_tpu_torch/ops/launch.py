@@ -138,6 +138,15 @@ FcHeadArgs = _struct(
      "w3", "b3", "out", "z1", "z2", "mu1", "var1", "inv1", "mu2", "var2",
      "inv2", "h1", "h2", "dh2", "dh", "dw1", "db1", "dg1", "dbe1", "dw2",
      "db2", "dg2", "dbe2", "dz1", "dz2"))
+# Mirror of the argument struct in csrc/mlp_stack.cu (at most MAX_STACK
+# layers).
+MAX_STACK = 8
+StackArgs = type("StackArgs", (ctypes.Structure,), {"_fields_": [
+    ("rows", ctypes.c_int), ("layers", ctypes.c_int), ("prec", ctypes.c_int),
+    ("width", ctypes.c_int * (MAX_STACK + 1)),
+    ("act", ctypes.c_int * MAX_STACK), ("x", ctypes.c_void_p),
+    ("w", ctypes.c_void_p * MAX_STACK), ("scale", ctypes.c_void_p * MAX_STACK),
+    ("shift", ctypes.c_void_p * MAX_STACK), ("out", ctypes.c_void_p)]})
 DZ_BN, DZ_TRUNK, DZ_SOFTMAX = 0, 1, 2   # BwdArgs.mode
 TILE = 64          # rows per block of the row kernels (kTile in csrc)
 # The ``prec`` bits of the argument structs (kRound... in common.cuh):

@@ -13,7 +13,9 @@ Each step is two updates, in this order:
    BCE(D(softmax(pred)), fake)``. The fake logits are the G step's,
    reused (exact against D's pre-update parameters, so D is updated
    last): the fakes run only the weight-gradient backward, the reals a
-   forward and the weight-gradient backward.
+   forward and the weight-gradient backward. Where the discriminator runs
+   layer by layer (below) there are no known logits: one D pass over the
+   stacked ``[fake_l; fake_u; real]``, as the JAX package's.
 
 Both nets take Adam (G's optimizer and schedule from the config, D
 always Adam). On a CUDA device the generator's training kernels and the
@@ -25,8 +27,9 @@ trunks across the two streams, and ``train_steps_scan`` takes K steps on
 K batches in one call, as ``bench.py`` runs the JAX package's step.
 Under ``ops.dispatch.use_pallas_train`` (``bench.py --pallas_train``) the
 generator takes the per-layer training kernels; at a point count the JAX
-package's fused kernels cannot tile, that raises (its layer-by-layer
-discriminator is still to port).
+package's fused kernels cannot tile (``ops.dispatch.layer_by_layer``) the
+generator's trunks and seg head and the discriminator run layer by
+layer, through ``pointwise_matmul`` and ``maxpool_points``.
 
     cfg = AdversarialConfig(); g_tx, d_tx = make_txs(cfg, steps_per_epoch)
     state = create_state(cfg, steps_per_epoch)        # on the card
@@ -137,18 +140,25 @@ def g_loss_fn(g_model: PointNetDenseCls, d_model: FCDiscriminator,
 
 def d_loss_fn(d_model: FCDiscriminator, probs_l: torch.Tensor,
               probs_u: torch.Tensor, y_l: torch.Tensor, num_parts: int,
-              fake_logits: torch.Tensor
+              fake_logits: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """The discriminator's objective on detached predictions (fake) and
-    one-hot labels (real): ``(loss, (d_real, d_fake))``. The fakes
-    ``[2B, N, k]`` take ``fake_logits``, which D made from them with its
-    current parameters in the G step, and run only the weight-gradient
-    backward; the reals run a forward and the weight-gradient backward."""
-    fake = torch.cat([probs_l, probs_u]).detach()
-    d_fake = d_model.with_known_logits(fake, fake_logits.detach())
+    one-hot labels (real): ``(loss, (d_real, d_fake))``. With
+    ``fake_logits``, which D made from the fakes ``[2B, N, k]`` with its
+    current parameters in the G step, the fakes run only the
+    weight-gradient backward and the reals a forward and the
+    weight-gradient backward; without, one D pass over the stacked
+    ``[fake_l; fake_u; real]``, split at ``2B``."""
     real = torch.nn.functional.one_hot(y_l.long(), num_parts).to(
         probs_l.dtype)
-    d_real = d_model.detached(real)
+    if fake_logits is None:
+        b = probs_l.shape[0]
+        d_all = d_model(torch.cat([probs_l, probs_u, real]).detach())
+        d_fake, d_real = d_all[:2 * b], d_all[2 * b:]
+    else:
+        fake = torch.cat([probs_l, probs_u]).detach()
+        d_fake = d_model.with_known_logits(fake, fake_logits.detach())
+        d_real = d_model.detached(real)
     return losses.d_loss(d_real, d_fake), (d_real, d_fake)
 
 
@@ -175,12 +185,7 @@ def train_step(state: state_lib.GANTrainState, x_l: torch.Tensor,
                                       state.device_step, 0)
     x_u = augment.chain_from_cfg(state.generator, cfg, x_u, None,
                                  state.device_step, 1)
-    if ops.layer_by_layer(x_l.shape[1]):
-        raise NotImplementedError(
-            f"use_pallas_train at N={x_l.shape[1]}, which the JAX package's "
-            "fused training kernels cannot tile: its discriminator then runs "
-            "layer by layer through pointwise_matmul, not ported yet "
-            "(ROADMAP, Queue 2)")
+    layerwise = ops.layer_by_layer(x_l.shape[1])
     semi_on = (state.device_step >= cfg.semi_start).float()
 
     with core.mixed_precision(enabled=cfg.bf16):
@@ -192,9 +197,10 @@ def train_step(state: state_lib.GANTrainState, x_l: torch.Tensor,
         state.g_scheduler.step()
 
         state.d_optimizer.zero_grad(set_to_none=True)
-        d_loss, _ = d_loss_fn(state.d_model, aux["probs_l"], aux["probs_u"],
-                              y_l, cfg.num_parts,
-                              torch.cat([aux["d_l"], aux["d_u"]]))
+        d_loss, _ = d_loss_fn(
+            state.d_model, aux["probs_l"], aux["probs_u"], y_l,
+            cfg.num_parts,
+            None if layerwise else torch.cat([aux["d_l"], aux["d_u"]]))
         d_loss.backward()
         state.d_optimizer.step()
         state.d_scheduler.step()

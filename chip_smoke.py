@@ -6,9 +6,10 @@ on_pointclouds_tpu_torch``: serving the part segmenter, its config-3
 training step, the config-4 adversarial G+D step in fp32, the G+D step
 as the JAX package's ``bench.py`` runs it: bf16 mixed precision,
 ``augment_fused``, K = 8 steps per call; and the config-3 and bench
-steps under ``use_pallas_train``, ``bench.py --pallas_train``; 50 parts,
-feature transform on) and holds each hand-written kernel against its
-plain PyTorch version.
+steps under ``use_pallas_train``, ``bench.py --pallas_train``, the G+D
+step under it at N=2500 too; the discriminator's inference chain; 50
+parts, feature transform on) and holds each hand-written kernel against
+its plain PyTorch version.
 Phases, one or more lines each:
 
 1. device: CUDA must be available; the card's name and power limit;
@@ -89,7 +90,30 @@ Phases, one or more lines each:
    (and the bench step's, bf16) against its plain pass and one PyTorch
    call computing the same product where there is one (``library_ms``),
    with its bound; the config-3 steps at N=2048 and 2500 and the bench
-   step at K=8, off and under the switch in turns.
+   step at K=8, off and under the switch in turns;
+18. stack-trunk3-kernels: ``fused_mlp_stack`` against its plain version
+   on the discriminator's chain at the serving shapes (B=32 N=2500), a
+   ragged N and B=1, and on a 3 -> 64 -> 128 -> 1024 ReLU chain with
+   non-unit scales, in fp32 and bf16; ``trunk3_train`` at STN3d's and
+   STNkd's widths (c_in 3 and 64) at B=32 N=2048, N=2500 and B=2, on
+   duplicated points with negative BN3 gammas: each of its six passes
+   against its plain pass, then its outputs and 13 gradients against
+   ``trunk3_train_reference`` and against conv1 + BN1 + ReLU in front of
+   ``trunk2_train``;
+19. adv-pallas-slice: the config-4 G+D step at 2 x B=32 x N=2500 under
+   the switch (``bench.py --pallas_train --points 2500``: the
+   discriminator layer by layer through ``pointwise_matmul``, no known
+   logits), in fp32 and in the bench configuration, card against CPU as
+   phase 16, launches per step checked, ``train_steps_scan`` at K=8
+   launching 8 x as many; 10 steps on the fixed batch lower the
+   supervised loss; ``FCDiscriminator.infer`` on the served segmenter's
+   probabilities (B=32 N=2500) against ``forward`` and the CPU, one
+   ``fused_mlp_stack`` launch; ``trunk3_train`` on its own at STN3d's
+   shapes (its six passes, once each);
+20. adv-pallas-timing: ``fused_mlp_stack`` and ``trunk3_train`` (forward
+   and backward) against their plain versions with their bounds; the
+   config-4 step at N=2500 off and under the switch in turns, in fp32
+   (one step per call) and as the bench step (K=8).
 
 The line before the last is a JSON object of the kernels' numbers: per
 kernel its time, its plain version's, and its bound (``bound_ms``: the
@@ -241,6 +265,30 @@ PT_BENCH_PER_STEP = {**ADV_PER_STEP, **PT_OFF,
                      "pool_fc_epilogue": {"fwd": 0},
                      "pointwise_matmul": {"fwd": 6, "dx": 4, "dW": 6},
                      "tnet_apply": {"fwd": 4, "dx": 2, "dT": 4}}
+# The config-4 step at N=2500 under the switch (bench.py --pallas_train
+# --points 2500): the generator as the config-3 step there, twice (the
+# paired heads' fc1 + BN plain: no fc_head_train), and the discriminator
+# layer by layer through pointwise_matmul: two frozen passes in the G step
+# (forward and dx, 5 + 5 each), one stacked pass at 3B in the D step
+# (forward 5, dW 5, dx 4: none into its detached input). No fused
+# training or discriminator kernel.
+PT_ADV_RAGGED_PER_STEP = {
+    **{k: {p: 0 for p in v} for k, v in ADV_PER_STEP.items()}, **PT_OFF,
+    "augment_fused": {"fwd": 0},
+    "pool_fc_epilogue": {"fwd": 0},
+    "pointwise_matmul": {"fwd": 24 + 15, "dx": 22 + 14, "dW": 24 + 5},
+    "maxpool_points": {"fwd": 6, "bwd": 6},
+    "tnet_apply": {"fwd": 4, "dx": 2, "dT": 4}}
+STACK_SITE = "shared_mlp.py:296"
+TRUNK3_SITE = "trunk_train.py:515"
+D_ACTS = ("leaky_relu",) * 4 + (None,)
+# trunk3_train's passes, in the order it runs them: (kernel module, pass).
+TRUNK3_PASSES = (("trunk_train", "F1"), ("seg_head_train", "Pmid"),
+                 ("trunk_train", "F2"), ("trunk_train", "B1"),
+                 ("seg_head_train", "Bmid"), ("seg_head_train", "B1"))
+# A conv bias in front of a batch-statistic BN has a zero gradient in
+# exact arithmetic: held to the norm of the same layer's weight gradient.
+TRUNK3_ZERO_GRADS = {2: 1, 6: 5, 10: 9}
 
 
 def phase(name: str, msg: str) -> None:
@@ -382,19 +430,33 @@ def _device_us(event) -> float:
     return event.self_cuda_time_total if us is None else us
 
 
+PROFILE_TRIES = 5
+
+
 def device_profile(fn, reps: int = 10):
     """``{kernel name: device ms per call}`` of ``fn``'s GPU work, from
-    torch.profiler (device activity only)."""
+    torch.profiler (device activity only). Now and then a window records
+    no device activity at all although ``fn`` launched kernels; such a
+    window is taken again, up to ``PROFILE_TRIES`` windows, and then this
+    raises: a lost reading never enters the output as 0 ms."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: _device_us(e) / reps / 1e3 for e in prof.key_averages()
-            if _device_us(e) > 0}
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out = {e.key: _device_us(e) / reps / 1e3
+               for e in prof.key_averages() if _device_us(e) > 0}
+        if out:
+            return out
+        phase("profile", "a torch.profiler window recorded no device "
+              "activity; profiling again")
+    raise RuntimeError(f"torch.profiler recorded no device activity in "
+                       f"{PROFILE_TRIES} windows: device time not measured")
 
 
 def layer_params(gen, c_in, c_out, dev):
@@ -1404,9 +1466,6 @@ def adv_slice(dev, card, gen):
     from adversarial_learning_on_pointclouds_tpu_torch.configs import (
         AdversarialConfig,
     )
-    from adversarial_learning_on_pointclouds_tpu_torch.train import (
-        adversarial,
-    )
 
     cfg = AdversarialConfig()
     runs, launches = step_runs(cfg, *adv_setup(cfg, gen, dev), "adv-slice",
@@ -1414,11 +1473,22 @@ def adv_slice(dev, card, gen):
     check_launches("adv-slice", launches, {**ADV_PER_STEP, **PT_OFF})
     compare_step("adv-slice", runs, cfg, STEP_BOUND, GRAD_BOUND)
 
-    state, _, _, batch, txs = runs["cuda"]
+    ten_steps("adv-slice", cfg, runs["cuda"])
+    return runs["cuda"], launches
+
+
+def ten_steps(tag, cfg, cuda_run):
+    """10 more G+D steps on the card's fixed batch: the supervised loss
+    must fall and every parameter stay finite."""
+    from adversarial_learning_on_pointclouds_tpu_torch.train import (
+        adversarial,
+    )
+
+    state, _, _, batch, txs = cuda_run
     seen = [adversarial.train_step(state, *batch, cfg=cfg, g_tx=txs[0],
                                    d_tx=txs[1]) for _ in range(10)]
     ce = [float(m["loss_ce"]) for m in seen]
-    phase("adv-slice", f"10 more G+D steps on the fixed batch: loss_ce "
+    phase(tag, f"10 more G+D steps on the fixed batch: loss_ce "
           f"{ce[0]:.5f} -> {ce[-1]:.5f}, loss_d {float(seen[0]['loss_d']):.5f}"
           f" -> {float(seen[-1]['loss_d']):.5f}")
     if not np.isfinite(ce).all() or not ce[-1] < ce[0]:
@@ -1426,7 +1496,6 @@ def adv_slice(dev, card, gen):
     for net in (state.g_model, state.d_model):
         if not all(torch.isfinite(p).all() for p in net.parameters()):
             raise AssertionError("non-finite parameters after training")
-    return runs["cuda"], launches
 
 
 def semi_mask_check(gaux, caux, threshold, tag="adv-slice"):
@@ -2342,6 +2411,409 @@ def pt_timing(card, rec, rec_bf, results, seg, bench):
               f"under the switch  {key[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# fused_mlp_stack, trunk3_train and the config-4 step at N=2500 under the
+# switch (phases 18-20)
+# ---------------------------------------------------------------------------
+
+def trunk3_args(gen, bsz, n, c0, dev):
+    """Inputs of ``trunk3_train`` at a T-Net's widths: STN3d's raw points
+    (c0=3) or STNkd's post-ReLU features (c0=64), the first half of the
+    clouds repeating their first half of points in the second (every
+    extremum there a tie), 64 -> 128 -> 1024 with negative BN3 gammas."""
+    x = torch.randn(bsz, n, c0, generator=gen)
+    if c0 > 3:
+        x = torch.relu(x)
+    x[:bsz // 2, n - n // 2:] = x[:bsz // 2, :n // 2]
+    args = [x.to(dev)]
+    for c_in, c_out, neg in ((c0, 64, 0.0), (64, 128, 0.0), (128, 1024, 0.3)):
+        args += [_w(gen, c_in, c_out, dev), _r(gen, c_out, dev=dev),
+                 _gam(gen, c_out, dev, negative=neg), _r(gen, c_out, dev=dev)]
+    return args
+
+
+def conv1_then_trunk2(x, w1, b1, g1, be1, *rest):
+    """conv1 + BN1 + ReLU in plain PyTorch (two-pass moments) in front of
+    the port's ``trunk2_train``: trunk3_train composed another way."""
+    from adversarial_learning_on_pointclouds_tpu_torch.models.core import (
+        BN_EPS,
+    )
+    from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
+        trunk_train as tt,
+    )
+
+    z1 = torch.matmul(x, w1) + b1
+    mu1, var1 = z1.mean((0, 1)), z1.var((0, 1), unbiased=False)
+    h1 = torch.relu((z1 - mu1) * torch.rsqrt(var1 + BN_EPS) * g1 + be1)
+    g, mu2, var2, mu3, var3 = tt.trunk2_train(h1, *rest)
+    return g, mu1.detach(), var1.detach(), mu2, var2, mu3, var3
+
+
+def fwd_bwd(fn, args):
+    """``fn``'s outputs and the gradients of ``sum(sin(out[0]))`` with
+    respect to every argument."""
+    leaves = [t.detach().clone().requires_grad_() for t in args]
+    out = fn(*leaves)
+    torch.sin(out[0]).sum().backward()
+    return [o.detach() for o in out], [t.grad for t in leaves]
+
+
+def trunk3_pass_checks(dev, gen, rec, args, tag, ptag, bf16=False):
+    """trunk3_train's six passes at its shapes, each against its plain
+    pass on the plain chain's outputs (as phase 6 runs trunk2's); with
+    ``bf16`` the passes as ``trunk3_train`` runs them under
+    ``core.mixed_precision`` (bf16 operands and stashes, as phase 12 runs
+    trunk2's), held to ``BF16_BOUND`` and ``check_stash``."""
+    from adversarial_learning_on_pointclouds_tpu_torch.models import core
+    from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
+        seg_head_train as sh, trunk_train as tt,
+    )
+
+    x, w1, b1, g1, be1, w2, b2, g2, be2, w3, b3, g3, be3 = args
+    bsz, n, _ = x.shape
+    m = bsz * n
+    k = "trunk3_train bf16" if bf16 else "trunk3_train"
+    xt = (1, True) if bf16 else ()       # the trunk passes' groups, bf16
+    xb = (True,) if bf16 else ()         # the seg-head passes' bf16
+    bnd = BF16_BOUND if bf16 else None
+    a = (x, w1, b1, *xt)
+    got, ref = tt.f1(*a), tt.f1_plain(*a)
+    rec.cmp(k, "F1", tag, ("z1", "sum", "sumsq"), got, ref, False, a,
+            phase_tag=ptag, bound=bnd)
+    z1 = ref[0]
+    mu1, _, inv1 = core.batch_moments(ref[1], ref[2], m)
+    sc1, sh1 = g1 * inv1, be1 - mu1 * g1 * inv1
+    a = (z1, sc1, sh1, w2, b2, *xb)
+    got, ref = sh.pmid(*a), sh.pmid_plain(*a)
+    rec.cmp(k, "Pmid", tag, ("z2", "sum", "sumsq"), got, ref, False, a,
+            phase_tag=ptag, bound=bnd)
+    z2 = ref[0]
+    mu2, _, inv2 = core.batch_moments(ref[1], ref[2], m)
+    sc2, sh2 = g2 * inv2, be2 - mu2 * g2 * inv2
+    a = (z2, sc2, sh2, w3, b3, *xt)
+    got, ref = tt.f2(*a), tt.f2_plain(*a)
+    rec.cmp(k, "F2", tag, ("sum", "sumsq", "max", "min"), got[:4], ref[:4],
+            False, a, phase_tag=ptag, bound=bnd)
+    z3 = torch.matmul(core.operand(torch.relu(z2.float() * sc2 + sh2), bf16),
+                      core.operand(w3, bf16)) + b3
+    check_winners(f"(trunk3) {tag}", got[4], ref[4], z3, x, bsz // 2, n,
+                  "max", ptag)
+    check_winners(f"(trunk3) {tag}", got[5], ref[5], -z3, x, bsz // 2, n,
+                  "min", ptag)
+    del z3
+    mu3, _, inv3 = core.batch_moments(ref[0], ref[1], m)
+    s3c = g3 * inv3
+    idx = torch.where(s3c >= 0, ref[4], ref[5])
+    dg = _r(gen, bsz, 1024, scale=1.0, dev=dev)
+    a = (z2, sc2, sh2, w3, b3, mu3, inv3,
+         _r(gen, bsz, 1024, scale=1e-3, dev=dev),
+         _r(gen, bsz, 1024, scale=1e-3, dev=dev), s3c * dg, idx, mu2, inv2,
+         *xt)
+    got, ref = tt.b1(*a), tt.b1_plain(*a)
+    rec.cmp(k, "B1", tag, ("dy2", "dw3", "db3", "t1", "t2"), got, ref, False,
+            a, phase_tag=ptag, bound=bnd)
+    dy2, t1, t2 = ref[0], ref[3], ref[4]
+    a = (z2, dy2, sc2, mu2, inv2, sc2 * t1 / m, sc2 * t2 / m, z1, sc1, sh1,
+         w2, mu1, inv1, *xb)
+    got, ref = sh.bmid(*a), sh.bmid_plain(*a)
+    rec.cmp(k, "Bmid", tag, ("dy_prev", "dw", "db", "t1", "t2"), got, ref,
+            False, a, dz_scales(sh, a), ptag, bnd)
+    dy1, t1, t2 = ref[0], ref[3], ref[4]
+    a = (z1, dy1, sc1, mu1, inv1, sc1 * t1 / m, sc1 * t2 / m, x, w1, *xb)
+    got, ref = sh.b1(*a), sh.b1_plain(*a)
+    rec.cmp(k, "head B1", tag, ("dpf", "dw1a", "db1", "r"), got, ref, False,
+            a, dz_scales(sh, a), ptag, bnd)
+
+
+def stack_trunk3_checks(dev, gen):
+    """Phase 18: ``fused_mlp_stack`` against its plain version, and
+    ``trunk3_train``'s passes and whole function, at the shapes of their
+    paths. Returns the record of the largest errors."""
+    from adversarial_learning_on_pointclouds_tpu_torch.models import core
+    from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
+        shared_mlp as sm, trunk_train as tt,
+    )
+
+    tag = "stack-trunk3-kernels"
+    rec = PassRecord()
+    ws, bs = disc_params(gen, dev)
+    chains = {"disc": (ws, bs, [torch.ones_like(b) for b in bs], D_ACTS)}
+    tw = [layer_params(gen, c_in, c_out, dev)
+          for c_in, c_out in ((3, 64), (64, 128), (128, 1024))]
+    chains["3->64->128->1024 relu"] = ([t[0] for t in tw], [t[1] for t in tw],
+                                       [t[2] for t in tw], ("relu",) * 3)
+    with torch.no_grad():
+        for name, (cw, csh, csc, acts) in chains.items():
+            shapes = ((B, N), (B, RAGGED_N), (1, N)) if name == "disc" \
+                else ((B, N),)
+            for bsz, n in shapes:
+                x = (prob_maps(gen, bsz, n, dev) if name == "disc" else
+                     _r(gen, bsz, n, cw[0].shape[0], scale=1.0, dev=dev))
+                for bf16 in (False, True):
+                    t = f"{name} B={bsz} N={n}{' bf16' if bf16 else ''}"
+                    with core.mixed_precision(enabled=bf16):
+                        got = sm.fused_mlp_stack(x, cw, csh, csc, acts)
+                    ref = sm.fused_mlp_stack_plain(x, cw, csh, csc, acts,
+                                                   bf16)
+                    rec.cmp("fused_mlp_stack", "fwd", t, ("out",), (got,),
+                            (ref,), False, (), phase_tag=tag,
+                            bound=BF16_BOUND if bf16 else BOUND)
+        torch.cuda.synchronize()
+
+    for c0 in (3, 64):
+        for bsz, n in ((B, TRAIN_N), (B, TRAIN_RAGGED_N), (2, TRAIN_N)):
+            at = f"c_in={c0} B={bsz} N={n}"
+            args = trunk3_args(gen, bsz, n, c0, dev)
+            with torch.no_grad():
+                trunk3_pass_checks(dev, gen, rec, args, at, tag)
+            out, grads = fwd_bwd(tt.trunk3_train, args)
+            for other, fn in (("reference", tt.trunk3_train_reference),
+                              ("conv1 + trunk2_train", conv1_then_trunk2)):
+                o_ref, g_ref = fwd_bwd(fn, args)
+                for i, (a_, b_) in enumerate(zip(out, o_ref)):
+                    check_norm(f"trunk3_train output {i} vs {other} {at}",
+                               a_, b_, tag=tag)
+                for i, (a_, b_) in enumerate(zip(grads, g_ref)):
+                    w = TRUNK3_ZERO_GRADS.get(i)
+                    check_norm(f"trunk3_train grad {i} vs {other} {at}", a_,
+                               b_, None if w is None else
+                               g_ref[w].norm().item(), tag)
+            torch.cuda.synchronize()
+    # bf16 at STN3d's input width, new to the passes: F1 on raw points and
+    # the head's B1 with a 3-wide dpf, each on a 32-column pad.
+    at = f"c_in=3 B={B} N={TRAIN_RAGGED_N} bf16"
+    with torch.no_grad():
+        trunk3_pass_checks(dev, gen, rec,
+                           trunk3_args(gen, B, TRAIN_RAGGED_N, 3, dev), at,
+                           tag, bf16=True)
+    torch.cuda.synchronize()
+    return rec
+
+
+def adv_pt_slice(dev, card, gen):
+    """Phase 19: the config-4 step at N=2500 under the switch in fp32 and
+    in the bench configuration (K=8 through ``train_steps_scan``), card
+    against CPU, launches per step; 10 steps on the fixed batch; D
+    inference on the served segmenter's probabilities; ``trunk3_train``
+    on its own. Returns what phase 20 times and the launches."""
+    from adversarial_learning_on_pointclouds_tpu_torch.configs import (
+        AdversarialConfig,
+    )
+    from adversarial_learning_on_pointclouds_tpu_torch.data import augment
+    from adversarial_learning_on_pointclouds_tpu_torch.models import (
+        FCDiscriminator, PointNetDenseCls,
+    )
+    from adversarial_learning_on_pointclouds_tpu_torch.ops import dispatch
+    from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
+        seg_head_train as sh, shared_mlp as sm, trunk_train as tt,
+    )
+    from adversarial_learning_on_pointclouds_tpu_torch.train import (
+        adversarial,
+    )
+
+    tag = "adv-pallas-slice"
+    out = {}
+    cfg = AdversarialConfig(batch_size=B, num_points=TRAIN_RAGGED_N)
+    setup = adv_setup(cfg, gen, dev)
+    t = f"{tag} fp32"
+    runs, launches = step_runs(cfg, *setup, t, dev, switch=True)
+    check_launches(t, launches, PT_ADV_RAGGED_PER_STEP)
+    compare_step(t, runs, cfg, STEP_BOUND, GRAD_BOUND)
+    with dispatch.use_pallas_train():
+        ten_steps(f"{tag} under the switch", cfg, runs["cuda"])
+    _, _, _, batch, txs = runs["cuda"]
+    out["fp32"] = (cfg, setup, batch, txs, launches)
+
+    bcfg = AdversarialConfig(batch_size=B, num_points=TRAIN_RAGGED_N,
+                             augment=True, bf16=True, pallas_augment=True,
+                             scan=BENCH_K)
+    bsetup = adv_setup(bcfg, gen, dev)
+    t = f"{tag} bench step"
+    yard = step_runs(dataclasses.replace(bcfg, bf16=False), *bsetup,
+                     f"{t} yardstick (fp32)", dev, ("cpu",),
+                     switch=True)[0]["cpu"]
+    runs, blaunches = step_runs(bcfg, *bsetup, t, dev, switch=True)
+    want = {**PT_ADV_RAGGED_PER_STEP, "augment_fused": {"fwd": AUG_PER_STEP}}
+    check_launches(t, blaunches, want)
+    compare_step(t, runs, bcfg, STEP_BOUND, GRAD_BOUND, yard)
+    rng = np.random.default_rng(SEED + 4)
+    x_k = [torch.from_numpy(rng.normal(size=(BENCH_K, B, TRAIN_RAGGED_N, 3))
+                            .astype(np.float32)).to(dev) for _ in range(2)]
+    y_k = torch.from_numpy(rng.integers(0, PARTS, (
+        BENCH_K, B, TRAIN_RAGGED_N))).to(dev)
+    batch_k = (x_k[0], y_k, x_k[1])
+    bstate, _, _, _, btxs = runs["cuda"]
+    counters = adv_counters()
+    reset(counters)
+    with dispatch.use_pallas_train():
+        scan = adversarial.train_steps_scan(bstate, *batch_k, cfg=bcfg,
+                                            g_tx=btxs[0], d_tx=btxs[1])
+    torch.cuda.synchronize()
+    got = read(counters)
+    for kern, per in want.items():
+        if got[kern] != {p: BENCH_K * c for p, c in per.items()}:
+            raise AssertionError(f"{kern} launched {got[kern]} in "
+                                 f"train_steps_scan K={BENCH_K}")
+    ce = scan["loss_ce"].tolist()
+    phase(tag, f"bench step: train_steps_scan K={BENCH_K} launched "
+          f"{BENCH_K} x the per-step counts; loss_ce over the batches "
+          + ", ".join(f"{v:.5f}" for v in ce))
+    if not np.isfinite(ce).all():
+        raise AssertionError("non-finite metrics")
+    out["bench"] = (bcfg, bsetup, batch_k, btxs, blaunches)
+
+    # D inference on the served segmenter's probabilities.
+    g = PointNetDenseCls(PARTS, feature_transform=True, generator=gen)
+    randomize_bn(g, gen)
+    d = FCDiscriminator(PARTS, generator=gen)
+    g, d_card = g.to(dev).eval(), copy.deepcopy(d).to(dev)
+    x = augment.normalize_unit_sphere(torch.randn(B, N, 3, generator=gen)
+                                      .to(dev))
+    with torch.no_grad():
+        probs = g(x)[0].exp()
+        sm.fused_mlp_stack.launches = 0
+        logits = d_card.infer(probs)
+        torch.cuda.synchronize()
+        stack_launches = sm.fused_mlp_stack.launches
+        fwd = d_card(probs)
+        cpu = d.infer(probs.cpu())
+    if stack_launches != 1 or logits.grad_fn is not None:
+        raise AssertionError(f"infer launched fused_mlp_stack "
+                             f"{stack_launches} times")
+    check("FCDiscriminator.infer vs forward (disc_fused) on the card",
+          logits, fwd, tag=tag)
+    check("FCDiscriminator.infer GPU vs CPU", logits.cpu(), cpu, tag=tag)
+    phase(tag, f"D inference B={B} N={N}: fused_mlp_stack launched "
+          f"{stack_launches} time, logits {tuple(logits.shape)}")
+    out["stack"] = ((probs, *d_card._params(),
+                     [torch.ones_like(b) for b in d_card._params()[1]]),
+                    stack_launches)
+
+    # trunk3_train on its own, at STN3d's shapes.
+    args = trunk3_args(gen, B, TRAIN_RAGGED_N, 3, dev)
+    passes = {"trunk_train": tt.PASSES, "seg_head_train": sh.PASSES}
+    reset(passes)
+    res = fwd_bwd(tt.trunk3_train, args)
+    torch.cuda.synchronize()
+    got = read(passes)
+    t3 = {f"{mod} {p}": got[mod][p] for mod, p in TRUNK3_PASSES}
+    if set(t3.values()) != {1} or sum(map(sum, (v.values() for v in
+                                                 got.values()))) != 6:
+        raise AssertionError(f"trunk3_train launched {got}")
+    if not all(torch.isfinite(v).all() for v in res[0] + res[1]):
+        raise AssertionError("trunk3_train: non-finite values")
+    phase(tag, f"trunk3_train B={B} N={TRAIN_RAGGED_N} c_in=3, forward and "
+          f"backward: launches {t3}")
+    out["trunk3"] = (args, sum(t3.values()))
+    return out
+
+
+def trunk3_work(args):
+    """``(flops, bytes)`` of one trunk3_train forward and backward: each
+    layer's product forward and its two products backward (dx, dW), and
+    x, the parameters, the pooled output, the statistics and every
+    gradient once."""
+    x, w1, _, _, _, w2, _, _, _, w3 = args[:10]
+    m = x.shape[0] * x.shape[1]
+    flops = 3 * 2 * m * sum(w.shape[0] * w.shape[1] for w in (w1, w2, w3))
+    params = sum(t.numel() for t in args[1:])
+    nbytes = 4 * (2 * x.numel() + 2 * params + x.shape[0] * w3.shape[1]
+                  + 2 * sum(w.shape[1] for w in (w1, w2, w3)))
+    return flops, nbytes
+
+
+def adv_pt_timing(card, rec, slice_out, results):
+    """Phase 20: each new kernel against its plain version, with its
+    bound, and the D's chain also against disc_fused's forward (the D's
+    other forward kernel) on the same inputs; the config-4 step at N=2500
+    under the switch and off it, in turns (one synchronized step per call
+    in fp32; the bench step through ``train_steps_scan`` at K=8)."""
+    from adversarial_learning_on_pointclouds_tpu_torch.ops import dispatch
+    from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
+        disc_fused, shared_mlp as sm, trunk_train as tt,
+    )
+    from adversarial_learning_on_pointclouds_tpu_torch.train import (
+        adversarial,
+    )
+
+    tag = "adv-pallas-timing"
+    (probs, ws, bs, ones), stack_launches = slice_out["stack"]
+    call = (probs, ws, bs, ones, D_ACTS)
+    with torch.no_grad():
+        ms, plain_ms = time_pair(lambda: sm.fused_mlp_stack(*call),
+                                 lambda: sm.fused_mlp_stack_plain(*call))
+        dev_ms = sum(device_profile(lambda: sm.fused_mlp_stack(*call))
+                     .values())
+        stack_ms, disc_ms = time_pair(
+            lambda: sm.fused_mlp_stack(*call),
+            lambda: disc_fused.disc_forward(probs, ws, bs))
+    bound_ms, bound_by = bound(*work(sm.fused_mlp_stack_plain, [call]))
+    phase(tag, f"{card}: fused_mlp_stack (the D's chain) B={B} N={N}: "
+          f"kernel {ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f} "
+          f"ms, bound {bound_ms:.4f} ms ({bound_by}); in turns with "
+          f"disc_fused's forward under no_grad: fused_mlp_stack "
+          f"{stack_ms:.4f} ms, disc_fused fwd {disc_ms:.4f} ms")
+    results.append({
+        "name": "fused_mlp_stack", "route": "cuda",
+        "source": f"{KERNELS_ROOT}/csrc/mlp_stack.cu",
+        "replaces": f"{TPU_KERNELS}/{STACK_SITE}",
+        "launches": stack_launches,
+        "max_abs_err": rec.err[("fused_mlp_stack", "fwd")], "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None, "device_ms": dev_ms,
+        "turns_ms": stack_ms, "disc_fused_fwd_turns_ms": disc_ms,
+        "times": f"per D inference at B={B} N={N}"})
+
+    args, t3_launches = slice_out["trunk3"]
+
+    def kernel():
+        fwd_bwd(tt.trunk3_train, args)
+
+    def plain():
+        fwd_bwd(tt.trunk3_train_reference, args)
+
+    ms, plain_ms = time_pair(kernel, plain)
+    dev_ms = sum(device_profile(kernel).values())
+    bound_ms, bound_by = bound(*trunk3_work(args))
+    phase(tag, f"{card}: trunk3_train forward + backward B={B} "
+          f"N={TRAIN_RAGGED_N} c_in=3: kernels {ms:.4f} ms (device "
+          f"{dev_ms:.4f}), plain reference {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by})")
+    results.append({
+        "name": "trunk3_train", "route": "cuda",
+        "source": f"{KERNELS_ROOT}/csrc/trunk_train.cu",
+        "sources": [f"{KERNELS_ROOT}/csrc/trunk_train.cu",
+                    f"{KERNELS_ROOT}/csrc/seg_head_train.cu"],
+        "replaces": f"{TPU_KERNELS}/{TRUNK3_SITE}", "launches": t3_launches,
+        "max_abs_err": max(v for (kern, _), v in rec.err.items()
+                           if kern == "trunk3_train"),
+        "bf16_max_abs_err": max(v for (kern, _), v in rec.err.items()
+                                if kern == "trunk3_train bf16"),
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": None, "device_ms": dev_ms,
+        "times": f"per forward + backward at B={B} N={TRAIN_RAGGED_N} "
+                 "c_in=3 (six passes)"})
+
+    cfg, setup, batch, txs, _ = slice_out["fp32"]
+    states = {s: adversarial.create_state(
+        cfg, 100, device="cuda", g_model=copy.deepcopy(setup[0]),
+        d_model=copy.deepcopy(setup[1])) for s in (False, True)}
+    for switch in (False, True, True, False):
+        with dispatch.use_pallas_train(switch):
+            time_step(card, f"{tag} N={TRAIN_RAGGED_N} "
+                      f"{'under' if switch else 'off'} the switch", cfg,
+                      states[switch], batch, txs)
+    bcfg, bsetup, batch_k, btxs, _ = slice_out["bench"]
+    states = {s: adversarial.create_state(
+        bcfg, 100, device="cuda", g_model=copy.deepcopy(bsetup[0]),
+        d_model=copy.deepcopy(bsetup[1])) for s in (False, True)}
+    for switch in (False, True, True, False):
+        with dispatch.use_pallas_train(switch):
+            time_scan(card, f"bench step N={TRAIN_RAGGED_N} "
+                      f"{'under' if switch else 'off'} the switch", bcfg,
+                      states[switch], batch_k, btxs)
+
+
 def kernel_entry(name, src, site, launches, passes, times):
     """One kernel's line in the JSON: its passes' numbers summed; the
     bound is the sum of the passes' bounds, bound by what bounds the
@@ -2466,6 +2938,9 @@ def main() -> None:
     pt_kernel_checks(dev, gen, rec_pt, rec_pt_bf)
     seg, bench_pt = pt_slice(dev, card, gen)
     pt_timing(card, rec_pt, rec_pt_bf, results, seg, bench_pt)
+    rec_st = stack_trunk3_checks(dev, gen)
+    slice_out = adv_pt_slice(dev, card, gen)
+    adv_pt_timing(card, rec_st, slice_out, results)
 
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {

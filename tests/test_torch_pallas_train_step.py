@@ -21,6 +21,13 @@ package's ``use_pallas(training=True)`` (``bench.py --pallas_train``).
 * ``train_tiling_ok`` equals the JAX package's for N in 1..3000; the
   switch is off by default, and off it the dispatch reaches none of the
   four kernels and the same fused passes as before.
+* The config-4 G+D step at N=516 under the switch (the discriminator
+  layer by layer, one stacked D pass, no known logits) against the JAX
+  package's ``_train_step_impl`` under ``use_pallas(training=True)`` at
+  the model-level bounds: every metric, running statistic and G and D
+  gradient; its launches per step on and off the switch; the frozen
+  discriminator's ``.grad`` stays ``None`` with no dW pass; the bf16
+  bench objectives at N=516, bounded as at N=128.
 """
 
 import contextlib
@@ -55,8 +62,8 @@ from adversarial_learning_on_pointclouds_tpu_torch.models import (
 )
 from adversarial_learning_on_pointclouds_tpu_torch.ops import dispatch
 from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
-    fc_head_train, maxpool_points, pool_fc_epilogue, seg_head_train,
-    shared_mlp, tnet_apply, trunk_train,
+    disc_fused, fc_head_train, maxpool_points, pool_fc_epilogue,
+    seg_head_train, shared_mlp, tnet_apply, trunk_train,
 )
 from adversarial_learning_on_pointclouds_tpu_torch.train import (
     adversarial, segment,
@@ -179,11 +186,11 @@ _OLD = {"trunk2_train": (trunk_train, trunk_train.PASSES),
 
 
 @contextlib.contextmanager
-def _count_passes(monkeypatch):
+def _count_passes(monkeypatch, kernels=None):
     """Counts every pass call (CPU tensors run the plain twins, so the
     wrappers' own launch counts stay at 0)."""
     counts = {}
-    for kernel, (module, passes) in {**_NEW, **_OLD}.items():
+    for kernel, (module, passes) in (kernels or {**_NEW, **_OLD}).items():
         for pas, fn in passes.items():
             def counted(*a, _fn=fn, _key=(kernel, pas), **k):
                 counts[_key] = counts.get(_key, 0) + 1
@@ -296,19 +303,170 @@ def test_train_tiling_ok_matches_jax():
         assert not dispatch.layer_by_layer(2048)
 
 
-def test_adversarial_step_refuses_untileable_n_under_the_switch():
-    """The JAX package's discriminator runs layer by layer there, which
-    the port does not have yet: the step raises instead of running
-    another path."""
-    cfg = AdversarialConfig(batch_size=2, num_points=516, epochs=1)
+# ---------------------------------------------------------------------------
+# The config-4 G+D step at an untileable N under the switch
+# ---------------------------------------------------------------------------
+
+_DISC = {"disc_fused": (disc_fused, disc_fused.PASSES)}
+_ALL = {**_NEW, **_OLD, **_DISC}
+_NO_DISC = {"disc_fused": {p: 0 for p in disc_fused.PASSES}}
+# Per config-4 step (paired heads, fp32): the generator's passes for two
+# streams; the discriminator's, fused (off the switch) or layer by layer.
+EXPECTED_ADV = {
+    # The G as config 3 at N=516, twice (the paired heads' fc1 + BN run
+    # plain: no fc_head_train); the D layer by layer: two frozen passes
+    # in the G step (forward and dx, no dW), one stacked pass at 3B in
+    # the D step (no dx into its detached input).
+    "switch": {**_NONE, **_NO_DISC,
+               "pointwise_matmul": {"fwd": 24 + 15, "dx": 22 + 14,
+                                    "dW": 24 + 5},
+               "maxpool_points": {"fwd": 6, "bwd": 6},
+               "tnet_apply": {"fwd": 4, "dx": 2, "dT": 4},
+               "trunk2_train": {"F1": 0, "F2": 0, "B1": 0},
+               "seg_head_train": {p: 0 for p in _DEFAULT["seg_head_train"]},
+               "pool_fc_epilogue": {"fwd": 0}},
+    # Off the switch, as before: the fused passes at every N, the D's
+    # two frozen forwards and the D step's known-logits passes.
+    "off": {**_NONE,
+            "trunk2_train": {"F1": 6, "F2": 6, "B1": 6},
+            "seg_head_train": {p: 2 * c for p, c in
+                               _DEFAULT["seg_head_train"].items()},
+            "pool_fc_epilogue": {"fwd": 2},
+            "disc_fused": {"fwd": 3, "bwd_dx": 2, "bwd_dw": 2, "bwd": 0}},
+}
+AN, AB = 516, 8
+
+
+def _adv_count(monkeypatch, switch, fn):
+    with _count_passes(monkeypatch, _ALL) as counts, \
+            dispatch.use_pallas_train(switch):
+        fn()
+    return {k: {p: counts.get((k, p), 0) for p in passes}
+            for k, (_, passes) in _ALL.items()}
+
+
+@pytest.mark.parametrize("switch", [True, False], ids=["switch", "off"])
+def test_adversarial_step_passes_at_untileable_n(monkeypatch, switch):
+    """The launches of one G+D step at N=516 (untileable for the JAX
+    package's fused kernels), under the switch and off it."""
+    cfg = AdversarialConfig(batch_size=2, num_points=AN, epochs=1)
     state = adversarial.create_state(cfg, 10, device="cpu")
     txs = adversarial.make_txs(cfg, 10)
-    x = torch.randn(2, 516, 3)
-    y = torch.zeros(2, 516, dtype=torch.long)
-    with dispatch.use_pallas_train(), \
-            pytest.raises(NotImplementedError, match="layer by layer"):
-        adversarial.train_step(state, x, y, x, cfg=cfg, g_tx=txs[0],
-                               d_tx=txs[1])
+    x = torch.from_numpy(_batch(AN)[0][:2])
+    y = torch.zeros(2, AN, dtype=torch.long)
+    got = _adv_count(monkeypatch, switch, lambda: adversarial.train_step(
+        state, x, y, x, cfg=cfg, g_tx=txs[0], d_tx=txs[1]))
+    assert got == EXPECTED_ADV["switch" if switch else "off"]
+
+
+def test_frozen_layerwise_discriminator_gets_no_gradient(monkeypatch):
+    """The G step under the switch at N=516: D's layers run frozen, with
+    forward and dx passes only (no dW pass), and D's ``.grad`` stays
+    ``None``; G's gradients are all there."""
+    cfg = AdversarialConfig(batch_size=2, num_points=AN)
+    g = PointNetDenseCls(PARTS, feature_transform=True,
+                         generator=torch.Generator().manual_seed(0)).train()
+    d = FCDiscriminator(PARTS, generator=torch.Generator().manual_seed(1))
+    x = torch.from_numpy(_batch(AN)[0][:2])
+    y = torch.zeros(2, AN, dtype=torch.long)
+
+    def g_step():
+        total, _ = adversarial.g_loss_fn(g, d, x, y, x, cfg, 1.0)
+        total.backward()
+
+    got = _adv_count(monkeypatch, True, g_step)
+    assert got["pointwise_matmul"] == {"fwd": 24 + 10, "dx": 22 + 10,
+                                       "dW": 24}
+    assert all(p.grad is None for p in d.parameters())
+    assert all(p.grad is not None for p in g.parameters())
+
+
+@pytest.fixture(scope="module")
+def adv_models():
+    g_params, g_state = init_segmenter(jax.random.PRNGKey(0), PARTS,
+                                       feature_transform=True)
+    g_params = jax.tree_util.tree_map(np.array, g_params)
+    g_state = jax.tree_util.tree_map(np.asarray, g_state)
+    _randomize_bn(g_params, g_state, np.random.default_rng(0))
+    d_params = jax.tree_util.tree_map(
+        np.array, init_discriminator(jax.random.PRNGKey(1), PARTS))
+    rng = np.random.default_rng(5)
+    x_l, x_u = (rng.normal(size=(AB, AN, 3)).astype(np.float32)
+                for _ in range(2))
+    y_l = rng.integers(0, PARTS, size=(AB, AN)).astype(np.int32)
+    return g_params, g_state, d_params, (x_l, y_l, x_u)
+
+
+def test_adversarial_step_at_untileable_n_matches_jax(adv_models):
+    """One config-4 G+D step at N=516 under the switch against the JAX
+    package's ``_train_step_impl`` under ``use_pallas(training=True)``
+    (its Pallas kernels in interpret mode; the generator and the
+    discriminator layer by layer, no known logits, one D pass over
+    ``[fake_l; fake_u; real]``): every metric, every new running statistic
+    and every G and D gradient the step takes. JAX's step runs with
+    ``optax.identity()`` for both nets, so each new parameter is the old
+    one plus its gradient (the sum's rounding is 1e-7 of the parameter,
+    far below the bound). The points go in as they are (``normalize``
+    off on both sides): on points normalized to the unit sphere this
+    fixture's input T-Net gradients are ill-conditioned in fp32, the
+    port's and JAX's alike (3e-2 of (1 + max|g|) from float64 on the
+    CPU)."""
+    import optax
+
+    from adversarial_learning_on_pointclouds_tpu.train import (
+        state as jax_state,
+    )
+
+    g_params, g_state, d_params, batch = adv_models
+    jcfg = JaxAdversarialConfig(num_points=AN, batch_size=AB,
+                                feature_transform=True, normalize=False)
+    tx = optax.identity()
+    jstate = jax_state.GANTrainState(
+        g_params=g_params, g_bn_state=g_state, g_opt_state=tx.init(g_params),
+        d_params=d_params, d_opt_state=tx.init(d_params),
+        step=jnp.zeros((), jnp.int32), rng=jax.random.PRNGKey(0))
+    with use_pallas(True, training=True):
+        assert not jax_ops.train_tiling_ok(AN)
+        new_state, ref = jax.jit(lambda st, *b: jax_adv._train_step_impl(
+            st, *b, jcfg, tx, tx))(jstate, *map(jnp.asarray, batch))
+    g_grads, d_grads = (jax.tree_util.tree_map(
+        lambda new, old: np.asarray(new) - old, new, old)
+        for new, old in ((new_state.g_params, g_params),
+                         (new_state.d_params, d_params)))
+
+    g = PointNetDenseCls(PARTS, feature_transform=True)
+    g.load_state_dict(convert.segmenter_state_dict(g_params, g_state),
+                      strict=True)
+    d = FCDiscriminator(PARTS)
+    d.load_state_dict(convert.discriminator_state_dict(d_params), strict=True)
+    cfg = AdversarialConfig(num_points=AN, batch_size=AB, normalize=False)
+    state = adversarial.create_state(cfg, 10, device="cpu", g_model=g,
+                                     d_model=d)
+    txs = adversarial.make_txs(cfg, 10)
+    x_l, y_l, x_u = (torch.from_numpy(np.array(a)) for a in batch)
+    with dispatch.use_pallas_train():
+        metrics = adversarial.train_step(state, x_l, y_l.long(), x_u,
+                                         cfg=cfg, g_tx=txs[0], d_tx=txs[1])
+    assert set(metrics) == set(ref)
+    for k in ("loss_g", "loss_ce", "loss_adv", "loss_semi", "loss_d"):
+        _scaled_close(metrics[k], ref[k], RTOL)
+    assert abs(float(metrics["acc"]) - float(ref["acc"])) <= 2.0 / (AB * AN)
+
+    want = convert.segmenter_state_dict(g_params, new_state.g_bn_state)
+    got = g.state_dict()
+    stats = [k for k in want if k.endswith(("running_mean", "running_var"))]
+    assert len(stats) == 2 * 16
+    for k in stats:
+        _scaled_close(got[k], want[k], RTOL)
+
+    for model, want_g in (
+            (g, convert.segmenter_state_dict(g_grads, g_state)),
+            (d, convert.discriminator_state_dict(d_grads))):
+        params = dict(model.named_parameters())
+        scale = max(float(want_g[k].abs().max()) for k in params)
+        for k, p in params.items():
+            diff = float((p.grad - want_g[k]).abs().max())
+            assert diff <= GRAD_TOL * (1 + scale), (k, diff)
 
 
 # ---------------------------------------------------------------------------
@@ -318,8 +476,7 @@ def test_adversarial_step_refuses_untileable_n_under_the_switch():
 BN = 128
 
 
-@pytest.fixture(scope="module")
-def models():
+def _models(n, normalize=True):
     g_params, g_state = init_segmenter(jax.random.PRNGKey(0), PARTS,
                                        feature_transform=True)
     g_params = jax.tree_util.tree_map(np.array, g_params)
@@ -328,16 +485,24 @@ def models():
     d_params = jax.tree_util.tree_map(
         np.array, init_discriminator(jax.random.PRNGKey(1), PARTS))
     rng = np.random.default_rng(1)
-    x_l, x_u = (np.asarray(jax_augment.normalize_unit_sphere(jnp.asarray(
-        rng.normal(size=(B, BN, 3)).astype(np.float32)))) for _ in range(2))
-    y_l = rng.integers(0, PARTS, size=(B, BN)).astype(np.int32)
+    x_l, x_u = (rng.normal(size=(B, n, 3)).astype(np.float32)
+                for _ in range(2))
+    if normalize:
+        x_l, x_u = (np.asarray(jax_augment.normalize_unit_sphere(
+            jnp.asarray(x))) for x in (x_l, x_u))
+    y_l = rng.integers(0, PARTS, size=(B, n)).astype(np.int32)
     return g_params, g_state, d_params, (x_l, y_l, x_u)
+
+
+@pytest.fixture(scope="module")
+def models():
+    return _models(BN)
 
 
 def _jax_objectives(models, bf16):
     g_params, g_state, d_params, batch = models
     x_l, y_l, x_u = map(jnp.asarray, batch)
-    jcfg = JaxAdversarialConfig(num_points=BN, batch_size=B,
+    jcfg = JaxAdversarialConfig(num_points=x_l.shape[1], batch_size=B,
                                 feature_transform=True, bf16=bf16)
     with use_pallas(True, training=True), \
             jax_core.mixed_precision(enabled=bf16):
@@ -362,7 +527,9 @@ def _rel(a, b):
     return float(np.abs(a - b).max()) / max(float(np.abs(b).max()), 1.0)
 
 
-def test_bf16_objectives_under_the_switch_match_jax(models, jax_objectives):
+def _bf16_objectives_match(models, jax_objectives):
+    """The port's bf16 objectives under the switch against JAX's, each held
+    to the larger of the fp32 bound and twice what bf16 moves JAX's own."""
     g_params, g_state, d_params, batch = models
     g = PointNetDenseCls(PARTS, feature_transform=True)
     g.load_state_dict(convert.segmenter_state_dict(g_params, g_state),
@@ -371,7 +538,7 @@ def test_bf16_objectives_under_the_switch_match_jax(models, jax_objectives):
     d = FCDiscriminator(PARTS)
     d.load_state_dict(convert.discriminator_state_dict(d_params), strict=True)
     x_l, y_l, x_u = (torch.from_numpy(np.array(a)) for a in batch)
-    cfg = AdversarialConfig(num_points=BN, batch_size=B, bf16=True)
+    cfg = AdversarialConfig(num_points=x_l.shape[1], batch_size=B, bf16=True)
     assert cfg.paired_heads
     with dispatch.use_pallas_train(), core.mixed_precision():
         total, aux = adversarial.g_loss_fn(g, d, x_l, y_l.long(), x_u, cfg,
@@ -392,3 +559,16 @@ def test_bf16_objectives_under_the_switch_match_jax(models, jax_objectives):
     moved = max(float((fp32[k] - want[k]).abs().max())
                 for k in names) / (1 + scale)
     assert err <= max(GRAD_TOL, YARD * moved), (err, moved)
+
+
+def test_bf16_objectives_under_the_switch_match_jax(models, jax_objectives):
+    _bf16_objectives_match(models, jax_objectives)
+
+
+def test_bf16_objectives_at_untileable_n_match_jax():
+    """The bench objectives at N=516 under the switch: the generator's
+    trunks and seg head and both frozen discriminator passes layer by
+    layer, as the JAX package runs them there; bounded as at N=128."""
+    models_516 = _models(AN)
+    _bf16_objectives_match(models_516, {
+        bf16: _jax_objectives(models_516, bf16) for bf16 in (False, True)})
