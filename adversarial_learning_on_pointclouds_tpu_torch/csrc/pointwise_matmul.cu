@@ -7,23 +7,29 @@
 // the same kernel on W^T) and _dwdb_call (shared_mlp.py:160: dW and db
 // accumulated over the grid).
 //
-// What bounds it here: the layers on its path run 3 -> 64 up to 128 ->
-// 1024 wide over 65,536-80,000 rows. The narrow ones (Cin 3 or 64) do 6
-// to 128 FMAs per byte of output, so device-memory traffic bounds them;
-// the wide ones (128 -> 1024, 512 -> 256) are some 20 GFLOP each and fp32
-// FMA throughput bounds them (67 TFLOP/s).
+// What bounds it on the H100: the layers on its path run 3 -> 64 up to
+// 128 -> 1024 (the generator) and 50 -> 64 down to 512 -> 1 (the
+// discriminator) over 65,536-240,000 rows. The wide ones are 20-60 GFLOP
+// a product, past the 67 TFLOP/s of fp32 FMA; the narrow ones (c_in or
+// c_out 1-64) are bound by device-memory traffic.
 //
-// What the design does about that: every product is one strided GEMM
-// (strided_gemm.cuh) on the tensors as they lie: the forward reads the
-// weight as PyTorch's [out, in] rows, dx reads the same storage along
-// its columns, and dW reads x and g transposed, so nothing is copied.
-// The bias is added in the GEMM's store. dW and db sum over all rows:
-// the rows split into ranges, one per block of the grid's z axis, each
-// range's fp32 partial written to scratch and the ranges added in fp64
-// in a fixed order, so the result does not depend on scheduling. Under
-// mixed precision (prec & kRound) the forward and dx take bf16-rounded
-// operands, as the JAX package's _mxu_dot; dW and db never do (its
-// _dwdb_call runs at HIGHEST precision on the fp32 operands).
+// What the design does about that: every product is one call of the
+// GEMM core (strided_gemm.cu: tensor cores, a cp.async ring, 3xTF32 for
+// fp32, streaming kernels for depth or width <= 4) on the tensors as
+// they lie:
+// the forward reads the weight as PyTorch's [out, in] rows, dx reads the
+// same storage along its columns, and dW reads g and x along their rows
+// (both views' contiguous axis is the one the core copies along), so
+// nothing is copied. The bias is added in the GEMM's store. dW and db sum
+// over all rows: the rows split into ranges, one per block of the grid's
+// z axis, each range's fp32 partial written to scratch and the ranges
+// added in fp64 in a fixed order, so the result does not depend on
+// scheduling; db's partials come from the dW blocks of the first column
+// tile, which sum the g tiles already in their shared memory, so g is
+// read once. Under mixed precision (prec & kRound) the forward and dx
+// take bf16-rounded operands, as the JAX package's _mxu_dot; dW and db
+// never do (its _dwdb_call runs at HIGHEST precision on the fp32
+// operands).
 
 #include "strided_gemm.cuh"
 
@@ -45,29 +51,6 @@ struct PmArgs {
 };
 
 namespace {
-
-// part[s][c] = sum of g[r][c] over the rows r of range s (fp32, in row
-// order within a lane, the 8 lanes added in order).
-__global__ void __launch_bounds__(kThreads)
-colsum_rows_kernel(const float* __restrict__ g, int rows, int cols,
-                   int splits, float* __restrict__ part) {
-  __shared__ float red[kWarps][33];
-  const int cl = threadIdx.x & 31, rl = threadIdx.x >> 5;
-  const int c = blockIdx.x * 32 + cl, s = blockIdx.y;
-  const int per = (int)cdiv(rows, splits);
-  const int r0 = s * per, r1 = min(rows, r0 + per);
-  float t = 0.f;
-  if (c < cols)
-    for (int r = r0 + rl; r < r1; r += kWarps)
-      t += __ldg(g + (size_t)r * cols + c);
-  red[rl][cl] = t;
-  __syncthreads();
-  if (rl == 0 && c < cols) {
-    float u = 0.f;
-    for (int w = 0; w < kWarps; ++w) u += red[w][cl];
-    part[(size_t)s * cols + c] = u;
-  }
-}
 
 bool bad(const PmArgs* a) {
   return a->rows <= 0 || a->c_in <= 0 || a->c_out <= 0;
@@ -126,13 +109,10 @@ extern "C" int pt_pm_dwdb(const pointtpu::PmArgs* a, int device,
   g.sbk = a->c_in, g.sbn = 1;          // B[r][i] = x[r][i]
   g.ldc = a->c_in, g.bsc = wsz;        // one [c_out, c_in] partial per range
   g.a = a->g, g.b = a->x, g.c = a->part;
+  float* part_b = a->part + (size_t)a->splits * wsz;
+  g.asum = part_b;                     // db's partial: A's row sums
   int s = gemm(g, false, stream);
   if (s) return s;
-  float* part_b = a->part + (size_t)a->splits * wsz;
-  colsum_rows_kernel<<<dim3((unsigned)cdiv(a->c_out, 32), a->splits),
-                       kThreads, 0, stream>>>(a->g, a->rows, a->c_out,
-                                              a->splits, part_b);
-  if ((s = (int)cudaGetLastError())) return s;
   if ((s = split_sum(a->part, a->splits, wsz, 1, a->dw, stream))) return s;
   return split_sum(part_b, a->splits, a->c_out, 1, a->db, stream);
 }

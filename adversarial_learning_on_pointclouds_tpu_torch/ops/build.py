@@ -8,7 +8,8 @@ library's name carries a hash of the sources and flags, so an edited
 source builds anew and an unchanged one loads from
 ``adversarial_learning_on_pointclouds_tpu_torch/build/``. The build runs
 at first use (a few seconds) and raises with nvcc's output if it fails;
-nothing falls back.
+nothing falls back. ``ptxas -v``'s report of each kernel's registers and
+spills is kept (``resource_usage``).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -28,7 +30,7 @@ PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _U, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, \
     ctypes.c_longlong, ctypes.c_float
@@ -77,9 +79,30 @@ def nvcc() -> str:
                        "port's kernels build from csrc/ at first use")
 
 
-# Seconds each source took to compile in this process's last build
-# (empty when the library loaded from BUILD).
+# Seconds each source took to compile in this process's last build, and
+# ``{source: ptxas_usage(...)}`` of it (both empty when the library
+# loaded from BUILD).
 compile_seconds: dict = {}
+resource_usage: dict = {}
+
+
+def ptxas_usage(text: str) -> dict:
+    """``{mangled kernel: (registers, spill store bytes, spill load
+    bytes)}`` from ``ptxas -v``'s report on one source."""
+    usage, fn, props, spills = {}, None, None, (0, 0)
+    for line in text.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            fn, spills = m[1], (0, 0)
+        elif m := re.search(r"Function properties for (\S+)", line):
+            props = m[1]
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", line):
+            if props == fn:
+                spills = (int(m[1]), int(m[2]))
+        elif (m := re.search(r"Used (\d+) registers", line)) and fn:
+            usage[fn] = (int(m[1]), *spills)
+            fn = None
+    return usage
 
 
 def _run(cmd):
@@ -87,11 +110,12 @@ def _run(cmd):
                             stderr=subprocess.STDOUT, text=True)
 
 
-def _wait(cmd, proc) -> None:
+def _wait(cmd, proc) -> str:
     out, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
                            f"{' '.join(cmd)}\n{out}")
+    return out
 
 
 def _compile_all(cmds, names) -> None:
@@ -103,7 +127,7 @@ def _compile_all(cmds, names) -> None:
 
     def wait(i):
         try:
-            _wait(cmds[i], procs[i])
+            resource_usage[names[i]] = ptxas_usage(_wait(cmds[i], procs[i]))
         except RuntimeError as e:
             errors[i] = e
         compile_seconds[names[i]] = time.perf_counter() - t0
@@ -140,6 +164,7 @@ def build() -> Path:
         cmds = [[nvcc(), *NVCC_FLAGS, "-c", "-o", o, str(f)]
                 for f, o in zip(cu, objs)]
         compile_seconds.clear()
+        resource_usage.clear()
         _compile_all(cmds, [f.name for f in cu])
         lib = os.path.join(tmp, "lib.so")
         cmd = [nvcc(), *NVCC_FLAGS, "-shared", "-o", lib, *objs]

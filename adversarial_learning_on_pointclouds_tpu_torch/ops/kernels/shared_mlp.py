@@ -12,7 +12,8 @@ shared_mlp.py``:
 * ``pointwise_matmul`` (training, under ``dispatch.use_pallas_train``):
   ``x @ w + b`` with its backward ``dx = g @ w^T``, ``dw = x^T g``,
   ``db = sum g``, three passes in ``csrc/pointwise_matmul.cu`` (``pm_fwd``,
-  ``pm_dx``, ``pm_dwdb``). Under ``core.mixed_precision`` the forward and
+  ``pm_dx``, ``pm_dwdb``) on the GEMM core ``csrc/strided_gemm.cu``
+  (tensor cores; fp32 as 3xTF32). Under ``core.mixed_precision`` the forward and
   ``dx`` take bf16 operands and ``dw``/``db`` stay fp32, as the JAX
   package's ``_mxu_dot`` and its HIGHEST-precision ``_dwdb_call``.
 
@@ -227,7 +228,7 @@ def pm_dwdb(x: torch.Tensor, g: torch.Tensor):
     launch.expect("x", x, (bsz, n, c_in), dev)
     launch.expect("g", g, (bsz, n, c_out), dev)
     rows = bsz * n
-    splits = launch.row_splits(rows, -(-c_out // 64) * -(-c_in // 64), dev)
+    splits = launch.row_splits(rows, c_out, c_in, dev)
     f32 = dict(device=dev, dtype=torch.float32)
     dw, db = torch.empty((c_out, c_in), **f32), torch.empty((c_out,), **f32)
     part = torch.empty((splits * c_out * (c_in + 1),), **f32)

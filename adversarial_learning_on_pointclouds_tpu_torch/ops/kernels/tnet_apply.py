@@ -6,7 +6,8 @@ runs under ``use_pallas(training=True)`` (here ``dispatch.use_pallas_train``).
 Three CUDA passes in ``csrc/tnet_apply.cu`` (its header says what bounds
 them on the card): ``tnet_fwd`` (``x @ T`` per cloud), ``tnet_dx`` (``g @
 T^T``) and ``tnet_dt`` (``x^T g`` per cloud, the point ranges added in
-fp64). All three are fp32 under ``core.mixed_precision`` too, as the JAX
+fp64); at k = 3 streaming kernels in fp32 FMA, at k = 64 the GEMM core
+(``csrc/strided_gemm.cu``, 3xTF32). All three are fp32 under ``core.mixed_precision`` too, as the JAX
 kernels pin HIGHEST precision (the default path's ``core.matmul`` takes
 bf16 operands there). Each pass has a plain twin (``*_plain``) that CPU
 tensors run.
@@ -73,7 +74,7 @@ def tnet_dt(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     dev = x.device
     launch.expect("x", x, (bsz, n, k), dev)
     launch.expect("g", g, (bsz, n, k), dev)
-    splits = launch.row_splits(n, bsz * -(-k // 64) ** 2, dev)
+    splits = launch.row_splits(n, k, k, dev, bsz)
     dt = torch.empty((bsz, k, k), device=dev, dtype=torch.float32)
     part = torch.empty((bsz * splits * k * k,), device=dev,
                        dtype=torch.float32)

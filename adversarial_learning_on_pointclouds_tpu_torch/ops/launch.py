@@ -205,13 +205,16 @@ def weight_grad_splits(bsz: int, n: int, c_out: int, c_in: int,
     return max(1, min(tiles, max(-(-tiles // 32), -(-2 * sms // chunks))))
 
 
-def row_splits(rows: int, tiles: int, device: torch.device) -> int:
-    """Row ranges of a sum over ``rows`` rows into ``tiles`` output tiles
-    (a dW, a dT): enough ranges for two blocks per SM, each of at least
-    256 rows. The ranges' partial sums are added in fp64 in a fixed
-    order, so the count changes no result beyond rounding."""
+def row_splits(rows: int, m: int, n: int, device: torch.device,
+               batch: int = 1) -> int:
+    """Row ranges of a sum over ``rows`` rows into ``batch`` outputs of
+    ``m x n`` (a dW, a dT), counted in 128 x 128 tiles: enough ranges for
+    two blocks per SM, each of at least 256 rows. The ranges' partial sums
+    are added in fp64 in a fixed order, so the count changes no result
+    beyond rounding."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(-(-rows // 256), -(-2 * sms // max(tiles, 1))))
+    tiles = batch * -(-m // 128) * -(-n // 128)
+    return max(1, min(-(-rows // 256), -(-2 * sms // tiles)))
 
 
 def weight_ptr(w: torch.Tensor) -> ctypes.c_void_p:

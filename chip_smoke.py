@@ -74,12 +74,19 @@ Phases, one or more lines each:
 15. pallas-train-kernels: the per-layer training kernels that
    ``dispatch.use_pallas_train`` (the JAX package's
    ``use_pallas(training=True)``) reaches, each pass against its plain
-   pass at B=32 N=2048, B=32 N=2500 (ragged) and B=2:
-   ``pointwise_matmul`` (forward and dx in fp32 and bf16 at every width of
-   the path, dW/db), ``tnet_apply`` at k=3 and 64, ``maxpool_points`` on
-   duplicated points (bit-equal, one winner per channel, the first),
-   ``fc_head_train`` at k=3 and 64 in fp32 and bf16; then each autograd
-   function against its whole-function reference;
+   pass at B=32 N=2048, B=32 N=2500 (ragged), B=2 and 3B=96 N=2500 (the
+   discriminator's stacked pass, 240,000 rows): ``pointwise_matmul``
+   (forward and dx in fp32 and bf16 at every width of the generator and
+   the discriminator, 3 -> 64 up to 128 -> 1024 and 50 -> 64 down to
+   512 -> 1, dW/db), ``tnet_apply`` at k=3 (streaming) and 64 (the GEMM
+   core), each fp32 pass of both also held by the float64 control: its
+   max error against the float64 product at most ``F64_FACTOR`` (2) times
+   the plain fp32 pass's (cuBLAS with TF32 off), and ``torch.matmul``
+   with TF32 on at K=1024 must fail that control (the flag restored
+   after); ``maxpool_points`` on duplicated points (bit-equal, one winner
+   per channel, the first), ``fc_head_train`` at k=3 and 64 in fp32 and
+   bf16; then each autograd function against its whole-function
+   reference;
 16. pallas-train-slice: the config-3 ``train_step`` under the switch at
    B=32 N=2048 (the fused trunks and seg head, the four kernels on conv1,
    the transforms and the fc heads) and N=2500 (every layer through
@@ -89,8 +96,13 @@ Phases, one or more lines each:
 17. pallas-train-timing: each new pass over the calls of the N=2500 step
    (and the bench step's, bf16) against its plain pass and one PyTorch
    call computing the same product where there is one (``library_ms``),
-   with its bound; the config-3 steps at N=2048 and 2500 and the bench
-   step at K=8, off and under the switch in turns;
+   with its bound and achieved TFLOP/s, each also in device time alone;
+   the GEMM core's fp32 passes bound at the 3xTF32 rate (495 / 3
+   TFLOP/s), with the bound at the fp32 FMA rate beside it
+   (``bound_fma_ms``), and the three largest shapes of each pass, fp32
+   and the bench step's, timed alone (events and device time, GB/s); the
+   config-3 steps at N=2048 and 2500 and the bench step at K=8, off and
+   under the switch in turns;
 18. stack-trunk3-kernels: ``fused_mlp_stack`` against its plain version
    on the discriminator's chain at the serving shapes (B=32 N=2500), a
    ragged N and B=1, and on a 3 -> 64 -> 128 -> 1024 ReLU chain with
@@ -138,6 +150,7 @@ import dataclasses
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -194,6 +207,14 @@ ADV_PER_STEP = {"trunk2_train": {"F1": 6, "F2": 6, "B1": 6},
                 "pool_fc_epilogue": {"fwd": 2},
                 "disc_fused": {"fwd": 3, "bwd_dx": 2, "bwd_dw": 2, "bwd": 0}}
 FP32_PEAK = 67e12     # FLOP/s, fp32 outside the tensor cores (H100 SXM)
+# fp32 as 3xTF32 on the tensor cores: three TF32 products per product
+# (495 TFLOP/s dense TF32, H100 SXM): the rate of the GEMM core's fp32
+# passes, so their bound.
+TF32X3_PEAK = 495e12 / 3
+# The float64 control of an fp32 pass (phase 15): its max error against
+# the float64 product at most this many times that of the plain fp32 pass
+# (cuBLAS in full fp32, core.exact_fp32()); TF32 alone is some 200x.
+F64_FACTOR = 2.0
 BF16_PEAK = 989e12    # FLOP/s, bf16 tensor cores, dense (H100 SXM)
 HBM_RATE = 3.35e12    # bytes/s (H100 SXM)
 # The bench step (bf16) on the card against the CPU. Both sides round the
@@ -236,6 +257,8 @@ PT_KERNELS = {
         "fwd": "fc_head_train.py:112", "bwd": "fc_head_train.py:192"}),
 }
 PT_OFF = {k: {p: 0 for p in sites} for k, (_, sites) in PT_KERNELS.items()}
+# The kernels on the GEMM core (csrc/strided_gemm.cu): fp32 as 3xTF32.
+GEMM_KERNELS = ("pointwise_matmul", "tnet_apply")
 # Launches per config-3 step under the switch. N=2048: conv1 of STN3d, the
 # encoder and STNkd (STN3d's sees the points: no dx), both transforms
 # (x @ T3's x is the points: no dx), both single-stream fc heads; the
@@ -319,6 +342,55 @@ def check(name: str, got: torch.Tensor, ref: torch.Tensor,
     if rel > bound:
         raise AssertionError(f"{name}: error {rel:.3e} above {bound:g}")
     return diff
+
+
+def check_f64(name: str, got: torch.Tensor, plain: torch.Tensor,
+              ref: torch.Tensor, tag: str) -> float:
+    """Fail unless ``got``'s max error against the float64 product ``ref``
+    is at most ``F64_FACTOR`` times the plain fp32 pass's; return the
+    ratio of the two."""
+    ek = (got.double() - ref).abs().max().item()
+    ep = (plain.double() - ref).abs().max().item()
+    ratio = ek / ep if ep else (0.0 if not ek else float("inf"))
+    phase(tag, f"{name}: float64 control: max error {ek:.3e} against the "
+          f"plain fp32 pass's {ep:.3e}, ratio {ratio:.3f} (at most "
+          f"{F64_FACTOR:g})")
+    if ek > F64_FACTOR * ep:
+        raise AssertionError(f"{name}: {ratio:.3f}x the plain fp32 pass's "
+                             "error against float64")
+    return ratio
+
+
+def f64(args):
+    """``args`` with every tensor in float64 (the control's product)."""
+    return tuple(a.double() if isinstance(a, torch.Tensor) else a
+                 for a in args)
+
+
+def tf32_control(g, w, ref, plain, tag):
+    """The control that must fail: ``torch.matmul`` with TF32 allowed
+    (one TF32 product, about 2^-11 of each term) held to the float64
+    control of ``pm_dx`` at its depth; the flag is restored whatever
+    happens."""
+    from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
+        shared_mlp as sm,
+    )
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        ctrl = sm.pm_dx_plain(g, w)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    try:
+        check_f64(f"control: torch.matmul in TF32 at K={g.shape[-1]}", ctrl,
+                  plain, ref, tag)
+    except AssertionError:
+        phase(tag, "control: the TF32 product fails the float64 control, "
+              "as it must")
+        return
+    raise AssertionError("the float64 control passed a TF32 product: it "
+                         "does not separate 1xTF32 from 3xTF32")
 
 
 def check_stash(name: str, got: torch.Tensor, ref: torch.Tensor,
@@ -417,10 +489,10 @@ def work(plain, calls):
     return flops, nbytes
 
 
-def bound(flops, nbytes):
-    """``(bound_ms, bound_by)``: the larger of the FLOPs over the fp32 peak
-    and the bytes over the memory rate."""
-    t_ops, t_bytes = flops / FP32_PEAK, nbytes / HBM_RATE
+def bound(flops, nbytes, peak=FP32_PEAK):
+    """``(bound_ms, bound_by)``: the larger of the FLOPs over ``peak`` (by
+    default fp32 FMA's) and the bytes over the memory rate."""
+    t_ops, t_bytes = flops / peak, nbytes / HBM_RATE
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -438,24 +510,38 @@ def device_profile(fn, reps: int = 10):
     torch.profiler (device activity only). Now and then a window records
     no device activity at all although ``fn`` launched kernels; such a
     window is taken again, up to ``PROFILE_TRIES`` windows, and then this
-    raises: a lost reading never enters the output as 0 ms."""
+    raises: a lost reading never enters the output as 0 ms. A window can
+    also lose some kernel records (a kernel counted a number of times that
+    is not a multiple of ``reps``, where ``fn`` launches the same kernels
+    each call); it is taken again too, and if every window loses some, the
+    first is used and a line says that its time is a lower bound."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    partial = None
     for _ in range(PROFILE_TRIES):
         with profile(activities=[ProfilerActivity.CUDA],
                      acc_events=True) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        out = {e.key: _device_us(e) / reps / 1e3
-               for e in prof.key_averages() if _device_us(e) > 0}
-        if out:
+        events = [e for e in prof.key_averages() if _device_us(e) > 0]
+        if not events:
+            phase("profile", "a torch.profiler window recorded no device "
+                  "activity; profiling again")
+            continue
+        out = {e.key: _device_us(e) / reps / 1e3 for e in events}
+        lost = [(e.key[:40], e.count) for e in events if e.count % reps]
+        if not lost:
             return out
-        phase("profile", "a torch.profiler window recorded no device "
-              "activity; profiling again")
-    raise RuntimeError(f"torch.profiler recorded no device activity in "
+        partial = partial or (out, lost)
+    if partial:
+        phase("profile", f"every window lost kernel records (counts over "
+              f"{reps} calls in the first: {partial[1]}): a device time "
+              "taken from it in the next timing line is a lower bound")
+        return partial[0]
+    raise RuntimeError(f"torch.profiler lost device activity in "
                        f"{PROFILE_TRIES} windows: device time not measured")
 
 
@@ -679,7 +765,14 @@ class PassRecord:
 
     def __init__(self, bound=BOUND):
         self.bound = bound
-        self.err, self.args, self.share = {}, {}, {}
+        self.err, self.args, self.share, self.f64 = {}, {}, {}, {}
+
+    def cmp_f64(self, kernel, pas, tag, got, plain, ref, phase_tag):
+        """The float64 control of an fp32 pass (``check_f64``); keeps the
+        largest ratio seen."""
+        ratio = check_f64(f"{kernel} {pas} {tag}", got, plain, ref, phase_tag)
+        key = (kernel, pas)
+        self.f64[key] = max(self.f64.get(key, 0.0), ratio)
 
     def cmp(self, kernel, pas, tag, names, got, ref, main, fn_args,
             scales=None, phase_tag="train-kernels", bound=None):
@@ -1863,13 +1956,6 @@ def bench_slice(dev, card, gen):
     return out, setup, batch_k, scan_state, txs
 
 
-def bf16_bound(flops, nbytes):
-    """``bound`` with the FLOPs at the bf16 tensor-core peak."""
-    t_ops, t_bytes = flops / BF16_PEAK, nbytes / HBM_RATE
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
-
-
 def time_passes(card, rec, key, fn, plain, times, bf16):
     """One pass's kernel and plain times and its bound, per step."""
     calls = rec.args[key]
@@ -1879,7 +1965,8 @@ def time_passes(card, rec, key, fn, plain, times, bf16):
         dev_ms = sum(device_profile(lambda: [fn(*a) for a in calls]).values())
         plain_dev_ms = sum(device_profile(
             lambda: [plain(*a) for a in calls]).values())
-    bound_ms, bound_by = (bf16_bound if bf16 else bound)(*work(plain, calls))
+    bound_ms, bound_by = bound(*work(plain, calls),
+                               BF16_PEAK if bf16 else FP32_PEAK)
     row = dict(zip(("ms", "plain_ms", "device_ms", "plain_device_ms",
                     "bound_ms"), (t * times / len(calls) for t in (
                         ms, plain_ms, dev_ms, plain_dev_ms, bound_ms))))
@@ -2082,30 +2169,47 @@ def pt_kernel_checks(dev, gen, rec, rec_bf):
     )
 
     tag = "pallas-train-kernels"
+    # The generator's widths, then the discriminator's not among them
+    # (PARTS -> 64 -> 128 -> 256 -> 512 -> 1).
     widths = ((3, 64), (64, 64), (64, 128), (128, 1024), (512, 256),
-              (256, 128), (128, PARTS))
+              (256, 128), (128, PARTS), (PARTS, 64), (128, 256), (256, 512),
+              (512, 1))
     with torch.no_grad():
-        for bsz, n in ((B, TRAIN_N), (B, TRAIN_RAGGED_N), (2, TRAIN_N)):
+        # 3B x N: the discriminator's stacked pass over [fake_l; fake_u;
+        # real] at N=2500 (240,000 rows).
+        for bsz, n in ((B, TRAIN_N), (B, TRAIN_RAGGED_N), (2, TRAIN_N),
+                       (3 * B, TRAIN_RAGGED_N)):
             at = f"B={bsz} N={n}"
             for c_in, c_out in widths:
                 x = _r(gen, bsz, n, c_in, scale=1.0, dev=dev)
                 w, b = _w(gen, c_in, c_out, dev), _r(gen, c_out, dev=dev)
                 g = _r(gen, bsz, n, c_out, scale=1.0, dev=dev)
-                for bf16, r in ((False, rec), (True, rec_bf)):
-                    # Both sides round the same inputs: fp32-level bound.
-                    t = f"{c_in}->{c_out} {at}{' bf16' if bf16 else ''}"
-                    a = (x, w, b, bf16)
-                    r.cmp("pointwise_matmul", "fwd", t, ("y",),
-                          (sm.pm_fwd(*a),), (sm.pm_fwd_plain(*a),), False, a,
-                          phase_tag=tag, bound=BOUND)
-                    a = (g, w, bf16)
-                    r.cmp("pointwise_matmul", "dx", t, ("dx",),
-                          (sm.pm_dx(*a),), (sm.pm_dx_plain(*a),), False, a,
-                          phase_tag=tag, bound=BOUND)
+                for pas, fn, plain, a in (
+                        ("fwd", sm.pm_fwd, sm.pm_fwd_plain, (x, w, b)),
+                        ("dx", sm.pm_dx, sm.pm_dx_plain, (g, w))):
+                    for bf16, r in ((False, rec), (True, rec_bf)):
+                        # Both sides round the same inputs: fp32-level
+                        # bound.
+                        t = f"{c_in}->{c_out} {at}{' bf16' if bf16 else ''}"
+                        got, ref = fn(*a, bf16), plain(*a, bf16)
+                        r.cmp("pointwise_matmul", pas, t, (pas,), (got,),
+                              (ref,), False, (*a, bf16), phase_tag=tag,
+                              bound=BOUND)
+                        if not bf16:
+                            ref64 = plain(*f64(a))
+                            rec.cmp_f64("pointwise_matmul", pas, t, got, ref,
+                                        ref64, tag)
+                            if (pas, c_in, c_out, n) == (
+                                    "dx", 128, 1024, TRAIN_RAGGED_N) and \
+                                    bsz == B:
+                                tf32_control(g, w, ref64, ref, tag)
                 a = (x, g)
-                rec.cmp("pointwise_matmul", "dW", f"{c_in}->{c_out} {at}",
-                        ("dw", "db"), sm.pm_dwdb(*a), sm.pm_dwdb_plain(*a),
+                t = f"{c_in}->{c_out} {at}"
+                got, ref = sm.pm_dwdb(*a), sm.pm_dwdb_plain(*a)
+                rec.cmp("pointwise_matmul", "dW", t, ("dw", "db"), got, ref,
                         False, a, phase_tag=tag)
+                rec.cmp_f64("pointwise_matmul", "dW", t, got[0], ref[0],
+                            sm.pm_dwdb_plain(*f64(a))[0], tag)
             for k in (3, 64):
                 x = _r(gen, bsz, n, k, scale=1.0, dev=dev)
                 t = (torch.eye(k) + torch.randn(bsz, k, k, generator=gen)
@@ -2115,8 +2219,11 @@ def pt_kernel_checks(dev, gen, rec, rec_bf):
                         ("fwd", ta.tnet_fwd, ta.tnet_fwd_plain, (x, t)),
                         ("dx", ta.tnet_dx, ta.tnet_dx_plain, (g, t)),
                         ("dT", ta.tnet_dt, ta.tnet_dt_plain, (x, g))):
-                    rec.cmp("tnet_apply", pas, f"k={k} {at}", (pas,),
-                            (fn(*a),), (plain(*a),), False, a, phase_tag=tag)
+                    got, ref = fn(*a), plain(*a)
+                    rec.cmp("tnet_apply", pas, f"k={k} {at}", (pas,), (got,),
+                            (ref,), False, a, phase_tag=tag)
+                    rec.cmp_f64("tnet_apply", pas, f"k={k} {at}", got, ref,
+                                plain(*f64(a)), tag)
             # Post-ReLU features (a channel all zeros ties at every point);
             # the first half of the clouds repeat their first half of
             # points in the second: every max there is attained twice.
@@ -2286,8 +2393,10 @@ PT_LIBRARY = {
 def time_calls(card, key, fn, plain, calls, err, bf16=False,
                step=f"config-3 step at N={TRAIN_RAGGED_N}"):
     """One pass over the calls of a step: kernel, plain and library ms
-    (CUDA events), device time alone (profiler), the bound, all per step
-    (``step`` names it)."""
+    (CUDA events), each one's device time alone (profiler), the bound, all
+    per step (``step`` names it). An fp32 pass of the GEMM core is bound
+    at the 3xTF32 rate, the rate of the product it does, and also states
+    its bound at the fp32 FMA rate (``bound_fma_ms``)."""
     lib = PT_LIBRARY.get(key)
     with torch.no_grad():
         ms, plain_ms = time_pair(lambda: [fn(*a) for a in calls],
@@ -2295,21 +2404,74 @@ def time_calls(card, key, fn, plain, calls, err, bf16=False,
         dev_ms = sum(device_profile(lambda: [fn(*a) for a in calls]).values())
         plain_dev_ms = sum(device_profile(
             lambda: [plain(*a) for a in calls]).values())
-        lib_ms = None
+        lib_ms = lib_dev_ms = None
         if lib is not None:
             lib_ms = time_pair(lambda: [lib(*a) for a in calls],
                                lambda: None)[0]
-    bound_ms, bound_by = (bf16_bound if bf16 else bound)(*work(plain, calls))
+            lib_dev_ms = sum(device_profile(
+                lambda: [lib(*a) for a in calls]).values())
+    flops, nbytes = work(plain, calls)
+    tf32x3 = key[0] in GEMM_KERNELS and not bf16
+    rate = (BF16_PEAK, "bf16 tensor-core") if bf16 else (
+        TF32X3_PEAK, "3xTF32 tensor-core") if tf32x3 else (FP32_PEAK,
+                                                           "fp32 FMA")
+    bound_ms, bound_by = bound(flops, nbytes, rate[0])
     row = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
            "bound_ms": bound_ms, "bound_by": bound_by, "device_ms": dev_ms,
-           "plain_device_ms": plain_dev_ms, "max_abs_err": err}
+           "plain_device_ms": plain_dev_ms,
+           "library_device_ms": lib_dev_ms, "max_abs_err": err,
+           "tflops": flops / ms / 1e9}
+    fma = ""
+    if tf32x3:
+        row["bound_fma_ms"] = bound(flops, nbytes)[0]
+        fma = f"; at the fp32 FMA rate {row['bound_fma_ms']:.4f} ms"
     phase("pallas-train-timing", f"{card}: {key[0]} {key[1]}"
           f"{' bf16' if bf16 else ''} x{len(calls)} per {step}: kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-          f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}; device time "
-          f"alone: kernel {dev_ms:.4f} ms, plain {plain_dev_ms:.4f} ms; bound "
-          f"{bound_ms:.4f} ms ({bound_by})")
+          f"{ms:.4f} ms ({row['tflops']:.1f} TFLOP/s), plain {plain_ms:.4f} "
+          f"ms, library {'none' if lib_ms is None else f'{lib_ms:.4f} ms'}; "
+          f"device time alone: kernel {dev_ms:.4f} ms, plain "
+          f"{plain_dev_ms:.4f} ms, library "
+          f"{'none' if lib_dev_ms is None else f'{lib_dev_ms:.4f} ms'}; "
+          f"bound {bound_ms:.4f} ms ({bound_by}; {rate[1]} rate){fma}")
     return row
+
+
+def largest_calls(card, key, fn, plain, calls, count=3, tag=""):
+    """The ``count`` largest shapes among a pass's calls (by FLOPs, then
+    bytes), each timed alone: kernel, plain and library ms (CUDA events),
+    the kernel's and the library's device time alone (profiler), and the
+    kernel's TFLOP/s and GB/s over its device time."""
+    lib = PT_LIBRARY.get(key)
+    shapes = {}
+    for a in calls:
+        shapes.setdefault(tuple(tuple(t.shape) for t in _tensors(a)), a)
+    ranked = sorted(shapes.items(), key=lambda kv: tuple(
+        -v for v in work(plain, [kv[1]])))
+    rows = []
+    with torch.no_grad():
+        for sig, a in ranked[:count]:
+            ms, plain_ms = time_pair(lambda: fn(*a), lambda: plain(*a))
+            dev_ms = sum(device_profile(lambda: fn(*a)).values())
+            lib_ms = lib_dev_ms = None
+            if lib is not None:
+                lib_ms = time_pair(lambda: lib(*a), lambda: None)[0]
+                lib_dev_ms = sum(device_profile(lambda: lib(*a)).values())
+            flops, nbytes = work(plain, [a])
+            shape = " @ ".join("x".join(map(str, t)) for t in sig)
+            rows.append({"shape": shape, "ms": ms, "plain_ms": plain_ms,
+                         "library_ms": lib_ms, "device_ms": dev_ms,
+                         "library_device_ms": lib_dev_ms,
+                         "tflops": flops / ms / 1e9,
+                         "device_gb_s": nbytes / dev_ms / 1e6})
+            phase("pallas-train-timing", f"{card}: {key[0]} {key[1]}{tag} "
+                  f"{shape}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+                  f"TFLOP/s), plain {plain_ms:.4f} ms, library "
+                  f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}; "
+                  f"device time alone: kernel {dev_ms:.4f} ms "
+                  f"({flops / dev_ms / 1e9:.1f} TFLOP/s, "
+                  f"{nbytes / dev_ms / 1e6:.1f} GB/s), library "
+                  f"{'none' if lib_dev_ms is None else f'{lib_dev_ms:.4f} ms'}")
+    return rows
 
 
 def time_seg_step(card, tag, cfg, state, x, y, tx, switch):
@@ -2338,7 +2500,9 @@ def time_seg_step(card, tag, cfg, state, x, y, tx, switch):
 
 def pt_timing(card, rec, rec_bf, results, seg, bench):
     """Phase 17."""
-    from adversarial_learning_on_pointclouds_tpu_torch.ops import dispatch
+    from adversarial_learning_on_pointclouds_tpu_torch.ops import (
+        build, dispatch,
+    )
     from adversarial_learning_on_pointclouds_tpu_torch.train import (
         adversarial, segment,
     )
@@ -2353,12 +2517,20 @@ def pt_timing(card, rec, rec_bf, results, seg, bench):
                             fn.__name__ + "_plain")
             row = time_calls(card, (kernel, pas), fn, plain,
                              calls[(kernel, pas)], rec.err[(kernel, pas)])
+            if kernel in GEMM_KERNELS:
+                row["f64_ratio"] = rec.f64[(kernel, pas)]
+                row["largest"] = largest_calls(card, (kernel, pas), fn,
+                                               plain, calls[(kernel, pas)])
             if bcalls[(kernel, pas)]:       # the bench step: bf16 operands
                 bf = time_calls(card, (kernel, pas), fn, plain,
                                 bcalls[(kernel, pas)],
                                 rec_bf.err.get((kernel, pas),
                                                rec.err[(kernel, pas)]),
                                 kernel == "pointwise_matmul", "bench step")
+                if kernel in GEMM_KERNELS:
+                    bf["largest"] = largest_calls(
+                        card, (kernel, pas), fn, plain,
+                        bcalls[(kernel, pas)], tag=" bench step")
                 row.update({f"bench_{k}": v for k, v in bf.items()})
             passes.append({"pass": pas, "replaces": f"{TPU_KERNELS}/"
                            f"{sites[pas]}",
@@ -2371,6 +2543,12 @@ def pt_timing(card, rec, rec_bf, results, seg, bench):
         # those calls' times), else null; each pass keeps its own.
         libs = [p["library_ms"] for p in passes]
         entry["library_ms"] = None if None in libs else sum(libs)
+        if kernel in GEMM_KERNELS:
+            entry["sources"] = [entry["source"],
+                                f"{KERNELS_ROOT}/csrc/strided_gemm.cu"]
+            entry["ptxas"] = {**ptxas_report(build, src), **ptxas_report(
+                build, "strided_gemm.cu")}
+            entry["bound_fma_ms"] = sum(p["bound_fma_ms"] for p in passes)
         if all("bench_ms" in p for p in passes):
             for k in ("ms", "plain_ms", "bound_ms", "device_ms",
                       "plain_device_ms"):
@@ -2814,6 +2992,22 @@ def adv_pt_timing(card, rec, slice_out, results):
                       states[switch], batch_k, btxs)
 
 
+def ptxas_report(build, src):
+    """``{name<template arguments>: (registers, spill store bytes, spill
+    load bytes)}`` of ``src``'s kernels in this run's build (empty when
+    the library was loaded, not built)."""
+    out = {}
+    for mangled, usage in build.resource_usage.get(src, {}).items():
+        rest, name = mangled.removeprefix("_ZN"), mangled
+        while m := re.match(r"\d+", rest):
+            size = int(m[0])
+            name, rest = rest[len(m[0]):len(m[0]) + size], \
+                rest[len(m[0]) + size:]
+        args = re.findall(r"L[a-z](-?\d+)E", rest)
+        out[f"{name}<{','.join(args)}>" if args else name] = usage
+    return out
+
+
 def kernel_entry(name, src, site, launches, passes, times):
     """One kernel's line in the JSON: its passes' numbers summed; the
     bound is the sum of the passes' bounds, bound by what bounds the
@@ -2913,6 +3107,10 @@ def main() -> None:
           + "".join(f"; {k} {v:.1f} s" for k, v in sorted(
               getattr(build, "compile_seconds", {}).items(),
               key=lambda kv: -kv[1])))
+    for src in ("strided_gemm.cu", "pointwise_matmul.cu", "tnet_apply.cu"):
+        for label, (regs, st, ld) in ptxas_report(build, src).items():
+            phase("build", f"ptxas: {src} {label}: {regs} registers, spill "
+                  f"stores {st} bytes, spill loads {ld} bytes")
     if args.time:
         time_alone(args.time, args.root, card)
         return

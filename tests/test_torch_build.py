@@ -1,0 +1,55 @@
+"""The build's report of each kernel's registers and spills
+(``ops/build.py::ptxas_usage``, read from ``ptxas -v``) and the names
+``chip_smoke.py`` prints it under."""
+
+import types
+
+import pytest
+
+from adversarial_learning_on_pointclouds_tpu_torch.ops import build
+from chip_smoke import ptxas_report
+
+GEMM = "_ZN8pointtpu12_GLOBAL__N_114tc_gemm_kernelILi128ELb1ELb0ELb1EEEv4Gemmi"
+THIN = "_ZN8pointtpu12_GLOBAL__N_111thin_kernelILb0EEEv4Gemmib"
+SPLIT = "_ZN8pointtpu12_GLOBAL__N_116split_sum_kernelEPKfixPf"
+HELPER = "_ZN8pointtpu12_GLOBAL__N_16helperEv"
+
+
+def _entry(name, regs, st=0, ld=0):
+    return (f"ptxas info    : Compiling entry function '{name}' for "
+            f"'sm_90a'\n"
+            f"ptxas info    : Function properties for {name}\n"
+            f"    {st + 8} bytes stack frame, {st} bytes spill stores, "
+            f"{ld} bytes spill loads\n"
+            f"ptxas info    : Used {regs} registers, used 1 barriers, 512 "
+            f"bytes cmem[0]\n")
+
+
+@pytest.mark.parametrize("text,want", [
+    ("", {}),
+    ("ptxas info    : 0 bytes gmem\n", {}),
+    (_entry(GEMM, 128, 84, 80), {GEMM: (128, 84, 80)}),
+    (_entry(GEMM, 128, 84, 84) + _entry(THIN, 40),
+     {GEMM: (128, 84, 84), THIN: (40, 0, 0)}),
+    # A non-inlined device function's properties between an entry's
+    # header and its register count are not that entry's spills.
+    (f"ptxas info    : Compiling entry function '{SPLIT}' for 'sm_90a'\n"
+     f"ptxas info    : Function properties for {HELPER}\n"
+     "    16 bytes stack frame, 12 bytes spill stores, 12 bytes spill "
+     "loads\n"
+     f"ptxas info    : Function properties for {SPLIT}\n"
+     "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+     "ptxas info    : Used 18 registers, 384 bytes cmem[0]\n",
+     {SPLIT: (18, 0, 0)}),
+])
+def test_ptxas_usage(text, want):
+    assert build.ptxas_usage(text) == want
+
+
+def test_ptxas_report_names_kernels_with_template_arguments():
+    fake = types.SimpleNamespace(resource_usage={"strided_gemm.cu": {
+        GEMM: (128, 84, 84), THIN: (40, 0, 0), SPLIT: (18, 0, 0)}})
+    assert ptxas_report(fake, "strided_gemm.cu") == {
+        "tc_gemm_kernel<128,1,0,1>": (128, 84, 84),
+        "thin_kernel<0>": (40, 0, 0), "split_sum_kernel": (18, 0, 0)}
+    assert ptxas_report(fake, "tnet_apply.cu") == {}
