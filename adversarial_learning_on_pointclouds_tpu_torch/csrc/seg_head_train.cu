@@ -22,11 +22,15 @@
 // 128-channel chunks, masks by the previous ReLU, stores dy_prev and
 // reduces the previous BN's sums, one pass behind as on the TPU; its
 // weight-gradient kernel rebuilds dz and h tile by tile for dW = dz^T h.
+// Bmid, the widest (256 -> 512, 128 -> 256), runs on the tensor cores
+// instead (train_bwd_tc.cu: dz built into shared memory, dz @ W over n
+// tiles, dW on the GEMM core from the dz and h the row pass writes out).
 // All row reductions add per-block partials in fp64. Mixed precision
 // (prec): bf16 operands and bf16 stashes z1, z2, z3 (P1, Pmid), dy3 (B4)
 // and dy_prev (Bmid); each statistic and BN sum is taken from the
 // unrounded values in the pass that makes them, and dpf stays fp32.
 
+#include "train_bwd_tc.cuh"
 #include "train_gemm.cuh"
 
 using pointtpu::BwdArgs;
@@ -45,7 +49,7 @@ template <int MODE>
 int backward(const BwdArgs* a, int device, cudaStream_t stream) {
   using namespace pointtpu;
   cudaError_t e = use_device(device);
-  return e != cudaSuccess ? (int)e : backward_pass<MODE, false>(*a, stream);
+  return e != cudaSuccess ? (int)e : backward_pass<MODE>(*a, stream);
 }
 
 }  // namespace
@@ -84,9 +88,10 @@ extern "C" int pt_head_b4(const BwdArgs* a, int device, cudaStream_t stream) {
 // A BN backward and the matmul backward to the previous layer.
 extern "C" int pt_head_bmid(const BwdArgs* a, int device,
                             cudaStream_t stream) {
-  if (a->mode != pointtpu::kDzBn || !a->scp || !a->mup || a->r)
-    return pointtpu::kErrArgs;
-  return backward<pointtpu::kDzBn>(a, device, stream);
+  using namespace pointtpu;
+  if (a->mode != kDzBn || !a->scp || !a->mup || a->r) return kErrArgs;
+  cudaError_t e = use_device(device);
+  return e != cudaSuccess ? (int)e : head_bmid_tc(*a, stream);
 }
 
 // BN1 backward and the point half of layer 1: dpf, dW1a, db1 and the

@@ -38,8 +38,9 @@
 //   sequential sum of 64 k steps there came to 1.9x cuBLAS's error on
 //   the H100.
 //   All of these are bound by memory.
-// * bf16 (mixed precision, the forward and dx): both operands rounded to
-//   bf16 nearest-even as the fragments load (where the JAX package's
+// * bf16 (mixed precision: the forward and dx, and the dW of the
+//   generator's backward passes, train_bwd_tc.cu): both operands rounded
+//   to bf16 nearest-even as the fragments load (where the JAX package's
 //   _mxu_dot casts), one m16n8k16 per k16 step, summed on the tensor core.
 // * Operand ring. k streams in chunks of 32 through a 3-stage ring in
 //   dynamic shared memory, filled by cp.async while the previous chunks
@@ -48,29 +49,18 @@
 //   fragment load of a warp hits 32 distinct banks); copies are 16 bytes
 //   where the view's strides and base allow, else 4 bytes (x at c_in = 3,
 //   rows of 50); ragged rows, columns and k load as zero (src-size 0).
-//   The bf16 fragments take k in the order t, t+4, t+8, t+12 for lane
-//   group t (any order of k serves, the same for A and B), so they load
-//   from the same conflict-free addresses as the tf32 ones.
+//   The stage layouts, the copies and the mma.sync steps are mma.cuh's,
+//   shared with the backward passes.
 // * Epilogue: the bias, then a masked store, two floats at a time where
 //   the row stride allows.
 
-#include <stdint.h>
-
+#include "mma.cuh"
 #include "strided_gemm.cuh"
 
 namespace pointtpu {
 namespace {
 
-constexpr int kBm = 128, kBk = 32, kStages = 3;
-constexpr int kLdk = kBk + 4;          // row stride of a K-major tile
-constexpr int kPadMn = 8;              // pad of an M- or N-major tile's row
-
-// Floats of one stage of an operand tile with `rows` along m or n, either
-// layout.
-__host__ __device__ constexpr int stage_floats(int rows) {
-  return rows * kLdk > kBk * (rows + kPadMn) ? rows * kLdk
-                                             : kBk * (rows + kPadMn);
-}
+constexpr int kBm = 128, kStages = 3;
 
 template <int BN>
 struct Tile {
@@ -83,172 +73,16 @@ struct Tile {
 
 int tile_n(int n) { return n > 64 ? 128 : n > 32 ? 64 : 32; }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void cp16(float* dst, const float* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)), "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp4(float* dst, const float* src, int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)), "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// One stage of an operand: element (r, k) of the tile, r < ROWS along m
-// (or n) and k < kBk, is base[(mn0 + r) * s_mn + (k0 + k) * s_k]; KMAJ:
-// s_k == 1, stored at s[r * kLdk + k], else s_mn == 1, at s[k * (ROWS +
-// kPadMn) + r]. Rows at or past r_lim and k at or past k_lim are zero.
-template <bool KMAJ, int ROWS>
-__device__ __forceinline__ void load_tile(float* s, const float* base,
-                                          long long s_mn, long long s_k,
-                                          long long mn0, int r_lim, int k0,
-                                          int k_lim, bool vec) {
-  constexpr int kLd = KMAJ ? kLdk : ROWS + kPadMn;
-  constexpr int kInner = KMAJ ? kBk : ROWS;       // the contiguous axis
-  if (vec) {
-    for (int c = threadIdx.x; c < ROWS * kBk / 4; c += kThreads) {
-      const int outer = c / (kInner / 4), inner = (c % (kInner / 4)) * 4;
-      const int r = KMAJ ? outer : inner, k = KMAJ ? inner : outer;
-      const int left = KMAJ ? (r < r_lim ? k_lim - k : 0)
-                            : (k < k_lim ? r_lim - r : 0);
-      const int bytes = 4 * max(0, min(4, left));
-      cp16(s + outer * kLd + inner,
-           bytes ? base + (mn0 + r) * s_mn + (long long)(k0 + k) * s_k : base,
-           bytes);
-    }
-  } else {
-    for (int e = threadIdx.x; e < ROWS * kBk; e += kThreads) {
-      const int outer = e / kInner, inner = e % kInner;
-      const int r = KMAJ ? outer : inner, k = KMAJ ? inner : outer;
-      const bool ok = r < r_lim && k < k_lim;
-      cp4(s + outer * kLd + inner,
-          ok ? base + (mn0 + r) * s_mn + (long long)(k0 + k) * s_k : base,
-          ok ? 4 : 0);
-    }
-  }
-}
-
-template <bool KMAJ, int ROWS>
-__device__ __forceinline__ float at(const float* s, int r, int k) {
-  return KMAJ ? s[r * kLdk + k] : s[k * (ROWS + kPadMn) + r];
-}
-
-__device__ __forceinline__ uint32_t tf32(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return r;
-}
-
-__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(v);
-  lo = tf32(v - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&p);
-}
-
-// d += a * b, m16n8k8 tf32.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d += a * b, m16n8k16 bf16.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// One k chunk of the warp's tiles. Lane (g, t) = (lane / 4, lane % 4)
-// holds A rows g and g + 8 and B column g of each tile at k = t, t + 4
-// (and t + 8, t + 12 for bf16).
+// One k chunk of the warp's tiles (mma.cuh: mma_step).
 template <int BN, bool AK, bool BK, bool BF>
 __device__ __forceinline__ void mma_chunk(float (&acc)[Tile<BN>::kMt][4][4],
                                           const float* as, const float* bs,
                                           int mb, int nb, int g, int t) {
-  constexpr int kMt = Tile<BN>::kMt;
-  if constexpr (BF) {
+  const auto fa = [as](int m, int k) { return stage_at<AK, kBm>(as, m, k); };
+  const auto fb = [bs](int n, int k) { return stage_at<BK, BN>(bs, n, k); };
 #pragma unroll
-    for (int kk = 0; kk < kBk; kk += 16) {
-      uint32_t b[4][2];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = nb + 8 * j + g;
-        b[j][0] = bf16x2(at<BK, BN>(bs, n, kk + t), at<BK, BN>(bs, n, kk + t + 4));
-        b[j][1] = bf16x2(at<BK, BN>(bs, n, kk + t + 8),
-                         at<BK, BN>(bs, n, kk + t + 12));
-      }
-#pragma unroll
-      for (int i = 0; i < kMt; ++i) {
-        const int m = mb + 16 * i + g;
-        uint32_t a[4];
-        a[0] = bf16x2(at<AK, kBm>(as, m, kk + t), at<AK, kBm>(as, m, kk + t + 4));
-        a[1] = bf16x2(at<AK, kBm>(as, m + 8, kk + t),
-                      at<AK, kBm>(as, m + 8, kk + t + 4));
-        a[2] = bf16x2(at<AK, kBm>(as, m, kk + t + 8),
-                      at<AK, kBm>(as, m, kk + t + 12));
-        a[3] = bf16x2(at<AK, kBm>(as, m + 8, kk + t + 8),
-                      at<AK, kBm>(as, m + 8, kk + t + 12));
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], a, b[j]);
-      }
-    }
-  } else {
-#pragma unroll
-    for (int kk = 0; kk < kBk; kk += 8) {
-      uint32_t bh[4][2], bl[4][2];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = nb + 8 * j + g;
-        split(at<BK, BN>(bs, n, kk + t), bh[j][0], bl[j][0]);
-        split(at<BK, BN>(bs, n, kk + t + 4), bh[j][1], bl[j][1]);
-      }
-#pragma unroll
-      for (int i = 0; i < kMt; ++i) {
-        const int m = mb + 16 * i + g;
-        uint32_t ah[4], al[4];
-        split(at<AK, kBm>(as, m, kk + t), ah[0], al[0]);
-        split(at<AK, kBm>(as, m + 8, kk + t), ah[1], al[1]);
-        split(at<AK, kBm>(as, m, kk + t + 4), ah[2], al[2]);
-        split(at<AK, kBm>(as, m + 8, kk + t + 4), ah[3], al[3]);
-        // Each term over the four n tiles in turn: consecutive products
-        // are independent, so the tensor core's latency overlaps.
-        float s[4][4] = {};
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_tf32(s[j], al, bh[j]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_tf32(s[j], ah, bl[j]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_tf32(s[j], ah, bh[j]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) acc[i][j][q] += s[j][q];
-      }
-    }
-  }
+  for (int kk = 0; kk < kBk; kk += mma_depth(BF))
+    mma_step<Tile<BN>::kMt, 4, BF>(acc, fa, fb, mb, nb, kk, g, t);
 }
 
 // vec bit 1: A by 16-byte copies, 2: B, 4: C by float2 stores.
@@ -282,9 +116,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   float rs = 0.f;
   auto load = [&](int c) {
     const int k0 = k_beg + c * kBk, st = c % kStages;
-    load_tile<AK, kBm>(as + st * T::kA, A, g.sam, g.sak, m0, m_lim, k0,
+    load_stage<AK, kBm>(as + st * T::kA, A, g.sam, g.sak, m0, m_lim, k0,
                        k_end - k0, vec & 1);
-    load_tile<BK, BN>(bs + st * T::kB, B, g.sbn, g.sbk, n0, n_lim, k0,
+    load_stage<BK, BN>(bs + st * T::kB, B, g.sbn, g.sbk, n0, n_lim, k0,
                       k_end - k0, vec & 2);
   };
 #pragma unroll
@@ -303,7 +137,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       const int r = threadIdx.x % kBm, k0 = (threadIdx.x / kBm) * (kBk / 2);
 #pragma unroll
       for (int k = 0; k < kBk / 2; ++k)
-        rs += at<AK, kBm>(as + st * T::kA, r, k0 + k);
+        rs += stage_at<AK, kBm>(as + st * T::kA, r, k0 + k);
     }
     mma_chunk<BN, AK, BK, BF>(acc, as + st * T::kA, bs + st * T::kB, mb, nb,
                               gq, tq);
@@ -446,8 +280,9 @@ int launch_prec(const Gemm& g, bool bf, int vec, dim3 grid,
                 cudaStream_t stream) {
   if (!bf) return launch<BN, AK, BK, false>(g, vec, grid, stream);
   // bf16 operands only where mixed precision uses them: the forward and
-  // dx, whose A (x or g) is K-major.
-  if constexpr (AK) return launch<BN, AK, BK, true>(g, vec, grid, stream);
+  // dx, whose A (x or g) is K-major, and the backward passes' dW = dz^T h
+  // (train_bwd_tc.cu: an M-major A over an N-major B).
+  if constexpr (AK || !BK) return launch<BN, AK, BK, true>(g, vec, grid, stream);
   return kErrArgs;
 }
 

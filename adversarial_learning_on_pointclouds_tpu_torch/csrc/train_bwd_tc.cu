@@ -1,0 +1,582 @@
+// The generator's two widest backward passes on the tensor cores.
+//
+// Replaces the TPU kernels
+// adversarial_learning_on_pointclouds_tpu/ops/kernels/trunk_train.py::
+// _b1_call (trunk B1: pallas_call at trunk_train.py:309, the backward
+// through conv3 + BN3 + max-pool of every trunk, c 128 -> 1024) and
+// seg_head_train.py::_bmid_call (Bmid: pallas_call at
+// seg_head_train.py:275, a BN backward and the matmul backward to the
+// previous layer: 256 -> 512 and 128 -> 256 in the seg head, 128 -> 64 in
+// trunk3_train).
+//
+// What bounds them on the H100: matmuls. Trunk B1 at B=32 N=2048 (65,536
+// rows) is three 17.2-GFLOP products (z3 = h2 W3^T recomputed, dy2 = dz3
+// W3, dW3 = dz3^T h2), past fp32 FMA's 67 TFLOP/s and bf16's need of the
+// tensor cores; Bmid is two products of 8.6 (256 -> 512) or 4.3 GFLOP.
+// The CUDA-core kernels they replace (train_gemm.cuh: row_bwd_kernel,
+// wgrad_kernel) ran them as fp32 FMAs, recomputed z3 a second time for
+// dW3, and staged W through registers.
+//
+// What the design does about that:
+//
+// * Every product on the tensor cores through mma.cuh's fragment layer
+//   (the GEMM core's): fp32 as 3xTF32, each 8-deep step summed from zero
+//   and added to the fp32 accumulator by a round-to-nearest FADD; bf16
+//   (kRound) operands rounded nearest-even at fragment load, fp32 sums.
+// * Trunk B1's row pass is a back-to-back GEMM whose dz3 never leaves the
+//   SM. A block of 8 warps owns 128 points of one cloud and keeps h2 =
+//   relu(bn2(z2)) in shared memory (the BN2 prologue applied once). It
+//   walks c3 in chunks of 64 channels: GEMM 1 z3c = h2 W3[chunk]^T (K =
+//   128), an epilogue in registers (+ b3, zhat3, the winner term,
+//   coef1 / coef2) that takes db3's per-block partials from the
+//   unrounded dz3c and leaves dz3c in shared memory, then GEMM 2 acc_dy2
+//   += dz3c W3[chunk] (K = 64) into a [128 x 128] accumulator held in
+//   registers across the chunks. Both GEMMs read one W3 chunk in the
+//   ring: GEMM 1 along its rows (K-major), GEMM 2 along its columns
+//   (N-major). No padding keeps both fragment reads free of bank
+//   conflicts (the pad that serves one collides in the other), so the
+//   chunk is stored XOR-swizzled (w3_at). The final epilogue masks by
+//   BN2's ReLU (h2 > 0, exactly where bn_affine(z2) > 0), stores dy2 and
+//   reduces BN2's two sums.
+// * Bmid's row pass: the dz tile [128 x c_out] built elementwise from the
+//   zc and dy stashes straight into shared memory (db's partials from the
+//   unrounded values, coalesced: a thread per column), then dyp = dz W
+//   over n tiles of 128 (or 64) columns looped in the block, W streamed
+//   N-major, and the same masked epilogue (dyp bf16 under kDypBf16).
+// * Weight gradients: the row pass also writes its two operands, dz and h
+//   (fp32, unrounded), to scratch, and dW = dz^T h runs on the GEMM core
+//   (strided_gemm.cu: gemm, an M-major A over an N-major B, split-K over
+//   row ranges merged by split_sum in fp64). Writing them (302 MB at
+//   65,536 x 1024) costs the row pass about 0.08 ms on the H100, against
+//   the 17.2 GFLOP of a second z3 recompute that the TPU design
+//   (VMEM-bound) paid; a tensor-core dW kernel that rebuilds dz and h
+//   tile by tile, as that design does, measured slower for both passes
+//   in both precisions (PERF.md §6).
+// * W streams through a 3-stage cp.async ring (16-byte copies), one chunk
+//   in flight while one computes. Shared memory: 200 KB (trunk) or up to
+//   186 KB (Bmid at c_out 256), one block per SM.
+// * Nothing carries between blocks: t1 / t2 and db are per-block partials
+//   added by colsum in fp64 in a fixed order, each group's blocks
+//   contiguous, so groups = 2 equals two groups = 1 calls bit for bit
+//   (dy2, t1, t2); a row's arithmetic never depends on its neighbours.
+//   Rows past N are zero in every tile and never stored or summed.
+
+#include "mma.cuh"
+#include "strided_gemm.cuh"
+#include "train_bwd_tc.cuh"
+#include "train_gemm.cuh"
+
+namespace pointtpu {
+namespace {
+
+constexpr int kTcRows = 128;                // points per block, one cloud
+constexpr int kRing = 3;                    // stages of the weight ring
+constexpr int kC2 = 128;                    // trunk B1: c_in
+constexpr int kChunk = 64;                  // trunk B1: c3 channels a chunk
+constexpr int kDzLd = kChunk + 4;           // dz3 chunk row stride
+constexpr int kHeadK = 32;                  // Bmid: W rows (k) a stage
+
+// Element (r, k) of a 128-wide tile in shared memory that is read both
+// along its rows and along its columns (a W3 chunk: GEMM 1 reads it
+// K-major, GEMM 2 N-major): row r, column k XOR a function of r's low three bits. A warp's
+// fragment loads at (r = 8 j + g, k = kk + t) and at (r = kk + t (+ 4),
+// k = 8 j + g) both land on 32 distinct banks, which no pad achieves
+// for both (a stride of 4 mod 32 serves the first, 8 the second). The
+// XOR keeps aligned groups of 4 floats together, so 16-byte copies and
+// stores fill it.
+__device__ __forceinline__ int sw_at(int r, int k) {
+  return r * kC2 + (k ^ (((r & 3) << 3) | (r & 4)));
+}
+
+// Four consecutive elements i.. (i a multiple of 4) of an fp32 or (bf)
+// bf16 tensor as fp32, in one 16- or 8-byte load.
+__device__ __forceinline__ void load4(float (&v)[4], const void* p, bool bf,
+                                      size_t i) {
+  if (bf) {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(
+        static_cast<const __nv_bfloat16*>(p) + i));
+    v[0] = __uint_as_float(u.x << 16);
+    v[1] = __uint_as_float(u.x & 0xffff0000u);
+    v[2] = __uint_as_float(u.y << 16);
+    v[3] = __uint_as_float(u.y & 0xffff0000u);
+  } else {
+    const float4 f =
+        __ldg(reinterpret_cast<const float4*>(static_cast<const float*>(p) + i));
+    v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
+  }
+}
+
+// Loads a thread issues before it uses any: one block a SM leaves the
+// loads' latency exposed unless many are in flight.
+constexpr int kBatch = 8;
+
+// h2 = relu(bn2(z2)) of the tile of `rows` points from row g0 of cloud b
+// into h_s (sw_at; rows past N zero) and to hs (the dW product's
+// operand), four columns a load. Rows past N read the last row.
+template <bool BF, bool G>
+__device__ __forceinline__ void load_h2(float* h_s, const BwdArgs& a, int b,
+                                        size_t g0, int rows) {
+  const bool zpbf = BF && (a.prec & kZpBf16);
+  const float* scp = group_row<G>(a.scp, b, a.batch, a.groups, kC2);
+  const float* shp = group_row<G>(a.shp, b, a.batch, a.groups, kC2);
+  for (int u0 = 0; u0 < kTcRows * kC2 / 4 / kThreads; u0 += kBatch) {
+    float v[kBatch][4];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int e = (threadIdx.x + (u0 + u) * kThreads) * 4;
+      load4(v[u], a.zp, zpbf, (g0 + min(e / kC2, rows - 1)) * kC2 + e % kC2);
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int e = (threadIdx.x + (u0 + u) * kThreads) * 4;
+      const int r = e / kC2, k = e % kC2;
+      float4 h = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r < rows) {
+        h.x = fmaxf(bn_affine(v[u][0], __ldg(scp + k), __ldg(shp + k)), 0.f);
+        h.y = fmaxf(bn_affine(v[u][1], __ldg(scp + k + 1),
+                              __ldg(shp + k + 1)), 0.f);
+        h.z = fmaxf(bn_affine(v[u][2], __ldg(scp + k + 2),
+                              __ldg(shp + k + 2)), 0.f);
+        h.w = fmaxf(bn_affine(v[u][3], __ldg(scp + k + 3),
+                              __ldg(shp + k + 3)), 0.f);
+        *reinterpret_cast<float4*>(a.hs + (g0 + r) * kC2 + k) = h;
+      }
+      *reinterpret_cast<float4*>(h_s + sw_at(r, k)) = h;
+    }
+  }
+}
+
+// The sum over the 8 lanes of lane group t (lane = 4 g + t), in a fixed
+// order.
+__device__ __forceinline__ float group_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  v += __shfl_xor_sync(0xffffffffu, v, 16);
+  return v;
+}
+
+// Warps are 4 (rows, 32 each) by 2 (columns). Trunk B1: BF is kRound,
+// G groups > 1.
+template <bool BF, bool G>
+__global__ void __launch_bounds__(kThreads, 1) b1_tc_kernel(const BwdArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  float* h_s = smem;                              // [kTcRows][kC2], sw_at
+  float* dz_s = h_s + kTcRows * kC2;              // [kTcRows][kDzLd]
+  float* w_s = dz_s + kTcRows * kDzLd;            // kRing x [kChunk][kC2]
+  float* red_b = w_s + kRing * kChunk * kC2;      // [4][kChunk]
+  float* red_t = red_b + 4 * kChunk;              // [2][4][kC2]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int wm = warp >> 1, wn = warp & 1;
+  const int b = blockIdx.y, p0 = blockIdx.x * kTcRows;
+  const int rows = min(kTcRows, a.n - p0);
+  const size_t g0 = (size_t)b * a.n + p0;
+  const int c_out = a.c_out, chunks = c_out / kChunk;
+  float* prow = a.part + ((size_t)b * gridDim.x + blockIdx.x) *
+                             (2 * kC2 + c_out);
+  const bool zpbf = BF && (a.prec & kZpBf16);
+  const float* mup = group_row<G>(a.mup, b, a.batch, a.groups, kC2);
+  const float* invp = group_row<G>(a.invp, b, a.batch, a.groups, kC2);
+  const float* mu3 = group_row<G>(a.mu, b, a.batch, a.groups, c_out);
+  const float* inv3 = group_row<G>(a.inv, b, a.batch, a.groups, c_out);
+  const size_t cb = (size_t)b * c_out;       // the cloud's [batch, c3] row
+
+  // Chunk c of W3 (its rows c * kChunk ..) into ring stage c % kRing: one
+  // commit group a call, empty past the last chunk.
+  const auto load_w = [&](int c) {
+    if (c < chunks) {
+      float* s = w_s + (c % kRing) * (kChunk * kC2);
+      const float* src = a.w + (size_t)c * kChunk * a.ldw;
+      for (int e = threadIdx.x; e < kChunk * kC2 / 4; e += kThreads) {
+        const int r = e / (kC2 / 4), k = (e % (kC2 / 4)) * 4;
+        cp16(s + sw_at(r, k), src + (size_t)r * a.ldw + k, 16);
+      }
+    }
+    cp_commit();
+  };
+  load_w(0);
+  load_w(1);
+  load_h2<BF, G>(h_s, a, b, g0, rows);
+
+  const auto fh = [h_s](int m, int k) { return h_s[sw_at(m, k)]; };
+  const auto fz = [dz_s](int m, int k) { return dz_s[m * kDzLd + k]; };
+  float acc[2][8][4] = {};                        // dy2 before the mask
+  for (int c = 0; c < chunks; ++c) {
+    cp_wait<kRing - 2>();
+    __syncthreads();          // chunk c landed; chunk c - 1 is read
+    load_w(c + kRing - 1);
+    const float* ws = w_s + (c % kRing) * (kChunk * kC2);
+    const int oc = c * kChunk;
+    // GEMM 1: z3 - b3 of the chunk's 64 channels.
+    const auto fw1 = [ws](int n, int k) { return ws[sw_at(n, k)]; };
+    float z[2][4][4] = {};
+#pragma unroll 2
+    for (int kk = 0; kk < kC2; kk += mma_depth(BF))
+      mma_step<2, 4, BF>(z, fh, fw1, wm * 32, wn * 32, kk, gq, tq);
+    // dz3 = [p == idx] * s3dg - coef1 - zhat3 * coef2 (per cloud,
+    // channel); db3's partial from the unrounded values.
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int col = wn * 32 + 8 * j + 2 * tq + q, o = oc + col;
+        const float bias = __ldg(a.bias + o), m3 = __ldg(mu3 + o);
+        const float i3 = __ldg(inv3 + o), k1 = __ldg(a.coef1 + cb + o);
+        const float k2 = __ldg(a.coef2 + cb + o), sg = __ldg(a.s3dg + cb + o);
+        const int win = __ldg(a.idx + cb + o);
+        float cs = 0.f;
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = wm * 32 + 16 * i + gq + 8 * h;
+            float v = 0.f;
+            if (r < rows) {
+              const float zhat = ((z[i][j][2 * h + q] + bias) - m3) * i3;
+              const float sparse = p0 + r == win ? sg : 0.f;
+              v = sparse - k1 - zhat * k2;
+            }
+            z[i][j][2 * h + q] = v;
+            cs += v;
+          }
+        cs = group_sum(cs);
+        if (gq == 0) red_b[wm * kChunk + col] = cs;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wm * 32 + 16 * i + gq + 8 * h;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = wn * 32 + 8 * j + 2 * tq;
+          const float2 v = make_float2(z[i][j][2 * h], z[i][j][2 * h + 1]);
+          *reinterpret_cast<float2*>(dz_s + r * kDzLd + col) = v;
+          if (r < rows)
+            *reinterpret_cast<float2*>(a.dzs + (g0 + r) * c_out + oc + col) =
+                v;
+        }
+      }
+    __syncthreads();          // dz_s and red_b written
+    if (threadIdx.x < kChunk) {
+      const int t = threadIdx.x;
+      prow[2 * kC2 + oc + t] = ((red_b[t] + red_b[kChunk + t]) +
+                                red_b[2 * kChunk + t]) + red_b[3 * kChunk + t];
+    }
+    // GEMM 2: dy2 += dz3c W3[chunk].
+    const auto fw2 = [ws](int n, int k) { return ws[sw_at(k, n)]; };
+#pragma unroll 2
+    for (int kk = 0; kk < kChunk; kk += mma_depth(BF))
+      mma_step<2, 8, BF>(acc, fz, fw2, wm * 32, wn * 64, kk, gq, tq);
+  }
+  cp_wait<0>();
+
+  // dy2 = mask * acc, and BN2's sums t1 = sum dy2, t2 = sum dy2 * zhat2.
+  float s1[8][2] = {}, s2[8][2] = {};
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int k = wn * 64 + 8 * j + 2 * tq;
+    const float m0 = __ldg(mup + k), m1 = __ldg(mup + k + 1);
+    const float i0 = __ldg(invp + k), i1 = __ldg(invp + k + 1);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wm * 32 + 16 * i + gq + 8 * h;
+        if (r >= rows) continue;
+        const size_t at = (g0 + r) * kC2 + k;
+        float d0 = acc[i][j][2 * h], d1 = acc[i][j][2 * h + 1];
+        if (!(h_s[sw_at(r, k)] > 0.f)) d0 = 0.f;
+        if (!(h_s[sw_at(r, k + 1)] > 0.f)) d1 = 0.f;
+        *reinterpret_cast<float2*>(static_cast<float*>(a.dyp) + at) =
+            make_float2(d0, d1);
+        const float z0 = load_val(a.zp, zpbf, at);
+        const float z1 = load_val(a.zp, zpbf, at + 1);
+        s1[j][0] += d0;
+        s1[j][1] += d1;
+        s2[j][0] += d0 * ((z0 - m0) * i0);
+        s2[j][1] += d1 * ((z1 - m1) * i1);
+      }
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const float v1 = group_sum(s1[j][q]), v2 = group_sum(s2[j][q]);
+      if (gq == 0) {
+        const int k = wn * 64 + 8 * j + 2 * tq + q;
+        red_t[wm * kC2 + k] = v1;
+        red_t[(4 + wm) * kC2 + k] = v2;
+      }
+    }
+  __syncthreads();
+  if (threadIdx.x < kC2) {
+    const int k = threadIdx.x;
+    prow[k] = ((red_t[k] + red_t[kC2 + k]) + red_t[2 * kC2 + k]) +
+              red_t[3 * kC2 + k];
+    prow[kC2 + k] = ((red_t[4 * kC2 + k] + red_t[5 * kC2 + k]) +
+                     red_t[6 * kC2 + k]) + red_t[7 * kC2 + k];
+  }
+}
+
+// Bmid, one group. NB: columns of dyp an n tile (128, or 64 for c_in =
+// 64); warps 4 (rows) by 2 (NB / 2 columns each).
+template <bool BF, int NB>
+__global__ void __launch_bounds__(kThreads, 1)
+    bmid_tc_kernel(const BwdArgs a) {
+  constexpr int kWld = NB + kPadMn;               // N-major W stage row
+  constexpr int kNt = NB / 16;                    // n8 tiles a warp
+  extern __shared__ __align__(16) float smem[];
+  const int c_in = a.c_in, c_out = a.c_out, ldz = c_out + 4;
+  float* dz_s = smem;                             // [kTcRows][ldz]
+  float* w_s = dz_s + kTcRows * ldz;              // kRing x [kHeadK][kWld]
+  float* red_t = w_s + kRing * kHeadK * kWld;     // [2][4][NB]
+  float* red_b = red_t + 8 * NB;                  // [kThreads]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int wm = warp >> 1, wn = warp & 1;
+  const int b = blockIdx.y, p0 = blockIdx.x * kTcRows;
+  const int rows = min(kTcRows, a.n - p0);
+  const size_t g0 = (size_t)b * a.n + p0;
+  float* prow = a.part + ((size_t)b * gridDim.x + blockIdx.x) *
+                             (2 * c_in + c_out);
+  const bool zpbf = BF && (a.prec & kZpBf16);
+  const bool zcbf = BF && (a.prec & kZcBf16);
+  const bool dybf = BF && (a.prec & kDyBf16);
+  const bool dypbf = BF && (a.prec & kDypBf16);
+  const int kchunks = c_out / kHeadK, total = kchunks * (c_in / NB);
+
+  // Ring chunk q: W rows (k) kc * kHeadK .. of n tile nt, q = nt *
+  // kchunks + kc; one commit group a call, empty past the last.
+  const auto load_w = [&](int q) {
+    if (q < total) {
+      const int nt = q / kchunks, kc = q - nt * kchunks;
+      float* s = w_s + (q % kRing) * (kHeadK * kWld);
+      const float* src = a.w + (size_t)kc * kHeadK * a.ldw + nt * NB;
+      for (int e = threadIdx.x; e < kHeadK * NB / 4; e += kThreads) {
+        const int r = e / (NB / 4), k = (e % (NB / 4)) * 4;
+        cp16(s + r * kWld + k, src + (size_t)r * a.ldw + k, 16);
+      }
+    }
+    cp_commit();
+  };
+  load_w(0);
+  load_w(1);
+  {  // dz = dy * sc - c1 - zhat * c2: thread t owns column t % c_out.
+    const int c = threadIdx.x % c_out, step = kThreads / c_out;
+    const float scv = __ldg(a.sc + c), muv = __ldg(a.mu + c);
+    const float iv = __ldg(a.inv + c), k1 = __ldg(a.c1 + c);
+    const float k2 = __ldg(a.c2 + c);
+    float s = 0.f;
+    // kTcRows / step rows a thread, a multiple of kBatch; rows past N
+    // read the last row and are zeroed.
+    for (int r0 = threadIdx.x / c_out; r0 < kTcRows; r0 += kBatch * step) {
+      float zv[kBatch], dv[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const size_t at = (g0 + min(r0 + u * step, rows - 1)) * c_out + c;
+        zv[u] = load_val(a.zc, zcbf, at);
+        dv[u] = load_val(a.dy, dybf, at);
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int r = r0 + u * step;
+        float v = 0.f;
+        if (r < rows) {
+          const float zhat = (zv[u] - muv) * iv;
+          v = dv[u] * scv - k1 - zhat * k2;
+          a.dzs[(g0 + r) * c_out + c] = v;
+        }
+        dz_s[r * ldz + c] = v;
+        s += v;
+      }
+    }
+    red_b[threadIdx.x] = s;
+  }
+  __syncthreads();
+  if ((int)threadIdx.x < c_out) {
+    float s = 0.f;
+    for (int p = threadIdx.x; p < kThreads; p += c_out) s += red_b[p];
+    prow[2 * c_in + threadIdx.x] = s;
+  }
+
+  float acc[2][kNt][4];
+  for (int q = 0; q < total; ++q) {
+    const int nt = q / kchunks, kc = q - nt * kchunks;
+    cp_wait<kRing - 2>();
+    __syncthreads();          // chunk q landed; chunk q - 1 is read
+    load_w(q + kRing - 1);
+    if (kc == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < kNt; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    }
+    const float* ws = w_s + (q % kRing) * (kHeadK * kWld);
+    const float* zk = dz_s + kc * kHeadK;
+    const auto fz = [zk, ldz](int m, int k) { return zk[m * ldz + k]; };
+    const auto fw = [ws](int n, int k) { return ws[k * kWld + n]; };
+#pragma unroll
+    for (int kk = 0; kk < kHeadK; kk += mma_depth(BF))
+      mma_step<2, kNt, BF>(acc, fz, fw, wm * 32, wn * (NB / 2), kk, gq, tq);
+    if (kc < kchunks - 1) continue;
+
+    // The n tile's epilogue: dyp = mask * acc, h to hs, and the previous
+    // BN's sums.
+    const int n0 = nt * NB + wn * (NB / 2);
+    float s1[kNt][2] = {}, s2[kNt][2] = {};
+#pragma unroll
+    for (int j = 0; j < kNt; ++j) {
+      const int k = n0 + 8 * j + 2 * tq;
+      const float sc0 = __ldg(a.scp + k), sc1 = __ldg(a.scp + k + 1);
+      const float sh0 = __ldg(a.shp + k), sh1 = __ldg(a.shp + k + 1);
+      const float m0 = __ldg(a.mup + k), m1 = __ldg(a.mup + k + 1);
+      const float i0 = __ldg(a.invp + k), i1 = __ldg(a.invp + k + 1);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = wm * 32 + 16 * i + gq + 8 * h;
+          if (r >= rows) continue;
+          const size_t at = (g0 + r) * c_in + k;
+          const float z0 = load_val(a.zp, zpbf, at);
+          const float z1 = load_val(a.zp, zpbf, at + 1);
+          const float h0 = bn_affine(z0, sc0, sh0);
+          const float h1 = bn_affine(z1, sc1, sh1);
+          const float d0 = h0 > 0.f ? acc[i][j][2 * h] : 0.f;
+          const float d1 = h1 > 0.f ? acc[i][j][2 * h + 1] : 0.f;
+          if (dypbf)
+            *reinterpret_cast<__nv_bfloat162*>(
+                static_cast<__nv_bfloat16*>(a.dyp) + at) =
+                __floats2bfloat162_rn(d0, d1);
+          else
+            *reinterpret_cast<float2*>(static_cast<float*>(a.dyp) + at) =
+                make_float2(d0, d1);
+          *reinterpret_cast<float2*>(a.hs + at) =
+              make_float2(fmaxf(h0, 0.f), fmaxf(h1, 0.f));
+          s1[j][0] += d0;
+          s1[j][1] += d1;
+          s2[j][0] += d0 * ((z0 - m0) * i0);
+          s2[j][1] += d1 * ((z1 - m1) * i1);
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < kNt; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float v1 = group_sum(s1[j][e]), v2 = group_sum(s2[j][e]);
+        if (gq == 0) {
+          const int col = wn * (NB / 2) + 8 * j + 2 * tq + e;
+          red_t[wm * NB + col] = v1;
+          red_t[(4 + wm) * NB + col] = v2;
+        }
+      }
+    __syncthreads();
+    if (threadIdx.x < NB) {
+      const int t = threadIdx.x;
+      prow[nt * NB + t] = ((red_t[t] + red_t[NB + t]) + red_t[2 * NB + t]) +
+                          red_t[3 * NB + t];
+      prow[c_in + nt * NB + t] = ((red_t[4 * NB + t] + red_t[5 * NB + t]) +
+                                  red_t[6 * NB + t]) + red_t[7 * NB + t];
+    }
+  }
+  cp_wait<0>();
+}
+
+template <typename K>
+int launch_tc(K kernel, dim3 grid, size_t bytes, const BwdArgs& a,
+              cudaStream_t stream) {
+  if (bytes > (size_t)max_smem_optin()) return kErrSmem;
+  cudaError_t e = allow_smem(kernel, bytes);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<grid, kThreads, bytes, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// t1 / t2 per group and db from the row kernel's per-block partials, and
+// dW = dz^T h on the GEMM core from the dz and h the row pass wrote (bf16
+// operands under kRound, as the JAX package's _mxu_dot_t) over `splits`
+// row ranges added in fp64.
+int finish(const BwdArgs& a, int blocks, cudaStream_t stream) {
+  const int per = blocks / a.groups;
+  const long long ldp = 2LL * a.c_in + a.c_out;
+  int e;
+  if ((e = colsum(a.part, ldp, per, a.c_in, a.groups, a.t1, a.c_in, stream)))
+    return e;
+  if ((e = colsum(a.part + a.c_in, ldp, per, a.c_in, a.groups, a.t2, a.c_in,
+                  stream)))
+    return e;
+  if ((e = colsum(a.part + 2 * a.c_in, ldp, blocks, a.c_out, 1, a.db, 0,
+                  stream)))
+    return e;
+  const long long wsz = (long long)a.c_out * a.c_in;
+  Gemm g{};
+  g.m = a.c_out, g.n = a.c_in, g.k = a.batch * a.n, g.batch = 1;
+  g.splits = a.splits;
+  g.sam = 1, g.sak = a.c_out;          // A[o][r] = dz[r][o]
+  g.sbk = a.c_in, g.sbn = 1;           // B[r][i] = h[r][i]
+  g.ldc = a.c_in, g.bsc = wsz;
+  g.a = a.dzs, g.b = a.hs, g.c = a.part_w;
+  e = gemm(g, a.prec & kRound, stream);
+  return e ? e : split_sum(a.part_w, a.splits, wsz, 1, a.dw, stream);
+}
+
+// What both passes need: shapes in range, a 16-byte aligned W with a row
+// stride of whole 16-byte groups (the ring's copies), every buffer.
+bool bad_args(const BwdArgs& a) {
+  return a.batch <= 0 || a.batch > 65535 || a.n <= 0 || a.c_in <= 0 ||
+         a.c_out <= 0 || a.groups < 1 || a.batch % a.groups ||
+         (long long)a.batch * a.n > 0x7fffffffLL ||
+         (long long)a.c_out * a.c_in > 0x7fffffffLL || a.ldw < a.c_in ||
+         a.ldw % 4 || reinterpret_cast<uintptr_t>(a.w) % 16 ||
+         a.splits <= 0 || a.splits > 65535 || !a.zp || !a.scp || !a.shp ||
+         !a.mup || !a.invp || !a.w || !a.dyp || !a.t1 || !a.t2 || !a.db ||
+         !a.dw || !a.part || !a.part_w || !a.dzs || !a.hs || a.r;
+}
+
+}  // namespace
+
+int trunk_b1_tc(const BwdArgs& a, cudaStream_t stream) {
+  if (a.mode != kDzTrunk || bad_args(a) || a.c_in != kC2 ||
+      a.c_out % kChunk || (a.prec & kDypBf16) || !a.bias || !a.mu ||
+      !a.inv || !a.coef1 || !a.coef2 || !a.s3dg || !a.idx)
+    return kErrArgs;
+  const size_t bytes = ((size_t)kTcRows * (kC2 + kDzLd) +
+                        (size_t)kRing * kChunk * kC2 + 4 * kChunk + 8 * kC2) *
+                       sizeof(float);
+  const dim3 grid(ceil_div(a.n, kTcRows), a.batch);
+  const bool bf = a.prec & kRound, g = a.groups > 1;
+  const int e =
+      bf ? (g ? launch_tc(b1_tc_kernel<true, true>, grid, bytes, a, stream)
+              : launch_tc(b1_tc_kernel<true, false>, grid, bytes, a, stream))
+         : (g ? launch_tc(b1_tc_kernel<false, true>, grid, bytes, a, stream)
+              : launch_tc(b1_tc_kernel<false, false>, grid, bytes, a,
+                           stream));
+  return e ? e : finish(a, grid.x * grid.y, stream);
+}
+
+int head_bmid_tc(const BwdArgs& a, cudaStream_t stream) {
+  if (a.mode != kDzBn || bad_args(a) || a.groups != 1 ||
+      a.c_out > kThreads || kThreads % a.c_out || a.c_out % kHeadK ||
+      (a.c_in != 64 && a.c_in % 128) || !a.zc || !a.dy || !a.sc || !a.mu ||
+      !a.inv || !a.c1 || !a.c2)
+    return kErrArgs;
+  const int nb = a.c_in == 64 ? 64 : 128;
+  const size_t bytes = ((size_t)kTcRows * (a.c_out + 4) +
+                        (size_t)kRing * kHeadK * (nb + kPadMn) + 8 * nb +
+                        kThreads) * sizeof(float);
+  const dim3 grid(ceil_div(a.n, kTcRows), a.batch);
+  const bool bf = a.prec & kRound;
+  int e;
+  if (nb == 64)
+    e = bf ? launch_tc(bmid_tc_kernel<true, 64>, grid, bytes, a, stream)
+           : launch_tc(bmid_tc_kernel<false, 64>, grid, bytes, a, stream);
+  else
+    e = bf ? launch_tc(bmid_tc_kernel<true, 128>, grid, bytes, a, stream)
+           : launch_tc(bmid_tc_kernel<false, 128>, grid, bytes, a, stream);
+  return e ? e : finish(a, grid.x * grid.y, stream);
+}
+
+}  // namespace pointtpu

@@ -1,5 +1,7 @@
-// The two kernel shapes every training pass is made of, shared by
-// trunk_train.cu and seg_head_train.cu.
+// The two kernel shapes of the training passes on the CUDA cores, shared
+// by trunk_train.cu and seg_head_train.cu, and the argument structs of
+// every training pass. (Trunk B1 and the seg head's Bmid run on the
+// tensor cores instead: train_bwd_tc.cu.)
 //
 // * The row GEMM over point tiles. A block of 256 threads owns a tile of
 //   64 points of one cloud (8 rows per warp, as tile_fma lays them out).
@@ -9,8 +11,8 @@
 //   The forward epilogues store z, reduce column sum / sum of squares,
 //   keep each cloud's max and min with the first point attaining them,
 //   or take a per-point log_softmax. The backward form first builds the
-//   tile's dz (a BN backward from stashes, or recomputed through a GEMM:
-//   the trunk's dz3, the head's softmax backward), then multiplies it by
+//   tile's dz (a BN backward from stashes, or the head's softmax backward
+//   through a recomputed GEMM), then multiplies it by
 //   W in 128-column chunks, so a [64, 1024] dz never exists; its
 //   epilogue masks by the previous ReLU, stores dy_prev and reduces the
 //   previous BN's two sums.
@@ -31,15 +33,16 @@
 // enter a sum, an extremum or a store.
 //
 // Every tile of both kernels lies in one cloud. With groups > 1 (the
-// paired trunks: the batch is groups stacked streams of batch / groups
-// clouds) the BN statistics and the terms a pass takes from them are
-// [groups, C] and a tile uses its cloud's group's row; each group's
+// paired trunks' forward: the batch is groups stacked streams of batch /
+// groups clouds) the BN statistics and the terms a pass takes from them
+// are [groups, C] and a tile uses its cloud's group's row; each group's
 // partial sums are a contiguous range of the per-block slots, added as
 // a stream alone would add them. Grouping is a template parameter (G) of
-// the kernels, so a one-group pass reads its statistics straight from
-// the argument struct and holds no per-group pointers in registers; the
-// host-side passes (row_fwd, backward_pass) are templates too, so a
-// source instantiates only the kernels its entry points launch.
+// the forward kernel, so a one-group pass reads its statistics straight
+// from the argument struct and holds no per-group pointers in registers;
+// the backward passes here (the seg head's) take one group. The
+// host-side passes (row_fwd, backward_pass) are templates, so a source
+// instantiates only the kernels its entry points launch.
 //
 // fp32 FMAs on the CUDA cores, fp32 accumulation. Under kRound (mixed
 // precision) every matmul operand, activations, weights and cotangents,
@@ -106,6 +109,10 @@ struct BwdArgs {
   float* dw;             // [c_out, c_in]
   float* part;           // scratch [blocks, 2 * c_in + c_out]
   float* part_w;         // scratch [splits, c_out * c_in]
+  // The tensor-core passes (train_bwd_tc.cu) only: the row pass writes
+  // the dW product's operands here.
+  float* dzs;            // scratch [batch * n, c_out]: dz
+  float* hs;             // scratch [batch * n, c_in]: the previous activation
 };
 
 namespace {  // each translation unit keeps its own copy
@@ -523,21 +530,21 @@ int row_fwd(const RowFwdArgs& a, cudaStream_t stream) {
 // ---------------------------------------------------------------------------
 
 // dz_s[r][c] = dz[b, p0 + r][oc + c] for c < OC (0 past rows or c_out),
-// unrounded: the tile's rows are points p0.. of cloud b. The recompute
-// modes read the previous activation h_s [kTile][c_in]. Ends with a
-// barrier.
-template <int OC, bool BF, bool G>
+// unrounded: the tile's rows are points p0.. of cloud b. The softmax mode
+// recomputes z from the previous activation h_s [kTile][c_in]. Ends with
+// a barrier.
+template <int OC, bool BF>
 __device__ __forceinline__ void make_dz(const BwdArgs& a, int oc, int b,
                                         int p0, int rows, const float* h_s,
                                         float* dz_s, float* stage) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const size_t g0 = (size_t)b * a.n + p0;
-  const float* mu = group_row<G>(a.mu, b, a.batch, a.groups, a.c_out);
-  const float* inv = group_row<G>(a.inv, b, a.batch, a.groups, a.c_out);
+  const float* mu = a.mu;
+  const float* inv = a.inv;
   if (a.mode == kDzBn) {
-    const float* sc = group_row<G>(a.sc, b, a.batch, a.groups, a.c_out);
-    const float* c1 = group_row<G>(a.c1, b, a.batch, a.groups, a.c_out);
-    const float* c2 = group_row<G>(a.c2, b, a.batch, a.groups, a.c_out);
+    const float* sc = a.sc;
+    const float* c1 = a.c1;
+    const float* c2 = a.c2;
     const bool zcbf = BF && (a.prec & kZcBf16);
     const bool dybf = BF && (a.prec & kDyBf16);
     for (int e = threadIdx.x; e < kTile * OC; e += kThreads) {
@@ -559,27 +566,7 @@ __device__ __forceinline__ void make_dz(const BwdArgs& a, int oc, int b,
   float acc[kRows][NJ] = {};
   gemm_acc<NJ, true>(acc, h_s, a.c_in, a.c_in, a.w, a.ldw, oc, a.c_out - oc,
                      stage, BF);
-  if (a.mode == kDzTrunk) {
-    // dz3 = [n == idx] * s3dg - coef1 - zhat3 * coef2 (per cloud, channel)
-#pragma unroll
-    for (int jj = 0; jj < NJ; ++jj) {
-      const int o = oc + lane + 32 * jj;
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const int r = warp + i * kWarps;
-        float v = 0.f;
-        if (r < rows && o < a.c_out) {
-          const int p = p0 + r;
-          const size_t at = (size_t)b * a.c_out + o;
-          const float zhat = ((acc[i][jj] + __ldg(a.bias + o)) - __ldg(mu + o)) *
-                             __ldg(inv + o);
-          const float sparse = p == __ldg(a.idx + at) ? __ldg(a.s3dg + at) : 0.f;
-          v = sparse - __ldg(a.coef1 + at) - zhat * __ldg(a.coef2 + at);
-        }
-        dz_s[r * OC + lane + 32 * jj] = v;
-      }
-    }
-  } else {
+  {
     // Softmax backward: dz = dlp - softmax(z) * sum(dlp), per row.
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
@@ -623,7 +610,7 @@ __device__ __forceinline__ void make_dz(const BwdArgs& a, int oc, int b,
 // and the per-block column sums of dz (for db and the per-cloud r)
 // ---------------------------------------------------------------------------
 
-template <int OC, bool BF, bool G>
+template <int OC, bool BF>
 __global__ void __launch_bounds__(kThreads, 1)
 row_bwd_kernel(const BwdArgs a) {
   extern __shared__ float smem[];
@@ -641,10 +628,10 @@ row_bwd_kernel(const BwdArgs a) {
   constexpr bool bf = BF;
   const bool zpbf = BF && (a.prec & kZpBf16);
   const bool dypbf = BF && (a.prec & kDypBf16);
-  const float* scp = group_row<G>(a.scp, b, a.batch, a.groups, a.c_in);
-  const float* shp = group_row<G>(a.shp, b, a.batch, a.groups, a.c_in);
-  const float* mup = group_row<G>(a.mup, b, a.batch, a.groups, a.c_in);
-  const float* invp = group_row<G>(a.invp, b, a.batch, a.groups, a.c_in);
+  const float* scp = a.scp;
+  const float* shp = a.shp;
+  const float* mup = a.mup;
+  const float* invp = a.invp;
 
   if (recompute)
     load_tile(h_s, a.c_in, a.zp, zpbf, g0, rows, a.c_in, 0, a.c_in, scp, shp,
@@ -655,7 +642,7 @@ row_bwd_kernel(const BwdArgs a) {
       constexpr int NJ = decltype(nj)::value;
       float acc[kRows][NJ] = {};
       for (int oc = 0; oc < a.c_out; oc += OC) {
-        make_dz<OC, BF, G>(a, oc, b, p0, rows, h_s, dz_s, stage);
+        make_dz<OC, BF>(a, oc, b, p0, rows, h_s, dz_s, stage);
         if (kc == 0)
           for (int c = threadIdx.x; c < OC && oc + c < a.c_out; c += kThreads) {
             float s = 0.f;
@@ -716,7 +703,7 @@ row_bwd_kernel(const BwdArgs a) {
 // h[row][k]
 // ---------------------------------------------------------------------------
 
-template <int KJ, bool BF, bool G>
+template <int KJ, bool BF>
 __global__ void __launch_bounds__(kThreads)
 wgrad_kernel(const BwdArgs a) {
   extern __shared__ float smem[];
@@ -740,8 +727,8 @@ wgrad_kernel(const BwdArgs a) {
     const int b = t / tpc, p0 = (t - b * tpc) * kTile;
     const int rows = min(kTile, a.n - p0);
     const size_t g0 = (size_t)b * a.n + p0;
-    const float* scp = group_row<G>(a.scp, b, a.batch, a.groups, a.c_in);
-    const float* shp = group_row<G>(a.shp, b, a.batch, a.groups, a.c_in);
+    const float* scp = a.scp;
+    const float* shp = a.shp;
     __syncthreads();  // the previous tile's h_s and dz_s are read
     if (recompute)
       load_tile(h_s, a.c_in, a.zp, zpbf, g0, rows, a.c_in, 0, a.c_in, scp,
@@ -749,7 +736,7 @@ wgrad_kernel(const BwdArgs a) {
     else
       load_tile(h_s, hw, a.zp, zpbf, g0, rows, a.c_in, kc, a.c_in, scp, shp,
                 bf);
-    make_dz<kGradO, BF, G>(a, oc, b, p0, rows, h_s, dz_s, stage);
+    make_dz<kGradO, BF>(a, oc, b, p0, rows, h_s, dz_s, stage);
     if (bf) {
       round_smem(dz_s, kTile * kGradO);
       __syncthreads();
@@ -782,7 +769,7 @@ wgrad_kernel(const BwdArgs a) {
   }
 }
 
-template <int KJ, bool G>
+template <int KJ>
 int launch_wgrad(const BwdArgs& a, cudaStream_t stream) {
   const bool recompute = a.mode != kDzBn;
   const size_t bytes =
@@ -793,16 +780,16 @@ int launch_wgrad(const BwdArgs& a, cudaStream_t stream) {
                   a.splits);
   int e;
   if (a.prec & kRound) {
-    if ((e = (int)allow_smem(wgrad_kernel<KJ, true, G>, bytes))) return e;
-    wgrad_kernel<KJ, true, G><<<grid, kThreads, bytes, stream>>>(a);
+    if ((e = (int)allow_smem(wgrad_kernel<KJ, true>, bytes))) return e;
+    wgrad_kernel<KJ, true><<<grid, kThreads, bytes, stream>>>(a);
   } else {
-    if ((e = (int)allow_smem(wgrad_kernel<KJ, false, G>, bytes))) return e;
-    wgrad_kernel<KJ, false, G><<<grid, kThreads, bytes, stream>>>(a);
+    if ((e = (int)allow_smem(wgrad_kernel<KJ, false>, bytes))) return e;
+    wgrad_kernel<KJ, false><<<grid, kThreads, bytes, stream>>>(a);
   }
   return (int)cudaGetLastError();
 }
 
-template <int OC, bool G>
+template <int OC>
 int launch_row_bwd(const BwdArgs& a, cudaStream_t stream) {
   const bool recompute = a.mode != kDzBn;
   const size_t bytes = ((size_t)(recompute ? kTile * a.c_in : 0) + kTile * OC +
@@ -811,53 +798,48 @@ int launch_row_bwd(const BwdArgs& a, cudaStream_t stream) {
   const dim3 grid(ceil_div(a.n, kTile), a.batch);
   int e;
   if (a.prec & kRound) {
-    if ((e = (int)allow_smem(row_bwd_kernel<OC, true, G>, bytes))) return e;
-    row_bwd_kernel<OC, true, G><<<grid, kThreads, bytes, stream>>>(a);
+    if ((e = (int)allow_smem(row_bwd_kernel<OC, true>, bytes))) return e;
+    row_bwd_kernel<OC, true><<<grid, kThreads, bytes, stream>>>(a);
   } else {
-    if ((e = (int)allow_smem(row_bwd_kernel<OC, false, G>, bytes))) return e;
-    row_bwd_kernel<OC, false, G><<<grid, kThreads, bytes, stream>>>(a);
+    if ((e = (int)allow_smem(row_bwd_kernel<OC, false>, bytes))) return e;
+    row_bwd_kernel<OC, false><<<grid, kThreads, bytes, stream>>>(a);
   }
   return (int)cudaGetLastError();
 }
 
-// A backward pass in dz mode MODE (fixed by each entry point): the row
-// kernel (dy_prev, the BN sums, db and r), the weight-gradient kernel,
-// and the fp64 sums of their partials (the BN sums per group). G: groups
-// > 1, else groups == 1. The dW kernel's block takes 128 input channels
-// (KJ = 4), which serves any width; a BN-mode pass on an input at most
-// 64 wide (the head's B1 on pf) takes 64 (KJ = 2), as no other pass on
-// the path is narrower than 128.
-template <int MODE, bool G>
+// A backward pass in dz mode MODE (fixed by each entry point: the seg
+// head's B1 and B4, one group): the row kernel (dy_prev, the BN sums, db
+// and r), the weight-gradient kernel, and the fp64 sums of their
+// partials. The dW kernel's block takes 128 input channels (KJ = 4),
+// which serves any width; a BN-mode pass on an input at most 64 wide
+// (the head's B1 on pf) takes 64 (KJ = 2).
+template <int MODE>
 int backward_pass(const BwdArgs& a, cudaStream_t stream) {
   constexpr bool recompute = MODE != kDzBn;
   if (a.mode != MODE || a.batch <= 0 ||
       a.batch > 65535 || a.n <= 0 || a.c_in <= 0 || a.c_out <= 0 ||
-      (G ? a.groups < 2 : a.groups != 1) || a.batch % a.groups ||
-      a.ldw < a.c_in || a.splits <= 0 || a.splits > 65535 || !a.zp || !a.w ||
+      a.groups != 1 || a.ldw < a.c_in || a.splits <= 0 || a.splits > 65535 || !a.zp || !a.w ||
       !a.dyp || !a.db || !a.dw || !a.part || !a.part_w ||
       (a.scp && !a.shp) || (a.mup && (!a.invp || !a.t1 || !a.t2)) ||
       (recompute && (a.c_in > 128 || !a.bias)) ||
       (MODE == kDzBn && (!a.zc || !a.dy || !a.sc || !a.mu || !a.inv ||
                          !a.c1 || !a.c2)) ||
-      (MODE == kDzTrunk && (!a.mu || !a.inv || !a.coef1 || !a.coef2 ||
-                            !a.s3dg || !a.idx)) ||
       (MODE == kDzSoftmax && (a.c_out > kGradO || !a.dlp)))
     return kErrArgs;
-  int e = launch_row_bwd<MODE == kDzSoftmax ? 64 : 128, G>(a, stream);
+  int e = launch_row_bwd<MODE == kDzSoftmax ? 64 : 128>(a, stream);
   if (e) return e;
-  if constexpr (MODE == kDzBn && !G)
-    e = a.c_in <= 64 ? launch_wgrad<2, G>(a, stream)
-                     : launch_wgrad<4, G>(a, stream);
+  if constexpr (MODE == kDzBn)
+    e = a.c_in <= 64 ? launch_wgrad<2>(a, stream)
+                     : launch_wgrad<4>(a, stream);
   else
-    e = launch_wgrad<4, G>(a, stream);
+    e = launch_wgrad<4>(a, stream);
   if (e) return e;
   const int tiles = ceil_div(a.n, kTile), blocks = tiles * a.batch;
-  const int per = blocks / a.groups;
   const long long ldp = 2LL * a.c_in + a.c_out;
   if (a.t1) {
-    if ((e = colsum(a.part, ldp, per, a.c_in, a.groups, a.t1, a.c_in, stream)))
+    if ((e = colsum(a.part, ldp, blocks, a.c_in, 1, a.t1, a.c_in, stream)))
       return e;
-    if ((e = colsum(a.part + a.c_in, ldp, per, a.c_in, a.groups, a.t2, a.c_in,
+    if ((e = colsum(a.part + a.c_in, ldp, blocks, a.c_in, 1, a.t2, a.c_in,
                     stream)))
       return e;
   }

@@ -6,21 +6,22 @@
 // trunk2_train: F1 (_f1_call, pallas_call at trunk_train.py:121), F2
 // (_f2_call, :212) and B1 (_b1_call, :309).
 //
-// Bound: FMAs. At batch 32 x 2048 points the 128 -> 1024 layer is 8.6
-// GFMA, computed once in F2 and twice in B1 (the recomputed z3 and
-// dz3 @ W3), plus once more in B1's weight gradient (z3 again, and
-// dz3^T h2), against 33.5 MB of z2 stash read per pass.
-// Design (train_gemm.cuh): z3 [B, N, 1024] never reaches device memory,
-// as on the TPU. F1 is a row GEMM 64 -> 128 that stores z2 and its
-// column partial sums. F2 recomputes h2 = relu(bn2(z2)) into shared
-// memory, streams W3 in 256-column chunks and reduces z3 in registers to
-// the BN3 partial sums and each cloud's max and min with the first point
-// attaining them (packed 64-bit atomics, so the winner does not depend on
-// the order of the blocks). B1's row kernel rebuilds dz3 in 128-channel
-// chunks (the sparse winner term minus the dense zhat term) and
-// accumulates dy2 = mask * dz3 @ W3 over them; its weight-gradient kernel
-// rebuilds the same chunks for dW3 = dz3^T h2 over row ranges of at most
-// 2048 points. All row reductions add per-block partials in fp64.
+// Bound: matmul work. At batch 32 x 2048 points the 128 -> 1024 layer is
+// 8.6 GFMA, computed once in F2 (fp32 FMA on the CUDA cores) and three
+// times in B1 (the recomputed z3, dz3 @ W3 and dz3^T h2, on the tensor
+// cores), against 33.5 MB of z2 stash read per pass.
+// Design (train_gemm.cuh): z3 [B, N, 1024] never reaches device memory
+// in the forward, as on the TPU. F1 is a row GEMM 64 -> 128 that stores
+// z2 and its column partial sums. F2 recomputes h2 = relu(bn2(z2)) into
+// shared memory, streams W3 in 256-column chunks and reduces z3 in
+// registers to the BN3 partial sums and each cloud's max and min with
+// the first point attaining them (packed 64-bit atomics, so the winner
+// does not depend on the order of the blocks). B1 runs on the tensor
+// cores (train_bwd_tc.cu: a back-to-back GEMM per 128-point tile that
+// rebuilds dz3 chunk by chunk in shared memory and accumulates dy2 =
+// mask * dz3 @ W3; dW3 = dz3^T h2 on the GEMM core from the dz3 and h2
+// the row pass writes out). All row reductions add per-block partials in
+// fp64.
 // groups > 1 (trunk2_train(groups=2), the paired trunks): the batch is
 // stacked streams, every BN2/BN3 statistic and BN term is [groups, C] and
 // read by the tile's cloud, and each stream's sums add its own blocks
@@ -29,6 +30,7 @@
 // bf16 operands, the z2 stash in bf16 (F1 stores it, F2 and B1 read it);
 // the statistics come from the unrounded z2 and z3, dy2 stays fp32.
 
+#include "train_bwd_tc.cuh"
 #include "train_gemm.cuh"
 
 using pointtpu::BwdArgs;
@@ -75,6 +77,5 @@ extern "C" int pt_trunk_b1(const BwdArgs* a, int device,
   if (a->mode != kDzTrunk || !a->scp || !a->mup || a->r) return kErrArgs;
   cudaError_t e = use_device(device);
   if (e != cudaSuccess) return (int)e;
-  return a->groups > 1 ? backward_pass<kDzTrunk, true>(*a, stream)
-                       : backward_pass<kDzTrunk, false>(*a, stream);
+  return trunk_b1_tc(*a, stream);
 }

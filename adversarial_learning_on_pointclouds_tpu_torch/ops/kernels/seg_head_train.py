@@ -13,7 +13,7 @@ applies the previous layer's BN + ReLU as it reads:
 * **P4** ``log_softmax(relu(bn3(z3)) @ W4 + b4)`` per point;
 * **B4** the softmax and conv4 backward, ``dy3`` and BN3's sums;
 * **Bmid** (x2) a BN backward and the matmul backward to the layer
-  before, with its BN sums;
+  before, with its BN sums (on the tensor cores: ``csrc/train_bwd_tc.cu``);
 * **B1** BN1's backward, ``dw1a``, ``db1``, ``dpf`` and the per-cloud row
   sum ``r`` of ``dz1`` (the cotangent of ``g_row``).
 
@@ -101,11 +101,13 @@ def _fwd(symbol, x, sc, sh, w, b, bf16, addend=None, logp=False):
 
 
 def _bwd(symbol, mode, zp, scp, shp, mup, invp, w, bf16, r=False,
-         dyp_stash=False, **dz):
+         dyp_stash=False, tc=False, **dz):
     """One backward pass on the card: ``dz`` of the current layer (from
     ``mode``'s inputs), then ``dy_prev = dz @ W^T`` (masked by the
     previous ReLU; a stash under ``dyp_stash``), the previous BN's sums,
-    ``dW`` and ``db``."""
+    ``dW`` and ``db``. ``tc``: the tensor-core pass
+    (``csrc/train_bwd_tc.cu``), which writes ``dz`` and ``h`` for ``dW =
+    dz^T h`` on the GEMM core."""
     bsz, n, c_in = zp.shape
     c_out = w.shape[1]
     dev = zp.device
@@ -129,8 +131,17 @@ def _bwd(symbol, mode, zp, scp, shp, mup, invp, w, bf16, r=False,
     db = torch.empty(c_out, **f32)
     rr = torch.empty((bsz, c_out), **f32) if r else None
     dw = torch.empty((c_out, c_in), **f32)
-    splits = launch.weight_grad_splits(bsz, n, c_out, c_in, dev)
-    part = torch.empty((launch.row_blocks(bsz, n), 2 * c_in + c_out), **f32)
+    rows = bsz * n
+    if tc:
+        splits = launch.row_splits(rows, c_out, c_in, dev)
+        part = torch.empty((launch.row_blocks(bsz, n, launch.TC_TILE),
+                            2 * c_in + c_out), **f32)
+        dz.update(dzs=torch.empty((rows, c_out), **f32),
+                  hs=torch.empty((rows, c_in), **f32))
+    else:
+        splits = launch.weight_grad_splits(bsz, n, c_out, c_in, dev)
+        part = torch.empty((launch.row_blocks(bsz, n), 2 * c_in + c_out),
+                           **f32)
     part_w = torch.empty((splits, c_out * c_in), **f32)
     prec = launch.prec(bf16, zp=zp, zc=dz.get("zc"), dy=dz.get("dy"),
                        dyp=dyp)
@@ -251,9 +262,9 @@ def bmid(zc, dy, sc, mu, inv, coef1, coef2, zp, scp, shp, w, mup, invp,
         return bmid_plain(zc, dy, sc, mu, inv, coef1, coef2, zp, scp, shp, w,
                           mup, invp, bf16)
     dyp, dw, db, t1, t2, _ = _bwd("pt_head_bmid", launch.DZ_BN, zp, scp, shp,
-                                  mup, invp, w, bf16, dyp_stash=True, zc=zc,
-                                  dy=dy, sc=sc, mu=mu, inv=inv, c1=coef1,
-                                  c2=coef2)
+                                  mup, invp, w, bf16, dyp_stash=True, tc=True,
+                                  zc=zc, dy=dy, sc=sc, mu=mu, inv=inv,
+                                  c1=coef1, c2=coef2)
     bmid.launches += 1
     return dyp, dw, db, t1, t2
 

@@ -9,7 +9,8 @@ trunk_train.cu``, whose header says what bounds them on the card):
   column sum / sum of squares and each cloud's channel max and min with
   the first point that attains them;
 * **B1** the backward through conv3 + BN3 + pool: ``dy2``, ``dw3``,
-  ``db3`` and BN2's two reduction sums ``t1``/``t2``.
+  ``db3`` and BN2's two reduction sums ``t1``/``t2`` (on the tensor
+  cores: ``csrc/train_bwd_tc.cu``).
 
 Each pass has a plain PyTorch twin of the same signature (``f1_plain``,
 ``f2_plain``, ``b1_plain``) that CPU tensors run. The glue between the
@@ -230,15 +231,21 @@ def b1(z2, sc2, sh2, w3, b3, mu3, inv3, coef1, coef2, s3dg, idx, mu2, inv2,
     dw3 = torch.empty((c3, c2), **f32)
     db3 = torch.empty(c3, **f32)
     t1, t2 = torch.empty((groups, c2), **f32), torch.empty((groups, c2), **f32)
-    splits = launch.weight_grad_splits(bsz, n, c3, c2, dev)
-    part = torch.empty((launch.row_blocks(bsz, n), 2 * c2 + c3), **f32)
+    # The tensor-core pass writes dz3 and h2 for dW3 = dz3^T h2 on the
+    # GEMM core, split over row ranges.
+    rows = bsz * n
+    splits = launch.row_splits(rows, c3, c2, dev)
+    part = torch.empty((launch.row_blocks(bsz, n, launch.TC_TILE),
+                        2 * c2 + c3), **f32)
     part_w = torch.empty((splits, c3 * c2), **f32)
+    dzs, hs = torch.empty((rows, c3), **f32), torch.empty((rows, c2), **f32)
     a = launch.args(launch.BwdArgs, mode=launch.DZ_TRUNK, batch=bsz, n=n,
                     c_in=c2, c_out=c3, ldw=ldw, splits=splits, groups=groups,
                     prec=launch.prec(bf16, zp=z2), zp=z2, scp=sc2, shp=sh2,
                     mup=mu2, invp=inv2, w=w3.t(), bias=b3, mu=mu3, inv=inv3,
                     coef1=coef1, coef2=coef2, s3dg=s3dg, idx=idx, dyp=dy2,
-                    t1=t1, t2=t2, db=db3, dw=dw3, part=part, part_w=part_w)
+                    t1=t1, t2=t2, db=db3, dw=dw3, part=part, part_w=part_w,
+                    dzs=dzs, hs=hs)
     launch.call("pt_trunk_b1", dev, ctypes.addressof(a))
     b1.launches += 1
     return dy2, dw3.t(), db3, _stat(t1, groups), _stat(t2, groups)

@@ -110,7 +110,7 @@ BwdArgs = _struct(
                 "groups", "prec"),
     ("zp", "scp", "shp", "mup", "invp", "w", "bias", "zc", "dy", "sc", "mu",
      "inv", "c1", "c2", "coef1", "coef2", "s3dg", "idx", "dlp", "dyp", "t1",
-     "t2", "db", "r", "dw", "part", "part_w"))
+     "t2", "db", "r", "dw", "part", "part_w", "dzs", "hs"))
 # Mirror of the argument struct in csrc/pool_fc_epilogue.cu.
 PoolFcArgs = _struct(
     "PoolFcArgs", ("batch", "c3", "c1", "groups", "prec"),
@@ -149,6 +149,8 @@ StackArgs = type("StackArgs", (ctypes.Structure,), {"_fields_": [
     ("shift", ctypes.c_void_p * MAX_STACK), ("out", ctypes.c_void_p)]})
 DZ_BN, DZ_TRUNK, DZ_SOFTMAX = 0, 1, 2   # BwdArgs.mode
 TILE = 64          # rows per block of the row kernels (kTile in csrc)
+TC_TILE = 128      # rows per block of the tensor-core backward passes
+                   # (kTcRows in csrc/train_bwd_tc.cu)
 # The ``prec`` bits of the argument structs (kRound... in common.cuh):
 # round every matmul operand to bf16, and which tensors are bf16 stashes
 # (RowFwdArgs: x, z; BwdArgs: zp, zc, dy, dyp).
@@ -181,9 +183,9 @@ def expect_stash(name: str, t: torch.Tensor, shape: Sequence[int],
            else torch.float32)
 
 
-def row_blocks(bsz: int, n: int) -> int:
-    """Blocks of a row kernel: one per ``TILE`` points of each cloud."""
-    return bsz * -(-n // TILE)
+def row_blocks(bsz: int, n: int, tile: int = TILE) -> int:
+    """Blocks of a row kernel: one per ``tile`` points of each cloud."""
+    return bsz * -(-n // tile)
 
 
 def check_groups(bsz: int, groups: int) -> int:

@@ -26,17 +26,21 @@ Phases, one or more lines each:
    P1/Pmid/P4/B4/Bmid/B1, the pool-fc epilogue at groups 1 and 2)
    against its plain pass at B=32 N=2048 (the config-3 step), B=32
    N=2500 (ragged) and B=2 N=2048, on inputs with negative BN3 gammas and
-   duplicated points (max ties go to the first point); then each
-   autograd function's outputs and gradients against its whole-function
-   plain reference;
+   duplicated points (max ties go to the first point); trunk B1 and
+   Bmid (on the tensor cores, ``csrc/train_bwd_tc.cu``) also, in fp32,
+   held by the float64 control (dy_prev and dW at most
+   ``F64_FACTOR`` times the plain fp32 pass's error), where the plain
+   pass with TF32 allowed must fail; then each autograd function's
+   outputs and gradients against its whole-function plain reference;
 7. train-slice: ``train_step`` of a seeded full-width segmenter with
    random BatchNorm statistics on one batch of 32 x 2048, on the card and
    on the CPU from the same weights: loss, log-probs, every gradient and
    every new running statistic compared; the training kernels' launches
    checked per step; then 10 Adam steps on the fixed batch must lower
    the loss;
-8. train-timing: each training pass against its plain pass, the step's
-   median time, points/s and the profiler's busy share;
+8. train-timing: each training pass against its plain pass (TFLOP/s;
+   B1 and Bmid bound at the 3xTF32 rate, the fp32-FMA bound beside it),
+   the step's median time, points/s and the profiler's busy share;
 9. disc-kernels: every discriminator pass (fwd, bwd_dx, bwd_dw, the full
    bwd) against its plain pass at B=32 N=2048 (and the D step's 2B=64),
    B=32 N=2500 (ragged) and B=2; then each ``FCDiscriminator`` autograd
@@ -259,6 +263,10 @@ PT_KERNELS = {
 PT_OFF = {k: {p: 0 for p in sites} for k, (_, sites) in PT_KERNELS.items()}
 # The kernels on the GEMM core (csrc/strided_gemm.cu): fp32 as 3xTF32.
 GEMM_KERNELS = ("pointwise_matmul", "tnet_apply")
+# The fused training passes on the tensor cores (csrc/train_bwd_tc.cu, on
+# mma.cuh's fragment layer and the GEMM core): fp32 as 3xTF32, bound at
+# that rate with the fp32-FMA bound beside it.
+TC_PASSES = (("trunk2_train", "B1"), ("seg_head_train", "Bmid"))
 # Launches per config-3 step under the switch. N=2048: conv1 of STN3d, the
 # encoder and STNkd (STN3d's sees the points: no dx), both transforms
 # (x @ T3's x is the points: no dx), both single-stream fc heads; the
@@ -367,24 +375,19 @@ def f64(args):
                  for a in args)
 
 
-def tf32_control(g, w, ref, plain, tag):
-    """The control that must fail: ``torch.matmul`` with TF32 allowed
-    (one TF32 product, about 2^-11 of each term) held to the float64
-    control of ``pm_dx`` at its depth; the flag is restored whatever
-    happens."""
-    from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
-        shared_mlp as sm,
-    )
-
+def tf32_control(label, fn, ref, plain, tag):
+    """The control that must fail: ``fn()``, a plain pass, with TF32
+    allowed in its matmuls (one TF32 product, about 2^-11 of each term)
+    held to the float64 control ``ref`` at its depth; the flag is restored
+    whatever happens."""
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
-        ctrl = sm.pm_dx_plain(g, w)
+        ctrl = fn()
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
     try:
-        check_f64(f"control: torch.matmul in TF32 at K={g.shape[-1]}", ctrl,
-                  plain, ref, tag)
+        check_f64(f"control: {label} in TF32", ctrl, plain, ref, tag)
     except AssertionError:
         phase(tag, "control: the TF32 product fails the float64 control, "
               "as it must")
@@ -844,6 +847,52 @@ def check_winners(tag, got_idx, ref_idx, z3, x, dup_clouds, n, want="max",
                                  "to the later duplicate")
 
 
+def _rows64(t):
+    return t.reshape(-1, t.shape[-1]).double()
+
+
+def b1_f64(z2, sc2, sh2, w3, b3, mu3, inv3, coef1, coef2, s3dg, idx, mu2,
+           inv2):
+    """Trunk B1's float64 control (one group, fp32): ``(dy2, dw3)`` with
+    every product and sum in float64 and h2, so BN2's ReLU mask, as the
+    fp32 passes compute it (a mask that flipped at a value within
+    rounding of zero would move a whole element, for every fp32 pass
+    alike, and hide the products' error)."""
+    h2 = torch.relu(z2.float() * sc2 + sh2)
+    z3 = torch.matmul(h2.double(), w3.double()) + b3.double()
+    zhat3 = (z3 - mu3.double()) * inv3.double()
+    points = torch.arange(z2.shape[1], device=z2.device)[None, :, None]
+    sparse = torch.where(points == idx[:, None, :],
+                         s3dg.double()[:, None, :],
+                         torch.zeros((), device=z2.device, dtype=torch.float64))
+    dz3 = (sparse - coef1.double()[:, None, :]
+           - zhat3 * coef2.double()[:, None, :])
+    return (torch.matmul(dz3, w3.double().t()) * (h2 > 0),
+            _rows64(h2).t() @ _rows64(dz3))
+
+
+def bmid_f64(zc, dy, sc, mu, inv, coef1, coef2, zp, scp, shp, w, mup, invp):
+    """Bmid's float64 control (fp32): ``(dy_prev, dw)`` in float64, the
+    previous ReLU's mask as the fp32 passes compute it."""
+    hp = torch.relu(zp.float() * scp + shp)
+    dz = (dy.double() * sc.double() - coef1.double()
+          - ((zc.double() - mu.double()) * inv.double()) * coef2.double())
+    return (torch.matmul(dz, w.double().t()) * (hp > 0),
+            _rows64(hp).t() @ _rows64(dz))
+
+
+def tc_f64(rec, kernel, pas, tag, got, ref, ref64, names, ptag, control):
+    """The float64 controls of a tensor-core pass's products (``names``,
+    the first outputs), and with ``control`` (a plain pass's thunk) the
+    TF32 control, which must fail."""
+    for i, nm in enumerate(names):
+        rec.cmp_f64(kernel, pas, f"{nm} {tag}", got[i], ref[i], ref64[i],
+                    ptag)
+    if control is not None:
+        tf32_control(f"{kernel} {pas}'s plain pass ({names[0]}, {tag})",
+                     control, ref64[0], ref[0], ptag)
+
+
 def train_kernel_checks(dev, gen, rec, bf16=False):
     """Phase 6 (fp32), or with ``bf16`` the passes' half of phase 12."""
     from adversarial_learning_on_pointclouds_tpu_torch.models import core
@@ -907,6 +956,10 @@ def train_kernel_checks(dev, gen, rec, bf16=False):
             rec.cmp("trunk2_train", "B1", tag,
                     ("dy2", "dw3", "db3", "t1", "t2"), got, ref, main, a,
                     phase_tag=ptag)
+            if not bf16:
+                tc_f64(rec, "trunk2_train", "B1", tag, got, ref, b1_f64(*a),
+                       ("dy2", "dw3"), ptag,
+                       (lambda: tt.b1_plain(*a)[0]) if main else None)
 
             # Seg head, pass by pass on the plain pass's outputs.
             pf_in = x
@@ -951,10 +1004,15 @@ def train_kernel_checks(dev, gen, rec, bf16=False):
                      scs[cur] * t1 / m, scs[cur] * t2 / m, zs[prev],
                      scs[prev], shs[prev], w, mus[prev], invs[prev], *xb)
                 got, ref = sh.bmid(*a), sh.bmid_plain(*a)
-                rec.cmp("seg_head_train", "Bmid", f"{w.shape[1]}->"
-                        f"{w.shape[0]} {tag}",
+                t = f"{w.shape[1]}->{w.shape[0]} {tag}"
+                rec.cmp("seg_head_train", "Bmid", t,
                         ("dy_prev", "dw", "db", "t1", "t2"), got, ref, main,
                         a, dz_scales(sh, a), ptag)
+                if not bf16:
+                    tc_f64(rec, "seg_head_train", "Bmid", t, got, ref,
+                           bmid_f64(*a), ("dy_prev", "dw"), ptag,
+                           (lambda: sh.bmid_plain(*a)[0])
+                           if main and cur == 1 else None)
                 dy, t1, t2 = ref[0], ref[3], ref[4]
             a = (zs[0], dy, scs[0], mus[0], invs[0], scs[0] * t1 / m,
                  scs[0] * t2 / m, pf_in, w1[:64], *xb)
@@ -1171,21 +1229,33 @@ def train_timing(card, rec, cuda_run, launches, results):
                 lambda: [fn(*a) for a in calls]).values())
             plain_dev_ms = sum(device_profile(
                 lambda: [plain(*a) for a in calls]).values())
-        bound_ms, bound_by = bound(*work(plain, calls))
+        flops, nbytes = work(plain, calls)
+        tc = (kernel, pas) in TC_PASSES
+        bound_ms, bound_by = bound(flops, nbytes,
+                                   TF32X3_PEAK if tc else FP32_PEAK)
+        fma_ms = bound(flops, nbytes)[0] * times
+        tflops = flops / ms / 1e9
         ms, plain_ms, dev_ms, plain_dev_ms, bound_ms = (
             t * times for t in (ms, plain_ms, dev_ms, plain_dev_ms, bound_ms))
         phase("train-timing", f"{card}: {kernel} {pas} x"
               f"{PER_STEP[kernel][pas]} per step at B={B} N={TRAIN_N}: "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; device time "
-              f"alone: kernel {dev_ms:.4f} ms, plain {plain_dev_ms:.4f} ms;"
-              f" bound {bound_ms:.4f} ms")
-        rows.setdefault(kernel, []).append({
+              f"kernel {ms:.4f} ms ({tflops:.1f} TFLOP/s), plain "
+              f"{plain_ms:.4f} ms; device time alone: kernel {dev_ms:.4f} "
+              f"ms, plain {plain_dev_ms:.4f} ms; bound {bound_ms:.4f} ms"
+              + (f" (3xTF32 rate; at the fp32 FMA rate {fma_ms:.4f} ms)"
+                 if tc else ""))
+        row = {
             "pass": pas,
             "replaces": f"{TPU_KERNELS}/{TRAIN_KERNELS[kernel][1][pas]}",
             "launches": launches[kernel][pas],
             "max_abs_err": rec.err[(kernel, pas)], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "device_ms": dev_ms, "plain_device_ms": plain_dev_ms})
+            "device_ms": dev_ms, "plain_device_ms": plain_dev_ms,
+            "tflops": tflops}
+        if tc:
+            row.update(bound_fma_ms=fma_ms,
+                       source=f"{KERNELS_ROOT}/csrc/train_bwd_tc.cu")
+        rows.setdefault(kernel, []).append(row)
     for kernel, passes in rows.items():
         src, sites = TRAIN_KERNELS[kernel]
         results.append(kernel_entry(
@@ -1965,17 +2035,20 @@ def time_passes(card, rec, key, fn, plain, times, bf16):
         dev_ms = sum(device_profile(lambda: [fn(*a) for a in calls]).values())
         plain_dev_ms = sum(device_profile(
             lambda: [plain(*a) for a in calls]).values())
-    bound_ms, bound_by = bound(*work(plain, calls),
+    flops, nbytes = work(plain, calls)
+    bound_ms, bound_by = bound(flops, nbytes,
                                BF16_PEAK if bf16 else FP32_PEAK)
     row = dict(zip(("ms", "plain_ms", "device_ms", "plain_device_ms",
                     "bound_ms"), (t * times / len(calls) for t in (
                         ms, plain_ms, dev_ms, plain_dev_ms, bound_ms))))
-    row.update(bound_by=bound_by, max_abs_err=rec.err[key])
+    row.update(bound_by=bound_by, max_abs_err=rec.err[key],
+               tflops=flops / ms / 1e9)
     if key in rec.share:
         row["stash_diff_share"] = rec.share[key]
     phase("bench-timing", f"{card}: {key[0]} {key[1]} "
           f"{'bf16 ' if bf16 else ''}x{times} per step: kernel "
-          f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms; device time "
+          f"{row['ms']:.4f} ms ({row['tflops']:.1f} TFLOP/s), plain "
+          f"{row['plain_ms']:.4f} ms; device time "
           f"alone: kernel {row['device_ms']:.4f} ms, plain "
           f"{row['plain_device_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms "
           f"({bound_by})")
@@ -2202,7 +2275,10 @@ def pt_kernel_checks(dev, gen, rec, rec_bf):
                             if (pas, c_in, c_out, n) == (
                                     "dx", 128, 1024, TRAIN_RAGGED_N) and \
                                     bsz == B:
-                                tf32_control(g, w, ref64, ref, tag)
+                                tf32_control(
+                                    f"torch.matmul at K={g.shape[-1]}",
+                                    lambda: sm.pm_dx_plain(g, w), ref64, ref,
+                                    tag)
                 a = (x, g)
                 t = f"{c_in}->{c_out} {at}"
                 got, ref = sm.pm_dwdb(*a), sm.pm_dwdb_plain(*a)
@@ -2887,17 +2963,20 @@ def adv_pt_slice(dev, card, gen):
 
 
 def trunk3_work(args):
-    """``(flops, bytes)`` of one trunk3_train forward and backward: each
-    layer's product forward and its two products backward (dx, dW), and
-    x, the parameters, the pooled output, the statistics and every
-    gradient once."""
+    """``(fma_flops, tc_flops, bytes)`` of one trunk3_train forward and
+    backward: each layer's product forward and its two products backward
+    (dx, dW), split by the unit that runs them (the backward products of
+    layers 2 and 3, Bmid and B1, on the tensor cores in 3xTF32; the rest
+    as fp32 FMAs), and x, the parameters, the pooled output, the
+    statistics and every gradient once."""
     x, w1, _, _, _, w2, _, _, _, w3 = args[:10]
     m = x.shape[0] * x.shape[1]
-    flops = 3 * 2 * m * sum(w.shape[0] * w.shape[1] for w in (w1, w2, w3))
+    tc = 2 * 2 * m * (w2.numel() + w3.numel())
+    fma = 3 * 2 * m * sum(w.numel() for w in (w1, w2, w3)) - tc
     params = sum(t.numel() for t in args[1:])
     nbytes = 4 * (2 * x.numel() + 2 * params + x.shape[0] * w3.shape[1]
                   + 2 * sum(w.shape[1] for w in (w1, w2, w3)))
-    return flops, nbytes
+    return fma, tc, nbytes
 
 
 def adv_pt_timing(card, rec, slice_out, results):
@@ -2952,23 +3031,31 @@ def adv_pt_timing(card, rec, slice_out, results):
 
     ms, plain_ms = time_pair(kernel, plain)
     dev_ms = sum(device_profile(kernel).values())
-    bound_ms, bound_by = bound(*trunk3_work(args))
+    fma, tc, nbytes = trunk3_work(args)
+    t_ops, t_bytes = fma / FP32_PEAK + tc / TF32X3_PEAK, nbytes / HBM_RATE
+    bound_ms = max(t_ops, t_bytes) * 1e3
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    fma_ms = bound(fma + tc, nbytes)[0]
     phase(tag, f"{card}: trunk3_train forward + backward B={B} "
           f"N={TRAIN_RAGGED_N} c_in=3: kernels {ms:.4f} ms (device "
           f"{dev_ms:.4f}), plain reference {plain_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by})")
+          f"{bound_ms:.4f} ms ({bound_by}; {tc / 1e9:.2f} of "
+          f"{(fma + tc) / 1e9:.2f} GFLOP at the 3xTF32 rate, all at the "
+          f"fp32 FMA rate {fma_ms:.4f} ms)")
     results.append({
         "name": "trunk3_train", "route": "cuda",
         "source": f"{KERNELS_ROOT}/csrc/trunk_train.cu",
         "sources": [f"{KERNELS_ROOT}/csrc/trunk_train.cu",
-                    f"{KERNELS_ROOT}/csrc/seg_head_train.cu"],
+                    f"{KERNELS_ROOT}/csrc/seg_head_train.cu",
+                    f"{KERNELS_ROOT}/csrc/train_bwd_tc.cu"],
         "replaces": f"{TPU_KERNELS}/{TRUNK3_SITE}", "launches": t3_launches,
         "max_abs_err": max(v for (kern, _), v in rec.err.items()
                            if kern == "trunk3_train"),
         "bf16_max_abs_err": max(v for (kern, _), v in rec.err.items()
                                 if kern == "trunk3_train bf16"),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None, "device_ms": dev_ms,
+        "bound_by": bound_by, "bound_fma_ms": fma_ms, "library_ms": None,
+        "device_ms": dev_ms,
         "times": f"per forward + backward at B={B} N={TRAIN_RAGGED_N} "
                  "c_in=3 (six passes)"})
 
@@ -3107,7 +3194,8 @@ def main() -> None:
           + "".join(f"; {k} {v:.1f} s" for k, v in sorted(
               getattr(build, "compile_seconds", {}).items(),
               key=lambda kv: -kv[1])))
-    for src in ("strided_gemm.cu", "pointwise_matmul.cu", "tnet_apply.cu"):
+    for src in ("strided_gemm.cu", "pointwise_matmul.cu", "tnet_apply.cu",
+                "train_bwd_tc.cu"):
         for label, (regs, st, ld) in ptxas_report(build, src).items():
             phase("build", f"ptxas: {src} {label}: {regs} registers, spill "
                   f"stores {st} bytes, spill loads {ld} bytes")

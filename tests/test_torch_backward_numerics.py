@@ -1,0 +1,301 @@
+"""The numerics of the generator's tensor-core backward passes
+(``csrc/train_bwd_tc.cu``: trunk B1 and the seg head's Bmid), emulated in
+plain PyTorch on the CPU.
+
+The card's kernels cannot run here; their arithmetic can. Trunk B1
+recomputes ``h2 = relu(bn2(z2))`` in fp32 (the ReLU mask every pass
+takes), then chunk by chunk of c3 ``z3 = h2 W3^T + b3`` (GEMM 1), ``dz3``
+in fp32 and ``dy2 += dz3 W3`` (GEMM 2); Bmid builds ``dz`` elementwise
+and takes ``dyp = dz W``; both write ``dz`` and ``h`` for ``dW = dz^T h``
+on the GEMM core, split over row ranges whose partials add in float64.
+In fp32 every product is 3xTF32 (``mm_3xtf32`` of
+``tests/test_torch_gemm_numerics.py``: per 8-deep k step ``a_lo b_hi +
+a_hi b_lo + a_hi b_hi`` added to an fp32 accumulator; GEMM 2's
+accumulator runs on across the chunks, which is one product over the
+whole depth in the same order), in bf16 the operands are rounded to bf16
+and summed in fp32. Sums (db, t1, t2) are fp32 values added in float64.
+
+Held at narrow widths (B1 c_in 32, c_out 256; Bmid 64 -> 128 and 128 ->
+64), a ragged N = 300, groups 1 and 2: fp32 within ``BOUND`` (1e-4
+scale-relative) of float64, of the port's plain twins and of the JAX
+package's ``_b1_call`` / ``_bmid_call`` (HIGHEST precision, Pallas in
+interpret mode as its own tests run it); bf16 within ``BF16_BOUND`` of
+the JAX kernels under their mixed-precision scope. The control: one TF32
+product instead of three misses ``BOUND``. These tests document the
+contract the kernels are built to and run no kernel; ``chip_smoke.py``
+holds the kernels to their plain twins and to float64 on the card.
+"""
+
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from adversarial_learning_on_pointclouds_tpu.models import core as jax_core
+from adversarial_learning_on_pointclouds_tpu.ops.kernels import (
+    seg_head_train as jax_head,
+    trunk_train as jax_trunk,
+)
+from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
+    seg_head_train, trunk_train,
+)
+from tests.test_torch_gemm_numerics import mm_3xtf32
+
+BOUND = 1e-4
+BF16_BOUND = 1e-3      # chip_smoke.py's bound for a bf16 pass's fp32 outputs
+N = 300                # ragged: no tile of 128 divides it
+ROWS_PER_SPLIT = 256   # the dW product's row ranges (ops/launch.py: row_splits)
+B1_WIDTHS = (32, 256)  # (c_in, c_out)
+BMID_WIDTHS = ((64, 128), (128, 64))   # (c_out, c_in): dz width -> dyp width
+
+
+def _bf(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).float()
+
+
+def _mm(a, b, prec):
+    """``a @ b`` as the kernels compute it: ``3xtf32``, ``tf32`` (one
+    product, the control), ``bf16`` (bf16 operands, fp32 sums) or ``f64``."""
+    if prec == "f64":
+        return a.double() @ b.double()
+    if prec == "bf16":
+        return _bf(a) @ _bf(b)
+    return mm_3xtf32(a, b, terms=3 if prec == "3xtf32" else 1)
+
+
+def _dw(dz, h, prec):
+    """``dz^T h`` over row ranges, the ranges' partials added in float64
+    (``split_sum``), as ``[c_in, c_out]``."""
+    parts = [_mm(dz[r:r + ROWS_PER_SPLIT].t(), h[r:r + ROWS_PER_SPLIT],
+                 prec).double()
+             for r in range(0, dz.shape[0], ROWS_PER_SPLIT)]
+    out = sum(parts)
+    return (out if prec == "f64" else out.float()).t()
+
+
+def _sums(t, groups):
+    """Per-group column sums of ``[B, N, C]`` in float64 (``[C]`` for one
+    group)."""
+    s = t.double().reshape(groups, -1, t.shape[-1]).sum(1)
+    return s[0] if groups == 1 else s
+
+
+def _f(t, prec):
+    return t.double() if prec == "f64" else t
+
+
+def b1_emulated(args, groups, prec):
+    """Trunk B1 as ``train_bwd_tc.cu`` computes it: ``(dy2, dw3, db3, t1,
+    t2)``; ``prec="f64"`` is the float64 control (h2 and its mask from
+    fp32, everything after in float64)."""
+    z2, sc2, sh2, w3, b3, mu3, inv3, coef1, coef2, s3dg, idx, mu2, inv2 = args
+    bsz, n, c2 = z2.shape
+    c3 = w3.shape[1]
+
+    def cloud(v):            # [C] or [G, C] statistic -> [B, 1, C]
+        return _f(v, prec).reshape(groups, -1).repeat_interleave(
+            bsz // groups, 0)[:, None, :]
+
+    h2 = torch.relu(z2 * cloud(sc2).float() + cloud(sh2).float())
+    mask = h2 > 0
+    h2 = _f(h2, prec)
+    z3 = _mm(h2.reshape(-1, c2), w3, prec).reshape(bsz, n, c3) + _f(b3, prec)
+    zhat3 = (z3 - cloud(mu3)) * cloud(inv3)
+    points = torch.arange(n)[None, :, None]
+    sparse = torch.where(points == idx[:, None, :],
+                         _f(s3dg, prec)[:, None, :], _f(torch.zeros(()), prec))
+    dz3 = sparse - _f(coef1, prec)[:, None, :] - zhat3 * _f(coef2,
+                                                           prec)[:, None, :]
+    dy2 = _mm(dz3.reshape(-1, c3), w3.t(), prec).reshape(bsz, n, c2) * mask
+    zhat2 = (_f(z2, prec) - cloud(mu2)) * cloud(inv2)
+    return (dy2, _dw(dz3.reshape(-1, c3), h2.reshape(-1, c2), prec),
+            dz3.double().sum((0, 1)), _sums(dy2, groups),
+            _sums(dy2 * zhat2, groups))
+
+
+def bmid_emulated(args, prec):
+    """Bmid as ``train_bwd_tc.cu`` computes it: ``(dyp, dw, db, t1, t2)``
+    (``dyp`` before its bf16 stash)."""
+    zc, dy, sc, mu, inv, c1, c2, zp, scp, shp, w, mup, invp = args
+    c_out, c_in = w.shape[1], w.shape[0]
+    hp = torch.relu(zp * scp + shp)
+    mask = hp > 0
+    zc, dy, sc, mu, inv, c1, c2, zp, hp, mup, invp = (
+        _f(t, prec) for t in (zc, dy, sc, mu, inv, c1, c2, zp, hp, mup, invp))
+    dz = dy * sc - c1 - ((zc - mu) * inv) * c2
+    dyp = _mm(dz.reshape(-1, c_out), w.t(), prec).reshape(hp.shape) * mask
+    return (dyp, _dw(dz.reshape(-1, c_out), hp.reshape(-1, c_in), prec),
+            dz.double().sum((0, 1)), _sums(dyp, 1),
+            _sums(dyp * ((zp - mup) * invp), 1))
+
+
+def _rel(a, b) -> float:
+    a = np.asarray(a.detach().double() if isinstance(a, torch.Tensor) else a,
+                   np.float64)
+    b = np.asarray(b.detach().double() if isinstance(b, torch.Tensor) else b,
+                   np.float64)
+    assert a.shape == b.shape, (a.shape, b.shape)
+    return float(np.abs(a - b).max()) / max(float(np.abs(b).max()), 1.0)
+
+
+def _stash(a: np.ndarray) -> np.ndarray:
+    """Values a bf16 stash holds (the same on both sides)."""
+    return np.array(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+
+
+@functools.lru_cache(maxsize=None)
+def _b1_args(groups, bf16=False):
+    c2, c3 = B1_WIDTHS
+    bsz = 2 * groups
+    rng = np.random.default_rng(10 * groups + bf16)
+    f = np.float32
+    stat = (c2,) if groups == 1 else (groups, c2)
+    stat3 = (c3,) if groups == 1 else (groups, c3)
+    z2 = rng.standard_normal((bsz, N, c2)).astype(f)
+    return ((_stash(z2) if bf16 else z2),
+            rng.uniform(0.5, 1.5, stat).astype(f),
+            (rng.standard_normal(stat) * 0.1).astype(f),
+            (rng.uniform(-1, 1, (c2, c3)) / np.sqrt(c2)).astype(f),
+            (rng.standard_normal(c3) * 0.1).astype(f),
+            (rng.standard_normal(stat3) * 0.1).astype(f),
+            rng.uniform(0.5, 1.5, stat3).astype(f),
+            (rng.standard_normal((bsz, c3)) * 1e-3).astype(f),
+            (rng.standard_normal((bsz, c3)) * 1e-3).astype(f),
+            rng.standard_normal((bsz, c3)).astype(f),
+            rng.integers(0, N, (bsz, c3)).astype(np.int32),
+            (rng.standard_normal(stat) * 0.1).astype(f),
+            rng.uniform(0.5, 1.5, stat).astype(f))
+
+
+@functools.lru_cache(maxsize=None)
+def _bmid_args(c_out, c_in, bf16=False):
+    rng = np.random.default_rng(c_out * 1000 + c_in + bf16)
+    f = np.float32
+
+    def stash(*shape, scale=1.0):
+        a = (rng.standard_normal(shape) * scale).astype(f)
+        return _stash(a) if bf16 else a
+
+    return (stash(2, N, c_out), stash(2, N, c_out, scale=0.2),
+            rng.uniform(0.5, 1.5, c_out).astype(f),
+            (rng.standard_normal(c_out) * 0.1).astype(f),
+            rng.uniform(0.5, 1.5, c_out).astype(f),
+            (rng.standard_normal(c_out) * 1e-2).astype(f),
+            (rng.standard_normal(c_out) * 1e-2).astype(f),
+            stash(2, N, c_in),
+            rng.uniform(0.5, 1.5, c_in).astype(f),
+            (rng.standard_normal(c_in) * 0.1).astype(f),
+            (rng.uniform(-1, 1, (c_in, c_out)) / np.sqrt(c_in)).astype(f),
+            (rng.standard_normal(c_in) * 0.1).astype(f),
+            rng.uniform(0.5, 1.5, c_in).astype(f))
+
+
+def _torch(args):
+    return tuple(torch.from_numpy(a) for a in args)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_b1(groups, bf16=False):
+    args = [jnp.asarray(a) for a in _b1_args(groups, bf16)]
+    if bf16:
+        args[0] = args[0].astype(jnp.bfloat16)
+        with jax_core.mixed_precision():
+            return jax_trunk._b1_call(*args, groups=groups)
+    return jax_trunk._b1_call(*args, groups=groups)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_bmid(c_out, c_in, bf16=False):
+    args = [jnp.asarray(a) for a in _bmid_args(c_out, c_in, bf16)]
+    if bf16:
+        for i in (0, 1, 7):
+            args[i] = args[i].astype(jnp.bfloat16)
+        with jax_core.mixed_precision():
+            return jax_head._bmid_call(*args)
+    return jax_head._bmid_call(*args)
+
+
+NAMES = ("dy_prev", "dw", "db", "t1", "t2")
+
+
+@pytest.mark.parametrize("groups", [1, 2])
+def test_b1_3xtf32_matches_float64_plain_and_jax(groups):
+    args = _torch(_b1_args(groups))
+    emu = b1_emulated(args, groups, "3xtf32")
+    ref = b1_emulated(args, groups, "f64")
+    plain = trunk_train.b1_plain(*args, groups=groups)
+    jax_out = _jax_b1(groups)
+    for nm, e, r, p, j in zip(NAMES, emu, ref, plain, jax_out):
+        assert _rel(e, r) <= BOUND, (nm, _rel(e, r))
+        assert _rel(e, p) <= BOUND, (nm, _rel(e, p))
+        assert _rel(e, np.asarray(j).reshape(e.shape)) <= BOUND, nm
+
+
+@pytest.mark.parametrize("c_out,c_in", BMID_WIDTHS)
+def test_bmid_3xtf32_matches_float64_plain_and_jax(c_out, c_in):
+    args = _torch(_bmid_args(c_out, c_in))
+    emu = bmid_emulated(args, "3xtf32")
+    ref = bmid_emulated(args, "f64")
+    plain = seg_head_train.bmid_plain(*args)
+    jax_out = _jax_bmid(c_out, c_in)
+    for nm, e, r, p, j in zip(NAMES, emu, ref, plain, jax_out):
+        assert _rel(e, r) <= BOUND, (nm, _rel(e, r))
+        assert _rel(e, p) <= BOUND, (nm, _rel(e, p))
+        assert _rel(e, np.asarray(j).reshape(e.shape)) <= BOUND, nm
+
+
+@pytest.mark.parametrize("groups", [1, 2])
+def test_b1_bf16_matches_jax_mixed_precision(groups):
+    """bf16 operands at the places the JAX kernel's ``_mxu_dot`` casts,
+    fp32 sums: within ``BF16_BOUND`` of it (a dz3 that rounds to its other
+    bf16 neighbour moves a sum by one bf16 step of one term) and also of
+    the port's bf16 plain twin; and the rounding did happen (fp32 lands
+    elsewhere)."""
+    args = _torch(_b1_args(groups, bf16=True))
+    emu = b1_emulated(args, groups, "bf16")
+    plain = trunk_train.b1_plain(*args, groups=groups, bf16=True)
+    fp32 = b1_emulated(args, groups, "3xtf32")
+    for nm, e, p, j in zip(NAMES, emu, plain, _jax_b1(groups, True)):
+        assert _rel(e, np.asarray(j, np.float32).reshape(e.shape)) <= \
+            BF16_BOUND, nm
+        assert _rel(e, p) <= BF16_BOUND, nm
+    assert _rel(emu[1], fp32[1]) > 10 * BOUND
+
+
+@pytest.mark.parametrize("c_out,c_in", BMID_WIDTHS)
+def test_bmid_bf16_matches_jax_mixed_precision(c_out, c_in):
+    """As the B1 case; ``dyp`` is a bf16 stash on both sides: equal or
+    one bf16 step apart, or within ``BF16_BOUND`` of its scale."""
+    args = _torch(_bmid_args(c_out, c_in, bf16=True))
+    emu = list(bmid_emulated(args, "bf16"))
+    emu[0] = emu[0].to(torch.bfloat16)
+    plain = seg_head_train.bmid_plain(*args, bf16=True)
+    for i, (nm, e, p, j) in enumerate(zip(NAMES, emu, plain,
+                                          _jax_bmid(c_out, c_in, True))):
+        j = torch.from_numpy(np.array(jnp.asarray(j, jnp.float32))
+                             ).reshape(e.shape)
+        if i == 0:
+            e, p = e.float(), p.float()
+            step = (j.abs() * 2.0 ** -7).clamp_min(
+                BF16_BOUND * max(1.0, j.abs().max().item()))
+            assert ((e - j).abs() <= step).all(), nm
+            assert ((e - p).abs() <= step).all(), nm
+        else:
+            assert _rel(e, j) <= BF16_BOUND, nm
+            assert _rel(e, p) <= BF16_BOUND, nm
+
+
+@pytest.mark.parametrize("pas", ["B1", "Bmid"])
+def test_one_tf32_product_misses_the_bound(pas):
+    """Control: with one TF32 product (no ``lo``) in place of three the
+    emulation misses ``BOUND`` of float64 on the products' outputs, which
+    3xTF32 meets (the tests above)."""
+    if pas == "B1":
+        args = _torch(_b1_args(1))
+        one, ref = (b1_emulated(args, 1, p) for p in ("tf32", "f64"))
+    else:
+        args = _torch(_bmid_args(*BMID_WIDTHS[0]))
+        one, ref = (bmid_emulated(args, p) for p in ("tf32", "f64"))
+    assert max(_rel(one[i], ref[i]) for i in (0, 1)) > BOUND

@@ -13,6 +13,10 @@ GEMM = "_ZN8pointtpu12_GLOBAL__N_114tc_gemm_kernelILi128ELb1ELb0ELb1EEEv4Gemmi"
 THIN = "_ZN8pointtpu12_GLOBAL__N_111thin_kernelILb0EEEv4Gemmib"
 SPLIT = "_ZN8pointtpu12_GLOBAL__N_116split_sum_kernelEPKfixPf"
 HELPER = "_ZN8pointtpu12_GLOBAL__N_16helperEv"
+# The tensor-core backward passes (train_bwd_tc.cu).
+B1_TC = "_ZN8pointtpu12_GLOBAL__N_112b1_tc_kernelILb1ELb0EEEvNS_7BwdArgsE"
+BMID_TC = ("_ZN8pointtpu12_GLOBAL__N_114bmid_tc_kernelILb0ELi128EEEv"
+           "NS_7BwdArgsE")
 
 
 def _entry(name, regs, st=0, ld=0):
@@ -53,3 +57,11 @@ def test_ptxas_report_names_kernels_with_template_arguments():
         "tc_gemm_kernel<128,1,0,1>": (128, 84, 84),
         "thin_kernel<0>": (40, 0, 0), "split_sum_kernel": (18, 0, 0)}
     assert ptxas_report(fake, "tnet_apply.cu") == {}
+
+
+def test_ptxas_report_names_the_backward_kernels():
+    fake = types.SimpleNamespace(resource_usage={"train_bwd_tc.cu": {
+        B1_TC: (204, 0, 0), BMID_TC: (255, 0, 0)}})
+    assert ptxas_report(fake, "train_bwd_tc.cu") == {
+        "b1_tc_kernel<1,0>": (204, 0, 0),
+        "bmid_tc_kernel<0,128>": (255, 0, 0)}

@@ -299,6 +299,26 @@ def test_argument_structs_mirror_the_cuda_header():
         got = [(n, "int" if t is ctypes.c_int else "ptr")
                for n, t in struct._fields_]
         assert got == want, struct.__name__
+    # The tensor-core passes' scratch (csrc/train_bwd_tc.cu): dz and h
+    # for dW = dz^T h on the GEMM core.
+    assert [n for n, _ in launch.BwdArgs._fields_][-2:] == ["dzs", "hs"]
+
+
+def test_row_tiles_mirror_the_cuda_sources():
+    """The wrappers size the per-block partials (``part``) by the rows a
+    block of the row kernels owns; a tile in Python smaller than the C
+    one would let the kernels write past the end of ``part``."""
+    import pathlib
+    import re
+
+    from adversarial_learning_on_pointclouds_tpu_torch.ops import launch
+
+    for tile, name, source in ((launch.TILE, "kTile", "train_gemm.cuh"),
+                               (launch.TC_TILE, "kTcRows",
+                                "train_bwd_tc.cu")):
+        text = (pathlib.Path(build.CSRC) / source).read_text()
+        value = re.search(r"constexpr int %s = (\d+);" % name, text)
+        assert value and int(value.group(1)) == tile, name
 
 
 def test_weight_views():
