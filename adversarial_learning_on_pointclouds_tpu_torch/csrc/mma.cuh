@@ -207,5 +207,14 @@ __device__ __forceinline__ void mma_step(float (&acc)[MT][NT][4],
   }
 }
 
+// The sum over the 8 lanes of lane group t (lane = 4 g + t), in a fixed
+// order.
+__device__ __forceinline__ float group_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  v += __shfl_xor_sync(0xffffffffu, v, 16);
+  return v;
+}
+
 }  // namespace
 }  // namespace pointtpu

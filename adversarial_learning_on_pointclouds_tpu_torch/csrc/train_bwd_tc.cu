@@ -1,21 +1,24 @@
-// The generator's two widest backward passes on the tensor cores.
+// The trunk's F2 and the generator's two widest backward passes on the
+// tensor cores.
 //
 // Replaces the TPU kernels
 // adversarial_learning_on_pointclouds_tpu/ops/kernels/trunk_train.py::
-// _b1_call (trunk B1: pallas_call at trunk_train.py:309, the backward
-// through conv3 + BN3 + max-pool of every trunk, c 128 -> 1024) and
-// seg_head_train.py::_bmid_call (Bmid: pallas_call at
-// seg_head_train.py:275, a BN backward and the matmul backward to the
-// previous layer: 256 -> 512 and 128 -> 256 in the seg head, 128 -> 64 in
-// trunk3_train).
+// _f2_call (trunk F2: pallas_call at trunk_train.py:212, conv3 + BN3's
+// statistics + the max-pool's extrema, c 128 -> 1024), _b1_call (trunk
+// B1: pallas_call at trunk_train.py:309, the backward through conv3 +
+// BN3 + max-pool of every trunk) and seg_head_train.py::_bmid_call (Bmid:
+// pallas_call at seg_head_train.py:275, a BN backward and the matmul
+// backward to the previous layer: 256 -> 512 and 128 -> 256 in the seg
+// head, 128 -> 64 in trunk3_train).
 //
-// What bounds them on the H100: matmuls. Trunk B1 at B=32 N=2048 (65,536
-// rows) is three 17.2-GFLOP products (z3 = h2 W3^T recomputed, dy2 = dz3
-// W3, dW3 = dz3^T h2), past fp32 FMA's 67 TFLOP/s and bf16's need of the
-// tensor cores; Bmid is two products of 8.6 (256 -> 512) or 4.3 GFLOP.
-// The CUDA-core kernels they replace (train_gemm.cuh: row_bwd_kernel,
-// wgrad_kernel) ran them as fp32 FMAs, recomputed z3 a second time for
-// dW3, and staged W through registers.
+// What bounds them on the H100: matmuls. At B=32 N=2048 (65,536 rows) F2
+// is one 17.2-GFLOP product (z3 = h2 W3^T) and trunk B1 three (z3
+// recomputed, dy2 = dz3 W3, dW3 = dz3^T h2), past fp32 FMA's 67 TFLOP/s
+// and bf16's need of the tensor cores; Bmid is two products of 8.6 (256
+// -> 512) or 4.3 GFLOP. The CUDA-core kernels they replace
+// (train_gemm.cuh: row_fwd_kernel, row_bwd_kernel, wgrad_kernel) ran them
+// as fp32 FMAs (bf16 operands too), recomputed z3 a second time for dW3,
+// and staged W through registers.
 //
 // What the design does about that:
 //
@@ -23,43 +26,53 @@
 //   (the GEMM core's): fp32 as 3xTF32, each 8-deep step summed from zero
 //   and added to the fp32 accumulator by a round-to-nearest FADD; bf16
 //   (kRound) operands rounded nearest-even at fragment load, fp32 sums.
-// * Trunk B1's row pass is a back-to-back GEMM whose dz3 never leaves the
-//   SM. A block of 8 warps owns 128 points of one cloud and keeps h2 =
+// * F2 and B1 share their prologue and first GEMM (load_h2, load_w3,
+//   gemm1), so B1 recomputes exactly the z3 whose extrema F2 found. A
+//   block of 8 warps owns 128 points of one cloud and keeps h2 =
 //   relu(bn2(z2)) in shared memory (the BN2 prologue applied once). It
 //   walks c3 in chunks of 64 channels: GEMM 1 z3c = h2 W3[chunk]^T (K =
-//   128), an epilogue in registers (+ b3, zhat3, the winner term,
-//   coef1 / coef2) that takes db3's per-block partials from the
-//   unrounded dz3c and leaves dz3c in shared memory, then GEMM 2 acc_dy2
-//   += dz3c W3[chunk] (K = 64) into a [128 x 128] accumulator held in
-//   registers across the chunks. Both GEMMs read one W3 chunk in the
-//   ring: GEMM 1 along its rows (K-major), GEMM 2 along its columns
-//   (N-major). No padding keeps both fragment reads free of bank
-//   conflicts (the pad that serves one collides in the other), so the
-//   chunk is stored XOR-swizzled (w3_at). The final epilogue masks by
-//   BN2's ReLU (h2 > 0, exactly where bn_affine(z2) > 0), stores dy2 and
-//   reduces BN2's two sums.
+//   128), then an epilogue in registers.
+// * F2's epilogue adds b3 and reduces the chunk over the tile's rows:
+//   column sum and sum of squares (per-block partials) and, per channel,
+//   a packed 64-bit key of the max and of the min with its point (the
+//   value's order-preserving bits over the point index), merged into the
+//   cloud's keys by one atomicMax / atomicMin per block and channel, so
+//   the first point wins whatever the order of the blocks. z3 never
+//   leaves the SM. Shared memory 166 KB (h2 64 KB, the W3 ring 96 KB),
+//   one block per SM.
+// * B1's epilogue (+ b3, zhat3, the winner term, coef1 / coef2) takes
+//   db3's per-block partials from the unrounded dz3c and leaves dz3c in
+//   shared memory, then GEMM 2 acc_dy2 += dz3c W3[chunk] (K = 64) into a
+//   [128 x 128] accumulator held in registers across the chunks. Both
+//   GEMMs read one W3 chunk in the ring: GEMM 1 along its rows
+//   (K-major), GEMM 2 along its columns (N-major). No padding keeps both
+//   fragment reads free of bank conflicts (the pad that serves one
+//   collides in the other), so the chunk is stored XOR-swizzled (sw_at).
+//   The final epilogue masks by BN2's ReLU (h2 > 0, exactly where
+//   bn_affine(z2) > 0), stores dy2 and reduces BN2's two sums.
 // * Bmid's row pass: the dz tile [128 x c_out] built elementwise from the
 //   zc and dy stashes straight into shared memory (db's partials from the
 //   unrounded values, coalesced: a thread per column), then dyp = dz W
 //   over n tiles of 128 (or 64) columns looped in the block, W streamed
 //   N-major, and the same masked epilogue (dyp bf16 under kDypBf16).
-// * Weight gradients: the row pass also writes its two operands, dz and h
-//   (fp32, unrounded), to scratch, and dW = dz^T h runs on the GEMM core
-//   (strided_gemm.cu: gemm, an M-major A over an N-major B, split-K over
-//   row ranges merged by split_sum in fp64). Writing them (302 MB at
-//   65,536 x 1024) costs the row pass about 0.08 ms on the H100, against
-//   the 17.2 GFLOP of a second z3 recompute that the TPU design
-//   (VMEM-bound) paid; a tensor-core dW kernel that rebuilds dz and h
-//   tile by tile, as that design does, measured slower for both passes
-//   in both precisions (PERF.md §6).
+// * Weight gradients: the backward row passes also write their two
+//   operands, dz and h (fp32, unrounded), to scratch, and dW = dz^T h
+//   runs on the GEMM core (strided_gemm.cu: gemm, an M-major A over an
+//   N-major B, split-K over row ranges merged by split_sum in fp64).
+//   Writing them (302 MB at 65,536 x 1024) costs the row pass about 0.08
+//   ms on the H100, against the 17.2 GFLOP of a second z3 recompute that
+//   the TPU design (VMEM-bound) paid; a tensor-core dW kernel that
+//   rebuilds dz and h tile by tile, as that design does, measured slower
+//   for both passes in both precisions (PERF.md §6).
 // * W streams through a 3-stage cp.async ring (16-byte copies), one chunk
-//   in flight while one computes. Shared memory: 200 KB (trunk) or up to
+//   in flight while one computes. Shared memory: 200 KB (B1) or up to
 //   186 KB (Bmid at c_out 256), one block per SM.
-// * Nothing carries between blocks: t1 / t2 and db are per-block partials
-//   added by colsum in fp64 in a fixed order, each group's blocks
-//   contiguous, so groups = 2 equals two groups = 1 calls bit for bit
-//   (dy2, t1, t2); a row's arithmetic never depends on its neighbours.
-//   Rows past N are zero in every tile and never stored or summed.
+// * Nothing carries between blocks: the statistics, t1 / t2 and db are
+//   per-block partials added by colsum in fp64 in a fixed order, each
+//   group's blocks contiguous, so groups = 2 equals two groups = 1 calls
+//   bit for bit (F2's sums and extrema, B1's dy2, t1, t2); a row's
+//   arithmetic never depends on its neighbours. Rows past N are zero in
+//   every tile and never stored, summed or ranked.
 
 #include "mma.cuh"
 #include "strided_gemm.cuh"
@@ -110,21 +123,19 @@ __device__ __forceinline__ void load4(float (&v)[4], const void* p, bool bf,
 // loads' latency exposed unless many are in flight.
 constexpr int kBatch = 8;
 
-// h2 = relu(bn2(z2)) of the tile of `rows` points from row g0 of cloud b
-// into h_s (sw_at; rows past N zero) and to hs (the dW product's
-// operand), four columns a load. Rows past N read the last row.
-template <bool BF, bool G>
-__device__ __forceinline__ void load_h2(float* h_s, const BwdArgs& a, int b,
-                                        size_t g0, int rows) {
-  const bool zpbf = BF && (a.prec & kZpBf16);
-  const float* scp = group_row<G>(a.scp, b, a.batch, a.groups, kC2);
-  const float* shp = group_row<G>(a.shp, b, a.batch, a.groups, kC2);
+// h2 = relu(z2 * sc + sh) (bn_affine's roundings) of the tile of `rows`
+// points from row g0 into h_s (sw_at; rows past N zero) and, unless hs
+// is null, to hs (B1's dW operand), four columns a load. sc and sh are
+// the cloud's group's rows; rows past N read the last row.
+__device__ __forceinline__ void load_h2(float* h_s, const void* zp, bool zpbf,
+                                        const float* scp, const float* shp,
+                                        float* hs, size_t g0, int rows) {
   for (int u0 = 0; u0 < kTcRows * kC2 / 4 / kThreads; u0 += kBatch) {
     float v[kBatch][4];
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
       const int e = (threadIdx.x + (u0 + u) * kThreads) * 4;
-      load4(v[u], a.zp, zpbf, (g0 + min(e / kC2, rows - 1)) * kC2 + e % kC2);
+      load4(v[u], zp, zpbf, (g0 + min(e / kC2, rows - 1)) * kC2 + e % kC2);
     }
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
@@ -139,20 +150,150 @@ __device__ __forceinline__ void load_h2(float* h_s, const BwdArgs& a, int b,
                               __ldg(shp + k + 2)), 0.f);
         h.w = fmaxf(bn_affine(v[u][3], __ldg(scp + k + 3),
                               __ldg(shp + k + 3)), 0.f);
-        *reinterpret_cast<float4*>(a.hs + (g0 + r) * kC2 + k) = h;
+        if (hs) *reinterpret_cast<float4*>(hs + (g0 + r) * kC2 + k) = h;
       }
       *reinterpret_cast<float4*>(h_s + sw_at(r, k)) = h;
     }
   }
 }
 
-// The sum over the 8 lanes of lane group t (lane = 4 g + t), in a fixed
-// order.
-__device__ __forceinline__ float group_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 4);
-  v += __shfl_xor_sync(0xffffffffu, v, 8);
-  v += __shfl_xor_sync(0xffffffffu, v, 16);
-  return v;
+// Chunk c of W3 (its rows c * kChunk ..; row stride ldw) into ring stage
+// c % kRing, XOR-swizzled: one commit group a call, empty past the last
+// chunk.
+__device__ __forceinline__ void load_w3(float* w_s, const float* w, int ldw,
+                                        int c, int chunks) {
+  if (c < chunks) {
+    float* s = w_s + (c % kRing) * (kChunk * kC2);
+    const float* src = w + (size_t)c * kChunk * ldw;
+    for (int e = threadIdx.x; e < kChunk * kC2 / 4; e += kThreads) {
+      const int r = e / (kC2 / 4), k = (e % (kC2 / 4)) * 4;
+      cp16(s + sw_at(r, k), src + (size_t)r * ldw + k, 16);
+    }
+  }
+  cp_commit();
+}
+
+// GEMM 1 of a chunk, shared by F2 and B1: z = h2 W3[chunk]^T (before b3)
+// for warp (wm, wn)'s 32 rows by 32 of the chunk's channels.
+template <bool BF>
+__device__ __forceinline__ void gemm1(float (&z)[2][4][4], const float* h_s,
+                                      const float* ws, int wm, int wn,
+                                      int gq, int tq) {
+  const auto fh = [h_s](int m, int k) { return h_s[sw_at(m, k)]; };
+  const auto fw = [ws](int n, int k) { return ws[sw_at(n, k)]; };
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) z[i][j][e] = 0.f;
+#pragma unroll 2
+  for (int kk = 0; kk < kC2; kk += mma_depth(BF))
+    mma_step<2, 4, BF>(z, fh, fw, wm * 32, wn * 32, kk, gq, tq);
+}
+
+// The largest and the smallest key of lane group t's 8 lanes.
+__device__ __forceinline__ unsigned long long group_max(unsigned long long v) {
+  v = max(v, __shfl_xor_sync(0xffffffffu, v, 4));
+  v = max(v, __shfl_xor_sync(0xffffffffu, v, 8));
+  return max(v, __shfl_xor_sync(0xffffffffu, v, 16));
+}
+
+__device__ __forceinline__ unsigned long long group_min(unsigned long long v) {
+  v = min(v, __shfl_xor_sync(0xffffffffu, v, 4));
+  v = min(v, __shfl_xor_sync(0xffffffffu, v, 8));
+  return min(v, __shfl_xor_sync(0xffffffffu, v, 16));
+}
+
+// Trunk F2, the forward half of B1's first GEMM: per 128-point tile of
+// one cloud the same h2 and z3 = h2 W3^T + b3, chunk by chunk of 64
+// channels, reduced in registers to BN3's per-block column sum and sum of
+// squares and to the cloud's extrema keys; z3 never leaves the SM. Warps
+// are 4 (rows) by 2 (columns), as B1's GEMM 1. BF: kRound; G: groups > 1.
+template <bool BF, bool G>
+__global__ void __launch_bounds__(kThreads, 1) f2_tc_kernel(const RowFwdArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  float* h_s = smem;                              // [kTcRows][kC2], sw_at
+  float* w_s = h_s + kTcRows * kC2;               // kRing x [kChunk][kC2]
+  float* red = w_s + kRing * kChunk * kC2;        // [2][4][kChunk] sum, ssq
+  auto* red_k = reinterpret_cast<unsigned long long*>(
+      red + 8 * kChunk);                          // [2][4][kChunk] max, min
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int wm = warp >> 1, wn = warp & 1;
+  const int b = blockIdx.y, p0 = blockIdx.x * kTcRows;
+  const int rows = min(kTcRows, a.n - p0);
+  const size_t g0 = (size_t)b * a.n + p0;
+  const int c_out = a.c_out, chunks = c_out / kChunk;
+  const size_t blk = (size_t)b * gridDim.x + blockIdx.x;
+  const size_t blocks = (size_t)gridDim.x * gridDim.y;
+  unsigned long long* kmax = a.keys + (size_t)b * c_out;
+  unsigned long long* kmin = kmax + (size_t)a.batch * c_out;
+
+  load_w3(w_s, a.w, a.ldw, 0, chunks);
+  load_w3(w_s, a.w, a.ldw, 1, chunks);
+  load_h2(h_s, a.x, BF && (a.prec & kXBf16),
+          group_row<G>(a.sc, b, a.batch, a.groups, kC2),
+          group_row<G>(a.sh, b, a.batch, a.groups, kC2), nullptr, g0, rows);
+  for (int c = 0; c < chunks; ++c) {
+    cp_wait<kRing - 2>();
+    __syncthreads();          // chunk c landed; chunk c - 1 and red are read
+    load_w3(w_s, a.w, a.ldw, c + kRing - 1, chunks);
+    const int oc = c * kChunk;
+    float z[2][4][4];
+    gemm1<BF>(z, h_s, w_s + (c % kRing) * (kChunk * kC2), wm, wn, gq, tq);
+    // z3 = z + b3 of the rows < N: the sums of the unrounded values, the
+    // keys with each value's point.
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int col = wn * 32 + 8 * j + 2 * tq + q;
+        const float bias = __ldg(a.bias + oc + col);
+        float s = 0.f, ss = 0.f;
+        unsigned long long hi = 0ull, lo = ~0ull;
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = wm * 32 + 16 * i + gq + 8 * h;
+            if (r < rows) {
+              const float v = z[i][j][2 * h + q] + bias;
+              s += v;
+              ss += v * v;
+              hi = max(hi, max_key(v, p0 + r));
+              lo = min(lo, min_key(v, p0 + r));
+            }
+          }
+        s = group_sum(s);
+        ss = group_sum(ss);
+        hi = group_max(hi);
+        lo = group_min(lo);
+        if (gq == 0) {
+          red[wm * kChunk + col] = s;
+          red[(4 + wm) * kChunk + col] = ss;
+          red_k[wm * kChunk + col] = hi;
+          red_k[(4 + wm) * kChunk + col] = lo;
+        }
+      }
+    __syncthreads();          // red written
+    if (threadIdx.x < kChunk) {
+      const int t = threadIdx.x, o = oc + t;
+      a.part[blk * c_out + o] = ((red[t] + red[kChunk + t]) +
+                                 red[2 * kChunk + t]) + red[3 * kChunk + t];
+      a.part[(blocks + blk) * c_out + o] =
+          ((red[4 * kChunk + t] + red[5 * kChunk + t]) +
+           red[6 * kChunk + t]) + red[7 * kChunk + t];
+      unsigned long long hi = red_k[t], lo = red_k[4 * kChunk + t];
+      for (int w = 1; w < 4; ++w) {
+        hi = max(hi, red_k[w * kChunk + t]);
+        lo = min(lo, red_k[(4 + w) * kChunk + t]);
+      }
+      atomicMax(kmax + o, hi);
+      atomicMin(kmin + o, lo);
+    }
+  }
+  cp_wait<0>();
 }
 
 // Warps are 4 (rows, 32 each) by 2 (columns). Trunk B1: BF is kRound,
@@ -181,38 +322,22 @@ __global__ void __launch_bounds__(kThreads, 1) b1_tc_kernel(const BwdArgs a) {
   const float* inv3 = group_row<G>(a.inv, b, a.batch, a.groups, c_out);
   const size_t cb = (size_t)b * c_out;       // the cloud's [batch, c3] row
 
-  // Chunk c of W3 (its rows c * kChunk ..) into ring stage c % kRing: one
-  // commit group a call, empty past the last chunk.
-  const auto load_w = [&](int c) {
-    if (c < chunks) {
-      float* s = w_s + (c % kRing) * (kChunk * kC2);
-      const float* src = a.w + (size_t)c * kChunk * a.ldw;
-      for (int e = threadIdx.x; e < kChunk * kC2 / 4; e += kThreads) {
-        const int r = e / (kC2 / 4), k = (e % (kC2 / 4)) * 4;
-        cp16(s + sw_at(r, k), src + (size_t)r * a.ldw + k, 16);
-      }
-    }
-    cp_commit();
-  };
-  load_w(0);
-  load_w(1);
-  load_h2<BF, G>(h_s, a, b, g0, rows);
+  load_w3(w_s, a.w, a.ldw, 0, chunks);
+  load_w3(w_s, a.w, a.ldw, 1, chunks);
+  load_h2(h_s, a.zp, zpbf, group_row<G>(a.scp, b, a.batch, a.groups, kC2),
+          group_row<G>(a.shp, b, a.batch, a.groups, kC2), a.hs, g0, rows);
 
-  const auto fh = [h_s](int m, int k) { return h_s[sw_at(m, k)]; };
   const auto fz = [dz_s](int m, int k) { return dz_s[m * kDzLd + k]; };
   float acc[2][8][4] = {};                        // dy2 before the mask
   for (int c = 0; c < chunks; ++c) {
     cp_wait<kRing - 2>();
     __syncthreads();          // chunk c landed; chunk c - 1 is read
-    load_w(c + kRing - 1);
+    load_w3(w_s, a.w, a.ldw, c + kRing - 1, chunks);
     const float* ws = w_s + (c % kRing) * (kChunk * kC2);
     const int oc = c * kChunk;
     // GEMM 1: z3 - b3 of the chunk's 64 channels.
-    const auto fw1 = [ws](int n, int k) { return ws[sw_at(n, k)]; };
-    float z[2][4][4] = {};
-#pragma unroll 2
-    for (int kk = 0; kk < kC2; kk += mma_depth(BF))
-      mma_step<2, 4, BF>(z, fh, fw1, wm * 32, wn * 32, kk, gq, tq);
+    float z[2][4][4];
+    gemm1<BF>(z, h_s, ws, wm, wn, gq, tq);
     // dz3 = [p == idx] * s3dg - coef1 - zhat3 * coef2 (per cloud,
     // channel); db3's partial from the unrounded values.
 #pragma unroll
@@ -485,8 +610,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   cp_wait<0>();
 }
 
-template <typename K>
-int launch_tc(K kernel, dim3 grid, size_t bytes, const BwdArgs& a,
+template <typename K, typename A>
+int launch_tc(K kernel, dim3 grid, size_t bytes, const A& a,
               cudaStream_t stream) {
   if (bytes > (size_t)max_smem_optin()) return kErrSmem;
   cudaError_t e = allow_smem(kernel, bytes);
@@ -555,6 +680,45 @@ int trunk_b1_tc(const BwdArgs& a, cudaStream_t stream) {
               : launch_tc(b1_tc_kernel<false, false>, grid, bytes, a,
                            stream));
   return e ? e : finish(a, grid.x * grid.y, stream);
+}
+
+int trunk_f2_tc(const RowFwdArgs& a, cudaStream_t stream) {
+  if (a.batch <= 0 || a.batch > 65535 || a.n <= 0 || a.c_in != kC2 ||
+      a.c_out <= 0 || a.c_out % kChunk || a.groups < 1 ||
+      a.batch % a.groups || (long long)a.batch * a.n > 0x7fffffffLL ||
+      a.ldw < kC2 || a.ldw % 4 || reinterpret_cast<uintptr_t>(a.w) % 16 ||
+      !a.x || !a.sc || !a.sh || !a.w || !a.bias || a.addend || a.z ||
+      a.logp || !a.sum || !a.ssq || !a.part || !a.keys || !a.mx || !a.mn ||
+      !a.imax || !a.imin)
+    return kErrArgs;
+  const size_t bytes = ((size_t)kTcRows * kC2 + (size_t)kRing * kChunk * kC2 +
+                        8 * kChunk) * sizeof(float) +
+                       8 * kChunk * sizeof(unsigned long long);
+  const long long count = (long long)a.batch * a.c_out;
+  fill_keys_kernel<<<ceil_div(2 * count, kThreads), kThreads, 0, stream>>>(
+      a.keys, count);
+  int e = (int)cudaGetLastError();
+  if (e) return e;
+  const dim3 grid(ceil_div(a.n, kTcRows), a.batch);
+  const bool bf = a.prec & kRound, g = a.groups > 1;
+  e = bf ? (g ? launch_tc(f2_tc_kernel<true, true>, grid, bytes, a, stream)
+              : launch_tc(f2_tc_kernel<true, false>, grid, bytes, a, stream))
+         : (g ? launch_tc(f2_tc_kernel<false, true>, grid, bytes, a, stream)
+              : launch_tc(f2_tc_kernel<false, false>, grid, bytes, a,
+                           stream));
+  if (e) return e;
+  // BN3's sums per group (a group's blocks are contiguous), then the keys'
+  // decode.
+  const int blocks = grid.x * grid.y, per = blocks / a.groups;
+  if ((e = colsum(a.part, a.c_out, per, a.c_out, a.groups, a.sum, a.c_out,
+                  stream)))
+    return e;
+  if ((e = colsum(a.part + (size_t)blocks * a.c_out, a.c_out, per, a.c_out,
+                  a.groups, a.ssq, a.c_out, stream)))
+    return e;
+  decode_extrema_kernel<<<ceil_div(count, kThreads), kThreads, 0, stream>>>(
+      a.keys, count, a.mx, a.mn, a.imax, a.imin);
+  return (int)cudaGetLastError();
 }
 
 int head_bmid_tc(const BwdArgs& a, cudaStream_t stream) {

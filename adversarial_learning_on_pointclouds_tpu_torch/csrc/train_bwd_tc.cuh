@@ -1,9 +1,10 @@
-// The generator's two widest backward passes on the tensor cores (defined
-// in train_bwd_tc.cu): the trunk's B1 (trunk_train.cu: pt_trunk_b1) and
-// the seg head's Bmid (seg_head_train.cu: pt_head_bmid). Each takes the
-// BwdArgs of train_gemm.cuh, with the dzs and hs scratch buffers, and
-// returns 0, a cudaError_t, kErrArgs for a shape or layout it does not
-// take, or kErrSmem.
+// The generator's passes on the tensor cores (defined in
+// train_bwd_tc.cu): the trunk's F2 and B1 (trunk_train.cu: pt_trunk_f2,
+// pt_trunk_b1) and the seg head's Bmid (seg_head_train.cu:
+// pt_head_bmid). F2 takes the RowFwdArgs of train_gemm.cuh, the backward
+// passes its BwdArgs with the dzs and hs scratch buffers; each returns 0,
+// a cudaError_t, kErrArgs for a shape or layout it does not take, or
+// kErrSmem.
 
 #pragma once
 
@@ -12,6 +13,12 @@
 namespace pointtpu {
 
 struct BwdArgs;
+struct RowFwdArgs;
+
+// Trunk F2: BN3's column sum and sum of squares per group and each
+// cloud's max / min with the first point attaining them (c_in 128, c_out
+// a multiple of 64; groups >= 1).
+int trunk_f2_tc(const RowFwdArgs& a, cudaStream_t stream);
 
 // Trunk B1: dy2, dW3, db3 and BN2's t1 / t2 (mode kDzTrunk; c_in 128,
 // c_out a multiple of 64; groups >= 1).

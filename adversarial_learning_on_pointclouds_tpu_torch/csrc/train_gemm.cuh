@@ -1,7 +1,7 @@
 // The two kernel shapes of the training passes on the CUDA cores, shared
-// by trunk_train.cu and seg_head_train.cu, and the argument structs of
-// every training pass. (Trunk B1 and the seg head's Bmid run on the
-// tensor cores instead: train_bwd_tc.cu.)
+// by trunk_train.cu and seg_head_train.cu, the argument structs of every
+// training pass, and their reductions. (Trunk F2, B1 and the seg head's
+// Bmid run on the tensor cores instead: train_bwd_tc.cu.)
 //
 // * The row GEMM over point tiles. A block of 256 threads owns a tile of
 //   64 points of one cloud (8 rows per warp, as tile_fma lays them out).
@@ -9,7 +9,6 @@
 //   (BN affine + ReLU of the previous layer); the layer's weight streams
 //   from L2 through a register-staged double buffer in 16-row chunks.
 //   The forward epilogues store z, reduce column sum / sum of squares,
-//   keep each cloud's max and min with the first point attaining them,
 //   or take a per-point log_softmax. The backward form first builds the
 //   tile's dz (a BN backward from stashes, or the head's softmax backward
 //   through a recomputed GEMM), then multiplies it by
@@ -24,13 +23,14 @@
 // Blocks run in no order, so nothing is carried between them: every
 // reduction over the rows (column statistics, dW, db, the BN sums) is
 // written as per-block partial sums and added by colsum_kernel in fp64,
-// in a fixed order, so results do not depend on scheduling. The
-// extrema merge with one packed 64-bit atomicMax/atomicMin per (cloud,
-// channel): an order-preserving key of the value in the high word and
-// the point index in the low word (inverted for the max), so ties go to
-// the first point whatever the order of the blocks. The ragged tail of
-// the point axis is masked: rows past N are zero in every tile and never
-// enter a sum, an extremum or a store.
+// in a fixed order, so results do not depend on scheduling. Trunk F2's
+// extrema (train_bwd_tc.cu) merge with one packed 64-bit atomicMax /
+// atomicMin per (cloud, channel): an order-preserving key of the value
+// in the high word and the point index in the low word (inverted for the
+// max; max_key, min_key here, with the keys' fill and decode kernels), so
+// ties go to the first point whatever the order of the blocks. The
+// ragged tail of the point axis is masked: rows past N are zero in every
+// tile and never enter a sum, an extremum or a store.
 //
 // Every tile of both kernels lies in one cloud. With groups > 1 (the
 // paired trunks' forward: the batch is groups stacked streams of batch /
@@ -70,8 +70,8 @@ struct RowFwdArgs {
   float* sum;            // [groups, c_out] column sums, or null
   float* ssq;            // [groups, c_out] column sums of squares
   float* part;           // scratch [2, blocks, c_out]
-  unsigned long long* keys;  // scratch [2, batch, c_out] (extrema)
-  float* mx;             // [batch, c_out] per-cloud max, or null
+  unsigned long long* keys;  // scratch [2, batch, c_out] (F2's extrema)
+  float* mx;             // [batch, c_out] per-cloud max (F2), or null
   float* mn;
   int* imax;
   int* imin;
@@ -437,68 +437,30 @@ row_fwd_kernel(const RowFwdArgs a) {
         }
         __syncthreads();
       }
-      if (a.mx) {
-        auto* kmax = reinterpret_cast<unsigned long long*>(red);
-        auto* kmin = kmax + kWarps * kMaxCols;
-#pragma unroll
-        for (int jj = 0; jj < NJ; ++jj) {
-          unsigned long long hi = 0ull, lo = ~0ull;
-#pragma unroll
-          for (int i = 0; i < kRows; ++i) {
-            const int r = warp + i * kWarps;
-            if (r >= rows) continue;
-            hi = max(hi, max_key(acc[i][jj], p0 + r));
-            lo = min(lo, min_key(acc[i][jj], p0 + r));
-          }
-          kmax[warp * kMaxCols + lane + 32 * jj] = hi;
-          kmin[warp * kMaxCols + lane + 32 * jj] = lo;
-        }
-        __syncthreads();
-        const size_t count = (size_t)a.batch * a.c_out;
-        for (int c = threadIdx.x; c < NJ * 32; c += kThreads) {
-          const int o = n0 + c;
-          if (o >= a.c_out) continue;
-          unsigned long long hi = 0ull, lo = ~0ull;
-          for (int w = 0; w < kWarps; ++w) {
-            hi = max(hi, kmax[w * kMaxCols + c]);
-            lo = min(lo, kmin[w * kMaxCols + c]);
-          }
-          atomicMax(a.keys + (size_t)b * a.c_out + o, hi);
-          atomicMin(a.keys + count + (size_t)b * a.c_out + o, lo);
-        }
-        __syncthreads();
-      }
     });
   }
 }
 
 inline size_t row_fwd_smem(const RowFwdArgs& a) {
-  const size_t red = a.mx ? 2 * kWarps * kMaxCols * sizeof(unsigned long long)
-                          : 2 * kWarps * kMaxCols * sizeof(float);
-  return ((size_t)kTile * a.c_in + 2 * kStage) * sizeof(float) + red;
+  return ((size_t)kTile * a.c_in + 2 * kStage + 2 * kWarps * kMaxCols) *
+         sizeof(float);
 }
 
 // The forward pass: the row kernel, then the statistics' fp64 sums (per
-// group: a group's blocks are contiguous) and the extrema's decode. G:
-// groups > 1, else groups == 1.
+// group: a group's blocks are contiguous). G: groups > 1, else groups ==
+// 1. The extrema (trunk F2) are train_bwd_tc.cu's.
 template <bool G>
 int row_fwd(const RowFwdArgs& a, cudaStream_t stream) {
   if (a.batch <= 0 || a.batch > 65535 || a.n <= 0 || a.c_in <= 0 ||
       a.c_out <= 0 || a.ldw < a.c_in || (G ? a.groups < 2 : a.groups != 1) ||
       a.batch % a.groups || !a.x || !a.w || !a.bias ||
       (a.logp && a.c_out > kMaxCols) || (a.sum && (!a.ssq || !a.part)) ||
-      (a.mx && (!a.keys || !a.mn || !a.imax || !a.imin)))
+      a.mx || a.keys)
     return kErrArgs;
   const size_t bytes = row_fwd_smem(a);
   if (bytes > (size_t)max_smem_optin()) return kErrSmem;
   const int tiles = ceil_div(a.n, kTile);
-  const long long count = (long long)a.batch * a.c_out;
   int e;
-  if (a.mx) {
-    fill_keys_kernel<<<ceil_div(2 * count, kThreads), kThreads, 0, stream>>>(
-        a.keys, count);
-    if ((e = (int)cudaGetLastError())) return e;
-  }
   const dim3 grid(tiles, a.batch);
   if (a.prec & kRound) {
     if ((e = (int)allow_smem(row_fwd_kernel<true, G>, bytes))) return e;
@@ -516,11 +478,6 @@ int row_fwd(const RowFwdArgs& a, cudaStream_t stream) {
     if ((e = colsum(a.part + (size_t)blocks * a.c_out, a.c_out, per, a.c_out,
                     a.groups, a.ssq, a.c_out, stream)))
       return e;
-  }
-  if (a.mx) {
-    decode_extrema_kernel<<<ceil_div(count, kThreads), kThreads, 0, stream>>>(
-        a.keys, count, a.mx, a.mn, a.imax, a.imin);
-    if ((e = (int)cudaGetLastError())) return e;
   }
   return 0;
 }

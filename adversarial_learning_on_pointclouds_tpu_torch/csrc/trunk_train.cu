@@ -7,21 +7,21 @@
 // (_f2_call, :212) and B1 (_b1_call, :309).
 //
 // Bound: matmul work. At batch 32 x 2048 points the 128 -> 1024 layer is
-// 8.6 GFMA, computed once in F2 (fp32 FMA on the CUDA cores) and three
-// times in B1 (the recomputed z3, dz3 @ W3 and dz3^T h2, on the tensor
-// cores), against 33.5 MB of z2 stash read per pass.
-// Design (train_gemm.cuh): z3 [B, N, 1024] never reaches device memory
-// in the forward, as on the TPU. F1 is a row GEMM 64 -> 128 that stores
-// z2 and its column partial sums. F2 recomputes h2 = relu(bn2(z2)) into
-// shared memory, streams W3 in 256-column chunks and reduces z3 in
-// registers to the BN3 partial sums and each cloud's max and min with
-// the first point attaining them (packed 64-bit atomics, so the winner
-// does not depend on the order of the blocks). B1 runs on the tensor
-// cores (train_bwd_tc.cu: a back-to-back GEMM per 128-point tile that
-// rebuilds dz3 chunk by chunk in shared memory and accumulates dy2 =
-// mask * dz3 @ W3; dW3 = dz3^T h2 on the GEMM core from the dz3 and h2
-// the row pass writes out). All row reductions add per-block partials in
-// fp64.
+// 8.6 GFMA, computed once in F2 and three times in B1 (the recomputed
+// z3, dz3 @ W3 and dz3^T h2), all on the tensor cores, against 33.5 MB of
+// z2 stash read per pass.
+// Design: z3 [B, N, 1024] never reaches device memory in the forward, as
+// on the TPU. F1 is a row GEMM 64 -> 128 on the CUDA cores
+// (train_gemm.cuh) that stores z2 and its column partial sums. F2 and B1
+// run on the tensor cores (train_bwd_tc.cu), sharing a prologue and first
+// GEMM per 128-point tile: h2 = relu(bn2(z2)) in shared memory, z3 = h2
+// W3^T chunk by chunk. F2 reduces z3 in registers to the BN3 partial
+// sums and each cloud's max and min with the first point attaining them
+// (packed 64-bit atomics, so the winner does not depend on the order of
+// the blocks). B1 rebuilds dz3 chunk by chunk in shared memory and
+// accumulates dy2 = mask * dz3 @ W3; dW3 = dz3^T h2 on the GEMM core from
+// the dz3 and h2 the row pass writes out. All row reductions add
+// per-block partials in fp64.
 // groups > 1 (trunk2_train(groups=2), the paired trunks): the batch is
 // stacked streams, every BN2/BN3 statistic and BN term is [groups, C] and
 // read by the tile's cloud, and each stream's sums add its own blocks
@@ -38,9 +38,9 @@ using pointtpu::RowFwdArgs;
 
 namespace {
 
-// groups > 1 (the paired trunks) takes the kernels that read each
-// cloud's row of the [groups, C] statistics; one group takes those that
-// read the [C] statistics directly.
+// groups > 1 (the paired trunks) takes the kernel that reads each
+// cloud's row of the [groups, C] statistics; one group takes the one that
+// reads the [C] statistics directly.
 int forward(const RowFwdArgs* a, int device, cudaStream_t stream) {
   using namespace pointtpu;
   cudaError_t e = use_device(device);
@@ -55,8 +55,7 @@ int forward(const RowFwdArgs* a, int device, cudaStream_t stream) {
 extern "C" int pt_trunk_f1(const RowFwdArgs* a, int device,
                            cudaStream_t stream) {
   using namespace pointtpu;
-  if (!a->z || !a->sum || a->sc || a->addend || a->mx || a->logp)
-    return kErrArgs;
+  if (!a->z || !a->sum || a->sc || a->addend || a->logp) return kErrArgs;
   return forward(a, device, stream);
 }
 
@@ -65,9 +64,9 @@ extern "C" int pt_trunk_f1(const RowFwdArgs* a, int device,
 extern "C" int pt_trunk_f2(const RowFwdArgs* a, int device,
                            cudaStream_t stream) {
   using namespace pointtpu;
-  if (a->z || !a->sum || !a->sc || !a->sh || a->addend || !a->mx || a->logp)
-    return kErrArgs;
-  return forward(a, device, stream);
+  cudaError_t e = use_device(device);
+  if (e != cudaSuccess) return (int)e;
+  return trunk_f2_tc(*a, stream);
 }
 
 // Backward through conv3 + BN3 + pool: dy2, dW3, db3 and BN2's t1 / t2.

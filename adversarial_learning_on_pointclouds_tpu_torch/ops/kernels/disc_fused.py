@@ -2,15 +2,18 @@
 stack with LeakyReLU(0.2), forward and backward.
 
 Counterpart of ``adversarial_learning_on_pointclouds_tpu/ops/kernels/
-disc_fused.py``. Four CUDA passes over ``x [B, N, k]`` (``csrc/
-disc_fused.cu``, whose header says what bounds them on the card), each
-recomputing the hidden activations from ``x``:
+disc_fused.py``. Four CUDA passes over ``x [B, N, k]``, each recomputing
+the hidden activations from ``x`` (the sources' headers say what bounds
+them on the card):
 
-* ``disc_fwd``: the logits ``[B, N, 1]``;
-* ``disc_bwd_dx``: the input gradient only (D frozen, the generator step);
+* ``disc_fwd``: the logits ``[B, N, 1]`` (``csrc/disc_fused.cu``);
+* ``disc_bwd_dx``: the input gradient only (D frozen, the generator step;
+  ``csrc/disc_fused.cu``);
 * ``disc_bwd_dw``: the weight and bias gradients only (a detached input,
-  the discriminator step);
-* ``disc_bwd``: both (the full backward).
+  the discriminator step): a row pass on the tensor cores that writes
+  each layer's ``dz`` and ``h`` to scratch, then ``dW = dz^T h`` on the
+  GEMM core (``csrc/disc_tc.cu``);
+* ``disc_bwd``: both (the full backward: ``disc_bwd_dw``'s pass with dx).
 
 Each has a plain PyTorch twin of the same signature (``*_plain``) that
 CPU tensors run. Weights are ``[in, out]`` (on a CUDA device, views of
@@ -40,7 +43,9 @@ from adversarial_learning_on_pointclouds_tpu_torch.ops import launch
 WIDTHS = (64, 128, 256, 512, 1)
 SLOPE = 0.2
 MAX_K = 64                # input width the kernels take
-MAX_ROWS_PER_SPLIT = 2048  # rows a weight-gradient block sums in fp32
+# The weight-gradient pass's scratch a row (csrc/disc_tc.cu: kDzCols,
+# kHCols): dz1..dz4 and h1..h3, the GEMM core's dW operands.
+DZ_COLS, H_COLS = sum(WIDTHS[:4]), sum(WIDTHS[:3])
 
 Tensors = Sequence[torch.Tensor]
 
@@ -132,10 +137,6 @@ def _params(ws: Tensors, bs: Tensors) -> dict:
     return out
 
 
-def _tiles(m: int) -> int:
-    return -(-m // launch.TILE)
-
-
 def grad_layout(k: int):
     """``[(offset, shape)]`` of dW1..dW5 (``[out, in]``) and db1..db5 in
     the kernel's gradient buffer (``GradLayout`` in the CUDA source), and
@@ -153,16 +154,6 @@ def grad_layout(k: int):
     return out, at
 
 
-def dw_splits(m: int, device: torch.device) -> Tuple[int, int]:
-    """``(tiles per block, blocks)`` of a weight-gradient pass: about one
-    block per SM (a block takes most of an SM's shared memory), each
-    summing at most ``MAX_ROWS_PER_SPLIT`` rows into its own slot."""
-    tiles = _tiles(m)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    per = min(MAX_ROWS_PER_SPLIT // launch.TILE, max(1, -(-tiles // sms)))
-    return per, -(-tiles // per)
-
-
 def disc_fwd(x, ws, bs, bf16: bool = False):
     """The forward pass: the kernel on a CUDA tensor, the plain version on
     a CPU tensor."""
@@ -171,9 +162,8 @@ def disc_fwd(x, ws, bs, bf16: bool = False):
     m, k = _check(x, ws, bs)
     logits = torch.empty(x.shape[:2] + (1,), device=x.device,
                          dtype=torch.float32)
-    a = launch.args(launch.DiscArgs, m=m, k=k, per=1, splits=_tiles(m),
-                    prec=launch.prec(bf16), x=x, logits=logits,
-                    **_params(ws, bs))
+    a = launch.args(launch.DiscArgs, m=m, k=k, prec=launch.prec(bf16), x=x,
+                    logits=logits, **_params(ws, bs))
     launch.call("pt_disc_fwd", x.device, ctypes.addressof(a))
     disc_fwd.launches += 1
     return logits
@@ -185,26 +175,41 @@ def disc_bwd_dx(x, g, ws, bs, bf16: bool = False):
     m, k = _check(x, ws, bs)
     launch.expect("g", g, x.shape[:2] + (1,), x.device)
     dx = torch.empty_like(x)
-    a = launch.args(launch.DiscArgs, m=m, k=k, per=1, splits=_tiles(m),
-                    prec=launch.prec(bf16), x=x, g=g, dx=dx,
-                    **_params(ws, bs))
+    a = launch.args(launch.DiscArgs, m=m, k=k, prec=launch.prec(bf16), x=x,
+                    g=g, dx=dx, **_params(ws, bs))
     launch.call("pt_disc_bwd_dx", x.device, ctypes.addressof(a))
     disc_bwd_dx.launches += 1
     return dx
 
 
-def _bwd_dw_launch(x, g, ws, bs, dx, bf16):
+def _bwd_dw_launch(x, g, ws, bs, dx, bf16, scratch=None):
+    """The weight-gradient pass (with ``dx`` given, the full backward).
+    ``scratch``, a dict, receives the row pass's ``dzs [m, DZ_COLS]`` and
+    ``hs [m, H_COLS]``, on which ``chip_smoke.py`` holds the pass product
+    by product."""
     m, k = _check(x, ws, bs)
     dev = x.device
     launch.expect("g", g, x.shape[:2] + (1,), dev)
     layout, size = grad_layout(k)
-    per, splits = dw_splits(m, dev)
-    grad = torch.empty(size, device=dev, dtype=torch.float32)
-    part = torch.empty((splits, size), device=dev, dtype=torch.float32)
-    a = launch.args(launch.DiscArgs, m=m, k=k, per=per, splits=splits,
-                    prec=launch.prec(bf16), x=x, g=g, dx=dx, part=part,
-                    grad=grad, **_params(ws, bs))
+    f32 = dict(device=dev, dtype=torch.float32)
+    # dW1..dW4 = dz^T h on the GEMM core, each split over row ranges.
+    shapes = [s for _, s in layout[:4]]
+    splits = [launch.row_splits(m, o, i, dev) for o, i in shapes]
+    grad = torch.empty(size, **f32)
+    # The row pass's per-block partials of dW5 and db1..db4 (db5 is
+    # summed from g).
+    part = torch.empty((-(-m // launch.DISC_TILE),
+                        layout[9][0] - layout[4][0]), **f32)
+    part_w = torch.empty(sum(s * o * i for s, (o, i) in zip(splits, shapes)),
+                         **f32)
+    dzs, hs = torch.empty((m, DZ_COLS), **f32), torch.empty((m, H_COLS), **f32)
+    a = launch.args(launch.DiscArgs, m=m, k=k, prec=launch.prec(bf16),
+                    split1=splits[0], split2=splits[1], split3=splits[2],
+                    split4=splits[3], x=x, g=g, dx=dx, grad=grad, part=part,
+                    dzs=dzs, hs=hs, part_w=part_w, **_params(ws, bs))
     launch.call("pt_disc_bwd_dw", dev, ctypes.addressof(a))
+    if scratch is not None:
+        scratch.update(dzs=dzs, hs=hs)
     views = [grad[at:at + math.prod(s)].view(s) for at, s in layout]
     return tuple(w.t() for w in views[:5]), tuple(views[5:])
 

@@ -9,8 +9,10 @@ trunk_train.cu``, whose header says what bounds them on the card):
   column sum / sum of squares and each cloud's channel max and min with
   the first point that attains them;
 * **B1** the backward through conv3 + BN3 + pool: ``dy2``, ``dw3``,
-  ``db3`` and BN2's two reduction sums ``t1``/``t2`` (on the tensor
-  cores: ``csrc/train_bwd_tc.cu``).
+  ``db3`` and BN2's two reduction sums ``t1``/``t2``.
+
+F2 and B1 run on the tensor cores (``csrc/train_bwd_tc.cu``, sharing
+their prologue and first GEMM), F1 on the CUDA cores.
 
 Each pass has a plain PyTorch twin of the same signature (``f1_plain``,
 ``f2_plain``, ``b1_plain``) that CPU tensors run. The glue between the
@@ -162,7 +164,9 @@ def f2(z2, sc2, sh2, w3, b3, groups: int = 1, bf16: bool = False):
     mx, mn = torch.empty((bsz, c3), **f32), torch.empty((bsz, c3), **f32)
     imax = torch.empty((bsz, c3), device=dev, dtype=torch.int32)
     imin = torch.empty((bsz, c3), device=dev, dtype=torch.int32)
-    part = torch.empty((2, launch.row_blocks(bsz, n), c3), **f32)
+    # F2 runs on the tensor cores: per-block partials of TC_TILE points.
+    part = torch.empty((2, launch.row_blocks(bsz, n, launch.TC_TILE), c3),
+                       **f32)
     keys = torch.empty((2, bsz, c3), device=dev, dtype=torch.int64)
     a = launch.args(launch.RowFwdArgs, batch=bsz, n=n, c_in=c2, c_out=c3,
                     ldw=ldw, groups=groups, prec=launch.prec(bf16, x=z2),

@@ -116,11 +116,11 @@ PoolFcArgs = _struct(
     "PoolFcArgs", ("batch", "c3", "c1", "groups", "prec"),
     ("mx", "mn", "s3c", "t3", "w1", "b1", "g1", "be1", "rm1", "h1", "h", "z1",
      "mu", "var", "inv"))
-# Mirror of the argument struct in csrc/disc_fused.cu.
+# Mirror of the argument struct in csrc/disc_fused.cuh.
 DiscArgs = _struct(
-    "DiscArgs", ("m", "k", "per", "splits", "prec"),
+    "DiscArgs", ("m", "k", "prec", "split1", "split2", "split3", "split4"),
     ("x", "g", "w1", "w2", "w3", "w4", "w5", "b1", "b2", "b3", "b4", "b5",
-     "logits", "dx", "part", "grad"))
+     "logits", "dx", "grad", "part", "dzs", "hs", "part_w"))
 # Mirrors of the argument structs of the per-layer training kernels
 # (csrc/pointwise_matmul.cu, tnet_apply.cu, maxpool_points.cu,
 # fc_head_train.cu).
@@ -149,8 +149,10 @@ StackArgs = type("StackArgs", (ctypes.Structure,), {"_fields_": [
     ("shift", ctypes.c_void_p * MAX_STACK), ("out", ctypes.c_void_p)]})
 DZ_BN, DZ_TRUNK, DZ_SOFTMAX = 0, 1, 2   # BwdArgs.mode
 TILE = 64          # rows per block of the row kernels (kTile in csrc)
-TC_TILE = 128      # rows per block of the tensor-core backward passes
-                   # (kTcRows in csrc/train_bwd_tc.cu)
+TC_TILE = 128      # rows per block of the tensor-core trunk F2, B1 and
+                   # Bmid (kTcRows in csrc/train_bwd_tc.cu)
+DISC_TILE = 64     # rows per block of the disc's weight-gradient row pass
+                   # (kDwRows in csrc/disc_tc.cu)
 # The ``prec`` bits of the argument structs (kRound... in common.cuh):
 # round every matmul operand to bf16, and which tensors are bf16 stashes
 # (RowFwdArgs: x, z; BwdArgs: zp, zc, dy, dyp).

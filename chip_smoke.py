@@ -26,12 +26,13 @@ Phases, one or more lines each:
    P1/Pmid/P4/B4/Bmid/B1, the pool-fc epilogue at groups 1 and 2)
    against its plain pass at B=32 N=2048 (the config-3 step), B=32
    N=2500 (ragged) and B=2 N=2048, on inputs with negative BN3 gammas and
-   duplicated points (max ties go to the first point); trunk B1 and
+   duplicated points (max ties go to the first point); trunk F2, B1 and
    Bmid (on the tensor cores, ``csrc/train_bwd_tc.cu``) also, in fp32,
-   held by the float64 control (dy_prev and dW at most
-   ``F64_FACTOR`` times the plain fp32 pass's error), where the plain
-   pass with TF32 allowed must fail; then each autograd function's
-   outputs and gradients against its whole-function plain reference;
+   held by the float64 control (F2's sum and sum of squares, dy_prev and
+   dW at most ``F64_FACTOR`` times the plain fp32 pass's error), where
+   the plain pass with TF32 allowed must fail; then each autograd
+   function's outputs and gradients against its whole-function plain
+   reference;
 7. train-slice: ``train_step`` of a seeded full-width segmenter with
    random BatchNorm statistics on one batch of 32 x 2048, on the card and
    on the CPU from the same weights: loss, log-probs, every gradient and
@@ -39,21 +40,31 @@ Phases, one or more lines each:
    checked per step; then 10 Adam steps on the fixed batch must lower
    the loss;
 8. train-timing: each training pass against its plain pass (TFLOP/s;
-   B1 and Bmid bound at the 3xTF32 rate, the fp32-FMA bound beside it),
-   the step's median time, points/s and the profiler's busy share;
+   F2, B1 and Bmid bound at the 3xTF32 rate, the fp32-FMA bound beside
+   it), the step's median time, points/s and the profiler's busy share;
 9. disc-kernels: every discriminator pass (fwd, bwd_dx, bwd_dw, the full
    bwd) against its plain pass at B=32 N=2048 (and the D step's 2B=64),
-   B=32 N=2500 (ragged) and B=2; then each ``FCDiscriminator`` autograd
-   method against the whole stack composed in plain PyTorch;
+   B=32 N=2500 (ragged) and B=2. The weight-gradient pass
+   (``csrc/disc_tc.cu``, tensor cores; ``check_disc_dw``) is held whole
+   pass from x to its plain twin (dW, db, dx; with the pass's LeakyReLU
+   branch where the two differ, each such flip counted and required to
+   lie within the bound of zero; with none, the twin unchanged), and
+   product by product on its own operands (every h and dz
+   of its row pass, dx, dW and db against the plain PyTorch product; in
+   fp32 each also by the float64 control, with a TF32 control that must
+   fail); then each ``FCDiscriminator`` autograd method against the
+   whole stack composed in plain PyTorch;
 10. adv-slice: the config-4 ``adversarial.train_step`` of a seeded
    full-width G (random BatchNorm statistics) and D on one batch of 2 x
    32 x 2048, on the card and on the CPU from the same weights: every
    metric, G and D gradient and new running statistic compared, the semi
    mask held to the CPU's; every kernel's launches checked per step; then
    10 steps on the fixed batch must lower the supervised loss;
-11. adv-timing: each discriminator pass against its plain pass, the G+D
-   step's median time, points/s (both streams) and busy share, and the
-   discriminator family's FLOP/s against the fp32 peak;
+11. adv-timing: each discriminator pass against its plain pass (the
+   tensor-core ones bound at the 3xTF32 rate, the fp32-FMA bound beside
+   it, with their sub-kernels' launches and times and the scratch's
+   GB/s), the G+D step's median time, points/s (both streams) and busy
+   share, and the discriminator family's FLOP/s;
 12. bench-kernels: every training and discriminator pass in bf16 against
    its bf16 plain twin at the shapes of phases 6 and 9 (bf16 stashes may
    sit one bf16 step apart where the two sum in another order: the share
@@ -266,7 +277,11 @@ GEMM_KERNELS = ("pointwise_matmul", "tnet_apply")
 # The fused training passes on the tensor cores (csrc/train_bwd_tc.cu, on
 # mma.cuh's fragment layer and the GEMM core): fp32 as 3xTF32, bound at
 # that rate with the fp32-FMA bound beside it.
-TC_PASSES = (("trunk2_train", "B1"), ("seg_head_train", "Bmid"))
+TC_PASSES = (("trunk2_train", "F2"), ("trunk2_train", "B1"),
+             ("seg_head_train", "Bmid"))
+# The discriminator's passes on the tensor cores (csrc/disc_tc.cu: the
+# row pass, then dW on the GEMM core), bound as TC_PASSES.
+DISC_TC_PASSES = ("bwd_dw", "bwd")
 # Launches per config-3 step under the switch. N=2048: conv1 of STN3d, the
 # encoder and STNkd (STN3d's sees the points: no dx), both transforms
 # (x @ T3's x is the points: no dx), both single-stream fc heads; the
@@ -508,7 +523,7 @@ def _device_us(event) -> float:
 PROFILE_TRIES = 5
 
 
-def device_profile(fn, reps: int = 10):
+def device_profile(fn, reps: int = 10, counts: dict = None):
     """``{kernel name: device ms per call}`` of ``fn``'s GPU work, from
     torch.profiler (device activity only). Now and then a window records
     no device activity at all although ``fn`` launched kernels; such a
@@ -517,7 +532,9 @@ def device_profile(fn, reps: int = 10):
     also lose some kernel records (a kernel counted a number of times that
     is not a multiple of ``reps``, where ``fn`` launches the same kernels
     each call); it is taken again too, and if every window loses some, the
-    first is used and a line says that its time is a lower bound."""
+    first is used and a line says that its time is a lower bound.
+    ``counts``, a dict, receives ``{kernel name: launches per call}`` of
+    the window used."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -536,13 +553,18 @@ def device_profile(fn, reps: int = 10):
             continue
         out = {e.key: _device_us(e) / reps / 1e3 for e in events}
         lost = [(e.key[:40], e.count) for e in events if e.count % reps]
+        seen = {e.key: e.count / reps for e in events}
         if not lost:
+            if counts is not None:
+                counts.update(seen)
             return out
-        partial = partial or (out, lost)
+        partial = partial or (out, lost, seen)
     if partial:
         phase("profile", f"every window lost kernel records (counts over "
               f"{reps} calls in the first: {partial[1]}): a device time "
               "taken from it in the next timing line is a lower bound")
+        if counts is not None:
+            counts.update(partial[2])
         return partial[0]
     raise RuntimeError(f"torch.profiler lost device activity in "
                        f"{PROFILE_TRIES} windows: device time not measured")
@@ -871,6 +893,15 @@ def b1_f64(z2, sc2, sh2, w3, b3, mu3, inv3, coef1, coef2, s3dg, idx, mu2,
             _rows64(h2).t() @ _rows64(dz3))
 
 
+def f2_f64(z2, sc2, sh2, w3, b3):
+    """Trunk F2's float64 control (one group, fp32): BN3's ``(sum, sum of
+    squares)`` of z3 with the product and the sums in float64 and h2 as
+    the fp32 passes compute it."""
+    h2 = torch.relu(z2.float() * sc2 + sh2)
+    z3 = torch.matmul(h2.double(), w3.double()) + b3.double()
+    return z3.sum((0, 1)), (z3 * z3).sum((0, 1))
+
+
 def bmid_f64(zc, dy, sc, mu, inv, coef1, coef2, zp, scp, shp, w, mup, invp):
     """Bmid's float64 control (fp32): ``(dy_prev, dw)`` in float64, the
     previous ReLU's mask as the fp32 passes compute it."""
@@ -944,6 +975,10 @@ def train_kernel_checks(dev, gen, rec, bf16=False):
             check_winners(tag, got[5], ref[5], -z3, x, dup_clouds, n, "min",
                           ptag)
             del z3
+            if not bf16:
+                tc_f64(rec, "trunk2_train", "F2", tag, got, ref,
+                       f2_f64(*a[:5]), ("sum", "sumsq"), ptag,
+                       (lambda: tt.f2_plain(*a)[0]) if main else None)
             mu3, _, inv3 = core.batch_moments(ref[0], ref[1], bsz * n)
             s3c = tw["g3"] * inv3
             idx = torch.where(s3c >= 0, ref[4], ref[5])
@@ -1308,6 +1343,166 @@ def prob_maps(gen, bsz, n, dev):
     return x.to(dev)
 
 
+def _disc_operands(x, g, sc):
+    """The weight-gradient pass's own operands from its scratch: the rows
+    of x and g, h0..h3 (h0 = x) and dz1..dz4 (views)."""
+    from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
+        disc_fused as df,
+    )
+
+    cut = [0]
+    for c in df.WIDTHS[:4]:
+        cut.append(cut[-1] + c)
+    xs, gs = x.reshape(-1, x.shape[-1]), g.reshape(-1, 1)
+    hs = [xs] + [sc["hs"][:, cut[i]:cut[i + 1]] for i in range(3)]
+    dzs = [sc["dzs"][:, cut[i]:cut[i + 1]] for i in range(4)]
+    return xs, gs, hs, dzs
+
+
+def disc_products(x, g, ws, bs, sc, bf16=False, dx=False, f64=False):
+    """Every product and sum of the discriminator's weight-gradient pass
+    (``disc_tc.cu``) computed in plain PyTorch on the pass's own operands
+    (its scratch ``sc``: h1..h3 and dz1..dz4), as ``{name: value}``:
+    h1..h3 = leaky(h W + b), dz4 = g w5 leaky'(h4) with the pass's own
+    LeakyReLU branches for h4 (read back from dz4), dz3..dz1 = (dz W^T)
+    leaky'(h) with the branches of the pass's h, dx, dW1..dW4 = h^T dz,
+    dW5 = leaky(h3 W4 + b4)^T g and db1..db5; with ``f64`` every product
+    and sum in float64 (the control), else bf16 operands under ``bf16``
+    and fp32 sums. Also returns h4's pre-activation and the pass's
+    branches for it. A kernel's forward and cuBLAS's legitimately take
+    different LeakyReLU branches where a pre-activation lies within
+    rounding of zero (a few per 10^7 at these widths), which moves a whole
+    dz element; held on its own operands, each of the pass's products is
+    compared with the same product, branch for branch."""
+    from adversarial_learning_on_pointclouds_tpu_torch.models import core
+    from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
+        disc_fused as df,
+    )
+
+    op = (lambda t: t.double()) if f64 else (
+        lambda t: core.operand(t, bf16))
+    fb = (lambda t: t.double()) if f64 else (lambda t: t)
+    xs, gs, hs, dzs = _disc_operands(x, g, sc)
+    out = {}
+    for i in range(3):
+        out[f"h{i + 1}"] = df.leaky(op(hs[i]) @ op(ws[i]) + fb(bs[i]))
+    z4 = op(hs[3]) @ op(ws[3]) + fb(bs[3])
+    gw5 = core.operand(gs, bf16) * core.operand(ws[4][:, 0], bf16)
+    branch4 = dzs[3] == gw5                     # h4 >= 0 in the pass
+    out["dz4"] = (op(gs) * op(ws[4][:, 0])) * torch.where(
+        branch4, 1.0, df.SLOPE).to(z4.dtype)
+    for i in (3, 2, 1):
+        out[f"dz{i}"] = (op(dzs[i]) @ op(ws[i]).t()) * df._dleaky(
+            hs[i]).to(z4.dtype)
+    if dx:
+        out["dx"] = (op(dzs[0]) @ op(ws[0]).t()).reshape(x.shape)
+    for i in range(4):
+        out[f"dw{i + 1}"] = op(hs[i]).t() @ op(dzs[i])
+    out["dw5"] = op(df.leaky(z4)).t() @ op(gs)
+    for i in range(4):
+        out[f"db{i + 1}"] = fb(dzs[i]).sum(0)
+    out["db5"] = fb(gs).sum(0)
+    return out, z4, branch4
+
+
+def disc_plain_branched(x, g, ws, bs, bf16, full, branches, near, bound):
+    """The plain twin from ``x`` (``disc_bwd_plain``'s products, operands
+    and sums; ``disc_bwd_dw_plain``'s without ``full``) with the pass's
+    LeakyReLU branch (``branches``: h1..h4 >= 0 in the pass) at each
+    pre-activation where the two take different ones. Each such flip
+    must lie within ``bound`` of the scale of zero, in the plain twin's
+    pre-activation and in the pass's own (``near``), else it raises.
+    Returns ``(dx or None, dws, dbs)`` and the flips per layer."""
+    from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
+        disc_fused as df,
+    )
+
+    hs, masks, flips = [x], [], []
+    for i in range(4):
+        z = df._mm(hs[-1], ws[i], bf16) + bs[i]
+        mask = branches[i].reshape(z.shape)
+        diff = mask != (z >= 0)
+        for t in (z, near[i].reshape(z.shape)):
+            worst = t[diff].abs().max().item() if diff.any() else 0.0
+            if worst > bound * max(1.0, t.abs().max().item()):
+                raise AssertionError(
+                    f"h{i + 1} takes another LeakyReLU branch in the pass "
+                    f"than in the plain twin at |pre-activation| "
+                    f"{worst:.3e}")
+        flips.append(int(diff.sum()))
+        masks.append(mask)
+        hs.append(torch.where(mask, z, df.SLOPE * z))
+    dh, dws, dbs = g, [], []
+    for i in reversed(range(5)):
+        dz = dh if i == 4 else dh * torch.where(masks[i], 1.0, df.SLOPE)
+        dws.insert(0, df._mm(df._rows(hs[i]).t(), df._rows(dz), bf16))
+        dbs.insert(0, dz.sum((0, 1)))
+        if i > 0 or full:
+            dh = df._mm(dz, ws[i].t(), bf16)
+    return (dh if full else None), dws, dbs, flips
+
+
+def check_disc_dw(rec, tag, x, g, ws, bs, bf16, full, main, ptag):
+    """``disc_bwd_dw`` (``full``: ``disc_bwd``) on the card, held whole
+    pass to its plain twin from ``x`` at ``rec.bound``: dW, db (and dx),
+    with the pass's LeakyReLU branch at each pre-activation within
+    rounding of zero where the two differ (``disc_plain_branched``:
+    counted, and bounded; with none, the twin unchanged). Also product by
+    product on the pass's own operands (``disc_products``: every h and dz
+    of its row pass, dx, every dW and db), which locates a fault; in fp32
+    each output is held to the float64 control (``F64_FACTOR`` times the
+    plain pass's error), and on the main shape a TF32 product (dW4) must
+    fail it."""
+    from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
+        disc_fused as df,
+    )
+
+    pas = "bwd" if full else "bwd_dw"
+    sc = {}
+    a = (x, g, ws, bs, bf16)
+    dxk = torch.empty_like(x) if full else None
+    got = df._bwd_dw_launch(x, g, ws, bs, dxk, bf16, scratch=sc)
+    xs, gs, hs, dzs = _disc_operands(x, g, sc)
+    kern = {f"h{i}": hs[i] for i in (1, 2, 3)}
+    kern.update({f"dz{i + 1}": dzs[i] for i in range(4)})
+    if full:
+        kern["dx"] = dxk
+    kern.update({f"dw{i + 1}": w for i, w in enumerate(got[0])})
+    kern.update({f"db{i + 1}": b for i, b in enumerate(got[1])})
+    plain, z4, branch4 = disc_products(x, g, ws, bs, sc, bf16, full)
+    rec.cmp("disc_fused", pas, f"{tag} on its operands", list(kern),
+            list(kern.values()), [plain[k] for k in kern], False, a,
+            phase_tag=ptag)
+
+    names = [k for k in kern if k[:2] in ("dx", "dw", "db")]
+    dx, dws, dbs, flips = disc_plain_branched(
+        x, g, ws, bs, bf16, full, [hs[1] >= 0, hs[2] >= 0, hs[3] >= 0,
+                                   branch4], [hs[1], hs[2], hs[3], z4],
+        rec.bound)
+    phase(ptag, f"disc_fused {pas} {tag}: LeakyReLU branches other than "
+          f"the plain twin's in h1..h4: {flips} of {xs.shape[0]} x "
+          f"{list(df.WIDTHS[:4])}, each within {rec.bound:g} of the scale "
+          "of zero")
+    # With no flip this is the plain twin unchanged, bit for bit.
+    twin = ("plain twin, the pass's branches at the flips" if sum(flips)
+            else "plain twin unchanged: no flip")
+    rec.cmp("disc_fused", pas, f"{tag} from x ({twin})", names,
+            [kern[k] for k in names],
+            ([dx] if full else []) + list(dws) + list(dbs), main, a,
+            phase_tag=ptag)
+    del dx, dws, dbs
+    if not bf16:
+        ref, _, _ = disc_products(x, g, ws, bs, sc, dx=full, f64=True)
+        for k in kern:
+            rec.cmp_f64("disc_fused", pas, f"{k} {tag}", kern[k], plain[k],
+                        ref[k], ptag)
+        if main and not full:
+            tf32_control("disc_fused bwd_dw's plain dW4 product",
+                         lambda: hs[3].t() @ dzs[3], ref["dw4"],
+                         plain["dw4"], ptag)
+    return got
+
+
 def disc_kernel_checks(dev, gen, rec, bf16=False):
     """Phase 9 (fp32), or with ``bf16`` the disc passes of phase 12."""
     from adversarial_learning_on_pointclouds_tpu_torch.models import (
@@ -1320,7 +1515,6 @@ def disc_kernel_checks(dev, gen, rec, bf16=False):
     ptag = "bench-kernels" if bf16 else "disc-kernels"
     xb = (True,) if bf16 else ()
     ws, bs = disc_params(gen, dev)
-    names = [f"dw{i}" for i in range(1, 6)] + [f"db{i}" for i in range(1, 6)]
     for bsz, n in ((B, TRAIN_N), (2 * B, TRAIN_N), (B, TRAIN_RAGGED_N),
                    (2, TRAIN_N)):
         tag = f"B={bsz} N={n}"
@@ -1337,15 +1531,10 @@ def disc_kernel_checks(dev, gen, rec, bf16=False):
                 rec.cmp("disc_fused", "bwd_dx", tag, ("dx",),
                         (df.disc_bwd_dx(*a),), (df.disc_bwd_dx_plain(*a),),
                         main, a, phase_tag=ptag)
-                got, ref = df.disc_bwd(*a), df.disc_bwd_plain(*a)
-                rec.cmp("disc_fused", "bwd", tag, ["dx"] + names,
-                        (got[0], *got[1], *got[2]),
-                        (ref[0], *ref[1], *ref[2]), main, a, phase_tag=ptag)
-            a = (x, g, ws, bs, *xb)
-            got, ref = df.disc_bwd_dw(*a), df.disc_bwd_dw_plain(*a)
-            rec.cmp("disc_fused", "bwd_dw", tag, names, (*got[0], *got[1]),
-                    (*ref[0], *ref[1]), n == TRAIN_N and bsz >= B, a,
-                    phase_tag=ptag)
+                check_disc_dw(rec, tag, x, g, ws, bs, bf16, True, main,
+                              ptag)
+            check_disc_dw(rec, tag, x, g, ws, bs, bf16, False,
+                          n == TRAIN_N and bsz >= B, ptag)
         torch.cuda.synchronize()
     if bf16:   # the bf16 methods are held to the CPU by the bench step
         return
@@ -1705,15 +1894,20 @@ def adv_timing(card, rec, cuda_run, launches, results):
         # Per step: each distinct call once (bwd_dw: at 2B and at B), or
         # times its repeats; the full bwd, off the step, per call.
         times = per / len(calls) if per else 1.0
+        kernels = {}
         with torch.no_grad():
             ms, plain_ms = time_pair(lambda: [fn(*a) for a in calls],
                                      lambda: [plain(*a) for a in calls])
-            dev_ms = sum(device_profile(
-                lambda: [fn(*a) for a in calls]).values())
+            by_name = device_profile(lambda: [fn(*a) for a in calls],
+                                     counts=kernels)
+            dev_ms = sum(by_name.values())
             plain_dev_ms = sum(device_profile(
                 lambda: [plain(*a) for a in calls]).values())
         flops, nbytes = work(plain, calls)
-        bound_ms, bound_by = bound(flops, nbytes)
+        tc = pas in DISC_TC_PASSES
+        bound_ms, bound_by = bound(flops, nbytes,
+                                   TF32X3_PEAK if tc else FP32_PEAK)
+        fma_ms = bound(flops, nbytes)[0] * times
         ms, plain_ms, dev_ms, plain_dev_ms, bound_ms, flops = (
             t * times for t in (ms, plain_ms, dev_ms, plain_dev_ms, bound_ms,
                                 flops))
@@ -1725,14 +1919,21 @@ def adv_timing(card, rec, cuda_run, launches, results):
               f" at B={B} N={TRAIN_N}: kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms; device time alone: kernel {dev_ms:.4f} ms, "
               f"plain {plain_dev_ms:.4f} ms; bound {bound_ms:.4f} ms "
-              f"({bound_by}); {flops / dev_ms / 1e9:.2f} TFLOP/s")
-        passes.append({"pass": pas, "replaces": f"{TPU_KERNELS}/"
-                       f"{DISC_SITES[pas]}", "launches": launches[
-                           "disc_fused"][pas],
-                       "max_abs_err": rec.err[("disc_fused", pas)], "ms": ms,
-                       "plain_ms": plain_ms, "bound_ms": bound_ms,
-                       "bound_by": bound_by, "device_ms": dev_ms,
-                       "plain_device_ms": plain_dev_ms})
+              f"({bound_by}"
+              + (f", 3xTF32 rate; at the fp32 FMA rate {fma_ms:.4f} ms"
+                 if tc else "") + f"); {flops / dev_ms / 1e9:.2f} TFLOP/s")
+        row = {"pass": pas, "replaces": f"{TPU_KERNELS}/{DISC_SITES[pas]}",
+               "launches": launches["disc_fused"][pas],
+               "max_abs_err": rec.err[("disc_fused", pas)], "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "device_ms": dev_ms,
+               "plain_device_ms": plain_dev_ms,
+               "tflops": flops / dev_ms / 1e9}
+        if tc:
+            row.update(bound_fma_ms=fma_ms,
+                       source=f"{KERNELS_ROOT}/csrc/disc_tc.cu")
+            disc_tc_report(card, pas, calls, by_name, kernels, per)
+        passes.append(row)
     phase("adv-timing", f"{card}: disc family per G+D step: {family_dev:.3f} "
           f"ms of device time for {family_flops / 1e9:.1f} GFLOP, "
           f"{family_flops / family_dev / 1e9:.2f} TFLOP/s, "
@@ -1750,6 +1951,39 @@ def adv_timing(card, rec, cuda_run, launches, results):
 
     state, _, _, batch, txs = cuda_run
     time_step(card, "adv-timing", AdversarialConfig(), state, batch, txs)
+
+
+def disc_tc_report(card, pas, calls, by_name, kernels, per):
+    """The tensor-core disc pass's sub-kernels (``csrc/disc_tc.cu``: the
+    row pass, then dW1..dW4 on the GEMM core with their split sums,
+    colsum and sum_g_kernel), from one profile of its ``calls``: launches per call and per
+    G+D step, device time by kernel, and the scratch's rate (the 1,408
+    floats a row the row pass writes and the GEMM core reads back, over
+    the whole pass's device time)."""
+    from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
+        disc_fused as df,
+    )
+
+    rows = sum(a[0].shape[0] * a[0].shape[1] for a in calls)
+    scratch = 2 * rows * (df.DZ_COLS + df.H_COLS) * 4
+    n = len(calls)
+    dev_ms = sum(by_name.values())
+    row_ms = sum(v for k, v in by_name.items() if "disc_dw_tc" in k)
+    launched = sum(kernels.values())
+    def short(key):   # the kernel's name and template arguments
+        key = re.sub(r"^void |\(anonymous namespace\)::|pointtpu::", "", key)
+        return re.sub(r"\(.*", "", key)
+
+    phase("adv-timing", f"{card}: disc_fused {pas}: {launched / n:g} "
+          f"launches a call ({launched / n * max(per, 1):g} per G+D step"
+          f"{'' if per else ', off the step'}): " + ", ".join(
+              f"{short(k)} x{c / n:g} {by_name[k] / n:.4f} ms"
+              for k, c in sorted(kernels.items(),
+                                 key=lambda kv: -by_name[kv[0]])))
+    phase("adv-timing", f"{card}: disc_fused {pas}: scratch written and "
+          f"read back {scratch / n / 1e9:.3f} GB a call, "
+          f"{scratch / dev_ms / 1e6:.1f} GB/s over the pass's device time "
+          f"(the row pass alone {row_ms / n:.4f} ms a call)")
 
 
 def time_step(card, tag, cfg, state, batch, txs):
@@ -3195,7 +3429,7 @@ def main() -> None:
               getattr(build, "compile_seconds", {}).items(),
               key=lambda kv: -kv[1])))
     for src in ("strided_gemm.cu", "pointwise_matmul.cu", "tnet_apply.cu",
-                "train_bwd_tc.cu"):
+                "train_bwd_tc.cu", "disc_tc.cu"):
         for label, (regs, st, ld) in ptxas_report(build, src).items():
             phase("build", f"ptxas: {src} {label}: {regs} registers, spill "
                   f"stores {st} bytes, spill loads {ld} bytes")

@@ -1,6 +1,6 @@
-"""The numerics of the generator's tensor-core backward passes
-(``csrc/train_bwd_tc.cu``: trunk B1 and the seg head's Bmid), emulated in
-plain PyTorch on the CPU.
+"""The numerics of the generator's tensor-core passes
+(``csrc/train_bwd_tc.cu``: trunk F2 and B1 and the seg head's Bmid),
+emulated in plain PyTorch on the CPU.
 
 The card's kernels cannot run here; their arithmetic can. Trunk B1
 recomputes ``h2 = relu(bn2(z2))`` in fp32 (the ReLU mask every pass
@@ -15,15 +15,21 @@ accumulator runs on across the chunks, which is one product over the
 whole depth in the same order), in bf16 the operands are rounded to bf16
 and summed in fp32. Sums (db, t1, t2) are fp32 values added in float64.
 
-Held at narrow widths (B1 c_in 32, c_out 256; Bmid 64 -> 128 and 128 ->
-64), a ragged N = 300, groups 1 and 2: fp32 within ``BOUND`` (1e-4
-scale-relative) of float64, of the port's plain twins and of the JAX
-package's ``_b1_call`` / ``_bmid_call`` (HIGHEST precision, Pallas in
-interpret mode as its own tests run it); bf16 within ``BF16_BOUND`` of
-the JAX kernels under their mixed-precision scope. The control: one TF32
-product instead of three misses ``BOUND``. These tests document the
-contract the kernels are built to and run no kernel; ``chip_smoke.py``
-holds the kernels to their plain twins and to float64 on the card.
+F2 shares B1's prologue and first GEMM: the same h2 and 3xTF32 z3 = h2 W3^T
++ b3, reduced per 128-point tile of one cloud to fp32 column sums and sums
+of squares (added per group in float64) and to each cloud's max and min
+with the first point attaining them.
+
+Held at narrow widths (B1 c_in 32, c_out 256; F2 128 -> 256; Bmid 64 ->
+128 and 128 -> 64), a ragged N = 300, groups 1 and 2: fp32 within
+``BOUND`` (1e-4 scale-relative) of float64, of the port's plain twins and
+of the JAX package's ``_b1_call`` / ``_f2_call`` / ``_bmid_call``
+(HIGHEST precision, Pallas in interpret mode as its own tests run it);
+bf16 within ``BF16_BOUND`` of the JAX kernels under their
+mixed-precision scope. The control: one TF32 product instead of three
+misses ``BOUND``. These tests document the contract the kernels are built
+to and run no kernel; ``chip_smoke.py`` holds the kernels to their plain
+twins and to float64 on the card.
 """
 
 import functools
@@ -49,6 +55,8 @@ N = 300                # ragged: no tile of 128 divides it
 ROWS_PER_SPLIT = 256   # the dW product's row ranges (ops/launch.py: row_splits)
 B1_WIDTHS = (32, 256)  # (c_in, c_out)
 BMID_WIDTHS = ((64, 128), (128, 64))   # (c_out, c_in): dz width -> dyp width
+F2_WIDTHS = (128, 256)                 # (c2, c3)
+F2_TILE = 128          # points a block of F2 (csrc/train_bwd_tc.cu)
 
 
 def _bf(t: torch.Tensor) -> torch.Tensor:
@@ -131,6 +139,32 @@ def bmid_emulated(args, prec):
             _sums(dyp * ((zp - mup) * invp), 1))
 
 
+def f2_emulated(args, groups, prec):
+    """Trunk F2 as ``train_bwd_tc.cu`` computes it: ``(sum, sumsq, max,
+    min, argmax, argmin)``; ``prec="f64"`` is the float64 control (h2 from
+    fp32, the product and the sums in float64)."""
+    z2, sc2, sh2, w3, b3 = args
+    bsz, n, c2 = z2.shape
+    c3 = w3.shape[1]
+    bpg = bsz // groups
+
+    def cloud(v):            # [C] or [G, C] statistic -> [B, 1, C]
+        return v.reshape(groups, -1).repeat_interleave(bpg, 0)[:, None, :]
+
+    h2 = _f(torch.relu(z2.float() * cloud(sc2) + cloud(sh2)), prec)
+    z3 = _mm(h2.reshape(-1, c2), w3, prec).reshape(bsz, n, c3) + _f(b3, prec)
+    if prec == "f64":
+        s, ss = (t.reshape(groups, -1, c3).sum(1) for t in (z3, z3 * z3))
+    else:   # fp32 sums of each tile of F2_TILE points, added in float64
+        s, ss = (sum(t[:, p:p + F2_TILE].sum(1).double()
+                     for p in range(0, n, F2_TILE)).reshape(
+                         groups, bpg, c3).sum(1) for t in (z3, z3 * z3))
+    mx, mn = z3.max(1).values, z3.min(1).values
+    first = lambda hit: hit.int().argmax(1).int()  # noqa: E731
+    return (s[0] if groups == 1 else s, ss[0] if groups == 1 else ss, mx,
+            mn, first(z3 == mx[:, None]), first(z3 == mn[:, None]))
+
+
 def _rel(a, b) -> float:
     a = np.asarray(a.detach().double() if isinstance(a, torch.Tensor) else a,
                    np.float64)
@@ -192,6 +226,24 @@ def _bmid_args(c_out, c_in, bf16=False):
             rng.uniform(0.5, 1.5, c_in).astype(f))
 
 
+@functools.lru_cache(maxsize=None)
+def _f2_args(groups, bf16=False):
+    """F2's inputs; cloud 0 repeats its first 150 points in its last 150,
+    so each of its extrema is attained twice."""
+    c2, c3 = F2_WIDTHS
+    bsz = 2 * groups
+    rng = np.random.default_rng(20 * groups + bf16)
+    f = np.float32
+    stat = (c2,) if groups == 1 else (groups, c2)
+    z2 = rng.standard_normal((bsz, N, c2)).astype(f)
+    z2[0, N // 2:] = z2[0, :N // 2]
+    return ((_stash(z2) if bf16 else z2),
+            rng.uniform(0.5, 1.5, stat).astype(f),
+            (rng.standard_normal(stat) * 0.1).astype(f),
+            (rng.uniform(-1, 1, (c2, c3)) / np.sqrt(c2)).astype(f),
+            (rng.standard_normal(c3) * 0.1).astype(f))
+
+
 def _torch(args):
     return tuple(torch.from_numpy(a) for a in args)
 
@@ -217,7 +269,87 @@ def _jax_bmid(c_out, c_in, bf16=False):
     return jax_head._bmid_call(*args)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_f2(groups, bf16=False):
+    args = [jnp.asarray(a) for a in _f2_args(groups, bf16)]
+    if bf16:
+        args[0] = args[0].astype(jnp.bfloat16)
+        with jax_core.mixed_precision():
+            return jax_trunk._f2_call(*args, groups=groups)
+    return jax_trunk._f2_call(*args, groups=groups)
+
+
 NAMES = ("dy_prev", "dw", "db", "t1", "t2")
+F2_NAMES = ("sum", "sumsq", "max", "min")
+
+
+def _winners_agree(emu, other, z3, what):
+    """Winner indices equal, or (rounding making two distinct points tie)
+    pointing at values within ``BOUND`` of each other."""
+    got, ref = emu.long(), torch.as_tensor(np.array(other)).long()
+    vg = torch.gather(z3, 1, got[:, None, :])[:, 0]
+    vr = torch.gather(z3, 1, ref[:, None, :])[:, 0]
+    gap = ((vg - vr).abs() * (got != ref)).max().item()
+    assert gap <= BOUND * max(1.0, z3.abs().max().item()), (what, gap)
+
+
+@pytest.mark.parametrize("groups", [1, 2])
+def test_f2_3xtf32_matches_float64_plain_and_jax(groups):
+    """fp32: the sums within ``BOUND`` of float64, all four values of the
+    plain twin and the JAX kernel, the winners theirs (or ties)."""
+    args = _torch(_f2_args(groups))
+    emu = f2_emulated(args, groups, "3xtf32")
+    ref = f2_emulated(args, groups, "f64")
+    plain = trunk_train.f2_plain(*args, groups=groups)
+    jax_out = _jax_f2(groups)
+    for i, nm in enumerate(F2_NAMES):
+        e = emu[i]
+        if i < 2:
+            assert _rel(e, ref[i]) <= BOUND, (nm, _rel(e, ref[i]))
+        assert _rel(e, plain[i]) <= BOUND, (nm, _rel(e, plain[i]))
+        assert _rel(e, np.asarray(jax_out[i]).reshape(e.shape)) <= BOUND, nm
+    z2, sc2, sh2, w3, b3 = args
+    bpg = z2.shape[0] // groups
+    h2 = torch.relu(z2 * sc2.reshape(groups, -1).repeat_interleave(
+        bpg, 0)[:, None] + sh2.reshape(groups, -1).repeat_interleave(
+            bpg, 0)[:, None])
+    z3 = (h2.double() @ w3.double() + b3.double())
+    for i, (want, sign) in enumerate(((4, 1), (5, -1))):
+        for other in (plain[want], jax_out[want]):
+            _winners_agree(emu[want], other, sign * z3, F2_NAMES[2 + i])
+
+
+@pytest.mark.parametrize("groups", [1, 2])
+def test_f2_winners_are_the_first_of_duplicated_points(groups):
+    """Cloud 0's points 150.. repeat its points ..150, so every extremum
+    is attained twice; the winner is the first (the JAX kernel's and
+    torch's convention), and the second half never wins."""
+    args = _torch(_f2_args(groups))
+    for prec in ("3xtf32", "bf16"):
+        emu = f2_emulated(args, groups, prec)
+        for idx in emu[4:]:
+            assert (idx[0] < N // 2).all(), prec
+    plain = trunk_train.f2_plain(*args, groups=groups)
+    for idx in plain[4:]:
+        assert (idx[0] < N // 2).all()
+
+
+@pytest.mark.parametrize("groups", [1, 2])
+def test_f2_bf16_matches_jax_mixed_precision(groups):
+    """bf16 h2 and W3 as the JAX kernel's ``_mxu_dot`` casts them, fp32
+    sums: within ``BF16_BOUND`` of it and of the port's bf16 plain twin;
+    and the rounding did happen (fp32 lands elsewhere)."""
+    args = _torch(_f2_args(groups, bf16=True))
+    emu = f2_emulated(args, groups, "bf16")
+    plain = trunk_train.f2_plain(*args, groups=groups, bf16=True)
+    fp32 = f2_emulated(args, groups, "3xtf32")
+    jax_out = _jax_f2(groups, True)
+    for i, nm in enumerate(F2_NAMES):
+        e = emu[i]
+        j = np.asarray(jax_out[i], np.float32).reshape(e.shape)
+        assert _rel(e, j) <= BF16_BOUND, (nm, _rel(e, j))
+        assert _rel(e, plain[i]) <= BF16_BOUND, (nm, _rel(e, plain[i]))
+    assert _rel(emu[1], fp32[1]) > 10 * BOUND
 
 
 @pytest.mark.parametrize("groups", [1, 2])
@@ -287,12 +419,15 @@ def test_bmid_bf16_matches_jax_mixed_precision(c_out, c_in):
             assert _rel(e, p) <= BF16_BOUND, nm
 
 
-@pytest.mark.parametrize("pas", ["B1", "Bmid"])
+@pytest.mark.parametrize("pas", ["B1", "Bmid", "F2"])
 def test_one_tf32_product_misses_the_bound(pas):
     """Control: with one TF32 product (no ``lo``) in place of three the
     emulation misses ``BOUND`` of float64 on the products' outputs, which
     3xTF32 meets (the tests above)."""
-    if pas == "B1":
+    if pas == "F2":
+        args = _torch(_f2_args(1))
+        one, ref = (f2_emulated(args, 1, p) for p in ("tf32", "f64"))
+    elif pas == "B1":
         args = _torch(_b1_args(1))
         one, ref = (b1_emulated(args, 1, p) for p in ("tf32", "f64"))
     else:

@@ -17,6 +17,12 @@ HELPER = "_ZN8pointtpu12_GLOBAL__N_16helperEv"
 B1_TC = "_ZN8pointtpu12_GLOBAL__N_112b1_tc_kernelILb1ELb0EEEvNS_7BwdArgsE"
 BMID_TC = ("_ZN8pointtpu12_GLOBAL__N_114bmid_tc_kernelILb0ELi128EEEv"
            "NS_7BwdArgsE")
+# Trunk F2 (train_bwd_tc.cu) and the disc's weight-gradient row pass
+# (disc_tc.cu) on the tensor cores.
+F2_TC = ("_ZN8pointtpu12_GLOBAL__N_112f2_tc_kernelILb0ELb1EEEv"
+         "NS_10RowFwdArgsE")
+DISC_TC = ("_ZN8pointtpu12_GLOBAL__N_117disc_dw_tc_kernelILb1ELb0EEEv"
+           "NS_8DiscArgsE")
 
 
 def _entry(name, regs, st=0, ld=0):
@@ -65,3 +71,13 @@ def test_ptxas_report_names_the_backward_kernels():
     assert ptxas_report(fake, "train_bwd_tc.cu") == {
         "b1_tc_kernel<1,0>": (204, 0, 0),
         "bmid_tc_kernel<0,128>": (255, 0, 0)}
+
+
+def test_ptxas_report_names_the_new_tensor_core_kernels():
+    fake = types.SimpleNamespace(resource_usage={
+        "train_bwd_tc.cu": {F2_TC: (155, 0, 0)},
+        "disc_tc.cu": {DISC_TC: (255, 64, 620)}})
+    assert ptxas_report(fake, "train_bwd_tc.cu") == {
+        "f2_tc_kernel<0,1>": (155, 0, 0)}
+    assert ptxas_report(fake, "disc_tc.cu") == {
+        "disc_dw_tc_kernel<1,0>": (255, 64, 620)}

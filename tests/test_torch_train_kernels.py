@@ -271,7 +271,7 @@ def test_paired_trunks_are_not_ported_yet():
 def test_argument_structs_mirror_the_cuda_header():
     """The ctypes structures the wrappers fill match the C structs of
     ``csrc/train_gemm.cuh``, ``csrc/pool_fc_epilogue.cu``,
-    ``csrc/disc_fused.cu`` and the per-layer training kernels' sources
+    ``csrc/disc_fused.cuh`` and the per-layer training kernels' sources
     field for field (names, order, int or pointer): a mismatch would pass
     garbage to the card silently."""
     import ctypes
@@ -283,7 +283,7 @@ def test_argument_structs_mirror_the_cuda_header():
     for struct, source in ((launch.RowFwdArgs, "train_gemm.cuh"),
                            (launch.BwdArgs, "train_gemm.cuh"),
                            (launch.PoolFcArgs, "pool_fc_epilogue.cu"),
-                           (launch.DiscArgs, "disc_fused.cu"),
+                           (launch.DiscArgs, "disc_fused.cuh"),
                            (launch.PmArgs, "pointwise_matmul.cu"),
                            (launch.TnetArgs, "tnet_apply.cu"),
                            (launch.MaxpoolArgs, "maxpool_points.cu"),
@@ -302,6 +302,12 @@ def test_argument_structs_mirror_the_cuda_header():
     # The tensor-core passes' scratch (csrc/train_bwd_tc.cu): dz and h
     # for dW = dz^T h on the GEMM core.
     assert [n for n, _ in launch.BwdArgs._fields_][-2:] == ["dzs", "hs"]
+    # The disc's weight-gradient pass (csrc/disc_tc.cu): a split count per
+    # dW product, the row pass's partials and scratch, the products'
+    # partials.
+    disc = [n for n, _ in launch.DiscArgs._fields_]
+    assert disc[3:7] == ["split1", "split2", "split3", "split4"]
+    assert disc[-4:] == ["part", "dzs", "hs", "part_w"]
 
 
 def test_row_tiles_mirror_the_cuda_sources():
@@ -315,7 +321,8 @@ def test_row_tiles_mirror_the_cuda_sources():
 
     for tile, name, source in ((launch.TILE, "kTile", "train_gemm.cuh"),
                                (launch.TC_TILE, "kTcRows",
-                                "train_bwd_tc.cu")):
+                                "train_bwd_tc.cu"),
+                               (launch.DISC_TILE, "kDwRows", "disc_tc.cu")):
         text = (pathlib.Path(build.CSRC) / source).read_text()
         value = re.search(r"constexpr int %s = (\d+);" % name, text)
         assert value and int(value.group(1)) == tile, name
