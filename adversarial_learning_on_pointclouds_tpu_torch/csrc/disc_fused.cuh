@@ -1,7 +1,5 @@
 // The fused discriminator's argument struct, the widths of its stack and
-// its LeakyReLU, shared by its CUDA-core passes (disc_fused.cu: the
-// forward and the input gradient) and its weight-gradient pass on the
-// tensor cores (disc_tc.cu).
+// its LeakyReLU (its passes: disc_tc.cu).
 
 #pragma once
 
@@ -53,10 +51,5 @@ struct DiscArgs {
   float* hs;                 // [m, kHCols]: h1 | h2 | h3
   float* part_w;             // dW1..dW4's partials, split s at [s][out][in]
 };
-
-// dW/db, and dx too when a.dx is set (the full backward): the row pass on
-// the tensor cores, then dW1..dW4 on the GEMM core. Returns 0, a
-// cudaError_t, kErrArgs or kErrSmem.
-int disc_dw_tc(const DiscArgs& a, cudaStream_t stream);
 
 }  // namespace pointtpu

@@ -3,17 +3,18 @@ stack with LeakyReLU(0.2), forward and backward.
 
 Counterpart of ``adversarial_learning_on_pointclouds_tpu/ops/kernels/
 disc_fused.py``. Four CUDA passes over ``x [B, N, k]``, each recomputing
-the hidden activations from ``x`` (the sources' headers say what bounds
-them on the card):
+the hidden activations from ``x``, all on the tensor cores in one source,
+``csrc/disc_tc.cu`` (its header says what bounds them on the card):
 
-* ``disc_fwd``: the logits ``[B, N, 1]`` (``csrc/disc_fused.cu``);
-* ``disc_bwd_dx``: the input gradient only (D frozen, the generator step;
-  ``csrc/disc_fused.cu``);
+* ``disc_fwd``: the logits ``[B, N, 1]`` (the forward kernel, 128 rows a
+  block);
+* ``disc_bwd_dx``: the input gradient only (D frozen, the generator
+  step): the backward's row pass without scratch or partials;
 * ``disc_bwd_dw``: the weight and bias gradients only (a detached input,
-  the discriminator step): a row pass on the tensor cores that writes
-  each layer's ``dz`` and ``h`` to scratch, then ``dW = dz^T h`` on the
-  GEMM core (``csrc/disc_tc.cu``);
-* ``disc_bwd``: both (the full backward: ``disc_bwd_dw``'s pass with dx).
+  the discriminator step): the row pass writes each layer's ``dz`` and
+  ``h`` to scratch, then ``dW = dz^T h`` on the GEMM core;
+* ``disc_bwd``: both (the full backward: ``disc_bwd_dw``'s pass with dx,
+  which equals ``disc_bwd_dx``'s bit for bit).
 
 Each has a plain PyTorch twin of the same signature (``*_plain``) that
 CPU tensors run. Weights are ``[in, out]`` (on a CUDA device, views of
@@ -184,9 +185,10 @@ def disc_bwd_dx(x, g, ws, bs, bf16: bool = False):
 
 def _bwd_dw_launch(x, g, ws, bs, dx, bf16, scratch=None):
     """The weight-gradient pass (with ``dx`` given, the full backward).
-    ``scratch``, a dict, receives the row pass's ``dzs [m, DZ_COLS]`` and
-    ``hs [m, H_COLS]``, on which ``chip_smoke.py`` holds the pass product
-    by product."""
+    ``scratch``, a dict, receives the row pass's ``dzs [m, DZ_COLS]``,
+    ``hs [m, H_COLS]`` and per-tile partials ``part`` (dW5 in its first
+    512 columns), on which ``chip_smoke.py`` holds the pass product by
+    product."""
     m, k = _check(x, ws, bs)
     dev = x.device
     launch.expect("g", g, x.shape[:2] + (1,), dev)
@@ -209,7 +211,7 @@ def _bwd_dw_launch(x, g, ws, bs, dx, bf16, scratch=None):
                     dzs=dzs, hs=hs, part_w=part_w, **_params(ws, bs))
     launch.call("pt_disc_bwd_dw", dev, ctypes.addressof(a))
     if scratch is not None:
-        scratch.update(dzs=dzs, hs=hs)
+        scratch.update(dzs=dzs, hs=hs, part=part)
     views = [grad[at:at + math.prod(s)].view(s) for at, s in layout]
     return tuple(w.t() for w in views[:5]), tuple(views[5:])
 

@@ -151,7 +151,7 @@ DZ_BN, DZ_TRUNK, DZ_SOFTMAX = 0, 1, 2   # BwdArgs.mode
 TILE = 64          # rows per block of the row kernels (kTile in csrc)
 TC_TILE = 128      # rows per block of the tensor-core trunk F2, B1 and
                    # Bmid (kTcRows in csrc/train_bwd_tc.cu)
-DISC_TILE = 64     # rows per block of the disc's weight-gradient row pass
+DISC_TILE = 64     # rows per block of the disc's backward row pass
                    # (kDwRows in csrc/disc_tc.cu)
 # The ``prec`` bits of the argument structs (kRound... in common.cuh):
 # round every matmul operand to bf16, and which tensors are bf16 stashes

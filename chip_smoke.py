@@ -43,34 +43,40 @@ Phases, one or more lines each:
    F2, B1 and Bmid bound at the 3xTF32 rate, the fp32-FMA bound beside
    it), the step's median time, points/s and the profiler's busy share;
 9. disc-kernels: every discriminator pass (fwd, bwd_dx, bwd_dw, the full
-   bwd) against its plain pass at B=32 N=2048 (and the D step's 2B=64),
-   B=32 N=2500 (ragged) and B=2. The weight-gradient pass
-   (``csrc/disc_tc.cu``, tensor cores; ``check_disc_dw``) is held whole
-   pass from x to its plain twin (dW, db, dx; with the pass's LeakyReLU
-   branch where the two differ, each such flip counted and required to
-   lie within the bound of zero; with none, the twin unchanged), and
-   product by product on its own operands (every h and dz
-   of its row pass, dx, dW and db against the plain PyTorch product; in
-   fp32 each also by the float64 control, with a TF32 control that must
-   fail); then each ``FCDiscriminator`` autograd method against the
-   whole stack composed in plain PyTorch;
+   bwd; all on the tensor cores, ``csrc/disc_tc.cu``) against its plain
+   pass at B=32 N=2048 (and the D step's 2B=64), B=32 N=2500 (ragged)
+   and B=2. The logits (``check_disc_fwd``) against the plain twin, in
+   fp32 also by the float64 control with a TF32 control that must fail. The backward passes
+   (``check_disc_dw``) whole pass from x to their plain twin (dW, db,
+   dx; with the pass's LeakyReLU branch where the two differ, each such
+   flip counted and required to lie within the bound of zero; with none,
+   the twin unchanged), and product by product on the full pass's own
+   operands (every h and dz of its row pass, dx, dW and db against the
+   plain PyTorch product; in fp32 each also by the float64 control, with
+   TF32 controls on dW4 and dx that must fail); ``bwd_dx``'s dx bit-equal
+   to the full pass's; then each ``FCDiscriminator`` autograd method
+   against the whole stack composed in plain PyTorch;
 10. adv-slice: the config-4 ``adversarial.train_step`` of a seeded
    full-width G (random BatchNorm statistics) and D on one batch of 2 x
    32 x 2048, on the card and on the CPU from the same weights: every
    metric, G and D gradient and new running statistic compared, the semi
    mask held to the CPU's; every kernel's launches checked per step; then
    10 steps on the fixed batch must lower the supervised loss;
-11. adv-timing: each discriminator pass against its plain pass (the
-   tensor-core ones bound at the 3xTF32 rate, the fp32-FMA bound beside
-   it, with their sub-kernels' launches and times and the scratch's
-   GB/s), the G+D step's median time, points/s (both streams) and busy
-   share, and the discriminator family's FLOP/s;
+11. adv-timing: each discriminator pass against its plain pass (bound at
+   the 3xTF32 rate, the fp32-FMA bound beside it, with their
+   sub-kernels' launches and times and for dW the scratch's GB/s), the
+   G+D step's median time, points/s (both streams) and busy share, and
+   the discriminator family's FLOP/s;
 12. bench-kernels: every training and discriminator pass in bf16 against
    its bf16 plain twin at the shapes of phases 6 and 9 (bf16 stashes may
    sit one bf16 step apart where the two sum in another order: the share
-   that differs is printed); ``trunk2_train(groups=2)``'s passes at 2B=64
-   against their plain twins and against two groups=1 launches (pooled
-   values, statistics and extrema bit-equal); ``augment_fused`` against
+   that differs is printed; the disc's dW5 takes the pass's own rounding
+   of h4, ``pass_h4``, itself held to one bf16 step of the twin's with at
+   most ``H4_SHARE`` of it apart; a dW5 of the unrounded h4 and an h4
+   rounded toward zero must fail); ``trunk2_train(groups=2)``'s
+   passes at 2B=64 against their plain twins and against two groups=1
+   launches (pooled values, statistics and extrema bit-equal);
+   ``augment_fused`` against
    its plain twin on the same Philox bits at B=32 N=2048/2500, its
    distribution (angle, jitter, dropout ratio), and another step, seed
    and stream;
@@ -82,7 +88,8 @@ Phases, one or more lines each:
    or 3 with the paired trunks); ``train_steps_scan`` at K=8 against 8
    ``train_step`` calls on the card;
 14. bench-timing: each pass in bf16 against its plain pass (with its
-   bound at the tensor cores' bf16 peak), ``augment_fused`` and the
+   bound at the tensor cores' bf16 peak; the disc's with their
+   sub-kernels and the forward's two tile sizes), ``augment_fused`` and the
    groups=2 passes, and the bench step through ``train_steps_scan`` (K=8:
    per-step ms, points/s of both streams, idle share), one step per call,
    with ``paired_trunks`` and without ``pallas_augment``;
@@ -153,6 +160,10 @@ at the bf16 tensor-core peak). The last line is
 non-zero and no result is printed.
 
     python3 chip_smoke.py
+
+``--disc-checks SEED`` runs only phases 1-2 and the discriminator's
+checks of phases 9 and 12 on data from generator seed ``SEED``, and
+prints no result line.
 
 ``--time fp32|bench|pallas_train [--root DIR]`` runs only the G+D step's
 timing of phase 11, 14 or 17 (the bench step under the switch), on the
@@ -248,6 +259,11 @@ HBM_RATE = 3.35e12    # bytes/s (H100 SXM)
 YARD_FACTOR = 2.0
 BENCH_K = 8           # steps per train_steps_scan call (bench.py --scan 8)
 STASH_BOUND = 2.0 ** -8   # one bf16 step of a stash's scale (check_stash)
+# The share of the disc pass's bf16 h4 (dW5's operand) that may sit one
+# bf16 step from the plain twin's: only fp32 sums of another order on a
+# rounding midpoint, about 1e-4 of the elements on the H100; a rounding
+# of another kind (toward zero, say) moves about half of them.
+H4_SHARE = 1e-3
 # A bf16 pass's fp32 outputs against its bf16 twin: where an operand (a
 # cotangent dz, say) rounds to its other bf16 neighbour on one side, a
 # sum moves by one bf16 step of one of its terms, 2^-8 of it, and at
@@ -279,9 +295,11 @@ GEMM_KERNELS = ("pointwise_matmul", "tnet_apply")
 # that rate with the fp32-FMA bound beside it.
 TC_PASSES = (("trunk2_train", "F2"), ("trunk2_train", "B1"),
              ("seg_head_train", "Bmid"))
-# The discriminator's passes on the tensor cores (csrc/disc_tc.cu: the
-# row pass, then dW on the GEMM core), bound as TC_PASSES.
-DISC_TC_PASSES = ("bwd_dw", "bwd")
+# The discriminator's passes, all on the tensor cores (csrc/disc_tc.cu:
+# the forward kernel; the backward's row pass, and for dW the GEMM core),
+# bound as TC_PASSES.
+DISC_TC_PASSES = ("fwd", "bwd_dx", "bwd_dw", "bwd")
+DISC_DW_PASSES = ("bwd_dw", "bwd")    # with the scratch for dW
 # Launches per config-3 step under the switch. N=2048: conv1 of STN3d, the
 # encoder and STNkd (STN3d's sees the points: no dx), both transforms
 # (x @ T3's x is the points: no dx), both single-stream fc heads; the
@@ -348,19 +366,26 @@ def rel_err(a: torch.Tensor, b: torch.Tensor):
 
 def check(name: str, got: torch.Tensor, ref: torch.Tensor,
           bound: float = BOUND, tag: str = "kernels",
-          scale: float = None) -> float:
+          scale=None) -> float:
     """Fail unless ``max|got - ref| <= bound * max(1, max|ref|)``, or
     ``bound * scale`` where a sum cancels to near zero: its rounding is
-    bounded by the sum of its terms' magnitudes, which ``scale`` is."""
+    bounded by the sum of its terms' magnitudes, which ``scale`` is. A
+    tensor ``scale`` holds each element on its own: ``|got - ref| <=
+    bound * max(1, scale)`` element by element."""
     if got.shape != ref.shape:
         raise AssertionError(f"{name}: shape {tuple(got.shape)} != "
                              f"{tuple(ref.shape)}")
     if not torch.isfinite(got).all():
         raise AssertionError(f"{name}: non-finite output")
     rel, diff = rel_err(got, ref)
-    if scale is not None:
-        rel = diff / max(1.0, scale)
-    phase(tag, f"{name}: max {'term-sum' if scale else 'scale'}-relative "
+    kind = "scale"
+    if isinstance(scale, torch.Tensor):
+        rel = ((got.double() - ref.double()).abs()
+               / scale.double().clamp(min=1.0)).max().item()
+        kind = "element"
+    elif scale is not None:
+        rel, kind = diff / max(1.0, scale), "term-sum"
+    phase(tag, f"{name}: max {kind}-relative "
           f"error {rel:.3e} (max abs {diff:.3e}, bound {bound:g})")
     if rel > bound:
         raise AssertionError(f"{name}: error {rel:.3e} above {bound:g}")
@@ -412,13 +437,14 @@ def tf32_control(label, fn, ref, plain, tag):
 
 
 def check_stash(name: str, got: torch.Tensor, ref: torch.Tensor,
-                tag: str = "bench-kernels"):
+                tag: str = "bench-kernels", max_share: float | None = None):
     """A bf16 stash: equal in value to the plain pass's (-0 is 0), or one
     bf16 step from it (an fp32 value on a rounding boundary, summed in
     another order), or within one bf16 step of the stash's scale,
     ``STASH_BOUND`` (a bf16 operand upstream that rounds to its other
-    neighbour moves a sum by one bf16 step of one of its terms). Returns
-    ``(max abs error, share of elements that differ)``."""
+    neighbour moves a sum by one bf16 step of one of its terms); with
+    ``max_share``, also at most that share of its elements differ.
+    Returns ``(max abs error, share of elements that differ)``."""
     if got.shape != ref.shape or got.dtype != ref.dtype:
         raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} != "
                              f"{ref.dtype} {tuple(ref.shape)}")
@@ -437,6 +463,9 @@ def check_stash(name: str, got: torch.Tensor, ref: torch.Tensor,
     if far:
         raise AssertionError(f"{name}: {far} stash elements differ by more "
                              "than one bf16 step")
+    if max_share is not None and share > max_share:
+        raise AssertionError(f"{name}: {share:.3e} of the elements differ, "
+                             f"above {max_share:g}")
     return diff, share
 
 
@@ -1359,17 +1388,19 @@ def _disc_operands(x, g, sc):
     return xs, gs, hs, dzs
 
 
-def disc_products(x, g, ws, bs, sc, bf16=False, dx=False, f64=False):
+def disc_products(x, g, ws, bs, sc, bf16=False, dx=False, f64=False,
+                  h4p=None):
     """Every product and sum of the discriminator's weight-gradient pass
     (``disc_tc.cu``) computed in plain PyTorch on the pass's own operands
     (its scratch ``sc``: h1..h3 and dz1..dz4), as ``{name: value}``:
     h1..h3 = leaky(h W + b), dz4 = g w5 leaky'(h4) with the pass's own
     LeakyReLU branches for h4 (read back from dz4), dz3..dz1 = (dz W^T)
     leaky'(h) with the branches of the pass's h, dx, dW1..dW4 = h^T dz,
-    dW5 = leaky(h3 W4 + b4)^T g and db1..db5; with ``f64`` every product
-    and sum in float64 (the control), else bf16 operands under ``bf16``
-    and fp32 sums. Also returns h4's pre-activation and the pass's
-    branches for it. A kernel's forward and cuBLAS's legitimately take
+    dW5 = leaky(h3 W4 + b4)^T g (``h4p``, the pass's own rounding of h4
+    from ``pass_h4``, in its place when given) and db1..db5; with ``f64``
+    every product and sum in float64 (the control), else bf16 operands
+    under ``bf16`` and fp32 sums. Also returns h4's pre-activation and the
+    pass's branches for it. A kernel's forward and cuBLAS's legitimately take
     different LeakyReLU branches where a pre-activation lies within
     rounding of zero (a few per 10^7 at these widths), which moves a whole
     dz element; held on its own operands, each of the pass's products is
@@ -1398,21 +1429,24 @@ def disc_products(x, g, ws, bs, sc, bf16=False, dx=False, f64=False):
         out["dx"] = (op(dzs[0]) @ op(ws[0]).t()).reshape(x.shape)
     for i in range(4):
         out[f"dw{i + 1}"] = op(hs[i]).t() @ op(dzs[i])
-    out["dw5"] = op(df.leaky(z4)).t() @ op(gs)
+    out["dw5"] = (op(df.leaky(z4)) if h4p is None else h4p).t() @ op(gs)
     for i in range(4):
         out[f"db{i + 1}"] = fb(dzs[i]).sum(0)
     out["db5"] = fb(gs).sum(0)
     return out, z4, branch4
 
 
-def disc_plain_branched(x, g, ws, bs, bf16, full, branches, near, bound):
+def disc_plain_branched(x, g, ws, bs, bf16, full, branches, near, bound,
+                        h4p=None):
     """The plain twin from ``x`` (``disc_bwd_plain``'s products, operands
     and sums; ``disc_bwd_dw_plain``'s without ``full``) with the pass's
     LeakyReLU branch (``branches``: h1..h4 >= 0 in the pass) at each
     pre-activation where the two take different ones. Each such flip
     must lie within ``bound`` of the scale of zero, in the plain twin's
     pre-activation and in the pass's own (``near``), else it raises.
-    Returns ``(dx or None, dws, dbs)`` and the flips per layer."""
+    ``h4p`` (bf16: the pass's own rounding of h4, ``pass_h4``) is dW5's
+    operand where given. Returns ``(dx or None, dws, dbs)`` and the flips
+    per layer."""
     from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
         disc_fused as df,
     )
@@ -1435,14 +1469,39 @@ def disc_plain_branched(x, g, ws, bs, bf16, full, branches, near, bound):
     dh, dws, dbs = g, [], []
     for i in reversed(range(5)):
         dz = dh if i == 4 else dh * torch.where(masks[i], 1.0, df.SLOPE)
-        dws.insert(0, df._mm(df._rows(hs[i]).t(), df._rows(dz), bf16))
+        h = h4p if i == 4 and h4p is not None else df._rows(hs[i])
+        dws.insert(0, df._mm(h.t(), df._rows(dz), bf16))
         dbs.insert(0, dz.sum((0, 1)))
         if i > 0 or full:
             dh = df._mm(dz, ws[i].t(), bf16)
     return (dh if full else None), dws, dbs, flips
 
 
-def check_disc_dw(rec, tag, x, g, ws, bs, bf16, full, main, ptag):
+def pass_h4(x, ws, bs, bf16):
+    """The pass's own h4 as its dW5 product takes it (``operand(h4)``,
+    ``[m, 512]``), read back from its per-tile dW5 partials: with a
+    cotangent that is 1 at row j of every 64-row tile and 0 elsewhere,
+    tile t's partial is row j's h4 exactly (one term; every other adds
+    0), so ``DISC_TILE`` launches give every row. h4 does not depend on
+    g, so this is the h4 of every launch on ``x``."""
+    from adversarial_learning_on_pointclouds_tpu_torch.ops import launch
+    from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
+        disc_fused as df,
+    )
+
+    m, tile = x.shape[0] * x.shape[1], launch.DISC_TILE
+    h4 = torch.empty(-(-m // tile) * tile, df.WIDTHS[3], device=x.device)
+    for j in range(tile):
+        g = torch.zeros(m, device=x.device)
+        g[j::tile] = 1.0
+        sc = {}
+        df._bwd_dw_launch(x, g.view(*x.shape[:2], 1), ws, bs, None, bf16,
+                          scratch=sc)
+        h4[j::tile] = sc["part"][:, :df.WIDTHS[3]]
+    return h4[:m]
+
+
+def check_disc_dw(rec, tag, x, g, ws, bs, bf16, full, main, ptag, h4p=None):
     """``disc_bwd_dw`` (``full``: ``disc_bwd``) on the card, held whole
     pass to its plain twin from ``x`` at ``rec.bound``: dW, db (and dx),
     with the pass's LeakyReLU branch at each pre-activation within
@@ -1452,7 +1511,26 @@ def check_disc_dw(rec, tag, x, g, ws, bs, bf16, full, main, ptag):
     of its row pass, dx, every dW and db), which locates a fault; in fp32
     each output is held to the float64 control (``F64_FACTOR`` times the
     plain pass's error), and on the main shape a TF32 product (dW4) must
-    fail it."""
+    fail it. With ``full``, ``disc_bwd_dx`` on the same inputs too: its dx
+    bit-equal to the full pass's (the same products in the same order),
+    so held by the same references (recorded as its own pass).
+
+    bf16 (``h4p``, the pass's own rounding of h4 from ``pass_h4``): dW5 =
+    h4^T g sums 10^5 terms of both signs to a few units at most; where the
+    pass's fp32 z4 and cuBLAS's straddle a bf16 rounding midpoint, h4
+    rounds to the other neighbour, which moves dW5 by one bf16 step of a
+    term (about 4e-3 on a term near 1), past 1e-3 of a small max|dW5|. So
+    dW5 takes the pass's own h4 as its operand, at the same bound, and
+    with the rounding the same on both sides each element is held to its
+    own magnitude (``check``'s element-wise scale: ``bound * max(1,
+    |dW5|)``, tighter than ``bound * max(1, max|dW5|)``). h4 itself is
+    held to the plain twin's: each element equal or one bf16 step apart,
+    and at most ``H4_SHARE`` of them apart. On the main shape two
+    controls must fail: a dW5 taken from the unrounded fp32 h4, and h4
+    rounded toward zero in place of the pass's. The same rule holds dx:
+    its product takes the pass's own dz1, rounded as the pass rounds
+    it."""
+    from adversarial_learning_on_pointclouds_tpu_torch.models import core
     from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
         disc_fused as df,
     )
@@ -1469,16 +1547,52 @@ def check_disc_dw(rec, tag, x, g, ws, bs, bf16, full, main, ptag):
         kern["dx"] = dxk
     kern.update({f"dw{i + 1}": w for i, w in enumerate(got[0])})
     kern.update({f"db{i + 1}": b for i, b in enumerate(got[1])})
-    plain, z4, branch4 = disc_products(x, g, ws, bs, sc, bf16, full)
+    plain, z4, branch4 = disc_products(x, g, ws, bs, sc, bf16, full,
+                                       h4p=h4p)
+    own = None if h4p is None else {"dw5": plain["dw5"].abs()}
     rec.cmp("disc_fused", pas, f"{tag} on its operands", list(kern),
-            list(kern.values()), [plain[k] for k in kern], False, a,
+            list(kern.values()), [plain[k] for k in kern], False, a, own,
             phase_tag=ptag)
+    if h4p is not None:
+        ref4 = core.operand(df.leaky(z4), True).to(torch.bfloat16)
+        check_stash(f"disc_fused {pas} h4 {tag} (the pass's rounding, read "
+                    "from its dW5 partials)", h4p.to(torch.bfloat16), ref4,
+                    ptag, H4_SHARE)
+        terms = (ref4.float().abs().t()
+                 @ core.operand(gs, True).abs()).max().item()
+        phase(ptag, f"disc_fused {pas} dW5 {tag}: max|dW5| "
+              f"{got[0][4].abs().max().item():.3f}, its terms' magnitudes "
+              f"max sum |h4||g| {terms:.1f}")
+        if main and not full:
+            ctrl = df.leaky(z4).t() @ core.operand(gs, True)
+            try:
+                check(f"control: disc_fused {pas} dW5 {tag} against the "
+                      "unrounded fp32 h4", kern["dw5"], ctrl, rec.bound,
+                      ptag, ctrl.abs())
+            except AssertionError:
+                phase(ptag, "control: a dW5 of the unrounded h4 fails the "
+                      "bound, as it must")
+            else:
+                raise AssertionError("the bf16 dW5 check passed a dW5 of "
+                                     "the unrounded fp32 h4")
+            # h4 rounded toward zero: fp32's low 16 bits cleared.
+            trunc = (df.leaky(z4).contiguous().view(torch.int32)
+                     & -65536).view(torch.float32).to(torch.bfloat16)
+            try:
+                check_stash(f"control: disc_fused {pas} h4 {tag} rounded "
+                            "toward zero", trunc, ref4, ptag, H4_SHARE)
+            except AssertionError:
+                phase(ptag, "control: h4 rounded toward zero fails the h4 "
+                      "check, as it must")
+            else:
+                raise AssertionError("the bf16 h4 check passed h4 rounded "
+                                     "toward zero")
 
     names = [k for k in kern if k[:2] in ("dx", "dw", "db")]
     dx, dws, dbs, flips = disc_plain_branched(
         x, g, ws, bs, bf16, full, [hs[1] >= 0, hs[2] >= 0, hs[3] >= 0,
                                    branch4], [hs[1], hs[2], hs[3], z4],
-        rec.bound)
+        rec.bound, h4p)
     phase(ptag, f"disc_fused {pas} {tag}: LeakyReLU branches other than "
           f"the plain twin's in h1..h4: {flips} of {xs.shape[0]} x "
           f"{list(df.WIDTHS[:4])}, each within {rec.bound:g} of the scale "
@@ -1489,18 +1603,60 @@ def check_disc_dw(rec, tag, x, g, ws, bs, bf16, full, main, ptag):
     rec.cmp("disc_fused", pas, f"{tag} from x ({twin})", names,
             [kern[k] for k in names],
             ([dx] if full else []) + list(dws) + list(dbs), main, a,
-            phase_tag=ptag)
+            None if h4p is None else {"dw5": dws[4].abs()}, phase_tag=ptag)
+    if full:
+        dxo = df.disc_bwd_dx(*a)
+        if not torch.equal(dxo, dxk):
+            raise AssertionError(f"disc_fused bwd_dx {tag}: dx differs from "
+                                 "the full backward's")
+        phase(ptag, f"disc_fused bwd_dx {tag}: dx bit-equal to the full "
+              "backward's")
+        rec.cmp("disc_fused", "bwd_dx", f"{tag} from x ({twin})", ("dx",),
+                (dxo,), (dx,), main, a, phase_tag=ptag)
+        rec.cmp("disc_fused", "bwd_dx", f"{tag} on the full pass's dz1",
+                ("dx",), (dxo,), (plain["dx"],), False, a, phase_tag=ptag)
     del dx, dws, dbs
     if not bf16:
         ref, _, _ = disc_products(x, g, ws, bs, sc, dx=full, f64=True)
         for k in kern:
             rec.cmp_f64("disc_fused", pas, f"{k} {tag}", kern[k], plain[k],
                         ref[k], ptag)
+        if full:
+            rec.cmp_f64("disc_fused", "bwd_dx", f"dx {tag}", dxo,
+                        plain["dx"], ref["dx"], ptag)
         if main and not full:
             tf32_control("disc_fused bwd_dw's plain dW4 product",
                          lambda: hs[3].t() @ dzs[3], ref["dw4"],
                          plain["dw4"], ptag)
+        if main and full:
+            tf32_control("disc_fused bwd_dx's plain dx product",
+                         lambda: (dzs[0] @ ws[0].t()).reshape(x.shape),
+                         ref["dx"], plain["dx"], ptag)
     return got
+
+
+def check_disc_fwd(rec, tag, x, ws, bs, bf16, main, ptag):
+    """``disc_fwd`` on the card against its plain twin at ``rec.bound``
+    (LeakyReLU is continuous, so a branch taken the other way within
+    rounding of zero moves the logits by that rounding alone); in fp32
+    also the float64 control, and on the main shape a TF32 plain pass
+    must fail it."""
+    from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
+        disc_fused as df,
+    )
+
+    a = (x, ws, bs, bf16)
+    got, plain = df.disc_fwd(*a), df.disc_fwd_plain(*a)
+    rec.cmp("disc_fused", "fwd", tag, ("logits",), (got,), (plain,), main, a,
+            phase_tag=ptag)
+    if not bf16:
+        ref = df.disc_fwd_plain(x.double(), f64(ws), f64(bs))
+        rec.cmp_f64("disc_fused", "fwd", f"logits {tag}", got, plain, ref,
+                    ptag)
+        if main:
+            tf32_control("disc_fused fwd's plain pass",
+                         lambda: df.disc_fwd_plain(x, ws, bs), ref, plain,
+                         ptag)
 
 
 def disc_kernel_checks(dev, gen, rec, bf16=False):
@@ -1513,7 +1669,6 @@ def disc_kernel_checks(dev, gen, rec, bf16=False):
     )
 
     ptag = "bench-kernels" if bf16 else "disc-kernels"
-    xb = (True,) if bf16 else ()
     ws, bs = disc_params(gen, dev)
     for bsz, n in ((B, TRAIN_N), (2 * B, TRAIN_N), (B, TRAIN_RAGGED_N),
                    (2, TRAIN_N)):
@@ -1522,19 +1677,13 @@ def disc_kernel_checks(dev, gen, rec, bf16=False):
         x = prob_maps(gen, bsz, n, dev)
         g = _r(gen, bsz, n, 1, scale=1.0, dev=dev)
         with torch.no_grad():
+            h4p = pass_h4(x, ws, bs, True) if bf16 else None
             if bsz != 2 * B:   # the 2B batch is the D step's dW-only pass
-                a = (x, ws, bs, *xb)
-                rec.cmp("disc_fused", "fwd", tag, ("logits",),
-                        (df.disc_fwd(*a),), (df.disc_fwd_plain(*a),), main, a,
-                        phase_tag=ptag)
-                a = (x, g, ws, bs, *xb)
-                rec.cmp("disc_fused", "bwd_dx", tag, ("dx",),
-                        (df.disc_bwd_dx(*a),), (df.disc_bwd_dx_plain(*a),),
-                        main, a, phase_tag=ptag)
+                check_disc_fwd(rec, tag, x, ws, bs, bf16, main, ptag)
                 check_disc_dw(rec, tag, x, g, ws, bs, bf16, True, main,
-                              ptag)
+                              ptag, h4p)
             check_disc_dw(rec, tag, x, g, ws, bs, bf16, False,
-                          n == TRAIN_N and bsz >= B, ptag)
+                          n == TRAIN_N and bsz >= B, ptag, h4p)
         torch.cuda.synchronize()
     if bf16:   # the bf16 methods are held to the CPU by the bench step
         return
@@ -1940,7 +2089,7 @@ def adv_timing(card, rec, cuda_run, launches, results):
           f"{100 * family_flops / family_dev / 1e-3 / FP32_PEAK:.1f}% of the "
           f"{FP32_PEAK / 1e12:.0f} TFLOP/s fp32 peak")
     step_passes = [p for p in passes if p["pass"] != "bwd"]
-    entry = kernel_entry("disc_fused", "disc_fused.cu", DISC_SITES["fwd"],
+    entry = kernel_entry("disc_fused", "disc_tc.cu", DISC_SITES["fwd"],
                          sum(launches["disc_fused"].values()), step_passes,
                          "per G+D step")
     entry["passes"] = passes
@@ -1953,13 +2102,15 @@ def adv_timing(card, rec, cuda_run, launches, results):
     time_step(card, "adv-timing", AdversarialConfig(), state, batch, txs)
 
 
-def disc_tc_report(card, pas, calls, by_name, kernels, per):
+def disc_tc_report(card, pas, calls, by_name, kernels, per,
+                   tag="adv-timing"):
     """The tensor-core disc pass's sub-kernels (``csrc/disc_tc.cu``: the
-    row pass, then dW1..dW4 on the GEMM core with their split sums,
-    colsum and sum_g_kernel), from one profile of its ``calls``: launches per call and per
-    G+D step, device time by kernel, and the scratch's rate (the 1,408
-    floats a row the row pass writes and the GEMM core reads back, over
-    the whole pass's device time)."""
+    forward kernel; the backward's row pass, for dW then dW1..dW4 on the
+    GEMM core with their split sums, colsum and sum_g_kernel), from one
+    profile of its ``calls``: launches per call and per G+D step, device
+    time by kernel, and for dW the scratch's rate (the 1,408 floats a row
+    the row pass writes and the GEMM core reads back, over the whole
+    pass's device time)."""
     from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
         disc_fused as df,
     )
@@ -1968,19 +2119,21 @@ def disc_tc_report(card, pas, calls, by_name, kernels, per):
     scratch = 2 * rows * (df.DZ_COLS + df.H_COLS) * 4
     n = len(calls)
     dev_ms = sum(by_name.values())
-    row_ms = sum(v for k, v in by_name.items() if "disc_dw_tc" in k)
+    row_ms = sum(v for k, v in by_name.items() if "disc_row_tc" in k)
     launched = sum(kernels.values())
     def short(key):   # the kernel's name and template arguments
         key = re.sub(r"^void |\(anonymous namespace\)::|pointtpu::", "", key)
         return re.sub(r"\(.*", "", key)
 
-    phase("adv-timing", f"{card}: disc_fused {pas}: {launched / n:g} "
+    phase(tag, f"{card}: disc_fused {pas}: {launched / n:g} "
           f"launches a call ({launched / n * max(per, 1):g} per G+D step"
           f"{'' if per else ', off the step'}): " + ", ".join(
               f"{short(k)} x{c / n:g} {by_name[k] / n:.4f} ms"
               for k, c in sorted(kernels.items(),
                                  key=lambda kv: -by_name[kv[0]])))
-    phase("adv-timing", f"{card}: disc_fused {pas}: scratch written and "
+    if pas not in DISC_DW_PASSES:
+        return
+    phase(tag, f"{card}: disc_fused {pas}: scratch written and "
           f"read back {scratch / n / 1e9:.3f} GB a call, "
           f"{scratch / dev_ms / 1e6:.1f} GB/s over the pass's device time "
           f"(the row pass alone {row_ms / n:.4f} ms a call)")
@@ -2331,6 +2484,13 @@ def bench_timing(card, rec, results, bench):
         per = (ADV_PER_STEP if kernel == "disc_fused" else PER_STEP)[
             kernel][pas] or 1
         row = time_passes(card, rec, (kernel, pas), fn, plain, per, True)
+        if kernel == "disc_fused":
+            calls, kernels = rec.args[(kernel, pas)], {}
+            with torch.no_grad():
+                by_kernel = device_profile(lambda: [fn(*a) for a in calls],
+                                           counts=kernels)
+            disc_tc_report(card, pas, calls, by_kernel, kernels,
+                           ADV_PER_STEP[kernel][pas], "bench-timing")
         entry = by_name[kernel]
         match = [p for p in entry["passes"] if p["pass"] == pas][0]
         match.update({f"bf16_{k}": v for k, v in row.items()})
@@ -3396,6 +3556,10 @@ def main() -> None:
     ap.add_argument("--time", choices=("fp32", "bench", "pallas_train"),
                     help="time the G+D step alone (no checks, no result "
                          "line)")
+    ap.add_argument("--disc-checks", type=int, metavar="SEED",
+                    help="run only the discriminator's checks of phases 9 "
+                         "and 12 on data from this generator seed (no "
+                         "result line)")
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(
         __file__)), help="with --time: the tree whose port package to time")
     args = ap.parse_args()
@@ -3435,6 +3599,13 @@ def main() -> None:
                   f"stores {st} bytes, spill loads {ld} bytes")
     if args.time:
         time_alone(args.time, args.root, card)
+        return
+    if args.disc_checks is not None:
+        gen = torch.Generator().manual_seed(args.disc_checks)
+        disc_kernel_checks(dev, gen, PassRecord())
+        disc_kernel_checks(dev, gen, PassRecord(BF16_BOUND), bf16=True)
+        phase("disc-checks", f"generator seed {args.disc_checks}: every "
+              "discriminator check passed")
         return
 
     gen = torch.Generator().manual_seed(SEED)

@@ -21,8 +21,14 @@ BMID_TC = ("_ZN8pointtpu12_GLOBAL__N_114bmid_tc_kernelILb0ELi128EEEv"
 # (disc_tc.cu) on the tensor cores.
 F2_TC = ("_ZN8pointtpu12_GLOBAL__N_112f2_tc_kernelILb0ELb1EEEv"
          "NS_10RowFwdArgsE")
-DISC_TC = ("_ZN8pointtpu12_GLOBAL__N_117disc_dw_tc_kernelILb1ELb0EEEv"
+DISC_TC = ("_ZN8pointtpu12_GLOBAL__N_118disc_row_tc_kernelILb1ELi1EEEv"
            "NS_8DiscArgsE")
+# The disc's other passes on the tensor cores (disc_tc.cu): the
+# backward's row pass by mode (0 dx only, 1 dW, 2 both) and the forward
+# by precision.
+DISC_ROW = ("_ZN8pointtpu12_GLOBAL__N_118disc_row_tc_kernelILb1ELi0EEEv"
+            "NS_8DiscArgsE")
+DISC_FWD = "_ZN8pointtpu12_GLOBAL__N_118disc_fwd_tc_kernelILb0EEEvNS_8DiscArgsE"
 
 
 def _entry(name, regs, st=0, ld=0):
@@ -80,4 +86,12 @@ def test_ptxas_report_names_the_new_tensor_core_kernels():
     assert ptxas_report(fake, "train_bwd_tc.cu") == {
         "f2_tc_kernel<0,1>": (155, 0, 0)}
     assert ptxas_report(fake, "disc_tc.cu") == {
-        "disc_dw_tc_kernel<1,0>": (255, 64, 620)}
+        "disc_row_tc_kernel<1,1>": (255, 64, 620)}
+
+
+def test_ptxas_report_names_the_disc_passes_by_mode():
+    fake = types.SimpleNamespace(resource_usage={"disc_tc.cu": {
+        DISC_ROW: (251, 0, 0), DISC_FWD: (243, 0, 0)}})
+    assert ptxas_report(fake, "disc_tc.cu") == {
+        "disc_row_tc_kernel<1,0>": (251, 0, 0),
+        "disc_fwd_tc_kernel<0>": (243, 0, 0)}

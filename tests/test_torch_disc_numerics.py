@@ -1,11 +1,15 @@
-"""The numerics of the discriminator's tensor-core weight-gradient pass
-(``csrc/disc_tc.cu``: ``disc_bwd_dw``, and ``disc_bwd`` with dx),
-emulated in plain PyTorch on the CPU.
+"""The numerics of the discriminator's tensor-core passes
+(``csrc/disc_tc.cu``: ``disc_bwd_dw``, ``disc_bwd`` with dx, the dx-only
+``disc_bwd_dx`` and the forward ``disc_fwd``), emulated in plain PyTorch
+on the CPU.
 
-The card's kernel cannot run here; its arithmetic can. The row pass
+The card's kernels cannot run here; their arithmetic can. The row pass
 recomputes ``h1..h4 = leaky(h W^T + b)``, forms ``dz4 = g w5 leaky'(h4)``
 and runs the chain ``dh = dz W``, ``dz = dh leaky'(h)`` down to dz1 (and
-``dx = dz1 W1``); every product is 3xTF32 in fp32 (``mm_3xtf32`` of
+``dx = dz1 W1``; the dx-only pass is the same chain without the dW
+products, so the same dx); the forward computes the same h1..h4 and
+folds ``h4 w5`` into the logit with one fp32 FMA a term (bf16 operands
+under mixed precision); every product is 3xTF32 in fp32 (``mm_3xtf32`` of
 ``tests/test_torch_gemm_numerics.py``: per 8-deep k step ``a_lo b_hi +
 a_hi b_lo + a_hi b_hi`` added to an fp32 accumulator; dh3's accumulator
 runs on across the layer-4 chunks, which is one product over the whole
@@ -21,9 +25,10 @@ clouds of a ragged N = 300 (no 64-row tile divides it): fp32 within
 ``BOUND`` (1e-4 scale-relative) of float64 (every product and sum in
 float64, LeakyReLU's branches taken from the fp32 pass, whose sign a
 pre-activation within rounding of zero may flip), of the port's plain
-twins and of the JAX package's ``_bwd_dw_call`` / ``_bwd_call`` (HIGHEST
-precision, Pallas in interpret mode as its own tests run it); bf16 within
-``BF16_BOUND`` of the JAX kernels under their mixed-precision scope. The
+twins and of the JAX package's ``_bwd_dw_call`` / ``_bwd_call`` /
+``_bwd_dx_call`` / ``_fwd_call`` (HIGHEST precision, Pallas in interpret
+mode as its own tests run it); bf16 within ``BF16_BOUND`` of the JAX
+kernels under their mixed-precision scope. The
 control: one TF32 product instead of three misses ``BOUND``. These tests
 document the contract the kernel is built to and run no kernel;
 ``chip_smoke.py`` holds the kernel on the card to its plain twin from x
@@ -126,6 +131,19 @@ def disc_emulated(x, g, ws, bs, prec, branches=None):
     return dz, dws, dbs, hs
 
 
+def fwd_emulated(x, ws, bs, prec):
+    """The logits ``[B, N, 1]`` as the forward kernel computes them: h1..h4
+    as ``disc_emulated``'s, then ``sum h4 w5`` in fp32 (bf16 operands
+    under ``bf16``) plus b5; float64 throughout with ``prec="f64"``."""
+    f = torch.float64 if prec == "f64" else torch.float32
+    h = x.reshape(-1, x.shape[-1]).to(f)
+    for w, b in zip(ws[:4], bs[:4]):
+        h = _leaky(_mm(h, w.to(f), prec).to(f) + b.to(f))
+    op = _bf if prec == "bf16" else (lambda t: t)
+    logit = (op(h) * op(ws[4][:, 0].to(f))).sum(-1, keepdim=True)
+    return (logit + bs[4].to(f)).reshape(*x.shape[:2], 1)
+
+
 def _rel(a, b) -> float:
     a = np.asarray(a.detach().double() if isinstance(a, torch.Tensor) else a,
                    np.float64)
@@ -164,19 +182,25 @@ def _torch_args():
 
 
 @functools.lru_cache(maxsize=None)
-def _jax(full, bf16=False):
-    """The JAX package's ``_bwd_call`` (``full``) or ``_bwd_dw_call``:
-    ``(dx or None, dws, dbs)`` as numpy."""
+def _jax(pas, bf16=False):
+    """The JAX package's kernel of the pass ``pas``: ``_bwd_call``
+    (``bwd``), ``_bwd_dw_call``, ``_bwd_dx_call`` or ``_fwd_call``;
+    ``(dx or logits or None, dws, dbs)`` as numpy (the last two empty
+    for ``fwd`` and ``bwd_dx``)."""
     x, g, ws, bs = _args()
-    call = jax_disc._bwd_call if full else jax_disc._bwd_dw_call
-    operands = (jnp.asarray(x), jnp.asarray(g),
-                [jnp.asarray(w) for w in ws], [jnp.asarray(b) for b in bs])
+    call = {"bwd": jax_disc._bwd_call, "bwd_dw": jax_disc._bwd_dw_call,
+            "bwd_dx": jax_disc._bwd_dx_call, "fwd": jax_disc._fwd_call}[pas]
+    operands = ((jnp.asarray(x),) + (() if pas == "fwd" else
+                                      (jnp.asarray(g),))
+                + ([jnp.asarray(w) for w in ws],
+                   [jnp.asarray(b) for b in bs]))
     if bf16:
         with jax_core.mixed_precision():
             out = call(*operands)
     else:
         out = call(*operands)
-    dx, dws, dbs = out if full else (None, *out)
+    dx, dws, dbs = {"bwd": lambda: out, "bwd_dw": lambda: (None, *out)}.get(
+        pas, lambda: (out, [], []))()
     return (None if dx is None else np.asarray(dx, np.float32),
             [np.asarray(w, np.float32) for w in dws],
             [np.asarray(b, np.float32).reshape(-1) for b in dbs])
@@ -185,52 +209,80 @@ def _jax(full, bf16=False):
 NAMES = [f"dw{i}" for i in range(1, 6)] + [f"db{i}" for i in range(1, 6)]
 
 
-@pytest.mark.parametrize("full", [False, True], ids=["bwd_dw", "bwd"])
-def test_3xtf32_matches_float64_plain_and_jax(full):
-    """fp32: every weight and bias gradient (and dx for the full
-    backward) within ``BOUND`` of float64, of the plain twin and of the
-    JAX kernel."""
+PASSES = ["bwd_dw", "bwd", "fwd", "bwd_dx"]
+
+
+def _plain(pas, x, g, ws, bs, bf16=False):
+    """The port's plain twin of ``pas``: ``(dx or logits or None, dws,
+    dbs)``."""
+    if pas == "fwd":
+        return disc_fused.disc_fwd_plain(x, ws, bs, bf16), [], []
+    if pas == "bwd_dx":
+        return disc_fused.disc_bwd_dx_plain(x, g, ws, bs, bf16), [], []
+    if pas == "bwd":
+        return disc_fused.disc_bwd_plain(x, g, ws, bs, bf16)
+    return (None, *disc_fused.disc_bwd_dw_plain(x, g, ws, bs, bf16))
+
+
+def _emulated(pas, x, g, ws, bs, prec, branches=None):
+    """The kernel's ``(dx or logits or None, dws, dbs)`` for ``pas``, and
+    the hidden activations (the float64 control's LeakyReLU branches)."""
+    if pas == "fwd":
+        return fwd_emulated(x, ws, bs, prec), [], [], None
+    dx, dws, dbs, hs = disc_emulated(x, g, ws, bs, prec, branches)
+    dx = dx.reshape(x.shape)
+    if pas == "bwd_dx":
+        return dx, [], [], hs
+    return (dx if pas == "bwd" else None), dws, dbs, hs
+
+
+@pytest.mark.parametrize("pas", PASSES)
+def test_3xtf32_matches_float64_plain_and_jax(pas):
+    """fp32: every weight and bias gradient, dx where the pass gives it,
+    and the forward's logits within ``BOUND`` of float64, of the plain
+    twin and of the JAX kernel."""
     x, g, ws, bs = _torch_args()
-    dx, dws, dbs, hs = disc_emulated(x, g, ws, bs, "3xtf32")
-    rdx, rws, rbs, _ = disc_emulated(x, g, ws, bs, "f64", branches=hs)
-    if full:
-        pdx, pws, pbs = disc_fused.disc_bwd_plain(x, g, ws, bs)
-    else:
-        pws, pbs = disc_fused.disc_bwd_dw_plain(x, g, ws, bs)
-    jdx, jws, jbs = _jax(full)
+    out, dws, dbs, hs = _emulated(pas, x, g, ws, bs, "3xtf32")
+    rout, rws, rbs, _ = _emulated(pas, x, g, ws, bs, "f64", branches=hs)
+    pout, pws, pbs = _plain(pas, x, g, ws, bs)
+    jout, jws, jbs = _jax(pas)
+    assert len(dws) == (5 if pas.startswith("bwd") and pas != "bwd_dx"
+                        else 0)
     for nm, e, r, p, j in zip(NAMES, dws + dbs, rws + rbs, list(pws) +
                               list(pbs), jws + jbs):
         assert _rel(e, r) <= BOUND, (nm, _rel(e, r))
         assert _rel(e, p) <= BOUND, (nm, _rel(e, p))
         assert _rel(e, j) <= BOUND, (nm, _rel(e, j))
-    if full:
-        dx = dx.reshape(x.shape)
-        assert _rel(dx, rdx.reshape(x.shape)) <= BOUND
-        assert _rel(dx, pdx) <= BOUND
-        assert _rel(dx, jdx) <= BOUND
+    assert (out is None) == (pas == "bwd_dw")
+    if out is not None:
+        assert _rel(out, rout) <= BOUND
+        assert _rel(out, pout) <= BOUND
+        assert _rel(out, jout) <= BOUND
 
 
-@pytest.mark.parametrize("full", [False, True], ids=["bwd_dw", "bwd"])
-def test_bf16_matches_jax_mixed_precision(full):
+@pytest.mark.parametrize("pas", PASSES)
+def test_bf16_matches_jax_mixed_precision(pas):
     """bf16 operands at the places the JAX kernel's ``_mxu_dot`` and
     ``_mxu_dot_t`` cast, fp32 sums, the bias gradients from the unrounded
     cotangents: within ``BF16_BOUND`` of it and of the port's bf16 plain
     twin; and the rounding did happen (fp32 lands elsewhere)."""
     x, g, ws, bs = _torch_args()
-    dx, dws, dbs, _ = disc_emulated(x, g, ws, bs, "bf16")
-    fp32 = disc_emulated(x, g, ws, bs, "3xtf32")
-    plain = (disc_fused.disc_bwd_plain(x, g, ws, bs, bf16=True) if full
-             else (None, *disc_fused.disc_bwd_dw_plain(x, g, ws, bs,
-                                                       bf16=True)))
-    jdx, jws, jbs = _jax(full, bf16=True)
-    for nm, e, p, j in zip(NAMES, dws + dbs, list(plain[1]) + list(plain[2]),
+    out, dws, dbs, _ = _emulated(pas, x, g, ws, bs, "bf16")
+    fout, fws, _, _ = _emulated(pas, x, g, ws, bs, "3xtf32")
+    pout, pws, pbs = _plain(pas, x, g, ws, bs, bf16=True)
+    jout, jws, jbs = _jax(pas, bf16=True)
+    for nm, e, p, j in zip(NAMES, dws + dbs, list(pws) + list(pbs),
                            jws + jbs):
         assert _rel(e, j) <= BF16_BOUND, (nm, _rel(e, j))
         assert _rel(e, p) <= BF16_BOUND, (nm, _rel(e, p))
-    assert max(_rel(e, f) for e, f in zip(dws, fp32[1])) > 10 * BOUND
-    if full:
-        assert _rel(dx.reshape(x.shape), jdx) <= BF16_BOUND
-        assert _rel(dx.reshape(x.shape), plain[0]) <= BF16_BOUND
+    if out is not None:
+        assert _rel(out, jout) <= BF16_BOUND
+        assert _rel(out, pout) <= BF16_BOUND
+    if dws:
+        assert max(_rel(e, f) for e, f in zip(dws, fws)) > 10 * BOUND
+    else:   # the logits or dx alone, at their own scale (below 1)
+        assert ((out - fout).abs().max() / fout.abs().max()).item() \
+            > 10 * BOUND
 
 
 def test_one_tf32_product_misses_the_bound():
