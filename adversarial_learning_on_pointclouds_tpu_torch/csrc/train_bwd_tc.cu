@@ -1,24 +1,30 @@
-// The trunk's F2 and the generator's two widest backward passes on the
-// tensor cores.
+// The generator's widest passes on the tensor cores: the trunk's F2 and
+// B1 and the seg head's Pmid, Bmid and B1.
 //
 // Replaces the TPU kernels
 // adversarial_learning_on_pointclouds_tpu/ops/kernels/trunk_train.py::
 // _f2_call (trunk F2: pallas_call at trunk_train.py:212, conv3 + BN3's
 // statistics + the max-pool's extrema, c 128 -> 1024), _b1_call (trunk
 // B1: pallas_call at trunk_train.py:309, the backward through conv3 +
-// BN3 + max-pool of every trunk) and seg_head_train.py::_bmid_call (Bmid:
-// pallas_call at seg_head_train.py:275, a BN backward and the matmul
-// backward to the previous layer: 256 -> 512 and 128 -> 256 in the seg
-// head, 128 -> 64 in trunk3_train).
+// BN3 + max-pool of every trunk) and seg_head_train.py::_pmid_call (Pmid:
+// pallas_call at seg_head_train.py:118, a BN + ReLU and the next layer
+// with its statistics: 512 -> 256 and 256 -> 128 in the seg head, 64 ->
+// 128 in trunk3_train), _bmid_call (Bmid: :275, a BN backward and the
+// matmul backward to the previous layer: 256 -> 512 and 128 -> 256 in
+// the seg head, 128 -> 64 in trunk3_train) and _b1_call (head B1: :335,
+// BN1's backward, dpf, dW1a, db1 and the per-cloud sums r: 512 -> 64 in
+// the seg head, 64 -> 3 in trunk3_train).
 //
 // What bounds them on the H100: matmuls. At B=32 N=2048 (65,536 rows) F2
 // is one 17.2-GFLOP product (z3 = h2 W3^T) and trunk B1 three (z3
 // recomputed, dy2 = dz3 W3, dW3 = dz3^T h2), past fp32 FMA's 67 TFLOP/s
-// and bf16's need of the tensor cores; Bmid is two products of 8.6 (256
-// -> 512) or 4.3 GFLOP. The CUDA-core kernels they replace
-// (train_gemm.cuh: row_fwd_kernel, row_bwd_kernel, wgrad_kernel) ran them
-// as fp32 FMAs (bf16 operands too), recomputed z3 a second time for dW3,
-// and staged W through registers.
+// and bf16's need of the tensor cores; Pmid is one product of 17.2 (512
+// -> 256) or 4.3 GFLOP, Bmid two of 8.6 (256 -> 512) or 4.3, head B1 two
+// of 4.3. Then traffic: head B1 reads two [65,536 x 512] stashes and
+// writes dz (134 MB in fp32) for its dW. The CUDA-core kernels they
+// replace (train_gemm.cuh: row_fwd_kernel, row_bwd_kernel, wgrad_kernel)
+// ran them as fp32 FMAs (bf16 operands too), recomputed z3 a second time
+// for dW3, and staged W through registers.
 //
 // What the design does about that:
 //
@@ -26,12 +32,12 @@
 //   (the GEMM core's): fp32 as 3xTF32, each 8-deep step summed from zero
 //   and added to the fp32 accumulator by a round-to-nearest FADD; bf16
 //   (kRound) operands rounded nearest-even at fragment load, fp32 sums.
+//   A block of 8 warps owns 128 points of one cloud (kTcRows).
 // * F2 and B1 share their prologue and first GEMM (load_h2, load_w3,
-//   gemm1), so B1 recomputes exactly the z3 whose extrema F2 found. A
-//   block of 8 warps owns 128 points of one cloud and keeps h2 =
-//   relu(bn2(z2)) in shared memory (the BN2 prologue applied once). It
-//   walks c3 in chunks of 64 channels: GEMM 1 z3c = h2 W3[chunk]^T (K =
-//   128), then an epilogue in registers.
+//   gemm1), so B1 recomputes exactly the z3 whose extrema F2 found. The
+//   block keeps h2 = relu(bn2(z2)) in shared memory (the BN2 prologue
+//   applied once). It walks c3 in chunks of 64 channels: GEMM 1 z3c = h2
+//   W3[chunk]^T (K = 128), then an epilogue in registers.
 // * F2's epilogue adds b3 and reduces the chunk over the tile's rows:
 //   column sum and sum of squares (per-block partials) and, per channel,
 //   a packed 64-bit key of the max and of the min with its point (the
@@ -40,6 +46,15 @@
 //   the first point wins whatever the order of the blocks. z3 never
 //   leaves the SM. Shared memory 166 KB (h2 64 KB, the W3 ring 96 KB),
 //   one block per SM.
+// * Pmid is F2's shape of work without the extrema, at any c_in: a whole
+//   h tile (256 KB at c_in 512 in fp32) does not fit, so the stash and W
+//   stream along c_in in 32-deep chunks through one ring, the stash as
+//   stored (bf16 or fp32). Each landed chunk takes the prologue relu(x *
+//   sc + sh) once, with bn_affine's roundings (h equals the plain
+//   version's bit for bit), into an fp32 h stage; then z += h W^T over
+//   the block's 128 output columns (blockIdx.z). The epilogue adds b,
+//   stores z (bf16 nearest-even under kZBf16) and reduces the column sum
+//   and sum of squares of the unrounded z to per-block partials. 130 KB.
 // * B1's epilogue (+ b3, zhat3, the winner term, coef1 / coef2) takes
 //   db3's per-block partials from the unrounded dz3c and leaves dz3c in
 //   shared memory, then GEMM 2 acc_dy2 += dz3c W3[chunk] (K = 64) into a
@@ -55,19 +70,30 @@
 //   unrounded values, coalesced: a thread per column), then dyp = dz W
 //   over n tiles of 128 (or 64) columns looped in the block, W streamed
 //   N-major, and the same masked epilogue (dyp bf16 under kDypBf16).
-// * Weight gradients: the backward row passes also write their two
-//   operands, dz and h (fp32, unrounded), to scratch, and dW = dz^T h
-//   runs on the GEMM core (strided_gemm.cu: gemm, an M-major A over an
-//   N-major B, split-K over row ranges merged by split_sum in fp64).
-//   Writing them (302 MB at 65,536 x 1024) costs the row pass about 0.08
-//   ms on the H100, against the 17.2 GFLOP of a second z3 recompute that
-//   the TPU design (VMEM-bound) paid; a tensor-core dW kernel that
-//   rebuilds dz and h tile by tile, as that design does, measured slower
-//   for both passes in both precisions (PERF.md §6).
-// * W streams through a 3-stage cp.async ring (16-byte copies), one chunk
-//   in flight while one computes. Shared memory: 200 KB (B1) or up to
-//   186 KB (Bmid at c_out 256), one block per SM.
-// * Nothing carries between blocks: the statistics, t1 / t2 and db are
+// * Head B1 is Bmid's shape of work without the previous BN: the whole
+//   [128 x 512] dz tile does not fit beside the ring either, so dz is
+//   built chunk by chunk of 64 channels (Bmid's builder: the same fp32
+//   operations, db's and r's per-block partials from the unrounded values,
+//   dz written out for dW), and each chunk feeds dpf += dz_chunk
+//   W1a[chunk] at once, W1a streamed N-major through the ring with c_in
+//   padded by zeros to a whole n8 tile (c_in 3: rows of 12 bytes, 4-byte
+//   copies). dpf is stored in fp32, unmasked. db is the colsum over every
+//   block, r over each cloud's blocks, which are contiguous. 89 KB (c_in
+//   64), two blocks an SM.
+// * Weight gradients: the backward row passes also write dz (and trunk
+//   B1 and Bmid their h; head B1's h is pf itself), fp32 and unrounded,
+//   to scratch, and dW = dz^T h runs on the GEMM core (strided_gemm.cu:
+//   gemm, an M-major A over an N-major B, split-K over row ranges merged
+//   by split_sum in fp64). Writing them (302 MB at 65,536 x 1024) costs
+//   the row pass about 0.08 ms on the H100, against the 17.2 GFLOP of a
+//   second z3 recompute that the TPU design (VMEM-bound) paid; a
+//   tensor-core dW kernel that rebuilds dz and h tile by tile, as that
+//   design does, measured slower for both passes in both precisions
+//   (PERF.md §6).
+// * W streams through a 3-stage cp.async ring (16-byte copies where the
+//   rows allow), one chunk in flight while one computes. Shared memory:
+//   200 KB (B1) or up to 186 KB (Bmid at c_out 256), one block per SM.
+// * Nothing carries between blocks: the statistics, t1 / t2, db and r are
 //   per-block partials added by colsum in fp64 in a fixed order, each
 //   group's blocks contiguous, so groups = 2 equals two groups = 1 calls
 //   bit for bit (F2's sums and extrema, B1's dy2, t1, t2); a row's
@@ -88,6 +114,9 @@ constexpr int kC2 = 128;                    // trunk B1: c_in
 constexpr int kChunk = 64;                  // trunk B1: c3 channels a chunk
 constexpr int kDzLd = kChunk + 4;           // dz3 chunk row stride
 constexpr int kHeadK = 32;                  // Bmid: W rows (k) a stage
+constexpr int kPmidN = 128;                 // Pmid: output columns a block
+constexpr int kXbLd = kBk + 8;              // Pmid: bf16 x stage row (bf16s)
+constexpr int kB1Chunk = 64;                // head B1: c_out channels a chunk
 
 // Element (r, k) of a 128-wide tile in shared memory that is read both
 // along its rows and along its columns (a W3 chunk: GEMM 1 reads it
@@ -610,6 +639,282 @@ __global__ void __launch_bounds__(kThreads, 1)
   cp_wait<0>();
 }
 
+// Pmid: x (as stored) and W chunks of kBk along c_in through the ring, h
+// = relu(bn_affine(x)) of each landed chunk into h_s, then z = h W^T on
+// the block's kPmidN columns (blockIdx.z's). Warps 4 (rows, 32 each) by 2
+// (64 columns each). BF: kRound.
+template <bool BF>
+__global__ void __launch_bounds__(kThreads, 1)
+    pmid_tc_kernel(const RowFwdArgs a) {
+  constexpr int kSt = stage_floats(kTcRows);      // one K-major 128-row stage
+  extern __shared__ __align__(16) float smem[];
+  float* x_s = smem;                              // kRing x [kTcRows][kLdk]
+  float* w_s = x_s + kRing * kSt;                 // kRing x [kPmidN][kLdk]
+  float* h_s = w_s + kRing * kSt;                 // [kTcRows][kLdk]
+  float* red = h_s + kSt;                         // [2][4][kPmidN] sum, ssq
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int wm = warp >> 1, wn = warp & 1;
+  const int b = blockIdx.y, p0 = blockIdx.x * kTcRows;
+  const int n0 = blockIdx.z * kPmidN;
+  const int rows = min(kTcRows, a.n - p0);
+  const size_t g0 = (size_t)b * a.n + p0;
+  const int c_in = a.c_in, c_out = a.c_out, chunks = ceil_div(c_in, kBk);
+  const size_t blk = (size_t)b * gridDim.x + blockIdx.x;
+  const size_t blocks = (size_t)gridDim.x * gridDim.y;
+  const bool xbf = BF && (a.prec & kXBf16);
+
+  // Chunk c (c_in columns c * kBk ..) of x's tile and of W's rows n0..
+  // into ring stage c % kRing: one commit group a call, empty past the
+  // last. A bf16 x lands as stored, [kTcRows][kXbLd] bf16.
+  const auto load = [&](int c) {
+    if (c < chunks) {
+      const int k0 = c * kBk, st = c % kRing;
+      if (xbf) {
+        auto* s = reinterpret_cast<__nv_bfloat16*>(x_s + st * kSt);
+        const auto* x = static_cast<const __nv_bfloat16*>(a.x);
+        for (int e = threadIdx.x; e < kTcRows * kBk / 8; e += kThreads) {
+          const int r = e / (kBk / 8), k = (e % (kBk / 8)) * 8;
+          const bool ok = r < rows && k0 + k < c_in;
+          cp16(reinterpret_cast<float*>(s + r * kXbLd + k),
+               reinterpret_cast<const float*>(
+                   ok ? x + (g0 + r) * c_in + k0 + k : x),
+               ok ? 16 : 0);
+        }
+      } else {
+        load_stage<true, kTcRows>(x_s + st * kSt,
+                                  static_cast<const float*>(a.x), c_in, 1,
+                                  (long long)g0, rows, k0, c_in - k0, true);
+      }
+      load_stage<true, kPmidN>(w_s + st * kSt, a.w, a.ldw, 1, n0,
+                               min(kPmidN, c_out - n0), k0, c_in - k0, true);
+    }
+    cp_commit();
+  };
+  load(0);
+  load(1);
+  float acc[2][8][4] = {};
+  const auto fh = [h_s](int m, int k) { return h_s[m * kLdk + k]; };
+  for (int c = 0; c < chunks; ++c) {
+    cp_wait<kRing - 2>();
+    __syncthreads();          // chunk c landed; chunk c - 1 and h_s are read
+    load(c + kRing - 1);
+    const int st = c % kRing;
+    {  // h = relu(x * sc + sh): thread t owns column t % kBk; zero past N
+       // and c_in.
+      const int k = threadIdx.x % kBk, kc = c * kBk + k;
+      const bool in = kc < c_in;
+      const float scv = in ? __ldg(a.sc + kc) : 0.f;
+      const float shv = in ? __ldg(a.sh + kc) : 0.f;
+      const float* xs = x_s + st * kSt;
+      const auto* xb = reinterpret_cast<const __nv_bfloat16*>(xs);
+      for (int r = threadIdx.x / kBk; r < kTcRows; r += kThreads / kBk) {
+        const float v = xbf ? __bfloat162float(xb[r * kXbLd + k])
+                            : xs[r * kLdk + k];
+        h_s[r * kLdk + k] =
+            r < rows && in ? fmaxf(bn_affine(v, scv, shv), 0.f) : 0.f;
+      }
+    }
+    __syncthreads();          // h_s written
+    const float* ws = w_s + st * kSt;
+    const auto fw = [ws](int n, int k) { return ws[n * kLdk + k]; };
+#pragma unroll
+    for (int kk = 0; kk < kBk; kk += mma_depth(BF))
+      mma_step<2, 8, BF>(acc, fh, fw, wm * 32, wn * 64, kk, gq, tq);
+  }
+  cp_wait<0>();
+
+  // z = acc + b: stored (bf16 nearest-even under kZBf16), and the rows'
+  // column sum and sum of squares from the unrounded values.
+  const bool zbf = BF && (a.prec & kZBf16);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int col = wn * 64 + 8 * j + 2 * tq + q, o = n0 + col;
+      const float bias = o < c_out ? __ldg(a.bias + o) : 0.f;
+      float s = 0.f, ss = 0.f;
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = wm * 32 + 16 * i + gq + 8 * h;
+          const float v = acc[i][j][2 * h + q] + bias;
+          acc[i][j][2 * h + q] = v;
+          if (r < rows) {
+            s += v;
+            ss += v * v;
+          }
+        }
+      s = group_sum(s);
+      ss = group_sum(ss);
+      if (gq == 0) {
+        red[wm * kPmidN + col] = s;
+        red[(4 + wm) * kPmidN + col] = ss;
+      }
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = wm * 32 + 16 * i + gq + 8 * h;
+      if (r >= rows) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int o = n0 + wn * 64 + 8 * j + 2 * tq;   // c_out: whole n8s
+        if (o >= c_out) continue;
+        const size_t at = (g0 + r) * c_out + o;
+        const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+        if (zbf)
+          *reinterpret_cast<__nv_bfloat162*>(
+              static_cast<__nv_bfloat16*>(a.z) + at) =
+              __floats2bfloat162_rn(v0, v1);
+        else
+          *reinterpret_cast<float2*>(static_cast<float*>(a.z) + at) =
+              make_float2(v0, v1);
+      }
+    }
+  __syncthreads();            // red written
+  if (threadIdx.x < kPmidN && n0 + (int)threadIdx.x < c_out) {
+    const int t = threadIdx.x, o = n0 + t;
+    a.part[blk * c_out + o] = ((red[t] + red[kPmidN + t]) +
+                               red[2 * kPmidN + t]) + red[3 * kPmidN + t];
+    a.part[(blocks + blk) * c_out + o] =
+        ((red[4 * kPmidN + t] + red[5 * kPmidN + t]) +
+         red[6 * kPmidN + t]) + red[7 * kPmidN + t];
+  }
+}
+
+// Head B1: c_out in chunks of kB1Chunk, each chunk's dz built from the
+// zc / dy stashes into dz_s and written to dzs (with per-block column
+// sums for db and r), then dpf += dz_chunk W[chunk] with W streamed
+// N-major through the ring, c_in padded with zeros to NB (8 or 64). Warps
+// 4 x 2 (NB 64) or 8 x 1 (NB 8). BF: kRound.
+template <bool BF, int NB>
+__global__ void __launch_bounds__(kThreads, 2)
+    head_b1_tc_kernel(const BwdArgs a) {
+  constexpr int kWn = NB >= 32 ? NB / 32 : 1;     // warps along n
+  constexpr int kWm = kWarps / kWn;               // warps along m
+  constexpr int kMt = kTcRows / kWm / 16;         // m16 tiles a warp
+  constexpr int kNt = NB / kWn / 8;               // n8 tiles a warp
+  constexpr int kWld = NB + kPadMn;               // N-major W stage row
+  constexpr int kWs = kB1Chunk * kWld;            // one W stage, floats
+  constexpr int kDzLdB = kB1Chunk + 4;            // dz_s row stride
+  extern __shared__ __align__(16) float smem[];
+  float* dz_s = smem;                             // [kTcRows][kDzLdB]
+  float* w_s = dz_s + kTcRows * kDzLdB;           // kRing x [kB1Chunk][kWld]
+  float* red = w_s + kRing * kWs;                 // [kThreads]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int mb = (warp / kWn) * kMt * 16, nb = (warp % kWn) * kNt * 8;
+  const int b = blockIdx.y, p0 = blockIdx.x * kTcRows;
+  const int rows = min(kTcRows, a.n - p0);
+  const size_t g0 = (size_t)b * a.n + p0;
+  const int c_in = a.c_in, c_out = a.c_out, chunks = c_out / kB1Chunk;
+  float* prow = a.part + ((size_t)b * gridDim.x + blockIdx.x) *
+                             (2 * c_in + c_out) + 2 * c_in;
+  const bool zcbf = BF && (a.prec & kZcBf16);
+  const bool dybf = BF && (a.prec & kDyBf16);
+  // 16-byte copies of W's rows where they start 16-byte aligned (c_in =
+  // 3: rows of 12 bytes, 4-byte copies).
+  const bool wvec = c_in % 4 == 0 && a.ldw % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(a.w) % 16 == 0;
+
+  // W rows (k) q * kB1Chunk .. into ring stage q % kRing, N-major, as
+  // kB1Chunk / kBk stages of mma.cuh's layout: one commit group a call,
+  // empty past the last chunk.
+  const auto load_w = [&](int q) {
+    if (q < chunks) {
+      float* s = w_s + (q % kRing) * kWs;
+#pragma unroll
+      for (int h = 0; h < kB1Chunk / kBk; ++h) {
+        const int k0 = q * kB1Chunk + h * kBk;
+        load_stage<false, NB>(s + h * kBk * kWld, a.w, 1, a.ldw, 0, c_in, k0,
+                              c_out - k0, wvec);
+      }
+    }
+    cp_commit();
+  };
+  load_w(0);
+  load_w(1);
+  const auto fz = [dz_s](int m, int k) { return dz_s[m * kDzLdB + k]; };
+  // Thread t builds column t % kB1Chunk of each chunk, rows t / kB1Chunk
+  // + step i (kTcRows / step rows, a multiple of kBatch).
+  const int col = threadIdx.x % kB1Chunk, step = kThreads / kB1Chunk;
+  float acc[kMt][kNt][4] = {};
+  for (int c = 0; c < chunks; ++c) {
+    cp_wait<kRing - 2>();
+    __syncthreads();          // chunk c landed; dz_s and red are read
+    load_w(c + kRing - 1);
+    const int o = c * kB1Chunk + col;
+    {  // dz = dy * sc - c1 - zhat * c2; rows past N read the last row and
+       // are zeroed.
+      const float scv = __ldg(a.sc + o), muv = __ldg(a.mu + o);
+      const float iv = __ldg(a.inv + o), k1 = __ldg(a.c1 + o);
+      const float k2 = __ldg(a.c2 + o);
+      float s = 0.f;
+      for (int r0 = threadIdx.x / kB1Chunk; r0 < kTcRows;
+           r0 += kBatch * step) {
+        float zv[kBatch], dv[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const size_t at = (g0 + min(r0 + u * step, rows - 1)) * c_out + o;
+          zv[u] = load_val(a.zc, zcbf, at);
+          dv[u] = load_val(a.dy, dybf, at);
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int r = r0 + u * step;
+          float v = 0.f;
+          if (r < rows) {
+            const float zhat = (zv[u] - muv) * iv;
+            v = dv[u] * scv - k1 - zhat * k2;
+            a.dzs[(g0 + r) * c_out + o] = v;
+          }
+          dz_s[r * kDzLdB + col] = v;
+          s += v;
+        }
+      }
+      red[threadIdx.x] = s;
+    }
+    __syncthreads();          // dz_s and red written
+    if (threadIdx.x < kB1Chunk) {
+      const int t = threadIdx.x;
+      prow[c * kB1Chunk + t] =
+          ((red[t] + red[kB1Chunk + t]) + red[2 * kB1Chunk + t]) +
+          red[3 * kB1Chunk + t];
+    }
+    const float* ws = w_s + (c % kRing) * kWs;
+    const auto fw = [ws](int n, int k) { return ws[k * kWld + n]; };
+#pragma unroll 2
+    for (int kk = 0; kk < kB1Chunk; kk += mma_depth(BF))
+      mma_step<kMt, kNt, BF>(acc, fz, fw, mb, nb, kk, gq, tq);
+  }
+  cp_wait<0>();
+
+  // dpf in fp32: no mask, no BN sums.
+  float* dpf = static_cast<float*>(a.dyp);
+#pragma unroll
+  for (int i = 0; i < kMt; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = mb + 16 * i + gq + 8 * h;
+      if (r >= rows) continue;
+#pragma unroll
+      for (int j = 0; j < kNt; ++j) {
+        const int n = nb + 8 * j + 2 * tq;
+        const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+        float* out = dpf + (g0 + r) * c_in + n;
+        if (c_in % 2 == 0 && n + 1 < c_in) {
+          *reinterpret_cast<float2*>(out) = make_float2(v0, v1);
+        } else {
+          if (n < c_in) out[0] = v0;
+          if (n + 1 < c_in) out[1] = v1;
+        }
+      }
+    }
+}
+
 template <typename K, typename A>
 int launch_tc(K kernel, dim3 grid, size_t bytes, const A& a,
               cudaStream_t stream) {
@@ -620,10 +925,24 @@ int launch_tc(K kernel, dim3 grid, size_t bytes, const A& a,
   return (int)cudaGetLastError();
 }
 
+// dW = dz^T h on the GEMM core from the dz the row pass wrote and the
+// previous activation h (bf16 operands under kRound, as the JAX package's
+// _mxu_dot_t) over `splits` row ranges added in fp64.
+int weight_grad(const BwdArgs& a, const float* h, cudaStream_t stream) {
+  const long long wsz = (long long)a.c_out * a.c_in;
+  Gemm g{};
+  g.m = a.c_out, g.n = a.c_in, g.k = a.batch * a.n, g.batch = 1;
+  g.splits = a.splits;
+  g.sam = 1, g.sak = a.c_out;          // A[o][r] = dz[r][o]
+  g.sbk = a.c_in, g.sbn = 1;           // B[r][i] = h[r][i]
+  g.ldc = a.c_in, g.bsc = wsz;
+  g.a = a.dzs, g.b = h, g.c = a.part_w;
+  const int e = gemm(g, a.prec & kRound, stream);
+  return e ? e : split_sum(a.part_w, a.splits, wsz, 1, a.dw, stream);
+}
+
 // t1 / t2 per group and db from the row kernel's per-block partials, and
-// dW = dz^T h on the GEMM core from the dz and h the row pass wrote (bf16
-// operands under kRound, as the JAX package's _mxu_dot_t) over `splits`
-// row ranges added in fp64.
+// dW from the dz and h the row pass wrote.
 int finish(const BwdArgs& a, int blocks, cudaStream_t stream) {
   const int per = blocks / a.groups;
   const long long ldp = 2LL * a.c_in + a.c_out;
@@ -636,19 +955,10 @@ int finish(const BwdArgs& a, int blocks, cudaStream_t stream) {
   if ((e = colsum(a.part + 2 * a.c_in, ldp, blocks, a.c_out, 1, a.db, 0,
                   stream)))
     return e;
-  const long long wsz = (long long)a.c_out * a.c_in;
-  Gemm g{};
-  g.m = a.c_out, g.n = a.c_in, g.k = a.batch * a.n, g.batch = 1;
-  g.splits = a.splits;
-  g.sam = 1, g.sak = a.c_out;          // A[o][r] = dz[r][o]
-  g.sbk = a.c_in, g.sbn = 1;           // B[r][i] = h[r][i]
-  g.ldc = a.c_in, g.bsc = wsz;
-  g.a = a.dzs, g.b = a.hs, g.c = a.part_w;
-  e = gemm(g, a.prec & kRound, stream);
-  return e ? e : split_sum(a.part_w, a.splits, wsz, 1, a.dw, stream);
+  return weight_grad(a, a.hs, stream);
 }
 
-// What both passes need: shapes in range, a 16-byte aligned W with a row
+// What trunk B1 and Bmid need: shapes in range, a 16-byte aligned W with a row
 // stride of whole 16-byte groups (the ring's copies), every buffer.
 bool bad_args(const BwdArgs& a) {
   return a.batch <= 0 || a.batch > 65535 || a.n <= 0 || a.c_in <= 0 ||
@@ -719,6 +1029,65 @@ int trunk_f2_tc(const RowFwdArgs& a, cudaStream_t stream) {
   decode_extrema_kernel<<<ceil_div(count, kThreads), kThreads, 0, stream>>>(
       a.keys, count, a.mx, a.mn, a.imax, a.imin);
   return (int)cudaGetLastError();
+}
+
+int head_pmid_tc(const RowFwdArgs& a, cudaStream_t stream) {
+  if (a.batch <= 0 || a.batch > 65535 || a.n <= 0 || a.c_in <= 0 ||
+      a.c_in % 8 || a.c_out <= 0 || a.c_out % 8 || a.groups != 1 ||
+      (long long)a.batch * a.n > 0x7fffffffLL ||
+      a.ldw < a.c_in || a.ldw % 4 || reinterpret_cast<uintptr_t>(a.w) % 16 ||
+      reinterpret_cast<uintptr_t>(a.x) % 16 || !a.x || !a.sc || !a.sh ||
+      !a.w || !a.bias || !a.z || !a.sum || !a.ssq || !a.part || a.addend ||
+      a.keys || a.mx || a.logp)
+    return kErrArgs;
+  const size_t bytes = ((size_t)(2 * kRing + 1) * stage_floats(kTcRows) +
+                        8 * kPmidN) * sizeof(float);
+  const dim3 grid(ceil_div(a.n, kTcRows), a.batch, ceil_div(a.c_out, kPmidN));
+  int e = a.prec & kRound
+              ? launch_tc(pmid_tc_kernel<true>, grid, bytes, a, stream)
+              : launch_tc(pmid_tc_kernel<false>, grid, bytes, a, stream);
+  if (e) return e;
+  const int blocks = grid.x * grid.y;
+  if ((e = colsum(a.part, a.c_out, blocks, a.c_out, 1, a.sum, 0, stream)))
+    return e;
+  return colsum(a.part + (size_t)blocks * a.c_out, a.c_out, blocks, a.c_out,
+                1, a.ssq, 0, stream);
+}
+
+int head_b1_tc(const BwdArgs& a, cudaStream_t stream) {
+  if (a.mode != kDzBn || a.batch <= 0 || a.batch > 65535 || a.n <= 0 ||
+      a.c_in <= 0 || a.c_in > 64 || a.c_out <= 0 || a.c_out % kB1Chunk ||
+      a.groups != 1 || (long long)a.batch * a.n > 0x7fffffffLL ||
+      a.ldw < a.c_in || a.splits <= 0 || a.splits > 65535 ||
+      (a.prec & (kZpBf16 | kDypBf16)) || !a.zp || !a.w || !a.zc || !a.dy ||
+      !a.sc || !a.mu || !a.inv || !a.c1 || !a.c2 || !a.dyp || !a.db ||
+      !a.r || !a.dw || !a.part || !a.part_w || !a.dzs || a.scp || a.shp ||
+      a.mup || a.invp || a.t1 || a.t2 || a.hs)
+    return kErrArgs;
+  const int nb = a.c_in <= 8 ? 8 : 64;
+  const size_t bytes = ((size_t)kTcRows * (kB1Chunk + 4) +
+                        (size_t)kRing * kB1Chunk * (nb + kPadMn) + kThreads) *
+                       sizeof(float);
+  const dim3 grid(ceil_div(a.n, kTcRows), a.batch);
+  const bool bf = a.prec & kRound;
+  int e;
+  if (nb == 8)
+    e = bf ? launch_tc(head_b1_tc_kernel<true, 8>, grid, bytes, a, stream)
+           : launch_tc(head_b1_tc_kernel<false, 8>, grid, bytes, a, stream);
+  else
+    e = bf ? launch_tc(head_b1_tc_kernel<true, 64>, grid, bytes, a, stream)
+           : launch_tc(head_b1_tc_kernel<false, 64>, grid, bytes, a, stream);
+  if (e) return e;
+  // db over every block, r over each cloud's (contiguous) blocks, and dW1a
+  // with pf itself as the h operand.
+  const long long ldp = 2LL * a.c_in + a.c_out;
+  const float* dzsum = a.part + 2 * a.c_in;
+  if ((e = colsum(dzsum, ldp, grid.x * grid.y, a.c_out, 1, a.db, 0, stream)))
+    return e;
+  if ((e = colsum(dzsum, ldp, grid.x, a.c_out, a.batch, a.r, a.c_out,
+                  stream)))
+    return e;
+  return weight_grad(a, static_cast<const float*>(a.zp), stream);
 }
 
 int head_bmid_tc(const BwdArgs& a, cudaStream_t stream) {

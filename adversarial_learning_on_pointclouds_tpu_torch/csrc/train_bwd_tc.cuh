@@ -1,10 +1,10 @@
-// The generator's passes on the tensor cores (defined in
-// train_bwd_tc.cu): the trunk's F2 and B1 (trunk_train.cu: pt_trunk_f2,
-// pt_trunk_b1) and the seg head's Bmid (seg_head_train.cu:
-// pt_head_bmid). F2 takes the RowFwdArgs of train_gemm.cuh, the backward
-// passes its BwdArgs with the dzs and hs scratch buffers; each returns 0,
-// a cudaError_t, kErrArgs for a shape or layout it does not take, or
-// kErrSmem.
+// The generator's passes on the tensor cores (defined in train_bwd_tc.cu):
+// the trunk's F2 and B1 (trunk_train.cu: pt_trunk_f2, pt_trunk_b1) and the
+// seg head's Pmid, Bmid and B1 (seg_head_train.cu: pt_head_pmid,
+// pt_head_bmid, pt_head_b1). The forward passes take the RowFwdArgs of
+// train_gemm.cuh, the backward passes its BwdArgs with the dzs (and, for
+// trunk B1 and Bmid, hs) scratch buffers; each returns 0, a cudaError_t,
+// kErrArgs for a shape or layout it does not take, or kErrSmem.
 
 #pragma once
 
@@ -24,9 +24,19 @@ int trunk_f2_tc(const RowFwdArgs& a, cudaStream_t stream);
 // c_out a multiple of 64; groups >= 1).
 int trunk_b1_tc(const BwdArgs& a, cudaStream_t stream);
 
+// Seg-head Pmid: z = relu(x * sc + sh) W^T + b (a bf16 stash under
+// kZBf16) and its column sum and sum of squares (c_in and c_out multiples
+// of 8, x and W 16-byte aligned; one group).
+int head_pmid_tc(const RowFwdArgs& a, cudaStream_t stream);
+
 // Seg-head Bmid: dy_prev, dW, db and the previous BN's t1 / t2 (mode
 // kDzBn; c_out 32, 64, 128 or 256, c_in 64 or a multiple of 128; one
 // group).
 int head_bmid_tc(const BwdArgs& a, cudaStream_t stream);
+
+// Seg-head B1: dpf = dz W (fp32), dW = dz^T pf, db and each cloud's sums
+// r of dz (mode kDzBn; c_in at most 64, c_out a multiple of 64, pf fp32;
+// no previous BN; one group).
+int head_b1_tc(const BwdArgs& a, cudaStream_t stream);
 
 }  // namespace pointtpu

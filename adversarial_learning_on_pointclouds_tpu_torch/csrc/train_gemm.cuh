@@ -1,24 +1,21 @@
-// The two kernel shapes of the training passes on the CUDA cores, shared
-// by trunk_train.cu and seg_head_train.cu, the argument structs of every
-// training pass, and their reductions. (Trunk F2, B1 and the seg head's
-// Bmid run on the tensor cores instead: train_bwd_tc.cu.)
+// The argument structs of every training pass, their reductions, and the
+// row GEMM of the forward passes still on the CUDA cores, shared by
+// trunk_train.cu and seg_head_train.cu: trunk F1 and the seg head's P1
+// and P4. B4, the one backward pass left on the CUDA cores, keeps its
+// kernels in seg_head_train.cu. Trunk F2 and B1 and the seg head's Pmid,
+// Bmid and B1 run on the tensor cores (train_bwd_tc.cu).
+//
+// What bounds these on the H100: F1 (64 -> 128), P1 (64 -> 512) and P4
+// (128 -> 50) are products of 1-4 GFLOP a step and their stashes'
+// traffic, run as fp32 FMAs (bf16 operands too) at 67 TFLOP/s at most.
 //
 // * The row GEMM over point tiles. A block of 256 threads owns a tile of
 //   64 points of one cloud (8 rows per warp, as tile_fma lays them out).
 //   Its input tile sits in shared memory, after an optional prologue
 //   (BN affine + ReLU of the previous layer); the layer's weight streams
-//   from L2 through a register-staged double buffer in 16-row chunks.
-//   The forward epilogues store z, reduce column sum / sum of squares,
-//   or take a per-point log_softmax. The backward form first builds the
-//   tile's dz (a BN backward from stashes, or the head's softmax backward
-//   through a recomputed GEMM), then multiplies it by
-//   W in 128-column chunks, so a [64, 1024] dz never exists; its
-//   epilogue masks by the previous ReLU, stores dy_prev and reduces the
-//   previous BN's two sums.
-// * The weight-gradient GEMM dW = dz^T h over all rows: a block owns 64
-//   output channels by up to 128 input channels and a range of at most
-//   2048 rows, rebuilds dz and h tile by tile exactly as the row kernel
-//   does, and keeps its [64, 128] slice of dW in registers.
+//   from L2 through a register-staged double buffer in 16-row chunks
+//   (gemm_acc, which B4 shares). The epilogues store z, reduce column sum
+//   / sum of squares, or take a per-point log_softmax.
 //
 // Blocks run in no order, so nothing is carried between them: every
 // reduction over the rows (column statistics, dW, db, the BN sums) is
@@ -32,23 +29,20 @@
 // ragged tail of the point axis is masked: rows past N are zero in every
 // tile and never enter a sum, an extremum or a store.
 //
-// Every tile of both kernels lies in one cloud. With groups > 1 (the
-// paired trunks' forward: the batch is groups stacked streams of batch /
-// groups clouds) the BN statistics and the terms a pass takes from them
-// are [groups, C] and a tile uses its cloud's group's row; each group's
-// partial sums are a contiguous range of the per-block slots, added as
-// a stream alone would add them. Grouping is a template parameter (G) of
-// the forward kernel, so a one-group pass reads its statistics straight
-// from the argument struct and holds no per-group pointers in registers;
-// the backward passes here (the seg head's) take one group. The
-// host-side passes (row_fwd, backward_pass) are templates, so a source
-// instantiates only the kernels its entry points launch.
+// Every tile lies in one cloud. With groups > 1 (the paired trunks'
+// forward: the batch is groups stacked streams of batch / groups clouds)
+// the BN statistics are [groups, C] and a tile uses its cloud's group's
+// row; each group's partial sums are a contiguous range of the per-block
+// slots, added as a stream alone would add them. Grouping is a template
+// parameter (G) of the row kernel, so a one-group pass reads its
+// statistics straight from the argument struct and holds no per-group
+// pointers in registers. row_fwd is a template, so a source instantiates
+// only the kernels its entry points launch.
 //
-// fp32 FMAs on the CUDA cores, fp32 accumulation. Under kRound (mixed
-// precision) every matmul operand, activations, weights and cotangents,
-// is rounded to bf16 as it enters shared memory or the staging buffer;
-// sums, statistics and the BN sums keep the unrounded fp32 values, and
-// the stashes named in prec are read and written as bf16.
+// Under kRound (mixed precision) every matmul operand is rounded to bf16
+// as it enters shared memory or the staging buffer; sums and statistics
+// keep the unrounded fp32 values, and the stashes named in prec are read
+// and written as bf16.
 
 #pragma once
 
@@ -110,9 +104,10 @@ struct BwdArgs {
   float* part;           // scratch [blocks, 2 * c_in + c_out]
   float* part_w;         // scratch [splits, c_out * c_in]
   // The tensor-core passes (train_bwd_tc.cu) only: the row pass writes
-  // the dW product's operands here.
+  // the dW product's operands here (head B1 reads its h, pf, from zp).
   float* dzs;            // scratch [batch * n, c_out]: dz
-  float* hs;             // scratch [batch * n, c_in]: the previous activation
+  float* hs;             // scratch [batch * n, c_in]: the previous
+                         //   activation (trunk B1, Bmid), or null
 };
 
 namespace {  // each translation unit keeps its own copy
@@ -122,7 +117,6 @@ constexpr int kRows = kTile / kWarps;     // rows per warp
 constexpr int kKc = 16;                   // weight rows per staged chunk
 constexpr int kStageLd = kMaxCols + 2;
 constexpr int kStage = kKc * kStageLd;    // floats per staging buffer
-constexpr int kGradO = 64;                // dW rows (output channels) per block
 
 __host__ __device__ inline int ceil_div(long long a, long long b) {
   return (int)((a + b - 1) / b);
@@ -480,335 +474,6 @@ int row_fwd(const RowFwdArgs& a, cudaStream_t stream) {
       return e;
   }
   return 0;
-}
-
-// ---------------------------------------------------------------------------
-// dz of one tile, for the backward row kernel and the dW kernel
-// ---------------------------------------------------------------------------
-
-// dz_s[r][c] = dz[b, p0 + r][oc + c] for c < OC (0 past rows or c_out),
-// unrounded: the tile's rows are points p0.. of cloud b. The softmax mode
-// recomputes z from the previous activation h_s [kTile][c_in]. Ends with
-// a barrier.
-template <int OC, bool BF>
-__device__ __forceinline__ void make_dz(const BwdArgs& a, int oc, int b,
-                                        int p0, int rows, const float* h_s,
-                                        float* dz_s, float* stage) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const size_t g0 = (size_t)b * a.n + p0;
-  const float* mu = a.mu;
-  const float* inv = a.inv;
-  if (a.mode == kDzBn) {
-    const float* sc = a.sc;
-    const float* c1 = a.c1;
-    const float* c2 = a.c2;
-    const bool zcbf = BF && (a.prec & kZcBf16);
-    const bool dybf = BF && (a.prec & kDyBf16);
-    for (int e = threadIdx.x; e < kTile * OC; e += kThreads) {
-      const int r = e / OC, o = oc + e - r * OC;
-      float v = 0.f;
-      if (r < rows && o < a.c_out) {
-        const size_t at = (g0 + r) * a.c_out + o;
-        const float zhat = (load_val(a.zc, zcbf, at) - __ldg(mu + o)) *
-                           __ldg(inv + o);
-        v = load_val(a.dy, dybf, at) * __ldg(sc + o) - __ldg(c1 + o) -
-            zhat * __ldg(c2 + o);
-      }
-      dz_s[e] = v;
-    }
-    __syncthreads();
-    return;
-  }
-  constexpr int NJ = OC / 32;
-  float acc[kRows][NJ] = {};
-  gemm_acc<NJ, true>(acc, h_s, a.c_in, a.c_in, a.w, a.ldw, oc, a.c_out - oc,
-                     stage, BF);
-  {
-    // Softmax backward: dz = dlp - softmax(z) * sum(dlp), per row.
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int r = warp + i * kWarps;
-      float z[NJ], dl[NJ];
-      bool ok[NJ];
-#pragma unroll
-      for (int jj = 0; jj < NJ; ++jj) {
-        const int o = oc + lane + 32 * jj;
-        ok[jj] = r < rows && o < a.c_out;
-        z[jj] = ok[jj] ? acc[i][jj] + __ldg(a.bias + o) : -INFINITY;
-        dl[jj] = ok[jj] ? __ldg(a.dlp + (g0 + r) * a.c_out + o) : 0.f;
-      }
-      if (r < rows) {  // warp-uniform
-        float m = -INFINITY;
-#pragma unroll
-        for (int jj = 0; jj < NJ; ++jj) m = fmaxf(m, z[jj]);
-        m = warp_max(m);
-        float s = 0.f, sdl = 0.f;
-#pragma unroll
-        for (int jj = 0; jj < NJ; ++jj) {
-          z[jj] = ok[jj] ? expf(z[jj] - m) : 0.f;
-          s += z[jj];
-          sdl += dl[jj];
-        }
-        s = warp_sum(s);
-        sdl = warp_sum(sdl);
-#pragma unroll
-        for (int jj = 0; jj < NJ; ++jj) z[jj] = dl[jj] - (z[jj] / s) * sdl;
-      }
-#pragma unroll
-      for (int jj = 0; jj < NJ; ++jj)
-        dz_s[r * OC + lane + 32 * jj] = ok[jj] ? z[jj] : 0.f;
-    }
-  }
-  __syncthreads();
-}
-
-// ---------------------------------------------------------------------------
-// Backward row kernel: dy_prev = mask * (dz @ W), the previous BN's sums,
-// and the per-block column sums of dz (for db and the per-cloud r)
-// ---------------------------------------------------------------------------
-
-template <int OC, bool BF>
-__global__ void __launch_bounds__(kThreads, 1)
-row_bwd_kernel(const BwdArgs a) {
-  extern __shared__ float smem[];
-  const bool recompute = a.mode != kDzBn;
-  float* h_s = smem;                                       // [kTile][c_in]
-  float* dz_s = h_s + (recompute ? kTile * a.c_in : 0);    // [kTile][OC]
-  float* stage = dz_s + kTile * OC;
-  float* red = stage + 2 * kStage;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int b = blockIdx.y, p0 = blockIdx.x * kTile;
-  const int rows = min(kTile, a.n - p0);
-  const size_t g0 = (size_t)b * a.n + p0;
-  const int blk = b * gridDim.x + blockIdx.x;
-  float* prow = a.part + (size_t)blk * (2 * a.c_in + a.c_out);
-  constexpr bool bf = BF;
-  const bool zpbf = BF && (a.prec & kZpBf16);
-  const bool dypbf = BF && (a.prec & kDypBf16);
-  const float* scp = a.scp;
-  const float* shp = a.shp;
-  const float* mup = a.mup;
-  const float* invp = a.invp;
-
-  if (recompute)
-    load_tile(h_s, a.c_in, a.zp, zpbf, g0, rows, a.c_in, 0, a.c_in, scp, shp,
-              bf);
-  const int cp = pad32(a.c_in);
-  for (int kc = 0; kc < cp; kc += kMaxCols) {
-    with_nj_pow2(min(kMaxCols, cp - kc), [&](auto nj) {
-      constexpr int NJ = decltype(nj)::value;
-      float acc[kRows][NJ] = {};
-      for (int oc = 0; oc < a.c_out; oc += OC) {
-        make_dz<OC, BF>(a, oc, b, p0, rows, h_s, dz_s, stage);
-        if (kc == 0)
-          for (int c = threadIdx.x; c < OC && oc + c < a.c_out; c += kThreads) {
-            float s = 0.f;
-            for (int r = 0; r < rows; ++r) s += dz_s[r * OC + c];
-            prow[2 * a.c_in + oc + c] = s;
-          }
-        if (bf) {  // db took the unrounded dz; the product takes bf16
-          __syncthreads();
-          round_smem(dz_s, kTile * OC);
-          __syncthreads();
-        }
-        gemm_acc<NJ, false>(acc, dz_s, OC, min(OC, a.c_out - oc),
-                            a.w + (size_t)oc * a.ldw, a.ldw, kc, a.c_in - kc,
-                            stage, bf);
-      }
-#pragma unroll
-      for (int jj = 0; jj < NJ; ++jj) {
-        const int k = kc + lane + 32 * jj;
-        float s1 = 0.f, s2 = 0.f;
-        if (k < a.c_in) {
-#pragma unroll
-          for (int i = 0; i < kRows; ++i) {
-            const int r = warp + i * kWarps;
-            if (r >= rows) continue;
-            const size_t at = (g0 + r) * a.c_in + k;
-            const float zp = load_val(a.zp, zpbf, at);
-            float d = acc[i][jj];
-            if (scp && !(bn_affine(zp, __ldg(scp + k), __ldg(shp + k)) > 0.f))
-              d = 0.f;
-            store_val(a.dyp, dypbf, at, d);
-            s1 += d;
-            if (mup) s2 += d * ((zp - __ldg(mup + k)) * __ldg(invp + k));
-          }
-        }
-        red[warp * kMaxCols + lane + 32 * jj] = s1;
-        red[(kWarps + warp) * kMaxCols + lane + 32 * jj] = s2;
-      }
-      __syncthreads();
-      for (int c = threadIdx.x; c < NJ * 32; c += kThreads) {
-        const int k = kc + c;
-        if (k >= a.c_in) continue;
-        float s1 = 0.f, s2 = 0.f;
-        for (int w = 0; w < kWarps; ++w) {
-          s1 += red[w * kMaxCols + c];
-          s2 += red[(kWarps + w) * kMaxCols + c];
-        }
-        prow[k] = s1;
-        prow[a.c_in + k] = s2;
-      }
-      __syncthreads();
-    });
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Weight-gradient kernel: part_w[split][o][k] = sum over the split's tiles
-// (64 points of one cloud, as the row kernels tile) of dz[row][o] *
-// h[row][k]
-// ---------------------------------------------------------------------------
-
-template <int KJ, bool BF>
-__global__ void __launch_bounds__(kThreads)
-wgrad_kernel(const BwdArgs a) {
-  extern __shared__ float smem[];
-  const bool recompute = a.mode != kDzBn;
-  const int hw = recompute ? a.c_in : KJ * 32;             // h_s width
-  float* h_s = smem;                                       // [kTile][hw]
-  float* dz_s = h_s + kTile * hw;                          // [kTile][kGradO]
-  float* stage = dz_s + kTile * kGradO;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int oc = blockIdx.x * kGradO, kc = blockIdx.y * KJ * 32;
-  const int tpc = ceil_div(a.n, kTile);                    // tiles per cloud
-  const int tiles = tpc * a.batch;
-  const int per = ceil_div(tiles, a.splits);
-  const int t0 = blockIdx.z * per, t1 = min(tiles, t0 + per);
-  const int hk = recompute ? kc : 0;                       // h_s column of kc
-  constexpr bool bf = BF;
-  const bool zpbf = BF && (a.prec & kZpBf16);
-
-  float acc[kRows][KJ] = {};
-  for (int t = t0; t < t1; ++t) {
-    const int b = t / tpc, p0 = (t - b * tpc) * kTile;
-    const int rows = min(kTile, a.n - p0);
-    const size_t g0 = (size_t)b * a.n + p0;
-    const float* scp = a.scp;
-    const float* shp = a.shp;
-    __syncthreads();  // the previous tile's h_s and dz_s are read
-    if (recompute)
-      load_tile(h_s, a.c_in, a.zp, zpbf, g0, rows, a.c_in, 0, a.c_in, scp,
-                shp, bf);
-    else
-      load_tile(h_s, hw, a.zp, zpbf, g0, rows, a.c_in, kc, a.c_in, scp, shp,
-                bf);
-    make_dz<kGradO, BF>(a, oc, b, p0, rows, h_s, dz_s, stage);
-    if (bf) {
-      round_smem(dz_s, kTile * kGradO);
-      __syncthreads();
-    }
-    for (int r = 0; r < rows; ++r) {
-      float av[kRows], bv[KJ];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) av[i] = dz_s[r * kGradO + warp * kRows + i];
-#pragma unroll
-      for (int jj = 0; jj < KJ; ++jj) {
-        const int j = lane + 32 * jj;
-        bv[jj] = kc + j < a.c_in ? h_s[r * hw + hk + j] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int jj = 0; jj < KJ; ++jj) acc[i][jj] = fmaf(av[i], bv[jj], acc[i][jj]);
-    }
-  }
-  float* out = a.part_w + (size_t)blockIdx.z * a.c_out * a.c_in;
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int o = oc + warp * kRows + i;
-    if (o >= a.c_out) continue;
-#pragma unroll
-    for (int jj = 0; jj < KJ; ++jj) {
-      const int k = kc + lane + 32 * jj;
-      if (k < a.c_in) out[(size_t)o * a.c_in + k] = acc[i][jj];
-    }
-  }
-}
-
-template <int KJ>
-int launch_wgrad(const BwdArgs& a, cudaStream_t stream) {
-  const bool recompute = a.mode != kDzBn;
-  const size_t bytes =
-      ((size_t)kTile * (recompute ? a.c_in : KJ * 32) + kTile * kGradO +
-       2 * kStage) * sizeof(float);
-  if (bytes > (size_t)max_smem_optin()) return kErrSmem;
-  const dim3 grid(ceil_div(a.c_out, kGradO), ceil_div(a.c_in, KJ * 32),
-                  a.splits);
-  int e;
-  if (a.prec & kRound) {
-    if ((e = (int)allow_smem(wgrad_kernel<KJ, true>, bytes))) return e;
-    wgrad_kernel<KJ, true><<<grid, kThreads, bytes, stream>>>(a);
-  } else {
-    if ((e = (int)allow_smem(wgrad_kernel<KJ, false>, bytes))) return e;
-    wgrad_kernel<KJ, false><<<grid, kThreads, bytes, stream>>>(a);
-  }
-  return (int)cudaGetLastError();
-}
-
-template <int OC>
-int launch_row_bwd(const BwdArgs& a, cudaStream_t stream) {
-  const bool recompute = a.mode != kDzBn;
-  const size_t bytes = ((size_t)(recompute ? kTile * a.c_in : 0) + kTile * OC +
-                        2 * kStage + 2 * kWarps * kMaxCols) * sizeof(float);
-  if (bytes > (size_t)max_smem_optin()) return kErrSmem;
-  const dim3 grid(ceil_div(a.n, kTile), a.batch);
-  int e;
-  if (a.prec & kRound) {
-    if ((e = (int)allow_smem(row_bwd_kernel<OC, true>, bytes))) return e;
-    row_bwd_kernel<OC, true><<<grid, kThreads, bytes, stream>>>(a);
-  } else {
-    if ((e = (int)allow_smem(row_bwd_kernel<OC, false>, bytes))) return e;
-    row_bwd_kernel<OC, false><<<grid, kThreads, bytes, stream>>>(a);
-  }
-  return (int)cudaGetLastError();
-}
-
-// A backward pass in dz mode MODE (fixed by each entry point: the seg
-// head's B1 and B4, one group): the row kernel (dy_prev, the BN sums, db
-// and r), the weight-gradient kernel, and the fp64 sums of their
-// partials. The dW kernel's block takes 128 input channels (KJ = 4),
-// which serves any width; a BN-mode pass on an input at most 64 wide
-// (the head's B1 on pf) takes 64 (KJ = 2).
-template <int MODE>
-int backward_pass(const BwdArgs& a, cudaStream_t stream) {
-  constexpr bool recompute = MODE != kDzBn;
-  if (a.mode != MODE || a.batch <= 0 ||
-      a.batch > 65535 || a.n <= 0 || a.c_in <= 0 || a.c_out <= 0 ||
-      a.groups != 1 || a.ldw < a.c_in || a.splits <= 0 || a.splits > 65535 || !a.zp || !a.w ||
-      !a.dyp || !a.db || !a.dw || !a.part || !a.part_w ||
-      (a.scp && !a.shp) || (a.mup && (!a.invp || !a.t1 || !a.t2)) ||
-      (recompute && (a.c_in > 128 || !a.bias)) ||
-      (MODE == kDzBn && (!a.zc || !a.dy || !a.sc || !a.mu || !a.inv ||
-                         !a.c1 || !a.c2)) ||
-      (MODE == kDzSoftmax && (a.c_out > kGradO || !a.dlp)))
-    return kErrArgs;
-  int e = launch_row_bwd<MODE == kDzSoftmax ? 64 : 128>(a, stream);
-  if (e) return e;
-  if constexpr (MODE == kDzBn)
-    e = a.c_in <= 64 ? launch_wgrad<2>(a, stream)
-                     : launch_wgrad<4>(a, stream);
-  else
-    e = launch_wgrad<4>(a, stream);
-  if (e) return e;
-  const int tiles = ceil_div(a.n, kTile), blocks = tiles * a.batch;
-  const long long ldp = 2LL * a.c_in + a.c_out;
-  if (a.t1) {
-    if ((e = colsum(a.part, ldp, blocks, a.c_in, 1, a.t1, a.c_in, stream)))
-      return e;
-    if ((e = colsum(a.part + a.c_in, ldp, blocks, a.c_in, 1, a.t2, a.c_in,
-                    stream)))
-      return e;
-  }
-  if ((e = colsum(a.part + 2 * a.c_in, ldp, blocks, a.c_out, 1, a.db, 0,
-                  stream)))
-    return e;
-  if (a.r && (e = colsum(a.part + 2 * a.c_in, ldp, tiles, a.c_out, a.batch,
-                         a.r, a.c_out, stream)))
-    return e;
-  const long long wsz = (long long)a.c_out * a.c_in;
-  if (wsz > 0x7fffffffLL) return kErrArgs;
-  return colsum(a.part_w, wsz, a.splits, (int)wsz, 1, a.dw, 0, stream);
 }
 
 }  // namespace

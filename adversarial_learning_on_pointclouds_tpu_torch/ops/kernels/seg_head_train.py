@@ -9,13 +9,15 @@ applies the previous layer's BN + ReLU as it reads:
 
 * **P1** ``z1 = pf @ W1[:64] + g_row + b1`` (``g_row = g @ W1[64:]``, one
   row per cloud: the 1088-wide concat never exists) and its statistics;
-* **Pmid** (x2) ``z = relu(bn(z_prev)) @ W + b`` and its statistics;
+* **Pmid** (x2) ``z = relu(bn(z_prev)) @ W + b`` and its statistics (on
+  the tensor cores: ``csrc/train_bwd_tc.cu``);
 * **P4** ``log_softmax(relu(bn3(z3)) @ W4 + b4)`` per point;
 * **B4** the softmax and conv4 backward, ``dy3`` and BN3's sums;
 * **Bmid** (x2) a BN backward and the matmul backward to the layer
   before, with its BN sums (on the tensor cores: ``csrc/train_bwd_tc.cu``);
 * **B1** BN1's backward, ``dw1a``, ``db1``, ``dpf`` and the per-cloud row
-  sum ``r`` of ``dz1`` (the cotangent of ``g_row``).
+  sum ``r`` of ``dz1`` (the cotangent of ``g_row``; on the tensor cores,
+  ``pf`` fp32).
 
 Each pass has a plain PyTorch twin of the same signature that CPU
 tensors run. ``g_row``, ``dg`` and ``dw1b`` are plain fp32 matmuls, as
@@ -66,10 +68,12 @@ def _mm(a, b, bf16):
     return torch.matmul(_op(a, bf16), _op(b, bf16))
 
 
-def _fwd(symbol, x, sc, sh, w, b, bf16, addend=None, logp=False):
+def _fwd(symbol, x, sc, sh, w, b, bf16, addend=None, logp=False,
+         tile=launch.TILE):
     """One forward row pass on the card: ``[B, N, c_in]`` in, the pre-BN
     ``z`` (a stash) and its statistics out (or, with ``logp``,
-    log-probabilities)."""
+    log-probabilities); ``tile``: the points a block owns, which size the
+    per-block partials."""
     bsz, n, c_in = x.shape
     c_out = w.shape[1]
     dev = x.device
@@ -92,7 +96,7 @@ def _fwd(symbol, x, sc, sh, w, b, bf16, addend=None, logp=False):
     else:
         stats = (torch.empty(c_out, **_f32(dev)),
                  torch.empty(c_out, **_f32(dev)))
-        part = torch.empty((2, launch.row_blocks(bsz, n), c_out),
+        part = torch.empty((2, launch.row_blocks(bsz, n, tile), c_out),
                            **_f32(dev))
         fields.update(z=out, sum=stats[0], ssq=stats[1], part=part)
     a = launch.args(launch.RowFwdArgs, **fields)
@@ -106,8 +110,9 @@ def _bwd(symbol, mode, zp, scp, shp, mup, invp, w, bf16, r=False,
     ``mode``'s inputs), then ``dy_prev = dz @ W^T`` (masked by the
     previous ReLU; a stash under ``dyp_stash``), the previous BN's sums,
     ``dW`` and ``db``. ``tc``: the tensor-core pass
-    (``csrc/train_bwd_tc.cu``), which writes ``dz`` and ``h`` for ``dW =
-    dz^T h`` on the GEMM core."""
+    (``csrc/train_bwd_tc.cu``), which writes ``dz`` and (behind a previous
+    BN) ``h`` for ``dW = dz^T h`` on the GEMM core; head B1's ``h`` is
+    ``z_prev`` itself."""
     bsz, n, c_in = zp.shape
     c_out = w.shape[1]
     dev = zp.device
@@ -137,7 +142,8 @@ def _bwd(symbol, mode, zp, scp, shp, mup, invp, w, bf16, r=False,
         part = torch.empty((launch.row_blocks(bsz, n, launch.TC_TILE),
                             2 * c_in + c_out), **f32)
         dz.update(dzs=torch.empty((rows, c_out), **f32),
-                  hs=torch.empty((rows, c_in), **f32))
+                  hs=None if scp is None else torch.empty((rows, c_in),
+                                                          **f32))
     else:
         splits = launch.weight_grad_splits(bsz, n, c_out, c_in, dev)
         part = torch.empty((launch.row_blocks(bsz, n), 2 * c_in + c_out),
@@ -184,7 +190,8 @@ def pmid_plain(z_prev, sc, sh, w, b, bf16: bool = False):
 def pmid(z_prev, sc, sh, w, b, bf16: bool = False):
     if launch.on_cpu(z_prev):
         return pmid_plain(z_prev, sc, sh, w, b, bf16)
-    out = _fwd("pt_head_pmid", z_prev, sc, sh, w, b, bf16)
+    out = _fwd("pt_head_pmid", z_prev, sc, sh, w, b, bf16,
+               tile=launch.TC_TILE)
     pmid.launches += 1
     return out
 
@@ -283,8 +290,8 @@ def b1(z1, dy1, sc1, mu1, inv1, coef1, coef2, pf, w1a, bf16: bool = False):
     if launch.on_cpu(z1):
         return b1_plain(z1, dy1, sc1, mu1, inv1, coef1, coef2, pf, w1a, bf16)
     dpf, dw1a, db1, _, _, r = _bwd("pt_head_b1", launch.DZ_BN, pf, None, None,
-                                   None, None, w1a, bf16, r=True, zc=z1,
-                                   dy=dy1, sc=sc1, mu=mu1, inv=inv1,
+                                   None, None, w1a, bf16, r=True, tc=True,
+                                   zc=z1, dy=dy1, sc=sc1, mu=mu1, inv=inv1,
                                    c1=coef1, c2=coef2)
     b1.launches += 1
     return dpf, dw1a, db1, r

@@ -149,8 +149,9 @@ StackArgs = type("StackArgs", (ctypes.Structure,), {"_fields_": [
     ("shift", ctypes.c_void_p * MAX_STACK), ("out", ctypes.c_void_p)]})
 DZ_BN, DZ_TRUNK, DZ_SOFTMAX = 0, 1, 2   # BwdArgs.mode
 TILE = 64          # rows per block of the row kernels (kTile in csrc)
-TC_TILE = 128      # rows per block of the tensor-core trunk F2, B1 and
-                   # Bmid (kTcRows in csrc/train_bwd_tc.cu)
+TC_TILE = 128      # rows per block of the tensor-core trunk F2 and B1
+                   # and the seg head's Pmid, Bmid and B1 (kTcRows in
+                   # csrc/train_bwd_tc.cu)
 DISC_TILE = 64     # rows per block of the disc's backward row pass
                    # (kDwRows in csrc/disc_tc.cu)
 # The ``prec`` bits of the argument structs (kRound... in common.cuh):

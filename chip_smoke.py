@@ -26,10 +26,11 @@ Phases, one or more lines each:
    P1/Pmid/P4/B4/Bmid/B1, the pool-fc epilogue at groups 1 and 2)
    against its plain pass at B=32 N=2048 (the config-3 step), B=32
    N=2500 (ragged) and B=2 N=2048, on inputs with negative BN3 gammas and
-   duplicated points (max ties go to the first point); trunk F2, B1 and
-   Bmid (on the tensor cores, ``csrc/train_bwd_tc.cu``) also, in fp32,
-   held by the float64 control (F2's sum and sum of squares, dy_prev and
-   dW at most ``F64_FACTOR`` times the plain fp32 pass's error), where
+   duplicated points (max ties go to the first point); trunk F2 and B1
+   and the seg head's Pmid, Bmid and B1 (on the tensor cores,
+   ``csrc/train_bwd_tc.cu``) also, in fp32, held by the float64 control
+   (F2's sum and sum of squares, Pmid's z, dy_prev, dpf and dW at most
+   ``F64_FACTOR`` times the plain fp32 pass's error), where
    the plain pass with TF32 allowed must fail; then each autograd
    function's outputs and gradients against its whole-function plain
    reference;
@@ -40,8 +41,9 @@ Phases, one or more lines each:
    checked per step; then 10 Adam steps on the fixed batch must lower
    the loss;
 8. train-timing: each training pass against its plain pass (TFLOP/s;
-   F2, B1 and Bmid bound at the 3xTF32 rate, the fp32-FMA bound beside
-   it), the step's median time, points/s and the profiler's busy share;
+   the tensor-core passes, ``TC_PASSES``, bound at the 3xTF32 rate, the
+   fp32-FMA bound beside it), the step's median time, points/s and the
+   profiler's busy share;
 9. disc-kernels: every discriminator pass (fwd, bwd_dx, bwd_dw, the full
    bwd; all on the tensor cores, ``csrc/disc_tc.cu``) against its plain
    pass at B=32 N=2048 (and the D step's 2B=64), B=32 N=2500 (ragged)
@@ -70,9 +72,11 @@ Phases, one or more lines each:
 12. bench-kernels: every training and discriminator pass in bf16 against
    its bf16 plain twin at the shapes of phases 6 and 9 (bf16 stashes may
    sit one bf16 step apart where the two sum in another order: the share
-   that differs is printed; the disc's dW5 takes the pass's own rounding
+   that differs is printed, and Pmid's z may differ in at most
+   ``STASH_SHARE`` of its elements, which z rounded toward zero must
+   fail; the disc's dW5 takes the pass's own rounding
    of h4, ``pass_h4``, itself held to one bf16 step of the twin's with at
-   most ``H4_SHARE`` of it apart; a dW5 of the unrounded h4 and an h4
+   most ``STASH_SHARE`` of it apart; a dW5 of the unrounded h4 and an h4
    rounded toward zero must fail); ``trunk2_train(groups=2)``'s
    passes at 2B=64 against their plain twins and against two groups=1
    launches (pooled values, statistics and extrema bit-equal);
@@ -92,7 +96,9 @@ Phases, one or more lines each:
    sub-kernels and the forward's two tile sizes), ``augment_fused`` and the
    groups=2 passes, and the bench step through ``train_steps_scan`` (K=8:
    per-step ms, points/s of both streams, idle share), one step per call,
-   with ``paired_trunks`` and without ``pallas_augment``;
+   with ``paired_trunks`` and without ``pallas_augment``; the bench
+   step's profile must show ``pmid_tc_kernel`` and ``head_b1_tc_kernel``
+   and neither ``row_bwd_kernel<128>`` nor ``wgrad_kernel<2>``;
 15. pallas-train-kernels: the per-layer training kernels that
    ``dispatch.use_pallas_train`` (the JAX package's
    ``use_pallas(training=True)``) reaches, each pass against its plain
@@ -131,7 +137,9 @@ Phases, one or more lines each:
    non-unit scales, in fp32 and bf16; ``trunk3_train`` at STN3d's and
    STNkd's widths (c_in 3 and 64) at B=32 N=2048, N=2500 and B=2, on
    duplicated points with negative BN3 gammas: each of its six passes
-   against its plain pass, then its outputs and 13 gradients against
+   against its plain pass (Pmid and the head's B1 in fp32 also by the
+   float64 control, with TF32 controls at c_in 64, B=32 N=2048), then
+   its outputs and 13 gradients against
    ``trunk3_train_reference`` and against conv1 + BN1 + ReLU in front of
    ``trunk2_train``;
 19. adv-pallas-slice: the config-4 G+D step at 2 x B=32 x N=2500 under
@@ -168,7 +176,8 @@ prints no result line.
 ``--time fp32|bench|pallas_train [--root DIR]`` runs only the G+D step's
 timing of phase 11, 14 or 17 (the bench step under the switch), on the
 port package under ``DIR`` (``time_alone``), for A/B runs of two trees on
-one card; it checks nothing and prints no result line.
+one card; ``--time passes`` times the seg head's Pmid and B1 alone, fp32
+and bf16. They check nothing and print no result line.
 """
 
 import copy
@@ -259,11 +268,13 @@ HBM_RATE = 3.35e12    # bytes/s (H100 SXM)
 YARD_FACTOR = 2.0
 BENCH_K = 8           # steps per train_steps_scan call (bench.py --scan 8)
 STASH_BOUND = 2.0 ** -8   # one bf16 step of a stash's scale (check_stash)
-# The share of the disc pass's bf16 h4 (dW5's operand) that may sit one
-# bf16 step from the plain twin's: only fp32 sums of another order on a
-# rounding midpoint, about 1e-4 of the elements on the H100; a rounding
-# of another kind (toward zero, say) moves about half of them.
-H4_SHARE = 1e-3
+# The share of a tensor-core pass's bf16 values (the disc pass's h4, dW5's
+# operand; Pmid's z stash) that may sit one bf16 step from the plain
+# twin's: only fp32 sums of another order on a rounding midpoint, about
+# 1e-4 of the elements on the H100 (h4 at K=256, PR 10; Pmid's z
+# 0.2e-4 to 1.6e-4 at K=64 to 512, PR 11); a rounding of another kind
+# (toward zero, say) moves about half of them.
+STASH_SHARE = 1e-3
 # A bf16 pass's fp32 outputs against its bf16 twin: where an operand (a
 # cotangent dz, say) rounds to its other bf16 neighbour on one side, a
 # sum moves by one bf16 step of one of its terms, 2^-8 of it, and at
@@ -294,7 +305,8 @@ GEMM_KERNELS = ("pointwise_matmul", "tnet_apply")
 # mma.cuh's fragment layer and the GEMM core): fp32 as 3xTF32, bound at
 # that rate with the fp32-FMA bound beside it.
 TC_PASSES = (("trunk2_train", "F2"), ("trunk2_train", "B1"),
-             ("seg_head_train", "Bmid"))
+             ("seg_head_train", "Pmid"), ("seg_head_train", "Bmid"),
+             ("seg_head_train", "B1"))
 # The discriminator's passes, all on the tensor cores (csrc/disc_tc.cu:
 # the forward kernel; the backward's row pass, and for dW the GEMM core),
 # bound as TC_PASSES.
@@ -829,12 +841,13 @@ class PassRecord:
         self.f64[key] = max(self.f64.get(key, 0.0), ratio)
 
     def cmp(self, kernel, pas, tag, names, got, ref, main, fn_args,
-            scales=None, phase_tag="train-kernels", bound=None):
+            scales=None, phase_tag="train-kernels", bound=None,
+            max_share=None):
         key = (kernel, pas)
         for nm, a, b in zip(names, got, ref):
             if a.dtype == torch.bfloat16:
                 d, share = check_stash(f"{kernel} {pas} {nm} {tag}", a, b,
-                                       phase_tag)
+                                       phase_tag, max_share)
                 self.share[key] = max(self.share.get(key, 0.0), share)
             else:
                 d = check(f"{kernel} {pas} {nm} {tag}", a, b,
@@ -939,6 +952,40 @@ def bmid_f64(zc, dy, sc, mu, inv, coef1, coef2, zp, scp, shp, w, mup, invp):
           - ((zc.double() - mu.double()) * inv.double()) * coef2.double())
     return (torch.matmul(dz, w.double().t()) * (hp > 0),
             _rows64(hp).t() @ _rows64(dz))
+
+
+def pmid_f64(z_prev, sc, sh, w, b):
+    """Pmid's float64 control (fp32): ``(z,)``, its product, in float64
+    with h as the fp32 passes compute it. Its sums are held to the plain
+    twin only: sum z^2 adds up the 3xTF32 step sums' truncation toward
+    zero (about 1e-7 of each z) row by row, 2.45x the plain pass's error
+    against float64 at B=2 N=2048, 512 -> 256 (PERF.md, PR 11)."""
+    h = torch.relu(z_prev.float() * sc + sh)
+    return (torch.matmul(h.double(), w.double()) + b.double(),)
+
+
+def head_b1_f64(z1, dy1, sc1, mu1, inv1, coef1, coef2, pf, w1a):
+    """The head's B1's float64 control (fp32): ``(dpf, dw1a)`` in
+    float64."""
+    dz = (dy1.double() * sc1.double() - coef1.double()
+          - ((z1.double() - mu1.double()) * inv1.double()) * coef2.double())
+    return torch.matmul(dz, w1a.double().t()), _rows64(pf).t() @ _rows64(dz)
+
+
+def truncated_stash_control(name, fp32, ref, ptag):
+    """The control of a bf16 stash's share check: the pass's fp32 values
+    rounded toward zero (fp32's low 16 bits cleared) must fail it."""
+    trunc = (fp32.contiguous().view(torch.int32) & -65536).view(
+        torch.float32).to(torch.bfloat16)
+    try:
+        check_stash(f"control: {name} rounded toward zero", trunc, ref, ptag,
+                    STASH_SHARE)
+    except AssertionError:
+        phase(ptag, f"control: {name} rounded toward zero fails the stash "
+              "check, as it must")
+    else:
+        raise AssertionError(f"the bf16 stash check passed {name} rounded "
+                             "toward zero")
 
 
 def tc_f64(rec, kernel, pas, tag, got, ref, ref64, names, ptag, control):
@@ -1047,9 +1094,20 @@ def train_kernel_checks(dev, gen, rec, bf16=False):
                     break
                 a = (zs[-1], scs[-1], shs[-1], wn, bn, *xb)
                 got, ref = sh.pmid(*a), sh.pmid_plain(*a)
-                rec.cmp("seg_head_train", "Pmid", f"{wn.shape[0]}->"
-                        f"{wn.shape[1]} {tag}", ("z", "sum", "sumsq"), got,
-                        ref, main, a, phase_tag=ptag)
+                t = f"{wn.shape[0]}->{wn.shape[1]} {tag}"
+                rec.cmp("seg_head_train", "Pmid", t, ("z", "sum", "sumsq"),
+                        got, ref, main, a, phase_tag=ptag,
+                        max_share=STASH_SHARE)
+                if not bf16:
+                    tc_f64(rec, "seg_head_train", "Pmid", t, got, ref,
+                           pmid_f64(*a), ("z",), ptag,
+                           (lambda: sh.pmid_plain(*a)[0])
+                           if main and wn is w2 else None)
+                elif main:
+                    truncated_stash_control(
+                        f"seg_head_train Pmid z {t}",
+                        sh._mm(sh._bn_relu(*a[:3]), wn, True) + bn, ref[0],
+                        ptag)
                 zs.append(ref[0])
             a = (zs[2], scs[2], shs[2], w4, b4, *xb)
             logp = sh.p4_plain(*a)
@@ -1083,6 +1141,10 @@ def train_kernel_checks(dev, gen, rec, bf16=False):
             got, ref = sh.b1(*a), sh.b1_plain(*a)
             rec.cmp("seg_head_train", "B1", tag, ("dpf", "dw1a", "db1", "r"),
                     got, ref, main, a, dz_scales(sh, a), ptag)
+            if not bf16:
+                tc_f64(rec, "seg_head_train", "B1", tag, got, ref,
+                       head_b1_f64(*a), ("dpf", "dw1a"), ptag,
+                       (lambda: sh.b1_plain(*a)[0]) if main else None)
         torch.cuda.synchronize()
 
     # The pool-fc epilogue at the T-Net head's shapes: groups 1 (one
@@ -1525,7 +1587,7 @@ def check_disc_dw(rec, tag, x, g, ws, bs, bf16, full, main, ptag, h4p=None):
     own magnitude (``check``'s element-wise scale: ``bound * max(1,
     |dW5|)``, tighter than ``bound * max(1, max|dW5|)``). h4 itself is
     held to the plain twin's: each element equal or one bf16 step apart,
-    and at most ``H4_SHARE`` of them apart. On the main shape two
+    and at most ``STASH_SHARE`` of them apart. On the main shape two
     controls must fail: a dW5 taken from the unrounded fp32 h4, and h4
     rounded toward zero in place of the pass's. The same rule holds dx:
     its product takes the pass's own dz1, rounded as the pass rounds
@@ -1557,7 +1619,7 @@ def check_disc_dw(rec, tag, x, g, ws, bs, bf16, full, main, ptag, h4p=None):
         ref4 = core.operand(df.leaky(z4), True).to(torch.bfloat16)
         check_stash(f"disc_fused {pas} h4 {tag} (the pass's rounding, read "
                     "from its dW5 partials)", h4p.to(torch.bfloat16), ref4,
-                    ptag, H4_SHARE)
+                    ptag, STASH_SHARE)
         terms = (ref4.float().abs().t()
                  @ core.operand(gs, True).abs()).max().item()
         phase(ptag, f"disc_fused {pas} dW5 {tag}: max|dW5| "
@@ -1575,18 +1637,8 @@ def check_disc_dw(rec, tag, x, g, ws, bs, bf16, full, main, ptag, h4p=None):
             else:
                 raise AssertionError("the bf16 dW5 check passed a dW5 of "
                                      "the unrounded fp32 h4")
-            # h4 rounded toward zero: fp32's low 16 bits cleared.
-            trunc = (df.leaky(z4).contiguous().view(torch.int32)
-                     & -65536).view(torch.float32).to(torch.bfloat16)
-            try:
-                check_stash(f"control: disc_fused {pas} h4 {tag} rounded "
-                            "toward zero", trunc, ref4, ptag, H4_SHARE)
-            except AssertionError:
-                phase(ptag, "control: h4 rounded toward zero fails the h4 "
-                      "check, as it must")
-            else:
-                raise AssertionError("the bf16 h4 check passed h4 rounded "
-                                     "toward zero")
+            truncated_stash_control(f"disc_fused {pas} h4 {tag}",
+                                    df.leaky(z4), ref4, ptag)
 
     names = [k for k in kern if k[:2] in ("dx", "dw", "db")]
     dx, dws, dbs, flips = disc_plain_branched(
@@ -2560,6 +2612,28 @@ def bench_timing(card, rec, results, bench):
         scan_state, *batch_k, cfg=cfg, g_tx=txs[0], d_tx=txs[1]), reps=1)
     for key, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:14]:
         phase("bench-timing", f"  {ms / BENCH_K:.4f} ms per step  {key[:90]}")
+    profile_names(kernels, "the bench step")
+
+
+# The seg head's tensor-core passes, which the bench step must show under
+# their own names, and the CUDA-core kernels they replaced, which it must
+# not (PR 11).
+TC_HEAD_KERNELS = ("pmid_tc_kernel<", "head_b1_tc_kernel<")
+GONE_KERNELS = ("row_bwd_kernel<128", "wgrad_kernel<2")
+
+
+def profile_names(kernels, what):
+    """Fail unless the profile ``kernels`` (by name) ran each of
+    ``TC_HEAD_KERNELS`` and none of ``GONE_KERNELS``."""
+    ran = {k: [n for n in kernels if k in n]
+           for k in TC_HEAD_KERNELS + GONE_KERNELS}
+    missing = [k for k in TC_HEAD_KERNELS if not ran[k]]
+    stale = [n for k in GONE_KERNELS for n in ran[k]]
+    phase("bench-timing", f"profile of {what}: "
+          + "; ".join(f"{k}..> {len(ran[k])} name(s)" for k in ran))
+    if missing or stale:
+        raise AssertionError(f"{what}: kernels missing {missing}, removed "
+                             f"kernels that ran {stale}")
 
 
 # ---------------------------------------------------------------------------
@@ -3106,12 +3180,15 @@ def fwd_bwd(fn, args):
     return [o.detach() for o in out], [t.grad for t in leaves]
 
 
-def trunk3_pass_checks(dev, gen, rec, args, tag, ptag, bf16=False):
+def trunk3_pass_checks(dev, gen, rec, args, tag, ptag, bf16=False,
+                       control=False):
     """trunk3_train's six passes at its shapes, each against its plain
-    pass on the plain chain's outputs (as phase 6 runs trunk2's); with
-    ``bf16`` the passes as ``trunk3_train`` runs them under
-    ``core.mixed_precision`` (bf16 operands and stashes, as phase 12 runs
-    trunk2's), held to ``BF16_BOUND`` and ``check_stash``."""
+    pass on the plain chain's outputs (as phase 6 runs trunk2's); Pmid and
+    the head's B1 in fp32 also against float64, with TF32 controls that
+    must fail under ``control``; with ``bf16`` the passes as
+    ``trunk3_train`` runs them under ``core.mixed_precision`` (bf16
+    operands and stashes, as phase 12 runs trunk2's), held to
+    ``BF16_BOUND`` and ``check_stash``."""
     from adversarial_learning_on_pointclouds_tpu_torch.models import core
     from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
         seg_head_train as sh, trunk_train as tt,
@@ -3134,7 +3211,10 @@ def trunk3_pass_checks(dev, gen, rec, args, tag, ptag, bf16=False):
     a = (z1, sc1, sh1, w2, b2, *xb)
     got, ref = sh.pmid(*a), sh.pmid_plain(*a)
     rec.cmp(k, "Pmid", tag, ("z2", "sum", "sumsq"), got, ref, False, a,
-            phase_tag=ptag, bound=bnd)
+            phase_tag=ptag, bound=bnd, max_share=STASH_SHARE)
+    if not bf16:
+        tc_f64(rec, k, "Pmid", tag, got, ref, pmid_f64(*a), ("z2",), ptag,
+               (lambda: sh.pmid_plain(*a)[0]) if control else None)
     z2 = ref[0]
     mu2, _, inv2 = core.batch_moments(ref[1], ref[2], m)
     sc2, sh2 = g2 * inv2, be2 - mu2 * g2 * inv2
@@ -3171,6 +3251,10 @@ def trunk3_pass_checks(dev, gen, rec, args, tag, ptag, bf16=False):
     got, ref = sh.b1(*a), sh.b1_plain(*a)
     rec.cmp(k, "head B1", tag, ("dpf", "dw1a", "db1", "r"), got, ref, False,
             a, dz_scales(sh, a), ptag, bnd)
+    if not bf16:
+        tc_f64(rec, k, "head B1", tag, got, ref, head_b1_f64(*a),
+               ("dpf", "dw1a"), ptag,
+               (lambda: sh.b1_plain(*a)[0]) if control else None)
 
 
 def stack_trunk3_checks(dev, gen):
@@ -3213,7 +3297,8 @@ def stack_trunk3_checks(dev, gen):
             at = f"c_in={c0} B={bsz} N={n}"
             args = trunk3_args(gen, bsz, n, c0, dev)
             with torch.no_grad():
-                trunk3_pass_checks(dev, gen, rec, args, at, tag)
+                trunk3_pass_checks(dev, gen, rec, args, at, tag,
+                                   control=(c0, bsz, n) == (64, B, TRAIN_N))
             out, grads = fwd_bwd(tt.trunk3_train, args)
             for other, fn in (("reference", tt.trunk3_train_reference),
                               ("conv1 + trunk2_train", conv1_then_trunk2)):
@@ -3359,14 +3444,14 @@ def adv_pt_slice(dev, card, gen):
 def trunk3_work(args):
     """``(fma_flops, tc_flops, bytes)`` of one trunk3_train forward and
     backward: each layer's product forward and its two products backward
-    (dx, dW), split by the unit that runs them (the backward products of
-    layers 2 and 3, Bmid and B1, on the tensor cores in 3xTF32; the rest
-    as fp32 FMAs), and x, the parameters, the pooled output, the
-    statistics and every gradient once."""
+    (dx, dW), split by the unit that runs them (layer 1's forward, F1, as
+    fp32 FMAs; every other product, Pmid, F2, trunk B1, Bmid and the
+    head's B1, on the tensor cores in 3xTF32), and x, the parameters, the
+    pooled output, the statistics and every gradient once."""
     x, w1, _, _, _, w2, _, _, _, w3 = args[:10]
     m = x.shape[0] * x.shape[1]
-    tc = 2 * 2 * m * (w2.numel() + w3.numel())
-    fma = 3 * 2 * m * sum(w.numel() for w in (w1, w2, w3)) - tc
+    fma = 2 * m * w1.numel()
+    tc = 3 * 2 * m * sum(w.numel() for w in (w1, w2, w3)) - fma
     params = sum(t.numel() for t in args[1:])
     nbytes = 4 * (2 * x.numel() + 2 * params + x.shape[0] * w3.shape[1]
                   + 2 * sum(w.shape[1] for w in (w1, w2, w3)))
@@ -3505,15 +3590,61 @@ def kernel_entry(name, src, site, launches, passes, times):
             "times": times, "passes": passes}
 
 
+def head_passes(card):
+    """``--time passes``: the seg head's Pmid (512 -> 256 and 256 -> 128,
+    a config-3 step's two launches) and B1 (512 -> 64, one launch) at
+    B=32 N=2048 on seeded data, fp32 and bf16: median ms of ``REPS`` calls
+    (CUDA events), device ms (profiler) and TFLOP/s of each."""
+    from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
+        seg_head_train as sh,
+    )
+
+    dev, gen, m = torch.device("cuda", 0), torch.Generator().manual_seed(
+        SEED), B * TRAIN_N
+    out = {}
+    for bf16 in (False, True):
+        def stash(c, scale=1.0):
+            t = _r(gen, B, TRAIN_N, c, scale=scale, dev=dev)
+            return t.to(torch.bfloat16) if bf16 else t
+
+        pmid = [(stash(ci), _gam(gen, ci, dev), _r(gen, ci, dev=dev),
+                 _w(gen, ci, co, dev), _r(gen, co, dev=dev), bf16)
+                for ci, co in ((512, 256), (256, 128))]
+        b1 = [(stash(512), stash(512, 0.2), _gam(gen, 512, dev),
+               _r(gen, 512, dev=dev), _gam(gen, 512, dev),
+               _r(gen, 512, scale=1e-2, dev=dev),
+               _r(gen, 512, scale=1e-2, dev=dev),
+               torch.relu(_r(gen, B, TRAIN_N, 64, scale=1.0, dev=dev)),
+               _w(gen, 64, 512, dev), bf16)]
+        for name, fn, calls, flops in (
+                ("Pmid", sh.pmid, pmid, 2 * m * (512 * 256 + 256 * 128)),
+                ("B1", sh.b1, b1, 2 * 2 * m * 512 * 64)):
+            def run():
+                return [fn(*a) for a in calls]
+
+            with torch.no_grad():
+                run()
+                ms = statistics.median(event_ms(run, REPS))
+                dev_ms = sum(device_profile(run).values())
+            key = f"{name} {'bf16' if bf16 else 'fp32'}"
+            out[key] = {"ms": ms, "device_ms": dev_ms,
+                        "tflops": flops / ms / 1e9}
+            phase("time", f"{card}: {key} x{len(calls)} at B={B} "
+                  f"N={TRAIN_N}: {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+                  f"TFLOP/s), device {dev_ms:.4f} ms")
+    return out
+
+
 def time_alone(mode: str, root: str, card: str) -> None:
-    """``--time fp32|bench|pallas_train --root DIR``: the G+D step's timing
-    alone, of the port package under ``DIR`` (a checkout, or a ``git
-    archive`` of the parent commit, say), from ``create_state``'s weights
-    seeded by ``cfg.seed`` on seeded batches: ``fp32`` as phase 11
+    """``--time fp32|bench|pallas_train|passes --root DIR``: the G+D step's
+    timing alone, of the port package under ``DIR`` (a checkout, or a
+    ``git archive`` of the parent commit, say), from ``create_state``'s
+    weights seeded by ``cfg.seed`` on seeded batches: ``fp32`` as phase 11
     (synchronized ``train_step`` calls of ``AdversarialConfig()``),
     ``bench`` as phase 14 (``train_steps_scan`` at K=8 of the bench
     configuration), ``pallas_train`` the same under ``use_pallas_train``
-    (``bench.py --pallas_train``; a tree without the switch fails). Prints
+    (``bench.py --pallas_train``; a tree without the switch fails);
+    ``passes`` the seg head's Pmid and B1 alone (``head_passes``). Prints
     one JSON line, and no result line. To compare two trees, alternate
     them within one call (A B B A): the host's share of a step moves
     between calls."""
@@ -3526,6 +3657,10 @@ def time_alone(mode: str, root: str, card: str) -> None:
 
     from adversarial_learning_on_pointclouds_tpu_torch.ops import dispatch
 
+    if mode == "passes":
+        print(json.dumps({"root": root, "mode": mode, "card": card,
+                          **head_passes(card)}), flush=True)
+        return
     if mode == "fp32":
         cfg, k = AdversarialConfig(), 1
     else:
@@ -3553,9 +3688,10 @@ def main() -> None:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--time", choices=("fp32", "bench", "pallas_train"),
-                    help="time the G+D step alone (no checks, no result "
-                         "line)")
+    ap.add_argument("--time", choices=("fp32", "bench", "pallas_train",
+                                       "passes"),
+                    help="time the G+D step, or the seg head's Pmid and "
+                         "B1, alone (no checks, no result line)")
     ap.add_argument("--disc-checks", type=int, metavar="SEED",
                     help="run only the discriminator's checks of phases 9 "
                          "and 12 on data from this generator seed (no "

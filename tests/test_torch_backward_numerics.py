@@ -1,6 +1,6 @@
 """The numerics of the generator's tensor-core passes
-(``csrc/train_bwd_tc.cu``: trunk F2 and B1 and the seg head's Bmid),
-emulated in plain PyTorch on the CPU.
+(``csrc/train_bwd_tc.cu``: trunk F2 and B1 and the seg head's Pmid, Bmid
+and B1), emulated in plain PyTorch on the CPU.
 
 The card's kernels cannot run here; their arithmetic can. Trunk B1
 recomputes ``h2 = relu(bn2(z2))`` in fp32 (the ReLU mask every pass
@@ -18,13 +18,22 @@ and summed in fp32. Sums (db, t1, t2) are fp32 values added in float64.
 F2 shares B1's prologue and first GEMM: the same h2 and 3xTF32 z3 = h2 W3^T
 + b3, reduced per 128-point tile of one cloud to fp32 column sums and sums
 of squares (added per group in float64) and to each cloud's max and min
-with the first point attaining them.
+with the first point attaining them. Pmid is F2 at any width without the
+extrema: h = relu(bn(x)) in fp32 (bn_affine's roundings), z = h W^T + b
+by 32-deep chunks of c_in (the accumulator runs on across them: one
+product), z's column sums per 128-point tile. The seg head's B1 is Bmid
+without the previous BN: dz by 64-channel chunks (elementwise, so the
+chunks change nothing), dpf = dz W1a^T unmasked in fp32, dW1a = dz^T pf
+by row splits, db and each cloud's r from per-tile fp32 sums added in
+float64.
 
 Held at narrow widths (B1 c_in 32, c_out 256; F2 128 -> 256; Bmid 64 ->
-128 and 128 -> 64), a ragged N = 300, groups 1 and 2: fp32 within
-``BOUND`` (1e-4 scale-relative) of float64, of the port's plain twins and
-of the JAX package's ``_b1_call`` / ``_f2_call`` / ``_bmid_call``
-(HIGHEST precision, Pallas in interpret mode as its own tests run it);
+128 and 128 -> 64; Pmid 128 -> 64 and 64 -> 128; the head's B1 128 -> 32
+and 64 -> 3), a ragged N = 300, groups 1 and 2: fp32 within ``BOUND``
+(1e-4 scale-relative) of float64, of the port's plain twins and of the
+JAX package's ``_b1_call`` / ``_f2_call`` / ``_pmid_call`` /
+``_bmid_call`` and the seg head's ``_b1_call`` (HIGHEST precision,
+Pallas in interpret mode as its own tests run it);
 bf16 within ``BF16_BOUND`` of the JAX kernels under their
 mixed-precision scope. The control: one TF32 product instead of three
 misses ``BOUND``. These tests document the contract the kernels are built
@@ -56,7 +65,10 @@ ROWS_PER_SPLIT = 256   # the dW product's row ranges (ops/launch.py: row_splits)
 B1_WIDTHS = (32, 256)  # (c_in, c_out)
 BMID_WIDTHS = ((64, 128), (128, 64))   # (c_out, c_in): dz width -> dyp width
 F2_WIDTHS = (128, 256)                 # (c2, c3)
-F2_TILE = 128          # points a block of F2 (csrc/train_bwd_tc.cu)
+PMID_WIDTHS = ((128, 64), (64, 128))   # (c_in, c_out)
+HEAD_B1_WIDTHS = ((128, 32), (64, 3))  # (c_out, c_in): dz width -> dpf width
+TC_TILE = 128          # points a block of F2, Pmid, the head's B1
+                       # (kTcRows in csrc/train_bwd_tc.cu)
 
 
 def _bf(t: torch.Tensor) -> torch.Tensor:
@@ -155,14 +167,50 @@ def f2_emulated(args, groups, prec):
     z3 = _mm(h2.reshape(-1, c2), w3, prec).reshape(bsz, n, c3) + _f(b3, prec)
     if prec == "f64":
         s, ss = (t.reshape(groups, -1, c3).sum(1) for t in (z3, z3 * z3))
-    else:   # fp32 sums of each tile of F2_TILE points, added in float64
-        s, ss = (sum(t[:, p:p + F2_TILE].sum(1).double()
-                     for p in range(0, n, F2_TILE)).reshape(
+    else:   # fp32 sums of each tile of TC_TILE points, added in float64
+        s, ss = (sum(t[:, p:p + TC_TILE].sum(1).double()
+                     for p in range(0, n, TC_TILE)).reshape(
                          groups, bpg, c3).sum(1) for t in (z3, z3 * z3))
     mx, mn = z3.max(1).values, z3.min(1).values
     first = lambda hit: hit.int().argmax(1).int()  # noqa: E731
     return (s[0] if groups == 1 else s, ss[0] if groups == 1 else ss, mx,
             mn, first(z3 == mx[:, None]), first(z3 == mn[:, None]))
+
+
+def _tile_sums(t, prec):
+    """Each cloud's column sums of ``[B, N, C]``: fp32 sums of each tile
+    of ``TC_TILE`` points added in float64 (float64 throughout for
+    ``f64``)."""
+    if prec == "f64":
+        return t.double().sum(1)
+    return sum(t[:, p:p + TC_TILE].sum(1).double()
+               for p in range(0, t.shape[1], TC_TILE))
+
+
+def pmid_emulated(args, prec):
+    """Pmid as ``train_bwd_tc.cu`` computes it: ``(z, sum, sumsq)``, ``z``
+    before its stash; ``prec="f64"`` is the float64 control (h from fp32,
+    the product and the sums in float64)."""
+    z_prev, sc, sh, w, b = args
+    bsz, n, c_in = z_prev.shape
+    h = _f(torch.relu(z_prev.float() * sc + sh), prec)
+    z = _mm(h.reshape(-1, c_in), w, prec).reshape(bsz, n, -1) + _f(b, prec)
+    return z, _tile_sums(z, prec).sum(0), _tile_sums(z * z, prec).sum(0)
+
+
+def head_b1_emulated(args, prec):
+    """The seg head's B1 as ``train_bwd_tc.cu`` computes it: ``(dpf, dw1a,
+    db1, r)``."""
+    z1, dy1, sc1, mu1, inv1, c1, c2, pf, w1a = args
+    bsz, n, c_out = z1.shape
+    c_in = w1a.shape[0]
+    z1, dy1, sc1, mu1, inv1, c1, c2, pf = (
+        _f(t, prec) for t in (z1, dy1, sc1, mu1, inv1, c1, c2, pf))
+    dz = dy1 * sc1 - c1 - ((z1 - mu1) * inv1) * c2
+    dpf = _mm(dz.reshape(-1, c_out), w1a.t(), prec).reshape(bsz, n, c_in)
+    r = _tile_sums(dz, prec)
+    return (dpf, _dw(dz.reshape(-1, c_out), pf.reshape(-1, c_in), prec),
+            r.sum(0), r)
 
 
 def _rel(a, b) -> float:
@@ -244,6 +292,37 @@ def _f2_args(groups, bf16=False):
             (rng.standard_normal(c3) * 0.1).astype(f))
 
 
+@functools.lru_cache(maxsize=None)
+def _pmid_args(c_in, c_out, bf16=False):
+    rng = np.random.default_rng(c_in * 1000 + c_out + 30 + bf16)
+    f = np.float32
+    z = rng.standard_normal((2, N, c_in)).astype(f)
+    return ((_stash(z) if bf16 else z),
+            rng.uniform(0.5, 1.5, c_in).astype(f),
+            (rng.standard_normal(c_in) * 0.1).astype(f),
+            (rng.uniform(-1, 1, (c_in, c_out)) / np.sqrt(c_in)).astype(f),
+            (rng.standard_normal(c_out) * 0.1).astype(f))
+
+
+@functools.lru_cache(maxsize=None)
+def _head_b1_args(c_out, c_in, bf16=False):
+    rng = np.random.default_rng(c_out * 1000 + c_in + 40 + bf16)
+    f = np.float32
+
+    def stash(*shape, scale=1.0):
+        a = (rng.standard_normal(shape) * scale).astype(f)
+        return _stash(a) if bf16 else a
+
+    return (stash(2, N, c_out), stash(2, N, c_out, scale=0.2),
+            rng.uniform(0.5, 1.5, c_out).astype(f),
+            (rng.standard_normal(c_out) * 0.1).astype(f),
+            rng.uniform(0.5, 1.5, c_out).astype(f),
+            (rng.standard_normal(c_out) * 1e-2).astype(f),
+            (rng.standard_normal(c_out) * 1e-2).astype(f),
+            np.maximum(rng.standard_normal((2, N, c_in)), 0).astype(f),
+            (rng.uniform(-1, 1, (c_in, c_out)) / np.sqrt(c_out)).astype(f))
+
+
 def _torch(args):
     return tuple(torch.from_numpy(a) for a in args)
 
@@ -279,7 +358,30 @@ def _jax_f2(groups, bf16=False):
     return jax_trunk._f2_call(*args, groups=groups)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_pmid(c_in, c_out, bf16=False):
+    args = [jnp.asarray(a) for a in _pmid_args(c_in, c_out, bf16)]
+    if bf16:
+        args[0] = args[0].astype(jnp.bfloat16)
+        with jax_core.mixed_precision():
+            return jax_head._pmid_call(*args)
+    return jax_head._pmid_call(*args)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_head_b1(c_out, c_in, bf16=False):
+    args = [jnp.asarray(a) for a in _head_b1_args(c_out, c_in, bf16)]
+    if bf16:
+        for i in (0, 1):
+            args[i] = args[i].astype(jnp.bfloat16)
+        with jax_core.mixed_precision():
+            return jax_head._b1_call(*args)
+    return jax_head._b1_call(*args)
+
+
 NAMES = ("dy_prev", "dw", "db", "t1", "t2")
+PMID_NAMES = ("z", "sum", "sumsq")
+HEAD_B1_NAMES = ("dpf", "dw1a", "db1", "r")
 F2_NAMES = ("sum", "sumsq", "max", "min")
 
 
@@ -419,7 +521,77 @@ def test_bmid_bf16_matches_jax_mixed_precision(c_out, c_in):
             assert _rel(e, p) <= BF16_BOUND, nm
 
 
-@pytest.mark.parametrize("pas", ["B1", "Bmid", "F2"])
+@pytest.mark.parametrize("c_in,c_out", PMID_WIDTHS)
+def test_pmid_3xtf32_matches_float64_plain_and_jax(c_in, c_out):
+    args = _torch(_pmid_args(c_in, c_out))
+    emu = pmid_emulated(args, "3xtf32")
+    ref = pmid_emulated(args, "f64")
+    plain = seg_head_train.pmid_plain(*args)
+    for nm, e, r, p, j in zip(PMID_NAMES, emu, ref, plain,
+                              _jax_pmid(c_in, c_out)):
+        assert _rel(e, r) <= BOUND, (nm, _rel(e, r))
+        assert _rel(e, p) <= BOUND, (nm, _rel(e, p))
+        assert _rel(e, np.asarray(j).reshape(e.shape)) <= BOUND, nm
+
+
+@pytest.mark.parametrize("c_in,c_out", PMID_WIDTHS)
+def test_pmid_bf16_matches_jax_mixed_precision(c_in, c_out):
+    """bf16 h and W as the JAX kernel's ``_mxu_dot`` casts them, fp32
+    sums; ``z`` a bf16 stash on both sides: equal or one bf16 step apart,
+    or within ``BF16_BOUND`` of its scale; the sums within ``BF16_BOUND``;
+    and the rounding did happen (fp32 lands elsewhere)."""
+    args = _torch(_pmid_args(c_in, c_out, bf16=True))
+    emu = list(pmid_emulated(args, "bf16"))
+    assert _rel(emu[0], pmid_emulated(args, "3xtf32")[0]) > 10 * BOUND
+    emu[0] = emu[0].to(torch.bfloat16)
+    plain = seg_head_train.pmid_plain(*args, bf16=True)
+    for i, (nm, e, p, j) in enumerate(zip(PMID_NAMES, emu, plain,
+                                          _jax_pmid(c_in, c_out, True))):
+        j = torch.from_numpy(np.array(jnp.asarray(j, jnp.float32))
+                             ).reshape(e.shape)
+        if i == 0:
+            e, p = e.float(), p.float()
+            step = (j.abs() * 2.0 ** -7).clamp_min(
+                BF16_BOUND * max(1.0, j.abs().max().item()))
+            assert ((e - j).abs() <= step).all(), nm
+            assert ((e - p).abs() <= step).all(), nm
+        else:
+            assert _rel(e, j) <= BF16_BOUND, nm
+            assert _rel(e, p) <= BF16_BOUND, nm
+
+
+@pytest.mark.parametrize("c_out,c_in", HEAD_B1_WIDTHS)
+def test_head_b1_3xtf32_matches_float64_plain_and_jax(c_out, c_in):
+    args = _torch(_head_b1_args(c_out, c_in))
+    emu = head_b1_emulated(args, "3xtf32")
+    ref = head_b1_emulated(args, "f64")
+    plain = seg_head_train.b1_plain(*args)
+    for nm, e, r, p, j in zip(HEAD_B1_NAMES, emu, ref, plain,
+                              _jax_head_b1(c_out, c_in)):
+        assert _rel(e, r) <= BOUND, (nm, _rel(e, r))
+        assert _rel(e, p) <= BOUND, (nm, _rel(e, p))
+        assert _rel(e, np.asarray(j).reshape(e.shape)) <= BOUND, nm
+
+
+@pytest.mark.parametrize("c_out,c_in", HEAD_B1_WIDTHS)
+def test_head_b1_bf16_matches_jax_mixed_precision(c_out, c_in):
+    """bf16 dz, W1a and pf as the JAX kernel's ``_mxu_dot`` /
+    ``_mxu_dot_t`` cast them, fp32 sums; db and r from the unrounded dz:
+    within ``BF16_BOUND`` of it and of the port's bf16 plain twin; and the
+    rounding did happen (fp32 lands elsewhere)."""
+    args = _torch(_head_b1_args(c_out, c_in, bf16=True))
+    emu = head_b1_emulated(args, "bf16")
+    plain = seg_head_train.b1_plain(*args, bf16=True)
+    fp32 = head_b1_emulated(args, "3xtf32")
+    for nm, e, p, j in zip(HEAD_B1_NAMES, emu, plain,
+                           _jax_head_b1(c_out, c_in, True)):
+        assert _rel(e, np.asarray(j, np.float32).reshape(e.shape)) <= \
+            BF16_BOUND, nm
+        assert _rel(e, p) <= BF16_BOUND, nm
+    assert _rel(emu[1], fp32[1]) > 10 * BOUND
+
+
+@pytest.mark.parametrize("pas", ["B1", "Bmid", "F2", "Pmid", "head B1"])
 def test_one_tf32_product_misses_the_bound(pas):
     """Control: with one TF32 product (no ``lo``) in place of three the
     emulation misses ``BOUND`` of float64 on the products' outputs, which
@@ -430,7 +602,13 @@ def test_one_tf32_product_misses_the_bound(pas):
     elif pas == "B1":
         args = _torch(_b1_args(1))
         one, ref = (b1_emulated(args, 1, p) for p in ("tf32", "f64"))
-    else:
+    elif pas == "Bmid":
         args = _torch(_bmid_args(*BMID_WIDTHS[0]))
         one, ref = (bmid_emulated(args, p) for p in ("tf32", "f64"))
+    elif pas == "Pmid":
+        args = _torch(_pmid_args(*PMID_WIDTHS[0]))
+        one, ref = (pmid_emulated(args, p) for p in ("tf32", "f64"))
+    else:
+        args = _torch(_head_b1_args(*HEAD_B1_WIDTHS[0]))
+        one, ref = (head_b1_emulated(args, p) for p in ("tf32", "f64"))
     assert max(_rel(one[i], ref[i]) for i in (0, 1)) > BOUND

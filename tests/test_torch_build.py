@@ -29,6 +29,12 @@ DISC_TC = ("_ZN8pointtpu12_GLOBAL__N_118disc_row_tc_kernelILb1ELi1EEEv"
 DISC_ROW = ("_ZN8pointtpu12_GLOBAL__N_118disc_row_tc_kernelILb1ELi0EEEv"
             "NS_8DiscArgsE")
 DISC_FWD = "_ZN8pointtpu12_GLOBAL__N_118disc_fwd_tc_kernelILb0EEEvNS_8DiscArgsE"
+# The seg head's Pmid and B1 on the tensor cores (train_bwd_tc.cu), by
+# precision (and B1 by its n tile: 64, or 8 for c_in <= 8).
+PMID_TC = ("_ZN8pointtpu12_GLOBAL__N_114pmid_tc_kernelILb1EEEv"
+           "NS_10RowFwdArgsE")
+HEAD_B1_TC = ("_ZN8pointtpu12_GLOBAL__N_117head_b1_tc_kernelILb0ELi8EEEv"
+              "NS_7BwdArgsE")
 
 
 def _entry(name, regs, st=0, ld=0):
@@ -95,3 +101,11 @@ def test_ptxas_report_names_the_disc_passes_by_mode():
     assert ptxas_report(fake, "disc_tc.cu") == {
         "disc_row_tc_kernel<1,0>": (251, 0, 0),
         "disc_fwd_tc_kernel<0>": (243, 0, 0)}
+
+
+def test_ptxas_report_names_the_seg_head_passes():
+    fake = types.SimpleNamespace(resource_usage={"train_bwd_tc.cu": {
+        PMID_TC: (144, 0, 0), HEAD_B1_TC: (72, 0, 0)}})
+    assert ptxas_report(fake, "train_bwd_tc.cu") == {
+        "pmid_tc_kernel<1>": (144, 0, 0),
+        "head_b1_tc_kernel<0,8>": (72, 0, 0)}
