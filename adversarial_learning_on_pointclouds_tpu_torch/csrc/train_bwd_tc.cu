@@ -1,15 +1,17 @@
-// The generator's widest passes on the tensor cores: the trunk's F2 and
-// B1 and the seg head's Pmid, Bmid and B1.
+// The generator's passes on the tensor cores: the trunk's F1, F2 and B1
+// and the seg head's Pmid, B4, Bmid and B1.
 //
 // Replaces the TPU kernels
 // adversarial_learning_on_pointclouds_tpu/ops/kernels/trunk_train.py::
-// _f2_call (trunk F2: pallas_call at trunk_train.py:212, conv3 + BN3's
+// _f1_call (trunk F1: pallas_call at trunk_train.py:121, conv2 and BN2's
+// statistics, c 64 -> 128; trunk3_train's conv1, 3 -> 64), _f2_call (trunk F2: pallas_call at trunk_train.py:212, conv3 + BN3's
 // statistics + the max-pool's extrema, c 128 -> 1024), _b1_call (trunk
 // B1: pallas_call at trunk_train.py:309, the backward through conv3 +
 // BN3 + max-pool of every trunk) and seg_head_train.py::_pmid_call (Pmid:
 // pallas_call at seg_head_train.py:118, a BN + ReLU and the next layer
 // with its statistics: 512 -> 256 and 256 -> 128 in the seg head, 64 ->
-// 128 in trunk3_train), _bmid_call (Bmid: :275, a BN backward and the
+// 128 in trunk3_train), _b4_call (B4: :206, the softmax and conv4
+// backward, 128 -> 50 parts), _bmid_call (Bmid: :275, a BN backward and the
 // matmul backward to the previous layer: 256 -> 512 and 128 -> 256 in
 // the seg head, 128 -> 64 in trunk3_train) and _b1_call (head B1: :335,
 // BN1's backward, dpf, dW1a, db1 and the per-cloud sums r: 512 -> 64 in
@@ -20,11 +22,13 @@
 // recomputed, dy2 = dz3 W3, dW3 = dz3^T h2), past fp32 FMA's 67 TFLOP/s
 // and bf16's need of the tensor cores; Pmid is one product of 17.2 (512
 // -> 256) or 4.3 GFLOP, Bmid two of 8.6 (256 -> 512) or 4.3, head B1 two
-// of 4.3. Then traffic: head B1 reads two [65,536 x 512] stashes and
-// writes dz (134 MB in fp32) for its dW. The CUDA-core kernels they
-// replace (train_gemm.cuh: row_fwd_kernel, row_bwd_kernel, wgrad_kernel)
-// ran them as fp32 FMAs (bf16 operands too), recomputed z3 a second time
-// for dW3, and staged W through registers.
+// of 4.3, B4 three of 0.8. Then traffic: head B1 reads two [65,536 x
+// 512] stashes and writes dz (134 MB in fp32) for its dW; F1 (1.1 GFLOP)
+// is bound by its bytes, x in (16.8 MB) and z2 out (33.5 MB in fp32, 16.8
+// in bf16), and B4 nearly so (z3 and dy3 33.5 MB each in fp32, dlp 13.1).
+// The CUDA-core kernels they replace ran them as fp32 FMAs (bf16
+// operands too) on 64-point tiles with W staged through registers, and
+// recomputed z3 a second time for dW3 (B4: z4, for dW4).
 //
 // What the design does about that:
 //
@@ -80,11 +84,34 @@
 //   copies). dpf is stored in fp32, unmasked. db is the colsum over every
 //   block, r over each cloud's blocks, which are contiguous. 89 KB (c_in
 //   64), two blocks an SM.
+// * F1 keeps a 128-point tile of x and all of W2 (c_in <= 64, 32 KB
+//   each in fp32) in shared memory with two blocks an SM, so one block's
+//   loads are in flight while the other computes; z2 = x W2^T runs 64
+//   output columns at a time into a z stage (+ b2, unrounded), which
+//   gives the columns' sum and sum of squares (per-block partials) and
+//   the 16-byte stores of z2 (bf16 nearest-even under kZBf16). At c_in
+//   <= 4 (trunk3_train's raw points) the product is fp32 FMAs in order of
+//   k, exact as cuBLAS at that depth, where 3xTF32's split is not (as
+//   for strided_gemm.cu's thin_kernel), a thread per column. 106 KB
+//   (c_in 64, c_out 128).
+// * B4 keeps h3 = relu(bn3(z3)) (load_h2), W4 (50 rows padded by zeros to
+//   64) and dz [128 x 64] in shared memory, 137 KB, one block per SM,
+//   each block walking a contiguous range of tiles. GEMM 1 z4 = h3 W4^T
+//   gives each warp 16 whole rows (N = 56, 7 n8 tiles), so the softmax
+//   backward dz = dlp - softmax(z4 + b4) sum(dlp) is computed in
+//   registers with quad shuffles (padded logits -inf, their dz zero).
+//   GEMM 2 dy3 = dz W4 (K 56, or 64 for bf16's 16-deep steps) ends in the
+//   masked epilogue (BN3's t1 / t2, dy3 bf16 under kDypBf16). GEMM 3 dW4
+//   += dz^T h3 takes the tile that is already in shared memory into an
+//   accumulator held across the block's tiles, one partial a block summed
+//   in fp64: writing h3 and dz out for the GEMM core would add about 90
+//   MB a launch. W4 and dz are each read along rows and columns, so both
+//   are swizzled (sw_at).
 // * Weight gradients: the backward row passes also write dz (and trunk
 //   B1 and Bmid their h; head B1's h is pf itself), fp32 and unrounded,
 //   to scratch, and dW = dz^T h runs on the GEMM core (strided_gemm.cu:
 //   gemm, an M-major A over an N-major B, split-K over row ranges merged
-//   by split_sum in fp64). Writing them (302 MB at 65,536 x 1024) costs
+//   by split_sum in fp64; B4 excepted). Writing them (302 MB at 65,536 x 1024) costs
 //   the row pass about 0.08 ms on the H100, against the 17.2 GFLOP of a
 //   second z3 recompute that the TPU design (VMEM-bound) paid; a
 //   tensor-core dW kernel that rebuilds dz and h tile by tile, as that
@@ -117,17 +144,23 @@ constexpr int kHeadK = 32;                  // Bmid: W rows (k) a stage
 constexpr int kPmidN = 128;                 // Pmid: output columns a block
 constexpr int kXbLd = kBk + 8;              // Pmid: bf16 x stage row (bf16s)
 constexpr int kB1Chunk = 64;                // head B1: c_out channels a chunk
+constexpr int kF1Ld = 64 + 4;               // F1: x and W row (K-major, c_in <= 64)
+constexpr int kF1N = 64;                    // F1: output columns an epilogue
+constexpr int kF1ZLd = kF1N + 8;            // F1: z stage row
+constexpr int kB4N = 56;                    // B4: z4's columns, 7 n8 tiles
+constexpr int kB4K = 64;                    // B4: dz's columns in shared memory
 
-// Element (r, k) of a 128-wide tile in shared memory that is read both
-// along its rows and along its columns (a W3 chunk: GEMM 1 reads it
-// K-major, GEMM 2 N-major): row r, column k XOR a function of r's low three bits. A warp's
-// fragment loads at (r = 8 j + g, k = kk + t) and at (r = kk + t (+ 4),
-// k = 8 j + g) both land on 32 distinct banks, which no pad achieves
-// for both (a stride of 4 mod 32 serves the first, 8 the second). The
-// XOR keeps aligned groups of 4 floats together, so 16-byte copies and
-// stores fill it.
+// Element (r, k) of a W-wide tile (W a multiple of 32) in shared memory
+// that is read both along its rows and along its columns (a W3 chunk:
+// GEMM 1 reads it K-major, GEMM 2 N-major): row r, column k XOR a
+// function of r's low three bits. A warp's fragment loads at (r = 8 j +
+// g, k = kk + t) and at (r = kk + t (+ 4), k = 8 j + g) both land on 32
+// distinct banks, which no pad achieves for both (a stride of 4 mod 32
+// serves the first, 8 the second). The XOR keeps aligned groups of 4
+// floats together, so 16-byte copies and stores fill it.
+template <int W = kC2>
 __device__ __forceinline__ int sw_at(int r, int k) {
-  return r * kC2 + (k ^ (((r & 3) << 3) | (r & 4)));
+  return r * W + (k ^ (((r & 3) << 3) | (r & 4)));
 }
 
 // Four consecutive elements i.. (i a multiple of 4) of an fp32 or (bf)
@@ -915,6 +948,373 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
 }
 
+// Trunk F1: z = x W^T + b for a tile of 128 points of one cloud, 64
+// output columns at a time: the product into z_s (unrounded, + b), then
+// the columns' sum and sum of squares of the rows < N as per-block
+// partials and z stored from z_s in 16-byte vectors (bf16 nearest-even
+// under kZBf16). KW 64: c_in a multiple of 16 up to 64 on mma_step (x
+// and W K-major, all of c_in in one stage), warps 4 (rows, 32 each) by 2
+// (32 columns each); KW 4: c_in <= 4 as exact fp32 FMAs (bf16 operands
+// under BF), a thread per column. Groups need nothing here: a block's
+// rows are one cloud's, and colsum adds each group's blocks.
+template <bool BF, int KW>
+__global__ void __launch_bounds__(kThreads, 2) f1_tc_kernel(const RowFwdArgs a) {
+  constexpr bool kMma = KW > 4;
+  constexpr int kXld = kMma ? kF1Ld : KW;
+  extern __shared__ __align__(16) float smem[];
+  float* x_s = smem;                              // [kTcRows][kXld]
+  float* w_s = x_s + kTcRows * kXld;              // [c_out][kF1Ld] (mma)
+  float* z_s = w_s + (kMma ? a.c_out * kF1Ld : 0);  // [kTcRows][kF1ZLd]
+  float* red = z_s + kTcRows * kF1ZLd;            // [2][4][kF1N] sum, ssq
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int wm = warp >> 1, wn = warp & 1;
+  const int b = blockIdx.y, p0 = blockIdx.x * kTcRows;
+  const int rows = min(kTcRows, a.n - p0);
+  const size_t g0 = (size_t)b * a.n + p0;
+  const int c_in = a.c_in, c_out = a.c_out;
+  const size_t blk = (size_t)b * gridDim.x + blockIdx.x;
+  const size_t blocks = (size_t)gridDim.x * gridDim.y;
+  const float* x = static_cast<const float*>(a.x);
+  const bool zbf = BF && (a.prec & kZBf16);
+
+  // x's tile (rows past N zero) and, for the product, all of W.
+  if constexpr (kMma) {
+    const int q = c_in / 4;                       // 16-byte groups a row
+    for (int e = threadIdx.x; e < kTcRows * q; e += kThreads) {
+      const int r = e / q, k = (e % q) * 4;
+      cp16(x_s + r * kXld + k, r < rows ? x + (g0 + r) * c_in + k : x,
+           r < rows ? 16 : 0);
+    }
+    for (int e = threadIdx.x; e < c_out * q; e += kThreads) {
+      const int r = e / q, k = (e % q) * 4;
+      cp16(w_s + r * kF1Ld + k, a.w + (size_t)r * a.ldw + k, 16);
+    }
+  } else {                                        // rows of 4-12 bytes
+    for (int e = threadIdx.x; e < kTcRows * KW; e += kThreads) {
+      const int r = e / KW, k = e % KW;
+      const bool ok = r < rows && k < c_in;
+      cp4(x_s + e, ok ? x + (g0 + r) * c_in + k : x, ok ? 4 : 0);
+    }
+  }
+  cp_commit();
+  cp_wait<0>();
+  __syncthreads();
+
+  for (int n0 = 0; n0 < c_out; n0 += kF1N) {
+    if constexpr (kMma) {
+      float acc[2][4][4] = {};
+      const float* ws = w_s + n0 * kF1Ld;
+      const auto fx = [x_s](int m, int k) { return x_s[m * kF1Ld + k]; };
+      const auto fw = [ws](int n, int k) { return ws[n * kF1Ld + k]; };
+      for (int kk = 0; kk < c_in; kk += mma_depth(BF))
+        mma_step<2, 4, BF>(acc, fx, fw, wm * 32, wn * 32, kk, gq, tq);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = wn * 32 + 8 * j + 2 * tq;
+        const float b0 = __ldg(a.bias + n0 + col);
+        const float b1 = __ldg(a.bias + n0 + col + 1);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = wm * 32 + 16 * i + gq + 8 * h;
+            *reinterpret_cast<float2*>(z_s + r * kF1ZLd + col) = make_float2(
+                acc[i][j][2 * h] + b0, acc[i][j][2 * h + 1] + b1);
+          }
+      }
+    } else {
+      // z = x0 w0 + x1 w1 + ... by fmaf in order of k, then + b.
+      const int c = threadIdx.x % kF1N, o = n0 + c;
+      float wv[KW];
+#pragma unroll
+      for (int k = 0; k < KW; ++k)
+        wv[k] = k < c_in ? operand(__ldg(a.w + (size_t)o * a.ldw + k), BF)
+                         : 0.f;
+      const float bias = __ldg(a.bias + o);
+      for (int r = threadIdx.x / kF1N; r < kTcRows; r += kThreads / kF1N) {
+        float v = 0.f;
+#pragma unroll
+        for (int k = 0; k < KW; ++k)
+          if (k < c_in) v = fmaf(operand(x_s[r * KW + k], BF), wv[k], v);
+        z_s[r * kF1ZLd + c] = v + bias;
+      }
+    }
+    __syncthreads();          // z_s written
+    {  // Thread t sums column t % kF1N over a quarter of the rows.
+      const int c = threadIdx.x % kF1N, q = threadIdx.x / kF1N;
+      const int r1 = min(rows, (q + 1) * (kTcRows / 4));
+      float s = 0.f, ss = 0.f;
+      for (int r = q * (kTcRows / 4); r < r1; ++r) {
+        const float v = z_s[r * kF1ZLd + c];
+        s += v;
+        ss += v * v;
+      }
+      red[q * kF1N + c] = s;
+      red[(4 + q) * kF1N + c] = ss;
+    }
+    if (zbf) {                // 8 bf16 (16 bytes) a store
+      auto* z = static_cast<__nv_bfloat16*>(a.z);
+      for (int e = threadIdx.x; e < kTcRows * kF1N / 8; e += kThreads) {
+        const int r = e / (kF1N / 8), c = (e % (kF1N / 8)) * 8;
+        if (r >= rows) continue;
+        const float4 u = *reinterpret_cast<const float4*>(z_s + r * kF1ZLd + c);
+        const float4 v =
+            *reinterpret_cast<const float4*>(z_s + r * kF1ZLd + c + 4);
+        *reinterpret_cast<uint4*>(z + (g0 + r) * c_out + n0 + c) = make_uint4(
+            bf16x2(u.x, u.y), bf16x2(u.z, u.w), bf16x2(v.x, v.y),
+            bf16x2(v.z, v.w));
+      }
+    } else {
+      auto* z = static_cast<float*>(a.z);
+      for (int e = threadIdx.x; e < kTcRows * kF1N / 4; e += kThreads) {
+        const int r = e / (kF1N / 4), c = (e % (kF1N / 4)) * 4;
+        if (r < rows)
+          *reinterpret_cast<float4*>(z + (g0 + r) * c_out + n0 + c) =
+              *reinterpret_cast<const float4*>(z_s + r * kF1ZLd + c);
+      }
+    }
+    __syncthreads();          // red written; z_s read
+    if (threadIdx.x < kF1N) {
+      const int t = threadIdx.x, o = n0 + t;
+      a.part[blk * c_out + o] =
+          ((red[t] + red[kF1N + t]) + red[2 * kF1N + t]) + red[3 * kF1N + t];
+      a.part[(blocks + blk) * c_out + o] =
+          ((red[4 * kF1N + t] + red[5 * kF1N + t]) + red[6 * kF1N + t]) +
+          red[7 * kF1N + t];
+    }
+  }
+}
+
+// Head B4 (c_in = kC2, c_out = k <= kB4N, one group). Each block walks a
+// contiguous range of 128-point tiles (tile t: cloud t / tiles a cloud);
+// per tile: h3 = relu(bn3(z3)) into h_s (load_h2); GEMM 1 z4 = h3 W4^T
+// with each warp owning 16 whole rows (7 n8 tiles), so the softmax
+// backward dz = dlp - softmax(z4 + b4) sum(dlp) reduces each row within a
+// quad; db's partial from the unrounded dz; dz into dz_s (columns past k
+// zero); GEMM 2 dy3 = dz W4 (warps 4 x 2, K padded to 56, or 64 for bf16's
+// 16-deep steps), masked by h3 > 0, stored (bf16 under kDypBf16) with
+// BN3's t1 / t2 partials; GEMM 3 dW4 += dz^T h3 (warps 2 x 4) in
+// registers across the block's tiles, one partial a block. W4 stays in
+// w_s, swizzled, for GEMM 1 (K-major) and GEMM 2 (N-major); dz_s is
+// read by GEMM 2 along its rows and by GEMM 3 along its columns, so it is
+// swizzled too.
+template <bool BF>
+__global__ void __launch_bounds__(kThreads, 1) b4_tc_kernel(const BwdArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  float* h_s = smem;                              // [kTcRows][kC2], sw_at
+  float* w_s = h_s + kTcRows * kC2;               // [kB4K][kC2], sw_at
+  float* dz_s = w_s + kB4K * kC2;                 // [kTcRows][kB4K], sw_at
+  float* red_b = dz_s + kTcRows * kB4K;           // [kWarps][kB4N]
+  float* red_t = red_b + kWarps * kB4N;           // [2][4][kC2]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int wm = warp >> 1, wn = warp & 1;        // GEMM 2
+  const int wm3 = warp >> 2, wn3 = warp & 3;      // GEMM 3
+  const int c_out = a.c_out;
+  const int tpc = ceil_div(a.n, kTcRows), tiles = tpc * a.batch;
+  const int per = ceil_div(tiles, gridDim.x);
+  const int t0 = blockIdx.x * per, t1 = min(tiles, t0 + per);
+  const bool zpbf = BF && (a.prec & kZpBf16);
+  const bool dypbf = BF && (a.prec & kDypBf16);
+
+  // W4 with its rows past c_out zero, once.
+  for (int e = threadIdx.x; e < kB4K * kC2 / 4; e += kThreads) {
+    const int r = e / (kC2 / 4), k = (e % (kC2 / 4)) * 4;
+    const bool ok = r < c_out;
+    cp16(w_s + sw_at(r, k), ok ? a.w + (size_t)r * a.ldw + k : a.w,
+         ok ? 16 : 0);
+  }
+  cp_commit();
+
+  const auto fh = [h_s](int m, int k) { return h_s[sw_at(m, k)]; };
+  const auto fw = [w_s](int n, int k) { return w_s[sw_at(n, k)]; };
+  const auto fz = [dz_s](int m, int k) { return dz_s[sw_at<kB4K>(m, k)]; };
+  const auto fw2 = [w_s](int n, int k) { return w_s[sw_at(k, n)]; };
+  const auto fzt = [dz_s](int m, int k) { return dz_s[sw_at<kB4K>(k, m)]; };
+  const auto fht = [h_s](int n, int k) { return h_s[sw_at(k, n)]; };
+  float dw[2][4][4] = {};                         // dW4 over the block's tiles
+  for (int t = t0; t < t1; ++t) {
+    const int b = t / tpc, p0 = (t - b * tpc) * kTcRows;
+    const int rows = min(kTcRows, a.n - p0);
+    const size_t g0 = (size_t)b * a.n + p0;
+    float* prow = a.part + (size_t)t * (2 * kC2 + c_out);
+    // dlp of the warp's rows, in GEMM 1's layout (rows of 4 * k bytes:
+    // 4-byte loads).
+    float dl[2][7][2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = warp * 16 + gq + 8 * h;
+#pragma unroll
+      for (int j = 0; j < 7; ++j)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int col = 8 * j + 2 * tq + q;
+          dl[h][j][q] = r < rows && col < c_out
+                            ? __ldg(a.dlp + (g0 + r) * c_out + col)
+                            : 0.f;
+        }
+    }
+    __syncthreads();          // the last tile's h_s, dz_s, red_b, red_t read
+    load_h2(h_s, a.zp, zpbf, a.scp, a.shp, nullptr, g0, rows);
+    cp_wait<0>();
+    __syncthreads();          // h_s written, W4 landed
+
+    // GEMM 1 and the softmax backward, row by row in registers.
+    float z[1][7][4] = {};
+#pragma unroll 2
+    for (int kk = 0; kk < kC2; kk += mma_depth(BF))
+      mma_step<1, 7, BF>(z, fh, fw, warp * 16, 0, kk, gq, tq);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = warp * 16 + gq + 8 * h;
+      float m = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 7; ++j)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int col = 8 * j + 2 * tq + q;
+          const float v =
+              col < c_out ? z[0][j][2 * h + q] + __ldg(a.bias + col) : -INFINITY;
+          z[0][j][2 * h + q] = v;
+          m = fmaxf(m, v);
+        }
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+      float s = 0.f, sdl = 0.f;
+#pragma unroll
+      for (int j = 0; j < 7; ++j)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int col = 8 * j + 2 * tq + q;
+          const float e = col < c_out ? expf(z[0][j][2 * h + q] - m) : 0.f;
+          z[0][j][2 * h + q] = e;
+          s += e;
+          sdl += dl[h][j][q];
+        }
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      s += __shfl_xor_sync(0xffffffffu, s, 2);
+      sdl += __shfl_xor_sync(0xffffffffu, sdl, 1);
+      sdl += __shfl_xor_sync(0xffffffffu, sdl, 2);
+#pragma unroll
+      for (int j = 0; j < 7; ++j)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int col = 8 * j + 2 * tq + q;
+          z[0][j][2 * h + q] =
+              r < rows && col < c_out
+                  ? dl[h][j][q] - (z[0][j][2 * h + q] / s) * sdl
+                  : 0.f;
+        }
+    }
+    // db's partial (the warp's 16 rows, then the 8 warps in order) and
+    // dz into dz_s, its columns past c_out zero.
+#pragma unroll
+    for (int j = 0; j < 7; ++j)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const float v = group_sum(z[0][j][q] + z[0][j][2 + q]);
+        if (gq == 0) red_b[warp * kB4N + 8 * j + 2 * tq + q] = v;
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = warp * 16 + gq + 8 * h;
+#pragma unroll
+      for (int j = 0; j < kB4K / 8; ++j)
+        *reinterpret_cast<float2*>(dz_s + sw_at<kB4K>(r, 8 * j + 2 * tq)) =
+            j < 7 ? make_float2(z[0][j][2 * h], z[0][j][2 * h + 1])
+                  : make_float2(0.f, 0.f);
+    }
+    __syncthreads();          // dz_s and red_b written
+    if ((int)threadIdx.x < c_out) {
+      float s = red_b[threadIdx.x];
+      for (int w = 1; w < kWarps; ++w) s += red_b[w * kB4N + threadIdx.x];
+      prow[2 * kC2 + threadIdx.x] = s;
+    }
+
+    // GEMM 2: dy3 = dz W4, masked by BN3's ReLU; t1 = sum dy3, t2 = sum
+    // dy3 * zhat3.
+    {
+      float acc[2][8][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < (BF ? kB4K : kB4N); kk += mma_depth(BF))
+        mma_step<2, 8, BF>(acc, fz, fw2, wm * 32, wn * 64, kk, gq, tq);
+      float s1[8][2] = {}, s2[8][2] = {};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int k = wn * 64 + 8 * j + 2 * tq;
+        const float m0 = __ldg(a.mup + k), m1 = __ldg(a.mup + k + 1);
+        const float i0 = __ldg(a.invp + k), i1 = __ldg(a.invp + k + 1);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = wm * 32 + 16 * i + gq + 8 * h;
+            if (r >= rows) continue;
+            const size_t at = (g0 + r) * kC2 + k;
+            const float d0 = h_s[sw_at(r, k)] > 0.f ? acc[i][j][2 * h] : 0.f;
+            const float d1 =
+                h_s[sw_at(r, k + 1)] > 0.f ? acc[i][j][2 * h + 1] : 0.f;
+            if (dypbf)
+              *reinterpret_cast<__nv_bfloat162*>(
+                  static_cast<__nv_bfloat16*>(a.dyp) + at) =
+                  __floats2bfloat162_rn(d0, d1);
+            else
+              *reinterpret_cast<float2*>(static_cast<float*>(a.dyp) + at) =
+                  make_float2(d0, d1);
+            const float z0 = load_val(a.zp, zpbf, at);
+            const float z1 = load_val(a.zp, zpbf, at + 1);
+            s1[j][0] += d0;
+            s1[j][1] += d1;
+            s2[j][0] += d0 * ((z0 - m0) * i0);
+            s2[j][1] += d1 * ((z1 - m1) * i1);
+          }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const float v1 = group_sum(s1[j][q]), v2 = group_sum(s2[j][q]);
+          if (gq == 0) {
+            const int k = wn * 64 + 8 * j + 2 * tq + q;
+            red_t[wm * kC2 + k] = v1;
+            red_t[(4 + wm) * kC2 + k] = v2;
+          }
+        }
+    }
+    __syncthreads();          // red_t written
+    if (threadIdx.x < kC2) {
+      const int k = threadIdx.x;
+      prow[k] = ((red_t[k] + red_t[kC2 + k]) + red_t[2 * kC2 + k]) +
+                red_t[3 * kC2 + k];
+      prow[kC2 + k] = ((red_t[4 * kC2 + k] + red_t[5 * kC2 + k]) +
+                       red_t[6 * kC2 + k]) + red_t[7 * kC2 + k];
+    }
+
+    // GEMM 3: dW4 += dz^T h3 over the tile's rows (rows past N are zero
+    // in both).
+#pragma unroll 2
+    for (int kk = 0; kk < kTcRows; kk += mma_depth(BF))
+      mma_step<2, 4, BF>(dw, fzt, fht, wm3 * 32, wn3 * 32, kk, gq, tq);
+  }
+  cp_wait<0>();
+
+  float* out = a.part_w + (size_t)blockIdx.x * c_out * kC2;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int o = wm3 * 32 + 16 * i + gq + 8 * h;
+      if (o >= c_out) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = wn3 * 32 + 8 * j + 2 * tq;
+        *reinterpret_cast<float2*>(out + (size_t)o * kC2 + c) =
+            make_float2(dw[i][j][2 * h], dw[i][j][2 * h + 1]);
+      }
+    }
+}
+
 template <typename K, typename A>
 int launch_tc(K kernel, dim3 grid, size_t bytes, const A& a,
               cudaStream_t stream) {
@@ -941,9 +1341,9 @@ int weight_grad(const BwdArgs& a, const float* h, cudaStream_t stream) {
   return e ? e : split_sum(a.part_w, a.splits, wsz, 1, a.dw, stream);
 }
 
-// t1 / t2 per group and db from the row kernel's per-block partials, and
-// dW from the dz and h the row pass wrote.
-int finish(const BwdArgs& a, int blocks, cudaStream_t stream) {
+// t1 / t2 per group and db from the row kernel's per-block (per-tile)
+// partials.
+int bn_sums(const BwdArgs& a, int blocks, cudaStream_t stream) {
   const int per = blocks / a.groups;
   const long long ldp = 2LL * a.c_in + a.c_out;
   int e;
@@ -952,10 +1352,14 @@ int finish(const BwdArgs& a, int blocks, cudaStream_t stream) {
   if ((e = colsum(a.part + a.c_in, ldp, per, a.c_in, a.groups, a.t2, a.c_in,
                   stream)))
     return e;
-  if ((e = colsum(a.part + 2 * a.c_in, ldp, blocks, a.c_out, 1, a.db, 0,
-                  stream)))
-    return e;
-  return weight_grad(a, a.hs, stream);
+  return colsum(a.part + 2 * a.c_in, ldp, blocks, a.c_out, 1, a.db, 0,
+                stream);
+}
+
+// bn_sums, and dW from the dz and h the row pass wrote.
+int finish(const BwdArgs& a, int blocks, cudaStream_t stream) {
+  const int e = bn_sums(a, blocks, stream);
+  return e ? e : weight_grad(a, a.hs, stream);
 }
 
 // What trunk B1 and Bmid need: shapes in range, a 16-byte aligned W with a row
@@ -1031,6 +1435,40 @@ int trunk_f2_tc(const RowFwdArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+int trunk_f1_tc(const RowFwdArgs& a, cudaStream_t stream) {
+  const bool fma = a.c_in <= 4;
+  if (a.batch <= 0 || a.batch > 65535 || a.n <= 0 || a.c_in <= 0 ||
+      (!fma && (a.c_in % 16 || a.c_in > 64 || a.c_out > 2 * kF1N ||
+                a.ldw % 4 || reinterpret_cast<uintptr_t>(a.w) % 16 ||
+                reinterpret_cast<uintptr_t>(a.x) % 16)) ||
+      a.c_out <= 0 || a.c_out % kF1N || a.groups < 1 || a.batch % a.groups ||
+      (long long)a.batch * a.n > 0x7fffffffLL || a.ldw < a.c_in ||
+      (a.prec & kXBf16) || !a.x || !a.w || !a.bias || !a.z || !a.sum ||
+      !a.ssq || !a.part || a.sc || a.sh || a.addend || a.keys || a.mx ||
+      a.logp)
+    return kErrArgs;
+  const size_t bytes =
+      ((size_t)kTcRows * (fma ? 4 : kF1Ld) + (fma ? 0 : a.c_out * kF1Ld) +
+       (size_t)kTcRows * kF1ZLd + 8 * kF1N) * sizeof(float);
+  const dim3 grid(ceil_div(a.n, kTcRows), a.batch);
+  const bool bf = a.prec & kRound;
+  int e;
+  if (fma)
+    e = bf ? launch_tc(f1_tc_kernel<true, 4>, grid, bytes, a, stream)
+           : launch_tc(f1_tc_kernel<false, 4>, grid, bytes, a, stream);
+  else
+    e = bf ? launch_tc(f1_tc_kernel<true, 64>, grid, bytes, a, stream)
+           : launch_tc(f1_tc_kernel<false, 64>, grid, bytes, a, stream);
+  if (e) return e;
+  // BN2's sums per group: a group's blocks are contiguous.
+  const int blocks = grid.x * grid.y, per = blocks / a.groups;
+  if ((e = colsum(a.part, a.c_out, per, a.c_out, a.groups, a.sum, a.c_out,
+                  stream)))
+    return e;
+  return colsum(a.part + (size_t)blocks * a.c_out, a.c_out, per, a.c_out,
+                a.groups, a.ssq, a.c_out, stream);
+}
+
 int head_pmid_tc(const RowFwdArgs& a, cudaStream_t stream) {
   if (a.batch <= 0 || a.batch > 65535 || a.n <= 0 || a.c_in <= 0 ||
       a.c_in % 8 || a.c_out <= 0 || a.c_out % 8 || a.groups != 1 ||
@@ -1088,6 +1526,29 @@ int head_b1_tc(const BwdArgs& a, cudaStream_t stream) {
                   stream)))
     return e;
   return weight_grad(a, static_cast<const float*>(a.zp), stream);
+}
+
+int head_b4_tc(const BwdArgs& a, cudaStream_t stream) {
+  if (a.mode != kDzSoftmax || a.batch <= 0 || a.batch > 65535 || a.n <= 0 ||
+      a.c_in != kC2 || a.c_out <= 0 || a.c_out > kB4N || a.groups != 1 ||
+      (long long)a.batch * a.n > 0x7fffffffLL || a.ldw < a.c_in ||
+      a.ldw % 4 || reinterpret_cast<uintptr_t>(a.w) % 16 || a.splits <= 0 ||
+      a.splits > 65535 || (a.prec & (kZcBf16 | kDyBf16)) || !a.zp ||
+      !a.scp || !a.shp || !a.mup || !a.invp || !a.w || !a.bias || !a.dlp ||
+      !a.dyp || !a.t1 || !a.t2 || !a.db || !a.dw || !a.part || !a.part_w ||
+      a.r || a.dzs || a.hs)
+    return kErrArgs;
+  const int tiles = ceil_div(a.n, kTcRows) * a.batch;
+  const int per = ceil_div(tiles, a.splits), blocks = ceil_div(tiles, per);
+  const size_t bytes = ((size_t)kTcRows * kC2 + kB4K * kC2 + kTcRows * kB4K +
+                        kWarps * kB4N + 8 * kC2) * sizeof(float);
+  int e = a.prec & kRound
+              ? launch_tc(b4_tc_kernel<true>, dim3(blocks), bytes, a, stream)
+              : launch_tc(b4_tc_kernel<false>, dim3(blocks), bytes, a, stream);
+  if (e || (e = bn_sums(a, tiles, stream))) return e;
+  // dW4 from the per-block partials.
+  const int wsz = a.c_out * kC2;
+  return colsum(a.part_w, wsz, blocks, wsz, 1, a.dw, 0, stream);
 }
 
 int head_bmid_tc(const BwdArgs& a, cudaStream_t stream) {

@@ -1,10 +1,12 @@
 // The generator's passes on the tensor cores (defined in train_bwd_tc.cu):
-// the trunk's F2 and B1 (trunk_train.cu: pt_trunk_f2, pt_trunk_b1) and the
-// seg head's Pmid, Bmid and B1 (seg_head_train.cu: pt_head_pmid,
-// pt_head_bmid, pt_head_b1). The forward passes take the RowFwdArgs of
-// train_gemm.cuh, the backward passes its BwdArgs with the dzs (and, for
-// trunk B1 and Bmid, hs) scratch buffers; each returns 0, a cudaError_t,
-// kErrArgs for a shape or layout it does not take, or kErrSmem.
+// the trunk's F1, F2 and B1 (trunk_train.cu: pt_trunk_f1, pt_trunk_f2,
+// pt_trunk_b1) and the seg head's Pmid, B4, Bmid and B1
+// (seg_head_train.cu: pt_head_pmid, pt_head_b4, pt_head_bmid,
+// pt_head_b1). The forward passes take the RowFwdArgs of train_gemm.cuh,
+// the backward passes its BwdArgs (trunk B1, Bmid and head B1 with the
+// dzs and, for the first two, hs scratch buffers; B4 with neither); each
+// returns 0, a cudaError_t, kErrArgs for a shape or layout it does not
+// take, or kErrSmem.
 
 #pragma once
 
@@ -14,6 +16,12 @@ namespace pointtpu {
 
 struct BwdArgs;
 struct RowFwdArgs;
+
+// Trunk F1: z2 = x W2^T + b2 (a bf16 stash under kZBf16) and its column
+// sum and sum of squares per group (x fp32; c_in a multiple of 16 up to
+// 64, x and W 16-byte aligned, c_out 64 or 128; or c_in <= 4 and c_out a
+// multiple of 64; groups >= 1).
+int trunk_f1_tc(const RowFwdArgs& a, cudaStream_t stream);
 
 // Trunk F2: BN3's column sum and sum of squares per group and each
 // cloud's max / min with the first point attaining them (c_in 128, c_out
@@ -28,6 +36,12 @@ int trunk_b1_tc(const BwdArgs& a, cudaStream_t stream);
 // kZBf16) and its column sum and sum of squares (c_in and c_out multiples
 // of 8, x and W 16-byte aligned; one group).
 int head_pmid_tc(const RowFwdArgs& a, cudaStream_t stream);
+
+// Seg-head B4: dy3 (a bf16 stash under kDypBf16), dW4, db4 and BN3's t1
+// / t2 from the softmax backward (mode kDzSoftmax; c_in 128, c_out at
+// most 56; one group; part_w holds a dW4 partial per block, at most
+// splits blocks).
+int head_b4_tc(const BwdArgs& a, cudaStream_t stream);
 
 // Seg-head Bmid: dy_prev, dW, db and the previous BN's t1 / t2 (mode
 // kDzBn; c_out 32, 64, 128 or 256, c_in 64 or a multiple of 128; one

@@ -1,21 +1,20 @@
 // The argument structs of every training pass, their reductions, and the
 // row GEMM of the forward passes still on the CUDA cores, shared by
-// trunk_train.cu and seg_head_train.cu: trunk F1 and the seg head's P1
-// and P4. B4, the one backward pass left on the CUDA cores, keeps its
-// kernels in seg_head_train.cu. Trunk F2 and B1 and the seg head's Pmid,
-// Bmid and B1 run on the tensor cores (train_bwd_tc.cu).
+// trunk_train.cu and seg_head_train.cu: the seg head's P1 and P4. Trunk
+// F1, F2 and B1 and the seg head's Pmid, B4, Bmid and B1 run on the
+// tensor cores (train_bwd_tc.cu).
 //
-// What bounds these on the H100: F1 (64 -> 128), P1 (64 -> 512) and P4
-// (128 -> 50) are products of 1-4 GFLOP a step and their stashes'
-// traffic, run as fp32 FMAs (bf16 operands too) at 67 TFLOP/s at most.
+// What bounds these on the H100: P1 (64 -> 512) and P4 (128 -> 50) are
+// products of 1-4 GFLOP a step and their stashes' traffic, run as fp32
+// FMAs (bf16 operands too) at 67 TFLOP/s at most.
 //
 // * The row GEMM over point tiles. A block of 256 threads owns a tile of
 //   64 points of one cloud (8 rows per warp, as tile_fma lays them out).
 //   Its input tile sits in shared memory, after an optional prologue
 //   (BN affine + ReLU of the previous layer); the layer's weight streams
 //   from L2 through a register-staged double buffer in 16-row chunks
-//   (gemm_acc, which B4 shares). The epilogues store z, reduce column sum
-//   / sum of squares, or take a per-point log_softmax.
+//   (gemm_acc, which mlp_stack.cu shares). The epilogues store z, reduce
+//   column sum / sum of squares, or take a per-point log_softmax.
 //
 // Blocks run in no order, so nothing is carried between them: every
 // reduction over the rows (column statistics, dW, db, the BN sums) is
@@ -30,14 +29,14 @@
 // tile and never enter a sum, an extremum or a store.
 //
 // Every tile lies in one cloud. With groups > 1 (the paired trunks'
-// forward: the batch is groups stacked streams of batch / groups clouds)
+// passes: the batch is groups stacked streams of batch / groups clouds)
 // the BN statistics are [groups, C] and a tile uses its cloud's group's
-// row; each group's partial sums are a contiguous range of the per-block
-// slots, added as a stream alone would add them. Grouping is a template
-// parameter (G) of the row kernel, so a one-group pass reads its
-// statistics straight from the argument struct and holds no per-group
-// pointers in registers. row_fwd is a template, so a source instantiates
-// only the kernels its entry points launch.
+// row (group_row; G, groups > 1, a template parameter of the tensor-core
+// kernels that read them); each group's partial sums are a contiguous
+// range of the per-block slots, added as a stream alone would add them.
+// The row kernel takes one group (the seg head runs per stream). row_fwd
+// is a template, so a source instantiates only the kernels its entry
+// points launch.
 //
 // Under kRound (mixed precision) every matmul operand is rounded to bf16
 // as it enters shared memory or the staging buffer; sums and statistics
@@ -224,11 +223,10 @@ __device__ __forceinline__ void load_tile(float* tile, int width,
 }
 
 // Calls f(Nj<NJ>{}) for the smallest NJ of 2, 4 and 8 with NJ * 32 >=
-// cols (a multiple of 32, at most kMaxCols). Both row kernels mask every
-// column past their width (zero operands, no store, no sum), so three
-// widths serve all eight, and each row kernel compiles three bodies
-// where with_nj would make eight; the path's widths (64, 128, 256) are
-// these three.
+// cols (a multiple of 32, at most kMaxCols). The row kernel masks every
+// column past its width (zero operands, no store, no sum), so three
+// widths serve all eight, and it compiles three bodies where with_nj
+// would make eight.
 template <typename F>
 __device__ __forceinline__ void with_nj_pow2(int cols, F&& f) {
   switch (cols >> 5) {
@@ -338,8 +336,8 @@ __global__ void decode_extrema_kernel(const unsigned long long* __restrict__ key
 // ---------------------------------------------------------------------------
 
 // BF: kRound, a template parameter so that the fp32 build carries no
-// rounding at all; G: groups > 1.
-template <bool BF, bool G>
+// rounding at all.
+template <bool BF>
 __global__ void __launch_bounds__(kThreads, 1)
 row_fwd_kernel(const RowFwdArgs a) {
   extern __shared__ float smem[];
@@ -357,9 +355,8 @@ row_fwd_kernel(const RowFwdArgs a) {
   constexpr bool bf = BF;
   const bool zbf = BF && (a.prec & kZBf16);
 
-  load_tile(in_s, a.c_in, a.x, BF && (a.prec & kXBf16), g0, rows, a.c_in, 0, a.c_in,
-            group_row<G>(a.sc, b, a.batch, a.groups, a.c_in),
-            group_row<G>(a.sh, b, a.batch, a.groups, a.c_in), bf);
+  load_tile(in_s, a.c_in, a.x, BF && (a.prec & kXBf16), g0, rows, a.c_in, 0,
+            a.c_in, a.sc, a.sh, bf);
   const int cp = pad32(a.c_out);
   for (int n0 = 0; n0 < cp; n0 += kMaxCols) {
     with_nj_pow2(min(kMaxCols, cp - n0), [&](auto nj) {
@@ -440,16 +437,14 @@ inline size_t row_fwd_smem(const RowFwdArgs& a) {
          sizeof(float);
 }
 
-// The forward pass: the row kernel, then the statistics' fp64 sums (per
-// group: a group's blocks are contiguous). G: groups > 1, else groups ==
-// 1. The extrema (trunk F2) are train_bwd_tc.cu's.
-template <bool G>
+// The forward pass (one group): the row kernel, then the statistics'
+// fp64 sums.
+template <int = 0>
 int row_fwd(const RowFwdArgs& a, cudaStream_t stream) {
   if (a.batch <= 0 || a.batch > 65535 || a.n <= 0 || a.c_in <= 0 ||
-      a.c_out <= 0 || a.ldw < a.c_in || (G ? a.groups < 2 : a.groups != 1) ||
-      a.batch % a.groups || !a.x || !a.w || !a.bias ||
-      (a.logp && a.c_out > kMaxCols) || (a.sum && (!a.ssq || !a.part)) ||
-      a.mx || a.keys)
+      a.c_out <= 0 || a.ldw < a.c_in || a.groups != 1 || !a.x || !a.w ||
+      !a.bias || (a.logp && a.c_out > kMaxCols) ||
+      (a.sum && (!a.ssq || !a.part)) || a.mx || a.keys)
     return kErrArgs;
   const size_t bytes = row_fwd_smem(a);
   if (bytes > (size_t)max_smem_optin()) return kErrSmem;
@@ -457,20 +452,19 @@ int row_fwd(const RowFwdArgs& a, cudaStream_t stream) {
   int e;
   const dim3 grid(tiles, a.batch);
   if (a.prec & kRound) {
-    if ((e = (int)allow_smem(row_fwd_kernel<true, G>, bytes))) return e;
-    row_fwd_kernel<true, G><<<grid, kThreads, bytes, stream>>>(a);
+    if ((e = (int)allow_smem(row_fwd_kernel<true>, bytes))) return e;
+    row_fwd_kernel<true><<<grid, kThreads, bytes, stream>>>(a);
   } else {
-    if ((e = (int)allow_smem(row_fwd_kernel<false, G>, bytes))) return e;
-    row_fwd_kernel<false, G><<<grid, kThreads, bytes, stream>>>(a);
+    if ((e = (int)allow_smem(row_fwd_kernel<false>, bytes))) return e;
+    row_fwd_kernel<false><<<grid, kThreads, bytes, stream>>>(a);
   }
   if ((e = (int)cudaGetLastError())) return e;
-  const int blocks = tiles * a.batch, per = blocks / a.groups;
+  const int blocks = tiles * a.batch;
   if (a.sum) {
-    if ((e = colsum(a.part, a.c_out, per, a.c_out, a.groups, a.sum, a.c_out,
-                    stream)))
+    if ((e = colsum(a.part, a.c_out, blocks, a.c_out, 1, a.sum, 0, stream)))
       return e;
-    if ((e = colsum(a.part + (size_t)blocks * a.c_out, a.c_out, per, a.c_out,
-                    a.groups, a.ssq, a.c_out, stream)))
+    if ((e = colsum(a.part + (size_t)blocks * a.c_out, a.c_out, blocks,
+                    a.c_out, 1, a.ssq, 0, stream)))
       return e;
   }
   return 0;

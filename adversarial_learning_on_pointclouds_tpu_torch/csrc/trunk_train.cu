@@ -9,19 +9,23 @@
 // Bound: matmul work. At batch 32 x 2048 points the 128 -> 1024 layer is
 // 8.6 GFMA, computed once in F2 and three times in B1 (the recomputed
 // z3, dz3 @ W3 and dz3^T h2), all on the tensor cores, against 33.5 MB of
-// z2 stash read per pass.
-// Design: z3 [B, N, 1024] never reaches device memory in the forward, as
-// on the TPU. F1 is a row GEMM 64 -> 128 on the CUDA cores
-// (train_gemm.cuh) that stores z2 and its column partial sums. F2 and B1
-// run on the tensor cores (train_bwd_tc.cu), sharing a prologue and first
-// GEMM per 128-point tile: h2 = relu(bn2(z2)) in shared memory, z3 = h2
-// W3^T chunk by chunk. F2 reduces z3 in registers to the BN3 partial
-// sums and each cloud's max and min with the first point attaining them
-// (packed 64-bit atomics, so the winner does not depend on the order of
-// the blocks). B1 rebuilds dz3 chunk by chunk in shared memory and
-// accumulates dy2 = mask * dz3 @ W3; dW3 = dz3^T h2 on the GEMM core from
-// the dz3 and h2 the row pass writes out. All row reductions add
-// per-block partials in fp64.
+// z2 stash read per pass. F1 (64 -> 128, 0.5 GFMA) is bound by its bytes:
+// x in (16.8 MB), z2 out (16.8 MB in bf16, 33.5 in fp32).
+// Design: every pass runs on the tensor cores (train_bwd_tc.cu), 128
+// points of one cloud a block. z3 [B, N, 1024] never reaches device
+// memory in the forward, as on the TPU. F1 keeps the tile of x and all of
+// W2 in shared memory (two blocks an SM, for the bytes in flight), takes
+// z2 = x W2^T on mma_step (exact fp32 FMAs at c_in <= 4, trunk3_train's
+// raw points), stages z2 in shared memory for its column partial sums
+// and stores it in 16-byte vectors. F2 and B1 share a prologue and first
+// GEMM per tile: h2 = relu(bn2(z2)) in shared memory, z3 = h2 W3^T chunk
+// by chunk. F2 reduces z3 in registers to the BN3 partial sums and each
+// cloud's max and min with the first point attaining them (packed 64-bit
+// atomics, so the winner does not depend on the order of the blocks). B1
+// rebuilds dz3 chunk by chunk in shared memory and accumulates dy2 =
+// mask * dz3 @ W3; dW3 = dz3^T h2 on the GEMM core from the dz3 and h2
+// the row pass writes out. All row reductions add per-block partials in
+// fp64.
 // groups > 1 (trunk2_train(groups=2), the paired trunks): the batch is
 // stacked streams, every BN2/BN3 statistic and BN term is [groups, C] and
 // read by the tile's cloud, and each stream's sums add its own blocks
@@ -36,27 +40,13 @@
 using pointtpu::BwdArgs;
 using pointtpu::RowFwdArgs;
 
-namespace {
-
-// groups > 1 (the paired trunks) takes the kernel that reads each
-// cloud's row of the [groups, C] statistics; one group takes the one that
-// reads the [C] statistics directly.
-int forward(const RowFwdArgs* a, int device, cudaStream_t stream) {
-  using namespace pointtpu;
-  cudaError_t e = use_device(device);
-  if (e != cudaSuccess) return (int)e;
-  return a->groups > 1 ? row_fwd<true>(*a, stream)
-                       : row_fwd<false>(*a, stream);
-}
-
-}  // namespace
-
 // z2 = x @ W2^T + b2 [batch * n, c2] and its column sum / sum of squares.
 extern "C" int pt_trunk_f1(const RowFwdArgs* a, int device,
                            cudaStream_t stream) {
   using namespace pointtpu;
-  if (!a->z || !a->sum || a->sc || a->addend || a->logp) return kErrArgs;
-  return forward(a, device, stream);
+  cudaError_t e = use_device(device);
+  if (e != cudaSuccess) return (int)e;
+  return trunk_f1_tc(*a, stream);
 }
 
 // z3 = relu(z2 * sc2 + sh2) @ W3^T + b3, not stored: its column sum / sum

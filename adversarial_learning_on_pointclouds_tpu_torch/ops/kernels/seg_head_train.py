@@ -12,7 +12,8 @@ applies the previous layer's BN + ReLU as it reads:
 * **Pmid** (x2) ``z = relu(bn(z_prev)) @ W + b`` and its statistics (on
   the tensor cores: ``csrc/train_bwd_tc.cu``);
 * **P4** ``log_softmax(relu(bn3(z3)) @ W4 + b4)`` per point;
-* **B4** the softmax and conv4 backward, ``dy3`` and BN3's sums;
+* **B4** the softmax and conv4 backward, ``dy3`` and BN3's sums (on the
+  tensor cores: ``csrc/train_bwd_tc.cu``);
 * **Bmid** (x2) a BN backward and the matmul backward to the layer
   before, with its BN sums (on the tensor cores: ``csrc/train_bwd_tc.cu``);
 * **B1** BN1's backward, ``dw1a``, ``db1``, ``dpf`` and the per-cloud row
@@ -105,14 +106,14 @@ def _fwd(symbol, x, sc, sh, w, b, bf16, addend=None, logp=False,
 
 
 def _bwd(symbol, mode, zp, scp, shp, mup, invp, w, bf16, r=False,
-         dyp_stash=False, tc=False, **dz):
-    """One backward pass on the card: ``dz`` of the current layer (from
-    ``mode``'s inputs), then ``dy_prev = dz @ W^T`` (masked by the
-    previous ReLU; a stash under ``dyp_stash``), the previous BN's sums,
-    ``dW`` and ``db``. ``tc``: the tensor-core pass
-    (``csrc/train_bwd_tc.cu``), which writes ``dz`` and (behind a previous
-    BN) ``h`` for ``dW = dz^T h`` on the GEMM core; head B1's ``h`` is
-    ``z_prev`` itself."""
+         dyp_stash=False, **dz):
+    """One backward pass on the card (``csrc/train_bwd_tc.cu``): ``dz``
+    of the current layer (from ``mode``'s inputs), then ``dy_prev = dz @
+    W^T`` (masked by the previous ReLU; a stash under ``dyp_stash``), the
+    previous BN's sums, ``dW`` and ``db``. Bmid and B1 write ``dz`` and
+    (behind a previous BN) ``h`` for ``dW = dz^T h`` on the GEMM core;
+    head B1's ``h`` is ``z_prev`` itself. B4 takes ``dW`` on its tiles in
+    shared memory, a partial per block (at most ``splits`` blocks)."""
     bsz, n, c_in = zp.shape
     c_out = w.shape[1]
     dev = zp.device
@@ -137,17 +138,13 @@ def _bwd(symbol, mode, zp, scp, shp, mup, invp, w, bf16, r=False,
     rr = torch.empty((bsz, c_out), **f32) if r else None
     dw = torch.empty((c_out, c_in), **f32)
     rows = bsz * n
-    if tc:
-        splits = launch.row_splits(rows, c_out, c_in, dev)
-        part = torch.empty((launch.row_blocks(bsz, n, launch.TC_TILE),
-                            2 * c_in + c_out), **f32)
+    splits = launch.row_splits(rows, c_out, c_in, dev)
+    part = torch.empty((launch.row_blocks(bsz, n, launch.TC_TILE),
+                        2 * c_in + c_out), **f32)
+    if mode != launch.DZ_SOFTMAX:
         dz.update(dzs=torch.empty((rows, c_out), **f32),
                   hs=None if scp is None else torch.empty((rows, c_in),
                                                           **f32))
-    else:
-        splits = launch.weight_grad_splits(bsz, n, c_out, c_in, dev)
-        part = torch.empty((launch.row_blocks(bsz, n), 2 * c_in + c_out),
-                           **f32)
     part_w = torch.empty((splits, c_out * c_in), **f32)
     prec = launch.prec(bf16, zp=zp, zc=dz.get("zc"), dy=dz.get("dy"),
                        dyp=dyp)
@@ -269,7 +266,7 @@ def bmid(zc, dy, sc, mu, inv, coef1, coef2, zp, scp, shp, w, mup, invp,
         return bmid_plain(zc, dy, sc, mu, inv, coef1, coef2, zp, scp, shp, w,
                           mup, invp, bf16)
     dyp, dw, db, t1, t2, _ = _bwd("pt_head_bmid", launch.DZ_BN, zp, scp, shp,
-                                  mup, invp, w, bf16, dyp_stash=True, tc=True,
+                                  mup, invp, w, bf16, dyp_stash=True,
                                   zc=zc, dy=dy, sc=sc, mu=mu, inv=inv,
                                   c1=coef1, c2=coef2)
     bmid.launches += 1
@@ -290,8 +287,8 @@ def b1(z1, dy1, sc1, mu1, inv1, coef1, coef2, pf, w1a, bf16: bool = False):
     if launch.on_cpu(z1):
         return b1_plain(z1, dy1, sc1, mu1, inv1, coef1, coef2, pf, w1a, bf16)
     dpf, dw1a, db1, _, _, r = _bwd("pt_head_b1", launch.DZ_BN, pf, None, None,
-                                   None, None, w1a, bf16, r=True, tc=True,
-                                   zc=z1, dy=dy1, sc=sc1, mu=mu1, inv=inv1,
+                                   None, None, w1a, bf16, r=True, zc=z1,
+                                   dy=dy1, sc=sc1, mu=mu1, inv=inv1,
                                    c1=coef1, c2=coef2)
     b1.launches += 1
     return dpf, dw1a, db1, r

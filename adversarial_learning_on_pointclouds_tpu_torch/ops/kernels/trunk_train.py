@@ -11,8 +11,9 @@ trunk_train.cu``, whose header says what bounds them on the card):
 * **B1** the backward through conv3 + BN3 + pool: ``dy2``, ``dw3``,
   ``db3`` and BN2's two reduction sums ``t1``/``t2``.
 
-F2 and B1 run on the tensor cores (``csrc/train_bwd_tc.cu``, sharing
-their prologue and first GEMM), F1 on the CUDA cores.
+All three run on the tensor cores (``csrc/train_bwd_tc.cu``; F2 and B1
+share their prologue and first GEMM; F1 at ``c_in <= 4``, trunk3's raw
+points, as exact fp32 FMAs).
 
 Each pass has a plain PyTorch twin of the same signature (``f1_plain``,
 ``f2_plain``, ``b1_plain``) that CPU tensors run. The glue between the
@@ -117,7 +118,9 @@ def f1(x, w2, b2, groups: int = 1, bf16: bool = False):
     z2 = torch.empty((bsz, n, c2), device=dev,
                      dtype=launch.stash_dtype(bf16))
     s, ss = torch.empty((groups, c2), **f32), torch.empty((groups, c2), **f32)
-    part = torch.empty((2, launch.row_blocks(bsz, n), c2), **f32)
+    # F1 runs on the tensor cores: per-block partials of TC_TILE points.
+    part = torch.empty((2, launch.row_blocks(bsz, n, launch.TC_TILE), c2),
+                       **f32)
     a = launch.args(launch.RowFwdArgs, batch=bsz, n=n, c_in=c_in, c_out=c2,
                     ldw=ldw, groups=groups, prec=launch.prec(bf16, z=z2),
                     x=x, w=w2.t(), bias=b2, z=z2, sum=s, ssq=ss, part=part)

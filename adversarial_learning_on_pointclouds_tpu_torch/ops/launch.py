@@ -149,9 +149,9 @@ StackArgs = type("StackArgs", (ctypes.Structure,), {"_fields_": [
     ("shift", ctypes.c_void_p * MAX_STACK), ("out", ctypes.c_void_p)]})
 DZ_BN, DZ_TRUNK, DZ_SOFTMAX = 0, 1, 2   # BwdArgs.mode
 TILE = 64          # rows per block of the row kernels (kTile in csrc)
-TC_TILE = 128      # rows per block of the tensor-core trunk F2 and B1
-                   # and the seg head's Pmid, Bmid and B1 (kTcRows in
-                   # csrc/train_bwd_tc.cu)
+TC_TILE = 128      # rows per block (per tile) of the tensor-core trunk
+                   # F1, F2 and B1 and the seg head's Pmid, B4, Bmid and
+                   # B1 (kTcRows in csrc/train_bwd_tc.cu)
 DISC_TILE = 64     # rows per block of the disc's backward row pass
                    # (kDwRows in csrc/disc_tc.cu)
 # The ``prec`` bits of the argument structs (kRound... in common.cuh):
@@ -196,18 +196,6 @@ def check_groups(bsz: int, groups: int) -> int:
     if groups < 1 or bsz % groups:
         raise ValueError(f"batch {bsz} does not split into {groups} groups")
     return bsz // groups
-
-
-def weight_grad_splits(bsz: int, n: int, c_out: int, c_in: int,
-                       device: torch.device) -> int:
-    """Tile ranges of a weight-gradient kernel (its tiles are the row
-    kernels' ``TILE`` points of one cloud): at most 32 tiles, 2048 rows,
-    each (a short serial fp32 sum per thread), and enough ranges for two
-    blocks per SM; the ranges' partial sums are added in fp64."""
-    tiles = row_blocks(bsz, n)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    chunks = -(-c_out // 64) * -(-c_in // 128)
-    return max(1, min(tiles, max(-(-tiles // 32), -(-2 * sms // chunks))))
 
 
 def row_splits(rows: int, m: int, n: int, device: torch.device,

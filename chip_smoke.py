@@ -26,12 +26,12 @@ Phases, one or more lines each:
    P1/Pmid/P4/B4/Bmid/B1, the pool-fc epilogue at groups 1 and 2)
    against its plain pass at B=32 N=2048 (the config-3 step), B=32
    N=2500 (ragged) and B=2 N=2048, on inputs with negative BN3 gammas and
-   duplicated points (max ties go to the first point); trunk F2 and B1
-   and the seg head's Pmid, Bmid and B1 (on the tensor cores,
+   duplicated points (max ties go to the first point); trunk F1, F2 and
+   B1 and the seg head's Pmid, B4, Bmid and B1 (on the tensor cores,
    ``csrc/train_bwd_tc.cu``) also, in fp32, held by the float64 control
-   (F2's sum and sum of squares, Pmid's z, dy_prev, dpf and dW at most
-   ``F64_FACTOR`` times the plain fp32 pass's error), where
-   the plain pass with TF32 allowed must fail; then each autograd
+   (F1's z2, F2's sum and sum of squares, Pmid's z, B4's dy3 and dW4,
+   dy_prev, dpf and dW at most ``F64_FACTOR`` times the plain fp32 pass's
+   error), where the plain pass with TF32 allowed must fail; then each autograd
    function's outputs and gradients against its whole-function plain
    reference;
 7. train-slice: ``train_step`` of a seeded full-width segmenter with
@@ -72,9 +72,9 @@ Phases, one or more lines each:
 12. bench-kernels: every training and discriminator pass in bf16 against
    its bf16 plain twin at the shapes of phases 6 and 9 (bf16 stashes may
    sit one bf16 step apart where the two sum in another order: the share
-   that differs is printed, and Pmid's z may differ in at most
-   ``STASH_SHARE`` of its elements, which z rounded toward zero must
-   fail; the disc's dW5 takes the pass's own rounding
+   that differs is printed, and F1's z2, Pmid's z and B4's dy3 may
+   differ in at most ``STASH_SHARE`` of their elements, which each
+   rounded toward zero must fail; the disc's dW5 takes the pass's own rounding
    of h4, ``pass_h4``, itself held to one bf16 step of the twin's with at
    most ``STASH_SHARE`` of it apart; a dW5 of the unrounded h4 and an h4
    rounded toward zero must fail); ``trunk2_train(groups=2)``'s
@@ -97,8 +97,10 @@ Phases, one or more lines each:
    groups=2 passes, and the bench step through ``train_steps_scan`` (K=8:
    per-step ms, points/s of both streams, idle share), one step per call,
    with ``paired_trunks`` and without ``pallas_augment``; the bench
-   step's profile must show ``pmid_tc_kernel`` and ``head_b1_tc_kernel``
-   and neither ``row_bwd_kernel<128>`` nor ``wgrad_kernel<2>``;
+   step's profile, with and without ``paired_trunks``, must show
+   ``pmid_tc_kernel``, ``head_b1_tc_kernel``, ``f1_tc_kernel`` and
+   ``b4_tc_kernel`` and none of the CUDA-core kernels they replaced
+   (``GONE_KERNELS``);
 15. pallas-train-kernels: the per-layer training kernels that
    ``dispatch.use_pallas_train`` (the JAX package's
    ``use_pallas(training=True)``) reaches, each pass against its plain
@@ -137,8 +139,8 @@ Phases, one or more lines each:
    non-unit scales, in fp32 and bf16; ``trunk3_train`` at STN3d's and
    STNkd's widths (c_in 3 and 64) at B=32 N=2048, N=2500 and B=2, on
    duplicated points with negative BN3 gammas: each of its six passes
-   against its plain pass (Pmid and the head's B1 in fp32 also by the
-   float64 control, with TF32 controls at c_in 64, B=32 N=2048), then
+   against its plain pass (F1, Pmid and the head's B1 in fp32 also by
+   the float64 control, with TF32 controls at c_in 64, B=32 N=2048), then
    its outputs and 13 gradients against
    ``trunk3_train_reference`` and against conv1 + BN1 + ReLU in front of
    ``trunk2_train``;
@@ -176,8 +178,9 @@ prints no result line.
 ``--time fp32|bench|pallas_train [--root DIR]`` runs only the G+D step's
 timing of phase 11, 14 or 17 (the bench step under the switch), on the
 port package under ``DIR`` (``time_alone``), for A/B runs of two trees on
-one card; ``--time passes`` times the seg head's Pmid and B1 alone, fp32
-and bf16. They check nothing and print no result line.
+one card; ``--time passes`` times the seg head's Pmid, B1 and B4 and
+trunk F1 (groups 1 and 2) alone, fp32 and bf16. They check nothing and
+print no result line.
 """
 
 import copy
@@ -269,10 +272,11 @@ YARD_FACTOR = 2.0
 BENCH_K = 8           # steps per train_steps_scan call (bench.py --scan 8)
 STASH_BOUND = 2.0 ** -8   # one bf16 step of a stash's scale (check_stash)
 # The share of a tensor-core pass's bf16 values (the disc pass's h4, dW5's
-# operand; Pmid's z stash) that may sit one bf16 step from the plain
-# twin's: only fp32 sums of another order on a rounding midpoint, about
-# 1e-4 of the elements on the H100 (h4 at K=256, PR 10; Pmid's z
-# 0.2e-4 to 1.6e-4 at K=64 to 512, PR 11); a rounding of another kind
+# operand; the z stashes of Pmid and trunk F1, B4's dy3) that may sit one
+# bf16 step from the plain twin's: only fp32 sums of another order on a
+# rounding midpoint, about 1e-4 of the elements on an H100 at 700 W (h4
+# at K=256 1.0e-4 to 1.3e-4; Pmid's z 0.2e-4 to 1.6e-4 at K=64 to 512;
+# F1's z2 and B4's dy3 1.7e-5 to 4.6e-5); a rounding of another kind
 # (toward zero, say) moves about half of them.
 STASH_SHARE = 1e-3
 # A bf16 pass's fp32 outputs against its bf16 twin: where an operand (a
@@ -304,8 +308,9 @@ GEMM_KERNELS = ("pointwise_matmul", "tnet_apply")
 # The fused training passes on the tensor cores (csrc/train_bwd_tc.cu, on
 # mma.cuh's fragment layer and the GEMM core): fp32 as 3xTF32, bound at
 # that rate with the fp32-FMA bound beside it.
-TC_PASSES = (("trunk2_train", "F2"), ("trunk2_train", "B1"),
-             ("seg_head_train", "Pmid"), ("seg_head_train", "Bmid"),
+TC_PASSES = (("trunk2_train", "F1"), ("trunk2_train", "F2"),
+             ("trunk2_train", "B1"), ("seg_head_train", "Pmid"),
+             ("seg_head_train", "B4"), ("seg_head_train", "Bmid"),
              ("seg_head_train", "B1"))
 # The discriminator's passes, all on the tensor cores (csrc/disc_tc.cu:
 # the forward kernel; the backward's row pass, and for dW the GEMM core),
@@ -972,6 +977,35 @@ def head_b1_f64(z1, dy1, sc1, mu1, inv1, coef1, coef2, pf, w1a):
     return torch.matmul(dz, w1a.double().t()), _rows64(pf).t() @ _rows64(dz)
 
 
+def f1_f64(x, w2, b2):
+    """Trunk F1's float64 control (fp32): ``(z2,)``, its product, in
+    float64. Its sums are held to the plain twin only, as Pmid's are."""
+    return (torch.matmul(x.double(), w2.double()) + b2.double(),)
+
+
+def b4_f64(z3, sc3, sh3, w4, b4, mu3, inv3, dlogp):
+    """B4's float64 control (fp32): ``(dy3, dw4)`` with every product and
+    sum in float64, h3 and BN3's ReLU mask as the fp32 passes compute
+    them."""
+    h3 = torch.relu(z3.float() * sc3 + sh3).double()
+    dl = dlogp.double()
+    p = torch.softmax(torch.matmul(h3, w4.double()) + b4.double(), dim=-1)
+    dz = dl - p * dl.sum(-1, keepdim=True)
+    return (torch.matmul(dz, w4.double().t()) * (h3 > 0),
+            _rows64(h3).t() @ _rows64(dz))
+
+
+def b4_dy3_bf16(z3, sc3, sh3, w4, b4, mu3, inv3, dlogp):
+    """The bf16 plain pass's dy3 before its stash rounds it (fp32)."""
+    from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
+        seg_head_train as sh,
+    )
+    h3 = sh._bn_relu(z3, sc3, sh3)
+    p = torch.softmax(sh._mm(h3, w4, True) + b4, dim=-1)
+    dz = dlogp - p * dlogp.sum(-1, keepdim=True)
+    return sh._mm(dz, w4.t(), True) * (h3 > 0)
+
+
 def truncated_stash_control(name, fp32, ref, ptag):
     """The control of a bf16 stash's share check: the pass's fp32 values
     rounded toward zero (fp32's low 16 bits cleared) must fail it."""
@@ -1034,7 +1068,17 @@ def train_kernel_checks(dev, gen, rec, bf16=False):
             a = (x, tw["w2"], tw["b2"], *xt)
             got, ref = tt.f1(*a), tt.f1_plain(*a)
             rec.cmp("trunk2_train", "F1", tag, ("z2", "sum", "sumsq"), got,
-                    ref, main, a, phase_tag=ptag)
+                    ref, main, a, phase_tag=ptag, max_share=STASH_SHARE)
+            if not bf16:
+                tc_f64(rec, "trunk2_train", "F1", tag, got, ref, f1_f64(*a),
+                       ("z2",), ptag,
+                       (lambda: tt.f1_plain(*a)[0]) if main else None)
+            elif main:
+                truncated_stash_control(
+                    f"trunk2_train F1 z2 {tag}",
+                    torch.matmul(core.operand(x, True),
+                                 core.operand(tw["w2"], True)) + tw["b2"],
+                    ref[0], ptag)
             z2 = ref[0]
             mu2, _, inv2 = core.batch_moments(ref[1], ref[2], bsz * n)
             sc2 = tw["g2"] * inv2
@@ -1118,7 +1162,14 @@ def train_kernel_checks(dev, gen, rec, bf16=False):
             got, ref = sh.b4(*a), sh.b4_plain(*a)
             rec.cmp("seg_head_train", "B4", tag,
                     ("dy3", "dw4", "db4", "t1", "t2"), got, ref, main, a,
-                    phase_tag=ptag)
+                    phase_tag=ptag, max_share=STASH_SHARE)
+            if not bf16:
+                tc_f64(rec, "seg_head_train", "B4", tag, got, ref, b4_f64(*a),
+                       ("dy3", "dw4"), ptag,
+                       (lambda: sh.b4_plain(*a)[0]) if main else None)
+            elif main:
+                truncated_stash_control(f"seg_head_train B4 dy3 {tag}",
+                                        b4_dy3_bf16(*a[:8]), ref[0], ptag)
             dy = ref[0]
             t1, t2 = ref[3], ref[4]
             for cur, prev, w in ((2, 1, w3), (1, 0, w2)):
@@ -2264,7 +2315,7 @@ def groups2_checks(dev, gen, rec):
             got, ref = tt.f1(*a), tt.f1_plain(*a)
             rec.cmp("trunk2_train(groups=2)", "F1", tag, ("z2", "sum",
                     "sumsq"), got, ref, bf16, a, phase_tag="bench-kernels",
-                    bound=None if bf16 else BOUND)
+                    bound=None if bf16 else BOUND, max_share=STASH_SHARE)
             one = [tt.f1(x[c], w2, b2, 1, bf16) for c in halves]
             check_equal(f"trunk2_train(groups=2) F1 {tag} vs two groups=1 "
                         "launches", got, [torch.cat([o[0] for o in one])] +
@@ -2496,7 +2547,8 @@ def time_passes(card, rec, key, fn, plain, times, bf16):
 
 def time_scan(card, tag, cfg, state, batch_k, txs):
     """The step through ``train_steps_scan`` at K: per-step ms (CUDA
-    events around the call), points/s of both streams, idle share."""
+    events around the call), points/s of both streams, idle share, and
+    the port's kernels by name (device ms per step)."""
     from adversarial_learning_on_pointclouds_tpu_torch.train import (
         adversarial,
     )
@@ -2507,13 +2559,17 @@ def time_scan(card, tag, cfg, state, batch_k, txs):
 
     call()
     per = statistics.median(event_ms(call, 3)) / BENCH_K
-    busy = sum(device_profile(call, reps=1).values()) / BENCH_K
+    kernels = device_profile(call, reps=1)
+    busy = sum(kernels.values()) / BENCH_K
     pts = 2 * cfg.batch_size * cfg.num_points
     phase("bench-timing", f"{card}: {tag}: train_steps_scan K={BENCH_K}, "
           f"2 x B={cfg.batch_size} N={cfg.num_points}: {per:.3f} ms per step"
           f", {pts / per * 1e3:.1f} points/s (both streams), GPU kernels "
           f"busy {busy:.3f} ms per step ({100 * (1 - busy / per):.1f}% idle)")
-    return {"step_ms": per, "busy_ms": busy}
+    ours = {re.sub(r"^void pointtpu::\(anonymous namespace\)::", "", k)
+            .split("(")[0]: ms / BENCH_K for k, ms in kernels.items()
+            if k.startswith("void pointtpu::")}
+    return {"step_ms": per, "busy_ms": busy, "kernels": ours}
 
 
 def bench_timing(card, rec, results, bench):
@@ -2613,24 +2669,35 @@ def bench_timing(card, rec, results, bench):
     for key, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:14]:
         phase("bench-timing", f"  {ms / BENCH_K:.4f} ms per step  {key[:90]}")
     profile_names(kernels, "the bench step")
+    profile_names(device_profile(lambda: adversarial.train_steps_scan(
+        out[True][1][0], *batch_k, cfg=cfg_pt, g_tx=out[True][1][4][0],
+        d_tx=out[True][1][4][1]), reps=1), "the bench step with paired_trunks")
 
 
-# The seg head's tensor-core passes, which the bench step must show under
-# their own names, and the CUDA-core kernels they replaced, which it must
-# not (PR 11).
-TC_HEAD_KERNELS = ("pmid_tc_kernel<", "head_b1_tc_kernel<")
-GONE_KERNELS = ("row_bwd_kernel<128", "wgrad_kernel<2")
+# The tensor-core passes that replaced CUDA-core kernels (the seg head's
+# Pmid, B1 and B4, trunk F1), which the bench step must show under their
+# own names, and the CUDA-core kernels they replaced, which it must not:
+# the head's B1 and B4 row and weight-gradient kernels and the grouped row
+# kernel of F1 (the paired trunks).
+TC_HEAD_KERNELS = ("pmid_tc_kernel<", "head_b1_tc_kernel<", "f1_tc_kernel<",
+                   "b4_tc_kernel<")
+GONE_KERNELS = ("row_bwd_kernel<128", "wgrad_kernel<2", "row_bwd_kernel<64",
+                "wgrad_kernel<4", "row_fwd_kernel<true, true",
+                "row_fwd_kernel<false, true")
 
 
 def profile_names(kernels, what):
-    """Fail unless the profile ``kernels`` (by name) ran each of
-    ``TC_HEAD_KERNELS`` and none of ``GONE_KERNELS``."""
+    """Fail unless the profile ``kernels`` (by name, over ``BENCH_K``
+    steps) ran each of ``TC_HEAD_KERNELS`` and none of ``GONE_KERNELS``;
+    prints each one's device ms per step."""
     ran = {k: [n for n in kernels if k in n]
            for k in TC_HEAD_KERNELS + GONE_KERNELS}
     missing = [k for k in TC_HEAD_KERNELS if not ran[k]]
     stale = [n for k in GONE_KERNELS for n in ran[k]]
-    phase("bench-timing", f"profile of {what}: "
-          + "; ".join(f"{k}..> {len(ran[k])} name(s)" for k in ran))
+    phase("bench-timing", f"profile of {what}: " + "; ".join(
+        f"{k}..> {len(ran[k])} name(s), "
+        f"{sum(kernels[n] for n in ran[k]) / BENCH_K:.4f} ms per step"
+        for k in ran))
     if missing or stale:
         raise AssertionError(f"{what}: kernels missing {missing}, removed "
                              f"kernels that ran {stale}")
@@ -3204,7 +3271,10 @@ def trunk3_pass_checks(dev, gen, rec, args, tag, ptag, bf16=False,
     a = (x, w1, b1, *xt)
     got, ref = tt.f1(*a), tt.f1_plain(*a)
     rec.cmp(k, "F1", tag, ("z1", "sum", "sumsq"), got, ref, False, a,
-            phase_tag=ptag, bound=bnd)
+            phase_tag=ptag, bound=bnd, max_share=STASH_SHARE)
+    if not bf16:
+        tc_f64(rec, k, "F1", tag, got, ref, f1_f64(*a), ("z1",), ptag,
+               (lambda: tt.f1_plain(*a)[0]) if control else None)
     z1 = ref[0]
     mu1, _, inv1 = core.batch_moments(ref[1], ref[2], m)
     sc1, sh1 = g1 * inv1, be1 - mu1 * g1 * inv1
@@ -3592,19 +3662,22 @@ def kernel_entry(name, src, site, launches, passes, times):
 
 def head_passes(card):
     """``--time passes``: the seg head's Pmid (512 -> 256 and 256 -> 128,
-    a config-3 step's two launches) and B1 (512 -> 64, one launch) at
+    a config-3 step's two launches), B1 (512 -> 64, one launch) and B4
+    (128 -> 50, one launch), and trunk F1 (64 -> 128, a config-3 step's
+    three launches; and at groups=2 on 2B=64, the paired trunks' three) at
     B=32 N=2048 on seeded data, fp32 and bf16: median ms of ``REPS`` calls
-    (CUDA events), device ms (profiler) and TFLOP/s of each."""
+    (CUDA events), device ms (profiler), TFLOP/s and GB/s of each (the
+    bytes of its inputs and outputs, each once)."""
     from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
-        seg_head_train as sh,
+        seg_head_train as sh, trunk_train as tt,
     )
 
     dev, gen, m = torch.device("cuda", 0), torch.Generator().manual_seed(
         SEED), B * TRAIN_N
     out = {}
     for bf16 in (False, True):
-        def stash(c, scale=1.0):
-            t = _r(gen, B, TRAIN_N, c, scale=scale, dev=dev)
+        def stash(c, scale=1.0, bsz=B):
+            t = _r(gen, bsz, TRAIN_N, c, scale=scale, dev=dev)
             return t.to(torch.bfloat16) if bf16 else t
 
         pmid = [(stash(ci), _gam(gen, ci, dev), _r(gen, ci, dev=dev),
@@ -3616,22 +3689,38 @@ def head_passes(card):
                _r(gen, 512, scale=1e-2, dev=dev),
                torch.relu(_r(gen, B, TRAIN_N, 64, scale=1.0, dev=dev)),
                _w(gen, 64, 512, dev), bf16)]
+        b4 = [(stash(128), _gam(gen, 128, dev), _r(gen, 128, dev=dev),
+               _w(gen, 128, PARTS, dev), _r(gen, PARTS, dev=dev),
+               _r(gen, 128, dev=dev), _gam(gen, 128, dev),
+               _r(gen, B, TRAIN_N, PARTS, scale=1.0, dev=dev), bf16)]
+        # Three trunks' launches, each on its own input (none left in L2).
+        f1 = {g: [(torch.relu(_r(gen, g * B, TRAIN_N, 64, scale=1.0,
+                                 dev=dev)),
+                   _w(gen, 64, 128, dev), _r(gen, 128, dev=dev), g, bf16)
+                  for _ in range(3)] for g in (1, 2)}
         for name, fn, calls, flops in (
                 ("Pmid", sh.pmid, pmid, 2 * m * (512 * 256 + 256 * 128)),
-                ("B1", sh.b1, b1, 2 * 2 * m * 512 * 64)):
+                ("B1", sh.b1, b1, 2 * 2 * m * 512 * 64),
+                ("B4", sh.b4, b4, 3 * 2 * m * 128 * PARTS),
+                ("F1", tt.f1, f1[1], 3 * 2 * m * 64 * 128),
+                ("F1 groups=2", tt.f1, f1[2], 3 * 2 * 2 * m * 64 * 128)):
             def run():
                 return [fn(*a) for a in calls]
 
             with torch.no_grad():
-                run()
+                outs = run()
+                nbytes = sum(t.numel() * t.element_size()
+                             for t in _tensors((calls, outs)))
                 ms = statistics.median(event_ms(run, REPS))
                 dev_ms = sum(device_profile(run).values())
             key = f"{name} {'bf16' if bf16 else 'fp32'}"
             out[key] = {"ms": ms, "device_ms": dev_ms,
-                        "tflops": flops / ms / 1e9}
+                        "tflops": flops / ms / 1e9,
+                        "gbps": nbytes / dev_ms / 1e6}
             phase("time", f"{card}: {key} x{len(calls)} at B={B} "
                   f"N={TRAIN_N}: {ms:.4f} ms ({flops / ms / 1e9:.1f} "
-                  f"TFLOP/s), device {dev_ms:.4f} ms")
+                  f"TFLOP/s), device {dev_ms:.4f} ms "
+                  f"({nbytes / dev_ms / 1e6:.1f} GB/s)")
     return out
 
 
@@ -3644,7 +3733,8 @@ def time_alone(mode: str, root: str, card: str) -> None:
     ``bench`` as phase 14 (``train_steps_scan`` at K=8 of the bench
     configuration), ``pallas_train`` the same under ``use_pallas_train``
     (``bench.py --pallas_train``; a tree without the switch fails);
-    ``passes`` the seg head's Pmid and B1 alone (``head_passes``). Prints
+    ``passes`` the seg head's Pmid, B1 and B4 and trunk F1 alone
+    (``head_passes``). Prints
     one JSON line, and no result line. To compare two trees, alternate
     them within one call (A B B A): the host's share of a step moves
     between calls."""
@@ -3690,8 +3780,9 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--time", choices=("fp32", "bench", "pallas_train",
                                        "passes"),
-                    help="time the G+D step, or the seg head's Pmid and "
-                         "B1, alone (no checks, no result line)")
+                    help="time the G+D step, or the seg head's Pmid, B1 "
+                         "and B4 and trunk F1, alone (no checks, no result "
+                         "line)")
     ap.add_argument("--disc-checks", type=int, metavar="SEED",
                     help="run only the discriminator's checks of phases 9 "
                          "and 12 on data from this generator seed (no "

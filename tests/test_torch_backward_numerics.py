@@ -1,6 +1,6 @@
 """The numerics of the generator's tensor-core passes
-(``csrc/train_bwd_tc.cu``: trunk F2 and B1 and the seg head's Pmid, Bmid
-and B1), emulated in plain PyTorch on the CPU.
+(``csrc/train_bwd_tc.cu``: trunk F1, F2 and B1 and the seg head's Pmid,
+B4, Bmid and B1), emulated in plain PyTorch on the CPU.
 
 The card's kernels cannot run here; their arithmetic can. Trunk B1
 recomputes ``h2 = relu(bn2(z2))`` in fp32 (the ReLU mask every pass
@@ -25,14 +25,22 @@ product), z's column sums per 128-point tile. The seg head's B1 is Bmid
 without the previous BN: dz by 64-channel chunks (elementwise, so the
 chunks change nothing), dpf = dz W1a^T unmasked in fp32, dW1a = dz^T pf
 by row splits, db and each cloud's r from per-tile fp32 sums added in
-float64.
+float64. Trunk F1 is z = x W^T + b with its column sums per 128-point
+tile (fp32, added per group in float64); at c_in <= 4 (trunk3_train's
+raw points) the product is plain fp32, as the kernel's FMAs are. B4
+recomputes z4 = h3 W4^T + b4, takes dz = dlp - softmax(z4) sum(dlp) in
+fp32, dy3 = dz W4 masked by h3 > 0, and dW4 = h3^T dz, db, t1 and t2 from
+per-tile fp32 sums added in float64 (the kernel adds a block's tiles in
+one fp32 accumulator before float64: another order of the same sums).
 
 Held at narrow widths (B1 c_in 32, c_out 256; F2 128 -> 256; Bmid 64 ->
 128 and 128 -> 64; Pmid 128 -> 64 and 64 -> 128; the head's B1 128 -> 32
-and 64 -> 3), a ragged N = 300, groups 1 and 2: fp32 within ``BOUND``
+and 64 -> 3; F1 16 -> 32 and 3 -> 16; B4 32 -> 50 and 32 -> 13, an odd
+k that pads), a ragged N = 300, groups 1 and 2: fp32 within ``BOUND``
 (1e-4 scale-relative) of float64, of the port's plain twins and of the
-JAX package's ``_b1_call`` / ``_f2_call`` / ``_pmid_call`` /
-``_bmid_call`` and the seg head's ``_b1_call`` (HIGHEST precision,
+JAX package's ``_b1_call`` / ``_f1_call`` / ``_f2_call`` / ``_pmid_call``
+/ ``_b4_call`` / ``_bmid_call`` and the seg head's ``_b1_call``
+(HIGHEST precision,
 Pallas in interpret mode as its own tests run it);
 bf16 within ``BF16_BOUND`` of the JAX kernels under their
 mixed-precision scope. The control: one TF32 product instead of three
@@ -67,7 +75,9 @@ BMID_WIDTHS = ((64, 128), (128, 64))   # (c_out, c_in): dz width -> dyp width
 F2_WIDTHS = (128, 256)                 # (c2, c3)
 PMID_WIDTHS = ((128, 64), (64, 128))   # (c_in, c_out)
 HEAD_B1_WIDTHS = ((128, 32), (64, 3))  # (c_out, c_in): dz width -> dpf width
-TC_TILE = 128          # points a block of F2, Pmid, the head's B1
+F1_WIDTHS = ((16, 32), (3, 16))        # (c_in, c2); depth 3 as plain fp32
+B4_C3, B4_PARTS = 32, (50, 13)         # B4: c3, k (13 pads to 16)
+TC_TILE = 128          # points a tile of F1, F2, Pmid, B4, the head's B1
                        # (kTcRows in csrc/train_bwd_tc.cu)
 
 
@@ -213,6 +223,52 @@ def head_b1_emulated(args, prec):
             r.sum(0), r)
 
 
+def f1_emulated(args, groups, prec):
+    """Trunk F1 as ``train_bwd_tc.cu`` computes it: ``(z2, sum, sumsq)``,
+    ``z2`` before its stash; the sums per group (``[C]`` for one group).
+    At c_in <= 4 the kernel's product is fp32 FMAs: plain fp32 here."""
+    x, w2, b2 = args
+    bsz, n, c_in = x.shape
+    if prec == "3xtf32" and c_in <= 4:
+        z = x @ w2 + b2
+    else:
+        z = _mm(x.reshape(-1, c_in), w2, prec).reshape(bsz, n, -1) + _f(
+            b2, prec)
+    s, ss = (_tile_sums(t, prec).reshape(groups, -1, z.shape[-1]).sum(1)
+             for t in (z, z * z))
+    return (z, s[0] if groups == 1 else s, ss[0] if groups == 1 else ss)
+
+
+def _tile_dw(h, dz, prec):
+    """``h^T dz`` of ``[B, N, C]`` operands as per-tile products of
+    ``TC_TILE`` points added in float64, ``[c_h, c_dz]``."""
+    out = sum(_mm(h[b, p:p + TC_TILE].t(), dz[b, p:p + TC_TILE],
+                  prec).double()
+              for b in range(h.shape[0]) for p in range(0, h.shape[1],
+                                                        TC_TILE))
+    return out if prec == "f64" else out.float()
+
+
+def b4_emulated(args, prec):
+    """The seg head's B4 as ``train_bwd_tc.cu`` computes it: ``(dy3, dw4,
+    db4, t1, t2)``, ``dy3`` before its stash; ``prec="f64"`` is the float64
+    control (h3 and its mask from fp32, everything after in float64)."""
+    z3, sc3, sh3, w4, b4, mu3, inv3, dlp = args
+    bsz, n, c3 = z3.shape
+    h3 = torch.relu(z3.float() * sc3 + sh3)
+    mask = h3 > 0
+    h3 = _f(h3, prec)
+    z4 = _mm(h3.reshape(-1, c3), w4, prec).reshape(bsz, n, -1) + _f(b4, prec)
+    e = torch.exp(z4 - z4.max(-1, keepdim=True).values)
+    dl = _f(dlp, prec)
+    dz = dl - (e / e.sum(-1, keepdim=True)) * dl.sum(-1, keepdim=True)
+    dy3 = _mm(dz.reshape(-1, dz.shape[-1]), w4.t(), prec).reshape(
+        bsz, n, c3) * mask
+    zhat = (_f(z3, prec) - _f(mu3, prec)) * _f(inv3, prec)
+    return (dy3, _tile_dw(h3, dz, prec), _tile_sums(dz, prec).sum(0),
+            _tile_sums(dy3, prec).sum(0), _tile_sums(dy3 * zhat, prec).sum(0))
+
+
 def _rel(a, b) -> float:
     a = np.asarray(a.detach().double() if isinstance(a, torch.Tensor) else a,
                    np.float64)
@@ -323,6 +379,30 @@ def _head_b1_args(c_out, c_in, bf16=False):
             (rng.uniform(-1, 1, (c_in, c_out)) / np.sqrt(c_out)).astype(f))
 
 
+@functools.lru_cache(maxsize=None)
+def _f1_args(c_in, c2, groups):
+    rng = np.random.default_rng(c_in * 1000 + c2 + 50 + groups)
+    f = np.float32
+    return (np.maximum(rng.standard_normal((2 * groups, N, c_in)), 0).astype(f),
+            (rng.uniform(-1, 1, (c_in, c2)) / np.sqrt(c_in)).astype(f),
+            (rng.standard_normal(c2) * 0.1).astype(f))
+
+
+@functools.lru_cache(maxsize=None)
+def _b4_args(k, bf16=False):
+    rng = np.random.default_rng(k * 1000 + 60 + bf16)
+    f = np.float32
+    z3 = rng.standard_normal((2, N, B4_C3)).astype(f)
+    return ((_stash(z3) if bf16 else z3),
+            rng.uniform(0.5, 1.5, B4_C3).astype(f),
+            (rng.standard_normal(B4_C3) * 0.1).astype(f),
+            (rng.uniform(-1, 1, (B4_C3, k)) / np.sqrt(B4_C3)).astype(f),
+            (rng.standard_normal(k) * 0.1).astype(f),
+            (rng.standard_normal(B4_C3) * 0.1).astype(f),
+            rng.uniform(0.5, 1.5, B4_C3).astype(f),
+            rng.standard_normal((2, N, k)).astype(f))
+
+
 def _torch(args):
     return tuple(torch.from_numpy(a) for a in args)
 
@@ -379,10 +459,31 @@ def _jax_head_b1(c_out, c_in, bf16=False):
     return jax_head._b1_call(*args)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_f1(c_in, c2, groups, bf16=False):
+    args = [jnp.asarray(a) for a in _f1_args(c_in, c2, groups)]
+    if bf16:
+        with jax_core.mixed_precision():
+            return jax_trunk._f1_call(*args, groups=groups)
+    return jax_trunk._f1_call(*args, groups=groups)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_b4(k, bf16=False):
+    args = [jnp.asarray(a) for a in _b4_args(k, bf16)]
+    if bf16:
+        args[0] = args[0].astype(jnp.bfloat16)
+        with jax_core.mixed_precision():
+            return jax_head._b4_call(*args)
+    return jax_head._b4_call(*args)
+
+
 NAMES = ("dy_prev", "dw", "db", "t1", "t2")
 PMID_NAMES = ("z", "sum", "sumsq")
 HEAD_B1_NAMES = ("dpf", "dw1a", "db1", "r")
 F2_NAMES = ("sum", "sumsq", "max", "min")
+F1_NAMES = ("z2", "sum", "sumsq")
+B4_NAMES = ("dy3", "dw4", "db4", "t1", "t2")
 
 
 def _winners_agree(emu, other, z3, what):
@@ -591,7 +692,93 @@ def test_head_b1_bf16_matches_jax_mixed_precision(c_out, c_in):
     assert _rel(emu[1], fp32[1]) > 10 * BOUND
 
 
-@pytest.mark.parametrize("pas", ["B1", "Bmid", "F2", "Pmid", "head B1"])
+@pytest.mark.parametrize("groups", [1, 2])
+@pytest.mark.parametrize("c_in,c2", F1_WIDTHS)
+def test_f1_3xtf32_matches_float64_plain_and_jax(c_in, c2, groups):
+    """fp32 (3xTF32; plain fp32 at depth 3): z2 and its per-group sums
+    within ``BOUND`` of float64, of the plain twin and of the JAX kernel."""
+    args = _torch(_f1_args(c_in, c2, groups))
+    emu = f1_emulated(args, groups, "3xtf32")
+    ref = f1_emulated(args, groups, "f64")
+    plain = trunk_train.f1_plain(*args, groups=groups)
+    for nm, e, r, p, j in zip(F1_NAMES, emu, ref, plain,
+                              _jax_f1(c_in, c2, groups)):
+        assert _rel(e, r) <= BOUND, (nm, _rel(e, r))
+        assert _rel(e, p) <= BOUND, (nm, _rel(e, p))
+        assert _rel(e, np.asarray(j).reshape(e.shape)) <= BOUND, nm
+
+
+@pytest.mark.parametrize("groups", [1, 2])
+@pytest.mark.parametrize("c_in,c2", F1_WIDTHS)
+def test_f1_bf16_matches_jax_mixed_precision(c_in, c2, groups):
+    """bf16 x and W2 as the JAX kernel's ``_mxu_dot`` casts them, fp32
+    sums of the unrounded z2; z2 a bf16 stash on both sides: equal or one
+    bf16 step apart, or within ``BF16_BOUND`` of its scale; the sums within
+    ``BF16_BOUND``; and the rounding did happen (fp32 lands elsewhere)."""
+    args = _torch(_f1_args(c_in, c2, groups))
+    emu = list(f1_emulated(args, groups, "bf16"))
+    assert _rel(emu[0], f1_emulated(args, groups, "3xtf32")[0]) > 10 * BOUND
+    emu[0] = emu[0].to(torch.bfloat16)
+    plain = trunk_train.f1_plain(*args, groups=groups, bf16=True)
+    for i, (nm, e, p, j) in enumerate(zip(F1_NAMES, emu, plain,
+                                          _jax_f1(c_in, c2, groups, True))):
+        j = torch.from_numpy(np.array(jnp.asarray(j, jnp.float32))
+                             ).reshape(e.shape)
+        if i == 0:
+            e, p = e.float(), p.float()
+            step = (j.abs() * 2.0 ** -7).clamp_min(
+                BF16_BOUND * max(1.0, j.abs().max().item()))
+            assert ((e - j).abs() <= step).all(), nm
+            assert ((e - p).abs() <= step).all(), nm
+        else:
+            assert _rel(e, j) <= BF16_BOUND, nm
+            assert _rel(e, p) <= BF16_BOUND, nm
+
+
+@pytest.mark.parametrize("k", B4_PARTS)
+def test_b4_3xtf32_matches_float64_plain_and_jax(k):
+    """fp32: dy3, dW4, db4, t1, t2 within ``BOUND`` of float64, of the
+    plain twin and of the JAX kernel, k = 50 and an odd k = 13 (padded
+    logits: -inf in the softmax, zero in dz)."""
+    args = _torch(_b4_args(k))
+    emu = b4_emulated(args, "3xtf32")
+    ref = b4_emulated(args, "f64")
+    plain = seg_head_train.b4_plain(*args)
+    for nm, e, r, p, j in zip(B4_NAMES, emu, ref, plain, _jax_b4(k)):
+        assert _rel(e, r) <= BOUND, (nm, _rel(e, r))
+        assert _rel(e, p) <= BOUND, (nm, _rel(e, p))
+        assert _rel(e, np.asarray(j).reshape(e.shape)) <= BOUND, nm
+
+
+@pytest.mark.parametrize("k", B4_PARTS)
+def test_b4_bf16_matches_jax_mixed_precision(k):
+    """bf16 h3, W4 and dz as the JAX kernel's ``_mxu_dot`` /
+    ``_mxu_dot_t`` cast them, fp32 sums; db from the unrounded dz, t1 / t2
+    from the unrounded dy3; dy3 a bf16 stash on both sides: equal or one
+    bf16 step apart, or within ``BF16_BOUND`` of its scale; and the
+    rounding did happen (fp32 lands elsewhere)."""
+    args = _torch(_b4_args(k, bf16=True))
+    emu = list(b4_emulated(args, "bf16"))
+    assert _rel(emu[1], b4_emulated(args, "3xtf32")[1]) > 10 * BOUND
+    emu[0] = emu[0].to(torch.bfloat16)
+    plain = seg_head_train.b4_plain(*args, bf16=True)
+    for i, (nm, e, p, j) in enumerate(zip(B4_NAMES, emu, plain,
+                                          _jax_b4(k, True))):
+        j = torch.from_numpy(np.array(jnp.asarray(j, jnp.float32))
+                             ).reshape(e.shape)
+        if i == 0:
+            e, p = e.float(), p.float()
+            step = (j.abs() * 2.0 ** -7).clamp_min(
+                BF16_BOUND * max(1.0, j.abs().max().item()))
+            assert ((e - j).abs() <= step).all(), nm
+            assert ((e - p).abs() <= step).all(), nm
+        else:
+            assert _rel(e, j) <= BF16_BOUND, nm
+            assert _rel(e, p) <= BF16_BOUND, nm
+
+
+@pytest.mark.parametrize("pas", ["B1", "Bmid", "F2", "Pmid", "head B1", "F1",
+                                 "B4"])
 def test_one_tf32_product_misses_the_bound(pas):
     """Control: with one TF32 product (no ``lo``) in place of three the
     emulation misses ``BOUND`` of float64 on the products' outputs, which
@@ -608,7 +795,13 @@ def test_one_tf32_product_misses_the_bound(pas):
     elif pas == "Pmid":
         args = _torch(_pmid_args(*PMID_WIDTHS[0]))
         one, ref = (pmid_emulated(args, p) for p in ("tf32", "f64"))
-    else:
+    elif pas == "head B1":
         args = _torch(_head_b1_args(*HEAD_B1_WIDTHS[0]))
         one, ref = (head_b1_emulated(args, p) for p in ("tf32", "f64"))
+    elif pas == "F1":
+        args = _torch(_f1_args(*F1_WIDTHS[0], 1))
+        one, ref = (f1_emulated(args, 1, p) for p in ("tf32", "f64"))
+    else:
+        args = _torch(_b4_args(B4_PARTS[0]))
+        one, ref = (b4_emulated(args, p) for p in ("tf32", "f64"))
     assert max(_rel(one[i], ref[i]) for i in (0, 1)) > BOUND

@@ -35,6 +35,13 @@ PMID_TC = ("_ZN8pointtpu12_GLOBAL__N_114pmid_tc_kernelILb1EEEv"
            "NS_10RowFwdArgsE")
 HEAD_B1_TC = ("_ZN8pointtpu12_GLOBAL__N_117head_b1_tc_kernelILb0ELi8EEEv"
               "NS_7BwdArgsE")
+# Trunk F1 (by precision and its x stage: 64, or 4 for c_in <= 4) and the
+# seg head's B4 on the tensor cores (train_bwd_tc.cu).
+F1_TC = ("_ZN8pointtpu12_GLOBAL__N_112f1_tc_kernelILb0ELi64EEEv"
+         "NS_10RowFwdArgsE")
+F1_FMA = ("_ZN8pointtpu12_GLOBAL__N_112f1_tc_kernelILb1ELi4EEEv"
+          "NS_10RowFwdArgsE")
+B4_TC = "_ZN8pointtpu12_GLOBAL__N_112b4_tc_kernelILb1EEEvNS_7BwdArgsE"
 
 
 def _entry(name, regs, st=0, ld=0):
@@ -109,3 +116,11 @@ def test_ptxas_report_names_the_seg_head_passes():
     assert ptxas_report(fake, "train_bwd_tc.cu") == {
         "pmid_tc_kernel<1>": (144, 0, 0),
         "head_b1_tc_kernel<0,8>": (72, 0, 0)}
+
+
+def test_ptxas_report_names_trunk_f1_and_head_b4():
+    fake = types.SimpleNamespace(resource_usage={"train_bwd_tc.cu": {
+        F1_TC: (128, 0, 0), F1_FMA: (92, 0, 0), B4_TC: (209, 0, 0)}})
+    assert ptxas_report(fake, "train_bwd_tc.cu") == {
+        "f1_tc_kernel<0,64>": (128, 0, 0), "f1_tc_kernel<1,4>": (92, 0, 0),
+        "b4_tc_kernel<1>": (209, 0, 0)}

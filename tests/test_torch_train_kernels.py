@@ -258,10 +258,11 @@ def test_cpu_training_passes_skip_the_library(monkeypatch):
     assert [p.launches for p in passes] == counts
 
 
-def test_paired_trunks_are_not_ported_yet():
-    """``groups > 1`` (the paired trunks) is ported now
-    (``tests/test_torch_paired_trunks.py``); what the trunk still refuses
-    is a grouping that does not split the batch into equal streams."""
+def test_trunk_refuses_groups_that_do_not_split_the_batch():
+    """``trunk2_train`` refuses a grouping that does not split the batch
+    into equal streams (0 groups, or 3 for a batch of 8); the paired
+    trunks' ``groups=2`` itself is held in
+    ``tests/test_torch_paired_trunks.py``."""
     args = [torch.from_numpy(a) for a in _trunk_args(8)]
     for groups in (0, 3):
         with pytest.raises(ValueError, match="does not split"):
