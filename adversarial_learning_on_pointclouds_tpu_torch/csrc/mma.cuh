@@ -1,7 +1,8 @@
-// The tensor-core fragment layer shared by the GEMM core (strided_gemm.cu)
-// and the generator's backward passes (train_bwd_tc.cu): cp.async copies
-// into shared memory, the GEMM core's operand stage layouts, fp32 as
-// 3xTF32 and the mma.sync steps.
+// The tensor-core fragment layer shared by the GEMM core (strided_gemm.cu),
+// the generator's training passes (train_bwd_tc.cu), the discriminator's
+// (disc_tc.cu) and the serving kernels (encoder_fused.cu): cp.async
+// copies into shared memory, the GEMM core's operand stage layouts, the
+// XOR-swizzled tile layout sw_at, fp32 as 3xTF32 and the mma.sync steps.
 //
 // * cp.async: 16-byte (cp16) or 4-byte (cp4) copies whose source bytes
 //   past src-size read as zero; commit and wait by group.
@@ -205,6 +206,19 @@ __device__ __forceinline__ void mma_step(float (&acc)[MT][NT][4],
         for (int q = 0; q < 4; ++q) acc[i][j][q] += s[j][q];
     }
   }
+}
+
+// Element (r, k) of a W-wide tile (W a multiple of 32) in shared memory
+// that is read along its rows, or along its rows and its columns (trunk
+// B1's W3 chunk: GEMM 1 reads it K-major, GEMM 2 N-major): row r, column
+// k XOR a function of r's low three bits. A warp's fragment loads at (r = 8 j +
+// g, k = kk + t) and at (r = kk + t (+ 4), k = 8 j + g) both land on 32
+// distinct banks, which no pad achieves for both (a stride of 4 mod 32
+// serves the first, 8 the second). The XOR keeps aligned groups of 4
+// floats together, so 16-byte copies and stores fill it.
+template <int W = 128>
+__device__ __forceinline__ int sw_at(int r, int k) {
+  return r * W + (k ^ (((r & 3) << 3) | (r & 4)));
 }
 
 // The sum over the 8 lanes of lane group t (lane = 4 g + t), in a fixed

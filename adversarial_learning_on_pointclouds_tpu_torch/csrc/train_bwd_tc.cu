@@ -150,19 +150,6 @@ constexpr int kF1ZLd = kF1N + 8;            // F1: z stage row
 constexpr int kB4N = 56;                    // B4: z4's columns, 7 n8 tiles
 constexpr int kB4K = 64;                    // B4: dz's columns in shared memory
 
-// Element (r, k) of a W-wide tile (W a multiple of 32) in shared memory
-// that is read both along its rows and along its columns (a W3 chunk:
-// GEMM 1 reads it K-major, GEMM 2 N-major): row r, column k XOR a
-// function of r's low three bits. A warp's fragment loads at (r = 8 j +
-// g, k = kk + t) and at (r = kk + t (+ 4), k = 8 j + g) both land on 32
-// distinct banks, which no pad achieves for both (a stride of 4 mod 32
-// serves the first, 8 the second). The XOR keeps aligned groups of 4
-// floats together, so 16-byte copies and stores fill it.
-template <int W = kC2>
-__device__ __forceinline__ int sw_at(int r, int k) {
-  return r * W + (k ^ (((r & 3) << 3) | (r & 4)));
-}
-
 // Four consecutive elements i.. (i a multiple of 4) of an fp32 or (bf)
 // bf16 tensor as fp32, in one 16- or 8-byte load.
 __device__ __forceinline__ void load4(float (&v)[4], const void* p, bool bf,

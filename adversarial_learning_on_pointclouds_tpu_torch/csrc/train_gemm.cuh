@@ -117,10 +117,6 @@ constexpr int kKc = 16;                   // weight rows per staged chunk
 constexpr int kStageLd = kMaxCols + 2;
 constexpr int kStage = kKc * kStageLd;    // floats per staging buffer
 
-__host__ __device__ inline int ceil_div(long long a, long long b) {
-  return (int)((a + b - 1) / b);
-}
-
 // A kKc x COLS slice of the GEMM's B operand, staged through registers.
 // TRANS: B[k][j] = w[(n0 + j) * ldw + k] (a layer against PyTorch's [out,
 // in] weight); otherwise B[k][j] = w[k * ldw + n0 + j] (dz @ W). Thread

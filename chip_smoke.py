@@ -15,13 +15,23 @@ Phases, one or more lines each:
 1. device: CUDA must be available; the card's name and power limit;
 2. build: the kernels compile from ``csrc/`` (nvcc, sm_90a);
 3. kernels: each eval kernel against its plain version at the serving
-   shapes (B=32, N=2500), at a ragged point count and at batch 1;
+   shapes (B=32, N=2500), at a ragged point count and at batch 1, the
+   trunk's stack also with its last layer's folded scales negative in
+   every other channel; at B=32 N=2500 ``fused_stack_maxpool`` and
+   ``seg_head_fused`` (on the tensor cores) also by the float64 control:
+   each stack's pre-max values on 512 points (each a cloud of its own, so
+   the max is the value) and the head's log-probs at most
+   ``F64_FACTOR`` times the plain fp32 pass's error, where the plain pass
+   with TF32 allowed must fail;
 4. slice: a seeded segmenter with random BatchNorm statistics is saved as
    a ``.pth``, served through ``infer.main`` once and through
    ``Predictor.predict`` over 4 batches of 32 clouds, compared with the
    CPU, with the eval kernels' launches checked (3 / 1 / 1 per forward);
 5. timing: each eval kernel against its plain version (CUDA events and
-   torch.profiler device time) and the serving forward;
+   torch.profiler device time; the tensor-core ones bound at the 3xTF32
+   rate, the fp32-FMA bound beside it) and the serving forward, whose
+   profile must show ``stack_tc_kernel`` and ``head_tc_kernel`` and none
+   of the CUDA-core kernels they replaced (``GONE_KERNELS``);
 6. train-kernels: every training pass (trunk F1/F2/B1, seg head
    P1/Pmid/P4/B4/Bmid/B1, the pool-fc epilogue at groups 1 and 2)
    against its plain pass at B=32 N=2048 (the config-3 step), B=32
@@ -163,7 +173,9 @@ The line before the last is a JSON object of the kernels' numbers: per
 kernel its time, its plain version's, and its bound (``bound_ms``: the
 larger of its inputs and outputs over the memory rate and the matmul
 FLOPs of its plain version, counted by ``torch.utils.flop_counter``,
-over the fp32 peak; elementwise work is not counted); the training and
+over the fp32 peak, or for the fp32 kernels on the tensor cores over the
+3xTF32 rate with ``bound_fma_ms`` beside it; elementwise work is not
+counted); the training and
 discriminator passes also carry their bf16 numbers (``bf16_*``, the bound
 at the bf16 tensor-core peak). The last line is
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
@@ -179,8 +191,10 @@ prints no result line.
 timing of phase 11, 14 or 17 (the bench step under the switch), on the
 port package under ``DIR`` (``time_alone``), for A/B runs of two trees on
 one card; ``--time passes`` times the seg head's Pmid, B1 and B4 and
-trunk F1 (groups 1 and 2) alone, fp32 and bf16. They check nothing and
-print no result line.
+trunk F1 (groups 1 and 2) alone, fp32 and bf16; ``--time serve`` the
+serving kernels (B=32 N=2500: the three stacks of a forward and the seg
+head, events and device time), the segmenter's forward and
+``Predictor.predict``. They check nothing and print no result line.
 """
 
 import copy
@@ -360,6 +374,14 @@ PT_ADV_RAGGED_PER_STEP = {
     "pointwise_matmul": {"fwd": 24 + 15, "dx": 22 + 14, "dW": 24 + 5},
     "maxpool_points": {"fwd": 6, "bwd": 6},
     "tnet_apply": {"fwd": 4, "dx": 2, "dT": 4}}
+# The serving path's stacks (fused_stack_maxpool) and seg head widths.
+SERVE_STACKS = {"stn3d": ((3, 64, 128, 1024), ("relu",) * 3),
+                "stnkd": ((64, 64, 128, 1024), ("relu",) * 3),
+                "trunk": ((64, 128, 1024), ("relu", None))}
+HEAD_WIDTHS = ((1088, 512), (512, 256), (256, 128))
+# Of those, the ones on the tensor cores: fp32 as 3xTF32, bound at that
+# rate with the fp32-FMA bound beside it.
+SERVE_TC = ("fused_stack_maxpool", "seg_head_fused")
 STACK_SITE = "shared_mlp.py:296"
 TRUNK3_SITE = "trunk_train.py:515"
 D_ACTS = ("leaky_relu",) * 4 + (None,)
@@ -643,6 +665,56 @@ def randomize_bn(model: torch.nn.Module, gen: torch.Generator) -> None:
 # Serving (phases 3-5)
 # ---------------------------------------------------------------------------
 
+def serve_params(gen, dev):
+    """Phase 3's seeded serving operands: conv1, the three stacks' layers
+    (and the trunk again with its last layer's folded scales negative in
+    every other channel), the seg head's layers, W4 and b4."""
+    conv1 = layer_params(gen, 3, 64, dev)
+    stacks = {k: [layer_params(gen, a, b, dev) for a, b in zip(w[:-1], w[1:])]
+              for k, (w, _) in SERVE_STACKS.items()}
+    w, sh, sc = stacks["trunk"][-1]
+    sign = 1.0 - 2.0 * (torch.arange(sc.numel(), device=dev) % 2)
+    stacks["trunk, negative scales"] = stacks["trunk"][:-1] + [
+        (w, sh, sc * sign)]
+    head = [layer_params(gen, a, b, dev) for a, b in HEAD_WIDTHS]
+    w4, _, _ = layer_params(gen, 128, PARTS, dev)
+    b4 = (torch.randn(PARTS, generator=gen) * 0.1).to(dev)
+    return conv1, stacks, head, w4, b4
+
+
+def serve_stack(key):
+    """``(widths, acts)`` of a stack of ``serve_params``."""
+    return SERVE_STACKS[key.split(",")[0]]
+
+
+def serve_f64_checks(encoder_fused, stack_args, head_args, tag="kernels"):
+    """The float64 controls of the serving kernels (fp32, on the card):
+    each stack's pre-max values on the first 4 tiles of the first cloud
+    (each point a cloud of its own, n = 1, so the max is the value) and
+    the head's log-probs, each at most ``F64_FACTOR`` times the plain fp32
+    pass's error against the float64 pass; the plain passes with TF32
+    allowed in their matmuls must fail that."""
+    for key, args in stack_args.items():
+        x, rest = args[0], args[1:]
+        pts = (x[0, :4 * 128].reshape(-1, 1, x.shape[-1]), *rest)
+        got = encoder_fused.fused_stack_maxpool(*pts)
+        plain = encoder_fused.fused_stack_maxpool_plain(*pts)
+        ref = encoder_fused.fused_stack_maxpool_plain(
+            pts[0].double(), *[[t.double() for t in ts] for ts in rest[:3]],
+            rest[3])
+        name = f"fused_stack_maxpool {key} pre-max values"
+        check_f64(name, got, plain, ref, tag)
+        tf32_control(name, lambda: encoder_fused.fused_stack_maxpool_plain(
+            *pts), ref, plain, tag)
+    got = encoder_fused.seg_head_fused(*head_args)
+    plain = encoder_fused.seg_head_fused_plain(*head_args)
+    ref = encoder_fused.seg_head_fused_plain(*f64(head_args))
+    check_f64("seg_head_fused log-probs", got, plain, ref, tag)
+    tf32_control("seg_head_fused log-probs",
+                 lambda: encoder_fused.seg_head_fused_plain(*head_args), ref,
+                 plain, tag)
+
+
 def serve(dev, card, gen, results):
     from adversarial_learning_on_pointclouds_tpu_torch import infer
     from adversarial_learning_on_pointclouds_tpu_torch.models import (
@@ -654,19 +726,9 @@ def serve(dev, card, gen, results):
 
     err = {"fused_linear_affine_act": 0.0, "fused_stack_maxpool": 0.0,
            "seg_head_fused": 0.0}
-    stacks = {"stn3d": ((3, 64, 128, 1024), ("relu",) * 3),
-              "stnkd": ((64, 64, 128, 1024), ("relu",) * 3),
-              "trunk": ((64, 128, 1024), ("relu", None))}
-    head_widths = ((1088, 512), (512, 256), (256, 128))
     main_args = {}
     with torch.inference_mode():
-        conv1 = layer_params(gen, 3, 64, dev)
-        stack_params = {k: [layer_params(gen, a, b, dev)
-                            for a, b in zip(w[:-1], w[1:])]
-                        for k, (w, _) in stacks.items()}
-        head = [layer_params(gen, a, b, dev) for a, b in head_widths]
-        w4, _, _ = layer_params(gen, 128, PARTS, dev)
-        b4 = (torch.randn(PARTS, generator=gen) * 0.1).to(dev)
+        conv1, stack_params, head, w4, b4 = serve_params(gen, dev)
         for bsz, n in ((B, N), (B, RAGGED_N), (1, N)):
             tag = f"B={bsz} N={n}"
             x3 = torch.randn(bsz, n, 3, generator=gen).to(dev)
@@ -683,15 +745,18 @@ def serve(dev, card, gen, results):
             if main:
                 main_args["fused_linear_affine_act"] = [args]
 
-            for key, (widths, acts) in stacks.items():
-                ws, shs, scs = zip(*stack_params[key])
+            stack_args = {}
+            for key, layers in stack_params.items():
+                widths, acts = serve_stack(key)
+                ws, shs, scs = zip(*layers)
                 args = (x3 if widths[0] == 3 else x64, ws, shs, scs, acts)
+                stack_args[key] = args
                 d = check(f"fused_stack_maxpool {key} "
                           f"{'->'.join(map(str, widths))} {tag}",
                           encoder_fused.fused_stack_maxpool(*args),
                           encoder_fused.fused_stack_maxpool_plain(*args))
                 err["fused_stack_maxpool"] = max(err["fused_stack_maxpool"], d)
-                if main:
+                if main and key in SERVE_STACKS:
                     main_args.setdefault("fused_stack_maxpool", []).append(args)
 
             args = (x64, g, *head[0], *head[1], *head[2], w4, b4)
@@ -701,6 +766,7 @@ def serve(dev, card, gen, results):
             err["seg_head_fused"] = max(err["seg_head_fused"], d)
             if main:
                 main_args["seg_head_fused"] = [args]
+                serve_f64_checks(encoder_fused, stack_args, args)
         torch.cuda.synchronize()
 
     # 4. the slice: serve a seeded full-width segmenter
@@ -787,12 +853,18 @@ def serve(dev, card, gen, results):
                 lambda: [kernel(*a) for a in calls]).values())
             plain_dev_ms = sum(device_profile(
                 lambda: [plain(*a) for a in calls]).values())
-            bound_ms, bound_by = bound(*work(plain, calls))
+            flops, nbytes = work(plain, calls)
+            tc = name in SERVE_TC
+            bound_ms, bound_by = bound(flops, nbytes,
+                                       TF32X3_PEAK if tc else FP32_PEAK)
+            fma_ms = bound(flops, nbytes)[0]
             phase("timing", f"{card}: {name} x{len(calls)} per forward at "
                   f"B={B} N={N}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms;"
                   f" device time alone: kernel {dev_ms:.4f} ms, plain "
                   f"{plain_dev_ms:.4f} ms; bound {bound_ms:.4f} ms "
-                  f"({bound_by})")
+                  f"({bound_by}" + (f", at 3xTF32; {fma_ms:.4f} at fp32 FMA"
+                                    if tc else "") + f"); "
+                  f"{flops / dev_ms / 1e9:.1f} TFLOP/s on the device")
             results.append({"name": name, "route": "cuda",
                             "source": f"{KERNELS_ROOT}/csrc/{src}",
                             "replaces": f"{TPU_KERNELS}/{line}",
@@ -801,7 +873,8 @@ def serve(dev, card, gen, results):
                             "plain_ms": plain_ms, "bound_ms": bound_ms,
                             "bound_by": bound_by, "library_ms": None,
                             "device_ms": dev_ms,
-                            "plain_device_ms": plain_dev_ms})
+                            "plain_device_ms": plain_dev_ms,
+                            **({"bound_fma_ms": fma_ms} if tc else {})})
 
         x = torch.from_numpy(clouds[:B]).to(dev)
         model_gpu = predictor.model
@@ -816,6 +889,8 @@ def serve(dev, card, gen, results):
           f" idle), {len(kernels)} kernel names")
     for key, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
         phase("profile", f"  {ms:.4f} ms  {key[:90]}")
+    profile_names(kernels, f"the forward B={B} N={N}", SERVE_KERNELS, 1,
+                  "profile")
     serve_t = []
     for _ in range(REPS):
         t0 = time.perf_counter()
@@ -2678,25 +2753,32 @@ def bench_timing(card, rec, results, bench):
 # Pmid, B1 and B4, trunk F1), which the bench step must show under their
 # own names, and the CUDA-core kernels they replaced, which it must not:
 # the head's B1 and B4 row and weight-gradient kernels and the grouped row
-# kernel of F1 (the paired trunks).
+# kernel of F1 (the paired trunks); and the serving path's stack and seg
+# head kernels, which no profile may show.
 TC_HEAD_KERNELS = ("pmid_tc_kernel<", "head_b1_tc_kernel<", "f1_tc_kernel<",
                    "b4_tc_kernel<")
 GONE_KERNELS = ("row_bwd_kernel<128", "wgrad_kernel<2", "row_bwd_kernel<64",
                 "wgrad_kernel<4", "row_fwd_kernel<true, true",
-                "row_fwd_kernel<false, true")
+                "row_fwd_kernel<false, true", "stack_maxpool_kernel",
+                "seg_head_kernel")
+# The serving kernels on the tensor cores (csrc/encoder_fused.cu), which
+# the forward's profile must show in place of the CUDA-core
+# stack_maxpool_kernel and seg_head_kernel (GONE_KERNELS).
+SERVE_KERNELS = ("stack_tc_kernel<", "head_tc_kernel(")
 
 
-def profile_names(kernels, what):
-    """Fail unless the profile ``kernels`` (by name, over ``BENCH_K``
-    steps) ran each of ``TC_HEAD_KERNELS`` and none of ``GONE_KERNELS``;
-    prints each one's device ms per step."""
-    ran = {k: [n for n in kernels if k in n]
-           for k in TC_HEAD_KERNELS + GONE_KERNELS}
-    missing = [k for k in TC_HEAD_KERNELS if not ran[k]]
+def profile_names(kernels, what, want=None, per=BENCH_K,
+                  tag="bench-timing"):
+    """Fail unless the profile ``kernels`` (by name, over ``per`` steps or
+    forwards) ran each of ``want`` (``TC_HEAD_KERNELS``) and none of
+    ``GONE_KERNELS``; prints each one's device ms per step."""
+    want = TC_HEAD_KERNELS if want is None else want
+    ran = {k: [n for n in kernels if k in n] for k in want + GONE_KERNELS}
+    missing = [k for k in want if not ran[k]]
     stale = [n for k in GONE_KERNELS for n in ran[k]]
-    phase("bench-timing", f"profile of {what}: " + "; ".join(
+    phase(tag, f"profile of {what}: " + "; ".join(
         f"{k}..> {len(ran[k])} name(s), "
-        f"{sum(kernels[n] for n in ran[k]) / BENCH_K:.4f} ms per step"
+        f"{sum(kernels[n] for n in ran[k]) / per:.4f} ms per step"
         for k in ran))
     if missing or stale:
         raise AssertionError(f"{what}: kernels missing {missing}, removed "
@@ -3724,8 +3806,80 @@ def head_passes(card):
     return out
 
 
+def serve_times(card):
+    """``--time serve``: at B=32 N=2500 on phase 3's seeded operands, the
+    three stacks of a forward (``fused_stack_maxpool``) and the seg head
+    (``seg_head_fused``), each the median ms of ``REPS`` forwards' launches
+    (CUDA events), device ms (profiler) and TFLOP/s on the device; then a
+    seeded full-width segmenter (random BatchNorm statistics, as phase 4's)
+    on 32 seeded clouds: its forward (events, and device busy ms) and
+    ``Predictor.predict`` host to host, medians of ``REPS``."""
+    from adversarial_learning_on_pointclouds_tpu_torch import infer
+    from adversarial_learning_on_pointclouds_tpu_torch.models import (
+        PointNetDenseCls,
+    )
+    from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
+        encoder_fused,
+    )
+
+    dev, gen = torch.device("cuda", 0), torch.Generator().manual_seed(SEED)
+    out = {}
+    with torch.inference_mode():
+        _, stacks, head, w4, b4 = serve_params(gen, dev)
+        x3 = torch.randn(B, N, 3, generator=gen).to(dev)
+        x64 = torch.relu(torch.randn(B, N, 64, generator=gen)).to(dev)
+        g = torch.relu(torch.randn(B, 1024, generator=gen)).to(dev)
+        calls = {
+            "fused_stack_maxpool": [
+                (x3 if widths[0] == 3 else x64, *zip(*stacks[key]), acts)
+                for key, (widths, acts) in SERVE_STACKS.items()],
+            "seg_head_fused": [(x64, g, *head[0], *head[1], *head[2], w4,
+                                b4)]}
+        for name, args in calls.items():
+            fn = getattr(encoder_fused, name)
+
+            def run():
+                return [fn(*a) for a in args]
+
+            run()
+            ms = statistics.median(event_ms(run, REPS))
+            dev_ms = sum(device_profile(run).values())
+            flops = work(getattr(encoder_fused, f"{name}_plain"), args)[0]
+            out[name] = {"ms": ms, "device_ms": dev_ms,
+                         "tflops": flops / dev_ms / 1e9}
+            phase("time", f"{card}: {name} x{len(args)} at B={B} N={N}: "
+                  f"{ms:.4f} ms, device {dev_ms:.4f} ms "
+                  f"({flops / dev_ms / 1e9:.1f} TFLOP/s)")
+    model = PointNetDenseCls(PARTS, feature_transform=True, generator=gen)
+    randomize_bn(model, gen)
+    rng = np.random.default_rng(SEED)
+    clouds = infer.prep([rng.normal(size=(N, 3)) for _ in range(B)], N)
+    with tempfile.TemporaryDirectory() as tmp:
+        pth = os.path.join(tmp, "g.pth")
+        torch.save(model.state_dict(), pth)
+        predictor = infer.Predictor(pth, "adv", N, "cuda",
+                                    feature_transform=True)
+    x = torch.from_numpy(clouds).to(dev)
+    with torch.inference_mode():
+        predictor.model(x)
+        fwd_ms = statistics.median(event_ms(lambda: predictor.model(x), REPS))
+        busy = sum(device_profile(lambda: predictor.model(x)).values())
+    predictor.predict(clouds)
+    host = []
+    for _ in range(REPS):
+        t0 = time.perf_counter()
+        predictor.predict(clouds)
+        host.append(time.perf_counter() - t0)
+    out["forward"] = {"ms": fwd_ms, "device_busy_ms": busy,
+                      "predict_ms": statistics.median(host) * 1e3}
+    phase("time", f"{card}: segmenter forward B={B} N={N}: {fwd_ms:.3f} ms "
+          f"(device busy {busy:.3f} ms); Predictor.predict host to host "
+          f"{out['forward']['predict_ms']:.3f} ms")
+    return out
+
+
 def time_alone(mode: str, root: str, card: str) -> None:
-    """``--time fp32|bench|pallas_train|passes --root DIR``: the G+D step's
+    """``--time fp32|bench|pallas_train|passes|serve --root DIR``: the G+D step's
     timing alone, of the port package under ``DIR`` (a checkout, or a
     ``git archive`` of the parent commit, say), from ``create_state``'s
     weights seeded by ``cfg.seed`` on seeded batches: ``fp32`` as phase 11
@@ -3734,7 +3888,8 @@ def time_alone(mode: str, root: str, card: str) -> None:
     configuration), ``pallas_train`` the same under ``use_pallas_train``
     (``bench.py --pallas_train``; a tree without the switch fails);
     ``passes`` the seg head's Pmid, B1 and B4 and trunk F1 alone
-    (``head_passes``). Prints
+    (``head_passes``), ``serve`` the serving kernels, forward and
+    ``Predictor.predict`` (``serve_times``). Prints
     one JSON line, and no result line. To compare two trees, alternate
     them within one call (A B B A): the host's share of a step moves
     between calls."""
@@ -3747,9 +3902,10 @@ def time_alone(mode: str, root: str, card: str) -> None:
 
     from adversarial_learning_on_pointclouds_tpu_torch.ops import dispatch
 
-    if mode == "passes":
+    if mode in ("passes", "serve"):
+        times = head_passes(card) if mode == "passes" else serve_times(card)
         print(json.dumps({"root": root, "mode": mode, "card": card,
-                          **head_passes(card)}), flush=True)
+                          **times}), flush=True)
         return
     if mode == "fp32":
         cfg, k = AdversarialConfig(), 1
@@ -3779,10 +3935,10 @@ def main() -> None:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--time", choices=("fp32", "bench", "pallas_train",
-                                       "passes"),
-                    help="time the G+D step, or the seg head's Pmid, B1 "
-                         "and B4 and trunk F1, alone (no checks, no result "
-                         "line)")
+                                       "passes", "serve"),
+                    help="time the G+D step, the seg head's Pmid, B1 and "
+                         "B4 and trunk F1, or serving, alone (no checks, "
+                         "no result line)")
     ap.add_argument("--disc-checks", type=int, metavar="SEED",
                     help="run only the discriminator's checks of phases 9 "
                          "and 12 on data from this generator seed (no "
@@ -3820,7 +3976,7 @@ def main() -> None:
               getattr(build, "compile_seconds", {}).items(),
               key=lambda kv: -kv[1])))
     for src in ("strided_gemm.cu", "pointwise_matmul.cu", "tnet_apply.cu",
-                "train_bwd_tc.cu", "disc_tc.cu"):
+                "train_bwd_tc.cu", "disc_tc.cu", "encoder_fused.cu"):
         for label, (regs, st, ld) in ptxas_report(build, src).items():
             phase("build", f"ptxas: {src} {label}: {regs} registers, spill "
                   f"stores {st} bytes, spill loads {ld} bytes")

@@ -124,3 +124,22 @@ def test_ptxas_report_names_trunk_f1_and_head_b4():
     assert ptxas_report(fake, "train_bwd_tc.cu") == {
         "f1_tc_kernel<0,64>": (128, 0, 0), "f1_tc_kernel<1,4>": (92, 0, 0),
         "b4_tc_kernel<1>": (209, 0, 0)}
+
+
+# The serving kernels on the tensor cores (encoder_fused.cu), as nvcc
+# names them (its anonymous namespace carries the file's name): the stack
+# by its first layer's depth (64 on mma_step, 4 for c_in <= 4 as FMAs)
+# and the seg head.
+ANON = "_ZN8pointtpu49_GLOBAL__N__2f377c82_16_encoder_fused_cu_7914b6ff"
+STACK_TC = ANON + "15stack_tc_kernelILi64EEEvNS0_9StackArgsE"
+STACK_FMA = ANON + "15stack_tc_kernelILi4EEEvNS0_9StackArgsE"
+HEAD_TC = ANON + "14head_tc_kernelENS0_8HeadArgsE"
+
+
+def test_ptxas_report_names_the_serving_kernels():
+    fake = types.SimpleNamespace(resource_usage={"encoder_fused.cu": {
+        STACK_TC: (242, 0, 0), STACK_FMA: (240, 0, 0),
+        HEAD_TC: (255, 184, 692)}})
+    assert ptxas_report(fake, "encoder_fused.cu") == {
+        "stack_tc_kernel<64>": (242, 0, 0), "stack_tc_kernel<4>": (240, 0, 0),
+        "head_tc_kernel": (255, 184, 692)}
