@@ -66,14 +66,6 @@ __device__ __forceinline__ float load_val(const void* p, bool bf, size_t i) {
             : __ldg(static_cast<const float*>(p) + i);
 }
 
-__device__ __forceinline__ void store_val(void* p, bool bf, size_t i,
-                                          float v) {
-  if (bf)
-    static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(v);
-  else
-    static_cast<float*>(p)[i] = v;
-}
-
 // Rounds count shared-memory operands to bf16 in place (no barrier).
 __device__ __forceinline__ void round_smem(float* s, int count) {
   for (int e = threadIdx.x; e < count; e += kThreads) s[e] = operand(s[e], true);

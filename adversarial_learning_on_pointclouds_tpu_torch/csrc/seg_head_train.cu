@@ -12,22 +12,26 @@
 // 256x128 + 128x50) and twice that backward, at batch 32 x 2048 points;
 // then the stashes: each pass reads and writes [B, N, C] tensors of up to
 // 134 MB (z1), a few us each at 3.35 TB/s.
-// Where each pass runs:
-// * Pmid (512 -> 256, 256 -> 128; trunk3_train's 64 -> 128), B4 (the
-//   softmax and conv4 backward), Bmid (256 -> 512, 128 -> 256) and B1
-//   (512 -> 64; trunk3_train's 64 -> 3) on the tensor cores
-//   (train_bwd_tc.cu): Pmid streams the stash and W through a cp.async
-//   ring, applies the previous BN + ReLU once per landed chunk and
-//   reduces the statistics in its epilogue; B4 recomputes z4 = h3 W4^T,
-//   takes the softmax backward in registers (a warp owns whole rows),
-//   dy3 = dz W4 and dW4 = dz^T h3 on the tile in shared memory (a
-//   partial per block); Bmid and B1 build dz from the stashes into shared
-//   memory (B1 by 64-channel chunks), take dz @ W on mma.sync and write
-//   dz for dW = dz^T h on the GEMM core (B1's h is pf itself).
-// * P1 and P4 on the CUDA cores (fp32 FMAs over 64-point tiles on
-//   train_gemm.cuh's row GEMM): P1 takes the global half of layer 1 as a
-//   per-cloud addend, so the 1088-wide concat never exists; P4 takes the
-//   log_softmax across the lanes of the warp that owns the row.
+//
+// All six run on the tensor cores (train_bwd_tc.cu):
+// * P1 (the point half of layer 1, 64 -> 512) on trunk F1's tile: the
+//   global half enters as a per-cloud addend g_row = g W1b, so the
+//   1088-wide concat never exists; a block takes 128 points and a slice
+//   of 128 output columns, the four slices of a tile neighbours on the
+//   card. pf is fp32 in both precisions (it is head B1's dW operand too,
+//   and both kernels refuse a bf16 pf).
+// * Pmid (512 -> 256, 256 -> 128; trunk3_train's 64 -> 128) streams the
+//   stash and W through a cp.async ring, applies the previous BN + ReLU
+//   once per landed chunk and reduces the statistics in its epilogue.
+// * P4 and B4 share their first half (z4_softmax): z4 = h3 W4^T + b4
+//   with a warp per 16 whole rows and the row's max and sum of exp in
+//   quad shuffles. P4 stores logp = z4 - lse; B4 takes the softmax
+//   backward in registers, dy3 = dz W4 and dW4 = dz^T h3 on the tile in
+//   shared memory (a partial per block).
+// * Bmid (256 -> 512, 128 -> 256) and B1 (512 -> 64; trunk3_train's
+//   64 -> 3) build dz from the stashes into shared memory (B1 by
+//   64-channel chunks), take dz @ W on mma.sync and write dz for dW =
+//   dz^T h on the GEMM core (B1's h is pf itself).
 // B4 and Bmid mask by the previous ReLU, store dy_prev and reduce the
 // previous BN's sums, one pass behind as on the TPU. All row
 // reductions add per-block partials in fp64. Mixed precision (prec): bf16
@@ -41,23 +45,14 @@
 using pointtpu::BwdArgs;
 using pointtpu::RowFwdArgs;
 
-namespace {
-
-// The head runs per stream: one group.
-int forward(const RowFwdArgs* a, int device, cudaStream_t stream) {
-  using namespace pointtpu;
-  cudaError_t e = use_device(device);
-  return e != cudaSuccess ? (int)e : row_fwd(*a, stream);
-}
-
-}  // namespace
-
 // z1 = pf @ W1a^T + g_row[cloud] + b1 and its column sums.
 extern "C" int pt_head_p1(const RowFwdArgs* a, int device,
                           cudaStream_t stream) {
+  using namespace pointtpu;
   if (!a->z || !a->sum || a->sc || !a->addend || a->mx || a->logp)
-    return pointtpu::kErrArgs;
-  return forward(a, device, stream);
+    return kErrArgs;
+  cudaError_t e = use_device(device);
+  return e != cudaSuccess ? (int)e : head_p1_tc(*a, stream);
 }
 
 // z = relu(z_prev * sc + sh) @ W^T + b and its column sums.
@@ -73,9 +68,11 @@ extern "C" int pt_head_pmid(const RowFwdArgs* a, int device,
 // logp = log_softmax(relu(z3 * sc3 + sh3) @ W4^T + b4) per point.
 extern "C" int pt_head_p4(const RowFwdArgs* a, int device,
                           cudaStream_t stream) {
+  using namespace pointtpu;
   if (a->z || a->sum || !a->sc || !a->sh || a->addend || a->mx || !a->logp)
-    return pointtpu::kErrArgs;
-  return forward(a, device, stream);
+    return kErrArgs;
+  cudaError_t e = use_device(device);
+  return e != cudaSuccess ? (int)e : head_p4_tc(*a, stream);
 }
 
 // Softmax + conv4 backward: dy3, dW4, db4 and BN3's t1 / t2.

@@ -1,5 +1,5 @@
 // The generator's passes on the tensor cores: the trunk's F1, F2 and B1
-// and the seg head's Pmid, B4, Bmid and B1.
+// and all six of the seg head's, P1, Pmid, P4, B4, Bmid and B1.
 //
 // Replaces the TPU kernels
 // adversarial_learning_on_pointclouds_tpu/ops/kernels/trunk_train.py::
@@ -10,7 +10,10 @@
 // BN3 + max-pool of every trunk) and seg_head_train.py::_pmid_call (Pmid:
 // pallas_call at seg_head_train.py:118, a BN + ReLU and the next layer
 // with its statistics: 512 -> 256 and 256 -> 128 in the seg head, 64 ->
-// 128 in trunk3_train), _b4_call (B4: :206, the softmax and conv4
+// 128 in trunk3_train), _p1_call (P1: :75, the point half of layer 1
+// with the global half as a per-cloud addend and BN1's statistics, 64 ->
+// 512), _p4_call (P4: :155, BN3 + ReLU, conv4 and the per-point
+// log_softmax, 128 -> 50 parts), _b4_call (B4: :206, the softmax and conv4
 // backward, 128 -> 50 parts), _bmid_call (Bmid: :275, a BN backward and the
 // matmul backward to the previous layer: 256 -> 512 and 128 -> 256 in
 // the seg head, 128 -> 64 in trunk3_train) and _b1_call (head B1: :335,
@@ -25,10 +28,12 @@
 // of 4.3, B4 three of 0.8. Then traffic: head B1 reads two [65,536 x
 // 512] stashes and writes dz (134 MB in fp32) for its dW; F1 (1.1 GFLOP)
 // is bound by its bytes, x in (16.8 MB) and z2 out (33.5 MB in fp32, 16.8
-// in bf16), and B4 nearly so (z3 and dy3 33.5 MB each in fp32, dlp 13.1).
-// The CUDA-core kernels they replace ran them as fp32 FMAs (bf16
-// operands too) on 64-point tiles with W staged through registers, and
-// recomputed z3 a second time for dW3 (B4: z4, for dW4).
+// in bf16), and B4 nearly so (z3 and dy3 33.5 MB each in fp32, dlp 13.1);
+// so are P1 (4.3 GFLOP; pf in, 16.8 MB, and z1 out, 134 MB in fp32, 67
+// in bf16) and P4 (0.84 GFLOP; z3 in, 33.5 MB in fp32, 16.8 in bf16, and
+// logp out, 13.1 MB). The CUDA-core kernels they replace ran them as fp32
+// FMAs (bf16 operands too) on 64-point tiles with W staged through
+// registers, and recomputed z3 a second time for dW3 (B4: z4, for dW4).
 //
 // What the design does about that:
 //
@@ -94,6 +99,25 @@
 //   k, exact as cuBLAS at that depth, where 3xTF32's split is not (as
 //   for strided_gemm.cu's thin_kernel), a thread per column. 106 KB
 //   (c_in 64, c_out 128).
+// * P1 is F1 with a per-cloud addend, z1 = (pf W1a^T + g_row[cloud]) +
+//   b1 in the JAX kernel's order, at c_out 512: all of W1a (139 KB with
+//   its pad) does not fit beside the tile at two blocks an SM, so a block
+//   takes one slice of kF1Slice = 128 output columns (blockIdx.x, the
+//   fastest grid axis: a tile's four slices are neighbouring blocks, and
+//   pf's tile is read from HBM once and from L2 three times). The same
+//   body (f1_tile): x 34 KB + the W slice 34 KB + the z stage 36 KB +
+//   the sums 2 KB = 106 KB, two blocks an SM (launch bounds 256 x 2, at
+//   most 128 registers a thread). Each slice's columns of the per-block
+//   partial slots are its own, so colsum adds them as F1's.
+// * P4 is B4's first half (z4_softmax: one arithmetic, so the forward's
+//   logits and the backward's recompute agree bit for bit): h3 (64 KB)
+//   and W4 padded by zero rows to 56 (28 KB) in shared memory, 92 KB,
+//   two blocks an SM, so one block's loads of z3 are in flight while the
+//   other computes (a block takes one tile). Each warp owns 16 whole rows: z4, the row's max and sum of
+//   exp in quad shuffles (padded logits -inf), logp = z4 - (log(s) + m)
+//   by expf / logf. The warp's rows of logp are one contiguous range of
+//   16 x k floats: staged over the warp's own rows of h_s (only it read
+//   them) and stored with 16-byte vectors from its first 16-byte boundary.
 // * B4 keeps h3 = relu(bn3(z3)) (load_h2), W4 (50 rows padded by zeros to
 //   64) and dz [128 x 64] in shared memory, 137 KB, one block per SM,
 //   each block walking a contiguous range of tiles. GEMM 1 z4 = h3 W4^T
@@ -146,6 +170,7 @@ constexpr int kXbLd = kBk + 8;              // Pmid: bf16 x stage row (bf16s)
 constexpr int kB1Chunk = 64;                // head B1: c_out channels a chunk
 constexpr int kF1Ld = 64 + 4;               // F1: x and W row (K-major, c_in <= 64)
 constexpr int kF1N = 64;                    // F1: output columns an epilogue
+constexpr int kF1Slice = 128;               // F1, P1: output columns a block
 constexpr int kF1ZLd = kF1N + 8;            // F1: z stage row
 constexpr int kB4N = 56;                    // B4: z4's columns, 7 n8 tiles
 constexpr int kB4K = 64;                    // B4: dz's columns in shared memory
@@ -935,37 +960,44 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
 }
 
-// Trunk F1: z = x W^T + b for a tile of 128 points of one cloud, 64
-// output columns at a time: the product into z_s (unrounded, + b), then
-// the columns' sum and sum of squares of the rows < N as per-block
-// partials and z stored from z_s in 16-byte vectors (bf16 nearest-even
-// under kZBf16). KW 64: c_in a multiple of 16 up to 64 on mma_step (x
-// and W K-major, all of c_in in one stage), warps 4 (rows, 32 each) by 2
-// (32 columns each); KW 4: c_in <= 4 as exact fp32 FMAs (bf16 operands
-// under BF), a thread per column. Groups need nothing here: a block's
-// rows are one cloud's, and colsum adds each group's blocks.
-template <bool BF, int KW>
-__global__ void __launch_bounds__(kThreads, 2) f1_tc_kernel(const RowFwdArgs a) {
+// Trunk F1 and the seg head's P1: z = x W^T (+ the cloud's addend) + b
+// for a tile of 128 points of one cloud and the block's slice of up to
+// kF1Slice output columns (blockIdx.x; the slices of one tile are
+// neighbouring blocks, so x's tile comes from L2 for all but the first),
+// 64 output columns at a time: the product into z_s (unrounded), then the
+// columns' sum and sum of squares of the rows < N as per-block partials
+// and z stored from z_s in 16-byte vectors (bf16 nearest-even under
+// kZBf16). KW 64: c_in a multiple of 16 up to 64 on mma_step (x and the
+// W slice K-major, all of c_in in one stage), warps 4 (rows, 32 each) by
+// 2 (32 columns each); KW 4: c_in <= 4 as exact fp32 FMAs (bf16 operands
+// under BF), a thread per column. ADD (P1): z = (x W^T + addend[cloud]) +
+// b, the JAX kernel's order. Groups need nothing here: a block's rows are
+// one cloud's, and colsum adds each group's blocks.
+template <bool BF, int KW, bool ADD>
+__device__ __forceinline__ void f1_tile(const RowFwdArgs& a) {
   constexpr bool kMma = KW > 4;
   constexpr int kXld = kMma ? kF1Ld : KW;
   extern __shared__ __align__(16) float smem[];
+  const int c_in = a.c_in, c_out = a.c_out;
+  const int n_lo = blockIdx.x * kF1Slice;
+  const int n_hi = min(c_out, n_lo + kF1Slice);
   float* x_s = smem;                              // [kTcRows][kXld]
-  float* w_s = x_s + kTcRows * kXld;              // [c_out][kF1Ld] (mma)
-  float* z_s = w_s + (kMma ? a.c_out * kF1Ld : 0);  // [kTcRows][kF1ZLd]
+  float* w_s = x_s + kTcRows * kXld;              // [slice][kF1Ld] (mma)
+  float* z_s = w_s + (kMma ? min(c_out, kF1Slice) * kF1Ld : 0);
+                                                  // [kTcRows][kF1ZLd]
   float* red = z_s + kTcRows * kF1ZLd;            // [2][4][kF1N] sum, ssq
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gq = lane >> 2, tq = lane & 3;
   const int wm = warp >> 1, wn = warp & 1;
-  const int b = blockIdx.y, p0 = blockIdx.x * kTcRows;
+  const int b = blockIdx.z, p0 = blockIdx.y * kTcRows;
   const int rows = min(kTcRows, a.n - p0);
   const size_t g0 = (size_t)b * a.n + p0;
-  const int c_in = a.c_in, c_out = a.c_out;
-  const size_t blk = (size_t)b * gridDim.x + blockIdx.x;
-  const size_t blocks = (size_t)gridDim.x * gridDim.y;
+  const size_t blk = (size_t)b * gridDim.y + blockIdx.y;
+  const size_t blocks = (size_t)gridDim.y * gridDim.z;
   const float* x = static_cast<const float*>(a.x);
   const bool zbf = BF && (a.prec & kZBf16);
 
-  // x's tile (rows past N zero) and, for the product, all of W.
+  // x's tile (rows past N zero) and, for the product, the W slice.
   if constexpr (kMma) {
     const int q = c_in / 4;                       // 16-byte groups a row
     for (int e = threadIdx.x; e < kTcRows * q; e += kThreads) {
@@ -973,9 +1005,9 @@ __global__ void __launch_bounds__(kThreads, 2) f1_tc_kernel(const RowFwdArgs a) 
       cp16(x_s + r * kXld + k, r < rows ? x + (g0 + r) * c_in + k : x,
            r < rows ? 16 : 0);
     }
-    for (int e = threadIdx.x; e < c_out * q; e += kThreads) {
+    for (int e = threadIdx.x; e < (n_hi - n_lo) * q; e += kThreads) {
       const int r = e / q, k = (e % q) * 4;
-      cp16(w_s + r * kF1Ld + k, a.w + (size_t)r * a.ldw + k, 16);
+      cp16(w_s + r * kF1Ld + k, a.w + (size_t)(n_lo + r) * a.ldw + k, 16);
     }
   } else {                                        // rows of 4-12 bytes
     for (int e = threadIdx.x; e < kTcRows * KW; e += kThreads) {
@@ -988,10 +1020,11 @@ __global__ void __launch_bounds__(kThreads, 2) f1_tc_kernel(const RowFwdArgs a) 
   cp_wait<0>();
   __syncthreads();
 
-  for (int n0 = 0; n0 < c_out; n0 += kF1N) {
+  const float* add = ADD ? a.addend + (size_t)b * c_out : nullptr;
+  for (int n0 = n_lo; n0 < n_hi; n0 += kF1N) {
     if constexpr (kMma) {
       float acc[2][4][4] = {};
-      const float* ws = w_s + n0 * kF1Ld;
+      const float* ws = w_s + (n0 - n_lo) * kF1Ld;
       const auto fx = [x_s](int m, int k) { return x_s[m * kF1Ld + k]; };
       const auto fw = [ws](int n, int k) { return ws[n * kF1Ld + k]; };
       for (int kk = 0; kk < c_in; kk += mma_depth(BF))
@@ -1001,13 +1034,17 @@ __global__ void __launch_bounds__(kThreads, 2) f1_tc_kernel(const RowFwdArgs a) 
         const int col = wn * 32 + 8 * j + 2 * tq;
         const float b0 = __ldg(a.bias + n0 + col);
         const float b1 = __ldg(a.bias + n0 + col + 1);
+        const float a0 = ADD ? __ldg(add + n0 + col) : 0.f;
+        const float a1 = ADD ? __ldg(add + n0 + col + 1) : 0.f;
 #pragma unroll
         for (int i = 0; i < 2; ++i)
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int r = wm * 32 + 16 * i + gq + 8 * h;
-            *reinterpret_cast<float2*>(z_s + r * kF1ZLd + col) = make_float2(
-                acc[i][j][2 * h] + b0, acc[i][j][2 * h + 1] + b1);
+            const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+            *reinterpret_cast<float2*>(z_s + r * kF1ZLd + col) =
+                ADD ? make_float2((v0 + a0) + b0, (v1 + a1) + b1)
+                    : make_float2(v0 + b0, v1 + b1);
           }
       }
     } else {
@@ -1019,12 +1056,13 @@ __global__ void __launch_bounds__(kThreads, 2) f1_tc_kernel(const RowFwdArgs a) 
         wv[k] = k < c_in ? operand(__ldg(a.w + (size_t)o * a.ldw + k), BF)
                          : 0.f;
       const float bias = __ldg(a.bias + o);
+      const float ad = ADD ? __ldg(add + o) : 0.f;
       for (int r = threadIdx.x / kF1N; r < kTcRows; r += kThreads / kF1N) {
         float v = 0.f;
 #pragma unroll
         for (int k = 0; k < KW; ++k)
           if (k < c_in) v = fmaf(operand(x_s[r * KW + k], BF), wv[k], v);
-        z_s[r * kF1ZLd + c] = v + bias;
+        z_s[r * kF1ZLd + c] = ADD ? (v + ad) + bias : v + bias;
       }
     }
     __syncthreads();          // z_s written
@@ -1073,6 +1111,143 @@ __global__ void __launch_bounds__(kThreads, 2) f1_tc_kernel(const RowFwdArgs a) 
   }
 }
 
+template <bool BF, int KW>
+__global__ void __launch_bounds__(kThreads, 2)
+    f1_tc_kernel(const __grid_constant__ RowFwdArgs a) {
+  f1_tile<BF, KW, false>(a);
+}
+
+// The seg head's P1: z1 = pf W1a^T + g_row[cloud] + b1 on F1's tile.
+template <bool BF>
+__global__ void __launch_bounds__(kThreads, 2)
+    head_p1_tc_kernel(const __grid_constant__ RowFwdArgs a) {
+  f1_tile<BF, 64, true>(a);
+}
+
+// W4 (row stride ldw) into w_s, XOR-swizzled, its rows from c_out to
+// `rows` zero: one commit group.
+__device__ __forceinline__ void load_w4(float* w_s, const float* w, int ldw,
+                                        int c_out, int rows) {
+  for (int e = threadIdx.x; e < rows * kC2 / 4; e += kThreads) {
+    const int r = e / (kC2 / 4), k = (e % (kC2 / 4)) * 4;
+    const bool ok = r < c_out;
+    cp16(w_s + sw_at(r, k), ok ? w + (size_t)r * ldw + k : w, ok ? 16 : 0);
+  }
+  cp_commit();
+}
+
+// The forward half of B4 and P4, one arithmetic for both: z4 = h3 W4^T +
+// b4 for warp `warp`'s 16 whole rows (7 n8 tiles; h_s and w_s swizzled,
+// kC2 deep), its columns at or past c_out -inf; then for each row half h
+// (rows gq and gq + 8 of the warp's 16), the row's max m[h], e = exp(z4 -
+// m) (0 past c_out) and their sum s[h], each reduced over the row's quad
+// in shuffles.
+template <bool BF>
+__device__ __forceinline__ void z4_softmax(float (&z)[1][7][4],
+                                           float (&e)[1][7][4], float (&m)[2],
+                                           float (&s)[2], const float* h_s,
+                                           const float* w_s,
+                                           const float* __restrict__ bias,
+                                           int c_out, int warp, int gq,
+                                           int tq) {
+  const auto fh = [h_s](int r, int k) { return h_s[sw_at(r, k)]; };
+  const auto fw = [w_s](int n, int k) { return w_s[sw_at(n, k)]; };
+#pragma unroll
+  for (int j = 0; j < 7; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) z[0][j][q] = 0.f;
+#pragma unroll 2
+  for (int kk = 0; kk < kC2; kk += mma_depth(BF))
+    mma_step<1, 7, BF>(z, fh, fw, warp * 16, 0, kk, gq, tq);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 7; ++j)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int col = 8 * j + 2 * tq + q;
+        const float v =
+            col < c_out ? z[0][j][2 * h + q] + __ldg(bias + col) : -INFINITY;
+        z[0][j][2 * h + q] = v;
+        mx = fmaxf(mx, v);
+      }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 7; ++j)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int col = 8 * j + 2 * tq + q;
+        const float v = col < c_out ? expf(z[0][j][2 * h + q] - mx) : 0.f;
+        e[0][j][2 * h + q] = v;
+        sum += v;
+      }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    m[h] = mx;
+    s[h] = sum;
+  }
+}
+
+// The seg head's P4: logp = log_softmax(relu(bn3(z3)) W4^T + b4) for a
+// tile of 128 points of one cloud. h3 into h_s (load_h2) and W4 padded
+// to kB4N rows into w_s, then z4_softmax with a warp per 16 whole rows,
+// logp = z4 - (log(s) + m); each warp stages its rows' logp over its own
+// rows of h_s (which GEMM 1 read in that warp alone) as one contiguous
+// [16][k] range, the range its rows take in logp, and stores it with
+// 16-byte vectors from the first 16-byte boundary on. Two blocks an SM:
+// one block's loads in flight while the other computes.
+template <bool BF>
+__global__ void __launch_bounds__(kThreads, 2)
+    head_p4_tc_kernel(const RowFwdArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  float* h_s = smem;                              // [kTcRows][kC2], sw_at
+  float* w_s = h_s + kTcRows * kC2;               // [kB4N][kC2], sw_at
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int b = blockIdx.y, p0 = blockIdx.x * kTcRows;
+  const int rows = min(kTcRows, a.n - p0);
+  const size_t g0 = (size_t)b * a.n + p0;
+  const int k = a.c_out;
+
+  load_w4(w_s, a.w, a.ldw, k, kB4N);
+  load_h2(h_s, a.x, BF && (a.prec & kXBf16), a.sc, a.sh, nullptr, g0, rows);
+  cp_wait<0>();
+  __syncthreads();            // h_s written, W4 landed
+
+  float z[1][7][4], e[1][7][4], m[2], s[2];
+  z4_softmax<BF>(z, e, m, s, h_s, w_s, a.bias, k, warp, gq, tq);
+  const int r0 = warp * 16, nr = min(16, rows - r0);
+  if (nr <= 0) return;        // warp-uniform
+  float* st = h_s + r0 * kC2;                     // [16][k], contiguous
+  __syncwarp();               // the warp's rows of h_s are read
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float lse = logf(s[h]) + m[h];
+    const int r = gq + 8 * h;
+#pragma unroll
+    for (int j = 0; j < 7; ++j)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int col = 8 * j + 2 * tq + q;
+        if (col < k) st[r * k + col] = z[0][j][2 * h + q] - lse;
+      }
+  }
+  __syncwarp();               // the stage written
+  float* dst = a.logp + (g0 + r0) * k;
+  const int total = nr * k;
+  const int head =
+      min(total, (int)((4 - (reinterpret_cast<uintptr_t>(dst) >> 2)) & 3));
+  const int body = head + ((total - head) & ~3);
+  for (int i = lane; i < head; i += 32) dst[i] = st[i];
+  for (int i = head + 4 * lane; i < body; i += 128)
+    *reinterpret_cast<float4*>(dst + i) =
+        make_float4(st[i], st[i + 1], st[i + 2], st[i + 3]);
+  for (int i = body + lane; i < total; i += 32) dst[i] = st[i];
+}
+
 // Head B4 (c_in = kC2, c_out = k <= kB4N, one group). Each block walks a
 // contiguous range of 128-point tiles (tile t: cloud t / tiles a cloud);
 // per tile: h3 = relu(bn3(z3)) into h_s (load_h2); GEMM 1 z4 = h3 W4^T
@@ -1105,17 +1280,8 @@ __global__ void __launch_bounds__(kThreads, 1) b4_tc_kernel(const BwdArgs a) {
   const bool zpbf = BF && (a.prec & kZpBf16);
   const bool dypbf = BF && (a.prec & kDypBf16);
 
-  // W4 with its rows past c_out zero, once.
-  for (int e = threadIdx.x; e < kB4K * kC2 / 4; e += kThreads) {
-    const int r = e / (kC2 / 4), k = (e % (kC2 / 4)) * 4;
-    const bool ok = r < c_out;
-    cp16(w_s + sw_at(r, k), ok ? a.w + (size_t)r * a.ldw + k : a.w,
-         ok ? 16 : 0);
-  }
-  cp_commit();
+  load_w4(w_s, a.w, a.ldw, c_out, kB4K);   // once: rows past c_out zero
 
-  const auto fh = [h_s](int m, int k) { return h_s[sw_at(m, k)]; };
-  const auto fw = [w_s](int n, int k) { return w_s[sw_at(n, k)]; };
   const auto fz = [dz_s](int m, int k) { return dz_s[sw_at<kB4K>(m, k)]; };
   const auto fw2 = [w_s](int n, int k) { return w_s[sw_at(k, n)]; };
   const auto fzt = [dz_s](int m, int k) { return dz_s[sw_at<kB4K>(k, m)]; };
@@ -1147,40 +1313,18 @@ __global__ void __launch_bounds__(kThreads, 1) b4_tc_kernel(const BwdArgs a) {
     cp_wait<0>();
     __syncthreads();          // h_s written, W4 landed
 
-    // GEMM 1 and the softmax backward, row by row in registers.
-    float z[1][7][4] = {};
-#pragma unroll 2
-    for (int kk = 0; kk < kC2; kk += mma_depth(BF))
-      mma_step<1, 7, BF>(z, fh, fw, warp * 16, 0, kk, gq, tq);
+    // GEMM 1 and the softmax (z4_softmax, P4's arithmetic), then its
+    // backward row by row in registers.
+    float z[1][7][4], ex[1][7][4], m[2], s[2];
+    z4_softmax<BF>(z, ex, m, s, h_s, w_s, a.bias, c_out, warp, gq, tq);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = warp * 16 + gq + 8 * h;
-      float m = -INFINITY;
+      float sdl = 0.f;
 #pragma unroll
       for (int j = 0; j < 7; ++j)
 #pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const int col = 8 * j + 2 * tq + q;
-          const float v =
-              col < c_out ? z[0][j][2 * h + q] + __ldg(a.bias + col) : -INFINITY;
-          z[0][j][2 * h + q] = v;
-          m = fmaxf(m, v);
-        }
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-      float s = 0.f, sdl = 0.f;
-#pragma unroll
-      for (int j = 0; j < 7; ++j)
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const int col = 8 * j + 2 * tq + q;
-          const float e = col < c_out ? expf(z[0][j][2 * h + q] - m) : 0.f;
-          z[0][j][2 * h + q] = e;
-          s += e;
-          sdl += dl[h][j][q];
-        }
-      s += __shfl_xor_sync(0xffffffffu, s, 1);
-      s += __shfl_xor_sync(0xffffffffu, s, 2);
+        for (int q = 0; q < 2; ++q) sdl += dl[h][j][q];
       sdl += __shfl_xor_sync(0xffffffffu, sdl, 1);
       sdl += __shfl_xor_sync(0xffffffffu, sdl, 2);
 #pragma unroll
@@ -1190,7 +1334,7 @@ __global__ void __launch_bounds__(kThreads, 1) b4_tc_kernel(const BwdArgs a) {
           const int col = 8 * j + 2 * tq + q;
           z[0][j][2 * h + q] =
               r < rows && col < c_out
-                  ? dl[h][j][q] - (z[0][j][2 * h + q] / s) * sdl
+                  ? dl[h][j][q] - (ex[0][j][2 * h + q] / s[h]) * sdl
                   : 0.f;
         }
     }
@@ -1214,9 +1358,9 @@ __global__ void __launch_bounds__(kThreads, 1) b4_tc_kernel(const BwdArgs a) {
     }
     __syncthreads();          // dz_s and red_b written
     if ((int)threadIdx.x < c_out) {
-      float s = red_b[threadIdx.x];
-      for (int w = 1; w < kWarps; ++w) s += red_b[w * kB4N + threadIdx.x];
-      prow[2 * kC2 + threadIdx.x] = s;
+      float v = red_b[threadIdx.x];
+      for (int w = 1; w < kWarps; ++w) v += red_b[w * kB4N + threadIdx.x];
+      prow[2 * kC2 + threadIdx.x] = v;
     }
 
     // GEMM 2: dy3 = dz W4, masked by BN3's ReLU; t1 = sum dy3, t2 = sum
@@ -1349,6 +1493,16 @@ int finish(const BwdArgs& a, int blocks, cudaStream_t stream) {
   return e ? e : weight_grad(a, a.hs, stream);
 }
 
+// F1's and P1's statistics per group from the per-block partials (a
+// group's blocks are contiguous).
+int f1_sums(const RowFwdArgs& a, int blocks, cudaStream_t stream) {
+  const int per = blocks / a.groups;
+  const int e = colsum(a.part, a.c_out, per, a.c_out, a.groups, a.sum,
+                       a.c_out, stream);
+  return e ? e : colsum(a.part + (size_t)blocks * a.c_out, a.c_out, per,
+                        a.c_out, a.groups, a.ssq, a.c_out, stream);
+}
+
 // What trunk B1 and Bmid need: shapes in range, a 16-byte aligned W with a row
 // stride of whole 16-byte groups (the ring's copies), every buffer.
 bool bad_args(const BwdArgs& a) {
@@ -1425,7 +1579,7 @@ int trunk_f2_tc(const RowFwdArgs& a, cudaStream_t stream) {
 int trunk_f1_tc(const RowFwdArgs& a, cudaStream_t stream) {
   const bool fma = a.c_in <= 4;
   if (a.batch <= 0 || a.batch > 65535 || a.n <= 0 || a.c_in <= 0 ||
-      (!fma && (a.c_in % 16 || a.c_in > 64 || a.c_out > 2 * kF1N ||
+      (!fma && (a.c_in % 16 || a.c_in > 64 || a.c_out > kF1Slice ||
                 a.ldw % 4 || reinterpret_cast<uintptr_t>(a.w) % 16 ||
                 reinterpret_cast<uintptr_t>(a.x) % 16)) ||
       a.c_out <= 0 || a.c_out % kF1N || a.groups < 1 || a.batch % a.groups ||
@@ -1437,7 +1591,7 @@ int trunk_f1_tc(const RowFwdArgs& a, cudaStream_t stream) {
   const size_t bytes =
       ((size_t)kTcRows * (fma ? 4 : kF1Ld) + (fma ? 0 : a.c_out * kF1Ld) +
        (size_t)kTcRows * kF1ZLd + 8 * kF1N) * sizeof(float);
-  const dim3 grid(ceil_div(a.n, kTcRows), a.batch);
+  const dim3 grid(1, ceil_div(a.n, kTcRows), a.batch);
   const bool bf = a.prec & kRound;
   int e;
   if (fma)
@@ -1446,14 +1600,44 @@ int trunk_f1_tc(const RowFwdArgs& a, cudaStream_t stream) {
   else
     e = bf ? launch_tc(f1_tc_kernel<true, 64>, grid, bytes, a, stream)
            : launch_tc(f1_tc_kernel<false, 64>, grid, bytes, a, stream);
-  if (e) return e;
-  // BN2's sums per group: a group's blocks are contiguous.
-  const int blocks = grid.x * grid.y, per = blocks / a.groups;
-  if ((e = colsum(a.part, a.c_out, per, a.c_out, a.groups, a.sum, a.c_out,
-                  stream)))
-    return e;
-  return colsum(a.part + (size_t)blocks * a.c_out, a.c_out, per, a.c_out,
-                a.groups, a.ssq, a.c_out, stream);
+  return e ? e : f1_sums(a, grid.y * grid.z, stream);
+}
+
+int head_p1_tc(const RowFwdArgs& a, cudaStream_t stream) {
+  if (a.batch <= 0 || a.batch > 65535 || a.n <= 0 || a.c_in <= 0 ||
+      a.c_in % 16 || a.c_in > 64 || a.c_out <= 0 || a.c_out % kF1N ||
+      a.groups != 1 || (long long)a.batch * a.n > 0x7fffffffLL ||
+      a.ldw < a.c_in || a.ldw % 4 || reinterpret_cast<uintptr_t>(a.w) % 16 ||
+      reinterpret_cast<uintptr_t>(a.x) % 16 || (a.prec & kXBf16) || !a.x ||
+      !a.w || !a.bias || !a.addend || !a.z || !a.sum || !a.ssq || !a.part ||
+      a.sc || a.sh || a.keys || a.mx || a.logp)
+    return kErrArgs;
+  const size_t bytes = ((size_t)kTcRows * kF1Ld +
+                        (size_t)min(a.c_out, kF1Slice) * kF1Ld +
+                        (size_t)kTcRows * kF1ZLd + 8 * kF1N) * sizeof(float);
+  const dim3 grid(ceil_div(a.c_out, kF1Slice), ceil_div(a.n, kTcRows),
+                  a.batch);
+  const int e =
+      a.prec & kRound
+          ? launch_tc(head_p1_tc_kernel<true>, grid, bytes, a, stream)
+          : launch_tc(head_p1_tc_kernel<false>, grid, bytes, a, stream);
+  return e ? e : f1_sums(a, grid.y * grid.z, stream);
+}
+
+int head_p4_tc(const RowFwdArgs& a, cudaStream_t stream) {
+  if (a.batch <= 0 || a.batch > 65535 || a.n <= 0 || a.c_in != kC2 ||
+      a.c_out <= 0 || a.c_out > kB4N || a.groups != 1 ||
+      (long long)a.batch * a.n > 0x7fffffffLL || a.ldw < a.c_in ||
+      a.ldw % 4 || reinterpret_cast<uintptr_t>(a.w) % 16 ||
+      reinterpret_cast<uintptr_t>(a.x) % 16 || !a.x || !a.sc || !a.sh ||
+      !a.w || !a.bias || !a.logp || a.addend || a.z || a.sum || a.keys ||
+      a.mx)
+    return kErrArgs;
+  const size_t bytes = (size_t)(kTcRows + kB4N) * kC2 * sizeof(float);
+  const dim3 grid(ceil_div(a.n, kTcRows), a.batch);
+  return a.prec & kRound
+             ? launch_tc(head_p4_tc_kernel<true>, grid, bytes, a, stream)
+             : launch_tc(head_p4_tc_kernel<false>, grid, bytes, a, stream);
 }
 
 int head_pmid_tc(const RowFwdArgs& a, cudaStream_t stream) {

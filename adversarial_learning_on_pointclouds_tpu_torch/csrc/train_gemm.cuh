@@ -1,20 +1,14 @@
-// The argument structs of every training pass, their reductions, and the
-// row GEMM of the forward passes still on the CUDA cores, shared by
-// trunk_train.cu and seg_head_train.cu: the seg head's P1 and P4. Trunk
-// F1, F2 and B1 and the seg head's Pmid, B4, Bmid and B1 run on the
-// tensor cores (train_bwd_tc.cu).
+// The argument structs of every training pass and their reductions,
+// shared by trunk_train.cu, seg_head_train.cu and train_bwd_tc.cu, where
+// every pass of the trunk and the seg head runs on the tensor cores; and
+// the CUDA-core row GEMM of mlp_stack.cu (the discriminator's inference
+// stack).
 //
-// What bounds these on the H100: P1 (64 -> 512) and P4 (128 -> 50) are
-// products of 1-4 GFLOP a step and their stashes' traffic, run as fp32
-// FMAs (bf16 operands too) at 67 TFLOP/s at most.
-//
-// * The row GEMM over point tiles. A block of 256 threads owns a tile of
-//   64 points of one cloud (8 rows per warp, as tile_fma lays them out).
-//   Its input tile sits in shared memory, after an optional prologue
-//   (BN affine + ReLU of the previous layer); the layer's weight streams
-//   from L2 through a register-staged double buffer in 16-row chunks
-//   (gemm_acc, which mlp_stack.cu shares). The epilogues store z, reduce
-//   column sum / sum of squares, or take a per-point log_softmax.
+// * The row GEMM over point tiles (gemm_acc, load_tile): a block of 256
+//   threads owns a tile of 64 points (8 rows per warp, as tile_fma lays
+//   them out) in shared memory, after an optional prologue (BN affine +
+//   ReLU of the previous layer); the layer's weight streams from L2
+//   through a register-staged double buffer in 16-row chunks.
 //
 // Blocks run in no order, so nothing is carried between them: every
 // reduction over the rows (column statistics, dW, db, the BN sums) is
@@ -34,9 +28,6 @@
 // row (group_row; G, groups > 1, a template parameter of the tensor-core
 // kernels that read them); each group's partial sums are a contiguous
 // range of the per-block slots, added as a stream alone would add them.
-// The row kernel takes one group (the seg head runs per stream). row_fwd
-// is a template, so a source instantiates only the kernels its entry
-// points launch.
 //
 // Under kRound (mixed precision) every matmul operand is rounded to bf16
 // as it enters shared memory or the staging buffer; sums and statistics
@@ -219,10 +210,10 @@ __device__ __forceinline__ void load_tile(float* tile, int width,
 }
 
 // Calls f(Nj<NJ>{}) for the smallest NJ of 2, 4 and 8 with NJ * 32 >=
-// cols (a multiple of 32, at most kMaxCols). The row kernel masks every
-// column past its width (zero operands, no store, no sum), so three
-// widths serve all eight, and it compiles three bodies where with_nj
-// would make eight.
+// cols (a multiple of 32, at most kMaxCols). gemm_acc masks every column
+// past its width (zero operands) and mlp_stack.cu stores none of them, so
+// three widths serve all eight, and it compiles three bodies where
+// with_nj would make eight.
 template <typename F>
 __device__ __forceinline__ void with_nj_pow2(int cols, F&& f) {
   switch (cols >> 5) {
@@ -242,17 +233,6 @@ __device__ __forceinline__ const float* group_row(const float* p, int b,
                                                   int c) {
   if (!G) return p;
   return p ? p + (size_t)(b / (batch / groups)) * c : nullptr;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int s = 16; s; s >>= 1) v += __shfl_xor_sync(0xffffffffu, v, s);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int s = 16; s; s >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, s));
-  return v;
 }
 
 // Order-preserving 32-bit image of a float (larger float, larger bits).
@@ -325,145 +305,6 @@ __global__ void decode_extrema_kernel(const unsigned long long* __restrict__ key
   imax[i] = (int)(0xffffffffu - (unsigned int)km);
   mn[i] = order_value((unsigned int)(kn >> 32));
   imin[i] = (int)(unsigned int)kn;
-}
-
-// ---------------------------------------------------------------------------
-// Forward row kernel
-// ---------------------------------------------------------------------------
-
-// BF: kRound, a template parameter so that the fp32 build carries no
-// rounding at all.
-template <bool BF>
-__global__ void __launch_bounds__(kThreads, 1)
-row_fwd_kernel(const RowFwdArgs a) {
-  extern __shared__ float smem[];
-  float* in_s = smem;                              // [kTile][c_in]
-  float* stage = in_s + kTile * a.c_in;            // 2 staging buffers
-  float* red = stage + 2 * kStage;                 // cross-warp reductions
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int b = blockIdx.y, p0 = blockIdx.x * kTile;
-  const int rows = min(kTile, a.n - p0);
-  const size_t g0 = (size_t)b * a.n + p0;
-  const int blk = b * gridDim.x + blockIdx.x;
-  const size_t blocks = (size_t)gridDim.x * gridDim.y;
-  // bf16 stashes come only with bf16 operands (ops/launch.py: prec), so
-  // the fp32 build reads and writes fp32 alone.
-  constexpr bool bf = BF;
-  const bool zbf = BF && (a.prec & kZBf16);
-
-  load_tile(in_s, a.c_in, a.x, BF && (a.prec & kXBf16), g0, rows, a.c_in, 0,
-            a.c_in, a.sc, a.sh, bf);
-  const int cp = pad32(a.c_out);
-  for (int n0 = 0; n0 < cp; n0 += kMaxCols) {
-    with_nj_pow2(min(kMaxCols, cp - n0), [&](auto nj) {
-      constexpr int NJ = decltype(nj)::value;
-      float acc[kRows][NJ] = {};
-      gemm_acc<NJ, true>(acc, in_s, a.c_in, a.c_in, a.w, a.ldw, n0,
-                         a.c_out - n0, stage, bf);
-#pragma unroll
-      for (int jj = 0; jj < NJ; ++jj) {
-        const int o = n0 + lane + 32 * jj;
-        if (o >= a.c_out) continue;
-        const float add = a.addend ? __ldg(a.addend + (size_t)b * a.c_out + o)
-                                   : 0.f;
-        const float bias = __ldg(a.bias + o);
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          acc[i][jj] = (acc[i][jj] + add) + bias;
-          const int r = warp + i * kWarps;
-          if (a.z && r < rows)
-            store_val(a.z, zbf, (g0 + r) * a.c_out + o, acc[i][jj]);
-        }
-      }
-      if (a.logp) {  // c_out <= kMaxCols: the row is in this warp
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          const int r = warp + i * kWarps;
-          if (r >= rows) continue;  // warp-uniform
-          float m = -INFINITY;
-#pragma unroll
-          for (int jj = 0; jj < NJ; ++jj)
-            if (n0 + lane + 32 * jj < a.c_out) m = fmaxf(m, acc[i][jj]);
-          m = warp_max(m);
-          float s = 0.f;
-#pragma unroll
-          for (int jj = 0; jj < NJ; ++jj)
-            if (n0 + lane + 32 * jj < a.c_out) s += expf(acc[i][jj] - m);
-          const float lse = logf(warp_sum(s)) + m;
-#pragma unroll
-          for (int jj = 0; jj < NJ; ++jj) {
-            const int o = n0 + lane + 32 * jj;
-            if (o < a.c_out) a.logp[(g0 + r) * a.c_out + o] = acc[i][jj] - lse;
-          }
-        }
-      }
-      if (a.sum) {
-#pragma unroll
-        for (int jj = 0; jj < NJ; ++jj) {
-          float s = 0.f, q = 0.f;
-#pragma unroll
-          for (int i = 0; i < kRows; ++i)
-            if (warp + i * kWarps < rows) {
-              s += acc[i][jj];
-              q += acc[i][jj] * acc[i][jj];
-            }
-          red[warp * kMaxCols + lane + 32 * jj] = s;
-          red[(kWarps + warp) * kMaxCols + lane + 32 * jj] = q;
-        }
-        __syncthreads();
-        for (int c = threadIdx.x; c < NJ * 32; c += kThreads) {
-          const int o = n0 + c;
-          if (o >= a.c_out) continue;
-          float s = 0.f, q = 0.f;
-          for (int w = 0; w < kWarps; ++w) {
-            s += red[w * kMaxCols + c];
-            q += red[(kWarps + w) * kMaxCols + c];
-          }
-          a.part[(size_t)blk * a.c_out + o] = s;
-          a.part[(blocks + blk) * a.c_out + o] = q;
-        }
-        __syncthreads();
-      }
-    });
-  }
-}
-
-inline size_t row_fwd_smem(const RowFwdArgs& a) {
-  return ((size_t)kTile * a.c_in + 2 * kStage + 2 * kWarps * kMaxCols) *
-         sizeof(float);
-}
-
-// The forward pass (one group): the row kernel, then the statistics'
-// fp64 sums.
-template <int = 0>
-int row_fwd(const RowFwdArgs& a, cudaStream_t stream) {
-  if (a.batch <= 0 || a.batch > 65535 || a.n <= 0 || a.c_in <= 0 ||
-      a.c_out <= 0 || a.ldw < a.c_in || a.groups != 1 || !a.x || !a.w ||
-      !a.bias || (a.logp && a.c_out > kMaxCols) ||
-      (a.sum && (!a.ssq || !a.part)) || a.mx || a.keys)
-    return kErrArgs;
-  const size_t bytes = row_fwd_smem(a);
-  if (bytes > (size_t)max_smem_optin()) return kErrSmem;
-  const int tiles = ceil_div(a.n, kTile);
-  int e;
-  const dim3 grid(tiles, a.batch);
-  if (a.prec & kRound) {
-    if ((e = (int)allow_smem(row_fwd_kernel<true>, bytes))) return e;
-    row_fwd_kernel<true><<<grid, kThreads, bytes, stream>>>(a);
-  } else {
-    if ((e = (int)allow_smem(row_fwd_kernel<false>, bytes))) return e;
-    row_fwd_kernel<false><<<grid, kThreads, bytes, stream>>>(a);
-  }
-  if ((e = (int)cudaGetLastError())) return e;
-  const int blocks = tiles * a.batch;
-  if (a.sum) {
-    if ((e = colsum(a.part, a.c_out, blocks, a.c_out, 1, a.sum, 0, stream)))
-      return e;
-    if ((e = colsum(a.part + (size_t)blocks * a.c_out, a.c_out, blocks,
-                    a.c_out, 1, a.ssq, 0, stream)))
-      return e;
-  }
-  return 0;
 }
 
 }  // namespace

@@ -2,23 +2,23 @@
 -> k with batch-statistic BatchNorms and a per-point log_softmax.
 
 Counterpart of ``adversarial_learning_on_pointclouds_tpu/ops/kernels/
-seg_head_train.py::seg_head_train``. Six CUDA passes
-(``csrc/seg_head_train.cu``, whose header says what bounds them on the
+seg_head_train.py::seg_head_train``. Six CUDA passes, all on the tensor
+cores (entry points in ``csrc/seg_head_train.cu``, kernels in
+``csrc/train_bwd_tc.cu``, whose headers say what bounds them on the
 card); each forward pass stashes only the pre-BN ``z`` of its layer and
 applies the previous layer's BN + ReLU as it reads:
 
 * **P1** ``z1 = pf @ W1[:64] + g_row + b1`` (``g_row = g @ W1[64:]``, one
-  row per cloud: the 1088-wide concat never exists) and its statistics;
-* **Pmid** (x2) ``z = relu(bn(z_prev)) @ W + b`` and its statistics (on
-  the tensor cores: ``csrc/train_bwd_tc.cu``);
-* **P4** ``log_softmax(relu(bn3(z3)) @ W4 + b4)`` per point;
-* **B4** the softmax and conv4 backward, ``dy3`` and BN3's sums (on the
-  tensor cores: ``csrc/train_bwd_tc.cu``);
+  row per cloud: the 1088-wide concat never exists) and its statistics
+  (trunk F1's tile, ``pf`` fp32);
+* **Pmid** (x2) ``z = relu(bn(z_prev)) @ W + b`` and its statistics;
+* **P4** ``log_softmax(relu(bn3(z3)) @ W4 + b4)`` per point (B4's first
+  half, the same arithmetic);
+* **B4** the softmax and conv4 backward, ``dy3`` and BN3's sums;
 * **Bmid** (x2) a BN backward and the matmul backward to the layer
-  before, with its BN sums (on the tensor cores: ``csrc/train_bwd_tc.cu``);
+  before, with its BN sums;
 * **B1** BN1's backward, ``dw1a``, ``db1``, ``dpf`` and the per-cloud row
-  sum ``r`` of ``dz1`` (the cotangent of ``g_row``; on the tensor cores,
-  ``pf`` fp32).
+  sum ``r`` of ``dz1`` (the cotangent of ``g_row``; ``pf`` fp32).
 
 Each pass has a plain PyTorch twin of the same signature that CPU
 tensors run. ``g_row``, ``dg`` and ``dw1b`` are plain fp32 matmuls, as
@@ -69,12 +69,11 @@ def _mm(a, b, bf16):
     return torch.matmul(_op(a, bf16), _op(b, bf16))
 
 
-def _fwd(symbol, x, sc, sh, w, b, bf16, addend=None, logp=False,
-         tile=launch.TILE):
-    """One forward row pass on the card: ``[B, N, c_in]`` in, the pre-BN
-    ``z`` (a stash) and its statistics out (or, with ``logp``,
-    log-probabilities); ``tile``: the points a block owns, which size the
-    per-block partials."""
+def _fwd(symbol, x, sc, sh, w, b, bf16, addend=None, logp=False):
+    """One forward pass on the card (``csrc/train_bwd_tc.cu``): ``[B, N,
+    c_in]`` in, the pre-BN ``z`` (a stash) and its statistics out (or,
+    with ``logp``, log-probabilities); the statistics from per-block
+    partials, a block per ``launch.TC_TILE`` points."""
     bsz, n, c_in = x.shape
     c_out = w.shape[1]
     dev = x.device
@@ -97,8 +96,8 @@ def _fwd(symbol, x, sc, sh, w, b, bf16, addend=None, logp=False,
     else:
         stats = (torch.empty(c_out, **_f32(dev)),
                  torch.empty(c_out, **_f32(dev)))
-        part = torch.empty((2, launch.row_blocks(bsz, n, tile), c_out),
-                           **_f32(dev))
+        part = torch.empty(
+            (2, launch.row_blocks(bsz, n, launch.TC_TILE), c_out), **_f32(dev))
         fields.update(z=out, sum=stats[0], ssq=stats[1], part=part)
     a = launch.args(launch.RowFwdArgs, **fields)
     launch.call(symbol, dev, ctypes.addressof(a))
@@ -187,8 +186,7 @@ def pmid_plain(z_prev, sc, sh, w, b, bf16: bool = False):
 def pmid(z_prev, sc, sh, w, b, bf16: bool = False):
     if launch.on_cpu(z_prev):
         return pmid_plain(z_prev, sc, sh, w, b, bf16)
-    out = _fwd("pt_head_pmid", z_prev, sc, sh, w, b, bf16,
-               tile=launch.TC_TILE)
+    out = _fwd("pt_head_pmid", z_prev, sc, sh, w, b, bf16)
     pmid.launches += 1
     return out
 

@@ -148,10 +148,9 @@ StackArgs = type("StackArgs", (ctypes.Structure,), {"_fields_": [
     ("w", ctypes.c_void_p * MAX_STACK), ("scale", ctypes.c_void_p * MAX_STACK),
     ("shift", ctypes.c_void_p * MAX_STACK), ("out", ctypes.c_void_p)]})
 DZ_BN, DZ_TRUNK, DZ_SOFTMAX = 0, 1, 2   # BwdArgs.mode
-TILE = 64          # rows per block of the row kernels (kTile in csrc)
 TC_TILE = 128      # rows per block (per tile) of the tensor-core trunk
-                   # F1, F2 and B1 and the seg head's Pmid, B4, Bmid and
-                   # B1 (kTcRows in csrc/train_bwd_tc.cu)
+                   # F1, F2 and B1 and the seg head's six passes (kTcRows
+                   # in csrc/train_bwd_tc.cu)
 DISC_TILE = 64     # rows per block of the disc's backward row pass
                    # (kDwRows in csrc/disc_tc.cu)
 # The ``prec`` bits of the argument structs (kRound... in common.cuh):
@@ -186,7 +185,7 @@ def expect_stash(name: str, t: torch.Tensor, shape: Sequence[int],
            else torch.float32)
 
 
-def row_blocks(bsz: int, n: int, tile: int = TILE) -> int:
+def row_blocks(bsz: int, n: int, tile: int) -> int:
     """Blocks of a row kernel: one per ``tile`` points of each cloud."""
     return bsz * -(-n // tile)
 

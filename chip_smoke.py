@@ -36,12 +36,14 @@ Phases, one or more lines each:
    P1/Pmid/P4/B4/Bmid/B1, the pool-fc epilogue at groups 1 and 2)
    against its plain pass at B=32 N=2048 (the config-3 step), B=32
    N=2500 (ragged) and B=2 N=2048, on inputs with negative BN3 gammas and
-   duplicated points (max ties go to the first point); trunk F1, F2 and
-   B1 and the seg head's Pmid, B4, Bmid and B1 (on the tensor cores,
+   duplicated points (max ties go to the first point), the seg head's P1
+   and P4 also at N=2047 (rows off a 16-byte boundary); trunk F1, F2 and
+   B1 and all six seg head passes (on the tensor cores,
    ``csrc/train_bwd_tc.cu``) also, in fp32, held by the float64 control
-   (F1's z2, F2's sum and sum of squares, Pmid's z, B4's dy3 and dW4,
-   dy_prev, dpf and dW at most ``F64_FACTOR`` times the plain fp32 pass's
-   error), where the plain pass with TF32 allowed must fail; then each autograd
+   (F1's z2, F2's sum and sum of squares, P1's z1, Pmid's z, P4's logits
+   (each row less its mean) and logp, B4's dy3 and dW4, dy_prev, dpf and
+   dW at most ``F64_FACTOR`` times the plain fp32 pass's error), where the
+   plain pass with TF32 allowed must fail; then each autograd
    function's outputs and gradients against its whole-function plain
    reference;
 7. train-slice: ``train_step`` of a seeded full-width segmenter with
@@ -77,8 +79,8 @@ Phases, one or more lines each:
 11. adv-timing: each discriminator pass against its plain pass (bound at
    the 3xTF32 rate, the fp32-FMA bound beside it, with their
    sub-kernels' launches and times and for dW the scratch's GB/s), the
-   G+D step's median time, points/s (both streams) and busy share, and
-   the discriminator family's FLOP/s;
+   G+D step's median time, points/s (both streams) and busy share (its
+   profile held as phase 14's), and the discriminator family's FLOP/s;
 12. bench-kernels: every training and discriminator pass in bf16 against
    its bf16 plain twin at the shapes of phases 6 and 9 (bf16 stashes may
    sit one bf16 step apart where the two sum in another order: the share
@@ -108,9 +110,10 @@ Phases, one or more lines each:
    per-step ms, points/s of both streams, idle share), one step per call,
    with ``paired_trunks`` and without ``pallas_augment``; the bench
    step's profile, with and without ``paired_trunks``, must show
-   ``pmid_tc_kernel``, ``head_b1_tc_kernel``, ``f1_tc_kernel`` and
-   ``b4_tc_kernel`` and none of the CUDA-core kernels they replaced
-   (``GONE_KERNELS``);
+   ``head_p1_tc_kernel``, ``pmid_tc_kernel``, ``head_p4_tc_kernel``,
+   ``head_b1_tc_kernel``, ``f1_tc_kernel`` and ``b4_tc_kernel`` and none
+   of the CUDA-core kernels they replaced (``GONE_KERNELS``, the
+   ``row_fwd_kernel`` among them), as must phase 11's fp32 G+D step's;
 15. pallas-train-kernels: the per-layer training kernels that
    ``dispatch.use_pallas_train`` (the JAX package's
    ``use_pallas(training=True)``) reaches, each pass against its plain
@@ -190,8 +193,8 @@ prints no result line.
 ``--time fp32|bench|pallas_train [--root DIR]`` runs only the G+D step's
 timing of phase 11, 14 or 17 (the bench step under the switch), on the
 port package under ``DIR`` (``time_alone``), for A/B runs of two trees on
-one card; ``--time passes`` times the seg head's Pmid, B1 and B4 and
-trunk F1 (groups 1 and 2) alone, fp32 and bf16; ``--time serve`` the
+one card; ``--time passes`` times the seg head's P1, Pmid, P4, B1 and
+B4 and trunk F1 (groups 1 and 2) alone, fp32 and bf16; ``--time serve`` the
 serving kernels (B=32 N=2500: the three stacks of a forward and the seg
 head, events and device time), the segmenter's forward and
 ``Predictor.predict``. They check nothing and print no result line.
@@ -323,7 +326,8 @@ GEMM_KERNELS = ("pointwise_matmul", "tnet_apply")
 # mma.cuh's fragment layer and the GEMM core): fp32 as 3xTF32, bound at
 # that rate with the fp32-FMA bound beside it.
 TC_PASSES = (("trunk2_train", "F1"), ("trunk2_train", "F2"),
-             ("trunk2_train", "B1"), ("seg_head_train", "Pmid"),
+             ("trunk2_train", "B1"), ("seg_head_train", "P1"),
+             ("seg_head_train", "Pmid"), ("seg_head_train", "P4"),
              ("seg_head_train", "B4"), ("seg_head_train", "Bmid"),
              ("seg_head_train", "B1"))
 # The discriminator's passes, all on the tensor cores (csrc/disc_tc.cu:
@@ -1058,6 +1062,31 @@ def f1_f64(x, w2, b2):
     return (torch.matmul(x.double(), w2.double()) + b2.double(),)
 
 
+def p1_f64(pf, g_row, w1a, b1):
+    """P1's float64 control (fp32): ``(z1,)``, its product, in float64.
+    Its sums are held to the plain twin only, as Pmid's are."""
+    return ((torch.matmul(pf.double(), w1a.double())
+             + g_row.double()[:, None, :]) + b1.double(),)
+
+
+def logits(logp):
+    """The logits a log-softmax carries: each row of ``logp`` less the
+    row's mean, in float64 (the row's constant, lse, removed)."""
+    lp = logp.double()
+    return lp - lp.mean(-1, keepdim=True)
+
+
+def p4_f64(z3, sc3, sh3, w4, b4):
+    """P4's float64 control (fp32): ``(logits, logp)`` with the product
+    and the log_softmax in float64, h3 as the fp32 passes compute it. The
+    logits are held as well as logp: log-probs at 1e-4 do not separate one
+    TF32 product (PERF.md §6)."""
+    h3 = torch.relu(z3.float() * sc3 + sh3).double()
+    logp = torch.log_softmax(torch.matmul(h3, w4.double()) + b4.double(),
+                             dim=-1)
+    return logits(logp), logp
+
+
 def b4_f64(z3, sc3, sh3, w4, b4, mu3, inv3, dlogp):
     """B4's float64 control (fp32): ``(dy3, dw4)`` with every product and
     sum in float64, h3 and BN3's ReLU mask as the fp32 passes compute
@@ -1201,7 +1230,16 @@ def train_kernel_checks(dev, gen, rec, bf16=False):
             a = (pf_in, g_row, w1[:64], b1, *xb)
             got, ref = sh.p1(*a), sh.p1_plain(*a)
             rec.cmp("seg_head_train", "P1", tag, ("z1", "sum", "sumsq"), got,
-                    ref, main, a, phase_tag=ptag)
+                    ref, main, a, phase_tag=ptag, max_share=STASH_SHARE)
+            if not bf16:
+                tc_f64(rec, "seg_head_train", "P1", tag, got, ref, p1_f64(*a),
+                       ("z1",), ptag,
+                       (lambda: sh.p1_plain(*a)[0]) if main else None)
+            elif main:
+                truncated_stash_control(
+                    f"seg_head_train P1 z1 {tag}",
+                    sh._mm(pf_in, w1[:64], True) + g_row[:, None, :] + b1,
+                    ref[0], ptag)
             zs, scs, shs, mus, invs = [ref[0]], [], [], [], []
             for (w, b, ga, be), (wn, bn, _, _) in zip(hp[:3], hp[1:]):
                 mu, _, inv = core.batch_moments(ref[1], ref[2], m)
@@ -1229,9 +1267,14 @@ def train_kernel_checks(dev, gen, rec, bf16=False):
                         ptag)
                 zs.append(ref[0])
             a = (zs[2], scs[2], shs[2], w4, b4, *xb)
-            logp = sh.p4_plain(*a)
-            rec.cmp("seg_head_train", "P4", tag, ("logp",), (sh.p4(*a),),
+            logp, got4 = sh.p4_plain(*a), sh.p4(*a)
+            rec.cmp("seg_head_train", "P4", tag, ("logp",), (got4,),
                     (logp,), main, a, phase_tag=ptag)
+            if not bf16:
+                tc_f64(rec, "seg_head_train", "P4", tag,
+                       (logits(got4), got4), (logits(logp), logp),
+                       p4_f64(*a), ("logits", "logp"), ptag,
+                       (lambda: logits(sh.p4_plain(*a))) if main else None)
             dlogp = _r(gen, bsz, n, PARTS, scale=1.0, dev=dev)
             a = (zs[2], scs[2], shs[2], w4, b4, mus[2], invs[2], dlogp, *xb)
             got, ref = sh.b4(*a), sh.b4_plain(*a)
@@ -1272,6 +1315,26 @@ def train_kernel_checks(dev, gen, rec, bf16=False):
                        head_b1_f64(*a), ("dpf", "dw1a"), ptag,
                        (lambda: sh.b1_plain(*a)[0]) if main else None)
         torch.cuda.synchronize()
+
+    # P1 and P4 at N=2047 too: the odd clouds' rows start off a 16-byte
+    # boundary of z1 and logp (P4's vector stores start after a scalar
+    # head).
+    tag = f"B={B} N={RAGGED_N}"
+    (w1, b1, _, _), (w4, b4, _, _) = hp[0], hp[3]
+    with torch.no_grad():
+        pf_in = torch.relu(torch.randn(B, RAGGED_N, 64, generator=gen)).to(dev)
+        g_row = torch.matmul(
+            torch.relu(torch.randn(B, 1024, generator=gen)).to(dev), w1[64:])
+        a = (pf_in, g_row, w1[:64], b1, *xb)
+        rec.cmp("seg_head_train", "P1", tag, ("z1", "sum", "sumsq"),
+                sh.p1(*a), sh.p1_plain(*a), False, a, phase_tag=ptag,
+                max_share=STASH_SHARE)
+        z3 = _r(gen, B, RAGGED_N, 128, scale=1.0, dev=dev)
+        a = (z3.to(torch.bfloat16) if bf16 else z3, _gam(gen, 128, dev),
+             _r(gen, 128, dev=dev), w4, b4, *xb)
+        rec.cmp("seg_head_train", "P4", tag, ("logp",), (sh.p4(*a),),
+                (sh.p4_plain(*a),), False, a, phase_tag=ptag)
+    torch.cuda.synchronize()
 
     # The pool-fc epilogue at the T-Net head's shapes: groups 1 (one
     # stream of 32) and 2 (two streams of 32 stacked).
@@ -2277,7 +2340,8 @@ def adv_timing(card, rec, cuda_run, launches, results):
             r["launches_g_d_step"] = sum(launches[r["name"]].values())
 
     state, _, _, batch, txs = cuda_run
-    time_step(card, "adv-timing", AdversarialConfig(), state, batch, txs)
+    time_step(card, "adv-timing", AdversarialConfig(), state, batch, txs,
+              names=True)
 
 
 def disc_tc_report(card, pas, calls, by_name, kernels, per,
@@ -2317,10 +2381,12 @@ def disc_tc_report(card, pas, calls, by_name, kernels, per,
           f"(the row pass alone {row_ms / n:.4f} ms a call)")
 
 
-def time_step(card, tag, cfg, state, batch, txs):
+def time_step(card, tag, cfg, state, batch, txs, names=False):
     """The G+D step, one synchronized ``train_step`` per call: the median
     of 12 (CUDA events, after 3 warm-ups), points/s of both streams, and
-    the profiler's kernel time (5 steps) with its largest kernels."""
+    the profiler's kernel time (5 steps) with its largest kernels; with
+    ``names``, the profile must show ``TC_HEAD_KERNELS`` and none of
+    ``GONE_KERNELS`` (``profile_names``)."""
     from adversarial_learning_on_pointclouds_tpu_torch.train import (
         adversarial,
     )
@@ -2344,6 +2410,8 @@ def time_step(card, tag, cfg, state, batch, txs):
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:14]
     for key, ms in top:
         phase(tag, f"  {ms:.4f} ms  {key[:90]}")
+    if names:
+        profile_names(kernels, "the fp32 G+D step", per=1, tag=tag)
     return {"step_ms": step_ms, "busy_ms": busy,
             "top": [[k[:60], ms] for k, ms in top[:5]]}
 
@@ -2750,16 +2818,17 @@ def bench_timing(card, rec, results, bench):
 
 
 # The tensor-core passes that replaced CUDA-core kernels (the seg head's
-# Pmid, B1 and B4, trunk F1), which the bench step must show under their
-# own names, and the CUDA-core kernels they replaced, which it must not:
-# the head's B1 and B4 row and weight-gradient kernels and the grouped row
-# kernel of F1 (the paired trunks); and the serving path's stack and seg
-# head kernels, which no profile may show.
-TC_HEAD_KERNELS = ("pmid_tc_kernel<", "head_b1_tc_kernel<", "f1_tc_kernel<",
-                   "b4_tc_kernel<")
+# P1, Pmid, P4, B1 and B4, trunk F1), which the bench step and the fp32
+# G+D step must show under their own names, and the CUDA-core kernels
+# they replaced, which they must not: the head's B1 and B4 row and
+# weight-gradient kernels and the forward row kernel (the seg head's P1
+# and P4, and F1's grouped one for the paired trunks); and the serving
+# path's stack and seg head kernels, which no profile may show.
+TC_HEAD_KERNELS = ("head_p1_tc_kernel<", "pmid_tc_kernel<",
+                   "head_p4_tc_kernel<", "head_b1_tc_kernel<",
+                   "f1_tc_kernel<", "b4_tc_kernel<")
 GONE_KERNELS = ("row_bwd_kernel<128", "wgrad_kernel<2", "row_bwd_kernel<64",
-                "wgrad_kernel<4", "row_fwd_kernel<true, true",
-                "row_fwd_kernel<false, true", "stack_maxpool_kernel",
+                "wgrad_kernel<4", "row_fwd_kernel", "stack_maxpool_kernel",
                 "seg_head_kernel")
 # The serving kernels on the tensor cores (csrc/encoder_fused.cu), which
 # the forward's profile must show in place of the CUDA-core
@@ -3743,9 +3812,10 @@ def kernel_entry(name, src, site, launches, passes, times):
 
 
 def head_passes(card):
-    """``--time passes``: the seg head's Pmid (512 -> 256 and 256 -> 128,
-    a config-3 step's two launches), B1 (512 -> 64, one launch) and B4
-    (128 -> 50, one launch), and trunk F1 (64 -> 128, a config-3 step's
+    """``--time passes``: the seg head's P1 (64 -> 512, one launch), Pmid
+    (512 -> 256 and 256 -> 128, a config-3 step's two launches), P4 (128
+    -> 50, one launch), B1 (512 -> 64, one launch) and B4 (128 -> 50, one
+    launch), and trunk F1 (64 -> 128, a config-3 step's
     three launches; and at groups=2 on 2B=64, the paired trunks' three) at
     B=32 N=2048 on seeded data, fp32 and bf16: median ms of ``REPS`` calls
     (CUDA events), device ms (profiler), TFLOP/s and GB/s of each (the
@@ -3762,9 +3832,15 @@ def head_passes(card):
             t = _r(gen, bsz, TRAIN_N, c, scale=scale, dev=dev)
             return t.to(torch.bfloat16) if bf16 else t
 
+        w1 = _w(gen, 1088, 512, dev)      # pf is fp32 in both precisions
+        p1 = [(torch.relu(_r(gen, B, TRAIN_N, 64, scale=1.0, dev=dev)),
+               _r(gen, B, 512, scale=1.0, dev=dev), w1[:64],
+               _r(gen, 512, dev=dev), bf16)]
         pmid = [(stash(ci), _gam(gen, ci, dev), _r(gen, ci, dev=dev),
                  _w(gen, ci, co, dev), _r(gen, co, dev=dev), bf16)
                 for ci, co in ((512, 256), (256, 128))]
+        p4 = [(stash(128), _gam(gen, 128, dev), _r(gen, 128, dev=dev),
+               _w(gen, 128, PARTS, dev), _r(gen, PARTS, dev=dev), bf16)]
         b1 = [(stash(512), stash(512, 0.2), _gam(gen, 512, dev),
                _r(gen, 512, dev=dev), _gam(gen, 512, dev),
                _r(gen, 512, scale=1e-2, dev=dev),
@@ -3781,7 +3857,9 @@ def head_passes(card):
                    _w(gen, 64, 128, dev), _r(gen, 128, dev=dev), g, bf16)
                   for _ in range(3)] for g in (1, 2)}
         for name, fn, calls, flops in (
+                ("P1", sh.p1, p1, 2 * m * 64 * 512),
                 ("Pmid", sh.pmid, pmid, 2 * m * (512 * 256 + 256 * 128)),
+                ("P4", sh.p4, p4, 2 * m * 128 * PARTS),
                 ("B1", sh.b1, b1, 2 * 2 * m * 512 * 64),
                 ("B4", sh.b4, b4, 3 * 2 * m * 128 * PARTS),
                 ("F1", tt.f1, f1[1], 3 * 2 * m * 64 * 128),
@@ -3887,7 +3965,7 @@ def time_alone(mode: str, root: str, card: str) -> None:
     ``bench`` as phase 14 (``train_steps_scan`` at K=8 of the bench
     configuration), ``pallas_train`` the same under ``use_pallas_train``
     (``bench.py --pallas_train``; a tree without the switch fails);
-    ``passes`` the seg head's Pmid, B1 and B4 and trunk F1 alone
+    ``passes`` the seg head's P1, Pmid, P4, B1 and B4 and trunk F1 alone
     (``head_passes``), ``serve`` the serving kernels, forward and
     ``Predictor.predict`` (``serve_times``). Prints
     one JSON line, and no result line. To compare two trees, alternate
@@ -3936,9 +4014,9 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--time", choices=("fp32", "bench", "pallas_train",
                                        "passes", "serve"),
-                    help="time the G+D step, the seg head's Pmid, B1 and "
-                         "B4 and trunk F1, or serving, alone (no checks, "
-                         "no result line)")
+                    help="time the G+D step, the seg head's P1, Pmid, "
+                         "P4, B1 and B4 and trunk F1, or serving, alone (no "
+                         "checks, no result line)")
     ap.add_argument("--disc-checks", type=int, metavar="SEED",
                     help="run only the discriminator's checks of phases 9 "
                          "and 12 on data from this generator seed (no "

@@ -32,19 +32,26 @@ recomputes z4 = h3 W4^T + b4, takes dz = dlp - softmax(z4) sum(dlp) in
 fp32, dy3 = dz W4 masked by h3 > 0, and dW4 = h3^T dz, db, t1 and t2 from
 per-tile fp32 sums added in float64 (the kernel adds a block's tiles in
 one fp32 accumulator before float64: another order of the same sums).
+The seg head's P1 is F1 with a per-cloud addend, z1 = (pf W1a^T +
+g_row[cloud]) + b1, the JAX kernel's order, with z1's column sums per
+128-point tile; P4 is B4's first half (the same z4 = h3 W4^T + b4,
+``_z4``), then logp = z4 - (log(sum exp(z4 - m)) + m) in fp32.
 
 Held at narrow widths (B1 c_in 32, c_out 256; F2 128 -> 256; Bmid 64 ->
 128 and 128 -> 64; Pmid 128 -> 64 and 64 -> 128; the head's B1 128 -> 32
 and 64 -> 3; F1 16 -> 32 and 3 -> 16; B4 32 -> 50 and 32 -> 13, an odd
-k that pads), a ragged N = 300, groups 1 and 2: fp32 within ``BOUND``
+k that pads; P1 16 -> 256, two of the kernel's 128-column slices, and 64
+-> 128; P4 32 -> 50 and 32 -> 13), a ragged N = 300, groups 1 and 2:
+fp32 within ``BOUND``
 (1e-4 scale-relative) of float64, of the port's plain twins and of the
 JAX package's ``_b1_call`` / ``_f1_call`` / ``_f2_call`` / ``_pmid_call``
-/ ``_b4_call`` / ``_bmid_call`` and the seg head's ``_b1_call``
+/ ``_b4_call`` / ``_bmid_call`` / ``_p1_call`` / ``_p4_call`` and the seg
+head's ``_b1_call``
 (HIGHEST precision,
 Pallas in interpret mode as its own tests run it);
 bf16 within ``BF16_BOUND`` of the JAX kernels under their
 mixed-precision scope. The control: one TF32 product instead of three
-misses ``BOUND``. These tests document the contract the kernels are built
+misses ``BOUND`` (P4 on its logits z4 as on logp). These tests document the contract the kernels are built
 to and run no kernel; ``chip_smoke.py`` holds the kernels to their plain
 twins and to float64 on the card.
 """
@@ -76,7 +83,8 @@ F2_WIDTHS = (128, 256)                 # (c2, c3)
 PMID_WIDTHS = ((128, 64), (64, 128))   # (c_in, c_out)
 HEAD_B1_WIDTHS = ((128, 32), (64, 3))  # (c_out, c_in): dz width -> dpf width
 F1_WIDTHS = ((16, 32), (3, 16))        # (c_in, c2); depth 3 as plain fp32
-B4_C3, B4_PARTS = 32, (50, 13)         # B4: c3, k (13 pads to 16)
+B4_C3, B4_PARTS = 32, (50, 13)         # B4 and P4: c3, k (13 pads to 16)
+P1_WIDTHS = ((16, 256), (64, 128))     # (c_in, c1); 256: two column slices
 TC_TILE = 128          # points a tile of F1, F2, Pmid, B4, the head's B1
                        # (kTcRows in csrc/train_bwd_tc.cu)
 
@@ -249,16 +257,45 @@ def _tile_dw(h, dz, prec):
     return out if prec == "f64" else out.float()
 
 
+def p1_emulated(args, prec):
+    """The seg head's P1 as ``train_bwd_tc.cu`` computes it: ``(z1, sum,
+    sumsq)``, ``z1`` before its stash: ``(pf W1a^T + g_row[cloud]) +
+    b1``."""
+    pf, g_row, w1a, b1 = args
+    bsz, n, c_in = pf.shape
+    z = (_mm(pf.reshape(-1, c_in), w1a, prec).reshape(bsz, n, -1)
+         + _f(g_row, prec)[:, None, :]) + _f(b1, prec)
+    return z, _tile_sums(z, prec).sum(0), _tile_sums(z * z, prec).sum(0)
+
+
+def _z4(z3, sc3, sh3, w4, b4, prec):
+    """B4's and P4's shared first half (``z4_softmax``): ``(h3, its ReLU
+    mask, z4 = h3 W4^T + b4)``, h3 and the mask from fp32."""
+    bsz, n, c3 = z3.shape
+    h3 = torch.relu(z3.float() * sc3 + sh3)
+    mask = h3 > 0
+    h3 = _f(h3, prec)
+    z4 = _mm(h3.reshape(-1, c3), w4, prec).reshape(bsz, n, -1) + _f(b4, prec)
+    return h3, mask, z4
+
+
+def p4_emulated(args, prec):
+    """The seg head's P4 as ``train_bwd_tc.cu`` computes it: ``(logp,
+    z4)``, logp = z4 - (log(sum exp(z4 - m)) + m) and the logits it came
+    from (``prec="f64"``: the float64 control)."""
+    z4 = _z4(*args, prec)[2]
+    m = z4.max(-1, keepdim=True).values
+    lse = torch.log(torch.exp(z4 - m).sum(-1, keepdim=True)) + m
+    return z4 - lse, z4
+
+
 def b4_emulated(args, prec):
     """The seg head's B4 as ``train_bwd_tc.cu`` computes it: ``(dy3, dw4,
     db4, t1, t2)``, ``dy3`` before its stash; ``prec="f64"`` is the float64
     control (h3 and its mask from fp32, everything after in float64)."""
     z3, sc3, sh3, w4, b4, mu3, inv3, dlp = args
     bsz, n, c3 = z3.shape
-    h3 = torch.relu(z3.float() * sc3 + sh3)
-    mask = h3 > 0
-    h3 = _f(h3, prec)
-    z4 = _mm(h3.reshape(-1, c3), w4, prec).reshape(bsz, n, -1) + _f(b4, prec)
+    h3, mask, z4 = _z4(z3, sc3, sh3, w4, b4, prec)
     e = torch.exp(z4 - z4.max(-1, keepdim=True).values)
     dl = _f(dlp, prec)
     dz = dl - (e / e.sum(-1, keepdim=True)) * dl.sum(-1, keepdim=True)
@@ -403,6 +440,16 @@ def _b4_args(k, bf16=False):
             rng.standard_normal((2, N, k)).astype(f))
 
 
+@functools.lru_cache(maxsize=None)
+def _p1_args(c_in, c1):
+    rng = np.random.default_rng(c_in * 1000 + c1 + 70)
+    f = np.float32
+    return (np.maximum(rng.standard_normal((2, N, c_in)), 0).astype(f),
+            (rng.standard_normal((2, c1)) * 0.5).astype(f),
+            (rng.uniform(-1, 1, (c_in, c1)) / np.sqrt(c_in)).astype(f),
+            (rng.standard_normal(c1) * 0.1).astype(f))
+
+
 def _torch(args):
     return tuple(torch.from_numpy(a) for a in args)
 
@@ -478,12 +525,32 @@ def _jax_b4(k, bf16=False):
     return jax_head._b4_call(*args)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_p1(c_in, c1, bf16=False):
+    args = [jnp.asarray(a) for a in _p1_args(c_in, c1)]
+    if bf16:
+        with jax_core.mixed_precision():
+            return jax_head._p1_call(*args)
+    return jax_head._p1_call(*args)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_p4(k, bf16=False):
+    args = [jnp.asarray(a) for a in _b4_args(k, bf16)[:5]]
+    if bf16:
+        args[0] = args[0].astype(jnp.bfloat16)
+        with jax_core.mixed_precision():
+            return jax_head._p4_call(*args)
+    return jax_head._p4_call(*args)
+
+
 NAMES = ("dy_prev", "dw", "db", "t1", "t2")
 PMID_NAMES = ("z", "sum", "sumsq")
 HEAD_B1_NAMES = ("dpf", "dw1a", "db1", "r")
 F2_NAMES = ("sum", "sumsq", "max", "min")
 F1_NAMES = ("z2", "sum", "sumsq")
 B4_NAMES = ("dy3", "dw4", "db4", "t1", "t2")
+P1_NAMES = ("z1", "sum", "sumsq")
 
 
 def _winners_agree(emu, other, z3, what):
@@ -777,8 +844,78 @@ def test_b4_bf16_matches_jax_mixed_precision(k):
             assert _rel(e, p) <= BF16_BOUND, nm
 
 
+@pytest.mark.parametrize("c_in,c1", P1_WIDTHS)
+def test_p1_3xtf32_matches_float64_plain_and_jax(c_in, c1):
+    """fp32 (3xTF32): z1 and its sums within ``BOUND`` of float64, of the
+    plain twin and of the JAX kernel; c1 256 spans two of the kernel's
+    column slices."""
+    args = _torch(_p1_args(c_in, c1))
+    emu = p1_emulated(args, "3xtf32")
+    ref = p1_emulated(args, "f64")
+    plain = seg_head_train.p1_plain(*args)
+    for nm, e, r, p, j in zip(P1_NAMES, emu, ref, plain, _jax_p1(c_in, c1)):
+        assert _rel(e, r) <= BOUND, (nm, _rel(e, r))
+        assert _rel(e, p) <= BOUND, (nm, _rel(e, p))
+        assert _rel(e, np.asarray(j).reshape(e.shape)) <= BOUND, nm
+
+
+@pytest.mark.parametrize("c_in,c1", P1_WIDTHS)
+def test_p1_bf16_matches_jax_mixed_precision(c_in, c1):
+    """bf16 pf and W1a as the JAX kernel's ``_mxu_dot`` casts them, fp32
+    sums of the unrounded z1; z1 a bf16 stash on both sides: equal or one
+    bf16 step apart; the sums within ``BF16_BOUND``; and the rounding did
+    happen (fp32 lands elsewhere)."""
+    args = _torch(_p1_args(c_in, c1))
+    emu = list(p1_emulated(args, "bf16"))
+    assert _rel(emu[0], p1_emulated(args, "3xtf32")[0]) > 10 * BOUND
+    emu[0] = emu[0].to(torch.bfloat16)
+    plain = seg_head_train.p1_plain(*args, bf16=True)
+    for i, (nm, e, p, j) in enumerate(zip(P1_NAMES, emu, plain,
+                                          _jax_p1(c_in, c1, True))):
+        j = torch.from_numpy(np.array(jnp.asarray(j, jnp.float32))
+                             ).reshape(e.shape)
+        if i == 0:
+            e, p = e.float(), p.float()
+            step = j.abs() * 2.0 ** -7
+            assert ((e - j).abs() <= step).all(), nm
+            assert ((e - p).abs() <= step).all(), nm
+        else:
+            assert _rel(e, j) <= BF16_BOUND, nm
+            assert _rel(e, p) <= BF16_BOUND, nm
+
+
+@pytest.mark.parametrize("k", B4_PARTS)
+def test_p4_3xtf32_matches_float64_plain_and_jax(k):
+    """fp32: logp within ``BOUND`` of float64, of the plain twin and of
+    the JAX kernel, k = 50 and an odd k = 13 (padded logits -inf), and
+    its logits z4 within ``BOUND`` of float64."""
+    args = _torch(_b4_args(k)[:5])
+    emu = p4_emulated(args, "3xtf32")
+    ref = p4_emulated(args, "f64")
+    plain = seg_head_train.p4_plain(*args)
+    assert _rel(emu[0], ref[0]) <= BOUND, _rel(emu[0], ref[0])
+    assert _rel(emu[1], ref[1]) <= BOUND, _rel(emu[1], ref[1])
+    assert _rel(emu[0], plain) <= BOUND, _rel(emu[0], plain)
+    assert _rel(emu[0], np.asarray(_jax_p4(k))) <= BOUND
+
+
+@pytest.mark.parametrize("k", B4_PARTS)
+def test_p4_bf16_matches_jax_mixed_precision(k):
+    """bf16 h3 and W4 as the JAX kernel's ``_mxu_dot`` casts them (z3 a
+    bf16 stash), fp32 sums and softmax: logp within ``BF16_BOUND`` of it
+    and of the port's bf16 plain twin; and the rounding did happen (fp32
+    lands elsewhere)."""
+    args = _torch(_b4_args(k, bf16=True)[:5])
+    emu = p4_emulated(args, "bf16")[0]
+    assert _rel(emu, p4_emulated(args, "3xtf32")[0]) > 10 * BOUND
+    j = np.asarray(_jax_p4(k, True), np.float32)
+    assert _rel(emu, j) <= BF16_BOUND, _rel(emu, j)
+    plain = seg_head_train.p4_plain(*args, bf16=True)
+    assert _rel(emu, plain) <= BF16_BOUND, _rel(emu, plain)
+
+
 @pytest.mark.parametrize("pas", ["B1", "Bmid", "F2", "Pmid", "head B1", "F1",
-                                 "B4"])
+                                 "B4", "P1", "P4"])
 def test_one_tf32_product_misses_the_bound(pas):
     """Control: with one TF32 product (no ``lo``) in place of three the
     emulation misses ``BOUND`` of float64 on the products' outputs, which
@@ -801,7 +938,13 @@ def test_one_tf32_product_misses_the_bound(pas):
     elif pas == "F1":
         args = _torch(_f1_args(*F1_WIDTHS[0], 1))
         one, ref = (f1_emulated(args, 1, p) for p in ("tf32", "f64"))
-    else:
+    elif pas == "B4":
         args = _torch(_b4_args(B4_PARTS[0]))
         one, ref = (b4_emulated(args, p) for p in ("tf32", "f64"))
+    elif pas == "P1":
+        args = _torch(_p1_args(*P1_WIDTHS[0]))
+        one, ref = (p1_emulated(args, p) for p in ("tf32", "f64"))
+    else:   # logp, and its logits z4
+        args = _torch(_b4_args(B4_PARTS[0])[:5])
+        one, ref = (p4_emulated(args, p) for p in ("tf32", "f64"))
     assert max(_rel(one[i], ref[i]) for i in (0, 1)) > BOUND

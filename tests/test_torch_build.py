@@ -143,3 +143,34 @@ def test_ptxas_report_names_the_serving_kernels():
     assert ptxas_report(fake, "encoder_fused.cu") == {
         "stack_tc_kernel<64>": (242, 0, 0), "stack_tc_kernel<4>": (240, 0, 0),
         "head_tc_kernel": (255, 184, 692)}
+
+
+# The seg head's P1 (on trunk F1's tile) and P4 (B4's first half) on the
+# tensor cores (train_bwd_tc.cu), by precision.
+P1_TC = ("_ZN8pointtpu12_GLOBAL__N_117head_p1_tc_kernelILb0EEEv"
+         "NS_10RowFwdArgsE")
+P4_TC = ("_ZN8pointtpu12_GLOBAL__N_117head_p4_tc_kernelILb1EEEv"
+         "NS_10RowFwdArgsE")
+
+
+def test_ptxas_report_names_head_p1_and_p4():
+    fake = types.SimpleNamespace(resource_usage={"train_bwd_tc.cu": {
+        P1_TC: (128, 0, 0), P4_TC: (120, 0, 0), F1_TC: (128, 0, 0)}})
+    assert ptxas_report(fake, "train_bwd_tc.cu") == {
+        "head_p1_tc_kernel<0>": (128, 0, 0),
+        "head_p4_tc_kernel<1>": (120, 0, 0),
+        "f1_tc_kernel<0,64>": (128, 0, 0)}
+
+
+def test_no_source_defines_the_cuda_core_row_kernel():
+    """The forward row kernel is gone: P1 and P4 launch the tensor-core
+    kernels that train_bwd_tc.cu defines, and no source names the row
+    kernel or its launcher."""
+    srcs = {p.name: p.read_text() for p in sorted(build.CSRC.iterdir())
+            if p.suffix in (".cu", ".cuh")}
+    assert not [n for n, text in srcs.items() if "row_fwd" in text]
+    for kernel in ("head_p1_tc_kernel", "head_p4_tc_kernel"):
+        assert f"{kernel}(const" in srcs["train_bwd_tc.cu"], kernel
+    entry = srcs["seg_head_train.cu"]
+    for launcher in ("head_p1_tc(*a, stream)", "head_p4_tc(*a, stream)"):
+        assert launcher in entry, launcher

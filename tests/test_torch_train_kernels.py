@@ -313,15 +313,15 @@ def test_argument_structs_mirror_the_cuda_header():
 
 def test_row_tiles_mirror_the_cuda_sources():
     """The wrappers size the per-block partials (``part``) by the rows a
-    block of the row kernels owns; a tile in Python smaller than the C
-    one would let the kernels write past the end of ``part``."""
+    block of the row kernels owns (the generator's passes all on the
+    tensor cores, the disc's backward row pass); a tile in Python smaller
+    than the C one would let the kernels write past the end of ``part``."""
     import pathlib
     import re
 
     from adversarial_learning_on_pointclouds_tpu_torch.ops import launch
 
-    for tile, name, source in ((launch.TILE, "kTile", "train_gemm.cuh"),
-                               (launch.TC_TILE, "kTcRows",
+    for tile, name, source in ((launch.TC_TILE, "kTcRows",
                                 "train_bwd_tc.cu"),
                                (launch.DISC_TILE, "kDwRows", "disc_tc.cu")):
         text = (pathlib.Path(build.CSRC) / source).read_text()
