@@ -39,6 +39,7 @@ constexpr int kMaxCols = 256;                    // columns per pass
 // Status codes shared with the Python wrappers (ops/build.py).
 constexpr int kErrArgs = -1;     // shapes the kernel does not take
 constexpr int kErrSmem = -2;     // working set exceeds shared memory
+constexpr int kErrCluster = -3;  // no GPC holds the thread-block cluster
 
 // Bits of the argument structs' prec field (ops/launch.py: ROUND,
 // BF16_BITS): round every matmul operand to bf16, and which tensors are

@@ -12,24 +12,24 @@
 // What bounds it here: latency. At batch 32 the head is 32 x (1024 x 512
 // + 512 x 256 + 256 x k^2) MACs, 0.02-0.55 GFLOP, and its weights 2.5-6.5
 // MB; each layer is a few microseconds of work, and a BN couples every
-// row of a column, so what counts is few launches and no round trips
-// between a product, its batch statistics and the normalization.
+// row of a column, so what counts is how many SMs share each weight
+// stream, a short serial chain, and no round trip between a product, its
+// batch statistics and the normalization.
 //
-// What the design does about that: the TPU runs the head as one program
-// with everything in VMEM; a card has no such block, so each layer is one
-// column-parallel launch: a block owns 8 output channels, one per warp,
-// for every row, a lane holding the rows lane, lane + 32, ... in
-// registers. A BN's batch moments are then a warp reduction (about the
-// running mean, as core.batch_norm), and the normalization, ReLU and the
-// stashes follow in place. The input rows stream through shared memory
-// in chunks of 128 columns (row stride 129: lanes reading 32 rows hit 32
-// banks) and each weight element is a broadcast read. Forward: fc1, fc2,
-// fc3, three launches. Backward: layer 2 (its cotangent from fc3's
-// backward), layer 1 (its cotangent dz2 @ W2 computed in the block), the
-// cotangent of h (dz1 @ W1), three launches; each BN layer's block also
-// makes its columns of dW from the previous activation (recomputed from
-// its z stash for layer 2) staged through shared memory, a lane per
-// input channel, the rows added in order.
+// What the design does about that: every layer is small_fc.cuh's split-K
+// tensor-core product across a thread-block cluster (fc_cluster: 16
+// output columns a cluster of 8 CTAs, each CTA one slice of k, the
+// partials added through distributed shared memory in rank order), its
+// epilogue in the CTA that owns the columns. Forward, three launches:
+// fc1 and fc2 with the batch-BN forward (moments about the running mean,
+// the stashes z1, z2, the statistics, h1 and h2 for the next layer), fc3
+// with its bias (at k = 64, 256 column groups: two CTAs a cluster).
+// Backward, three launches: (1) dW2 = dz2^T h1 as 64 x 64 output tiles,
+// each tile building its dz2 columns by BN2's backward from dh2 (the
+// first column of tiles stores dz2, db2, dg2, dbe2) and its h1 columns
+// from the z1 stash; (2) dh1 = dz2 W2 split-K, BN1's backward in the
+// owner CTAs (dz1, db1, dg1, dbe1); (3) dh = dz1 W1 split-K, and in the
+// same launch's tail dW1 = dz1^T h as output tiles.
 //
 // Rounding follows the JAX kernels line by line, with no fused
 // multiply-add where they round twice: the forward normalizes as (z - mu)
@@ -37,9 +37,10 @@
 // and relu(zhat * gamma + beta) (both as written at fc_head_train.py:98
 // and :160). Under mixed precision (prec & kRound) the three forward
 // products and dW1/dW2 take bf16 operands (_mxu_dot, _mxu_dot_t); the
-// cotangents of h1 and h stay fp32 (_mxu_dot_nt runs at HIGHEST).
+// cotangents of h1 and h stay fp32 as 3xTF32 (_mxu_dot_nt runs at
+// HIGHEST).
 
-#include "common.cuh"
+#include "small_fc.cuh"
 
 namespace pointtpu {
 
@@ -87,284 +88,63 @@ struct FcHeadArgs {
 
 namespace {
 
-constexpr int kKc = 128, kLd = kKc + 1;   // staged columns, row stride
-constexpr float kBnEps = 1e-5f;
-
-__device__ __forceinline__ float lane_sum(float v) {
-  for (int s = 16; s; s >>= 1) v += __shfl_xor_sync(0xffffffffu, v, s);
-  return v;
-}
-
-// One fc layer, column-parallel.
-struct Layer {
-  int batch, k, cols;
-  bool round;            // bf16 operands for the product
-  const float* x;        // [batch, k] input rows
-  const float* w;        // W(o, kk) = w[o * wso + kk * wsk]
-  long long wso, wsk;
-  const float* bias;     // [cols], or null
-  const float* rm;       // BN (null: an affine layer, z is its output)
-  const float* g;
-  const float* be;
-  float* z;              // [batch, cols]
-  float* h;              // [batch, cols] relu(bn(z))
-  float* mu;
-  float* var;
-  float* inv;
-};
-
-// The backward of one BN layer (h = relu(bn(z)), z = p @ W^T + b).
-struct BnBwd {
-  int batch, k, cols, cin;
-  bool round;            // bf16 operands for dW
-  const float* dh;       // [batch, cols] cotangent of h, or null: it is
-  const float* x;        //   x @ W(o, :) over k, fp32
-  const float* w;
-  long long wso, wsk;
-  const float* z;        // this BN: stash and statistics
-  const float* mu;
-  const float* inv;
-  const float* g;
-  const float* be;
-  const float* p;        // [batch, cin] the layer's input, or null: it is
-  const float* pz;       //   relu(bn(pz)) of the previous BN, recomputed
-  const float* pmu;
-  const float* pinv;
-  const float* pg;
-  const float* pbe;
-  float* dz;             // [batch, cols]
-  float* dg;
-  float* dbe;
-  float* db;
-  float* dw;             // [cols, cin]
-};
-
-// acc[j] += sum over kk of x[lane + 32 j][kk] * W(o, kk), the rows staged
-// through xs. Every thread of the block calls it (it has barriers).
-template <int RB>
-__device__ __forceinline__ void layer_product(float (&acc)[RB],
-                                              const float* __restrict__ x,
-                                              int batch, int k,
-                                              const float* __restrict__ w,
-                                              long long wso, long long wsk,
-                                              int o, bool ok, bool bf,
-                                              float* xs) {
-  const int lane = threadIdx.x & 31;
-  for (int k0 = 0; k0 < k; k0 += kKc) {
-    const int kn = min(kKc, k - k0);
-    __syncthreads();  // the previous chunk is read
-    for (int e = threadIdx.x; e < batch * kKc; e += kThreads) {
-      const int bb = e / kKc, kk = e - bb * kKc;
-      xs[bb * kLd + kk] =
-          kk < kn ? operand(__ldg(x + (size_t)bb * k + k0 + kk), bf) : 0.f;
-    }
-    __syncthreads();
-    if (ok) {
-      const float* wo = w + o * wso + k0 * wsk;
-      for (int kk = 0; kk < kn; ++kk) {
-        const float wv = operand(__ldg(wo + kk * wsk), bf);
-#pragma unroll
-        for (int j = 0; j < RB; ++j) {
-          const int bb = lane + 32 * j;
-          if (bb < batch) acc[j] = fmaf(xs[bb * kLd + kk], wv, acc[j]);
-        }
-      }
-    }
-  }
-}
-
-template <int RB>
-__global__ void __launch_bounds__(kThreads) fc_layer_kernel(const Layer L) {
-  extern __shared__ float xs[];  // [batch][kLd]
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int o = blockIdx.x * kWarps + warp;
-  const bool ok = o < L.cols;
-  float acc[RB] = {};
-  layer_product<RB>(acc, L.x, L.batch, L.k, L.w, L.wso, L.wsk, o, ok,
-                    L.round, xs);
-  if (!ok) return;  // warp-uniform, after the last barrier
-  if (L.bias) {
-    const float bias = __ldg(L.bias + o);
-#pragma unroll
-    for (int j = 0; j < RB; ++j) acc[j] += bias;
-  }
-  if (!L.g) {
-#pragma unroll
-    for (int j = 0; j < RB; ++j) {
-      const int bb = lane + 32 * j;
-      if (bb < L.batch) L.z[(size_t)bb * L.cols + o] = acc[j];
-    }
-    return;
-  }
-  const float rm = __ldg(L.rm + o);
-  float s = 0.f, q = 0.f;
-#pragma unroll
-  for (int j = 0; j < RB; ++j) {
-    const int bb = lane + 32 * j;
-    if (bb < L.batch) {
-      const float zc = acc[j] - rm;
-      s += zc;
-      q += __fmul_rn(zc, zc);
-    }
-  }
-  s = lane_sum(s);
-  q = lane_sum(q);
-  const float mu_c = s / L.batch, m2 = q / L.batch;
-  const float var = fmaxf(__fsub_rn(m2, __fmul_rn(mu_c, mu_c)), 0.f);
-  const float inv = rsqrtf(var + kBnEps);
-  const float mu = mu_c + rm;
-  if (lane == 0) {
-    L.mu[o] = mu;
-    L.var[o] = var;
-    L.inv[o] = inv;
-  }
-  const float t = __fmul_rn(inv, __ldg(L.g + o)), be = __ldg(L.be + o);
-#pragma unroll
-  for (int j = 0; j < RB; ++j) {
-    const int bb = lane + 32 * j;
-    if (bb >= L.batch) continue;
-    L.z[(size_t)bb * L.cols + o] = acc[j];
-    L.h[(size_t)bb * L.cols + o] =
-        fmaxf(__fadd_rn(__fmul_rn(__fsub_rn(acc[j], mu), t), be), 0.f);
-  }
-}
-
-template <int RB>
-__global__ void __launch_bounds__(kThreads) fc_bn_bwd_kernel(const BnBwd L) {
-  extern __shared__ float smem[];
-  float* xs = smem;                    // [batch][kLd]
-  float* dzs = xs + L.batch * kLd;     // [kWarps][batch] dz, as dW's operand
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int o = blockIdx.x * kWarps + warp;
-  const bool ok = o < L.cols;
-  float dh[RB] = {};
-  if (!L.dh)
-    layer_product<RB>(dh, L.x, L.batch, L.k, L.w, L.wso, L.wsk, o, ok, false,
-                      xs);
-  if (ok) {
-    const float mu = __ldg(L.mu + o), inv = __ldg(L.inv + o);
-    const float g = __ldg(L.g + o), be = __ldg(L.be + o);
-    float zh[RB], dy[RB];
-    float t1 = 0.f, t2 = 0.f;
-#pragma unroll
-    for (int j = 0; j < RB; ++j) {
-      const int bb = lane + 32 * j;
-      zh[j] = dy[j] = 0.f;
-      if (bb >= L.batch) continue;
-      const size_t at = (size_t)bb * L.cols + o;
-      if (L.dh) dh[j] = __ldg(L.dh + at);
-      zh[j] = __fmul_rn(__fsub_rn(__ldg(L.z + at), mu), inv);
-      const float hv = fmaxf(__fadd_rn(__fmul_rn(zh[j], g), be), 0.f);
-      dy[j] = hv > 0.f ? dh[j] : 0.f;
-      t1 += dy[j];
-      t2 += __fmul_rn(dy[j], zh[j]);
-    }
-    t1 = lane_sum(t1);
-    t2 = lane_sum(t2);
-    const float gi = __fmul_rn(g, inv);
-    const float a1 = t1 / L.batch, a2 = t2 / L.batch;
-    float db = 0.f;
-#pragma unroll
-    for (int j = 0; j < RB; ++j) {
-      const int bb = lane + 32 * j;
-      if (bb >= L.batch) continue;
-      const float dz =
-          __fmul_rn(gi, __fsub_rn(__fsub_rn(dy[j], a1), __fmul_rn(zh[j], a2)));
-      L.dz[(size_t)bb * L.cols + o] = dz;
-      db += dz;
-      dzs[warp * L.batch + bb] = operand(dz, L.round);
-    }
-    db = lane_sum(db);
-    if (lane == 0) {
-      L.dg[o] = t2;
-      L.dbe[o] = t1;
-      L.db[o] = db;
-    }
-  }
-  // dW[o][i] = sum over rows of p[row][i] * dz[row][o], lane per i.
-  for (int k0 = 0; k0 < L.cin; k0 += kKc) {
-    const int kn = min(kKc, L.cin - k0);
-    __syncthreads();  // dzs is written; the previous chunk is read
-    for (int e = threadIdx.x; e < L.batch * kKc; e += kThreads) {
-      const int bb = e / kKc, kk = e - bb * kKc, i = k0 + kk;
-      float v = 0.f;
-      if (kk < kn) {
-        const size_t at = (size_t)bb * L.cin + i;
-        if (L.p) {
-          v = __ldg(L.p + at);
-        } else {
-          const float zh = __fmul_rn(__fsub_rn(__ldg(L.pz + at),
-                                               __ldg(L.pmu + i)),
-                                     __ldg(L.pinv + i));
-          v = fmaxf(__fadd_rn(__fmul_rn(zh, __ldg(L.pg + i)), __ldg(L.pbe + i)),
-                    0.f);
-        }
-      }
-      xs[bb * kLd + kk] = operand(v, L.round);
-    }
-    __syncthreads();
-    if (!ok) continue;
-    for (int c = lane; c < kn; c += 32) {
-      float s = 0.f;
-      for (int bb = 0; bb < L.batch; ++bb)
-        s = fmaf(xs[bb * kLd + c], dzs[warp * L.batch + bb], s);
-      L.dw[(size_t)o * L.cin + k0 + c] = s;
-    }
-  }
-}
-
-template <int RB>
-int launch_layer(const Layer& L, cudaStream_t stream) {
-  const size_t bytes = (size_t)L.batch * kLd * sizeof(float);
-  if (bytes > (size_t)max_smem_optin()) return kErrSmem;
-  cudaError_t e = allow_smem(fc_layer_kernel<RB>, bytes);
-  if (e != cudaSuccess) return (int)e;
-  fc_layer_kernel<RB><<<(L.cols + kWarps - 1) / kWarps, kThreads, bytes,
-                        stream>>>(L);
-  return (int)cudaGetLastError();
-}
-
-template <int RB>
-int launch_bwd(const BnBwd& L, cudaStream_t stream) {
-  const size_t bytes = ((size_t)L.batch * kLd + kWarps * L.batch) *
-                       sizeof(float);
-  if (bytes > (size_t)max_smem_optin()) return kErrSmem;
-  cudaError_t e = allow_smem(fc_bn_bwd_kernel<RB>, bytes);
-  if (e != cudaSuccess) return (int)e;
-  fc_bn_bwd_kernel<RB><<<(L.cols + kWarps - 1) / kWarps, kThreads, bytes,
-                         stream>>>(L);
-  return (int)cudaGetLastError();
-}
-
-// Rows per lane: 1, 2, 4 or 8 (batch <= 256).
-int rows_case(int batch) {
-  const int lanes = (batch + 31) / 32;
-  return lanes <= 1 ? 1 : lanes <= 2 ? 2 : lanes <= 4 ? 4 : 8;
-}
-
-int run(const Layer& L, cudaStream_t stream) {
-  switch (rows_case(L.batch)) {
-    case 1: return launch_layer<1>(L, stream);
-    case 2: return launch_layer<2>(L, stream);
-    case 4: return launch_layer<4>(L, stream);
-    default: return launch_layer<8>(L, stream);
-  }
-}
-
-int run(const BnBwd& L, cudaStream_t stream) {
-  switch (rows_case(L.batch)) {
-    case 1: return launch_bwd<1>(L, stream);
-    case 2: return launch_bwd<2>(L, stream);
-    case 4: return launch_bwd<4>(L, stream);
-    default: return launch_bwd<8>(L, stream);
-  }
-}
-
 bool bad(const FcHeadArgs* a) {
-  return a->batch <= 0 || a->batch > 256 || a->c0 <= 0 || a->c1 <= 0 ||
-         a->c2 <= 0 || a->c3 <= 0 || !a->h || !a->w1 || !a->w2 || !a->g1 ||
-         !a->be1 || !a->g2 || !a->be2 || !a->z1 || !a->z2 || !a->mu1 ||
-         !a->inv1 || !a->mu2 || !a->inv2;
+  return a->batch <= 0 || a->batch > kFcMaxRows || a->c0 <= 0 ||
+         a->c1 <= 0 || a->c2 <= 0 || a->c3 <= 0 || !a->h || !a->w1 ||
+         !a->w2 || !a->g1 || !a->be1 || !a->g2 || !a->be2 || !a->z1 ||
+         !a->z2 || !a->mu1 || !a->inv1 || !a->mu2 || !a->inv2;
+}
+
+// A layer of the head on the split-K product: rows, k, cols, x, and
+// W(col, kk) = w[col * wso + kk * wsk].
+FcLayer layer(int rows, int k, int cols, const float* x, const float* w,
+              long long wso, long long wsk) {
+  FcLayer L = {};
+  L.rows = rows;
+  L.k = k;
+  L.cols = cols;
+  L.groups = 1;
+  fc_split(L);
+  L.pro = kProLoad;
+  L.x = x;
+  L.w = w;
+  L.wso = wso;
+  L.wsk = wsk;
+  return L;
+}
+
+// fc1 / fc2: the product, bias, and the BN forward ((z - mu) * (inv * g)
+// + be).
+FcLayer bn_layer(const FcHeadArgs* a, int k, int cols, const float* x,
+                 const float* w, const float* b, const float* rm,
+                 const float* g, const float* be, float* z, float* h,
+                 float* mu, float* var, float* inv) {
+  FcLayer L = layer(a->batch, k, cols, x, w, k, 1);
+  L.epi = kEpiBnFwd;
+  L.fold = 1;
+  L.bias = b;
+  L.rm = rm;
+  L.g = g;
+  L.be = be;
+  L.z = z;
+  L.h = h;
+  L.mu = mu;
+  L.var = var;
+  L.inv = inv;
+  return L;
+}
+
+// dW = dz^T x as tiles: [m, n] over the batch's rows.
+DwTile dw_tiles(const FcHeadArgs* a, int m, int n, float* dw) {
+  DwTile D = {};
+  D.mtiles = ceil_div(m, kDwTile);
+  D.tiles = D.mtiles * ceil_div(n, kDwTile);
+  D.rows = a->batch;
+  D.m = m;
+  D.n = n;
+  D.bf = a->prec & kRound;
+  D.dw = dw;
+  return D;
 }
 
 }  // namespace
@@ -380,17 +160,20 @@ extern "C" int pt_fc_head_fwd(const pointtpu::FcHeadArgs* a, int device,
   cudaError_t e = use_device(device);
   if (e != cudaSuccess) return (int)e;
   const bool bf = a->prec & kRound;
-  Layer f1{a->batch, a->c0, a->c1, bf, a->h, a->w1, a->c0, 1, a->b1, a->rm1,
-           a->g1, a->be1, a->z1, a->h1, a->mu1, a->var1, a->inv1};
-  Layer f2{a->batch, a->c1, a->c2, bf, a->h1, a->w2, a->c1, 1, a->b2, a->rm2,
-           a->g2, a->be2, a->z2, a->h2, a->mu2, a->var2, a->inv2};
-  Layer f3{a->batch, a->c2, a->c3, bf, a->h2, a->w3, a->c2, 1, a->b3,
-           nullptr, nullptr, nullptr, a->out, nullptr, nullptr, nullptr,
-           nullptr};
+  const FcLayer f1 = bn_layer(a, a->c0, a->c1, a->h, a->w1, a->b1, a->rm1,
+                              a->g1, a->be1, a->z1, a->h1, a->mu1, a->var1,
+                              a->inv1);
+  const FcLayer f2 = bn_layer(a, a->c1, a->c2, a->h1, a->w2, a->b2, a->rm2,
+                              a->g2, a->be2, a->z2, a->h2, a->mu2, a->var2,
+                              a->inv2);
+  FcLayer f3 = layer(a->batch, a->c2, a->c3, a->h2, a->w3, a->c2, 1);
+  f3.epi = kEpiAffine;
+  f3.bias = a->b3;
+  f3.z = a->out;
   int s;
-  if ((s = run(f1, stream))) return s;
-  if ((s = run(f2, stream))) return s;
-  return run(f3, stream);
+  if ((s = run_fc(f1, DwTile{}, bf, stream))) return s;
+  if ((s = run_fc(f2, DwTile{}, bf, stream))) return s;
+  return run_fc(f3, DwTile{}, bf, stream);
 }
 
 // The backward of both BN layers from dh2 (FcHeadArgs' second block):
@@ -404,19 +187,45 @@ extern "C" int pt_fc_head_bwd(const pointtpu::FcHeadArgs* a, int device,
     return kErrArgs;
   cudaError_t e = use_device(device);
   if (e != cudaSuccess) return (int)e;
-  const bool bf = a->prec & kRound;
-  BnBwd b2{a->batch, 0, a->c2, a->c1, bf, a->dh2, nullptr, nullptr, 0, 0,
-           a->z2, a->mu2, a->inv2, a->g2, a->be2, nullptr, a->z1, a->mu1,
-           a->inv1, a->g1, a->be1, a->dz2, a->dg2, a->dbe2, a->db2, a->dw2};
-  BnBwd b1{a->batch, a->c2, a->c1, a->c0, bf, nullptr, a->dz2, a->w2, 1,
-           a->c1, a->z1, a->mu1, a->inv1, a->g1, a->be1, a->h, nullptr,
-           nullptr, nullptr, nullptr, nullptr, a->dz1, a->dg1, a->dbe1,
-           a->db1, a->dw1};
-  Layer dh{a->batch, a->c1, a->c0, false, a->dz1, a->w1, 1, a->c0, nullptr,
-           nullptr, nullptr, nullptr, a->dh, nullptr, nullptr, nullptr,
-           nullptr};
+  // (1) dW2 = dz2^T h1, dz2 by BN2's backward, h1 recomputed.
+  DwTile d2 = dw_tiles(a, a->c2, a->c1, a->dw2);
+  d2.dh = a->dh2;
+  d2.z = a->z2;
+  d2.mu = a->mu2;
+  d2.inv = a->inv2;
+  d2.g = a->g2;
+  d2.be = a->be2;
+  d2.dz = a->dz2;
+  d2.db = a->db2;
+  d2.dg = a->dg2;
+  d2.dbe = a->dbe2;
+  d2.pz = a->z1;
+  d2.pmu = a->mu1;
+  d2.pinv = a->inv1;
+  d2.pg = a->g1;
+  d2.pbe = a->be1;
+  // (2) dh1 = dz2 W2 (W2 [c2, c1]: W(i, o) = w2[o * c1 + i]), BN1's
+  // backward in the owner CTAs.
+  FcLayer b1 = layer(a->batch, a->c2, a->c1, a->dz2, a->w2, 1, a->c1);
+  b1.epi = kEpiBnBwd;
+  b1.zs = a->z1;
+  b1.smu = a->mu1;
+  b1.sinv = a->inv1;
+  b1.g = a->g1;
+  b1.be = a->be1;
+  b1.dz = a->dz1;
+  b1.dg = a->dg1;
+  b1.dbe = a->dbe1;
+  b1.db = a->db1;
+  // (3) dh = dz1 W1, and dW1 = dz1^T h in the tail.
+  FcLayer dh = layer(a->batch, a->c1, a->c0, a->dz1, a->w1, 1, a->c0);
+  dh.epi = kEpiAffine;
+  dh.z = a->dh;
+  DwTile d1 = dw_tiles(a, a->c1, a->c0, a->dw1);
+  d1.a = a->dz1;
+  d1.b = a->h;
   int s;
-  if ((s = run(b2, stream))) return s;
-  if ((s = run(b1, stream))) return s;
-  return run(dh, stream);
+  if ((s = run_fc(FcLayer{}, d2, false, stream))) return s;
+  if ((s = run_fc(b1, DwTile{}, false, stream))) return s;
+  return run_fc(dh, d1, false, stream);
 }

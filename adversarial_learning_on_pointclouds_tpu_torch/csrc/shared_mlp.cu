@@ -80,5 +80,7 @@ extern "C" const char* pt_error_string(int status) {
   if (status == pointtpu::kErrArgs) return "arguments the kernel does not take";
   if (status == pointtpu::kErrSmem)
     return "working set exceeds the shared memory of one block";
+  if (status == pointtpu::kErrCluster)
+    return "no GPC holds a thread-block cluster of this shared memory";
   return cudaGetErrorString((cudaError_t)status);
 }

@@ -5,7 +5,9 @@ Counterpart of ``adversarial_learning_on_pointclouds_tpu/ops/kernels/
 fc_head_train.py::fc_head_train``, which the JAX package's single-stream
 T-Net head runs under ``use_pallas(training=True)`` (here
 ``dispatch.use_pallas_train``). Two CUDA passes in
-``csrc/fc_head_train.cu`` (its header says what bounds them on the card):
+``csrc/fc_head_train.cu``, three launches each of ``csrc/small_fc.cuh``'s
+split-K tensor-core product across thread-block clusters (its header
+says what bounds them on the card):
 
 * ``fc_head_fwd``: the forward, with batch-axis moments centred on the
   running means ``rm1``/``rm2``; it stashes ``z1``/``z2`` and returns the

@@ -2,16 +2,18 @@
 (train).
 
 Counterpart of ``adversarial_learning_on_pointclouds_tpu/ops/kernels/
-pool_fc_epilogue.py``. The forward is one CUDA kernel
-(``csrc/pool_fc_epilogue.cu``, whose header says what bounds it on the
-card); ``pool_fc_fwd_plain`` is the same pass in plain PyTorch, which CPU
-tensors run. The backward is plain PyTorch, as the JAX VJP is plain XLA:
-the batch-BN backward with gradients through the batch statistics, the
-matmul backward and the pool-affine backward. The returned ``mu``/``var``
-are non-differentiable auxiliaries for the running-statistic update.
-Under ``core.mixed_precision`` the fc1 product takes bf16 operands in
-the kernel (``bf16``) and ``dw1`` in the backward; ``dh`` stays fp32, as
-in the JAX VJP.
+pool_fc_epilogue.py``. The forward is one CUDA launch
+(``csrc/pool_fc_epilogue.cu`` on ``csrc/small_fc.cuh``: a split-K
+tensor-core product across thread-block clusters, whose header says what
+bounds it on the card); ``pool_fc_fwd_plain`` is the same pass in plain
+PyTorch, which CPU tensors run. The backward is plain PyTorch, as the JAX
+VJP is plain XLA: the batch-BN backward with gradients through the batch
+statistics, the matmul backward and the pool-affine backward. The
+returned ``mu``/``var`` are non-differentiable auxiliaries for the
+running-statistic update. Under ``core.mixed_precision`` the fc1 product
+takes bf16 operands in the kernel (``bf16``) and ``dw1`` in the
+backward; ``dh`` stays fp32, as in the JAX VJP. ``relu_fc_bn_relu`` runs
+the identity fold (``s3c``, ``t3`` and ``mn`` None: ``h = relu(g)``).
 """
 
 from __future__ import annotations
@@ -29,11 +31,14 @@ from adversarial_learning_on_pointclouds_tpu_torch.ops import launch
 def pool_fc_fwd_plain(mx, mn, s3c, t3, w1, b1, g1, be1, rm1, groups: int,
                       bf16: bool = False):
     """``(h1, h, z1, mu, var, inv)``: ``h = relu(where(s3c >= 0, mx, mn)
-    * s3c + t3)``, ``z1 = h @ w1 + b1`` (bf16 operands under ``bf16``;
-    ``h`` is returned unrounded), moments of ``z1`` per group of ``B //
-    groups`` rows centred on ``rm1``, ``h1 = relu(bn(z1))``."""
-    sel = torch.where(s3c >= 0, mx, mn)
-    h = torch.relu(sel * s3c + t3)
+    * s3c + t3)`` (``relu(mx)`` with ``s3c`` None, the identity fold),
+    ``z1 = h @ w1 + b1`` (bf16 operands under ``bf16``; ``h`` is returned
+    unrounded), moments of ``z1`` per group of ``B // groups`` rows
+    centred on ``rm1``, ``h1 = relu(bn(z1))``."""
+    if s3c is None:
+        h = torch.relu(mx)
+    else:
+        h = torch.relu(torch.where(s3c >= 0, mx, mn) * s3c + t3)
     z1 = torch.matmul(core.operand(h, bf16), core.operand(w1, bf16)) + b1
     bsz, c1 = z1.shape
     b = bsz // groups
@@ -52,7 +57,8 @@ def pool_fc_fwd(mx, mn, s3c, t3, w1, b1, g1, be1, rm1, groups: int,
                 bf16: bool = False):
     """The forward pass: the kernel on a CUDA tensor, the plain version
     on a CPU tensor. ``w1`` is ``[c3, c1]`` (on the card, the view of a
-    row-major ``[c1, c3]`` weight)."""
+    row-major ``[c1, c3]`` weight); ``mn``, ``s3c`` and ``t3`` all None is
+    the identity fold."""
     if launch.on_cpu(mx):
         return pool_fc_fwd_plain(mx, mn, s3c, t3, w1, b1, g1, be1, rm1,
                                  groups, bf16)
@@ -61,8 +67,13 @@ def pool_fc_fwd(mx, mn, s3c, t3, w1, b1, g1, be1, rm1, groups: int,
     dev = mx.device
     if groups < 1 or bsz % groups:
         raise ValueError(f"batch {bsz} does not split into {groups} groups")
-    for name, t, shape in (("mx", mx, (bsz, c3)), ("mn", mn, (bsz, c3)),
-                           ("s3c", s3c, (c3,)), ("t3", t3, (c3,)),
+    fold = (("mn", mn, (bsz, c3)), ("s3c", s3c, (c3,)), ("t3", t3, (c3,)))
+    if any(t is None for _, t, _ in fold):
+        if any(t is not None for _, t, _ in fold):
+            raise ValueError("mn, s3c and t3 are all given or all None (the "
+                             "identity fold)")
+        fold = ()
+    for name, t, shape in (("mx", mx, (bsz, c3)), *fold,
                            ("b1", b1, (c1,)), ("g1", g1, (c1,)),
                            ("be1", be1, (c1,)), ("rm1", rm1, (c1,))):
         launch.expect(name, t, shape, dev)
@@ -119,6 +130,9 @@ class _PoolFc(torch.autograd.Function):
             dh = dh + dh_extra
         # Pool-affine backward.
         dg = dh * (h > 0)
+        if s3c is None:       # the identity fold: mx is relu's input
+            return (None, dg, None, None, None, dw1, dz1.sum(0),
+                    t2.sum((0, 1)), t1.sum((0, 1)), None)
         pos = s3c >= 0
         sel = torch.where(pos, mx, mn)
         dsel = dg * s3c
@@ -131,6 +145,7 @@ class _PoolFc(torch.autograd.Function):
 def pool_fc_epilogue(mx, mn, s3c, t3, w1, b1, g1, be1,
                      rm1: Optional[torch.Tensor] = None, groups: int = 1):
     """``(mx, mn) [B, c3]`` trunk extrema and the BN3 fold ``(s3c, t3)``
+    (``mn``, ``s3c``, ``t3`` None: the identity fold, ``h = relu(mx)``)
     -> pooled feature -> ReLU -> fc1 -> batch-BN (``g1``, ``be1``, moments
     centred on ``rm1``) -> ReLU. Returns ``(h1 [B, c1], h [B, c3], mu1,
     var1_biased)``; ``mu1``/``var1`` are ``[c1]`` (``[groups, c1]`` for
@@ -147,13 +162,12 @@ def pool_fc_epilogue(mx, mn, s3c, t3, w1, b1, g1, be1,
 
 def relu_fc_bn_relu(g, w1, b1, g1, be1, rm1: Optional[torch.Tensor] = None,
                     groups: int = 1):
-    """``relu(bn(relu(g) @ w1 + b1))`` through the same kernel: ``g`` as
-    both extrema with the identity fold (``s3c = 1``, ``t3 = 0``).
-    Returns ``(h1, mu1, var1_biased)``."""
-    c3 = g.shape[-1]
-    ones = torch.ones(c3, device=g.device, dtype=g.dtype)
-    zeros = torch.zeros(c3, device=g.device, dtype=g.dtype)
-    h1, _, mu, var = pool_fc_epilogue(g, g, ones, zeros, w1, b1, g1, be1,
+    """``relu(bn(relu(g) @ w1 + b1))`` through the same kernel in its
+    identity fold (the JAX package's ``g`` as both extrema with ``s3c =
+    1``, ``t3 = 0``: ``h = relu(g)``), which reads ``g`` once and
+    allocates nothing but the outputs. Returns ``(h1, mu1,
+    var1_biased)``."""
+    h1, _, mu, var = pool_fc_epilogue(g, None, None, None, w1, b1, g1, be1,
                                       rm1, groups)
     return h1, mu, var
 

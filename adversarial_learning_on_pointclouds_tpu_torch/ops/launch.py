@@ -111,7 +111,8 @@ BwdArgs = _struct(
     ("zp", "scp", "shp", "mup", "invp", "w", "bias", "zc", "dy", "sc", "mu",
      "inv", "c1", "c2", "coef1", "coef2", "s3dg", "idx", "dlp", "dyp", "t1",
      "t2", "db", "r", "dw", "part", "part_w", "dzs", "hs"))
-# Mirror of the argument struct in csrc/pool_fc_epilogue.cu.
+# Mirror of the argument struct in csrc/pool_fc_epilogue.cu (mn, s3c and
+# t3 null: the identity fold).
 PoolFcArgs = _struct(
     "PoolFcArgs", ("batch", "c3", "c1", "groups", "prec"),
     ("mx", "mn", "s3c", "t3", "w1", "b1", "g1", "be1", "rm1", "h1", "h", "z1",
@@ -153,6 +154,10 @@ TC_TILE = 128      # rows per block (per tile) of the tensor-core trunk
                    # in csrc/train_bwd_tc.cu)
 DISC_TILE = 64     # rows per block of the disc's backward row pass
                    # (kDwRows in csrc/disc_tc.cu)
+# The T-Net fc layers' split-K product (csrc/small_fc.cuh): output columns
+# a cluster owns, CTAs a cluster, the deepest k slice, and the column
+# groups from which a layer runs on fewer CTAs a cluster.
+FC_COLS, FC_CLUSTER, FC_SLICE, FC_WIDE = 16, 8, 128, 128
 # The ``prec`` bits of the argument structs (kRound... in common.cuh):
 # round every matmul operand to bf16, and which tensors are bf16 stashes
 # (RowFwdArgs: x, z; BwdArgs: zp, zc, dy, dyp).
@@ -207,6 +212,20 @@ def row_splits(rows: int, m: int, n: int, device: torch.device,
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     tiles = batch * -(-m // 128) * -(-n // 128)
     return max(1, min(-(-rows // 256), -(-2 * sms // tiles)))
+
+
+def fc_split(k: int, cols: int) -> tuple:
+    """``(cs, kc)``: the CTAs a cluster of the T-Net fc layers' split-K
+    product and the depth of each CTA's slice of ``k`` (``fc_split`` in
+    csrc/small_fc.cuh): ``FC_CLUSTER``, unless the layer has ``FC_WIDE``
+    column groups or more; then the fewest (1, 2, 4, 8) whose slices are
+    at most ``FC_SLICE`` deep. ``kc`` is a multiple of 16."""
+    cs = FC_CLUSTER
+    if -(-cols // FC_COLS) >= FC_WIDE:
+        cs = 1
+        while cs < FC_CLUSTER and -(-k // cs) > FC_SLICE:
+            cs *= 2
+    return cs, (-(-k // cs) + 15) // 16 * 16
 
 
 def weight_ptr(w: torch.Tensor) -> ctypes.c_void_p:

@@ -33,7 +33,9 @@ Phases, one or more lines each:
    profile must show ``stack_tc_kernel`` and ``head_tc_kernel`` and none
    of the CUDA-core kernels they replaced (``GONE_KERNELS``);
 6. train-kernels: every training pass (trunk F1/F2/B1, seg head
-   P1/Pmid/P4/B4/Bmid/B1, the pool-fc epilogue at groups 1 and 2)
+   P1/Pmid/P4/B4/Bmid/B1, the pool-fc epilogue at groups 1 and 2, at B=2
+   and in ``relu_fc_bn_relu``'s identity fold; in fp32 its z1 and var by
+   the float64 control, with a TF32 control on z1 that must fail)
    against its plain pass at B=32 N=2048 (the config-3 step), B=32
    N=2500 (ragged) and B=2 N=2048, on inputs with negative BN3 gammas and
    duplicated points (max ties go to the first point), the seg head's P1
@@ -111,9 +113,10 @@ Phases, one or more lines each:
    with ``paired_trunks`` and without ``pallas_augment``; the bench
    step's profile, with and without ``paired_trunks``, must show
    ``head_p1_tc_kernel``, ``pmid_tc_kernel``, ``head_p4_tc_kernel``,
-   ``head_b1_tc_kernel``, ``f1_tc_kernel`` and ``b4_tc_kernel`` and none
-   of the CUDA-core kernels they replaced (``GONE_KERNELS``, the
-   ``row_fwd_kernel`` among them), as must phase 11's fp32 G+D step's;
+   ``head_b1_tc_kernel``, ``f1_tc_kernel``, ``b4_tc_kernel`` and
+   ``fc_tc_kernel`` (pool-fc) and none of the CUDA-core kernels they
+   replaced (``GONE_KERNELS``, the ``row_fwd_kernel`` and
+   ``pool_fc_kernel`` among them), as must phase 11's fp32 G+D step's;
 15. pallas-train-kernels: the per-layer training kernels that
    ``dispatch.use_pallas_train`` (the JAX package's
    ``use_pallas(training=True)``) reaches, each pass against its plain
@@ -128,8 +131,10 @@ Phases, one or more lines each:
    with TF32 on at K=1024 must fail that control (the flag restored
    after); ``maxpool_points`` on duplicated points (bit-equal, one winner
    per channel, the first), ``fc_head_train`` at k=3 and 64 in fp32 and
-   bf16; then each autograd function against its whole-function
-   reference;
+   bf16 (at B=32 in fp32 its forward's z1, z2, var1, var2 and its
+   backward's dh, dw1, dw2 by the float64 control, with TF32 controls on
+   z1 and dh that must fail); then each autograd function against its
+   whole-function reference;
 16. pallas-train-slice: the config-3 ``train_step`` under the switch at
    B=32 N=2048 (the fused trunks and seg head, the four kernels on conv1,
    the transforms and the fc heads) and N=2500 (every layer through
@@ -194,12 +199,15 @@ prints no result line.
 timing of phase 11, 14 or 17 (the bench step under the switch), on the
 port package under ``DIR`` (``time_alone``), for A/B runs of two trees on
 one card; ``--time passes`` times the seg head's P1, Pmid, P4, B1 and
-B4 and trunk F1 (groups 1 and 2) alone, fp32 and bf16; ``--time serve`` the
+B4, trunk F1 (groups 1 and 2), the pool-fc epilogue (groups 1 and 2) and
+``fc_head_train``'s forward and backward alone, fp32 and bf16; ``--time
+serve`` the
 serving kernels (B=32 N=2500: the three stacks of a forward and the seg
 head, events and device time), the segmenter's forward and
 ``Predictor.predict``. They check nothing and print no result line.
 """
 
+import contextlib
 import copy
 import dataclasses
 import io
@@ -329,7 +337,12 @@ TC_PASSES = (("trunk2_train", "F1"), ("trunk2_train", "F2"),
              ("trunk2_train", "B1"), ("seg_head_train", "P1"),
              ("seg_head_train", "Pmid"), ("seg_head_train", "P4"),
              ("seg_head_train", "B4"), ("seg_head_train", "Bmid"),
-             ("seg_head_train", "B1"))
+             ("seg_head_train", "B1"), ("pool_fc_epilogue", "fwd"))
+# The T-Net fc layers' kernels on csrc/small_fc.cuh's split-K tensor-core
+# product across thread-block clusters (pool-fc is among TC_PASSES; the
+# fc head is a per-layer kernel of use_pallas_train): fp32 as 3xTF32.
+FC_SOURCE = "small_fc.cuh"
+FC_TC = ("fc_head_train",)
 # The discriminator's passes, all on the tensor cores (csrc/disc_tc.cu:
 # the forward kernel; the backward's row pass, and for dW the GEMM core),
 # bound as TC_PASSES.
@@ -1336,19 +1349,39 @@ def train_kernel_checks(dev, gen, rec, bf16=False):
                 (sh.p4_plain(*a),), False, a, phase_tag=ptag)
     torch.cuda.synchronize()
 
-    # The pool-fc epilogue at the T-Net head's shapes: groups 1 (one
-    # stream of 32) and 2 (two streams of 32 stacked).
+    # The pool-fc epilogue (csrc/small_fc.cuh's split-K product across
+    # clusters) at the T-Net head's shapes: groups 1 (one stream of 32),
+    # 2 (two streams of 32 stacked), two rows in a BN (B=2: the moments
+    # centred on the batch means, which running means track; about a far
+    # centre two rows' one-pass variance cancels to a few bits in any
+    # order of sums), and relu_fc_bn_relu's identity fold (mn, s3c, t3
+    # None: h = relu(mx)). In fp32 z1 and var also by the float64
+    # control, and at B=32 the TF32 control on z1.
     wf = _w(gen, 1024, 512, dev)
-    for bsz, groups in ((B, 1), (2 * B, 2)):
+    for bsz, groups, ident in ((B, 1, False), (2 * B, 2, False),
+                               (2, 1, False), (2 * B, 2, True)):
         mx = torch.randn(bsz, 1024, generator=gen).to(dev)
-        a = (mx, mx - torch.rand(bsz, 1024, generator=gen).to(dev),
-             _r(gen, 1024, scale=1.0, dev=dev), _r(gen, 1024, dev=dev), wf,
-             _r(gen, 512, dev=dev), _gam(gen, 512, dev), _r(gen, 512, dev=dev),
-             _r(gen, 512, dev=dev), groups, *xb)
+        fold = (None,) * 3 if ident else (
+            mx - torch.rand(bsz, 1024, generator=gen).to(dev),
+            _r(gen, 1024, scale=1.0, dev=dev), _r(gen, 1024, dev=dev))
+        a = [mx, *fold, wf, _r(gen, 512, dev=dev), _gam(gen, 512, dev),
+             _r(gen, 512, dev=dev), _r(gen, 512, dev=dev), groups, *xb]
+        if bsz == 2:
+            a[8] = pf.pool_fc_fwd_plain(*a)[3][0]
+        main = (bsz, groups, ident) == (B, 1, False)
+        tag = f"B={bsz} groups={groups}{' identity' if ident else ''}"
         with torch.no_grad():
-            rec.cmp("pool_fc_epilogue", "fwd", f"B={bsz} groups={groups}",
-                    ("h1", "h", "z1", "mu", "var", "inv"), pf.pool_fc_fwd(*a),
-                    pf.pool_fc_fwd_plain(*a), groups == 1, a, phase_tag=ptag)
+            got, ref = pf.pool_fc_fwd(*a), pf.pool_fc_fwd_plain(*a)
+            rec.cmp("pool_fc_epilogue", "fwd", tag,
+                    ("h1", "h", "z1", "mu", "var", "inv"), got, ref, main, a,
+                    phase_tag=ptag)
+            if not bf16 and bsz > 2:
+                ref64 = pf.pool_fc_fwd_plain(*f64(a))
+                tc_f64(rec, "pool_fc_epilogue", "fwd", tag,
+                       (got[2], got[4]), (ref[2], ref[4]),
+                       (ref64[2], ref64[4]), ("z1", "var"), ptag,
+                       (lambda: pf.pool_fc_fwd_plain(*a)[2]) if main
+                       else None)
     if bf16:   # the bf16 functions are held to the CPU by the bench step
         torch.cuda.synchronize()
         return
@@ -1528,6 +1561,7 @@ def train_timing(card, rec, cuda_run, launches, results):
     from adversarial_learning_on_pointclouds_tpu_torch.configs import (
         SegmentConfig,
     )
+    from adversarial_learning_on_pointclouds_tpu_torch.ops import build
     from adversarial_learning_on_pointclouds_tpu_torch.train import segment
 
     counters = pass_counters()
@@ -1568,14 +1602,22 @@ def train_timing(card, rec, cuda_run, launches, results):
             "device_ms": dev_ms, "plain_device_ms": plain_dev_ms,
             "tflops": tflops}
         if tc:
+            tc_src = (FC_SOURCE if kernel == "pool_fc_epilogue"
+                      else "train_bwd_tc.cu")
             row.update(bound_fma_ms=fma_ms,
-                       source=f"{KERNELS_ROOT}/csrc/train_bwd_tc.cu")
+                       source=f"{KERNELS_ROOT}/csrc/{tc_src}")
+        if kernel == "pool_fc_epilogue":
+            row["f64_ratio"] = rec.f64.get((kernel, pas))
         rows.setdefault(kernel, []).append(row)
     for kernel, passes in rows.items():
         src, sites = TRAIN_KERNELS[kernel]
         results.append(kernel_entry(
             kernel, src, sites[next(iter(sites))],
             sum(launches[kernel].values()), passes, "per config-3 step"))
+        if kernel == "pool_fc_epilogue":
+            results[-1]["sources"] = [results[-1]["source"],
+                                      f"{KERNELS_ROOT}/csrc/{FC_SOURCE}"]
+            results[-1]["ptxas"] = ptxas_report(build, src)
 
     state, _, _, x, y, tx = cuda_run
     cfg = SegmentConfig()
@@ -2826,10 +2868,11 @@ def bench_timing(card, rec, results, bench):
 # path's stack and seg head kernels, which no profile may show.
 TC_HEAD_KERNELS = ("head_p1_tc_kernel<", "pmid_tc_kernel<",
                    "head_p4_tc_kernel<", "head_b1_tc_kernel<",
-                   "f1_tc_kernel<", "b4_tc_kernel<")
+                   "f1_tc_kernel<", "b4_tc_kernel<", "fc_tc_kernel<")
 GONE_KERNELS = ("row_bwd_kernel<128", "wgrad_kernel<2", "row_bwd_kernel<64",
                 "wgrad_kernel<4", "row_fwd_kernel", "stack_maxpool_kernel",
-                "seg_head_kernel")
+                "seg_head_kernel", "pool_fc_kernel<", "fc_layer_kernel<",
+                "fc_bn_bwd_kernel<")
 # The serving kernels on the tensor cores (csrc/encoder_fused.cu), which
 # the forward's profile must show in place of the CUDA-core
 # stack_maxpool_kernel and seg_head_kernel (GONE_KERNELS).
@@ -3020,14 +3063,28 @@ def pt_kernel_checks(dev, gen, rec, rec_bf):
                     args[11], args[12] = ref[3], ref[6]
                 for bf16, r in ((False, rec), (True, rec_bf)):
                     t = f"B={bsz} k={k}{' bf16' if bf16 else ''}"
+                    # In fp32 at B=32 the float64 controls: the forward's
+                    # z1, z2, var1 and var2, the backward's dh, dw1 and
+                    # dw2; at k=64 the TF32 controls on z1 and dh.
+                    f64_checks = not bf16 and bsz == B
+                    control = f64_checks and k == 64
                     a = (*args, bf16)
                     got = fh.fc_head_fwd(*a)
                     r.cmp("fc_head_train", "fwd", t, ("out", "z1", "z2",
                           "mu1", "var1", "inv1", "mu2", "var2", "inv2"),
                           got, fc_head_layers(got, args, bf16), False, a,
                           phase_tag=tag, bound=BOUND)
-                    _, z1, z2, mu1, _, inv1, mu2, _, inv2 = \
-                        fh.fc_head_fwd_plain(*a)
+                    ref = fh.fc_head_fwd_plain(*a)
+                    if f64_checks:
+                        ref64 = fh.fc_head_fwd_plain(*f64(a))
+                        pick = (1, 2, 4, 7)
+                        tc_f64(rec, "fc_head_train", "fwd", t,
+                               [got[i] for i in pick], [ref[i] for i in pick],
+                               [ref64[i] for i in pick],
+                               ("z1", "z2", "var1", "var2"), tag,
+                               (lambda: fh.fc_head_fwd_plain(*a)[1])
+                               if control else None)
+                    _, z1, z2, mu1, _, inv1, mu2, _, inv2 = ref
                     dh2 = _r(gen, bsz, 256, scale=1.0, dev=dev)
                     a = (dh2, args[0], z1, z2, args[1], args[5], args[3],
                          args[4], args[7], args[8], mu1, inv1, mu2, inv2,
@@ -3050,6 +3107,15 @@ def pt_kernel_checks(dev, gen, rec, rec_bf):
                           [names[i] for i in keep], [got[i] for i in keep],
                           [ref[i] for i in keep], False, a, scales, tag,
                           BOUND)
+                    if f64_checks:
+                        ref64 = fh.fc_head_bwd_plain(*f64(a))
+                        pick = (0, 1, 5)
+                        tc_f64(rec, "fc_head_train", "bwd", t,
+                               [got[i] for i in pick], [ref[i] for i in pick],
+                               [ref64[i] for i in pick],
+                               ("dh", "dw1", "dw2"), tag,
+                               (lambda: fh.fc_head_bwd_plain(*a)[0])
+                               if control else None)
                     if bf16:
                         for i in (1, 5):
                             d = check_rounded(f"fc_head_train bwd {names[i]} "
@@ -3173,7 +3239,7 @@ def time_calls(card, key, fn, plain, calls, err, bf16=False,
             lib_dev_ms = sum(device_profile(
                 lambda: [lib(*a) for a in calls]).values())
     flops, nbytes = work(plain, calls)
-    tf32x3 = key[0] in GEMM_KERNELS and not bf16
+    tf32x3 = key[0] in GEMM_KERNELS + FC_TC and not bf16
     rate = (BF16_PEAK, "bf16 tensor-core") if bf16 else (
         TF32X3_PEAK, "3xTF32 tensor-core") if tf32x3 else (FP32_PEAK,
                                                            "fp32 FMA")
@@ -3279,8 +3345,9 @@ def pt_timing(card, rec, rec_bf, results, seg, bench):
                             fn.__name__ + "_plain")
             row = time_calls(card, (kernel, pas), fn, plain,
                              calls[(kernel, pas)], rec.err[(kernel, pas)])
-            if kernel in GEMM_KERNELS:
+            if kernel in GEMM_KERNELS + FC_TC:
                 row["f64_ratio"] = rec.f64[(kernel, pas)]
+            if kernel in GEMM_KERNELS:
                 row["largest"] = largest_calls(card, (kernel, pas), fn,
                                                plain, calls[(kernel, pas)])
             if bcalls[(kernel, pas)]:       # the bench step: bf16 operands
@@ -3310,6 +3377,11 @@ def pt_timing(card, rec, rec_bf, results, seg, bench):
                                 f"{KERNELS_ROOT}/csrc/strided_gemm.cu"]
             entry["ptxas"] = {**ptxas_report(build, src), **ptxas_report(
                 build, "strided_gemm.cu")}
+            entry["bound_fma_ms"] = sum(p["bound_fma_ms"] for p in passes)
+        if kernel in FC_TC:
+            entry["sources"] = [entry["source"],
+                                f"{KERNELS_ROOT}/csrc/{FC_SOURCE}"]
+            entry["ptxas"] = ptxas_report(build, src)
             entry["bound_fma_ms"] = sum(p["bound_fma_ms"] for p in passes)
         if all("bench_ms" in p for p in passes):
             for k in ("ms", "plain_ms", "bound_ms", "device_ms",
@@ -3811,17 +3883,34 @@ def kernel_entry(name, src, site, launches, passes, times):
             "times": times, "passes": passes}
 
 
+def pool_fc_path(g, w1, b1, g1, be1, rm1, groups, bf16):
+    """The pool-fc epilogue as the T-Net heads call it (``relu_fc_bn_relu``,
+    its wrapper's allocations included), forward only."""
+    from adversarial_learning_on_pointclouds_tpu_torch.models import core
+    from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
+        pool_fc_epilogue as pf,
+    )
+
+    with core.mixed_precision() if bf16 else contextlib.nullcontext():
+        return pf.relu_fc_bn_relu(g, w1, b1, g1, be1, rm1, groups)
+
+
 def head_passes(card):
     """``--time passes``: the seg head's P1 (64 -> 512, one launch), Pmid
     (512 -> 256 and 256 -> 128, a config-3 step's two launches), P4 (128
     -> 50, one launch), B1 (512 -> 64, one launch) and B4 (128 -> 50, one
     launch), and trunk F1 (64 -> 128, a config-3 step's
     three launches; and at groups=2 on 2B=64, the paired trunks' three) at
-    B=32 N=2048 on seeded data, fp32 and bf16: median ms of ``REPS`` calls
-    (CUDA events), device ms (profiler), TFLOP/s and GB/s of each (the
-    bytes of its inputs and outputs, each once)."""
+    B=32 N=2048 on seeded data; the pool-fc epilogue (1024 -> 512 through
+    ``relu_fc_bn_relu``, the two T-Net heads' launches of a config-3 step
+    at B=32, and at groups=2 on 2B=64 those of a bench step) and the fc
+    head's forward and backward (``fc_head_fwd`` / ``fc_head_bwd`` at
+    k=3 and 64, a config-3 step's launches under the switch) at B=32; fp32
+    and bf16 (the fc head's backward: dW in bf16): median ms of ``REPS``
+    calls (CUDA events), device ms (profiler), TFLOP/s and GB/s of each
+    (the bytes of its inputs and outputs, each once)."""
     from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
-        seg_head_train as sh, trunk_train as tt,
+        fc_head_train as fh, seg_head_train as sh, trunk_train as tt,
     )
 
     dev, gen, m = torch.device("cuda", 0), torch.Generator().manual_seed(
@@ -3856,6 +3945,22 @@ def head_passes(card):
                                  dev=dev)),
                    _w(gen, 64, 128, dev), _r(gen, 128, dev=dev), g, bf16)
                   for _ in range(3)] for g in (1, 2)}
+        # The T-Net heads: STN3d's and STNkd's pooled rows and fc layers.
+        pool = {g: [(torch.relu(_r(gen, g * B, 1024, scale=1.0, dev=dev)),
+                     _w(gen, 1024, 512, dev), _r(gen, 512, dev=dev),
+                     _gam(gen, 512, dev), _r(gen, 512, dev=dev),
+                     _r(gen, 512, dev=dev), g, bf16) for _ in range(2)]
+                for g in (1, 2)}
+        fwd, bwd = [], []
+        for k in (3, 64):
+            a = fc_head_args(gen, B, k, dev)
+            fwd.append((*a, bf16))
+            _, z1, z2, mu1, _, inv1, mu2, _, inv2 = fh.fc_head_fwd_plain(
+                *a, bf16)
+            bwd.append((_r(gen, B, 256, scale=1.0, dev=dev), a[0], z1, z2,
+                        a[1], a[5], a[3], a[4], a[7], a[8], mu1, inv1, mu2,
+                        inv2, bf16))
+        fc = 2 * B * (1024 * 512 + 512 * 256)
         for name, fn, calls, flops in (
                 ("P1", sh.p1, p1, 2 * m * 64 * 512),
                 ("Pmid", sh.pmid, pmid, 2 * m * (512 * 256 + 256 * 128)),
@@ -3863,7 +3968,13 @@ def head_passes(card):
                 ("B1", sh.b1, b1, 2 * 2 * m * 512 * 64),
                 ("B4", sh.b4, b4, 3 * 2 * m * 128 * PARTS),
                 ("F1", tt.f1, f1[1], 3 * 2 * m * 64 * 128),
-                ("F1 groups=2", tt.f1, f1[2], 3 * 2 * 2 * m * 64 * 128)):
+                ("F1 groups=2", tt.f1, f1[2], 3 * 2 * 2 * m * 64 * 128),
+                ("pool-fc", pool_fc_path, pool[1], 2 * 2 * B * 1024 * 512),
+                ("pool-fc groups=2", pool_fc_path, pool[2],
+                 2 * 2 * 2 * B * 1024 * 512),
+                ("fc_head fwd", fh.fc_head_fwd, fwd,
+                 2 * fc + 2 * B * 256 * (9 + 4096)),
+                ("fc_head bwd", fh.fc_head_bwd, bwd, 2 * 2 * fc)):
             def run():
                 return [fn(*a) for a in calls]
 
@@ -3877,8 +3988,11 @@ def head_passes(card):
             out[key] = {"ms": ms, "device_ms": dev_ms,
                         "tflops": flops / ms / 1e9,
                         "gbps": nbytes / dev_ms / 1e6}
-            phase("time", f"{card}: {key} x{len(calls)} at B={B} "
-                  f"N={TRAIN_N}: {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+            x0 = calls[0][0]
+            at = f"B={x0.shape[0]}" + (f" N={x0.shape[1]}" if x0.dim() > 2
+                                       else "")
+            phase("time", f"{card}: {key} x{len(calls)} at {at}: "
+                  f"{ms:.4f} ms ({flops / ms / 1e9:.1f} "
                   f"TFLOP/s), device {dev_ms:.4f} ms "
                   f"({nbytes / dev_ms / 1e6:.1f} GB/s)")
     return out
@@ -3965,8 +4079,8 @@ def time_alone(mode: str, root: str, card: str) -> None:
     ``bench`` as phase 14 (``train_steps_scan`` at K=8 of the bench
     configuration), ``pallas_train`` the same under ``use_pallas_train``
     (``bench.py --pallas_train``; a tree without the switch fails);
-    ``passes`` the seg head's P1, Pmid, P4, B1 and B4 and trunk F1 alone
-    (``head_passes``), ``serve`` the serving kernels, forward and
+    ``passes`` the seg head's P1, Pmid, P4, B1 and B4, trunk F1 and the
+    T-Net fc layers alone (``head_passes``), ``serve`` the serving kernels, forward and
     ``Predictor.predict`` (``serve_times``). Prints
     one JSON line, and no result line. To compare two trees, alternate
     them within one call (A B B A): the host's share of a step moves
@@ -4015,8 +4129,8 @@ def main() -> None:
     ap.add_argument("--time", choices=("fp32", "bench", "pallas_train",
                                        "passes", "serve"),
                     help="time the G+D step, the seg head's P1, Pmid, "
-                         "P4, B1 and B4 and trunk F1, or serving, alone (no "
-                         "checks, no result line)")
+                         "P4, B1 and B4, trunk F1 and the T-Net fc layers, "
+                         "or serving, alone (no checks, no result line)")
     ap.add_argument("--disc-checks", type=int, metavar="SEED",
                     help="run only the discriminator's checks of phases 9 "
                          "and 12 on data from this generator seed (no "
@@ -4054,7 +4168,8 @@ def main() -> None:
               getattr(build, "compile_seconds", {}).items(),
               key=lambda kv: -kv[1])))
     for src in ("strided_gemm.cu", "pointwise_matmul.cu", "tnet_apply.cu",
-                "train_bwd_tc.cu", "disc_tc.cu", "encoder_fused.cu"):
+                "train_bwd_tc.cu", "disc_tc.cu", "encoder_fused.cu",
+                "pool_fc_epilogue.cu", "fc_head_train.cu"):
         for label, (regs, st, ld) in ptxas_report(build, src).items():
             phase("build", f"ptxas: {src} {label}: {regs} registers, spill "
                   f"stores {st} bytes, spill loads {ld} bytes")

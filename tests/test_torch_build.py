@@ -174,3 +174,39 @@ def test_no_source_defines_the_cuda_core_row_kernel():
     entry = srcs["seg_head_train.cu"]
     for launcher in ("head_p1_tc(*a, stream)", "head_p4_tc(*a, stream)"):
         assert launcher in entry, launcher
+
+
+# The T-Net fc layers' split-K product across clusters (small_fc.cuh), as
+# pool_fc_epilogue.cu and fc_head_train.cu instantiate it: by precision
+# and W's layout (K-major, or N-major for the backward's cotangents);
+# their anonymous namespace carries the source's name.
+FC_TC = ("_ZN8pointtpu52_GLOBAL__N__cfc19620_19_pool_fc_epilogue_cu_f51175f0"
+         "12fc_tc_kernelILb1ELb1EEEvNS0_7FcLayerENS0_6DwTileE")
+FC_TC_NMAJ = ("_ZN8pointtpu49_GLOBAL__N__180701d2_16_fc_head_train_cu_a023436a"
+              "12fc_tc_kernelILb0ELb0EEEvNS0_7FcLayerENS0_6DwTileE")
+
+
+def test_ptxas_report_names_the_fc_cluster_kernels():
+    fake = types.SimpleNamespace(resource_usage={
+        "pool_fc_epilogue.cu": {FC_TC: (61, 0, 0)},
+        "fc_head_train.cu": {FC_TC_NMAJ: (58, 0, 0)}})
+    assert ptxas_report(fake, "pool_fc_epilogue.cu") == {
+        "fc_tc_kernel<1,1>": (61, 0, 0)}
+    assert ptxas_report(fake, "fc_head_train.cu") == {
+        "fc_tc_kernel<0,0>": (58, 0, 0)}
+
+
+def test_no_source_defines_the_cuda_core_fc_kernels():
+    """The column-parallel CUDA-core fc layers are gone: pool-fc and the
+    fc head launch small_fc.cuh's cluster kernel, and no source names the
+    kernels or the routine they shared."""
+    srcs = {p.name: p.read_text() for p in sorted(build.CSRC.iterdir())
+            if p.suffix in (".cu", ".cuh")}
+    gone = ("pool_fc_kernel", "fc_layer_kernel", "fc_bn_bwd_kernel",
+            "layer_product")
+    assert not [(n, g) for n, text in srcs.items() for g in gone if g in text]
+    assert "fc_tc_kernel(const FcLayer" in srcs["small_fc.cuh"]
+    assert "cluster.map_shared_rank" in srcs["small_fc.cuh"]
+    for src in ("pool_fc_epilogue.cu", "fc_head_train.cu"):
+        assert '#include "small_fc.cuh"' in srcs[src], src
+        assert "run_fc(" in srcs[src], src
