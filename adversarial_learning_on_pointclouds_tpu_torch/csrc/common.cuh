@@ -67,11 +67,6 @@ __device__ __forceinline__ float load_val(const void* p, bool bf, size_t i) {
             : __ldg(static_cast<const float*>(p) + i);
 }
 
-// Rounds count shared-memory operands to bf16 in place (no barrier).
-__device__ __forceinline__ void round_smem(float* s, int count) {
-  for (int e = threadIdx.x; e < count; e += kThreads) s[e] = operand(s[e], true);
-}
-
 __device__ __forceinline__ float apply_act(float z, int act) {
   if (act == kActRelu) return fmaxf(z, 0.f);
   if (act == kActLeaky) return z >= 0.f ? z : 0.2f * z;

@@ -7,7 +7,9 @@ JAX's: tests hold these functions to their invariants, and the step
 tests feed both packages the same augmented batch). The chain order is
 the JAX package's: normalize -> resample -> rotate -> jitter -> dropout;
 under ``cfg.pallas_augment`` the last three are one ``augment_fused``
-pass keyed by Philox of the device step count instead of the generator.
+pass keyed by Philox of the device step count instead of the generator,
+and ``chain_pair_from_cfg`` makes that one launch for both streams of a
+step.
 """
 
 from __future__ import annotations
@@ -112,6 +114,21 @@ def augment_batch(gen: torch.Generator, points: torch.Tensor,
     return points if labels is None else (points, labels)
 
 
+def _fused_path(cfg) -> bool:
+    return cfg.pallas_augment and (cfg.augment or cfg.point_dropout)
+
+
+def _prepare(gen: torch.Generator, cfg, points: torch.Tensor,
+             labels: torch.Tensor | None):
+    """Normalize and resample as the fused path's chain does them, the
+    rest left to ``augment_fused``: ``(points, labels)``."""
+    resample = cfg.resample and points.shape[1] != cfg.num_points
+    out = augment_batch(gen, points, labels, num_points=cfg.num_points,
+                        normalize=cfg.normalize, resample=resample,
+                        rotate=False, do_jitter=False)
+    return out if labels is not None else (out, None)
+
+
 def chain_from_cfg(gen: torch.Generator, cfg, points: torch.Tensor,
                    labels: torch.Tensor | None = None,
                    step: torch.Tensor | None = None, stream: int = 0):
@@ -125,20 +142,40 @@ def chain_from_cfg(gen: torch.Generator, cfg, points: torch.Tensor,
     ``stream`` at the int64 device step count ``step``, keyed by
     ``cfg.seed``, as the JAX package's branch does; normalize and
     resample stay plain."""
-    resample = cfg.resample and points.shape[1] != cfg.num_points
-    if cfg.pallas_augment and (cfg.augment or cfg.point_dropout):
+    if _fused_path(cfg):
         if step is None:
             raise ValueError("cfg.pallas_augment needs the device step")
-        out = augment_batch(gen, points, labels, num_points=cfg.num_points,
-                            normalize=cfg.normalize, resample=resample,
-                            rotate=False, do_jitter=False)
-        points, labels = out if labels is not None else (out, None)
+        points, labels = _prepare(gen, cfg, points, labels)
         points = augment_fused.augment_fused(
             step, points.contiguous(), cfg.seed, stream, rotate=cfg.augment,
             jitter=cfg.augment, dropout=cfg.point_dropout)
         return points if labels is None else (points, labels)
+    resample = cfg.resample and points.shape[1] != cfg.num_points
     return augment_batch(
         gen, points, labels, num_points=cfg.num_points,
         normalize=cfg.normalize, resample=resample,
         rotate=cfg.augment, do_jitter=cfg.augment,
         dropout=cfg.point_dropout)
+
+
+def chain_pair_from_cfg(gen: torch.Generator, cfg, a, b,
+                        step: torch.Tensor | None = None):
+    """``chain_from_cfg`` of a step's two streams, ``a`` (stream 0) and
+    ``b`` (stream 1), each ``(points, labels or None)``: each stream's
+    result as ``chain_from_cfg(gen, cfg, *a, step, 0)`` and then ``(...,
+    *b, step, 1)`` return it. On the fused path (``cfg.pallas_augment``)
+    normalize and resample run for ``a``, then ``b``, drawing from ``gen``
+    in that order, and both streams' rotate, jitter and dropout are one
+    ``augment_fused_pair`` launch, each stream bit for bit what its own
+    ``augment_fused`` pass gives."""
+    if not _fused_path(cfg):
+        return tuple(chain_from_cfg(gen, cfg, *pl, step, s)
+                     for s, pl in enumerate((a, b)))
+    if step is None:
+        raise ValueError("cfg.pallas_augment needs the device step")
+    (pa, la), (pb, lb) = (_prepare(gen, cfg, *pl) for pl in (a, b))
+    pa, pb = augment_fused.augment_fused_pair(
+        step, pa.contiguous(), pb.contiguous(), cfg.seed, rotate=cfg.augment,
+        jitter=cfg.augment, dropout=cfg.point_dropout)
+    return tuple(p if lab is None else (p, lab)
+                 for p, lab in ((pa, la), (pb, lb)))

@@ -36,6 +36,12 @@ CPU the twin draws them too: the CPU and the card augment alike.
 ``augment_fused_plain`` also takes the bits themselves (``bits``), which
 is how a test feeds it the all-zero bits of the JAX package's interpret
 mode.
+
+``augment_fused_pair`` augments two streams (a step's labeled batch as
+stream 0 and its unlabeled batch as stream 1) in one launch of the same
+kernel, each stream's output bit for bit what ``augment_fused`` gives it;
+its plain twin is the two single-stream plain passes. ``augment_fused.launches`` counts the
+kernel's launches from either entry.
 """
 
 from __future__ import annotations
@@ -144,6 +150,25 @@ def augment_fused_plain(step: torch.Tensor, points: torch.Tensor,
     return pts
 
 
+def _flags(rotate: bool, jitter: bool, dropout: bool) -> int:
+    return ((ROTATE if rotate else 0) | (JITTER if jitter else 0)
+            | (DROPOUT if dropout else 0))
+
+
+def _check(name: str, points: torch.Tensor, step: torch.Tensor,
+           dev: torch.device) -> Tuple[int, int]:
+    """``(batch, n)`` of ``points [B, N, 3]`` (fp32, contiguous, on
+    ``dev``) after the checks the kernel needs, ``step`` with them."""
+    bsz, n, _ = points.shape
+    launch.expect(name, points, (bsz, n, 3), dev)
+    launch.expect("step", step, step.shape, dev, dtype=torch.int64)
+    if step.numel() != 1:
+        raise ValueError(f"step has {step.numel()} elements, expected 1")
+    if bsz > 65535:
+        raise ValueError(f"batch {bsz} above the kernel's 65535")
+    return bsz, n
+
+
 def augment_fused(step: torch.Tensor, points: torch.Tensor, seed: int,
                   stream: int = 0, rotate: bool = True, jitter: bool = True,
                   dropout: bool = False, sigma: float = 0.01,
@@ -158,22 +183,60 @@ def augment_fused(step: torch.Tensor, points: torch.Tensor, seed: int,
         return augment_fused_plain(step, points, seed, stream, rotate,
                                    jitter, dropout, sigma, clip,
                                    max_dropout_ratio)
-    bsz, n, _ = points.shape
     dev = points.device
-    launch.expect("points", points, (bsz, n, 3), dev)
-    launch.expect("step", step, step.shape, dev, dtype=torch.int64)
-    if step.numel() != 1:
-        raise ValueError(f"step has {step.numel()} elements, expected 1")
-    if bsz > 65535:
-        raise ValueError(f"batch {bsz} above the kernel's 65535")
+    bsz, n = _check("points", points, step, dev)
     out = torch.empty_like(points)
-    flags = ((ROTATE if rotate else 0) | (JITTER if jitter else 0)
-             | (DROPOUT if dropout else 0))
     launch.call("pt_augment_fused", dev, launch.ptr(points), launch.ptr(out),
                 launch.ptr(step), seed & MASK32, stream & MASK32, bsz, n,
-                flags, sigma, clip, max_dropout_ratio)
+                _flags(rotate, jitter, dropout), sigma, clip,
+                max_dropout_ratio)
     augment_fused.launches += 1
     return out
 
 
 augment_fused.launches = 0
+
+
+def augment_fused_pair_plain(step: torch.Tensor, points_a: torch.Tensor,
+                             points_b: torch.Tensor, seed: int,
+                             rotate: bool = True, jitter: bool = True,
+                             dropout: bool = False, sigma: float = 0.01,
+                             clip: float = 0.05,
+                             max_dropout_ratio: float = 0.875
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The pair's pass in plain PyTorch: the two single-stream plain
+    passes, streams 0 and 1."""
+    return tuple(augment_fused_plain(step, pts, seed, stream, rotate, jitter,
+                                     dropout, sigma, clip, max_dropout_ratio)
+                 for stream, pts in enumerate((points_a, points_b)))
+
+
+def augment_fused_pair(step: torch.Tensor, points_a: torch.Tensor,
+                       points_b: torch.Tensor, seed: int,
+                       rotate: bool = True, jitter: bool = True,
+                       dropout: bool = False, sigma: float = 0.01,
+                       clip: float = 0.05, max_dropout_ratio: float = 0.875
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(augment_fused(step, points_a, seed, 0, ...),
+    augment_fused(step, points_b, seed, 1, ...))`` in one launch:
+    ``points_a [B_a, N_a, 3]`` and ``points_b [B_b, N_b, 3]`` (fp32, one
+    device; the shapes may differ). The kernel on CUDA tensors, the plain
+    version on CPU tensors."""
+    if launch.on_cpu(points_a) != launch.on_cpu(points_b):
+        raise ValueError(f"points_a is on {points_a.device}, points_b on "
+                         f"{points_b.device}")
+    if launch.on_cpu(points_a):
+        return augment_fused_pair_plain(step, points_a, points_b, seed,
+                                        rotate, jitter, dropout, sigma, clip,
+                                        max_dropout_ratio)
+    dev = points_a.device
+    bsz_a, n_a = _check("points_a", points_a, step, dev)
+    bsz_b, n_b = _check("points_b", points_b, step, dev)
+    out_a, out_b = torch.empty_like(points_a), torch.empty_like(points_b)
+    launch.call("pt_augment_fused_pair", dev, launch.ptr(points_a),
+                launch.ptr(points_b), launch.ptr(out_a), launch.ptr(out_b),
+                launch.ptr(step), seed & MASK32, bsz_a, n_a, bsz_b, n_b,
+                _flags(rotate, jitter, dropout), sigma, clip,
+                max_dropout_ratio)
+    augment_fused.launches += 1
+    return out_a, out_b

@@ -21,10 +21,11 @@ Both nets take Adam (G's optimizer and schedule from the config, D
 always Adam). On a CUDA device the generator's training kernels and the
 discriminator kernels run; on the CPU their plain versions.
 ``cfg.bf16`` runs both updates under ``core.mixed_precision``,
-``cfg.pallas_augment`` augments with ``augment_fused`` keyed by the
-device step count, ``cfg.paired_trunks`` batches the generator's
-trunks across the two streams, and ``train_steps_scan`` takes K steps on
-K batches in one call, as ``bench.py`` runs the JAX package's step.
+``cfg.pallas_augment`` augments both streams with one
+``augment_fused_pair`` launch keyed by the device step count,
+``cfg.paired_trunks`` batches the generator's trunks across the two
+streams, and ``train_steps_scan`` takes K steps on K batches in one
+call, as ``bench.py`` runs the JAX package's step.
 Under ``ops.dispatch.use_pallas_train`` (``bench.py --pallas_train``) the
 generator takes the per-layer training kernels; at a point count the JAX
 package's fused kernels cannot tile (``ops.dispatch.layer_by_layer``) the
@@ -177,14 +178,13 @@ def train_step(state: state_lib.GANTrainState, x_l: torch.Tensor,
     Both updates run under ``cfg.bf16``'s mixed-precision scope; the semi
     switch is ``device_step >= cfg.semi_start`` on the device, and
     ``augment_fused`` (``cfg.pallas_augment``) is keyed by the device
-    step, stream 0 labeled and 1 unlabeled."""
+    step, stream 0 labeled and 1 unlabeled, both streams in one
+    ``augment_fused_pair`` launch."""
     if (g_tx, d_tx) != (state.g_tx, state.d_tx):
         raise ValueError(f"train_step got {(g_tx, d_tx)}, but the state was "
                          f"built with {(state.g_tx, state.d_tx)}")
-    x_l, y_l = augment.chain_from_cfg(state.generator, cfg, x_l, y_l,
-                                      state.device_step, 0)
-    x_u = augment.chain_from_cfg(state.generator, cfg, x_u, None,
-                                 state.device_step, 1)
+    (x_l, y_l), x_u = augment.chain_pair_from_cfg(
+        state.generator, cfg, (x_l, y_l), (x_u, None), state.device_step)
     layerwise = ops.layer_by_layer(x_l.shape[1])
     semi_on = (state.device_step >= cfg.semi_start).float()
 

@@ -17,7 +17,10 @@ Phases, one or more lines each:
 3. kernels: each eval kernel against its plain version at the serving
    shapes (B=32, N=2500), at a ragged point count and at batch 1, the
    trunk's stack also with its last layer's folded scales negative in
-   every other channel; at B=32 N=2500 ``fused_stack_maxpool`` and
+   every other channel; conv1 (``fused_linear_affine_act``) also at its
+   paths' other widths (``CONV_WIDTHS``: c_in 3 and 64, c_out 64 and 50)
+   at B=32 N=2047 and B=1 N=37, and at the main shape and 64 -> 64 by the
+   float64 control; at B=32 N=2500 ``fused_stack_maxpool`` and
    ``seg_head_fused`` (on the tensor cores) also by the float64 control:
    each stack's pre-max values on 512 points (each a cloud of its own, so
    the max is the value) and the head's log-probs at most
@@ -30,8 +33,9 @@ Phases, one or more lines each:
 5. timing: each eval kernel against its plain version (CUDA events and
    torch.profiler device time; the tensor-core ones bound at the 3xTF32
    rate, the fp32-FMA bound beside it) and the serving forward, whose
-   profile must show ``stack_tc_kernel`` and ``head_tc_kernel`` and none
-   of the CUDA-core kernels they replaced (``GONE_KERNELS``);
+   profile must show ``stack_tc_kernel``, ``head_tc_kernel`` and conv1's
+   ``conv_group_kernel<3>`` and none of the kernels they replaced
+   (``GONE_KERNELS``);
 6. train-kernels: every training pass (trunk F1/F2/B1, seg head
    P1/Pmid/P4/B4/Bmid/B1, the pool-fc epilogue at groups 1 and 2, at B=2
    and in ``relu_fc_bn_relu``'s identity fold; in fp32 its z1 and var by
@@ -95,16 +99,18 @@ Phases, one or more lines each:
    passes at 2B=64 against their plain twins and against two groups=1
    launches (pooled values, statistics and extrema bit-equal);
    ``augment_fused`` against
-   its plain twin on the same Philox bits at B=32 N=2048/2500, its
+   its plain twin on the same Philox bits at B=32 N=2048/2500/2047, its
    distribution (angle, jitter, dropout ratio), and another step, seed
-   and stream;
+   and stream; ``augment_fused_pair`` (both streams in one launch, the
+   bench step's) bit for bit against two single-stream launches and
+   against its plain twin, also with streams of two shapes;
 13. bench-slice: the G+D step of ``AdversarialConfig(augment=True,
    bf16=True, pallas_augment=True)`` (paired heads), and again with
    ``paired_trunks``, on the card and on the CPU from the same weights and
    batch (the Philox augmentation is the same on both), as phase 10 with
-   the bounds widened for bf16; launches per step (augment 2; F1/F2/B1 6,
-   or 3 with the paired trunks); ``train_steps_scan`` at K=8 against 8
-   ``train_step`` calls on the card;
+   the bounds widened for bf16; launches per step (augment 1, the pair;
+   F1/F2/B1 6, or 3 with the paired trunks); ``train_steps_scan`` at K=8
+   against 8 ``train_step`` calls on the card;
 14. bench-timing: each pass in bf16 against its plain pass (with its
    bound at the tensor cores' bf16 peak; the disc's with their
    sub-kernels and the forward's two tile sizes), ``augment_fused`` and the
@@ -113,10 +119,12 @@ Phases, one or more lines each:
    with ``paired_trunks`` and without ``pallas_augment``; the bench
    step's profile, with and without ``paired_trunks``, must show
    ``head_p1_tc_kernel``, ``pmid_tc_kernel``, ``head_p4_tc_kernel``,
-   ``head_b1_tc_kernel``, ``f1_tc_kernel``, ``b4_tc_kernel`` and
-   ``fc_tc_kernel`` (pool-fc) and none of the CUDA-core kernels they
-   replaced (``GONE_KERNELS``, the ``row_fwd_kernel`` and
-   ``pool_fc_kernel`` among them), as must phase 11's fp32 G+D step's;
+   ``head_b1_tc_kernel``, ``f1_tc_kernel``, ``b4_tc_kernel``,
+   ``fc_tc_kernel`` (pool-fc) and ``augment_pair_kernel`` and none of the
+   kernels they replaced (``GONE_KERNELS``, the ``row_fwd_kernel``,
+   ``pool_fc_kernel`` and the one-stream ``augment_kernel`` among them),
+   as must phase 11's fp32 G+D step's (but the augmentation, which it
+   does not run);
 15. pallas-train-kernels: the per-layer training kernels that
    ``dispatch.use_pallas_train`` (the JAX package's
    ``use_pallas(training=True)``) reaches, each pass against its plain
@@ -310,7 +318,7 @@ STASH_SHARE = 1e-3
 # these widths a term can carry a tenth or more of the largest output.
 BF16_BOUND = 1e-3
 AUG_SITE = "augment_fused.py:104"
-AUG_PER_STEP = 2      # one augment_fused per stream
+AUG_PER_STEP = 1      # one augment_fused_pair launch, both streams
 GROUPS2_PER_STEP = {"F1": 3, "F2": 3, "B1": 3}   # paired trunks: 3 trunks
 # The per-layer training kernels (dispatch.use_pallas_train, the JAX
 # package's use_pallas(training=True)): kernel -> (source, {pass: TPU
@@ -732,6 +740,35 @@ def serve_f64_checks(encoder_fused, stack_args, head_args, tag="kernels"):
                  plain, tag)
 
 
+# fused_linear_affine_act's other paths (csrc/shared_mlp.cu): the
+# register path at c_in 3 with a leaky ReLU, and the general path (W^T in
+# shared memory) at c_in 64 and at c_out 50 (a partial channel group),
+# at B=32 N=2047 (rows off a 16-byte boundary at c_in 3) and B=1 N=37.
+CONV_WIDTHS = ((3, 64, "leaky_relu"), (64, 64, "relu"), (3, 50, "relu"),
+               (64, 50, None))
+
+
+def conv_width_checks(shared_mlp, gen, dev):
+    """``CONV_WIDTHS`` against the plain twin (``BOUND``), the general
+    path's 64 -> 64 also by the float64 control; the largest error."""
+    err = 0.0
+    for c_in, c_out, act in CONV_WIDTHS:
+        layer = layer_params(gen, c_in, c_out, dev)
+        for bsz, n in ((B, RAGGED_N), (1, 37)):
+            x = torch.randn(bsz, n, c_in, generator=gen).to(dev)
+            args = (x, *layer, act)
+            got = shared_mlp.fused_linear_affine_act(*args)
+            plain = shared_mlp.fused_linear_affine_act_plain(*args)
+            err = max(err, check(
+                f"fused_linear_affine_act {c_in}->{c_out} {act} B={bsz} "
+                f"N={n}", got, plain))
+            if (c_in, c_out, bsz) == (64, 64, B):
+                check_f64(f"fused_linear_affine_act {c_in}->{c_out}", got,
+                          plain, shared_mlp.fused_linear_affine_act_plain(
+                              *f64(args)), "kernels")
+    return err
+
+
 def serve(dev, card, gen, results):
     from adversarial_learning_on_pointclouds_tpu_torch import infer
     from adversarial_learning_on_pointclouds_tpu_torch.models import (
@@ -754,13 +791,20 @@ def serve(dev, card, gen, results):
             main = (bsz, n) == (B, N)
 
             args = (x3, *conv1, "relu")
-            d = check(f"fused_linear_affine_act conv1 3->64 {tag}",
-                      shared_mlp.fused_linear_affine_act(*args),
-                      shared_mlp.fused_linear_affine_act_plain(*args))
+            got = shared_mlp.fused_linear_affine_act(*args)
+            plain = shared_mlp.fused_linear_affine_act_plain(*args)
+            d = check(f"fused_linear_affine_act conv1 3->64 {tag}", got,
+                      plain)
             err["fused_linear_affine_act"] = max(
                 err["fused_linear_affine_act"], d)
             if main:
                 main_args["fused_linear_affine_act"] = [args]
+                check_f64("fused_linear_affine_act conv1 3->64", got, plain,
+                          shared_mlp.fused_linear_affine_act_plain(
+                              *f64(args)), "kernels")
+                err["fused_linear_affine_act"] = max(
+                    err["fused_linear_affine_act"],
+                    conv_width_checks(shared_mlp, gen, dev))
 
             stack_args = {}
             for key, layers in stack_params.items():
@@ -2568,14 +2612,39 @@ def augment_checks(dev, gen, rec):
     modes = {"rotate+jitter": (True, True, False),
              "rotate+jitter+dropout": (True, True, True),
              "dropout": (False, False, True)}
-    for n in (TRAIN_N, TRAIN_RAGGED_N):
+    names = ("points_a", "points_b")
+    for n in (TRAIN_N, TRAIN_RAGGED_N, RAGGED_N):
         x = torch.randn(B, n, 3, generator=gen).to(dev)
+        x_b = torch.randn(B, n, 3, generator=gen).to(dev)
         for i, (mode, flags) in enumerate(modes.items()):
             a = (step, x, SEED, i % 2, *flags)
+            main = n == TRAIN_N and mode == "rotate+jitter"
             rec.cmp("augment_fused", "fwd", f"B={B} N={n} {mode}", ("points",),
                     (af.augment_fused(*a),), (af.augment_fused_plain(*a),),
-                    n == TRAIN_N and mode == "rotate+jitter", a,
+                    main, a, phase_tag="bench-kernels", bound=BOUND)
+            # The bench step's launch: both streams at once, each bit for
+            # bit its own single-stream launch.
+            pa = (step, x, x_b, SEED, *flags)
+            pair = af.augment_fused_pair(*pa)
+            check_equal(f"augment_fused_pair B={B} N={n} {mode} against two "
+                        "single-stream launches", pair,
+                        [af.augment_fused(step, p, SEED, k, *flags)
+                         for k, p in enumerate((x, x_b))])
+            rec.cmp("augment_fused", "pair", f"B={B} N={n} {mode}", names,
+                    pair, af.augment_fused_pair_plain(*pa), main, pa,
                     phase_tag="bench-kernels", bound=BOUND)
+    # Streams of two shapes in one launch.
+    x, x_b = (torch.randn(bsz, n, 3, generator=gen).to(dev)
+              for bsz, n in ((B, TRAIN_RAGGED_N), (3, 100)))
+    pa = (step, x, x_b, SEED, True, True, True)
+    pair = af.augment_fused_pair(*pa)
+    check_equal("augment_fused_pair B=32 N=2500 with B=3 N=100 against two "
+                "single-stream launches", pair,
+                [af.augment_fused(step, p, SEED, k, True, True, True)
+                 for k, p in enumerate((x, x_b))])
+    rec.cmp("augment_fused", "pair", "B=32 N=2500 with B=3 N=100", names,
+            pair, af.augment_fused_pair_plain(*pa), False, pa,
+            phase_tag="bench-kernels", bound=BOUND)
     x = torch.randn(4096, 256, 3, generator=gen).to(dev)
     y = af.augment_fused(step, x, SEED, 0, True, False, False)
     r2 = x[..., 0] ** 2 + x[..., 2] ** 2
@@ -2751,9 +2820,9 @@ def time_scan(card, tag, cfg, state, batch_k, txs):
           f"2 x B={cfg.batch_size} N={cfg.num_points}: {per:.3f} ms per step"
           f", {pts / per * 1e3:.1f} points/s (both streams), GPU kernels "
           f"busy {busy:.3f} ms per step ({100 * (1 - busy / per):.1f}% idle)")
-    ours = {re.sub(r"^void pointtpu::\(anonymous namespace\)::", "", k)
+    ours = {re.sub(r"^(void )?pointtpu::\(anonymous namespace\)::", "", k)
             .split("(")[0]: ms / BENCH_K for k, ms in kernels.items()
-            if k.startswith("void pointtpu::")}
+            if k.startswith(("void pointtpu::", "pointtpu::"))}
     return {"step_ms": per, "busy_ms": busy, "kernels": ours}
 
 
@@ -2798,14 +2867,18 @@ def bench_timing(card, rec, results, bench):
 
     cfg, _, launches = out[False]
     cfg_pt, _, launches_pt = out[True]
-    row = time_passes(card, rec, ("augment_fused", "fwd"), af.augment_fused,
-                      af.augment_fused_plain, AUG_PER_STEP, False)
+    row = time_passes(card, rec, ("augment_fused", "pair"),
+                      af.augment_fused_pair, af.augment_fused_pair_plain,
+                      AUG_PER_STEP, False)
+    row["max_abs_err"] = max(rec.err[("augment_fused", p)]
+                             for p in ("fwd", "pair"))
     results.append({"name": "augment_fused", "route": "cuda",
                     "source": f"{KERNELS_ROOT}/csrc/augment_fused.cu",
                     "replaces": f"{TPU_KERNELS}/{AUG_SITE}",
                     "launches": launches["augment_fused"]["fwd"],
-                    "library_ms": None, "times": "per bench G+D step",
-                    **row})
+                    "library_ms": None,
+                    "times": "per bench G+D step (both streams, one "
+                             "augment_fused_pair launch)", **row})
     passes = []
     for pas, fn in tt.PASSES.items():
         row = time_passes(card, rec, ("trunk2_train(groups=2)", pas), fn,
@@ -2853,10 +2926,11 @@ def bench_timing(card, rec, results, bench):
         scan_state, *batch_k, cfg=cfg, g_tx=txs[0], d_tx=txs[1]), reps=1)
     for key, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:14]:
         phase("bench-timing", f"  {ms / BENCH_K:.4f} ms per step  {key[:90]}")
-    profile_names(kernels, "the bench step")
+    profile_names(kernels, "the bench step", BENCH_KERNELS)
     profile_names(device_profile(lambda: adversarial.train_steps_scan(
         out[True][1][0], *batch_k, cfg=cfg_pt, g_tx=out[True][1][4][0],
-        d_tx=out[True][1][4][1]), reps=1), "the bench step with paired_trunks")
+        d_tx=out[True][1][4][1]), reps=1), "the bench step with paired_trunks",
+        BENCH_KERNELS)
 
 
 # The tensor-core passes that replaced CUDA-core kernels (the seg head's
@@ -2872,11 +2946,18 @@ TC_HEAD_KERNELS = ("head_p1_tc_kernel<", "pmid_tc_kernel<",
 GONE_KERNELS = ("row_bwd_kernel<128", "wgrad_kernel<2", "row_bwd_kernel<64",
                 "wgrad_kernel<4", "row_fwd_kernel", "stack_maxpool_kernel",
                 "seg_head_kernel", "pool_fc_kernel<", "fc_layer_kernel<",
-                "fc_bn_bwd_kernel<")
+                "fc_bn_bwd_kernel<", "linear_affine_act_kernel",
+                "augment_kernel(")
 # The serving kernels on the tensor cores (csrc/encoder_fused.cu), which
 # the forward's profile must show in place of the CUDA-core
-# stack_maxpool_kernel and seg_head_kernel (GONE_KERNELS).
-SERVE_KERNELS = ("stack_tc_kernel<", "head_tc_kernel(")
+# stack_maxpool_kernel and seg_head_kernel (GONE_KERNELS), and conv1's
+# channel-group kernel (csrc/shared_mlp.cu) in place of the
+# element-per-thread linear_affine_act_kernel.
+SERVE_KERNELS = ("stack_tc_kernel<", "head_tc_kernel(",
+                 "conv_group_kernel<3>")
+# The bench step (pallas_augment) also augments both streams in one
+# augment_pair_kernel launch, where the one-stream augment_kernel ran twice.
+BENCH_KERNELS = TC_HEAD_KERNELS + ("augment_pair_kernel(",)
 
 
 def profile_names(kernels, what, want=None, per=BENCH_K,
@@ -3999,10 +4080,11 @@ def head_passes(card):
 
 
 def serve_times(card):
-    """``--time serve``: at B=32 N=2500 on phase 3's seeded operands, the
-    three stacks of a forward (``fused_stack_maxpool``) and the seg head
-    (``seg_head_fused``), each the median ms of ``REPS`` forwards' launches
-    (CUDA events), device ms (profiler) and TFLOP/s on the device; then a
+    """``--time serve``: at B=32 N=2500 on phase 3's seeded operands, conv1
+    (``fused_linear_affine_act``, 3 -> 64), the three stacks of a forward
+    (``fused_stack_maxpool``) and the seg head (``seg_head_fused``), each
+    the median ms of ``REPS`` forwards' launches (CUDA events), device ms
+    (profiler), TFLOP/s on the device and the plain twin's events ms; then a
     seeded full-width segmenter (random BatchNorm statistics, as phase 4's)
     on 32 seeded clouds: its forward (events, and device busy ms) and
     ``Predictor.predict`` host to host, medians of ``REPS``."""
@@ -4011,37 +4093,37 @@ def serve_times(card):
         PointNetDenseCls,
     )
     from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
-        encoder_fused,
+        encoder_fused, shared_mlp,
     )
 
     dev, gen = torch.device("cuda", 0), torch.Generator().manual_seed(SEED)
     out = {}
     with torch.inference_mode():
-        _, stacks, head, w4, b4 = serve_params(gen, dev)
+        conv1, stacks, head, w4, b4 = serve_params(gen, dev)
         x3 = torch.randn(B, N, 3, generator=gen).to(dev)
         x64 = torch.relu(torch.randn(B, N, 64, generator=gen)).to(dev)
         g = torch.relu(torch.randn(B, 1024, generator=gen)).to(dev)
         calls = {
+            "fused_linear_affine_act": [(x3, *conv1, "relu")],
             "fused_stack_maxpool": [
                 (x3 if widths[0] == 3 else x64, *zip(*stacks[key]), acts)
                 for key, (widths, acts) in SERVE_STACKS.items()],
             "seg_head_fused": [(x64, g, *head[0], *head[1], *head[2], w4,
                                 b4)]}
         for name, args in calls.items():
-            fn = getattr(encoder_fused, name)
-
-            def run():
-                return [fn(*a) for a in args]
-
-            run()
-            ms = statistics.median(event_ms(run, REPS))
-            dev_ms = sum(device_profile(run).values())
-            flops = work(getattr(encoder_fused, f"{name}_plain"), args)[0]
-            out[name] = {"ms": ms, "device_ms": dev_ms,
+            module = shared_mlp if name in vars(shared_mlp) else encoder_fused
+            fn, plain = (getattr(module, name + s) for s in ("", "_plain"))
+            ms, plain_ms = time_pair(lambda: [fn(*a) for a in args],
+                                     lambda: [plain(*a) for a in args])
+            dev_ms = sum(device_profile(
+                lambda: [fn(*a) for a in args]).values())
+            flops = work(plain, args)[0]
+            out[name] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
                          "tflops": flops / dev_ms / 1e9}
             phase("time", f"{card}: {name} x{len(args)} at B={B} N={N}: "
                   f"{ms:.4f} ms, device {dev_ms:.4f} ms "
-                  f"({flops / dev_ms / 1e9:.1f} TFLOP/s)")
+                  f"({flops / dev_ms / 1e9:.1f} TFLOP/s), plain "
+                  f"{plain_ms:.4f} ms")
     model = PointNetDenseCls(PARTS, feature_transform=True, generator=gen)
     randomize_bn(model, gen)
     rng = np.random.default_rng(SEED)
@@ -4070,19 +4152,55 @@ def serve_times(card):
     return out
 
 
+def augment_times(card):
+    """``--time bench``: the bench step's augmentation alone, 2 x B=32 x
+    N=2048 (rotate and jitter, streams 0 and 1), as the tree's step
+    launches it: one ``augment_fused_pair`` where the tree has it, else
+    ``augment_fused`` once a stream. Median events ms of ``REPS`` steps'
+    launches, device ms (profiler), the kernels' launches, and the plain
+    twin's events ms."""
+    from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
+        augment_fused as af,
+    )
+
+    dev, gen = torch.device("cuda", 0), torch.Generator().manual_seed(SEED)
+    xs = [torch.randn(B, TRAIN_N, 3, generator=gen).to(dev) for _ in (0, 1)]
+    step = torch.tensor(3, dtype=torch.int64, device=dev)
+    flags = (True, True, False)
+    if hasattr(af, "augment_fused_pair"):
+        def run():
+            return af.augment_fused_pair(step, *xs, SEED, *flags)
+    else:
+        def run():
+            return [af.augment_fused(step, x, SEED, k, *flags)
+                    for k, x in enumerate(xs)]
+    ms, plain_ms = time_pair(run, lambda: [af.augment_fused_plain(
+        step, x, SEED, k, *flags) for k, x in enumerate(xs)])
+    counts = {}
+    dev_ms = sum(device_profile(run, counts=counts).values())
+    launches = sum(counts.values())
+    phase("time", f"{card}: the bench step's augmentation, 2 x B={B} "
+          f"N={TRAIN_N}: {ms:.4f} ms, device {dev_ms:.4f} ms in {launches:g} "
+          f"launch(es), plain {plain_ms:.4f} ms")
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "launches": launches}
+
+
 def time_alone(mode: str, root: str, card: str) -> None:
-    """``--time fp32|bench|pallas_train|passes|serve --root DIR``: the G+D step's
-    timing alone, of the port package under ``DIR`` (a checkout, or a
-    ``git archive`` of the parent commit, say), from ``create_state``'s
+    """``--time fp32|bench|pallas_train|passes|serve --root
+    DIR``: the G+D step's timing alone, of the port package under ``DIR``
+    (a checkout, or a ``git archive`` of the parent commit, say), from
+    ``create_state``'s
     weights seeded by ``cfg.seed`` on seeded batches: ``fp32`` as phase 11
     (synchronized ``train_step`` calls of ``AdversarialConfig()``),
     ``bench`` as phase 14 (``train_steps_scan`` at K=8 of the bench
     configuration), ``pallas_train`` the same under ``use_pallas_train``
     (``bench.py --pallas_train``; a tree without the switch fails);
     ``passes`` the seg head's P1, Pmid, P4, B1 and B4, trunk F1 and the
-    T-Net fc layers alone (``head_passes``), ``serve`` the serving kernels, forward and
-    ``Predictor.predict`` (``serve_times``). Prints
-    one JSON line, and no result line. To compare two trees, alternate
+    T-Net fc layers alone (``head_passes``), ``serve`` the serving kernels
+    (conv1 too), forward and ``Predictor.predict`` (``serve_times``);
+    ``bench`` also times the step's augmentation alone
+    (``augment_times``). Prints one JSON line, and no result line. To compare two trees, alternate
     them within one call (A B B A): the host's share of a step moves
     between calls."""
     from adversarial_learning_on_pointclouds_tpu_torch.configs import (
@@ -4095,7 +4213,7 @@ def time_alone(mode: str, root: str, card: str) -> None:
     from adversarial_learning_on_pointclouds_tpu_torch.ops import dispatch
 
     if mode in ("passes", "serve"):
-        times = head_passes(card) if mode == "passes" else serve_times(card)
+        times = {"passes": head_passes, "serve": serve_times}[mode](card)
         print(json.dumps({"root": root, "mode": mode, "card": card,
                           **times}), flush=True)
         return
@@ -4118,6 +4236,8 @@ def time_alone(mode: str, root: str, card: str) -> None:
         with dispatch.use_pallas_train(mode == "pallas_train"):
             out = time_scan(card, f"time {mode}", cfg, state,
                             (x_l, y_l, x_u), txs)
+        if mode == "bench":
+            out["augment"] = augment_times(card)
     print(json.dumps({"root": root, "mode": mode, "card": card, **out}),
           flush=True)
 
@@ -4169,7 +4289,8 @@ def main() -> None:
               key=lambda kv: -kv[1])))
     for src in ("strided_gemm.cu", "pointwise_matmul.cu", "tnet_apply.cu",
                 "train_bwd_tc.cu", "disc_tc.cu", "encoder_fused.cu",
-                "pool_fc_epilogue.cu", "fc_head_train.cu"):
+                "pool_fc_epilogue.cu", "fc_head_train.cu", "shared_mlp.cu",
+                "augment_fused.cu"):
         for label, (regs, st, ld) in ptxas_report(build, src).items():
             phase("build", f"ptxas: {src} {label}: {regs} registers, spill "
                   f"stores {st} bytes, spill loads {ld} bytes")

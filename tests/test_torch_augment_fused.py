@@ -218,3 +218,93 @@ def test_chain_from_cfg_runs_the_fused_pass(monkeypatch):
     off = dataclasses.replace(cfg, augment=False, point_dropout=False)
     assert torch.equal(augment.chain_from_cfg(gen, off, x),
                        augment.normalize_unit_sphere(x))
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_pair_plain_equals_two_single_passes(mode):
+    """The pair's plain pass is the two single-stream plain passes (streams
+    0 and 1), bit for bit, on streams of two shapes (a ragged N too)."""
+    a = torch.from_numpy(_points(3, 130, seed=5))
+    b = torch.from_numpy(_points(2, 64, seed=6))
+    step = torch.tensor(9)
+    got = af.augment_fused_pair_plain(step, a, b, 77, *MODES[mode])
+    want = (af.augment_fused_plain(step, a, 77, 0, *MODES[mode]),
+            af.augment_fused_plain(step, b, 77, 1, *MODES[mode]))
+    assert len(got) == 2
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g, w)
+
+
+def test_pair_on_cpu_tensors_runs_the_plain_pass(monkeypatch):
+    """CPU tensors take the plain pair pass: no library, no launch counted;
+    the two streams on two devices raise."""
+    monkeypatch.setattr(build, "library", lambda: pytest.fail("built"))
+    before = af.augment_fused.launches
+    a = torch.from_numpy(_points(2, 64, seed=7))
+    b = torch.from_numpy(_points(2, 64, seed=8))
+    step = torch.tensor(2)
+    got = af.augment_fused_pair(step, a, b, 5, dropout=True)
+    want = af.augment_fused_pair_plain(step, a, b, 5, dropout=True)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert af.augment_fused.launches == before
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        af.augment_fused_pair(step, a, b.to("meta"), 5)
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "plain"])
+def test_chain_pair_from_cfg_equals_two_chains(fused):
+    """Normalize, resample (clouds of 100 points to 64, labels riding the
+    gather) and the augmentation of both streams through
+    ``chain_pair_from_cfg`` give what two ``chain_from_cfg`` calls give
+    from the same generator, stream 0 then 1, bit for bit."""
+    cfg = AdversarialConfig(num_points=64, augment=True, point_dropout=True,
+                            pallas_augment=fused)
+    x_l = torch.from_numpy(_points(2, 100, seed=9))
+    y_l = torch.arange(200).reshape(2, 100)
+    x_u = torch.from_numpy(_points(2, 100, seed=10))
+    step = torch.tensor(4)
+    gens = [torch.Generator().manual_seed(3) for _ in range(2)]
+    (pl, ll), pu = augment.chain_pair_from_cfg(gens[0], cfg, (x_l, y_l),
+                                               (x_u, None), step)
+    wl, wy = augment.chain_from_cfg(gens[1], cfg, x_l, y_l, step, 0)
+    wu = augment.chain_from_cfg(gens[1], cfg, x_u, None, step, 1)
+    assert pl.shape == (2, 64, 3) and pu.shape == (2, 64, 3)
+    assert torch.equal(pl, wl) and torch.equal(ll, wy)
+    assert torch.equal(pu, wu)
+    assert torch.equal(gens[0].get_state(), gens[1].get_state())
+
+
+def test_train_step_launches_the_pair_once_a_step(monkeypatch):
+    """With ``pallas_augment`` the G+D step augments both streams through
+    ``augment_fused_pair``, once a step, stream 0 labeled and 1 unlabeled,
+    and never through the single-stream entry."""
+    from adversarial_learning_on_pointclouds_tpu_torch.train import (
+        adversarial,
+    )
+
+    calls = []
+    pair = af.augment_fused_pair
+
+    def counted(step, a, b, seed, **kw):
+        calls.append((int(step), a.clone(), b.clone()))
+        return pair(step, a, b, seed, **kw)
+
+    monkeypatch.setattr(af, "augment_fused_pair", counted)
+    monkeypatch.setattr(af, "augment_fused",
+                        lambda *a, **k: pytest.fail("single-stream entry"))
+    cfg = AdversarialConfig(num_points=64, batch_size=2, augment=True,
+                            pallas_augment=True)
+    state = adversarial.create_state(cfg, 10, device="cpu")
+    txs = adversarial.make_txs(cfg, 10)
+    x_l = torch.from_numpy(_points(2, 64, seed=11))
+    y_l = torch.randint(0, cfg.num_parts, (2, 64),
+                        generator=torch.Generator().manual_seed(0))
+    x_u = torch.from_numpy(_points(2, 64, seed=12))
+    for _ in range(2):
+        adversarial.train_step(state, x_l, y_l, x_u, cfg=cfg, g_tx=txs[0],
+                               d_tx=txs[1])
+    # The labeled batch goes first (stream 0), the unlabeled second.
+    want = [augment.normalize_unit_sphere(x) for x in (x_l, x_u)]
+    assert [k for k, _, _ in calls] == [0, 1]
+    for _, a, b in calls:
+        assert torch.equal(a, want[0]) and torch.equal(b, want[1])

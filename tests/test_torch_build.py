@@ -2,6 +2,7 @@
 (``ops/build.py::ptxas_usage``, read from ``ptxas -v``) and the names
 ``chip_smoke.py`` prints it under."""
 
+import re
 import types
 
 import pytest
@@ -210,3 +211,45 @@ def test_no_source_defines_the_cuda_core_fc_kernels():
     for src in ("pool_fc_epilogue.cu", "fc_head_train.cu"):
         assert '#include "small_fc.cuh"' in srcs[src], src
         assert "run_fc(" in srcs[src], src
+
+
+# Serving's conv1 (shared_mlp.cu: a channel group of 4 a thread, by the
+# depth its weights in registers take, 0 for the general path) and the
+# paired augmentation (augment_fused.cu), as nvcc names them in their
+# files' anonymous namespaces.
+CONV = ("_ZN8pointtpu46_GLOBAL__N__5d2c1a3e_13_shared_mlp_cu_4b1f9c20"
+        "17conv_group_kernelILi3EEEvPKfS3_S3_S3_Pfxiiii")
+CONV_GENERAL = ("_ZN8pointtpu46_GLOBAL__N__5d2c1a3e_13_shared_mlp_cu_4b1f9c20"
+                "17conv_group_kernelILi0EEEvPKfS3_S3_S3_Pfxiiii")
+AUGMENT = ("_ZN8pointtpu49_GLOBAL__N__9a61c0b7_16_augment_fused_cu_0c3e5d11"
+           "19augment_pair_kernelENS0_7AugArgsE")
+
+
+def test_ptxas_report_names_the_conv_and_augment_kernels():
+    fake = types.SimpleNamespace(resource_usage={
+        "shared_mlp.cu": {CONV: (40, 0, 0), CONV_GENERAL: (48, 0, 0)},
+        "augment_fused.cu": {AUGMENT: (64, 0, 0)}})
+    assert ptxas_report(fake, "shared_mlp.cu") == {
+        "conv_group_kernel<3>": (40, 0, 0),
+        "conv_group_kernel<0>": (48, 0, 0)}
+    assert ptxas_report(fake, "augment_fused.cu") == {
+        "augment_pair_kernel": (64, 0, 0)}
+
+
+def test_no_source_defines_the_first_conv_and_augment_kernels():
+    """conv1's element-per-thread kernel and the one-stream augment kernel
+    are gone, and so is round_smem: shared_mlp.cu defines the channel-group
+    kernel, augment_fused.cu the paired kernel that both of its entry
+    points launch."""
+    srcs = {p.name: p.read_text() for p in sorted(build.CSRC.iterdir())
+            if p.suffix in (".cu", ".cuh")}
+    gone = (r"linear_affine_act_kernel", r"\baugment_kernel\b",
+            r"round_smem")
+    assert not [(n, g) for n, text in srcs.items() for g in gone
+                if re.search(g, text)]
+    assert "conv_group_kernel(const float*" in srcs["shared_mlp.cu"]
+    aug = srcs["augment_fused.cu"]
+    assert "augment_pair_kernel(const AugArgs a)" in aug
+    for entry in ("pt_augment_fused(", "pt_augment_fused_pair("):
+        assert entry in aug, entry
+    assert aug.count("augment_pair_kernel<<<") == 1

@@ -68,6 +68,25 @@ def test_fused_linear_affine_act_matches_jax(n, act):
     _close(got, ref)
 
 
+# The kernel's two paths (csrc/shared_mlp.cu): the register path (c_in 3,
+# c_out a multiple of 4; serving's conv1 is 3 -> 64) and the general path
+# (W^T in shared memory; c_in 64, or c_out 50 with a partial channel group),
+# at a tileable and two ragged point counts. The same bound as above: the
+# CPU's plain version against JAX's kernel in interpret mode.
+@pytest.mark.parametrize("n", [128, 100, 37])
+@pytest.mark.parametrize("c_in,c_out", [(3, 64), (3, 50), (64, 64), (64, 50)])
+def test_fused_linear_affine_act_widths_match_jax(c_in, c_out, n):
+    rng = np.random.default_rng(c_in * 100 + c_out)
+    x = rng.normal(size=(B, n, c_in)).astype(np.float32)
+    layer = _layer(rng, c_in, c_out)
+    ref = jax_shared_mlp.fused_linear_affine_act(jnp.asarray(x),
+                                                 *_jax_args(layer), "relu")
+    got = shared_mlp.fused_linear_affine_act(torch.from_numpy(x),
+                                             *_torch_args(layer), "relu")
+    assert got.shape == (B, n, c_out)
+    _close(got, ref)
+
+
 STACKS = {
     # T-Net trunks (STN3d; STNkd is the same with c0 = 64).
     "tnet": ((3, 64, 128, 1024), ("relu", "relu", "relu")),
