@@ -16,9 +16,22 @@ rewritten by hand in CUDA C++ for Hopper (``csrc/``, built at first use
 by ``ops/build.py``): three eval kernels, three training kernels (the
 trunk's with its two-stream ``groups=2`` form), the fused discriminator
 and the fused augmentation. A CPU tensor runs each kernel's plain
-PyTorch version; a CUDA tensor runs the kernel.
+PyTorch version; a CUDA tensor runs the kernel. Around them, the
+segmentation configs end to end: the ShapeNet-part data layer
+(``data/``: the h5 and pts layouts, synthetic fixtures, the native
+``.pts`` loader, index streams and device-resident pools), the eval
+(``eval.py``, ``utils/metrics.py``), checkpoints (``utils/
+checkpoint.py``), logging (``utils/logging.py``), profiling and the
+runner (``train/runner.py``) behind the train and eval CLIs.
 
-Entry points (on the card unless given ``device="cpu"``)::
+Entry points (on the card unless given ``device="cpu"`` or ``--cpu``)::
+
+    python -m adversarial_learning_on_pointclouds_tpu_torch.train_segmentation \\
+        --nepoch 2 --outf seg
+    python -m adversarial_learning_on_pointclouds_tpu_torch.train_adversarial \\
+        --nepoch 2 --bf16 --pallas_augment --paired_trunks --scan 8
+    python -m adversarial_learning_on_pointclouds_tpu_torch.eval_segmentation \\
+        --model seg
 
     python -m adversarial_learning_on_pointclouds_tpu_torch.infer \\
         --checkpoint g.pth --model adv --input shape.pts

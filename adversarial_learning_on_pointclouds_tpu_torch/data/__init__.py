@@ -1,1 +1,10 @@
-"""Host data helpers (numpy only)."""
+"""Data layer: ShapeNet-part readers and fixtures, the native loader,
+index streams and the device stage, augmentation on the device.
+
+``shapenet_part`` (``ShapeNetPart``, ``make_synthetic_shapenet``, pts
+layout by default, ``h5py`` only for the h5 layout), ``native_loader``
+(the C++ ``.pts`` reader of ``native/``, with its numpy path),
+``loader`` (``host_index_iterator``, ``cycling_host_indices``,
+``host_batch_iterator``, ``cycling_host_batches``, ``device_batches``,
+``batch_iterator``) and ``augment``. Only numpy and torch are imported.
+"""

@@ -1,2 +1,3 @@
-"""Train steps (``segment``: config 3; ``adversarial``: config 4) and
-their optimizers and states (``state``)."""
+"""Train steps (``segment``: config 3; ``adversarial``: config 4), their
+optimizers and states (``state``), and the full training runs behind the
+CLIs (``runner``)."""

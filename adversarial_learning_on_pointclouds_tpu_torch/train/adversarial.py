@@ -38,6 +38,10 @@ layer, through ``pointwise_matmul`` and ``maxpool_points``.
                          d_tx=d_tx)
     metrics = train_steps_scan(state, x_l_k, y_l_k, x_u_k, cfg=cfg,
                                g_tx=g_tx, d_tx=d_tx)   # [K, ...] batches
+
+``train_step_gather`` and ``train_steps_scan_gather`` take the batches'
+rows from device-resident pools by index, as the runner's default data
+path does.
 """
 
 from __future__ import annotations
@@ -226,6 +230,38 @@ def train_steps_scan(state: state_lib.GANTrainState, x_l: torch.Tensor,
     if cfg.scan and x_l.shape[0] != cfg.scan:
         raise ValueError(f"train_steps_scan got {x_l.shape[0]} batches, but "
                          f"cfg.scan is {cfg.scan}")
-    seen = [train_step(state, x_l[k], y_l[k], x_u[k], cfg=cfg, g_tx=g_tx,
-                       d_tx=d_tx) for k in range(x_l.shape[0])]
-    return {key: torch.stack([m[key] for m in seen]) for key in seen[0]}
+    return state_lib.stack_metrics([
+        train_step(state, x_l[k], y_l[k], x_u[k], cfg=cfg, g_tx=g_tx,
+                   d_tx=d_tx) for k in range(x_l.shape[0])])
+
+
+def train_step_gather(state: state_lib.GANTrainState, pool_x: torch.Tensor,
+                      pool_y: torch.Tensor, pool_u: torch.Tensor,
+                      idx_l: torch.Tensor, idx_u: torch.Tensor, *,
+                      cfg: AdversarialConfig, g_tx: state_lib.Optimizer,
+                      d_tx: state_lib.Optimizer) -> Dict[str, torch.Tensor]:
+    """``train_step`` on device-resident data pools: the host sends only
+    the ``[B]`` int32 index vectors of the labeled (``idx_l`` into
+    ``pool_x`` / ``pool_y``) and unlabeled (``idx_u`` into ``pool_u``)
+    streams, and the rows are selected on the device (``index_select``),
+    so the step sees the same rows as ``train_step`` on gathered host
+    batches."""
+    return train_step(state, pool_x.index_select(0, idx_l),
+                      pool_y.index_select(0, idx_l),
+                      pool_u.index_select(0, idx_u), cfg=cfg, g_tx=g_tx,
+                      d_tx=d_tx)
+
+
+def train_steps_scan_gather(state: state_lib.GANTrainState,
+                            pool_x: torch.Tensor, pool_y: torch.Tensor,
+                            pool_u: torch.Tensor, idx_l: torch.Tensor,
+                            idx_u: torch.Tensor, *, cfg: AdversarialConfig,
+                            g_tx: state_lib.Optimizer,
+                            d_tx: state_lib.Optimizer
+                            ) -> Dict[str, torch.Tensor]:
+    """K steps of ``train_step_gather`` on ``[K, B]`` index rows, in
+    order, each metric stacked over K."""
+    return state_lib.stack_metrics([
+        train_step_gather(state, pool_x, pool_y, pool_u, il, iu, cfg=cfg,
+                          g_tx=g_tx, d_tx=d_tx)
+        for il, iu in zip(idx_l, idx_u)])

@@ -14,10 +14,19 @@ the per-layer training kernels instead, as the JAX package's
     cfg = SegmentConfig(); tx = make_tx(cfg, steps_per_epoch)
     state = create_state(cfg, steps_per_epoch, device="cuda")
     metrics = train_step(state, points, part_labels, cfg=cfg, tx=tx)
+
+The gather forms (``train_step_gather``, ``train_steps_scan_gather``)
+take the batches' rows from device-resident pools by index, and
+``train_steps_scan`` takes K stacked host batches (``--scan K``), each a
+loop of ``train_step`` (``state.gather_step_fns``). The eval forms
+(``eval_step``, ``eval_scan``) run the model's eval forward, on a card
+the three serving kernels (conv1, the three stacks, the seg head), with
+the per-shape category-restricted IoU computed on the device.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -31,6 +40,7 @@ from adversarial_learning_on_pointclouds_tpu_torch.models import (
 from adversarial_learning_on_pointclouds_tpu_torch.train import (
     state as state_lib,
 )
+from adversarial_learning_on_pointclouds_tpu_torch.utils import metrics
 
 
 def make_tx(cfg: SegmentConfig, steps_per_epoch: int) -> state_lib.Optimizer:
@@ -105,3 +115,58 @@ def train_step(state: state_lib.TrainState, points: torch.Tensor,
     state.step += 1
     state.device_step += 1
     return {"loss": loss.detach(), "acc": acc}
+
+
+# Device-resident-pool and K-step forms (see state_lib.gather_step_fns).
+train_step_gather, train_steps_scan_gather, train_steps_scan = \
+    state_lib.gather_step_fns(train_step)
+
+
+@contextlib.contextmanager
+def eval_mode(model: torch.nn.Module):
+    """``model`` in eval mode under ``torch.inference_mode`` for the block,
+    its train/eval mode restored after."""
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.inference_mode():
+            yield model
+    finally:
+        model.train(was_training)
+
+
+def eval_step(model: PointNetDenseCls, points: torch.Tensor,
+              part_labels: torch.Tensor, categories: torch.Tensor
+              ) -> Dict[str, torch.Tensor]:
+    """Eval forward + on-device per-shape IoU (category-restricted) of one
+    batch on the model's device: ``pred [B, N]``, ``ious [B]`` and
+    ``correct`` (the batch's correctly labeled points)."""
+    with eval_mode(model):
+        pred = model(points)[0].argmax(-1)
+        ious = metrics.shape_ious_device(pred, part_labels, categories)
+        return {"pred": pred, "ious": ious,
+                "correct": (pred == part_labels).sum()}
+
+
+def eval_scan(model: PointNetDenseCls, pool_x: torch.Tensor,
+              pool_y: torch.Tensor, pool_c: torch.Tensor, idx
+              ) -> Dict[str, torch.Tensor]:
+    """The whole test pass over the ``idx [S, B]`` rows (numpy or a
+    tensor) of device-resident pools, in eval mode (the JAX package's
+    one-launch test pass, here a loop of eval forwards): per batch the
+    rows are gathered on the device, the eval forward runs and the
+    per-shape correct-point counts and IoUs stay on the device. Returns
+    ``{"correct": [S, B], "ious": [S, B]}``, for one readback per pass;
+    every metric of the protocol (instance mIoU, point accuracy, the
+    per-category table) derives from them."""
+    idx = torch.as_tensor(idx, device=pool_x.device)
+    correct, ious = [], []
+    with eval_mode(model):
+        for ib in idx:
+            x = pool_x.index_select(0, ib)
+            y = pool_y.index_select(0, ib)
+            c = pool_c.index_select(0, ib)
+            pred = model(x)[0].argmax(-1)
+            correct.append((pred == y).sum(-1))
+            ious.append(metrics.shape_ious_device(pred, y, c))
+        return {"correct": torch.stack(correct), "ious": torch.stack(ious)}

@@ -1,7 +1,8 @@
 """Train states and optimizer construction.
 
 Counterpart of ``adversarial_learning_on_pointclouds_tpu/train/
-state.py`` (``TrainState``, ``GANTrainState``, ``make_optimizer``). The
+state.py`` (``TrainState``, ``GANTrainState``, ``make_optimizer`` and the gather
+step forms of ``gather_step_fns``). The
 optimizer is ``torch.optim.Adam`` (eps 1e-8) or SGD with momentum 0.9;
 the learning-rate schedule is applied per optimizer step,
 as the JAX package's optax schedules are: a staircase decay by
@@ -13,7 +14,7 @@ power``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterable, Optional
+from typing import Callable, Dict, Iterable, List, Optional
 
 import torch
 
@@ -118,3 +119,40 @@ def train_device(device) -> torch.device:
         raise RuntimeError(f"device {device}: CUDA is not available (pass "
                            "device='cpu' to run the plain versions)")
     return device
+
+
+def stack_metrics(seen: List[Dict[str, torch.Tensor]]
+                  ) -> Dict[str, torch.Tensor]:
+    """K steps' metric dicts -> each metric stacked over K (the shape a
+    ``lax.scan`` of the JAX package's step returns)."""
+    return {key: torch.stack([m[key] for m in seen]) for key in seen[0]}
+
+
+def gather_step_fns(train_step: Callable):
+    """``(train_step_gather, train_steps_scan_gather, train_steps_scan)``
+    for a single-network trainer from its ``train_step(state, points,
+    labels, *, cfg, tx)``, which updates the state in place and returns
+    its metrics.
+
+    The gather forms read device-resident data pools: the host sends
+    only ``[B]`` (or ``[K, B]``) int32 index vectors and the rows are
+    selected on the device with ``index_select`` (the reference
+    Dataset's ``__getitem__``). ``train_steps_scan`` is the host-data
+    K-step form on ``[K, B, ...]`` batches. Each K-step form is a loop of
+    ``train_step`` calls, its metrics stacked over K; all forms give the
+    step the same rows, so the same numbers."""
+
+    def train_step_gather(state, pool_x, pool_y, idx, *, cfg, tx):
+        return train_step(state, pool_x.index_select(0, idx),
+                          pool_y.index_select(0, idx), cfg=cfg, tx=tx)
+
+    def train_steps_scan_gather(state, pool_x, pool_y, idx, *, cfg, tx):
+        return stack_metrics([
+            train_step_gather(state, pool_x, pool_y, i, cfg=cfg, tx=tx)
+            for i in idx])
+
+    def train_steps_scan(state, xs, ys, *, cfg, tx):
+        return stack_metrics([train_step(state, x, y, cfg=cfg, tx=tx)
+                              for x, y in zip(xs, ys)])
+
+    return train_step_gather, train_steps_scan_gather, train_steps_scan

@@ -183,7 +183,28 @@ Phases, one or more lines each:
 20. adv-pallas-timing: ``fused_mlp_stack`` and ``trunk3_train`` (forward
    and backward) against their plain versions with their bounds; the
    config-4 step at N=2500 off and under the switch in turns, in fp32
-   (one step per call) and as the bench step (K=8).
+   (one step per call) and as the bench step (K=8);
+21. runner: the training runs end to end (``train/runner.py``) on a
+   synthetic pts fixture of 704 shapes x 2048 points (528 train, 88
+   test; its writing timed): ``run_segmentation`` for two epochs at B=32
+   (feature transform, device pools, ``ckpt_policy`` every, eval every
+   epoch) with the CSV headers of the JAX package's ``MetricLogger``, the
+   training kernels' launches per step as phase 7's and the eval
+   kernels' 1 / 3 / 1 per forward, 3 forwards an eval; the epoch-1
+   checkpoint evaluated on the CPU (instance mIoU and every category
+   within 1e-3 of the card's, at most 2 of 88 shapes' IoUs apart, each
+   by an argmax flip within rounding); ``--resume_full`` from the epoch-0
+   checkpoint repeating epoch 1 (per-step losses within 1e-5, steps
+   continuing); ``--host_data`` against device pools (within 1e-6);
+   ``run_adversarial`` for one epoch with the bench flags (``--bf16
+   --pallas_augment --paired_trunks --scan 8``: 8 G+D steps, one
+   ``augment_fused_pair`` launch a step, the G's eval on the eval
+   kernels); ``eval_segmentation --model`` on the seg run reproducing its
+   last eval; each epoch's train_s, eval_s and ckpt_s, eval shapes/s, an
+   eval pass's host-to-host and device time, and the host's share of an
+   epoch (the resumed run's epoch 1: its wall time
+   less the device's busy time in one torch.profiler window). The phase
+   must finish within 120 s.
 
 The line before the last is a JSON object of the kernels' numbers: per
 kernel its time, its plain version's, and its bound (``bound_ms``: the
@@ -198,6 +219,8 @@ at the bf16 tensor-core peak). The last line is
 non-zero and no result is printed.
 
     python3 chip_smoke.py
+
+``--runner`` runs only phases 1-2 and 21 and prints no result line.
 
 ``--disc-checks SEED`` runs only phases 1-2 and the discriminator's
 checks of phases 9 and 12 on data from generator seed ``SEED``, and
@@ -3932,6 +3955,373 @@ def adv_pt_timing(card, rec, slice_out, results):
                       states[switch], batch_k, btxs)
 
 
+# Phase 21: the runners of configs 3 and 4 end to end on a synthetic
+# pts fixture (704 shapes of 2048 points: 528 train, 88 test).
+RUNNER_SHAPES = 704
+RUNNER_BUDGET_S = 120.0
+SERVE_PER_FORWARD = {"fused_linear_affine_act": 1, "fused_stack_maxpool": 3,
+                     "seg_head_fused": 1}
+RESUME_RTOL = 1e-5    # a resumed epoch's per-step losses (card, in turn)
+HOST_DATA_RTOL = 1e-6  # --host_data against device pools
+EVAL_CPU_ATOL = 1e-3   # instance mIoU and each category's, card vs CPU
+EVAL_CPU_SHAPES = 2    # shapes whose IoU may differ, card vs CPU
+
+
+def serve_wrappers():
+    from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
+        encoder_fused, shared_mlp,
+    )
+    return {"fused_linear_affine_act": shared_mlp.fused_linear_affine_act,
+            "fused_stack_maxpool": encoder_fused.fused_stack_maxpool,
+            "seg_head_fused": encoder_fused.seg_head_fused}
+
+
+def read_csv(path):
+    import csv
+
+    with open(path) as f:
+        return list(csv.DictReader(f))
+
+
+def step_losses(out_dir, name, key):
+    return [(int(r["step"]), float(r[key]))
+            for r in read_csv(os.path.join(out_dir, f"{name}_metrics.csv"))]
+
+
+def check_losses(tag, got, ref, rtol):
+    if [s for s, _ in got] != [s for s, _ in ref]:
+        raise AssertionError(f"{tag}: steps {[s for s, _ in got]} != "
+                             f"{[s for s, _ in ref]}")
+    worst = max(abs(g - r) / max(abs(r), 1e-12)
+                for (_, g), (_, r) in zip(got, ref))
+    phase("runner", f"{tag}: {len(got)} per-step losses, max relative "
+          f"difference {worst:.3e} (bound {rtol:g})")
+    if not worst <= rtol:
+        raise AssertionError(f"{tag}: losses differ by {worst:.3e}")
+
+
+def counted_run(run, cfg, counters, wrappers):
+    """``run(cfg)`` on the card with every count set to 0 just before and
+    read just after: ``(result, training launches, serving launches)``."""
+    reset(counters)
+    for w in wrappers.values():
+        w.launches = 0
+    result = run(cfg, device="cuda")
+    torch.cuda.synchronize()
+    return result, read(counters), {k: w.launches
+                                    for k, w in wrappers.items()}
+
+
+def check_run_launches(tag, train, serve, steps, per_step, forwards):
+    for k, passes in per_step.items():
+        for p, per in passes.items():
+            if train[k][p] != per * steps:
+                raise AssertionError(
+                    f"{tag}: {k} {p} launched {train[k][p]} times in "
+                    f"{steps} steps, expected {per} a step")
+    for k, per in SERVE_PER_FORWARD.items():
+        if serve[k] != per * forwards:
+            raise AssertionError(f"{tag}: {k} launched {serve[k]} times in "
+                                 f"{forwards} eval forwards, expected {per} "
+                                 "a forward")
+    phase("runner", f"{tag}: launches over {steps} steps and {forwards} "
+          f"eval forwards: training {train}; serving {serve}")
+
+
+class EpochProfile:
+    """Wraps ``runner._single_net_epoch``: the epoch ``epoch`` runs inside
+    one torch.profiler window (device activity only) between two
+    synchronizations; keeps its wall time and the device's busy time."""
+
+    def __init__(self, runner_mod, epoch):
+        self.mod, self.epoch, self.fn = runner_mod, epoch, \
+            runner_mod._single_net_epoch
+        self.wall = self.busy = None
+
+    def __enter__(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        def wrapped(cfg, mod, state, tx, epoch, *a, **k):
+            if epoch != self.epoch:
+                return self.fn(cfg, mod, state, tx, epoch, *a, **k)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA],
+                         acc_events=True) as prof:
+                t0 = time.perf_counter()
+                out = self.fn(cfg, mod, state, tx, epoch, *a, **k)
+                torch.cuda.synchronize()
+                self.wall = time.perf_counter() - t0
+            self.busy = sum(_device_us(e) * 1e-6 for e in prof.key_averages()
+                            if _device_us(e) > 0)
+            return out
+        self.mod._single_net_epoch = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._single_net_epoch = self.fn
+
+
+def ious_and_logp(model, x, y, c, batch):
+    """Per-shape IoUs (eval_scan) and log-probs of ``model`` on its device
+    over the test split, as numpy."""
+    from adversarial_learning_on_pointclouds_tpu_torch import eval as ev
+    from adversarial_learning_on_pointclouds_tpu_torch.train import segment
+
+    dev = next(model.parameters()).device
+    pools = [torch.from_numpy(a).to(dev) for a in (x, y, c)]
+    idx, mask = ev._eval_indices(len(x), batch)
+    ious = segment.eval_scan(model, *pools, idx)["ious"].cpu().numpy()
+    with segment.eval_mode(model):
+        logp = torch.cat([model(pools[0][s:s + batch])[0].cpu()
+                          for s in range(0, len(x), batch)]).numpy()
+    return ious.reshape(-1)[mask], logp
+
+
+def eval_on_cpu(cfg, seg_out, gpu_model, test, ev_gpu):
+    """Check 2: the epoch-1 checkpoint evaluated on the CPU against the
+    card's eval of the same weights."""
+    from adversarial_learning_on_pointclouds_tpu_torch import eval as ev
+    from adversarial_learning_on_pointclouds_tpu_torch.train import segment
+    from adversarial_learning_on_pointclouds_tpu_torch.utils import (
+        checkpoint,
+    )
+
+    x, y, c = test
+    cpu = segment.create_state(cfg, 1, device="cpu")
+    checkpoint.load_params_only(seg_out, cpu, step=1)
+    t0 = time.perf_counter()
+    summary, table = ev.evaluate_segmenter_device(
+        cpu.model, *(torch.from_numpy(a) for a in test), y, c,
+        cfg.batch_size)
+    cpu_s = time.perf_counter() - t0
+    ev_summary, ev_table = ev_gpu
+    diffs = [abs(summary["instance_miou"] - ev_summary["instance_miou"])] + [
+        abs(table[k] - ev_table[k]) for k in ev_table]
+    if table.keys() != ev_table.keys():
+        raise AssertionError("per-category tables list other categories")
+    iou_g, logp_g = ious_and_logp(gpu_model, x, y, c, cfg.batch_size)
+    iou_c, logp_c = ious_and_logp(cpu.model, x, y, c, cfg.batch_size)
+    differ = np.nonzero(iou_g != iou_c)[0]
+    arg_g, arg_c = logp_g.argmax(-1), logp_c.argmax(-1)
+    flips = np.nonzero(arg_g != arg_c)
+    margin = (np.take_along_axis(logp_c, arg_c[..., None], -1)
+              - np.take_along_axis(logp_c, arg_g[..., None], -1))[flips]
+    scale = max(1.0, float(np.abs(logp_c).max()))
+    phase("runner", f"epoch-1 checkpoint on the CPU ({cpu_s:.1f} s): "
+          f"instance mIoU {summary['instance_miou']:.6f} against the card's "
+          f"{ev_summary['instance_miou']:.6f}; max difference over the "
+          f"mIoU and {len(table)} categories {max(diffs):.3e} (bound "
+          f"{EVAL_CPU_ATOL:g}); {len(differ)} of {len(x)} shapes' IoUs "
+          f"differ (at most {EVAL_CPU_SHAPES}); {len(flips[0])} of "
+          f"{arg_c.size} argmax differ, largest CPU top-2 margin there "
+          f"{margin.max() if len(margin) else 0.0:.3e}")
+    if max(diffs) > EVAL_CPU_ATOL or len(differ) > EVAL_CPU_SHAPES:
+        raise AssertionError("the card's eval differs from the CPU's")
+    if len(flips[0]) and margin.max() >= BOUND * scale:
+        raise AssertionError(f"argmax differs at a top-2 margin of "
+                             f"{margin.max():.3e}")
+    flip_shapes = set(flips[0].tolist())
+    if not set(differ.tolist()) <= flip_shapes:
+        raise AssertionError("a shape's IoU differs without an argmax flip")
+
+
+def eval_pass_times(card, model, test, reps=5):
+    """The runner's eval pass (``evaluate_segmenter_device`` over the
+    test split) on the card: host-clock ms a pass over synchronized
+    passes, and its device time by kernel (torch.profiler)."""
+    from adversarial_learning_on_pointclouds_tpu_torch import eval as ev
+
+    x, y, c = test
+    pools = [torch.from_numpy(a).cuda() for a in test]
+
+    def one():
+        ev.evaluate_segmenter_device(model, *pools, y, c, B)
+
+    one()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        one()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / reps * 1e3
+    per = device_profile(one, reps=reps)
+    busy = sum(per.values())
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:3]
+    phase("runner", f"{card}: eval pass of {len(x)} shapes (B={B}, "
+          f"{-(-len(x) // B)} forwards): {wall:.3f} ms host to host, "
+          f"device busy {busy:.3f} ms ({1 - busy / wall:.1%} idle); "
+          + "; ".join(f"{short_name(k)} {v:.3f}" for k, v in top))
+
+
+def short_name(kernel: str) -> str:
+    """A profiler kernel name without ``void`` and the namespaces."""
+    return re.sub(r"^void |pointtpu::|\(anonymous namespace\)::", "",
+                  kernel)[:32]
+
+
+def runner_phase(dev, card):
+    """Phase 21."""
+    from adversarial_learning_on_pointclouds_tpu_torch import (
+        eval_segmentation,
+    )
+    from adversarial_learning_on_pointclouds_tpu_torch.configs import (
+        AdversarialConfig, SegmentConfig,
+    )
+    from adversarial_learning_on_pointclouds_tpu_torch.data.shapenet_part \
+        import make_synthetic_shapenet
+    from adversarial_learning_on_pointclouds_tpu_torch.train import (
+        runner as runner_lib,
+    )
+
+    t_phase = time.perf_counter()
+    counters, wrappers = adv_counters(), serve_wrappers()
+    seg_want = {**PER_STEP, **PT_OFF,
+                "disc_fused": {p: 0 for p in DISC_SITES},
+                "augment_fused": {"fwd": 0}}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        root = make_synthetic_shapenet(os.path.join(tmp, "data"),
+                                       RUNNER_SHAPES, TRAIN_N, seed=SEED)
+        phase("runner", f"pts fixture of {RUNNER_SHAPES} shapes x {TRAIN_N} "
+              f"points written in {time.perf_counter() - t0:.1f} s")
+        base = SegmentConfig(batch_size=B, num_points=TRAIN_N, epochs=2,
+                             dataset=root, quiet=True, feature_transform=True,
+                             ckpt_policy="every", eval_every=1)
+
+        # 1. run_segmentation, two epochs, device pools.
+        seg_out = os.path.join(tmp, "seg")
+        cfg = dataclasses.replace(base, out_dir=seg_out)
+        out = io.StringIO()
+        with redirect_stdout(out):
+            result, train, serve = counted_run(
+                runner_lib.run_segmentation, cfg, counters, wrappers)
+        phase("runner", out.getvalue().strip().splitlines()[0])
+        steps = result["state"].step
+        spe = steps // 2
+        rows = read_csv(os.path.join(seg_out, "seg_epochs.csv"))
+        n_test = int(float(rows[0]["num_shapes"]))
+        forwards = 2 * -(-n_test // B)
+        check_run_launches("run_segmentation", train, serve, steps,
+                           seg_want, forwards)
+        for name, header in (("seg_metrics.csv", [
+                "epoch", "batch", "step", "step_time_s",
+                "points_per_sec_per_chip", "loss", "acc"]),
+                ("seg_epochs.csv", [
+                    "epoch", "instance_miou", "point_accuracy",
+                    "num_shapes", "train_s", "eval_s", "ckpt_s"])):
+            with open(os.path.join(seg_out, name)) as f:
+                got = f.readline().strip().split(",")
+            if got != header:
+                raise AssertionError(f"{name} header {got} != {header}")
+        losses = step_losses(seg_out, "seg", "loss")
+        if [s for s, _ in losses] != list(range(1, steps + 1)) or \
+                not np.isfinite([v for _, v in losses]).all():
+            raise AssertionError(f"per-step losses: {losses}")
+        if sorted(d for d in os.listdir(seg_out) if d.isdigit()) != ["0", "1"]:
+            raise AssertionError(f"checkpoints: {os.listdir(seg_out)}")
+        for r in rows:
+            phase("runner", f"{card}: run_segmentation epoch {r['epoch']} "
+                  f"(B={B} N={TRAIN_N}, {spe} steps, {n_test} test shapes): "
+                  f"train_s {float(r['train_s']):.3f}, eval_s "
+                  f"{float(r['eval_s']):.3f} ({n_test / float(r['eval_s']):.0f}"
+                  f" shapes/s), ckpt_s {float(r['ckpt_s']):.3f}; instance "
+                  f"mIoU {float(r['instance_miou']):.4f}, point accuracy "
+                  f"{float(r['point_accuracy']):.4f}")
+
+        # 2. the same eval on the CPU from the epoch-1 checkpoint; the
+        # card's eval pass timed alone first.
+        with redirect_stdout(io.StringIO()):
+            (_, _, _), test = runner_lib._shapenet_arrays(cfg)
+        eval_pass_times(card, result["state"].model, test)
+        ev_gpu = ({k: float(rows[1][k]) for k in ("instance_miou",)},
+                  result["category_miou"])
+        eval_on_cpu(cfg, seg_out, result["state"].model, test, ev_gpu)
+
+        # 3. --resume_full from the epoch-0 checkpoint runs epoch 1 again,
+        # in one torch.profiler window (the host's share of an epoch).
+        first = os.path.join(tmp, "first")
+        os.makedirs(first)
+        os.rename(os.path.join(seg_out, "0"), os.path.join(first, "0"))
+        res_out = os.path.join(tmp, "resumed")
+        with EpochProfile(runner_lib, 1) as prof, \
+                redirect_stdout(io.StringIO()):
+            resumed = runner_lib.run_segmentation(dataclasses.replace(
+                base, out_dir=res_out, resume=first, resume_full=True),
+                device="cuda")
+        check_losses("--resume_full from epoch 0, epoch 1 again",
+                     step_losses(res_out, "seg", "loss"), losses[spe:],
+                     RESUME_RTOL)
+        if resumed["state"].step != steps:
+            raise AssertionError("the resumed run's step count")
+        phase("runner", f"{card}: epoch 1 again in one torch.profiler "
+              f"window (device activity only): wall {prof.wall:.3f} s, "
+              f"device busy {prof.busy:.3f} s, the host's share "
+              f"{1 - prof.busy / prof.wall:.1%} ({spe} steps, "
+              f"{prof.wall / spe * 1e3:.2f} ms a step)")
+
+        # 4. --host_data against device pools (epoch 0).
+        host_out = os.path.join(tmp, "host")
+        with redirect_stdout(io.StringIO()):
+            runner_lib.run_segmentation(dataclasses.replace(
+                base, out_dir=host_out, epochs=1, device_data=False),
+                device="cuda")
+        check_losses("--host_data against device pools, epoch 0",
+                     step_losses(host_out, "seg", "loss"), losses[:spe],
+                     HOST_DATA_RTOL)
+
+        # 5. run_adversarial, one epoch with the bench flags.
+        adv_out = os.path.join(tmp, "adv")
+        acfg = AdversarialConfig(
+            batch_size=B, num_points=TRAIN_N, epochs=1, dataset=root,
+            quiet=True, feature_transform=True, out_dir=adv_out, augment=True,
+            bf16=True, pallas_augment=True, paired_trunks=True,
+            scan=BENCH_K)
+        with redirect_stdout(io.StringIO()):
+            t0 = time.perf_counter()
+            adv, train, serve = counted_run(runner_lib.run_adversarial, acfg,
+                                            counters, wrappers)
+            adv_s = time.perf_counter() - t0
+        adv_steps = adv["state"].step
+        check_run_launches(
+            "run_adversarial --bf16 --pallas_augment --paired_trunks "
+            f"--scan {BENCH_K}", train, serve, adv_steps,
+            {**ADV_PER_STEP, **PT_OFF, "trunk2_train": GROUPS2_PER_STEP,
+             "augment_fused": {"fwd": AUG_PER_STEP}}, -(-n_test // B))
+        adv_losses = [v for r in read_csv(os.path.join(
+            adv_out, "adv_metrics.csv")) for k, v in r.items()
+            if k.startswith("loss")]
+        if not np.isfinite(np.asarray(adv_losses, float)).all():
+            raise AssertionError("non-finite adversarial losses")
+        arow = read_csv(os.path.join(adv_out, "adv_epochs.csv"))[0]
+        phase("runner", f"{card}: run_adversarial (bench flags, K={BENCH_K})"
+              f" epoch 0: {adv_steps} G+D steps, train_s "
+              f"{float(arow['train_s']):.3f}, eval_s "
+              f"{float(arow['eval_s']):.3f}, ckpt_s "
+              f"{float(arow['ckpt_s']):.3f}; G's instance mIoU "
+              f"{float(arow['instance_miou']):.4f}; {len(adv_losses)} losses "
+              f"finite; the run {adv_s:.1f} s")
+
+        # 6. the eval CLI on the seg run's directory (its epoch-1 ckpt).
+        out = io.StringIO()
+        with redirect_stdout(out):
+            ev_cli, _ = eval_segmentation.main([
+                "--model", seg_out, "--dataset", root, "--num_points",
+                str(TRAIN_N)])
+        last = float(rows[-1]["instance_miou"])
+        line = [s for s in out.getvalue().splitlines()
+                if s.startswith("instance mIoU")][0]
+        phase("runner", f"eval_segmentation --model <seg run>: {line!r}; "
+              f"the run's last eval {last:.6f}")
+        if abs(ev_cli["instance_miou"] - last) > 1e-6 or \
+                line != f"instance mIoU: {last:.4f}":
+            raise AssertionError("the eval CLI does not reproduce the run")
+    spent = time.perf_counter() - t_phase
+    phase("runner", f"{card}: the runner phase took {spent:.1f} s (budget "
+          f"{RUNNER_BUDGET_S:g} s)")
+    if spent > RUNNER_BUDGET_S:
+        raise AssertionError(f"the runner phase took {spent:.1f} s")
+
+
 def ptxas_report(build, src):
     """``{name<template arguments>: (registers, spill store bytes, spill
     load bytes)}`` of ``src``'s kernels in this run's build (empty when
@@ -4255,6 +4645,9 @@ def main() -> None:
                     help="run only the discriminator's checks of phases 9 "
                          "and 12 on data from this generator seed (no "
                          "result line)")
+    ap.add_argument("--runner", action="store_true",
+                    help="run only phases 1-2 and 21 (the runners end to "
+                         "end; no result line)")
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(
         __file__)), help="with --time: the tree whose port package to time")
     args = ap.parse_args()
@@ -4297,6 +4690,9 @@ def main() -> None:
     if args.time:
         time_alone(args.time, args.root, card)
         return
+    if args.runner:
+        runner_phase(dev, card)
+        return
     if args.disc_checks is not None:
         gen = torch.Generator().manual_seed(args.disc_checks)
         disc_kernel_checks(dev, gen, PassRecord())
@@ -4329,6 +4725,7 @@ def main() -> None:
     rec_st = stack_trunk3_checks(dev, gen)
     slice_out = adv_pt_slice(dev, card, gen)
     adv_pt_timing(card, rec_st, slice_out, results)
+    runner_phase(dev, card)
 
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
