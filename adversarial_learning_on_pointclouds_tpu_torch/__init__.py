@@ -22,10 +22,26 @@ segmentation configs end to end: the ShapeNet-part data layer
 ``.pts`` loader, index streams and device-resident pools), the eval
 (``eval.py``, ``utils/metrics.py``), checkpoints (``utils/
 checkpoint.py``), logging (``utils/logging.py``), profiling and the
-runner (``train/runner.py``) behind the train and eval CLIs.
+runner (``train/runner.py``) behind the train and eval CLIs; and the
+classification configs end to end: the PointNet classifier
+(``models/classifier.py``) trained on ModelNet40 (``data/
+modelnet40.py``, its synthetic fixture in memory) by ``train/
+classify.py`` (configs 1 and 2) and, with FGSM/PGD perturbations of the
+input (``attacks.py``, the eval forward differentiated under
+``ops.dispatch.differentiable_eval``), by ``train/adv_perturb.py``
+(config 5), its accuracy and robustness evals (``eval.py``) and serving
+(``infer.py --model cls``).
 
 Entry points (on the card unless given ``device="cpu"`` or ``--cpu``)::
 
+    python -m adversarial_learning_on_pointclouds_tpu_torch.train_classification \\
+        --nepoch 2 --feature_transform --augment --outf cls
+    python -m adversarial_learning_on_pointclouds_tpu_torch.train_adv_perturb \\
+        --nepoch 2 --epsilon 0.05 --outf advp
+    python -m adversarial_learning_on_pointclouds_tpu_torch.eval_classification \\
+        --model cls
+    python -m adversarial_learning_on_pointclouds_tpu_torch.eval_robustness \\
+        --model advp --epsilons 0 0.05
     python -m adversarial_learning_on_pointclouds_tpu_torch.train_segmentation \\
         --nepoch 2 --outf seg
     python -m adversarial_learning_on_pointclouds_tpu_torch.train_adversarial \\
@@ -35,6 +51,12 @@ Entry points (on the card unless given ``device="cpu"`` or ``--cpu``)::
 
     python -m adversarial_learning_on_pointclouds_tpu_torch.infer \\
         --checkpoint g.pth --model adv --input shape.pts
+    python -m adversarial_learning_on_pointclouds_tpu_torch.infer \\
+        --checkpoint cls.pth --model cls --input clouds.h5
+
+    from adversarial_learning_on_pointclouds_tpu_torch.train import classify
+    state = classify.create_state(cfg, steps_per_epoch)
+    classify.train_step(state, points, labels, cfg=cfg, tx=tx)
 
     from adversarial_learning_on_pointclouds_tpu_torch.train import segment
     state = segment.create_state(cfg, steps_per_epoch)

@@ -1,18 +1,19 @@
 """Configuration of the training runs and of serving, and their CLI flags.
 
 Counterpart of ``adversarial_learning_on_pointclouds_tpu/configs.py``:
-``BaseConfig``, ``SegmentConfig`` (config 3) and ``AdversarialConfig``
-(config 4) with the fields the port reads, under the JAX package's names
-and defaults, and the flag parsers of the segmentation and adversarial
-trainers (``segment_config_from_args``, ``adversarial_config_from_args``)
-with the JAX package's flag names and defaults.
+``BaseConfig``, ``ClassifyConfig`` (configs 1 and 2), ``SegmentConfig``
+(config 3), ``AdversarialConfig`` (config 4) and ``AdvPerturbConfig``
+(config 5) with the fields the port reads, under the JAX package's names
+and defaults, and the flag parsers of the four trainers
+(``parse_classify_args``, ``parse_segment_args``,
+``parse_adversarial_args``, ``parse_adv_perturb_args``) with the JAX
+package's flag names and defaults.
 
 The device is the switch between the hand-written kernels and their
 plain versions: the card (the default) runs the kernels, ``--cpu`` the
 plain PyTorch versions, so there is no ``--no_pallas`` (it raises). The
 device is not a config field (the configs' fields are the JAX package's):
-``parse_segment_args`` / ``parse_adversarial_args`` return it beside the
-config, and the runners take it as an argument. Options the port does
+the ``parse_*_args`` functions return it beside the config, and the runners take it as an argument. Options the port does
 not run yet raise ``NotImplementedError`` naming their ROADMAP item
 (Queue 1): ``fused_epoch`` (item 5, with the CUDA graph of the K steps),
 ``num_devices`` above 1 (item 15, data parallelism), the ablation
@@ -102,6 +103,15 @@ class BaseConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ClassifyConfig(BaseConfig):
+    """Configs 1-2: ModelNet40 classification."""
+
+    num_classes: int = 40
+    dropout: float = 0.3          # between fc2 and its BN (the reference's)
+    out_dir: str = "cls"
+
+
+@dataclasses.dataclass(frozen=True)
 class SegmentConfig(BaseConfig):
     """Config 3: ShapeNet-part segmentation (also the adversarial G)."""
 
@@ -158,6 +168,26 @@ class AdversarialConfig(SegmentConfig):
         if self.paired_trunks and not self.paired_heads:
             raise ValueError("paired_trunks requires the paired-heads path "
                              "(paired_heads=True)")
+
+
+@dataclasses.dataclass(frozen=True)
+class AdvPerturbConfig(BaseConfig):
+    """Config 5: FGSM perturbation training (its data-parallel half is
+    ROADMAP Queue 1 item 15: ``num_devices`` above 1 raises)."""
+
+    num_classes: int = 40
+    dropout: float = 0.3
+    epsilon: float = 0.05         # --epsilon (FGSM step / L-inf bound)
+    attack: str = "fgsm"          # --attack {fgsm, pgd}: pgd runs
+                                  #   attack_steps projected iterations
+                                  #   (attack_steps 1 takes FGSM's path)
+    attack_steps: int = 1         # --attack_steps (PGD iterations)
+    out_dir: str = "advp"
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.attack not in ("fgsm", "pgd"):
+            raise ValueError(f"unknown attack {self.attack!r}")
 
 
 def _add_common_flags(p: argparse.ArgumentParser) -> None:
@@ -294,14 +324,34 @@ def _common_kwargs(a: argparse.Namespace, default_points: int,
     )
 
 
-def segment_config_from_args(argv=None) -> SegmentConfig:
-    """CLI shim for ``train_segmentation`` (the config only)."""
-    return parse_segment_args(argv)[0]
+def parse_classify_args(argv=None) -> Tuple[ClassifyConfig, str]:
+    """``train_classification``'s flags -> ``(config, device)``."""
+    p = argparse.ArgumentParser(description="PointNet classification "
+                                "(PyTorch/CUDA)")
+    _add_common_flags(p)
+    a = p.parse_args(argv)
+    return (ClassifyConfig(feature_transform=a.feature_transform,
+                           **_common_kwargs(a, 1024, "cls")),
+            device_from_args(a))
 
 
-def adversarial_config_from_args(argv=None) -> AdversarialConfig:
-    """CLI shim for ``train_adversarial`` (the config only)."""
-    return parse_adversarial_args(argv)[0]
+def parse_adv_perturb_args(argv=None) -> Tuple[AdvPerturbConfig, str]:
+    """``train_adv_perturb``'s flags -> ``(config, device)``."""
+    p = argparse.ArgumentParser(description="FGSM perturbation training "
+                                "(PyTorch/CUDA)")
+    _add_common_flags(p)
+    p.add_argument("--epsilon", type=float, default=0.05, help="FGSM epsilon")
+    p.add_argument("--attack", type=str, default="fgsm",
+                   choices=("fgsm", "pgd"),
+                   help="pgd = iterated projected FGSM (--attack_steps)")
+    p.add_argument("--attack_steps", type=int, default=1,
+                   help="PGD iterations (1 == FGSM)")
+    a = p.parse_args(argv)
+    return (AdvPerturbConfig(epsilon=a.epsilon, attack=a.attack,
+                             attack_steps=a.attack_steps,
+                             feature_transform=a.feature_transform,
+                             **_common_kwargs(a, 1024, "advp")),
+            device_from_args(a))
 
 
 def parse_segment_args(argv=None) -> Tuple[SegmentConfig, str]:

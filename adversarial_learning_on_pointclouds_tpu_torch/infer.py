@@ -1,8 +1,11 @@
-"""Part-segmentation inference over a point-cloud file, on the GPU.
+"""Classification and part-segmentation inference over a point-cloud
+file, on the GPU.
 
-The port of ``scripts/infer.py``'s ``--checkpoint`` route for
-``--model seg|adv``: a reference-format ``.pth`` (a segmenter, or an
-adversarial run's generator) predicts a part label per point. Same flags
+The port of ``scripts/infer.py``'s ``--checkpoint`` route: a
+reference-format ``.pth`` predicts a class per cloud (``--model cls``, a
+``PointNetCls``, 1024 points by default) or a part label per point
+(``--model seg|adv``, a segmenter or an adversarial run's generator,
+2500 points by default). Same flags
 as the JAX script, except that ``--device`` (default ``cuda``) replaces
 ``--cpu`` and there is no ``--no_pallas``: a CUDA device runs the
 hand-written kernels, the CPU their plain PyTorch versions.
@@ -15,6 +18,8 @@ the same seeded numpy draw as the JAX script.
 
     python -m adversarial_learning_on_pointclouds_tpu_torch.infer \\
         --checkpoint g.pth --model adv --feature_transform --input shape.pts
+    python -m adversarial_learning_on_pointclouds_tpu_torch.infer \\
+        --checkpoint cls.pth --model cls --input clouds.h5
 """
 
 from __future__ import annotations
@@ -26,7 +31,6 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from adversarial_learning_on_pointclouds_tpu_torch.configs import SegmentConfig
 from adversarial_learning_on_pointclouds_tpu_torch.data.augment import (
     normalize_unit_sphere_np,
 )
@@ -37,6 +41,7 @@ from adversarial_learning_on_pointclouds_tpu_torch.utils.ply import (
 )
 
 SEG_POINTS = 2500  # the seg default of scripts/infer.py
+CLS_POINTS = 1024  # the cls default of scripts/infer.py
 
 
 def load_clouds(path: str) -> np.ndarray:
@@ -64,18 +69,17 @@ def prep(clouds: np.ndarray, num_points: int, seed: int = 0) -> np.ndarray:
 
 
 class Predictor:
-    """A loaded segmenter on one device: ``predict`` maps prepared clouds
-    ``[S, N, 3]`` to per-point log-probabilities ``[S, N, k]``, ``batch``
-    clouds per forward."""
+    """A loaded model on one device: ``predict`` maps prepared clouds
+    ``[S, N, 3]`` to log-probabilities, ``[S, k]`` per cloud of a
+    classifier (``model="cls"``), ``[S, N, k]`` per point of a segmenter
+    (``"seg"``, ``"adv"``), ``batch`` clouds per forward."""
 
     def __init__(self, checkpoint_path: str, model: str = "seg",
                  num_points: int = SEG_POINTS, device: str = "cuda",
                  num_parts: int = 50, feature_transform: bool = False,
-                 batch: int = 32):
-        if model not in ("seg", "adv"):
-            raise NotImplementedError(
-                f"--model {model}: the port's classifier is still to come "
-                "(ROADMAP, Queue 1, 'Classification')")
+                 batch: int = 32, num_classes: int = 40):
+        if model not in ("cls", "seg", "adv"):
+            raise ValueError(f"unknown model {model!r}")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"--device {device}: CUDA is not available "
@@ -83,17 +87,20 @@ class Predictor:
         if batch < 1:
             raise ValueError(f"--batch must be positive, got {batch}")
         core.exact_fp32()
-        self.cfg = SegmentConfig(num_points=num_points, num_parts=num_parts,
-                                 feature_transform=feature_transform)
+        self.num_points = num_points
         self.batch = batch
-        self.model = checkpoint.load_segmenter(
-            checkpoint_path, num_parts, feature_transform, self.device)
+        if model == "cls":
+            self.model = checkpoint.load_classifier(
+                checkpoint_path, num_classes, feature_transform, self.device)
+        else:
+            self.model = checkpoint.load_segmenter(
+                checkpoint_path, num_parts, feature_transform, self.device)
 
     @torch.inference_mode()
     def predict(self, clouds: np.ndarray) -> np.ndarray:
         clouds = np.ascontiguousarray(clouds, dtype=np.float32)
-        if clouds.ndim != 3 or clouds.shape[1:] != (self.cfg.num_points, 3):
-            raise ValueError(f"clouds must be [S, {self.cfg.num_points}, 3], "
+        if clouds.ndim != 3 or clouds.shape[1:] != (self.num_points, 3):
+            raise ValueError(f"clouds must be [S, {self.num_points}, 3], "
                              f"got {clouds.shape}")
         out = []
         for s in range(0, len(clouds), self.batch):
@@ -114,14 +121,15 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="reference-format .pth state_dict")
     p.add_argument("--model", choices=("cls", "seg", "adv"), default="cls")
     p.add_argument("--num_points", type=int, default=0,
-                   help=f"0 = the seg default, {SEG_POINTS}")
+                   help=f"0 = the model's default: {CLS_POINTS} (cls), "
+                        f"{SEG_POINTS} (seg, adv)")
     p.add_argument("--num_classes", type=int, default=40)
     p.add_argument("--num_parts", type=int, default=50)
     p.add_argument("--feature_transform", action="store_true")
     p.add_argument("--batch", type=int, default=32)
     p.add_argument("--ply", type=str, default="",
                    help="write the FIRST cloud's part labels as a colored "
-                        ".ply")
+                        ".ply (seg, adv)")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (the kernels) or cpu (their plain versions)")
     a = p.parse_args(argv)
@@ -139,13 +147,17 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     a = parse_args(argv)
-    npts = a.num_points or SEG_POINTS
+    npts = a.num_points or (CLS_POINTS if a.model == "cls" else SEG_POINTS)
     predictor = Predictor(a.checkpoint, a.model, npts, a.device,
                           num_parts=a.num_parts,
                           feature_transform=a.feature_transform,
-                          batch=a.batch)
+                          batch=a.batch, num_classes=a.num_classes)
     clouds = prep(load_clouds(a.input), npts)
     pred = np.argmax(predictor.predict(clouds), axis=-1)
+    if a.model == "cls":
+        for i, c in enumerate(pred):
+            print(f"cloud {i}: class {int(c)}")
+        return
     for i, lab in enumerate(pred):
         uniq, cnt = np.unique(lab, return_counts=True)
         top = ", ".join(f"{int(u)}×{int(c)}" for u, c in

@@ -1,5 +1,8 @@
 """The models, eval and train, with the reference's parameter names."""
 
+from adversarial_learning_on_pointclouds_tpu_torch.models.classifier import (
+    PointNetCls,
+)
 from adversarial_learning_on_pointclouds_tpu_torch.models.discriminator import (
     FCDiscriminator,
 )
@@ -13,5 +16,5 @@ from adversarial_learning_on_pointclouds_tpu_torch.models.tnet import (
     STN3d, STNkd,
 )
 
-__all__ = ["FCDiscriminator", "PointNetDenseCls", "PointNetfeat", "STN3d",
-           "STNkd"]
+__all__ = ["FCDiscriminator", "PointNetCls", "PointNetDenseCls",
+           "PointNetfeat", "STN3d", "STNkd"]

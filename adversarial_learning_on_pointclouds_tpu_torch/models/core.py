@@ -11,6 +11,8 @@ the JAX package's channel-last layout (``[B, N, C]``, weights used as
   (``batch_norm_train``, and ``batch_norm_train_grouped`` per row block)
   normalizes with the batch moments and updates the running statistics
   in place (``eps = 1e-5``, momentum 0.1).
+* Dropout (``dropout``) is inverted, its mask drawn from an explicit
+  generator.
 * Init is torch's default for ``Conv1d``/``Linear`` (weight and bias
   ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))``), which is what the JAX
   package's ``torch_linear_init`` reproduces; ``init_`` redraws it from
@@ -104,6 +106,25 @@ def activation(x: torch.Tensor, act: Optional[str]) -> torch.Tensor:
     if act == "leaky_relu":
         return torch.where(x >= 0, x, 0.2 * x)
     raise ValueError(f"unknown activation {act!r}")
+
+
+def dropout_mask(generator: Optional[torch.Generator], shape, p: float,
+                 device) -> torch.Tensor:
+    """The keep mask of inverted dropout at rate ``p``: each element kept
+    where a uniform draw from ``generator`` (on ``device``) lies below
+    ``1 - p``."""
+    return torch.rand(shape, generator=generator, device=device) < 1.0 - p
+
+
+def dropout(x: torch.Tensor, p: float,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Inverted dropout, torch semantics (the kept elements scaled by ``1
+    / (1 - p)``), as the JAX package's ``core.dropout``, its mask drawn by
+    ``dropout_mask``; ``p <= 0`` is the identity."""
+    if p <= 0.0:
+        return x
+    mask = dropout_mask(generator, x.shape, p, x.device)
+    return torch.where(mask, x / (1.0 - p), 0.0)
 
 
 def weight_in_out(layer: nn.Module) -> torch.Tensor:

@@ -13,7 +13,8 @@ encoder.py::apply_encoder_parts`` under ``use_pallas``. On ``x [B, N,
    ``[B, 1024]``.
 
 In eval mode step 2 is ``fused_linear_affine_act`` and step 4 one
-``fused_stack_maxpool``, with folded BNs. In train mode (``.train()``)
+``fused_stack_maxpool``, with folded BNs (their plain versions under
+``ops.differentiable_eval``, the attacks' context). In train mode (``.train()``)
 the BNs use batch statistics and update their running statistics in
 place: step 2 is plain PyTorch, step 4 ``trunk2_train``. Under
 ``ops.use_pallas_train`` step 2 runs ``pointwise_matmul`` and the
@@ -34,9 +35,6 @@ from adversarial_learning_on_pointclouds_tpu_torch.models.tnet import (
     STN3d, STNkd, train_trunk,
 )
 from adversarial_learning_on_pointclouds_tpu_torch.ops import dispatch as ops
-from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
-    encoder_fused,
-)
 
 
 class PointNetfeat(nn.Module):
@@ -69,10 +67,9 @@ class PointNetfeat(nn.Module):
             x = ops.batched_transform(x, trans_feat)
         if self.training:
             return x, self._train_trunk(x), trans, trans_feat
-        w2, s2, c2 = ops.folded_affine(self.conv2, self.bn2)
-        w3, s3, c3 = ops.folded_affine(self.conv3, self.bn3)
-        g = encoder_fused.fused_stack_maxpool(x, (w2, w3), (s2, s3), (c2, c3),
-                                              ("relu", None))
+        g = ops.stack_maxpool(x, (ops.folded_affine(self.conv2, self.bn2),
+                                  ops.folded_affine(self.conv3, self.bn3)),
+                              ("relu", None))
         return x, g, trans, trans_feat
 
     def forward_pair(self, x_a: torch.Tensor, x_b: torch.Tensor,

@@ -8,7 +8,8 @@ added last. Parameter names are the reference's (``bn4``/``bn5`` are the
 fc BNs).
 
 * Eval: the whole trunk and its max are one ``fused_stack_maxpool`` with
-  folded BNs; the fc head is plain ``torch.matmul``.
+  folded BNs (``ops.stack_maxpool``: its plain version under
+  ``ops.differentiable_eval``); the fc head is plain ``torch.matmul``.
 * Train (``.train()``): conv1 is plain PyTorch with a batch-statistic BN;
   conv2 + conv3 + max run as ``trunk2_train`` with the post-pool ReLU
   applied to the pooled vector (``max(relu(y)) == relu(max(y))``); fc1 +
@@ -37,7 +38,7 @@ from torch import nn
 from adversarial_learning_on_pointclouds_tpu_torch.models import core
 from adversarial_learning_on_pointclouds_tpu_torch.ops import dispatch as ops
 from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
-    encoder_fused, fc_head_train, pool_fc_epilogue, trunk_train,
+    fc_head_train, pool_fc_epilogue, trunk_train,
 )
 
 
@@ -65,12 +66,10 @@ class STNkd(nn.Module):
         if self.training:
             out = self._train_head(self._train_trunk(x))
         else:
-            ws, shifts, scales = zip(*(
+            h = ops.stack_maxpool(x, [
                 ops.folded_affine(getattr(self, f"conv{i}"),
                                   getattr(self, f"bn{i}"))
-                for i in (1, 2, 3)))
-            h = encoder_fused.fused_stack_maxpool(x, ws, shifts, scales,
-                                                  ("relu", "relu", "relu"))
+                for i in (1, 2, 3)], ("relu", "relu", "relu"))
             h = ops.linear_bn_act(self.fc1, self.bn4, h, "relu")
             h = ops.linear_bn_act(self.fc2, self.bn5, h, "relu")
             out = core.dense(self.fc3, h)

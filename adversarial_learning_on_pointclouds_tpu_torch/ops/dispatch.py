@@ -20,6 +20,16 @@ kernels of the JAX package cannot tile (``train_tiling_ok``), run the
 trunks, the seg head and the discriminator layer by layer
 (``layer_by_layer``). Off the
 switch the port runs its fused kernels at every point count.
+
+The eval-mode blocks (``linear_bn_act`` with a BN in eval mode on ``[B,
+N, C]``, ``stack_maxpool``) run the eval kernels, which have no
+backward: on the card a forward that autograd records raises there.
+``differentiable_eval()`` is the counterpart of the JAX package's
+``use_pallas(False)`` around its attack (``train/adv_perturb.py``
+there): within it those blocks run their plain versions on a CUDA
+tensor too, so an eval-mode forward can be differentiated with respect
+to its input, and the switch's per-layer kernels are off. Only the
+attacks (``attacks.py``) enter it.
 """
 
 from __future__ import annotations
@@ -33,7 +43,7 @@ from torch import nn
 
 from adversarial_learning_on_pointclouds_tpu_torch.models import core
 from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
-    maxpool_points, shared_mlp, tnet_apply,
+    encoder_fused, maxpool_points, shared_mlp, tnet_apply,
 )
 
 _state = threading.local()
@@ -55,6 +65,27 @@ def use_pallas_train(enabled: bool = True):
         yield
     finally:
         _state.pallas_train = prev
+
+
+def differentiable_eval_enabled() -> bool:
+    """Whether the eval-mode blocks run their plain versions (off by
+    default)."""
+    return getattr(_state, "differentiable_eval", False)
+
+
+@contextlib.contextmanager
+def differentiable_eval():
+    """Within the context the eval-mode blocks run their plain PyTorch
+    versions on every device, which autograd can differentiate, and the
+    per-layer training kernels of ``use_pallas_train`` are off, as the
+    JAX package's attack runs its XLA path alone under
+    ``use_pallas(False)``. Read when a forward runs, per thread."""
+    prev = differentiable_eval_enabled(), pallas_train_enabled()
+    _state.differentiable_eval, _state.pallas_train = True, False
+    try:
+        yield
+    finally:
+        _state.differentiable_eval, _state.pallas_train = prev
 
 
 def _tile_n(n: int, cap: int = 512) -> int:
@@ -112,15 +143,29 @@ def linear_bn_act(layer: nn.Module, bn: nn.BatchNorm1d, x: torch.Tensor,
     Train: ``_matmul`` and ``core.batch_norm_train`` (batch moments,
     running statistics updated in place), differentiable.
     Eval: BN folded; per-point ``[B, N, C]`` input runs the fused kernel
-    (``fused_linear_affine_act``), ``[B, C]`` rows (the T-Net fc heads)
-    stay plain ``torch.matmul``, as the JAX package leaves them to XLA."""
+    (``fused_linear_affine_act``; its plain version under
+    ``differentiable_eval``), ``[B, C]`` rows (the T-Net and classifier
+    fc heads) stay plain ``torch.matmul``, as the JAX package leaves them
+    to XLA."""
     if bn.training:
         return core.activation(core.batch_norm_train(bn, _matmul(layer, x)),
                                act)
     w, shift, scale = folded_affine(layer, bn)
-    if x.dim() == 3:
+    if x.dim() == 3 and not differentiable_eval_enabled():
         return shared_mlp.fused_linear_affine_act(x, w, shift, scale, act)
     return core.activation(torch.matmul(x, w) * scale + shift, act)
+
+
+def stack_maxpool(x: torch.Tensor, layers, acts) -> torch.Tensor:
+    """An eval-mode pointwise stack and its max over points, ``[B, N, c0]
+    -> [B, c_out]``: ``layers`` are ``(w, shift, scale)`` of
+    ``folded_affine``, one activation per layer. ``fused_stack_maxpool``,
+    or its plain version under ``differentiable_eval``."""
+    ws, shifts, scales = zip(*layers)
+    if differentiable_eval_enabled():
+        return encoder_fused.fused_stack_maxpool_plain(x, ws, shifts, scales,
+                                                       acts)
+    return encoder_fused.fused_stack_maxpool(x, ws, shifts, scales, acts)
 
 
 def linear_act(layer: nn.Module, x: torch.Tensor,

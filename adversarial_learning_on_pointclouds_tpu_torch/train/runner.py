@@ -1,11 +1,14 @@
-"""Full training runs of the segmentation configs — the engine behind the
-CLIs ``train_segmentation``, ``train_adversarial`` and
-``eval_segmentation`` (SURVEY.md §2.6; call stack §3.1).
+"""Full training runs of the five configs — the engine behind the CLIs
+``train_classification``, ``train_segmentation``, ``train_adversarial``,
+``train_adv_perturb`` and the eval CLIs (SURVEY.md §2.6; call stack
+§3.1).
 
 Counterpart of ``adversarial_learning_on_pointclouds_tpu/train/
-runner.py``: ``run_segmentation`` (config 3) and ``run_adversarial``
-(config 4). Each loads ShapeNet-part (a synthetic fixture when
-``cfg.dataset`` is empty), iterates epochs with prefetched batches, runs
+runner.py``: ``run_classification`` (configs 1-2), ``run_segmentation``
+(config 3), ``run_adversarial`` (config 4) and ``run_adv_perturb``
+(config 5). Each loads its data (ModelNet40 or ShapeNet-part; a
+synthetic fixture when ``cfg.dataset`` is empty), iterates epochs with
+prefetched batches, runs
 the eval every ``cfg.eval_every`` epochs, checkpoints under
 ``cfg.ckpt_policy`` and logs CSV/stdout metrics with the points/s meter,
 on ``device`` (the card unless the caller asks for the CPU). By default
@@ -19,14 +22,16 @@ How the port differs from the JAX package's runner:
 - the train steps update the state in place and return their metrics;
 - ``--fused_epoch`` raises (ROADMAP Queue 1 item 5), and there is one
   device, so no mesh;
-- the default synthetic fixture is in the pts layout, in a directory of
-  its own (``data/shapenet_part.py``);
+- the default ShapeNet-part fixture is in the pts layout, in a directory
+  of its own (``data/shapenet_part.py``); the default ModelNet40 fixture
+  is made in memory (``data/modelnet40.synthetic_modelnet``: the arrays
+  the JAX package's h5 fixture holds), with no file;
 - a ``--resume_full`` run continues at the checkpoint's next epoch (the
   step count over the steps per epoch), with the unlabeled stream of
   config 4 advanced to where it stood, so it repeats the uninterrupted
   run's epochs; the JAX package's restarts its epoch count at 0;
-- the eval forward runs in fp32 under ``--bf16`` too (the serving
-  kernels' precision; bf16 is the training steps');
+- the eval forward, and config 5's attack, run in fp32 under ``--bf16``
+  too (the serving kernels' precision; bf16 is the training steps');
 - an epoch's ``train_s`` ends when the card has finished the epoch's
   launches (the JAX package's ends when the host has queued them, up to
   ``log_lag`` launches earlier, whose device time then falls in
@@ -43,11 +48,12 @@ import tempfile
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from adversarial_learning_on_pointclouds_tpu_torch import eval as eval_lib
 from adversarial_learning_on_pointclouds_tpu_torch.configs import (
-    AdversarialConfig, SegmentConfig,
+    AdversarialConfig, AdvPerturbConfig, ClassifyConfig, SegmentConfig,
 )
 from adversarial_learning_on_pointclouds_tpu_torch.data import (
     augment as aug_lib, loader, native_loader,
@@ -55,12 +61,15 @@ from adversarial_learning_on_pointclouds_tpu_torch.data import (
 from adversarial_learning_on_pointclouds_tpu_torch.data.loader import (
     num_batches,
 )
+from adversarial_learning_on_pointclouds_tpu_torch.data.modelnet40 import (
+    ModelNet40, synthetic_modelnet,
+)
 from adversarial_learning_on_pointclouds_tpu_torch.data.shapenet_part import (
     ShapeNetPart, make_synthetic_shapenet,
 )
 from adversarial_learning_on_pointclouds_tpu_torch.models import core
 from adversarial_learning_on_pointclouds_tpu_torch.train import (
-    adversarial, segment, state as state_lib,
+    adv_perturb, adversarial, classify, segment, state as state_lib,
 )
 from adversarial_learning_on_pointclouds_tpu_torch.utils import checkpoint
 from adversarial_learning_on_pointclouds_tpu_torch.utils.logging import (
@@ -90,6 +99,50 @@ def default_fixture(num_points: int) -> str:
     except OSError:  # another run put its fixture in place first
         shutil.rmtree(tmp, ignore_errors=True)
     return root
+
+
+def _subsample(points: np.ndarray, num_points: int, seed: int) -> np.ndarray:
+    """One seeded host subsample of every cloud to ``num_points`` (the
+    same point indices for all; with replacement when the clouds are
+    smaller)."""
+    if points.shape[1] == num_points:
+        return points
+    rng = np.random.default_rng(seed)
+    idx = rng.choice(points.shape[1], num_points,
+                     replace=points.shape[1] < num_points)
+    return points[:, idx]
+
+
+def _modelnet_arrays(cfg, eval_split: str = "test"):
+    """``(x_tr, y_tr, x_te, y_te)``: the train pool at the source
+    resolution when ``cfg.resample`` (the step draws a fixed-N subsample
+    per batch on the device, the reference's per-``__getitem__`` draw),
+    else one seeded host subsample; the eval split (``test``, or the eval
+    CLIs' ``--split``) normalized over all its points, then one seeded
+    subsample. Without ``cfg.dataset`` the synthetic fixture, in memory.
+    Says on stdout which served the data."""
+    if cfg.dataset:
+        train = ModelNet40(cfg.dataset, "train")
+        test = ModelNet40(cfg.dataset, eval_split)
+        x_tr, y_tr, x_te, y_te = (train.points, train.labels, test.points,
+                                  test.labels)
+        src = f"{cfg.dataset} (h5)"
+    else:
+        x_tr, y_tr, x_te, y_te = synthetic_modelnet()
+        splits = {"train": (x_tr, y_tr), "test": (x_te, y_te)}
+        if eval_split not in splits:
+            raise FileNotFoundError(f"the synthetic ModelNet40 fixture has "
+                                    f"no {eval_split} split")
+        x_te, y_te = splits[eval_split]
+        src = "the synthetic fixture (in memory)"
+    if not cfg.resample:
+        x_tr = _subsample(x_tr, cfg.num_points, cfg.seed)
+    if cfg.normalize:
+        x_te = aug_lib.normalize_unit_sphere_np(x_te)
+    x_te = _subsample(x_te, cfg.num_points, cfg.seed + 1)
+    print(f"[data] ModelNet40 {src}: {len(x_tr)} train, {len(x_te)} "
+          f"{eval_split} shapes of {x_tr.shape[1]} points", flush=True)
+    return x_tr, y_tr, x_te, y_te
 
 
 def _shapenet_arrays(cfg, eval_split: str = "test"):
@@ -160,7 +213,8 @@ def _resume(cfg, state, spe: int) -> int:
 def _single_net_epoch(cfg, mod, state, tx, epoch, device, logger, spe,
                       pts_per_step, step_h, pools=None,
                       arrays=None) -> int:
-    """One training epoch of a single-network trainer (config 3).
+    """One training epoch of a single-network trainer (configs 1, 2, 3,
+    5).
 
     Default (``cfg.device_data``): the train pools live on the device
     (``pools = (pool_x, pool_y, n)``), the host streams ``[B]`` int32
@@ -229,6 +283,64 @@ def _evaluate(cfg, model, pools_te, x_te, s_te, c_te):
             model, *pools_te, s_te, c_te, cfg.batch_size)
     return eval_lib.evaluate_segmenter(model, x_te, s_te, c_te,
                                        cfg.batch_size)
+
+
+def _run_classifier(cfg, mod, name: str, epochs: Optional[int],
+                    device) -> dict:
+    """The classifier's run of ``mod`` (``classify`` or ``adv_perturb``):
+    its steps on ModelNet40, the accuracy eval, checkpoints and logs."""
+    epochs = epochs if epochs is not None else cfg.epochs
+    x_tr, y_tr, x_te, y_te = _modelnet_arrays(cfg)
+    device = _setup(device)
+    spe = num_batches(len(x_tr), cfg.batch_size)
+    tx = mod.make_tx(cfg, spe)
+    state = mod.create_state(cfg, spe, device=device)
+    start = _resume(cfg, state, spe)
+    logger = MetricLogger(cfg.out_dir, name, quiet=cfg.quiet, lag=cfg.log_lag)
+    pts_per_step = cfg.batch_size * cfg.num_points
+    best = 0.0
+    pools = pool_te = None
+    if cfg.device_data:
+        (pool_te,) = loader.to_device((x_te,), device)
+        pools = (*loader.to_device((x_tr, y_tr), device), len(y_tr))
+    with maybe_trace(cfg.profile_dir), \
+            checkpoint.AsyncSaver(cfg.ckpt_policy) as saver:
+        step_h = state.step
+        for epoch in range(start, epochs):
+            t0 = time.perf_counter()
+            step_h = _single_net_epoch(
+                cfg, mod, state, tx, epoch, device, logger, spe,
+                pts_per_step, step_h, pools=pools, arrays=(x_tr, y_tr))
+            t1 = _epoch_end(device)
+            if not _eval_epoch(cfg, epoch, epochs):
+                _skip_eval_epoch(cfg, saver, epoch, state)
+                continue
+            if cfg.device_data:
+                ev = eval_lib.evaluate_classifier_device(
+                    state.model, pool_te, y_te, cfg.batch_size,
+                    cfg.num_classes)
+            else:
+                ev = eval_lib.evaluate_classifier(
+                    state.model, x_te, y_te, cfg.batch_size, cfg.num_classes)
+            best = max(best, ev["accuracy"])
+            t2 = time.perf_counter()
+            saver.save(cfg.out_dir, epoch, state, metric=ev["accuracy"])
+            logger.log_epoch(epoch, **ev, train_s=t1 - t0, eval_s=t2 - t1,
+                             ckpt_s=time.perf_counter() - t2)
+    logger.close()
+    return {"best_accuracy": best, "state": state}
+
+
+def run_classification(cfg: ClassifyConfig, epochs: Optional[int] = None,
+                       device="cuda") -> dict:
+    """Configs 1-2: mirrors ``upstream:train_classification.py``."""
+    return _run_classifier(cfg, classify, "cls", epochs, device)
+
+
+def run_adv_perturb(cfg: AdvPerturbConfig, epochs: Optional[int] = None,
+                    device="cuda") -> dict:
+    """Config 5: FGSM (or PGD) perturbation training on one device."""
+    return _run_classifier(cfg, adv_perturb, "advp", epochs, device)
 
 
 def run_segmentation(cfg: SegmentConfig, epochs: Optional[int] = None,

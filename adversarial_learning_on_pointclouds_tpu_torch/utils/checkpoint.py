@@ -11,9 +11,10 @@ the models (parameters and BatchNorm running statistics), the torch
 optimizers and their schedules, the augmentation generator's state,
 ``step`` and ``device_step``. ``load_params_only`` mirrors the
 reference's weaker resume (models only), and a ``.pth`` path loads the
-reference format (``load_pth_warm_start``, ``load_segmenter``).
-``load_saved_segmenter`` reads one segmenter, from either format, for
-evaluation.
+reference format, a ``PointNetCls`` or a ``PointNetDenseCls``
+(``load_pth_warm_start``, ``load_classifier``, ``load_segmenter``).
+``load_saved_classifier`` and ``load_saved_segmenter`` read one model,
+from either format, for evaluation.
 
 The port's train steps update parameters and Adam moments in place, so
 ``save`` and ``AsyncSaver.save`` copy every tensor of the state to the
@@ -32,7 +33,7 @@ from typing import Any, Dict, Optional, Sequence
 import torch
 
 from adversarial_learning_on_pointclouds_tpu_torch.models import (
-    PointNetDenseCls,
+    PointNetCls, PointNetDenseCls,
 )
 from adversarial_learning_on_pointclouds_tpu_torch.train import (
     state as state_lib,
@@ -305,7 +306,8 @@ def load_pth(path: str) -> Dict[str, torch.Tensor]:
 def _check_keys(path: str, sd: dict, like: dict, what: str = "segmenter"
                 ) -> None:
     """Raise a readable error when ``sd`` does not fit the model built
-    from the flags (wrong ``--num_parts`` / ``--feature_transform``)."""
+    from the flags (wrong ``--num_classes`` / ``--num_parts`` /
+    ``--feature_transform``)."""
     missing = sorted(set(like) - set(sd))
     extra = sorted(set(sd) - set(like))
     wrong = [f"{k}: {tuple(sd[k].shape)} != {tuple(like[k].shape)}"
@@ -317,23 +319,26 @@ def _check_keys(path: str, sd: dict, like: dict, what: str = "segmenter"
             + (f"; missing {missing[:4]}" if missing else "")
             + (f"; unexpected {extra[:4]}" if extra else "")
             + (f"; shape mismatch {wrong[:4]}" if wrong else "")
-            + " - check --feature_transform / --num_parts against how the "
-              ".pth was trained.")
+            + " - check --feature_transform / --num_classes / --num_parts "
+              "against how the .pth was trained.")
 
 
-def _segmenter_sd(path: str) -> Dict[str, torch.Tensor]:
-    """A reference ``PointNetDenseCls`` state_dict from ``path``; a
-    classifier raises (its port is ROADMAP Queue 1 item 12)."""
+# The top-level key that tells the two reference models apart.
+_KIND_KEYS = {"classifier": "fc3.weight", "segmenter": "conv4.weight"}
+
+
+def _reference_sd(path: str, kind: str) -> Dict[str, torch.Tensor]:
+    """A reference state_dict from ``path`` that must be a ``kind``
+    (``"classifier"``: ``PointNetCls``, ``"segmenter"``:
+    ``PointNetDenseCls``)."""
     sd = load_pth(path)
-    if "conv4.weight" not in sd:
-        if "fc3.weight" in sd:
-            raise NotImplementedError(
-                f"{path!r} is a classifier (PointNetCls) checkpoint; the "
-                "port's classifier is still to come (ROADMAP, Queue 1, "
-                "'Classification')")
-        raise ValueError(f"{path!r}: not a recognized reference state_dict "
-                         "(no top-level conv4/fc3: expected PointNetCls or "
-                         "PointNetDenseCls keys)")
+    if _KIND_KEYS[kind] not in sd:
+        other = [k for k, key in _KIND_KEYS.items() if key in sd]
+        raise ValueError(
+            f"{path!r} is a {other[0]} checkpoint, not a {kind}" if other
+            else f"{path!r}: not a recognized reference state_dict (no "
+                 "top-level conv4/fc3: expected PointNetCls or "
+                 "PointNetDenseCls keys)")
     return sd
 
 
@@ -349,17 +354,33 @@ def load_pth_warm_start(path: str, state_like):
     model_24.pth`` semantics (optimizer, step and generator stay fresh).
     A ``GANTrainState`` takes the generator from ``path`` and, when the
     ``<path minus .pth>_D.pth`` companion sits next to it, the
-    discriminator too (else D keeps its fresh init)."""
-    sd = _segmenter_sd(path)
+    discriminator too (else D keeps its fresh init). A ``TrainState``
+    of a classifier takes a ``PointNetCls`` file, of a segmenter a
+    ``PointNetDenseCls`` file."""
     if isinstance(state_like, state_lib.GANTrainState):
+        sd = _reference_sd(path, "segmenter")
         _load_checked(path, state_like.g_model, sd, "generator")
         d_path = path[:-len(".pth")] + "_D.pth"
         if os.path.exists(d_path):
             _load_checked(d_path, state_like.d_model, load_pth(d_path),
                           "discriminator")
         return state_like
-    _load_checked(path, state_like.model, sd, "segmenter")
+    kind = ("classifier" if isinstance(state_like.model, PointNetCls)
+            else "segmenter")
+    _load_checked(path, state_like.model, _reference_sd(path, kind), kind)
     return state_like
+
+
+def load_classifier(path: str, num_classes: int = 40,
+                    feature_transform: bool = False,
+                    device="cuda") -> PointNetCls:
+    """Reference ``PointNetCls`` ``.pth`` -> eval ``PointNetCls`` on
+    ``device`` (the card unless the caller asks for the CPU), loaded with
+    ``strict=True``."""
+    sd = _reference_sd(path, "classifier")
+    model = PointNetCls(num_classes, feature_transform)
+    _load_checked(path, model, sd, "classifier")
+    return model.to(device)
 
 
 def load_segmenter(path: str, num_parts: int = 50,
@@ -368,7 +389,7 @@ def load_segmenter(path: str, num_parts: int = 50,
     """Reference ``PointNetDenseCls`` ``.pth`` -> eval ``PointNetDenseCls``
     on ``device`` (the card unless the caller asks for the CPU), loaded
     with ``strict=True``."""
-    sd = _segmenter_sd(path)
+    sd = _reference_sd(path, "segmenter")
     model = PointNetDenseCls(num_parts, feature_transform)
     _load_checked(path, model, sd, "segmenter")
     return model.to(device)
@@ -382,10 +403,32 @@ def load_saved_segmenter(path: str, field: str = "model",
     for a config-4 run's generator; no other field is loaded). Its part
     count and whether it has the feature transform are read from the
     saved tensors."""
-    sd = (_segmenter_sd(path) if path.endswith(".pth")
-          else _read(path, None)[field])
+    sd = _saved_sd(path, field, "segmenter")
     model = PointNetDenseCls(
         sd["conv4.weight"].shape[0],
         any(k.startswith("feat.fstn.") for k in sd))
     _load_checked(path, model, sd, "segmenter")
     return model.to(device)
+
+
+def load_saved_classifier(path: str, field: str = "model",
+                          device="cuda") -> PointNetCls:
+    """The classifier saved at ``path`` (a reference ``.pth`` or a
+    directory a classification or perturbation run wrote; its latest
+    checkpoint's ``field``) on ``device``, in eval mode; its class count
+    and whether it has the feature transform are read from the saved
+    tensors."""
+    sd = _saved_sd(path, field, "classifier")
+    model = PointNetCls(sd["fc3.weight"].shape[0],
+                        any(k.startswith("feat.fstn.") for k in sd))
+    _load_checked(path, model, sd, "classifier")
+    return model.to(device)
+
+
+def _saved_sd(path: str, field: str, kind: str) -> Dict[str, torch.Tensor]:
+    if path.endswith(".pth"):
+        return _reference_sd(path, kind)
+    sd = _read(path, None)[field]
+    if _KIND_KEYS[kind] not in sd:
+        raise ValueError(f"{path!r}: field {field!r} is not a {kind}")
+    return sd

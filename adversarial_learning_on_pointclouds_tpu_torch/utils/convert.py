@@ -3,11 +3,11 @@
 The JAX package keeps a model as ``(params, bn_state)`` nested dicts of
 arrays with dense weights ``[in, out]``; the port keeps the reference's
 PyTorch modules. This converts the former (as numpy arrays, so no JAX is
-needed here) into a ``state_dict`` that the port's ``PointNetDenseCls``
-and ``FCDiscriminator`` and the reference's both load with
-``strict=True``. Its keys and values are those of the JAX package's
-``utils/torch_export.segmenter_state_dict`` and
-``discriminator_state_dict``.
+needed here) into a ``state_dict`` that the port's ``PointNetCls``,
+``PointNetDenseCls`` and ``FCDiscriminator`` and the reference's all
+load with ``strict=True``. Its keys and values are those of the JAX
+package's ``utils/torch_export.classifier_state_dict``,
+``segmenter_state_dict`` and ``discriminator_state_dict``.
 """
 
 from __future__ import annotations
@@ -48,18 +48,36 @@ def _tnet(sd, prefix: str, params: dict, state: dict) -> None:
     _dense(sd, f"{prefix}.fc3", params["fc3"], conv=False)
 
 
-def segmenter_state_dict(params: Dict[str, Any],
-                         bn_state: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX segmenter ``(params, bn_state)`` -> ``PointNetDenseCls``
-    state_dict."""
-    sd: Dict[str, torch.Tensor] = {}
-    feat, feat_s = params["feat"], bn_state["feat"]
+def _encoder(sd, params: dict, state: dict) -> None:
+    feat, feat_s = params["feat"], state["feat"]
     _tnet(sd, "feat.stn", feat["stn"], feat_s["stn"])
     for i in (1, 2, 3):
         _dense(sd, f"feat.conv{i}", feat[f"conv{i}"], conv=True)
         _bn(sd, f"feat.bn{i}", feat[f"bn{i}"], feat_s[f"bn{i}"])
     if "fstn" in feat:
         _tnet(sd, "feat.fstn", feat["fstn"], feat_s["fstn"])
+
+
+def classifier_state_dict(params: Dict[str, Any],
+                          bn_state: Dict[str, Any]
+                          ) -> Dict[str, torch.Tensor]:
+    """JAX classifier ``(params, bn_state)`` -> ``PointNetCls``
+    state_dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    _encoder(sd, params, bn_state)
+    for i in (1, 2, 3):
+        _dense(sd, f"fc{i}", params[f"fc{i}"], conv=False)
+    for i in (1, 2):
+        _bn(sd, f"bn{i}", params[f"bn{i}"], bn_state[f"bn{i}"])
+    return sd
+
+
+def segmenter_state_dict(params: Dict[str, Any],
+                         bn_state: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX segmenter ``(params, bn_state)`` -> ``PointNetDenseCls``
+    state_dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    _encoder(sd, params, bn_state)
     for i in (1, 2, 3):
         _dense(sd, f"conv{i}", params[f"conv{i}"], conv=True)
         _bn(sd, f"bn{i}", params[f"bn{i}"], bn_state[f"bn{i}"])

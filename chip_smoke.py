@@ -2,7 +2,8 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Drives the port's main paths at full width (``adversarial_learning_
-on_pointclouds_tpu_torch``: serving the part segmenter, its config-3
+on_pointclouds_tpu_torch``: the classifier's configs 1, 2 and 5 (phase
+22), serving the part segmenter, its config-3
 training step, the config-4 adversarial G+D step in fp32, the G+D step
 as the JAX package's ``bench.py`` runs it: bf16 mixed precision,
 ``augment_fused``, K = 8 steps per call; and the config-3 and bench
@@ -204,7 +205,30 @@ Phases, one or more lines each:
    eval pass's host-to-host and device time, and the host's share of an
    epoch (the resumed run's epoch 1: its wall time
    less the device's busy time in one torch.profiler window). The phase
-   must finish within 120 s.
+   must finish within 120 s;
+22. classify: the classification configs at full width (B=32, N=1024,
+   40 classes; a seeded ``PointNetCls`` with random BatchNorm
+   statistics), card against CPU: the config-1 and config-2
+   (``--feature_transform --augment --pallas_augment``) ``classify.
+   train_step`` in fp32 and bf16 (the CPU's step with the card's dropout
+   masks, ``MaskReplay``; bf16 bounds widened as phase 13's), launches
+   per step (trunk F1/F2/B1 2 and pool-fc 1, or 3 and 2 and one
+   ``augment_fused``; no serving kernel), 10 more steps lowering the
+   loss; config 5's step, FGSM and PGD-3 (``adv_step_check``: each
+   attack iterate's input gradient and next cloud against the CPU's at
+   the card's cloud, by the sign-flip rule, the update on the card's
+   perturbed clouds; no kernel inside the attack); a grad-enabled eval
+   forward outside the attack raising on the card; each step's median
+   ms, points/s and idle share; the eval forward of both configs within
+   1e-4 of the CPU (fused_linear_affine_act 1, fused_stack_maxpool 2 or
+   3 a forward) and its shapes/s; ``infer --model cls`` from a saved
+   ``.pth`` and ``Predictor.predict``, card against CPU; then
+   ``run_classification`` (config 2's flags, two epochs) and
+   ``run_adv_perturb`` (one epoch) on the in-memory ModelNet40 fixture
+   (the JAX package's: 64 train and 32 test shapes of 2048 points, cut
+   from ModelNet40's 9,843 and 2,468), their launches, and
+   ``eval_classification`` and ``eval_robustness`` (eps 0) reproducing
+   each run's last eval. The phase must finish within 90 s.
 
 The line before the last is a JSON object of the kernels' numbers: per
 kernel its time, its plain version's, and its bound (``bound_ms``: the
@@ -220,7 +244,8 @@ non-zero and no result is printed.
 
     python3 chip_smoke.py
 
-``--runner`` runs only phases 1-2 and 21 and prints no result line.
+``--runner`` runs only phases 1-2 and 21 and prints no result line;
+``--classify`` only phases 1-2 and 22.
 
 ``--disc-checks SEED`` runs only phases 1-2 and the discriminator's
 checks of phases 9 and 12 on data from generator seed ``SEED``, and
@@ -2141,7 +2166,8 @@ class PassCalls:
 
 
 class Recorder:
-    """Wraps a module function for one run and keeps what it returned."""
+    """Wraps a module function for one run and keeps each call's
+    ``(args, result)``."""
 
     def __init__(self, module, name):
         self.module, self.name = module, name
@@ -2150,7 +2176,7 @@ class Recorder:
     def __enter__(self):
         def wrapped(*a, **k):
             out = self.fn(*a, **k)
-            self.seen.append(out)
+            self.seen.append((a, out))
             return out
         setattr(self.module, self.name, wrapped)
         return self.seen
@@ -2247,7 +2273,7 @@ def step_runs(cfg, g_model, d_model, pts, labels, tag, dev,
               f"N={cfg.num_points}: " +
               ", ".join(f"{k} {float(v):.6f}" for k, v in metrics.items()) +
               f", {time.perf_counter() - t0:.3f} s (first step)")
-        runs[where] = (state, metrics, seen[0][1], (x_l, y_l, x_u), txs)
+        runs[where] = (state, metrics, seen[0][1][1], (x_l, y_l, x_u), txs)
     return runs, launches
 
 
@@ -4322,6 +4348,603 @@ def runner_phase(dev, card):
         raise AssertionError(f"the runner phase took {spent:.1f} s")
 
 
+# Phase 22: the classification configs (1, 2 and 5) end to end.
+CLS_N, CLASSES = 1024, 40
+CLS_BUDGET_S = 90.0
+# The runners' in-memory ModelNet40 fixture: a quarter of ModelNet40's
+# 9,843 train and 2,468 test shapes, at its schema (2048 points a shape,
+# 40 classes), so that the phase fits its budget on a slow host: 76
+# steps an epoch at B=32, 20 eval forwards.
+CLS_FIXTURE = (2461, 617)
+# Launches of the classifier's train step: a trunk and a T-Net head per
+# T-Net, the encoder's trunk; with the feature transform (config 2) one
+# T-Net more; augment_fused once under --pallas_augment. Config 5's step
+# launches the same in its update and nothing in its attack.
+CLS_OFF = {**{k: {p: 0 for p in v} for k, v in ADV_PER_STEP.items()},
+           **PT_OFF, "augment_fused": {"fwd": 0}}
+# The sign-flip rule of the attack (card against CPU): where the CPU's
+# input gradient is below this share of its largest element, sign() may
+# flip by rounding; at most ATTACK_SHARE of the elements may be so
+# exempted.
+ATTACK_NEAR, ATTACK_SHARE = 1e-6, 1e-2
+
+
+def cls_want(ft, aug=False):
+    return {**CLS_OFF, "trunk2_train": {p: 2 + ft for p in ("F1", "F2",
+                                                            "B1")},
+            "pool_fc_epilogue": {"fwd": 1 + ft},
+            "augment_fused": {"fwd": int(aug)}}
+
+
+def cls_serve(ft):
+    return {"fused_linear_affine_act": 1, "fused_stack_maxpool": 2 + ft,
+            "seg_head_fused": 0}
+
+
+class MaskReplay:
+    """For one run, records the dropout masks (``core.dropout_mask``), or,
+    given ``masks``, hands those out in order, on the caller's device,
+    instead of drawing: the CPU's step takes the card's masks."""
+
+    def __init__(self, masks=None):
+        self.masks, self.seen = masks, []
+
+    def __enter__(self):
+        from adversarial_learning_on_pointclouds_tpu_torch.models import core
+
+        self.core, self.fn = core, core.dropout_mask
+
+        def wrapped(gen, shape, p, device):
+            m = (self.fn(gen, shape, p, device) if self.masks is None
+                 else self.masks[len(self.seen)].to(device))
+            self.seen.append(m)
+            return m
+        core.dropout_mask = wrapped
+        return self.seen
+
+    def __exit__(self, *exc):
+        self.core.dropout_mask = self.fn
+
+
+class AttackLaunches:
+    """Wraps ``attacks.attack`` for one run: every kernel's launches
+    inside the attacks (their counts' growth across each call) and each
+    call's clouds and perturbed clouds."""
+
+    def __init__(self, counters, wrappers):
+        from adversarial_learning_on_pointclouds_tpu_torch import attacks
+
+        self.mod, self.fn = attacks, attacks.attack
+        self.counters, self.wrappers = counters, wrappers
+        self.launches, self.ins, self.outs = 0, [], []
+
+    def _total(self):
+        return (sum(f.launches for passes in self.counters.values()
+                    for f in passes.values())
+                + sum(w.launches for w in self.wrappers.values()))
+
+    def __enter__(self):
+        def wrapped(*a, **k):
+            before = self._total()
+            out = self.fn(*a, **k)
+            self.launches += self._total() - before
+            self.ins.append(a[1])
+            self.outs.append(out)
+            return out
+        self.mod.attack = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.attack = self.fn
+
+
+def cls_setup(ft, gen, seed):
+    """A seeded full-width classifier (random BatchNorm statistics) and a
+    batch of B=32 clouds of N=1024 with class labels (numpy)."""
+    from adversarial_learning_on_pointclouds_tpu_torch.models import (
+        PointNetCls,
+    )
+
+    model = PointNetCls(CLASSES, ft, generator=gen)
+    randomize_bn(model, gen)
+    rng = np.random.default_rng(seed)
+    pts = (rng.normal(size=(B, CLS_N, 3)) * rng.uniform(0.5, 2.0, (B, 1, 3))
+           ).astype(np.float32)
+    return model, pts, rng.integers(0, CLASSES, B).astype(np.int64)
+
+
+def cls_step_runs(mod, cfg, model, pts, labels, wheres=("cuda", "cpu"),
+                  masks=None):
+    """One ``mod.train_step`` (``classify``) per device from the same
+    weights and batch, with the dropout masks ``masks`` where given (the
+    CPU's with the card's): ``({where: (state, metrics, train log-probs,
+    tx, batch)}, (the card's launches, its serving kernels' launches),
+    the masks)``, the counts set to 0 just before the card's step and
+    read just after."""
+    counters, wrappers = adv_counters(), serve_wrappers()
+    runs, launches = {}, None
+    for where in wheres:
+        m = copy.deepcopy(model)
+        logps = []
+        m.register_forward_hook(lambda mod_, inp, out: logps.append(
+            out[0].detach()))
+        state = mod.create_state(cfg, 100, device=where, model=m)
+        tx = mod.make_tx(cfg, 100)
+        x = torch.from_numpy(pts).to(where)
+        y = torch.from_numpy(labels).to(where)
+        reset(counters)
+        for w in wrappers.values():
+            w.launches = 0
+        with MaskReplay(masks) as seen:
+            metrics = mod.train_step(state, x, y, cfg=cfg, tx=tx)
+        if where == "cuda":
+            torch.cuda.synchronize()
+            launches = (read(counters),
+                        {k: w.launches for k, w in wrappers.items()})
+            masks = [t.cpu() for t in seen]
+        runs[where] = (state, metrics, logps[-1], tx, (x, y))
+    return runs, launches, masks
+
+
+def cls_compare(tag, runs, yard=None):
+    """The card's classifier step against the CPU's: loss, accuracy, the
+    train forward's log-probs, every new running statistic and every
+    gradient; with ``yard`` (the CPU's step in fp32), each bound the
+    larger of the fp32 one and ``YARD_FACTOR`` times what bf16 moves the
+    CPU's."""
+    gs, gm, glogp = runs["cuda"][:3]
+    cs, cm, clogp = runs["cpu"][:3]
+
+    def bound_for(cpu_val, yard_val, base):
+        if yard_val is None:
+            return base
+        return max(base, YARD_FACTOR * rel_err(cpu_val, yard_val)[0])
+
+    ys, ym, ylogp = yard[:3] if yard else (None, None, None)
+    check("loss GPU vs CPU", gm["loss"].cpu()[None], cm["loss"][None],
+          bound_for(cm["loss"][None], ym and ym["loss"][None], STEP_BOUND),
+          tag)
+    check("log-probs GPU vs CPU", glogp.cpu(), clogp,
+          bound_for(clogp, ylogp, STEP_BOUND), tag)
+    gsd, csd = gs.model.state_dict(), cs.model.state_dict()
+    ysd = ys.model.state_dict() if ys else {}
+    stats = [k for k in csd if k.endswith(("running_mean", "running_var"))]
+    worst = max(rel_err(gsd[k].cpu(), csd[k])[0] for k in stats)
+    sbound = max(bound_for(csd[k], ysd.get(k), STEP_BOUND) for k in stats)
+    phase(tag, f"{len(stats)} new running statistics GPU vs CPU: max "
+          f"scale-relative error {worst:.3e} (bound {sbound:.3g})")
+    if worst > sbound or any(int(v) != 1 for k, v in gsd.items()
+                             if k.endswith("num_batches_tracked")):
+        raise AssertionError("running statistics differ")
+    gp = dict(gs.model.named_parameters())
+    cp = dict(cs.model.named_parameters())
+    scale = max(float(p.grad.abs().max()) for p in cp.values())
+    worst, name = max((float((gp[k].grad.cpu() - p.grad).abs().max()), k)
+                      for k, p in cp.items())
+    gbound = GRAD_BOUND
+    if ys:
+        yp = dict(ys.model.named_parameters())
+        moved = max(float((yp[k].grad - p.grad).abs().max())
+                    for k, p in cp.items())
+        gbound = max(GRAD_BOUND, YARD_FACTOR * moved / (1 + scale))
+        phase(tag, f"bf16 rounding moves the CPU's gradients by "
+              f"{moved / (1 + scale):.3e} of (1 + max|g|)")
+    phase(tag, f"{len(cp)} parameter gradients GPU vs CPU: max abs error "
+          f"{worst:.3e} ({name}), {worst / (1 + scale):.3e} of (1 + max|g| "
+          f"= {1 + scale:.3e}) (bound {gbound:.3g})")
+    if worst > gbound * (1 + scale):
+        raise AssertionError("gradients differ")
+
+
+class PoolTops:
+    """For one run, wraps the eval stacks' plain version (what the attacks
+    run, ``differentiable_eval``): each call returns the port's own
+    result, and a detached side computation of the same stack keeps each
+    pool's top two values and points per channel (``[B, 2, C]`` each)."""
+
+    def __enter__(self):
+        from adversarial_learning_on_pointclouds_tpu_torch.models import core
+        from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
+            encoder_fused,
+        )
+
+        self.mod, self.fn, self.seen = encoder_fused, \
+            encoder_fused.fused_stack_maxpool_plain, []
+
+        def plain(x, weights, shifts, scales, acts):
+            with torch.no_grad():
+                h = x
+                for w, sh, sc, act in zip(weights, shifts, scales, acts):
+                    h = core.activation(torch.matmul(h, w) * sc + sh, act)
+                top = h.topk(2, dim=1)
+            self.seen.append((top.values.cpu(), top.indices.cpu()))
+            return self.fn(x, weights, shifts, scales, acts)
+        encoder_fused.fused_stack_maxpool_plain = plain
+        return self.seen
+
+    def __exit__(self, *exc):
+        self.mod.fused_stack_maxpool_plain = self.fn
+
+
+def winner_flips(card_tops, cpu_tops, shape):
+    """The points to exempt where a pool's winner differs between the card
+    and the CPU: both winners of each such channel, whose gradient goes to
+    one point or the other. Each such channel's top two values must lie
+    within rounding (``BOUND`` of the value) on the CPU. A channel whose
+    top two are equal on both sides (all its points at 0 after a ReLU,
+    say) is a tie, not a flip: the max's gradient is shared by the tied
+    points alike on both sides. ``(exempt [B, N], channels that flipped,
+    tied channels)``."""
+    exempt = torch.zeros(shape, dtype=torch.bool)
+    flips = ties = 0
+    for (vg, ig), (vc, ic) in zip(card_tops, cpu_tops):
+        tie = (vg[:, 0] == vg[:, 1]) & (vc[:, 0] == vc[:, 1])
+        ties += int(tie.sum())
+        differ = (ig[:, 0] != ic[:, 0]) & ~tie
+        b, c = differ.nonzero(as_tuple=True)
+        margin = (vc[:, 0] - vc[:, 1])[b, c]
+        if len(b) and (margin >= BOUND * vc[:, 0][b, c].abs().clamp(
+                min=1.0)).any():
+            raise AssertionError(f"a max-pool winner differs at a top-2 "
+                                 f"margin of {float(margin.max()):.3e}")
+        exempt[b, ig[:, 0][b, c]] = True
+        exempt[b, ic[:, 0][b, c]] = True
+        flips += len(b)
+    return exempt, flips, ties
+
+
+def adv_step_check(tag, cfg, model, pts, labels):
+    """Config 5's step on the card against the CPU, step by step on the
+    card's own operands: at each attack iterate the CPU's input gradient
+    at the card's cloud (each element within ``BOUND`` of the largest,
+    but at the two points of a max-pool channel whose winner differs
+    within rounding) and the CPU's next cloud from it (equal to the
+    card's but where the CPU's gradient is below ``ATTACK_NEAR`` of its
+    largest element, at most ``ATTACK_SHARE`` of them, or at such a
+    point); then the update on the card's perturbed clouds and dropout
+    masks. Every kernel's launches in the step and inside its attack.
+    Returns the card's ``(state, batch, tx)``."""
+    from adversarial_learning_on_pointclouds_tpu_torch import attacks, losses
+    from adversarial_learning_on_pointclouds_tpu_torch.train import (
+        adv_perturb, classify,
+    )
+
+    counters, wrappers = adv_counters(), serve_wrappers()
+    runs, logps = {}, {"cuda": [], "cpu": []}
+    m = copy.deepcopy(model)
+    m.register_forward_hook(lambda mod_, inp, out: logps["cuda"].append(
+        out[0].detach()))
+    state = adv_perturb.create_state(cfg, 100, device="cuda", model=m)
+    tx = adv_perturb.make_tx(cfg, 100)
+    x, y = torch.from_numpy(pts).cuda(), torch.from_numpy(labels).cuda()
+    reset(counters)
+    for w in wrappers.values():
+        w.launches = 0
+    with MaskReplay() as masks, Recorder(attacks, "input_grad") as grads, \
+            PoolTops() as card_tops, \
+            AttackLaunches(counters, wrappers) as att:
+        metrics = adv_perturb.train_step(state, x, y, cfg=cfg, tx=tx)
+    torch.cuda.synchronize()
+    train, serve = read(counters), {k: w.launches
+                                    for k, w in wrappers.items()}
+    check_launches(tag, train, cls_want(False))
+    phase(tag, f"launches inside the attack: {att.launches}; serving "
+          f"kernels in the step: {serve}")
+    if att.launches or any(serve.values()) or len(att.outs) != 1:
+        raise AssertionError("a kernel launched inside the attack")
+    runs["cuda"] = (state, metrics, logps["cuda"][-1])
+
+    cm = copy.deepcopy(model).eval()   # the weights the attack saw
+    yc = torch.from_numpy(labels)
+
+    def loss(xx):
+        return losses.nll_loss(cm(xx)[0], yc)
+
+    steps = len(grads)
+    alpha = cfg.epsilon / steps if cfg.attack == "pgd" else cfg.epsilon
+    x0 = att.ins[0].cpu()
+    nexts = [a[1].cpu() for a, _ in grads[1:]] + [att.outs[0].cpu()]
+    per = len(card_tops) // steps
+    for i, ((a, g_card), nxt) in enumerate(zip(grads, nexts)):
+        xi = a[1].cpu()
+        with PoolTops() as cpu_tops:
+            g = attacks.input_grad(loss, xi)
+        exempt, flips, ties = winner_flips(
+            card_tops[per * i:per * (i + 1)], cpu_tops, xi.shape[:2])
+        scale = float(g.abs().max())
+        err = (g_card.cpu() - g).abs()
+        worst = float(err[~exempt].max()) / scale
+        near = (g.abs() < ATTACK_NEAR * scale) & (g != 0)
+        want = xi + alpha * torch.sign(g)
+        if cfg.attack == "pgd":
+            want = x0 + torch.clamp(want - x0, -cfg.epsilon, cfg.epsilon)
+        differ = nxt != want
+        far = int((differ & ~near & ~exempt[..., None]).sum())
+        phase(tag, f"attack iterate {i}: input gradient GPU vs CPU at the "
+              f"card's cloud: max error {worst:.3e} of max|g| {scale:.3e} "
+              f"(bound {BOUND:g}) off {int(exempt.sum())} points of "
+              f"{flips} max-pool winner flips ({ties} tied channels); "
+              f"next cloud: "
+              f"{int(near.sum())} of {near.numel()} elements near a zero "
+              f"gradient ({float(near.float().mean()):.2e}, at most "
+              f"{ATTACK_SHARE:g}), {int((differ & near).sum())} of them "
+              f"flipped; {far} differ elsewhere (must be 0)")
+        if worst > BOUND or far or \
+                float(near.float().mean()) > ATTACK_SHARE:
+            raise AssertionError(f"{tag}: the attack differs from the CPU's")
+    ball = float((nexts[-1] - x0).abs().max())
+    phase(tag, f"max |x_adv - x| {ball:.7f} (eps {cfg.epsilon:g})")
+    if ball > cfg.epsilon + 1e-6 * float(x0.abs().max()):
+        raise AssertionError("x_adv left the L-inf ball")
+
+    cmod = copy.deepcopy(model)
+    cmod.register_forward_hook(lambda mod_, inp, out: logps["cpu"].append(
+        out[0].detach()))
+    cs = classify.create_state(cfg, 100, device="cpu", model=cmod)
+    with MaskReplay([t.cpu() for t in masks]):
+        cmet = classify.update(cs, nexts[-1], yc, cfg)
+    runs["cpu"] = (cs, cmet, logps["cpu"][-1])
+    cls_compare(tag, runs)
+    return state, (x, y), tx
+
+
+def time_cls_step(card, tag, mod, cfg, state, batch, tx):
+    """Synchronized ``mod.train_step`` calls: the median of 12 (CUDA
+    events, after 3 warm-ups), points/s, and the profiler's kernel time
+    over 5 steps (the idle share)."""
+    def step():
+        mod.train_step(state, *batch, cfg=cfg, tx=tx)
+
+    for _ in range(3):
+        step()
+    ms = statistics.median(event_ms(step, 12))
+    busy = sum(device_profile(step, reps=5).values())
+    pts = cfg.batch_size * cfg.num_points
+    phase(tag, f"{card}: {tag} train_step B={cfg.batch_size} "
+          f"N={cfg.num_points}: median {ms:.3f} ms over 12 steps, "
+          f"{pts / ms * 1e3:.1f} points/s; GPU kernels busy {busy:.3f} ms "
+          f"({100 * (1 - busy / ms):.1f}% idle)")
+    return {"step_ms": ms, "busy_ms": busy, "points_per_s": pts / ms * 1e3}
+
+
+def cls_steps(card, gen):
+    """Configs 1 and 2 (fp32 and bf16) and config 5 (FGSM, PGD-3) at
+    B=32 N=1024, card against CPU; launches per step."""
+    from adversarial_learning_on_pointclouds_tpu_torch.configs import (
+        AdvPerturbConfig, ClassifyConfig,
+    )
+    from adversarial_learning_on_pointclouds_tpu_torch.train import (
+        adv_perturb, classify,
+    )
+
+    times = {}
+    for ft in (False, True):
+        model, pts, labels = cls_setup(ft, gen, SEED + 3)
+        fp32 = None
+        for bf16 in (False, True):
+            cfg = ClassifyConfig(num_points=CLS_N, feature_transform=ft,
+                                 augment=ft, pallas_augment=ft, bf16=bf16)
+            tag = f"config {1 + ft}{' bf16' if bf16 else ''}"
+            runs, (train, serve), masks = cls_step_runs(
+                classify, cfg, model, pts, labels, masks=fp32 and fp32[1])
+            check_launches(tag, train, cls_want(ft, ft))
+            if any(serve.values()):
+                raise AssertionError(f"serving kernels in a train step: "
+                                     f"{serve}")
+            yard = None
+            if bf16:
+                yard = cls_step_runs(classify, dataclasses.replace(
+                    cfg, bf16=False), model, pts, labels, ("cpu",),
+                    masks)[0]["cpu"]
+            cls_compare(tag, runs, yard)
+            state, _, _, tx, batch = runs["cuda"]
+            if not bf16:
+                fp32 = (runs, masks)
+                losses = [float(classify.train_step(
+                    state, *batch, cfg=cfg, tx=tx)["loss"])
+                    for _ in range(10)]
+                phase(tag, f"10 more Adam steps on the fixed batch: loss "
+                      f"{losses[0]:.5f} -> {losses[-1]:.5f}")
+                if not np.isfinite(losses).all() or \
+                        not losses[-1] < losses[0]:
+                    raise AssertionError(f"the loss did not fall: {losses}")
+            times[tag] = time_cls_step(card, tag, classify, cfg, state, batch,
+                                       tx)
+    model, pts, labels = cls_setup(False, gen, SEED + 4)
+    for attack, steps in (("fgsm", 1), ("pgd", 3)):
+        cfg = AdvPerturbConfig(num_points=CLS_N, attack=attack,
+                               attack_steps=steps)
+        tag = f"config 5 {attack.upper()}-{steps}"
+        state, batch, tx = adv_step_check(tag, cfg, model, pts, labels)
+        times[tag] = time_cls_step(card, tag, adv_perturb, cfg, state, batch,
+                                   tx)
+    # Outside the attack's context an eval forward that autograd records
+    # still raises on the card (the eval kernels have no backward).
+    m = copy.deepcopy(model).cuda().eval()
+    try:
+        m(torch.from_numpy(pts).cuda())
+    except RuntimeError as e:
+        if "no backward" not in str(e):
+            raise
+        phase("classify", f"a grad-enabled eval forward on the card outside "
+              f"the attack raises: {str(e)[:60]}...")
+    else:
+        raise AssertionError("a grad-enabled eval forward ran on the card")
+    return times
+
+
+def cls_eval_and_infer(card, gen):
+    """The classifier's eval forward (configs 1 and 2) at B=32 N=1024,
+    card against CPU, its launches and time; ``infer --model cls`` from a
+    saved ``.pth`` (one ``.pts`` cloud, card against CPU) and
+    ``Predictor.predict`` over the 32 clouds."""
+    from adversarial_learning_on_pointclouds_tpu_torch import infer
+
+    wrappers = serve_wrappers()
+    out = {}
+    for ft in (False, True):
+        model, pts, _ = cls_setup(ft, gen, SEED + 5)
+        gm = copy.deepcopy(model).cuda()
+        x = torch.from_numpy(pts)
+        with torch.inference_mode():
+            ref = model(x)[0]
+            for w in wrappers.values():
+                w.launches = 0
+            got = gm(x.cuda())[0]
+            torch.cuda.synchronize()
+            seen = {k: w.launches for k, w in wrappers.items()}
+            xc = x.cuda()
+            ms = statistics.median(event_ms(lambda: gm(xc), REPS))
+        tag = f"config {1 + ft} eval"
+        check("eval log-probs GPU vs CPU", got.cpu(), ref, BOUND, tag)
+        if seen != cls_serve(ft):
+            raise AssertionError(f"eval forward launches {seen}, expected "
+                                 f"{cls_serve(ft)}")
+        out[tag] = {"ms": ms, "shapes_per_s": B / ms * 1e3}
+        phase(tag, f"{card}: eval forward B={B} N={CLS_N}: {ms:.3f} ms "
+              f"({B / ms * 1e3:.0f} shapes/s); launches {seen}")
+    with tempfile.TemporaryDirectory() as tmp:
+        pth = os.path.join(tmp, "cls.pth")
+        torch.save(model.state_dict(), pth)
+        cloud = os.path.join(tmp, "shape.pts")
+        np.savetxt(cloud, np.random.default_rng(SEED).normal(
+            size=(1500, 3)), fmt="%.6f")
+        lines = {}
+        for dev in ("cuda", "cpu"):
+            buf = io.StringIO()
+            with redirect_stdout(buf):
+                infer.main(["--checkpoint", pth, "--model", "cls",
+                            "--feature_transform", "--input", cloud,
+                            "--device", dev])
+            lines[dev] = buf.getvalue()
+        phase("classify", f"infer --model cls on the card: "
+              f"{lines['cuda'].strip()!r}; on the CPU: "
+              f"{lines['cpu'].strip()!r}")
+        if lines["cuda"] != lines["cpu"] or \
+                not lines["cuda"].startswith("cloud 0: class "):
+            raise AssertionError("infer --model cls differs from the CPU")
+        preds = {dev: infer.Predictor(pth, "cls", CLS_N, dev,
+                                      feature_transform=True)
+                 for dev in ("cuda", "cpu")}
+    clouds = infer.prep(list(pts), CLS_N)
+    for w in wrappers.values():
+        w.launches = 0
+    got = preds["cuda"].predict(clouds)
+    seen = {k: w.launches for k, w in wrappers.items()}
+    check("Predictor.predict GPU vs CPU", torch.from_numpy(got),
+          torch.from_numpy(preds["cpu"].predict(clouds)), BOUND, "classify")
+    if seen != cls_serve(True):
+        raise AssertionError(f"Predictor launches {seen}")
+    return out
+
+
+def cls_runners(card):
+    """``run_classification`` (config 2's flags) for two epochs and
+    ``run_adv_perturb`` for one on the in-memory ModelNet40 fixture at
+    ``CLS_FIXTURE``'s sizes, their launches; then ``eval_classification``
+    and ``eval_robustness`` reproducing each run's last eval."""
+    from adversarial_learning_on_pointclouds_tpu_torch import (
+        eval_classification, eval_robustness,
+    )
+    from adversarial_learning_on_pointclouds_tpu_torch.configs import (
+        AdvPerturbConfig, ClassifyConfig,
+    )
+    from adversarial_learning_on_pointclouds_tpu_torch.train import (
+        runner as runner_lib,
+    )
+
+    from adversarial_learning_on_pointclouds_tpu_torch.data.modelnet40 import (
+        synthetic_modelnet,
+    )
+
+    counters, wrappers = adv_counters(), serve_wrappers()
+    out = {}
+    # The runs and the eval CLIs all read the fixture at CLS_FIXTURE's
+    # sizes (``_modelnet_arrays`` calls ``runner.synthetic_modelnet``).
+    fixture = contextlib.ExitStack()
+    fixture.callback(setattr, runner_lib, "synthetic_modelnet",
+                     runner_lib.synthetic_modelnet)
+    runner_lib.synthetic_modelnet = lambda: synthetic_modelnet(*CLS_FIXTURE)
+    with fixture, tempfile.TemporaryDirectory() as tmp:
+        for name, run, cfg, ft, epochs in (
+                ("cls", runner_lib.run_classification, ClassifyConfig(
+                    num_points=CLS_N, epochs=2, quiet=True,
+                    feature_transform=True, augment=True,
+                    out_dir=os.path.join(tmp, "cls")), True, 2),
+                ("advp", runner_lib.run_adv_perturb, AdvPerturbConfig(
+                    num_points=CLS_N, epochs=1, quiet=True,
+                    out_dir=os.path.join(tmp, "advp")), False, 1)):
+            buf = io.StringIO()
+            with redirect_stdout(buf):
+                result, train, serve = counted_run(run, cfg, counters,
+                                                   wrappers)
+            phase("classify", buf.getvalue().strip().splitlines()[0])
+            steps = result["state"].step
+            rows = read_csv(os.path.join(cfg.out_dir, f"{name}_epochs.csv"))
+            n_test = int(float(rows[0]["num_examples"]))
+            forwards = epochs * -(-n_test // B)
+            for k, passes in cls_want(ft).items():
+                for p, per in passes.items():
+                    if train[k][p] != per * steps:
+                        raise AssertionError(
+                            f"{name}: {k} {p} launched {train[k][p]} times "
+                            f"in {steps} steps, expected {per} a step")
+            if serve != {k: v * forwards for k, v in cls_serve(ft).items()}:
+                raise AssertionError(f"{name}: serving launches {serve} in "
+                                     f"{forwards} eval forwards")
+            losses = step_losses(cfg.out_dir, name, "loss")
+            if [s for s, _ in losses] != list(range(1, steps + 1)) or \
+                    not np.isfinite([v for _, v in losses]).all():
+                raise AssertionError(f"{name}: per-step losses {losses}")
+            for r in rows:
+                phase("classify", f"{card}: {run.__name__} epoch "
+                      f"{r['epoch']} (B={B} N={CLS_N}, {steps // epochs} "
+                      f"steps, {n_test} test shapes): train_s "
+                      f"{float(r['train_s']):.3f}, eval_s "
+                      f"{float(r['eval_s']):.3f} ({n_test / float(r['eval_s']):.0f}"
+                      f" shapes/s), ckpt_s {float(r['ckpt_s']):.3f}; accuracy "
+                      f"{float(r['accuracy']):.4f}")
+            phase("classify", f"{name}: launches over {steps} steps and "
+                  f"{forwards} eval forwards: training {train}; serving "
+                  f"{serve}")
+            last = float(rows[-1]["accuracy"])
+            with redirect_stdout(io.StringIO()):
+                if name == "cls":
+                    got = eval_classification.main(
+                        ["--model", cfg.out_dir])["accuracy"]
+                else:
+                    accs = eval_robustness.main(
+                        ["--model", cfg.out_dir, "--epsilons", "0",
+                         "0.05"])
+                    got = accs[0.0]
+            if name != "cls":
+                phase("classify", f"eval_robustness on the advp run: "
+                      f"accuracy at eps 0 and 0.05 (FGSM): {accs}")
+            phase("classify", f"{name}: the eval CLI's accuracy {got:.6f}, "
+                  f"the run's last eval {last:.6f}")
+            if got != last:
+                raise AssertionError(f"{name}: the eval CLI does not "
+                                     "reproduce the run")
+            out[name] = [{k: float(r[k]) for k in ("train_s", "eval_s",
+                                                   "ckpt_s")} for r in rows]
+    return out
+
+
+def classify_phase(dev, card):
+    """Phase 22."""
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 22)
+    times = cls_steps(card, gen)
+    times.update(cls_eval_and_infer(card, gen))
+    times["runners"] = cls_runners(card)
+    spent = time.perf_counter() - t0
+    phase("classify", f"{card}: the classification phase took {spent:.1f} s "
+          f"(budget {CLS_BUDGET_S:g} s)")
+    if spent > CLS_BUDGET_S:
+        raise AssertionError(f"the classification phase took {spent:.1f} s")
+    return times
+
+
 def ptxas_report(build, src):
     """``{name<template arguments>: (registers, spill store bytes, spill
     load bytes)}`` of ``src``'s kernels in this run's build (empty when
@@ -4648,6 +5271,9 @@ def main() -> None:
     ap.add_argument("--runner", action="store_true",
                     help="run only phases 1-2 and 21 (the runners end to "
                          "end; no result line)")
+    ap.add_argument("--classify", action="store_true",
+                    help="run only phases 1-2 and 22 (the classification "
+                         "configs end to end; no result line)")
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(
         __file__)), help="with --time: the tree whose port package to time")
     args = ap.parse_args()
@@ -4693,6 +5319,9 @@ def main() -> None:
     if args.runner:
         runner_phase(dev, card)
         return
+    if args.classify:
+        classify_phase(dev, card)
+        return
     if args.disc_checks is not None:
         gen = torch.Generator().manual_seed(args.disc_checks)
         disc_kernel_checks(dev, gen, PassRecord())
@@ -4726,6 +5355,7 @@ def main() -> None:
     slice_out = adv_pt_slice(dev, card, gen)
     adv_pt_timing(card, rec_st, slice_out, results)
     runner_phase(dev, card)
+    classify_phase(dev, card)
 
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {

@@ -118,7 +118,7 @@ def test_device_cuda_without_cuda_raises(tmp_path, pth, monkeypatch):
                     _write_input(tmp_path, "pts")])
 
 
-@pytest.mark.parametrize("extra", [["--model", "cls"],
+@pytest.mark.parametrize("extra", [["--model", "cls", "--artifact", "c.shlo"],
                                    ["--model", "seg", "--artifact", "g.shlo"]])
 def test_unported_routes_raise(tmp_path, pth, extra):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -134,7 +134,8 @@ def test_checkpoint_mismatch_is_readable(tmp_path, port_model):
         checkpoint.load_segmenter(path, 4, feature_transform=True)
     cls_path = str(tmp_path / "cls.pth")
     torch.save({"fc3.weight": torch.zeros(40, 256)}, cls_path)
-    with pytest.raises(NotImplementedError, match="classifier"):
+    with pytest.raises(ValueError, match="classifier checkpoint, not a "
+                       "segmenter"):
         checkpoint.load_segmenter(cls_path)
     other = str(tmp_path / "other.pth")
     torch.save({"w": torch.zeros(1)}, other)
