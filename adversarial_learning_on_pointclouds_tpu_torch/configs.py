@@ -15,9 +15,9 @@ plain PyTorch versions, so there is no ``--no_pallas`` (it raises). The
 device is not a config field (the configs' fields are the JAX package's):
 the ``parse_*_args`` functions return it beside the config, and the runners take it as an argument. Options the port does
 not run yet raise ``NotImplementedError`` naming their ROADMAP item
-(Queue 1): ``fused_epoch`` (item 5, with the CUDA graph of the K steps),
-``num_devices`` above 1 (item 15, data parallelism), the ablation
-controls and batching knobs (item 14); ``remat`` is not ported.
+(Queue 1): ``fused_epoch`` (item 5, with the CUDA graph of the K steps)
+and ``num_devices`` above 1 (item 15, data parallelism); ``remat`` is not
+ported.
 """
 
 from __future__ import annotations
@@ -122,22 +122,14 @@ class SegmentConfig(BaseConfig):
     out_dir: str = "seg"
 
 
-# The JAX package's ablation controls and cross-stream batching knobs, with
-# their defaults: the port runs the defaults only.
-_NOT_PORTED = {"supervised_only": False, "self_training": False,
-               "d_geometry": False, "paired_conv1": False,
-               "fused_forward": False}
-
-
 @dataclasses.dataclass(frozen=True)
 class AdversarialConfig(SegmentConfig):
     """Config 4: adversarial semi-supervised segmentation (Hung et al.,
-    arXiv:1802.07934). Setting an ablation control (``supervised_only``,
-    ``self_training``, ``d_geometry``) or a batching knob
-    (``paired_conv1``, ``fused_forward``) off its default raises: they
-    are still to port (ROADMAP, Queue 1, item 14). ``paired_trunks`` (the
-    trunks batched across the two streams, ``trunk2_train(groups=2)``)
-    needs ``paired_heads``, as in the JAX package's flag check."""
+    arXiv:1802.07934), with the JAX package's ablation controls and
+    cross-stream batching knobs. Refused, as the JAX package refuses
+    them: ``supervised_only`` with ``self_training``, and
+    ``paired_trunks`` or ``paired_conv1`` without ``paired_heads`` or
+    with ``fused_forward``."""
 
     lambda_adv: float = 0.01      # --lambda_adv
     lambda_adv_unl: Optional[float] = None  # unlabeled stream's own weight
@@ -150,24 +142,32 @@ class AdversarialConfig(SegmentConfig):
     semi_start: int = 0           # --semi_start: first step with L_semi
     paired_heads: bool = True     # T-Net fc heads batched across streams
                                   #   (paired_trunks: the conv trunks too)
-    supervised_only: bool = False
-    self_training: bool = False
-    d_geometry: bool = False
+    supervised_only: bool = False  # ablation control: CE on the labeled
+                                  #   stream alone, no unlabeled forward,
+                                  #   no D compute or update
+    self_training: bool = False   # ablation control: the semi mask from
+                                  #   G's own confidence (max softmax >
+                                  #   semi_threshold), no adv term, no D
+    d_geometry: bool = False      # D's input is [probs; xyz], k + 3
+                                  #   channels (checkpoints differ in D)
     paired_trunks: bool = False
-    paired_conv1: bool = False
-    fused_forward: bool = False
+    paired_conv1: bool = False    # the conv1 layers as one [2B, N, C]
+                                  #   matmul, per-stream BN statistics
+    fused_forward: bool = False   # one G forward and one frozen D pass
+                                  #   over [x_l; x_u]: BN statistics of
+                                  #   the combined 2B batch
     out_dir: str = "adv"
 
     def __post_init__(self):
         super().__post_init__()
-        for name, default in _NOT_PORTED.items():
-            if getattr(self, name) != default:
-                raise _not_ported(
-                    f"AdversarialConfig({name}={getattr(self, name)!r})",
-                    "item 14: ablation controls")
-        if self.paired_trunks and not self.paired_heads:
-            raise ValueError("paired_trunks requires the paired-heads path "
-                             "(paired_heads=True)")
+        if self.supervised_only and self.self_training:
+            raise ValueError("supervised_only and self_training are mutually "
+                             "exclusive ablation controls")
+        for name in ("paired_trunks", "paired_conv1"):
+            if getattr(self, name) and (not self.paired_heads
+                                        or self.fused_forward):
+                raise ValueError(f"{name} requires the paired-heads path "
+                                 "(paired_heads=True, fused_forward=False)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -386,9 +386,15 @@ def parse_adversarial_args(argv=None) -> Tuple[AdversarialConfig, str]:
     p.add_argument("--lr_D", type=float, default=1e-4)
     p.add_argument("--semi_start", type=int, default=0)
     p.add_argument("--supervised_only", action="store_true",
-                   help="ablation control (ROADMAP Queue 1 item 14)")
+                   help="ablation control: CE-only training on the same "
+                        "labeled subset (no adv/semi/D) — the baseline "
+                        "the adversarial gain is measured against")
     p.add_argument("--self_training", action="store_true",
-                   help="ablation control (ROADMAP Queue 1 item 14)")
+                   help="ablation control: D-free semi-supervised "
+                        "baseline — pseudo-label mask from the "
+                        "generator's own confidence (max softmax > "
+                        "--threshold) instead of the discriminator; "
+                        "no adv term, no D")
     p.add_argument("--paired_heads", dest="paired_heads",
                    action="store_true", default=True,
                    help="batch the T-Net fc heads across the labeled and "
@@ -401,15 +407,23 @@ def parse_adversarial_args(argv=None) -> Tuple[AdversarialConfig, str]:
                    help="batch the conv trunks across the two streams too "
                         "(per-stream BN statistics); requires paired heads")
     p.add_argument("--paired_conv1", action="store_true",
-                   help="batching knob (ROADMAP Queue 1 item 14)")
+                   help="batch the per-point conv1 layers across the two "
+                        "streams (grouped per-stream BN1 statistics — "
+                        "exact sequential semantics); requires paired "
+                        "heads")
     p.add_argument("--fused_forward", action="store_true",
-                   help="batching knob (ROADMAP Queue 1 item 14)")
+                   help="one combined G forward over [labeled; unlabeled] "
+                        "(BN stats over the combined batch)")
     p.add_argument("--d_geometry", action="store_true",
-                   help="ablation control (ROADMAP Queue 1 item 14)")
+                   help="EXTENSION: append xyz coordinates to the "
+                        "discriminator input so it can judge "
+                        "label-geometry consistency (the reference's "
+                        "pointwise D sees probabilities only)")
     a = p.parse_args(argv)
-    if a.paired_trunks and (not a.paired_heads or a.fused_forward):
-        p.error("--paired_trunks requires the paired-heads path "
-                "(drop --no_paired_heads / --fused_forward)")
+    for flag in ("paired_trunks", "paired_conv1"):
+        if getattr(a, flag) and (not a.paired_heads or a.fused_forward):
+            p.error(f"--{flag} requires the paired-heads path "
+                    "(drop --no_paired_heads / --fused_forward)")
     return AdversarialConfig(
         class_choice=a.class_choice,
         feature_transform=a.feature_transform,

@@ -9,12 +9,18 @@ the JAX package writes them. The category -> part-id-range table
 (``SEG_CLASSES``) is load-bearing for the instance-mIoU protocol
 (SURVEY.md §7 hard part #6).
 
-Two differences, both because the card's machine has no ``h5py``:
+Three differences, all because the card's machine has no ``h5py``:
 ``h5py`` is imported only inside the h5 branches (the pts layout and the
-package itself need only numpy), and ``make_synthetic_shapenet`` writes
-the **pts layout by default** (the JAX package's default is h5). The
-runner's default fixture is therefore a pts fixture, in a directory of
-its own (``train/runner.py``), not the JAX package's h5 one.
+package itself need only numpy); ``make_synthetic_shapenet`` writes
+the **pts layout by default** (the JAX package's default is h5), so the
+runner's default fixture is a pts fixture, in a directory of its own
+(``train/runner.py``), not the JAX package's h5 one; and an **npz
+layout** holds the h5 packaging's arrays in numpy's format
+(``ply_data_<split>0.npz``, the same keys), read as the h5 layout is:
+rectangular clouds taken whole, where the pts layout resamples every
+cloud with replacement (``as_arrays``). The adversarial-gain sweep writes
+its fixture in it, the protocol of the JAX package's sweep on its h5
+fixture.
 """
 
 from __future__ import annotations
@@ -87,6 +93,16 @@ class _LazySeg:
         return CATEGORY_PART_RANGES[self._categories[i], 0] + seg - 1
 
 
+def _open_shard(path: str):
+    """An h5 shard (``h5py``) or its npz twin: a mapping of the arrays, and
+    a context manager that closes the file."""
+    if path.endswith(".npz"):
+        return np.load(path)
+    import h5py  # the h5 layout only
+
+    return h5py.File(path, "r")
+
+
 class ShapeNetPart:
     """Host-side reader.
 
@@ -96,18 +112,17 @@ class ShapeNetPart:
 
     def __init__(self, root: str, split: str = "train",
                  class_choice: Optional[str] = None):
-        h5s = sorted(
+        shards = sorted(
             os.path.join(root, fn) for fn in os.listdir(root)
-            if fn.endswith(".h5") and split in fn)
-        if h5s:
+            if fn.endswith((".h5", ".npz")) and split in fn)
+        if shards:
             datas, pids, cats = [], [], []
-            import h5py  # the h5 layout only
-
-            for path in h5s:
-                with h5py.File(path, "r") as f:
+            for path in shards:
+                with _open_shard(path) as f:
                     datas.append(np.asarray(f["data"], dtype=np.float32))
                     pids.append(np.asarray(f["pid"], dtype=np.int32))
-                    cats.append(np.asarray(f["label"], dtype=np.int32).reshape(-1))
+                    cats.append(np.asarray(f["label"],
+                                           dtype=np.int32).reshape(-1))
             self.points = np.concatenate(datas, 0)
             self.part_labels = np.concatenate(pids, 0)
             self.category = np.concatenate(cats, 0)
@@ -323,11 +338,17 @@ def make_synthetic_shapenet(root: str, num_shapes: int = 64,
 
 def _write_shapenet_fixture(root, layout, pts, cats, pids,
                             num_shapes) -> str:
-    """Write a generated fixture in the h5 or pts on-disk layout
+    """Write a generated fixture in the h5, npz or pts on-disk layout
     (shared by the axis-quantized and cluster-parts modes)."""
     splits = (("train", slice(0, int(0.75 * num_shapes))),
               ("val", slice(int(0.75 * num_shapes), int(0.875 * num_shapes))),
               ("test", slice(int(0.875 * num_shapes), num_shapes)))
+    if layout == "npz":
+        for split, sl in splits:
+            np.savez(os.path.join(root, f"ply_data_{split}0.npz"),
+                     data=pts[sl], label=cats[sl].reshape(-1, 1),
+                     pid=pids[sl])
+        return root
     if layout == "h5":
         import h5py  # the h5 layout only
 

@@ -73,22 +73,30 @@ class PointNetfeat(nn.Module):
         return x, g, trans, trans_feat
 
     def forward_pair(self, x_a: torch.Tensor, x_b: torch.Tensor,
-                     paired_trunks: bool = False):
+                     paired_trunks: bool = False, paired_conv1: bool = False):
         """Train mode, two streams -> ``(pf_a, g_a, pf_b, g_b, trans_feat_a,
         trans_feat_b)``, as the JAX package's ``apply_encoder_parts_pair``:
         the T-Nets through ``forward_pair``; conv1 and the trunk per
         stream, a then b, so every running statistic is chained a -> b;
         with ``paired_trunks`` the trunks (the T-Nets' too) run as one
         ``trunk2_train(groups=2)`` on the stacked streams, with the same
-        statistics."""
-        t_a, t_b = self.stn.forward_pair(x_a, x_b, paired_trunks)
+        statistics; with ``paired_conv1`` conv1 + BN1 of both streams run
+        as one ``linear_bn_act_pair`` (per-stream statistics), here and in
+        the T-Nets where their grouped trunk does not run."""
+        t_a, t_b = self.stn.forward_pair(x_a, x_b, paired_trunks,
+                                         paired_conv1)
         x_a = ops.batched_transform(x_a, t_a)
         x_b = ops.batched_transform(x_b, t_b)
-        x_a = ops.linear_bn_act(self.conv1, self.bn1, x_a, "relu")
-        x_b = ops.linear_bn_act(self.conv1, self.bn1, x_b, "relu")
+        if paired_conv1:
+            x_a, x_b = ops.linear_bn_act_pair(self.conv1, self.bn1, x_a, x_b,
+                                              "relu")
+        else:
+            x_a = ops.linear_bn_act(self.conv1, self.bn1, x_a, "relu")
+            x_b = ops.linear_bn_act(self.conv1, self.bn1, x_b, "relu")
         tf_a = tf_b = None
         if self.feature_transform:
-            tf_a, tf_b = self.fstn.forward_pair(x_a, x_b, paired_trunks)
+            tf_a, tf_b = self.fstn.forward_pair(x_a, x_b, paired_trunks,
+                                                paired_conv1)
             x_a = ops.batched_transform(x_a, tf_a)
             x_b = ops.batched_transform(x_b, tf_b)
         if paired_trunks and not ops.layer_by_layer(x_a.shape[1]):

@@ -77,7 +77,7 @@ class STNkd(nn.Module):
         return (out + iden.reshape(-1)).reshape(-1, self.k, self.k)
 
     def forward_pair(self, x_a: torch.Tensor, x_b: torch.Tensor,
-                     paired_trunks: bool = False):
+                     paired_trunks: bool = False, paired_conv1: bool = False):
         """Train mode, two streams of the same shape -> ``(T_a, T_b)``, as
         the JAX package's ``apply_tnet_pair``: the conv trunks run per
         stream (running statistics chained a -> b), or with
@@ -91,12 +91,21 @@ class STNkd(nn.Module):
         sequential heads. Under ``ops.use_pallas_train`` the fc1 + BN of the
         head is plain PyTorch (``batch_norm_train_grouped``), and at a point
         count ``ops.layer_by_layer`` names the trunks run per stream, layer
-        by layer, with ``paired_trunks`` too, as the JAX package's."""
+        by layer, with ``paired_trunks`` too, as the JAX package's.
+        ``paired_conv1``, where the grouped trunk does not run, takes conv1
+        + BN1 of both streams as one ``linear_bn_act_pair`` (per-stream
+        statistics) and the rest of each trunk per stream (``_pooled``),
+        as the JAX package's ``_pooled_trunk_pair_conv1``."""
         b = x_a.shape[0]
         if paired_trunks and not ops.layer_by_layer(x_a.shape[1]):
             h1_a = ops.linear_bn_act(self.conv1, self.bn1, x_a, "relu")
             h1_b = ops.linear_bn_act(self.conv1, self.bn1, x_b, "relu")
             h = torch.relu(train_trunk(self, h1_a, h1_b))
+        elif paired_conv1:
+            h1_a, h1_b = ops.linear_bn_act_pair(self.conv1, self.bn1, x_a,
+                                                x_b, "relu")
+            h_a = self._pooled(h1_a)
+            h = torch.cat([h_a, self._pooled(h1_b)])
         else:
             h_a = self._train_trunk(x_a)
             h = torch.cat([h_a, self._train_trunk(x_b)])
@@ -119,13 +128,18 @@ class STNkd(nn.Module):
 
     def _train_trunk(self, x: torch.Tensor) -> torch.Tensor:
         """The pooled ``[B, 1024]`` (after the ReLU) of one stream."""
-        if ops.layer_by_layer(x.shape[1]):
-            h = x
-            for i in (1, 2, 3):
+        return self._pooled(ops.linear_bn_act(self.conv1, self.bn1, x, "relu"))
+
+    def _pooled(self, h1: torch.Tensor) -> torch.Tensor:
+        """conv2 -> conv3 -> max over points of conv1's output ``h1``:
+        ``trunk2_train``, or layer by layer where ``ops.layer_by_layer``
+        says so."""
+        if ops.layer_by_layer(h1.shape[1]):
+            h = h1
+            for i in (2, 3):
                 h = ops.linear_bn_act(getattr(self, f"conv{i}"),
                                       getattr(self, f"bn{i}"), h, "relu")
             return ops.max_points(h)
-        h1 = ops.linear_bn_act(self.conv1, self.bn1, x, "relu")
         return torch.relu(train_trunk(self, h1))
 
     def _train_head(self, h: torch.Tensor) -> torch.Tensor:

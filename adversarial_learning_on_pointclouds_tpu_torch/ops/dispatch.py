@@ -156,6 +156,21 @@ def linear_bn_act(layer: nn.Module, bn: nn.BatchNorm1d, x: torch.Tensor,
     return core.activation(torch.matmul(x, w) * scale + shift, act)
 
 
+def linear_bn_act_pair(layer: nn.Module, bn: nn.BatchNorm1d,
+                       x_a: torch.Tensor, x_b: torch.Tensor,
+                       act: Optional[str] = "relu"
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Train-mode ``linear_bn_act`` of two same-shape streams as one
+    ``[2B, N, C]`` matmul (``_matmul``: ``pointwise_matmul`` under the
+    switch) with per-stream BN statistics (``batch_norm_train_grouped``,
+    the running statistics chained a -> b), as the JAX package's
+    ``linear_bn_act_pair`` (``--paired_conv1``)."""
+    z = core.batch_norm_train_grouped(
+        bn, _matmul(layer, torch.cat([x_a, x_b])), 2)
+    h = core.activation(z, act)
+    return h[:x_a.shape[0]], h[x_a.shape[0]:]
+
+
 def stack_maxpool(x: torch.Tensor, layers, acts) -> torch.Tensor:
     """An eval-mode pointwise stack and its max over points, ``[B, N, c0]
     -> [B, c_out]``: ``layers`` are ``(w, shift, scale)`` of

@@ -26,6 +26,18 @@ discriminator kernels run; on the CPU their plain versions.
 ``cfg.paired_trunks`` batches the generator's trunks across the two
 streams, and ``train_steps_scan`` takes K steps on K batches in one
 call, as ``bench.py`` runs the JAX package's step.
+
+The JAX package's ablation controls and batching knobs:
+``cfg.supervised_only`` trains G on the labeled stream's cross-entropy
+alone (one single-stream forward, no D); ``cfg.self_training`` takes the
+semi mask from G's own confidence (``losses.self_train_loss``) and runs
+no D; under either control D is neither run nor updated (its parameters,
+Adam moments and schedule stay as they are, ``loss_d`` is 0).
+``cfg.d_geometry`` feeds D ``[probs; xyz]`` (``k + 3`` channels; the
+reals carry the labeled stream's coordinates). ``cfg.fused_forward``
+runs one G forward over ``[x_l; x_u]`` (BN statistics of the combined
+batch) and one frozen D pass; ``cfg.paired_conv1`` batches the conv1
+layers across the streams (``models/segmenter.forward_pair``).
 Under ``ops.dispatch.use_pallas_train`` (``bench.py --pallas_train``) the
 generator takes the per-layer training kernels; at a point count the JAX
 package's fused kernels cannot tile (``ops.dispatch.layer_by_layer``) the
@@ -95,7 +107,8 @@ def create_state(cfg: AdversarialConfig, steps_per_epoch: int,
         g_model = PointNetDenseCls(cfg.num_parts, cfg.feature_transform,
                                    generator=init)
     if d_model is None:
-        d_model = FCDiscriminator(cfg.num_parts, generator=init)
+        d_model = FCDiscriminator(cfg.num_parts + (3 if cfg.d_geometry else 0),
+                                  generator=init)
     g_model.to(device).train()
     d_model.to(device).train()
     g_tx, d_tx = make_txs(cfg, steps_per_epoch)
@@ -107,29 +120,81 @@ def create_state(cfg: AdversarialConfig, steps_per_epoch: int,
         device_step=torch.zeros((), dtype=torch.int64, device=device))
 
 
+def d_in(probs: torch.Tensor, xyz: torch.Tensor, on: bool) -> torch.Tensor:
+    """D's input map: the class probabilities, with ``cfg.d_geometry``
+    (``on``) the points' (augmented) coordinates concatenated on the
+    channel axis, ``[B, N, k + 3]``, in the probabilities' dtype. The
+    coordinates are data, so the gradient still reaches G only through
+    ``probs``."""
+    if not on:
+        return probs
+    return torch.cat([probs, xyz.to(probs.dtype)], dim=-1)
+
+
 def g_loss_fn(g_model: PointNetDenseCls, d_model: FCDiscriminator,
               x_l: torch.Tensor, y_l: torch.Tensor, x_u: torch.Tensor,
               cfg: AdversarialConfig, semi_on
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The generator's objective and what the D step needs: ``(total,
-    aux)`` with ``aux`` holding the probability maps, D's logits on them,
-    the loss terms and ``logp_l``. Both streams run the train-mode
-    forward (running statistics chained labeled -> unlabeled): paired
-    (``cfg.paired_heads``, the T-Net fc heads batched across streams;
-    ``cfg.paired_trunks``, the trunks too) or two sequential forwards.
-    ``semi_on`` (0 or 1, a float or a device scalar) switches L_semi."""
-    if cfg.paired_heads:
-        logp_l, logp_u, tf_l, tf_u = g_model.forward_pair(
-            x_l, x_u, cfg.paired_trunks)
-    else:
+    aux)`` with ``aux`` holding the loss terms and ``logp_l`` and, where D
+    ran, the probability maps and D's logits on them. The forwards, in
+    the JAX package's order of precedence:
+
+    * ``cfg.supervised_only``: one single-stream train-mode forward of
+      ``x_l``, cross-entropy (and the ortho reg), nothing else;
+    * ``cfg.fused_forward``: one forward over ``[x_l; x_u]`` (BN over the
+      combined 2B batch, the ortho reg of the 2B transforms doubled) and
+      one frozen D pass over both streams, its logits split at B;
+    * ``cfg.paired_heads``: ``forward_pair`` (``cfg.paired_trunks``,
+      ``cfg.paired_conv1``);
+    * else two sequential forwards, labeled then unlabeled.
+
+    Running statistics chain labeled -> unlabeled. ``cfg.self_training``
+    runs no D: L_semi is ``losses.self_train_loss`` and there is no adv
+    term. ``semi_on`` (0 or 1, a float or a device scalar) switches
+    L_semi."""
+    if cfg.supervised_only:
         logp_l, _, tf_l = g_model(x_l)
-        logp_u, _, tf_u = g_model(x_u)
-    probs_l, probs_u = logp_l.exp(), logp_u.exp()
-    d_l, d_u = d_model.frozen(probs_l), d_model.frozen(probs_u)
+        l_ce = losses.nll_loss(logp_l, y_l)
+        if cfg.feature_transform:
+            l_ce = l_ce + losses.FT_REG_WEIGHT * losses.orthogonality_reg(tf_l)
+        zero = torch.zeros((), dtype=logp_l.dtype, device=logp_l.device)
+        return l_ce, dict(l_ce=l_ce, l_adv=zero, l_semi=zero, logp_l=logp_l)
+
+    need_d = not cfg.self_training
+    b = x_l.shape[0]
+    if cfg.fused_forward:
+        xb = torch.cat([x_l, x_u])
+        logp, _, tf_b = g_model(xb)
+        logp_l, logp_u = logp[:b], logp[b:]
+        probs = logp.exp()
+        probs_l, probs_u = probs[:b], probs[b:]
+        if need_d:
+            d_out = d_model.frozen(d_in(probs, xb, cfg.d_geometry))
+            d_l, d_u = d_out[:b], d_out[b:]
+    else:
+        if cfg.paired_heads:
+            logp_l, logp_u, tf_l, tf_u = g_model.forward_pair(
+                x_l, x_u, cfg.paired_trunks, cfg.paired_conv1)
+        else:
+            logp_l, _, tf_l = g_model(x_l)
+            logp_u, _, tf_u = g_model(x_u)
+        probs_l, probs_u = logp_l.exp(), logp_u.exp()
+        if need_d:
+            d_l = d_model.frozen(d_in(probs_l, x_l, cfg.d_geometry))
+            d_u = d_model.frozen(d_in(probs_u, x_u, cfg.d_geometry))
     l_ce = losses.nll_loss(logp_l, y_l)
     if cfg.feature_transform:
-        l_ce = l_ce + losses.FT_REG_WEIGHT * (losses.orthogonality_reg(tf_l)
-                                              + losses.orthogonality_reg(tf_u))
+        reg = (2.0 * losses.orthogonality_reg(tf_b) if cfg.fused_forward
+               else losses.orthogonality_reg(tf_l)
+               + losses.orthogonality_reg(tf_u))
+        l_ce = l_ce + losses.FT_REG_WEIGHT * reg
+    if cfg.self_training:
+        l_semi = losses.self_train_loss(logp_u, cfg.semi_threshold)
+        total = l_ce + semi_on * cfg.lambda_semi * l_semi
+        zero = torch.zeros((), dtype=logp_l.dtype, device=logp_l.device)
+        return total, dict(l_ce=l_ce, l_adv=zero, l_semi=l_semi,
+                           logp_l=logp_l, probs_u=probs_u)
     adv_l, adv_u = losses.adv_g_loss(d_l), losses.adv_g_loss(d_u)
     l_adv = 0.5 * (adv_l + adv_u)
     if cfg.lambda_adv_unl is None:
@@ -145,7 +210,8 @@ def g_loss_fn(g_model: PointNetDenseCls, d_model: FCDiscriminator,
 
 def d_loss_fn(d_model: FCDiscriminator, probs_l: torch.Tensor,
               probs_u: torch.Tensor, y_l: torch.Tensor, num_parts: int,
-              fake_logits: Optional[torch.Tensor] = None
+              fake_logits: Optional[torch.Tensor] = None,
+              xyz: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """The discriminator's objective on detached predictions (fake) and
     one-hot labels (real): ``(loss, (d_real, d_fake))``. With
@@ -153,9 +219,16 @@ def d_loss_fn(d_model: FCDiscriminator, probs_l: torch.Tensor,
     current parameters in the G step, the fakes run only the
     weight-gradient backward and the reals a forward and the
     weight-gradient backward; without, one D pass over the stacked
-    ``[fake_l; fake_u; real]``, split at ``2B``."""
+    ``[fake_l; fake_u; real]``, split at ``2B``. With ``xyz``, the
+    streams' coordinates ``(x_l, x_u)`` (``cfg.d_geometry``), every map
+    carries its points' coordinates (``d_in``): the reals the labeled
+    stream's."""
     real = torch.nn.functional.one_hot(y_l.long(), num_parts).to(
         probs_l.dtype)
+    if xyz is not None:
+        x_l, x_u = xyz
+        probs_l, probs_u = d_in(probs_l, x_l, True), d_in(probs_u, x_u, True)
+        real = d_in(real, x_l, True)
     if fake_logits is None:
         b = probs_l.shape[0]
         d_all = d_model(torch.cat([probs_l, probs_u, real]).detach())
@@ -183,7 +256,9 @@ def train_step(state: state_lib.GANTrainState, x_l: torch.Tensor,
     switch is ``device_step >= cfg.semi_start`` on the device, and
     ``augment_fused`` (``cfg.pallas_augment``) is keyed by the device
     step, stream 0 labeled and 1 unlabeled, both streams in one
-    ``augment_fused_pair`` launch."""
+    ``augment_fused_pair`` launch. Under ``cfg.supervised_only`` or
+    ``cfg.self_training`` there is no D step: D's parameters, gradients,
+    Adam moments and schedule stay as they are and ``loss_d`` is 0."""
     if (g_tx, d_tx) != (state.g_tx, state.d_tx):
         raise ValueError(f"train_step got {(g_tx, d_tx)}, but the state was "
                          f"built with {(state.g_tx, state.d_tx)}")
@@ -200,14 +275,18 @@ def train_step(state: state_lib.GANTrainState, x_l: torch.Tensor,
         state.g_optimizer.step()
         state.g_scheduler.step()
 
-        state.d_optimizer.zero_grad(set_to_none=True)
-        d_loss, _ = d_loss_fn(
-            state.d_model, aux["probs_l"], aux["probs_u"], y_l,
-            cfg.num_parts,
-            None if layerwise else torch.cat([aux["d_l"], aux["d_u"]]))
-        d_loss.backward()
-        state.d_optimizer.step()
-        state.d_scheduler.step()
+        if cfg.supervised_only or cfg.self_training:
+            d_loss = torch.zeros_like(g_loss)
+        else:
+            state.d_optimizer.zero_grad(set_to_none=True)
+            d_loss, _ = d_loss_fn(
+                state.d_model, aux["probs_l"], aux["probs_u"], y_l,
+                cfg.num_parts,
+                None if layerwise else torch.cat([aux["d_l"], aux["d_u"]]),
+                (x_l, x_u) if cfg.d_geometry else None)
+            d_loss.backward()
+            state.d_optimizer.step()
+            state.d_scheduler.step()
 
     state.step += 1
     state.device_step += 1

@@ -168,7 +168,7 @@ def _shapenet_arrays(cfg, eval_split: str = "test"):
     if cfg.normalize:
         x_te = aug_lib.normalize_unit_sphere_np(x_te)
     how = (f"pts layout, {native_loader.last_loader()} loader"
-           if train._ragged else "h5 layout")
+           if train._ragged else "h5 or npz layout")
     print(f"[data] ShapeNet-part {root}: {len(tr[0])} train, {len(x_te)} "
           f"{eval_split} shapes ({how})", flush=True)
     return tr, (x_te, s_te, c_te)

@@ -228,7 +228,8 @@ def _read(ckpt_dir: str, step: Optional[int]) -> Dict[str, Any]:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
-def _load_fields(state, snap: Dict[str, Any], fields: Sequence[str]) -> None:
+def _load_fields(state, snap: Dict[str, Any], fields: Sequence[str],
+                 ckpt_dir: str) -> None:
     for name in fields:
         if name not in snap:
             raise KeyError(f"the checkpoint ({snap.get('kind')}) has no "
@@ -237,7 +238,7 @@ def _load_fields(state, snap: Dict[str, Any], fields: Sequence[str]) -> None:
         if isinstance(value, torch.Generator):
             value.set_state(saved)
         elif isinstance(value, torch.nn.Module):
-            value.load_state_dict(saved, strict=True)
+            _load_checked(ckpt_dir, value, saved, name)
         elif hasattr(value, "load_state_dict"):
             value.load_state_dict(saved)
         elif isinstance(value, torch.Tensor):
@@ -266,7 +267,8 @@ def restore(ckpt_dir: str, state_like, step: Optional[int] = None):
     _check_kind(ckpt_dir, state_like, snap)
     _load_fields(state_like, snap, [
         f.name for f in dataclasses.fields(state_like)
-        if not isinstance(getattr(state_like, f.name), state_lib.Optimizer)])
+        if not isinstance(getattr(state_like, f.name), state_lib.Optimizer)],
+        ckpt_dir)
     return state_like
 
 
@@ -276,7 +278,7 @@ def restore_fields(ckpt_dir: str, state_like, fields: Sequence[str],
     for inference from an adversarial checkpoint, which needs nothing of
     the discriminator) into ``state_like``; returns ``{field: value}``."""
     snap = _read(ckpt_dir, step)
-    _load_fields(state_like, snap, fields)
+    _load_fields(state_like, snap, fields, ckpt_dir)
     return {name: getattr(state_like, name) for name in fields}
 
 
@@ -294,7 +296,7 @@ def load_params_only(ckpt_dir: str, state_like, step: Optional[int] = None):
         return load_pth_warm_start(ckpt_dir, state_like)
     snap = _read(ckpt_dir, step)
     _check_kind(ckpt_dir, state_like, snap)
-    _load_fields(state_like, snap, _model_fields(state_like))
+    _load_fields(state_like, snap, _model_fields(state_like), ckpt_dir)
     return state_like
 
 
@@ -307,7 +309,7 @@ def _check_keys(path: str, sd: dict, like: dict, what: str = "segmenter"
                 ) -> None:
     """Raise a readable error when ``sd`` does not fit the model built
     from the flags (wrong ``--num_classes`` / ``--num_parts`` /
-    ``--feature_transform``)."""
+    ``--feature_transform`` / ``--d_geometry``)."""
     missing = sorted(set(like) - set(sd))
     extra = sorted(set(sd) - set(like))
     wrong = [f"{k}: {tuple(sd[k].shape)} != {tuple(like[k].shape)}"
@@ -320,7 +322,7 @@ def _check_keys(path: str, sd: dict, like: dict, what: str = "segmenter"
             + (f"; unexpected {extra[:4]}" if extra else "")
             + (f"; shape mismatch {wrong[:4]}" if wrong else "")
             + " - check --feature_transform / --num_classes / --num_parts "
-              "against how the .pth was trained.")
+              "/ --d_geometry against how the checkpoint was trained.")
 
 
 # The top-level key that tells the two reference models apart.

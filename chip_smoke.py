@@ -3,7 +3,8 @@
 
 Drives the port's main paths at full width (``adversarial_learning_
 on_pointclouds_tpu_torch``: the classifier's configs 1, 2 and 5 (phase
-22), serving the part segmenter, its config-3
+22), the adversarial trainer's ablation controls and batching knobs
+(phase 23), serving the part segmenter, its config-3
 training step, the config-4 adversarial G+D step in fp32, the G+D step
 as the JAX package's ``bench.py`` runs it: bf16 mixed precision,
 ``augment_fused``, K = 8 steps per call; and the config-3 and bench
@@ -228,7 +229,24 @@ Phases, one or more lines each:
    (the JAX package's: 64 train and 32 test shapes of 2048 points, cut
    from ModelNet40's 9,843 and 2,468), their launches, and
    ``eval_classification`` and ``eval_robustness`` (eps 0) reproducing
-   each run's last eval. The phase must finish within 90 s.
+   each run's last eval. The phase must finish within 90 s;
+23. ablation: the JAX package's ablation controls and batching knobs
+   (``supervised_only``, ``self_training``, ``d_geometry``,
+   ``paired_conv1``, ``fused_forward``). The four disc passes at D's
+   ``d_geometry`` width, k=53 (rows of 212 bytes), at B=32 and 2B=64
+   N=2048, held as phases 9 and 12 hold them at k=50: the plain twin, in
+   fp32 the float64 control with TF32 controls that must fail, in bf16
+   the pass's own h4; their times and bounds (the kernels line's
+   ``disc_fused (d_geometry, k=53)``). Each knob's G+D step with the
+   bench flags (``augment``, ``pallas_augment``) at 2 x B=32 x N=512,
+   card against CPU from the same weights and batch, in fp32 at phase
+   10's bounds and in bf16 at phase 13's, launches per step
+   (``KNOB_PER_STEP``: no disc launch under either control), and D
+   bit-untouched under the controls (parameters, gradients, Adam moments,
+   schedule; ``loss_d`` 0). The bench step by default, with
+   ``paired_conv1`` and with ``fused_forward``, timed in turns (median,
+   idle share). ``ablation_adversarial_gain --quick`` on the card, modes
+   sup adv geo st. The phase must finish within 90 s.
 
 The line before the last is a JSON object of the kernels' numbers: per
 kernel its time, its plain version's, and its bound (``bound_ms``: the
@@ -245,7 +263,8 @@ non-zero and no result is printed.
     python3 chip_smoke.py
 
 ``--runner`` runs only phases 1-2 and 21 and prints no result line;
-``--classify`` only phases 1-2 and 22.
+``--classify`` only phases 1-2 and 22; ``--ablation`` only phases 1-2
+and 23.
 
 ``--disc-checks SEED`` runs only phases 1-2 and the discriminator's
 checks of phases 9 and 12 on data from generator seed ``SEED``, and
@@ -2192,12 +2211,16 @@ def adv_setup(cfg, gen, dev):
     from adversarial_learning_on_pointclouds_tpu_torch.models import (
         FCDiscriminator, PointNetDenseCls,
     )
+    from adversarial_learning_on_pointclouds_tpu_torch.train import (
+        adversarial,
+    )
 
     bsz, n = cfg.batch_size, cfg.num_points
     g_model = PointNetDenseCls(cfg.num_parts, cfg.feature_transform,
                                generator=gen)
     randomize_bn(g_model, gen)
-    d_model = FCDiscriminator(cfg.num_parts, generator=gen)
+    d_model = FCDiscriminator(cfg.num_parts + (3 if cfg.d_geometry else 0),
+                              generator=gen)
     rng = np.random.default_rng(SEED + 1)
     pts = [(rng.normal(size=(bsz, n, 3)) * rng.uniform(0.5, 2.0, (bsz, 1, 3))
             ).astype(np.float32) for _ in range(2)]
@@ -2216,7 +2239,8 @@ def adv_setup(cfg, gen, dev):
             copy.deepcopy(d_model).to(dev)
         x = torch.from_numpy(pts[1]).to(dev)
         x = augment.normalize_unit_sphere(x)
-        d_u = d_probe(g_probe(x)[0].exp())
+        d_u = d_probe(adversarial.d_in(g_probe(x)[0].exp(), x,
+                                       cfg.d_geometry))
         target = float(np.log(cfg.semi_threshold / (1 - cfg.semi_threshold)))
         d_model.classifier.bias += target - d_u.median().item()
         del g_probe, d_probe, x, d_u
@@ -2288,10 +2312,15 @@ def check_launches(tag, launches, want):
 def compare_step(tag, runs, cfg, step_bound, grad_bound, yard=None):
     """The card's step against the CPU's: every metric, D's logits and
     the maps, the semi mask, every new running statistic and every G and
-    D gradient. With ``yard`` (the CPU's step in fp32) each bound is the
+    D gradient (where the step ran D: under the ablation controls D has
+    no gradient on either side, and its logits and the mask are not
+    made). With ``yard`` (the CPU's step in fp32) each bound is the
     larger of the given one and ``YARD_FACTOR`` times the CPU's own bf16
-    against fp32 difference of the same quantity."""
+    against fp32 difference of the same quantity. Each BatchNorm has
+    tracked two batches after the step, or one where G ran one forward
+    (``supervised_only``, ``fused_forward``)."""
     (gs, gm, gaux, _, _), (cs, cm, caux, _, _) = runs["cuda"], runs["cpu"]
+    tracked = 1 if cfg.supervised_only or cfg.fused_forward else 2
 
     def bound_for(cpu_val, yard_val, base):
         if yard is None:
@@ -2303,10 +2332,13 @@ def compare_step(tag, runs, cfg, step_bound, grad_bound, yard=None):
               bound_for(cm[k][None], yard and yard[1][k][None], step_bound),
               tag)
     for k in ("logp_l", "probs_u", "d_l", "d_u"):
+        if k not in caux:
+            continue
         check(f"{k} GPU vs CPU", gaux[k].detach().cpu(), caux[k].detach(),
               bound_for(caux[k].detach(), yard and yard[2][k].detach(),
                         step_bound), tag)
-    semi_mask_check(gaux, caux, cfg.semi_threshold, tag)
+    if "d_u" in caux:
+        semi_mask_check(gaux, caux, cfg.semi_threshold, tag)
     gsd, csd = gs.g_model.state_dict(), cs.g_model.state_dict()
     ysd = yard[0].g_model.state_dict() if yard else None
     stats = [k for k in csd if k.endswith(("running_mean", "running_var"))]
@@ -2315,12 +2347,15 @@ def compare_step(tag, runs, cfg, step_bound, grad_bound, yard=None):
                  for k in stats)
     phase(tag, f"{len(stats)} new running statistics GPU vs CPU: max "
           f"scale-relative error {worst:.3e} (bound {sbound:.3g})")
-    if worst > sbound or any(int(v) != 2 for k, v in gsd.items()
+    if worst > sbound or any(int(v) != tracked for k, v in gsd.items()
                              if k.endswith("num_batches_tracked")):
         raise AssertionError("running statistics differ")
     for net in ("g_model", "d_model"):
         gp = dict(getattr(gs, net).named_parameters())
         cp = dict(getattr(cs, net).named_parameters())
+        if all(p.grad is None for p in (*gp.values(), *cp.values())):
+            phase(tag, f"{net}: no gradient on the card or the CPU")
+            continue
         scale = max(float(p.grad.abs().max()) for p in cp.values())
         worst, name = max((float((gp[k].grad.cpu() - p.grad).abs().max()), k)
                           for k, p in cp.items())
@@ -2819,8 +2854,10 @@ def bench_slice(dev, card, gen):
     return out, setup, batch_k, scan_state, txs
 
 
-def time_passes(card, rec, key, fn, plain, times, bf16):
-    """One pass's kernel and plain times and its bound, per step."""
+def time_passes(card, rec, key, fn, plain, times, bf16, peak=None,
+                tag="bench-timing"):
+    """One pass's kernel and plain times and its bound (at ``peak``, by
+    default the bf16 tensor cores' or fp32 FMA's), per step."""
     calls = rec.args[key]
     with torch.no_grad():
         ms, plain_ms = time_pair(lambda: [fn(*a) for a in calls],
@@ -2829,8 +2866,8 @@ def time_passes(card, rec, key, fn, plain, times, bf16):
         plain_dev_ms = sum(device_profile(
             lambda: [plain(*a) for a in calls]).values())
     flops, nbytes = work(plain, calls)
-    bound_ms, bound_by = bound(flops, nbytes,
-                               BF16_PEAK if bf16 else FP32_PEAK)
+    bound_ms, bound_by = bound(flops, nbytes, peak or (
+        BF16_PEAK if bf16 else FP32_PEAK))
     row = dict(zip(("ms", "plain_ms", "device_ms", "plain_device_ms",
                     "bound_ms"), (t * times / len(calls) for t in (
                         ms, plain_ms, dev_ms, plain_dev_ms, bound_ms))))
@@ -2838,7 +2875,7 @@ def time_passes(card, rec, key, fn, plain, times, bf16):
                tflops=flops / ms / 1e9)
     if key in rec.share:
         row["stash_diff_share"] = rec.share[key]
-    phase("bench-timing", f"{card}: {key[0]} {key[1]} "
+    phase(tag, f"{card}: {key[0]} {key[1]} "
           f"{'bf16 ' if bf16 else ''}x{times} per step: kernel "
           f"{row['ms']:.4f} ms ({row['tflops']:.1f} TFLOP/s), plain "
           f"{row['plain_ms']:.4f} ms; device time "
@@ -4945,6 +4982,249 @@ def classify_phase(dev, card):
     return times
 
 
+# ---------------------------------------------------------------------------
+# The ablation controls and batching knobs (phase 23)
+# ---------------------------------------------------------------------------
+
+ABL_BUDGET_S = 90.0
+# The knobs' steps card against CPU at 2 x B=32 x ABL_N (the sigma=0.30
+# sweep's point count; fused_forward's batch of 2B=64 kept): the CPU's
+# G+D step at N=2048 takes 17-25 s (H100 host, phases 10 and 13), and ten
+# of them would hold the phase for minutes. The knobs' launch counts and
+# times, and the disc passes at k=53, are taken at N=2048.
+ABL_N = 512
+KNOBS = ("supervised_only", "self_training", "d_geometry", "paired_conv1",
+         "fused_forward")
+CONTROLS = ("supervised_only", "self_training")
+GEO_K = PARTS + 3     # D's input under --d_geometry: probabilities + xyz
+NO_DISC = {"fwd": 0, "bwd_dx": 0, "bwd_dw": 0, "bwd": 0}
+# Launches per G+D step: supervised_only runs G's one-stream passes and no
+# D; self_training both streams and no D; fused_forward G's passes once at
+# 2B, one frozen D pass (fwd + dx) at 2B, the reals' fwd and two dW.
+KNOB_PER_STEP = {
+    "supervised_only": {**PER_STEP, "disc_fused": NO_DISC},
+    "self_training": {**ADV_PER_STEP, "disc_fused": NO_DISC},
+    "d_geometry": ADV_PER_STEP,
+    "paired_conv1": ADV_PER_STEP,
+    "fused_forward": {**PER_STEP, "disc_fused": {
+        "fwd": 2, "bwd_dx": 1, "bwd_dw": 2, "bwd": 0}},
+}
+ABL_TIMED = ("default", "paired_conv1", "fused_forward")
+ABL_ROUNDS = 5
+
+
+def geo_maps(gen, bsz, n, dev):
+    """D's input under ``--d_geometry``: ``prob_maps`` with each point's
+    coordinates (a cloud normalized to the unit sphere) appended,
+    ``[bsz, n, 53]``; rows of 212 bytes, off every 16-byte boundary."""
+    xyz = torch.randn(bsz, n, 3, generator=gen)
+    xyz = xyz - xyz.mean(1, keepdim=True)
+    xyz = xyz / xyz.norm(dim=-1).amax(1)[:, None, None]
+    return torch.cat([prob_maps(gen, bsz, n, "cpu"), xyz], -1).to(dev)
+
+
+def abl_disc_checks(dev, gen, rec, bf16=False):
+    """The four disc passes at k=53 (``check_disc_fwd``, ``check_disc_dw``
+    as phases 9 and 12: the plain twin, in fp32 the float64 control with
+    TF32 controls that must fail, in bf16 the pass's own h4) at B=32 and
+    the D step's 2B=64, N=2048."""
+    ws, bs = disc_params(gen, dev, k=GEO_K)
+    for bsz in (B, 2 * B):
+        tag = f"k={GEO_K} B={bsz} N={TRAIN_N}"
+        x = geo_maps(gen, bsz, TRAIN_N, dev)
+        g = _r(gen, bsz, TRAIN_N, 1, scale=1.0, dev=dev)
+        with torch.no_grad():
+            h4p = pass_h4(x, ws, bs, True) if bf16 else None
+            if bsz == B:
+                check_disc_fwd(rec, tag, x, ws, bs, bf16, True, "ablation")
+                check_disc_dw(rec, tag, x, g, ws, bs, bf16, True, True,
+                              "ablation", h4p)
+            check_disc_dw(rec, tag, x, g, ws, bs, bf16, False, True,
+                          "ablation", h4p)
+        torch.cuda.synchronize()
+
+
+def d_untouched(tag, state, d_model, metrics):
+    """Under an ablation control: D's parameters bit-equal to the ones it
+    started from, no gradient, no Adam moment, its schedule not stepped,
+    and ``loss_d`` 0."""
+    for (name, p), p0 in zip(state.d_model.state_dict().items(),
+                             d_model.state_dict().values()):
+        if not torch.equal(p.cpu(), p0):
+            raise AssertionError(f"{tag}: D's {name} changed")
+    if any(p.grad is not None for p in state.d_model.parameters()):
+        raise AssertionError(f"{tag}: D has a gradient")
+    if state.d_optimizer.state or state.d_scheduler.last_epoch != 0:
+        raise AssertionError(f"{tag}: D's optimizer or schedule stepped")
+    if float(metrics["loss_d"]) != 0.0:
+        raise AssertionError(f"{tag}: loss_d {float(metrics['loss_d'])}")
+    phase(tag, "D untouched: parameters bit-equal, no gradient, no Adam "
+          "moment, schedule at 0, loss_d 0")
+
+
+def abl_steps(dev, gen):
+    """Each knob's G+D step with the bench flags (``augment``,
+    ``pallas_augment``) at 2 x B=32 x ABL_N, card against CPU from the
+    same weights and batch: in fp32 at phase 10's bounds, and in bf16 at
+    phase 13's (the fp32 CPU step the yardstick); launches per step; D
+    untouched under the controls. Returns the d_geometry step's launches
+    (fp32)."""
+    from adversarial_learning_on_pointclouds_tpu_torch.configs import (
+        AdversarialConfig,
+    )
+
+    out = {}
+    for knob in KNOBS:
+        cfg = AdversarialConfig(num_points=ABL_N, augment=True,
+                                pallas_augment=True, **{knob: True})
+        setup = adv_setup(cfg, gen, dev)
+        want = {**KNOB_PER_STEP[knob], **PT_OFF,
+                "augment_fused": {"fwd": AUG_PER_STEP}}
+        yard = None
+        for c in (cfg, dataclasses.replace(cfg, bf16=True)):
+            tag = f"ablation {knob}" + (" bf16" if c.bf16 else "")
+            runs, launches = step_runs(c, *setup, tag, dev)
+            check_launches(tag, launches, want)
+            compare_step(tag, runs, c, STEP_BOUND, GRAD_BOUND, yard)
+            if knob in CONTROLS:
+                d_untouched(tag, runs["cuda"][0], setup[1], runs["cuda"][1])
+            yard = runs["cpu"]
+            out.setdefault(knob, launches)
+    return out["d_geometry"]
+
+
+def abl_disc_entry(card, rec, rec_bf, launches):
+    """The kernels line's entry of the disc passes at k=53: each pass's
+    fp32 times and bound (3xTF32 rate) and its bf16 ones, per G+D step
+    under ``--d_geometry`` (the full ``bwd`` per call, off the step)."""
+    from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
+        disc_fused as df,
+    )
+
+    passes = []
+    for pas, fn in df.PASSES.items():
+        plain = getattr(df, fn.__name__ + "_plain")
+        per = ADV_PER_STEP["disc_fused"][pas] or 1
+        key = ("disc_fused", pas)
+        row = time_passes(card, rec, key, fn, plain, per, False,
+                          TF32X3_PEAK, "ablation")
+        bf = time_passes(card, rec_bf, key, fn, plain, per, True,
+                         tag="ablation")
+        passes.append({"pass": pas,
+                       "replaces": f"{TPU_KERNELS}/{DISC_SITES[pas]}",
+                       "launches": launches["disc_fused"][pas], **row,
+                       **{f"bf16_{k}": v for k, v in bf.items()}})
+    step = [p for p in passes if p["pass"] != "bwd"]
+    entry = kernel_entry(f"disc_fused (d_geometry, k={GEO_K})", "disc_tc.cu",
+                         DISC_SITES["fwd"],
+                         sum(launches["disc_fused"].values()), step,
+                         f"per G+D step under --d_geometry, k={GEO_K}")
+    for k in ("ms", "plain_ms", "bound_ms", "device_ms", "plain_device_ms"):
+        entry[f"bf16_{k}"] = sum(p[f"bf16_{k}"] for p in step)
+    entry["passes"] = passes
+    return entry
+
+
+def abl_timing(card):
+    """The bench step (``train_steps_scan`` at K=8, 2 x B=32 x N=2048,
+    bf16, ``augment_fused``) by default, with ``paired_conv1`` and with
+    ``fused_forward``, each from ``create_state``'s seeded weights, timed
+    in turns (``ABL_ROUNDS`` rounds, CUDA events): per-step median and the
+    idle share of one profiled call."""
+    from adversarial_learning_on_pointclouds_tpu_torch.configs import (
+        AdversarialConfig,
+    )
+    from adversarial_learning_on_pointclouds_tpu_torch.train import (
+        adversarial,
+    )
+
+    rng = np.random.default_rng(SEED + 23)
+    x_l, x_u = (torch.from_numpy(rng.normal(size=(BENCH_K, B, TRAIN_N, 3))
+                                 .astype(np.float32)).cuda() for _ in range(2))
+    y_l = torch.from_numpy(rng.integers(0, PARTS, (BENCH_K, B, TRAIN_N))
+                           ).cuda()
+    calls = {}
+    for name in ABL_TIMED:
+        cfg = AdversarialConfig(augment=True, bf16=True, pallas_augment=True,
+                                **({} if name == "default" else {name: True}))
+        state = adversarial.create_state(cfg, 100)
+        txs = adversarial.make_txs(cfg, 100)
+        calls[name] = (lambda s=state, c=cfg, t=txs:
+                       adversarial.train_steps_scan(s, x_l, y_l, x_u, cfg=c,
+                                                    g_tx=t[0], d_tx=t[1]))
+        calls[name]()
+    times = {name: [] for name in ABL_TIMED}
+    for r in range(ABL_ROUNDS):
+        for name in (ABL_TIMED if r % 2 == 0 else ABL_TIMED[::-1]):
+            times[name] += event_ms(calls[name], 1)
+    out = {}
+    for name in ABL_TIMED:
+        per = statistics.median(times[name]) / BENCH_K
+        busy = sum(device_profile(calls[name], reps=1).values()) / BENCH_K
+        out[name] = {"step_ms": per, "busy_ms": busy,
+                     "idle": 1 - busy / per}
+        phase("ablation", f"{card}: bench step ({name}): train_steps_scan "
+              f"K={BENCH_K}, 2 x B={B} N={TRAIN_N}, {ABL_ROUNDS} calls in "
+              f"turns: median {per:.3f} ms per step "
+              f"({per / out['default']['step_ms']:.3f} x the default's), "
+              f"GPU kernels busy {busy:.3f} ms ({100 * (1 - busy / per):.1f}"
+              f"% idle)")
+    return out
+
+
+def abl_sweep(card):
+    """``ablation_adversarial_gain --quick`` (1 seed, 2 epochs, 96 shapes,
+    ratio 0.5) on the card, modes sup adv geo st, in a temporary
+    directory: four runs, each a finite best mIoU in (0, 1], the artifact
+    naming this card."""
+    from adversarial_learning_on_pointclouds_tpu_torch import (
+        ablation_adversarial_gain as abl,
+    )
+
+    prev = tempfile.tempdir
+    with tempfile.TemporaryDirectory() as tmp:
+        tempfile.tempdir = tmp
+        buf = io.StringIO()
+        try:
+            t0 = time.perf_counter()
+            with redirect_stdout(buf):
+                art = abl.main(["--quick", "--modes", "sup", "adv", "geo",
+                                "st", "--json", os.path.join(tmp, "q.json")])
+            spent = time.perf_counter() - t0
+        finally:
+            tempfile.tempdir = prev
+    runs = art["runs"]
+    if ([r["mode"] for r in runs] != ["sup", "adv", "geo", "st"]
+            or not all(0 < r["best_miou"] <= 1 for r in runs)
+            or art["device"] != card):
+        raise AssertionError(f"the quick sweep: {art}")
+    phase("ablation", f"{card}: ablation_adversarial_gain --quick on the "
+          f"card, {spent:.1f} s: " + ", ".join(
+              f"{r['mode']} {r['best_miou']:.4f} ({r['wall_s']} s)"
+              for r in runs))
+    return {r["mode"]: r["wall_s"] for r in runs}
+
+
+def ablation_phase(dev, card, results=None):
+    """Phase 23."""
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 23)
+    rec, rec_bf = PassRecord(), PassRecord(BF16_BOUND)
+    abl_disc_checks(dev, gen, rec)
+    abl_disc_checks(dev, gen, rec_bf, bf16=True)
+    launches = abl_steps(dev, gen)
+    entry = abl_disc_entry(card, rec, rec_bf, launches)
+    abl_timing(card)
+    abl_sweep(card)
+    if results is not None:
+        results.append(entry)
+    spent = time.perf_counter() - t0
+    phase("ablation", f"{card}: the ablation phase took {spent:.1f} s "
+          f"(budget {ABL_BUDGET_S:g} s)")
+    if spent > ABL_BUDGET_S:
+        raise AssertionError(f"the ablation phase took {spent:.1f} s")
+
+
 def ptxas_report(build, src):
     """``{name<template arguments>: (registers, spill store bytes, spill
     load bytes)}`` of ``src``'s kernels in this run's build (empty when
@@ -5274,6 +5554,9 @@ def main() -> None:
     ap.add_argument("--classify", action="store_true",
                     help="run only phases 1-2 and 22 (the classification "
                          "configs end to end; no result line)")
+    ap.add_argument("--ablation", action="store_true",
+                    help="run only phases 1-2 and 23 (the ablation "
+                         "controls and batching knobs; no result line)")
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(
         __file__)), help="with --time: the tree whose port package to time")
     args = ap.parse_args()
@@ -5322,6 +5605,9 @@ def main() -> None:
     if args.classify:
         classify_phase(dev, card)
         return
+    if args.ablation:
+        ablation_phase(dev, card)
+        return
     if args.disc_checks is not None:
         gen = torch.Generator().manual_seed(args.disc_checks)
         disc_kernel_checks(dev, gen, PassRecord())
@@ -5356,6 +5642,7 @@ def main() -> None:
     adv_pt_timing(card, rec_st, slice_out, results)
     runner_phase(dev, card)
     classify_phase(dev, card)
+    ablation_phase(dev, card, results)
 
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {

@@ -48,7 +48,7 @@ from adversarial_learning_on_pointclouds_tpu.train import (
 )
 from adversarial_learning_on_pointclouds_tpu_torch import losses
 from adversarial_learning_on_pointclouds_tpu_torch.configs import (
-    AdversarialConfig,
+    AdversarialConfig, parse_adversarial_args,
 )
 from adversarial_learning_on_pointclouds_tpu_torch.models import (
     FCDiscriminator, PointNetDenseCls, core,
@@ -62,11 +62,27 @@ GRAD_TOL = 2e-2
 # A threshold near the middle of sigmoid(D) on this fixture, so the semi
 # mask keeps some points and drops others.
 THRESHOLD = 0.5
-NOT_PORTED = ("supervised_only", "self_training", "d_geometry",
-              "paired_trunks", "paired_conv1", "fused_forward")
-# Ported since: what its config still refuses.
-PORTED_RULES = {"paired_trunks": (ValueError, "paired-heads",
-                                  dict(paired_heads=False))}
+# The combinations the JAX package refuses (its flag check, and
+# create_state's for the two controls), and the options still to port.
+REFUSED = {
+    "supervised_only+self_training": (
+        ValueError, "mutually exclusive",
+        dict(supervised_only=True, self_training=True)),
+    "paired_trunks-paired_heads": (
+        ValueError, "paired-heads",
+        dict(paired_trunks=True, paired_heads=False)),
+    "paired_trunks+fused_forward": (
+        ValueError, "paired-heads",
+        dict(paired_trunks=True, fused_forward=True)),
+    "paired_conv1-paired_heads": (
+        ValueError, "paired-heads",
+        dict(paired_conv1=True, paired_heads=False)),
+    "paired_conv1+fused_forward": (
+        ValueError, "paired-heads",
+        dict(paired_conv1=True, fused_forward=True)),
+    "fused_epoch": (NotImplementedError, "item 5", dict(fused_epoch=True)),
+    "num_devices": (NotImplementedError, "item 15", dict(num_devices=2)),
+}
 
 
 def _randomize_bn(tree_p, tree_s, rng):
@@ -414,12 +430,20 @@ def test_config_defaults_match_jax():
     assert {k: ref[k] for k in port} == port
 
 
-@pytest.mark.parametrize("flag", NOT_PORTED)
-def test_ablation_controls_raise(flag):
-    error, match, extra = PORTED_RULES.get(
-        flag, (NotImplementedError, "item 14", {}))
+@pytest.mark.parametrize("combination", REFUSED)
+def test_ablation_controls_raise(combination):
+    """Each ablation knob alone is accepted; the combinations the JAX
+    package refuses raise, in the config and through the flag parser."""
+    error, match, kw = REFUSED[combination]
+    for flag in set(kw) & {"supervised_only", "self_training", "d_geometry",
+                           "paired_trunks", "paired_conv1", "fused_forward"}:
+        AdversarialConfig(**{flag: True})
     with pytest.raises(error, match=match):
-        AdversarialConfig(**{flag: True}, **extra)
+        AdversarialConfig(**kw)
+    argv = [f"--{k}" if v is True else "--no_paired_heads" if v is False
+            else f"--{k}={v}" for k, v in kw.items()]
+    with pytest.raises((error, SystemExit)):
+        parse_adversarial_args(argv)
 
 
 def test_train_step_refuses_other_txs():

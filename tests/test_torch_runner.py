@@ -9,7 +9,10 @@ Port only, at B=4, N=64, two epochs on a synthetic pts fixture:
   evaluated and saved;
 * the CLIs ``train_segmentation``, ``train_adversarial`` and
   ``eval_segmentation`` run in-process, and the eval CLI reproduces the
-  run's last eval; the flags the port cannot honour raise.
+  run's last eval; the flags the port cannot honour raise;
+* an epoch from the CLI's flags under ``--supervised_only`` (D untouched,
+  ``loss_d`` 0 every step) and ``--d_geometry`` (D at 53 channels
+  trains).
 
 Against the JAX package: both runners start from the same reference
 ``.pth`` (and its ``_D.pth``), with augment and resample off, the JAX
@@ -17,7 +20,8 @@ package's on its jnp path. Config 3: one epoch of 3 steps at B=16 (64
 shapes: 48 train, 8 test in one ragged eval batch). Config 4: two
 epochs at B=4 and lr=0, at three labeled ratios (the split as given,
 the split raised to one batch, the unlabeled stream falling back to the
-whole train set). At ``lr=0`` every per-step loss lies within 1e-5
+whole train set); under ``--d_geometry`` three epochs with G at lr=0
+and D learning. At ``lr=0`` every per-step loss lies within 1e-5
 (relative) and the eval summary and per-category table within 1e-6; at
 the default lr the first step within 1e-5 and the later steps within
 5e-3, the JAX package's model-level step bound. Why B=16: from the first
@@ -59,7 +63,9 @@ from adversarial_learning_on_pointclouds_tpu_torch.data.shapenet_part import (
 from adversarial_learning_on_pointclouds_tpu_torch.models import (
     FCDiscriminator, PointNetDenseCls,
 )
-from adversarial_learning_on_pointclouds_tpu_torch.train import runner
+from adversarial_learning_on_pointclouds_tpu_torch.train import (
+    adversarial, runner,
+)
 
 B, N = 4, 64
 
@@ -239,15 +245,36 @@ def test_profile_dir_writes_a_trace(root, tmp_path):
     (["--fused_epoch"], NotImplementedError, "item 5"),
     (["--num_devices", "4"], NotImplementedError, "item 15"),
     (["--remat"], NotImplementedError, "not ported"),
-    (["--supervised_only"], NotImplementedError, "item 14"),
-    (["--d_geometry"], NotImplementedError, "item 14"),
 ])
 def test_flags_the_port_cannot_honour_raise(argv, error, match):
     with pytest.raises(error, match=match):
         parse_adversarial_args(argv)
-    if "--supervised_only" not in argv and "--d_geometry" not in argv:
-        with pytest.raises(error, match=match):
-            parse_segment_args(argv)
+    with pytest.raises(error, match=match):
+        parse_segment_args(argv)
+
+
+@pytest.mark.parametrize("flag", ["--supervised_only", "--d_geometry"])
+def test_runner_epoch_under_ablation_flag(root, tmp_path, flag):
+    """An epoch of ``run_adversarial`` from the CLI's flags: under
+    ``--supervised_only`` D is untouched and ``loss_d`` 0 at every step;
+    under ``--d_geometry`` D takes 53 input channels and trains."""
+    cfg, device = parse_adversarial_args([
+        flag, "--cpu", "--nepoch", "1", "--batchSize", str(B),
+        "--num_points", str(N), "--dataset", root, "--ckpt_policy", "none",
+        "--quiet", "--outf", str(tmp_path / "adv")])
+    d0 = adversarial.create_state(cfg, 1, device="cpu").d_model
+    out = runner.run_adversarial(cfg, device=device)
+    d_model = out["state"].d_model
+    assert d_model.conv1.weight.shape[1] == (53 if cfg.d_geometry else 50)
+    losses = [float(r["loss_d"]) for r in _rows(cfg.out_dir, "adv")]
+    assert len(losses) == 3 and np.isfinite(losses).all()
+    assert 0.0 <= out["best_miou"] <= 1.0
+    moved = any(not torch.equal(a, b) for a, b in zip(
+        d_model.state_dict().values(), d0.state_dict().values()))
+    if flag == "--supervised_only":
+        assert losses == [0.0] * 3 and not moved
+    else:
+        assert min(losses) > 0.0 and moved
 
 
 def test_flags_carry_the_jax_names_and_defaults():
@@ -353,3 +380,32 @@ def test_runner_matches_jax_from_the_same_pth(request, pth, tmp_path,
         assert table[k] == pytest.approx(table_ref[k], rel=1e-6), k
     np.testing.assert_allclose(port["best_miou"], ref["best_miou"],
                                rtol=1e-6)
+
+
+def test_d_geometry_run_matches_jax_while_d_learns(root, tmp_path):
+    """Three epochs of config 4 under ``--d_geometry`` (9 steps at B=4)
+    from one ``.pth`` pair (G, and D at width 53), G frozen (lr 0) and D
+    learning (lr_d 1e-4), against the JAX package's runner: every step's
+    losses within 1e-5, so D's passes, its Adam and schedule, and the
+    coordinates on fakes and reals hold over a run, not one step. (With
+    G learning too, the runs drift from its first Adam step at this
+    batch, as the module docstring says.)"""
+    gen = torch.Generator().manual_seed(11)
+    pth = str(tmp_path / "g.pth")
+    torch.save(PointNetDenseCls(50, True, generator=gen).state_dict(), pth)
+    torch.save(FCDiscriminator(53, generator=gen).state_dict(),
+               str(tmp_path / "g_D.pth"))
+    kw = dict(num_points=N, batch_size=B, epochs=3, lr=0.0, lr_d=1e-4,
+              d_geometry=True, resume=pth, dataset=root, quiet=True,
+              feature_transform=True, resample=False, ckpt_policy="none")
+    _, d_port = _run(AdversarialConfig(**kw), tmp_path, "port")
+    d_ref = str(tmp_path / "jax")
+    jax_runner.run_adversarial(JaxAdversarialConfig(
+        out_dir=d_ref, use_pallas=False, num_devices=1, **kw))
+    for key in ("loss_g", "loss_ce", "loss_adv", "loss_semi", "loss_d"):
+        got, want = _losses(d_port, "adv", key), _losses(d_ref, "adv", key)
+        assert [s for s, _ in got] == [s for s, _ in want] == \
+            list(range(1, 10))
+        for (_, g), (_, w) in zip(got, want):
+            _close(g, w, 1e-5)
+
