@@ -1,8 +1,15 @@
 // The encoder's two eval kernels on the tensor cores: the pointwise stack
 // with its max over points, and the concat-free seg head with its
-// log_softmax. Serving runs in fp32 (the TPU kernels pin HIGHEST), so
-// every product is 3xTF32 on mma.sync (mma.cuh), but the stack's first
-// layer at c_in <= 4, which is exact fp32 FMAs in order of k.
+// log_softmax. In fp32 (the TPU kernels pin HIGHEST) every product is
+// 3xTF32 on mma.sync (mma.cuh), but the stack's first layer at c_in <= 4,
+// which is exact fp32 FMAs in order of k. Under mixed precision (BF, the
+// prec field's kRound bit; the TPU kernels' _mxu_dot in the bf16 scope)
+// every product's operands are rounded to bf16 (nearest even) as the
+// fragments load, one m16n8k16 bf16 mma.sync a 16-deep k step summed on
+// the tensor core (mma_step's bf16 arithmetic); the stack's FMA layer and
+// the seg head's global row round their operands and keep their fp32
+// FMAs. The epilogues (scale, shift, activation, max, log_softmax) are
+// fp32 in both.
 //
 // fused_stack_maxpool replaces the TPU kernel
 // adversarial_learning_on_pointclouds_tpu/ops/kernels/encoder_fused.py::
@@ -88,14 +95,41 @@ constexpr int kHeadC3 = 128;        // head: c3
 constexpr int kHeadN4 = 56;         // head: z4's columns, 7 n8 tiles
 constexpr int kHeadA = kTile * kHeadC2;   // head: the activation region
 
-// One k step (k = kk ..) of a warp's 2 x NT tiles (NT a multiple of 4):
-// mma_step's 3xTF32 arithmetic, term for term, with A's fragments split
-// once and B's four n8 tiles at a time, so a wide NT holds 48 registers
-// of fragments where mma_step would hold 8 NT + 16.
-template <int NT, typename FA, typename FB>
+// One k step (k = kk .., mma_depth(BF) deep) of a warp's 2 x NT tiles (NT
+// a multiple of 4): mma_step's arithmetic, 3xTF32 term for term or (BF)
+// one bf16 product, with A's fragments made once and B's four n8 tiles at
+// a time, so a wide NT holds 48 registers of fragments (16 in bf16) where
+// mma_step would hold 8 NT + 16.
+template <int NT, bool BF, typename FA, typename FB>
 __device__ __forceinline__ void wide_step(float (&acc)[2][NT][4],
                                           const FA& fa, const FB& fb, int mb,
                                           int nb, int kk, int g, int t) {
+  if constexpr (BF) {
+    uint32_t a[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int m = mb + 16 * i + g;
+      a[i][0] = bf16x2(fa(m, kk + t), fa(m, kk + t + 4));
+      a[i][1] = bf16x2(fa(m + 8, kk + t), fa(m + 8, kk + t + 4));
+      a[i][2] = bf16x2(fa(m, kk + t + 8), fa(m, kk + t + 12));
+      a[i][3] = bf16x2(fa(m + 8, kk + t + 8), fa(m + 8, kk + t + 12));
+    }
+#pragma unroll
+    for (int j0 = 0; j0 < NT; j0 += 4) {
+      uint32_t b[4][2];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = nb + 8 * (j0 + j) + g;
+        b[j][0] = bf16x2(fb(n, kk + t), fb(n, kk + t + 4));
+        b[j][1] = bf16x2(fb(n, kk + t + 8), fb(n, kk + t + 12));
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j0 + j], a[i], b[j]);
+    }
+    return;
+  }
   uint32_t ah[2][4], al[2][4];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -191,7 +225,7 @@ inline size_t stack_smem_bytes(const StackArgs& a) {
 // 32 each) by 2 (columns). The output overwrites the stage after a
 // barrier: [128 x 128] at h_s (sw_at<128>), or [128 x 64] at h_s + kHalf
 // (sw_at<64>).
-template <int NT>
+template <int NT, bool BF>
 __device__ __forceinline__ void early_layer(float* h_s, const float* in_s,
                                             const float* w_s, const float* sc,
                                             const float* sh, int act, int wm,
@@ -200,8 +234,8 @@ __device__ __forceinline__ void early_layer(float* h_s, const float* in_s,
   const auto fi = [in_s](int m, int k) { return in_s[sw_at<64>(m, k)]; };
   const auto fw = [w_s](int n, int k) { return w_s[sw_at<64>(n, k)]; };
 #pragma unroll 2
-  for (int kk = 0; kk < kEarlyK; kk += 8)
-    wide_step<NT>(acc, fi, fw, wm * 32, wn * NT * 8, kk, gq, tq);
+  for (int kk = 0; kk < kEarlyK; kk += mma_depth(BF))
+    wide_step<NT, BF>(acc, fi, fw, wm * 32, wn * NT * 8, kk, gq, tq);
   __syncthreads();            // every warp has read in_s
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
@@ -230,8 +264,8 @@ __device__ __forceinline__ void early_layer(float* h_s, const float* in_s,
 // the valid rows merged into run_s by shared-memory atomics; run_s goes
 // to the output when the block leaves a cloud. Warps 4 x 2 on every
 // product. KW: the first layer's depth, kEarlyK (mma) or 4 (c_in <= 4,
-// FMAs).
-template <int KW>
+// FMAs); BF: bf16 operands.
+template <int KW, bool BF>
 __global__ void __launch_bounds__(kThreads, 1)
 stack_tc_kernel(const StackArgs a) {
   extern __shared__ __align__(16) float smem[];
@@ -323,18 +357,20 @@ stack_tc_kernel(const StackArgs a) {
       const int c_out = a.width[l + 1];
       if (KW != kEarlyK && l == 0) {
         // h1 = act(x W^T * sc + sh) by fmaf in order of k (exact fp32 at
-        // this depth), a thread per column and every fourth row.
+        // this depth; BF: on the bf16-rounded operands), a thread per
+        // column and every fourth row.
         const int col = threadIdx.x % kChunk;
         float wv[4];
 #pragma unroll
         for (int k = 0; k < 4; ++k)
-          wv[k] = k < c0 ? __ldg(a.w[0] + (size_t)col * c0 + k) : 0.f;
+          wv[k] = k < c0 ? operand(__ldg(a.w[0] + (size_t)col * c0 + k), BF)
+                         : 0.f;
         const float sc = __ldg(a.scale[0] + col), sh = __ldg(a.shift[0] + col);
         for (int r = threadIdx.x / kChunk; r < kTile; r += kThreads / kChunk) {
           float v = 0.f;
 #pragma unroll
           for (int k = 0; k < 4; ++k)
-            if (k < c0) v = fmaf(h_s[r * 4 + k], wv[k], v);
+            if (k < c0) v = fmaf(operand(h_s[r * 4 + k], BF), wv[k], v);
           h_s[kHalf + sw_at<64>(r, col)] = affine_act(v, sc, sh, a.act[0]);
         }
         __syncthreads();      // h1 written
@@ -342,11 +378,11 @@ stack_tc_kernel(const StackArgs a) {
       }
       const float* in_s = l == 0 ? h_s : h_s + kHalf;
       if (c_out == kStackK)
-        early_layer<8>(h_s, in_s, w_l, a.scale[l], a.shift[l], a.act[l], wm,
-                       wn, gq, tq);
+        early_layer<8, BF>(h_s, in_s, w_l, a.scale[l], a.shift[l], a.act[l],
+                           wm, wn, gq, tq);
       else
-        early_layer<4>(h_s, in_s, w_l, a.scale[l], a.shift[l], a.act[l], wm,
-                       wn, gq, tq);
+        early_layer<4, BF>(h_s, in_s, w_l, a.scale[l], a.shift[l], a.act[l],
+                           wm, wn, gq, tq);
       w_l += c_out * kEarlyK;
     }
 
@@ -360,8 +396,8 @@ stack_tc_kernel(const StackArgs a) {
       const auto fw = [ws](int n, int k) { return ws[sw_at<128>(n, k)]; };
       float z[2][4][4] = {};
 #pragma unroll 2
-      for (int kk = 0; kk < kStackK; kk += 8)
-        wide_step<4>(z, fh, fw, wm * 32, wn * 32, kk, gq, tq);
+      for (int kk = 0; kk < kStackK; kk += mma_depth(BF))
+        wide_step<4, BF>(z, fh, fw, wm * 32, wn * 32, kk, gq, tq);
       const int oc = (ch0 + c) * kChunk;
 #pragma unroll
       for (int j = 0; j < 4; ++j)
@@ -421,10 +457,12 @@ struct HeadArgs {
   int tiles_per_block;
 };
 
+// g_row = g W1[:, c_pf:]^T, a warp a row by fmaf (bf: on bf16-rounded
+// operands).
 __global__ void __launch_bounds__(kThreads)
 global_row_kernel(const float* __restrict__ g, const float* __restrict__ w1,
                   float* __restrict__ grow, int batch, int c_pf, int c_g,
-                  int c1) {
+                  int c1, bool bf) {
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);  // one per warp
   const int lane = threadIdx.x & 31;
   if (row >= batch * c1) return;
@@ -432,7 +470,8 @@ global_row_kernel(const float* __restrict__ g, const float* __restrict__ w1,
   const float* gb = g + (size_t)b * c_g;
   const float* wo = w1 + (size_t)o * (c_pf + c_g) + c_pf;
   float acc = 0.f;
-  for (int i = lane; i < c_g; i += 32) acc = fmaf(__ldg(gb + i), __ldg(wo + i), acc);
+  for (int i = lane; i < c_g; i += 32)
+    acc = fmaf(operand(__ldg(gb + i), bf), operand(__ldg(wo + i), bf), acc);
   for (int s = 16; s; s >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, s);
   if (lane == 0) grow[row] = acc;
 }
@@ -452,7 +491,9 @@ global_row_kernel(const float* __restrict__ g, const float* __restrict__ w1,
 //     region's second half (sw_at<128>), z4 = h3 W4^T + b4 with a warp per
 //     16 whole rows, the log_softmax in registers, the valid rows stored.
 // pf (sw_at<64>) and h1_s sit in the region's first half; the next tile's
-// pf is copied in (its own commit group) while layer 4 runs.
+// pf is copied in (its own commit group) while layer 4 runs. BF: bf16
+// operands.
+template <bool BF>
 __global__ void __launch_bounds__(kThreads, 1)
 head_tc_kernel(const HeadArgs a) {
   extern __shared__ __align__(16) float smem[];
@@ -549,8 +590,8 @@ head_tc_kernel(const HeadArgs a) {
           const int nb = wn * 32 + half * 16;
           float z[2][2][4] = {};
 #pragma unroll 2
-          for (int kk = 0; kk < kHeadPf; kk += 8)
-            mma_step<2, 2, false>(z, fpf, fw, wm * 32, nb, kk, gq, tq);
+          for (int kk = 0; kk < kHeadPf; kk += mma_depth(BF))
+            mma_step<2, 2, BF>(z, fpf, fw, wm * 32, nb, kk, gq, tq);
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
             const int col = nb + 8 * j + 2 * tq, o = c * 64 + col;
@@ -583,8 +624,8 @@ head_tc_kernel(const HeadArgs a) {
         const auto fa = [h1_s, half](int m, int q) {
           return h1_s[sw_at<64>(m, half * 32 + q)];
         };
-        for (int kk = 0; kk < 32; kk += 8)
-          wide_step<16>(acc2, fa, fw, wm * 32, wn * 128, kk, gq, tq);
+        for (int kk = 0; kk < 32; kk += mma_depth(BF))
+          wide_step<16, BF>(acc2, fa, fw, wm * 32, wn * 128, kk, gq, tq);
         ++s;
       }
     }
@@ -620,8 +661,8 @@ head_tc_kernel(const HeadArgs a) {
       const auto fw = [ws](int n, int q) { return ws[sw_at<64>(n, q)]; };
       const auto fa = [fh2, q4](int m, int q) { return fh2(m, q4 * 64 + q); };
 #pragma unroll 2
-      for (int kk = 0; kk < 64; kk += 8)
-        wide_step<8>(acc3, fa, fw, wm * 32, wn * 64, kk, gq, tq);
+      for (int kk = 0; kk < 64; kk += mma_depth(BF))
+        wide_step<8, BF>(acc3, fa, fw, wm * 32, wn * 64, kk, gq, tq);
       ++s;
     }
 
@@ -650,8 +691,8 @@ head_tc_kernel(const HeadArgs a) {
     const auto fw = [ws](int n, int q) { return ws[sw_at<128>(n, q)]; };
     float z[1][7][4] = {};
 #pragma unroll 2
-    for (int kk = 0; kk < kHeadC3; kk += 8)
-      mma_step<1, 7, false>(z, fh3, fw, warp * 16, 0, kk, gq, tq);
+    for (int kk = 0; kk < kHeadC3; kk += mma_depth(BF))
+      mma_step<1, 7, BF>(z, fh3, fw, warp * 16, 0, kk, gq, tq);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = warp * 16 + gq + 8 * h;
@@ -709,16 +750,18 @@ bool aligned16(const void* p) {
 // points of the chained act_l((h @ W_l^T) * scale_l + shift_l). w, shift
 // and scale hold n_layers device pointers each. Takes widths [64, 128, C]
 // or [c0, 64, 128, C] with c0 64 or at most 4, C a multiple of 64, 16-byte
-// aligned weights (and x at c0 = 64); kErrArgs for anything else.
+// aligned weights (and x at c0 = 64); kErrArgs for anything else. prec
+// kRound: bf16 operands (0: fp32).
 extern "C" int pt_stack_maxpool(const float* x, float* out,
                                 const void* const* w,
                                 const void* const* shift,
                                 const void* const* scale, const int* widths,
                                 const int* acts, int n_layers, int batch,
-                                int n, int device, cudaStream_t stream) {
+                                int n, int prec, int device,
+                                cudaStream_t stream) {
   using namespace pointtpu;
   if (n_layers < 2 || n_layers > 3 || batch <= 0 || batch > 65535 || n <= 0 ||
-      (long long)batch * n > 0x7fffffffLL)
+      (long long)batch * n > 0x7fffffffLL || (prec & ~kRound))
     return kErrArgs;
   StackArgs a{};
   a.x = x;
@@ -763,7 +806,11 @@ extern "C" int pt_stack_maxpool(const float* x, float* out,
                 stream>>>(out, -INFINITY, count);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const auto kernel = fma ? stack_tc_kernel<4> : stack_tc_kernel<kEarlyK>;
+  const bool bf = prec & kRound;
+  const auto kernel =
+      fma ? (bf ? stack_tc_kernel<4, true> : stack_tc_kernel<4, false>)
+          : (bf ? stack_tc_kernel<kEarlyK, true>
+                : stack_tc_kernel<kEarlyK, false>);
   e = allow_smem(kernel, bytes);
   if (e != cudaSuccess) return (int)e;
   kernel<<<grid, kThreads, bytes, stream>>>(a);
@@ -774,7 +821,8 @@ extern "C" int pt_stack_maxpool(const float* x, float* out,
 // w3 [c3, c2], w4 [k, c3] -> out [batch, n, k] log-probabilities.
 // grow is [batch, c1] scratch. Takes c_pf 64, c1 a multiple of 64, c2
 // 256, c3 128, k at most 56, c_g a multiple of 4 and 16-byte aligned pf
-// and weights; kErrArgs for anything else.
+// and weights; kErrArgs for anything else. prec kRound: bf16 operands (0:
+// fp32).
 extern "C" int pt_seg_head(const float* pf, const float* g, const float* w1,
                            const float* shift1, const float* scale1,
                            const float* w2, const float* shift2,
@@ -782,15 +830,16 @@ extern "C" int pt_seg_head(const float* pf, const float* g, const float* w1,
                            const float* shift3, const float* scale3,
                            const float* w4, const float* b4, float* grow,
                            float* out, int batch, int n, int c_pf, int c_g,
-                           int c1, int c2, int c3, int k, int device,
-                           cudaStream_t stream) {
+                           int c1, int c2, int c3, int k, int prec,
+                           int device, cudaStream_t stream) {
   using namespace pointtpu;
   if (batch <= 0 || batch > 65535 || n <= 0 ||
       (long long)batch * n > 0x7fffffffLL || c_pf != kHeadPf || c_g <= 0 ||
       c_g % 4 || c1 <= 0 || c1 % 64 || c2 != kHeadC2 || c3 != kHeadC3 ||
       k <= 0 || k > kHeadN4 || !aligned16(pf) || !aligned16(w1) ||
-      !aligned16(w2) || !aligned16(w3) || !aligned16(w4))
+      !aligned16(w2) || !aligned16(w3) || !aligned16(w4) || (prec & ~kRound))
     return kErrArgs;
+  const bool bf = prec & kRound;
   cudaError_t e = use_device(device);
   if (e != cudaSuccess) return (int)e;
   const size_t bytes = ((size_t)kHeadA + kRing * kSlot) * sizeof(float);
@@ -798,17 +847,17 @@ extern "C" int pt_seg_head(const float* pf, const float* g, const float* w1,
 
   const long long rows = (long long)batch * c1;
   global_row_kernel<<<(unsigned)((rows + kWarps - 1) / kWarps), kThreads, 0,
-                      stream>>>(g, w1, grow, batch, c_pf, c_g, c1);
+                      stream>>>(g, w1, grow, batch, c_pf, c_g, c1, bf);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  e = allow_smem(head_tc_kernel, bytes);
+  const auto kernel = bf ? head_tc_kernel<true> : head_tc_kernel<false>;
+  e = allow_smem(kernel, bytes);
   if (e != cudaSuccess) return (int)e;
   HeadArgs a{pf, grow, w1, shift1, scale1, w2, shift2, scale2, w3, shift3,
              scale3, w4, b4, out, batch, n, c_g, c1, k, 0};
   const int tiles = batch * ceil_div(n, kTile);
   a.tiles_per_block =
       ceil_div(tiles, device_attr(cudaDevAttrMultiProcessorCount));
-  head_tc_kernel<<<ceil_div(tiles, a.tiles_per_block), kThreads, bytes,
-                   stream>>>(a);
+  kernel<<<ceil_div(tiles, a.tiles_per_block), kThreads, bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }

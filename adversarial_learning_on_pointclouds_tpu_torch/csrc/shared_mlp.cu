@@ -32,6 +32,10 @@
 //   stride; the weights load once per block, not once per 64 points.
 // Rounding stays that of the first design: the product summed in order of
 // k by fmaf from 0, then fmaf(acc, scale, shift), then the activation.
+// Under mixed precision (BF, the prec field's kRound bit: the JAX
+// package's _mxu_dot in its bf16 scope) x and W are rounded to bf16
+// (nearest even) as they load; their products are exact in fp32 and the
+// FMAs, their order and the epilogue stay as in fp32.
 //
 // Every other shape (cin other than 3, cout not a multiple of 4 or above
 // 1024)
@@ -59,7 +63,7 @@ constexpr int kUnroll = 2;       // point tiles a thread takes per step
 constexpr int kRegCin = 3;       // the register path's input depth
 constexpr int kSliceCols = kGroup * kThreads;  // channels a column slice
 
-template <int CIN>
+template <int CIN, bool BF>
 __global__ void __launch_bounds__(kThreads)
 conv_group_kernel(const float* __restrict__ x, const float* __restrict__ w,
                   const float* __restrict__ shift,
@@ -82,8 +86,9 @@ conv_group_kernel(const float* __restrict__ x, const float* __restrict__ w,
     // Consecutive threads read consecutive k of one W row (coalesced).
     for (int e = threadIdx.x; e < cin * cols; e += kThreads) {
       const int j = e / cin, k = e - j * cin;
-      wt[k * cols + j] = j < width ? __ldg(w + (size_t)(col0 + j) * cin + k)
-                                   : 0.f;
+      wt[k * cols + j] =
+          j < width ? operand(__ldg(w + (size_t)(col0 + j) * cin + k), BF)
+                    : 0.f;
     }
     __syncthreads();
   } else {
@@ -91,7 +96,9 @@ conv_group_kernel(const float* __restrict__ x, const float* __restrict__ w,
     for (int k = 0; k < (CIN > 0 ? CIN : 1); ++k)
 #pragma unroll
       for (int j = 0; j < kGroup; ++j)
-        wr[k][j] = j < valid ? __ldg(w + (size_t)(c0 + j) * CIN + k) : 0.f;
+        wr[k][j] =
+            j < valid ? operand(__ldg(w + (size_t)(c0 + j) * CIN + k), BF)
+                      : 0.f;
   }
 #pragma unroll
   for (int j = 0; j < kGroup; ++j) {
@@ -117,7 +124,8 @@ conv_group_kernel(const float* __restrict__ x, const float* __restrict__ w,
       for (int u = 0; u < kUnroll; ++u)
 #pragma unroll
         for (int k = 0; k < (CIN > 0 ? CIN : 1); ++k)
-          xv[u][k] = row[u] < m ? __ldg(x + row[u] * CIN + k) : 0.f;
+          xv[u][k] = row[u] < m ? operand(__ldg(x + row[u] * CIN + k), BF)
+                                : 0.f;
 #pragma unroll
       for (int k = 0; k < (CIN > 0 ? CIN : 1); ++k)
 #pragma unroll
@@ -131,7 +139,8 @@ conv_group_kernel(const float* __restrict__ x, const float* __restrict__ w,
         const float4 wv = wt4[k * ld4 + g];
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
-          const float xk = row[u] < m ? __ldg(x + row[u] * cin + k) : 0.f;
+          const float xk =
+              row[u] < m ? operand(__ldg(x + row[u] * cin + k), BF) : 0.f;
           acc[u][0] = fmaf(xk, wv.x, acc[u][0]);
           acc[u][1] = fmaf(xk, wv.y, acc[u][1]);
           acc[u][2] = fmaf(xk, wv.z, acc[u][2]);
@@ -158,11 +167,11 @@ conv_group_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-// Blocks of conv_group_kernel<CIN> resident on the whole card at once at
+// Blocks of conv_group_kernel<CIN, BF> resident on the whole card at once at
 // `smem` bytes of shared memory, into *blocks; the kernel allowed that
 // much first. Asked of CUDA once for each path, device and size; 0, else
 // the CUDA error.
-template <int CIN>
+template <int CIN, bool BF>
 int resident_blocks(size_t smem, int* blocks) {
   struct Seen {
     int device;
@@ -181,11 +190,11 @@ int resident_blocks(size_t smem, int* blocks) {
       *blocks = seen[i].blocks;
       return 0;
     }
-  e = allow_smem(conv_group_kernel<CIN>, smem);
+  e = allow_smem(conv_group_kernel<CIN, BF>, smem);
   if (e != cudaSuccess) return (int)e;
   int per_sm = 0;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, conv_group_kernel<CIN>, kThreads, smem);
+      &per_sm, conv_group_kernel<CIN, BF>, kThreads, smem);
   if (e != cudaSuccess) return (int)e;
   if (per_sm < 1) return kErrSmem;
   *blocks = per_sm * device_attr(cudaDevAttrMultiProcessorCount);
@@ -193,7 +202,7 @@ int resident_blocks(size_t smem, int* blocks) {
   return 0;
 }
 
-template <int CIN>
+template <int CIN, bool BF>
 int launch_conv(const float* x, const float* w, const float* shift,
                 const float* scale, float* out, long long m, int cin,
                 int cout, int act, cudaStream_t stream) {
@@ -208,7 +217,7 @@ int launch_conv(const float* x, const float* w, const float* shift,
     smem = (size_t)cin * cols * sizeof(float);
   }
   int resident = 0;
-  const int status = resident_blocks<CIN>(smem, &resident);
+  const int status = resident_blocks<CIN, BF>(smem, &resident);
   if (status) return status;
   const int slices = (cout + cols - 1) / cols;
   if (slices > 65535) return kErrArgs;
@@ -219,30 +228,38 @@ int launch_conv(const float* x, const float* w, const float* shift,
   const long long cap = fill > 0 ? fill : 1;
   const long long each = (tiles + cap - 1) / cap;
   const long long blocks = (tiles + each - 1) / each;
-  conv_group_kernel<CIN><<<dim3((unsigned)blocks, slices), kThreads, smem,
-                           stream>>>(x, w, shift, scale, out, m, cin, cout,
-                                     cols, act);
+  conv_group_kernel<CIN, BF><<<dim3((unsigned)blocks, slices), kThreads, smem,
+                               stream>>>(x, w, shift, scale, out, m, cin,
+                                         cout, cols, act);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace pointtpu
 
-// x [m, cin], w [cout, cin], shift/scale [cout] -> out [m, cout].
+// x [m, cin], w [cout, cin], shift/scale [cout] -> out [m, cout]; prec
+// kRound: bf16 operands (0: fp32).
 extern "C" int pt_linear_affine_act(const float* x, const float* w,
                                     const float* shift, const float* scale,
                                     float* out, long long m, int cin,
-                                    int cout, int act, int device,
+                                    int cout, int act, int prec, int device,
                                     cudaStream_t stream) {
   using namespace pointtpu;
-  if (m <= 0 || cin <= 0 || cout <= 0 || act < 0 || act > kActLeaky)
+  if (m <= 0 || cin <= 0 || cout <= 0 || act < 0 || act > kActLeaky ||
+      (prec & ~kRound))
     return kErrArgs;
   const cudaError_t e = use_device(device);
   if (e != cudaSuccess) return (int)e;
-  if (cin == kRegCin && cout % kGroup == 0 && cout <= kSliceCols)
-    return launch_conv<kRegCin>(x, w, shift, scale, out, m, cin, cout, act,
-                                stream);
-  return launch_conv<0>(x, w, shift, scale, out, m, cin, cout, act, stream);
+  const bool reg = cin == kRegCin && cout % kGroup == 0 && cout <= kSliceCols;
+  if (prec & kRound)
+    return reg ? launch_conv<kRegCin, true>(x, w, shift, scale, out, m, cin,
+                                            cout, act, stream)
+               : launch_conv<0, true>(x, w, shift, scale, out, m, cin, cout,
+                                      act, stream);
+  return reg ? launch_conv<kRegCin, false>(x, w, shift, scale, out, m, cin,
+                                           cout, act, stream)
+             : launch_conv<0, false>(x, w, shift, scale, out, m, cin, cout,
+                                     act, stream);
 }
 
 extern "C" const char* pt_error_string(int status) {

@@ -38,9 +38,9 @@ _PP, _IP = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
 # Every pointer and the stream are c_void_p: left to ctypes' default
 # they would pass as 32-bit ints and be cut.
 SIGNATURES = {
-    "pt_linear_affine_act": [_P] * 5 + [_LL, _I, _I, _I, _I, _P],
-    "pt_stack_maxpool": [_P, _P, _PP, _PP, _PP, _IP, _IP] + [_I] * 4 + [_P],
-    "pt_seg_head": [_P] * 15 + [_I] * 9 + [_P],
+    "pt_linear_affine_act": [_P] * 5 + [_LL] + [_I] * 5 + [_P],
+    "pt_stack_maxpool": [_P, _P, _PP, _PP, _PP, _IP, _IP] + [_I] * 5 + [_P],
+    "pt_seg_head": [_P] * 15 + [_I] * 10 + [_P],
     "pt_augment_fused": [_P] * 3 + [_U] * 2 + [_I] * 3 + [_F] * 3 + [_I, _P],
     "pt_augment_fused_pair": [_P] * 5 + [_U] + [_I] * 5 + [_F] * 3 + [_I, _P],
 }

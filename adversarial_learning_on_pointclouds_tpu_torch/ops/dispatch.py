@@ -29,7 +29,9 @@ backward: on the card a forward that autograd records raises there.
 there): within it those blocks run their plain versions on a CUDA
 tensor too, so an eval-mode forward can be differentiated with respect
 to its input, and the switch's per-layer kernels are off. Only the
-attacks (``attacks.py``) enter it.
+attacks (``attacks.py``) enter it. Every eval block honours the
+mixed-precision scope (``core.mixed_precision``): bf16 matmul operands
+with fp32 sums, in the kernels and in the plain versions.
 """
 
 from __future__ import annotations
@@ -143,17 +145,18 @@ def linear_bn_act(layer: nn.Module, bn: nn.BatchNorm1d, x: torch.Tensor,
     Train: ``_matmul`` and ``core.batch_norm_train`` (batch moments,
     running statistics updated in place), differentiable.
     Eval: BN folded; per-point ``[B, N, C]`` input runs the fused kernel
-    (``fused_linear_affine_act``; its plain version under
-    ``differentiable_eval``), ``[B, C]`` rows (the T-Net and classifier
-    fc heads) stay plain ``torch.matmul``, as the JAX package leaves them
-    to XLA."""
+    (``fused_linear_affine_act``); ``[B, C]`` rows (the T-Net and
+    classifier fc heads), and every input under ``differentiable_eval``,
+    run as the JAX package's XLA path runs them, the scale folded into the
+    weight: ``core.matmul(x, w * scale) + shift`` (the folded weight the
+    bf16 operand under ``core.mixed_precision``)."""
     if bn.training:
         return core.activation(core.batch_norm_train(bn, _matmul(layer, x)),
                                act)
     w, shift, scale = folded_affine(layer, bn)
     if x.dim() == 3 and not differentiable_eval_enabled():
         return shared_mlp.fused_linear_affine_act(x, w, shift, scale, act)
-    return core.activation(torch.matmul(x, w) * scale + shift, act)
+    return core.activation(core.matmul(x, w * scale) + shift, act)
 
 
 def linear_bn_act_pair(layer: nn.Module, bn: nn.BatchNorm1d,
@@ -175,11 +178,12 @@ def stack_maxpool(x: torch.Tensor, layers, acts) -> torch.Tensor:
     """An eval-mode pointwise stack and its max over points, ``[B, N, c0]
     -> [B, c_out]``: ``layers`` are ``(w, shift, scale)`` of
     ``folded_affine``, one activation per layer. ``fused_stack_maxpool``,
-    or its plain version under ``differentiable_eval``."""
+    or its plain version under ``differentiable_eval`` (bf16 operands
+    under ``core.mixed_precision``)."""
     ws, shifts, scales = zip(*layers)
     if differentiable_eval_enabled():
-        return encoder_fused.fused_stack_maxpool_plain(x, ws, shifts, scales,
-                                                       acts)
+        return encoder_fused.fused_stack_maxpool_plain(
+            x, ws, shifts, scales, acts, core.compute_dtype() is not None)
     return encoder_fused.fused_stack_maxpool(x, ws, shifts, scales, acts)
 
 

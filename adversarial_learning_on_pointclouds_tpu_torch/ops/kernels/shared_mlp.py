@@ -4,7 +4,9 @@ activation, and the per-layer training matmul.
 Counterpart of ``adversarial_learning_on_pointclouds_tpu/ops/kernels/
 shared_mlp.py``:
 
-* ``fused_linear_affine_act`` (eval), ``csrc/shared_mlp.cu``;
+* ``fused_linear_affine_act`` (eval), ``csrc/shared_mlp.cu``, launched as
+  the registered op ``pointtpu::linear_affine_act``
+  (``ops/serving_ops.py``); bf16 operands under ``core.mixed_precision``;
 * ``fused_mlp_stack`` (inference: ``FCDiscriminator.infer``), a chain of
   ``act((h @ w) * scale + shift)`` layers in one kernel,
   ``csrc/mlp_stack.cu``; bf16 operands with fp32 sums under
@@ -30,26 +32,36 @@ from typing import Optional, Sequence
 import torch
 
 from adversarial_learning_on_pointclouds_tpu_torch.models import core
-from adversarial_learning_on_pointclouds_tpu_torch.ops import launch
+from adversarial_learning_on_pointclouds_tpu_torch.ops import (
+    launch, serving_ops,
+)
 
 
 def fused_linear_affine_act_plain(x: torch.Tensor, w: torch.Tensor,
                                   shift: torch.Tensor, scale: torch.Tensor,
-                                  act: Optional[str]) -> torch.Tensor:
-    return core.activation(torch.matmul(x, w) * scale + shift, act)
+                                  act: Optional[str],
+                                  bf16: bool = False) -> torch.Tensor:
+    """``act((x @ w) * scale + shift)``, with bf16 matmul operands and an
+    fp32 sum under ``bf16``."""
+    z = torch.matmul(core.operand(x, bf16), core.operand(w, bf16))
+    return core.activation(z * scale + shift, act)
 
 
 def fused_linear_affine_act(x: torch.Tensor, w: torch.Tensor,
                             shift: torch.Tensor, scale: torch.Tensor,
                             act: Optional[str]) -> torch.Tensor:
     """``act((x @ w) * scale + shift)``: ``x [B, N, Cin]``, ``w [Cin,
-    Cout]``, ``shift``/``scale [Cout]`` -> ``[B, N, Cout]``.
+    Cout]``, ``shift``/``scale [Cout]`` -> ``[B, N, Cout]``; bf16 operands
+    under ``core.mixed_precision``, as the JAX package's ``_mxu_dot``.
 
     ``shift`` already holds the conv bias folded through the BN scale
     (``ops/dispatch.folded_affine``). On a CUDA device ``w`` must be the
-    ``[in, out]`` view of a row-major ``[out, in]`` weight."""
-    if launch.on_cpu(x):
-        return fused_linear_affine_act_plain(x, w, shift, scale, act)
+    ``[in, out]`` view of a row-major ``[out, in]`` weight; the kernel runs
+    as the registered op ``pointtpu::linear_affine_act``
+    (``ops/serving_ops.py``), which counts the launch."""
+    bf16 = core.compute_dtype() is not None
+    if launch.eval_plain(x):
+        return fused_linear_affine_act_plain(x, w, shift, scale, act, bf16)
     bsz, n, c_in = x.shape
     c_out = w.shape[1]
     dev = x.device
@@ -58,13 +70,8 @@ def fused_linear_affine_act(x: torch.Tensor, w: torch.Tensor,
     launch.expect("shift", shift, (c_out,), dev)
     launch.expect("scale", scale, (c_out,), dev)
     launch.no_grad(x, w, shift, scale)
-    code = launch.act_code(act)
-    out = torch.empty((bsz, n, c_out), device=dev, dtype=torch.float32)
-    launch.call("pt_linear_affine_act", dev, launch.ptr(x), launch.weight_ptr(w),
-                launch.ptr(shift), launch.ptr(scale), launch.ptr(out),
-                bsz * n, c_in, c_out, code)
-    fused_linear_affine_act.launches += 1
-    return out
+    return serving_ops.linear_affine_act(x, w.t(), shift, scale,
+                                         launch.act_code(act), bf16)
 
 
 fused_linear_affine_act.launches = 0

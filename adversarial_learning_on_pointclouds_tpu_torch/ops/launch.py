@@ -4,12 +4,18 @@ the status-checked call into the built library (``ops/build.py``).
 The device rule is the whole switch between a kernel and its plain
 PyTorch version: a tensor on the CPU takes the plain version, a tensor
 on a CUDA device takes the kernel, and anything the kernel does not take
-raises. There is no flag and no fallback.
+raises. There is no flag and no fallback for a live model. Only a
+serving export (``utils/serving.py``) routes the three eval kernels by
+``eval_route``: a portable artifact traces their plain versions, a
+kernels artifact their registered ops (``ops/serving_ops.py``), whatever
+device the tracing sees.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import threading
 from typing import Optional, Sequence
 
 import torch
@@ -17,6 +23,9 @@ import torch
 from adversarial_learning_on_pointclouds_tpu_torch.ops import build
 
 ACT_CODES = {None: 0, "relu": 1, "leaky_relu": 2}
+EVAL_ROUTES = ("plain", "ops")
+
+_route = threading.local()
 
 
 def on_cpu(x: torch.Tensor) -> bool:
@@ -25,6 +34,32 @@ def on_cpu(x: torch.Tensor) -> bool:
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     return False
+
+
+@contextlib.contextmanager
+def eval_route(route: Optional[str]):
+    """Within the context the eval kernels' wrappers take ``route``:
+    ``"plain"`` their plain versions, ``"ops"`` their registered ops (on a
+    CPU tensor the op raises: it has a CUDA implementation only), ``None``
+    the device rule. Per thread; the serving export's tracing enters
+    it."""
+    if route is not None and route not in EVAL_ROUTES:
+        raise ValueError(f"unknown eval route {route!r}")
+    prev = getattr(_route, "route", None)
+    _route.route = route
+    try:
+        yield
+    finally:
+        _route.route = prev
+
+
+def eval_plain(x: torch.Tensor) -> bool:
+    """Whether an eval kernel's wrapper runs its plain version on ``x``:
+    by ``eval_route`` where one is set, else by the device rule."""
+    route = getattr(_route, "route", None)
+    if route is not None:
+        return route == "plain"
+    return on_cpu(x)
 
 
 def act_code(act: Optional[str]) -> int:
@@ -226,11 +261,6 @@ def fc_split(k: int, cols: int) -> tuple:
         while cs < FC_CLUSTER and -(-k // cs) > FC_SLICE:
             cs *= 2
     return cs, (-(-k // cs) + 15) // 16 * 16
-
-
-def weight_ptr(w: torch.Tensor) -> ctypes.c_void_p:
-    """Pointer to the row-major ``[out, in]`` storage behind ``w``."""
-    return ctypes.c_void_p(w.t().data_ptr())
 
 
 def pointers(ts: Sequence[torch.Tensor]):

@@ -10,8 +10,10 @@ forwards and two backwards, like the reference.
 The attack (``attacks.attack``) runs the model in eval mode, as the
 reference's ``model.eval()`` during attack generation: the BatchNorm
 running statistics are read, not updated, and the model's train mode is
-restored after. It runs under ``ops.dispatch.differentiable_eval``, so no eval kernel launches in it, and in fp32 under
-``--bf16`` too (the port's eval precision). The update then launches the
+restored after. It runs under ``ops.dispatch.differentiable_eval``, so
+no eval kernel launches in it, and in ``cfg.bf16``'s mixed-precision
+scope, as the JAX package's attack (bf16 matmul operands under
+``--bf16``). The update then launches the
 classifier's training kernels as ``classify.train_step`` does. The data
 parallelism of config 5 is ROADMAP Queue 1 item 15.
 """
@@ -27,7 +29,9 @@ from adversarial_learning_on_pointclouds_tpu_torch.configs import (
     AdvPerturbConfig,
 )
 from adversarial_learning_on_pointclouds_tpu_torch.data import augment
-from adversarial_learning_on_pointclouds_tpu_torch.models import PointNetCls
+from adversarial_learning_on_pointclouds_tpu_torch.models import (
+    PointNetCls, core,
+)
 from adversarial_learning_on_pointclouds_tpu_torch.train import (
     classify, state as state_lib,
 )
@@ -61,8 +65,9 @@ def train_step(state: state_lib.TrainState, points: torch.Tensor,
     classify.check_tx(state, tx)
     points = augment.chain_from_cfg(state.generator, cfg, points,
                                     step=state.device_step)
-    x_adv = attacks.attack(state.model, points, labels, cfg.epsilon,
-                           attack_steps(cfg))
+    with core.mixed_precision(enabled=cfg.bf16):
+        x_adv = attacks.attack(state.model, points, labels, cfg.epsilon,
+                               attack_steps(cfg))
     return classify.update(state, x_adv, labels, cfg)
 
 

@@ -30,8 +30,6 @@ How the port differs from the JAX package's runner:
   step count over the steps per epoch), with the unlabeled stream of
   config 4 advanced to where it stood, so it repeats the uninterrupted
   run's epochs; the JAX package's restarts its epoch count at 0;
-- the eval forward, and config 5's attack, run in fp32 under ``--bf16``
-  too (the serving kernels' precision; bf16 is the training steps');
 - an epoch's ``train_s`` ends when the card has finished the epoch's
   launches (the JAX package's ends when the host has queued them, up to
   ``log_lag`` launches earlier, whose device time then falls in
@@ -278,11 +276,24 @@ def _skip_eval_epoch(cfg, saver, epoch, state):
 
 
 def _evaluate(cfg, model, pools_te, x_te, s_te, c_te):
-    if cfg.device_data:
-        return eval_lib.evaluate_segmenter_device(
-            model, *pools_te, s_te, c_te, cfg.batch_size)
-    return eval_lib.evaluate_segmenter(model, x_te, s_te, c_te,
-                                       cfg.batch_size)
+    """The segmenter's eval, in ``cfg.bf16``'s mixed-precision scope (the
+    JAX package's runner evaluates inside it too)."""
+    with core.mixed_precision(enabled=cfg.bf16):
+        if cfg.device_data:
+            return eval_lib.evaluate_segmenter_device(
+                model, *pools_te, s_te, c_te, cfg.batch_size)
+        return eval_lib.evaluate_segmenter(model, x_te, s_te, c_te,
+                                           cfg.batch_size)
+
+
+def _evaluate_classifier(cfg, model, pool_te, x_te, y_te):
+    """The classifier's accuracy eval, in ``cfg.bf16``'s scope."""
+    with core.mixed_precision(enabled=cfg.bf16):
+        if cfg.device_data:
+            return eval_lib.evaluate_classifier_device(
+                model, pool_te, y_te, cfg.batch_size, cfg.num_classes)
+        return eval_lib.evaluate_classifier(
+            model, x_te, y_te, cfg.batch_size, cfg.num_classes)
 
 
 def _run_classifier(cfg, mod, name: str, epochs: Optional[int],
@@ -315,13 +326,7 @@ def _run_classifier(cfg, mod, name: str, epochs: Optional[int],
             if not _eval_epoch(cfg, epoch, epochs):
                 _skip_eval_epoch(cfg, saver, epoch, state)
                 continue
-            if cfg.device_data:
-                ev = eval_lib.evaluate_classifier_device(
-                    state.model, pool_te, y_te, cfg.batch_size,
-                    cfg.num_classes)
-            else:
-                ev = eval_lib.evaluate_classifier(
-                    state.model, x_te, y_te, cfg.batch_size, cfg.num_classes)
+            ev = _evaluate_classifier(cfg, state.model, pool_te, x_te, y_te)
             best = max(best, ev["accuracy"])
             t2 = time.perf_counter()
             saver.save(cfg.out_dir, epoch, state, metric=ev["accuracy"])

@@ -3039,8 +3039,9 @@ GONE_KERNELS = ("row_bwd_kernel<128", "wgrad_kernel<2", "row_bwd_kernel<64",
 # stack_maxpool_kernel and seg_head_kernel (GONE_KERNELS), and conv1's
 # channel-group kernel (csrc/shared_mlp.cu) in place of the
 # element-per-thread linear_affine_act_kernel.
-SERVE_KERNELS = ("stack_tc_kernel<", "head_tc_kernel(",
-                 "conv_group_kernel<3>")
+SERVE_KERNELS = ("stack_tc_kernel<", "head_tc_kernel<false>",
+                 "conv_group_kernel<3, false>")
+SERVE_NAMES = ("stack_tc_kernel", "head_tc_kernel", "conv_group_kernel")
 # The bench step (pallas_augment) also augments both streams in one
 # augment_pair_kernel launch, where the one-stream augment_kernel ran twice.
 BENCH_KERNELS = TC_HEAD_KERNELS + ("augment_pair_kernel(",)
@@ -4588,14 +4589,16 @@ class PoolTops:
         self.mod, self.fn, self.seen = encoder_fused, \
             encoder_fused.fused_stack_maxpool_plain, []
 
-        def plain(x, weights, shifts, scales, acts):
+        def plain(x, weights, shifts, scales, acts, bf16=False):
             with torch.no_grad():
                 h = x
                 for w, sh, sc, act in zip(weights, shifts, scales, acts):
-                    h = core.activation(torch.matmul(h, w) * sc + sh, act)
+                    z = torch.matmul(core.operand(h, bf16),
+                                     core.operand(w, bf16))
+                    h = core.activation(z * sc + sh, act)
                 top = h.topk(2, dim=1)
             self.seen.append((top.values.cpu(), top.indices.cpu()))
-            return self.fn(x, weights, shifts, scales, acts)
+            return self.fn(x, weights, shifts, scales, acts, bf16)
         encoder_fused.fused_stack_maxpool_plain = plain
         return self.seen
 
@@ -5225,6 +5228,459 @@ def ablation_phase(dev, card, results=None):
         raise AssertionError(f"the ablation phase took {spent:.1f} s")
 
 
+# Phase 24: serving artifacts (torch.export) and the eval kernels' bf16 mode.
+SERVE_BUDGET_S = 60.0
+SERVE_BATCHES = (1, 7, B)     # of the symbolic batch, each artifact
+SERVE_SITES = {"fused_linear_affine_act": ("shared_mlp.cu", "shared_mlp.py:227"),
+               "fused_stack_maxpool": ("encoder_fused.cu",
+                                       "encoder_fused.py:109"),
+               "seg_head_fused": ("encoder_fused.cu", "encoder_fused.py:182")}
+# Launches per forward of a kernels artifact, counted on its replay: the
+# segmenter (feature transform) conv1 1, stacks 3, head 1; the classifier
+# (no feature transform) conv1 1, stacks 2.
+ARTIFACT_PER_FORWARD = {
+    "seg": {"fused_linear_affine_act": 1, "fused_stack_maxpool": 3,
+            "seg_head_fused": 1},
+    "cls": {"fused_linear_affine_act": 1, "fused_stack_maxpool": 2,
+            "seg_head_fused": 0}}
+# A fresh process that reloads artifacts: it imports torch and, for the
+# kernels artifacts, the op registrations alone. It starts with the phase,
+# reaches the card, loads each artifact once its ".done" marker appears,
+# runs it at SERVE_BATCHES on the card (the portable ones also at b=1 on
+# the CPU) and saves the log-probs and the port's modules it had imported
+# once the artifacts were loaded.
+RELOAD = r"""
+import os, sys, time, torch
+from torch.export.passes import move_to_device_pass
+paths, inputs, out, ops = sys.argv[1:5]
+if ops == "1":
+    import adversarial_learning_on_pointclouds_tpu_torch.ops.serving_ops
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.zeros(1, device="cuda")
+deadline = time.time() + 240
+loaded = {}
+for p in paths.split(","):
+    while not os.path.exists(p + ".done"):
+        if time.time() > deadline:
+            raise SystemExit(p + " was never written")
+        time.sleep(0.05)
+    loaded[p] = torch.export.load(p)
+mods = sorted(m for m in sys.modules
+              if m.startswith("adversarial_learning_on_pointclouds_tpu"))
+xs = torch.load(inputs)
+res = {}
+with torch.inference_mode():
+    for p, ep in loaded.items():
+        x = xs[os.path.basename(p).split("_")[0]]
+        runs = [("cuda", b) for b in %s] + ([("cpu", 1)] if ops == "0" else [])
+        for dev in dict(runs):
+            m = move_to_device_pass(ep, dev).module()
+            for d, b in runs:
+                if d == dev:
+                    res[(p, dev, b)] = m(x[:b].to(dev)).cpu()
+torch.save({"res": res, "modules": mods}, out)
+""" % (SERVE_BATCHES,)
+
+
+def check_bf16(name, got, ref, tag="serving"):
+    """An eval kernel's bf16 mode against its bf16 plain twin: both round
+    the same operands to bf16 and sum in fp32, but where two fp32 sums of
+    another order straddle a bf16 midpoint a hidden activation rounds one
+    bf16 step apart (``check_stash``'s case): at most ``STASH_SHARE`` of
+    the outputs beyond ``BOUND`` of the scale, and every one within
+    ``BF16_BOUND`` of it. A missing rounding moves most outputs (fp32
+    operands against the bf16 twin: 1e-2 to 0.8 of them, H100 80GB HBM3
+    at 700 W). Returns ``(max abs error, share)``."""
+    if got.shape != ref.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} against "
+                             f"{tuple(ref.shape)}, or non-finite")
+    rel, diff = rel_err(got, ref)
+    scale = max(1.0, ref.abs().max().item())
+    share = ((got.double() - ref.double()).abs() > BOUND * scale).double() \
+        .mean().item()
+    phase(tag, f"{name}: {share:.3e} of {ref.numel()} outputs beyond "
+          f"{BOUND:g} of the scale (at most {STASH_SHARE:g}), max "
+          f"scale-relative error {rel:.3e} (at most {BF16_BOUND:g})")
+    if share > STASH_SHARE or rel > BF16_BOUND:
+        raise AssertionError(f"{name}: differs from its bf16 twin")
+    return diff, share
+
+
+def bf16_control(name, fn, ref, tag="serving"):
+    """The control that must fail ``check_bf16``: the bf16 kernel's output
+    against the fp32 plain twin."""
+    try:
+        check_bf16(f"control: {name} against the fp32 twin", fn(), ref, tag)
+    except AssertionError:
+        phase(tag, "control: the fp32 twin fails the bf16 check, as it must")
+        return
+    raise AssertionError(f"{name}: the bf16 check passed the fp32 twin: it "
+                         "does not see the bf16 rounding")
+
+
+def serve_bf16_checks(card, gen, dev, results):
+    """The three eval kernels' bf16 mode against their bf16 plain twins at
+    B=32 N=2500, N=2047 and B=1 (phase 3's operands, the trunk also with
+    negative folded scales in every other channel of its last layer), a
+    control at the main shape; then their bf16 times (events and device),
+    plain times and bounds at the main shape, into ``results``' entries
+    (``bf16_*``)."""
+    from adversarial_learning_on_pointclouds_tpu_torch.models import core
+    from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
+        encoder_fused as ef, shared_mlp as sm,
+    )
+
+    err = {k: 0.0 for k in SERVE_SITES}
+    share = {k: 0.0 for k in SERVE_SITES}
+    main = {}
+    with torch.inference_mode(), core.mixed_precision():
+        conv1, stack_params, head, w4, b4 = serve_params(gen, dev)
+        for bsz, n in ((B, N), (B, RAGGED_N), (1, N)):
+            tag = f"B={bsz} N={n} bf16"
+            x3 = torch.randn(bsz, n, 3, generator=gen).to(dev)
+            x64 = torch.relu(torch.randn(bsz, n, 64, generator=gen)).to(dev)
+            g = torch.relu(torch.randn(bsz, 1024, generator=gen)).to(dev)
+            calls = {"fused_linear_affine_act": [(x3, *conv1, "relu")],
+                     "fused_stack_maxpool": [
+                         (x3 if serve_stack(k)[0][0] == 3 else x64,
+                          *zip(*layers), serve_stack(k)[1])
+                         for k, layers in stack_params.items()],
+                     "seg_head_fused": [(x64, g, *head[0], *head[1],
+                                         *head[2], w4, b4)]}
+            for name, args in calls.items():
+                module = sm if name == "fused_linear_affine_act" else ef
+                fn, plain = (getattr(module, name + t) for t in ("", "_plain"))
+                for i, a in enumerate(args):
+                    label = f"{name}{f' stack {i}' if len(args) > 1 else ''}"
+                    d, sh = check_bf16(f"{label} {tag}", fn(*a),
+                                       plain(*a, True))
+                    err[name], share[name] = max(err[name], d), \
+                        max(share[name], sh)
+                if (bsz, n) == (B, N):
+                    # A forward's calls: the three stacks of SERVE_STACKS,
+                    # not the trunk again with negative scales.
+                    main[name] = (fn, plain, args[:len(SERVE_STACKS)])
+                    bf16_control(f"{name} {tag}", lambda: fn(*args[-1]),
+                                 plain(*args[-1], False))
+        out = {}
+        for name, (fn, plain, args) in main.items():
+            ms, plain_ms = time_pair(lambda: [fn(*a) for a in args],
+                                     lambda: [plain(*a, True) for a in args])
+            dev_ms = sum(device_profile(
+                lambda: [fn(*a) for a in args]).values())
+            flops, nbytes = work(plain, args)
+            peak = FP32_PEAK if name == "fused_linear_affine_act" \
+                else BF16_PEAK
+            bound_ms, bound_by = bound(flops, nbytes, peak)
+            out[name] = {"bf16_ms": ms, "bf16_plain_ms": plain_ms,
+                         "bf16_bound_ms": bound_ms, "bf16_bound_by": bound_by,
+                         "bf16_device_ms": dev_ms,
+                         "bf16_max_abs_err": err[name],
+                         "bf16_share_beyond_bound": share[name]}
+            phase("serving", f"{card}: {name} bf16 x{len(args)} per forward "
+                  f"at B={B} N={N}: kernel {ms:.4f} ms, plain {plain_ms:.4f}"
+                  f" ms; device {dev_ms:.4f} ms; bound {bound_ms:.4f} ms "
+                  f"({bound_by}); {flops / dev_ms / 1e9:.1f} TFLOP/s on the "
+                  "device")
+    for entry in results or ():
+        entry.update(out.get(entry["name"], {}))
+    return out
+
+
+def serve_models(gen, dev):
+    """The full-width segmenter (50 parts, feature transform) and
+    classifier (40 classes, no feature transform) with seeded weights and
+    random BatchNorm statistics, on the card, and seeded prepared clouds
+    (N=2500 and 1024, ``SERVE_BATCHES``' largest)."""
+    from adversarial_learning_on_pointclouds_tpu_torch import infer
+    from adversarial_learning_on_pointclouds_tpu_torch.models import (
+        PointNetCls, PointNetDenseCls,
+    )
+
+    rng = np.random.default_rng(SEED + 24)
+    out = {}
+    for kind, model, npts in (
+            ("seg", PointNetDenseCls(PARTS, True, generator=gen), N),
+            ("cls", PointNetCls(CLASSES, False, generator=gen), CLS_N)):
+        randomize_bn(model, gen)
+        raw = [rng.normal(size=(int(rng.integers(npts, 2 * npts)), 3))
+               * rng.uniform(0.5, 2.0, size=3) for _ in range(B)]
+        out[kind] = (model.to(dev).eval(), npts,
+                     torch.from_numpy(infer.prep(raw, npts)))
+    return out
+
+
+def artifact_path(tmp, kind, bf16, kernels):
+    return os.path.join(tmp, f"{kind}_{'bf16' if bf16 else 'fp32'}_"
+                        f"{'kernels' if kernels else 'portable'}.pt2")
+
+
+def export_artifacts(model, kind, npts, tmp, tag="serving"):
+    """``model``'s four artifacts (fp32 and bf16, portable and kernels),
+    each saved and then marked ``.done``; ``{(bf16, kernels): Exported}``.
+    A portable artifact holds no registered op, a kernels artifact the
+    eval kernels'."""
+    from adversarial_learning_on_pointclouds_tpu_torch.utils import serving
+
+    export = serving.export_segmenter if kind == "seg" \
+        else serving.export_classifier
+    out = {}
+    for kernels in (False, True):
+        for bf16 in (False, True):
+            t0 = time.perf_counter()
+            exp = export(model, npts, None,
+                         ("cuda",) if kernels else serving.DEFAULT_DEVICES,
+                         bf16=bf16, kernels=kernels)
+            path = artifact_path(tmp, kind, bf16, kernels)
+            serving.save_exported(exp, path)
+            open(path + ".done", "w").close()
+            ops = sorted({str(n.target) for n in exp.program.graph.nodes
+                          if "pointtpu" in str(n.target)})
+            phase(tag, f"exported {os.path.basename(path)} "
+                  f"({os.path.getsize(path) / 1e6:.1f} MB) in "
+                  f"{time.perf_counter() - t0:.1f} s: registered ops {ops}")
+            if bool(ops) != kernels:
+                raise AssertionError(f"{path}: registered ops {ops}")
+            out[(bf16, kernels)] = exp
+    return out
+
+
+def replay_launches(served, x, kind, what, tag="serving"):
+    """Launches of one forward of a kernels artifact, counted on replay."""
+    wrappers = serve_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    served(x)
+    seen = {k: w.launches for k, w in wrappers.items()}
+    phase(tag, f"{what}: launches in one forward, counted on replay: {seen}")
+    if seen != ARTIFACT_PER_FORWARD[kind]:
+        raise AssertionError(f"{what}: launches {seen}, expected "
+                             f"{ARTIFACT_PER_FORWARD[kind]}")
+
+
+def serve_helper(state_dict, tmp, out):
+    """The phase's second process: the classifier's four artifacts
+    (loaded from ``state_dict``), its kernels artifacts' launches on
+    replay, then ``serve_bench`` at B=32 N=2500; writes what it saw to
+    ``out`` (JSON)."""
+    from adversarial_learning_on_pointclouds_tpu_torch import serve_bench
+    from adversarial_learning_on_pointclouds_tpu_torch.models import (
+        PointNetCls, core,
+    )
+    from adversarial_learning_on_pointclouds_tpu_torch.utils import serving
+
+    core.exact_fp32()
+    dev = torch.device("cuda", 0)
+    model = PointNetCls(CLASSES, False)
+    model.load_state_dict(torch.load(state_dict))
+    model = model.to(dev).eval()
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        exps = export_artifacts(model, "cls", CLS_N, tmp, "serving helper")
+        x = torch.randn(B, CLS_N, 3, device=dev)
+        for bf16 in (False, True):
+            replay_launches(serving.serve(exps[(bf16, True)], dev), x, "cls",
+                            f"cls {'bf16' if bf16 else 'fp32'} kernels "
+                            "artifact", "serving helper")
+        bench = io.StringIO()
+        with redirect_stdout(bench):
+            serve_bench.main(["--model", "seg", "--batch", str(B),
+                              "--num_points", str(N), "--iters", "10",
+                              "--device", "cuda"])
+    with open(out, "w") as f:
+        json.dump({"lines": buf.getvalue().splitlines(),
+                   "serve_bench": bench.getvalue().splitlines()}, f)
+
+
+def start(cmd, tmp):
+    """A helper process of the phase, its output into a file in ``tmp``
+    (read if it fails)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__)),
+         os.environ.get("PYTHONPATH", "")]))
+    log = open(os.path.join(tmp, f"helper{len(os.listdir(tmp))}.log"), "w+")
+    proc = subprocess.Popen([sys.executable, *cmd], stdout=log, stderr=log,
+                            env=env)
+    proc.log = log
+    return proc
+
+
+def finish(proc, what, timeout=240):
+    """Wait for a helper; raise with its output unless it ended well."""
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    if proc.returncode != 0:
+        proc.log.seek(0)
+        raise AssertionError(f"{what} failed ({proc.returncode}):\n"
+                             f"{proc.log.read()[-3000:]}")
+
+
+def serving_phase(dev, card, results=None):
+    """Phase 24."""
+    from adversarial_learning_on_pointclouds_tpu_torch import infer
+    from adversarial_learning_on_pointclouds_tpu_torch.models import core
+    from adversarial_learning_on_pointclouds_tpu_torch.utils import serving
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 24)
+    models = serve_models(gen, dev)
+    procs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {(kind, bf16, kernels): artifact_path(tmp, kind, bf16,
+                                                      kernels)
+                 for kind in models for bf16 in (False, True)
+                 for kernels in (False, True)}
+        inputs, cls_sd = (os.path.join(tmp, f) for f in ("inputs.pt",
+                                                         "cls.pt"))
+        torch.save({k: x for k, (_, _, x) in models.items()}, inputs)
+        torch.save(models["cls"][0].state_dict(), cls_sd)
+        outs = {k: os.path.join(tmp, f"reload_{k}.pt") for k in (0, 1)}
+        helper_out = os.path.join(tmp, "helper.json")
+        try:
+            # Two fresh processes reload the portable and the kernels
+            # artifacts as they are written; a third exports the
+            # classifier's and runs serve_bench while this one exports the
+            # segmenter's.
+            for kernels in (False, True):
+                procs.append(start(["-c", RELOAD, ",".join(
+                    p for (_, _, k), p in paths.items() if k == kernels),
+                    inputs, outs[int(kernels)], str(int(kernels))], tmp))
+            procs.append(start(["-c", "import sys, chip_smoke; "
+                                "chip_smoke.serve_helper(*sys.argv[1:])",
+                                cls_sd, tmp, helper_out], tmp))
+            serve_bf16_checks(card, gen, dev, results)
+            phase("serving", f"bf16 kernels checked and timed at "
+                  f"{time.perf_counter() - t0:.1f} s")
+            live, cpu = {}, {}
+            for kind, (model, npts, x) in models.items():
+                cpu_model = copy.deepcopy(model).cpu()
+                for bf16 in (False, True):
+                    # The eval forward is per cloud: the CPU's runs once, at
+                    # the largest batch, and its first b rows stand for b.
+                    with torch.inference_mode(), \
+                            core.mixed_precision(enabled=bf16):
+                        for b in SERVE_BATCHES:
+                            live[(kind, bf16, b)] = model(
+                                x[:b].to(dev))[0].cpu()
+                        cpu[(kind, bf16)] = cpu_model(x)[0]
+            seg_model, _, x_seg = models["seg"]
+            exps = export_artifacts(seg_model, "seg", N, tmp)
+            phase("serving", f"the segmenter's artifacts exported at "
+                  f"{time.perf_counter() - t0:.1f} s")
+            xb = x_seg.to(dev)
+            for bf16 in (False, True):
+                served = serving.serve(exps[(bf16, True)], dev)
+                what = f"seg {'bf16' if bf16 else 'fp32'} kernels artifact"
+                replay_launches(served, xb, "seg", what)
+                want = ("stack_tc_kernel<", f"head_tc_kernel<{str(bf16).lower()}>",
+                        f"conv_group_kernel<3, {str(bf16).lower()}>")
+                profile_names(device_profile(lambda: served(xb), reps=3),
+                              what, want, 1, "serving")
+            portable = serving.serve(exps[(False, False)], dev)
+            names = device_profile(lambda: portable(xb), reps=3)
+            found = [n for n in names for k in SERVE_NAMES if k in n]
+            phase("serving", f"seg fp32 portable artifact's profile: "
+                  f"{len(names)} kernel names, none of {SERVE_NAMES}: "
+                  f"{not found}")
+            if found:
+                raise AssertionError(f"the portable artifact ran {found}")
+            finish(procs[2], "the serving helper")
+            for kind in models:
+                try:
+                    serving.load_exported(paths[(kind, False, True)], "cpu")
+                except ValueError as e:
+                    phase("serving", f"loading the {kind} kernels artifact "
+                          f"on the CPU raises: {str(e)[:60]}...")
+                else:
+                    raise AssertionError("a kernels artifact loaded on the "
+                                         "CPU")
+            with open(helper_out) as f:
+                helper = json.load(f)
+            for line in helper["lines"]:
+                print(line)
+            fresh = {}
+            for kernels in (False, True):
+                finish(procs[kernels], "the fresh reloading process")
+                got = torch.load(outs[int(kernels)])
+                phase("serving", f"a fresh process reloaded the "
+                      f"{'kernels' if kernels else 'portable'} artifacts, "
+                      f"importing of the port {got['modules']}")
+                if not kernels and got["modules"]:
+                    raise AssertionError("the portable artifacts' process "
+                                         "imported the port")
+                if kernels and not any(m.endswith("serving_ops")
+                                       for m in got["modules"]):
+                    raise AssertionError("the kernels artifacts' process "
+                                         "did not import the op "
+                                         "registrations")
+                fresh.update(got["res"])
+            compare_artifacts(paths, fresh, live, cpu)
+
+            # infer --artifact on a .pts file, with --ply.
+            pts, ply_path = os.path.join(tmp, "shape.pts"), \
+                os.path.join(tmp, "out.ply")
+            np.savetxt(pts, x_seg[0].numpy(), fmt="%.6f")
+            buf = io.StringIO()
+            with redirect_stdout(buf):
+                infer.main(["--artifact", paths[("seg", False, True)],
+                            "--input", pts, "--ply", ply_path, "--device",
+                            "cuda"])
+            with open(ply_path) as f:
+                vertices = sum(1 for line in f) - 10
+            phase("serving", f"infer --artifact: {buf.getvalue().strip()!r};"
+                  f" the .ply holds {vertices} points")
+            if vertices != N:
+                raise AssertionError(f"the .ply holds {vertices} points")
+            for line in helper["serve_bench"]:
+                phase("serving", f"{card}: serve_bench (beside the phase's "
+                      f"other work): {line}")
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                proc.log.close()
+    spent = time.perf_counter() - t0
+    phase("serving", f"{card}: the serving phase took {spent:.1f} s (budget "
+          f"{SERVE_BUDGET_S:g} s)")
+    if spent > SERVE_BUDGET_S:
+        raise AssertionError(f"the serving phase took {spent:.1f} s")
+
+
+def compare_artifacts(paths, fresh, live, cpu):
+    """Each artifact, as the fresh process served it, against the live
+    model on the card and the CPU's forward at ``SERVE_BATCHES`` (the
+    portable ones also on the CPU at b=1); fp32 within ``BOUND``; bf16, as
+    phase 13 holds bf16 steps, within the larger of ``BOUND`` and
+    ``YARD_FACTOR`` times what bf16 moves the CPU's fp32 forward, and
+    beyond ``BOUND`` of the fp32 forward (it computes in bf16)."""
+    for (kind, bf16, kernels), path in paths.items():
+        name = os.path.basename(path)
+        moved = rel_err(cpu[(kind, True)], cpu[(kind, False)])[0]
+        bnd = max(BOUND, YARD_FACTOR * moved) if bf16 else BOUND
+        for b in SERVE_BATCHES:
+            card_out = fresh[(path, "cuda", b)]
+            check(f"{name} b={b} on the card against the live model on the "
+                  "card", card_out, live[(kind, bf16, b)], bnd, "serving")
+            check(f"{name} b={b} on the card against the CPU", card_out,
+                  cpu[(kind, bf16)][:b], bnd, "serving")
+        if not kernels:
+            check(f"{name} b=1 on the CPU against the CPU",
+                  fresh[(path, "cpu", 1)], cpu[(kind, bf16)][:1], bnd,
+                  "serving")
+        if bf16:
+            off = rel_err(fresh[(path, "cuda", B)], cpu[(kind, False)])[0]
+            phase("serving", f"{name}: bf16 moves the CPU's fp32 forward by "
+                  f"{moved:.3e} of its scale; the artifact is {off:.3e} off "
+                  f"the fp32 forward (beyond {BOUND:g})")
+            if off <= BOUND:
+                raise AssertionError(f"{name} serves fp32, not bf16")
+
+
 def ptxas_report(build, src):
     """``{name<template arguments>: (registers, spill store bytes, spill
     load bytes)}`` of ``src``'s kernels in this run's build (empty when
@@ -5557,6 +6013,9 @@ def main() -> None:
     ap.add_argument("--ablation", action="store_true",
                     help="run only phases 1-2 and 23 (the ablation "
                          "controls and batching knobs; no result line)")
+    ap.add_argument("--serve", action="store_true",
+                    help="run only phases 1-2 and 24 (serving artifacts and "
+                         "the eval kernels' bf16 mode; no result line)")
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(
         __file__)), help="with --time: the tree whose port package to time")
     args = ap.parse_args()
@@ -5608,6 +6067,9 @@ def main() -> None:
     if args.ablation:
         ablation_phase(dev, card)
         return
+    if args.serve:
+        serving_phase(dev, card)
+        return
     if args.disc_checks is not None:
         gen = torch.Generator().manual_seed(args.disc_checks)
         disc_kernel_checks(dev, gen, PassRecord())
@@ -5643,6 +6105,7 @@ def main() -> None:
     runner_phase(dev, card)
     classify_phase(dev, card)
     ablation_phase(dev, card, results)
+    serving_phase(dev, card, results)
 
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {

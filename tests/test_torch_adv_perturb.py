@@ -135,12 +135,12 @@ def _pool_winners(monkeypatch):
     winners = []
     plain = encoder_fused.fused_stack_maxpool_plain
 
-    def rec(x, ws, shifts, scales, acts):
+    def rec(x, ws, shifts, scales, acts, bf16=False):
         h = x
         for w, sh, sc, act in zip(ws, shifts, scales, acts):
             h = core.activation(torch.matmul(h, w) * sc + sh, act)
         winners.append(h.argmax(dim=1))
-        return plain(x, ws, shifts, scales, acts)
+        return plain(x, ws, shifts, scales, acts, bf16)
 
     monkeypatch.setattr(encoder_fused, "fused_stack_maxpool_plain", rec)
     return winners
@@ -258,6 +258,28 @@ def test_train_step_matches_jax(model, attack, steps):
             s = max(1.0, float(v.abs().max()))
             assert float((sd[k] - v).abs().max()) <= RTOL * s, k
     assert st.step == 1
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_attack_runs_in_the_configs_precision(model, monkeypatch, bf16):
+    """Under ``--bf16`` the attack runs inside ``core.mixed_precision``,
+    as the JAX package's attack runs in its runner's bf16 scope; in fp32
+    outside any scope."""
+    seen = []
+    attack = attacks.attack
+
+    def spy(*args, **kwargs):
+        seen.append(core.compute_dtype())
+        return attack(*args, **kwargs)
+
+    monkeypatch.setattr(attacks, "attack", spy)
+    x, y = map(torch.from_numpy, _batch(N_STEP, seed=6))
+    cfg = AdvPerturbConfig(num_points=N_STEP, dropout=0.0, bf16=bf16)
+    m = PointNetCls(K)
+    m.load_state_dict(model.state_dict())
+    st = adv_perturb.create_state(cfg, 10, device="cpu", model=m)
+    adv_perturb.train_step(st, x, y, cfg=cfg, tx=adv_perturb.make_tx(cfg, 10))
+    assert seen == [torch.bfloat16 if bf16 else None]
 
 
 def test_pgd_one_step_takes_fgsm_path(model):

@@ -121,7 +121,14 @@ def test_device_cuda_without_cuda_raises(tmp_path, pth, monkeypatch):
 @pytest.mark.parametrize("extra", [["--model", "cls", "--artifact", "c.shlo"],
                                    ["--model", "seg", "--artifact", "g.shlo"]])
 def test_unported_routes_raise(tmp_path, pth, extra):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The JAX package's StableHLO artifacts (``.shlo``) are not the
+    port's: ``--artifact`` serves a ``.pt2`` of ``export_serving`` and
+    refuses anything else before it reads the input (and takes precedence
+    over ``--checkpoint``, as in the JAX script)."""
+    extra = [str(tmp_path / e) if e.endswith(".shlo") else e for e in extra]
+    with open(extra[-1], "wb") as f:
+        f.write(b"ML\xefR\x00 a StableHLO bytecode module, not a .pt2")
+    with pytest.raises(ValueError, match="not a serving artifact"):
         infer.main(["--checkpoint", pth, "--input",
                     _write_input(tmp_path, "pts"), "--device", "cpu", *extra])
 

@@ -61,10 +61,10 @@ from adversarial_learning_on_pointclouds_tpu_torch.data.shapenet_part import (
     make_synthetic_shapenet,
 )
 from adversarial_learning_on_pointclouds_tpu_torch.models import (
-    FCDiscriminator, PointNetDenseCls,
+    FCDiscriminator, PointNetDenseCls, core,
 )
 from adversarial_learning_on_pointclouds_tpu_torch.train import (
-    adversarial, runner,
+    adversarial, runner, segment,
 )
 
 B, N = 4, 64
@@ -409,3 +409,38 @@ def test_d_geometry_run_matches_jax_while_d_learns(root, tmp_path):
         for (_, g), (_, w) in zip(got, want):
             _close(g, w, 1e-5)
 
+
+
+def test_runner_bf16_eval_matches_jax(root64, pth, tmp_path, monkeypatch):
+    """Under ``--bf16`` the runner's eval runs in the mixed-precision
+    scope, as the JAX runner's does: config 3 for one epoch at B=16 and
+    lr=0 from one ``.pth``, against the JAX runner on its Pallas path
+    (its eval kernels honour the scope; interpret mode). The epoch's eval
+    summary is the JAX package's (within 1e-6: both round the same
+    operands, and no argmax turns on this fixture); the eval saw the bf16
+    scope, and the same run in fp32 evaluates other log-probs."""
+    scopes, logps = [], []
+    evaluate = runner.eval_lib.evaluate_segmenter_device
+
+    def spy(model, *args, **kwargs):
+        scopes.append(core.compute_dtype())
+        with torch.no_grad(), segment.eval_mode(model):
+            logps.append(model(args[0][:4])[0])
+        return evaluate(model, *args, **kwargs)
+
+    monkeypatch.setattr(runner.eval_lib, "evaluate_segmenter_device", spy)
+    kw = dict(num_points=N, quiet=True, feature_transform=True,
+              resample=False, lr=0.0, resume=pth, batch_size=16, epochs=1,
+              dataset=root64, bf16=True)
+    _, d_port = _run(SegmentConfig(**kw), tmp_path, "port")
+    _run(SegmentConfig(**{**kw, "bf16": False}), tmp_path, "fp32")
+    assert scopes == [torch.bfloat16, None]
+    assert (logps[0] - logps[1]).abs().max() > 1e-4
+    d_ref = str(tmp_path / "jax")
+    jax_runner.run_segmentation(JaxSegmentConfig(
+        out_dir=d_ref, use_pallas=True, num_devices=1, **kw))
+    for ev, ev_ref in zip(_epochs(d_port, "seg"), _epochs(d_ref, "seg"),
+                          strict=True):
+        for k in ("instance_miou", "point_accuracy", "num_shapes"):
+            assert float(ev[k]) == pytest.approx(float(ev_ref[k]),
+                                                 rel=1e-6), k

@@ -30,8 +30,25 @@ times the plain fp32 pass's). Controls: one TF32 product instead of
 three fails that control (and the stack's ``BOUND``), and with negative
 scales the max taken before the affine (``max(z) * scale + shift``)
 misses the plain twin by far. These
-tests run no kernel; ``chip_smoke.py`` (phase 3) holds the kernels to
-their plain twins and to float64 on the card.
+tests run no kernel; ``chip_smoke.py`` (phases 3 and 24) holds the
+kernels to their plain twins and to float64 on the card.
+
+Their bf16 mode (``core.mixed_precision``, the JAX package's ``_mxu_dot``
+in its bf16 scope) is emulated too (``prec="bf16"``): every product's
+operands rounded to bf16 (nearest even), each 16-deep k step's products
+summed (exactly: bf16 products are exact in fp32) and added to an fp32
+accumulator, as one m16n8k16 ``mma.sync`` a step; the stack's FMA layer
+and the head's global row on the rounded operands, their fp32 FMAs kept.
+It must meet the bf16 plain twins and the JAX kernels in interpret mode
+under ``mixed_precision`` by ``chip_smoke.check_bf16``'s rule (at most
+``STASH_SHARE`` of the outputs beyond ``BOUND`` of the scale, every one
+within ``BF16_BOUND``: a bf16 hidden activation may round one step apart
+where two fp32 sums of another order straddle a midpoint), and fp32
+operands (the control) must miss it. Whole forwards in bf16: the port's
+segmenter and classifier under ``core.mixed_precision`` against the JAX
+package's under its own, on its Pallas path (interpret mode): within
+``YARD_FACTOR`` times what bf16 moves the JAX package's fp32 forward, and
+beyond ``BOUND`` of the port's fp32 forward (they are bf16).
 """
 
 import functools
@@ -41,14 +58,21 @@ import numpy as np
 import pytest
 import torch
 
+from adversarial_learning_on_pointclouds_tpu.models import (
+    apply_classifier, apply_segmenter, core as jax_core,
+)
+from adversarial_learning_on_pointclouds_tpu.ops import use_pallas
 from adversarial_learning_on_pointclouds_tpu.ops.kernels import (
     encoder_fused as jax_encoder_fused,
 )
-from adversarial_learning_on_pointclouds_tpu_torch.models import core
+from adversarial_learning_on_pointclouds_tpu.utils import torch_import
+from adversarial_learning_on_pointclouds_tpu_torch.models import (
+    PointNetCls, PointNetDenseCls, core,
+)
 from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
     encoder_fused,
 )
-from chip_smoke import F64_FACTOR
+from chip_smoke import BF16_BOUND, F64_FACTOR, STASH_SHARE, YARD_FACTOR
 from tests.test_torch_gemm_numerics import mm_3xtf32
 
 BOUND = 1e-4
@@ -84,13 +108,32 @@ def _fma(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return v.float()
 
 
+def _bf(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).float()
+
+
+def mm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as one m16n8k16 bf16 ``mma.sync`` a 16-deep k step: the
+    rounded operands' products summed per step (exact in float64) and
+    added to an fp32 accumulator."""
+    a, b = _bf(a), _bf(b)
+    acc = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32)
+    for k0 in range(0, a.shape[1], 16):
+        k = slice(k0, k0 + 16)
+        acc = acc + (a[:, k].double() @ b[k].double()).float()
+    return acc
+
+
 def _mm(a, b, prec):
     """``a @ b`` as the kernels compute it: ``3xtf32``, ``tf32`` (one
-    product, the control) or ``f64``; depth <= 4 as fp32 FMAs."""
+    product, the control), ``bf16`` or ``f64``; depth <= 4 as fp32 FMAs
+    (on bf16-rounded operands in ``bf16``)."""
     if prec == "f64":
         return a.double() @ b.double()
     if a.shape[1] <= 4:
-        return _fma(a, b)
+        return _fma(_bf(a), _bf(b)) if prec == "bf16" else _fma(a, b)
+    if prec == "bf16":
+        return mm_bf16(a, b)
     return mm_3xtf32(a, b, terms=3 if prec == "3xtf32" else 1)
 
 
@@ -127,7 +170,8 @@ def head_emulated(pf, g, w1, sh1, sc1, w2, sh2, sc2, w3, sh3, sc3, w4, b4,
     """``seg_head_fused`` as ``global_row_kernel`` + ``head_tc_kernel``
     compute it (``prec="f64"``: the float64 control)."""
     bsz, n, c_pf = pf.shape
-    g_row = _f(g, prec) @ _f(w1[c_pf:], prec)          # the prologue, fp32
+    g, w1b = (_bf(g), _bf(w1[c_pf:])) if prec == "bf16" else (g, w1[c_pf:])
+    g_row = _f(g, prec) @ _f(w1b, prec)                # the prologue, fp32
     z1 = _mm(_f(pf.reshape(-1, c_pf), prec), w1[:c_pf], prec)
     h = torch.relu((z1.reshape(bsz, n, -1) + g_row[:, None]) * _f(sc1, prec)
                    + _f(sh1, prec)).reshape(bsz * n, -1)
@@ -267,3 +311,106 @@ def test_max_before_the_affine_misses_the_bound():
     args = _torch_stack("16-32-64")
     wrong = stack_emulated(*args, "3xtf32", max_first=True)
     assert _rel(wrong, encoder_fused.fused_stack_maxpool_plain(*args)) > 0.1
+
+
+def check_bf16(got, ref):
+    """``chip_smoke.check_bf16``'s rule: at most ``STASH_SHARE`` of the
+    outputs beyond ``BOUND`` of the scale, every one within
+    ``BF16_BOUND``."""
+    got, ref = (np.asarray(t, np.float64) for t in (got, ref))
+    scale = max(float(np.abs(ref).max()), 1.0)
+    err = np.abs(got - ref)
+    return (err > BOUND * scale).mean() <= STASH_SHARE and \
+        err.max() <= BF16_BOUND * scale
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_stack_bf16(key):
+    x, layers, acts = _stack_args(key)
+    ws, shs, scs = zip(*layers)
+    with jax_core.mixed_precision():
+        return np.array(jax_encoder_fused.fused_stack_maxpool(
+            jnp.asarray(x), [jnp.asarray(w.T) for w in ws],
+            [jnp.asarray(s) for s in shs], [jnp.asarray(s) for s in scs],
+            acts))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_head_bf16():
+    pf, g, layers, w4, b4 = _head_args()
+    flat = [jnp.asarray(t) for w, sh, sc in layers for t in (w.T, sh, sc)]
+    with jax_core.mixed_precision():
+        return np.array(jax_encoder_fused.seg_head_fused(
+            jnp.asarray(pf), jnp.asarray(g), *flat, jnp.asarray(w4.T),
+            jnp.asarray(b4)))
+
+
+@pytest.mark.parametrize("key", sorted(STACKS))
+def test_stack_bf16_matches_its_twin_and_jax(key):
+    """``stack_tc_kernel``'s bf16 arithmetic against the bf16 plain twin
+    and the JAX kernel under ``mixed_precision``; fp32 operands miss; the
+    wrapper's plain route under the scope is the bf16 twin."""
+    args = _torch_stack(key)
+    emu = stack_emulated(*args, "bf16")
+    twin = encoder_fused.fused_stack_maxpool_plain(*args, bf16=True)
+    assert check_bf16(emu, twin)
+    assert check_bf16(emu, _jax_stack_bf16(key))
+    assert not check_bf16(stack_emulated(*args, "3xtf32"), twin)
+    with core.mixed_precision():
+        np.testing.assert_array_equal(
+            encoder_fused.fused_stack_maxpool(*args), twin)
+
+
+def test_head_bf16_matches_its_twin_and_jax():
+    """``head_tc_kernel``'s (and its global-row prologue's) bf16
+    arithmetic against the bf16 plain twin and the JAX kernel under
+    ``mixed_precision``; fp32 operands miss."""
+    args = _torch_head()
+    emu = head_emulated(*args, "bf16")
+    twin = encoder_fused.seg_head_fused_plain(*args, bf16=True)
+    assert check_bf16(emu, twin)
+    assert check_bf16(emu, _jax_head_bf16())
+    assert not check_bf16(head_emulated(*args, "3xtf32"), twin)
+    with core.mixed_precision():
+        np.testing.assert_array_equal(encoder_fused.seg_head_fused(*args),
+                                      twin)
+
+
+def _bn_spread(model, gen):
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm1d):
+                m.weight.uniform_(0.5, 1.5, generator=gen)
+                m.bias.normal_(0.0, 0.1, generator=gen)
+                m.running_mean.normal_(0.0, 0.1, generator=gen)
+                m.running_var.uniform_(0.5, 1.5, generator=gen)
+    return model
+
+
+@pytest.mark.parametrize("kind", ["seg", "cls"])
+def test_bf16_eval_forward_matches_jax(kind):
+    """The whole eval forward of the segmenter (feature transform, 5
+    parts) and the classifier (10 classes) in bf16, B=4 N=64, against the
+    JAX package's Pallas path (interpret mode) under its
+    ``mixed_precision`` (measured 1.6e-4 and 2.1e-4 of the scale, where
+    bf16 moves JAX's fp32 forward by 3.5e-4 and 3.2e-4)."""
+    gen = torch.Generator().manual_seed(2)
+    model = _bn_spread(PointNetDenseCls(5, True, generator=gen)
+                       if kind == "seg" else
+                       PointNetCls(10, False, generator=gen), gen)
+    importer = (torch_import.segmenter_from_state_dict if kind == "seg"
+                else torch_import.classifier_from_state_dict)
+    apply = apply_segmenter if kind == "seg" else apply_classifier
+    params, state = importer(model.state_dict())
+    x = np.random.default_rng(3).normal(size=(4, 64, 3)).astype(np.float32)
+    ref, port = {}, {}
+    for bf16 in (False, True):
+        with use_pallas(True), jax_core.mixed_precision(enabled=bf16):
+            ref[bf16] = np.asarray(apply(params, state, jnp.asarray(x),
+                                         train=False)[0])
+        with torch.no_grad(), core.mixed_precision(enabled=bf16):
+            port[bf16] = model(torch.from_numpy(x))[0].numpy()
+    moved = _rel(ref[True], ref[False])   # 3.5e-4 and 3.2e-4
+    assert _rel(port[False], ref[False]) <= BOUND
+    assert _rel(port[True], ref[True]) <= YARD_FACTOR * moved
+    assert _rel(port[True], port[False]) > BOUND
