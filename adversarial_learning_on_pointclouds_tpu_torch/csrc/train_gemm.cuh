@@ -1,14 +1,7 @@
 // The argument structs of every training pass and their reductions,
 // shared by trunk_train.cu, seg_head_train.cu and train_bwd_tc.cu, where
-// every pass of the trunk and the seg head runs on the tensor cores; and
-// the CUDA-core row GEMM of mlp_stack.cu (the discriminator's inference
-// stack).
-//
-// * The row GEMM over point tiles (gemm_acc, load_tile): a block of 256
-//   threads owns a tile of 64 points (8 rows per warp, as tile_fma lays
-//   them out) in shared memory, after an optional prologue (BN affine +
-//   ReLU of the previous layer); the layer's weight streams from L2
-//   through a register-staged double buffer in 16-row chunks.
+// every pass of the trunk and the seg head runs on the tensor cores, and
+// by disc_tc.cu (colsum).
 //
 // Blocks run in no order, so nothing is carried between them: every
 // reduction over the rows (column statistics, dW, db, the BN sums) is
@@ -30,7 +23,7 @@
 // range of the per-block slots, added as a stream alone would add them.
 //
 // Under kRound (mixed precision) every matmul operand is rounded to bf16
-// as it enters shared memory or the staging buffer; sums and statistics
+// as it enters shared memory or a fragment; sums and statistics
 // keep the unrounded fp32 values, and the stashes named in prec are read
 // and written as bf16.
 
@@ -102,127 +95,12 @@ struct BwdArgs {
 
 namespace {  // each translation unit keeps its own copy
 
-constexpr int kTile = 64;                 // points per row block
-constexpr int kRows = kTile / kWarps;     // rows per warp
-constexpr int kKc = 16;                   // weight rows per staged chunk
-constexpr int kStageLd = kMaxCols + 2;
-constexpr int kStage = kKc * kStageLd;    // floats per staging buffer
-
-// A kKc x COLS slice of the GEMM's B operand, staged through registers.
-// TRANS: B[k][j] = w[(n0 + j) * ldw + k] (a layer against PyTorch's [out,
-// in] weight); otherwise B[k][j] = w[k * ldw + n0 + j] (dz @ W). Thread
-// t's elements are chosen so that a warp reads 64-byte segments (TRANS)
-// or whole rows (otherwise); the row stride COLS + 2 keeps the
-// transposing stores free of bank conflicts.
-template <int COLS, bool TRANS>
-struct Stage {
-  static constexpr int kPer = COLS / 16;
-  float v[kPer];
-
-  static __device__ __forceinline__ void at(int q, int& kk, int& j) {
-    if (TRANS) {
-      kk = threadIdx.x & (kKc - 1);
-      j = (threadIdx.x >> 4) + 16 * q;
-    } else {
-      const int e = threadIdx.x + kThreads * q;
-      kk = e / COLS;
-      j = e - kk * COLS;
-    }
-  }
-  __device__ __forceinline__ void fetch(const float* __restrict__ w, int ldw,
-                                        int n0, int n_valid, int k0, int nk) {
-#pragma unroll
-    for (int q = 0; q < kPer; ++q) {
-      int kk, j;
-      at(q, kk, j);
-      const bool ok = j < n_valid && k0 + kk < nk;
-      const float* src = TRANS ? w + (size_t)(n0 + j) * ldw + k0 + kk
-                               : w + (size_t)(k0 + kk) * ldw + n0 + j;
-      v[q] = ok ? __ldg(src) : 0.f;
-    }
-  }
-  // Rounds to bf16 here, not in fetch: the loads stay in flight under
-  // the previous chunk's FMAs.
-  __device__ __forceinline__ void put(float* buf, bool bf) const {
-#pragma unroll
-    for (int q = 0; q < kPer; ++q) {
-      int kk, j;
-      at(q, kk, j);
-      buf[kk * kStageLd + j] = operand(v[q], bf);
-    }
-  }
-};
-
-// acc[i][jj] += sum_k in_s[row i][k] * B[k][n0 + lane + 32 jj] over k <
-// nk; B's columns at or past n_valid are zero, and B is rounded to bf16
-// under bf (in_s already holds operands). Starts and ends with a
-// barrier, so in_s written before the call is visible, and stage may be
-// reused after it.
-template <int NJ, bool TRANS>
-__device__ __forceinline__ void gemm_acc(float (&acc)[kRows][NJ],
-                                         const float* in_s, int ld_in, int nk,
-                                         const float* __restrict__ w, int ldw,
-                                         int n0, int n_valid, float* stage,
-                                         bool bf) {
-  Stage<NJ * 32, TRANS> st;
-  const int chunks = (nk + kKc - 1) / kKc;
-  st.fetch(w, ldw, n0, n_valid, 0, nk);
-  st.put(stage, bf);
-  __syncthreads();
-  for (int c = 0; c < chunks; ++c) {
-    const int k0 = c * kKc;
-    if (c + 1 < chunks) st.fetch(w, ldw, n0, n_valid, k0 + kKc, nk);
-    tile_fma<kRows, NJ>(acc, in_s + k0, ld_in, stage + (c & 1) * kStage,
-                        kStageLd, min(kKc, nk - k0));
-    if (c + 1 < chunks) st.put(stage + ((c + 1) & 1) * kStage, bf);
-    __syncthreads();
-  }
-}
-
 // The previous layer's BN affine, v * sc + sh, rounded after the product
 // as PyTorch's two elementwise ops round it (no fused multiply-add): the
 // backward's ReLU mask then flips at exactly the same elements as the
 // plain version's.
 __device__ __forceinline__ float bn_affine(float v, float sc, float sh) {
   return __fadd_rn(__fmul_rn(v, sc), sh);
-}
-
-// tile[r][c] = f(x[(g0 + r) * ldx + c0 + c]) for r < rows and c0 + c <
-// c_lim, else 0; x is fp32 or (xbf) bf16, f is relu(v * sc + sh) when sc
-// is given, else identity, and the result is a matmul operand (rounded
-// to bf16 under bf).
-__device__ __forceinline__ void load_tile(float* tile, int width,
-                                          const void* __restrict__ x, bool xbf,
-                                          size_t g0, int rows, int ldx, int c0,
-                                          int c_lim,
-                                          const float* __restrict__ sc,
-                                          const float* __restrict__ sh,
-                                          bool bf) {
-  for (int e = threadIdx.x; e < kTile * width; e += kThreads) {
-    const int r = e / width, c = c0 + e - r * width;
-    float v = 0.f;
-    if (r < rows && c < c_lim) {
-      v = load_val(x, xbf, (g0 + r) * ldx + c);
-      if (sc) v = fmaxf(bn_affine(v, __ldg(sc + c), __ldg(sh + c)), 0.f);
-    }
-    tile[e] = operand(v, bf);
-  }
-}
-
-// Calls f(Nj<NJ>{}) for the smallest NJ of 2, 4 and 8 with NJ * 32 >=
-// cols (a multiple of 32, at most kMaxCols). gemm_acc masks every column
-// past its width (zero operands) and mlp_stack.cu stores none of them, so
-// three widths serve all eight, and it compiles three bodies where
-// with_nj would make eight.
-template <typename F>
-__device__ __forceinline__ void with_nj_pow2(int cols, F&& f) {
-  switch (cols >> 5) {
-    case 1:
-    case 2: f(Nj<2>{}); break;
-    case 3:
-    case 4: f(Nj<4>{}); break;
-    default: f(Nj<8>{}); break;
-  }
 }
 
 // The row of a [groups, c] statistic (or null) for cloud b; without G

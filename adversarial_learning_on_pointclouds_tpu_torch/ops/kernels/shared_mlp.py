@@ -8,9 +8,9 @@ shared_mlp.py``:
   the registered op ``pointtpu::linear_affine_act``
   (``ops/serving_ops.py``); bf16 operands under ``core.mixed_precision``;
 * ``fused_mlp_stack`` (inference: ``FCDiscriminator.infer``), a chain of
-  ``act((h @ w) * scale + shift)`` layers in one kernel,
-  ``csrc/mlp_stack.cu``; bf16 operands with fp32 sums under
-  ``core.mixed_precision``, as the JAX package's ``_mxu_dot``;
+  ``act((h @ w) * scale + shift)`` layers in one kernel on the tensor
+  cores, ``csrc/mlp_stack.cu`` (fp32 as 3xTF32); bf16 operands with fp32
+  sums under ``core.mixed_precision``, as the JAX package's ``_mxu_dot``;
 * ``pointwise_matmul`` (training, under ``dispatch.use_pallas_train``):
   ``x @ w + b`` with its backward ``dx = g @ w^T``, ``dw = x^T g``,
   ``db = sum g``, three passes in ``csrc/pointwise_matmul.cu`` (``pm_fwd``,
@@ -107,8 +107,16 @@ def fused_mlp_stack(x: torch.Tensor, weights: Sequence[torch.Tensor],
 
     Forward only: with grad enabled, an input or weight that requires grad
     raises. On the card a chain of more than ``launch.MAX_STACK`` layers
-    raises, and so does one whose activations (64 rows of the widest input
-    of each parity) and staging buffers exceed a block's shared memory."""
+    raises, and so does one that a block's shared memory cannot hold at 64
+    rows a tile: its activations in slots of 128 columns (two where a
+    layer's input and output each fit one; a layer's output chunks take
+    free slots but the last, which may overwrite its input; a last layer
+    narrower than 8 columns folds into the layer before and needs none),
+    fp32 or, under mixed precision, bf16; a ring of 3 weight slices of 18
+    KB; and a folded layer's partials (2 KB a column at 128 rows). At 128
+    rows the discriminator (k 50 or 53 -> 64 -> 128 -> 256 -> 512 -> 1)
+    takes 188 KB in fp32 and 124 KB in bf16, the 3 -> 64 -> 128 -> 1024
+    chain 120 / 88 KB, of the H100's 227 KB."""
     n_layers = len(weights)
     if not n_layers or not len(shifts) == len(scales) == len(acts) == \
             n_layers:

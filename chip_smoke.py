@@ -161,10 +161,15 @@ Phases, one or more lines each:
    and the bench step's, timed alone (events and device time, GB/s); the
    config-3 steps at N=2048 and 2500 and the bench step at K=8, off and
    under the switch in turns;
-18. stack-trunk3-kernels: ``fused_mlp_stack`` against its plain version
-   on the discriminator's chain at the serving shapes (B=32 N=2500), a
-   ragged N and B=1, and on a 3 -> 64 -> 128 -> 1024 ReLU chain with
-   non-unit scales, in fp32 and bf16; ``trunk3_train`` at STN3d's and
+18. stack-trunk3-kernels: ``fused_mlp_stack`` (``chain_tc_kernel``, on
+   the tensor cores) against its plain version on the discriminator's
+   chain at k=50 and k=53 (``--d_geometry``), a 3 -> 64 -> 128 -> 1024
+   ReLU chain with non-unit scales, a 45 -> 72 -> 200 -> 136 -> 5 chain
+   (no width a multiple of 16, negative scales, a 5-wide last layer
+   folded) and a 64 -> 384 -> 64 chain (64-row tiles in fp32), each at
+   the serving shape (B=32 N=2500), a ragged N, B=1 and B=1 at N=37, in
+   fp32 and bf16, and the refusal of a chain no block holds;
+   ``trunk3_train`` at STN3d's and
    STNkd's widths (c_in 3 and 64) at B=32 N=2048, N=2500 and B=2, on
    duplicated points with negative BN3 gammas: each of its six passes
    against its plain pass (F1, Pmid and the head's B1 in fp32 also by
@@ -182,8 +187,10 @@ Phases, one or more lines each:
    probabilities (B=32 N=2500) against ``forward`` and the CPU, one
    ``fused_mlp_stack`` launch; ``trunk3_train`` on its own at STN3d's
    shapes (its six passes, once each);
-20. adv-pallas-timing: ``fused_mlp_stack`` and ``trunk3_train`` (forward
-   and backward) against their plain versions with their bounds; the
+20. adv-pallas-timing: ``fused_mlp_stack`` (fp32 and bf16, events and
+   device time, bound at the 3xTF32, fp32-FMA and bf16 rates, in turns
+   with ``disc_fused``'s forward) and ``trunk3_train`` (forward and
+   backward) against their plain versions with their bounds; the
    config-4 step at N=2500 off and under the switch in turns, in fp32
    (one step per call) and as the bench step (K=8);
 21. runner: the training runs end to end (``train/runner.py``) on a
@@ -475,6 +482,17 @@ HEAD_WIDTHS = ((1088, 512), (512, 256), (256, 128))
 # rate with the fp32-FMA bound beside it.
 SERVE_TC = ("fused_stack_maxpool", "seg_head_fused")
 STACK_SITE = "shared_mlp.py:296"
+# fused_mlp_stack's chains besides the discriminator's (phase 18): widths
+# and activations.
+STACK_CHAINS = {
+    "3->64->128->1024 relu": ((3, 64, 128, 1024), ("relu",) * 3),
+    "45->72->200->136->5": ((45, 72, 200, 136, 5),
+                            ("leaky_relu", "relu", None, "relu")),
+    # Three slots: 64-row tiles in fp32 (128 rows in bf16).
+    "64->384->64": ((64, 384, 64), ("relu", None)),
+}
+STACK_SHAPES = ((B, N), (B, RAGGED_N), (1, N), (1, 37))
+STACK_KERNEL = "chain_tc_kernel"
 TRUNK3_SITE = "trunk_train.py:515"
 D_ACTS = ("leaky_relu",) * 4 + (None,)
 # trunk3_train's passes, in the order it runs them: (kernel module, pass).
@@ -3718,40 +3736,75 @@ def trunk3_pass_checks(dev, gen, rec, args, tag, ptag, bf16=False,
                (lambda: sh.b1_plain(*a)[0]) if control else None)
 
 
-def stack_trunk3_checks(dev, gen):
-    """Phase 18: ``fused_mlp_stack`` against its plain version, and
-    ``trunk3_train``'s passes and whole function, at the shapes of their
-    paths. Returns the record of the largest errors."""
+def stack_checks(dev, gen, rec, tag):
+    """``fused_mlp_stack`` against its plain version: the discriminator's
+    chain at k=50 (probability maps) and k=53 (``geo_maps``), and
+    ``STACK_CHAINS`` (random inputs; some scales negative where the last
+    layer folds), at ``STACK_SHAPES``, in fp32 and bf16, into ``rec``;
+    then a chain that no block holds must be refused."""
     from adversarial_learning_on_pointclouds_tpu_torch.models import core
     from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
-        shared_mlp as sm, trunk_train as tt,
+        shared_mlp as sm,
     )
 
-    tag = "stack-trunk3-kernels"
-    rec = PassRecord()
-    ws, bs = disc_params(gen, dev)
-    chains = {"disc": (ws, bs, [torch.ones_like(b) for b in bs], D_ACTS)}
-    tw = [layer_params(gen, c_in, c_out, dev)
-          for c_in, c_out in ((3, 64), (64, 128), (128, 1024))]
-    chains["3->64->128->1024 relu"] = ([t[0] for t in tw], [t[1] for t in tw],
-                                       [t[2] for t in tw], ("relu",) * 3)
+    chains = {}
+    for name, k, maps in (("disc", PARTS, prob_maps),
+                          ("disc k=53", GEO_K, geo_maps)):
+        ws, bs = disc_params(gen, dev, k)
+        chains[name] = (ws, bs, [torch.ones_like(b) for b in bs], D_ACTS,
+                        maps)
+    for name, (widths, acts) in STACK_CHAINS.items():
+        tw = [layer_params(gen, c_in, c_out, dev)
+              for c_in, c_out in zip(widths, widths[1:])]
+        scales = [t[2] for t in tw]
+        if widths[-1] < 8:
+            scales = [sc * torch.where(torch.rand(sc.shape, generator=gen)
+                                       < 0.3, -1.0, 1.0).to(dev)
+                      for sc in scales]
+        chains[name] = ([t[0] for t in tw], [t[1] for t in tw], scales, acts,
+                        lambda g, bsz, n, d, c0=widths[0]: _r(
+                            g, bsz, n, c0, scale=1.0, dev=d))
     with torch.no_grad():
-        for name, (cw, csh, csc, acts) in chains.items():
-            shapes = ((B, N), (B, RAGGED_N), (1, N)) if name == "disc" \
-                else ((B, N),)
-            for bsz, n in shapes:
-                x = (prob_maps(gen, bsz, n, dev) if name == "disc" else
-                     _r(gen, bsz, n, cw[0].shape[0], scale=1.0, dev=dev))
+        for name, (cw, csh, csc, acts, maps) in chains.items():
+            for bsz, n in STACK_SHAPES:
+                x = maps(gen, bsz, n, dev)
                 for bf16 in (False, True):
                     t = f"{name} B={bsz} N={n}{' bf16' if bf16 else ''}"
                     with core.mixed_precision(enabled=bf16):
                         got = sm.fused_mlp_stack(x, cw, csh, csc, acts)
                     ref = sm.fused_mlp_stack_plain(x, cw, csh, csc, acts,
                                                    bf16)
-                    rec.cmp("fused_mlp_stack", "fwd", t, ("out",), (got,),
+                    rec.cmp("fused_mlp_stack bf16" if bf16 else
+                            "fused_mlp_stack", "fwd", t, ("out",), (got,),
                             (ref,), False, (), phase_tag=tag,
                             bound=BF16_BOUND if bf16 else BOUND)
         torch.cuda.synchronize()
+        # A chain whose activations no block holds is refused, not run.
+        wide = [layer_params(gen, 1024, 1024, dev) for _ in range(2)]
+        try:
+            sm.fused_mlp_stack(_r(gen, 1, 37, 1024, dev=dev),
+                               [t[0] for t in wide], [t[1] for t in wide],
+                               [t[2] for t in wide], ("relu", None))
+        except RuntimeError as e:
+            if "shared memory" not in str(e):
+                raise
+            phase(tag, f"a 1024 -> 1024 -> 1024 chain is refused: {e}")
+        else:
+            raise AssertionError("fused_mlp_stack ran a 1024 -> 1024 -> "
+                                 "1024 chain that no block can hold")
+
+
+def stack_trunk3_checks(dev, gen):
+    """Phase 18: ``fused_mlp_stack`` against its plain version, and
+    ``trunk3_train``'s passes and whole function, at the shapes of their
+    paths. Returns the record of the largest errors."""
+    from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
+        trunk_train as tt,
+    )
+
+    tag = "stack-trunk3-kernels"
+    rec = PassRecord()
+    stack_checks(dev, gen, rec, tag)
 
     for c0 in (3, 64):
         for bsz, n in ((B, TRAIN_N), (B, TRAIN_RAGGED_N), (2, TRAIN_N)):
@@ -3902,6 +3955,40 @@ def adv_pt_slice(dev, card, gen):
     return out
 
 
+def stack_times(x, ws, bs, tag=None):
+    """``fused_mlp_stack`` on the D's chain (``ws``, ``bs``; unit scales)
+    over ``x``, fp32 and bf16: the median ms of ``REPS`` launches (CUDA
+    events) against the plain twin's, device ms (profiler; the window's
+    kernels must be ``STACK_KERNEL`` alone, where ``tag`` is given), and
+    the kernel in turns with ``disc_fused``'s forward on the same
+    inputs."""
+    from adversarial_learning_on_pointclouds_tpu_torch.models import core
+    from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
+        disc_fused, shared_mlp as sm,
+    )
+
+    call = (x, ws, bs, [torch.ones_like(b) for b in bs], D_ACTS)
+    out = {}
+    with torch.no_grad():
+        for bf16 in (False, True):
+            with core.mixed_precision(enabled=bf16):
+                ms, plain_ms = time_pair(
+                    lambda: sm.fused_mlp_stack(*call),
+                    lambda: sm.fused_mlp_stack_plain(*call, bf16))
+                dev = device_profile(lambda: sm.fused_mlp_stack(*call))
+                turns, disc = time_pair(
+                    lambda: sm.fused_mlp_stack(*call),
+                    lambda: disc_fused.disc_forward(x, ws, bs))
+            if tag and (len(dev) != 1 or STACK_KERNEL not in next(iter(dev))):
+                raise AssertionError(f"fused_mlp_stack ran {list(dev)}, "
+                                     f"not {STACK_KERNEL} alone")
+            out["bf16" if bf16 else "fp32"] = {
+                "ms": ms, "plain_ms": plain_ms,
+                "device_ms": sum(dev.values()), "kernels": list(dev),
+                "turns_ms": turns, "disc_fused_fwd_ms": disc}
+    return out
+
+
 def trunk3_work(args):
     """``(fma_flops, tc_flops, bytes)`` of one trunk3_train forward and
     backward: each layer's product forward and its two products backward
@@ -3927,7 +4014,7 @@ def adv_pt_timing(card, rec, slice_out, results):
     in fp32; the bench step through ``train_steps_scan`` at K=8)."""
     from adversarial_learning_on_pointclouds_tpu_torch.ops import dispatch
     from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
-        disc_fused, shared_mlp as sm, trunk_train as tt,
+        shared_mlp as sm, trunk_train as tt,
     )
     from adversarial_learning_on_pointclouds_tpu_torch.train import (
         adversarial,
@@ -3936,30 +4023,40 @@ def adv_pt_timing(card, rec, slice_out, results):
     tag = "adv-pallas-timing"
     (probs, ws, bs, ones), stack_launches = slice_out["stack"]
     call = (probs, ws, bs, ones, D_ACTS)
-    with torch.no_grad():
-        ms, plain_ms = time_pair(lambda: sm.fused_mlp_stack(*call),
-                                 lambda: sm.fused_mlp_stack_plain(*call))
-        dev_ms = sum(device_profile(lambda: sm.fused_mlp_stack(*call))
-                     .values())
-        stack_ms, disc_ms = time_pair(
-            lambda: sm.fused_mlp_stack(*call),
-            lambda: disc_fused.disc_forward(probs, ws, bs))
-    bound_ms, bound_by = bound(*work(sm.fused_mlp_stack_plain, [call]))
+    t = stack_times(probs, ws, bs, tag)
+    flops, nbytes = work(sm.fused_mlp_stack_plain, [call])
+    bound_ms, bound_by = bound(flops, nbytes, TF32X3_PEAK)
+    fma_ms, bf_bound_ms = bound(flops, nbytes)[0], bound(flops, nbytes,
+                                                          BF16_PEAK)[0]
+    fp, bf = t["fp32"], t["bf16"]
     phase(tag, f"{card}: fused_mlp_stack (the D's chain) B={B} N={N}: "
-          f"kernel {ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f} "
-          f"ms, bound {bound_ms:.4f} ms ({bound_by}); in turns with "
-          f"disc_fused's forward under no_grad: fused_mlp_stack "
-          f"{stack_ms:.4f} ms, disc_fused fwd {disc_ms:.4f} ms")
+          f"fp32 kernel {fp['ms']:.4f} ms (device {fp['device_ms']:.4f}, "
+          f"{flops / fp['device_ms'] / 1e9:.1f} TFLOP/s), plain "
+          f"{fp['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+          f"3xTF32; {fma_ms:.4f} at fp32 FMA); bf16 kernel {bf['ms']:.4f} "
+          f"ms (device {bf['device_ms']:.4f}, "
+          f"{flops / bf['device_ms'] / 1e9:.1f} TFLOP/s), plain "
+          f"{bf['plain_ms']:.4f} ms, bound {bf_bound_ms:.4f} ms; in turns "
+          f"with disc_fused's forward under no_grad: fp32 "
+          f"{fp['turns_ms']:.4f} against {fp['disc_fused_fwd_ms']:.4f} ms, "
+          f"bf16 {bf['turns_ms']:.4f} against {bf['disc_fused_fwd_ms']:.4f}")
     results.append({
         "name": "fused_mlp_stack", "route": "cuda",
         "source": f"{KERNELS_ROOT}/csrc/mlp_stack.cu",
         "replaces": f"{TPU_KERNELS}/{STACK_SITE}",
         "launches": stack_launches,
-        "max_abs_err": rec.err[("fused_mlp_stack", "fwd")], "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None, "device_ms": dev_ms,
-        "turns_ms": stack_ms, "disc_fused_fwd_turns_ms": disc_ms,
-        "times": f"per D inference at B={B} N={N}"})
+        "max_abs_err": rec.err[("fused_mlp_stack", "fwd")],
+        "bf16_max_abs_err": rec.err[("fused_mlp_stack bf16", "fwd")],
+        "ms": fp["ms"], "plain_ms": fp["plain_ms"], "bound_ms": bound_ms,
+        "bound_by": bound_by, "bound_fma_ms": fma_ms, "library_ms": None,
+        "device_ms": fp["device_ms"], "bf16_ms": bf["ms"],
+        "bf16_plain_ms": bf["plain_ms"], "bf16_device_ms": bf["device_ms"],
+        "bf16_bound_ms": bf_bound_ms, "turns_ms": fp["turns_ms"],
+        "disc_fused_fwd_turns_ms": fp["disc_fused_fwd_ms"],
+        "bf16_turns_ms": bf["turns_ms"],
+        "bf16_disc_fused_fwd_turns_ms": bf["disc_fused_fwd_ms"],
+        "times": f"per D inference at B={B} N={N}; the parent's kernel in "
+                 "turns: --time stack"})
 
     args, t3_launches = slice_out["trunk3"]
 
@@ -5936,7 +6033,7 @@ def augment_times(card):
 
 
 def time_alone(mode: str, root: str, card: str) -> None:
-    """``--time fp32|bench|pallas_train|passes|serve --root
+    """``--time fp32|bench|pallas_train|passes|serve|stack --root
     DIR``: the G+D step's timing alone, of the port package under ``DIR``
     (a checkout, or a ``git archive`` of the parent commit, say), from
     ``create_state``'s
@@ -5947,7 +6044,9 @@ def time_alone(mode: str, root: str, card: str) -> None:
     (``bench.py --pallas_train``; a tree without the switch fails);
     ``passes`` the seg head's P1, Pmid, P4, B1 and B4, trunk F1 and the
     T-Net fc layers alone (``head_passes``), ``serve`` the serving kernels
-    (conv1 too), forward and ``Predictor.predict`` (``serve_times``);
+    (conv1 too), forward and ``Predictor.predict`` (``serve_times``),
+    ``stack`` ``fused_mlp_stack`` on the D's chain at B=32 N=2500, fp32
+    and bf16, beside ``disc_fused``'s forward (``stack_times``);
     ``bench`` also times the step's augmentation alone
     (``augment_times``). Prints one JSON line, and no result line. To compare two trees, alternate
     them within one call (A B B A): the host's share of a step moves
@@ -5961,6 +6060,13 @@ def time_alone(mode: str, root: str, card: str) -> None:
 
     from adversarial_learning_on_pointclouds_tpu_torch.ops import dispatch
 
+    if mode == "stack":
+        gen = torch.Generator().manual_seed(SEED)
+        ws, bs = disc_params(gen, "cuda")
+        times = stack_times(prob_maps(gen, B, N, "cuda"), ws, bs)
+        print(json.dumps({"root": root, "mode": mode, "card": card,
+                          **times}), flush=True)
+        return
     if mode in ("passes", "serve"):
         times = {"passes": head_passes, "serve": serve_times}[mode](card)
         print(json.dumps({"root": root, "mode": mode, "card": card,
@@ -5996,10 +6102,11 @@ def main() -> None:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--time", choices=("fp32", "bench", "pallas_train",
-                                       "passes", "serve"),
+                                       "passes", "serve", "stack"),
                     help="time the G+D step, the seg head's P1, Pmid, "
                          "P4, B1 and B4, trunk F1 and the T-Net fc layers, "
-                         "or serving, alone (no checks, no result line)")
+                         "serving, or fused_mlp_stack on the D's chain, "
+                         "alone (no checks, no result line)")
     ap.add_argument("--disc-checks", type=int, metavar="SEED",
                     help="run only the discriminator's checks of phases 9 "
                          "and 12 on data from this generator seed (no "
@@ -6051,7 +6158,7 @@ def main() -> None:
     for src in ("strided_gemm.cu", "pointwise_matmul.cu", "tnet_apply.cu",
                 "train_bwd_tc.cu", "disc_tc.cu", "encoder_fused.cu",
                 "pool_fc_epilogue.cu", "fc_head_train.cu", "shared_mlp.cu",
-                "augment_fused.cu"):
+                "augment_fused.cu", "mlp_stack.cu"):
         for label, (regs, st, ld) in ptxas_report(build, src).items():
             phase("build", f"ptxas: {src} {label}: {regs} registers, spill "
                   f"stores {st} bytes, spill loads {ld} bytes")

@@ -253,3 +253,39 @@ def test_no_source_defines_the_first_conv_and_augment_kernels():
     for entry in ("pt_augment_fused(", "pt_augment_fused_pair("):
         assert entry in aug, entry
     assert aug.count("augment_pair_kernel<<<") == 1
+
+
+# fused_mlp_stack's tensor-core kernel (mlp_stack.cu), by precision and
+# m16 tiles a warp (4: 128 rows a tile, 2: 64).
+CHAIN_TC = ("_ZN8pointtpu12_GLOBAL__N_115chain_tc_kernelILb0ELi4EEEv"
+            "NS_9StackArgsENS0_9StackPlanE")
+CHAIN_TC_64 = ("_ZN8pointtpu12_GLOBAL__N_115chain_tc_kernelILb1ELi2EEEv"
+               "NS_9StackArgsENS0_9StackPlanE")
+
+
+def test_ptxas_report_names_the_chain_kernel():
+    fake = types.SimpleNamespace(resource_usage={"mlp_stack.cu": {
+        CHAIN_TC: (168, 0, 0), CHAIN_TC_64: (128, 0, 0)}})
+    assert ptxas_report(fake, "mlp_stack.cu") == {
+        "chain_tc_kernel<0,4>": (168, 0, 0),
+        "chain_tc_kernel<1,2>": (128, 0, 0)}
+
+
+def test_no_source_defines_the_cuda_core_row_gemm():
+    """fused_mlp_stack's CUDA-core kernel is gone, and with it the row
+    GEMM that only it used: mlp_stack.cu defines the tensor-core kernel on
+    mma.cuh's fragment layer, and no source names the old kernel, the row
+    GEMM, its staging or its FMA tile."""
+    srcs = {p.name: p.read_text() for p in sorted(build.CSRC.iterdir())
+            if p.suffix in (".cu", ".cuh")}
+    gone = (r"\bstack_kernel\b", r"\bgemm_acc\b", r"\bload_tile\b",
+            r"\bwith_nj_pow2\b", r"\btile_fma\b", r"\bpad32\b",
+            r"\bkStageLd\b", r"\bkMaxCols\b")
+    assert not [(n, g) for n, text in srcs.items() for g in gone
+                if re.search(g, text)]
+    stack = srcs["mlp_stack.cu"]
+    assert '#include "mma.cuh"' in stack
+    assert "chain_tc_kernel(const __grid_constant__ StackArgs a" in stack
+    assert "mma_step<MT, 4, BF>" in stack
+    assert 'extern "C" int pt_mlp_stack(' in stack
+    assert '#include "train_gemm.cuh"' not in stack
