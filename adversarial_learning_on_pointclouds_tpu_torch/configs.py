@@ -13,11 +13,12 @@ The device is the switch between the hand-written kernels and their
 plain versions: the card (the default) runs the kernels, ``--cpu`` the
 plain PyTorch versions, so there is no ``--no_pallas`` (it raises). The
 device is not a config field (the configs' fields are the JAX package's):
-the ``parse_*_args`` functions return it beside the config, and the runners take it as an argument. Options the port does
-not run yet raise ``NotImplementedError`` naming their ROADMAP item
-(Queue 1): ``fused_epoch`` (item 5, with the CUDA graph of the K steps)
-and ``num_devices`` above 1 (item 15, data parallelism); ``remat`` is not
-ported.
+the ``parse_*_args`` functions return it beside the config, and the
+runners take it as an argument. ``num_devices`` above 1 is not run yet
+and raises ``NotImplementedError`` naming its ROADMAP item (Queue 1, item
+15, data parallelism); ``remat`` is not ported. ``fused_epoch`` is
+parsed here and refused by the runner where the JAX package's runner
+refuses it (``train/runner.py``, ``_fused_epoch_setup``).
 """
 
 from __future__ import annotations
@@ -79,7 +80,11 @@ class BaseConfig:
                                   #   and always the last
     log_lag: int = 2              # --log_lag: metric readbacks deferred by
                                   #   this many launches; 0 = synchronous
-    fused_epoch: bool = False     # not ported yet (item 5)
+    fused_epoch: bool = False     # --fused_epoch: each whole epoch (spe
+                                  #   train steps + the test eval scan)
+                                  #   in one call, one readback group
+                                  #   after it; needs device-resident
+                                  #   pools and eval_every 1
     workers: int = 0              # --workers: batches prefetched ahead
                                   #   (0 -> 2)
     device_data: bool = True      # train and test pools on the device,
@@ -88,9 +93,6 @@ class BaseConfig:
                                   #   assembled batches instead
 
     def __post_init__(self):
-        if self.fused_epoch:
-            raise _not_ported("fused_epoch (one launch per epoch)",
-                              "item 5, the CUDA graph of the K steps")
         if self.num_devices > 1:
             raise _not_ported(f"num_devices={self.num_devices}",
                               "item 15, data parallelism")
@@ -267,7 +269,9 @@ def _add_common_flags(p: argparse.ArgumentParser) -> None:
                         "default device-resident pools + on-device "
                         "batch gather ([B] index transfers only)")
     p.add_argument("--fused_epoch", action="store_true",
-                   help="not ported yet (ROADMAP Queue 1 item 5)")
+                   help="one call per epoch (the train steps + the "
+                        "eval scan) and one readback group after it; "
+                        "requires device-resident pools")
     p.add_argument("--num_devices", type=int, default=0,
                    help="0 or 1: the one device (more: ROADMAP Queue 1 "
                         "item 15)")

@@ -49,6 +49,13 @@ def _eval_indices(n: int, batch_size: int):
     return flat.reshape(s, batch_size).astype(np.int32), mask
 
 
+def _eval_plan(n: int, batch_size: int, device):
+    """``_eval_indices`` with the ``[S, B]`` plan sent to ``device``
+    (pinned, non-blocking on a card) and the mask kept on the host."""
+    idx, mask = _eval_indices(n, batch_size)
+    return to_device((idx,), device)[0], mask
+
+
 def summarize_classifier_preds(preds, labels: np.ndarray, mask: np.ndarray,
                                num_classes: int = 40) -> Dict[str, float]:
     """Host-side reduction of a ``classify.eval_scan``-shaped ``[S, B]``
@@ -64,7 +71,7 @@ def evaluate_classifier_device(model, pool_x: torch.Tensor,
                                num_classes: int = 40) -> Dict[str, float]:
     """``evaluate_classifier`` against a device-resident test pool through
     ``classify.eval_scan``: one ``[S, B]`` readback per pass."""
-    idx, mask = _eval_indices(len(labels), batch_size)
+    idx, mask = _eval_plan(len(labels), batch_size, pool_x.device)
     preds = classify.eval_scan(model, pool_x, idx)
     return summarize_classifier_preds(preds, labels, mask, num_classes)
 
@@ -149,7 +156,7 @@ def evaluate_segmenter_device(model, pool_x: torch.Tensor,
     correct-point counts) come back to the host, once per pass; the
     per-category table derives from the IoU vector and the host
     ``categories`` copy (``part_labels`` supplies point count and n)."""
-    idx, mask = _eval_indices(len(part_labels), batch_size)
+    idx, mask = _eval_plan(len(part_labels), batch_size, pool_x.device)
     outs = segment.eval_scan(model, pool_x, pool_s, pool_c, idx)
     return summarize_segmenter_outs(outs, part_labels, categories, mask)
 

@@ -14,8 +14,10 @@ restored after. It runs under ``ops.dispatch.differentiable_eval``, so
 no eval kernel launches in it, and in ``cfg.bf16``'s mixed-precision
 scope, as the JAX package's attack (bf16 matmul operands under
 ``--bf16``). The update then launches the
-classifier's training kernels as ``classify.train_step`` does. The data
-parallelism of config 5 is ROADMAP Queue 1 item 15.
+classifier's training kernels as ``classify.train_step`` does.
+``epoch_program`` runs a whole epoch, its steps and the classifier's eval
+scan, in one call (``--fused_epoch``). The data parallelism of config 5
+is ROADMAP Queue 1 item 15.
 """
 
 from __future__ import annotations
@@ -74,3 +76,7 @@ def train_step(state: state_lib.TrainState, points: torch.Tensor,
 # Device-resident-pool and K-step forms (see state_lib.gather_step_fns).
 train_step_gather, train_steps_scan_gather, train_steps_scan = \
     state_lib.gather_step_fns(train_step)
+
+# The whole epoch in one call (--fused_epoch; state_lib.epoch_program_fns),
+# evaluated by the classifier's eval scan.
+epoch_program = state_lib.epoch_program_fns(train_step, classify.eval_scan)

@@ -53,7 +53,8 @@ layer, through ``pointwise_matmul`` and ``maxpool_points``.
 
 ``train_step_gather`` and ``train_steps_scan_gather`` take the batches'
 rows from device-resident pools by index, as the runner's default data
-path does.
+path does; ``epoch_program`` runs a whole epoch, its G+D steps and G's
+eval scan, in one call (``--fused_epoch``).
 """
 
 from __future__ import annotations
@@ -72,7 +73,7 @@ from adversarial_learning_on_pointclouds_tpu_torch.models import (
 )
 from adversarial_learning_on_pointclouds_tpu_torch.ops import dispatch as ops
 from adversarial_learning_on_pointclouds_tpu_torch.train import (
-    state as state_lib,
+    segment, state as state_lib,
 )
 
 
@@ -344,3 +345,27 @@ def train_steps_scan_gather(state: state_lib.GANTrainState,
         train_step_gather(state, pool_x, pool_y, pool_u, il, iu, cfg=cfg,
                           g_tx=g_tx, d_tx=d_tx)
         for il, iu in zip(idx_l, idx_u)])
+
+
+def epoch_program(state: state_lib.GANTrainState, pool_x: torch.Tensor,
+                  pool_y: torch.Tensor, pool_u: torch.Tensor,
+                  idx_l: torch.Tensor, idx_u: torch.Tensor,
+                  te_x: torch.Tensor, te_s: torch.Tensor, te_c: torch.Tensor,
+                  te_idx: torch.Tensor, *, cfg: AdversarialConfig,
+                  g_tx: state_lib.Optimizer, d_tx: state_lib.Optimizer
+                  ) -> Tuple[Dict[str, torch.Tensor],
+                             Dict[str, torch.Tensor]]:
+    """A whole epoch in one call (``--fused_epoch``): ``spe`` G+D steps of
+    ``train_step_gather`` on the ``[spe, B]`` index tensors ``idx_l`` /
+    ``idx_u``, then ``segment.eval_scan`` of G over the device-resident
+    test pools ``te_x`` / ``te_s`` / ``te_c`` by the ``[S, B]`` plan
+    ``te_idx``, in ``cfg.bf16``'s mixed-precision scope (the JAX
+    package's ``epoch_program``). The state is updated in place; returns
+    ``(metrics [spe], eval_outs)`` on the device, for one readback group
+    after the call. Nothing inside reads the device back or copies from
+    the host."""
+    ms = train_steps_scan_gather(state, pool_x, pool_y, pool_u, idx_l,
+                                 idx_u, cfg=cfg, g_tx=g_tx, d_tx=d_tx)
+    with core.mixed_precision(enabled=cfg.bf16):
+        ev = segment.eval_scan(state.g_model, te_x, te_s, te_c, te_idx)
+    return ms, ev

@@ -21,7 +21,9 @@ rows from device-resident pools by index, and ``train_steps_scan``
 takes K stacked host batches (``--scan K``), each a loop of
 ``train_step`` (``state.gather_step_fns``). The eval forms
 (``eval_step``, ``eval_scan``) run the model's eval forward, on a card
-the encoder's serving kernels.
+the encoder's serving kernels. ``epoch_program`` runs a whole epoch,
+its steps and the eval scan, in one call (``--fused_epoch``,
+``state.epoch_program_fns``).
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ from adversarial_learning_on_pointclouds_tpu_torch.train import (
     state as state_lib,
 )
 from adversarial_learning_on_pointclouds_tpu_torch.train.segment import (
-    eval_mode,
+    check_plan, eval_mode,
 )
 
 
@@ -153,12 +155,18 @@ def eval_step(model: PointNetCls, points: torch.Tensor, labels: torch.Tensor
                 "correct": (pred == labels).sum()}
 
 
-def eval_scan(model: PointNetCls, pool_x: torch.Tensor, idx) -> torch.Tensor:
-    """The whole test pass over the ``idx [S, B]`` rows (numpy or a
-    tensor) of a device-resident pool, in eval mode (the JAX package's
-    one-launch scan, here a loop of eval forwards): the predicted class
-    ids ``[S, B]``, on the device, for one readback per pass."""
-    idx = torch.as_tensor(idx, device=pool_x.device)
+def eval_scan(model: PointNetCls, pool_x: torch.Tensor, idx: torch.Tensor
+              ) -> torch.Tensor:
+    """The whole test pass over the ``idx [S, B]`` rows (an index tensor
+    on the pool's device) of a device-resident pool, in eval mode (the
+    JAX package's one-launch scan, here a loop of eval forwards): the
+    predicted class ids ``[S, B]``, on the device, for one readback per
+    pass. Nothing is copied from or read back to the host."""
+    check_plan(idx, pool_x)
     with eval_mode(model):
         return torch.stack([model(pool_x.index_select(0, ib))[0].argmax(-1)
                             for ib in idx])
+
+
+# The whole epoch in one call (--fused_epoch; state_lib.epoch_program_fns).
+epoch_program = state_lib.epoch_program_fns(train_step, eval_scan)

@@ -16,12 +16,18 @@ on ``device`` (the card unless the caller asks for the CPU). By default
 the host sends index vectors; ``--host_data`` streams assembled batches.
 Both read the same permutation streams (``data/loader.py``), so the same
 rows reach each step. ``--scan K`` takes K steps per call on K-stacked
-batches.
+batches. ``--fused_epoch`` runs each whole epoch as one call of the
+trainer's ``epoch_program`` (its steps on the epoch's ``[spe, B]`` index
+plan, sent up as one pinned non-blocking copy before the call, then the
+test pass's eval scan), with one readback group after it: the ``[spe]``
+metrics through the logger and the ``[S, B]`` eval outputs through the
+summary. It gives the same numbers as the per-step path.
 
 How the port differs from the JAX package's runner:
 - the train steps update the state in place and return their metrics;
-- ``--fused_epoch`` raises (ROADMAP Queue 1 item 5), and there is one
-  device, so no mesh;
+- ``--fused_epoch``'s epoch is one Python call of the trainer's kernels
+  and plain ops, not one compiled program (a CUDA graph of it is ROADMAP
+  Queue 1 item 6), and there is one device, so no mesh;
 - the default ShapeNet-part fixture is in the pts layout, in a directory
   of its own (``data/shapenet_part.py``); the default ModelNet40 fixture
   is made in memory (``data/modelnet40.synthetic_modelnet``: the arrays
@@ -258,6 +264,49 @@ def _single_net_epoch(cfg, mod, state, tx, epoch, device, logger, spe,
     return step_h
 
 
+def _fused_epoch_setup(cfg, n_test: int, spe: int, device):
+    """The ``--fused_epoch`` preflight, with the JAX package's conditions
+    and words: device-resident pools, an eval every epoch and at least one
+    full train batch an epoch; then the fixed whole-test-pass eval plan,
+    ``([S, B]`` index tensor on ``device``, host validity mask``)``
+    (``eval._eval_indices``' protocol). ``(None, None)`` without the
+    flag."""
+    if not cfg.fused_epoch:
+        return None, None
+    if not cfg.device_data:
+        raise ValueError("--fused_epoch needs device-resident pools "
+                         "(drop --host_data)")
+    if cfg.eval_every > 1:
+        raise ValueError(
+            "--fused_epoch compiles the eval scan into every epoch's "
+            "launch; --eval_every is a per-step-path knob (drop one)")
+    if spe < 1:
+        raise ValueError(
+            "--fused_epoch needs at least one full train batch per "
+            f"epoch; the train pool is smaller than batch_size="
+            f"{cfg.batch_size} (drop --fused_epoch or shrink the batch)")
+    return eval_lib._eval_plan(n_test, cfg.batch_size, device)
+
+
+def _fused_single_epoch(cfg, mod, state, tx, epoch, device, logger, spe,
+                        pts_per_step, step_h, pools, te_args, te_idx):
+    """One ``--fused_epoch`` epoch of a single-network trainer: the
+    epoch's ``[spe, B]`` index plan goes to the device as one pinned
+    non-blocking copy and ``mod.epoch_program`` runs the spe steps and
+    the eval scan in one call. Returns ``(step_h, eval_outs)``; the state
+    is updated in place."""
+    pool_x, pool_y, n = pools
+    idx_np = np.stack(list(loader.host_index_iterator(
+        n, cfg.batch_size, seed=cfg.seed, epoch=epoch)))
+    (idx,) = loader.to_device((idx_np,), device)
+    ms, ev_outs = mod.epoch_program(state, pool_x, pool_y, idx, te_args,
+                                    te_idx, cfg=cfg, tx=tx)
+    k = len(idx_np)
+    step_h += k
+    logger.log_scan_steps(epoch, 0, spe, step_h, ms, k, pts_per_step)
+    return step_h, ev_outs
+
+
 def _eval_epoch(cfg, epoch: int, epochs: int) -> bool:
     """``--eval_every K``: evaluate (and emit the epoch row / feed the
     checkpoint-selection metric) on every K-th epoch and ALWAYS on the
@@ -314,19 +363,29 @@ def _run_classifier(cfg, mod, name: str, epochs: Optional[int],
     if cfg.device_data:
         (pool_te,) = loader.to_device((x_te,), device)
         pools = (*loader.to_device((x_tr, y_tr), device), len(y_tr))
+    te_idx, te_mask = _fused_epoch_setup(cfg, len(y_te), spe, device)
     with maybe_trace(cfg.profile_dir), \
             checkpoint.AsyncSaver(cfg.ckpt_policy) as saver:
         step_h = state.step
         for epoch in range(start, epochs):
             t0 = time.perf_counter()
-            step_h = _single_net_epoch(
-                cfg, mod, state, tx, epoch, device, logger, spe,
-                pts_per_step, step_h, pools=pools, arrays=(x_tr, y_tr))
-            t1 = _epoch_end(device)
-            if not _eval_epoch(cfg, epoch, epochs):
-                _skip_eval_epoch(cfg, saver, epoch, state)
-                continue
-            ev = _evaluate_classifier(cfg, state.model, pool_te, x_te, y_te)
+            if cfg.fused_epoch:
+                step_h, preds = _fused_single_epoch(
+                    cfg, mod, state, tx, epoch, device, logger, spe,
+                    pts_per_step, step_h, pools, (pool_te,), te_idx)
+                t1 = _epoch_end(device)
+                ev = eval_lib.summarize_classifier_preds(
+                    preds, y_te, te_mask, cfg.num_classes)
+            else:
+                step_h = _single_net_epoch(
+                    cfg, mod, state, tx, epoch, device, logger, spe,
+                    pts_per_step, step_h, pools=pools, arrays=(x_tr, y_tr))
+                t1 = _epoch_end(device)
+                if not _eval_epoch(cfg, epoch, epochs):
+                    _skip_eval_epoch(cfg, saver, epoch, state)
+                    continue
+                ev = _evaluate_classifier(cfg, state.model, pool_te, x_te,
+                                          y_te)
             best = max(best, ev["accuracy"])
             t2 = time.perf_counter()
             saver.save(cfg.out_dir, epoch, state, metric=ev["accuracy"])
@@ -366,21 +425,30 @@ def run_segmentation(cfg: SegmentConfig, epochs: Optional[int] = None,
     if cfg.device_data:
         pools_te = loader.to_device((x_te, s_te, c_te), device)
         pools = (*loader.to_device((x_tr, s_tr), device), len(s_tr))
+    te_idx, te_mask = _fused_epoch_setup(cfg, len(s_te), spe, device)
     with maybe_trace(cfg.profile_dir), \
             checkpoint.AsyncSaver(cfg.ckpt_policy) as saver:
         step_h = state.step
         for epoch in range(start, epochs):
             t0 = time.perf_counter()
-            step_h = _single_net_epoch(
-                cfg, segment, state, tx, epoch, device, logger, spe,
-                pts_per_step, step_h, pools=pools,
-                arrays=(x_tr, s_tr))
-            t1 = _epoch_end(device)
-            if not _eval_epoch(cfg, epoch, epochs):
-                _skip_eval_epoch(cfg, saver, epoch, state)
-                continue
-            ev, table = _evaluate(cfg, state.model, pools_te, x_te, s_te,
-                                  c_te)
+            if cfg.fused_epoch:
+                step_h, ev_outs = _fused_single_epoch(
+                    cfg, segment, state, tx, epoch, device, logger, spe,
+                    pts_per_step, step_h, pools, pools_te, te_idx)
+                t1 = _epoch_end(device)
+                ev, table = eval_lib.summarize_segmenter_outs(
+                    ev_outs, s_te, c_te, te_mask)
+            else:
+                step_h = _single_net_epoch(
+                    cfg, segment, state, tx, epoch, device, logger, spe,
+                    pts_per_step, step_h, pools=pools,
+                    arrays=(x_tr, s_tr))
+                t1 = _epoch_end(device)
+                if not _eval_epoch(cfg, epoch, epochs):
+                    _skip_eval_epoch(cfg, saver, epoch, state)
+                    continue
+                ev, table = _evaluate(cfg, state.model, pools_te, x_te,
+                                      s_te, c_te)
             best = max(best, ev["instance_miou"])
             t2 = time.perf_counter()
             saver.save(cfg.out_dir, epoch, state,
@@ -389,6 +457,72 @@ def run_segmentation(cfg: SegmentConfig, epochs: Optional[int] = None,
                              ckpt_s=time.perf_counter() - t2)
     logger.close()
     return {"best_miou": best, "state": state, "category_miou": table}
+
+
+def _adv_epoch(cfg, state, txs, epoch, device, logger, spe, pts_per_step,
+               step_h, n_lab, data, unl_stream) -> int:
+    """One per-step training epoch of config 4: the labeled stream's
+    epoch ``epoch`` of ``n_lab`` rows paired with the next batches of the
+    cycling unlabeled stream ``unl_stream``, one G+D step per pair (or K
+    per call under ``--scan K``). ``data`` is ``(pool_x, pool_y, pool_u)``
+    on the device (``unl_stream`` yields index vectors) or the labeled
+    host arrays ``(x_l, y_l)`` under ``--host_data`` (``unl_stream``
+    yields batches). Returns the new ``step_h``; the state is updated in
+    place."""
+    if cfg.device_data:
+        pool_x, pool_y, pool_u = data
+        lab_idx = loader.host_index_iterator(
+            n_lab, cfg.batch_size, seed=cfg.seed, epoch=epoch)
+        paired = zip(lab_idx, unl_stream)
+    else:
+        lab_host = loader.host_batch_iterator(
+            data, cfg.batch_size, seed=cfg.seed, epoch=epoch)
+        paired = ((xl, yl, xu) for (xl, yl), (xu,)
+                  in zip(lab_host, unl_stream))
+    bi = 0
+    for batch, stacked in loader.device_batches(
+            paired, device, k_stack=cfg.scan,
+            prefetch=_prefetch_depth(cfg)):
+        if cfg.device_data:
+            step = (adversarial.train_steps_scan_gather if stacked
+                    else adversarial.train_step_gather)
+            m = step(state, pool_x, pool_y, pool_u, *batch, **txs)
+        else:
+            step = (adversarial.train_steps_scan if stacked
+                    else adversarial.train_step)
+            m = step(state, *batch, **txs)
+        if stacked:
+            k = batch[0].shape[0]
+            step_h += k
+            logger.log_scan_steps(epoch, bi, spe, step_h, m, k,
+                                  pts_per_step)
+            bi += k
+        else:
+            step_h += 1
+            logger.log_step(epoch, bi, spe, step_h, m, pts_per_step)
+            bi += 1
+    return step_h
+
+
+def _fused_adv_epoch(cfg, state, txs, epoch, device, logger, spe,
+                     pts_per_step, step_h, n_lab, pools, unl_stream,
+                     pools_te, te_idx):
+    """One ``--fused_epoch`` epoch of config 4: the labeled stream's
+    ``[spe, B]`` plan and one ``next(unl_stream)`` a step (so the
+    unlabeled stream stands where the per-step path leaves it) go to the
+    device as pinned non-blocking copies, and ``adversarial.epoch_program``
+    runs the spe G+D steps and G's eval scan in one call. Returns
+    ``(step_h, eval_outs)``; the state is updated in place."""
+    idx_l_np = np.stack(list(loader.host_index_iterator(
+        n_lab, cfg.batch_size, seed=cfg.seed, epoch=epoch)))
+    idx_u_np = np.stack([next(unl_stream) for _ in range(len(idx_l_np))])
+    idx_l, idx_u = loader.to_device((idx_l_np, idx_u_np), device)
+    ms, ev_outs = adversarial.epoch_program(
+        state, *pools, idx_l, idx_u, *pools_te, te_idx, **txs)
+    k = len(idx_l_np)
+    step_h += k
+    logger.log_scan_steps(epoch, 0, spe, step_h, ms, k, pts_per_step)
+    return step_h, ev_outs
 
 
 def run_adversarial(cfg: AdversarialConfig, epochs: Optional[int] = None,
@@ -401,7 +535,8 @@ def run_adversarial(cfg: AdversarialConfig, epochs: Optional[int] = None,
     defines an epoch; the unlabeled stream shuffles and cycles
     independently, its position persisting across epochs (the reference's
     iterator-reset-on-StopIteration pattern). With ``cfg.scan = K > 1``,
-    K steps run per call on K-batch stacked transfers."""
+    K steps run per call on K-batch stacked transfers; with
+    ``cfg.fused_epoch`` each epoch's steps and G's eval are one call."""
     epochs = epochs if epochs is not None else cfg.epochs
     (x_tr, s_tr, c_tr), (x_te, s_te, c_te) = _shapenet_arrays(cfg)
     n_lab = max(int(len(x_tr) * cfg.labeled_ratio), cfg.batch_size)
@@ -423,10 +558,10 @@ def run_adversarial(cfg: AdversarialConfig, epochs: Optional[int] = None,
     # Infinite unlabeled stream, created ONCE (its position persists
     # across epochs, like the reference's cycled iterator); a full resume
     # advances it past the steps already taken.
-    pools_te = None
+    pools = pools_te = None
     if cfg.device_data:
-        pool_x, pool_y, pool_u = loader.to_device(
-            (x_tr[:n_lab], s_tr[:n_lab], x_unl), device)
+        pools = loader.to_device((x_tr[:n_lab], s_tr[:n_lab], x_unl),
+                                 device)
         pools_te = loader.to_device((x_te, s_te, c_te), device)
         unl_stream = loader.cycling_host_indices(
             len(x_unl), cfg.batch_size, seed=cfg.seed + 1)
@@ -436,50 +571,31 @@ def run_adversarial(cfg: AdversarialConfig, epochs: Optional[int] = None,
     next(itertools.islice(unl_stream, state.step, state.step), None)
     table: dict = {}
     txs = dict(cfg=cfg, g_tx=g_tx, d_tx=d_tx)
+    te_idx, te_mask = _fused_epoch_setup(cfg, len(s_te), spe, device)
     with maybe_trace(cfg.profile_dir), \
             checkpoint.AsyncSaver(cfg.ckpt_policy) as saver:
         step_h = state.step
         for epoch in range(start, epochs):
             t0 = time.perf_counter()
-            if cfg.device_data:
-                lab_idx = loader.host_index_iterator(
-                    n_lab, cfg.batch_size, seed=cfg.seed, epoch=epoch)
-                paired = zip(lab_idx, unl_stream)
+            if cfg.fused_epoch:
+                step_h, ev_outs = _fused_adv_epoch(
+                    cfg, state, txs, epoch, device, logger, spe,
+                    pts_per_step, step_h, n_lab, pools, unl_stream,
+                    pools_te, te_idx)
+                t1 = _epoch_end(device)
+                ev, table = eval_lib.summarize_segmenter_outs(
+                    ev_outs, s_te, c_te, te_mask)
             else:
-                lab_host = loader.host_batch_iterator(
-                    (x_tr[:n_lab], s_tr[:n_lab]), cfg.batch_size,
-                    seed=cfg.seed, epoch=epoch)
-                paired = ((xl, yl, xu) for (xl, yl), (xu,)
-                          in zip(lab_host, unl_stream))
-            bi = 0
-            for batch, stacked in loader.device_batches(
-                    paired, device, k_stack=cfg.scan,
-                    prefetch=_prefetch_depth(cfg)):
-                if cfg.device_data:
-                    step = (adversarial.train_steps_scan_gather if stacked
-                            else adversarial.train_step_gather)
-                    m = step(state, pool_x, pool_y, pool_u, *batch, **txs)
-                else:
-                    step = (adversarial.train_steps_scan if stacked
-                            else adversarial.train_step)
-                    m = step(state, *batch, **txs)
-                if stacked:
-                    k = batch[0].shape[0]
-                    step_h += k
-                    logger.log_scan_steps(epoch, bi, spe, step_h, m, k,
-                                          pts_per_step)
-                    bi += k
-                else:
-                    step_h += 1
-                    logger.log_step(epoch, bi, spe, step_h, m,
-                                    pts_per_step)
-                    bi += 1
-            t1 = _epoch_end(device)
-            if not _eval_epoch(cfg, epoch, epochs):
-                _skip_eval_epoch(cfg, saver, epoch, state)
-                continue
-            ev, table = _evaluate(cfg, state.g_model, pools_te, x_te, s_te,
-                                  c_te)
+                step_h = _adv_epoch(
+                    cfg, state, txs, epoch, device, logger, spe,
+                    pts_per_step, step_h, n_lab,
+                    pools or (x_tr[:n_lab], s_tr[:n_lab]), unl_stream)
+                t1 = _epoch_end(device)
+                if not _eval_epoch(cfg, epoch, epochs):
+                    _skip_eval_epoch(cfg, saver, epoch, state)
+                    continue
+                ev, table = _evaluate(cfg, state.g_model, pools_te, x_te,
+                                      s_te, c_te)
             best = max(best, ev["instance_miou"])
             t2 = time.perf_counter()
             saver.save(cfg.out_dir, epoch, state,

@@ -22,6 +22,8 @@ loop of ``train_step`` (``state.gather_step_fns``). The eval forms
 (``eval_step``, ``eval_scan``) run the model's eval forward, on a card
 the three serving kernels (conv1, the three stacks, the seg head), with
 the per-shape category-restricted IoU computed on the device.
+``epoch_program`` runs a whole epoch, its steps and the eval scan, in
+one call (``--fused_epoch``, ``state.epoch_program_fns``).
 """
 
 from __future__ import annotations
@@ -148,18 +150,30 @@ def eval_step(model: PointNetDenseCls, points: torch.Tensor,
                 "correct": (pred == part_labels).sum()}
 
 
+def check_plan(idx, pool_x: torch.Tensor) -> None:
+    """An eval plan must be an index tensor on the pools' device: the
+    eval scans copy nothing from the host."""
+    if not isinstance(idx, torch.Tensor) or idx.device != pool_x.device:
+        raise TypeError(f"the eval plan must be an index tensor on "
+                        f"{pool_x.device} (data.loader.to_device), got "
+                        f"{type(idx).__name__}"
+                        + (f" on {idx.device}"
+                           if isinstance(idx, torch.Tensor) else ""))
+
+
 def eval_scan(model: PointNetDenseCls, pool_x: torch.Tensor,
-              pool_y: torch.Tensor, pool_c: torch.Tensor, idx
+              pool_y: torch.Tensor, pool_c: torch.Tensor, idx: torch.Tensor
               ) -> Dict[str, torch.Tensor]:
-    """The whole test pass over the ``idx [S, B]`` rows (numpy or a
-    tensor) of device-resident pools, in eval mode (the JAX package's
-    one-launch test pass, here a loop of eval forwards): per batch the
-    rows are gathered on the device, the eval forward runs and the
-    per-shape correct-point counts and IoUs stay on the device. Returns
-    ``{"correct": [S, B], "ious": [S, B]}``, for one readback per pass;
-    every metric of the protocol (instance mIoU, point accuracy, the
-    per-category table) derives from them."""
-    idx = torch.as_tensor(idx, device=pool_x.device)
+    """The whole test pass over the ``idx [S, B]`` rows (an index tensor
+    on the pools' device) of device-resident pools, in eval mode (the JAX
+    package's one-launch test pass, here a loop of eval forwards): per
+    batch the rows are gathered on the device, the eval forward runs and
+    the per-shape correct-point counts and IoUs stay on the device.
+    Returns ``{"correct": [S, B], "ious": [S, B]}``, for one readback per
+    pass; every metric of the protocol (instance mIoU, point accuracy,
+    the per-category table) derives from them. Nothing is copied from or
+    read back to the host."""
+    check_plan(idx, pool_x)
     correct, ious = [], []
     with eval_mode(model):
         for ib in idx:
@@ -170,3 +184,7 @@ def eval_scan(model: PointNetDenseCls, pool_x: torch.Tensor,
             correct.append((pred == y).sum(-1))
             ious.append(metrics.shape_ious_device(pred, y, c))
         return {"correct": torch.stack(correct), "ious": torch.stack(ious)}
+
+
+# The whole epoch in one call (--fused_epoch; state_lib.epoch_program_fns).
+epoch_program = state_lib.epoch_program_fns(train_step, eval_scan)

@@ -1,8 +1,9 @@
 """Train states and optimizer construction.
 
 Counterpart of ``adversarial_learning_on_pointclouds_tpu/train/
-state.py`` (``TrainState``, ``GANTrainState``, ``make_optimizer`` and the gather
-step forms of ``gather_step_fns``). The
+state.py`` (``TrainState``, ``GANTrainState``, ``make_optimizer``, the
+gather step forms of ``gather_step_fns`` and the whole-epoch call of
+``epoch_program_fns``). The
 optimizer is ``torch.optim.Adam`` (eps 1e-8) or SGD with momentum 0.9;
 the learning-rate schedule is applied per optimizer step,
 as the JAX package's optax schedules are: a staircase decay by
@@ -17,6 +18,8 @@ import dataclasses
 from typing import Callable, Dict, Iterable, List, Optional
 
 import torch
+
+from adversarial_learning_on_pointclouds_tpu_torch.models import core
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,3 +159,28 @@ def gather_step_fns(train_step: Callable):
                               for x, y in zip(xs, ys)])
 
     return train_step_gather, train_steps_scan_gather, train_steps_scan
+
+
+def epoch_program_fns(train_step: Callable, eval_scan: Callable):
+    """``epoch_program(state, pool_x, pool_y, idx, te_args, te_idx, *, cfg,
+    tx)`` for a single-network trainer (``--fused_epoch``): a whole epoch
+    in one call, ``spe`` steps of ``train_step`` on the rows of the
+    ``[spe, B]`` index tensor ``idx`` gathered from the device-resident
+    pools, then ``eval_scan(state.model, *te_args, te_idx)`` over the
+    ``[S, B]`` eval plan in ``cfg.bf16``'s mixed-precision scope (the
+    runner's eval scope). The state is updated in place; returns
+    ``(metrics [spe], eval_outs)``, both on the device, for one readback
+    group after the call. Nothing inside reads the device back or copies
+    from the host, so the call holds no host sync."""
+    train_step_gather = gather_step_fns(train_step)[0]
+
+    def epoch_program(state, pool_x, pool_y, idx, te_args, te_idx, *, cfg,
+                      tx):
+        ms = stack_metrics([
+            train_step_gather(state, pool_x, pool_y, i, cfg=cfg, tx=tx)
+            for i in idx])
+        with core.mixed_precision(enabled=cfg.bf16):
+            ev = eval_scan(state.model, *te_args, te_idx)
+        return ms, ev
+
+    return epoch_program

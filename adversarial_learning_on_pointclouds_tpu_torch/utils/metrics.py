@@ -20,6 +20,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from adversarial_learning_on_pointclouds_tpu_torch.data.loader import to_device
 from adversarial_learning_on_pointclouds_tpu_torch.data.shapenet_part import (
     CATEGORY_NAMES, CATEGORY_PART_RANGES, NUM_PARTS,
 )
@@ -93,18 +94,32 @@ def category_miou_from_ious(ious: np.ndarray, categories: np.ndarray,
     }
 
 
+_RANGES: Dict[torch.device, torch.Tensor] = {}
+
+
+def _part_ranges(device: torch.device) -> torch.Tensor:
+    """``CATEGORY_PART_RANGES`` on ``device``, made once a device (on a
+    card by a non-blocking copy from pinned memory, ``loader.to_device``,
+    so no call of ``shape_ious_device`` copies from the host
+    synchronously)."""
+    if device not in _RANGES:
+        _RANGES[device] = to_device((CATEGORY_PART_RANGES,), device)[0]
+    return _RANGES[device]
+
+
 def shape_ious_device(pred_parts: torch.Tensor, gt_parts: torch.Tensor,
                       categories: torch.Tensor) -> torch.Tensor:
     """Per-shape IoU on the tensors' device (same protocol), ``[B]``
     float32.
 
-    Uses the dense ``CATEGORY_PART_RANGES`` table: for each shape, part
+    Uses the dense ``CATEGORY_PART_RANGES`` table (on the device, made
+    once there, ``_part_ranges``): for each shape, part
     slot j in [0, max_parts) maps to global part id start+j; slots beyond
     the category's part count are masked out of the mean. Each slot's IoU
     is a float32 quotient of integer counts, summed over the slots in
     order and divided by the count, as the JAX function computes it.
     """
-    ranges = torch.as_tensor(CATEGORY_PART_RANGES, device=pred_parts.device)
+    ranges = _part_ranges(pred_parts.device)
     cats = categories.long()
     start = ranges[cats, 0][:, None]                    # [B, 1]
     count = ranges[cats, 1][:, None]                    # [B, 1]

@@ -211,9 +211,17 @@ Phases, one or more lines each:
    kernels); ``eval_segmentation --model`` on the seg run reproducing its
    last eval; each epoch's train_s, eval_s and ckpt_s, eval shapes/s, an
    eval pass's host-to-host and device time, and the host's share of an
-   epoch (the resumed run's epoch 1: its wall time
-   less the device's busy time in one torch.profiler window). The phase
-   must finish within 120 s;
+   epoch (the resumed run's epoch 1, its steps and its eval: its wall
+   time less the device's busy time in one torch.profiler window); then
+   ``--fused_epoch`` beside the per-step path at ``--scan 8`` for two
+   epochs of config 3 and of config 4 with the bench flags
+   (``fused_beside_per_step``): the same launches, every step's metrics,
+   every eval pass's per-shape outputs and the final state bit-equal
+   (a difference up to ``FUSED_RTOL`` scale-relative is printed with the
+   quantity it arises in, a larger one fails), each ``epoch_program``
+   call under ``torch.cuda.set_sync_debug_mode("error")`` (a host sync
+   inside an epoch fails), each path's train_s, eval_s, ckpt_s and the
+   host's share of its last epoch. The phase must finish within 120 s;
 22. classify: the classification configs at full width (B=32, N=1024,
    40 classes; a seeded ``PointNetCls`` with random BatchNorm
    statistics), card against CPU: the config-1 and config-2
@@ -236,7 +244,10 @@ Phases, one or more lines each:
    (the JAX package's: 64 train and 32 test shapes of 2048 points, cut
    from ModelNet40's 9,843 and 2,468), their launches, and
    ``eval_classification`` and ``eval_robustness`` (eps 0) reproducing
-   each run's last eval. The phase must finish within 90 s;
+   each run's last eval; then ``--fused_epoch`` beside the per-step path
+   for configs 1, 2 and 5 as phase 21 holds configs 3 and 4 (config 1
+   two epochs, the second profiled for the host's share; configs 2 and 5
+   one). The phase must finish within 150 s;
 23. ablation: the JAX package's ablation controls and batching knobs
    (``supervised_only``, ``self_training``, ``d_geometry``,
    ``paired_conv1``, ``fused_forward``). The four disc passes at D's
@@ -4189,39 +4200,6 @@ def check_run_launches(tag, train, serve, steps, per_step, forwards):
           f"eval forwards: training {train}; serving {serve}")
 
 
-class EpochProfile:
-    """Wraps ``runner._single_net_epoch``: the epoch ``epoch`` runs inside
-    one torch.profiler window (device activity only) between two
-    synchronizations; keeps its wall time and the device's busy time."""
-
-    def __init__(self, runner_mod, epoch):
-        self.mod, self.epoch, self.fn = runner_mod, epoch, \
-            runner_mod._single_net_epoch
-        self.wall = self.busy = None
-
-    def __enter__(self):
-        from torch.profiler import ProfilerActivity, profile
-
-        def wrapped(cfg, mod, state, tx, epoch, *a, **k):
-            if epoch != self.epoch:
-                return self.fn(cfg, mod, state, tx, epoch, *a, **k)
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA],
-                         acc_events=True) as prof:
-                t0 = time.perf_counter()
-                out = self.fn(cfg, mod, state, tx, epoch, *a, **k)
-                torch.cuda.synchronize()
-                self.wall = time.perf_counter() - t0
-            self.busy = sum(_device_us(e) * 1e-6 for e in prof.key_averages()
-                            if _device_us(e) > 0)
-            return out
-        self.mod._single_net_epoch = wrapped
-        return self
-
-    def __exit__(self, *exc):
-        self.mod._single_net_epoch = self.fn
-
-
 def ious_and_logp(model, x, y, c, batch):
     """Per-shape IoUs (eval_scan) and log-probs of ``model`` on its device
     over the test split, as numpy."""
@@ -4230,7 +4208,7 @@ def ious_and_logp(model, x, y, c, batch):
 
     dev = next(model.parameters()).device
     pools = [torch.from_numpy(a).to(dev) for a in (x, y, c)]
-    idx, mask = ev._eval_indices(len(x), batch)
+    idx, mask = ev._eval_plan(len(x), batch, dev)
     ious = segment.eval_scan(model, *pools, idx)["ious"].cpu().numpy()
     with segment.eval_mode(model):
         logp = torch.cat([model(pools[0][s:s + batch])[0].cpu()
@@ -4320,6 +4298,255 @@ def short_name(kernel: str) -> str:
                   kernel)[:32]
 
 
+# --fused_epoch beside the per-step path (phases 21 and 22): the two runs'
+# metrics, eval outputs and final state must be bit-equal on one card;
+# a difference up to FUSED_RTOL (scale-relative) is printed with where it
+# arises, and a larger one fails.
+FUSED_RTOL = 1e-6
+TIMING = ("step_time_s", "points_per_sec_per_chip", "train_s", "eval_s",
+          "ckpt_s")
+
+
+@contextlib.contextmanager
+def no_sync_epochs():
+    """Each trainer's ``epoch_program`` runs under
+    ``torch.cuda.set_sync_debug_mode("error")`` for the length of its
+    call, so a host sync or a synchronous copy inside an epoch raises.
+    Yields the list of the calls made."""
+    from adversarial_learning_on_pointclouds_tpu_torch.train import (
+        adv_perturb, adversarial, classify, segment,
+    )
+
+    calls, stack = [], contextlib.ExitStack()
+    for mod in (segment, classify, adv_perturb, adversarial):
+        fn = mod.epoch_program
+
+        def guarded(*args, _fn=fn, _mod=mod.__name__, **kwargs):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = _fn(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            calls.append(_mod.rsplit(".", 1)[1])
+            return out
+
+        stack.callback(setattr, mod, "epoch_program", fn)
+        mod.epoch_program = guarded
+    with stack:
+        yield calls
+
+
+class EvalCapture:
+    """Keeps, as numpy, every eval output that reaches the runner's
+    summaries (``eval.summarize_segmenter_outs``,
+    ``summarize_classifier_preds``): the per-step path's eval scans and
+    the fused epochs' alike."""
+
+    def __init__(self):
+        from adversarial_learning_on_pointclouds_tpu_torch import (
+            eval as eval_lib,
+        )
+        self.lib, self.outs = eval_lib, []
+        self.fns = {"summarize_segmenter_outs": lambda o: o,
+                    "summarize_classifier_preds": lambda o: {"pred": o}}
+
+    def __enter__(self):
+        from adversarial_learning_on_pointclouds_tpu_torch.utils.logging \
+            import HostFetch
+
+        self.saved = {name: getattr(self.lib, name) for name in self.fns}
+        for name, as_dict in self.fns.items():
+            def kept(outs, *args, _fn=self.saved[name], _d=as_dict,
+                     **kwargs):
+                host = HostFetch(_d(outs)).get()
+                self.outs.append(host)
+                return _fn(host if "ious" in host else host["pred"], *args,
+                           **kwargs)
+            setattr(self.lib, name, kept)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.lib, name, fn)
+
+
+class EpochWindow:
+    """The run's epoch ``at`` (its training call and, on the per-step
+    path, its eval pass; the fused epoch's one call) inside one
+    torch.profiler window (device activity only) between two
+    synchronizations: its wall time and the device's busy time."""
+
+    TRAIN = ("_single_net_epoch", "_fused_single_epoch", "_adv_epoch",
+             "_fused_adv_epoch")
+    EVAL = ("_evaluate", "_evaluate_classifier")
+
+    def __init__(self, runner_mod, at):
+        self.mod, self.at, self.calls = runner_mod, at, 0
+        self.prof = self.wall = self.busy = None
+
+    def _open(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        self.prof = profile(activities=[ProfilerActivity.CUDA],
+                            acc_events=True)
+        self.prof.__enter__()
+        self.t0 = time.perf_counter()
+
+    def _close(self):
+        torch.cuda.synchronize()
+        self.wall = time.perf_counter() - self.t0
+        self.prof.__exit__(None, None, None)
+        self.busy = sum(_device_us(e) * 1e-6
+                        for e in self.prof.key_averages()
+                        if _device_us(e) > 0)
+        self.prof = None
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.mod, n) for n in self.TRAIN + self.EVAL}
+        for name in self.TRAIN:
+            def train(*args, _fn=self.saved[name],
+                      _fused=name.startswith("_fused"), **kwargs):
+                hit, self.calls = self.calls == self.at, self.calls + 1
+                if hit:
+                    self._open()
+                out = _fn(*args, **kwargs)
+                if hit and _fused:
+                    self._close()
+                return out
+            setattr(self.mod, name, train)
+        for name in self.EVAL:
+            def ev(*args, _fn=self.saved[name], **kwargs):
+                out = _fn(*args, **kwargs)
+                if self.prof is not None:
+                    self._close()
+                return out
+            setattr(self.mod, name, ev)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.mod, name, fn)
+
+    def share(self) -> str:
+        if not self.busy:
+            return "host share not measured (the profiler window recorded " \
+                   "no device activity)"
+        return (f"window {self.wall:.3f} s, device busy {self.busy:.3f} s, "
+                f"host share {1 - self.busy / self.wall:.1%}")
+
+
+def _worst(worst, name, got, ref):
+    """``worst`` updated with the scale-relative difference of ``got``
+    against ``ref`` (arrays or tensors), named ``name``."""
+    got, ref = (np.asarray(a.detach().cpu().double() if isinstance(
+        a, torch.Tensor) else a, dtype=np.float64) for a in (got, ref))
+    if got.shape != ref.shape:
+        raise AssertionError(f"{name}: shape {got.shape} != {ref.shape}")
+    d = float(np.abs(got - ref).max()) if got.size else 0.0
+    rel = d / max(float(np.abs(ref).max()) if ref.size else 0.0, 1e-30)
+    if d and rel > worst[0]:
+        worst[:] = [rel, name]
+    return worst
+
+
+def fused_beside_per_step(card, tag, run, cfg, name, counters, wrappers,
+                          profiled=True):
+    """``run(cfg)`` on the card per step and with ``--fused_epoch`` from
+    the same seed: the same launches, the metrics (every logged value of
+    every step), eval outputs (every summary's per-shape values) and
+    final state (parameters and BatchNorm statistics) bit-equal, or
+    within FUSED_RTOL with the largest difference and the quantity it
+    arises in printed; no host sync inside any ``epoch_program`` call;
+    each path's train_s, eval_s, ckpt_s and, when ``profiled``, the
+    host's share of its last epoch (``EpochWindow``: starting and stopping
+    the profiler falls in that epoch's train_s and eval_s, about 1 ms a
+    kernel launched, so such runs take two epochs and the first one's
+    times are the clean ones)."""
+    from adversarial_learning_on_pointclouds_tpu_torch.train import (
+        runner as runner_lib,
+    )
+
+    runs = {}
+    for fused in (False, True):
+        c = dataclasses.replace(cfg, fused_epoch=fused, out_dir=os.path.join(
+            cfg.out_dir, "fused" if fused else "per_step"))
+        win = EpochWindow(runner_lib, c.epochs - 1 if profiled else -1)
+        with EvalCapture() as cap, win, no_sync_epochs() as calls, \
+                redirect_stdout(io.StringIO()):
+            result, train, serve = counted_run(run, c, counters, wrappers)
+        if len(calls) != (c.epochs if fused else 0):
+            raise AssertionError(f"{tag}: epoch_program calls {calls} in "
+                                 f"{c.epochs} epochs, fused={fused}")
+        st = result["state"]
+        models = ({"G": st.g_model, "D": st.d_model}
+                  if hasattr(st, "g_model") else {"model": st.model})
+        runs[fused] = dict(
+            result=result, launches=(train, serve), outs=cap.outs,
+            win=win, calls=calls, state={
+                f"{m} {k}": v.detach().clone()
+                for m, mod in models.items()
+                for k, v in mod.state_dict().items()},
+            rows={kind: read_csv(os.path.join(c.out_dir,
+                                              f"{name}_{kind}.csv"))
+                  for kind in ("metrics", "epochs")})
+    step, fused = runs[False], runs[True]
+    if step["launches"] != fused["launches"]:
+        raise AssertionError(f"{tag}: launches per step path "
+                             f"{step['launches']}, fused {fused['launches']}")
+    worst = [0.0, None]
+    for kind in ("metrics", "epochs"):
+        a, b = fused["rows"][kind], step["rows"][kind]
+        if len(a) != len(b) or any(r.keys() != q.keys()
+                                   for r, q in zip(a, b)):
+            raise AssertionError(f"{tag}: {kind} rows differ in shape")
+        for key in a[0]:
+            if key not in TIMING:
+                _worst(worst, f"{kind} {key}", [float(r[key]) for r in a],
+                       [float(r[key]) for r in b])
+    if len(fused["outs"]) != len(step["outs"]):
+        raise AssertionError(f"{tag}: {len(fused['outs'])} eval passes "
+                             f"fused, {len(step['outs'])} per step")
+    for e, (a, b) in enumerate(zip(fused["outs"], step["outs"])):
+        for key in b:
+            _worst(worst, f"epoch {e} eval {key}", a[key], b[key])
+    for key, ref in step["state"].items():
+        _worst(worst, key, fused["state"][key], ref)
+    n_steps = len(step["rows"]["metrics"])
+    what = (f"{n_steps} steps' metrics, {len(step['outs'])} eval passes' "
+            f"outputs, {len(step['state'])} tensors of the final state")
+    if worst[1] is None:
+        phase(tag, f"--fused_epoch against the per-step path (--scan "
+              f"{cfg.scan}): {what} bit-equal; launches equal "
+              f"({fused['launches'][0]})")
+    else:
+        phase(tag, f"--fused_epoch against the per-step path (--scan "
+              f"{cfg.scan}): {what}: largest scale-relative difference "
+              f"{worst[0]:.3e} in {worst[1]} (bound {FUSED_RTOL:g})")
+        if worst[0] > FUSED_RTOL:
+            raise AssertionError(f"{tag}: the fused epoch differs by "
+                                 f"{worst[0]:.3e} in {worst[1]}")
+    phase(tag, f"{len(fused['calls'])} {fused['calls'][0]}.epoch_program "
+          "calls under torch.cuda.set_sync_debug_mode('error'): no host "
+          "sync inside an epoch")
+    spe = n_steps // len(step["rows"]["epochs"])
+    for label, r in (("per step", step), ("fused", fused)):
+        for row in r["rows"]["epochs"]:
+            last = profiled and row is r["rows"]["epochs"][-1]
+            phase(tag, f"{card}: {label} epoch {row['epoch']} ({spe} "
+                  f"steps{', profiled' if last else ''}): train_s "
+                  f"{float(row['train_s']):.3f}, eval_s "
+                  f"{float(row['eval_s']):.3f}, ckpt_s "
+                  f"{float(row['ckpt_s']):.3f}")
+        if profiled:
+            phase(tag, f"{card}: {label}, the last epoch: "
+                  f"{r['win'].share()}")
+    return {label: [{k: float(row[k]) for k in ("train_s", "eval_s",
+                                                "ckpt_s")}
+                    for row in r["rows"]["epochs"]]
+            for label, r in (("per_step", step), ("fused", fused))}
+
+
 def runner_phase(dev, card):
     """Phase 21."""
     from adversarial_learning_on_pointclouds_tpu_torch import (
@@ -4404,7 +4631,7 @@ def runner_phase(dev, card):
         os.makedirs(first)
         os.rename(os.path.join(seg_out, "0"), os.path.join(first, "0"))
         res_out = os.path.join(tmp, "resumed")
-        with EpochProfile(runner_lib, 1) as prof, \
+        with EpochWindow(runner_lib, 0) as prof, \
                 redirect_stdout(io.StringIO()):
             resumed = runner_lib.run_segmentation(dataclasses.replace(
                 base, out_dir=res_out, resume=first, resume_full=True),
@@ -4414,10 +4641,9 @@ def runner_phase(dev, card):
                      RESUME_RTOL)
         if resumed["state"].step != steps:
             raise AssertionError("the resumed run's step count")
-        phase("runner", f"{card}: epoch 1 again in one torch.profiler "
-              f"window (device activity only): wall {prof.wall:.3f} s, "
-              f"device busy {prof.busy:.3f} s, the host's share "
-              f"{1 - prof.busy / prof.wall:.1%} ({spe} steps, "
+        phase("runner", f"{card}: epoch 1 again, its steps and its eval, in "
+              f"one torch.profiler window (device activity only): "
+              f"{prof.share()} ({spe} steps, "
               f"{prof.wall / spe * 1e3:.2f} ms a step)")
 
         # 4. --host_data against device pools (epoch 0).
@@ -4476,6 +4702,17 @@ def runner_phase(dev, card):
         if abs(ev_cli["instance_miou"] - last) > 1e-6 or \
                 line != f"instance mIoU: {last:.4f}":
             raise AssertionError("the eval CLI does not reproduce the run")
+
+        # 7. --fused_epoch beside the per-step path at --scan 8, two
+        # epochs each: config 3, config 4 with the bench flags.
+        fused_beside_per_step(
+            card, "runner", runner_lib.run_segmentation, dataclasses.replace(
+                base, out_dir=os.path.join(tmp, "seg_fused"), scan=BENCH_K,
+                ckpt_policy="none"), "seg", counters, wrappers)
+        fused_beside_per_step(
+            card, "runner", runner_lib.run_adversarial, dataclasses.replace(
+                acfg, out_dir=os.path.join(tmp, "adv_fused"), epochs=2,
+                ckpt_policy="none"), "adv", counters, wrappers)
     spent = time.perf_counter() - t_phase
     phase("runner", f"{card}: the runner phase took {spent:.1f} s (budget "
           f"{RUNNER_BUDGET_S:g} s)")
@@ -4485,7 +4722,9 @@ def runner_phase(dev, card):
 
 # Phase 22: the classification configs (1, 2 and 5) end to end.
 CLS_N, CLASSES = 1024, 40
-CLS_BUDGET_S = 90.0
+# 90 s before the fused epochs' six runs (about 60 s on an H100 host, a
+# profiled 76-step epoch of each path among them; the phase took 128 s).
+CLS_BUDGET_S = 150.0
 # The runners' in-memory ModelNet40 fixture: a quarter of ModelNet40's
 # 9,843 train and 2,468 test shapes, at its schema (2048 points a shape,
 # 40 classes), so that the phase fits its budget on a slow host: 76
@@ -5067,6 +5306,46 @@ def cls_runners(card):
     return out
 
 
+def cls_fused(card):
+    """``--fused_epoch`` beside the per-step path at ``--scan 8`` on the
+    runners' ModelNet40 fixture (``fused_beside_per_step``): config 1 for
+    two epochs, the second profiled (the host's share of both paths);
+    configs 2 (``--feature_transform --augment``) and 5 for one, not
+    profiled (a profiled 76-step epoch costs the phase about 12 s)."""
+    from adversarial_learning_on_pointclouds_tpu_torch.configs import (
+        AdvPerturbConfig, ClassifyConfig,
+    )
+    from adversarial_learning_on_pointclouds_tpu_torch.data.modelnet40 import (
+        synthetic_modelnet,
+    )
+    from adversarial_learning_on_pointclouds_tpu_torch.train import (
+        runner as runner_lib,
+    )
+
+    counters, wrappers = adv_counters(), serve_wrappers()
+    out = {}
+    fixture = contextlib.ExitStack()
+    fixture.callback(setattr, runner_lib, "synthetic_modelnet",
+                     runner_lib.synthetic_modelnet)
+    runner_lib.synthetic_modelnet = lambda: synthetic_modelnet(*CLS_FIXTURE)
+    with fixture, tempfile.TemporaryDirectory() as tmp:
+        kw = dict(num_points=CLS_N, epochs=1, quiet=True, scan=BENCH_K,
+                  ckpt_policy="none")
+        for config, run, cfg, name in (
+                ("1", runner_lib.run_classification, ClassifyConfig(
+                    **{**kw, "epochs": 2}), "cls"),
+                ("2", runner_lib.run_classification, ClassifyConfig(
+                    feature_transform=True, augment=True, **kw), "cls"),
+                ("5", runner_lib.run_adv_perturb, AdvPerturbConfig(**kw),
+                 "advp")):
+            cfg = dataclasses.replace(cfg, out_dir=os.path.join(tmp, config))
+            phase("classify", f"config {config}: {run.__name__}")
+            out[config] = fused_beside_per_step(
+                card, "classify", run, cfg, name, counters, wrappers,
+                profiled=config == "1")
+    return out
+
+
 def classify_phase(dev, card):
     """Phase 22."""
     t0 = time.perf_counter()
@@ -5074,6 +5353,7 @@ def classify_phase(dev, card):
     times = cls_steps(card, gen)
     times.update(cls_eval_and_infer(card, gen))
     times["runners"] = cls_runners(card)
+    times["fused"] = cls_fused(card)
     spent = time.perf_counter() - t0
     phase("classify", f"{card}: the classification phase took {spent:.1f} s "
           f"(budget {CLS_BUDGET_S:g} s)")

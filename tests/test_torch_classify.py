@@ -492,7 +492,10 @@ def test_run_classification_resumes_bit_for_bit(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("parse,flags,err,match", [
-    (parse_classify_args, ["--fused_epoch"], NotImplementedError, "item 5"),
+    # Accepted since the fused epoch is ported (the runner refuses what
+    # the JAX package's refuses); the id is the one it had when it raised.
+    pytest.param(parse_classify_args, ["--fused_epoch"], None, "fused_epoch",
+                 id="parse_classify_args-flags0-NotImplementedError-item 5"),
     (parse_classify_args, ["--num_devices", "2"], NotImplementedError,
      "item 15"),
     (parse_adv_perturb_args, ["--num_devices", "4"], NotImplementedError,
@@ -500,6 +503,9 @@ def test_run_classification_resumes_bit_for_bit(tmp_path, capsys):
     (parse_adv_perturb_args, ["--no_pallas"], ValueError, "--cpu"),
 ])
 def test_flags_that_raise(parse, flags, err, match):
+    if err is None:   # accepted: ``match`` names the field it sets
+        assert getattr(parse(flags)[0], match) is True
+        return
     with pytest.raises(err, match=match):
         parse(flags)
 

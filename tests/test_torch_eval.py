@@ -166,7 +166,7 @@ def test_eval_scan_matches_jax(models, test_split):
         ref_logp = np.asarray(apply_segmenter(params, state, jnp.asarray(x),
                                               train=False)[0])
     got = segment.eval_scan(model, torch.from_numpy(x), torch.from_numpy(y),
-                            torch.from_numpy(c), idx)
+                            torch.from_numpy(c), torch.from_numpy(idx))
     assert set(got) == {"correct", "ious"}
     assert tuple(got["ious"].shape) == idx.shape
     shape_ties = _ties(ref_logp).any(-1)[idx]           # [S, B]

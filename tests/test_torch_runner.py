@@ -242,11 +242,18 @@ def test_profile_dir_writes_a_trace(root, tmp_path):
 
 @pytest.mark.parametrize("argv,error,match", [
     (["--no_pallas"], ValueError, "--cpu"),
-    (["--fused_epoch"], NotImplementedError, "item 5"),
+    # Accepted since the fused epoch is ported (the runner refuses what
+    # the JAX package's refuses); the id is the one it had when it raised.
+    pytest.param(["--fused_epoch"], None, "fused_epoch",
+                 id="argv1-NotImplementedError-item 5"),
     (["--num_devices", "4"], NotImplementedError, "item 15"),
     (["--remat"], NotImplementedError, "not ported"),
 ])
 def test_flags_the_port_cannot_honour_raise(argv, error, match):
+    if error is None:   # accepted: ``match`` names the field it sets
+        assert getattr(parse_adversarial_args(argv)[0], match) is True
+        assert getattr(parse_segment_args(argv)[0], match) is True
+        return
     with pytest.raises(error, match=match):
         parse_adversarial_args(argv)
     with pytest.raises(error, match=match):
