@@ -28,7 +28,7 @@ classification configs end to end: the PointNet classifier
 modelnet40.py``, its synthetic fixture in memory) by ``train/
 classify.py`` (configs 1 and 2) and, with FGSM/PGD perturbations of the
 input (``attacks.py``, the eval forward differentiated under
-``ops.dispatch.differentiable_eval``), by ``train/adv_perturb.py``
+``ops.dispatch.use_kernels(False)``), by ``train/adv_perturb.py``
 (config 5), its accuracy and robustness evals (``eval.py``) and serving
 (``infer.py --model cls``).
 

@@ -11,7 +11,7 @@ either on a classifier's eval-mode loss: config 5's training step and
 the robustness eval both call it.
 
 The attacks run the model's eval forward (BN running statistics,
-nothing updated) under ``ops.dispatch.differentiable_eval``, where the
+nothing updated) under ``ops.dispatch.use_kernels(False)``, where the
 eval-mode blocks take their plain versions, which autograd can
 differentiate: the JAX package's attack runs its XLA path under
 ``use_pallas(False)`` for the same reason (its eval kernels have no
@@ -30,9 +30,9 @@ from adversarial_learning_on_pointclouds_tpu_torch.ops import dispatch
 
 def input_grad(loss_fn: Callable[[torch.Tensor], torch.Tensor],
                points: torch.Tensor) -> torch.Tensor:
-    """``dL/dx`` at ``points`` (detached), under ``differentiable_eval``."""
+    """``dL/dx`` at ``points`` (detached), under ``use_kernels(False)``."""
     x = points.detach().requires_grad_(True)
-    with torch.enable_grad(), dispatch.differentiable_eval():
+    with torch.enable_grad(), dispatch.use_kernels(False):
         (g,) = torch.autograd.grad(loss_fn(x), x)
     return g
 

@@ -14,9 +14,10 @@ plain versions: the card (the default) runs the kernels, ``--cpu`` the
 plain PyTorch versions, so there is no ``--no_pallas`` (it raises). The
 device is not a config field (the configs' fields are the JAX package's):
 the ``parse_*_args`` functions return it beside the config, and the
-runners take it as an argument. ``num_devices`` above 1 is not run yet
-and raises ``NotImplementedError`` naming its ROADMAP item (Queue 1, item
-15, data parallelism); ``remat`` is not ported. ``fused_epoch`` is
+runners take it as an argument. ``num_devices`` is the data-parallel
+world size (``parallel/dist.resolve_world``: 0 every visible card, one
+rank on the CPU; above the visible cards it raises on CUDA; on the CPU W
+gloo ranks), which the trainer CLIs spawn; ``remat`` is not ported. ``fused_epoch`` is
 parsed here and refused by the runner where the JAX package's runner
 refuses it (``train/runner.py``, ``_fused_epoch_setup``).
 """
@@ -26,11 +27,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 from typing import Optional, Tuple
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP, Queue 1, "
-                               f"{item})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,7 +67,8 @@ class BaseConfig:
     bf16: bool = False            # mixed precision: bf16 matmul operands,
                                   #   fp32 sums (core.mixed_precision)
     remat: bool = False           # not ported (a TPU memory knob)
-    num_devices: int = 0          # 0 or 1: the one device; more is item 15
+    num_devices: int = 0          # data-parallel ranks: 0 every visible
+                                  #   card (one rank on the CPU)
     profile_dir: Optional[str] = None  # --profile_dir (torch.profiler trace)
     quiet: bool = False           # --quiet (reference-style stdout)
     ckpt_policy: str = "every"    # --ckpt_policy {every, latest, best, none}
@@ -93,9 +90,8 @@ class BaseConfig:
                                   #   assembled batches instead
 
     def __post_init__(self):
-        if self.num_devices > 1:
-            raise _not_ported(f"num_devices={self.num_devices}",
-                              "item 15, data parallelism")
+        if self.num_devices < 0:
+            raise ValueError(f"num_devices {self.num_devices} is negative")
         if self.remat:
             raise NotImplementedError(
                 "remat is not ported (a TPU memory knob, measured slower "
@@ -174,8 +170,8 @@ class AdversarialConfig(SegmentConfig):
 
 @dataclasses.dataclass(frozen=True)
 class AdvPerturbConfig(BaseConfig):
-    """Config 5: FGSM perturbation training (its data-parallel half is
-    ROADMAP Queue 1 item 15: ``num_devices`` above 1 raises)."""
+    """Config 5: FGSM perturbation training (its attack is per cloud, so
+    under data parallelism each rank attacks its own rows)."""
 
     num_classes: int = 40
     dropout: float = 0.3
@@ -273,8 +269,9 @@ def _add_common_flags(p: argparse.ArgumentParser) -> None:
                         "eval scan) and one readback group after it; "
                         "requires device-resident pools")
     p.add_argument("--num_devices", type=int, default=0,
-                   help="0 or 1: the one device (more: ROADMAP Queue 1 "
-                        "item 15)")
+                   help="data-parallel ranks, spawned by this CLI: 0 = "
+                        "every visible card (one rank with --cpu); with "
+                        "--cpu, W gloo ranks")
 
 
 def add_cpu_flag(p: argparse.ArgumentParser) -> None:

@@ -8,7 +8,10 @@
 // The bits: the TPU kernel seeds the on-core generator per cloud and draws
 // in order; there is no such generator here, so every bit is
 // Philox4x32-10 (Random123's generator, written out below) keyed by (key,
-// 0) at counter (point, cloud, draw, 0): draw 0 of a point gives its three
+// 0) at counter (point, cloud, draw, 0), cloud the global cloud index
+// cloud0 + b (cloud0 is 0 on one device; a data-parallel rank passes its
+// first row's index in the global batch and draws what one device draws
+// for its clouds): draw 0 of a point gives its three
 // jitter u1 and its dropout u, draw 1 its three u2, draw 2 of point 0 the
 // cloud's angle and dropout ratio. The key is itself a Philox word, at
 // counter (step, stream, 0, 0) keyed by the config seed, derived on the
@@ -110,11 +113,12 @@ __device__ __forceinline__ float normal(unsigned b1, unsigned b2) {
                    cosf(__fmul_rn(kTwoPi, uniform(b2))));
 }
 
-// One stream of a launch: x and out [batch, n, 3], its stream id.
+// One stream of a launch: x and out [batch, n, 3], its stream id and the
+// global index of its first cloud.
 struct AugStream {
   const float* x;
   float* out;
-  unsigned which;
+  unsigned which, cloud0;
   int batch, n;
 };
 
@@ -128,16 +132,16 @@ struct AugArgs {
 
 // Point q of cloud b's draws: its clipped jitter noise and its dropout u
 // (1 when no bit is drawn for it).
-__device__ __forceinline__ void draw_point(int b, int q, int flags,
+__device__ __forceinline__ void draw_point(unsigned b, int q, int flags,
                                            float sigma, float clip,
                                            unsigned key, float noise[3],
                                            float& u_drop) {
   u_drop = 1.f;
   if (!(flags & (kJitter | kDropout))) return;
-  const Words d0 = philox((unsigned)q, (unsigned)b, 0u, 0u, key, 0u);
+  const Words d0 = philox((unsigned)q, b, 0u, 0u, key, 0u);
   u_drop = uniform(d0.w[3]);
   if (!(flags & kJitter)) return;
-  const Words d1 = philox((unsigned)q, (unsigned)b, 1u, 0u, key, 0u);
+  const Words d1 = philox((unsigned)q, b, 1u, 0u, key, 0u);
 #pragma unroll
   for (int j = 0; j < 3; ++j)
     noise[j] = fminf(fmaxf(__fmul_rn(sigma, normal(d0.w[j], d1.w[j])), -clip),
@@ -181,6 +185,7 @@ augment_pair_kernel(const AugArgs a) {
   const AugStream st = blockIdx.z ? a.s[1] : a.s[0];
   const int b = blockIdx.y, q0 = blockIdx.x * kAugTile;
   if (b >= st.batch || q0 >= st.n) return;   // the other stream's extent
+  const unsigned cloud = st.cloud0 + (unsigned)b;   // the counter's word
   const int pts = min(kAugTile, st.n - q0);
   __shared__ __align__(16) float tile[kAugTile * 3];
   __shared__ unsigned key_s;
@@ -198,22 +203,22 @@ augment_pair_kernel(const AugArgs a) {
   const int flags = a.flags, p = threadIdx.x;
   float noise[3], u_drop = 1.f;
   if (!cloud_warp) {
-    draw_point(b, q0 + p, flags, a.sigma, a.clip, key, noise, u_drop);
+    draw_point(cloud, q0 + p, flags, a.sigma, a.clip, key, noise, u_drop);
   } else if (p == kAugTile) {
-    const Words cloud = philox(0u, (unsigned)b, 2u, 0u, key, 0u);
+    const Words draw = philox(0u, cloud, 2u, 0u, key, 0u);
     float c = 1.f, s = 0.f;
     if (flags & kRotate) {
-      const float angle = __fmul_rn(uniform(cloud.w[0]), kTwoPi);
+      const float angle = __fmul_rn(uniform(draw.w[0]), kTwoPi);
       c = cosf(angle);
       s = sinf(angle);
     }
     cloud_s[0] = c;
     cloud_s[1] = s;
     if (flags & kDropout) {
-      cloud_s[2] = __fmul_rn(uniform(cloud.w[1]), a.max_ratio);
+      cloud_s[2] = __fmul_rn(uniform(draw.w[1]), a.max_ratio);
       const float* p0 = st.x + (size_t)b * st.n * 3;
       float v[3] = {__ldg(p0), __ldg(p0 + 1), __ldg(p0 + 2)}, n0[3], u0;
-      draw_point(b, 0, flags, a.sigma, a.clip, key, n0, u0);
+      draw_point(cloud, 0, flags, a.sigma, a.clip, key, n0, u0);
       place(v, flags, c, s, n0);
       cloud_s[3] = v[0];
       cloud_s[4] = v[1];
@@ -256,16 +261,17 @@ int launch_augment(const AugArgs& a, int streams, int device,
 }  // namespace pointtpu
 
 // out = augment(x [batch, n, 3]) of stream `which` at the int64 step
-// count *step, keyed by the config seed; flags: 1 rotate, 2 jitter, 4
-// dropout.
+// count *step, keyed by the config seed, its rows the global clouds
+// cloud0 ..; flags: 1 rotate, 2 jitter, 4 dropout.
 extern "C" int pt_augment_fused(const float* x, float* out,
                                 const long long* step, unsigned seed,
-                                unsigned which, int batch, int n, int flags,
-                                float sigma, float clip, float max_ratio,
-                                int device, cudaStream_t stream) {
+                                unsigned which, unsigned cloud0, int batch,
+                                int n, int flags, float sigma, float clip,
+                                float max_ratio, int device,
+                                cudaStream_t stream) {
   using namespace pointtpu;
-  const AugArgs a{{{x, out, which, batch, n}, {}}, step, seed, flags, sigma,
-                  clip, max_ratio};
+  const AugArgs a{{{x, out, which, cloud0, batch, n}, {}}, step, seed, flags,
+                  sigma, clip, max_ratio};
   return launch_augment(a, 1, device, stream);
 }
 
@@ -275,12 +281,14 @@ extern "C" int pt_augment_fused(const float* x, float* out,
 extern "C" int pt_augment_fused_pair(const float* x0, const float* x1,
                                      float* out0, float* out1,
                                      const long long* step, unsigned seed,
+                                     unsigned cloud0_0, unsigned cloud0_1,
                                      int batch0, int n0, int batch1, int n1,
                                      int flags, float sigma, float clip,
                                      float max_ratio, int device,
                                      cudaStream_t stream) {
   using namespace pointtpu;
-  const AugArgs a{{{x0, out0, 0u, batch0, n0}, {x1, out1, 1u, batch1, n1}},
+  const AugArgs a{{{x0, out0, 0u, cloud0_0, batch0, n0},
+                   {x1, out1, 1u, cloud0_1, batch1, n1}},
                   step, seed, flags, sigma, clip, max_ratio};
   return launch_augment(a, 2, device, stream);
 }

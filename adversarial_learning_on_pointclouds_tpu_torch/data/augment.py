@@ -10,6 +10,16 @@ under ``cfg.pallas_augment`` the last three are one ``augment_fused``
 pass keyed by Philox of the device step count instead of the generator,
 and ``chain_pair_from_cfg`` makes that one launch for both streams of a
 step.
+
+At world size above 1 (``parallel/dist.py``) every rank draws what one
+device draws for the global batch and keeps its part, so the ranks
+together augment as one device does and every rank's generator advances
+alike: the draws take ``dist.draw_shape`` and ``dist.own_draw``, its rows
+under data parallelism, its points under point sharding; ``augment_fused``
+takes the rank's first global cloud index (``cloud0``). Under point
+sharding a cloud's centroid and scale are every rank's, a dropped point
+takes the cloud's first point from rank 0, and a resample (which would
+draw from every rank's points) and ``augment_fused`` raise.
 """
 
 from __future__ import annotations
@@ -22,6 +32,7 @@ import torch
 from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
     augment_fused,
 )
+from adversarial_learning_on_pointclouds_tpu_torch.parallel import dist
 
 
 def normalize_unit_sphere_np(points: np.ndarray) -> np.ndarray:
@@ -36,7 +47,14 @@ def normalize_unit_sphere_np(points: np.ndarray) -> np.ndarray:
 
 def normalize_unit_sphere(points: torch.Tensor) -> torch.Tensor:
     """Center each cloud at its centroid and divide by its largest point
-    norm."""
+    norm (both over every rank's points under point sharding)."""
+    if dist.points_sharded():
+        total = dist.all_reduce_(points.sum(dim=-2, keepdim=True), "sum",
+                                 "stats")
+        centered = points - total / dist.global_points(points.shape[-2])
+        scale = dist.all_reduce_max(torch.linalg.norm(
+            centered, dim=-1, keepdim=True).amax(dim=-2, keepdim=True))
+        return centered / torch.clamp(scale, min=1e-12)
     centered = points - points.mean(dim=-2, keepdim=True)
     scale = torch.linalg.norm(centered, dim=-1, keepdim=True).amax(
         dim=-2, keepdim=True)
@@ -47,9 +65,13 @@ def resample_fixed_n(gen: torch.Generator, points: torch.Tensor,
                      num_points: int, labels: torch.Tensor | None = None):
     """``num_points`` indices per cloud, drawn with replacement; per-point
     ``labels`` ride the same gather."""
+    if dist.points_sharded():
+        raise ValueError("a resample draws from every rank's points: it "
+                         "cannot run under point sharding (give clouds of "
+                         "num_points points, or resample=False)")
     b, n = points.shape[0], points.shape[1]
-    idx = torch.randint(0, n, (b, num_points), generator=gen,
-                        device=points.device)
+    idx = dist.own_draw(torch.randint(0, n, dist.draw_shape((b, num_points)),
+                                      generator=gen, device=points.device))
     gathered = torch.gather(points, 1, idx[..., None].expand(-1, -1, 3))
     if labels is None:
         return gathered
@@ -60,8 +82,9 @@ def random_rotate(gen: torch.Generator, points: torch.Tensor) -> torch.Tensor:
     """A uniform rotation about the up (Y) axis, one angle per cloud:
     ``[[c, 0, s], [0, 1, 0], [-s, 0, c]]`` applied as ``points @ R``."""
     b = points.shape[0]
-    angle = torch.rand(b, generator=gen, device=points.device,
-                       dtype=points.dtype) * (2.0 * math.pi)
+    angle = dist.own_draw(torch.rand(
+        dist.draw_shape((b,)), generator=gen, device=points.device,
+        dtype=points.dtype)) * (2.0 * math.pi)
     c, s = torch.cos(angle), torch.sin(angle)
     zeros, ones = torch.zeros_like(c), torch.ones_like(c)
     rot = torch.stack([torch.stack([c, zeros, s], -1),
@@ -73,22 +96,29 @@ def random_rotate(gen: torch.Generator, points: torch.Tensor) -> torch.Tensor:
 def jitter(gen: torch.Generator, points: torch.Tensor, sigma: float = 0.01,
            clip: float = 0.05) -> torch.Tensor:
     """Gaussian per-point noise of std ``sigma``, clipped to ``+-clip``."""
-    noise = sigma * torch.randn(points.shape, generator=gen,
-                                device=points.device, dtype=points.dtype)
+    noise = sigma * dist.own_draw(torch.randn(
+        dist.draw_shape(points.shape, per_point=True), generator=gen,
+        device=points.device, dtype=points.dtype), per_point=True)
     return points + torch.clamp(noise, -clip, clip)
 
 
 def point_dropout(gen: torch.Generator, points: torch.Tensor,
                   max_dropout_ratio: float = 0.875) -> torch.Tensor:
     """Per cloud a ratio ``r ~ U(0, max)``; each point is dropped with
-    probability ``r`` and replaced by the cloud's first point."""
+    probability ``r`` and replaced by the cloud's first point (rank 0's,
+    broadcast, under point sharding)."""
     b, n, _ = points.shape
-    ratio = torch.rand((b, 1), generator=gen, device=points.device,
-                       dtype=points.dtype) * max_dropout_ratio
-    u = torch.rand((b, n), generator=gen, device=points.device,
-                   dtype=points.dtype)
+    ratio = dist.own_draw(torch.rand(
+        dist.draw_shape((b, 1)), generator=gen, device=points.device,
+        dtype=points.dtype)) * max_dropout_ratio
+    u = dist.own_draw(torch.rand(
+        dist.draw_shape((b, n), per_point=True), generator=gen,
+        device=points.device, dtype=points.dtype), per_point=True)
     drop = (u <= ratio)[..., None]
-    return torch.where(drop, points[:, :1, :], points)
+    first = points[:, :1, :]
+    if dist.points_sharded():
+        first = dist.broadcast_(first.contiguous(), 0, "broadcast")
+    return torch.where(drop, first, points)
 
 
 def augment_batch(gen: torch.Generator, points: torch.Tensor,
@@ -118,11 +148,22 @@ def _fused_path(cfg) -> bool:
     return cfg.pallas_augment and (cfg.augment or cfg.point_dropout)
 
 
+def _cloud0(points: torch.Tensor) -> int:
+    """The rank's first global cloud index of its rows of ``points``, as
+    ``augment_fused`` counts clouds (0 at world size 1); under point
+    sharding the fused pass (whose bits are per point index) raises."""
+    if dist.points_sharded():
+        raise ValueError("augment_fused draws by point index: it does not "
+                         "run under point sharding (drop pallas_augment)")
+    return dist.rank() * points.shape[0]
+
+
 def _prepare(gen: torch.Generator, cfg, points: torch.Tensor,
              labels: torch.Tensor | None):
     """Normalize and resample as the fused path's chain does them, the
     rest left to ``augment_fused``: ``(points, labels)``."""
-    resample = cfg.resample and points.shape[1] != cfg.num_points
+    resample = (cfg.resample
+                and dist.global_points(points.shape[1]) != cfg.num_points)
     out = augment_batch(gen, points, labels, num_points=cfg.num_points,
                         normalize=cfg.normalize, resample=resample,
                         rotate=False, do_jitter=False)
@@ -148,9 +189,11 @@ def chain_from_cfg(gen: torch.Generator, cfg, points: torch.Tensor,
         points, labels = _prepare(gen, cfg, points, labels)
         points = augment_fused.augment_fused(
             step, points.contiguous(), cfg.seed, stream, rotate=cfg.augment,
-            jitter=cfg.augment, dropout=cfg.point_dropout)
+            jitter=cfg.augment, dropout=cfg.point_dropout,
+            cloud0=_cloud0(points))
         return points if labels is None else (points, labels)
-    resample = cfg.resample and points.shape[1] != cfg.num_points
+    resample = (cfg.resample
+                and dist.global_points(points.shape[1]) != cfg.num_points)
     return augment_batch(
         gen, points, labels, num_points=cfg.num_points,
         normalize=cfg.normalize, resample=resample,
@@ -176,6 +219,7 @@ def chain_pair_from_cfg(gen: torch.Generator, cfg, a, b,
     (pa, la), (pb, lb) = (_prepare(gen, cfg, *pl) for pl in (a, b))
     pa, pb = augment_fused.augment_fused_pair(
         step, pa.contiguous(), pb.contiguous(), cfg.seed, rotate=cfg.augment,
-        jitter=cfg.augment, dropout=cfg.point_dropout)
+        jitter=cfg.augment, dropout=cfg.point_dropout,
+        cloud0=(_cloud0(pa), _cloud0(pb)))
     return tuple(p if lab is None else (p, lab)
                  for p, lab in ((pa, la), (pb, lb)))

@@ -6,7 +6,7 @@ split under an attack at each of ``--epsilons`` (``--pgd_steps`` 0:
 FGSM, else PGD with that many steps), the ragged last batch masked. The
 checkpoint and the split are read as ``eval_classification`` reads them;
 ``eps=0`` reproduces its clean accuracy. The attack's forward runs the
-plain versions (``ops.dispatch.differentiable_eval``), the clean and
+plain versions (``ops.dispatch.use_kernels(False)``), the clean and
 attacked evals the serving kernels on the card.
 
     python -m adversarial_learning_on_pointclouds_tpu_torch.eval_robustness \\

@@ -13,6 +13,14 @@ the JAX package's channel-last layout (``[B, N, C]``, weights used as
   in place (``eps = 1e-5``, momentum 0.1).
 * Dropout (``dropout``) is inverted, its mask drawn from an explicit
   generator.
+* Data parallelism (``parallel/dist.py``): at world size W > 1 every
+  batch statistic is the global batch's. ``batch_norm_train`` and
+  ``batch_norm_train_grouped`` all-reduce their centred sums before the
+  moments (the centre, the running mean, is the same on every rank) and
+  count the global values; ``batch_moments`` and ``update_running`` take
+  the global sums and count from their callers; ``dropout_mask`` draws
+  the global batch's mask and keeps the rank's rows. At W = 1 nothing
+  here calls a collective and every line runs as on one device.
 * Init is torch's default for ``Conv1d``/``Linear`` (weight and bias
   ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))``), which is what the JAX
   package's ``torch_linear_init`` reproduces; ``init_`` redraws it from
@@ -32,6 +40,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from adversarial_learning_on_pointclouds_tpu_torch.parallel import dist
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
@@ -112,8 +122,11 @@ def dropout_mask(generator: Optional[torch.Generator], shape, p: float,
                  device) -> torch.Tensor:
     """The keep mask of inverted dropout at rate ``p``: each element kept
     where a uniform draw from ``generator`` (on ``device``) lies below
-    ``1 - p``."""
-    return torch.rand(shape, generator=generator, device=device) < 1.0 - p
+    ``1 - p``. Under data parallelism the draw is the global batch's and
+    the rank keeps its rows (``dist.draw_shape``)."""
+    u = torch.rand(dist.draw_shape(shape), generator=generator,
+                   device=device)
+    return dist.own_draw(u) < 1.0 - p
 
 
 def dropout(x: torch.Tensor, p: float,
@@ -170,6 +183,18 @@ def finish_init(module: nn.Module, device, generator) -> None:
         module.to(device)
 
 
+def _centred_moments(xc: torch.Tensor, axes, m: int, per_point: bool):
+    """``(E[xc], E[xc^2], global m)`` over ``axes`` (kept), the sums
+    all-reduced where the reduction crosses the ranks
+    (``dist.reduce_sum``; differentiable)."""
+    sums = dist.reduce_sum(torch.stack([xc.sum(dim=axes, keepdim=True),
+                                        xc.square().sum(dim=axes,
+                                                        keepdim=True)]),
+                           per_point)
+    m = dist.count(m, per_point)
+    return sums[0] / m, sums[1] / m, m
+
+
 def batch_norm_train(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
     """Train-mode BatchNorm over every axis but the last (channels), as
     the JAX package's ``core.batch_norm(train=True)``.
@@ -178,15 +203,23 @@ def batch_norm_train(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
     E[x-c]^2`` with ``c`` the running mean, which keeps the form exact
     when ``|mean| >> std``); the biased variance normalizes, and the
     running statistics take the EMA of the mean and the unbiased variance
-    (``update_running``). Gradients flow through the batch moments."""
+    (``update_running``). Gradients flow through the batch moments. At
+    world size above 1 the moments are the global batch's (``[B, N, C]``
+    per-point input: always; ``[B, C]`` rows: under data parallelism)."""
     axes = tuple(range(x.dim() - 1))
     c = bn.running_mean.detach().clone()
     xc = x - c
-    mean_c = xc.mean(dim=axes)
-    m2 = xc.square().mean(dim=axes)
+    per_point = x.dim() >= 3
+    m = x.numel() // x.shape[-1]
+    if dist.spans(per_point):
+        mean_c, m2, m = _centred_moments(xc, axes, m, per_point)
+        mean_c, m2 = mean_c.reshape(-1), m2.reshape(-1)
+    else:
+        mean_c = xc.mean(dim=axes)
+        m2 = xc.square().mean(dim=axes)
     var = torch.clamp(m2 - mean_c.square(), min=0.0)
     mean = mean_c + c
-    update_running(bn, mean, var, x.numel() // x.shape[-1])
+    update_running(bn, mean, var, m)
     inv = torch.rsqrt(var + BN_EPS)
     return (x - mean) * (inv * bn.weight) + bn.bias
 
@@ -201,7 +234,8 @@ def batch_norm_train_grouped(bn: nn.BatchNorm1d, x: torch.Tensor,
     statistics then take the blocks' EMA chained block 0 -> G - 1, the
     statistics of ``groups`` sequential ``batch_norm_train`` calls (whose
     later blocks would centre on the updated mean: a rounding-level
-    difference). ``groups == 1`` is ``batch_norm_train``."""
+    difference). ``groups == 1`` is ``batch_norm_train``. At world size
+    above 1 each block's moments are its global batch's."""
     if groups == 1:
         return batch_norm_train(bn, x)
     gb, c = x.shape[0], x.shape[-1]
@@ -210,14 +244,18 @@ def batch_norm_train_grouped(bn: nn.BatchNorm1d, x: torch.Tensor,
     cc = bn.running_mean.detach().clone()
     xc = (x - cc).reshape((groups, gb // groups) + tuple(x.shape[1:]))
     axes = tuple(range(1, xc.dim() - 1))
-    mean_c = xc.mean(dim=axes, keepdim=True)
-    m2 = xc.square().mean(dim=axes, keepdim=True)
+    per_point = x.dim() >= 3
+    m = xc[0].numel() // c
+    if dist.spans(per_point):
+        mean_c, m2, m = _centred_moments(xc, axes, m, per_point)
+    else:
+        mean_c = xc.mean(dim=axes, keepdim=True)
+        m2 = xc.square().mean(dim=axes, keepdim=True)
     var = torch.clamp(m2 - mean_c.square(), min=0.0)
     inv = torch.rsqrt(var + BN_EPS)
     y = ((xc - mean_c) * (inv * bn.weight) + bn.bias).reshape(x.shape)
     mean = (mean_c + cc).reshape(groups, c)
     var = var.reshape(groups, c)
-    m = xc[0].numel() // c
     for i in range(groups):
         update_running(bn, mean[i], var[i], m)
     return y
@@ -226,7 +264,8 @@ def batch_norm_train_grouped(bn: nn.BatchNorm1d, x: torch.Tensor,
 def batch_moments(s: torch.Tensor, ss: torch.Tensor, m: int):
     """``(mean, biased var, 1/sqrt(var + eps))`` from a kernel's column
     sum and sum of squares over ``m`` values (the raw one-pass form of the
-    JAX training kernels)."""
+    JAX training kernels). At world size above 1 the caller passes the
+    global batch's sums and count."""
     mu = s / m
     var = torch.clamp(ss / m - mu * mu, min=0.0)
     return mu, var, torch.rsqrt(var + BN_EPS)
@@ -237,9 +276,10 @@ def update_running(bn: nn.BatchNorm1d, mean: torch.Tensor,
     """torch-style running-statistic update from batch statistics, in
     place: ``(1 - momentum) * old + momentum * batch`` on the mean and
     on the unbiased variance (``m`` values behind each moment: ``B * N``
-    for a per-point BN, ``B`` for an fc BN), and one more
-    ``num_batches_tracked``. Counterpart of the JAX package's
-    ``encoder._ema_stats``; the batch statistics carry no gradient."""
+    for a per-point BN, ``B`` for an fc BN: the global batch's under data
+    parallelism), and one more ``num_batches_tracked``. Counterpart of the
+    JAX package's ``encoder._ema_stats``; the batch statistics carry no
+    gradient."""
     with torch.no_grad():
         unbiased = var_biased.detach() * (m / max(m - 1, 1))
         bn.running_mean.copy_((1.0 - BN_MOMENTUM) * bn.running_mean

@@ -14,7 +14,7 @@ encoder.py::apply_encoder_parts`` under ``use_pallas``. On ``x [B, N,
 
 In eval mode step 2 is ``fused_linear_affine_act`` and step 4 one
 ``fused_stack_maxpool``, with folded BNs (their plain versions under
-``ops.differentiable_eval``, the attacks' context). In train mode (``.train()``)
+``ops.use_kernels(False)``, the attacks' context). In train mode (``.train()``)
 the BNs use batch statistics and update their running statistics in
 place: step 2 is plain PyTorch, step 4 ``trunk2_train``. Under
 ``ops.use_pallas_train`` step 2 runs ``pointwise_matmul`` and the

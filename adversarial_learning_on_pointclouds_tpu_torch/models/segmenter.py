@@ -6,7 +6,7 @@ segmenter.py::apply_segmenter`` under ``use_pallas``: the encoder's
 per-point and global features go straight into the head (1088->512->256
 ->128->k, BN + ReLU each, then a per-point ``log_softmax``), so the ``[B,
 N, 1088]`` concat never exists. Eval runs ``seg_head_fused`` with folded
-BNs; train (``.train()``) runs ``seg_head_train`` with batch statistics
+BNs (its plain version on the plain path, ``ops.plain``); train (``.train()``) runs ``seg_head_train`` with batch statistics
 and updates the running statistics in place; under
 ``ops.use_pallas_train``, at a point count ``ops.layer_by_layer`` names,
 the head runs layer by layer as the JAX package's does there (conv1 split
@@ -28,8 +28,9 @@ from adversarial_learning_on_pointclouds_tpu_torch.models.encoder import (
 )
 from adversarial_learning_on_pointclouds_tpu_torch.ops import dispatch as ops
 from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
-    encoder_fused, seg_head_train,
+    seg_head_train,
 )
+from adversarial_learning_on_pointclouds_tpu_torch.parallel import dist
 
 
 class PointNetDenseCls(nn.Module):
@@ -55,9 +56,8 @@ class PointNetDenseCls(nn.Module):
             return self._train_head(pf, g), trans, trans_feat
         folded = [ops.folded_affine(getattr(self, f"conv{i}"),
                                     getattr(self, f"bn{i}")) for i in (1, 2, 3)]
-        logp = encoder_fused.seg_head_fused(
-            pf, g, *folded[0], *folded[1], *folded[2],
-            core.weight_in_out(self.conv4), self.conv4.bias)
+        logp = ops.seg_head(pf, g, *folded[0], *folded[1], *folded[2],
+                            core.weight_in_out(self.conv4), self.conv4.bias)
         return logp, trans, trans_feat
 
     def forward_pair(self, x_a: torch.Tensor, x_b: torch.Tensor,
@@ -95,7 +95,7 @@ class PointNetDenseCls(nn.Module):
             params += [core.weight_in_out(conv), conv.bias, bn.weight, bn.bias]
         logp, *stats = seg_head_train.seg_head_train(
             pf, g, *params, core.weight_in_out(self.conv4), self.conv4.bias)
-        m = pf.shape[0] * pf.shape[1]
+        m = dist.count(pf.shape[0] * pf.shape[1], True)
         for i, (mu, var) in enumerate(zip(stats[::2], stats[1::2]), start=1):
             core.update_running(getattr(self, f"bn{i}"), mu, var, m)
         return logp

@@ -9,7 +9,7 @@ fc BNs).
 
 * Eval: the whole trunk and its max are one ``fused_stack_maxpool`` with
   folded BNs (``ops.stack_maxpool``: its plain version under
-  ``ops.differentiable_eval``); the fc head is plain ``torch.matmul``.
+  ``ops.use_kernels(False)``); the fc head is plain ``torch.matmul``.
 * Train (``.train()``): conv1 is plain PyTorch with a batch-statistic BN;
   conv2 + conv3 + max run as ``trunk2_train`` with the post-pool ReLU
   applied to the pooled vector (``max(relu(y)) == relu(max(y))``); fc1 +
@@ -26,6 +26,14 @@ fc BNs).
   ``maxpool_points``; the single-stream fc head is one
   ``fc_head_train``, and ``forward_pair``'s paired head takes fc1 + BN in
   plain PyTorch (``batch_norm_train_grouped``), as the JAX package's.
+* Train on the plain path (``ops.plain``: ``ops.use_kernels(False)``, point
+  sharding): the trunk layer by layer, the fc head in plain PyTorch.
+* Data parallelism: ``relu_fc_bn_relu`` and ``fc_head_train`` take their
+  BN moments inside one launch, where nothing can be all-reduced, so at
+  world size above 1 they run on the global batch of pooled rows
+  (``parallel.dist.gather_rows``, the streams' blocks kept contiguous),
+  as the JAX package's partitioner runs a ``pallas_call``, and each rank
+  keeps its own rows; every other BN all-reduces its sums.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ from adversarial_learning_on_pointclouds_tpu_torch.ops import dispatch as ops
 from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
     fc_head_train, pool_fc_epilogue, trunk_train,
 )
+from adversarial_learning_on_pointclouds_tpu_torch.parallel import dist
 
 
 class STNkd(nn.Module):
@@ -109,16 +118,19 @@ class STNkd(nn.Module):
         else:
             h_a = self._train_trunk(x_a)
             h = torch.cat([h_a, self._train_trunk(x_b)])
-        if ops.pallas_train_enabled():
+        if ops.pallas_train_enabled() or ops.plain():
             h1 = torch.relu(core.batch_norm_train_grouped(
                 self.bn4, core.dense(self.fc1, h), 2))
         else:
+            hg = dist.gather_rows(h, 2)
             h1, mu1, var1 = pool_fc_epilogue.relu_fc_bn_relu(
-                h, core.weight_in_out(self.fc1), self.fc1.bias,
+                hg, core.weight_in_out(self.fc1), self.fc1.bias,
                 self.bn4.weight, self.bn4.bias, self.bn4.running_mean,
                 groups=2)
             for i in range(2):
-                core.update_running(self.bn4, mu1[i], var1[i], b)
+                core.update_running(self.bn4, mu1[i], var1[i],
+                                    hg.shape[0] // 2)
+            h1 = dist.own_rows(h1, 2)
         h2 = torch.relu(core.batch_norm_train_grouped(
             self.bn5, core.dense(self.fc2, h1), 2))
         out = core.dense(self.fc3, h2)
@@ -143,24 +155,33 @@ class STNkd(nn.Module):
         return torch.relu(train_trunk(self, h1))
 
     def _train_head(self, h: torch.Tensor) -> torch.Tensor:
-        """fc1 -> fc3 of one stream in train mode (before the identity)."""
-        m = h.shape[0]
+        """fc1 -> fc3 of one stream in train mode (before the identity).
+        The head's kernels normalize inside their launch, so at world size
+        above 1 they run on the global batch (``dist.gather_rows``) and
+        each rank keeps its rows of the output."""
+        if ops.plain():
+            h1 = ops.linear_bn_act(self.fc1, self.bn4, h, "relu")
+            return core.dense(self.fc3, ops.linear_bn_act(self.fc2, self.bn5,
+                                                          h1, "relu"))
+        hg = dist.gather_rows(h)
+        m = hg.shape[0]
         if ops.pallas_train_enabled():
             out, mu1, var1, mu2, var2 = fc_head_train.fc_head_train(
-                h, core.weight_in_out(self.fc1), self.fc1.bias,
+                hg, core.weight_in_out(self.fc1), self.fc1.bias,
                 self.bn4.weight, self.bn4.bias, core.weight_in_out(self.fc2),
                 self.fc2.bias, self.bn5.weight, self.bn5.bias,
                 core.weight_in_out(self.fc3), self.fc3.bias,
                 self.bn4.running_mean, self.bn5.running_mean)
             core.update_running(self.bn4, mu1, var1, m)
             core.update_running(self.bn5, mu2, var2, m)
-            return out
+            return dist.own_rows(out)
         h1, mu1, var1 = pool_fc_epilogue.relu_fc_bn_relu(
-            h, core.weight_in_out(self.fc1), self.fc1.bias, self.bn4.weight,
+            hg, core.weight_in_out(self.fc1), self.fc1.bias, self.bn4.weight,
             self.bn4.bias, self.bn4.running_mean)
         core.update_running(self.bn4, mu1, var1, m)
         return core.dense(self.fc3,
-                          ops.linear_bn_act(self.fc2, self.bn5, h1, "relu"))
+                          ops.linear_bn_act(self.fc2, self.bn5,
+                                            dist.own_rows(h1), "relu"))
 
 
 def train_trunk(module: nn.Module, *xs: torch.Tensor) -> torch.Tensor:
@@ -177,7 +198,7 @@ def train_trunk(module: nn.Module, *xs: torch.Tensor) -> torch.Tensor:
         core.weight_in_out(module.conv2), module.conv2.bias,
         module.bn2.weight, module.bn2.bias, core.weight_in_out(module.conv3),
         module.conv3.bias, module.bn3.weight, module.bn3.bias, groups=groups)
-    m = xs[0].shape[0] * xs[0].shape[1]
+    m = dist.count(xs[0].shape[0] * xs[0].shape[1], True)
     for bn, mu, var in ((module.bn2, mu2, var2), (module.bn3, mu3, var3)):
         for i in range(groups):
             core.update_running(bn, mu.reshape(groups, -1)[i],

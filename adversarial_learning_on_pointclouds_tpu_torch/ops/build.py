@@ -41,8 +41,9 @@ SIGNATURES = {
     "pt_linear_affine_act": [_P] * 5 + [_LL] + [_I] * 5 + [_P],
     "pt_stack_maxpool": [_P, _P, _PP, _PP, _PP, _IP, _IP] + [_I] * 5 + [_P],
     "pt_seg_head": [_P] * 15 + [_I] * 10 + [_P],
-    "pt_augment_fused": [_P] * 3 + [_U] * 2 + [_I] * 3 + [_F] * 3 + [_I, _P],
-    "pt_augment_fused_pair": [_P] * 5 + [_U] + [_I] * 5 + [_F] * 3 + [_I, _P],
+    "pt_augment_fused": [_P] * 3 + [_U] * 3 + [_I] * 3 + [_F] * 3 + [_I, _P],
+    "pt_augment_fused_pair": [_P] * 5 + [_U] * 3 + [_I] * 5 + [_F] * 3
+    + [_I, _P],
 }
 # The training passes and the per-layer kernels take one argument struct (ops/launch.py mirrors it).
 for _name in ("pt_pool_fc_fwd", "pt_trunk_f1", "pt_trunk_f2", "pt_trunk_b1",

@@ -22,14 +22,18 @@ trunks, the seg head and the discriminator layer by layer
 switch the port runs its fused kernels at every point count.
 
 The eval-mode blocks (``linear_bn_act`` with a BN in eval mode on ``[B,
-N, C]``, ``stack_maxpool``) run the eval kernels, which have no
-backward: on the card a forward that autograd records raises there.
-``differentiable_eval()`` is the counterpart of the JAX package's
-``use_pallas(False)`` around its attack (``train/adv_perturb.py``
-there): within it those blocks run their plain versions on a CUDA
-tensor too, so an eval-mode forward can be differentiated with respect
-to its input, and the switch's per-layer kernels are off. Only the
-attacks (``attacks.py``) enter it. Every eval block honours the
+N, C]``, ``stack_maxpool``, ``seg_head``) run the eval kernels, which
+have no backward: on the card a forward that autograd records raises
+there. ``use_kernels(False)`` is the counterpart of the JAX package's
+``use_pallas(False)``: within it every block runs its kernel's plain
+version on a CUDA tensor too (``plain``): the eval blocks, so that an
+eval-mode forward can be differentiated with respect to its input (the
+attacks, ``attacks.py``, enter it), and the training forward, which then
+runs layer by layer (``layer_by_layer``) with the T-Net heads in plain
+PyTorch; the switch's per-layer kernels are off. Point sharding
+(``parallel/point.py``) enters it too, as the JAX package forces its XLA
+path there, and ``max_points`` then reduces over every rank's points
+(``parallel.dist.all_reduce_max_points``). Every eval block honours the
 mixed-precision scope (``core.mixed_precision``): bf16 matmul operands
 with fp32 sums, in the kernels and in the plain versions.
 """
@@ -47,13 +51,15 @@ from adversarial_learning_on_pointclouds_tpu_torch.models import core
 from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
     encoder_fused, maxpool_points, shared_mlp, tnet_apply,
 )
+from adversarial_learning_on_pointclouds_tpu_torch.parallel import dist
 
 _state = threading.local()
 
 
 def pallas_train_enabled() -> bool:
-    """Whether the per-layer training kernels are on (off by default)."""
-    return getattr(_state, "pallas_train", False)
+    """Whether the per-layer training kernels are on (off by default, and
+    off within ``use_kernels(False)``)."""
+    return getattr(_state, "pallas_train", False) and kernels_enabled()
 
 
 @contextlib.contextmanager
@@ -61,7 +67,7 @@ def use_pallas_train(enabled: bool = True):
     """Within the context, training runs the per-layer kernels, as the JAX
     package's ``use_pallas(training=True)``. Read when a forward runs, per
     thread; the autograd functions keep what their forward chose."""
-    prev = pallas_train_enabled()
+    prev = getattr(_state, "pallas_train", False)
     _state.pallas_train = enabled
     try:
         yield
@@ -69,25 +75,31 @@ def use_pallas_train(enabled: bool = True):
         _state.pallas_train = prev
 
 
-def differentiable_eval_enabled() -> bool:
-    """Whether the eval-mode blocks run their plain versions (off by
-    default)."""
-    return getattr(_state, "differentiable_eval", False)
+def kernels_enabled() -> bool:
+    """Whether the blocks run the kernels (on by default)."""
+    return not getattr(_state, "no_kernels", False)
 
 
 @contextlib.contextmanager
-def differentiable_eval():
-    """Within the context the eval-mode blocks run their plain PyTorch
-    versions on every device, which autograd can differentiate, and the
-    per-layer training kernels of ``use_pallas_train`` are off, as the
-    JAX package's attack runs its XLA path alone under
-    ``use_pallas(False)``. Read when a forward runs, per thread."""
-    prev = differentiable_eval_enabled(), pallas_train_enabled()
-    _state.differentiable_eval, _state.pallas_train = True, False
+def use_kernels(enabled: bool = True):
+    """``use_kernels(False)``: within the context every block runs its
+    kernel's plain PyTorch version on every device, which autograd can
+    differentiate, and the per-layer training kernels of
+    ``use_pallas_train`` are off, as the JAX package's ``use_pallas(
+    False)``. Read when a forward runs, per thread."""
+    prev = kernels_enabled()
+    _state.no_kernels = not enabled
     try:
         yield
     finally:
-        _state.differentiable_eval, _state.pallas_train = prev
+        _state.no_kernels = not prev
+
+
+def plain() -> bool:
+    """Whether the blocks run their plain versions: within
+    ``use_kernels(False)``, or where the point axis is sharded across
+    ranks (no kernel reduces over another rank's points)."""
+    return not kernels_enabled() or dist.points_sharded()
 
 
 def _tile_n(n: int, cap: int = 512) -> int:
@@ -107,11 +119,12 @@ def train_tiling_ok(n: int, cap: int = 512) -> bool:
 
 
 def layer_by_layer(n: int) -> bool:
-    """Under ``use_pallas_train``, at a point count the JAX package's fused
-    training kernels cannot tile: the trunks, the seg head and the
-    discriminator then run layer by layer, through ``pointwise_matmul``
-    and ``maxpool_points``, as the JAX package runs them there."""
-    return pallas_train_enabled() and not train_tiling_ok(n)
+    """Whether the trunks, the seg head and the discriminator run layer by
+    layer: on the plain path (``plain``), and under ``use_pallas_train`` at
+    a point count the JAX package's fused training kernels cannot tile,
+    where they run through ``pointwise_matmul`` and ``maxpool_points``, as
+    the JAX package runs them there."""
+    return plain() or (pallas_train_enabled() and not train_tiling_ok(n))
 
 
 def folded_affine(layer: nn.Module, bn: nn.BatchNorm1d
@@ -146,7 +159,7 @@ def linear_bn_act(layer: nn.Module, bn: nn.BatchNorm1d, x: torch.Tensor,
     running statistics updated in place), differentiable.
     Eval: BN folded; per-point ``[B, N, C]`` input runs the fused kernel
     (``fused_linear_affine_act``); ``[B, C]`` rows (the T-Net and
-    classifier fc heads), and every input under ``differentiable_eval``,
+    classifier fc heads), and every input on the plain path (``plain``),
     run as the JAX package's XLA path runs them, the scale folded into the
     weight: ``core.matmul(x, w * scale) + shift`` (the folded weight the
     bf16 operand under ``core.mixed_precision``)."""
@@ -154,7 +167,7 @@ def linear_bn_act(layer: nn.Module, bn: nn.BatchNorm1d, x: torch.Tensor,
         return core.activation(core.batch_norm_train(bn, _matmul(layer, x)),
                                act)
     w, shift, scale = folded_affine(layer, bn)
-    if x.dim() == 3 and not differentiable_eval_enabled():
+    if x.dim() == 3 and not plain():
         return shared_mlp.fused_linear_affine_act(x, w, shift, scale, act)
     return core.activation(core.matmul(x, w * scale) + shift, act)
 
@@ -178,13 +191,29 @@ def stack_maxpool(x: torch.Tensor, layers, acts) -> torch.Tensor:
     """An eval-mode pointwise stack and its max over points, ``[B, N, c0]
     -> [B, c_out]``: ``layers`` are ``(w, shift, scale)`` of
     ``folded_affine``, one activation per layer. ``fused_stack_maxpool``,
-    or its plain version under ``differentiable_eval`` (bf16 operands
-    under ``core.mixed_precision``)."""
+    or its plain version on the plain path (bf16 operands under
+    ``core.mixed_precision``), whose max under point sharding spans every
+    rank's points."""
     ws, shifts, scales = zip(*layers)
-    if differentiable_eval_enabled():
-        return encoder_fused.fused_stack_maxpool_plain(
-            x, ws, shifts, scales, acts, core.compute_dtype() is not None)
+    if plain():
+        bf16 = core.compute_dtype() is not None
+        if dist.points_sharded():
+            return encoder_fused.fused_stack_maxpool_plain(
+                x, ws, shifts, scales, acts, bf16,
+                pool=dist.all_reduce_max_points)
+        return encoder_fused.fused_stack_maxpool_plain(x, ws, shifts, scales,
+                                                       acts, bf16)
     return encoder_fused.fused_stack_maxpool(x, ws, shifts, scales, acts)
+
+
+def seg_head(pf: torch.Tensor, g: torch.Tensor, *params) -> torch.Tensor:
+    """The eval-mode seg head, ``seg_head_fused``'s arguments:
+    ``seg_head_fused``, or its plain version on the plain path (bf16
+    operands under ``core.mixed_precision``)."""
+    if plain():
+        return encoder_fused.seg_head_fused_plain(
+            pf, g, *params, core.compute_dtype() is not None)
+    return encoder_fused.seg_head_fused(pf, g, *params)
 
 
 def linear_act(layer: nn.Module, x: torch.Tensor,
@@ -198,9 +227,12 @@ def linear_act(layer: nn.Module, x: torch.Tensor,
 
 
 def max_points(x: torch.Tensor) -> torch.Tensor:
-    """Symmetric max over the point axis: ``[B, N, C] -> [B, C]``;
-    ``maxpool_points`` under the switch (the gradient to the first point
-    attaining each max)."""
+    """Symmetric max over the point axis: ``[B, N, C] -> [B, C]``; over
+    every rank's points under point sharding
+    (``dist.all_reduce_max_points``), ``maxpool_points`` under the switch
+    (the gradient to the first point attaining each max)."""
+    if dist.points_sharded():
+        return dist.all_reduce_max_points(x)
     if pallas_train_enabled() and x.dim() == 3:
         return maxpool_points.maxpool_points(x)
     return x.amax(dim=1)

@@ -15,7 +15,11 @@ Uniforms come from 32 random bits by the mantissa trick ``((bits >> 9) |
 0x3F800000) - 1`` on unsigned bits. The TPU kernel draws its bits from
 the TPU's on-core generator; here they are Philox4x32-10 (Salmon et al.,
 SC'11, the Random123 generator), keyed by an int32 seed ``(key, 0)``,
-with counter ``(point, cloud, draw, 0)``:
+with counter ``(point, cloud, draw, 0)``, ``cloud`` the global cloud
+index ``cloud0 + b`` of the batch's row ``b`` (``cloud0`` is 0 on one
+device; under data parallelism a rank passes its first row's index in
+the global batch, so that each rank draws what one device draws for its
+clouds):
 
 * draw 0 of point ``p``: the three ``u1`` of its jitter and its dropout
   ``u``;
@@ -96,13 +100,16 @@ def _normal(b1: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(TWO_PI * uniform(b2))
 
 
-def augment_bits(seed: torch.Tensor, bsz: int, n: int) -> Bits:
+def augment_bits(seed: torch.Tensor, bsz: int, n: int,
+                 cloud0: int = 0) -> Bits:
     """The bits the kernel draws: ``(cloud [B, 2], point [B, N, 8])``
     (uint32 in int64; per cloud the angle and the ratio, per point draws
-    0 and 1), on the seed's device."""
+    0 and 1) of the clouds ``cloud0 .. cloud0 + B - 1``, on the seed's
+    device."""
     key = seed.reshape(()).to(torch.int64) & MASK32
     dev = seed.device
-    b = torch.arange(bsz, device=dev, dtype=torch.int64)
+    b = torch.arange(cloud0, cloud0 + bsz, device=dev,
+                     dtype=torch.int64) & MASK32
     p = torch.arange(n, device=dev, dtype=torch.int64)
     cloud = philox4x32(0, b, 2, 0, key, 0)[:2]
     draws = [philox4x32(p[None, :], b[:, None], d, 0, key, 0)
@@ -127,13 +134,14 @@ def augment_fused_plain(step: torch.Tensor, points: torch.Tensor,
                         jitter: bool = True, dropout: bool = False,
                         sigma: float = 0.01, clip: float = 0.05,
                         max_dropout_ratio: float = 0.875,
-                        bits: Optional[Bits] = None) -> torch.Tensor:
+                        bits: Optional[Bits] = None,
+                        cloud0: int = 0) -> torch.Tensor:
     """The kernel's pass in plain PyTorch, on ``bits`` when given (as
     ``augment_bits`` lays them out), else on the bits Philox draws from
-    ``step_seed(seed, step, stream)``."""
+    ``step_seed(seed, step, stream)`` for the clouds from ``cloud0``."""
     bsz, n, _ = points.shape
     cloud, point = bits if bits is not None else augment_bits(
-        step_seed(seed, step, stream), bsz, n)
+        step_seed(seed, step, stream), bsz, n, cloud0)
     pts = points
     if rotate:
         angle = uniform(cloud[:, 0]) * TWO_PI
@@ -156,10 +164,13 @@ def _flags(rotate: bool, jitter: bool, dropout: bool) -> int:
 
 
 def _check(name: str, points: torch.Tensor, step: torch.Tensor,
-           dev: torch.device) -> Tuple[int, int]:
+           dev: torch.device, cloud0: int = 0) -> Tuple[int, int]:
     """``(batch, n)`` of ``points [B, N, 3]`` (fp32, contiguous, on
-    ``dev``) after the checks the kernel needs, ``step`` with them."""
+    ``dev``) after the checks the kernel needs, ``step`` and ``cloud0``
+    with them."""
     bsz, n, _ = points.shape
+    if not 0 <= cloud0 <= MASK32:
+        raise ValueError(f"cloud0 {cloud0} outside the 32-bit counter word")
     launch.expect(name, points, (bsz, n, 3), dev)
     launch.expect("step", step, step.shape, dev, dtype=torch.int64)
     if step.numel() != 1:
@@ -172,23 +183,23 @@ def _check(name: str, points: torch.Tensor, step: torch.Tensor,
 def augment_fused(step: torch.Tensor, points: torch.Tensor, seed: int,
                   stream: int = 0, rotate: bool = True, jitter: bool = True,
                   dropout: bool = False, sigma: float = 0.01,
-                  clip: float = 0.05,
-                  max_dropout_ratio: float = 0.875) -> torch.Tensor:
+                  clip: float = 0.05, max_dropout_ratio: float = 0.875,
+                  cloud0: int = 0) -> torch.Tensor:
     """One pass over ``points [B, N, 3]`` (fp32) of ``stream`` at the
     int64 step count ``step`` (a one-element tensor on the points'
     device, read there by the kernel), keyed by ``step_seed(seed, step,
-    stream)``. The kernel on a CUDA tensor, the plain version on a CPU
-    tensor."""
+    stream)``; its rows are the global clouds ``cloud0 ..``. The kernel on
+    a CUDA tensor, the plain version on a CPU tensor."""
     if launch.on_cpu(points):
         return augment_fused_plain(step, points, seed, stream, rotate,
                                    jitter, dropout, sigma, clip,
-                                   max_dropout_ratio)
+                                   max_dropout_ratio, cloud0=cloud0)
     dev = points.device
-    bsz, n = _check("points", points, step, dev)
+    bsz, n = _check("points", points, step, dev, cloud0)
     out = torch.empty_like(points)
     launch.call("pt_augment_fused", dev, launch.ptr(points), launch.ptr(out),
-                launch.ptr(step), seed & MASK32, stream & MASK32, bsz, n,
-                _flags(rotate, jitter, dropout), sigma, clip,
+                launch.ptr(step), seed & MASK32, stream & MASK32, cloud0,
+                bsz, n, _flags(rotate, jitter, dropout), sigma, clip,
                 max_dropout_ratio)
     augment_fused.launches += 1
     return out
@@ -202,41 +213,45 @@ def augment_fused_pair_plain(step: torch.Tensor, points_a: torch.Tensor,
                              rotate: bool = True, jitter: bool = True,
                              dropout: bool = False, sigma: float = 0.01,
                              clip: float = 0.05,
-                             max_dropout_ratio: float = 0.875
+                             max_dropout_ratio: float = 0.875,
+                             cloud0: Tuple[int, int] = (0, 0)
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The pair's pass in plain PyTorch: the two single-stream plain
     passes, streams 0 and 1."""
     return tuple(augment_fused_plain(step, pts, seed, stream, rotate, jitter,
-                                     dropout, sigma, clip, max_dropout_ratio)
-                 for stream, pts in enumerate((points_a, points_b)))
+                                     dropout, sigma, clip, max_dropout_ratio,
+                                     cloud0=c0)
+                 for stream, (pts, c0) in enumerate(zip((points_a, points_b),
+                                                        cloud0)))
 
 
 def augment_fused_pair(step: torch.Tensor, points_a: torch.Tensor,
                        points_b: torch.Tensor, seed: int,
                        rotate: bool = True, jitter: bool = True,
                        dropout: bool = False, sigma: float = 0.01,
-                       clip: float = 0.05, max_dropout_ratio: float = 0.875
+                       clip: float = 0.05, max_dropout_ratio: float = 0.875,
+                       cloud0: Tuple[int, int] = (0, 0)
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(augment_fused(step, points_a, seed, 0, ...),
-    augment_fused(step, points_b, seed, 1, ...))`` in one launch:
-    ``points_a [B_a, N_a, 3]`` and ``points_b [B_b, N_b, 3]`` (fp32, one
-    device; the shapes may differ). The kernel on CUDA tensors, the plain
-    version on CPU tensors."""
+    """``(augment_fused(step, points_a, seed, 0, ..., cloud0[0]),
+    augment_fused(step, points_b, seed, 1, ..., cloud0[1]))`` in one
+    launch: ``points_a [B_a, N_a, 3]`` and ``points_b [B_b, N_b, 3]``
+    (fp32, one device; the shapes may differ). The kernel on CUDA
+    tensors, the plain version on CPU tensors."""
     if launch.on_cpu(points_a) != launch.on_cpu(points_b):
         raise ValueError(f"points_a is on {points_a.device}, points_b on "
                          f"{points_b.device}")
     if launch.on_cpu(points_a):
         return augment_fused_pair_plain(step, points_a, points_b, seed,
                                         rotate, jitter, dropout, sigma, clip,
-                                        max_dropout_ratio)
+                                        max_dropout_ratio, cloud0)
     dev = points_a.device
-    bsz_a, n_a = _check("points_a", points_a, step, dev)
-    bsz_b, n_b = _check("points_b", points_b, step, dev)
+    bsz_a, n_a = _check("points_a", points_a, step, dev, cloud0[0])
+    bsz_b, n_b = _check("points_b", points_b, step, dev, cloud0[1])
     out_a, out_b = torch.empty_like(points_a), torch.empty_like(points_b)
     launch.call("pt_augment_fused_pair", dev, launch.ptr(points_a),
                 launch.ptr(points_b), launch.ptr(out_a), launch.ptr(out_b),
-                launch.ptr(step), seed & MASK32, bsz_a, n_a, bsz_b, n_b,
-                _flags(rotate, jitter, dropout), sigma, clip,
+                launch.ptr(step), seed & MASK32, cloud0[0], cloud0[1], bsz_a,
+                n_a, bsz_b, n_b, _flags(rotate, jitter, dropout), sigma, clip,
                 max_dropout_ratio)
     augment_fused.launches += 1
     return out_a, out_b

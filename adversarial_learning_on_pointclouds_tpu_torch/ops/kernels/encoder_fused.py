@@ -14,7 +14,7 @@ CPU tensors run.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -33,14 +33,17 @@ def fused_stack_maxpool_plain(x: torch.Tensor,
                               shifts: Sequence[torch.Tensor],
                               scales: Sequence[torch.Tensor],
                               acts: Sequence[Optional[str]],
-                              bf16: bool = False) -> torch.Tensor:
-    """The stack layer by layer and its max over points, with bf16 matmul
-    operands and fp32 sums under ``bf16``."""
+                              bf16: bool = False,
+                              pool: Optional[Callable] = None
+                              ) -> torch.Tensor:
+    """The stack layer by layer and its max over points (``pool`` of the
+    last layer's ``[B, N, c_out]`` when given), with bf16 matmul operands
+    and fp32 sums under ``bf16``."""
     h = x
     for w, sh, sc, act in zip(weights, shifts, scales, acts):
         z = torch.matmul(core.operand(h, bf16), core.operand(w, bf16))
         h = core.activation(z * sc + sh, act)
-    return h.amax(dim=1)
+    return h.amax(dim=1) if pool is None else pool(h)
 
 
 def fused_stack_maxpool(x: torch.Tensor,

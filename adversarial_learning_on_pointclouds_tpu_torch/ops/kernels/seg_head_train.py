@@ -26,6 +26,13 @@ they are XLA at HIGHEST precision in the JAX package. Each BN's
 reduction sums come from the pass after it, one pass behind, as in the
 JAX VJP.
 
+Under data parallelism (``parallel/dist.py``) the glue all-reduces each
+forward pass's column sums before ``batch_moments`` (the global count of
+rows) and each backward pass's ``t1``/``t2`` before they become the
+coefficients of the BN before them; the BN parameters' gradients stay
+the rank's own (``all_reduce_grads`` sums them). The passes are
+unchanged.
+
 Every pass and twin takes a ``bf16`` switch (the mixed-precision scope):
 each matmul operand, cotangents included, is rounded to bf16 and summed
 in fp32, and the stashes ``z1``, the mid ``z``s, ``dy3`` and the Bmid
@@ -45,8 +52,18 @@ from adversarial_learning_on_pointclouds_tpu_torch.models.core import (
     BN_EPS, batch_moments,
 )
 from adversarial_learning_on_pointclouds_tpu_torch.ops import launch
+from adversarial_learning_on_pointclouds_tpu_torch.parallel import dist
 
 _op = core.operand
+
+
+def global_sums(*sums: torch.Tensor):
+    """Per-point column sums as the global batch's: one all-reduce of the
+    stacked sums at world size above 1 (no autograd: the callers are
+    autograd functions' bodies), the tensors themselves at 1."""
+    if not dist.spans(True):
+        return sums
+    return tuple(dist.all_reduce_(torch.stack(sums), "sum", "stats").unbind(0))
 
 
 def _rows(t: torch.Tensor) -> torch.Tensor:
@@ -307,19 +324,19 @@ class _SegHead(torch.autograd.Function):
                 be3, w4, b4_):
         bf16 = ctx.bf16 = core.compute_dtype() is not None
         bsz, n, c_pf = pf.shape
-        m = bsz * n
+        m = dist.count(bsz * n, True)
         w1a, w1b = w1[:c_pf], w1[c_pf:]
         g_row = torch.matmul(g, w1b)
         z1, s1, ss1 = p1(pf, g_row, w1a, b1_, bf16)
-        mu1, var1, inv1 = batch_moments(s1, ss1, m)
+        mu1, var1, inv1 = batch_moments(*global_sums(s1, ss1), m)
         sc1 = g1 * inv1
         sh1 = be1 - mu1 * sc1
         z2, s2, ss2 = pmid(z1, sc1, sh1, w2, b2, bf16)
-        mu2, var2, inv2 = batch_moments(s2, ss2, m)
+        mu2, var2, inv2 = batch_moments(*global_sums(s2, ss2), m)
         sc2 = g2 * inv2
         sh2 = be2 - mu2 * sc2
         z3, s3, ss3 = pmid(z2, sc2, sh2, w3, b3, bf16)
-        mu3, var3, inv3 = batch_moments(s3, ss3, m)
+        mu3, var3, inv3 = batch_moments(*global_sums(s3, ss3), m)
         sc3 = g3 * inv3
         sh3 = be3 - mu3 * sc3
         logp = p4(z3, sc3, sh3, w4, b4_, bf16)
@@ -334,19 +351,22 @@ class _SegHead(torch.autograd.Function):
         (pf, g, z1, z2, z3, w1, w2, w3, w4, b4_, mu1, inv1, sc1, sh1, mu2,
          inv2, sc2, sh2, mu3, inv3, sc3, sh3) = ctx.saved_tensors
         bsz, n, c_pf = pf.shape
-        m = bsz * n
+        m = dist.count(bsz * n, True)
         bf16 = ctx.bf16
         dy3, dw4, db4, t1_3, t2_3 = b4(z3, sc3, sh3, w4, b4_, mu3, inv3,
                                        dlogp.contiguous(), bf16)
+        t1g, t2g = global_sums(t1_3, t2_3)
         dy2, dw3, db3, t1_2, t2_2 = bmid(z3, dy3, sc3, mu3, inv3,
-                                         sc3 * t1_3 / m, sc3 * t2_3 / m,
+                                         sc3 * t1g / m, sc3 * t2g / m,
                                          z2, sc2, sh2, w3, mu2, inv2, bf16)
+        t1g, t2g = global_sums(t1_2, t2_2)
         dy1, dw2, db2, t1_1, t2_1 = bmid(z2, dy2, sc2, mu2, inv2,
-                                         sc2 * t1_2 / m, sc2 * t2_2 / m,
+                                         sc2 * t1g / m, sc2 * t2g / m,
                                          z1, sc1, sh1, w2, mu1, inv1, bf16)
         w1a, w1b = w1[:c_pf], w1[c_pf:]
-        dpf, dw1a, db1, r = b1(z1, dy1, sc1, mu1, inv1, sc1 * t1_1 / m,
-                               sc1 * t2_1 / m, pf, w1a, bf16)
+        t1g, t2g = global_sums(t1_1, t2_1)
+        dpf, dw1a, db1, r = b1(z1, dy1, sc1, mu1, inv1, sc1 * t1g / m,
+                               sc1 * t2g / m, pf, w1a, bf16)
         # The global half of layer 1 ran as a per-cloud row g @ w1b.
         dg = torch.matmul(r, w1b.t())
         dw1 = torch.cat([dw1a, torch.matmul(g.t(), r)], dim=0)

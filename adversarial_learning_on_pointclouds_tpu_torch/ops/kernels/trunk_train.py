@@ -23,6 +23,15 @@ from the pooled output, BN2's elementwise backward and ``dx``/``dw2``.
 The returned batch statistics carry no gradient (running-statistic
 updates); everything the forward normalizes with is differentiated.
 
+Under data parallelism (``parallel/dist.py``) every statistic is the
+global batch's, and only the glue changes: the forward all-reduces each
+pass's column sums before ``batch_moments`` and counts the global rows
+(per stream with ``groups``); the backward all-reduces BN3's channel
+sums ``s1``/``s2`` before ``coef1``/``coef2`` and B1's ``t1``/``t2``
+before BN2's elementwise backward, while the gradients it returns for
+the BN parameters stay the rank's own (``all_reduce_grads`` sums them).
+The passes are unchanged. Each all-reduce sits between two passes.
+
 ``trunk3_train`` (the JAX package's, ``trunk_train.py:515``) puts conv1 +
 BN1 + ReLU in front: the whole T-Net conv stack, composed of the passes
 the port already has, in the JAX package's order: F1 on the raw input,
@@ -59,8 +68,11 @@ from adversarial_learning_on_pointclouds_tpu_torch.ops import launch
 from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
     seg_head_train,
 )
+from adversarial_learning_on_pointclouds_tpu_torch.parallel import dist
 
 _op = core.operand
+global_sums = seg_head_train.global_sums
+
 
 
 def _rows(t: torch.Tensor) -> torch.Tensor:
@@ -290,13 +302,13 @@ class _Trunk2(torch.autograd.Function):
         bf16 = core.compute_dtype() is not None
         bsz, n, _ = x.shape
         bpg = bsz // groups
-        m = bpg * n                                   # rows per stream
+        m = dist.count(bpg * n, True)                 # rows per stream
         z2, s2, ss2 = f1(x, w2, b2, groups, bf16)
-        mu2, var2, inv2 = batch_moments(s2, ss2, m)
+        mu2, var2, inv2 = batch_moments(*global_sums(s2, ss2), m)
         sc2 = g2 * inv2
         sh2 = be2 - mu2 * sc2
         s3, ss3, mx, mn, imax, imin = f2(z2, sc2, sh2, w3, b3, groups, bf16)
-        mu3, var3, inv3 = batch_moments(s3, ss3, m)
+        mu3, var3, inv3 = batch_moments(*global_sums(s3, ss3), m)
         s3c = g3 * inv3
         t3 = _per_cloud(be3 - mu3 * s3c, groups, bpg)
         s3c = _per_cloud(s3c, groups, bpg)
@@ -316,7 +328,7 @@ class _Trunk2(torch.autograd.Function):
         groups, bf16 = ctx.groups, ctx.bf16
         bsz, n, _ = x.shape
         bpg = bsz // groups
-        m = bpg * n
+        m = dist.count(bpg * n, True)
         s3c = g3 * inv3                               # [C] or [G, C]
         # BN3's channel terms per stream: zhat at the winners comes back
         # from the pooled output (g3 == 0 guarded, as in the JAX VJP).
@@ -327,16 +339,17 @@ class _Trunk2(torch.autograd.Function):
         s2 = (dgg * zhat_win.reshape(groups, bpg, -1)).sum(1).reshape(
             s3c.shape)
         coef1, coef2 = (_per_cloud(s3c * t / m, groups, bpg).expand(
-            bsz, -1).contiguous() for t in (s1, s2))
+            bsz, -1).contiguous() for t in global_sums(s1, s2))
         s3dg = (_per_cloud(s3c, groups, bpg) * dg).contiguous()
         dy2, dw3, db3, t1, t2 = b1(z2, sc2, sh2, w3, b3, mu3, inv3, coef1,
                                    coef2, s3dg, idx, mu2, inv2, groups, bf16)
         # BN2's elementwise backward per stream; dx and dw2 are plain
         # matmuls (bf16 operands under the scope, as the JAX VJP's).
+        t1g, t2g = global_sums(t1, t2)
         zhat2 = (_g4(z2.float(), groups) - _gv(mu2, groups)) * _gv(inv2,
                                                                    groups)
-        dz2 = (_gv(sc2, groups) * (_g4(dy2, groups) - _gv(t1, groups) / m
-                                   - zhat2 * (_gv(t2, groups) / m))
+        dz2 = (_gv(sc2, groups) * (_g4(dy2, groups) - _gv(t1g, groups) / m
+                                   - zhat2 * (_gv(t2g, groups) / m))
                ).reshape(dy2.shape)
         dx = torch.matmul(_op(dz2, bf16), _op(w2, bf16).t())
         dw2 = torch.matmul(_rows(_op(x, bf16)).t(), _rows(_op(dz2, bf16)))
@@ -380,17 +393,17 @@ class _Trunk3(torch.autograd.Function):
     def forward(ctx, x, w1, b1, g1, be1, w2, b2, g2, be2, w3, b3, g3, be3):
         bf16 = ctx.bf16 = core.compute_dtype() is not None
         bsz, n, _ = x.shape
-        m = bsz * n
+        m = dist.count(bsz * n, True)
         z1, s1, ss1 = f1(x, w1, b1, 1, bf16)
-        mu1, var1, inv1 = batch_moments(s1, ss1, m)
+        mu1, var1, inv1 = batch_moments(*global_sums(s1, ss1), m)
         sc1 = g1 * inv1
         sh1 = be1 - mu1 * sc1
         z2, s2, ss2 = seg_head_train.pmid(z1, sc1, sh1, w2, b2, bf16)
-        mu2, var2, inv2 = batch_moments(s2, ss2, m)
+        mu2, var2, inv2 = batch_moments(*global_sums(s2, ss2), m)
         sc2 = g2 * inv2
         sh2 = be2 - mu2 * sc2
         s3, ss3, mx, mn, imax, imin = f2(z2, sc2, sh2, w3, b3, 1, bf16)
-        mu3, var3, inv3 = batch_moments(s3, ss3, m)
+        mu3, var3, inv3 = batch_moments(*global_sums(s3, ss3), m)
         s3c = g3 * inv3
         pos = s3c >= 0
         g = torch.where(pos, mx, mn) * s3c + (be3 - mu3 * s3c)
@@ -406,7 +419,7 @@ class _Trunk3(torch.autograd.Function):
          mu3, inv3, g3, be3, g, idx) = ctx.saved_tensors
         bf16 = ctx.bf16
         bsz, n, _ = x.shape
-        m = bsz * n
+        m = dist.count(bsz * n, True)
         s3c = g3 * inv3
         # BN3's channel terms: zhat at the winners comes back from the
         # pooled output (g3 == 0 guarded, as in the JAX VJP).
@@ -415,17 +428,19 @@ class _Trunk3(torch.autograd.Function):
         s1 = dg.sum(0)
         s2 = (dg * zhat_win).sum(0)
         coef1, coef2 = ((s3c * t / m).expand(bsz, -1).contiguous()
-                        for t in (s1, s2))
+                        for t in global_sums(s1, s2))
         s3dg = (s3c * dg).contiguous()
         dy2, dw3, db3, t1_2, t2_2 = b1(z2, sc2, sh2, w3, b3, mu3, inv3, coef1,
                                        coef2, s3dg, idx, mu2, inv2, 1, bf16)
         # Each BN's reduction sums come from the pass after it, scaled to
         # the coefficients of its dz = dy * sc - coef1 - zhat * coef2.
+        t1g, t2g = global_sums(t1_2, t2_2)
         dy1, dw2, db2, t1_1, t2_1 = seg_head_train.bmid(
-            z2, dy2, sc2, mu2, inv2, sc2 * t1_2 / m, sc2 * t2_2 / m, z1, sc1,
+            z2, dy2, sc2, mu2, inv2, sc2 * t1g / m, sc2 * t2g / m, z1, sc1,
             sh1, w2, mu1, inv1, bf16)
+        t1g, t2g = global_sums(t1_1, t2_1)
         dx, dw1, db1, _ = seg_head_train.b1(z1, dy1, sc1, mu1, inv1,
-                                            sc1 * t1_1 / m, sc1 * t2_1 / m, x,
+                                            sc1 * t1g / m, sc1 * t2g / m, x,
                                             w1, bf16)
         return (dx, dw1, db1, t2_1, t1_1, dw2, db2, t2_2, t1_2, dw3, db3, s2,
                 s1)

@@ -10,14 +10,15 @@ forwards and two backwards, like the reference.
 The attack (``attacks.attack``) runs the model in eval mode, as the
 reference's ``model.eval()`` during attack generation: the BatchNorm
 running statistics are read, not updated, and the model's train mode is
-restored after. It runs under ``ops.dispatch.differentiable_eval``, so
+restored after. It runs under ``ops.dispatch.use_kernels(False)``, so
 no eval kernel launches in it, and in ``cfg.bf16``'s mixed-precision
 scope, as the JAX package's attack (bf16 matmul operands under
 ``--bf16``). The update then launches the
 classifier's training kernels as ``classify.train_step`` does.
 ``epoch_program`` runs a whole epoch, its steps and the classifier's eval
-scan, in one call (``--fused_epoch``). The data parallelism of config 5
-is ROADMAP Queue 1 item 15.
+scan, in one call (``--fused_epoch``). Under data parallelism each rank
+attacks its own rows (the attack is per cloud and calls no collective)
+and the update sums the ranks' gradients (``classify.update``).
 """
 
 from __future__ import annotations

@@ -55,6 +55,14 @@ layer, through ``pointwise_matmul`` and ``maxpool_points``.
 rows from device-resident pools by index, as the runner's default data
 path does; ``epoch_program`` runs a whole epoch, its G+D steps and G's
 eval scan, in one call (``--fused_epoch``).
+
+Under data parallelism (``parallel/dist.py``) ``train_step`` takes the
+rank's rows of both streams: every loss term is the rank's share of the
+global one, G's gradients and metrics are summed over the ranks in one
+bucket before G's optimizer step and D's with ``loss_d`` before D's, so
+every rank takes the same two updates and returns the global metrics;
+the gather forms take the global index plans and keep the rank's
+columns.
 """
 
 from __future__ import annotations
@@ -72,6 +80,7 @@ from adversarial_learning_on_pointclouds_tpu_torch.models import (
     FCDiscriminator, PointNetDenseCls, core,
 )
 from adversarial_learning_on_pointclouds_tpu_torch.ops import dispatch as ops
+from adversarial_learning_on_pointclouds_tpu_torch.parallel import dist
 from adversarial_learning_on_pointclouds_tpu_torch.train import (
     segment, state as state_lib,
 )
@@ -116,6 +125,7 @@ def create_state(cfg: AdversarialConfig, steps_per_epoch: int,
     g_opt, g_sched = g_tx.init(g_model.parameters())
     d_opt, d_sched = d_tx.init(d_model.parameters())
     gen = torch.Generator(device=device).manual_seed(cfg.seed + 1)
+    state_lib.replicate(g_model, d_model)
     return state_lib.GANTrainState(
         g_model, d_model, g_tx, d_tx, g_opt, g_sched, d_opt, d_sched, gen,
         device_step=torch.zeros((), dtype=torch.int64, device=device))
@@ -273,11 +283,17 @@ def train_step(state: state_lib.GANTrainState, x_l: torch.Tensor,
         g_loss, aux = g_loss_fn(state.g_model, state.d_model, x_l, y_l, x_u,
                                 cfg, semi_on)
         g_loss.backward()
+        acc = dist.mean_share(
+            (aux["logp_l"].detach().argmax(-1) == y_l).float())
+        metrics = dist.all_reduce_grads(state.g_model.parameters(), {
+            "loss_g": g_loss.detach(), "loss_ce": aux["l_ce"].detach(),
+            "loss_adv": aux["l_adv"].detach(),
+            "loss_semi": aux["l_semi"].detach(), "acc": acc})
         state.g_optimizer.step()
         state.g_scheduler.step()
 
         if cfg.supervised_only or cfg.self_training:
-            d_loss = torch.zeros_like(g_loss)
+            loss_d = torch.zeros_like(g_loss)
         else:
             state.d_optimizer.zero_grad(set_to_none=True)
             d_loss, _ = d_loss_fn(
@@ -286,16 +302,18 @@ def train_step(state: state_lib.GANTrainState, x_l: torch.Tensor,
                 None if layerwise else torch.cat([aux["d_l"], aux["d_u"]]),
                 (x_l, x_u) if cfg.d_geometry else None)
             d_loss.backward()
+            loss_d = dist.all_reduce_grads(
+                state.d_model.parameters(),
+                {"loss_d": d_loss.detach()})["loss_d"]
             state.d_optimizer.step()
             state.d_scheduler.step()
 
     state.step += 1
     state.device_step += 1
-    acc = (aux["logp_l"].detach().argmax(-1) == y_l).float().mean()
-    return {"loss_g": g_loss.detach(), "loss_ce": aux["l_ce"].detach(),
-            "loss_adv": aux["l_adv"].detach(),
-            "loss_semi": aux["l_semi"].detach(), "loss_d": d_loss.detach(),
-            "acc": acc}
+    return {"loss_g": metrics["loss_g"], "loss_ce": metrics["loss_ce"],
+            "loss_adv": metrics["loss_adv"],
+            "loss_semi": metrics["loss_semi"], "loss_d": loss_d,
+            "acc": metrics["acc"]}
 
 
 def train_steps_scan(state: state_lib.GANTrainState, x_l: torch.Tensor,
@@ -325,7 +343,9 @@ def train_step_gather(state: state_lib.GANTrainState, pool_x: torch.Tensor,
     ``pool_x`` / ``pool_y``) and unlabeled (``idx_u`` into ``pool_u``)
     streams, and the rows are selected on the device (``index_select``),
     so the step sees the same rows as ``train_step`` on gathered host
-    batches."""
+    batches. Under data parallelism the index vectors are the global
+    batch's and each rank gathers its rows."""
+    idx_l, idx_u = dist.shard_rows(idx_l), dist.shard_rows(idx_u)
     return train_step(state, pool_x.index_select(0, idx_l),
                       pool_y.index_select(0, idx_l),
                       pool_u.index_select(0, idx_u), cfg=cfg, g_tx=g_tx,

@@ -24,6 +24,14 @@ takes K stacked host batches (``--scan K``), each a loop of
 the encoder's serving kernels. ``epoch_program`` runs a whole epoch,
 its steps and the eval scan, in one call (``--fused_epoch``,
 ``state.epoch_program_fns``).
+
+Under data parallelism (``parallel/dist.py``) ``train_step`` takes the
+rank's rows of the global batch: the loss and ``acc`` are the rank's
+shares of the global ones, the gradients and the metrics are summed over
+the ranks in one bucket before the optimizer step, so every rank takes
+the same update and returns the global metrics. The eval forms take the
+global batch or plan, run the rank's rows and return every rank's
+outputs.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ from adversarial_learning_on_pointclouds_tpu_torch.data import augment
 from adversarial_learning_on_pointclouds_tpu_torch.models import (
     PointNetCls, core,
 )
+from adversarial_learning_on_pointclouds_tpu_torch.parallel import dist
 from adversarial_learning_on_pointclouds_tpu_torch.train import (
     state as state_lib,
 )
@@ -76,6 +85,7 @@ def create_state(cfg: ClassifyConfig, steps_per_epoch: int, device="cuda",
     tx = make_tx(cfg, steps_per_epoch)
     optimizer, scheduler = tx.init(model.parameters())
     gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1)
+    state_lib.replicate(model)
     return state_lib.TrainState(
         model, tx, optimizer, scheduler, gen,
         device_step=torch.zeros((), dtype=torch.int64, device=dev))
@@ -93,7 +103,7 @@ def loss_fn(model: PointNetCls, points: torch.Tensor, labels: torch.Tensor,
     if cfg.feature_transform:
         loss = loss + losses.FT_REG_WEIGHT * losses.orthogonality_reg(
             trans_feat)
-    acc = (logp.argmax(-1) == labels).float().mean()
+    acc = dist.mean_share((logp.argmax(-1) == labels).float())
     return loss, acc
 
 
@@ -102,18 +112,22 @@ def update(state: state_lib.TrainState, points: torch.Tensor,
            ) -> Dict[str, torch.Tensor]:
     """The supervised update on prepared ``points``: the loss and its
     gradients under ``cfg.bf16``'s mixed-precision scope, one optimizer
-    step and one schedule step, the step counts advanced. Shared with the
-    perturbation trainer (``train/adv_perturb.py``)."""
+    step and one schedule step, the step counts advanced; at world size
+    above 1 the gradients and metrics summed over the ranks first
+    (``dist.all_reduce_grads``). Shared with the perturbation trainer
+    (``train/adv_perturb.py``)."""
     with core.mixed_precision(enabled=cfg.bf16):
         state.optimizer.zero_grad(set_to_none=True)
         loss, acc = loss_fn(state.model, points, labels, cfg,
                             state.generator)
         loss.backward()
+    metrics = dist.all_reduce_grads(state.model.parameters(),
+                                    {"loss": loss.detach(), "acc": acc})
     state.optimizer.step()
     state.scheduler.step()
     state.step += 1
     state.device_step += 1
-    return {"loss": loss.detach(), "acc": acc}
+    return metrics
 
 
 def check_tx(state: state_lib.TrainState, tx: state_lib.Optimizer) -> None:
@@ -147,12 +161,15 @@ def eval_step(model: PointNetCls, points: torch.Tensor, labels: torch.Tensor
               ) -> Dict[str, torch.Tensor]:
     """Eval-mode forward (BN running statistics, no dropout) of one batch
     on the model's device: ``log_probs [B, k]``, ``pred [B]`` and
-    ``correct`` (the batch's correctly classified clouds)."""
+    ``correct`` (the batch's correctly classified clouds). Under data
+    parallelism each rank runs its rows and returns the whole batch's."""
     with eval_mode(model):
-        logp = model(points)[0]
+        logp = model(dist.shard_rows(points))[0]
         pred = logp.argmax(-1)
-        return {"log_probs": logp, "pred": pred,
-                "correct": (pred == labels).sum()}
+        correct = (pred == dist.shard_rows(labels)).sum()
+        return {"log_probs": dist.gather_axis(logp),
+                "pred": dist.gather_axis(pred),
+                "correct": dist.all_reduce_(correct, "sum", "eval")}
 
 
 def eval_scan(model: PointNetCls, pool_x: torch.Tensor, idx: torch.Tensor
@@ -161,11 +178,14 @@ def eval_scan(model: PointNetCls, pool_x: torch.Tensor, idx: torch.Tensor
     on the pool's device) of a device-resident pool, in eval mode (the
     JAX package's one-launch scan, here a loop of eval forwards): the
     predicted class ids ``[S, B]``, on the device, for one readback per
-    pass. Nothing is copied from or read back to the host."""
+    pass. Nothing is copied from or read back to the host. Under data
+    parallelism each rank runs its columns of the plan and returns every
+    rank's predictions."""
     check_plan(idx, pool_x)
     with eval_mode(model):
-        return torch.stack([model(pool_x.index_select(0, ib))[0].argmax(-1)
-                            for ib in idx])
+        preds = torch.stack([model(pool_x.index_select(0, ib))[0].argmax(-1)
+                             for ib in dist.shard_rows(idx, dim=1)])
+        return dist.gather_axis(preds, dim=1)
 
 
 # The whole epoch in one call (--fused_epoch; state_lib.epoch_program_fns).

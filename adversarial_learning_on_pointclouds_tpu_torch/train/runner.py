@@ -27,7 +27,13 @@ How the port differs from the JAX package's runner:
 - the train steps update the state in place and return their metrics;
 - ``--fused_epoch``'s epoch is one Python call of the trainer's kernels
   and plain ops, not one compiled program (a CUDA graph of it is ROADMAP
-  Queue 1 item 6), and there is one device, so no mesh;
+  Queue 1 item 6);
+- several devices are a process group, not a mesh (``parallel/dist.py``):
+  a run with ``num_devices`` resolving to W > 1 runs in each of W ranks
+  (the CLIs spawn them); each rank takes its rows of every batch (the
+  gather forms their columns of the index plans) and its share of each
+  eval pass, whose outputs every rank then holds whole; only rank 0
+  writes logs and checkpoints, and every rank reads ``--model``;
 - the default ShapeNet-part fixture is in the pts layout, in a directory
   of its own (``data/shapenet_part.py``); the default ModelNet40 fixture
   is made in memory (``data/modelnet40.synthetic_modelnet``: the arrays
@@ -72,6 +78,7 @@ from adversarial_learning_on_pointclouds_tpu_torch.data.shapenet_part import (
     ShapeNetPart, make_synthetic_shapenet,
 )
 from adversarial_learning_on_pointclouds_tpu_torch.models import core
+from adversarial_learning_on_pointclouds_tpu_torch.parallel import dist
 from adversarial_learning_on_pointclouds_tpu_torch.train import (
     adv_perturb, adversarial, classify, segment, state as state_lib,
 )
@@ -178,12 +185,39 @@ def _shapenet_arrays(cfg, eval_split: str = "test"):
     return tr, (x_te, s_te, c_te)
 
 
-def _setup(device) -> torch.device:
-    """The run's device (a card raises when there is none), with fp32
-    matmuls kept exact."""
+def _setup(cfg, device) -> torch.device:
+    """The run's device, this rank's card under data parallelism (a card
+    raises when there is none), with fp32 matmuls kept exact. The group
+    must have the ranks ``cfg.num_devices`` asks for
+    (``dist.resolve_world``)."""
     device = state_lib.train_device(device)
+    world = dist.resolve_world(cfg.num_devices, device)
+    if world != dist.world_size():
+        raise ValueError(
+            f"num_devices={cfg.num_devices} is {world} rank(s), but this "
+            f"process runs in a group of {dist.world_size()}: run it "
+            "through the trainer's CLI, which spawns the ranks, or "
+            "parallel.spawn")
     core.exact_fp32()
-    return device
+    return dist.rank_device(device)
+
+
+def _logger(cfg, name: str) -> MetricLogger:
+    """The run's metric logger; it writes on rank 0 alone."""
+    return MetricLogger(cfg.out_dir, name, quiet=cfg.quiet, lag=cfg.log_lag,
+                        enabled=dist.rank() == 0)
+
+
+def _saver(cfg) -> checkpoint.AsyncSaver:
+    """The run's checkpoint writer; it writes on rank 0 alone."""
+    return checkpoint.AsyncSaver(cfg.ckpt_policy if dist.rank() == 0
+                                 else "none")
+
+
+def _own_rows(batches):
+    """Host batches (tuples of arrays) cut to this rank's rows."""
+    for batch in batches:
+        yield tuple(dist.shard_rows(a) for a in batch)
 
 
 def _epoch_end(device) -> float:
@@ -236,8 +270,8 @@ def _single_net_epoch(cfg, mod, state, tx, epoch, device, logger, spe,
         src = ((i,) for i in loader.host_index_iterator(
             n, cfg.batch_size, seed=cfg.seed, epoch=epoch))
     else:
-        src = loader.host_batch_iterator(arrays, cfg.batch_size,
-                                         seed=cfg.seed, epoch=epoch)
+        src = _own_rows(loader.host_batch_iterator(
+            arrays, cfg.batch_size, seed=cfg.seed, epoch=epoch))
     bi = 0
     for batch, stacked in loader.device_batches(
             src, device, k_stack=cfg.scan, prefetch=_prefetch_depth(cfg)):
@@ -351,13 +385,13 @@ def _run_classifier(cfg, mod, name: str, epochs: Optional[int],
     its steps on ModelNet40, the accuracy eval, checkpoints and logs."""
     epochs = epochs if epochs is not None else cfg.epochs
     x_tr, y_tr, x_te, y_te = _modelnet_arrays(cfg)
-    device = _setup(device)
+    device = _setup(cfg, device)
     spe = num_batches(len(x_tr), cfg.batch_size)
     tx = mod.make_tx(cfg, spe)
     state = mod.create_state(cfg, spe, device=device)
     start = _resume(cfg, state, spe)
-    logger = MetricLogger(cfg.out_dir, name, quiet=cfg.quiet, lag=cfg.log_lag)
-    pts_per_step = cfg.batch_size * cfg.num_points
+    logger = _logger(cfg, name)
+    pts_per_step = cfg.batch_size * cfg.num_points // dist.world_size()
     best = 0.0
     pools = pool_te = None
     if cfg.device_data:
@@ -365,7 +399,7 @@ def _run_classifier(cfg, mod, name: str, epochs: Optional[int],
         pools = (*loader.to_device((x_tr, y_tr), device), len(y_tr))
     te_idx, te_mask = _fused_epoch_setup(cfg, len(y_te), spe, device)
     with maybe_trace(cfg.profile_dir), \
-            checkpoint.AsyncSaver(cfg.ckpt_policy) as saver:
+            _saver(cfg) as saver:
         step_h = state.step
         for epoch in range(start, epochs):
             t0 = time.perf_counter()
@@ -412,13 +446,13 @@ def run_segmentation(cfg: SegmentConfig, epochs: Optional[int] = None,
     """Config 3: mirrors ``upstream:train_segmentation.py``."""
     epochs = epochs if epochs is not None else cfg.epochs
     (x_tr, s_tr, c_tr), (x_te, s_te, c_te) = _shapenet_arrays(cfg)
-    device = _setup(device)
+    device = _setup(cfg, device)
     spe = num_batches(len(x_tr), cfg.batch_size)
     tx = segment.make_tx(cfg, spe)
     state = segment.create_state(cfg, spe, device=device)
     start = _resume(cfg, state, spe)
-    logger = MetricLogger(cfg.out_dir, "seg", quiet=cfg.quiet, lag=cfg.log_lag)
-    pts_per_step = cfg.batch_size * cfg.num_points
+    logger = _logger(cfg, "seg")
+    pts_per_step = cfg.batch_size * cfg.num_points // dist.world_size()
     best = 0.0
     table: dict = {}
     pools = pools_te = None
@@ -427,7 +461,7 @@ def run_segmentation(cfg: SegmentConfig, epochs: Optional[int] = None,
         pools = (*loader.to_device((x_tr, s_tr), device), len(s_tr))
     te_idx, te_mask = _fused_epoch_setup(cfg, len(s_te), spe, device)
     with maybe_trace(cfg.profile_dir), \
-            checkpoint.AsyncSaver(cfg.ckpt_policy) as saver:
+            _saver(cfg) as saver:
         step_h = state.step
         for epoch in range(start, epochs):
             t0 = time.perf_counter()
@@ -477,8 +511,8 @@ def _adv_epoch(cfg, state, txs, epoch, device, logger, spe, pts_per_step,
     else:
         lab_host = loader.host_batch_iterator(
             data, cfg.batch_size, seed=cfg.seed, epoch=epoch)
-        paired = ((xl, yl, xu) for (xl, yl), (xu,)
-                  in zip(lab_host, unl_stream))
+        paired = _own_rows((xl, yl, xu) for (xl, yl), (xu,)
+                           in zip(lab_host, unl_stream))
     bi = 0
     for batch, stacked in loader.device_batches(
             paired, device, k_stack=cfg.scan,
@@ -540,13 +574,13 @@ def run_adversarial(cfg: AdversarialConfig, epochs: Optional[int] = None,
     epochs = epochs if epochs is not None else cfg.epochs
     (x_tr, s_tr, c_tr), (x_te, s_te, c_te) = _shapenet_arrays(cfg)
     n_lab = max(int(len(x_tr) * cfg.labeled_ratio), cfg.batch_size)
-    device = _setup(device)
+    device = _setup(cfg, device)
     spe = max(num_batches(n_lab, cfg.batch_size), 1)
     g_tx, d_tx = adversarial.make_txs(cfg, spe)
     state = adversarial.create_state(cfg, spe, device=device)
     start = _resume(cfg, state, spe)
-    logger = MetricLogger(cfg.out_dir, "adv", quiet=cfg.quiet, lag=cfg.log_lag)
-    pts_per_step = 2 * cfg.batch_size * cfg.num_points
+    logger = _logger(cfg, "adv")
+    pts_per_step = 2 * cfg.batch_size * cfg.num_points // dist.world_size()
     best = 0.0
     x_unl = x_tr[n_lab:]
     if len(x_unl) < cfg.batch_size:
@@ -573,7 +607,7 @@ def run_adversarial(cfg: AdversarialConfig, epochs: Optional[int] = None,
     txs = dict(cfg=cfg, g_tx=g_tx, d_tx=d_tx)
     te_idx, te_mask = _fused_epoch_setup(cfg, len(s_te), spe, device)
     with maybe_trace(cfg.profile_dir), \
-            checkpoint.AsyncSaver(cfg.ckpt_policy) as saver:
+            _saver(cfg) as saver:
         step_h = state.step
         for epoch in range(start, epochs):
             t0 = time.perf_counter()

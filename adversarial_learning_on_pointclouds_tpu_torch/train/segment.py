@@ -24,6 +24,12 @@ the three serving kernels (conv1, the three stacks, the seg head), with
 the per-shape category-restricted IoU computed on the device.
 ``epoch_program`` runs a whole epoch, its steps and the eval scan, in
 one call (``--fused_epoch``, ``state.epoch_program_fns``).
+
+Under data parallelism (``parallel/dist.py``) ``train_step`` takes the
+rank's rows of the global batch and returns the global metrics, its
+gradients summed over the ranks before the optimizer step (as
+``train/classify.py``); the eval forms take the global batch or plan
+and return every rank's outputs.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from adversarial_learning_on_pointclouds_tpu_torch.data import augment
 from adversarial_learning_on_pointclouds_tpu_torch.models import (
     PointNetDenseCls, core,
 )
+from adversarial_learning_on_pointclouds_tpu_torch.parallel import dist
 from adversarial_learning_on_pointclouds_tpu_torch.train import (
     state as state_lib,
 )
@@ -73,6 +80,7 @@ def create_state(cfg: SegmentConfig, steps_per_epoch: int, device="cuda",
     tx = make_tx(cfg, steps_per_epoch)
     optimizer, scheduler = tx.init(model.parameters())
     gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1)
+    state_lib.replicate(model)
     return state_lib.TrainState(
         model, tx, optimizer, scheduler, gen,
         device_step=torch.zeros((), dtype=torch.int64, device=dev))
@@ -88,7 +96,7 @@ def loss_fn(model: PointNetDenseCls, points: torch.Tensor,
     if cfg.feature_transform:
         loss = loss + losses.FT_REG_WEIGHT * losses.orthogonality_reg(
             trans_feat)
-    acc = (logp.argmax(-1) == part_labels).float().mean()
+    acc = dist.mean_share((logp.argmax(-1) == part_labels).float())
     return loss, acc
 
 
@@ -112,11 +120,13 @@ def train_step(state: state_lib.TrainState, points: torch.Tensor,
         state.optimizer.zero_grad(set_to_none=True)
         loss, acc = loss_fn(state.model, points, part_labels, cfg)
         loss.backward()
+    metrics = dist.all_reduce_grads(state.model.parameters(),
+                                    {"loss": loss.detach(), "acc": acc})
     state.optimizer.step()
     state.scheduler.step()
     state.step += 1
     state.device_step += 1
-    return {"loss": loss.detach(), "acc": acc}
+    return metrics
 
 
 # Device-resident-pool and K-step forms (see state_lib.gather_step_fns).
@@ -142,12 +152,17 @@ def eval_step(model: PointNetDenseCls, points: torch.Tensor,
               ) -> Dict[str, torch.Tensor]:
     """Eval forward + on-device per-shape IoU (category-restricted) of one
     batch on the model's device: ``pred [B, N]``, ``ious [B]`` and
-    ``correct`` (the batch's correctly labeled points)."""
+    ``correct`` (the batch's correctly labeled points). Under data
+    parallelism each rank runs its rows and returns the whole batch's."""
+    points, part_labels, categories = (
+        dist.shard_rows(t) for t in (points, part_labels, categories))
     with eval_mode(model):
         pred = model(points)[0].argmax(-1)
         ious = metrics.shape_ious_device(pred, part_labels, categories)
-        return {"pred": pred, "ious": ious,
-                "correct": (pred == part_labels).sum()}
+        correct = (pred == part_labels).sum()
+        return {"pred": dist.gather_axis(pred),
+                "ious": dist.gather_axis(ious),
+                "correct": dist.all_reduce_(correct, "sum", "eval")}
 
 
 def check_plan(idx, pool_x: torch.Tensor) -> None:
@@ -172,18 +187,20 @@ def eval_scan(model: PointNetDenseCls, pool_x: torch.Tensor,
     Returns ``{"correct": [S, B], "ious": [S, B]}``, for one readback per
     pass; every metric of the protocol (instance mIoU, point accuracy,
     the per-category table) derives from them. Nothing is copied from or
-    read back to the host."""
+    read back to the host. Under data parallelism each rank runs its
+    columns of the plan and returns every rank's outputs."""
     check_plan(idx, pool_x)
     correct, ious = [], []
     with eval_mode(model):
-        for ib in idx:
+        for ib in dist.shard_rows(idx, dim=1):
             x = pool_x.index_select(0, ib)
             y = pool_y.index_select(0, ib)
             c = pool_c.index_select(0, ib)
             pred = model(x)[0].argmax(-1)
             correct.append((pred == y).sum(-1))
             ious.append(metrics.shape_ious_device(pred, y, c))
-        return {"correct": torch.stack(correct), "ious": torch.stack(ious)}
+        return {"correct": dist.gather_axis(torch.stack(correct), dim=1),
+                "ious": dist.gather_axis(torch.stack(ious), dim=1)}
 
 
 # The whole epoch in one call (--fused_epoch; state_lib.epoch_program_fns).

@@ -10,6 +10,12 @@ as the JAX package's optax schedules are: a staircase decay by
 ``lr_gamma`` every ``lr_step * steps_per_epoch`` steps (StepLR per epoch,
 for whole epochs), or the poly decay ``lr * (1 - step / total) **
 power``.
+
+Under data parallelism (``parallel/dist.py``) a train step takes the
+rank's rows of the global batch, and the gather forms take the global
+``[B]`` (or ``[K, B]``, ``[spe, B]``) index plan and keep the rank's
+columns of it (``dist.shard_rows``). ``replicate`` copies rank 0's
+models to every rank (the JAX package's ``replicate_tree``).
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from typing import Callable, Dict, Iterable, List, Optional
 import torch
 
 from adversarial_learning_on_pointclouds_tpu_torch.models import core
+from adversarial_learning_on_pointclouds_tpu_torch.parallel import dist
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,6 +131,13 @@ def train_device(device) -> torch.device:
     return device
 
 
+def replicate(*models: torch.nn.Module) -> None:
+    """Rank 0's parameters and buffers on every rank (nothing at world
+    size 1)."""
+    for model in models:
+        dist.broadcast_module(model)
+
+
 def stack_metrics(seen: List[Dict[str, torch.Tensor]]
                   ) -> Dict[str, torch.Tensor]:
     """K steps' metric dicts -> each metric stacked over K (the shape a
@@ -143,9 +157,12 @@ def gather_step_fns(train_step: Callable):
     Dataset's ``__getitem__``). ``train_steps_scan`` is the host-data
     K-step form on ``[K, B, ...]`` batches. Each K-step form is a loop of
     ``train_step`` calls, its metrics stacked over K; all forms give the
-    step the same rows, so the same numbers."""
+    step the same rows, so the same numbers. Under data parallelism the
+    gather forms take the global index plan and each rank gathers its
+    columns of it."""
 
     def train_step_gather(state, pool_x, pool_y, idx, *, cfg, tx):
+        idx = dist.shard_rows(idx)
         return train_step(state, pool_x.index_select(0, idx),
                           pool_y.index_select(0, idx), cfg=cfg, tx=tx)
 

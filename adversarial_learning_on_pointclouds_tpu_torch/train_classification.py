@@ -21,13 +21,19 @@ from typing import Optional, Sequence
 from adversarial_learning_on_pointclouds_tpu_torch.configs import (
     parse_classify_args,
 )
+from adversarial_learning_on_pointclouds_tpu_torch.parallel import dist
 from adversarial_learning_on_pointclouds_tpu_torch.train import runner
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     cfg, device = parse_classify_args(argv)
+    ranks = dist.cli_ranks(__spec__.name if __spec__ else __name__,
+                           argv, cfg.num_devices, device)
+    if ranks is not None:
+        return ranks[0]
     result = runner.run_classification(cfg, device=device)
-    print(f"final best accuracy: {result['best_accuracy']:.4f}")
+    if dist.rank() == 0:
+        print(f"final best accuracy: {result['best_accuracy']:.4f}")
     return result
 
 

@@ -76,21 +76,27 @@ class MetricLogger:
     row once ``lag`` newer launches have been enqueued, so the readback
     of step N overlaps steps N+1..N+lag already queued on the device. Rows
     print/append in order, just ``lag`` launches late; ``lag=0`` restores
-    strictly synchronous per-batch prints (the reference's behavior)."""
+    strictly synchronous per-batch prints (the reference's behavior).
+    ``enabled=False`` (a data-parallel rank other than 0) reads the
+    metrics back as rank 0 does but writes and prints nothing."""
 
     def __init__(self, out_dir: str, run_name: str = "train",
-                 quiet: bool = False, lag: int = 2):
-        os.makedirs(out_dir, exist_ok=True)
-        self.quiet = quiet
+                 quiet: bool = False, lag: int = 2, enabled: bool = True):
+        self.enabled = enabled
+        self.quiet = quiet or not enabled
         self.lag = max(int(lag), 0)
         self._pending: collections.deque = collections.deque()
         self.csv_path = os.path.join(out_dir, f"{run_name}_metrics.csv")
-        self._csv_file = open(self.csv_path, "a", newline="")
-        self._csv: Optional[csv.DictWriter] = None
         # Per-epoch summaries get their own CSV (mIoU/acc/train_s/...).
         self.epoch_csv_path = os.path.join(out_dir,
                                            f"{run_name}_epochs.csv")
-        self._epoch_csv_file = open(self.epoch_csv_path, "a", newline="")
+        if enabled:
+            os.makedirs(out_dir, exist_ok=True)
+        self._csv_file = open(self.csv_path if enabled else os.devnull, "a",
+                              newline="")
+        self._csv: Optional[csv.DictWriter] = None
+        self._epoch_csv_file = open(
+            self.epoch_csv_path if enabled else os.devnull, "a", newline="")
         self._epoch_csv: Optional[csv.DictWriter] = None
         self._step_t0 = time.perf_counter()
 
@@ -164,7 +170,8 @@ class MetricLogger:
     def log_epoch(self, epoch: int, **scalars: float) -> None:
         self._drain(0)
         parts = " ".join(f"{k}: {v:.6f}" for k, v in scalars.items())
-        print(f"[epoch {epoch}] {parts}")
+        if self.enabled:
+            print(f"[epoch {epoch}] {parts}")
         row = {"epoch": epoch, **{k: float(v) for k, v in scalars.items()}}
         if self._epoch_csv is None:
             self._epoch_csv = csv.DictWriter(self._epoch_csv_file,

@@ -88,9 +88,9 @@ def _export(model: nn.Module, kind: str, num_points: int,
             "holds aten ops only)")
     if batch is not None and batch < 1:
         raise ValueError(f"batch must be positive or None, got {batch}")
-    if dispatch.differentiable_eval_enabled():
-        raise RuntimeError("export outside ops.dispatch.differentiable_eval"
-                           "(): within it the eval blocks skip the kernels")
+    if not dispatch.kernels_enabled():
+        raise RuntimeError("export outside ops.dispatch.use_kernels(False): "
+                           "within it the eval blocks skip the kernels")
     param = next(model.parameters())
     x = torch.zeros((batch or 2, num_points, 3), device=param.device)
     dims = None if batch is not None else {

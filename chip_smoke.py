@@ -15,7 +15,9 @@ its plain PyTorch version.
 Phases, one or more lines each:
 
 1. device: CUDA must be available; the card's name and power limit;
-2. build: the kernels compile from ``csrc/`` (nvcc, sm_90a);
+2. build: the kernels compile from ``csrc/`` (nvcc, sm_90a); beside it,
+   on one core, phase 24's four helper processes import what they need
+   (``prestart_serving``);
 3. kernels: each eval kernel against its plain version at the serving
    shapes (B=32, N=2500), at a ragged point count and at batch 1, the
    trunk's stack also with its last layer's folded scales negative in
@@ -265,6 +267,22 @@ Phases, one or more lines each:
    ``paired_conv1`` and with ``fused_forward``, timed in turns (median,
    idle share). ``ablation_adversarial_gain --quick`` on the card, modes
    sup adv geo st. The phase must finish within 90 s.
+25. parallel: data parallelism and point sharding (``parallel/``) on two
+   gloo ranks sharing the one card, each held against one process on the
+   same card: the fp32 config-4 G+D step (2 x B=32 x 2048 global, 16
+   clouds a rank a stream; every loss within rel 1e-5, G and D gradients
+   within 2e-2 x (1 + max|g|), tests/test_sharding.py's rule), the bench
+   step (bf16, ``augment_fused``, K=8 through ``train_steps_scan``; its
+   first step at phase 13's bounds, the later ones printed beside what
+   bf16 moves the one process's step), each rank launching what the one
+   process launches, both ranks' parameters and buffers bit-equal after
+   each call; ``augment_fused`` at ``cloud0 = 16`` bit for bit against
+   the one launch's rows 16-31 and against its plain twin; the
+   point-sharded train step at ``train_giant_cloud``'s defaults (N=16384,
+   B=4; loss within rel 1e-5) and ``point_sharded_eval`` at B=32 N=2500
+   against the serving kernels' forward (``BOUND``); the collectives a
+   step issues, their count and bytes. Multi-card speed is not measured
+   (one card). The phase must finish within 120 s.
 
 The line before the last is a JSON object of the kernels' numbers: per
 kernel its time, its plain version's, and its bound (``bound_ms``: the
@@ -276,13 +294,16 @@ counted); the training and
 discriminator passes also carry their bf16 numbers (``bf16_*``, the bound
 at the bf16 tensor-core peak). The last line is
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
-non-zero and no result is printed.
+non-zero and no result is printed. Before them, ``[clock]`` lines give
+each group of phases' seconds, the torch.profiler windows' count and
+seconds, and the measuring helpers' seconds by caller (``COSTS``).
 
     python3 chip_smoke.py
 
 ``--runner`` runs only phases 1-2 and 21 and prints no result line;
 ``--classify`` only phases 1-2 and 22; ``--ablation`` only phases 1-2
-and 23.
+and 23; ``--serve`` only phases 1-2 and 24; ``--parallel`` only phases
+1-2 and 25.
 
 ``--disc-checks SEED`` runs only phases 1-2 and the discriminator's
 checks of phases 9 and 12 on data from generator seed ``SEED``, and
@@ -300,9 +321,12 @@ head, events and device time), the segmenter's forward and
 ``Predictor.predict``. They check nothing and print no result line.
 """
 
+import atexit
+import collections
 import contextlib
 import copy
 import dataclasses
+import functools
 import io
 import json
 import os
@@ -646,6 +670,24 @@ def check_norm(name: str, got: torch.Tensor, ref: torch.Tensor,
                              f"{WHOLE_BOUND:g}")
 
 
+# Seconds the measuring helpers took, by helper and calling function.
+COSTS = collections.Counter()
+
+
+def costed(fn):
+    """Adds ``fn``'s seconds to ``COSTS`` under its name and its
+    caller's."""
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        key = f"{fn.__name__} in {sys._getframe(1).f_code.co_name}"
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            COSTS[key] += time.perf_counter() - t0
+    return wrapper
+
+
 def event_ms(fn, reps: int):
     """CUDA-event times in ms of ``reps`` calls of ``fn``, one by one."""
     out = []
@@ -660,6 +702,7 @@ def event_ms(fn, reps: int):
     return out
 
 
+@costed
 def time_pair(kernel_fn, plain_fn, reps: int = REPS):
     """Median ms of each function over ``reps`` runs, in the order plain,
     kernel, kernel, plain, after a warm-up."""
@@ -704,14 +747,31 @@ def bound(flops, nbytes, peak=FP32_PEAK):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def _device_us(event) -> float:
-    us = getattr(event, "self_device_time_total", None)
-    return event.self_cuda_time_total if us is None else us
+def device_records(prof):
+    """``(device us, records)`` by kernel name of a finished torch.profiler
+    window, summed straight from its trace: ``key_averages()`` makes the
+    same sums and counts through Python objects, and on a window of 10^4
+    records (five bench steps) that took most of the window's time."""
+    from torch.autograd import DeviceType
+
+    dev_us, records = collections.Counter(), collections.Counter()
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            dev_us[e.name()] += e.duration_ns() / 1e3
+            records[e.name()] += 1
+    return dev_us, records
 
 
 PROFILE_TRIES = 5
+# Windows that lose some records, at most: where two windows in a row lose
+# some, the loss mostly repeats, and a third window costs its time for
+# nothing.
+PARTIAL_TRIES = 2
+# Windows taken, of them empty or losing records, and their seconds.
+PROFILE_STATS = {"windows": 0, "empty": 0, "partial": 0, "seconds": 0.0}
 
 
+@costed
 def device_profile(fn, reps: int = 10, counts: dict = None):
     """``{kernel name: device ms per call}`` of ``fn``'s GPU work, from
     torch.profiler (device activity only). Now and then a window records
@@ -720,34 +780,42 @@ def device_profile(fn, reps: int = 10, counts: dict = None):
     raises: a lost reading never enters the output as 0 ms. A window can
     also lose some kernel records (a kernel counted a number of times that
     is not a multiple of ``reps``, where ``fn`` launches the same kernels
-    each call); it is taken again too, and if every window loses some, the
-    first is used and a line says that its time is a lower bound.
-    ``counts``, a dict, receives ``{kernel name: launches per call}`` of
-    the window used."""
+    each call); it is taken again too, up to ``PARTIAL_TRIES`` such
+    windows, and if every one loses some, the first is used and a line
+    says that its time is a lower bound. ``counts``, a dict, receives
+    ``{kernel name: launches per call}`` of the window used."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    partial = None
+    partial, n_partial = None, 0
     for _ in range(PROFILE_TRIES):
-        with profile(activities=[ProfilerActivity.CUDA],
-                     acc_events=True) as prof:
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages() if _device_us(e) > 0]
-        if not events:
+        dev_us, records = device_records(prof)
+        names = [k for k, us in dev_us.items() if us > 0]
+        PROFILE_STATS["windows"] += 1
+        PROFILE_STATS["seconds"] += time.perf_counter() - t0
+        if not names:
+            PROFILE_STATS["empty"] += 1
             phase("profile", "a torch.profiler window recorded no device "
                   "activity; profiling again")
             continue
-        out = {e.key: _device_us(e) / reps / 1e3 for e in events}
-        lost = [(e.key[:40], e.count) for e in events if e.count % reps]
-        seen = {e.key: e.count / reps for e in events}
+        out = {k: dev_us[k] / reps / 1e3 for k in names}
+        lost = [(k[:40], records[k]) for k in names if records[k] % reps]
+        seen = {k: records[k] / reps for k in names}
         if not lost:
             if counts is not None:
                 counts.update(seen)
             return out
+        PROFILE_STATS["partial"] += 1
         partial = partial or (out, lost, seen)
+        n_partial += 1
+        if n_partial == PARTIAL_TRIES:
+            break
     if partial:
         phase("profile", f"every window lost kernel records (counts over "
               f"{reps} calls in the first: {partial[1]}): a device time "
@@ -1601,6 +1669,7 @@ def seg_setup(cfg, gen, seed):
     return model, pts, labels
 
 
+@costed
 def seg_step_runs(cfg, model, pts, labels, tag, counters, switch=False,
                   record=None):
     """One ``segment.train_step`` on the card and on the CPU from the same
@@ -2287,6 +2356,7 @@ def read(counters):
             for k, passes in counters.items()}
 
 
+@costed
 def step_runs(cfg, g_model, d_model, pts, labels, tag, dev,
               wheres=("cuda", "cpu"), switch=False, record=None):
     """One ``adversarial.train_step`` on the card and on the CPU from the
@@ -4388,8 +4458,7 @@ class EpochWindow:
         from torch.profiler import ProfilerActivity, profile
 
         torch.cuda.synchronize()
-        self.prof = profile(activities=[ProfilerActivity.CUDA],
-                            acc_events=True)
+        self.prof = profile(activities=[ProfilerActivity.CUDA])
         self.prof.__enter__()
         self.t0 = time.perf_counter()
 
@@ -4397,9 +4466,7 @@ class EpochWindow:
         torch.cuda.synchronize()
         self.wall = time.perf_counter() - self.t0
         self.prof.__exit__(None, None, None)
-        self.busy = sum(_device_us(e) * 1e-6
-                        for e in self.prof.key_averages()
-                        if _device_us(e) > 0)
+        self.busy = sum(device_records(self.prof)[0].values()) * 1e-6
         self.prof = None
 
     def __enter__(self):
@@ -4827,6 +4894,7 @@ def cls_setup(ft, gen, seed):
     return model, pts, rng.integers(0, CLASSES, B).astype(np.int64)
 
 
+@costed
 def cls_step_runs(mod, cfg, model, pts, labels, wheres=("cuda", "cpu"),
                   masks=None):
     """One ``mod.train_step`` (``classify``) per device from the same
@@ -5620,44 +5688,79 @@ ARTIFACT_PER_FORWARD = {
             "seg_head_fused": 1},
     "cls": {"fused_linear_affine_act": 1, "fused_stack_maxpool": 2,
             "seg_head_fused": 0}}
+# The phase's helper processes start before the build: a fresh process
+# spends most of its time in the phase importing torch and torch.export (a
+# process's first ``torch.export.load`` imports sympy and the tracer),
+# which then runs beside the build, on one core so that nvcc keeps the
+# others (``PINNED``). Each imports what its job needs and waits for the
+# job, one JSON line on its standard input; at the end of its input
+# without a job it exits. Given its job, it takes every core back.
+PINNED = r"""
+import os
+CORES = os.sched_getaffinity(0)
+os.sched_setaffinity(0, {max(CORES)})
+"""
+#
 # A fresh process that reloads artifacts: it imports torch and, for the
-# kernels artifacts, the op registrations alone. It starts with the phase,
-# reaches the card, loads each artifact once its ".done" marker appears,
-# runs it at SERVE_BATCHES on the card (the portable ones also at b=1 on
-# the CPU) and saves the log-probs and the port's modules it had imported
-# once the artifacts were loaded.
-RELOAD = r"""
-import os, sys, time, torch
+# kernels artifacts, the op registrations alone. Given its job, it reaches
+# the card, loads each artifact once its ".done" marker appears and runs it
+# at once at SERVE_BATCHES on the card (the portable ones also at b=1 on the
+# CPU), then saves the log-probs and the port's modules it had imported by
+# the end.
+RELOAD = PINNED + r"""
+import json, os, sys, time, torch
+import torch.export._unlift, torch.export.pt2_archive._package
 from torch.export.passes import move_to_device_pass
-paths, inputs, out, ops = sys.argv[1:5]
+ops = sys.argv[1]
 if ops == "1":
     import adversarial_learning_on_pointclouds_tpu_torch.ops.serving_ops
+line = sys.stdin.readline()
+if not line:
+    raise SystemExit(0)
+os.sched_setaffinity(0, CORES)
+torch.set_num_threads(len(CORES))
+paths, inputs, out = json.loads(line)
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.zeros(1, device="cuda")
 deadline = time.time() + 240
-loaded = {}
-for p in paths.split(","):
+xs = torch.load(inputs)
+runs = [("cuda", b) for b in %s] + ([("cpu", 1)] if ops == "0" else [])
+res = {}
+for p in paths:
     while not os.path.exists(p + ".done"):
         if time.time() > deadline:
             raise SystemExit(p + " was never written")
         time.sleep(0.05)
-    loaded[p] = torch.export.load(p)
-mods = sorted(m for m in sys.modules
-              if m.startswith("adversarial_learning_on_pointclouds_tpu"))
-xs = torch.load(inputs)
-res = {}
-with torch.inference_mode():
-    for p, ep in loaded.items():
-        x = xs[os.path.basename(p).split("_")[0]]
-        runs = [("cuda", b) for b in %s] + ([("cpu", 1)] if ops == "0" else [])
+    ep = torch.export.load(p)
+    x = xs[os.path.basename(p).split("_")[0]]
+    with torch.inference_mode():
         for dev in dict(runs):
             m = move_to_device_pass(ep, dev).module()
             for d, b in runs:
                 if d == dev:
                     res[(p, dev, b)] = m(x[:b].to(dev)).cpu()
+mods = sorted(m for m in sys.modules
+              if m.startswith("adversarial_learning_on_pointclouds_tpu"))
 torch.save({"res": res, "modules": mods}, out)
 """ % (SERVE_BATCHES,)
+# A helper that exports: it imports torch.export and the port and exports
+# a small module once (the tracer's first use), then runs the function of
+# this script its job names, with the job's arguments.
+EXPORTER = PINNED + r"""
+import json, sys
+import torch, torch._dynamo, torch.export
+import torch.export._unlift, torch.export.pt2_archive._package
+import chip_smoke
+from adversarial_learning_on_pointclouds_tpu_torch import serve_bench  # noqa
+torch.export.export(torch.nn.Linear(3, 8), (torch.zeros(2, 3),))
+line = sys.stdin.readline()
+if line:
+    os.sched_setaffinity(0, CORES)
+    torch.set_num_threads(len(CORES))
+    name, *args = json.loads(line)
+    getattr(chip_smoke, name)(*args)
+"""
 
 
 def check_bf16(name, got, ref, tag="serving"):
@@ -5837,11 +5940,9 @@ def replay_launches(served, x, kind, what, tag="serving"):
 
 
 def serve_helper(state_dict, tmp, out):
-    """The phase's second process: the classifier's four artifacts
-    (loaded from ``state_dict``), its kernels artifacts' launches on
-    replay, then ``serve_bench`` at B=32 N=2500; writes what it saw to
-    ``out`` (JSON)."""
-    from adversarial_learning_on_pointclouds_tpu_torch import serve_bench
+    """One of the phase's helper processes: the classifier's four
+    artifacts (loaded from ``state_dict``) and its kernels artifacts'
+    launches on replay; writes what it saw to ``out`` (JSON)."""
     from adversarial_learning_on_pointclouds_tpu_torch.models import (
         PointNetCls, core,
     )
@@ -5860,31 +5961,64 @@ def serve_helper(state_dict, tmp, out):
             replay_launches(serving.serve(exps[(bf16, True)], dev), x, "cls",
                             f"cls {'bf16' if bf16 else 'fp32'} kernels "
                             "artifact", "serving helper")
-        bench = io.StringIO()
-        with redirect_stdout(bench):
-            serve_bench.main(["--model", "seg", "--batch", str(B),
-                              "--num_points", str(N), "--iters", "10",
-                              "--device", "cuda"])
     with open(out, "w") as f:
-        json.dump({"lines": buf.getvalue().splitlines(),
-                   "serve_bench": bench.getvalue().splitlines()}, f)
+        json.dump({"lines": buf.getvalue().splitlines()}, f)
 
 
-def start(cmd, tmp):
-    """A helper process of the phase, its output into a file in ``tmp``
-    (read if it fails)."""
+def bench_helper(out):
+    """The helper process that runs ``serve_bench`` at B=32 N=2500 (its
+    own four exports and six rows); writes its lines to ``out`` (JSON)."""
+    from adversarial_learning_on_pointclouds_tpu_torch import serve_bench
+
+    bench = io.StringIO()
+    with redirect_stdout(bench):
+        serve_bench.main(["--model", "seg", "--batch", str(B),
+                          "--num_points", str(N), "--iters", "10",
+                          "--device", "cuda"])
+    with open(out, "w") as f:
+        json.dump({"serve_bench": bench.getvalue().splitlines()}, f)
+
+
+def prestart_serving():
+    """The serving phase's four helper processes, started now: the
+    classifier's exporter, serve_bench's, and the portable and the kernels
+    artifacts' reloading processes (``RELOAD``, ``EXPORTER``). Each one's
+    output goes into an unnamed file, read if it fails."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [os.path.dirname(os.path.abspath(__file__)),
          os.environ.get("PYTHONPATH", "")]))
-    log = open(os.path.join(tmp, f"helper{len(os.listdir(tmp))}.log"), "w+")
-    proc = subprocess.Popen([sys.executable, *cmd], stdout=log, stderr=log,
-                            env=env)
-    proc.log = log
-    return proc
+    procs = {}
+    for name, cmd in (("cls", ["-c", EXPORTER]), ("bench", ["-c", EXPORTER]),
+                      ("portable", ["-c", RELOAD, "0"]),
+                      ("kernels", ["-c", RELOAD, "1"])):
+        log = tempfile.TemporaryFile("w+")
+        procs[name] = subprocess.Popen([sys.executable, *cmd], stdout=log,
+                                       stderr=log, stdin=subprocess.PIPE,
+                                       text=True, env=env)
+        procs[name].log = log
+    return procs
 
 
-def finish(proc, what, timeout=240):
-    """Wait for a helper; raise with its output unless it ended well."""
+def submit(proc, *job):
+    """Gives a waiting helper its job (JSON) and closes its input."""
+    proc.stdin.write(json.dumps(job) + "\n")
+    proc.stdin.close()
+
+
+def stop(procs):
+    """Ends the helpers still running and closes their outputs."""
+    for proc in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        if proc.stdin and not proc.stdin.closed:
+            proc.stdin.close()
+        proc.log.close()
+
+
+def finish(proc, what, t0, timeout=240):
+    """Wait for a helper; raise with its output unless it ended well, else
+    print the phase's seconds (since ``t0``) by which it had ended."""
     try:
         proc.wait(timeout=timeout)
     except subprocess.TimeoutExpired:
@@ -5894,10 +6028,11 @@ def finish(proc, what, timeout=240):
         proc.log.seek(0)
         raise AssertionError(f"{what} failed ({proc.returncode}):\n"
                              f"{proc.log.read()[-3000:]}")
+    phase("serving", f"{what} had ended by {time.perf_counter() - t0:.1f} s")
 
 
-def serving_phase(dev, card, results=None):
-    """Phase 24."""
+def serving_phase(dev, card, procs, results=None):
+    """Phase 24, with the helper processes ``prestart_serving`` started."""
     from adversarial_learning_on_pointclouds_tpu_torch import infer
     from adversarial_learning_on_pointclouds_tpu_torch.models import core
     from adversarial_learning_on_pointclouds_tpu_torch.utils import serving
@@ -5905,7 +6040,6 @@ def serving_phase(dev, card, results=None):
     t0 = time.perf_counter()
     gen = torch.Generator().manual_seed(SEED + 24)
     models = serve_models(gen, dev)
-    procs = []
     with tempfile.TemporaryDirectory() as tmp:
         paths = {(kind, bf16, kernels): artifact_path(tmp, kind, bf16,
                                                       kernels)
@@ -5916,34 +6050,22 @@ def serving_phase(dev, card, results=None):
         torch.save({k: x for k, (_, _, x) in models.items()}, inputs)
         torch.save(models["cls"][0].state_dict(), cls_sd)
         outs = {k: os.path.join(tmp, f"reload_{k}.pt") for k in (0, 1)}
-        helper_out = os.path.join(tmp, "helper.json")
+        helper_out, bench_out = (os.path.join(tmp, f) for f in (
+            "helper.json", "bench.json"))
         try:
             # Two fresh processes reload the portable and the kernels
             # artifacts as they are written; a third exports the
-            # classifier's and runs serve_bench while this one exports the
-            # segmenter's.
+            # classifier's and a fourth runs serve_bench while this one
+            # exports the segmenter's.
             for kernels in (False, True):
-                procs.append(start(["-c", RELOAD, ",".join(
-                    p for (_, _, k), p in paths.items() if k == kernels),
-                    inputs, outs[int(kernels)], str(int(kernels))], tmp))
-            procs.append(start(["-c", "import sys, chip_smoke; "
-                                "chip_smoke.serve_helper(*sys.argv[1:])",
-                                cls_sd, tmp, helper_out], tmp))
+                submit(procs["kernels" if kernels else "portable"],
+                       [p for (_, _, k), p in paths.items() if k == kernels],
+                       inputs, outs[int(kernels)])
+            submit(procs["cls"], "serve_helper", cls_sd, tmp, helper_out)
+            submit(procs["bench"], "bench_helper", bench_out)
             serve_bf16_checks(card, gen, dev, results)
             phase("serving", f"bf16 kernels checked and timed at "
                   f"{time.perf_counter() - t0:.1f} s")
-            live, cpu = {}, {}
-            for kind, (model, npts, x) in models.items():
-                cpu_model = copy.deepcopy(model).cpu()
-                for bf16 in (False, True):
-                    # The eval forward is per cloud: the CPU's runs once, at
-                    # the largest batch, and its first b rows stand for b.
-                    with torch.inference_mode(), \
-                            core.mixed_precision(enabled=bf16):
-                        for b in SERVE_BATCHES:
-                            live[(kind, bf16, b)] = model(
-                                x[:b].to(dev))[0].cpu()
-                        cpu[(kind, bf16)] = cpu_model(x)[0]
             seg_model, _, x_seg = models["seg"]
             exps = export_artifacts(seg_model, "seg", N, tmp)
             phase("serving", f"the segmenter's artifacts exported at "
@@ -5965,7 +6087,24 @@ def serving_phase(dev, card, results=None):
                   f"{not found}")
             if found:
                 raise AssertionError(f"the portable artifact ran {found}")
-            finish(procs[2], "the serving helper")
+            phase("serving", f"replays and profiles done at "
+                  f"{time.perf_counter() - t0:.1f} s")
+            # The references, made while the other processes reload.
+            live, cpu = {}, {}
+            for kind, (model, npts, x) in models.items():
+                cpu_model = copy.deepcopy(model).cpu()
+                for bf16 in (False, True):
+                    # The eval forward is per cloud: the CPU's runs once, at
+                    # the largest batch, and its first b rows stand for b.
+                    with torch.inference_mode(), \
+                            core.mixed_precision(enabled=bf16):
+                        for b in SERVE_BATCHES:
+                            live[(kind, bf16, b)] = model(
+                                x[:b].to(dev))[0].cpu()
+                        cpu[(kind, bf16)] = cpu_model(x)[0]
+            phase("serving", f"the live and the CPU's forwards done at "
+                  f"{time.perf_counter() - t0:.1f} s")
+            finish(procs["cls"], "the serving helper", t0)
             for kind in models:
                 try:
                     serving.load_exported(paths[(kind, False, True)], "cpu")
@@ -5981,7 +6120,8 @@ def serving_phase(dev, card, results=None):
                 print(line)
             fresh = {}
             for kernels in (False, True):
-                finish(procs[kernels], "the fresh reloading process")
+                finish(procs["kernels" if kernels else "portable"],
+                       "the fresh reloading process", t0)
                 got = torch.load(outs[int(kernels)])
                 phase("serving", f"a fresh process reloaded the "
                       f"{'kernels' if kernels else 'portable'} artifacts, "
@@ -6012,15 +6152,14 @@ def serving_phase(dev, card, results=None):
                   f" the .ply holds {vertices} points")
             if vertices != N:
                 raise AssertionError(f"the .ply holds {vertices} points")
-            for line in helper["serve_bench"]:
+            finish(procs["bench"], "the serve_bench helper", t0)
+            with open(bench_out) as f:
+                bench = json.load(f)
+            for line in bench["serve_bench"]:
                 phase("serving", f"{card}: serve_bench (beside the phase's "
                       f"other work): {line}")
         finally:
-            for proc in procs:
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
-                proc.log.close()
+            stop(procs)
     spent = time.perf_counter() - t0
     phase("serving", f"{card}: the serving phase took {spent:.1f} s (budget "
           f"{SERVE_BUDGET_S:g} s)")
@@ -6377,6 +6516,255 @@ def time_alone(mode: str, root: str, card: str) -> None:
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Data parallelism and point sharding on the one card (phase 25)
+# ---------------------------------------------------------------------------
+
+PAR_BUDGET_S = 120.0
+PAR_RANKS = 2
+PAR_RTOL = 1e-5       # losses, two gloo ranks against one process (fp32)
+PAR_B = 32            # global clouds a stream: 16 a rank
+GIANT_B, GIANT_N = 4, 16384   # train_giant_cloud.py's defaults
+PAR_EVAL = (B, N)     # point_sharded_eval against the serving kernels
+
+
+def par_weights(gen):
+    """A seeded full-width G (random BatchNorm statistics) and D at init,
+    as numpy state dicts: at init sigmoid(D) sits near 1/2 on every point,
+    well above the semi threshold, so no mask entry lies within rounding
+    of it and the losses of two summation orders agree to fp32's
+    rounding."""
+    from adversarial_learning_on_pointclouds_tpu_torch.models import (
+        FCDiscriminator, PointNetDenseCls,
+    )
+
+    g_model = PointNetDenseCls(PARTS, True, generator=gen)
+    randomize_bn(g_model, gen)
+    d_model = FCDiscriminator(PARTS, generator=gen)
+    return {name: {k: v.numpy().copy() for k, v in m.state_dict().items()}
+            for name, m in (("g", g_model), ("d", d_model))}
+
+
+def par_batch(rng, n):
+    pts = [(rng.normal(size=(PAR_B, n, 3)) * rng.uniform(
+        0.5, 2.0, (PAR_B, 1, 3))).astype(np.float32) for _ in range(2)]
+    labels = rng.integers(0, PARTS, (PAR_B, n)).astype(np.int64)
+    return pts[0], labels, pts[1]
+
+
+def par_calls(weights, ranks: bool):
+    """The phase's steps as ``parallel.steps.run_many`` calls on the card:
+    the ranks' (``ranks``) or the one process's."""
+    from adversarial_learning_on_pointclouds_tpu_torch.parallel import steps
+
+    dev = "cuda:0"
+    rng = np.random.default_rng(SEED + 25)
+    step = dict(batch_size=PAR_B, num_points=2048)
+    bench = dict(step, augment=True, bf16=True, pallas_augment=True,
+                 scan=BENCH_K)
+    batches = [par_batch(rng, 2048) for _ in range(BENCH_K)]
+    xg = rng.normal(size=(GIANT_B, GIANT_N, 3)).astype(np.float32)
+    yg = rng.integers(0, PARTS, (GIANT_B, GIANT_N)).astype(np.int64)
+    xe = rng.normal(size=(PAR_EVAL[0], PAR_EVAL[1], 3)).astype(np.float32)
+    seg = dict(num_parts=PARTS, feature_transform=True)
+    calls = [
+        ("fp32", steps.run_steps, dict(kind="adversarial", cfg_kw=step,
+                                       batches=batches[:1], device=dev,
+                                       weights=weights), "float32"),
+        ("bench", steps.run_scan, dict(cfg_kw=bench, batches=batches,
+                                       device=dev, weights=weights),
+         "float32"),
+        ("giant", steps.run_point_train, dict(
+            cfg_kw=dict(num_parts=PARTS, num_points=GIANT_N,
+                        batch_size=GIANT_B, feature_transform=False,
+                        resample=False),
+            x=xg, y=yg, device=dev), "float32"),
+    ]
+    if ranks:
+        calls.append(("eval", steps.run_point_eval, dict(
+            kind="segment", cfg_kw=seg, x=xe, device=dev,
+            weights={"model": weights["g"]}, per_point=True), "float32"))
+    else:
+        calls.append(("eval", steps.eval_forward, dict(
+            kind="segment", cfg_kw=seg, x=xe, device=dev,
+            weights={"model": weights["g"]}), "float32"))
+        calls.append(("bench-fp32", steps.run_scan, dict(
+            cfg_kw=dict(bench, bf16=False), batches=batches, device=dev,
+            weights=weights), "float32"))
+    return calls
+
+
+def par_losses(tag, got, ref, bounds):
+    """Each step's losses (every metric but ``acc``) within ``bounds[k]``
+    (per step) relative; ``acc`` printed beside them."""
+    for i, (g, r) in enumerate(zip(got, ref)):
+        worst = {}
+        for k in r:
+            if k == "acc":
+                continue
+            rel = abs(g[k] - r[k]) / max(abs(r[k]), 1e-8)
+            worst[k] = rel
+            if rel > bounds[i][k]:
+                raise AssertionError(f"{tag} step {i}: {k} {g[k]!r} against "
+                                     f"one process's {r[k]!r}: rel {rel:.3e} "
+                                     f"above {bounds[i][k]:.3g}")
+        phase("parallel", f"{tag} step {i}: losses rel to one process: "
+              + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+              + f"; acc {g['acc']:.6f} vs {r['acc']:.6f}")
+
+
+def par_grads(tag, got, ref):
+    """tests/test_sharding.py's ``_grad_close`` rule per network: every
+    leaf within GRAD_BOUND x (1 + the network's largest |g|)."""
+    for net, grads in ref.items():
+        scale = max(float(np.abs(g).max()) for g in grads.values())
+        worst = max(float(np.abs(got[net][k] - g).max())
+                    for k, g in grads.items())
+        phase("parallel", f"{tag}: {net} gradients, {len(grads)} leaves: "
+              f"max abs difference {worst:.3e} = {worst / (1 + scale):.3e} "
+              f"of (1 + max|g|) (bound {GRAD_BOUND:g})")
+        if worst > GRAD_BOUND * (1 + scale):
+            raise AssertionError(f"{tag}: {net} gradients differ by "
+                                 f"{worst:.3e}")
+
+
+def par_launches(tag, outs, ref):
+    for r, out in enumerate(outs):
+        if out["launches"] != ref["launches"]:
+            raise AssertionError(f"{tag}: rank {r} launched "
+                                 f"{out['launches']}, one process "
+                                 f"{ref['launches']}")
+    launched = {k: v for k, v in ref["launches"].items() if any(v.values())}
+    phase("parallel", f"{tag}: each rank launched what one process "
+          f"launches: {launched}")
+
+
+def par_collectives(tag, out, steps_):
+    per = {k: (c / steps_, b / steps_) for k, (c, b) in
+           out["collectives"].items()}
+    phase("parallel", f"{tag}: collectives a step on rank {out['rank']}: "
+          + ", ".join(f"{k} {c:g} calls {b / 1e6:.3f} MB"
+                      for k, (c, b) in sorted(per.items())))
+
+
+def par_augment(dev):
+    """``augment_fused`` at ``cloud0 = 16`` (the second rank's rows of a
+    32-cloud batch): rows 16-31 of the one launch's output bit for bit,
+    and its plain twin's within phase 12's bound."""
+    from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
+        augment_fused as af,
+    )
+
+    gen = torch.Generator().manual_seed(SEED + 26)
+    x = torch.randn(2 * 16, 2048, 3, generator=gen).to(dev)
+    step = torch.tensor(7, dtype=torch.int64, device=dev)
+    for flags in (dict(rotate=True, jitter=True, dropout=True),
+                  dict(rotate=True, jitter=True, dropout=False)):
+        whole = af.augment_fused(step, x, SEED, 1, **flags)
+        half = af.augment_fused(step, x[16:].contiguous(), SEED, 1,
+                                cloud0=16, **flags)
+        plain = af.augment_fused_plain(step, x[16:].contiguous(), SEED, 1,
+                                       cloud0=16, **flags)
+        check_equal(f"augment_fused cloud0=16 {flags} against the one "
+                    "launch's rows 16-31", [half], [whole[16:]], "parallel")
+        check(f"augment_fused cloud0=16 {flags} against its plain twin "
+              "(phase 12's bound)", half, plain, BOUND, "parallel")
+
+
+def parallel_phase(dev, card):
+    """Phase 25."""
+    import concurrent.futures
+
+    from adversarial_learning_on_pointclouds_tpu_torch.parallel import (
+        dist, steps,
+    )
+
+    t0 = time.perf_counter()
+    weights = par_weights(torch.Generator().manual_seed(SEED + 25))
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        spawned = pool.submit(dist.spawn, steps.run_many, PAR_RANKS,
+                              ["cuda:0"] * PAR_RANKS, "gloo",
+                              (par_calls(weights, True),), PAR_BUDGET_S)
+        par_augment(dev)
+        ref = steps.run_many(par_calls(weights, False))
+        outs = spawned.result()
+    phase("parallel", f"{card}: {PAR_RANKS} gloo ranks on one card "
+          f"(cuda:0) and one process, {time.perf_counter() - t0:.1f} s; "
+          "multi-card speed is not measured (one card)")
+    got = outs[0]
+
+    # The fp32 G+D step, 2 x 32 x 2048 global, 16 clouds a rank a stream.
+    par_losses("fp32 G+D step", got["fp32"]["metrics"],
+               ref["fp32"]["metrics"],
+               [{k: PAR_RTOL for k in ref["fp32"]["metrics"][0]}])
+    par_grads("fp32 G+D step", got["fp32"]["grads"], ref["fp32"]["grads"])
+    par_launches("fp32 G+D step", [o["fp32"] for o in outs], ref["fp32"])
+    par_collectives("fp32 G+D step", got["fp32"], 1)
+
+    # The bench step, K=8 through train_steps_scan. Its first step at
+    # phase 13's bounds (the larger of STEP_BOUND and twice what bf16
+    # moves the one process's step from fp32); later steps ride Adam's
+    # first update, which turns the bf16 rounding of another summation
+    # order into a drift of the size of bf16's own (ROADMAP's trap: whole
+    # runs drift from the first Adam step), so they are printed beside
+    # that yardstick and held finite.
+    yard = ref["bench-fp32"]["metrics"]
+    drift = [{k: abs(b[k] - y[k]) / max(abs(y[k]), 1e-8) for k in b}
+             for b, y in zip(ref["bench"]["metrics"], yard)]
+    par_losses("bench step", got["bench"]["metrics"][:1],
+               ref["bench"]["metrics"][:1],
+               [{k: max(STEP_BOUND, YARD_FACTOR * v) for k, v in
+                 drift[0].items()}])
+    for i, (g, r) in enumerate(zip(got["bench"]["metrics"],
+                                   ref["bench"]["metrics"])):
+        if not all(np.isfinite(v) for v in g.values()):
+            raise AssertionError(f"bench step {i}: {g}")
+        if i:
+            phase("parallel", f"bench step {i}: rel to one process / bf16 "
+                  "against fp32 there: " + ", ".join(
+                      f"{k} {abs(g[k] - r[k]) / max(abs(r[k]), 1e-8):.2e} / "
+                      f"{drift[i][k]:.2e}" for k in r if k != "acc"))
+    par_launches(f"bench step (K={BENCH_K})", [o["bench"] for o in outs],
+                 ref["bench"])
+    par_collectives("bench step", got["bench"], BENCH_K)
+    for name in ("fp32", "bench", "giant"):
+        if not all(o[name]["same"] for o in outs):
+            raise AssertionError(f"{name}: the ranks' parameters differ")
+    phase("parallel", "after the fp32 step, the bench scan and the "
+          "point-sharded step both ranks' parameters and buffers are "
+          "bit-equal")
+
+    # Point sharding: train_giant_cloud.py's defaults, and the eval.
+    par_losses(f"point-sharded train step B={GIANT_B} N={GIANT_N}",
+               got["giant"]["metrics"], ref["giant"]["metrics"],
+               [{k: PAR_RTOL for k in ref["giant"]["metrics"][0]}])
+    par_collectives("point-sharded train step", got["giant"], 1)
+    pe, fe = torch.from_numpy(got["eval"]), torch.from_numpy(ref["eval"])
+    check(f"point_sharded_eval B={PAR_EVAL[0]} N={PAR_EVAL[1]} on "
+          f"{PAR_RANKS} ranks vs the serving kernels' forward", pe, fe,
+          BOUND, "parallel")
+    spent = time.perf_counter() - t0
+    phase("parallel", f"phase 25 took {spent:.1f} s (budget "
+          f"{PAR_BUDGET_S:g} s)")
+    if spent > PAR_BUDGET_S:
+        raise AssertionError(f"phase 25 took {spent:.1f} s, above its "
+                             f"{PAR_BUDGET_S:g} s")
+
+
+class Laps:
+    """Prints, after each group of phases, its seconds and the seconds
+    since the build began (the contract's limit is on the whole run)."""
+
+    def __init__(self, t0: float):
+        self.t0 = self.last = t0
+
+    def __call__(self, what: str) -> None:
+        now = time.perf_counter()
+        phase("clock", f"{what}: {now - self.last:.1f} s ({now - self.t0:.1f}"
+              " s since the build began)")
+        self.last = now
+
+
 def main() -> None:
     import argparse
 
@@ -6403,6 +6791,10 @@ def main() -> None:
     ap.add_argument("--serve", action="store_true",
                     help="run only phases 1-2 and 24 (serving artifacts and "
                          "the eval kernels' bf16 mode; no result line)")
+    ap.add_argument("--parallel", action="store_true",
+                    help="run only phases 1-2 and 25 (data parallelism and "
+                         "point sharding on two gloo ranks; no result "
+                         "line)")
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(
         __file__)), help="with --time: the tree whose port package to time")
     args = ap.parse_args()
@@ -6419,12 +6811,19 @@ def main() -> None:
     card = card.splitlines()[0]
     phase("device", f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}, "
-          f"{torch.cuda.device_count()} visible")
+          f"{torch.cuda.device_count()} visible, {torch.get_num_threads()} "
+          f"CPU threads of {os.cpu_count()} cores")
 
     sys.path.insert(0, os.path.abspath(args.root))
     from adversarial_learning_on_pointclouds_tpu_torch.models import core
     from adversarial_learning_on_pointclouds_tpu_torch.ops import build
     core.exact_fp32()
+    helpers = {}
+    if args.serve or not (args.time or args.runner or args.classify
+                          or args.ablation or args.parallel
+                          or args.disc_checks is not None):
+        helpers = prestart_serving()
+        atexit.register(stop, helpers)
 
     # 2. build
     t0 = time.perf_counter()
@@ -6455,7 +6854,10 @@ def main() -> None:
         ablation_phase(dev, card)
         return
     if args.serve:
-        serving_phase(dev, card)
+        serving_phase(dev, card, helpers)
+        return
+    if args.parallel:
+        parallel_phase(dev, card)
         return
     if args.disc_checks is not None:
         gen = torch.Generator().manual_seed(args.disc_checks)
@@ -6467,32 +6869,56 @@ def main() -> None:
 
     gen = torch.Generator().manual_seed(SEED)
     results = []
+    lap = Laps(t0)
     serve(dev, card, gen, results)
+    lap("serve")
     rec = PassRecord()
     train_kernel_checks(dev, gen, rec)
+    lap("train_kernel_checks")
     cuda_run, launches = train_slice(dev, card, gen)
     train_timing(card, rec, cuda_run, launches, results)
+    lap("train_slice, train_timing")
     disc_kernel_checks(dev, gen, rec)
+    lap("disc_kernel_checks")
     cuda_run, launches = adv_slice(dev, card, gen)
     adv_timing(card, rec, cuda_run, launches, results)
+    lap("adv_slice, adv_timing")
     rec_bf = PassRecord(BF16_BOUND)
     train_kernel_checks(dev, gen, rec_bf, bf16=True)
     disc_kernel_checks(dev, gen, rec_bf, bf16=True)
+    lap("train_kernel_checks, disc_kernel_checks (bf16)")
     groups2_checks(dev, gen, rec_bf)
     augment_checks(dev, gen, rec_bf)
+    lap("groups2_checks, augment_checks")
     bench = bench_slice(dev, card, gen)
     bench_timing(card, rec_bf, results, bench)
+    lap("bench_slice, bench_timing")
     rec_pt, rec_pt_bf = PassRecord(), PassRecord(BF16_BOUND)
     pt_kernel_checks(dev, gen, rec_pt, rec_pt_bf)
+    lap("pt_kernel_checks")
     seg, bench_pt = pt_slice(dev, card, gen)
     pt_timing(card, rec_pt, rec_pt_bf, results, seg, bench_pt)
+    lap("pt_slice, pt_timing")
     rec_st = stack_trunk3_checks(dev, gen)
+    lap("stack_trunk3_checks")
     slice_out = adv_pt_slice(dev, card, gen)
     adv_pt_timing(card, rec_st, slice_out, results)
+    lap("adv_pt_slice, adv_pt_timing")
     runner_phase(dev, card)
+    lap("runner_phase")
     classify_phase(dev, card)
+    lap("classify_phase")
     ablation_phase(dev, card, results)
-    serving_phase(dev, card, results)
+    lap("ablation_phase")
+    serving_phase(dev, card, helpers, results)
+    lap("serving_phase")
+    parallel_phase(dev, card)
+    lap("parallel_phase")
+    phase("clock", "torch.profiler: {windows} windows ({empty} empty, "
+          "{partial} losing records) in {seconds:.1f} s".format(
+              **PROFILE_STATS))
+    for key, sec in COSTS.most_common(25):
+        phase("clock", f"  {sec:7.1f} s  {key}")
 
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {

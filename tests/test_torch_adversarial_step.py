@@ -84,8 +84,19 @@ REFUSED = {
         ValueError, "paired-heads",
         dict(paired_conv1=True, fused_forward=True)),
     "fused_epoch": (None, None, dict(fused_epoch=True)),
-    "num_devices": (NotImplementedError, "item 15", dict(num_devices=2)),
+    # Accepted since data parallelism is ported (parallel/dist.py).
+    "num_devices": (None, None, dict(num_devices=2)),
 }
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this file's CPU work (the suite's parallel
+    workers would otherwise oversubscribe the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _randomize_bn(tree_p, tree_s, rng):

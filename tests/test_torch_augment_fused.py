@@ -51,6 +51,16 @@ MODES = {"rotate": (True, False, False), "jitter": (False, True, False),
          "dropout": (False, False, True), "all": (True, True, True)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this file's CPU work (the suite's parallel
+    workers would otherwise oversubscribe the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("name", sorted(KNOWN))
 def test_philox_known_answers(name):
     ctr, key, want = KNOWN[name]

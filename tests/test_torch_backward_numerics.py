@@ -89,6 +89,16 @@ TC_TILE = 128          # points a tile of F1, F2, Pmid, B4, the head's B1
                        # (kTcRows in csrc/train_bwd_tc.cu)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this file's CPU work (the suite's parallel
+    workers would otherwise oversubscribe the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _bf(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).float()
 

@@ -84,6 +84,16 @@ YARD = 2.0
 N, PARTS = 128, 50
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this file's CPU work (the suite's parallel
+    workers would otherwise oversubscribe the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(a):
     if isinstance(a, torch.Tensor):
         return a.detach().float().numpy()
@@ -420,6 +430,19 @@ def _port_objectives(models, bf16):
 
 
 @pytest.fixture(scope="module")
+def port_objectives(models):
+    """``port_objectives(bf16)``: ``_port_objectives(models, bf16)``, made
+    once for the module (the tests only read it)."""
+    made = {}
+
+    def get(bf16):
+        if bf16 not in made:
+            made[bf16] = _port_objectives(models, bf16)
+        return made[bf16]
+    return get
+
+
+@pytest.fixture(scope="module")
 def jax_objectives(models):
     """The JAX objectives and gradients on the jnp path, ``{bf16: ...}``."""
     return {bf16: _jax_objectives(models, bf16) for bf16 in (False, True)}
@@ -454,9 +477,9 @@ def _grad_err(got, want):
                for k in want) / (1 + scale)
 
 
-def test_bf16_objectives_match_jax(models, jax_objectives):
+def test_bf16_objectives_match_jax(models, jax_objectives, port_objectives):
     ref, yard = jax_objectives[True], jax_objectives[False]
-    total, p_aux, p_d_loss, g, d = _port_objectives(models, True)
+    total, p_aux, p_d_loss, g, d = port_objectives(True)
     pairs = [(total, ref[0], yard[0]), (p_d_loss, ref[3], yard[3])]
     pairs += [(p_aux[k], ref[1][k], yard[1][k])
               for k in ("l_ce", "l_adv", "l_semi", "d_l", "d_u", "logp_l")]
@@ -473,11 +496,11 @@ def test_bf16_objectives_match_jax(models, jax_objectives):
         assert err <= max(GRAD_TOL, YARD * moved), (err, moved)
 
 
-def test_bf16_really_runs(models):
+def test_bf16_really_runs(port_objectives):
     """Planted: the same objectives in fp32 and in bf16 differ (by about
     bf16's rounding, far above fp32's), as the JAX package requires of
     its scope (``tests/test_round2.py:275``, ``test_kernels.py:241``)."""
-    f32, b16 = (_port_objectives(models, bf16) for bf16 in (False, True))
+    f32, b16 = (port_objectives(bf16) for bf16 in (False, True))
     f, b = f32[0].item(), b16[0].item()
     diff = abs(f - b) / abs(f)
     assert 1e-6 < diff < 5e-2, diff

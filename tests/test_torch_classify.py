@@ -496,15 +496,23 @@ def test_run_classification_resumes_bit_for_bit(tmp_path, capsys):
     # the JAX package's refuses); the id is the one it had when it raised.
     pytest.param(parse_classify_args, ["--fused_epoch"], None, "fused_epoch",
                  id="parse_classify_args-flags0-NotImplementedError-item 5"),
-    (parse_classify_args, ["--num_devices", "2"], NotImplementedError,
-     "item 15"),
-    (parse_adv_perturb_args, ["--num_devices", "4"], NotImplementedError,
-     "item 15"),
+    # Accepted since data parallelism is ported (parallel/dist.py); the
+    # ids are the ones they had when they raised.
+    pytest.param(parse_classify_args, ["--num_devices", "2"], None,
+                 "num_devices",
+                 id="parse_classify_args-flags1-NotImplementedError-item 15"),
+    pytest.param(parse_adv_perturb_args, ["--num_devices", "4"], None,
+                 "num_devices",
+                 id="parse_adv_perturb_args-flags2-NotImplementedError-"
+                    "item 15"),
     (parse_adv_perturb_args, ["--no_pallas"], ValueError, "--cpu"),
 ])
 def test_flags_that_raise(parse, flags, err, match):
-    if err is None:   # accepted: ``match`` names the field it sets
-        assert getattr(parse(flags)[0], match) is True
+    if err is None:   # accepted: ``match`` names the field it sets, to
+        # the flag's value (True for a switch)
+        want = int(flags[1]) if len(flags) > 1 else True
+        got = getattr(parse(flags)[0], match)
+        assert got == want and type(got) is type(want)
         return
     with pytest.raises(err, match=match):
         parse(flags)

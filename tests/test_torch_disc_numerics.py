@@ -61,6 +61,16 @@ ROWS_PER_SPLIT = 256   # the dW products' row ranges (ops/launch.py)
 SLOPE = 0.2
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this file's CPU work (the suite's parallel
+    workers would otherwise oversubscribe the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _bf(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).float()
 
@@ -224,12 +234,23 @@ def _plain(pas, x, g, ws, bs, bf16=False):
     return (None, *disc_fused.disc_bwd_dw_plain(x, g, ws, bs, bf16))
 
 
+@functools.lru_cache(maxsize=None)
+def _backward_emulated(prec):
+    """``disc_emulated`` on ``_args()`` at ``prec``, made once for the
+    module (the three backward passes share it); float64 takes the
+    3xTF32 pass's LeakyReLU branches."""
+    x, g, ws, bs = _torch_args()
+    branches = _backward_emulated("3xtf32")[3] if prec == "f64" else None
+    return disc_emulated(x, g, ws, bs, prec, branches)
+
+
 def _emulated(pas, x, g, ws, bs, prec, branches=None):
     """The kernel's ``(dx or logits or None, dws, dbs)`` for ``pas``, and
-    the hidden activations (the float64 control's LeakyReLU branches)."""
+    the hidden activations (the float64 control's LeakyReLU branches: on
+    ``_args()`` those of the 3xTF32 pass, ``_backward_emulated``)."""
     if pas == "fwd":
         return fwd_emulated(x, ws, bs, prec), [], [], None
-    dx, dws, dbs, hs = disc_emulated(x, g, ws, bs, prec, branches)
+    dx, dws, dbs, hs = _backward_emulated(prec)
     dx = dx.reshape(x.shape)
     if pas == "bwd_dx":
         return dx, [], [], hs
@@ -243,7 +264,7 @@ def test_3xtf32_matches_float64_plain_and_jax(pas):
     twin and of the JAX kernel."""
     x, g, ws, bs = _torch_args()
     out, dws, dbs, hs = _emulated(pas, x, g, ws, bs, "3xtf32")
-    rout, rws, rbs, _ = _emulated(pas, x, g, ws, bs, "f64", branches=hs)
+    rout, rws, rbs, _ = _emulated(pas, x, g, ws, bs, "f64")
     pout, pws, pbs = _plain(pas, x, g, ws, bs)
     jout, jws, jbs = _jax(pas)
     assert len(dws) == (5 if pas.startswith("bwd") and pas != "bwd_dx"
@@ -299,7 +320,7 @@ def test_ragged_rows_add_nothing():
     """Rows past m in the last 64-row tile are zero in x with g = 0: the
     tile-by-tile sums equal those of the rows alone (no padding term)."""
     x, g, ws, bs = _torch_args()
-    _, dws, dbs, _ = disc_emulated(x, g, ws, bs, "3xtf32")
+    _, dws, dbs, _ = _backward_emulated("3xtf32")
     pad = lambda t: torch.cat(  # noqa: E731
         [t, torch.zeros(t.shape[0], 20, t.shape[-1])], 1)
     _, pws, pbs, _ = disc_emulated(pad(x), pad(g), ws, bs, "3xtf32")

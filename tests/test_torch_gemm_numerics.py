@@ -50,6 +50,16 @@ WIDTHS = ((3, 64), (64, 128), (128, 1024), (512, 256), (128, PARTS),
           (512, 1))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this file's CPU work (the suite's parallel
+    workers would otherwise oversubscribe the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def tf32_rna(v: torch.Tensor) -> torch.Tensor:
     """``cvt.rna.tf32.f32``: keep 10 of fp32's 23 mantissa bits, rounding
     the 13 dropped ones to nearest, ties away from zero (adding half of

@@ -31,6 +31,16 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NPTS = 128
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this file's CPU work (the suite's parallel
+    workers would otherwise oversubscribe the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def pth(tmp_path_factory):
     params, state = init_segmenter(jax.random.PRNGKey(3), 50,

@@ -41,6 +41,16 @@ from adversarial_learning_on_pointclouds_tpu_torch.train import adversarial
 RTOL = 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this file's CPU work (the suite's parallel
+    workers would otherwise oversubscribe the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _close(a, b, rtol=RTOL):
     a = a.detach().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
     b = b.detach().numpy() if isinstance(b, torch.Tensor) else np.asarray(b)

@@ -50,6 +50,16 @@ RTOL = 1e-4
 N = 516
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this file's CPU work (the suite's parallel
+    workers would otherwise oversubscribe the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(a):
     return a.detach().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 

@@ -76,6 +76,16 @@ GRAD_TOL = 2e-2
 YARD = 2.0
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this file's CPU work (the suite's parallel
+    workers would otherwise oversubscribe the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _randomize_bn(tree_p, tree_s, rng):
     for key, sub in tree_p.items():
         if key.startswith("bn"):

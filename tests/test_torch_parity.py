@@ -27,6 +27,16 @@ torch.set_default_dtype(torch.float32)
 torch.manual_seed(0)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this file's CPU work (the suite's parallel
+    workers would otherwise oversubscribe the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _points(key=1):
     return np.asarray(
         jax.random.normal(jax.random.PRNGKey(key), (B, N, 3)),

@@ -85,6 +85,16 @@ STACKS = {             # widths, activations, last scales negative
 HEAD = (16, 32, (64, 32, 16), 13)   # c_pf, c_g, (c1, c2, c3), parts
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this file's CPU work (the suite's parallel
+    workers would otherwise oversubscribe the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rel(a, b) -> float:
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     assert a.shape == b.shape, (a.shape, b.shape)

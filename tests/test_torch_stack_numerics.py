@@ -88,6 +88,16 @@ ROWS64 = {"rows64"}
 JAX_CHAINS = {"disc-k50", "disc-k53", "relu-1024"}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this file's CPU work (the suite's parallel
+    workers would otherwise oversubscribe the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _bf(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).float()
 

@@ -57,6 +57,16 @@ YARD = 2.0
 BIAS_BEFORE_BN = (2, 6, 10)     # db1, db2, db3 among the 13 gradients
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this file's CPU work (the suite's parallel
+    workers would otherwise oversubscribe the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _args(c_in, seed=0):
     rng = np.random.default_rng(seed)
     f = np.float32
