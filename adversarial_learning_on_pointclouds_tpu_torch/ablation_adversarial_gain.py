@@ -115,28 +115,36 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def fixture(a: argparse.Namespace) -> str:
-    """The sweep's data root: ``--dataset``, or a synthetic fixture in the
-    temporary directory named for its parameters, written once (into a
-    fresh directory renamed into place). The fixture is in the npz
-    layout, the JAX sweep's h5 arrays without ``h5py``: every cloud taken
-    whole (the pts layout would resample each with replacement, another
-    protocol)."""
+    """The sweep's data root: ``--dataset``, or ``synthetic_root`` of the
+    sweep's fixture flags."""
     if a.dataset:
         return a.dataset
-    tag = (f"pointtpu_torch_ablation_npz_{a.num_shapes}x{a.num_points}"
-           + (f"_bj{a.boundary_jitter:g}" if a.boundary_jitter else "")
-           + ("_cl" if a.cluster_parts else "")
-           + (f"_cs{a.cluster_sigma:g}"
-              if a.cluster_parts and a.cluster_sigma != 0.18 else ""))
+    return synthetic_root(a.num_shapes, a.num_points, a.boundary_jitter,
+                          a.cluster_parts, a.cluster_sigma)
+
+
+def synthetic_root(num_shapes: int, num_points: int,
+                   boundary_jitter: float = 0.0, cluster_parts: bool = False,
+                   cluster_sigma: float = 0.18) -> str:
+    """A synthetic ShapeNet-part fixture in the temporary directory named
+    for its parameters, written once (into a fresh directory renamed into
+    place). The fixture is in the npz layout, the JAX sweep's h5 arrays
+    without ``h5py``: every cloud taken whole (the pts layout would
+    resample each with replacement, another protocol)."""
+    tag = (f"pointtpu_torch_ablation_npz_{num_shapes}x{num_points}"
+           + (f"_bj{boundary_jitter:g}" if boundary_jitter else "")
+           + ("_cl" if cluster_parts else "")
+           + (f"_cs{cluster_sigma:g}"
+              if cluster_parts and cluster_sigma != 0.18 else ""))
     root = os.path.join(tempfile.gettempdir(), tag)
     if os.path.isdir(root) and os.listdir(root):
         return root
     tmp = tempfile.mkdtemp(prefix=tag + ".", dir=tempfile.gettempdir())
-    make_synthetic_shapenet(tmp, num_shapes=a.num_shapes,
-                            num_points=a.num_points, layout="npz",
-                            boundary_jitter=a.boundary_jitter,
-                            cluster_parts=a.cluster_parts,
-                            cluster_sigma=a.cluster_sigma)
+    make_synthetic_shapenet(tmp, num_shapes=num_shapes,
+                            num_points=num_points, layout="npz",
+                            boundary_jitter=boundary_jitter,
+                            cluster_parts=cluster_parts,
+                            cluster_sigma=cluster_sigma)
     try:
         os.rename(tmp, root)
     except OSError:  # another sweep put its fixture in place first

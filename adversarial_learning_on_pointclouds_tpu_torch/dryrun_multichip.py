@@ -13,11 +13,14 @@ where rounding grows); point-sharded eval of the segmenter on 2 clouds of
 point-sharded train step (8 clouds of ``64 W`` points, 6 parts, no
 augmentation) against the one-device step (loss rel 1e-5).
 
-The ranks run on the CPU under gloo (``--device cuda`` puts them all on
-the first card, still under gloo), in fp32. After each step every rank
-must hold the same parameters and buffers bit for bit.
+The ranks run on the first card under gloo, as ``chip_smoke.py``'s phase
+25 runs its ranks (``--device cpu``: on the CPU, the kernels' plain
+versions), in fp32; without a card the one-device reference raises
+before any rank starts. After each step every rank must hold the same
+parameters and buffers bit for bit.
 
     python -m adversarial_learning_on_pointclouds_tpu_torch.dryrun_multichip 4
+    python -m adversarial_learning_on_pointclouds_tpu_torch.dryrun_multichip 4 --device cpu
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ EVAL_ATOL = 2e-4
 POINT_TRAIN_RTOL = 1e-5
 
 
-def calls(n: int, device: str = "cpu") -> List[tuple]:
+def calls(n: int, device: str = "cuda") -> List[tuple]:
     """The dry run's checks as ``steps.run_many`` calls, for W = ``n``
     ranks and for one device."""
     batch = 2 * n
@@ -72,7 +75,7 @@ def calls(n: int, device: str = "cpu") -> List[tuple]:
     return out
 
 
-def reference_calls(n: int, device: str = "cpu") -> List[tuple]:
+def reference_calls(n: int, device: str = "cuda") -> List[tuple]:
     """``calls`` as one device runs them; point-sharded eval's reference
     is the model's ordinary forward (``steps.eval_forward``)."""
     out = []
@@ -107,9 +110,11 @@ def check(got: Dict[str, dict], ref: Dict[str, dict], n: int,
             else:
                 assert rel(m[k], r[k]) < rtol, (name, k, m[k], r[k],
                                                 rel(m[k], r[k]))
+        worst = max(rel(m[k], r[k]) for k in r if k != "acc")
         lines.append(f"dryrun_multichip({n}): {name} OK - "
                      + " ".join(f"{k}={v:.4f}" for k, v in m.items())
-                     + f" | {n} ranks == 1 device at rel<{rtol:g}")
+                     + f" | {n} ranks == 1 device at rel<{rtol:g} (worst "
+                     f"{worst:.1e})")
     dmax = float(np.abs(got["point_eval"] - ref["point_eval"]).max())
     assert dmax < EVAL_ATOL, ("point-sharded eval vs one device", dmax)
     lines.append(f"dryrun_multichip({n}): point-sharded eval OK - "
@@ -124,12 +129,18 @@ def check(got: Dict[str, dict], ref: Dict[str, dict], n: int,
     return lines
 
 
-def dryrun_multichip(n: int, device: str = "cpu") -> List[str]:
+def rank_devices(n: int, device: str) -> List[str]:
+    """The ranks' devices: every rank on ``device``, a CUDA one on the
+    first card."""
+    return [device if device == "cpu" else "cuda:0"] * n
+
+
+def dryrun_multichip(n: int, device: str = "cuda") -> List[str]:
     """Run the dry run at W = ``n`` ranks against one device; raises
     ``AssertionError`` on a failed check, else prints and returns the
     report lines."""
     ref = steps.run_many(reference_calls(n, device))
-    got = dist.spawn(steps.run_many, n, [device] * n, "gloo",
+    got = dist.spawn(steps.run_many, n, rank_devices(n, device), "gloo",
                      args=(calls(n, device),))[0]
     lines = check(got, ref, n)
     for line in lines:
@@ -137,13 +148,24 @@ def dryrun_multichip(n: int, device: str = "cpu") -> List[str]:
     return lines
 
 
-def main(argv: Optional[Sequence[str]] = None) -> List[str]:
+def add_device_flag(p: argparse.ArgumentParser) -> None:
+    """``--device``, for the dry runs: ``cuda`` (every rank on the first
+    card) or ``cpu``."""
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="cuda (default): every rank on the first card; "
+                        "cpu: the kernels' plain versions on the CPU")
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("n", nargs="?", type=int, default=4,
                    help="ranks (gloo)")
-    p.add_argument("--device", default="cpu",
-                   help="cpu, or cuda: every rank on the first card")
-    a = p.parse_args(argv)
+    add_device_flag(p)
+    return p.parse_args(argv)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> List[str]:
+    a = parse_args(argv)
     return dryrun_multichip(a.n, a.device)
 
 

@@ -9,17 +9,25 @@ with each rank feeding only its own rows of the batch, as a per-host
 input pipeline would. The launcher runs the same step in one process;
 every metric must agree within 1e-5 of ``1 + |metric|``, and after the
 step every rank's parameters and BatchNorm buffers must equal rank 0's
-bit for bit.
+bit for bit. The ranks and the one process run on the first card (the
+ranks under gloo) unless ``--device cpu`` asks for the CPU; without a
+card the one process raises before any rank starts.
 
     python -m adversarial_learning_on_pointclouds_tpu_torch.multihost_check
+    python -m adversarial_learning_on_pointclouds_tpu_torch.multihost_check --device cpu
 """
 
 from __future__ import annotations
 
+import argparse
 import sys
+from typing import Optional, Sequence
 
 import numpy as np
 
+from adversarial_learning_on_pointclouds_tpu_torch.dryrun_multichip import (
+    add_device_flag, rank_devices,
+)
 from adversarial_learning_on_pointclouds_tpu_torch.parallel import dist, steps
 
 NUM_HOSTS = 2
@@ -28,13 +36,13 @@ B, N = 8, 64
 RTOL = 1e-5
 
 
-def host_rank(cfg_kw: dict, batch: tuple) -> dict:
+def host_rank(cfg_kw: dict, batch: tuple, device: str = "cuda") -> dict:
     """One rank of the simulated slice: its (host, local) place, and
-    ``steps.run_steps`` on its rows."""
+    ``steps.run_steps`` on its rows on ``device``."""
     r = dist.rank()
     host, local = divmod(r, RANKS_PER_HOST)
     assert dist.host_major_rank(host, local, RANKS_PER_HOST) == r
-    out = steps.run_steps("adversarial", cfg_kw, [batch])
+    out = steps.run_steps("adversarial", cfg_kw, [batch], device=device)
     out["host"], out["local"] = host, local
     return out
 
@@ -69,11 +77,16 @@ def check(outs: list, ref: dict) -> list:
     return lines + ["MULTIHOST OK"]
 
 
-def main() -> int:
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    add_device_flag(p)
+    device = p.parse_args(argv).device
     cfg_kw, batch = scenario()
-    ref = steps.run_steps("adversarial", cfg_kw, [batch])["metrics"][0]
-    outs = dist.spawn(host_rank, NUM_HOSTS * RANKS_PER_HOST,
-                      backend="gloo", args=(cfg_kw, batch))
+    ref = steps.run_steps("adversarial", cfg_kw, [batch],
+                          device=device)["metrics"][0]
+    world = NUM_HOSTS * RANKS_PER_HOST
+    outs = dist.spawn(host_rank, world, rank_devices(world, device),
+                      backend="gloo", args=(cfg_kw, batch, device))
     for line in check(outs, ref):
         print(line, flush=True)
     return 0

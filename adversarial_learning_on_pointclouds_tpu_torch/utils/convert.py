@@ -39,23 +39,40 @@ def _bn(sd: Dict[str, torch.Tensor], name: str, p: dict, s: dict) -> None:
 
 def _tnet(sd, prefix: str, params: dict, state: dict) -> None:
     for i in (1, 2, 3):
-        _dense(sd, f"{prefix}.conv{i}", params[f"conv{i}"], conv=True)
-        _bn(sd, f"{prefix}.bn{i}", params[f"bn{i}"], state[f"bn{i}"])
+        _dense(sd, f"{prefix}conv{i}", params[f"conv{i}"], conv=True)
+        _bn(sd, f"{prefix}bn{i}", params[f"bn{i}"], state[f"bn{i}"])
     # The reference names the fc-head BNs bn4/bn5.
     for i, bn_name in ((1, "bn4"), (2, "bn5")):
-        _dense(sd, f"{prefix}.fc{i}", params[f"fc{i}"], conv=False)
-        _bn(sd, f"{prefix}.{bn_name}", params[f"bn_fc{i}"], state[f"bn_fc{i}"])
-    _dense(sd, f"{prefix}.fc3", params["fc3"], conv=False)
+        _dense(sd, f"{prefix}fc{i}", params[f"fc{i}"], conv=False)
+        _bn(sd, f"{prefix}{bn_name}", params[f"bn_fc{i}"], state[f"bn_fc{i}"])
+    _dense(sd, f"{prefix}fc3", params["fc3"], conv=False)
 
 
-def _encoder(sd, params: dict, state: dict) -> None:
-    feat, feat_s = params["feat"], state["feat"]
-    _tnet(sd, "feat.stn", feat["stn"], feat_s["stn"])
+def _encoder(sd, prefix: str, feat: dict, feat_s: dict) -> None:
+    _tnet(sd, f"{prefix}stn.", feat["stn"], feat_s["stn"])
     for i in (1, 2, 3):
-        _dense(sd, f"feat.conv{i}", feat[f"conv{i}"], conv=True)
-        _bn(sd, f"feat.bn{i}", feat[f"bn{i}"], feat_s[f"bn{i}"])
+        _dense(sd, f"{prefix}conv{i}", feat[f"conv{i}"], conv=True)
+        _bn(sd, f"{prefix}bn{i}", feat[f"bn{i}"], feat_s[f"bn{i}"])
     if "fstn" in feat:
-        _tnet(sd, "feat.fstn", feat["fstn"], feat_s["fstn"])
+        _tnet(sd, f"{prefix}fstn.", feat["fstn"], feat_s["fstn"])
+
+
+def tnet_state_dict(params: Dict[str, Any],
+                    bn_state: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX T-Net ``(params, bn_state)`` (``init_tnet``) -> ``STNkd`` /
+    ``STN3d`` state_dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    _tnet(sd, "", params, bn_state)
+    return sd
+
+
+def encoder_state_dict(params: Dict[str, Any],
+                       bn_state: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX encoder ``(params, bn_state)`` (``init_encoder``) ->
+    ``PointNetfeat`` state_dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    _encoder(sd, "", params, bn_state)
+    return sd
 
 
 def classifier_state_dict(params: Dict[str, Any],
@@ -64,7 +81,7 @@ def classifier_state_dict(params: Dict[str, Any],
     """JAX classifier ``(params, bn_state)`` -> ``PointNetCls``
     state_dict."""
     sd: Dict[str, torch.Tensor] = {}
-    _encoder(sd, params, bn_state)
+    _encoder(sd, "feat.", params["feat"], bn_state["feat"])
     for i in (1, 2, 3):
         _dense(sd, f"fc{i}", params[f"fc{i}"], conv=False)
     for i in (1, 2):
@@ -77,7 +94,7 @@ def segmenter_state_dict(params: Dict[str, Any],
     """JAX segmenter ``(params, bn_state)`` -> ``PointNetDenseCls``
     state_dict."""
     sd: Dict[str, torch.Tensor] = {}
-    _encoder(sd, params, bn_state)
+    _encoder(sd, "feat.", params["feat"], bn_state["feat"])
     for i in (1, 2, 3):
         _dense(sd, f"conv{i}", params[f"conv{i}"], conv=True)
         _bn(sd, f"bn{i}", params[f"bn{i}"], bn_state[f"bn{i}"])

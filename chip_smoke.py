@@ -283,6 +283,22 @@ Phases, one or more lines each:
    against the serving kernels' forward (``BOUND``); the collectives a
    step issues, their count and bytes. Multi-card speed is not measured
    (one card). The phase must finish within 120 s.
+26. tools: the tooling twins. ``perf_breakdown`` at the bench's shapes
+   (B=32, N=2048) in bf16 and in fp32, ``--steps 10``, in a fresh
+   process (this one's profiler loses records after the earlier
+   phases): its four lines (wall and device ms, launches) and the three
+   shares on both; each
+   component's wrappers' launches a call must be ``TOOLS_LAUNCHES``'s
+   (the T-Nets one trunk F1/F2/B1 and one pool-fc each, the encoder
+   three and two, G also the seg head's six passes) and every share of
+   device time in (0, 1] (wall shares are the host's, unbounded); each component's loss and gradients on the card against the
+   CPU's plain versions at B=8, N=2048 in fp32 (the loss within
+   ``STEP_BOUND``, gradients within 2e-2 x (1 + max|g|)).
+   ``precision_delta --quick`` on the card (1 seed, 2 epochs, 96 shapes;
+   fp32 then bf16): its JSON has ``PRECISION_r03.json``'s keys and finite
+   values, config 4's training, disc and eval kernels launched, and the
+   two arms' first-epoch losses differ. The phase must finish within
+   60 s.
 
 The line before the last is a JSON object of the kernels' numbers: per
 kernel its time, its plain version's, and its bound (``bound_ms``: the
@@ -303,7 +319,7 @@ seconds, and the measuring helpers' seconds by caller (``COSTS``).
 ``--runner`` runs only phases 1-2 and 21 and prints no result line;
 ``--classify`` only phases 1-2 and 22; ``--ablation`` only phases 1-2
 and 23; ``--serve`` only phases 1-2 and 24; ``--parallel`` only phases
-1-2 and 25.
+1-2 and 25; ``--tools`` only phases 1-2 and 26.
 
 ``--disc-checks SEED`` runs only phases 1-2 and the discriminator's
 checks of phases 9 and 12 on data from generator seed ``SEED``, and
@@ -6751,6 +6767,212 @@ def parallel_phase(dev, card):
                              f"{PAR_BUDGET_S:g} s")
 
 
+# ---------------------------------------------------------------------------
+# The tooling twins (phase 26): perf_breakdown and precision_delta
+# ---------------------------------------------------------------------------
+
+TOOLS_BUDGET_S = 60.0
+TOOLS_STEPS = 10
+TOOLS_GRAD_SHAPE = (8, 2048)   # the card against the CPU's plain versions
+_TNET_CALL = {"trunk2_train": {"F1": 1, "F2": 1, "B1": 1},
+              "pool_fc_epilogue": {"fwd": 1}}
+_ENCODER_CALL = {"trunk2_train": {"F1": 3, "F2": 3, "B1": 3},
+                 "pool_fc_epilogue": {"fwd": 2}}
+# Each component's wrappers' launches a forward + backward.
+TOOLS_LAUNCHES = {
+    "STN3d fwd+bwd": _TNET_CALL,
+    "STNkd(64) fwd+bwd": _TNET_CALL,
+    "encoder (incl. both T-nets) fwd+bwd": _ENCODER_CALL,
+    "full segmenter G fwd+bwd": {
+        **_ENCODER_CALL, "seg_head_train": {"P1": 1, "Pmid": 2, "P4": 1,
+                                            "B4": 1, "Bmid": 2, "B1": 1}},
+}
+# What config 4's runner launches (each at least once): the training
+# passes, the disc passes a step takes, and the eval kernels.
+CONFIG4_PASSES = {"trunk2_train": ("F1", "F2", "B1"),
+                  "pool_fc_epilogue": ("fwd",),
+                  "seg_head_train": ("P1", "Pmid", "P4", "B4", "Bmid", "B1"),
+                  "disc_fused": ("fwd", "bwd_dx", "bwd_dw")}
+PRECISION_KEYS = {"config": {"seeds", "ratio", "nepoch", "batchSize",
+                             "num_points", "num_shapes"},
+                  "run": {"seed", "mode", "best_miou", "wall_s"},
+                  "summary": {"fp32", "bf16", "delta_bf16_minus_fp32"},
+                  "mode": {"mean", "std", "runs"}}
+
+
+def nonzero(launches):
+    return {k: {p: n for p, n in v.items() if n}
+            for k, v in launches.items() if any(v.values())}
+
+
+# perf_breakdown bf16 then fp32 in a fresh process: the full script's
+# earlier profiler windows leave this process's profiler losing records
+# (on an H100 one component's window was short 8 times in a row at the
+# end of the full script, and never in `--tools` alone).
+TOOLS_BREAKDOWN = """
+import json, sys
+from adversarial_learning_on_pointclouds_tpu_torch import perf_breakdown as pb
+for extra in ([], ["--fp32"]):
+    out = pb.main(["--steps", sys.argv[1]] + extra)
+    print("PERF_BREAKDOWN " + json.dumps(out), flush=True)
+"""
+
+
+def tools_breakdowns():
+    """``perf_breakdown`` at the bench's shapes, bf16 and fp32, in a fresh
+    process: its lines printed, its launches a call and device shares
+    checked."""
+    proc = subprocess.run(
+        [sys.executable, "-c", TOOLS_BREAKDOWN, str(TOOLS_STEPS)],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=TOOLS_BUDGET_S)
+    outs = []
+    for line in proc.stdout.splitlines():
+        if line.startswith("PERF_BREAKDOWN "):
+            outs.append(json.loads(line[len("PERF_BREAKDOWN "):]))
+        else:
+            print(line, flush=True)
+    if proc.returncode or len(outs) != 2:
+        raise AssertionError(f"perf_breakdown exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    for out in outs:
+        mode = "bf16" if out["bf16"] else "fp32"
+        for row in out["components"]:
+            got, want = nonzero(row["launches"]), TOOLS_LAUNCHES[row["name"]]
+            if got != want:
+                raise AssertionError(f"perf_breakdown {mode} {row['name']}: "
+                                     f"launched {got} a call, not {want}")
+            if not row["device_ms"] > 0:
+                raise AssertionError(f"{row['name']}: no device time")
+        # On device time a part is at most its whole; on the wall the
+        # host sets the time (a call of the encoder took longer than one
+        # of G).
+        for name, v in out["device_shares"].items():
+            if not 0.0 < v <= 1.0:
+                raise AssertionError(f"perf_breakdown {mode} device share "
+                                     f"{name} = {v}")
+        phase("tools", f"perf_breakdown {mode}: every component launched "
+              "TOOLS_LAUNCHES's kernels a call; T-Net share of G "
+              f"{out['shares']['tnet_of_g']:.1%} wall, "
+              f"{out['device_shares']['tnet_of_g']:.1%} device; profiler "
+              f"windows {[r['windows'] for r in out['components']]}")
+
+
+def tools_grads(dev):
+    """Each ``perf_breakdown`` component's loss and gradients on the card
+    against the CPU's plain versions, fp32, from the same weights."""
+    from adversarial_learning_on_pointclouds_tpu_torch import (
+        perf_breakdown as pb,
+    )
+
+    b, n = TOOLS_GRAD_SHAPE
+    xs = pb.inputs(b, n, "cpu")
+    models = pb.make_models("cpu")
+    for label, key, loss_fn, x_key in pb.COMPONENTS:
+        card = copy.deepcopy(models[key]).to(dev)
+        want = pb.fwd_bwd(models[key], loss_fn, xs[x_key], False)
+        got = pb.fwd_bwd(card, loss_fn, xs[x_key].to(dev), False).cpu()
+        rel = abs(float(got) - float(want)) / max(abs(float(want)), 1.0)
+        ref = {k: p.grad for k, p in models[key].named_parameters()}
+        scale = max(float(g.abs().max()) for g in ref.values())
+        worst, leaf = max((float((p.grad.cpu() - ref[k]).abs().max()), k)
+                          for k, p in card.named_parameters())
+        phase("tools", f"{label} B={b} N={n} fp32, card vs CPU: loss rel "
+              f"{rel:.2e} (bound {STEP_BOUND:g}); {len(ref)} gradients, "
+              f"max abs difference {worst:.3e} ({leaf}) = "
+              f"{worst / (1 + scale):.3e} of (1 + max|g|) (bound "
+              f"{GRAD_BOUND:g})")
+        if rel > STEP_BOUND or worst > GRAD_BOUND * (1 + scale):
+            raise AssertionError(f"{label}: the card's loss or gradients "
+                                 "differ from the CPU's")
+
+
+def first_epoch_losses(path):
+    """``{loss column: [values]}`` of a run's epoch-0 step rows."""
+    import csv
+
+    with open(path, newline="") as f:
+        rows = [r for r in csv.DictReader(f) if r["epoch"] == "0"]
+    if not rows:
+        raise AssertionError(f"{path}: no epoch-0 rows")
+    return {k: [float(r[k]) for r in rows] for k in rows[0]
+            if k.startswith("loss")}
+
+
+def tools_precision():
+    """``precision_delta --quick`` on the card: the schema, finite values,
+    config 4's kernels launched, the arms' first-epoch losses apart."""
+    from adversarial_learning_on_pointclouds_tpu_torch import (
+        precision_delta as pd,
+    )
+    from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
+        encoder_fused, shared_mlp,
+    )
+    from adversarial_learning_on_pointclouds_tpu_torch.parallel import steps
+
+    evals = (shared_mlp.fused_linear_affine_act,
+             encoder_fused.fused_stack_maxpool, encoder_fused.seg_head_fused)
+    path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_tools_"),
+                        "PRECISION_quick.json")
+    argv = ["--quick", "--json", path]
+    steps.reset_launches()
+    for fn in evals:
+        fn.launches = 0
+    out = pd.main(argv)
+    launched = steps.launches()
+    with open(path) as f:
+        written = json.load(f)
+    if written != out or set(written) != {"config", "runs", "summary"}:
+        raise AssertionError(f"precision_delta wrote {sorted(written)}")
+    summary = written["summary"]
+    keys = [(set(written["config"]), PRECISION_KEYS["config"]),
+            (set(summary), PRECISION_KEYS["summary"])]
+    keys += [(set(r), PRECISION_KEYS["run"]) for r in written["runs"]]
+    keys += [(set(summary[m]), PRECISION_KEYS["mode"]) for m in pd.MODES]
+    for got, want in keys:
+        if got != want:
+            raise AssertionError(f"precision_delta JSON keys {sorted(got)}, "
+                                 f"not {sorted(want)}")
+    values = [r["best_miou"] for r in written["runs"]] + [
+        summary["delta_bf16_minus_fp32"]] + [summary[m][k] for m in pd.MODES
+                                             for k in ("mean", "std")]
+    if not all(np.isfinite(v) for v in values):
+        raise AssertionError(f"precision_delta: non-finite {values}")
+    missing = [f"{k} {p}" for k, passes in CONFIG4_PASSES.items()
+               for p in passes if not launched[k][p]]
+    missing += [fn.__name__ for fn in evals if not fn.launches]
+    if missing:
+        raise AssertionError(f"precision_delta --quick launched no {missing}")
+    a = pd.parse_args(argv)
+    arms = {m: first_epoch_losses(os.path.join(pd.run_dir(a, 0, m),
+                                               "adv_metrics.csv"))
+            for m in pd.MODES}
+    if arms["fp32"] == arms["bf16"]:
+        raise AssertionError("precision_delta: the fp32 and bf16 arms' "
+                             "first-epoch losses are equal")
+    if not all(np.isfinite(v) for arm in arms.values()
+               for vals in arm.values() for v in vals):
+        raise AssertionError(f"precision_delta: non-finite losses {arms}")
+    phase("tools", "precision_delta --quick: JSON schema and values, "
+          f"launches {nonzero(launched)}, eval "
+          f"{[fn.launches for fn in evals]}; first-epoch loss_g fp32 "
+          f"{arms['fp32']['loss_g']} vs bf16 {arms['bf16']['loss_g']}")
+
+
+def tools_phase(dev, card):
+    """Phase 26."""
+    t0 = time.perf_counter()
+    tools_breakdowns()
+    tools_grads(dev)
+    tools_precision()
+    spent = time.perf_counter() - t0
+    phase("tools", f"{card}: phase 26 took {spent:.1f} s (budget "
+          f"{TOOLS_BUDGET_S:g} s)")
+    if spent > TOOLS_BUDGET_S:
+        raise AssertionError(f"phase 26 took {spent:.1f} s, above its "
+                             f"{TOOLS_BUDGET_S:g} s")
+
+
 class Laps:
     """Prints, after each group of phases, its seconds and the seconds
     since the build began (the contract's limit is on the whole run)."""
@@ -6795,6 +7017,9 @@ def main() -> None:
                     help="run only phases 1-2 and 25 (data parallelism and "
                          "point sharding on two gloo ranks; no result "
                          "line)")
+    ap.add_argument("--tools", action="store_true",
+                    help="run only phases 1-2 and 26 (perf_breakdown and "
+                         "precision_delta on the card; no result line)")
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(
         __file__)), help="with --time: the tree whose port package to time")
     args = ap.parse_args()
@@ -6820,7 +7045,7 @@ def main() -> None:
     core.exact_fp32()
     helpers = {}
     if args.serve or not (args.time or args.runner or args.classify
-                          or args.ablation or args.parallel
+                          or args.ablation or args.parallel or args.tools
                           or args.disc_checks is not None):
         helpers = prestart_serving()
         atexit.register(stop, helpers)
@@ -6858,6 +7083,9 @@ def main() -> None:
         return
     if args.parallel:
         parallel_phase(dev, card)
+        return
+    if args.tools:
+        tools_phase(dev, card)
         return
     if args.disc_checks is not None:
         gen = torch.Generator().manual_seed(args.disc_checks)
@@ -6914,6 +7142,8 @@ def main() -> None:
     lap("serving_phase")
     parallel_phase(dev, card)
     lap("parallel_phase")
+    tools_phase(dev, card)
+    lap("tools_phase")
     phase("clock", "torch.profiler: {windows} windows ({empty} empty, "
           "{partial} losing records) in {seconds:.1f} s".format(
               **PROFILE_STATS))

@@ -33,7 +33,8 @@ every rank is given whole.
   gradients: losses rel 1e-5, gradients by ``tests/test_sharding.py``'s
   ``_grad_close`` rule (2e-2 of 1 + the largest |g|).
 * ``dryrun_multichip`` at W = 2 and ``multihost_check`` (2 hosts x 2
-  ranks) pass their own checks; the runner at ``--num_devices 2`` (configs
+  ranks) pass their own checks on the CPU (``--device cpu``; both take the
+  card by default and raise without one); the runner at ``--num_devices 2`` (configs
   3 and 4, one epoch on the synthetic fixture) takes W = 1's first step
   and writes from rank 0 alone; the refusals (B % W, ``--num_devices``
   above the cards on CUDA).
@@ -184,16 +185,17 @@ def _calls(w, models, tmp):
         cfg_kw, batch = multihost_check.scenario()
         calls.append(("multihost", multihost_check.host_rank if w == 4
                       else steps.run_steps,
-                      dict(cfg_kw=cfg_kw, batch=batch) if w == 4 else
+                      dict(cfg_kw=cfg_kw, batch=batch, device="cpu")
+                      if w == 4 else
                       dict(kind="adversarial", cfg_kw=cfg_kw,
-                           batches=[batch]), "float32"))
+                           batches=[batch], device="cpu"), "float32"))
     if w in (1, 2):
         calls.append(("jax-cls", steps.run_steps, dict(
             kind="classify", cfg_kw=dict(num_classes=CLASSES, batch_size=B,
                                          num_points=N, dropout=0.0),
             batches=[(x, lab)], weights=models["cls"]), "float32"))
-        drc = (dryrun_multichip.reference_calls(2) if w == 1
-               else dryrun_multichip.calls(2))
+        drc = (dryrun_multichip.reference_calls(2, "cpu") if w == 1
+               else dryrun_multichip.calls(2, "cpu"))
         calls += [(f"dryrun/{n}", fn, kw, dt) for n, fn, kw, dt in drc]
         for mod, kind in (("train_segmentation", "seg"),
                           ("train_adversarial", "adv")):
@@ -480,3 +482,26 @@ def test_num_devices_above_the_cards_raises():
         dist.resolve_world(visible + 1, "cuda")
     assert dist.resolve_world(0, "cpu") == 1
     assert dist.resolve_world(4, "cpu") == 4
+
+
+def test_dry_runs_default_to_the_card(monkeypatch):
+    """``dryrun_multichip`` and ``multihost_check`` take the first card
+    unless ``--device cpu`` asks for the CPU; without a card both raise
+    before any rank starts."""
+    assert dryrun_multichip.parse_args([]).device == "cuda"
+    assert dryrun_multichip.parse_args(["2", "--device", "cpu"]).device \
+        == "cpu"
+    assert dryrun_multichip.rank_devices(2, "cuda") == ["cuda:0"] * 2
+    assert dryrun_multichip.rank_devices(4, "cpu") == ["cpu"] * 4
+    assert {kw["device"] for _, _, kw, _ in dryrun_multichip.calls(2)} \
+        == {"cuda"}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    def no_spawn(*a, **k):
+        raise AssertionError("a rank started without a card")
+
+    monkeypatch.setattr(dist, "spawn", no_spawn)
+    for main in (lambda: dryrun_multichip.main(["2"]),
+                 lambda: multihost_check.main([])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main()
