@@ -40,6 +40,7 @@ from adversarial_learning_on_pointclouds_tpu_torch.configs import (
 from adversarial_learning_on_pointclouds_tpu_torch.data.shapenet_part import (
     make_synthetic_shapenet,
 )
+from adversarial_learning_on_pointclouds_tpu_torch.ops import dispatch
 from adversarial_learning_on_pointclouds_tpu_torch.train import runner
 
 # The sweep configuration's keys, as the JAX package's sweep records them.
@@ -288,6 +289,20 @@ def main(argv=None) -> dict:
             for k, v in c.items() if "-" in k)
         print(f"| {ratio} | {cols} | {ds} |")
     return out
+
+
+def main_plain(argv=None) -> dict:
+    """``main`` with the kernels off: every run inside
+    ``ops.dispatch.use_kernels(False)``, so the model and D run their
+    kernels' plain PyTorch versions on the card (layer by layer, cuBLAS
+    in full fp32: the runner pins ``core.exact_fp32()``). For holding the
+    kernels' arithmetic against a sweep's outcome; called in-process:
+
+        python -c "from adversarial_learning_on_pointclouds_tpu_torch import \\
+            ablation_adversarial_gain as a; a.main_plain([...])"
+    """
+    with dispatch.use_kernels(False):
+        return main(argv)
 
 
 if __name__ == "__main__":

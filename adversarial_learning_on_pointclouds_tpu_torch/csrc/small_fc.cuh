@@ -27,10 +27,11 @@
 // them. The owner then holds every row of its columns and runs the
 // epilogue: the bias; or the batch-BN forward per group of rows / groups
 // contiguous rows (moments centred on the running mean, var = max(m2 -
-// mu_c^2, 0), inv = rsqrt(var + eps), the normalize, ReLU, the stores of
-// z, h, mu, var, inv); or the BN backward of h = relu(bn(zs)) with the
-// product as the cotangent of h (dz, db, dgamma, dbeta); a warp per column
-// and group, lanes over rows, sums by a fixed shuffle tree.
+// mu_c^2, 0), or a second pass where that cancels: bn_fwd_column; inv =
+// rsqrt(var + eps), the normalize, ReLU, the stores of z, h, mu, var,
+// inv); or the BN backward of h = relu(bn(zs)) with the product as the
+// cotangent of h (dz, db, dgamma, dbeta); a warp per column and group,
+// lanes over rows, sums by a fixed shuffle tree.
 //
 // The weight gradient, dw_tile. dW[m, n] = sum over rows of A[r, m] B[r,
 // n], depth = rows: a 64 x 64 output tile a CTA, A and B columns over
@@ -67,6 +68,7 @@ constexpr int kFcMaxRows = 256;
 constexpr int kDwTile = 64;      // a weight-gradient tile, 64 x 64
 constexpr int kDwLd = kDwTile + 8;
 constexpr float kFcEps = 1e-5f;
+constexpr float kFcOnePassLimit = 4096.f;   // core.ONE_PASS_LIMIT
 
 enum FcPro { kProLoad = 0, kProPool = 1 };
 enum FcEpi { kEpiAffine = 0, kEpiBnFwd = 1, kEpiBnBwd = 2 };
@@ -187,7 +189,16 @@ __host__ __device__ inline int fc_floats(const FcLayer& L, bool wk) {
 }
 
 // The BN forward of column c over the rows of group grp (zc[r]: row r's
-// z, the bias added): one warp.
+// z, the bias added): one warp. The moments of d = z - rm in one pass,
+// var = max(m2 - mu_c^2, 0), as the JAX kernels take them, unless m2
+// reaches kFcOnePassLimit times the variance (at a few rows a column's
+// variance can sit near eps with |mu_c| hundreds of times its spread,
+// where one pass keeps about two digits); then the second pass's
+// variance about the mean, mean((d - mu_c)^2). The branch is taken on
+// the second pass's variance, which any order of sums gives to a few
+// ulps (the one-pass form moves by m2 / var ulps: at the limit the
+// kernel's shuffle tree and the twin's sums would pick different
+// branches), and it is the warp's.
 __device__ __forceinline__ void bn_fwd_column(const FcLayer& L,
                                               const float* zc, int c,
                                               int grp) {
@@ -203,7 +214,16 @@ __device__ __forceinline__ void bn_fwd_column(const FcLayer& L,
   s = warp_sum(s);
   q = warp_sum(q);
   const float mu_c = s / bg, m2 = q / bg;
-  const float var = fmaxf(__fsub_rn(m2, __fmul_rn(mu_c, mu_c)), 0.f);
+  float q2 = 0.f;
+  for (int r = r0 + lane; r < r0 + bg; r += 32) {
+    const float d = __fsub_rn(__fsub_rn(zc[r], rm), mu_c);
+    q2 += __fmul_rn(d, d);
+  }
+  const float var2 = warp_sum(q2) / bg;
+  const float var =
+      __fmul_rn(var2, kFcOnePassLimit) > m2
+          ? fmaxf(__fsub_rn(m2, __fmul_rn(mu_c, mu_c)), 0.f)
+          : var2;
   const float inv = rsqrtf(var + kFcEps);
   const float mu = mu_c + rm;
   if (lane == 0) {

@@ -271,6 +271,45 @@ def batch_moments(s: torch.Tensor, ss: torch.Tensor, m: int):
     return mu, var, torch.rsqrt(var + BN_EPS)
 
 
+# A one-pass variance m2 - mu_c^2 keeps log2(m2 / var) fewer bits than
+# fp32's 24. From this multiple on the T-Net fc heads' BN takes its
+# variance from a second pass (``rows_moments``). The limit is where the
+# port's JAX-parity runs over several Adam steps allow it: below it the
+# heads keep the JAX kernels' one-pass rounding, which those runs pin. A
+# second pass in every column moved two of them past their 5e-3
+# (``test_runner_matches_jax_from_the_same_pth`` 5.09e-3,
+# ``test_adversarial_epoch_program_matches_jax`` 5.2e-3) and a limit of
+# 1024 a third (``test_train_steps_scan_matches_jax`` 5.03e-3); at 4096
+# the scan run reads 4.43e-3 (4.44e-3 with one pass everywhere). Any
+# column past it keeps fewer than half of fp32's bits in one pass.
+ONE_PASS_LIMIT = 4096.0
+
+
+def rows_moments(z: torch.Tensor, c: torch.Tensor, groups: int = 1):
+    """``(mean, biased var, 1/sqrt(var + eps))`` per group of ``z [G b,
+    C]``'s rows, each ``[G, C]``: the mean about ``c``, ``mu = c + mean(z
+    - c)``; the variance in one pass about ``c``, ``max(m2 - mu_c^2, 0)``
+    (the JAX kernels' form), unless ``m2`` reaches ``ONE_PASS_LIMIT``
+    times the second pass's variance about the mean, ``mean((z - c -
+    mu_c)^2)``: then that one. At a few rows a column's variance can sit
+    near eps with ``|mu_c|`` hundreds of times its spread, where one pass
+    keeps about two digits. The branch is taken on the second pass's
+    variance, which any order of sums gives to a few ulps, so the kernel
+    and this twin take the same one (on the one-pass variance, which
+    moves by ``m2 / var`` ulps, they would part at the limit). The plain
+    twin of ``csrc/small_fc.cuh``'s BN epilogue (pool-fc, the fc
+    head)."""
+    zc = (z - c).reshape(groups, -1, z.shape[-1])
+    b = zc.shape[1]
+    mu_c = zc.sum(1) / b
+    m2 = (zc * zc).sum(1) / b
+    d = zc - mu_c[:, None]
+    var2 = (d * d).sum(1) / b
+    var = torch.where(var2 * ONE_PASS_LIMIT > m2,
+                      torch.clamp(m2 - mu_c * mu_c, min=0.0), var2)
+    return mu_c + c, var, torch.rsqrt(var + BN_EPS)
+
+
 def update_running(bn: nn.BatchNorm1d, mean: torch.Tensor,
                    var_biased: torch.Tensor, m: int) -> None:
     """torch-style running-statistic update from batch statistics, in

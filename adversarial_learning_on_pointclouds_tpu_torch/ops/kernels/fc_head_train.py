@@ -9,9 +9,9 @@ T-Net head runs under ``use_pallas(training=True)`` (here
 split-K tensor-core product across thread-block clusters (its header
 says what bounds them on the card):
 
-* ``fc_head_fwd``: the forward, with batch-axis moments centred on the
-  running means ``rm1``/``rm2``; it stashes ``z1``/``z2`` and returns the
-  statistics;
+* ``fc_head_fwd``: the forward, with batch-axis moments about the
+  running means ``rm1``/``rm2`` (``core.rows_moments``); it stashes
+  ``z1``/``z2`` and returns the statistics;
 * ``fc_head_bwd``: both BN layers' backward from the stashes, with the
   full batch-statistic terms, given the cotangent of ``h2``.
 
@@ -34,21 +34,15 @@ from typing import Optional
 import torch
 
 from adversarial_learning_on_pointclouds_tpu_torch.models import core
-from adversarial_learning_on_pointclouds_tpu_torch.models.core import BN_EPS
 from adversarial_learning_on_pointclouds_tpu_torch.ops import launch
 
 _op = core.operand
 
 
 def _moments(z: torch.Tensor, c: torch.Tensor):
-    """Batch-axis ``(mean, biased var, 1/sqrt(var + eps))`` of ``z``, the
-    one-pass moments taken about ``c``."""
-    b = z.shape[0]
-    zc = z - c
-    mu_c = zc.sum(0) / b
-    m2 = (zc * zc).sum(0) / b
-    var = torch.clamp(m2 - mu_c * mu_c, min=0.0)
-    return mu_c + c, var, torch.rsqrt(var + BN_EPS)
+    """Batch-axis ``(mean, biased var, 1/sqrt(var + eps))`` of ``z`` about
+    ``c`` (``core.rows_moments``, ``csrc/small_fc.cuh``'s BN epilogue)."""
+    return tuple(t[0] for t in core.rows_moments(z, c))
 
 
 def fc_head_fwd_plain(h, w1, b1, g1, be1, w2, b2, g2, be2, w3, b3, rm1, rm2,

@@ -24,7 +24,6 @@ from typing import Optional
 import torch
 
 from adversarial_learning_on_pointclouds_tpu_torch.models import core
-from adversarial_learning_on_pointclouds_tpu_torch.models.core import BN_EPS
 from adversarial_learning_on_pointclouds_tpu_torch.ops import launch
 
 
@@ -34,7 +33,8 @@ def pool_fc_fwd_plain(mx, mn, s3c, t3, w1, b1, g1, be1, rm1, groups: int,
     * s3c + t3)`` (``relu(mx)`` with ``s3c`` None, the identity fold),
     ``z1 = h @ w1 + b1`` (bf16 operands under ``bf16``; ``h`` is returned
     unrounded), moments of ``z1`` per group of ``B // groups`` rows
-    centred on ``rm1``, ``h1 = relu(bn(z1))``."""
+    about ``rm1`` (``core.rows_moments``, as the kernel takes them), ``h1
+    = relu(bn(z1))``."""
     if s3c is None:
         h = torch.relu(mx)
     else:
@@ -42,12 +42,7 @@ def pool_fc_fwd_plain(mx, mn, s3c, t3, w1, b1, g1, be1, rm1, groups: int,
     z1 = torch.matmul(core.operand(h, bf16), core.operand(w1, bf16)) + b1
     bsz, c1 = z1.shape
     b = bsz // groups
-    zc = (z1 - rm1).reshape(groups, b, c1)
-    mu_c = zc.sum(1) / b
-    m2 = (zc * zc).sum(1) / b
-    var = torch.clamp(m2 - mu_c * mu_c, min=0.0)
-    inv = torch.rsqrt(var + BN_EPS)
-    mu = mu_c + rm1
+    mu, var, inv = core.rows_moments(z1, rm1, groups)
     zhat = (z1.reshape(groups, b, c1) - mu[:, None]) * inv[:, None]
     h1 = torch.relu(zhat * g1 + be1).reshape(bsz, c1)
     return h1, h, z1, mu, var, inv
@@ -147,10 +142,10 @@ def pool_fc_epilogue(mx, mn, s3c, t3, w1, b1, g1, be1,
     """``(mx, mn) [B, c3]`` trunk extrema and the BN3 fold ``(s3c, t3)``
     (``mn``, ``s3c``, ``t3`` None: the identity fold, ``h = relu(mx)``)
     -> pooled feature -> ReLU -> fc1 -> batch-BN (``g1``, ``be1``, moments
-    centred on ``rm1``) -> ReLU. Returns ``(h1 [B, c1], h [B, c3], mu1,
-    var1_biased)``; ``mu1``/``var1`` are ``[c1]`` (``[groups, c1]`` for
-    ``groups > 1``: statistics per contiguous block of ``B // groups``
-    rows) and carry no gradient."""
+    about ``rm1``: ``core.rows_moments``) -> ReLU. Returns ``(h1 [B, c1],
+    h [B, c3], mu1, var1_biased)``; ``mu1``/``var1`` are ``[c1]``
+    (``[groups, c1]`` for ``groups > 1``: statistics per contiguous block
+    of ``B // groups`` rows) and carry no gradient."""
     if rm1 is None:
         rm1 = torch.zeros_like(b1)
     h1, h, mu, var = _PoolFc.apply(groups, mx, mn, s3c, t3, w1, b1, g1, be1,

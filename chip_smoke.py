@@ -43,7 +43,9 @@ Phases, one or more lines each:
 6. train-kernels: every training pass (trunk F1/F2/B1, seg head
    P1/Pmid/P4/B4/Bmid/B1, the pool-fc epilogue at groups 1 and 2, at B=2
    and in ``relu_fc_bn_relu``'s identity fold; in fp32 its z1 and var by
-   the float64 control, with a TF32 control on z1 that must fail)
+   the float64 control, with a TF32 control on z1 that must fail, and at
+   the dry run's 2 x 4 rows on columns whose one-pass variance cancels,
+   its BN's second pass, ``check_ill_moments``)
    against its plain pass at B=32 N=2048 (the config-3 step), B=32
    N=2500 (ragged) and B=2 N=2048, on inputs with negative BN3 gammas and
    duplicated points (max ties go to the first point), the seg head's P1
@@ -145,8 +147,9 @@ Phases, one or more lines each:
    per channel, the first), ``fc_head_train`` at k=3 and 64 in fp32 and
    bf16 (at B=32 in fp32 its forward's z1, z2, var1, var2 and its
    backward's dh, dw1, dw2 by the float64 control, with TF32 controls on
-   z1 and dh that must fail); then each autograd function against its
-   whole-function reference;
+   z1 and dh that must fail; at 4 rows on columns whose one-pass variance
+   cancels in both BNs, their second pass, ``check_ill_moments``); then
+   each autograd function against its whole-function reference;
 16. pallas-train-slice: the config-3 ``train_step`` under the switch at
    B=32 N=2048 (the fused trunks and seg head, the four kernels on conv1,
    the transforms and the fc heads) and N=2500 (every layer through
@@ -281,8 +284,13 @@ Phases, one or more lines each:
    point-sharded train step at ``train_giant_cloud``'s defaults (N=16384,
    B=4; loss within rel 1e-5) and ``point_sharded_eval`` at B=32 N=2500
    against the serving kernels' forward (``BOUND``); the collectives a
-   step issues, their count and bytes. Multi-card speed is not measured
-   (one card). The phase must finish within 120 s.
+   step issues, their count and bytes. ``dryrun_multichip``'s checks at
+   W = 2 (in the phase's two ranks, after their steps) and 4 (its own
+   ranks, beside them) on the card at the module's own bounds, each
+   check's worst relative error printed beside the CPU's (the same dry
+   run in a fresh process a world size beside the phase, its one-process
+   reference on one thread). Multi-card speed is not measured (one
+   card). The phase must finish within 120 s.
 26. tools: the tooling twins. ``perf_breakdown`` at the bench's shapes
    (B=32, N=2048) in bf16 and in fp32, ``--steps 10``, in a fresh
    process (this one's profiler loses records after the earlier
@@ -684,6 +692,68 @@ def check_norm(name: str, got: torch.Tensor, ref: torch.Tensor,
     if rel > WHOLE_BOUND:
         raise AssertionError(f"{name}: error {rel:.3e} above "
                              f"{WHOLE_BOUND:g}")
+
+
+# The fc heads' BN columns where one pass cancels: the dry run's STN3d
+# fc1 column on the card had a spread of 3.7e-3 about 1.85.
+ILL_SD = 3.7e-3
+MOMENT_TIGHT = 1e-5   # element-wise relative: a BN's moments
+
+
+def ill_rows(gen, rows, cols, per, dev):
+    """``[rows, cols]`` positive fp32 rows exact in TF32 (a 3xTF32 product
+    by an identity weight gives them back exactly), each block of ``per``
+    rows about a column mean in [0.5, 2] with a spread near ``ILL_SD``
+    (m2 / var 1e4-3e5, where a one-pass variance keeps about two
+    digits)."""
+    mean = 0.5 + 1.5 * torch.rand(cols, generator=gen, dtype=torch.float64)
+    u = torch.randn(rows // per, per, cols, generator=gen,
+                    dtype=torch.float64)
+    u = (u - u.mean(1, keepdim=True)) / u.std(1, unbiased=False,
+                                               keepdim=True)
+    z = (mean + ILL_SD * u.reshape(rows, cols)).float()
+    return (z.view(torch.int32) & -8192).view(torch.float32).to(dev)
+
+
+def check_ill_moments(name, z, rm, got, groups, tag):
+    """The fc BN epilogue's ``got = (mu, var, inv)`` (``csrc/small_fc.cuh``
+    ``bn_fwd_column``) over ``groups`` groups of the kernel's own ``z``
+    rows, on columns where one pass cancels: element-wise within
+    ``MOMENT_TIGHT`` of the plain twin's moments of that ``z``
+    (``core.rows_moments``) and of the float64 moments of ``d = z - rm``
+    as fp32 forms it (``mu = mean(d) + rm``). The control: the one-pass
+    variance misses float64 there by more than 100x ``MOMENT_TIGHT``, so
+    only the second pass holds. Returns the max abs error against the
+    twin."""
+    from adversarial_learning_on_pointclouds_tpu_torch.models import core
+
+    twin = core.rows_moments(z, rm, groups)
+    d = (z - rm).double().reshape(groups, -1, z.shape[-1])
+    mu_c = d.mean(1)
+    var = ((d - mu_c[:, None]) ** 2).mean(1)
+    ref64 = (mu_c + rm.double(), var, torch.rsqrt(var + core.BN_EPS))
+    worst = 0.0
+    for nm, g, t, r in zip(("mu", "var", "inv"), got, twin, ref64):
+        g = g.reshape(t.shape).double()
+        et = ((g - t.double()).abs() / t.double().abs()).max().item()
+        e64 = ((g - r).abs() / r.abs()).max().item()
+        phase(tag, f"{name} {nm}: max element-wise relative error {et:.3e} "
+              f"against the twin, {e64:.3e} against float64 (bound "
+              f"{MOMENT_TIGHT:g})")
+        if not torch.isfinite(g).all() or max(et, e64) > MOMENT_TIGHT:
+            raise AssertionError(f"{name} {nm}: error above {MOMENT_TIGHT:g}")
+        worst = max(worst, (g - t.double()).abs().max().item())
+    zc = (z - rm).reshape(groups, -1, z.shape[-1])
+    m = zc.mean(1)
+    one = torch.clamp((zc * zc).mean(1) - m * m, min=0.0).double()
+    e1 = ((one - var).abs() / var).max().item()
+    phase(tag, f"{name}: control: the one-pass variance's max element-wise "
+          f"error against float64 {e1:.3e} (more than "
+          f"{100 * MOMENT_TIGHT:g}, as it must)")
+    if e1 <= 100 * MOMENT_TIGHT:
+        raise AssertionError(f"{name}: one pass does not cancel here: the "
+                             "second pass is not held")
+    return worst
 
 
 # Seconds the measuring helpers took, by helper and calling function.
@@ -1575,12 +1645,11 @@ def train_kernel_checks(dev, gen, rec, bf16=False):
 
     # The pool-fc epilogue (csrc/small_fc.cuh's split-K product across
     # clusters) at the T-Net head's shapes: groups 1 (one stream of 32),
-    # 2 (two streams of 32 stacked), two rows in a BN (B=2: the moments
-    # centred on the batch means, which running means track; about a far
-    # centre two rows' one-pass variance cancels to a few bits in any
-    # order of sums), and relu_fc_bn_relu's identity fold (mn, s3c, t3
-    # None: h = relu(mx)). In fp32 z1 and var also by the float64
-    # control, and at B=32 the TF32 control on z1.
+    # 2 (two streams of 32 stacked), two rows in a BN (B=2: the means
+    # centred on the batch means, which running means track), and
+    # relu_fc_bn_relu's identity fold (mn, s3c, t3 None: h = relu(mx)).
+    # In fp32 z1 and var also by the float64 control, and at B=32 the
+    # TF32 control on z1.
     wf = _w(gen, 1024, 512, dev)
     for bsz, groups, ident in ((B, 1, False), (2 * B, 2, False),
                                (2, 1, False), (2 * B, 2, True)):
@@ -1609,6 +1678,8 @@ def train_kernel_checks(dev, gen, rec, bf16=False):
     if bf16:   # the bf16 functions are held to the CPU by the bench step
         torch.cuda.synchronize()
         return
+
+    pool_fc_ill_checks(dev, rec, ptag)
 
     # Each autograd function against its whole-function reference.
     bsz, n = B, TRAIN_N
@@ -3203,6 +3274,72 @@ def check_rounded(name, got, ref, tag="pallas-train-kernels"):
     return (got.double() - ref.double()).abs().max().item()
 
 
+def pool_fc_ill_checks(dev, rec, ptag):
+    """The pool-fc epilogue's BN second pass (``csrc/small_fc.cuh``
+    ``bn_fwd_column``) at the dry run's paired-head rows, 2 x 4 (groups
+    2), in the identity fold: ``ill_rows`` columns, where one pass
+    cancels, and running means near 0, away from the batch means in [0.5,
+    2] (m2 / var above 5e3 in every column), as at a run's first steps;
+    against the plain twin, then ``check_ill_moments``. A generator of
+    its own: the other checks draw what they drew before."""
+    from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
+        pool_fc_epilogue as pf,
+    )
+
+    gi = torch.Generator().manual_seed(SEED + 6)
+    tag = "B=8 groups=2 identity, one pass cancels"
+    eye = torch.eye(512, 1024, device=dev).t()
+    a = [ill_rows(gi, 8, 1024, 4, dev), None, None, None, eye,
+         torch.zeros(512, device=dev), _gam(gi, 512, dev),
+         _r(gi, 512, dev=dev), _r(gi, 512, scale=0.05, dev=dev), 2]
+    with torch.no_grad():
+        got, ref = pf.pool_fc_fwd(*a), pf.pool_fc_fwd_plain(*a)
+        rec.cmp("pool_fc_epilogue", "fwd", tag,
+                ("h1", "h", "z1", "mu", "var", "inv"), got, ref, False, a,
+                phase_tag=ptag)
+        d = check_ill_moments(f"pool_fc_epilogue fwd {tag}", got[2], a[8],
+                              got[3:], 2, ptag)
+    key = ("pool_fc_epilogue", "fwd")
+    rec.err[key] = max(rec.err.get(key, 0.0), d)
+
+
+def fc_head_ill_checks(dev, rec, tag):
+    """The fc head's two BNs' second pass at 4 rows: fc1 gives back the
+    ``ill_rows``' first 512 columns, BN1's affine (spread ``ILL_SD``
+    about [0.5, 2]) makes h1's columns ill too and fc2 gives back their
+    first 256; running means near 0, as ``pool_fc_ill_checks``'; against
+    the plain forward on the kernel's own stashes (``fc_head_layers``),
+    then ``check_ill_moments`` on both BNs. A generator of its own: the
+    other checks draw what they drew before."""
+    from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
+        fc_head_train as fh,
+    )
+
+    with torch.no_grad():
+        gi = torch.Generator().manual_seed(SEED + 15)
+        args = fc_head_args(gi, 4, 3, dev)
+        args[0] = ill_rows(gi, 4, 1024, 4, dev)
+        args[1] = torch.eye(512, 1024, device=dev).t()
+        args[2] = torch.zeros(512, device=dev)
+        args[3] = torch.full((512,), ILL_SD, device=dev)
+        args[4] = 0.5 + 1.5 * torch.rand(512, generator=gi).to(dev)
+        args[5] = torch.eye(256, 512, device=dev).t()
+        args[6] = torch.zeros(256, device=dev)
+        args[11], args[12] = (_r(gi, c, scale=0.05, dev=dev)
+                              for c in (512, 256))
+        t = "B=4 k=3, one pass cancels in both BNs"
+        got = fh.fc_head_fwd(*args, False)
+        rec.cmp("fc_head_train", "fwd", t, ("out", "z1", "z2", "mu1",
+                "var1", "inv1", "mu2", "var2", "inv2"), got,
+                fc_head_layers(got, args, False), False, (*args, False),
+                phase_tag=tag, bound=BOUND)
+        d = max(check_ill_moments(f"fc_head_train fwd {t} BN{i}", got[i],
+                                  args[10 + i], got[3 * i:3 * i + 3], 1, tag)
+                for i in (1, 2))
+        key = ("fc_head_train", "fwd")
+        rec.err[key] = max(rec.err.get(key, 0.0), d)
+
+
 def fc_head_args(gen, bsz, k, dev):
     """Inputs of ``fc_head_fwd``: pooled ReLU features, the three layers,
     both BN affines and nonzero running means."""
@@ -3337,11 +3474,8 @@ def pt_kernel_checks(dev, gen, rec, rec_bf):
             for k in (3, 64):
                 args = fc_head_args(gen, bsz, k, dev)
                 if bsz == 2:
-                    # Two rows: the one-pass variance about a random
-                    # centre cancels to a few bits (an fp32 sum-order
-                    # difference moved inv by 2e-2 here), so centre the
-                    # moments on the batch means, which running means
-                    # track.
+                    # Two rows: centre the moments on the batch means,
+                    # which running means track.
                     ref = fh.fc_head_fwd_plain(*args)
                     args[11], args[12] = ref[3], ref[6]
                 for bf16, r in ((False, rec), (True, rec_bf)):
@@ -3405,6 +3539,7 @@ def pt_kernel_checks(dev, gen, rec, rec_bf):
                                               f"{t}", got[i], ref[i])
                             key = ("fc_head_train", "bwd")
                             r.err[key] = max(r.err.get(key, 0.0), d)
+    fc_head_ill_checks(dev, rec, tag)
     torch.cuda.synchronize()
 
     # Each autograd function against its whole-function reference.
@@ -6542,6 +6677,7 @@ PAR_RTOL = 1e-5       # losses, two gloo ranks against one process (fp32)
 PAR_B = 32            # global clouds a stream: 16 a rank
 GIANT_B, GIANT_N = 4, 16384   # train_giant_cloud.py's defaults
 PAR_EVAL = (B, N)     # point_sharded_eval against the serving kernels
+DRY_WORLDS = (2, 4)   # dryrun_multichip's world sizes on the card
 
 
 def par_weights(gen):
@@ -6687,6 +6823,65 @@ def par_augment(dev):
               "(phase 12's bound)", half, plain, BOUND, "parallel")
 
 
+# dryrun_multichip on the CPU in a fresh process (its steps reset the
+# kernels' launch counters, which this process's steps read), one a world
+# size, its one-process reference on one thread as its ranks run: each
+# check's worst relative error, one JSON line.
+DRY_CPU = """
+import json, sys
+from adversarial_learning_on_pointclouds_tpu_torch import dryrun_multichip
+print(json.dumps({n: dryrun_multichip.worst(*dryrun_multichip.run(int(n),
+                                                                  "cpu"))
+                  for n in sys.argv[1:]}))
+"""
+
+
+def dry_calls(n, ranks):
+    """``dryrun_multichip``'s checks at W = ``n`` on the card as
+    ``run_many`` calls named ``dry<n>/<check>``: the ranks' (``ranks``)
+    or the one process's."""
+    from adversarial_learning_on_pointclouds_tpu_torch import (
+        dryrun_multichip as dry,
+    )
+
+    calls = dry.calls(n, "cuda") if ranks else dry.reference_calls(n, "cuda")
+    return [(f"dry{n}/{name}", fn, kw, dtype)
+            for name, fn, kw, dtype in calls]
+
+
+def dry_results(out, n):
+    return {k.split("/", 1)[1]: v for k, v in out.items()
+            if k.startswith(f"dry{n}/")}
+
+
+def par_dryruns(runs, cpu_procs):
+    """``dryrun_multichip``'s checks at each of ``DRY_WORLDS`` (``runs``:
+    ``{n: (rank 0's results, the one process's)}``, every rank on the
+    first card) at the module's own bounds, each check's worst relative
+    error (the point-sharded eval: max |delta|) printed beside the CPU's
+    (``cpu_procs``: ``DRY_CPU`` a world size, running beside the
+    phase)."""
+    from adversarial_learning_on_pointclouds_tpu_torch import (
+        dryrun_multichip as dry,
+    )
+
+    cpu_worst = {}
+    for proc in cpu_procs:
+        out, err = proc.communicate(timeout=PAR_BUDGET_S)
+        if proc.returncode:
+            raise AssertionError(f"dryrun_multichip on the CPU exited "
+                                 f"{proc.returncode}: {err[-3000:]}")
+        cpu_worst.update(json.loads(out.strip().splitlines()[-1]))
+    for n, (got, ref) in runs.items():
+        card_worst = dry.worst(got, ref)
+        phase("parallel", f"dryrun_multichip({n}) on the card / the CPU, "
+              "worst rel (eval: max|delta|): " + ", ".join(
+                  f"{k} {v:.2e} / {cpu_worst[str(n)][k]:.2e}"
+                  for k, v in card_worst.items()))
+        for line in dry.check(got, ref, n):
+            phase("parallel", line)
+
+
 def parallel_phase(dev, card):
     """Phase 25."""
     import concurrent.futures
@@ -6697,13 +6892,43 @@ def parallel_phase(dev, card):
 
     t0 = time.perf_counter()
     weights = par_weights(torch.Generator().manual_seed(SEED + 25))
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        spawned = pool.submit(dist.spawn, steps.run_many, PAR_RANKS,
-                              ["cuda:0"] * PAR_RANKS, "gloo",
-                              (par_calls(weights, True),), PAR_BUDGET_S)
-        par_augment(dev)
-        ref = steps.run_many(par_calls(weights, False))
-        outs = spawned.result()
+    cpu_procs = [subprocess.Popen(
+        [sys.executable, "-c", DRY_CPU, str(n)],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=dict(os.environ, OMP_NUM_THREADS="1"),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for n in DRY_WORLDS]
+    # The dry run at W = PAR_RANKS rides in the phase's ranks after their
+    # steps; each other world size spawns its own ranks beside them. The
+    # one-process references run here in turn (the launch counters are
+    # this process's).
+    try:
+        others = [n for n in DRY_WORLDS if n != PAR_RANKS]
+        with concurrent.futures.ThreadPoolExecutor(1 + len(others)) as pool:
+            spawned = pool.submit(
+                dist.spawn, steps.run_many, PAR_RANKS,
+                ["cuda:0"] * PAR_RANKS, "gloo",
+                (par_calls(weights, True) + dry_calls(PAR_RANKS, True),),
+                PAR_BUDGET_S)
+            dry_spawned = {n: pool.submit(
+                dist.spawn, steps.run_many, n, ["cuda:0"] * n, "gloo",
+                (dry_calls(n, True),), PAR_BUDGET_S) for n in others}
+            par_augment(dev)
+            ref = steps.run_many(par_calls(weights, False) + [
+                c for n in DRY_WORLDS for c in dry_calls(n, False)])
+            outs = spawned.result()
+            dry_got = {PAR_RANKS: outs[0]}
+            dry_got.update((n, f.result()[0])
+                           for n, f in dry_spawned.items())
+        phase("parallel", "the phase's steps and dry runs took "
+              f"{time.perf_counter() - t0:.1f} s")
+        par_dryruns({n: (dry_results(dry_got[n], n), dry_results(ref, n))
+                     for n in DRY_WORLDS}, cpu_procs)
+    finally:
+        for proc in cpu_procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
     phase("parallel", f"{card}: {PAR_RANKS} gloo ranks on one card "
           f"(cuda:0) and one process, {time.perf_counter() - t0:.1f} s; "
           "multi-card speed is not measured (one card)")

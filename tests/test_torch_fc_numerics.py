@@ -9,15 +9,19 @@ slice one product from zero: in fp32 3xTF32 (``mm_3xtf32`` of
 ``tests/test_torch_gemm_numerics.py``: per 8-deep k step ``a_lo b_hi +
 a_hi b_lo + a_hi b_hi`` added to an fp32 accumulator), in bf16 with bf16
 operands and fp32 sums; the slices' partials are added in fp32 in rank
-order, then the bias. The BN epilogue follows in fp32 as the plain twins
-write it: moments per group of rows centred on the running mean, the
-normalize as ``((z - mu) * inv) * g + be`` (pool-fc) or ``(z - mu) * (inv
-* g) + be`` (the fc head), the ReLU. The head's backward: dz2 by BN2's
-backward in fp32, ``dW2 = dz2^T h1`` one product over the rows (the
-kernel's 64 x 64 output tiles take the whole depth), ``dh1 = dz2 W2`` and
-``dh = dz1 W1`` split-K in 3xTF32 in both precisions (the JAX kernel's
-``_mxu_dot_nt`` runs at HIGHEST), ``dW1 = dz1^T h``; under bf16 only the
-three forward products and dW1/dW2 round their operands.
+order, then the bias. The BN epilogue follows in fp32 as the kernel
+takes it: moments per group of rows centred on the running mean, summed
+as ``bn_fwd_column``'s warp sums them (lane by lane, then its shuffle
+tree; ``bn_moments``): one pass, unless ``m2`` reaches
+``ONE_PASS_LIMIT`` times the second pass's variance about the mean,
+then that variance; the normalize as ``((z - mu) * inv) * g + be``
+(pool-fc) or ``(z - mu) * (inv * g) + be`` (the fc head), the ReLU. The
+head's backward: dz2 by BN2's backward in fp32, ``dW2 = dz2^T h1`` one
+product over the rows (the kernel's 64 x 64 output tiles take the whole
+depth), ``dh1 = dz2 W2`` and ``dh = dz1 W1`` split-K in 3xTF32 in both
+precisions (the JAX kernel's ``_mxu_dot_nt`` runs at HIGHEST), ``dW1 =
+dz1^T h``; under bf16 only the three forward products and dW1/dW2 round
+their operands.
 
 Held at narrow widths (pool-fc 256 -> 64; the head 256 -> 64 -> 32 -> k^2
 at k = 3 and 4), B = 2, 32 and 64 (groups 2): fp32 within ``BOUND``
@@ -26,9 +30,9 @@ JAX package's ``pool_fc_epilogue._fwd_call`` / ``fc_head_train._fwd_call``
 / ``_bwd_call`` (Pallas in interpret mode, as its own tests run it); bf16
 within ``BF16_BOUND`` of the JAX kernels under their mixed-precision
 scope. At B = 2 the moments are centred on the batch means (running
-means track them): about a far centre two rows' one-pass variance
-cancels to a few bits in any order of sums. The control: one TF32
-product instead of three misses ``BOUND``. These tests document the
+means track them): about a far centre two rows' one-pass variance (the
+JAX kernels') cancels to a few bits in any order of sums. The control:
+one TF32 product instead of three misses ``BOUND``. These tests document the
 contract the kernels are built to and run no kernel; ``chip_smoke.py``
 holds the kernels to their plain twins and to float64 on the card.
 """
@@ -46,7 +50,7 @@ from adversarial_learning_on_pointclouds_tpu.ops.kernels import (
     fc_head_train as jax_fc,
     pool_fc_epilogue as jax_pool,
 )
-from adversarial_learning_on_pointclouds_tpu_torch.models.core import BN_EPS
+from adversarial_learning_on_pointclouds_tpu_torch.models import core
 from adversarial_learning_on_pointclouds_tpu_torch.ops import build, launch
 from adversarial_learning_on_pointclouds_tpu_torch.ops.kernels import (
     fc_head_train, pool_fc_epilogue,
@@ -62,6 +66,7 @@ POOL_NAMES = ("h1", "h", "z1", "mu", "var", "inv")
 FWD_NAMES = ("out", "z1", "z2", "mu1", "var1", "inv1", "mu2", "var2",
              "inv2")
 BWD_NAMES = ("dh", "dw1", "db1", "dg1", "dbe1", "dw2", "db2", "dg2", "dbe2")
+ONE_PASS_LIMIT = 4096.0   # small_fc.cuh's kFcOnePassLimit
 
 
 def _bf(t: torch.Tensor) -> torch.Tensor:
@@ -102,16 +107,42 @@ def _f(t, prec):
     return t.double() if prec == "f64" else t
 
 
+def warp_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x [G, b, C]`` summed over its rows as a warp of
+    ``bn_fwd_column`` sums them: row r into lane r % 32 in row order,
+    then the lanes by ``warp_sum``'s xor shuffle tree (16, 8, 4, 2, 1)."""
+    g, b, c = x.shape
+    v = torch.zeros(g, 32, c, dtype=x.dtype)
+    for r0 in range(0, b, 32):
+        blk = x[:, r0:r0 + 32]
+        v[:, :blk.shape[1]] = v[:, :blk.shape[1]] + blk
+    for s in (16, 8, 4, 2, 1):
+        v = v + v[:, torch.arange(32) ^ s]
+    return v[:, 0]
+
+
+def bn_moments(z, rm, groups):
+    """``(mu, var, inv)`` per group, ``[groups, cols]``, as
+    ``bn_fwd_column`` takes them: ``d = z - rm``; ``mu_c``, ``m2`` and
+    the second pass's ``var2 = mean((d - mu_c)^2)`` by ``warp_sum``; the
+    one-pass ``max(m2 - mu_c^2, 0)`` unless ``m2`` reaches
+    ``ONE_PASS_LIMIT`` times ``var2``, then ``var2``."""
+    b = z.shape[0] // groups
+    d = (z - rm).reshape(groups, b, -1)
+    mu_c = warp_sum(d) / b
+    m2 = warp_sum(d * d) / b
+    e = d - mu_c[:, None]
+    var2 = warp_sum(e * e) / b
+    var = torch.where(var2 * ONE_PASS_LIMIT > m2,
+                      torch.clamp(m2 - mu_c * mu_c, min=0.0), var2)
+    return mu_c + rm, var, torch.rsqrt(var + core.BN_EPS)
+
+
 def bn_fwd(z, rm, g, be, groups, fold):
     """The BN epilogue: ``(h, mu, var, inv)``, statistics ``[groups,
     cols]``."""
     b = z.shape[0] // groups
-    zc = (z - rm).reshape(groups, b, -1)
-    mu_c = zc.sum(1) / b
-    m2 = (zc * zc).sum(1) / b
-    var = torch.clamp(m2 - mu_c * mu_c, min=0.0)
-    inv = torch.rsqrt(var + BN_EPS)
-    mu = mu_c + rm
+    mu, var, inv = bn_moments(z, rm, groups)
     zg = z.reshape(groups, b, -1) - mu[:, None]
     h = (zg * (inv * g)[:, None] if fold else (zg * inv[:, None]) * g) + be
     return torch.relu(h).reshape(z.shape), mu, var, inv
@@ -385,12 +416,15 @@ def test_one_tf32_product_misses_the_bound(what):
 
 def test_fc_split_mirrors_small_fc():
     """``launch.fc_split`` and its constants are ``csrc/small_fc.cuh``'s
-    (the emulation above splits k as the kernel does), and at the port's
+    (the emulation above splits k as the kernel does), so is the BN's
+    ``ONE_PASS_LIMIT`` (the twins' too), and at the port's
     widths: fc1 8 slices of 128, fc2 of 64, fc3 at k = 3 of 32 and at k =
     64 (256 column groups) 2 of 128; the backward's dz2 W2 8 of 32 and
     dz1 W1 8 of 64."""
     header = (pathlib.Path(build.CSRC) / "small_fc.cuh").read_text()
     consts = dict(re.findall(r"constexpr int (kFc\w+) = (\d+);", header))
+    limit = re.search(r"constexpr float kFcOnePassLimit = ([\d.]+)f;", header)
+    assert float(limit.group(1)) == ONE_PASS_LIMIT == core.ONE_PASS_LIMIT
     assert (launch.FC_COLS, launch.FC_CLUSTER, launch.FC_SLICE,
             launch.FC_WIDE) == tuple(int(consts[n]) for n in (
                 "kFcCols", "kFcCluster", "kFcSlice", "kFcWide"))
